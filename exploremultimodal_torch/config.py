@@ -1,0 +1,188 @@
+"""Configuration: presets as Python dicts, `group=name` / `a.b=value` overrides.
+
+Counterpart of `exploremultimodal_tpu/config` + `configs/*.yaml` and of
+`VlmoConfig` in `exploremultimodal_tpu/models/task.py`. The presets are plain
+dicts, copied from the YAML files, because the serving machine has no PyYAML;
+`tests/test_torch_port_ops.py` holds each one equal to what the JAX loader
+reads. Only the presets and keys the VQA serving path reads are here.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Iterable
+
+import torch
+
+# base.yaml: the keys the serving path reads
+BASE: dict[str, Any] = {
+    "data": {
+        "tokenizer": "bert-base-uncased",
+        "tokenizer_dir": "resource",
+        "vqav2_label_size": 3129,
+    },
+    "compute_dtype": "bfloat16",
+    "attn_impl": "auto",
+}
+
+_MODEL_COMMON: dict[str, Any] = {
+    "type": "VLMO",
+    "itc_temp": 0.07,
+    "itc_dim": 256,
+    "img_vocab_size": 8192,
+    "vocab_size": 30522,
+    "max_text_len": 40,
+    "img_size": 224,
+    "patch_size": 16,
+    "in_chans": 3,
+    "num_classes": 0,
+    "mlp_ratio": 4.0,
+    "qkv_bias": True,
+    "drop_rate": 0.1,
+    "attn_drop_rate": 0.1,
+    "drop_path_rate": 0.1,
+    "norm_eps": 1e-12,
+    "init_values": 0.1,
+}
+
+MODEL_PRESETS: dict[str, dict[str, Any]] = {
+    # configs/model/vlmo_base.yaml
+    "vlmo_base": {
+        **_MODEL_COMMON,
+        "name": "vlmo_base",
+        "embed_dim": 768,
+        "depth": 12,
+        "num_heads": 12,
+        "fusion_layer": 6,
+        "quantize": "none",
+        "mlp_impl": "xla",
+    },
+    # configs/model/vlmo_debug.yaml
+    "vlmo_debug": {
+        **_MODEL_COMMON,
+        "name": "vlmo_debug",
+        "embed_dim": 96,
+        "depth": 2,
+        "num_heads": 3,
+        "fusion_layer": 1,
+    },
+}
+
+# configs/train/*.yaml: the keys the serving path reads
+TRAIN_PRESETS: dict[str, dict[str, Any]] = {
+    "finetune_vqa": {"phase": "finetune_vqa", "loss_names": ["vqa"]},
+}
+
+_PRESETS = {"model": MODEL_PRESETS, "train": TRAIN_PRESETS}
+# base.yaml defaults to train=pretrain_mum, which is not ported yet
+DEFAULT_GROUPS = {"model": "vlmo_debug", "train": "finetune_vqa"}
+
+
+def parse_value(text: str) -> Any:
+    """An override value with the YAML scalar rules the configs use."""
+    s = text.strip()
+    low = s.lower()
+    if low in ("true", "false"):
+        return low == "true"
+    if low in ("null", "~", "none", ""):
+        return None
+    if s.startswith("[") and s.endswith("]"):
+        inner = s[1:-1].strip()
+        return [parse_value(p) for p in inner.split(",")] if inner else []
+    if len(s) >= 2 and s[0] == s[-1] and s[0] in "'\"":
+        return s[1:-1]
+    for cast in (int, float):
+        try:
+            return cast(s)
+        except ValueError:
+            pass
+    return s
+
+
+def load_config(overrides: Iterable[str] = ()) -> dict[str, Any]:
+    """Compose base + model + train presets, then dotted leaf overrides.
+
+    `model=vlmo_base` / `train=finetune_vqa` pick a preset; `a.b.c=value`
+    sets a leaf, as `exploremultimodal_tpu.config.load_config` does.
+    """
+    groups = dict(DEFAULT_GROUPS)
+    leaves: list[tuple[str, Any]] = []
+    for ov in overrides:
+        key, sep, raw = ov.partition("=")
+        if not sep:
+            raise ValueError(f"override {ov!r} must be key=value")
+        key = key.strip()
+        if key in _PRESETS:
+            groups[key] = raw.strip()
+        else:
+            leaves.append((key, parse_value(raw)))
+
+    cfg = copy.deepcopy(BASE)
+    for group, name in groups.items():
+        presets = _PRESETS[group]
+        if name not in presets:
+            raise ValueError(
+                f"no {group} preset {name!r}; available: {sorted(presets)}")
+        cfg[group] = copy.deepcopy(presets[name])
+    for key, value in leaves:
+        node = cfg
+        *parents, leaf = key.split(".")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return cfg
+
+
+@dataclasses.dataclass(frozen=True)
+class VlmoConfig:
+    """Static model + task configuration (the serving subset of the JAX
+    VlmoConfig, same field names and defaults; no dropout rates, since the
+    port does not train yet)."""
+
+    img_size: int = 224
+    patch_size: int = 16
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    norm_eps: float = 1e-12
+    init_values: float | None = 0.1
+    vocab_size: int = 30522
+    max_text_len: int = 40
+    fusion_layer: int = 6
+    phase: str | None = None
+    loss_names: tuple[str, ...] = ()
+    vqa_label_size: int = 3129
+    dtype_name: str = "float32"
+    attn_impl: str = "xla"
+    quantize: str = "none"
+    mlp_impl: str = "xla"
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype_name)
+
+    @classmethod
+    def from_config(cls, cfg: dict[str, Any]) -> "VlmoConfig":
+        m, t = cfg["model"], cfg["train"]
+        return cls(
+            img_size=m["img_size"],
+            patch_size=m["patch_size"],
+            embed_dim=m["embed_dim"],
+            depth=m["depth"],
+            num_heads=m["num_heads"],
+            mlp_ratio=float(m["mlp_ratio"]),
+            norm_eps=m.get("norm_eps", 1e-12),
+            init_values=m["init_values"],
+            vocab_size=m["vocab_size"],
+            max_text_len=m["max_text_len"],
+            fusion_layer=m["fusion_layer"],
+            phase=t["phase"],
+            loss_names=tuple(t["loss_names"]),
+            vqa_label_size=cfg["data"].get("vqav2_label_size", 3129),
+            dtype_name=cfg.get("compute_dtype", "float32"),
+            attn_impl=cfg.get("attn_impl", "xla"),
+            quantize=str(m.get("quantize", "none")),
+            mlp_impl=str(m.get("mlp_impl", "xla")),
+        )

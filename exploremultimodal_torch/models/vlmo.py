@@ -1,0 +1,279 @@
+"""VLMo mixture-of-modality-experts backbone, for serving.
+
+Counterpart of `exploremultimodal_tpu/models/vlmo.py`, module for module and
+with the same parameter names, so `convert.from_flax_params` is a rename and
+a transpose. Numerics follow the JAX modules:
+  - Linear/Conv weights are kept in the compute dtype; their biases stay
+    fp32 and are cast at use, as flax `Dense(dtype=...)` casts them;
+  - LayerNorm runs in fp32 with flax's statistics (var = E[x^2] - E[x]^2),
+    and its output is cast back to the compute dtype by the caller;
+  - q/v biases are added after the head split; k has none;
+  - the FFN expert is the fused kernel (tanh gelu) under `mlp_impl='fused'`
+    where `fits_vmem` admits the shape, else two Linears with erf gelu.
+Dropout and DropPath are identity: this package serves, it does not train.
+Images are NHWC, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from exploremultimodal_torch.ops.attention import key_padding_bias, multi_head_attention
+from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp
+
+ROUTES = ("v", "l", "vl")
+
+
+class Linear(nn.Linear):
+    """nn.Linear with the weight stored in `dtype` and an fp32 bias that is
+    cast to `dtype` at use (flax `Dense(dtype=...)` numerics)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.weight = nn.Parameter(self.weight.detach().to(dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        return F.linear(x.to(w.dtype), w,
+                        None if self.bias is None else self.bias.to(w.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """fp32 LayerNorm computed as flax's (fast variance E[x^2] - E[x]^2)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.float32)
+        mean = x.mean(dim=-1, keepdim=True)
+        var = ((x * x).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
+
+
+class Mlp(nn.Module):
+    """FFN expert: fc1 -> gelu -> fc2."""
+
+    def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
+                 mlp_impl: str = "xla"):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden_dim, dtype=dtype)
+        self.fc2 = Linear(hidden_dim, dim, dtype=dtype)
+        self.fused = mlp_impl == "fused" and fits_vmem(dim, hidden_dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return fused_mlp(x, self.fc1.weight, self.fc1.bias,
+                             self.fc2.weight, self.fc2.bias)
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """Shared MHSA with separate q/v biases and no k bias."""
+
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
+                 impl: str = "xla"):
+        super().__init__()
+        self.num_heads = num_heads
+        self.impl = impl
+        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype)
+        self.q_bias = nn.Parameter(torch.zeros(dim))
+        self.v_bias = nn.Parameter(torch.zeros(dim))
+        self.proj = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+        b, n, c = x.shape
+        h, hd = self.num_heads, c // self.num_heads
+        qkv = self.qkv(x).reshape(b, n, 3, h, hd)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        q = q + self.q_bias.reshape(h, 1, hd).to(q.dtype)
+        v = v + self.v_bias.reshape(h, 1, hd).to(v.dtype)
+        out = multi_head_attention(q, k, v, bias=bias, scale=hd ** -0.5,
+                                   impl=self.impl)
+        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+
+
+class Block(nn.Module):
+    """Pre-LN block: x += g1 * Attn(LN1 x); x += g2 * MLP[route](LN2 x)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
+                 norm_eps: float, init_values: float | None,
+                 experts: Sequence[str], dtype: torch.dtype, attn_impl: str,
+                 mlp_impl: str):
+        super().__init__()
+        self.dtype = dtype
+        self.experts = tuple(experts)
+        self.norm1 = LayerNorm(dim, eps=norm_eps)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl)
+        self.norm2 = LayerNorm(dim, eps=norm_eps)
+        for route in self.experts:
+            setattr(self, f"mlp_{route}",
+                    Mlp(dim, int(dim * mlp_ratio), dtype, mlp_impl))
+        if init_values is not None and init_values > 0:
+            self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
+            self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
+        else:
+            self.gamma_1 = self.gamma_2 = None
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
+                route: str) -> torch.Tensor:
+        if route not in self.experts:
+            raise ValueError(f"route {route!r} not among experts {self.experts}")
+        out = self.attn(self.norm1(x).to(self.dtype), bias)
+        if self.gamma_1 is not None:
+            out = out * self.gamma_1.to(out.dtype)
+        x = x + out
+        out = getattr(self, f"mlp_{route}")(self.norm2(x).to(self.dtype))
+        if self.gamma_2 is not None:
+            out = out * self.gamma_2.to(out.dtype)
+        return x + out
+
+
+class BertTextEmbeddings(nn.Module):
+    """word + position + BERT token type 0 -> LayerNorm (fp32 tables)."""
+
+    def __init__(self, vocab_size: int, dim: int, max_len: int,
+                 norm_eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.word_embeddings = nn.Embedding(vocab_size, dim)
+        self.position_embeddings = nn.Embedding(max_len, dim)
+        self.token_type_embeddings = nn.Embedding(2, dim)
+        self.LayerNorm = LayerNorm(dim, eps=norm_eps)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        pos = torch.arange(ids.shape[1], device=ids.device)
+        x = (self.word_embeddings(ids) + self.position_embeddings(pos)[None]
+             + self.token_type_embeddings.weight[0])
+        return self.LayerNorm(x).to(self.dtype)
+
+
+class Pooler(nn.Module):
+    """BertPooler: dense + tanh over token 0."""
+
+    def __init__(self, dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.dense = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(self.dense(x[:, 0]))
+
+
+def expert_layout(depth: int, fusion_layer: int,
+                  phase: str | None) -> tuple[tuple[str, ...], ...]:
+    """Which FFN experts exist in each block for a train phase."""
+    if phase in ("pretrain_txt",):
+        return tuple(("v", "l") for _ in range(depth))
+    if phase in ("pretrain_mum", "finetune_vqa"):
+        return tuple(("v", "l") if i < fusion_layer else ROUTES
+                     for i in range(depth))
+    return tuple(ROUTES for _ in range(depth))
+
+
+class VLMO(nn.Module):
+    """The shared-attention, modality-routed-FFN transformer."""
+
+    def __init__(self, img_size: int = 224, patch_size: int = 16,
+                 in_chans: int = 3, embed_dim: int = 768, depth: int = 12,
+                 num_heads: int = 12, mlp_ratio: float = 4.0,
+                 norm_eps: float = 1e-12, init_values: float | None = None,
+                 vocab_size: int = 30522, max_text_len: int = 40,
+                 fusion_layer: int = 6, experts_per_block=None, dtype: torch.dtype = torch.float32,
+                 attn_impl: str = "xla", mlp_impl: str = "xla"):
+        super().__init__()
+        self.dtype = dtype
+        self.embed_dim = embed_dim
+        self.patch_size = patch_size
+        self.fusion_layer = fusion_layer
+        self.num_patches = (img_size // patch_size) ** 2
+        self.patch_embed = nn.Conv2d(in_chans, embed_dim, patch_size,
+                                     stride=patch_size)
+        self.patch_embed.weight = nn.Parameter(
+            self.patch_embed.weight.detach().to(dtype))
+        self.pos_embed = nn.Parameter(torch.zeros(1, self.num_patches + 1, embed_dim))
+        self.img_cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.img_mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
+        self.token_type_embeddings = nn.Embedding(2, embed_dim)
+        self.txt_embeddings = BertTextEmbeddings(vocab_size, embed_dim,
+                                                 max_text_len, norm_eps, dtype)
+        layout = experts_per_block or tuple(ROUTES for _ in range(depth))
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, num_heads, mlp_ratio, norm_eps, init_values,
+                  layout[i], dtype, attn_impl, mlp_impl)
+            for i in range(depth))
+        self.norm = LayerNorm(embed_dim, eps=norm_eps)
+        self.pooler = Pooler(embed_dim, dtype)
+
+    # ------------------------------------------------------------------ embed
+
+    def embed_img(self, img: torch.Tensor) -> torch.Tensor:
+        """img: (B, H, W, C) NHWC -> (B, 1 + num_patches, D), token type 1.
+        (`img_mask_token` is loaded for the masked-image objectives, which
+        are not ported.)"""
+        w = self.patch_embed.weight
+        x = F.conv2d(img.to(w.dtype).permute(0, 3, 1, 2), w,
+                     self.patch_embed.bias.to(w.dtype), stride=self.patch_size)
+        x = x.flatten(2).transpose(1, 2)
+        cls = self.img_cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
+        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        return x + self.token_type_embeddings.weight[1].to(x.dtype)
+
+    def embed_txt(self, ids: torch.Tensor) -> torch.Tensor:
+        x = self.txt_embeddings(ids)
+        return x + self.token_type_embeddings.weight[0].to(x.dtype)
+
+    # ------------------------------------------------------------------ blocks
+
+    def run_blocks(self, x, mask, route: str, in_layer: int = 0,
+                   out_layer: int | None = None) -> torch.Tensor:
+        bias = key_padding_bias(mask)
+        for blk in self.blocks[in_layer:out_layer]:
+            x = blk(x, bias, route)
+        return x
+
+    def _img_mask(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.ones(x.shape[:2], dtype=torch.int32, device=x.device)
+
+    def forward_features(self, img=None, txt=None, txt_mask=None):
+        """img-only -> route 'v' through every block; txt-only -> route 'l';
+        both -> separate streams below the fusion layer, then [txt, img]
+        concatenated on route 'vl'. Returns (features, mask)."""
+        if txt is None:
+            x = self.embed_img(img)
+            mask = self._img_mask(x)
+            x = self.run_blocks(x, mask, "v")
+            return self.norm(x).to(self.dtype), mask
+        if img is None:
+            x = self.run_blocks(self.embed_txt(txt), txt_mask, "l")
+            return self.norm(x).to(self.dtype), txt_mask
+
+        return self.fuse_from_hidden(self.stream_below_fusion(img=img),
+                                     self.stream_below_fusion(txt=txt, txt_mask=txt_mask),
+                                     txt_mask)
+
+    def stream_below_fusion(self, img=None, txt=None, txt_mask=None):
+        """Embed one modality and run blocks[:fusion_layer] on its route."""
+        if img is not None:
+            x = self.embed_img(img)
+            return self.run_blocks(x, self._img_mask(x), "v", 0, self.fusion_layer)
+        return self.run_blocks(self.embed_txt(txt), txt_mask, "l", 0,
+                               self.fusion_layer)
+
+    def continue_single_stream(self, x, mask, route: str) -> torch.Tensor:
+        """blocks[fusion_layer:] on one modality, then the final norm."""
+        x = self.run_blocks(x, mask, route, self.fusion_layer)
+        return self.norm(x).to(self.dtype)
+
+    def fuse_from_hidden(self, img_hidden, txt_hidden, txt_mask):
+        """Concatenate below-fusion [txt, img] states, run blocks[fusion:]."""
+        co = torch.cat([txt_hidden, img_hidden], dim=1)
+        co_mask = torch.cat([txt_mask.to(torch.int32), self._img_mask(img_hidden)],
+                            dim=1)
+        co = self.run_blocks(co, co_mask, "vl", self.fusion_layer)
+        return self.norm(co).to(self.dtype), co_mask
+
+    def pool(self, co_feats: torch.Tensor) -> torch.Tensor:
+        return self.pooler(co_feats)

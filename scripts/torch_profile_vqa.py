@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Where the time of one VQA request goes in the PyTorch port, on one GPU.
+
+    python3 scripts/torch_profile_vqa.py
+
+Builds the serving configuration of `chip_smoke.py` (vlmo_base, bf16,
+attn_impl=pallas, mlp_impl=fused, seeded random weights, batch 64), warms
+up, then traces REQUESTS requests with torch.profiler. Prints the request
+wall time, the device-busy time (the union of kernel intervals), the
+device's idle share, and the kernels' device time grouped by name, as one
+JSON line. Needs a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from chip_smoke import BATCH, SERVE_OVERRIDES, card_line, make_requests  # noqa: E402
+from exploremultimodal_torch.config import VlmoConfig, load_config  # noqa: E402
+from exploremultimodal_torch.infer import Predictor  # noqa: E402
+from exploremultimodal_torch.models import build_model  # noqa: E402
+
+REQUESTS = 3  # traced requests, after two untraced warm-up ones
+
+
+def busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e <= end:
+            continue
+        total += e - max(s, end)
+        end = e
+    return total
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_profile_vqa: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+
+    cfg = load_config(SERVE_OVERRIDES)
+    state = build_model(cfg, device="cpu", seed=0).state_dict()
+    pred = Predictor(cfg, state, max_batch=BATCH, device="cuda")
+    (img, ids, mask), = make_requests(VlmoConfig.from_config(cfg),
+                                      np.random.default_rng(0), 1)
+    for _ in range(2):
+        pred.vqa_logits(img, ids, mask)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(REQUESTS):
+            pred.vqa_logits(img, ids, mask)
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
+    intervals = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, dur = ev.time_range.start, ev.time_range.elapsed_us()
+        intervals.append((start, start + dur))
+        by_name[ev.name][0] += dur
+        by_name[ev.name][1] += 1
+    busy = busy_us(intervals)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
+    print(json.dumps({
+        "card": card, "batch": BATCH, "requests": REQUESTS,
+        "wall_ms_per_request": wall_us / 1e3 / REQUESTS,
+        "device_busy_ms_per_request": busy / 1e3 / REQUESTS if intervals else None,
+        "device_idle_share": 1.0 - busy / wall_us if intervals else None,
+        "kernels": [{"name": k[:90], "ms_per_request": v[0] / 1e3 / REQUESTS,
+                     "calls_per_request": v[1] / REQUESTS}
+                    for k, v in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
