@@ -5,17 +5,29 @@
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
-  2. build every CUDA kernel of the serving path from the checkout's sources
-     (nvcc, sm_90a, all at once) into exploremultimodal_torch/ops/build/;
-  3. at each shape the VQA serving path gives each kernel, hold the kernel
-     against its plain PyTorch version on the card, then time the kernel, the
-     plain version and a library call computing the same function (the MLP
-     also at M = 64, one block's time);
+  2. build every CUDA kernel from the checkout's sources (nvcc, sm_90a, one
+     process per source, all at once) into exploremultimodal_torch/ops/build/;
+  3. at each shape the VQA serving path gives each serving kernel, hold the
+     kernel against its plain PyTorch version on the card, then time the
+     kernel, the plain version and a library call computing the same
+     function (the MLP also at M = 64, one block's time);
   4. serve batch-64 VQA requests through `Predictor.vqa_logits` at vlmo_base
      full width and depth (bf16, attn_impl=pallas, mlp_impl=fused, seeded
      random weights), check that every request went through both kernels,
      compare two requests with the CPU's plain path, and time the requests;
-  5. print the kernel table as one JSON line, the card line, and last
+  5. at each shape the pretrain_mum step gives the training kernels (the
+     flash backward, the dropout forward and the dropout backward), hold
+     each against its plain version, check the in-kernel dropout mask bit
+     for bit, and time kernel, plain version and SDPA;
+  6. train pretrain_mum at vlmo_base, batch 32, on the synthetic data with a
+     random dVAE (attn_impl=auto: the dropout kernels): one warm-up step and
+     TRAIN_STEPS timed steps, with every launch counted;
+  7. two steps with attn_impl=pallas and attention dropout 0, which run the
+     flash forward and backward kernels;
+  8. one step at batch 2 on the card and on the CPU's plain path from the
+     same weights, batch, ITM negatives and MIM labels (hidden dropout and
+     DropPath off, attention dropout on through the hash), compared;
+  9. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 """
@@ -38,10 +50,18 @@ from exploremultimodal_torch.models import build_model
 from exploremultimodal_torch.ops import _build
 from exploremultimodal_torch.ops.attention import key_padding_bias
 from exploremultimodal_torch.ops.flash_attention import (
+    dropout_keep_mask_plain,
+    flash_attention_bwd,
+    flash_attention_bwd_drop,
+    flash_attention_bwd_drop_plain,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_fwd_drop,
+    flash_attention_fwd_drop_plain,
     flash_attention_fwd_plain,
 )
 from exploremultimodal_torch.ops.mlp_fused import fused_mlp_fwd, fused_mlp_fwd_plain
+from exploremultimodal_torch.train.trainer import Trainer
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -67,6 +87,39 @@ MLP_ATOL, MLP_RTOL = 2 ** -6, 2 ** -7
 # the 3129-way head: bf16 rounding (2**-8 relative) at every layer, in other
 # places on the two devices.
 E2E_ATOL = 0.05
+
+TRAIN_OVERRIDES = [
+    "model=vlmo_base", "train=pretrain_mum", "compute_dtype=bfloat16",
+    "train.datasets=[synthetic]", "train.discrete_vae_type=random",
+    "data.batch_size=32",  # the JAX package's pretrain bench batch
+]
+TRAIN_BATCH = 32
+TRAIN_STEPS = 5  # timed, after one warm-up step
+DROP0_STEPS = 2
+CPU_TRAIN_BATCH = 2
+DROP_SEED = 1234
+# backward kernels vs plain versions, bf16 out. Both sum fp32 products of
+# bf16 inputs, in other orders; the kernel keeps 16 mantissa bits of p and ds
+# for its products with k, q and do (2**-17 relative per term). Both round
+# dq, dk and dv to bf16, which may differ by one ulp (2**-7 of |x|) where the
+# fp32 values straddle a rounding boundary; 1e-3 covers the fp32 differences
+# of sums of up to 237 terms of magnitude below 1 near zero.
+BWD_ATOL, BWD_RTOL = 1e-3, 2 ** -7
+# one step on the card against the CPU's plain path, both in bf16 with sums
+# in other orders through 12 blocks: losses within 2% (the bf16 rounding of
+# every layer's output, 2**-8 relative, accumulated), named gradients within
+# 10% in relative L2 norm. The first AdamW step moves each weight by about
+# lr * sign(grad); the two devices must agree on that direction for 90% of
+# the elements (gradients near zero may flip under the bf16 noise).
+LOSS_RTOL, GRAD_REL_TOL, UPDATE_AGREEMENT = 2e-2, 0.1, 0.9
+CHECKED_PARAMS = (
+    "transformer.patch_embed.weight",
+    "transformer.txt_embeddings.word_embeddings.weight",
+    "transformer.blocks.0.attn.qkv.weight",
+    "transformer.blocks.11.mlp_vl.fc2.weight",
+    "mim_head.fc.weight",
+    "itc_temp",
+)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -272,6 +325,282 @@ def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
     return launches
 
 
+def attention_calls_per_step(cfg: VlmoConfig) -> int:
+    """Attention calls of one pretrain_mum step: ITC's image and text streams
+    (every block), MLM's masked text below the fusion layer and its fused
+    rows above it, MIM's image stream, and ITM's fused pair rows."""
+    d, f = cfg.depth, cfg.fusion_layer
+    return 2 * d + (f + (d - f)) + d + (d - f)
+
+
+def synthetic_text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
+    """length/2..length valid tokens, as the synthetic pretrain texts have."""
+    lens = rng.integers(length // 2, length + 1, batch)
+    return (np.arange(length)[None, :] < lens[:, None]).astype(np.int32)
+
+
+def within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> tuple[bool, float]:
+    diff = (got.float() - want.float()).abs()
+    ok = bool(torch.isfinite(got.float()).all()) and bool(
+        (diff <= atol + rtol * want.float().abs()).all())
+    return ok, diff.max().item()
+
+
+def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dict:
+    """Rows 2, 3 and 4 at each shape of the pretrain_mum step: the text,
+    image and fused (MLM) streams at B = 32 and ITM's fused pair rows at
+    3B. Each kernel against its plain version on the same inputs, then the
+    kernel, the plain version and SDPA through autograd timed."""
+    heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    rate, scale = cfg.attn_drop_rate, d ** -0.5
+    txt = synthetic_text_mask(rng, TRAIN_BATCH, cfg.max_text_len)
+    txt3 = np.concatenate([txt, txt, txt[rng.permutation(TRAIN_BATCH)]])
+    masks = {
+        "text": txt,
+        "image": np.ones((TRAIN_BATCH, n_img), np.int32),
+        "fused": np.concatenate([txt, np.ones((TRAIN_BATCH, n_img), np.int32)], 1),
+        "itm": np.concatenate([txt3, np.ones((3 * TRAIN_BATCH, n_img), np.int32)], 1),
+    }
+    rows = {"flash_attention_bwd": [], "flash_attention_fwd_drop": [],
+            "flash_attention_bwd_drop": []}
+    seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    for stream, mask in masks.items():
+        b, n = mask.shape
+        bh = b * heads
+        g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
+        q, k, v, do = (torch.randn((bh, n, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(b, n).contiguous()
+        o, lse = flash_attention_fwd_plain(q, k, v, kb, scale)
+        od, lsed = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)
+        calls = {
+            "flash_attention_bwd": (
+                lambda: flash_attention_bwd(q, k, v, kb, o, do, lse, scale),
+                lambda: flash_attention_bwd_plain(q, k, v, kb, o, do, lse, scale)),
+            "flash_attention_fwd_drop": (
+                lambda: flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate),
+                lambda: flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)),
+            "flash_attention_bwd_drop": (
+                lambda: flash_attention_bwd_drop(q, k, v, kb, seed, od, do, lsed, scale, rate),
+                lambda: flash_attention_bwd_drop_plain(q, k, v, kb, seed, od, do, lsed,
+                                                       scale, rate)),
+        }
+        leaves = [t.view(b, heads, n, d).detach().requires_grad_() for t in (q, k, v)]
+        do4, mask4 = do.view(b, heads, n, d), kb.to(torch.bfloat16).view(b, 1, 1, n)
+
+        def sdpa(p: float, grad: bool):
+            def run():
+                out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4,
+                                                     dropout_p=p, scale=scale)
+                if grad:
+                    torch.autograd.grad(out, leaves, do4)
+            return run
+
+        library = {"flash_attention_bwd": sdpa(0.0, True),
+                   "flash_attention_fwd_drop": sdpa(rate, False),
+                   "flash_attention_bwd_drop": sdpa(rate, True)}
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            torch.cuda.synchronize()
+            is_bwd = name != "flash_attention_fwd_drop"
+            if is_bwd:
+                checks = [within(x, y, BWD_ATOL, BWD_RTOL) for x, y in zip(got, want)]
+            else:
+                checks = [within(got[0], want[0], ATTN_ATOL, ATTN_RTOL),
+                          within(got[1], want[1], ATTN_LSE_ATOL, 0.0)]
+            err = max(e for _, e in checks)
+            require(all(ok for ok, _ in checks),
+                    f"{name} {stream} BH={bh} N={n}: max|err| {[e for _, e in checks]} "
+                    "beyond its tolerance")
+            nbytes = ((8 if is_bwd else 4) * bh * n * d * 2 + b * n * 4 + bh * n * 4)
+            bound_ms, bound_by = bound(nbytes, (10 if is_bwd else 4) * bh * n * n * d)
+            rows[name].append({
+                "stream": stream, "shape": f"BH={bh} N={n} D={d}", "max_abs_err": err,
+                "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+                "library_ms": time_ms(library[name]),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+    return rows
+
+
+def check_dropout_mask(cfg: VlmoConfig, dev, batch: int) -> dict:
+    """The in-kernel dropout mask, bit for bit, at ITM's shape (the largest
+    batch*head, row and column indices of the step). The inputs make every
+    checked output element carry exactly one mask bit: q and k are zero on
+    each other's dims, so p = 1/N everywhere, and one-hot windows of W rows
+    pick the bits out:
+      forward    out[i, 1 + w]   = keep[i, c + w] / N          (v window)
+      backward   dv[j, 32 + w]   = keep[c + w, j] / N          (do window)
+                 dq[i, w]        = scale * ds[i, c + w]        (k window)
+                 dk[j, 32 + w]   = scale * ds[c + w, j]        (q window)
+    with ds = (keep - delta) / N. In the forward and dv a kept bit is
+    nonzero and a dropped one zero; in dq and dk a flipped bit moves the
+    value by scale / (N (1 - rate)), and the check allows a quarter of
+    that."""
+    heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    n = cfg.max_text_len + (cfg.img_size // cfg.patch_size) ** 2 + 1
+    b, rate, scale, width = batch, cfg.attn_drop_rate, d ** -0.5, 31
+    bh = b * heads
+    seed = torch.tensor([DROP_SEED + 1], dtype=torch.int32, device=dev)
+    keep = dropout_keep_mask_plain(seed, bh, n, rate) != 0
+    kb = torch.zeros((b, n), dtype=torch.float32, device=dev)
+    ds_tol = 0.25 * scale / (n * (1.0 - rate))
+    bits = 0
+    for c in range(0, n, width):
+        w = min(width, n - c)
+        i = torch.arange(w, device=dev)
+        q, k, v, do = (torch.zeros((bh, n, d), device=dev) for _ in range(4))
+        q[:, c + i, 32 + i] = 1
+        k[:, c + i, i] = 1
+        v[:, :, 0] = 1
+        v[:, c + i, 1 + i] = 1
+        do[:, :, 0] = 1
+        do[:, c + i, 32 + i] = 1
+        q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
+        out, _ = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate)
+        o, lse = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)
+        dq, dk, dv = flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate)
+        pq, pk, _ = flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale, rate)
+        torch.cuda.synchronize()
+        require(torch.equal(out[:, :, 1:1 + w] != 0, keep[:, :, c:c + w]),
+                f"dropout forward: mask bits differ in key window {c}..{c + w}")
+        require(torch.equal(dv[:, :, 32:32 + w] != 0, keep[:, c:c + w, :].transpose(1, 2)),
+                f"dropout backward dv: mask bits differ in query window {c}..{c + w}")
+        dq_err = (dq[:, :, :w].float() - pq[:, :, :w].float()).abs().max().item()
+        dk_err = (dk[:, :, 32:32 + w].float() - pk[:, :, 32:32 + w].float()).abs().max().item()
+        require(dq_err <= ds_tol and dk_err <= ds_tol,
+                f"dropout backward dq/dk: max|err| {dq_err}, {dk_err} beyond {ds_tol} "
+                f"in window {c}..{c + w}: a mask bit differs")
+        bits += 4 * bh * n * w
+    return {"shape": f"BH={bh} N={n}", "mask_bits_checked": bits, "kept_share":
+            keep.float().mean().item()}
+
+
+def train_phase(cfg_dict: dict, cfg: VlmoConfig) -> dict:
+    """The training step at vlmo_base, batch 32: warm-up, then TRAIN_STEPS
+    steps timed one by one, each with a synchronise around it."""
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg_dict, device="cuda")
+    print(f"train: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    params = dict(trainer.task.named_parameters())
+    before = {k: params[k].detach().clone() for k in CHECKED_PARAMS}
+    trainer.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
+               flash_attention_bwd_drop, fused_mlp_fwd)
+    for fn in kernels:
+        fn.launches = 0
+    steps, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        steps.append({k: float(v) for k, v in m.items()})
+    launches = {fn.__name__: fn.launches for fn in kernels}
+    per_step = attention_calls_per_step(cfg)
+    for name in ("flash_attention_fwd_drop", "flash_attention_bwd_drop"):
+        require(launches[name] == per_step * TRAIN_STEPS,
+                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, expected "
+                f"{per_step} per step")
+    for m in steps:
+        require(all(np.isfinite(v) for v in m.values()), f"non-finite metrics: {m}")
+    moved = {k: (params[k].detach() - before[k]).abs().max().item() for k in CHECKED_PARAMS}
+    require(all(x > 0 for x in moved.values()), f"parameters did not change: {moved}")
+    med = statistics.median(times)
+    result = {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in times],
+        "median_ms_per_step": med * 1e3, "images_per_s": TRAIN_BATCH / med,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "attention_calls_per_step": per_step,
+        "losses": [{k: v for k, v in m.items() if k.endswith("_task_loss")
+                    or k in ("total_loss", "grad_norm", "lr")} for m in steps],
+        "max_param_change": moved,
+    }
+    print("train: " + json.dumps(result), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def drop0_phase() -> dict:
+    """attn_impl=pallas at attention dropout 0: rows 1 and 2 on the step."""
+    cfg_dict = load_config(TRAIN_OVERRIDES + ["attn_impl=pallas",
+                                              "model.attn_drop_rate=0.0"])
+    trainer = Trainer(cfg_dict, device="cuda")
+    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
+    steps = [{k: float(v) for k, v in trainer.step().items()} for _ in range(DROP0_STEPS)]
+    torch.cuda.synchronize()
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    per_step = attention_calls_per_step(VlmoConfig.from_config(cfg_dict))
+    for name, count in launches.items():
+        require(count == per_step * DROP0_STEPS,
+                f"attn_drop 0: {name} {count} launches in {DROP0_STEPS} steps, "
+                f"expected {per_step} per step")
+    for m in steps:
+        require(all(np.isfinite(v) for v in m.values()), f"non-finite metrics: {m}")
+    print("train_attn_drop0: " + json.dumps({
+        "launches": launches, "total_loss": [m["total_loss"] for m in steps]}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cpu_check_phase() -> dict:
+    """One step at batch CPU_TRAIN_BATCH on the card and on the CPU's plain
+    path: same seeded weights, batch, attention-dropout seeds, ITM negatives
+    and MIM labels (the CPU dVAE's), hidden dropout and DropPath off."""
+    cfg_dict = load_config(TRAIN_OVERRIDES + [
+        f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
+        "model.drop_path_rate=0.0"])
+    gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
+    batch = cpu.next_batch()
+    labels = cpu.model_batch(batch)["mim_labels"]
+    gpu_labels = gpu.model_batch(batch)["mim_labels"].cpu()
+    b = CPU_TRAIN_BATCH
+    negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
+    before = {k: p.detach().clone() for k, p in cpu.task.named_parameters()
+              if k in CHECKED_PARAMS}
+    t0 = time.perf_counter()
+    m_cpu = cpu.step(batch, negatives=negatives, mim_labels=labels)
+    cpu_s = time.perf_counter() - t0
+    m_gpu = gpu.step(batch, negatives=negatives, mim_labels=labels)
+    torch.cuda.synchronize()
+    lr = float(m_cpu["lr"])
+    p_cpu, p_gpu = dict(cpu.task.named_parameters()), dict(gpu.task.named_parameters())
+    losses = {k: (float(m_gpu[k]), float(m_cpu[k])) for k in m_cpu
+              if k.endswith("_task_loss") or k.endswith("_Loss") or k == "total_loss"}
+    grads, agree = {}, {}
+    for k in CHECKED_PARAMS:
+        g_cpu, g_gpu = p_cpu[k].grad.float(), p_gpu[k].grad.float().cpu()
+        grads[k] = ((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)).item()
+        step_cpu = (p_cpu[k].detach() - before[k]) / lr
+        step_gpu = (p_gpu[k].detach().cpu() - before[k]) / lr
+        agree[k] = (torch.sign(step_cpu) == torch.sign(step_gpu)).float().mean().item()
+    result = {
+        "batch": b, "cpu_step_s": cpu_s,
+        "dvae_token_agreement": (gpu_labels == labels).float().mean().item(),
+        "losses_gpu_cpu": losses, "grad_norm_gpu_cpu": (float(m_gpu["grad_norm"]),
+                                                        float(m_cpu["grad_norm"])),
+        "grad_rel_err": grads, "update_sign_agreement": agree, "lr": lr,
+    }
+    print("train_cpu_check: " + json.dumps(result), flush=True)
+    for k, (g, c) in losses.items():
+        require(abs(g - c) <= LOSS_RTOL * abs(c) + 1e-3,
+                f"{k}: GPU {g} vs CPU {c} beyond rtol {LOSS_RTOL}")
+    require(max(grads.values()) <= GRAD_REL_TOL,
+            f"gradients differ from the CPU path: {grads}")
+    require(min(agree.values()) >= UPDATE_AGREEMENT,
+            f"post-step parameters differ from the CPU path: {agree}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -300,26 +629,49 @@ def main() -> int:
     for row in attn_rows + mlp_rows:
         print("kernel: " + json.dumps(row), flush=True)
 
-    launches = serve(cfg_dict, cfg, card)
+    serve_launches = serve(cfg_dict, cfg, card)
 
-    def entry(name, route, source, replaces, rows):
-        fused = rows[-1]  # the fused stream: the largest shape on the path
+    train_dict = load_config(TRAIN_OVERRIDES)
+    train_cfg = VlmoConfig.from_config(train_dict)
+    require(train_cfg.attn_impl == "auto" and train_cfg.attn_drop_rate > 0
+            and train_dict["data"]["batch_size"] == TRAIN_BATCH,
+            "the training phase must run the default attention path at batch 32")
+    train_rows = check_attention_train(train_cfg, np.random.default_rng(1), dev)
+    for name, rows in train_rows.items():
+        for row in rows:
+            print("kernel: " + json.dumps({"name": name, **row}), flush=True)
+    print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev, 3 * TRAIN_BATCH)),
+          flush=True)
+    train_launches = train_phase(train_dict, train_cfg)
+    drop0_launches = drop0_phase()
+    cpu_check_phase()
+
+    def entry(name, route, source, replaces, rows, launches):
+        big = rows[-1]  # the largest shape on the path
         return {
             "name": name, "route": route, "source": source, "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": fused["ms"], "plain_ms": fused["plain_ms"],
-            "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
-            "library_ms": fused["library_ms"],
+            "ms": big["ms"], "plain_ms": big["plain_ms"],
+            "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+            "library_ms": big["library_ms"],
         }
 
+    fwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu"
+    bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
+    tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     kernels = [
-        entry("flash_attention_fwd", "cuda",
-              "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu",
-              "exploremultimodal_tpu/ops/flash_attention.py:152", attn_rows),
+        entry("flash_attention_fwd", "cuda", fwd_src, f"{tpu_fa}:152", attn_rows,
+              serve_launches),
+        entry("flash_attention_bwd", "cuda", bwd_src, f"{tpu_fa}:170",
+              train_rows["flash_attention_bwd"], drop0_launches),
+        entry("flash_attention_fwd_drop", "cuda", fwd_src, f"{tpu_fa}:209",
+              train_rows["flash_attention_fwd_drop"], train_launches),
+        entry("flash_attention_bwd_drop", "cuda", bwd_src, f"{tpu_fa}:237",
+              train_rows["flash_attention_bwd_drop"], train_launches),
         entry("fused_mlp_fwd", "cuda",
               "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu",
-              "exploremultimodal_tpu/ops/mlp_pallas.py:56", mlp_rows),
+              "exploremultimodal_tpu/ops/mlp_pallas.py:56", mlp_rows, serve_launches),
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,7 +4,10 @@ Counterpart of `exploremultimodal_tpu/config` + `configs/*.yaml` and of
 `VlmoConfig` in `exploremultimodal_tpu/models/task.py`. The presets are plain
 dicts, copied from the YAML files, because the serving machine has no PyYAML;
 `tests/test_torch_port_ops.py` holds each one equal to what the JAX loader
-reads. Only the presets and keys the VQA serving path reads are here.
+reads. Only the presets and keys the VQA serving path and the pretrain_mum
+training step read are here. Keys the JAX code reads with a default
+(`data.synthetic_size`, `train.mlm_gather_cap`, ...) are read with the same
+default here.
 """
 
 from __future__ import annotations
@@ -15,14 +18,26 @@ from typing import Any, Iterable
 
 import torch
 
-# base.yaml: the keys the serving path reads
+# base.yaml: the keys the serving path and the training step read
+# (data.img_size and data.patch_size are the model's, as base.yaml's
+# interpolations make them)
 BASE: dict[str, Any] = {
     "data": {
+        "batch_size": 256,
+        "mask_style": "block",
+        "num_mask_patches": 75,
+        "max_mask_patches_per_block": None,
+        "min_mask_patches_per_block": 16,
         "tokenizer": "bert-base-uncased",
         "tokenizer_dir": "resource",
+        "whole_word_masking": True,
+        "mlm_prob": 0.15,
         "vqav2_label_size": 3129,
     },
+    "seed": 0,
     "compute_dtype": "bfloat16",
+    "vlmo_ema": False,
+    "model_ema": False,
     "attn_impl": "auto",
 }
 
@@ -69,14 +84,49 @@ MODEL_PRESETS: dict[str, dict[str, Any]] = {
     },
 }
 
-# configs/train/*.yaml: the keys the serving path reads
+# configs/train/*.yaml: finetune_vqa with the keys the serving path reads,
+# pretrain_mum whole
 TRAIN_PRESETS: dict[str, dict[str, Any]] = {
     "finetune_vqa": {"phase": "finetune_vqa", "loss_names": ["vqa"]},
+    "pretrain_mum": {
+        "phase": "pretrain_mum",
+        "loss_names": ["mlm", "itc", "itm", "mim"],
+        "datasets": ["vg", "coco", "gcc", "sbu", "f30k"],
+        "global_reduce": False,
+        "neg_queue": False,
+        "queue_size": 65536,
+        "discrete_vae_weight_path": "weight/dalle/",
+        "discrete_vae_type": "dall-e",
+        "mim_head_pos": "img",
+        "start_epoch": 0,
+        "epochs": 10,
+        "cur_epoch": 0,
+        "warmup_epochs": 3,
+        "warmup_steps": 2500,
+        "weight_decay": 0.01,
+        "weight_decay_end": 0.01,
+        "base_lr": 2.0e-4,
+        "warmup_lr": 5.0e-7,
+        "min_lr": 5.0e-6,
+        "lr_mult_head": 1,
+        "lr_mult_fusion": 1,
+        "flat_loss": False,
+        "clip_grad": None,
+        "auto_resume": True,
+        "resume": "",
+        "accumulation_steps": 1,
+        "save_freq": 1,
+        "print_freq": 300,
+        "print_stat_level": 2,
+        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
+        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
+                "momentum": 0.9},
+    },
 }
 
 _PRESETS = {"model": MODEL_PRESETS, "train": TRAIN_PRESETS}
-# base.yaml defaults to train=pretrain_mum, which is not ported yet
-DEFAULT_GROUPS = {"model": "vlmo_debug", "train": "finetune_vqa"}
+# base.yaml's defaults
+DEFAULT_GROUPS = {"model": "vlmo_debug", "train": "pretrain_mum"}
 
 
 def parse_value(text: str) -> Any:
@@ -136,9 +186,8 @@ def load_config(overrides: Iterable[str] = ()) -> dict[str, Any]:
 
 @dataclasses.dataclass(frozen=True)
 class VlmoConfig:
-    """Static model + task configuration (the serving subset of the JAX
-    VlmoConfig, same field names and defaults; no dropout rates, since the
-    port does not train yet)."""
+    """Static model + task configuration (the subset of the JAX VlmoConfig
+    that serving and pretrain_mum read, same field names and defaults)."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -146,14 +195,24 @@ class VlmoConfig:
     depth: int = 12
     num_heads: int = 12
     mlp_ratio: float = 4.0
+    drop_rate: float = 0.1
+    attn_drop_rate: float = 0.1
+    drop_path_rate: float = 0.1
     norm_eps: float = 1e-12
     init_values: float | None = 0.1
     vocab_size: int = 30522
     max_text_len: int = 40
     fusion_layer: int = 6
+    img_vocab_size: int = 8192
+    itc_dim: int = 256
+    itc_temp: float = 0.07
     phase: str | None = None
     loss_names: tuple[str, ...] = ()
     vqa_label_size: int = 3129
+    mim_head_pos: str = "img"
+    global_reduce: bool = False
+    mlm_gather_cap: float = 0.375
+    mim_gather_cap: float = 0.4
     dtype_name: str = "float32"
     attn_impl: str = "xla"
     quantize: str = "none"
@@ -173,14 +232,24 @@ class VlmoConfig:
             depth=m["depth"],
             num_heads=m["num_heads"],
             mlp_ratio=float(m["mlp_ratio"]),
+            drop_rate=m["drop_rate"],
+            attn_drop_rate=m["attn_drop_rate"],
+            drop_path_rate=m["drop_path_rate"],
             norm_eps=m.get("norm_eps", 1e-12),
             init_values=m["init_values"],
             vocab_size=m["vocab_size"],
             max_text_len=m["max_text_len"],
             fusion_layer=m["fusion_layer"],
+            img_vocab_size=m["img_vocab_size"],
+            itc_dim=m["itc_dim"],
+            itc_temp=m["itc_temp"],
             phase=t["phase"],
             loss_names=tuple(t["loss_names"]),
             vqa_label_size=cfg["data"].get("vqav2_label_size", 3129),
+            mim_head_pos=t.get("mim_head_pos", "img"),
+            global_reduce=bool(t.get("global_reduce", False)),
+            mlm_gather_cap=float(t.get("mlm_gather_cap", 0.375)),
+            mim_gather_cap=float(t.get("mim_gather_cap", 0.4)),
             dtype_name=cfg.get("compute_dtype", "float32"),
             attn_impl=cfg.get("attn_impl", "xla"),
             quantize=str(m.get("quantize", "none")),

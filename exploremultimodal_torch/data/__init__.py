@@ -1,1 +1,2 @@
-"""Host-side data the serving path reads."""
+"""Host-side data: the VQA answer vocabulary, and the synthetic pretrain
+dataset with its masking generator and batching."""

@@ -1,0 +1,93 @@
+"""The synthetic pretrain dataset (counterpart of
+`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain
+contract): the same samples, drawn in the same order from the same numpy
+generator, so a seed gives the JAX package's batch.
+
+The repository holds no image-text arrow shards, so this is the training
+data of the port for now.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+
+from exploremultimodal_torch.data.masking import MaskingGenerator
+
+Sample = dict[str, Any]
+
+
+class SyntheticDataset:
+    """Deterministic in-memory samples with the pretrain batch contract:
+    token ids and mask, MLM ids and labels, a uint8 image, its blockwise
+    patch mask and the half-size uint8 image for the dVAE tokenizer."""
+
+    def __init__(self, size: int = 256, *, img_size: int = 224,
+                 second_size: int | None = 112, max_text_len: int = 40,
+                 vocab_size: int = 30522, mask_generator: MaskingGenerator,
+                 seed: int = 0):
+        self.size = size
+        self.img_size = img_size
+        self.second_size = second_size
+        self.max_text_len = max_text_len
+        self.vocab_size = vocab_size
+        self.mask_generator = mask_generator
+        self.seed = seed
+
+    def __len__(self) -> int:
+        return self.size
+
+    def __getitem__(self, index: int) -> Sample:
+        rng = np.random.default_rng(self.seed * 100003 + index)
+        L = self.max_text_len
+        ids = rng.integers(1000, self.vocab_size, (L,)).astype(np.int32)
+        ids[0], ids[-1] = 101, 102  # [CLS] ... [SEP]
+        n_valid = int(rng.integers(L // 2, L + 1))
+        mask = np.zeros(L, np.int32)
+        mask[:n_valid] = 1
+
+        ids_mlm = ids.copy()
+        labels = np.full(L, -100, np.int32)
+        mlm_pos = (rng.random(L) < 0.15) & (mask > 0)
+        mlm_pos[0] = False
+        labels[mlm_pos] = ids[mlm_pos]
+        ids_mlm[mlm_pos] = 103  # [MASK]
+
+        sample: Sample = {
+            "index": np.int64(index),
+            "text_ids": ids,
+            "text_mask": mask,
+            "text_ids_mlm": ids_mlm,
+            "text_labels_mlm": labels,
+            "image_u8": rng.integers(0, 256, (self.img_size, self.img_size, 3),
+                                     dtype=np.uint8),
+        }
+        sample["image_bool_masked_pos"] = self.mask_generator(rng).reshape(-1)
+        if self.second_size:
+            sample["image4dalle_u8"] = rng.integers(
+                0, 256, (self.second_size, self.second_size, 3), dtype=np.uint8)
+        return sample
+
+
+def build_dataset(cfg: dict) -> SyntheticDataset:
+    """The training dataset of `cfg`, as the JAX `MultiTaskData` builds the
+    `synthetic` key for a pretrain phase. Only `train.datasets=[synthetic]`
+    is ported."""
+    keys = list(cfg["train"]["datasets"])
+    if keys != ["synthetic"]:
+        raise NotImplementedError(
+            f"train.datasets={keys}: only the synthetic dataset is ported (the "
+            "repository holds no arrow shards); pass 'train.datasets=[synthetic]'")
+    d, m = cfg["data"], cfg["model"]
+    if d.get("mask_style", "block") != "block":
+        raise NotImplementedError(f"data.mask_style={d['mask_style']!r}")
+    grid = m["img_size"] // m["patch_size"]
+    masker = MaskingGenerator(
+        grid, num_masking_patches=d["num_mask_patches"],
+        min_num_patches=d.get("min_mask_patches_per_block") or 4,
+        max_num_patches=d.get("max_mask_patches_per_block"))
+    return SyntheticDataset(
+        size=d.get("synthetic_size", 256), img_size=m["img_size"],
+        second_size=m["img_size"] // 2, max_text_len=m["max_text_len"],
+        vocab_size=m["vocab_size"], mask_generator=masker)

@@ -49,5 +49,6 @@ def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         name = _LEAF.get(name, name)
         key = ".".join([re.sub(r"^blocks_(\d+)$", r"blocks.\1", m) for m in mods]
                        + [name])
-        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        # copy() keeps 0-d leaves (itc_temp) 0-d; ascontiguousarray would not
+        out[key] = torch.from_numpy(arr.copy())
     return out

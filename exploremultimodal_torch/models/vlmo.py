@@ -1,46 +1,53 @@
-"""VLMo mixture-of-modality-experts backbone, for serving.
+"""VLMo mixture-of-modality-experts backbone.
 
 Counterpart of `exploremultimodal_tpu/models/vlmo.py`, module for module and
 with the same parameter names, so `convert.from_flax_params` is a rename and
 a transpose. Numerics follow the JAX modules:
-  - Linear/Conv weights are kept in the compute dtype; their biases stay
-    fp32 and are cast at use, as flax `Dense(dtype=...)` casts them;
+  - Linear/Conv weights and biases are cast to the compute dtype at use, as
+    flax `Dense(dtype=...)` casts them. Serving stores the weights in the
+    compute dtype (the cast is then free); training keeps fp32 master
+    weights, as the JAX trainer does;
   - LayerNorm runs in fp32 with flax's statistics (var = E[x^2] - E[x]^2),
     and its output is cast back to the compute dtype by the caller;
   - q/v biases are added after the head split; k has none;
   - the FFN expert is the fused kernel (tanh gelu) under `mlp_impl='fused'`
     where `fits_vmem` admits the shape, else two Linears with erf gelu.
-Dropout and DropPath are identity: this package serves, it does not train.
-Images are NHWC, as in the JAX package.
+Dropout and DropPath draw on the step's `StepRng`; without one (`rng=None`)
+the forward is deterministic, as JAX's `deterministic=True`. Images are
+NHWC, as in the JAX package.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from exploremultimodal_torch.ops.attention import key_padding_bias, multi_head_attention
 from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp
+from exploremultimodal_torch.ops.stochastic import StepRng, drop_path, fast_dropout
 
 ROUTES = ("v", "l", "vl")
 
 
 class Linear(nn.Linear):
-    """nn.Linear with the weight stored in `dtype` and an fp32 bias that is
-    cast to `dtype` at use (flax `Dense(dtype=...)` numerics)."""
+    """nn.Linear computed in `dtype`: input, weight and bias are cast to it
+    at use (flax `Dense(dtype=...)` numerics). The weight is created in
+    `dtype`, the bias in fp32."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__(in_features, out_features, bias=bias)
+        self.dtype = dtype
         self.weight = nn.Parameter(self.weight.detach().to(dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight
-        return F.linear(x.to(w.dtype), w,
-                        None if self.bias is None else self.bias.to(w.dtype))
+        dt = self.dtype
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -55,36 +62,43 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Mlp(nn.Module):
-    """FFN expert: fc1 -> gelu -> fc2."""
+    """FFN expert: fc1 -> gelu -> drop -> fc2 -> drop."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 mlp_impl: str = "xla"):
+                 mlp_impl: str = "xla", drop_rate: float = 0.0):
         super().__init__()
+        self.drop_rate = drop_rate
         self.fc1 = Linear(dim, hidden_dim, dtype=dtype)
         self.fc2 = Linear(hidden_dim, dim, dtype=dtype)
         self.fused = mlp_impl == "fused" and fits_vmem(dim, hidden_dim, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused:
-            return fused_mlp(x, self.fc1.weight, self.fc1.bias,
-                             self.fc2.weight, self.fc2.bias)
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
+        if self.fused:  # forward only: a training call raises in fused_mlp
+            y = fused_mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
+                          self.fc2.weight, self.fc2.bias)
+            return fast_dropout(y, self.drop_rate, rng)
+        h = fast_dropout(F.gelu(self.fc1(x)), self.drop_rate, rng)
+        return fast_dropout(self.fc2(h), self.drop_rate, rng)
 
 
 class Attention(nn.Module):
     """Shared MHSA with separate q/v biases and no k bias."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
-                 impl: str = "xla"):
+                 impl: str = "xla", attn_drop: float = 0.0,
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.impl = impl
+        self.attn_drop = attn_drop
+        self.proj_drop = proj_drop
         self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
         self.proj = Linear(dim, dim, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
+                rng: StepRng | None = None) -> torch.Tensor:
         b, n, c = x.shape
         h, hd = self.num_heads, c // self.num_heads
         qkv = self.qkv(x).reshape(b, n, 3, h, hd)
@@ -92,63 +106,73 @@ class Attention(nn.Module):
         q = q + self.q_bias.reshape(h, 1, hd).to(q.dtype)
         v = v + self.v_bias.reshape(h, 1, hd).to(v.dtype)
         out = multi_head_attention(q, k, v, bias=bias, scale=hd ** -0.5,
-                                   impl=self.impl)
-        return self.proj(out.transpose(1, 2).reshape(b, n, c))
+                                   dropout_rate=self.attn_drop,
+                                   dropout_rng=rng, impl=self.impl)
+        out = self.proj(out.transpose(1, 2).reshape(b, n, c))
+        return fast_dropout(out, self.proj_drop, rng)
 
 
 class Block(nn.Module):
-    """Pre-LN block: x += g1 * Attn(LN1 x); x += g2 * MLP[route](LN2 x)."""
+    """Pre-LN block: x += DropPath(g1 * Attn(LN1 x));
+    x += DropPath(g2 * MLP[route](LN2 x))."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  norm_eps: float, init_values: float | None,
                  experts: Sequence[str], dtype: torch.dtype, attn_impl: str,
-                 mlp_impl: str):
+                 mlp_impl: str, drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.experts = tuple(experts)
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, eps=norm_eps)
-        self.attn = Attention(dim, num_heads, dtype, attn_impl)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl, attn_drop, drop)
         self.norm2 = LayerNorm(dim, eps=norm_eps)
         for route in self.experts:
             setattr(self, f"mlp_{route}",
-                    Mlp(dim, int(dim * mlp_ratio), dtype, mlp_impl))
+                    Mlp(dim, int(dim * mlp_ratio), dtype, mlp_impl, drop))
         if init_values is not None and init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
             self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
-                route: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, bias: torch.Tensor | None, route: str,
+                rng: StepRng | None = None) -> torch.Tensor:
         if route not in self.experts:
             raise ValueError(f"route {route!r} not among experts {self.experts}")
-        out = self.attn(self.norm1(x).to(self.dtype), bias)
-        if self.gamma_1 is not None:
-            out = out * self.gamma_1.to(out.dtype)
-        x = x + out
-        out = getattr(self, f"mlp_{route}")(self.norm2(x).to(self.dtype))
-        if self.gamma_2 is not None:
-            out = out * self.gamma_2.to(out.dtype)
-        return x + out
+
+        def residual(branch, gamma):
+            if gamma is not None:
+                branch = branch * gamma.to(branch.dtype)
+            return drop_path(branch, self.drop_path_rate, rng)
+
+        x = x + residual(self.attn(self.norm1(x).to(self.dtype), bias, rng),
+                         self.gamma_1)
+        mlp = getattr(self, f"mlp_{route}")
+        return x + residual(mlp(self.norm2(x).to(self.dtype), rng), self.gamma_2)
 
 
 class BertTextEmbeddings(nn.Module):
-    """word + position + BERT token type 0 -> LayerNorm (fp32 tables)."""
+    """word + position + BERT token type 0 -> LayerNorm -> drop (fp32
+    tables)."""
 
     def __init__(self, vocab_size: int, dim: int, max_len: int,
-                 norm_eps: float, dtype: torch.dtype):
+                 norm_eps: float, dtype: torch.dtype, drop_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.word_embeddings = nn.Embedding(vocab_size, dim)
         self.position_embeddings = nn.Embedding(max_len, dim)
         self.token_type_embeddings = nn.Embedding(2, dim)
         self.LayerNorm = LayerNorm(dim, eps=norm_eps)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
         pos = torch.arange(ids.shape[1], device=ids.device)
         x = (self.word_embeddings(ids) + self.position_embeddings(pos)[None]
              + self.token_type_embeddings.weight[0])
-        return self.LayerNorm(x).to(self.dtype)
+        x = fast_dropout(self.LayerNorm(x), self.drop_rate, rng)
+        return x.to(self.dtype)
 
 
 class Pooler(nn.Module):
@@ -182,9 +206,12 @@ class VLMO(nn.Module):
                  norm_eps: float = 1e-12, init_values: float | None = None,
                  vocab_size: int = 30522, max_text_len: int = 40,
                  fusion_layer: int = 6, experts_per_block=None, dtype: torch.dtype = torch.float32,
-                 attn_impl: str = "xla", mlp_impl: str = "xla"):
+                 attn_impl: str = "xla", mlp_impl: str = "xla",
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.embed_dim = embed_dim
         self.patch_size = patch_size
         self.fusion_layer = fusion_layer
@@ -198,82 +225,103 @@ class VLMO(nn.Module):
         self.img_mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.token_type_embeddings = nn.Embedding(2, embed_dim)
         self.txt_embeddings = BertTextEmbeddings(vocab_size, embed_dim,
-                                                 max_text_len, norm_eps, dtype)
+                                                 max_text_len, norm_eps, dtype,
+                                                 drop_rate)
         layout = experts_per_block or tuple(ROUTES for _ in range(depth))
+        dpr = [float(x) for x in np.linspace(0.0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, norm_eps, init_values,
-                  layout[i], dtype, attn_impl, mlp_impl)
+                  layout[i], dtype, attn_impl, mlp_impl, drop_rate,
+                  attn_drop_rate, dpr[i])
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, eps=norm_eps)
         self.pooler = Pooler(embed_dim, dtype)
 
     # ------------------------------------------------------------------ embed
 
-    def embed_img(self, img: torch.Tensor) -> torch.Tensor:
+    def embed_img(self, img: torch.Tensor, bool_masked_pos=None,
+                  rng: StepRng | None = None) -> torch.Tensor:
         """img: (B, H, W, C) NHWC -> (B, 1 + num_patches, D), token type 1.
-        (`img_mask_token` is loaded for the masked-image objectives, which
-        are not ported.)"""
-        w = self.patch_embed.weight
-        x = F.conv2d(img.to(w.dtype).permute(0, 3, 1, 2), w,
-                     self.patch_embed.bias.to(w.dtype), stride=self.patch_size)
+        Patches where `bool_masked_pos` (B, num_patches) is set become
+        `img_mask_token` (the masked-image objectives)."""
+        dt, pe = self.dtype, self.patch_embed
+        x = F.conv2d(img.to(dt).permute(0, 3, 1, 2), pe.weight.to(dt),
+                     pe.bias.to(dt), stride=self.patch_size)
         x = x.flatten(2).transpose(1, 2)
+        if bool_masked_pos is not None:
+            w = bool_masked_pos[..., None].to(x.dtype)
+            x = x * (1.0 - w) + self.img_mask_token.to(x.dtype) * w
         cls = self.img_cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
+        x = fast_dropout(x, self.drop_rate, rng)
         return x + self.token_type_embeddings.weight[1].to(x.dtype)
 
-    def embed_txt(self, ids: torch.Tensor) -> torch.Tensor:
-        x = self.txt_embeddings(ids)
+    def embed_txt(self, ids: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
+        x = self.txt_embeddings(ids, rng)
         return x + self.token_type_embeddings.weight[0].to(x.dtype)
 
     # ------------------------------------------------------------------ blocks
 
     def run_blocks(self, x, mask, route: str, in_layer: int = 0,
-                   out_layer: int | None = None) -> torch.Tensor:
+                   out_layer: int | None = None,
+                   rng: StepRng | None = None) -> torch.Tensor:
         bias = key_padding_bias(mask)
         for blk in self.blocks[in_layer:out_layer]:
-            x = blk(x, bias, route)
+            x = blk(x, bias, route, rng)
         return x
 
     def _img_mask(self, x: torch.Tensor) -> torch.Tensor:
         return torch.ones(x.shape[:2], dtype=torch.int32, device=x.device)
 
-    def forward_features(self, img=None, txt=None, txt_mask=None):
+    def forward_features(self, img=None, txt=None, txt_mask=None,
+                         bool_masked_pos=None, rng: StepRng | None = None):
         """img-only -> route 'v' through every block; txt-only -> route 'l';
         both -> separate streams below the fusion layer, then [txt, img]
         concatenated on route 'vl'. Returns (features, mask)."""
         if txt is None:
-            x = self.embed_img(img)
+            x = self.embed_img(img, bool_masked_pos, rng)
             mask = self._img_mask(x)
-            x = self.run_blocks(x, mask, "v")
+            x = self.run_blocks(x, mask, "v", rng=rng)
             return self.norm(x).to(self.dtype), mask
         if img is None:
-            x = self.run_blocks(self.embed_txt(txt), txt_mask, "l")
+            x = self.run_blocks(self.embed_txt(txt, rng), txt_mask, "l", rng=rng)
             return self.norm(x).to(self.dtype), txt_mask
 
-        return self.fuse_from_hidden(self.stream_below_fusion(img=img),
-                                     self.stream_below_fusion(txt=txt, txt_mask=txt_mask),
-                                     txt_mask)
+        img_x = self.embed_img(img, bool_masked_pos, rng)
+        img_h = self.run_blocks(img_x, self._img_mask(img_x), "v", 0,
+                                self.fusion_layer, rng)
+        txt_h = self.stream_below_fusion(txt=txt, txt_mask=txt_mask, rng=rng)
+        return self.fuse_from_hidden(img_h, txt_h, txt_mask, rng)
 
-    def stream_below_fusion(self, img=None, txt=None, txt_mask=None):
+    def stream_below_fusion(self, img=None, txt=None, txt_mask=None,
+                            rng: StepRng | None = None):
         """Embed one modality and run blocks[:fusion_layer] on its route."""
         if img is not None:
-            x = self.embed_img(img)
-            return self.run_blocks(x, self._img_mask(x), "v", 0, self.fusion_layer)
-        return self.run_blocks(self.embed_txt(txt), txt_mask, "l", 0,
-                               self.fusion_layer)
+            x = self.embed_img(img, rng=rng)
+            return self.run_blocks(x, self._img_mask(x), "v", 0,
+                                   self.fusion_layer, rng)
+        return self.run_blocks(self.embed_txt(txt, rng), txt_mask, "l", 0,
+                               self.fusion_layer, rng)
 
-    def continue_single_stream(self, x, mask, route: str) -> torch.Tensor:
+    def continue_single_stream(self, x, mask, route: str,
+                               rng: StepRng | None = None) -> torch.Tensor:
         """blocks[fusion_layer:] on one modality, then the final norm."""
-        x = self.run_blocks(x, mask, route, self.fusion_layer)
+        x = self.run_blocks(x, mask, route, self.fusion_layer, rng=rng)
         return self.norm(x).to(self.dtype)
 
-    def fuse_from_hidden(self, img_hidden, txt_hidden, txt_mask):
+    def fuse_from_hidden(self, img_hidden, txt_hidden, txt_mask,
+                         rng: StepRng | None = None):
         """Concatenate below-fusion [txt, img] states, run blocks[fusion:]."""
         co = torch.cat([txt_hidden, img_hidden], dim=1)
         co_mask = torch.cat([txt_mask.to(torch.int32), self._img_mask(img_hidden)],
                             dim=1)
-        co = self.run_blocks(co, co_mask, "vl", self.fusion_layer)
+        co = self.run_blocks(co, co_mask, "vl", self.fusion_layer, rng=rng)
         return self.norm(co).to(self.dtype), co_mask
 
     def pool(self, co_feats: torch.Tensor) -> torch.Tensor:
         return self.pooler(co_feats)
+
+    def attend_vocab(self, x: torch.Tensor) -> torch.Tensor:
+        """x . word_embedding^T, the tied MLM decoder. fp32, as flax's
+        `Embed.attend` promotes the compute-dtype input to the table's fp32."""
+        return torch.matmul(x.float(), self.txt_embeddings.word_embeddings.weight.T)

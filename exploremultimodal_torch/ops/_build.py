@@ -1,7 +1,8 @@
 """Build the CUDA kernels of this package with nvcc and load them with ctypes.
 
-Each `csrc/<name>.cu` exposes a plain C function `<name>` and is compiled on
-first use into `build/lib<name>-<hash>.so` beside this file, where the hash
+Each `csrc/<name>.cu` exposes plain C functions (one named `<name>`, maybe
+more) and is compiled on first use into `build/lib<name>-<hash>.so` beside
+this file, where the hash
 covers the sources and the flags, so an edited source is rebuilt. Nothing
 from PyTorch's headers is compiled, which keeps a build to seconds. There is
 no fallback: a missing nvcc or a failed build raises.
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("flash_attention_fwd", "fused_mlp_fwd")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "fused_mlp_fwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -76,16 +77,17 @@ def build(names=KERNELS) -> dict[str, tuple[float, str]]:
     return results
 
 
-def load(name: str, argtypes: list) -> ctypes._CFuncPtr:
-    """The C entry point `name` of kernel `name`, built if needed. It
-    returns a cudaError_t as int."""
-    if name not in _loaded:
+def load(name: str, argtypes: list, symbol: str | None = None) -> ctypes._CFuncPtr:
+    """The C entry point `symbol` (default `name`) of source `name`, built
+    if needed. It returns a cudaError_t as int."""
+    symbol = symbol or name
+    if symbol not in _loaded:
         build([name])
-        fn = getattr(ctypes.CDLL(str(_target(name))), name)
+        fn = getattr(ctypes.CDLL(str(_target(name))), symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
-    return _loaded[name]
+        _loaded[symbol] = fn
+    return _loaded[symbol]
 
 
 def check(name: str, rc: int) -> None:

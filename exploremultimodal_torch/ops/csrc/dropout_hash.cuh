@@ -1,0 +1,45 @@
+// Attention-dropout keep mask, bit-identical to the JAX package's in-kernel
+// hash (exploremultimodal_tpu/ops/flash_attention.py `_dropout_keys` :88,
+// `_dropout_bits` :70, `_keep_mask` :97). The mask is a pure function of
+// (seed, batch*head, query row, key column), so the backward regenerates the
+// forward's mask and it never reaches device memory. All arithmetic is
+// uint32 with wraparound, as in the JAX kernels.
+#pragma once
+
+#include <stdint.h>
+
+namespace emm {
+
+struct DropKeys {
+  uint32_t k0, k1;
+};
+
+__device__ __forceinline__ DropKeys dropout_keys(int32_t seed, int bh) {
+  const uint32_t s = static_cast<uint32_t>(seed);
+  const uint32_t b = static_cast<uint32_t>(bh);
+  return {(s ^ (b * 0x9E3779B9u)) | 1u, (s * 0x85EBCA6Bu) ^ (b + 0x165667B1u)};
+}
+
+// counter = row * 2^16 + col, avalanched by three murmur rounds
+__device__ __forceinline__ uint32_t dropout_bits(DropKeys key, int row,
+                                                 int col) {
+  uint32_t x = static_cast<uint32_t>(row) * 65536u + static_cast<uint32_t>(col);
+  x ^= key.k0;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x ^= key.k1;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  x *= 0x27D4EB2Fu;
+  x ^= x >> 15;
+  return x;
+}
+
+// the inverted-dropout factor of one (row, col): `scale` where kept, else 0
+__device__ __forceinline__ float dropout_keep(DropKeys key, int row, int col,
+                                              uint32_t threshold,
+                                              float scale) {
+  return dropout_bits(key, row, col) >= threshold ? scale : 0.f;
+}
+
+}  // namespace emm

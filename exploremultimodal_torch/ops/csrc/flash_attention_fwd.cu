@@ -1,12 +1,17 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
 //
-// Replaces the Pallas kernel `_attn_kernel`
-// (exploremultimodal_tpu/ops/flash_attention.py:152, launched by `_fwd_call`
-// :283). Same function: for each (batch*head, query row)
+// Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py:
+// `_attn_kernel` (:152, launched by `_fwd_call` :283) and, with DROP set,
+// `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323). Same
+// function: for each (batch*head, query row)
 //   s   = (q . k^T) * scale + key_bias           fp32
 //   p   = exp(s - max(s));  l = sum(p)
-//   out = (p . v) / l                           fp32 sum, stored as bf16
-//   lse = max(s) + log(l)                       fp32, read by a backward
+//   out = ((keep o p) . v) / l                   fp32 sum, stored as bf16
+//   lse = max(s) + log(l)                       fp32, read by the backward
+// where keep is 1 without dropout, and with DROP the hash mask of
+// dropout_hash.cuh times 1 / (1 - rate). The mask multiplies the
+// unnormalized p before the p . v product; l and lse stay clean, so the
+// backward rebuilds the clean p from lse and re-applies the same mask.
 //
 // What bounds it on an H100: memory. At the VLMo shapes (N <= 237, head
 // dim 64) it does 4*N*64 flops per 2*4*64 bytes of q/k/v/out, about N/2
@@ -32,6 +37,7 @@
 
 #include <cuda_runtime.h>
 
+#include "dropout_hash.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -57,11 +63,13 @@ __device__ __forceinline__ void load_rows(bf16 (*dst)[LD], const bf16* src,
   }
 }
 
+template <bool DROP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
                  bf16* __restrict__ out, float* __restrict__ lse, int n,
-                 int heads, float scale) {
+                 int heads, float scale, const int32_t* __restrict__ seed,
+                 uint32_t threshold, float drop_scale) {
   __shared__ __align__(16) bf16 sQ[BQ][LD];
   __shared__ __align__(16) bf16 sK[BK][LD];
   __shared__ __align__(16) bf16 sV[BK][LD];
@@ -72,6 +80,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane / 4, t = lane % 4;
   const size_t base = (size_t)bh * n * D;
   const float* key_bias = bias + (size_t)(bh / heads) * n;
+  emm::DropKeys dkey{0u, 0u};
+  if (DROP) dkey = emm::dropout_keys(*seed, bh);
 
   load_rows(sQ, q + base, q0, n);
   __syncthreads();
@@ -147,6 +157,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       rs[h] += __shfl_xor_sync(0xffffffffu, rs[h], 2);
       l[h] = l[h] * corr[h] + rs[h];
     }
+    if (DROP) {  // after the clean row sum: only p . v sees the mask
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[j][e] *= emm::dropout_keep(dkey, q0 + r0 + 8 * (e >> 1),
+                                       k0 + j * 8 + 2 * t + (e & 1),
+                                       threshold, drop_scale);
+    }
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       o[j][0] *= corr[0];
@@ -190,6 +209,22 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <bool DROP>
+int launch(const void* q, const void* k, const void* v, const void* bias,
+           const void* seed, void* out, void* lse, int bh, int heads, int n,
+           float scale, unsigned threshold, float drop_scale, void* stream) {
+  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || bh > 65535)
+    return cudaErrorInvalidValue;
+  const dim3 grid((n + BQ - 1) / BQ, bh);
+  flash_fwd_kernel<DROP>
+      <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const float*>(bias),
+          static_cast<bf16*>(out), static_cast<float*>(lse), n, heads, scale,
+          static_cast<const int32_t*>(seed), threshold, drop_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q, k, v, out: (bh, n, 64) bf16 contiguous; bias: (bh / heads, n) fp32;
@@ -198,12 +233,19 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, void* lse,
                                    int bh, int heads, int n, float scale,
                                    void* stream) {
-  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || bh > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid((n + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(out), static_cast<float*>(lse), n, heads, scale);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k, v, bias, nullptr, out, lse, bh, heads, n, scale,
+                       0u, 0.f, stream);
+}
+
+// As flash_attention_fwd, with attention dropout: `seed` is one int32 on the
+// device; an element is kept where its hash bits >= `threshold`
+// (min(int(rate * 2^32), 2^32 - 1)) and then scaled by `drop_scale`.
+extern "C" int flash_attention_fwd_drop(const void* q, const void* k,
+                                        const void* v, const void* bias,
+                                        const void* seed, void* out, void* lse,
+                                        int bh, int heads, int n, float scale,
+                                        unsigned threshold, float drop_scale,
+                                        void* stream) {
+  return launch<true>(q, k, v, bias, seed, out, lse, bh, heads, n, scale,
+                      threshold, drop_scale, stream);
 }

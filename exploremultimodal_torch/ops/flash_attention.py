@@ -1,9 +1,17 @@
-"""Flash-attention forward: the CUDA kernel's wrapper and its plain version.
+"""Flash attention: the CUDA kernels' wrappers, their plain versions, and the
+differentiable `flash_attention`.
 
-Counterpart of `exploremultimodal_tpu/ops/flash_attention.py` `_fwd_call` /
-`_attn_kernel` (the full-row forward used by `attn_impl='pallas'`). The
-kernel is `csrc/flash_attention_fwd.cu`. Serving needs no gradient, so there
-is no autograd.Function yet: the wrapper refuses inputs that require grad.
+Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
+  - `flash_attention_fwd`      `_fwd_call` / `_attn_kernel`
+  - `flash_attention_fwd_drop` `_fwd_drop_call` / `_attn_drop_kernel`
+  - `flash_attention_bwd`      `_bwd_call` / `_attn_bwd_kernel`
+  - `flash_attention_bwd_drop` `_bwd_drop_call` / `_attn_drop_bwd_kernel`
+The forward kernels are `csrc/flash_attention_fwd.cu`, the backward kernels
+`csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on CUDA tensors
+and its plain PyTorch version on CPU tensors; there is no other fallback.
+The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
+and columns keep their indices, so the dropout mask at every real (row,
+col) is the same.
 """
 
 from __future__ import annotations
@@ -14,25 +22,155 @@ import torch
 
 from exploremultimodal_torch.ops import _build
 
-HEAD_DIM = 64  # the only head dim the kernel takes (every preset's but vlmo_debug)
+HEAD_DIM = 64  # the only head dim the kernels take (every preset's but vlmo_debug)
+# the fused backward (and so in-kernel dropout) covers N up to this; longer
+# sequences take the forward kernel and a backward through the plain chain
+LONG_SEQ_THRESHOLD = 512
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float,
-                                                          ctypes.c_void_p]
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = [_P] * 6 + [_I] * 3 + [_F, _P]
+_FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
+_BWD_DROP_ARGS = [_P] * 12 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 
 
-def flash_attention_fwd_plain(qf, kf, vf, key_bias, scale: float):
+# ------------------------------------------------------------- dropout hash
+
+
+def dropout_threshold(rate: float) -> int:
+    """Keep where the uint32 hash bits are >= this (`_keep_mask`)."""
+    return min(int(rate * 2**32), 2**32 - 1)
+
+
+def dropout_scale(rate: float) -> float:
+    """The inverted-dropout factor, rounded to fp32 as the kernels use it."""
+    return float(torch.tensor(1.0 / (1.0 - rate), dtype=torch.float32))
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32), without int64 overflow."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + (((hi * c) & 0xFFFF) << 16)) & 0xFFFFFFFF
+
+
+def dropout_keep_mask_plain(seed: torch.Tensor, bh: int, n: int,
+                            rate: float) -> torch.Tensor:
+    """(bh, n, n) fp32 of {0, 1/(1-rate)}: the keep mask the dropout kernels
+    make inside, for the int32 `seed` (one element, on the result's
+    device). The uint32 hash of `_dropout_bits`/`_dropout_keys` is emulated
+    in int64 masked to 32 bits."""
+    dev = seed.device
+    s = seed.reshape(()).to(torch.int64) & 0xFFFFFFFF
+    b = torch.arange(bh, dtype=torch.int64, device=dev).view(bh, 1, 1)
+    key0 = (s ^ _mul32(b, 0x9E3779B9)) | 1
+    key1 = _mul32(s, 0x85EBCA6B) ^ ((b + 0x165667B1) & 0xFFFFFFFF)
+    r = torch.arange(n, dtype=torch.int64, device=dev).view(1, n, 1)
+    c = torch.arange(n, dtype=torch.int64, device=dev).view(1, 1, n)
+    x = (r * 65536 + c) ^ key0
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = x ^ key1
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x27D4EB2F)
+    x = x ^ (x >> 15)
+    keep = torch.full((), dropout_scale(rate), dtype=torch.float32, device=dev)
+    return torch.where(x >= dropout_threshold(rate), keep,
+                       torch.zeros((), dtype=torch.float32, device=dev))
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _scores(qf, kf, key_bias, scale):
+    heads = qf.shape[0] // key_bias.shape[0]
+    s = torch.matmul(qf.float(), kf.float().transpose(1, 2)) * scale
+    return s + key_bias.float().repeat_interleave(heads, dim=0)[:, None, :]
+
+
+def flash_attention_fwd_plain(qf, kf, vf, key_bias, scale: float, keep=None):
     """qf/kf/vf: (B*H, N, D); key_bias: (B, N) fp32. Returns (out in the
     input dtype, lse (B*H, N) fp32), computed as `_attn_kernel` does: fp32
-    scores, bias added after scaling, max-subtracted exp, fp32 p.v / denom."""
-    bh, n, _ = qf.shape
-    heads = bh // key_bias.shape[0]
-    s = torch.matmul(qf.float(), kf.float().transpose(1, 2)) * scale
-    s = s + key_bias.float().repeat_interleave(heads, dim=0)[:, None, :]
+    scores, bias added after scaling, max-subtracted exp, fp32 p.v / denom.
+    `keep` (B*H, N, N), where given, multiplies p before the p.v product
+    (`_attn_drop_kernel`); denom and lse stay clean."""
+    s = _scores(qf, kf, key_bias, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     denom = p.sum(dim=-1, keepdim=True)
+    if keep is not None:
+        p = p * keep
     out = torch.matmul(p, vf.float()) / denom
     return out.to(qf.dtype), (m + torch.log(denom)).squeeze(-1)
+
+
+def flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale: float,
+                                   rate: float):
+    """`_attn_drop_kernel`: the forward with the hash mask of `seed`."""
+    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate)
+    return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale, keep)
+
+
+def flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale: float,
+                              keep=None):
+    """`_attn_bwd_kernel`: (dq, dk, dv) in the input dtype, all math fp32,
+    p rebuilt from lse. `keep`, where given, is the forward's dropout mask
+    (`_attn_drop_bwd_kernel`)."""
+    p = torch.exp(_scores(qf, kf, key_bias, scale) - lse[..., None])
+    do, q, k = dof.float(), qf.float(), kf.float()
+    delta = (do * of.float()).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(do, vf.float().transpose(1, 2))
+    pd = p
+    if keep is not None:
+        pd, dp = p * keep, dp * keep
+    dv = torch.matmul(pd.transpose(1, 2), do)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k) * scale
+    dk = torch.matmul(ds.transpose(1, 2), q) * scale
+    return dq.to(qf.dtype), dk.to(kf.dtype), dv.to(vf.dtype)
+
+
+def flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of, dof, lse,
+                                   scale: float, rate: float):
+    """`_attn_drop_bwd_kernel`: the backward with the mask of `seed`."""
+    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate)
+    return flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale,
+                                     keep)
+
+
+# ----------------------------------------------------------- kernel wrappers
+
+
+def _check(name: str, key_bias, *tensors, lse=None, seed=None) -> None:
+    """Raise unless the kernels take these inputs: contiguous, 16-byte
+    aligned bf16 (B*H, N, 64) tensors on one device, an fp32 (B, N) bias,
+    an fp32 (B*H, N) lse and an int32 one-element seed."""
+    bh, n, _ = tensors[0].shape
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.bfloat16 or t.shape != (bh, n, HEAD_DIM) \
+                or not t.is_contiguous() or t.device != dev \
+                or t.data_ptr() % 16 != 0:
+            raise ValueError(
+                f"{name}: q/k/v/o/do must be contiguous, 16-byte aligned bf16 "
+                f"({bh}, {n}, {HEAD_DIM}) tensors on {dev}, got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    b = key_bias.shape[0]
+    if key_bias.dtype != torch.float32 or key_bias.shape != (b, n) \
+            or not key_bias.is_contiguous() or bh % b != 0 \
+            or key_bias.device != dev:
+        raise ValueError(f"{name}: key_bias must be a contiguous fp32 (B, {n}) "
+                         f"tensor with B dividing {bh}")
+    if lse is not None and (lse.dtype != torch.float32 or lse.shape != (bh, n)
+                            or not lse.is_contiguous() or lse.device != dev):
+        raise ValueError(f"{name}: lse must be a contiguous fp32 ({bh}, {n}) tensor")
+    if seed is not None and (seed.dtype != torch.int32 or seed.numel() != 1
+                             or seed.device != dev):
+        raise ValueError(f"{name}: seed must be one int32 on {dev}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
@@ -40,48 +178,182 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
     arguments and results as `flash_attention_fwd_plain`."""
     if qf.device.type == "cpu":
         return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale)
-    bh, n, d = qf.shape
-    b = key_bias.shape[0]
-    for name, t in (("q", qf), ("k", kf), ("v", vf)):
-        if t.dtype != torch.bfloat16 or t.shape != (bh, n, HEAD_DIM) \
-                or not t.is_contiguous() or t.device != qf.device \
-                or t.data_ptr() % 16 != 0:
-            raise ValueError(
-                f"flash_attention_fwd: {name} must be a contiguous, 16-byte aligned bf16 "
-                f"({bh}, {n}, {HEAD_DIM}) tensor on {qf.device}, got "
-                f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    if key_bias.dtype != torch.float32 or key_bias.shape != (b, n) \
-            or not key_bias.is_contiguous() or bh % b != 0 \
-            or key_bias.device != qf.device:
-        raise ValueError("flash_attention_fwd: key_bias must be a contiguous "
-                         f"fp32 (B, {n}) tensor with B dividing {bh}")
+    _check("flash_attention_fwd", key_bias, qf, kf, vf)
+    bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-    fn = _build.load("flash_attention_fwd", _ARGTYPES)
+    fn = _build.load("flash_attention_fwd", _FWD_ARGS)
     rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), bh, bh // b, n, scale,
-            torch.cuda.current_stream(qf.device).cuda_stream)
+            out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
+            scale, _stream(qf))
     _build.check("flash_attention_fwd", rc)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
+                             rate: float):
+    """As `flash_attention_fwd_drop_plain`: the kernel on CUDA tensors."""
+    if qf.device.type == "cpu":
+        return flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale,
+                                              rate)
+    _check("flash_attention_fwd_drop", key_bias, qf, kf, vf, seed=seed)
+    bh, n, _ = qf.shape
+    out = torch.empty_like(qf)
+    lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+    fn = _build.load("flash_attention_fwd", _FWD_DROP_ARGS,
+                     "flash_attention_fwd_drop")
+    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
+            bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
+            dropout_scale(rate), _stream(qf))
+    _build.check("flash_attention_fwd_drop", rc)
+    flash_attention_fwd_drop.launches += 1
+    return out, lse
 
 
-def flash_attention(q, k, v, *, bias=None, scale: float):
-    """q, k, v: (B, H, N, D); bias: (B, 1, 1, N) additive key-padding bias or
-    None. Returns (B, H, N, D), as the JAX `flash_attention` forward."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward yet: call it under "
-            "torch.inference_mode() or torch.no_grad()")
+def flash_attention_bwd(qf, kf, vf, key_bias, of, dof, lse, scale: float):
+    """(dq, dk, dv): the kernels on CUDA tensors, `flash_attention_bwd_plain`
+    on CPU tensors."""
+    if qf.device.type == "cpu":
+        return flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale)
+    _check("flash_attention_bwd", key_bias, qf, kf, vf, of, dof, lse=lse)
+    bh, n, _ = qf.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+    delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+    fn = _build.load("flash_attention_bwd", _BWD_ARGS)
+    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+            of.data_ptr(), dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+            bh // key_bias.shape[0], n, scale, _stream(qf))
+    _build.check("flash_attention_bwd", rc)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
+                             scale: float, rate: float):
+    """As `flash_attention_bwd_drop_plain`: the kernels on CUDA tensors."""
+    if qf.device.type == "cpu":
+        return flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of,
+                                              dof, lse, scale, rate)
+    _check("flash_attention_bwd_drop", key_bias, qf, kf, vf, of, dof, lse=lse,
+           seed=seed)
+    bh, n, _ = qf.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+    delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+    fn = _build.load("flash_attention_bwd", _BWD_DROP_ARGS,
+                     "flash_attention_bwd_drop")
+    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+            seed.data_ptr(), of.data_ptr(), dof.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+            bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
+            dropout_scale(rate), _stream(qf))
+    _build.check("flash_attention_bwd_drop", rc)
+    flash_attention_bwd_drop.launches += 1
+    return dq, dk, dv
+
+
+for _fn in (flash_attention_fwd, flash_attention_fwd_drop, flash_attention_bwd,
+            flash_attention_bwd_drop):
+    _fn.launches = 0
+
+
+# ------------------------------------------------------------ autograd
+
+
+class _FlashCore(torch.autograd.Function):
+    """`_flash_core`: the forward kernel, and the backward kernel on its lse."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, key_bias, scale):
+        out, lse = flash_attention_fwd(qf, kf, vf, key_bias, scale)
+        ctx.save_for_backward(qf, kf, vf, key_bias, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qf, kf, vf, key_bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(qf, kf, vf, key_bias, out,
+                                         g.contiguous(), lse, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+class _FlashCoreDrop(torch.autograd.Function):
+    """`_flash_core_drop`: both kernels with the in-kernel dropout mask."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, key_bias, seed, scale, rate):
+        out, lse = flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale,
+                                            rate)
+        ctx.save_for_backward(qf, kf, vf, key_bias, seed, out, lse)
+        ctx.scale, ctx.rate = scale, rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qf, kf, vf, key_bias, seed, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, out,
+                                              g.contiguous(), lse, ctx.scale,
+                                              ctx.rate)
+        return dq, dk, dv, None, None, None, None
+
+
+def _reference_flat(qf, kf, vf, key_bias, scale):
+    """`_xla_reference_flat`: the plain chain, probabilities rounded to the
+    input dtype before the p.v product."""
+    probs = torch.softmax(_scores(qf, kf, key_bias, scale), dim=-1)
+    return torch.matmul(probs.to(vf.dtype), vf)
+
+
+class _FlashLong(torch.autograd.Function):
+    """`_flash_long` for N > LONG_SEQ_THRESHOLD: the forward kernel, and a
+    backward that recomputes the plain chain (`_flash_long_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, vf, key_bias, scale):
+        out, _ = flash_attention_fwd(qf, kf, vf, key_bias, scale)
+        ctx.save_for_backward(qf, kf, vf, key_bias)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qf, kf, vf, key_bias = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (qf, kf, vf)]
+            out = _reference_flat(*leaves, key_bias, ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, leaves, g)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, bias=None, scale: float,
+                    dropout_rate: float = 0.0, dropout_seed=None):
+    """Differentiable fused attention, as JAX's `flash_attention`.
+
+    q, k, v: (B, H, N, D); bias: (B, 1, 1, N) additive key-padding bias or
+    None. With dropout_rate > 0, `dropout_seed` (one int32 on q's device)
+    seeds the in-kernel mask, which the backward regenerates; that needs
+    N <= LONG_SEQ_THRESHOLD. Returns (B, H, N, D)."""
     b, h, n, d = q.shape
+    use_dropout = dropout_rate > 0.0
+    if use_dropout and n > LONG_SEQ_THRESHOLD:
+        raise ValueError(
+            f"in-kernel attention dropout needs the fused backward "
+            f"(N <= {LONG_SEQ_THRESHOLD}); got N={n}")
     if bias is None:
         key_bias = torch.zeros((b, n), dtype=torch.float32, device=q.device)
     else:
         key_bias = bias.to(torch.float32).reshape(b, n).contiguous()
-    out, _ = flash_attention_fwd(
-        q.reshape(b * h, n, d).contiguous(), k.reshape(b * h, n, d).contiguous(),
-        v.reshape(b * h, n, d).contiguous(), key_bias, scale)
+    qf, kf, vf = (t.reshape(b * h, n, d).contiguous() for t in (q, k, v))
+    if use_dropout:
+        seed = torch.as_tensor(dropout_seed, dtype=torch.int32,
+                               device=q.device).reshape(1)
+        out = _FlashCoreDrop.apply(qf, kf, vf, key_bias, seed, scale,
+                                   float(dropout_rate))
+    elif n > LONG_SEQ_THRESHOLD:
+        out = _FlashLong.apply(qf, kf, vf, key_bias, scale)
+    else:
+        out = _FlashCore.apply(qf, kf, vf, key_bias, scale)
     return out.reshape(b, h, n, d)

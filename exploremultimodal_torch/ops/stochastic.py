@@ -1,0 +1,96 @@
+"""Stochastic ops: the random streams of a training step, DropPath, and
+integer-threshold hidden dropout.
+
+Counterpart of `exploremultimodal_tpu/ops/stochastic.py`. JAX draws its bits
+from `make_rng` streams; the port draws them from a `torch.Generator` that
+the trainer owns, handed down the forward as a `StepRng`. A forward without
+one is deterministic, as JAX's `deterministic=True`. Each op's plain
+function takes its random bits as an argument, so tests can feed it the bits
+JAX drew.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_SEED_LOW, _SEED_HIGH = -2**31, 2**31
+
+
+class StepRng:
+    """The random streams of one training step.
+
+    `generator` lives on the compute device and draws the hidden-dropout
+    bits, the DropPath masks and the ITM negatives. The attention-dropout
+    hash takes one int32 seed per attention call: they are drawn together
+    for the step, on the host generator `seed_generator`, and copied to the
+    device once, so no attention call waits on the host, and the same host
+    seed gives the same masks on every device."""
+
+    def __init__(self, generator: torch.Generator, seed_generator: torch.Generator,
+                 device: torch.device, max_attention_calls: int = 256):
+        self.generator = generator
+        seeds = torch.randint(_SEED_LOW, _SEED_HIGH, (max_attention_calls,),
+                              dtype=torch.int32, generator=seed_generator)
+        if device.type == "cuda":
+            seeds = seeds.pin_memory()
+        self._seeds = seeds.to(device, non_blocking=True)
+        self.attention_calls = 0
+
+    def attention_seed(self) -> torch.Tensor:
+        """The next attention call's seed: one int32 on the device."""
+        i = self.attention_calls
+        if i >= self._seeds.numel():
+            raise RuntimeError(
+                f"more than {self._seeds.numel()} attention-dropout calls in "
+                "one step: raise StepRng's max_attention_calls")
+        self.attention_calls += 1
+        return self._seeds[i:i + 1]
+
+
+def drop_path_plain(x: torch.Tensor, rate: float, keep: torch.Tensor) -> torch.Tensor:
+    """Zero the whole residual branch of each sample where `keep` (B,) is
+    False, scale the rest by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    keep = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+    scaled = x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
+    return torch.where(keep, scaled, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, rng: StepRng | None) -> torch.Tensor:
+    """DropPath with a Bernoulli(1 - rate) keep per sample; identity when
+    `rng` is None (deterministic) or the rate is 0."""
+    if rng is None or rate == 0.0:
+        return x
+    u = torch.rand((x.shape[0],), generator=rng.generator, device=x.device)
+    return drop_path_plain(x, rate, u < 1.0 - rate)
+
+
+def dropout_threshold16(rate: float) -> int:
+    """FastDropout's uint16 threshold: keep where bits >= round(rate * 65536)."""
+    return int(round(rate * 65536.0))
+
+
+def fast_dropout_plain(x: torch.Tensor, rate: float, bits: torch.Tensor) -> torch.Tensor:
+    """`FastDropout` with given uint16 `bits` (any integer dtype, values in
+    [0, 65536), x's shape): keep where bits >= t = round(rate * 65536),
+    scaled by 65536 / (65536 - t) in x's dtype."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    t = dropout_threshold16(rate)
+    if t == 0:
+        return x
+    scale = torch.tensor(65536.0 / (65536 - t), dtype=x.dtype, device=x.device)
+    return torch.where(bits >= t, x * scale, torch.zeros_like(x))
+
+
+def fast_dropout(x: torch.Tensor, rate: float, rng: StepRng | None) -> torch.Tensor:
+    """Hidden dropout from uint16 bits drawn on `rng.generator`; identity
+    when `rng` is None or the rate is 0."""
+    if rng is None or dropout_threshold16(rate) == 0:
+        return x
+    bits = torch.randint(0, 65536, x.shape, dtype=torch.int32,
+                         generator=rng.generator, device=x.device)
+    return fast_dropout_plain(x, rate, bits)

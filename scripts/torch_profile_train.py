@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Where the time of one pretrain_mum training step goes in the PyTorch
+port, on one GPU.
+
+    python3 scripts/torch_profile_train.py
+
+Builds the training configuration of `chip_smoke.py` (vlmo_base, bf16,
+attn_impl=auto with attention dropout 0.1, batch 32, synthetic data, random
+dVAE), takes two warm-up steps, times UNTRACED steps on the host clock with
+a synchronise around each, then traces STEPS steps with torch.profiler.
+Prints, as one JSON line: the untraced and traced wall time per step; the
+device-busy time (the union of kernel intervals, profiler ranges left out)
+and the device's idle share of the traced wall; the host time of the step's
+four phases (the trainer's `step/*` ranges, under the profiler); the device
+time by kernel family; and the kernels' device time grouped by name. Needs
+a CUDA device; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+from chip_smoke import TRAIN_BATCH, TRAIN_OVERRIDES, card_line  # noqa: E402
+from torch_profile_vqa import busy_us  # noqa: E402
+
+from exploremultimodal_torch.config import load_config  # noqa: E402
+from exploremultimodal_torch.train.trainer import Trainer  # noqa: E402
+
+STEPS = 2  # traced steps, after two warm-up ones
+UNTRACED = 3  # host-clock steps before the trace
+TOP = 20
+PHASES = ("step/batch", "step/forward", "step/backward", "step/optimizer")
+# kernel families, by the first substring of the kernel's name that matches
+FAMILIES = (
+    ("port attention kernels", ("flash_",)),
+    ("cuBLAS/cuDNN GEMM and conv", ("nvjet", "gemm", "cutlass", "sm90_", "conv", "cudnn")),
+    ("reductions", ("reduce_kernel", "norm", "softmax")),
+    ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset", "fill",
+                                "cat", "index", "gather", "scatter")),
+)
+
+
+def family(name: str) -> str:
+    for fam, keys in FAMILIES:
+        if any(k in name for k in keys):
+            return fam
+    return "other"
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_profile_train: no CUDA device", file=sys.stderr)
+        return 1
+    card = card_line()
+    trainer = Trainer(load_config(TRAIN_OVERRIDES), device="cuda")
+    for _ in range(2):
+        trainer.step()
+    untraced = []
+    for _ in range(UNTRACED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step()
+        torch.cuda.synchronize()
+        untraced.append((time.perf_counter() - t0) * 1e3)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            trainer.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
+    by_family: dict[str, float] = defaultdict(float)
+    phases: dict[str, float] = defaultdict(float)
+    intervals = []
+    for ev in prof.events():
+        dur = ev.time_range.elapsed_us()
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            if ev.name in PHASES:
+                phases[ev.name] += dur
+            continue
+        if getattr(ev, "is_user_annotation", False):
+            continue  # a profiler range on the device timeline, not a kernel
+        start = ev.time_range.start
+        intervals.append((start, start + dur))
+        by_name[ev.name][0] += dur
+        by_name[ev.name][1] += 1
+        by_family[family(ev.name)] += dur
+    busy = busy_us(intervals)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
+    print(json.dumps({
+        "card": card, "batch": TRAIN_BATCH, "steps": STEPS,
+        "untraced_ms_per_step": untraced,
+        "wall_ms_per_step": wall_us / 1e3 / STEPS,
+        "device_busy_ms_per_step": busy / 1e3 / STEPS if intervals else None,
+        "device_idle_share": 1.0 - busy / wall_us if intervals else None,
+        "kernel_launches_per_step": len(intervals) / STEPS,
+        "phase_host_ms_per_step": {k: phases[k] / 1e3 / STEPS for k in PHASES},
+        "family_device_ms_per_step": {k: v / 1e3 / STEPS for k, v in
+                                      sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "kernels": [{"name": k[:90], "ms_per_step": v[0] / 1e3 / STEPS,
+                     "calls_per_step": v[1] / STEPS}
+                    for k, v in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

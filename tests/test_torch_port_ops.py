@@ -35,6 +35,7 @@ from exploremultimodal_torch.ops.flash_attention import (
 )
 from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp, fused_mlp_fwd
 from exploremultimodal_torch.ops.preprocess import normalize_image
+from exploremultimodal_torch.ops.stochastic import StepRng
 
 
 def _attn_inputs(n, b=2, h=2, d=64, seed=0):
@@ -105,15 +106,33 @@ def test_key_padding_bias_matches_jax():
     assert NEG_INF == -1e30 and np.isfinite(want).all()
 
 
-def test_attention_refuses_training_calls():
-    q = torch.zeros(1, 1, 4, 64)
+def test_attention_refuses_dropout_beyond_the_fused_backward():
+    """In-kernel dropout needs the fused backward, N <= 512, as in JAX; the
+    multi-head wrapper then takes the plain chain, as JAX falls through to
+    its recompute path."""
+    w = torch.zeros(1, 1, 513, 64, requires_grad=True)
+    with pytest.raises(ValueError, match="N <= 512"):
+        flash_attention(w, w, w, scale=0.125, dropout_rate=0.1,
+                        dropout_seed=torch.tensor([1], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        jfa.flash_attention(*(jnp.zeros((1, 1, 513, 64)),) * 3, scale=0.125,
+                            dropout_rate=0.1, dropout_seed=jnp.asarray([1]))
+    rng = StepRng(torch.Generator(), torch.Generator(), torch.device("cpu"))
+    out = multi_head_attention(w, w, w, dropout_rate=0.1, dropout_rng=rng,
+                               impl="pallas")
+    assert out.shape == w.shape and rng.attention_calls == 0
+
+
+def test_fused_mlp_refuses_training_calls():
+    """The fused MLP has no backward kernel yet: a call that needs a
+    gradient raises instead of training through the plain version."""
+    x = torch.zeros(4, 768, requires_grad=True)
+    w1, w2 = torch.zeros(3072, 768), torch.zeros(768, 3072)
+    b1, b2 = torch.zeros(3072), torch.zeros(768)
     with pytest.raises(NotImplementedError):
-        multi_head_attention(q, q, q, dropout_rate=0.1, deterministic=False)
-    w = torch.zeros(1, 1, 4, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        flash_attention(w, w, w, scale=0.125)
+        fused_mlp(x, w1, b1, w2, b2)
     with torch.no_grad():
-        assert flash_attention(w, w, w, scale=0.125).shape == (1, 1, 4, 64)
+        assert fused_mlp(x, w1, b1, w2, b2).shape == (4, 768)
 
 
 # ------------------------------------------------------------------ fused MLP
@@ -184,7 +203,8 @@ def test_normalize_image_matches_jax():
 
 @pytest.mark.parametrize("group,name", [("model", "vlmo_base"),
                                         ("model", "vlmo_debug"),
-                                        ("train", "finetune_vqa")])
+                                        ("train", "finetune_vqa"),
+                                        ("train", "pretrain_mum")])
 def test_presets_equal_the_jax_yaml(group, name):
     """Every key of the port's preset holds what the JAX loader reads from
     the YAML; the model presets are whole copies."""
@@ -210,6 +230,9 @@ def test_base_keys_equal_the_jax_yaml():
     ["model=vlmo_debug", "train=finetune_vqa", "model.img_size=32",
      "model.max_text_len=10", "model.init_values=null",
      "data.vqav2_label_size=12", "compute_dtype=float32"],
+    ["model=vlmo_base", "train=pretrain_mum", "compute_dtype=bfloat16",
+     "train.datasets=[synthetic]", "train.discrete_vae_type=random",
+     "data.batch_size=32"],
 ])
 def test_vlmo_config_matches_jax(overrides):
     """Same overrides, same parsed values, same VlmoConfig fields."""
