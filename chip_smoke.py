@@ -27,7 +27,19 @@ Phases, in order; any failure raises and the script exits non-zero:
   8. one step at batch 2 on the card and on the CPU's plain path from the
      same weights, batch, ITM negatives and MIM labels (hidden dropout and
      DropPath off, attention dropout on through the hash), compared;
-  9. print the kernel table as one JSON line, the card line, and last
+  9. the fused MLP's dropout forward (row 7) against its plain version at
+     the finetune_vqa step's three FFN shapes and two thresholds, timed
+     beside its plain version and the library chain; the fused MLP's
+     autograd backward against the fp32 plain VJP at the largest shape;
+ 10. train finetune_vqa at vlmo_base, batch 32, with mlp_impl=fused (row 7
+     on every FFN call, rows 3 and 4 on every attention call): one warm-up
+     step and TRAIN_STEPS timed steps, with every launch counted;
+ 11. two steps with R-Drop and ISDA on (twice the row-7 launches, a grown
+     ISDA count), and two at attention and hidden dropout 0 through rows 1,
+     2 and 6;
+ 12. one finetune_vqa step at batch 2 on the card and on the CPU's plain
+     path (hidden dropout and DropPath off), compared;
+ 13. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 """
@@ -60,9 +72,20 @@ from exploremultimodal_torch.ops.flash_attention import (
     flash_attention_fwd_drop_plain,
     flash_attention_fwd_plain,
 )
-from exploremultimodal_torch.ops.mlp_fused import fused_mlp_fwd, fused_mlp_fwd_plain
+from exploremultimodal_torch.ops.mlp_fused import (
+    fused_mlp,
+    fused_mlp_fwd,
+    fused_mlp_fwd_drop,
+    fused_mlp_fwd_drop_plain,
+    fused_mlp_fwd_plain,
+    gelu_tanh,
+)
+from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 from exploremultimodal_torch.train.trainer import Trainer
 
+# every kernel wrapper of the port, each with its launch count
+KERNELS = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
+           flash_attention_bwd_drop, fused_mlp_fwd, fused_mlp_fwd_drop)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
@@ -94,8 +117,8 @@ TRAIN_OVERRIDES = [
     "data.batch_size=32",  # the JAX package's pretrain bench batch
 ]
 TRAIN_BATCH = 32
-TRAIN_STEPS = 5  # timed, after one warm-up step
-DROP0_STEPS = 2
+TRAIN_STEPS = 5  # timed, after one warm-up step, in each training phase
+EXTRA_STEPS = 2  # untimed, in each variant of a training phase
 CPU_TRAIN_BATCH = 2
 DROP_SEED = 1234
 # backward kernels vs plain versions, bf16 out. Both sum fp32 products of
@@ -119,6 +142,33 @@ CHECKED_PARAMS = (
     "transformer.blocks.11.mlp_vl.fc2.weight",
     "mim_head.fc.weight",
     "itc_temp",
+)
+
+VQA_OVERRIDES = [
+    "model=vlmo_base", "train=finetune_vqa", "compute_dtype=bfloat16",
+    "model.mlp_impl=fused", "train.datasets=[synthetic]",
+    "data.batch_size=32",  # the JAX package's VQA bench batch
+]
+VQA_BATCH = 32
+# row 7 at the finetune_vqa step's thresholds: drop_rate 0.1 (6554) and a
+# half-dropping one (32768), which reads bits with the top bit set
+MLP_DROP_THRESHOLDS = (32768, 6554)
+# the fused MLP's backward on the card (bf16: the hidden recomputed and
+# rounded to bf16, the gelu VJP and every product with bf16 operands and
+# outputs) against the fp32 VJP of the plain function on the same bf16
+# inputs: each of h1, act, dh_post and dh carries a bf16 rounding (2**-9
+# relative), so each gradient within 2% in relative L2 norm, and every
+# element within 5% of that gradient's largest magnitude (sums over 7,584
+# rows of rounded terms may cancel to near zero)
+MLP_BWD_REL_L2, MLP_BWD_ATOL_SHARE = 2e-2, 5e-2
+CHECKED_VQA_PARAMS = (
+    "transformer.patch_embed.weight",
+    "transformer.txt_embeddings.word_embeddings.weight",
+    "transformer.blocks.0.attn.qkv.weight",
+    "transformer.blocks.0.mlp_v.fc1.weight",
+    "transformer.blocks.11.mlp_vl.fc1.weight",
+    "transformer.pooler.dense.weight",
+    "vqa_classifier.fc2.weight",
 )
 
 
@@ -207,14 +257,9 @@ def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict
 
 
 def check_mlp(cfg: VlmoConfig, dev) -> list[dict]:
-    k = n_out = cfg.embed_dim
-    h = int(cfg.embed_dim * cfg.mlp_ratio)
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
-    g = torch.Generator(device=dev).manual_seed(1)
-    w1 = (torch.randn((h, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
-    w2 = (torch.randn((n_out, h), generator=g, device=dev) * 0.02).to(torch.bfloat16)
-    b1 = torch.randn(h, generator=g, device=dev) * 0.02
-    b2 = torch.randn(n_out, generator=g, device=dev) * 0.02
+    g, w1, b1, w2, b2 = mlp_weights(cfg, dev, 1)
+    k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
     b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
     rows = []
     # "probe" is no path shape: M = 64 is two blocks on 132 SMs, so its time
@@ -227,11 +272,8 @@ def check_mlp(cfg: VlmoConfig, dev) -> list[dict]:
         y = fused_mlp_fwd(x, w1, b1, w2, b2)
         ref = fused_mlp_fwd_plain(x, w1, b1, w2, b2)
         torch.cuda.synchronize()
-        diff = (y.float() - ref.float()).abs()
-        err = diff.max().item()
-        require(bool(torch.isfinite(y.float()).all()), f"mlp {stream}: non-finite")
-        require(bool((diff <= MLP_ATOL + MLP_RTOL * ref.float().abs()).all()),
-                f"mlp {stream} M={m}: max|err| {err} beyond atol {MLP_ATOL} "
+        ok, err = within(y, ref, MLP_ATOL, MLP_RTOL)
+        require(ok, f"mlp {stream} M={m}: max|err| {err} beyond atol {MLP_ATOL} "
                 f"+ rtol {MLP_RTOL}")
         nbytes = 2 * (m * k + h * k + n_out * h + m * n_out) + 4 * (h + n_out)
         bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out))
@@ -245,6 +287,134 @@ def check_mlp(cfg: VlmoConfig, dev) -> list[dict]:
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
     return rows
+
+
+def mlp_weights(cfg: VlmoConfig, dev, seed: int):
+    """Seeded bf16 (w1, w2) and fp32 (b1, b2) at the model's FFN widths."""
+    k = n_out = cfg.embed_dim
+    h = int(cfg.embed_dim * cfg.mlp_ratio)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w1 = (torch.randn((h, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    w2 = (torch.randn((n_out, h), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    b1 = torch.randn(h, generator=g, device=dev) * 0.02
+    b2 = torch.randn(n_out, generator=g, device=dev) * 0.02
+    return g, w1, b1, w2, b2
+
+
+def vqa_mlp_rows(cfg: VlmoConfig) -> tuple[int, ...]:
+    """M of the finetune_vqa step's FFN calls at batch 32: text (mlp_l),
+    image (mlp_v) and fused (mlp_vl) rows."""
+    n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    return tuple(VQA_BATCH * n for n in (cfg.max_text_len, n_img,
+                                         cfg.max_text_len + n_img))
+
+
+def check_mlp_drop(cfg: VlmoConfig, dev) -> list[dict]:
+    """Row 7 against `fused_mlp_fwd_drop_plain` at each FFN shape of the
+    finetune_vqa step and each threshold, on seeded int16 bits; then the
+    kernel, the plain version and the library chain (bf16 linear, tanh
+    gelu, where, linear) timed. The last row is the path's threshold at the
+    largest shape."""
+    g, w1, b1, w2, b2 = mlp_weights(cfg, dev, 2)
+    k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
+    b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    rows = []
+    for t in MLP_DROP_THRESHOLDS:
+        scale = torch.tensor(keep_scale16(t), dtype=torch.bfloat16, device=dev)
+        for m in vqa_mlp_rows(cfg):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16,
+                                 generator=g, device=dev)
+            y = fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t)
+            ref = fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, t)
+            torch.cuda.synchronize()
+            ok, err = within(y, ref, MLP_ATOL, MLP_RTOL)
+            require(ok, f"mlp_drop t={t} M={m}: max|err| {err} beyond atol "
+                    f"{MLP_ATOL} + rtol {MLP_RTOL}")
+
+            def library():
+                hh = F.gelu(F.linear(x, w1, b1h), approximate="tanh")
+                hh = torch.where(keep16(bits, t), hh * scale, torch.zeros_like(hh))
+                return F.linear(hh, w2, b2h)
+
+            nbytes = (2 * (m * k + h * k + n_out * h + m * n_out) + 4 * (h + n_out)
+                      + 2 * m * h)
+            bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out))
+            rows.append({
+                "threshold": t, "shape": f"M={m} K={k} H={h} N={n_out}",
+                "max_abs_err": err,
+                "kept_share": keep16(bits, t).float().mean().item(),
+                "ms": time_ms(lambda: fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t)),
+                "plain_ms": time_ms(lambda: fused_mlp_fwd_drop_plain(
+                    x, w1, b1, w2, b2, bits, t), iters=5),
+                "library_ms": time_ms(library),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+    return rows
+
+
+def check_mlp_backward(cfg: VlmoConfig, dev) -> dict:
+    """The fused MLP's autograd backward (`fused_mlp` on bf16 x, fp32 master
+    weights, bits at drop_rate 0.1), as the finetune_vqa step runs it, at
+    the largest FFN shape: every gradient against the fp32 VJP of the plain
+    function on the same inputs; then the backward timed (the forward's
+    graph kept) beside the fp32 plain backward and the bf16 library chain's
+    backward."""
+    g, w1, b1, w2, b2 = mlp_weights(cfg, dev, 3)
+    m, t = vqa_mlp_rows(cfg)[-1], MLP_DROP_THRESHOLDS[-1]
+    k, h = w1.shape[1], w1.shape[0]
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g,
+                         device=dev)
+    gy = torch.randn((m, w2.shape[0]), generator=g, device=dev).to(torch.bfloat16)
+    keep = keep16(bits, t)
+
+    def leaves(dtype):
+        return [a.detach().to(dtype).requires_grad_()
+                for a in (x, w1.float(), b1, w2.float(), b2)]
+
+    kl = [x.detach().requires_grad_()] + leaves(torch.float32)[1:]
+    y = fused_mlp(*kl, bits, t)
+    grads = torch.autograd.grad(y, kl, gy, retain_graph=True)
+
+    def plain(a, u1, c1, u2, c2):
+        hh = gelu_tanh(F.linear(a, u1, c1))
+        hh = torch.where(keep, hh * keep_scale16(t), torch.zeros_like(hh))
+        return F.linear(hh, u2, c2)
+
+    pl = leaves(torch.float32)
+    yp = plain(*pl)
+    want = torch.autograd.grad(yp, pl, gy.float(), retain_graph=True)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got, ref in zip(("dx", "dw1", "db1", "dw2", "db2"), grads, want):
+        got, ref = got.float(), ref.float()
+        rel = ((got - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        worst = ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30)).item()
+        errs[name] = {"rel_l2": rel, "max_abs_err_share": worst}
+        require(bool(torch.isfinite(got).all()) and rel <= MLP_BWD_REL_L2
+                and worst <= MLP_BWD_ATOL_SHARE,
+                f"fused MLP backward {name}: rel L2 {rel}, max err share {worst} "
+                f"beyond {MLP_BWD_REL_L2}, {MLP_BWD_ATOL_SHARE}")
+    lb = leaves(torch.bfloat16)
+    yl = F.linear(torch.where(keep, F.gelu(F.linear(lb[0], lb[1], lb[2]),
+                                           approximate="tanh") * keep_scale16(t), 0.0),
+                  lb[3], lb[4])
+    # read x, gy, the bits, the fp32 weights and b1; write dx, the fp32
+    # weight gradients, db1 and db2. Products: h1 is recomputed (K.H), then
+    # dh_post, dx, dw1 and dw2
+    n_out = w2.shape[0]
+    nbytes = 2 * (2 * m * k + m * n_out + m * h) + 8 * (h * k + n_out * h) + 4 * (2 * h + n_out)
+    bound_ms, bound_by = bound(nbytes, 2 * m * (3 * k * h + 2 * h * n_out))
+    return {
+        "shape": f"M={m} K={k} H={h}", "threshold": t, "errors": errs,
+        "bwd_ms": time_ms(lambda: torch.autograd.grad(y, kl, gy, retain_graph=True)),
+        "plain_bwd_ms": time_ms(lambda: torch.autograd.grad(yp, pl, gy.float(),
+                                                            retain_graph=True), iters=5),
+        "library_bwd_ms": time_ms(lambda: torch.autograd.grad(yl, lb, gy,
+                                                              retain_graph=True)),
+        "bwd_bound_ms": bound_ms, "bwd_bound_by": bound_by,
+    }
 
 
 def make_requests(cfg: VlmoConfig, rng: np.random.Generator, count: int = N_REQUESTS):
@@ -262,6 +432,13 @@ def make_requests(cfg: VlmoConfig, rng: np.random.Generator, count: int = N_REQU
     return reqs
 
 
+def img_txt_calls(cfg: VlmoConfig) -> int:
+    """Attention calls and FFN calls of one img-txt forward (a VQA request,
+    or one forward of the finetune_vqa step): the image and text streams
+    below the fusion layer, the fused rows above it."""
+    return 2 * cfg.fusion_layer + (cfg.depth - cfg.fusion_layer)
+
+
 def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
     t0 = time.perf_counter()
     state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
@@ -270,8 +447,8 @@ def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     reqs = make_requests(cfg, np.random.default_rng(0))
 
-    flash_attention_fwd.launches = 0
-    fused_mlp_fwd.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
     latencies, outputs = [], []
     for img, ids, mask in reqs:
         t = time.perf_counter()
@@ -281,7 +458,7 @@ def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
     launches = {"flash_attention_fwd": flash_attention_fwd.launches,
                 "fused_mlp_fwd": fused_mlp_fwd.launches}
 
-    per_request = 2 * cfg.fusion_layer + (cfg.depth - cfg.fusion_layer)
+    per_request = img_txt_calls(cfg)
     for name, count in launches.items():
         require(count == per_request * N_REQUESTS,
                 f"{name}: {count} launches for {N_REQUESTS} requests, expected "
@@ -477,79 +654,6 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int) -> dict:
             keep.float().mean().item()}
 
 
-def train_phase(cfg_dict: dict, cfg: VlmoConfig) -> dict:
-    """The training step at vlmo_base, batch 32: warm-up, then TRAIN_STEPS
-    steps timed one by one, each with a synchronise around it."""
-    t0 = time.perf_counter()
-    trainer = Trainer(cfg_dict, device="cuda")
-    print(f"train: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
-    params = dict(trainer.task.named_parameters())
-    before = {k: params[k].detach().clone() for k in CHECKED_PARAMS}
-    trainer.step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
-               flash_attention_bwd_drop, fused_mlp_fwd)
-    for fn in kernels:
-        fn.launches = 0
-    steps, times = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        m = trainer.step()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-        steps.append({k: float(v) for k, v in m.items()})
-    launches = {fn.__name__: fn.launches for fn in kernels}
-    per_step = attention_calls_per_step(cfg)
-    for name in ("flash_attention_fwd_drop", "flash_attention_bwd_drop"):
-        require(launches[name] == per_step * TRAIN_STEPS,
-                f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps, expected "
-                f"{per_step} per step")
-    for m in steps:
-        require(all(np.isfinite(v) for v in m.values()), f"non-finite metrics: {m}")
-    moved = {k: (params[k].detach() - before[k]).abs().max().item() for k in CHECKED_PARAMS}
-    require(all(x > 0 for x in moved.values()), f"parameters did not change: {moved}")
-    med = statistics.median(times)
-    result = {
-        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in times],
-        "median_ms_per_step": med * 1e3, "images_per_s": TRAIN_BATCH / med,
-        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches, "attention_calls_per_step": per_step,
-        "losses": [{k: v for k, v in m.items() if k.endswith("_task_loss")
-                    or k in ("total_loss", "grad_norm", "lr")} for m in steps],
-        "max_param_change": moved,
-    }
-    print("train: " + json.dumps(result), flush=True)
-    del trainer
-    torch.cuda.empty_cache()
-    return launches
-
-
-def drop0_phase() -> dict:
-    """attn_impl=pallas at attention dropout 0: rows 1 and 2 on the step."""
-    cfg_dict = load_config(TRAIN_OVERRIDES + ["attn_impl=pallas",
-                                              "model.attn_drop_rate=0.0"])
-    trainer = Trainer(cfg_dict, device="cuda")
-    flash_attention_fwd.launches = flash_attention_bwd.launches = 0
-    steps = [{k: float(v) for k, v in trainer.step().items()} for _ in range(DROP0_STEPS)]
-    torch.cuda.synchronize()
-    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
-                "flash_attention_bwd": flash_attention_bwd.launches}
-    per_step = attention_calls_per_step(VlmoConfig.from_config(cfg_dict))
-    for name, count in launches.items():
-        require(count == per_step * DROP0_STEPS,
-                f"attn_drop 0: {name} {count} launches in {DROP0_STEPS} steps, "
-                f"expected {per_step} per step")
-    for m in steps:
-        require(all(np.isfinite(v) for v in m.values()), f"non-finite metrics: {m}")
-    print("train_attn_drop0: " + json.dumps({
-        "launches": launches, "total_loss": [m["total_loss"] for m in steps]}), flush=True)
-    del trainer
-    torch.cuda.empty_cache()
-    return launches
-
-
 def cpu_check_phase() -> dict:
     """One step at batch CPU_TRAIN_BATCH on the card and on the CPU's plain
     path: same seeded weights, batch, attention-dropout seeds, ITM negatives
@@ -563,39 +667,143 @@ def cpu_check_phase() -> dict:
     gpu_labels = gpu.model_batch(batch)["mim_labels"].cpu()
     b = CPU_TRAIN_BATCH
     negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
-    before = {k: p.detach().clone() for k, p in cpu.task.named_parameters()
-              if k in CHECKED_PARAMS}
+    agreement = (gpu_labels == labels).float().mean().item()
+    print(f"train_cpu_check: dvae_token_agreement {agreement}", flush=True)
+    result = compare_step("train_cpu_check", gpu, cpu, batch, CHECKED_PARAMS,
+                          negatives=negatives, mim_labels=labels)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
+def run_counted(trainer: Trainer, steps: int, timed: bool = False):
+    """`steps` steps with every kernel's count set to 0 just before and
+    read just after; with `timed`, a synchronise around each step."""
+    for fn in KERNELS:
+        fn.launches = 0
+    metrics, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.step()
+        if timed:
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        metrics.append({k: float(v) for k, v in m.items()})
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    for m in metrics:
+        require(all(np.isfinite(v) for v in m.values()), f"non-finite metrics: {m}")
+    return metrics, times, launches
+
+
+def require_launches(tag: str, launches: dict, expected: dict, steps: int) -> None:
+    for name, per_step in expected.items():
+        require(launches[name] == per_step * steps,
+                f"{tag}: {name} {launches[name]} launches in {steps} steps, "
+                f"expected {per_step} per step")
+
+
+def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict) -> dict:
+    """A training step at vlmo_base, batch 32: one warm-up step, then
+    TRAIN_STEPS steps timed one by one, each with a synchronise around it,
+    every kernel's launches counted against `expected` (per step) and the
+    `checked` parameters required to move."""
     t0 = time.perf_counter()
-    m_cpu = cpu.step(batch, negatives=negatives, mim_labels=labels)
+    trainer = Trainer(cfg_dict, device="cuda")
+    print(f"{tag}: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    params = dict(trainer.task.named_parameters())
+    before = {k: params[k].detach().clone() for k in checked}
+    trainer.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps, times, launches = run_counted(trainer, TRAIN_STEPS, timed=True)
+    require_launches(tag, launches, expected, TRAIN_STEPS)
+    moved = {k: (params[k].detach() - before[k]).abs().max().item() for k in checked}
+    require(all(x > 0 for x in moved.values()), f"{tag}: parameters did not change: {moved}")
+    batch, med = cfg_dict["data"]["batch_size"], statistics.median(times)
+    result = {
+        "batch": batch, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in times],
+        "median_ms_per_step": med * 1e3, "images_per_s": batch / med,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "expected_launches_per_step": expected,
+        "losses": [{k: v for k, v in m.items() if k.endswith("_task_loss") or k in
+                    ("vqa_mean_score", "total_loss", "grad_norm", "lr")} for m in steps],
+        "max_param_change": moved,
+    }
+    print(f"{tag}: " + json.dumps(result), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def short_phase(tag: str, cfg_dict: dict, expected: dict):
+    """EXTRA_STEPS untimed steps, every kernel's launches counted against
+    `expected` (per step). Returns the launches, the steps' metrics and the
+    ISDA count after them (None without ISDA)."""
+    trainer = Trainer(cfg_dict, device="cuda")
+    steps, _, launches = run_counted(trainer, EXTRA_STEPS)
+    require_launches(tag, launches, expected, EXTRA_STEPS)
+    isda = trainer.state.isda
+    count = None if isda is None else float(isda.count.sum())
+    print(f"{tag}: " + json.dumps({
+        "launches": launches, "isda_count": count,
+        "losses": [{k: v for k, v in m.items() if k.endswith("_task_loss")
+                    or k == "total_loss"} for m in steps]}), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, steps, count
+
+
+def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
+                 **step_kw) -> dict:
+    """One step on each trainer from the same host batch; the losses, the
+    named gradients (relative L2) and the signs of the first AdamW update
+    compared against LOSS_RTOL, GRAD_REL_TOL and UPDATE_AGREEMENT."""
+    before = {k: p.detach().clone() for k, p in cpu.task.named_parameters()
+              if k in names}
+    t0 = time.perf_counter()
+    m_cpu = cpu.step(batch, **step_kw)
     cpu_s = time.perf_counter() - t0
-    m_gpu = gpu.step(batch, negatives=negatives, mim_labels=labels)
+    m_gpu = gpu.step(batch, **step_kw)
     torch.cuda.synchronize()
     lr = float(m_cpu["lr"])
     p_cpu, p_gpu = dict(cpu.task.named_parameters()), dict(gpu.task.named_parameters())
     losses = {k: (float(m_gpu[k]), float(m_cpu[k])) for k in m_cpu
               if k.endswith("_task_loss") or k.endswith("_Loss") or k == "total_loss"}
     grads, agree = {}, {}
-    for k in CHECKED_PARAMS:
+    for k in names:
         g_cpu, g_gpu = p_cpu[k].grad.float(), p_gpu[k].grad.float().cpu()
         grads[k] = ((g_gpu - g_cpu).norm() / g_cpu.norm().clamp_min(1e-30)).item()
         step_cpu = (p_cpu[k].detach() - before[k]) / lr
         step_gpu = (p_gpu[k].detach().cpu() - before[k]) / lr
         agree[k] = (torch.sign(step_cpu) == torch.sign(step_gpu)).float().mean().item()
     result = {
-        "batch": b, "cpu_step_s": cpu_s,
-        "dvae_token_agreement": (gpu_labels == labels).float().mean().item(),
+        "batch": CPU_TRAIN_BATCH, "cpu_step_s": cpu_s,
         "losses_gpu_cpu": losses, "grad_norm_gpu_cpu": (float(m_gpu["grad_norm"]),
                                                         float(m_cpu["grad_norm"])),
         "grad_rel_err": grads, "update_sign_agreement": agree, "lr": lr,
     }
-    print("train_cpu_check: " + json.dumps(result), flush=True)
+    print(f"{tag}: " + json.dumps(result), flush=True)
     for k, (g, c) in losses.items():
         require(abs(g - c) <= LOSS_RTOL * abs(c) + 1e-3,
-                f"{k}: GPU {g} vs CPU {c} beyond rtol {LOSS_RTOL}")
+                f"{tag} {k}: GPU {g} vs CPU {c} beyond rtol {LOSS_RTOL}")
     require(max(grads.values()) <= GRAD_REL_TOL,
-            f"gradients differ from the CPU path: {grads}")
+            f"{tag}: gradients differ from the CPU path: {grads}")
     require(min(agree.values()) >= UPDATE_AGREEMENT,
-            f"post-step parameters differ from the CPU path: {agree}")
+            f"{tag}: post-step parameters differ from the CPU path: {agree}")
+    return result
+
+
+def vqa_cpu_check_phase() -> dict:
+    """One finetune_vqa step at batch CPU_TRAIN_BATCH on the card and on the
+    CPU's plain path: same seeded weights, batch and attention-dropout
+    seeds, hidden dropout and DropPath off (mlp_impl=fused: row 6)."""
+    cfg_dict = load_config(VQA_OVERRIDES + [
+        f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
+        "model.drop_path_rate=0.0"])
+    gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
+    result = compare_step("vqa_cpu_check", gpu, cpu, cpu.next_batch(), CHECKED_VQA_PARAMS)
     del gpu, cpu
     torch.cuda.empty_cache()
     return result
@@ -642,9 +850,49 @@ def main() -> int:
             print("kernel: " + json.dumps({"name": name, **row}), flush=True)
     print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev, 3 * TRAIN_BATCH)),
           flush=True)
-    train_launches = train_phase(train_dict, train_cfg)
-    drop0_launches = drop0_phase()
+    per_step = attention_calls_per_step(train_cfg)
+    train_launches = timed_phase("train", train_dict, CHECKED_PARAMS, {
+        "flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step})
+    # attn_impl=pallas at attention dropout 0: rows 1 and 2 on the step
+    drop0_launches, _, _ = short_phase(
+        "train_attn_drop0",
+        load_config(TRAIN_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"]),
+        {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step})
     cpu_check_phase()
+
+    vqa_dict = load_config(VQA_OVERRIDES)
+    vqa_cfg = VlmoConfig.from_config(vqa_dict)
+    require(vqa_cfg.attn_impl == "auto" and vqa_cfg.attn_drop_rate > 0
+            and vqa_cfg.drop_rate > 0 and vqa_cfg.mlp_impl == "fused"
+            and vqa_cfg.kl_alpha == 0 and vqa_cfg.isda_lambda == 0
+            and vqa_dict["data"]["batch_size"] == VQA_BATCH,
+            "the finetune_vqa phase must run the default dropout path at batch 32")
+    mlp_drop_rows = check_mlp_drop(vqa_cfg, dev)
+    for row in mlp_drop_rows:
+        print("kernel: " + json.dumps({"name": "fused_mlp_fwd_drop", **row}), flush=True)
+    print("mlp_backward: " + json.dumps(check_mlp_backward(vqa_cfg, dev)), flush=True)
+    calls = img_txt_calls(vqa_cfg)
+    # rows 7, 3 and 4 on every FFN and attention call, row 6 on none
+    vqa_launches = timed_phase("vqa_train", vqa_dict, CHECKED_VQA_PARAMS, {
+        "fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+        "flash_attention_bwd_drop": calls, "fused_mlp_fwd": 0})
+    # R-Drop's second forward doubles every launch; ISDA counts the batch
+    _, steps, count = short_phase(
+        "vqa_rdrop_isda",
+        load_config(VQA_OVERRIDES + ["train.kl_alpha=1.0", "train.isda_lambda=0.5"]),
+        {"fused_mlp_fwd_drop": 2 * calls, "flash_attention_fwd_drop": 2 * calls,
+         "flash_attention_bwd_drop": 2 * calls})
+    require(count == EXTRA_STEPS * VQA_BATCH and all("vqa_kl_task_loss" in m for m in steps),
+            f"R-Drop/ISDA: ISDA count {count} after {EXTRA_STEPS} steps of {VQA_BATCH}, "
+            "or no KL loss")
+    # attention and hidden dropout 0 at attn_impl=pallas: rows 1, 2 and 6 train
+    short_phase(
+        "vqa_drop0",
+        load_config(VQA_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0",
+                                     "model.drop_rate=0.0"]),
+        {"flash_attention_fwd": calls, "flash_attention_bwd": calls,
+         "fused_mlp_fwd": calls, "fused_mlp_fwd_drop": 0})
+    vqa_cpu_check_phase()
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
@@ -660,6 +908,8 @@ def main() -> int:
     fwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu"
     bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
+    mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu"
+    tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
     kernels = [
         entry("flash_attention_fwd", "cuda", fwd_src, f"{tpu_fa}:152", attn_rows,
               serve_launches),
@@ -669,9 +919,10 @@ def main() -> int:
               train_rows["flash_attention_fwd_drop"], train_launches),
         entry("flash_attention_bwd_drop", "cuda", bwd_src, f"{tpu_fa}:237",
               train_rows["flash_attention_bwd_drop"], train_launches),
-        entry("fused_mlp_fwd", "cuda",
-              "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu",
-              "exploremultimodal_tpu/ops/mlp_pallas.py:56", mlp_rows, serve_launches),
+        entry("fused_mlp_fwd", "cuda", mlp_src, f"{tpu_mlp}:56", mlp_rows,
+              serve_launches),
+        entry("fused_mlp_fwd_drop", "cuda", mlp_src, f"{tpu_mlp}:69", mlp_drop_rows,
+              vqa_launches),
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

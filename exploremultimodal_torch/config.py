@@ -5,7 +5,7 @@ Counterpart of `exploremultimodal_tpu/config` + `configs/*.yaml` and of
 dicts, copied from the YAML files, because the serving machine has no PyYAML;
 `tests/test_torch_port_ops.py` holds each one equal to what the JAX loader
 reads. Only the presets and keys the VQA serving path and the pretrain_mum
-training step read are here. Keys the JAX code reads with a default
+and finetune_vqa training steps read are here. Keys the JAX code reads with a default
 (`data.synthetic_size`, `train.mlm_gather_cap`, ...) are read with the same
 default here.
 """
@@ -84,10 +84,38 @@ MODEL_PRESETS: dict[str, dict[str, Any]] = {
     },
 }
 
-# configs/train/*.yaml: finetune_vqa with the keys the serving path reads,
-# pretrain_mum whole
+# configs/train/*.yaml, whole
 TRAIN_PRESETS: dict[str, dict[str, Any]] = {
-    "finetune_vqa": {"phase": "finetune_vqa", "loss_names": ["vqa"]},
+    "finetune_vqa": {
+        "phase": "finetune_vqa",
+        "loss_names": ["vqa"],
+        "datasets": ["vqa"],
+        "kl_alpha": 0.0,  # R-Drop: a second stochastic forward + symmetric KL
+        "isda_lambda": 0,  # implicit semantic data augmentation
+        "start_epoch": 0,
+        "epochs": 10,
+        "cur_epoch": 0,
+        "warmup_epochs": 3,
+        "warmup_steps": 2500,
+        "weight_decay": 0.01,
+        "weight_decay_end": 0.01,
+        "base_lr": 3.0e-6,
+        "warmup_lr": 5.0e-7,
+        "min_lr": 5.0e-6,
+        "lr_mult_head": 50,
+        "lr_mult_fusion": 5,
+        "flat_loss": False,
+        "clip_grad": None,
+        "auto_resume": True,
+        "resume": "",
+        "accumulation_steps": 1,
+        "save_freq": 1,
+        "print_freq": 300,
+        "print_stat_level": 2,
+        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
+        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
+                "momentum": 0.9},
+    },
     "pretrain_mum": {
         "phase": "pretrain_mum",
         "loss_names": ["mlm", "itc", "itm", "mim"],
@@ -187,7 +215,8 @@ def load_config(overrides: Iterable[str] = ()) -> dict[str, Any]:
 @dataclasses.dataclass(frozen=True)
 class VlmoConfig:
     """Static model + task configuration (the subset of the JAX VlmoConfig
-    that serving and pretrain_mum read, same field names and defaults)."""
+    that serving, pretrain_mum and finetune_vqa read, same field names and
+    defaults)."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -217,6 +246,8 @@ class VlmoConfig:
     attn_impl: str = "xla"
     quantize: str = "none"
     mlp_impl: str = "xla"
+    kl_alpha: float = 0.0
+    isda_lambda: float = 0.0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -254,4 +285,6 @@ class VlmoConfig:
             attn_impl=cfg.get("attn_impl", "xla"),
             quantize=str(m.get("quantize", "none")),
             mlp_impl=str(m.get("mlp_impl", "xla")),
+            kl_alpha=float(t.get("kl_alpha", 0.0)),
+            isda_lambda=float(t.get("isda_lambda", 0.0)),
         )

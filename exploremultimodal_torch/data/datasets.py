@@ -1,6 +1,6 @@
-"""The synthetic pretrain dataset (counterpart of
-`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain
-contract): the same samples, drawn in the same order from the same numpy
+"""The synthetic dataset (counterpart of
+`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain and
+VQA contracts): the same samples, drawn in the same order from the same numpy
 generator, so a seed gives the JAX package's batch.
 
 The repository holds no image-text arrow shards, so this is the training
@@ -21,18 +21,21 @@ Sample = dict[str, Any]
 class SyntheticDataset:
     """Deterministic in-memory samples with the pretrain batch contract:
     token ids and mask, MLM ids and labels, a uint8 image, its blockwise
-    patch mask and the half-size uint8 image for the dVAE tokenizer."""
+    patch mask, the half-size uint8 image for the dVAE tokenizer (where
+    `second_size` is set) and a one-hot VQA target over `vqa_label_size`
+    answers (where that is set)."""
 
     def __init__(self, size: int = 256, *, img_size: int = 224,
                  second_size: int | None = 112, max_text_len: int = 40,
                  vocab_size: int = 30522, mask_generator: MaskingGenerator,
-                 seed: int = 0):
+                 vqa_label_size: int | None = None, seed: int = 0):
         self.size = size
         self.img_size = img_size
         self.second_size = second_size
         self.max_text_len = max_text_len
         self.vocab_size = vocab_size
         self.mask_generator = mask_generator
+        self.vqa_label_size = vqa_label_size
         self.seed = seed
 
     def __len__(self) -> int:
@@ -67,14 +70,21 @@ class SyntheticDataset:
         if self.second_size:
             sample["image4dalle_u8"] = rng.integers(
                 0, 256, (self.second_size, self.second_size, 3), dtype=np.uint8)
+        if self.vqa_label_size:
+            t = np.zeros(self.vqa_label_size, np.float32)
+            t[rng.integers(0, self.vqa_label_size)] = 1.0
+            sample["vqa_targets"] = t
         return sample
 
 
 def build_dataset(cfg: dict) -> SyntheticDataset:
     """The training dataset of `cfg`, as the JAX `MultiTaskData` builds the
-    `synthetic` key for a pretrain phase. Only `train.datasets=[synthetic]`
-    is ported."""
-    keys = list(cfg["train"]["datasets"])
+    `synthetic` key: a phase with masked images (pretraining, or MIM) gets
+    the configured patch masker and the dVAE's half-size image, any other
+    the default masker and no second image; `vqa` adds the VQA targets.
+    Only `train.datasets=[synthetic]` is ported."""
+    t = cfg["train"]
+    keys = list(t["datasets"])
     if keys != ["synthetic"]:
         raise NotImplementedError(
             f"train.datasets={keys}: only the synthetic dataset is ported (the "
@@ -82,12 +92,20 @@ def build_dataset(cfg: dict) -> SyntheticDataset:
     d, m = cfg["data"], cfg["model"]
     if d.get("mask_style", "block") != "block":
         raise NotImplementedError(f"data.mask_style={d['mask_style']!r}")
+    losses = set(t["loss_names"])
+    masked_image = t["phase"].startswith("pretrain") or "mim" in losses
     grid = m["img_size"] // m["patch_size"]
-    masker = MaskingGenerator(
-        grid, num_masking_patches=d["num_mask_patches"],
-        min_num_patches=d.get("min_mask_patches_per_block") or 4,
-        max_num_patches=d.get("max_mask_patches_per_block"))
+    if masked_image:
+        masker = MaskingGenerator(
+            grid, num_masking_patches=d["num_mask_patches"],
+            min_num_patches=d.get("min_mask_patches_per_block") or 4,
+            max_num_patches=d.get("max_mask_patches_per_block"))
+    else:
+        masker = MaskingGenerator(grid, d["num_mask_patches"],
+                                  min_num_patches=min(16, d["num_mask_patches"]))
     return SyntheticDataset(
         size=d.get("synthetic_size", 256), img_size=m["img_size"],
-        second_size=m["img_size"] // 2, max_text_len=m["max_text_len"],
-        vocab_size=m["vocab_size"], mask_generator=masker)
+        second_size=m["img_size"] // 2 if masked_image else None,
+        max_text_len=m["max_text_len"], vocab_size=m["vocab_size"],
+        mask_generator=masker,
+        vqa_label_size=d["vqav2_label_size"] if "vqa" in losses else None)

@@ -3,6 +3,9 @@
     python -m exploremultimodal_torch.main train=pretrain_mum model=vlmo_base \\
         'train.datasets=[synthetic]' train.discrete_vae_type=random \\
         data.batch_size=32 steps=10
+    python -m exploremultimodal_torch.main train=finetune_vqa model=vlmo_base \\
+        compute_dtype=bfloat16 model.mlp_impl=fused 'train.datasets=[synthetic]' \\
+        data.batch_size=32 steps=10
 
 Runs on the GPU; `device=cpu` runs the plain PyTorch path on the CPU. Without
 `steps=N` it trains `train.epochs` epochs of the loader. Each step's metrics
@@ -14,6 +17,8 @@ from __future__ import annotations
 import json
 import sys
 import time
+
+TRAINED_PHASES = ("pretrain_mum", "finetune_vqa")
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -30,9 +35,9 @@ def main(argv: list[str] | None = None) -> int:
         else:
             overrides.append(arg)
     cfg = load_config(overrides)
-    if cfg["train"]["phase"] != "pretrain_mum":
+    if cfg["train"]["phase"] not in TRAINED_PHASES:
         raise NotImplementedError(
-            f"train={cfg['train']['phase']}: only pretrain_mum trains in the port")
+            f"train={cfg['train']['phase']}: the port trains {TRAINED_PHASES}")
     trainer = Trainer(cfg, device=opts["device"])
     steps = (int(opts["steps"]) if opts["steps"] is not None
              else int(cfg["train"]["epochs"]) * trainer.steps_per_epoch)

@@ -1,7 +1,10 @@
 """Task heads (counterpart of `exploremultimodal_tpu/models/heads.py`): the
-VQA classifier and the pretrain_mum heads, with flax's parameter names."""
+VQA classifier with its ISDA statistics and the pretrain_mum heads, with
+flax's parameter names."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -21,9 +24,70 @@ class VQAClassifier(nn.Module):
         self.ln = LayerNorm(2 * dim, eps=norm_eps)
         self.fc2 = Linear(2 * dim, num_classes, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.ln(self.fc1(x))
-        return self.fc2(F.gelu(h.to(self.dtype)))
+    def forward(self, x: torch.Tensor, return_hidden: bool = False):
+        """Logits; with `return_hidden`, (logits, the gelu hidden in the
+        compute dtype), the features ISDA reads."""
+        h = F.gelu(self.ln(self.fc1(x)).to(self.dtype))
+        logits = self.fc2(h)
+        return (logits, h) if return_hidden else logits
+
+
+# --------------------------------------------------------------------- ISDA
+
+
+@dataclasses.dataclass
+class ISDAState:
+    """Running per-class feature statistics for ISDA: count (C,), mean
+    (C, A) and the diagonal covariance cov (C, A), all fp32."""
+
+    count: torch.Tensor
+    mean: torch.Tensor
+    cov: torch.Tensor
+
+    @classmethod
+    def create(cls, num_classes: int, feature_dim: int,
+               device: str | torch.device = "cpu") -> "ISDAState":
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        return cls(zeros(num_classes), zeros(num_classes, feature_dim),
+                   zeros(num_classes, feature_dim))
+
+
+def isda_update(state: ISDAState, features: torch.Tensor,
+                onehot: torch.Tensor) -> ISDAState:
+    """Merge the batch's per-class mean and variance of `features` (N, A)
+    into the running estimate; `onehot` (N, C) marks each row's classes.
+    The features carry no gradient."""
+    features = features.detach().float()
+    onehot = onehot.float()
+    amount = onehot.sum(0)
+    amount_safe = amount.clamp_min(1.0)
+    sums = onehot.T @ features
+    ave = sums / amount_safe[:, None]
+    sq_dev = onehot.T @ (features ** 2) - 2 * ave * sums + ave ** 2 * amount[:, None]
+    var = sq_dev / amount_safe[:, None]
+    weight = torch.nan_to_num(amount / (amount + state.count).clamp_min(1.0))[:, None]
+    cov = (state.cov * (1 - weight) + var * weight
+           + weight * (1 - weight) * (state.mean - ave) ** 2)
+    mean = state.mean * (1 - weight) + ave * weight
+    return ISDAState(count=state.count + amount, mean=mean, cov=cov)
+
+
+def isda_logits(logits: torch.Tensor, fc_kernel: torch.Tensor,
+                labels: torch.Tensor, cov: torch.Tensor,
+                ratio: float) -> torch.Tensor:
+    """ISDA logit augmentation: y_c += ratio / 2 * sum_a (w_c - w_y)^2
+    cov[y, a], with w = `fc_kernel`^T from the last layer's (A, C) kernel
+    (the gradient reaches it) and `cov` (C, A) taken as a constant. The sum is expanded
+    into products, w^2 . cov_y - 2 w . (w_y cov_y) + sum_a w_y^2 cov_y, so
+    the (N, C, A) difference is never formed; in fp32, and the result in
+    fp32 as JAX's trainer gets it (its ratio is an fp32 array)."""
+    w = fc_kernel.T.float()
+    w_y, cov_y = w[labels], cov[labels].detach()
+    sigma2 = ((w * w) @ cov_y.T - 2.0 * (w @ (w_y * cov_y).T)).T \
+        + (w_y * w_y * cov_y).sum(-1, keepdim=True)
+    return logits + 0.5 * ratio * sigma2.to(logits.dtype).float()
 
 
 class MLMTransform(nn.Module):

@@ -1,6 +1,6 @@
 """VlmoTask: the backbone, the heads and the multitask forward (counterpart
-of `exploremultimodal_tpu/models/task.py`; the VQA head for serving and the
-pretrain_mum heads MLM, ITC, ITM and MIM for training).
+of `exploremultimodal_tpu/models/task.py`; the VQA head for serving and
+finetune_vqa, and the pretrain_mum heads MLM, ITC, ITM and MIM).
 
 The frozen dVAE is not a submodule: the trainer computes the MIM targets and
 hands them in as `batch['mim_labels']`, as the JAX trainer does.
@@ -30,7 +30,7 @@ from exploremultimodal_torch.objectives import losses as obj
 from exploremultimodal_torch.ops.stochastic import StepRng
 
 SUPPORTED_HEADS = ("vqa", "mlm", "itc", "itm", "mim")
-TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim")
+TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim", "vqa")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -120,8 +120,12 @@ class VlmoTask(nn.Module):
 
     # --------------------------------------------------------------- head fns
 
-    def vqa_logits(self, cls_feats: torch.Tensor) -> torch.Tensor:
-        return self.vqa_classifier(cls_feats)
+    def vqa_logits(self, cls_feats: torch.Tensor, return_hidden: bool = False):
+        return self.vqa_classifier(cls_feats, return_hidden=return_hidden)
+
+    def vqa_last_kernel(self) -> torch.Tensor:
+        """The classifier's last weight as JAX's (A, C) kernel."""
+        return self.vqa_classifier.fc2.weight.T
 
     def mlm_logits(self, txt_feats: torch.Tensor) -> torch.Tensor:
         h = self.mlm_head(txt_feats)
@@ -139,17 +143,16 @@ class VlmoTask(nn.Module):
     # ---------------------------------------------------------------- forward
 
     def forward(self, batch: dict, rng: StepRng | None = None,
-                negatives=None) -> dict:
+                negatives=None, isda_state=None, isda_ratio: float = 0.0) -> dict:
         """The union of the active objectives, as JAX's `__call__`. ITC runs
         first: its below-fusion hidden states feed MLM's fused forward and
         ITM's pair rows. `rng` None is deterministic (no dropout); the ITM
-        negatives then come from `negatives` = (neg_img_idx, neg_txt_idx)."""
+        negatives then come from `negatives` = (neg_img_idx, neg_txt_idx).
+        VQA takes the ISDA statistics `isda_state` (None: no ISDA) and
+        returns their update as `isda_state`."""
         names = self.config.loss_names
         if not names:
             return self.infer(batch)
-        if "vqa" in names:
-            raise NotImplementedError(
-                "the vqa objective is not ported: serve with `vqa_logits`")
         ret: dict = {}
         if "itc" in names:
             ret.update(obj.compute_itc(self, batch, rng))
@@ -160,6 +163,9 @@ class VlmoTask(nn.Module):
             ret.update(obj.compute_mim(self, batch, rng))
         if "itm" in names:
             ret.update(obj.compute_itm(self, batch, shared, rng, negatives))
+        if "vqa" in names:
+            ret.update(obj.compute_vqa(self, batch, rng, isda_state=isda_state,
+                                       isda_ratio=isda_ratio))
         return ret
 
     @torch.no_grad()

@@ -10,8 +10,9 @@ a transpose. Numerics follow the JAX modules:
   - LayerNorm runs in fp32 with flax's statistics (var = E[x^2] - E[x]^2),
     and its output is cast back to the compute dtype by the caller;
   - q/v biases are added after the head split; k has none;
-  - the FFN expert is the fused kernel (tanh gelu) under `mlp_impl='fused'`
-    where `fits_vmem` admits the shape, else two Linears with erf gelu.
+  - the FFN expert is the fused kernel (tanh gelu, the hidden dropout
+    inside it) under `mlp_impl='fused'` where `fits_vmem` admits the
+    shape, else two Linears with erf gelu.
 Dropout and DropPath draw on the step's `StepRng`; without one (`rng=None`)
 the forward is deterministic, as JAX's `deterministic=True`. Images are
 NHWC, as in the JAX package.
@@ -28,7 +29,13 @@ from torch import nn
 
 from exploremultimodal_torch.ops.attention import key_padding_bias, multi_head_attention
 from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp
-from exploremultimodal_torch.ops.stochastic import StepRng, drop_path, fast_dropout
+from exploremultimodal_torch.ops.stochastic import (
+    StepRng,
+    bits16,
+    drop_path,
+    dropout_threshold16,
+    fast_dropout,
+)
 
 ROUTES = ("v", "l", "vl")
 
@@ -73,9 +80,14 @@ class Mlp(nn.Module):
         self.fused = mlp_impl == "fused" and fits_vmem(dim, hidden_dim, dim)
 
     def forward(self, x: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
-        if self.fused:  # forward only: a training call raises in fused_mlp
+        if self.fused:
+            # the hidden dropout inside the kernel, from uint16 bits drawn
+            # here (JAX's `fused_bf16_mlp_dropout`), then the post-fc2 one
+            t = dropout_threshold16(self.drop_rate) if rng is not None else 0
+            bits = (bits16(rng, x.shape[:-1] + (self.fc1.out_features,), x.device)
+                    if t > 0 else None)
             y = fused_mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
-                          self.fc2.weight, self.fc2.bias)
+                          self.fc2.weight, self.fc2.bias, bits, t)
             return fast_dropout(y, self.drop_rate, rng)
         h = fast_dropout(F.gelu(self.fc1(x)), self.drop_rate, rng)
         return fast_dropout(self.fc2(h), self.drop_rate, rng)

@@ -1,9 +1,10 @@
-"""The pretrain_mum objectives as fixed-shape functions.
+"""The pretrain_mum and finetune_vqa objectives as fixed-shape functions.
 
 Counterpart of `exploremultimodal_tpu/objectives/losses.py`: `_gather_cap`,
 `masked_cross_entropy`, `gather_masked_positions`, `compute_mlm`, the
 in-batch (naive) branch of `compute_itc`, `itm_sample_pairs`,
-`itm_loss_from_co`, `compute_itm` and `compute_mim`. Each `compute_*` takes
+`itm_loss_from_co`, `compute_itm`, `compute_mim`, `_bce_with_logits`,
+`compute_vqa_score` and `compute_vqa` (with ISDA and R-Drop). Each `compute_*` takes
 the task module, the model batch and the step's `StepRng` (None:
 deterministic) and returns `<name>_task_loss` plus metrics. ITC runs first;
 its below-fusion hidden states (`itc_h_img`, `itc_h_txt`) feed MLM's fused
@@ -16,6 +17,7 @@ import math
 
 import torch
 
+from exploremultimodal_torch.models import heads
 from exploremultimodal_torch.ops.stochastic import StepRng
 
 ITC_TEMP_MAX = 4.6052  # log(100)
@@ -223,3 +225,61 @@ def compute_mim(task, batch: dict, rng: StepRng | None = None) -> dict:
         img_feats[:, 1:], labels, valid, task.config.mim_gather_cap, "mim")
     loss, acc, count = masked_cross_entropy(task.mim_head(patch_feats), labels, valid)
     return {"mim_task_loss": loss, "mim_mean_acc": acc, "mim_count": count, **extra}
+
+
+# ------------------------------------------------------------------- VQA
+
+
+def _bce_with_logits(logits, targets):
+    """Elementwise binary cross-entropy on logits, in fp32."""
+    logits = logits.float()
+    return logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def compute_vqa_score(logits, targets):
+    """The VQAv2 soft score of the argmax answer, averaged; and the count."""
+    idx = logits.float().argmax(dim=-1)
+    score = torch.gather(targets, 1, idx[:, None])[:, 0]
+    return score.mean(), torch.tensor(float(logits.shape[0]), device=logits.device)
+
+
+def compute_vqa(task, batch: dict, rng: StepRng | None = None,
+                isda_state: heads.ISDAState | None = None,
+                isda_ratio: float = 0.0) -> dict:
+    """VQAv2 BCE over the soft targets `batch['vqa_targets']`, summed over
+    the answers and averaged over the rows. With an `isda_state` and a
+    StepRng, ISDA: the statistics take the batch's classifier hiddens and
+    the training logits their augmentation. With `kl_alpha` > 0 and a
+    StepRng, R-Drop: a second forward with fresh dropout from the same
+    StepRng, the two BCEs averaged, and the symmetric KL of the two
+    answer distributions added as `vqa_kl_task_loss`."""
+    infer = task.infer(batch, "img-txt", rng=rng)
+    logits, hidden = task.vqa_logits(infer["cls_feats"], return_hidden=True)
+    targets = batch["vqa_targets"].float()
+    num_answers = targets.shape[1]
+
+    new_isda_state = isda_state
+    train_logits = logits
+    if isda_state is not None and rng is not None:
+        new_isda_state = heads.isda_update(isda_state, hidden,
+                                           (targets > 0).float())
+        train_logits = heads.isda_logits(
+            logits, task.vqa_last_kernel(), targets.argmax(dim=1),
+            new_isda_state.cov, isda_ratio)
+
+    vqa_loss = _bce_with_logits(train_logits, targets).mean() * num_answers
+    score, count = compute_vqa_score(logits, targets)
+    ret = {"vqa_logits": logits, "vqa_task_loss": vqa_loss,
+           "vqa_mean_score": score, "vqa_count": count,
+           "isda_state": new_isda_state}
+
+    if task.config.kl_alpha > 0 and rng is not None:
+        logits2 = task.vqa_logits(task.infer(batch, "img-txt", rng=rng)["cls_feats"])
+        loss2 = _bce_with_logits(logits2, targets).mean() * num_answers
+        p = torch.log_softmax(logits.float(), dim=-1)
+        q = torch.log_softmax(logits2.float(), dim=-1)
+        kl = (q.exp() * (q - p)).sum()
+        r_kl = (p.exp() * (p - q)).sum()
+        ret["vqa_task_loss"] = (vqa_loss + loss2) / 2.0
+        ret["vqa_kl_task_loss"] = (kl + r_kl) / 4.0 * task.config.kl_alpha
+    return ret

@@ -2,9 +2,18 @@
 //
 // Replaces the Pallas kernel `_mlp_kernel`
 // (exploremultimodal_tpu/ops/mlp_pallas.py:56, launched by
-// `_fused_mlp_padded` :122). Same function and rounding: bf16 operands,
+// `_fused_mlp_padded` :122) and, with DROP set, `_mlp_dropout_kernel`
+// (:69, launched at :110). Same function and rounding: bf16 operands,
 // fp32 accumulation, fp32 biases, tanh-form gelu in fp32, the hidden rounded
-// to bf16 before the second product, the output stored as bf16.
+// to bf16 before the second product, the output stored as bf16. With DROP
+// the hidden is dropped between the gelu and the rounding, from uint16 bits
+// the caller drew (M, hidden): h = bits >= t ? h * 65536 / (65536 - t) : 0,
+// in fp32, as `_mlp_dropout_kernel` does. The bits arrive as int16 u - 32768
+// (the port's storage of a uint16 draw u), so the kernel flips each top bit
+// to read u. The bits tile of each chunk
+// (BM x HC, 2 KB) arrives by cp.async with the chunk's W1 rows; the bits
+// add 2 bytes per hidden element of input, which leaves the kernel bound by
+// operations.
 //
 // What bounds it on an H100: operations. At the VLMo-Base shapes (K = N =
 // 768, hidden 3072, M up to 64 * 237 rows) it does 2*M*(K*H + H*N) flops
@@ -55,6 +64,7 @@ constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDH = HC + 8;  // smem pitch of the W2 chunk and of h (80 B)
 constexpr int LDR = HC + 4;  // smem pitch of the fp32 partial sums (144 B)
+constexpr int LDB = HC + 8;  // smem pitch of the uint16 dropout bits (80 B)
 
 __device__ __forceinline__ float gelu_tanh(float h) {
   return 0.5f * h *
@@ -80,12 +90,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// starts copying `rows` rows of `cols` bf16 (cols % 8 == 0) in 16-byte
-// pieces; rows from `valid_rows` on are zero-filled
-__device__ __forceinline__ void load_block_async(bf16* dst, int dst_pitch,
-                                                 const bf16* src,
+// starts copying `rows` rows of `cols` 2-byte elements (cols % 8 == 0) in
+// 16-byte pieces; rows from `valid_rows` on are zero-filled
+template <typename T>
+__device__ __forceinline__ void load_block_async(T* dst, int dst_pitch,
+                                                 const T* src,
                                                  size_t src_pitch, int rows,
                                                  int cols, int valid_rows) {
+  static_assert(sizeof(T) == 2, "2-byte elements");
   const int per_row = cols / 8;
   for (int i = threadIdx.x; i < rows * per_row; i += THREADS) {
     const int r = i / per_row, c = (i % per_row) * 8;
@@ -104,13 +116,16 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile,
   a[3] = emm::ld32(tile + (r0 + 8) * pitch + col + 8);
 }
 
-// NT: 8-column output tiles per warp, N = 64 * NT
-template <int NT>
+// NT: 8-column output tiles per warp, N = 64 * NT. DROP: the hidden
+// dropout of `_mlp_dropout_kernel` from `bits` (m, hdim), threshold `thr`,
+// factor `keep_scale`; without DROP those three are not read.
+template <int NT, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                  const float* __restrict__ b1, const bf16* __restrict__ w2,
-                 const float* __restrict__ b2, bf16* __restrict__ y, int m,
-                 int kdim, int hdim) {
+                 const float* __restrict__ b2,
+                 const uint16_t* __restrict__ bits, bf16* __restrict__ y,
+                 int m, int kdim, int hdim, int thr, float keep_scale) {
   constexpr int N = 64 * NT;
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldk = kdim + 8;
@@ -119,14 +134,17 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   bf16* sW2 = sW1 + HC * ldk;                // N x LDH: columns c..c+HC of W2
   bf16* sH = sW2 + N * LDH;                  // BM x LDH: the bf16 hidden chunk
   float* sR = reinterpret_cast<float*>(sH + BM * LDH);  // WARPS x BM x LDR
+  uint16_t* sB = reinterpret_cast<uint16_t*>(sR + WARPS * BM * LDR);  // BM x LDB
 
   const int m0 = blockIdx.x * BM;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
 
-  // group 1: x and the first W1 chunk; group 2: the first W2 chunk
+  // group 1: x, the first W1 chunk (and its bits); group 2: the first W2
+  // chunk
   load_block_async(sX, ldk, x + (size_t)m0 * kdim, kdim, BM, kdim, m - m0);
   load_block_async(sW1, ldk, w1, kdim, HC, kdim, HC);
+  if (DROP) load_block_async(sB, LDB, bits + (size_t)m0 * hdim, hdim, BM, HC, m - m0);
   cp_async_commit();
   load_block_async(sW2, LDH, w2, hdim, N, HC, N);
   cp_async_commit();
@@ -139,7 +157,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
   for (int c = 0; c < hdim; c += HC) {
     const bool more = c + HC < hdim;
-    cp_async_wait<1>();  // W1 chunk c (and x) landed; W2 chunk c may not have
+    cp_async_wait<1>();  // W1 chunk c, its bits (and x) landed; W2 chunk c may not have
     __syncthreads();
 
     // this warp's partial of the 32 x 32 chunk x . W1[c..c+HC]^T, over the
@@ -170,7 +188,8 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       }
     __syncthreads();
 
-    // sum the 8 partials, bias, gelu, round: 4 hidden values a thread
+    // sum the 8 partials, bias, gelu, [dropout,] round: 4 hidden values a
+    // thread
     {
       const int r = threadIdx.x / (HC / 4), col = (threadIdx.x % (HC / 4)) * 4;
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -183,16 +202,29 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
         s.w += v.w;
       }
       const float4 bias = *reinterpret_cast<const float4*>(b1 + c + col);
-      const uint2 hv = make_uint2(
-          emm::pack_bf16(gelu_tanh(s.x + bias.x), gelu_tanh(s.y + bias.y)),
-          emm::pack_bf16(gelu_tanh(s.z + bias.z), gelu_tanh(s.w + bias.w)));
+      float4 h = make_float4(gelu_tanh(s.x + bias.x), gelu_tanh(s.y + bias.y),
+                             gelu_tanh(s.z + bias.z), gelu_tanh(s.w + bias.w));
+      if (DROP) {
+        uint2 bv = *reinterpret_cast<const uint2*>(sB + r * LDB + col);
+        bv.x ^= 0x80008000u;  // int16 u - 32768 -> uint16 u
+        bv.y ^= 0x80008000u;
+        h.x = (bv.x & 0xFFFFu) >= (unsigned)thr ? h.x * keep_scale : 0.f;
+        h.y = (bv.x >> 16) >= (unsigned)thr ? h.y * keep_scale : 0.f;
+        h.z = (bv.y & 0xFFFFu) >= (unsigned)thr ? h.z * keep_scale : 0.f;
+        h.w = (bv.y >> 16) >= (unsigned)thr ? h.w * keep_scale : 0.f;
+      }
+      const uint2 hv = make_uint2(emm::pack_bf16(h.x, h.y), emm::pack_bf16(h.z, h.w));
       *reinterpret_cast<uint2*>(sH + r * LDH + col) = hv;
     }
     cp_async_wait<0>();  // W2 chunk c landed
-    __syncthreads();     // h is whole; no warp reads the W1 chunk or sR any more
-    if (more)
+    __syncthreads();     // h is whole; no warp reads the W1 chunk, its bits or sR any more
+    if (more) {
       load_block_async(sW1, ldk, w1 + (size_t)(c + HC) * kdim, kdim, HC, kdim,
                        HC);
+      if (DROP)
+        load_block_async(sB, LDB, bits + (size_t)m0 * hdim + c + HC, hdim, BM, HC,
+                         m - m0);
+    }
     cp_async_commit();
 
     // acc (32 rows x N/8 outputs) += h . W2[:, c..c+HC]^T
@@ -231,20 +263,22 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     }
 }
 
-template <int NT>
+template <int NT, bool DROP>
 int launch(const void* x, const void* w1, const void* b1, const void* w2,
-           const void* b2, void* y, int m, int kdim, int hdim,
-           cudaStream_t stream) {
+           const void* b2, const void* bits, void* y, int m, int kdim, int hdim,
+           int thr, float keep_scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(bf16) * ((size_t)(BM + HC) * (kdim + 8) + (size_t)(64 * NT + BM) * LDH) +
-      sizeof(float) * WARPS * BM * LDR;
+      sizeof(float) * WARPS * BM * LDR + (DROP ? sizeof(uint16_t) * BM * LDB : 0);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fused_mlp_kernel<NT, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_mlp_kernel<NT><<<(m + BM - 1) / BM, THREADS, smem, stream>>>(
+  fused_mlp_kernel<NT, DROP><<<(m + BM - 1) / BM, THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const float*>(b2), static_cast<bf16*>(y), m, kdim, hdim);
+      static_cast<const float*>(b2), static_cast<const uint16_t*>(bits),
+      static_cast<bf16*>(y), m, kdim, hdim, thr, keep_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,6 +295,21 @@ extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* b1,
   if (m <= 0 || kdim <= 0 || kdim % 16 != 0 || hdim <= 0 || hdim % HC != 0 ||
       ndim != 768)
     return cudaErrorInvalidValue;
-  return launch<12>(x, w1, b1, w2, b2, y, m, kdim, hdim,
-                    static_cast<cudaStream_t>(stream));
+  return launch<12, false>(x, w1, b1, w2, b2, nullptr, y, m, kdim, hdim, 0, 1.f,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// As `fused_mlp_fwd`, with the hidden dropout of `_mlp_dropout_kernel`:
+// bits: (m, hdim) int16 holding u - 32768 for uint16 draws u, contiguous;
+// an element is kept where u >= threshold (0 < threshold < 65536) and then
+// scaled by keep_scale = 65536 / (65536 - threshold).
+extern "C" int fused_mlp_fwd_drop(const void* x, const void* w1, const void* b1,
+                                  const void* w2, const void* b2, const void* bits,
+                                  void* y, int m, int kdim, int hdim, int ndim,
+                                  int threshold, float keep_scale, void* stream) {
+  if (m <= 0 || kdim <= 0 || kdim % 16 != 0 || hdim <= 0 || hdim % HC != 0 ||
+      ndim != 768 || threshold <= 0 || threshold >= 65536)
+    return cudaErrorInvalidValue;
+  return launch<12, true>(x, w1, b1, w2, b2, bits, y, m, kdim, hdim, threshold,
+                          keep_scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,8 +1,15 @@
-"""Fused bf16 MLP forward: the CUDA kernel's wrapper and its plain version.
+"""Fused bf16 MLP: the CUDA kernels' wrappers, their plain versions, and the
+differentiable `fused_mlp`.
 
-Counterpart of `exploremultimodal_tpu/ops/mlp_pallas.py` (`fused_bf16_mlp`,
-`_mlp_kernel`). The kernel is `csrc/fused_mlp_fwd.cu`. The weights are in
-nn.Linear's layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32.
+Counterpart of `exploremultimodal_tpu/ops/mlp_pallas.py`:
+  - `fused_mlp_fwd`       `_mlp_kernel`
+  - `fused_mlp_fwd_drop`  `_mlp_dropout_kernel` (hidden dropout from uint16 bits)
+  - `fused_mlp`           `fused_bf16_mlp` / `fused_bf16_mlp_dropout`, with
+                          the backward of `_vjp_bwd` / `_vjpd_bwd`
+Both kernels are `csrc/fused_mlp_fwd.cu`. The weights are in nn.Linear's
+layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32. The
+dropout bits are uint16 draws u held as the int16 u - 32768
+(`stochastic.bits16`); an element is kept where u >= t.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from exploremultimodal_torch.ops import _build
+from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 
 # The JAX package sends a shape to its fused kernel only while both bf16
 # weight matrices fit this budget (mlp_pallas.py `fits_vmem`), and to the
@@ -21,7 +29,9 @@ from exploremultimodal_torch.ops import _build
 _RESIDENT_BYTES_CAP = 10 * 1024 * 1024
 OUT_DIMS = (768,)  # output widths the kernel is instantiated for
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
+_DROP_ARGTYPES = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
 
 
 def fits_vmem(in_dim: int, hidden_dim: int, out_dim: int) -> bool:
@@ -33,35 +43,59 @@ def gelu_tanh(h: torch.Tensor) -> torch.Tensor:
         0.7978845608028654 * (h + 0.044715 * h * h * h)))
 
 
+def _plain(x, w1, b1, w2, b2, bits, threshold):
+    h = gelu_tanh(F.linear(x.float(), w1.to(x.dtype).float()) + b1.float())
+    if bits is not None:
+        scale = torch.tensor(keep_scale16(threshold), dtype=torch.float32,
+                             device=x.device)
+        h = torch.where(keep16(bits, threshold), h * scale, torch.zeros_like(h))
+    y = F.linear(h.to(x.dtype).float(), w2.to(x.dtype).float()) + b2.float()
+    return y.to(x.dtype)
+
+
 def fused_mlp_fwd_plain(x, w1, b1, w2, b2):
     """x: (M, K). fp32 products of the input-dtype operands, fp32 biases,
     the hidden rounded to x's dtype before the second product."""
-    h = F.linear(x.float(), w1.to(x.dtype).float()) + b1.float()
-    h = gelu_tanh(h).to(x.dtype)
-    y = F.linear(h.float(), w2.to(x.dtype).float()) + b2.float()
-    return y.to(x.dtype)
+    return _plain(x, w1, b1, w2, b2, None, 0)
+
+
+def fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, threshold: int):
+    """`fused_mlp_fwd_plain` with the hidden dropout of
+    `_mlp_dropout_kernel`: after the gelu, in fp32, keep where the uint16
+    `bits` (M, H) are >= `threshold` and scale by 65536 / (65536 - t), then
+    round the hidden to x's dtype."""
+    return _plain(x, w1, b1, w2, b2, bits, threshold)
+
+
+def _check(name, x, w1, b1, w2, b2, bits=None):
+    m, k = x.shape
+    hdim, ndim = w1.shape[0], w2.shape[0]
+    tensors = (x, w1, b1, w2, b2) + (() if bits is None else (bits,))
+    ok = (x.dtype == w1.dtype == w2.dtype == torch.bfloat16
+          and b1.dtype == b2.dtype == torch.float32
+          and w1.shape == (hdim, k) and w2.shape == (ndim, hdim)
+          and b1.shape == (hdim,) and b2.shape == (ndim,)
+          and (bits is None or (bits.dtype == torch.int16
+                                and bits.shape == (m, hdim)))
+          and k % 16 == 0 and hdim % 32 == 0 and ndim in OUT_DIMS
+          and all(t.is_contiguous() and t.device == x.device
+                  and t.data_ptr() % 16 == 0 for t in tensors))
+    if not ok:
+        raise ValueError(
+            f"{name}: needs contiguous, 16-byte aligned bf16 x (M, K), "
+            f"w1 (H, K), w2 (N, H), fp32 b1, b2 (and int16 bits (M, H)) on one "
+            f"device, K % 16 == 0, H % 32 == 0, N in {OUT_DIMS}; got x "
+            f"{tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)} {w1.dtype}, "
+            f"w2 {tuple(w2.shape)} {w2.dtype}, b1 {b1.dtype}, b2 {b2.dtype}"
+            + ("" if bits is None else f", bits {tuple(bits.shape)} {bits.dtype}"))
+    return m, k, hdim, ndim
 
 
 def fused_mlp_fwd(x, w1, b1, w2, b2):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, b1, w2, b2)
-    m, k = x.shape
-    hdim, ndim = w1.shape[0], w2.shape[0]
-    ok = (x.dtype == w1.dtype == w2.dtype == torch.bfloat16
-          and b1.dtype == b2.dtype == torch.float32
-          and w1.shape == (hdim, k) and w2.shape == (ndim, hdim)
-          and b1.shape == (hdim,) and b2.shape == (ndim,)
-          and k % 16 == 0 and hdim % 32 == 0 and ndim in OUT_DIMS
-          and all(t.is_contiguous() and t.device == x.device
-                  and t.data_ptr() % 16 == 0 for t in (x, w1, b1, w2, b2)))
-    if not ok:
-        raise ValueError(
-            "fused_mlp_fwd: needs contiguous, 16-byte aligned bf16 x (M, K), "
-            f"w1 (H, K), w2 (N, H) and fp32 b1, b2 on one device, K % 16 == 0, "
-            f"H % 32 == 0, N in {OUT_DIMS}; got x {tuple(x.shape)} {x.dtype}, "
-            f"w1 {tuple(w1.shape)} {w1.dtype}, w2 {tuple(w2.shape)} {w2.dtype}, "
-            f"b1 {b1.dtype}, b2 {b2.dtype}")
+    m, k, hdim, ndim = _check("fused_mlp_fwd", x, w1, b1, w2, b2)
     y = torch.empty((m, ndim), dtype=x.dtype, device=x.device)
     fn = _build.load("fused_mlp_fwd", _ARGTYPES)
     rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
@@ -72,18 +106,80 @@ def fused_mlp_fwd(x, w1, b1, w2, b2):
     return y
 
 
+def fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, threshold: int):
+    """As `fused_mlp_fwd_drop_plain`: the kernel on CUDA tensors (bits int16
+    (M, H)), the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, threshold)
+    m, k, hdim, ndim = _check("fused_mlp_fwd_drop", x, w1, b1, w2, b2, bits)
+    if not 0 < threshold < 65536:
+        raise ValueError(f"fused_mlp_fwd_drop: threshold {threshold} not in (0, 65536)")
+    y = torch.empty((m, ndim), dtype=x.dtype, device=x.device)
+    fn = _build.load("fused_mlp_fwd", _DROP_ARGTYPES, "fused_mlp_fwd_drop")
+    rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), bits.data_ptr(), y.data_ptr(), m, k, hdim, ndim,
+            threshold, keep_scale16(threshold),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("fused_mlp_fwd_drop", rc)
+    fused_mlp_fwd_drop.launches += 1
+    return y
+
+
 fused_mlp_fwd.launches = 0
+fused_mlp_fwd_drop.launches = 0
 
 
-def fused_mlp(x, w1, b1, w2, b2):
-    """gelu_tanh(x . w1^T + b1) . w2^T + b2 over the last axis of x."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2)):
-        raise NotImplementedError(
-            "fused_mlp has no backward yet: call it under "
-            "torch.inference_mode() or torch.no_grad()")
+class _FusedMlp(torch.autograd.Function):
+    """`fused_bf16_mlp` (bits None) and `fused_bf16_mlp_dropout`: the
+    forward kernel, and the backward of `_vjp_bwd` / `_vjpd_bwd`, which
+    recomputes the hidden in x's dtype and takes plain products (XLA dots
+    outside any kernel in JAX). Each gradient comes back in its input's
+    dtype; the master weights may be fp32 while x is bf16."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, bits, threshold):
+        args = (x2, w1.to(x2.dtype).contiguous(), b1.float().contiguous(),
+                w2.to(x2.dtype).contiguous(), b2.float().contiguous())
+        y = fused_mlp_fwd(*args) if bits is None else fused_mlp_fwd_drop(
+            *args, bits, threshold)
+        ctx.save_for_backward(x2, w1, b1, w2, bits)
+        ctx.threshold = threshold
+        ctx.b2_dtype = b2.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1, b1, w2, bits = ctx.saved_tensors
+        dt = x2.dtype
+        g2 = g.to(dt)
+        w1c, w2c = w1.to(dt), w2.to(dt)
+        h1 = F.linear(x2, w1c) + b1.to(dt)
+        act = F.gelu(h1, approximate="tanh")
+        dh_post = g2 @ w2c
+        if bits is not None:
+            keep = keep16(bits, ctx.threshold)
+            scale = torch.tensor(keep_scale16(ctx.threshold), dtype=dt,
+                                 device=x2.device)
+            act = torch.where(keep, act * scale, torch.zeros_like(act))
+            dh_post = torch.where(keep, dh_post * scale, torch.zeros_like(dh_post))
+        dh = torch.ops.aten.gelu_backward(dh_post, h1, approximate="tanh")
+        dx = dh @ w1c
+        dw1 = (dh.T @ x2).to(w1.dtype)
+        db1 = dh.sum(0, dtype=torch.float32).to(b1.dtype)
+        dw2 = (g2.T @ act).to(w2.dtype)
+        db2 = g2.sum(0, dtype=torch.float32).to(ctx.b2_dtype)
+        return dx, dw1, db1, dw2, db2, None, None
+
+
+def fused_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0):
+    """gelu_tanh(x . w1^T + b1) [hidden dropout] . w2^T + b2 over the last
+    axis of x, differentiable in x, w1, b1, w2 and b2. The weights may be
+    fp32 masters: they are cast to x's dtype for the kernels. With `bits`
+    (x.shape[:-1] + (hidden,), as `stochastic.bits16` draws them) the hidden
+    is dropped where bits < `threshold`."""
     *lead, k = x.shape
-    y = fused_mlp_fwd(x.reshape(-1, k).contiguous(), w1.to(x.dtype).contiguous(),
-                      b1.float().contiguous(), w2.to(x.dtype).contiguous(),
-                      b2.float().contiguous())
+    x2 = x.reshape(-1, k).contiguous()
+    if bits is not None:
+        bits = bits.reshape(x2.shape[0], -1).contiguous()
+    y = _FusedMlp.apply(x2, w1, b1, w2, b2, bits, threshold)
     return y.reshape(*lead, w2.shape[0])

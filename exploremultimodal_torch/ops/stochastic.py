@@ -71,9 +71,29 @@ def dropout_threshold16(rate: float) -> int:
     return int(round(rate * 65536.0))
 
 
+def keep_scale16(threshold: int) -> float:
+    """The kept elements' factor 65536 / (65536 - t)."""
+    return 65536.0 / (65536 - threshold)
+
+
+def bits16(rng: StepRng, shape, device: torch.device) -> torch.Tensor:
+    """Uniform uint16 draws u (JAX's `jax.random.bits(..., uint16)`) on
+    `rng.generator`, stored in 2 bytes as the int16 u - 32768: the order of
+    the unsigned values is kept, so one signed comparison (`keep16`) reads
+    u >= t, and the bit pattern is u with its top bit flipped."""
+    return torch.randint(-32768, 32768, tuple(shape), dtype=torch.int16,
+                         generator=rng.generator, device=device)
+
+
+def keep16(bits: torch.Tensor, threshold: int) -> torch.Tensor:
+    """The keep mask u >= t of uint16 draws u stored as `bits16` stores them
+    (the int16 u - 32768)."""
+    return bits >= threshold - 32768
+
+
 def fast_dropout_plain(x: torch.Tensor, rate: float, bits: torch.Tensor) -> torch.Tensor:
-    """`FastDropout` with given uint16 `bits` (any integer dtype, values in
-    [0, 65536), x's shape): keep where bits >= t = round(rate * 65536),
+    """`FastDropout` with given uint16 draws `bits` (stored as `bits16`
+    stores them, x's shape): keep where bits >= t = round(rate * 65536),
     scaled by 65536 / (65536 - t) in x's dtype."""
     if rate == 0.0:
         return x
@@ -82,8 +102,8 @@ def fast_dropout_plain(x: torch.Tensor, rate: float, bits: torch.Tensor) -> torc
     t = dropout_threshold16(rate)
     if t == 0:
         return x
-    scale = torch.tensor(65536.0 / (65536 - t), dtype=x.dtype, device=x.device)
-    return torch.where(bits >= t, x * scale, torch.zeros_like(x))
+    scale = torch.tensor(keep_scale16(t), dtype=x.dtype, device=x.device)
+    return torch.where(keep16(bits, t), x * scale, torch.zeros_like(x))
 
 
 def fast_dropout(x: torch.Tensor, rate: float, rng: StepRng | None) -> torch.Tensor:
@@ -91,6 +111,4 @@ def fast_dropout(x: torch.Tensor, rate: float, rng: StepRng | None) -> torch.Ten
     when `rng` is None or the rate is 0."""
     if rng is None or dropout_threshold16(rate) == 0:
         return x
-    bits = torch.randint(0, 65536, x.shape, dtype=torch.int32,
-                         generator=rng.generator, device=x.device)
-    return fast_dropout_plain(x, rate, bits)
+    return fast_dropout_plain(x, rate, bits16(rng, x.shape, x.device))

@@ -192,6 +192,13 @@ class Optimizer:
         self.torch.zero_grad(set_to_none=True)
 
     def step(self, t: int) -> None:
+        # a parameter the step's losses did not reach (finetune_vqa's image
+        # and text experts above the fusion layer) takes a zero gradient:
+        # the JAX optimizer updates every parameter of its tree, so weight
+        # decay still applies to it, where torch would skip it
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if self.clip_grad:
             # optax.clip_by_global_norm: g * max / norm where norm >= max
             norm = global_norm(self.params)

@@ -1,12 +1,13 @@
-"""The pretrain_mum training step on one GPU.
+"""The pretrain_mum and finetune_vqa training steps on one GPU.
 
 Counterpart of `exploremultimodal_tpu/train/trainer.py` for
 `accumulation_steps=1` without the momentum encoder, the negative queue or
-the gathered ITC (none of them is a pretrain_mum default):
+the gathered ITC (none of them is a default of either phase):
 
   uint8 batch -> device (pinned memory) -> preprocessing -> frozen dVAE
-  tokens under no_grad (MIM labels) -> multitask losses -> backward ->
-  AdamW step with the scheduled learning rate
+  tokens under no_grad (MIM labels, where MIM is trained) -> the phase's
+  losses (VQA with the ISDA statistics carried from step to step) ->
+  backward -> AdamW step with the scheduled learning rate
 
 The four phases of a step are `torch.profiler` ranges (`step/batch`,
 `step/forward`, `step/backward`, `step/optimizer`), which cost nothing
@@ -57,7 +58,7 @@ def _refuse_unported(cfg: dict) -> None:
     t = cfg["train"]
     names = set(t["loss_names"])
     unported = {
-        "loss_names beyond mlm/itc/itm/mim": not names <= set(TRAINED_OBJECTIVES),
+        "loss_names beyond mlm/itc/itm/mim/vqa": not names <= set(TRAINED_OBJECTIVES),
         "vlmo_ema (momentum ITC)": bool(cfg.get("vlmo_ema")),
         "model_ema": bool(cfg.get("model_ema")),
         "neg_queue": bool(t.get("neg_queue")),
@@ -102,8 +103,10 @@ class Trainer:
                 trainable[name] = p
         optimizer, self.schedule = create_optimizer(cfg, trainable,
                                                     self.steps_per_epoch)
-        self.state: TrainState = create_train_state(self.task, optimizer,
-                                                    int(cfg["seed"]) + 7)
+        self.state: TrainState = create_train_state(
+            self.task, optimizer, int(cfg["seed"]) + 7,
+            isda_classes=c.vqa_label_size if c.isda_lambda > 0 else 0,
+            isda_dim=2 * c.embed_dim)
         self._batches: Iterator[dict] | None = None
 
     # ------------------------------------------------------------------ data
@@ -141,12 +144,17 @@ class Trainer:
         step. `negatives` and `mim_labels` replace the sampled ITM negatives
         and the dVAE labels (for comparisons across devices)."""
         st = self.state
+        # ISDA's strength ramps with the epoch, as in the JAX trainer
+        epoch = st.step // self.steps_per_epoch
+        isda_ratio = (self.config.isda_lambda * epoch
+                      / max(int(self.cfg["train"]["epochs"]), 1))
         with record_function("step/batch"):
             mb = self.model_batch(self.next_batch() if batch is None else batch,
                                   mim_labels)
         with record_function("step/forward"):
             st.optimizer.zero_grad()
-            outputs = self.task(mb, rng=st.step_rng(), negatives=negatives)
+            outputs = self.task(mb, rng=st.step_rng(), negatives=negatives,
+                                isda_state=st.isda, isda_ratio=isda_ratio)
             loss = total_loss(outputs, flat=bool(self.cfg["train"].get("flat_loss")))
         with record_function("step/backward"):
             loss.backward()
@@ -156,6 +164,7 @@ class Trainer:
             metrics["grad_norm"] = global_norm(st.optimizer.params)
             metrics["lr"] = torch.tensor(self.schedule(st.step))
             st.optimizer.step(st.step)
+        st.isda = outputs.get("isda_state", st.isda)
         st.step += 1
         return metrics
 

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of one pretrain_mum training step goes in the PyTorch
-port, on one GPU.
+"""Where the time of one training step goes in the PyTorch port, on one GPU.
 
-    python3 scripts/torch_profile_train.py
+    python3 scripts/torch_profile_train.py        # pretrain_mum
+    python3 scripts/torch_profile_train.py vqa    # finetune_vqa
 
-Builds the training configuration of `chip_smoke.py` (vlmo_base, bf16,
-attn_impl=auto with attention dropout 0.1, batch 32, synthetic data, random
-dVAE), takes two warm-up steps, times UNTRACED steps on the host clock with
-a synchronise around each, then traces STEPS steps with torch.profiler.
+Builds a training configuration of `chip_smoke.py`: with no argument its
+pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
+0.1, batch 32, synthetic data, random dVAE); with `vqa` its finetune_vqa
+step (the same with mlp_impl=fused, no dVAE). Takes two warm-up steps,
+times UNTRACED steps on the host clock with a synchronise around each, then
+traces STEPS steps with torch.profiler.
 Prints, as one JSON line: the untraced and traced wall time per step; the
 device-busy time (the union of kernel intervals, profiler ranges left out)
 and the device's idle share of the traced wall; the host time of the step's
@@ -29,7 +31,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from chip_smoke import TRAIN_BATCH, TRAIN_OVERRIDES, card_line  # noqa: E402
+from chip_smoke import TRAIN_OVERRIDES, VQA_OVERRIDES, card_line  # noqa: E402
 from torch_profile_vqa import busy_us  # noqa: E402
 
 from exploremultimodal_torch.config import load_config  # noqa: E402
@@ -42,6 +44,7 @@ PHASES = ("step/batch", "step/forward", "step/backward", "step/optimizer")
 # kernel families, by the first substring of the kernel's name that matches
 FAMILIES = (
     ("port attention kernels", ("flash_",)),
+    ("port fused MLP kernels", ("fused_mlp",)),
     ("cuBLAS/cuDNN GEMM and conv", ("nvjet", "gemm", "cutlass", "sm90_", "conv", "cudnn")),
     ("reductions", ("reduce_kernel", "norm", "softmax")),
     ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset", "fill",
@@ -56,12 +59,18 @@ def family(name: str) -> str:
     return "other"
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_train: no CUDA device", file=sys.stderr)
         return 1
+    cells = {(): TRAIN_OVERRIDES, ("vqa",): VQA_OVERRIDES}
+    if tuple(argv) not in cells:
+        print("usage: torch_profile_train.py [vqa]", file=sys.stderr)
+        return 2
     card = card_line()
-    trainer = Trainer(load_config(TRAIN_OVERRIDES), device="cuda")
+    overrides = cells[tuple(argv)]
+    cfg = load_config(overrides)
+    trainer = Trainer(cfg, device="cuda")
     for _ in range(2):
         trainer.step()
     untraced = []
@@ -100,7 +109,8 @@ def main() -> int:
     busy = busy_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({
-        "card": card, "batch": TRAIN_BATCH, "steps": STEPS,
+        "card": card, "overrides": overrides,
+        "batch": cfg["data"]["batch_size"], "steps": STEPS,
         "untraced_ms_per_step": untraced,
         "wall_ms_per_step": wall_us / 1e3 / STEPS,
         "device_busy_ms_per_step": busy / 1e3 / STEPS if intervals else None,
@@ -117,4 +127,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

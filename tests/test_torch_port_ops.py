@@ -124,15 +124,27 @@ def test_attention_refuses_dropout_beyond_the_fused_backward():
 
 
 def test_fused_mlp_refuses_training_calls():
-    """The fused MLP has no backward kernel yet: a call that needs a
-    gradient raises instead of training through the plain version."""
-    x = torch.zeros(4, 768, requires_grad=True)
-    w1, w2 = torch.zeros(3072, 768), torch.zeros(768, 3072)
-    b1, b2 = torch.zeros(3072), torch.zeros(768)
-    with pytest.raises(NotImplementedError):
-        fused_mlp(x, w1, b1, w2, b2)
+    """A call that needs a gradient is refused no longer: on the CPU it
+    trains through the plain version and the recompute backward, whose
+    gradients are `jax.vjp`'s of `fused_bf16_mlp` (fp32; rtol 1e-4, atol
+    1e-5, as the JAX package's own VJP test), and it launches no kernel.
+    Under no_grad it gives the same output."""
+    arrays = _mlp_inputs(lead=(4,), seed=9)
+    g = np.random.default_rng(10).standard_normal((4, 96)).astype(np.float32)
+    want_y, vjp = jax.vjp(lambda *a: fused_bf16_mlp(*a, True), *map(jnp.asarray, arrays))
+    want = vjp(jnp.asarray(g))
+    x, w1, b1, w2, b2 = (torch.from_numpy(a.copy()) for a in arrays)
+    leaves = [t.requires_grad_() for t in (x, w1.T.contiguous(), b1, w2.T.contiguous(), b2)]
+    before = fused_mlp_fwd.launches
+    y = fused_mlp(*leaves)
+    y.backward(torch.from_numpy(g))
+    assert fused_mlp_fwd.launches == before
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(want_y), rtol=2e-5, atol=2e-6)
+    for i, (leaf, w) in enumerate(zip(leaves, want)):
+        got = leaf.grad.numpy().T if i in (1, 3) else leaf.grad.numpy()
+        np.testing.assert_allclose(got, np.asarray(w), rtol=1e-4, atol=1e-5)
     with torch.no_grad():
-        assert fused_mlp(x, w1, b1, w2, b2).shape == (4, 768)
+        torch.testing.assert_close(fused_mlp(*leaves), y.detach(), rtol=0, atol=0)
 
 
 # ------------------------------------------------------------------ fused MLP
@@ -206,13 +218,12 @@ def test_normalize_image_matches_jax():
                                         ("train", "finetune_vqa"),
                                         ("train", "pretrain_mum")])
 def test_presets_equal_the_jax_yaml(group, name):
-    """Every key of the port's preset holds what the JAX loader reads from
-    the YAML; the model presets are whole copies."""
+    """Every preset is a whole copy of what the JAX loader reads from the
+    YAML."""
     want = jax_load_config([f"{group}={name}"])[group].to_dict()
     got = port_config.load_config([f"{group}={name}"])[group]
     assert got == {k: want[k] for k in got}
-    if group == "model":
-        assert got == want
+    assert got == want
 
 
 def test_base_keys_equal_the_jax_yaml():

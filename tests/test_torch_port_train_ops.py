@@ -236,8 +236,9 @@ def test_step_rng_draws_device_seeds_ahead():
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
 def test_fast_dropout_matches_jax_with_its_bits(monkeypatch, rate, dtype):
     """`fast_dropout_plain` fed the uint16 bits JAX's `FastDropout` drew
-    gives JAX's output exactly: threshold round(rate * 65536), scale
-    65536 / (65536 - t) in x's dtype."""
+    (as the port stores a draw u: the int16 u - 32768) gives JAX's output
+    exactly: threshold round(rate * 65536), scale 65536 / (65536 - t) in
+    x's dtype."""
     drawn = []
     real_bits = jax.random.bits
 
@@ -252,8 +253,9 @@ def test_fast_dropout_matches_jax_with_its_bits(monkeypatch, rate, dtype):
                                        rngs={"dropout": jax.random.key(0)})
     assert len(drawn) == 1 and drawn[0].dtype == np.uint16
     tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    bits = (drawn[0].astype(np.int32) - 32768).astype(np.int16)
     got = pst.fast_dropout_plain(torch.from_numpy(x).to(tdt), rate,
-                                 torch.from_numpy(drawn[0].astype(np.int32)))
+                                 torch.from_numpy(bits))
     assert got.dtype == tdt
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
