@@ -39,7 +39,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      2 and 6;
  12. one finetune_vqa step at batch 2 on the card and on the CPU's plain
      path (hidden dropout and DropPath off), compared;
- 13. print the kernel table as one JSON line, the card line, and last
+ 13. int8 (W8A8): row 8 against its plain version at the serving M for
+     proj and qkv, row 9 at the serving and finetune_vqa M, row 10 at the
+     finetune_vqa M and two thresholds, each timed beside its plain version,
+     the `torch._int_mm` chain and the bf16 chain; `quant_dot` (w8a8) against
+     the exact product of its codes;
+ 14. serve batch-64 requests with model.quantize=w8a8_pallas_mlp (row 9 on
+     every FFN call), compare two with the CPU's plain path, print the argmax
+     agreement with phase 4's bf16 logits; two requests at w8a8_pallas (row 8
+     on qkv and proj as well);
+ 15. train finetune_vqa under w8a8_pallas_mlp (row 10 on every FFN call): a
+     warm-up step and TRAIN_STEPS timed ones; two steps at w8a8_pallas, two
+     at dropout 0 (row 9 trains); a batch-2 step against the CPU;
+ 16. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 """
@@ -80,13 +92,27 @@ from exploremultimodal_torch.ops.mlp_fused import (
     fused_mlp_fwd_plain,
     gelu_tanh,
 )
+from exploremultimodal_torch.ops.quant import _quantize_int8, quant_dot
+from exploremultimodal_torch.ops.quant_fused import (
+    int8_product,
+    quantize_weights,
+    row_quant,
+    w8a8_matmul,
+    w8a8_matmul_plain,
+    w8a8_mlp_fwd,
+    w8a8_mlp_fwd_drop,
+    w8a8_mlp_fwd_drop_plain,
+    w8a8_mlp_fwd_plain,
+)
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 from exploremultimodal_torch.train.trainer import Trainer
 
 # every kernel wrapper of the port, each with its launch count
 KERNELS = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
-           flash_attention_bwd_drop, fused_mlp_fwd, fused_mlp_fwd_drop)
+           flash_attention_bwd_drop, fused_mlp_fwd, fused_mlp_fwd_drop,
+           w8a8_matmul, w8a8_mlp_fwd, w8a8_mlp_fwd_drop)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
+PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 
 SERVE_OVERRIDES = [
@@ -161,6 +187,20 @@ MLP_DROP_THRESHOLDS = (32768, 6554)
 # element within 5% of that gradient's largest magnitude (sums over 7,584
 # rows of rounded terms may cancel to near zero)
 MLP_BWD_REL_L2, MLP_BWD_ATOL_SHARE = 2e-2, 5e-2
+W8A8_SERVE_OVERRIDES = SERVE_OVERRIDES + ["model.quantize=w8a8_pallas_mlp"]
+W8A8_VQA_OVERRIDES = VQA_OVERRIDES + ["model.quantize=w8a8_pallas_mlp"]
+W8A8_VARIANT_REQUESTS = 2  # the w8a8_pallas serving variant, launches counted
+# int8 kernels vs plain versions on the card, bf16 out. Both take the same
+# int8 codes (the same roundings of the scales) and exact int32 sums, then
+# the same fp32 products, so row 8 is expected bit for bit. Rows 9/10 pass h
+# through tanh; CUDA's tanhf and PyTorch's may differ in the last bit, which
+# can move a hidden code by one and an output by sh * |w2| (~3e-3 here),
+# below the bf16 rounding of |y| < 4 that MLP_ATOL/MLP_RTOL allow for.
+W8A8_ATOL, W8A8_RTOL = MLP_ATOL, MLP_RTOL
+# the int8 serving path on the card against the CPU's: besides the bf16
+# differences of E2E_ATOL, an upstream bf16 difference may move a code by one
+# int8 step (1/127 of a row's absmax, about twice a bf16 ulp there)
+W8A8_E2E_ATOL = 2 * E2E_ATOL
 CHECKED_VQA_PARAMS = (
     "transformer.patch_embed.weight",
     "transformer.txt_embeddings.word_embeddings.weight",
@@ -199,8 +239,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -417,6 +457,133 @@ def check_mlp_backward(cfg: VlmoConfig, dev) -> dict:
     }
 
 
+def serve_rows(cfg: VlmoConfig) -> tuple[int, ...]:
+    """M of a VQA request's linear and FFN calls at batch 64: text, image and
+    fused rows."""
+    n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    return tuple(BATCH * n for n in (cfg.max_text_len, n_img, cfg.max_text_len + n_img))
+
+
+def int_mm_rows(x, qw, sw):
+    """Row 8's function through the library int8 GEMM: the rows quantized
+    by PyTorch ops, `torch._int_mm`, the dequantization."""
+    qx, sx = row_quant(x.float())
+    return (torch._int_mm(qx, qw.T).float() * sx * sw).to(x.dtype)
+
+
+def int_mm_mlp(x, qw1, sw1, b1, qw2, sw2, b2, bits=None, t=0):
+    """Rows 9/10's function through `torch._int_mm` and PyTorch ops."""
+    qx, sx = row_quant(x.float())
+    h = F.gelu(torch._int_mm(qx, qw1.T).float() * sx * sw1 + b1, approximate="tanh")
+    if bits is not None:
+        h = torch.where(keep16(bits, t), h * keep_scale16(t), 0.0)
+    qh, sh = row_quant(h)
+    return (torch._int_mm(qh, qw2.T).float() * sh * sw2 + b2).to(x.dtype)
+
+
+def check_w8a8_matmul(cfg: VlmoConfig, dev) -> list[dict]:
+    """Row 8 against `w8a8_matmul_plain` at the serving path's M for proj
+    (N = 768) and qkv (N = 2304), each timed beside its plain version, the
+    `torch._int_mm` chain (`library_ms`) and the bf16 `F.linear`. The last
+    row is qkv at the largest M."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    k = cfg.embed_dim
+    rows = []
+    for n_out in (k, 3 * k):
+        w = (torch.randn((n_out, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        qw, sw = quantize_weights(w)
+        for m in serve_rows(cfg):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            y = w8a8_matmul(x, qw, sw)
+            ref = w8a8_matmul_plain(x, qw, sw)
+            torch.cuda.synchronize()
+            ok, err = within(y, ref, W8A8_ATOL, W8A8_RTOL)
+            require(ok, f"w8a8_matmul M={m} N={n_out}: max|err| {err} beyond atol "
+                    f"{W8A8_ATOL} + rtol {W8A8_RTOL}")
+            nbytes = 2 * m * k + n_out * k + 4 * n_out + 2 * m * n_out
+            bound_ms, bound_by = bound(nbytes, 2 * m * k * n_out, PEAK_INT8_OPS)
+            rows.append({
+                "shape": f"M={m} K={k} N={n_out}", "max_abs_err": err,
+                "exact_share": (y == ref).float().mean().item(),
+                "ms": time_ms(lambda: w8a8_matmul(x, qw, sw)),
+                "plain_ms": time_ms(lambda: w8a8_matmul_plain(x, qw, sw), iters=5),
+                "library_ms": time_ms(lambda: int_mm_rows(x, qw, sw)),
+                "bf16_ms": time_ms(lambda: F.linear(x, w)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            })
+    return rows
+
+
+def w8a8_mlp_weights(cfg: VlmoConfig, dev, seed: int):
+    """`mlp_weights` with fp32 weights, and their codes and scales."""
+    g, w1, b1, w2, b2 = mlp_weights(cfg, dev, seed)
+    return g, (w1, w2), (*quantize_weights(w1.float()), b1, *quantize_weights(w2.float()), b2)
+
+
+def check_w8a8_mlp(cfg: VlmoConfig, dev, drop: bool) -> list[dict]:
+    """Rows 9 (drop False: the finetune_vqa step's M at dropout 0, then the
+    serving M) and 10 (drop True: the step's M at each threshold) against
+    their plain versions on seeded inputs and bits; each timed beside its
+    plain version, the `torch._int_mm` chain (`library_ms`) and the bf16
+    chain. The last row is the path's largest shape (and threshold)."""
+    g, (w1, w2), args = w8a8_mlp_weights(cfg, dev, 5 + drop)
+    k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
+    b1h, b2h = args[2].to(torch.bfloat16), args[5].to(torch.bfloat16)
+    cases = ([(t, m) for t in MLP_DROP_THRESHOLDS for m in vqa_mlp_rows(cfg)] if drop
+             else [(0, m) for m in vqa_mlp_rows(cfg) + serve_rows(cfg)])
+    rows = []
+    for t, m in cases:
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        bits = (torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g,
+                              device=dev) if drop else None)
+        extra = (bits, t) if drop else ()
+        kern, plain = ((w8a8_mlp_fwd_drop, w8a8_mlp_fwd_drop_plain) if drop
+                       else (w8a8_mlp_fwd, w8a8_mlp_fwd_plain))
+        y, ref = kern(x, *args, *extra), plain(x, *args, *extra)
+        torch.cuda.synchronize()
+        ok, err = within(y, ref, W8A8_ATOL, W8A8_RTOL)
+        require(ok, f"{kern.__name__} t={t} M={m}: max|err| {err} beyond atol "
+                f"{W8A8_ATOL} + rtol {W8A8_RTOL}")
+
+        def bf16_chain():
+            hh = F.gelu(F.linear(x, w1, b1h), approximate="tanh")
+            if drop:
+                hh = torch.where(keep16(bits, t), hh * keep_scale16(t), 0.0)
+            return F.linear(hh, w2, b2h)
+
+        nbytes = (2 * m * k + h * k + n_out * h + 8 * (h + n_out) + 2 * m * n_out
+                  + (2 * m * h if drop else 0))
+        bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out), PEAK_INT8_OPS)
+        rows.append({
+            "threshold": t, "shape": f"M={m} K={k} H={h} N={n_out}", "max_abs_err": err,
+            "exact_share": (y == ref).float().mean().item(),
+            "ms": time_ms(lambda: kern(x, *args, *extra)),
+            "plain_ms": time_ms(lambda: plain(x, *args, *extra), iters=5),
+            "library_ms": time_ms(lambda: int_mm_mlp(x, *args, *extra)),
+            "bf16_ms": time_ms(bf16_chain),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+    return rows
+
+
+def check_quant_dot(cfg: VlmoConfig, dev) -> dict:
+    """`quant_dot` (model.quantize=w8a8: one scale for all of x, the product
+    through `torch._int_mm`) against the exact float64 product of the same
+    codes, at the qkv shape of a text stream: both sums are exact integers,
+    so the outputs are equal."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    k, m = cfg.embed_dim, serve_rows(cfg)[0]
+    x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3 * k, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    y = quant_dot(x, w)
+    (qx, sx), (qw, sw) = _quantize_int8(x), _quantize_int8(w, 1)
+    ref = (int8_product(qx, qw) * (sx.reshape(()) * sw.reshape(-1))).to(x.dtype)
+    torch.cuda.synchronize()
+    require(torch.equal(y, ref), "quant_dot differs from the exact product of its codes")
+    return {"shape": f"M={m} K={k} N={3 * k}", "equal": True,
+            "ms": time_ms(lambda: quant_dot(x, w))}
+
+
 def make_requests(cfg: VlmoConfig, rng: np.random.Generator, count: int = N_REQUESTS):
     """`count` batches of (uint8 NHWC images, token ids, attention mask)."""
     reqs = []
@@ -439,13 +606,19 @@ def img_txt_calls(cfg: VlmoConfig) -> int:
     return 2 * cfg.fusion_layer + (cfg.depth - cfg.fusion_layer)
 
 
-def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
+def serve(tag: str, cfg_dict: dict, cfg: VlmoConfig, card: str, expected: dict,
+          requests: int = N_REQUESTS, e2e_atol: float | None = E2E_ATOL):
+    """`requests` batch-64 VQA requests through `Predictor.vqa_logits` on the
+    card, seeded weights (seed 0) and requests; every kernel's launches
+    counted against `expected` (per request). With `e2e_atol`, the first
+    CPU_CHECK_REQUESTS requests are compared with the CPU plain path.
+    Returns the launches and the logits."""
     t0 = time.perf_counter()
     state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
     gpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cuda")
-    print(f"serve: vlmo_base weights (seed 0) ready in "
+    print(f"{tag}: vlmo_base weights (seed 0) ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    reqs = make_requests(cfg, np.random.default_rng(0))
+    reqs = make_requests(cfg, np.random.default_rng(0), requests)
 
     for fn in KERNELS:
         fn.launches = 0
@@ -455,14 +628,8 @@ def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
         logits = gpu.vqa_logits(img, ids, mask)
         latencies.append(time.perf_counter() - t)
         outputs.append(logits)
-    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
-                "fused_mlp_fwd": fused_mlp_fwd.launches}
-
-    per_request = img_txt_calls(cfg)
-    for name, count in launches.items():
-        require(count == per_request * N_REQUESTS,
-                f"{name}: {count} launches for {N_REQUESTS} requests, expected "
-                f"{per_request} per request")
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    require_launches(tag, launches, expected, requests)
     for logits in outputs:
         require(logits.shape == (BATCH, cfg.vqa_label_size)
                 and bool(np.isfinite(logits).all()),
@@ -471,35 +638,36 @@ def serve(cfg_dict: dict, cfg: VlmoConfig, card: str) -> dict:
     require(len(answers) == BATCH and all(isinstance(a, str) for a in answers),
             "answer mapping failed")
 
-    cpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cpu")
     errs, agree = [], []
-    for r in range(CPU_CHECK_REQUESTS):
-        img, ids, mask = (a[:CPU_CHECK_ROWS] for a in reqs[r])
-        ref = cpu.vqa_logits(img, ids, mask)
-        got = outputs[r][:CPU_CHECK_ROWS]
-        errs.append(float(np.abs(got - ref).max()))
-        agree.append(float((got.argmax(-1) == ref.argmax(-1)).mean()))
-    max_logit = float(max(np.abs(o).max() for o in outputs))
-    print(f"serve: GPU vs CPU plain path on {CPU_CHECK_ROWS} rows of "
-          f"{CPU_CHECK_REQUESTS} requests: max|logit err| {errs} "
-          f"(tol {E2E_ATOL}, max|logit| {max_logit:.3f}), argmax agreement {agree}",
-          flush=True)
-    require(max(errs) <= E2E_ATOL, f"GPU logits differ from the CPU path: {errs}")
+    if e2e_atol is not None:
+        cpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cpu")
+        for r in range(CPU_CHECK_REQUESTS):
+            img, ids, mask = (a[:CPU_CHECK_ROWS] for a in reqs[r])
+            ref = cpu.vqa_logits(img, ids, mask)
+            got = outputs[r][:CPU_CHECK_ROWS]
+            errs.append(float(np.abs(got - ref).max()))
+            agree.append(float((got.argmax(-1) == ref.argmax(-1)).mean()))
+        max_logit = float(max(np.abs(o).max() for o in outputs))
+        print(f"{tag}: GPU vs CPU plain path on {CPU_CHECK_ROWS} rows of "
+              f"{CPU_CHECK_REQUESTS} requests: max|logit err| {errs} "
+              f"(tol {e2e_atol}, max|logit| {max_logit:.3f}), argmax agreement {agree}",
+              flush=True)
+        require(max(errs) <= e2e_atol, f"{tag}: GPU logits differ from the CPU path: {errs}")
 
     steady = latencies[1:]
     med = statistics.median(steady)
     result = {
-        "card": card, "batch": BATCH, "requests": N_REQUESTS,
+        "card": card, "batch": BATCH, "requests": requests,
         "first_request_ms": latencies[0] * 1e3,
         "latency_ms": [x * 1e3 for x in steady],
         "median_latency_ms": med * 1e3,
         "images_per_s": BATCH / med,
-        "launches": launches, "launches_per_request": per_request,
+        "launches": launches, "expected_launches_per_request": expected,
         "cpu_check_max_abs_err": errs, "cpu_check_argmax_agreement": agree,
         "sample_answers": answers[:4],
     }
-    print("serve: " + json.dumps(result), flush=True)
-    return launches
+    print(f"{tag}: " + json.dumps(result), flush=True)
+    return launches, outputs
 
 
 def attention_calls_per_step(cfg: VlmoConfig) -> int:
@@ -697,11 +865,13 @@ def run_counted(trainer: Trainer, steps: int, timed: bool = False):
     return metrics, times, launches
 
 
-def require_launches(tag: str, launches: dict, expected: dict, steps: int) -> None:
-    for name, per_step in expected.items():
-        require(launches[name] == per_step * steps,
-                f"{tag}: {name} {launches[name]} launches in {steps} steps, "
-                f"expected {per_step} per step")
+def require_launches(tag: str, launches: dict, expected: dict, runs: int) -> None:
+    """Each kernel of `expected` launched exactly its count per run (step or
+    request) in `runs` runs."""
+    for name, per_run in expected.items():
+        require(launches[name] == per_run * runs,
+                f"{tag}: {name} {launches[name]} launches in {runs} runs, "
+                f"expected {per_run} per run")
 
 
 def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict) -> dict:
@@ -795,15 +965,16 @@ def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
     return result
 
 
-def vqa_cpu_check_phase() -> dict:
+def vqa_cpu_check_phase(tag: str, overrides: list[str]) -> dict:
     """One finetune_vqa step at batch CPU_TRAIN_BATCH on the card and on the
     CPU's plain path: same seeded weights, batch and attention-dropout
-    seeds, hidden dropout and DropPath off (mlp_impl=fused: row 6)."""
-    cfg_dict = load_config(VQA_OVERRIDES + [
+    seeds, hidden dropout and DropPath off (the fused MLP without dropout:
+    row 6, or row 9 under int8)."""
+    cfg_dict = load_config(overrides + [
         f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
         "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
-    result = compare_step("vqa_cpu_check", gpu, cpu, cpu.next_batch(), CHECKED_VQA_PARAMS)
+    result = compare_step(tag, gpu, cpu, cpu.next_batch(), CHECKED_VQA_PARAMS)
     del gpu, cpu
     torch.cuda.empty_cache()
     return result
@@ -837,7 +1008,9 @@ def main() -> int:
     for row in attn_rows + mlp_rows:
         print("kernel: " + json.dumps(row), flush=True)
 
-    serve_launches = serve(cfg_dict, cfg, card)
+    calls = img_txt_calls(cfg)
+    serve_launches, bf16_outputs = serve("serve", cfg_dict, cfg, card, {
+        "flash_attention_fwd": calls, "fused_mlp_fwd": calls})
 
     train_dict = load_config(TRAIN_OVERRIDES)
     train_cfg = VlmoConfig.from_config(train_dict)
@@ -871,7 +1044,6 @@ def main() -> int:
     for row in mlp_drop_rows:
         print("kernel: " + json.dumps({"name": "fused_mlp_fwd_drop", **row}), flush=True)
     print("mlp_backward: " + json.dumps(check_mlp_backward(vqa_cfg, dev)), flush=True)
-    calls = img_txt_calls(vqa_cfg)
     # rows 7, 3 and 4 on every FFN and attention call, row 6 on none
     vqa_launches = timed_phase("vqa_train", vqa_dict, CHECKED_VQA_PARAMS, {
         "fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
@@ -892,7 +1064,50 @@ def main() -> int:
                                      "model.drop_rate=0.0"]),
         {"flash_attention_fwd": calls, "flash_attention_bwd": calls,
          "fused_mlp_fwd": calls, "fused_mlp_fwd_drop": 0})
-    vqa_cpu_check_phase()
+    vqa_cpu_check_phase("vqa_cpu_check", VQA_OVERRIDES)
+
+    # ---- int8 (W8A8): rows 8, 9 and 10 at the path shapes, then the paths
+    w8_dict = load_config(W8A8_SERVE_OVERRIDES)
+    w8_cfg = VlmoConfig.from_config(w8_dict)
+    w8_rows = {"w8a8_matmul": check_w8a8_matmul(w8_cfg, dev),
+               "w8a8_mlp_fwd": check_w8a8_mlp(w8_cfg, dev, drop=False),
+               "w8a8_mlp_fwd_drop": check_w8a8_mlp(vqa_cfg, dev, drop=True)}
+    for name, rows in w8_rows.items():
+        for row in rows:
+            print("kernel: " + json.dumps({"name": name, **row}), flush=True)
+    print("quant_dot: " + json.dumps(check_quant_dot(w8_cfg, dev)), flush=True)
+    # row 9 on every FFN call (the int8 branch takes precedence over
+    # mlp_impl=fused), row 1 on every attention call
+    w8_serve_launches, w8_outputs = serve(
+        "serve_w8a8", w8_dict, w8_cfg, card,
+        {"w8a8_mlp_fwd": calls, "flash_attention_fwd": calls, "fused_mlp_fwd": 0,
+         "w8a8_matmul": 0}, e2e_atol=W8A8_E2E_ATOL)
+    agree = [float((a.argmax(-1) == b.argmax(-1)).mean())
+             for a, b in zip(w8_outputs, bf16_outputs)]
+    print(f"serve_w8a8: argmax agreement with the bf16 path, per request: {agree}",
+          flush=True)
+    # w8a8_pallas: row 8 on qkv and proj as well
+    w8p_launches, _ = serve(
+        "serve_w8a8_pallas", load_config(SERVE_OVERRIDES + ["model.quantize=w8a8_pallas"]),
+        w8_cfg, card, {"w8a8_matmul": 2 * calls, "w8a8_mlp_fwd": calls,
+                       "flash_attention_fwd": calls},
+        requests=W8A8_VARIANT_REQUESTS, e2e_atol=None)
+    # row 10 on every FFN call, rows 3 and 4 on every attention call
+    w8_vqa_launches = timed_phase("vqa_w8a8_train", load_config(W8A8_VQA_OVERRIDES),
+                                  CHECKED_VQA_PARAMS, {
+        "w8a8_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+        "flash_attention_bwd_drop": calls, "w8a8_mlp_fwd": 0, "fused_mlp_fwd_drop": 0,
+        "w8a8_matmul": 0})
+    short_phase("vqa_w8a8_pallas", load_config(VQA_OVERRIDES + ["model.quantize=w8a8_pallas"]),
+                {"w8a8_matmul": 2 * calls, "w8a8_mlp_fwd_drop": calls})
+    # attention and hidden dropout 0 at attn_impl=pallas: row 9 trains
+    short_phase(
+        "vqa_w8a8_drop0",
+        load_config(W8A8_VQA_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0",
+                                          "model.drop_rate=0.0"]),
+        {"w8a8_mlp_fwd": calls, "flash_attention_fwd": calls, "flash_attention_bwd": calls,
+         "w8a8_mlp_fwd_drop": 0})
+    vqa_cpu_check_phase("vqa_w8a8_cpu_check", W8A8_VQA_OVERRIDES)
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
@@ -910,6 +1125,9 @@ def main() -> int:
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu"
     tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
+    q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul.cu"
+    qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_fwd.cu"
+    tpu_q = "exploremultimodal_tpu/ops/quant_pallas.py"
     kernels = [
         entry("flash_attention_fwd", "cuda", fwd_src, f"{tpu_fa}:152", attn_rows,
               serve_launches),
@@ -923,6 +1141,12 @@ def main() -> int:
               serve_launches),
         entry("fused_mlp_fwd_drop", "cuda", mlp_src, f"{tpu_mlp}:69", mlp_drop_rows,
               vqa_launches),
+        entry("w8a8_matmul", "cuda", q_src, f"{tpu_q}:48", w8_rows["w8a8_matmul"],
+              w8p_launches),
+        entry("w8a8_mlp_fwd", "cuda", qmlp_src, f"{tpu_q}:233", w8_rows["w8a8_mlp_fwd"],
+              w8_serve_launches),
+        entry("w8a8_mlp_fwd_drop", "cuda", qmlp_src, f"{tpu_q}:366",
+              w8_rows["w8a8_mlp_fwd_drop"], w8_vqa_launches),
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

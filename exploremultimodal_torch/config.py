@@ -18,6 +18,11 @@ from typing import Any, Iterable
 
 import torch
 
+# `model.quantize` values (exploremultimodal_tpu/ops/quant.py `dense` and
+# `site_mode`); any other raises, as JAX's `dense` does
+QUANTIZE_MODES = ("none", "w8a8", "w8a8_pallas", "w8a8_pallas_mlp",
+                  "w8a8_pallas_noproj")
+
 # base.yaml: the keys the serving path and the training step read
 # (data.img_size and data.patch_size are the model's, as base.yaml's
 # interpolations make them)
@@ -256,6 +261,10 @@ class VlmoConfig:
     @classmethod
     def from_config(cls, cfg: dict[str, Any]) -> "VlmoConfig":
         m, t = cfg["model"], cfg["train"]
+        quantize = str(m.get("quantize") or "none")  # `=none` parses as None
+        if quantize not in QUANTIZE_MODES:
+            raise ValueError(f"unknown model.quantize={quantize!r} "
+                             f"({'|'.join(QUANTIZE_MODES)})")
         return cls(
             img_size=m["img_size"],
             patch_size=m["patch_size"],
@@ -283,7 +292,7 @@ class VlmoConfig:
             mim_gather_cap=float(t.get("mim_gather_cap", 0.4)),
             dtype_name=cfg.get("compute_dtype", "float32"),
             attn_impl=cfg.get("attn_impl", "xla"),
-            quantize=str(m.get("quantize", "none")),
+            quantize=quantize,
             mlp_impl=str(m.get("mlp_impl", "xla")),
             kl_alpha=float(t.get("kl_alpha", 0.0)),
             isda_lambda=float(t.get("isda_lambda", 0.0)),

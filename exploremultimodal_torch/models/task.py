@@ -49,9 +49,8 @@ class VlmoTask(nn.Module):
         super().__init__()
         c = self.config = config
         unsupported = [n for n in c.loss_names if n not in SUPPORTED_HEADS]
-        if unsupported or c.quantize != "none":
-            raise NotImplementedError(
-                f"not ported yet: heads {unsupported}, quantize={c.quantize!r}")
+        if unsupported:
+            raise NotImplementedError(f"not ported yet: heads {unsupported}")
         self.transformer = VLMO(
             img_size=c.img_size, patch_size=c.patch_size,
             embed_dim=c.embed_dim, depth=c.depth, num_heads=c.num_heads,
@@ -61,7 +60,7 @@ class VlmoTask(nn.Module):
             experts_per_block=expert_layout(c.depth, c.fusion_layer, c.phase),
             dtype=c.dtype, attn_impl=c.attn_impl, mlp_impl=c.mlp_impl,
             drop_rate=c.drop_rate, attn_drop_rate=c.attn_drop_rate,
-            drop_path_rate=c.drop_path_rate)
+            drop_path_rate=c.drop_path_rate, quantize=c.quantize)
         hs, names = c.embed_dim, c.loss_names
         if "mlm" in names:
             self.mlm_head = MLMTransform(hs, c.vocab_size, c.norm_eps, c.dtype)

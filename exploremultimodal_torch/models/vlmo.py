@@ -10,9 +10,12 @@ a transpose. Numerics follow the JAX modules:
   - LayerNorm runs in fp32 with flax's statistics (var = E[x^2] - E[x]^2),
     and its output is cast back to the compute dtype by the caller;
   - q/v biases are added after the head split; k has none;
-  - the FFN expert is the fused kernel (tanh gelu, the hidden dropout
-    inside it) under `mlp_impl='fused'` where `fits_vmem` admits the
-    shape, else two Linears with erf gelu.
+  - `model.quantize` picks each site's linear layer (`ops/quant.py`
+    `site_mode`, `dense`): bf16, or int8 products;
+  - the FFN expert is the int8 whole-MLP kernel under an int8 MLP mode,
+    else the bf16 fused kernel (tanh gelu, the hidden dropout inside
+    either) under `mlp_impl='fused'` where `fits_vmem` admits the shape,
+    else two linear layers with erf gelu.
 Dropout and DropPath draw on the step's `StepRng`; without one (`rng=None`)
 the forward is deterministic, as JAX's `deterministic=True`. Images are
 NHWC, as in the JAX package.
@@ -29,6 +32,8 @@ from torch import nn
 
 from exploremultimodal_torch.ops.attention import key_padding_bias, multi_head_attention
 from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp
+from exploremultimodal_torch.ops.quant import Linear, dense, site_mode
+from exploremultimodal_torch.ops.quant_fused import w8a8_mlp
 from exploremultimodal_torch.ops.stochastic import (
     StepRng,
     bits16,
@@ -38,23 +43,6 @@ from exploremultimodal_torch.ops.stochastic import (
 )
 
 ROUTES = ("v", "l", "vl")
-
-
-class Linear(nn.Linear):
-    """nn.Linear computed in `dtype`: input, weight and bias are cast to it
-    at use (flax `Dense(dtype=...)` numerics). The weight is created in
-    `dtype`, the bias in fp32."""
-
-    def __init__(self, in_features: int, out_features: int, bias: bool = True,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_features, out_features, bias=bias)
-        self.dtype = dtype
-        self.weight = nn.Parameter(self.weight.detach().to(dtype))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -69,25 +57,41 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Mlp(nn.Module):
-    """FFN expert: fc1 -> gelu -> drop -> fc2 -> drop."""
+    """FFN expert: fc1 -> gelu -> drop -> fc2 -> drop.
+
+    The site's mode (`site_mode(quantize, 'mlp')`) picks the route, in
+    JAX's order: 'w8a8_pallas' -> the int8 whole-MLP kernel (tanh gelu, the
+    hidden dropout inside it), whose fc1/fc2 weights stay fp32 in every
+    compute dtype because JAX's int8 MLP quantizes its fp32 parameters;
+    'none' with `mlp_impl='fused'` where `fits_vmem` admits the shape -> the
+    bf16 fused kernel; else two `dense` layers with erf gelu."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
-                 mlp_impl: str = "xla", drop_rate: float = 0.0):
+                 mlp_impl: str = "xla", drop_rate: float = 0.0,
+                 quantize: str = "none"):
         super().__init__()
         self.drop_rate = drop_rate
-        self.fc1 = Linear(dim, hidden_dim, dtype=dtype)
-        self.fc2 = Linear(hidden_dim, dim, dtype=dtype)
-        self.fused = mlp_impl == "fused" and fits_vmem(dim, hidden_dim, dim)
+        mode = site_mode(quantize, "mlp")
+        self.int8 = mode == "w8a8_pallas"
+        self.fused = (mode == "none" and mlp_impl == "fused"
+                      and fits_vmem(dim, hidden_dim, dim))
+        if self.int8:
+            self.fc1 = Linear(dim, hidden_dim, dtype=dtype, param_dtype=torch.float32)
+            self.fc2 = Linear(hidden_dim, dim, dtype=dtype, param_dtype=torch.float32)
+        else:
+            self.fc1 = dense(mode, dim, hidden_dim, dtype=dtype)
+            self.fc2 = dense(mode, hidden_dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
-        if self.fused:
+        if self.int8 or self.fused:
             # the hidden dropout inside the kernel, from uint16 bits drawn
-            # here (JAX's `fused_bf16_mlp_dropout`), then the post-fc2 one
+            # here (JAX's `fused_*_mlp_dropout`), then the post-fc2 one
             t = dropout_threshold16(self.drop_rate) if rng is not None else 0
             bits = (bits16(rng, x.shape[:-1] + (self.fc1.out_features,), x.device)
                     if t > 0 else None)
-            y = fused_mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
-                          self.fc2.weight, self.fc2.bias, bits, t)
+            mlp = w8a8_mlp if self.int8 else fused_mlp
+            y = mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
+                    self.fc2.weight, self.fc2.bias, bits, t)
             return fast_dropout(y, self.drop_rate, rng)
         h = fast_dropout(F.gelu(self.fc1(x)), self.drop_rate, rng)
         return fast_dropout(self.fc2(h), self.drop_rate, rng)
@@ -98,16 +102,17 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype,
                  impl: str = "xla", attn_drop: float = 0.0,
-                 proj_drop: float = 0.0):
+                 proj_drop: float = 0.0, quantize: str = "none"):
         super().__init__()
         self.num_heads = num_heads
         self.impl = impl
         self.attn_drop = attn_drop
         self.proj_drop = proj_drop
-        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype)
+        self.qkv = dense(site_mode(quantize, "qkv"), dim, 3 * dim, bias=False,
+                         dtype=dtype)
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
-        self.proj = Linear(dim, dim, dtype=dtype)
+        self.proj = dense(site_mode(quantize, "proj"), dim, dim, dtype=dtype)
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
                 rng: StepRng | None = None) -> torch.Tensor:
@@ -132,17 +137,18 @@ class Block(nn.Module):
                  norm_eps: float, init_values: float | None,
                  experts: Sequence[str], dtype: torch.dtype, attn_impl: str,
                  mlp_impl: str, drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, quantize: str = "none"):
         super().__init__()
         self.dtype = dtype
         self.experts = tuple(experts)
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, eps=norm_eps)
-        self.attn = Attention(dim, num_heads, dtype, attn_impl, attn_drop, drop)
+        self.attn = Attention(dim, num_heads, dtype, attn_impl, attn_drop, drop,
+                              quantize)
         self.norm2 = LayerNorm(dim, eps=norm_eps)
         for route in self.experts:
             setattr(self, f"mlp_{route}",
-                    Mlp(dim, int(dim * mlp_ratio), dtype, mlp_impl, drop))
+                    Mlp(dim, int(dim * mlp_ratio), dtype, mlp_impl, drop, quantize))
         if init_values is not None and init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), float(init_values)))
             self.gamma_2 = nn.Parameter(torch.full((dim,), float(init_values)))
@@ -220,7 +226,7 @@ class VLMO(nn.Module):
                  fusion_layer: int = 6, experts_per_block=None, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla",
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0):
+                 drop_path_rate: float = 0.0, quantize: str = "none"):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
@@ -244,7 +250,7 @@ class VLMO(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, norm_eps, init_values,
                   layout[i], dtype, attn_impl, mlp_impl, drop_rate,
-                  attn_drop_rate, dpr[i])
+                  attn_drop_rate, dpr[i], quantize)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, eps=norm_eps)
         self.pooler = Pooler(embed_dim, dtype)
@@ -299,11 +305,16 @@ class VLMO(nn.Module):
             x = self.run_blocks(self.embed_txt(txt, rng), txt_mask, "l", rng=rng)
             return self.norm(x).to(self.dtype), txt_mask
 
+        # the two streams block by block, in JAX's order, so the random
+        # draws come in the same order as JAX's
         img_x = self.embed_img(img, bool_masked_pos, rng)
-        img_h = self.run_blocks(img_x, self._img_mask(img_x), "v", 0,
-                                self.fusion_layer, rng)
-        txt_h = self.stream_below_fusion(txt=txt, txt_mask=txt_mask, rng=rng)
-        return self.fuse_from_hidden(img_h, txt_h, txt_mask, rng)
+        txt_x = self.embed_txt(txt, rng)
+        img_bias = key_padding_bias(self._img_mask(img_x))
+        txt_bias = key_padding_bias(txt_mask)
+        for blk in self.blocks[:self.fusion_layer]:
+            img_x = blk(img_x, img_bias, "v", rng)
+            txt_x = blk(txt_x, txt_bias, "l", rng)
+        return self.fuse_from_hidden(img_x, txt_x, txt_mask, rng)
 
     def stream_below_fusion(self, img=None, txt=None, txt_mask=None,
                             rng: StepRng | None = None):

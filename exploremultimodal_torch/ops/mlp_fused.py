@@ -129,12 +129,39 @@ fused_mlp_fwd.launches = 0
 fused_mlp_fwd_drop.launches = 0
 
 
+def mlp_backward(g, x2, w1, b1, w2, bits, threshold: int, b2_dtype,
+                 approximate: str):
+    """The fused MLPs' recompute backward (`mlp_pallas._vjp_bwd`/`_vjpd_bwd`,
+    `quant_pallas._mlp_vjp_bwd`/`_mlpd_vjp_bwd`): the hidden recomputed in
+    x's dtype, the gelu VJP of the given form ("tanh" for the bf16 MLP,
+    "none", erf, for the int8 one), the mask on the activation and on its
+    gradient, and five plain products, as JAX leaves them to XLA. Returns
+    (dx, dw1, db1, dw2, db2), each in its input's dtype; the master weights
+    may be fp32 while x is bf16."""
+    dt = x2.dtype
+    g2 = g.to(dt)
+    w1c, w2c = w1.to(dt), w2.to(dt)
+    h1 = F.linear(x2, w1c) + b1.to(dt)
+    act = F.gelu(h1, approximate=approximate)
+    dh_post = g2 @ w2c
+    if bits is not None:
+        keep = keep16(bits, threshold)
+        scale = torch.tensor(keep_scale16(threshold), dtype=dt, device=x2.device)
+        act = torch.where(keep, act * scale, torch.zeros_like(act))
+        dh_post = torch.where(keep, dh_post * scale, torch.zeros_like(dh_post))
+    dh = torch.ops.aten.gelu_backward(dh_post, h1, approximate=approximate)
+    dx = dh @ w1c
+    dw1 = (dh.T @ x2).to(w1.dtype)
+    db1 = dh.sum(0, dtype=torch.float32).to(b1.dtype)
+    dw2 = (g2.T @ act).to(w2.dtype)
+    db2 = g2.sum(0, dtype=torch.float32).to(b2_dtype)
+    return dx, dw1, db1, dw2, db2
+
+
 class _FusedMlp(torch.autograd.Function):
     """`fused_bf16_mlp` (bits None) and `fused_bf16_mlp_dropout`: the
-    forward kernel, and the backward of `_vjp_bwd` / `_vjpd_bwd`, which
-    recomputes the hidden in x's dtype and takes plain products (XLA dots
-    outside any kernel in JAX). Each gradient comes back in its input's
-    dtype; the master weights may be fp32 while x is bf16."""
+    forward kernel, and the backward of `_vjp_bwd` / `_vjpd_bwd`
+    (`mlp_backward` with the tanh gelu's VJP)."""
 
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, bits, threshold):
@@ -150,25 +177,9 @@ class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w1, b1, w2, bits = ctx.saved_tensors
-        dt = x2.dtype
-        g2 = g.to(dt)
-        w1c, w2c = w1.to(dt), w2.to(dt)
-        h1 = F.linear(x2, w1c) + b1.to(dt)
-        act = F.gelu(h1, approximate="tanh")
-        dh_post = g2 @ w2c
-        if bits is not None:
-            keep = keep16(bits, ctx.threshold)
-            scale = torch.tensor(keep_scale16(ctx.threshold), dtype=dt,
-                                 device=x2.device)
-            act = torch.where(keep, act * scale, torch.zeros_like(act))
-            dh_post = torch.where(keep, dh_post * scale, torch.zeros_like(dh_post))
-        dh = torch.ops.aten.gelu_backward(dh_post, h1, approximate="tanh")
-        dx = dh @ w1c
-        dw1 = (dh.T @ x2).to(w1.dtype)
-        db1 = dh.sum(0, dtype=torch.float32).to(b1.dtype)
-        dw2 = (g2.T @ act).to(w2.dtype)
-        db2 = g2.sum(0, dtype=torch.float32).to(ctx.b2_dtype)
-        return dx, dw1, db1, dw2, db2, None, None
+        grads = mlp_backward(g, x2, w1, b1, w2, bits, ctx.threshold, ctx.b2_dtype,
+                             approximate="tanh")
+        return (*grads, None, None)
 
 
 def fused_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0):

@@ -1,0 +1,268 @@
+"""W8A8 kernels (int8 weights and activations): the CUDA kernels' wrappers,
+their plain versions, and the differentiable functions over them.
+
+Counterpart of `exploremultimodal_tpu/ops/quant_pallas.py`:
+  - `quantize_weights`   `quantize_weights` (per output channel)
+  - `w8a8_matmul`        `_fused_kernel` (row 8): dequant(row_quant(x) . qw^T)
+  - `pallas_quant_dot`   `pallas_quant_dot`, with the straight-through (STE)
+                         backward of `_pqd_bwd`
+  - `w8a8_mlp_fwd`       `_mlp_kernel` (row 9): the whole MLP on int8 products
+  - `w8a8_mlp_fwd_drop`  `_mlp_dropout_kernel` (row 10): with hidden dropout
+  - `w8a8_mlp`           `fused_w8a8_mlp` / `fused_w8a8_mlp_dropout`, with the
+                         backward of `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`
+Row 8 is `csrc/w8a8_matmul.cu`, rows 9 and 10 `csrc/w8a8_mlp_fwd.cu`. Weights
+are in nn.Linear's layout, (out, in), and so are their int8 codes, with one
+fp32 scale per output channel. The plain versions take each int8 product
+exactly, as a float64 product of the codes (every sum is an integer below
+2**53), so they run on the card as well, where integer matmuls do not.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from exploremultimodal_torch.ops import _build
+from exploremultimodal_torch.ops.mlp_fused import gelu_tanh, mlp_backward
+from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
+
+_EPS = 1e-8
+IN_DIM = OUT_DIM = 768  # the kernels' K and MLP output width (vlmo_base)
+MATMUL_OUT_DIMS = (768, 2304)  # proj and qkv
+HIDDEN_CHUNK = 64  # the MLP kernel walks the hidden in chunks this wide
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_MATMUL_ARGTYPES = [_P] * 4 + [_I] * 2 + [_P]
+_MLP_ARGTYPES = [_P] * 8 + [_I] * 2 + [_P]
+_MLP_DROP_ARGTYPES = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _P]
+
+
+def quantize_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 codes of w (N, K): sw =
+    max(absmax, 1e-8) / 127 and qw = round(w / sw), clipped to +-127, both
+    divisions as in JAX's `quantize_weights`. Returns (qw int8 (N, K),
+    sw fp32 (N,))."""
+    w = w.float()
+    sw = divide_by_127(w.abs().amax(1).clamp_min(_EPS))
+    qw = torch.round(w / sw[:, None]).clamp(-127, 127)
+    return qw.to(torch.int8), sw
+
+
+def divide_by_127(t: torch.Tensor) -> torch.Tensor:
+    """t / 127 as an IEEE division on every device. The divisor is a tensor
+    filled on t's device: CUDA turns a division by a host scalar into a
+    product with its reciprocal, which can move a bit, and a tensor made on
+    the host would cost a copy to the card on every call."""
+    return t / torch.full_like(t, 127.0)
+
+
+def row_quant(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_row_quant` of fp32 t (M, K): per row, s = max(absmax, 1e-8) *
+    (1/127) and codes round(t * (1/s)) (half to even, as jnp.round), clipped
+    to +-127. Returns (int8 (M, K), fp32 (M, 1))."""
+    scale = t.abs().amax(1, keepdim=True).clamp_min(_EPS) * (1.0 / 127.0)
+    q = torch.round(t * torch.reciprocal(scale)).clamp(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_product(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+    """qa (M, K) . qb (N, K)^T of int8 codes, summed exactly in float64 and
+    rounded to fp32 as an int32 sum converts."""
+    return (qa.double() @ qb.double().T).float()
+
+
+def w8a8_matmul_plain(x, qw, sw):
+    """x (M, K) -> (M, N) in x's dtype: x's rows quantized with their own
+    scales, the exact int8 product with qw (N, K), then (acc * sx) * sw."""
+    qx, sx = row_quant(x.float())
+    return (int8_product(qx, qw) * sx * sw).to(x.dtype)
+
+
+def _mlp_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold):
+    qx, sx = row_quant(x.float())
+    h = gelu_tanh(int8_product(qx, qw1) * sx * sw1 + b1)
+    if bits is not None:
+        scale = torch.tensor(keep_scale16(threshold), dtype=torch.float32,
+                             device=x.device)
+        h = torch.where(keep16(bits, threshold), h * scale, torch.zeros_like(h))
+    qh, sh = row_quant(h)
+    return (int8_product(qh, qw2) * sh * sw2 + b2).to(x.dtype)
+
+
+def w8a8_mlp_fwd_plain(x, qw1, sw1, b1, qw2, sw2, b2):
+    """`_mlp_kernel`: x (M, K) row-quantized, int8 product with qw1 (H, K),
+    h = (acc * sx) * sw1 + b1 in fp32, tanh gelu, h row-quantized over all H
+    columns, int8 product with qw2 (N, H), (acc * sh) * sw2 + b2, in x's
+    dtype."""
+    return _mlp_plain(x, qw1, sw1, b1, qw2, sw2, b2, None, 0)
+
+
+def w8a8_mlp_fwd_drop_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold: int):
+    """`_mlp_dropout_kernel`: `w8a8_mlp_fwd_plain` with the hidden dropped
+    after the gelu and before its row quantization, in fp32: kept where the
+    uint16 bits (M, H), stored as `stochastic.bits16` stores them, are >= t,
+    and scaled by 65536 / (65536 - t)."""
+    return _mlp_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold)
+
+
+def _require(name: str, ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(f"{name}: {what}")
+
+
+def _on_one_device(x, tensors) -> bool:
+    return all(t.is_contiguous() and t.device == x.device and t.data_ptr() % 16 == 0
+               for t in tensors)
+
+
+def w8a8_matmul(x, qw, sw):
+    """As `w8a8_matmul_plain`: the row-8 kernel on CUDA tensors (bf16 x
+    (M, 768), int8 qw (N, 768) with N in MATMUL_OUT_DIMS, fp32 sw (N,)), the
+    plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, qw, sw)
+    m, k = x.shape
+    n = qw.shape[0]
+    _require("w8a8_matmul",
+             x.dtype == torch.bfloat16 and qw.dtype == torch.int8
+             and sw.dtype == torch.float32 and k == IN_DIM and qw.shape == (n, k)
+             and n in MATMUL_OUT_DIMS and sw.shape == (n,) and _on_one_device(x, (x, qw, sw)),
+             f"needs contiguous, 16-byte aligned bf16 x (M, {IN_DIM}), int8 qw (N, "
+             f"{IN_DIM}) with N in {MATMUL_OUT_DIMS}, fp32 sw (N,) on one device; got x "
+             f"{tuple(x.shape)} {x.dtype}, qw {tuple(qw.shape)} {qw.dtype}, sw "
+             f"{tuple(sw.shape)} {sw.dtype}")
+    y = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    fn = _build.load("w8a8_matmul", _MATMUL_ARGTYPES)
+    rc = fn(x.data_ptr(), qw.data_ptr(), sw.data_ptr(), y.data_ptr(), m, n,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("w8a8_matmul", rc)
+    w8a8_matmul.launches += 1
+    return y
+
+
+def _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits=None):
+    m, k = x.shape
+    hdim = qw1.shape[0]
+    tensors = (x, qw1, sw1, b1, qw2, sw2, b2) + (() if bits is None else (bits,))
+    _require(name,
+             x.dtype == torch.bfloat16 and qw1.dtype == qw2.dtype == torch.int8
+             and sw1.dtype == sw2.dtype == b1.dtype == b2.dtype == torch.float32
+             and k == IN_DIM and qw1.shape == (hdim, k) and hdim % HIDDEN_CHUNK == 0
+             and qw2.shape == (OUT_DIM, hdim) and sw1.shape == b1.shape == (hdim,)
+             and sw2.shape == b2.shape == (OUT_DIM,)
+             and (bits is None or (bits.dtype == torch.int16 and bits.shape == (m, hdim)))
+             and _on_one_device(x, tensors),
+             f"needs contiguous, 16-byte aligned bf16 x (M, {IN_DIM}), int8 qw1 (H, "
+             f"{IN_DIM}) with H % {HIDDEN_CHUNK} == 0, int8 qw2 ({OUT_DIM}, H), fp32 "
+             f"scales and biases (and int16 bits (M, H)) on one device; got x "
+             f"{tuple(x.shape)} {x.dtype}, qw1 {tuple(qw1.shape)} {qw1.dtype}, qw2 "
+             f"{tuple(qw2.shape)} {qw2.dtype}"
+             + ("" if bits is None else f", bits {tuple(bits.shape)} {bits.dtype}"))
+    return m, hdim
+
+
+def w8a8_mlp_fwd(x, qw1, sw1, b1, qw2, sw2, b2):
+    """As `w8a8_mlp_fwd_plain`: the row-9 kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if x.device.type == "cpu":
+        return w8a8_mlp_fwd_plain(x, qw1, sw1, b1, qw2, sw2, b2)
+    m, hdim = _check_mlp("w8a8_mlp_fwd", x, qw1, sw1, b1, qw2, sw2, b2)
+    y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=x.device)
+    fn = _build.load("w8a8_mlp_fwd", _MLP_ARGTYPES)
+    rc = fn(x.data_ptr(), qw1.data_ptr(), sw1.data_ptr(), b1.data_ptr(),
+            qw2.data_ptr(), sw2.data_ptr(), b2.data_ptr(), y.data_ptr(), m, hdim,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("w8a8_mlp_fwd", rc)
+    w8a8_mlp_fwd.launches += 1
+    return y
+
+
+def w8a8_mlp_fwd_drop(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold: int):
+    """As `w8a8_mlp_fwd_drop_plain`: the row-10 kernel on CUDA tensors (bits
+    int16 (M, H)), the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return w8a8_mlp_fwd_drop_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold)
+    m, hdim = _check_mlp("w8a8_mlp_fwd_drop", x, qw1, sw1, b1, qw2, sw2, b2, bits)
+    _require("w8a8_mlp_fwd_drop", 0 < threshold < 65536,
+             f"threshold {threshold} not in (0, 65536)")
+    y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=x.device)
+    fn = _build.load("w8a8_mlp_fwd", _MLP_DROP_ARGTYPES, "w8a8_mlp_fwd_drop")
+    rc = fn(x.data_ptr(), qw1.data_ptr(), sw1.data_ptr(), b1.data_ptr(),
+            qw2.data_ptr(), sw2.data_ptr(), b2.data_ptr(), bits.data_ptr(),
+            y.data_ptr(), m, hdim, threshold, keep_scale16(threshold),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("w8a8_mlp_fwd_drop", rc)
+    w8a8_mlp_fwd_drop.launches += 1
+    return y
+
+
+w8a8_matmul.launches = 0
+w8a8_mlp_fwd.launches = 0
+w8a8_mlp_fwd_drop.launches = 0
+
+
+class _PallasQuantDot(torch.autograd.Function):
+    """`pallas_quant_dot`: the row-8 forward on the weight's codes, and the
+    STE backward of `_pqd_bwd`, the unquantized product's gradients: dx =
+    g . w in x's dtype, dw = g^T . x in w's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        return w8a8_matmul(x2, *quantize_weights(w))
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        return (g @ w.to(g.dtype)).to(x2.dtype), (g.T @ x2.to(g.dtype)).to(w.dtype)
+
+
+def pallas_quant_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) . w^T for w (N, K) in nn.Linear's layout, with the fused
+    W8A8 forward (per-row activation scales) and the STE backward."""
+    *lead, k = x.shape
+    y = _PallasQuantDot.apply(x.reshape(-1, k).contiguous(), w)
+    return y.reshape(*lead, w.shape[0])
+
+
+class _W8A8Mlp(torch.autograd.Function):
+    """`fused_w8a8_mlp` (bits None) and `fused_w8a8_mlp_dropout`: rows 9/10
+    on the fp32 weights' codes forward, and the STE backward of
+    `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`: the hidden recomputed in x's dtype
+    from the unquantized weights, with the *erf* gelu's VJP although the
+    forward takes tanh, as the JAX package does."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, bits, threshold):
+        qw1, sw1 = quantize_weights(w1)
+        qw2, sw2 = quantize_weights(w2)
+        args = (x2, qw1, sw1, b1.float().contiguous(), qw2, sw2, b2.float().contiguous())
+        y = w8a8_mlp_fwd(*args) if bits is None else w8a8_mlp_fwd_drop(
+            *args, bits, threshold)
+        ctx.save_for_backward(x2, w1, b1, w2, bits)
+        ctx.threshold = threshold
+        ctx.b2_dtype = b2.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w1, b1, w2, bits = ctx.saved_tensors
+        grads = mlp_backward(g, x2, w1, b1, w2, bits, ctx.threshold, ctx.b2_dtype,
+                             approximate="none")
+        return (*grads, None, None)
+
+
+def w8a8_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0):
+    """tanh-gelu(x . w1^T + b1) [hidden dropout] . w2^T + b2 over the last
+    axis of x with both products on int8 codes (rows 9 and 10),
+    differentiable in x, w1, b1, w2 and b2 (STE). The weights are quantized
+    as given: JAX's int8 MLP quantizes its fp32 parameters. With `bits`
+    (x.shape[:-1] + (hidden,), as `stochastic.bits16` draws them) the hidden
+    is dropped where bits < `threshold`."""
+    *lead, k = x.shape
+    x2 = x.reshape(-1, k).contiguous()
+    if bits is not None:
+        bits = bits.reshape(x2.shape[0], -1).contiguous()
+    y = _W8A8Mlp.apply(x2, w1, b1, w2, b2, bits, threshold)
+    return y.reshape(*lead, w2.shape[0])

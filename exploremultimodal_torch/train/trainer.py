@@ -64,6 +64,9 @@ def _refuse_unported(cfg: dict) -> None:
         "neg_queue": bool(t.get("neg_queue")),
         "global_reduce": bool(t.get("global_reduce")),
         "accumulation_steps > 1": int(t.get("accumulation_steps", 1)) != 1,
+        # the int8 dVAE trunk convs (ops/quant_conv.py) give other MIM labels
+        "discrete_vae_quantize (int8 dVAE convs)":
+            t.get("discrete_vae_quantize") not in (None, "none"),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:

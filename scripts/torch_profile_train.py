@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of one training step goes in the PyTorch port, on one GPU.
 
-    python3 scripts/torch_profile_train.py        # pretrain_mum
-    python3 scripts/torch_profile_train.py vqa    # finetune_vqa
+    python3 scripts/torch_profile_train.py             # pretrain_mum
+    python3 scripts/torch_profile_train.py vqa         # finetune_vqa
+    python3 scripts/torch_profile_train.py vqa_w8a8    # finetune_vqa, int8 MLP
 
 Builds a training configuration of `chip_smoke.py`: with no argument its
 pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
 0.1, batch 32, synthetic data, random dVAE); with `vqa` its finetune_vqa
-step (the same with mlp_impl=fused, no dVAE). Takes two warm-up steps,
+step (the same with mlp_impl=fused, no dVAE); with `vqa_w8a8` that step
+under model.quantize=w8a8_pallas_mlp. Takes two warm-up steps,
 times UNTRACED steps on the host clock with a synchronise around each, then
 traces STEPS steps with torch.profiler.
 Prints, as one JSON line: the untraced and traced wall time per step; the
@@ -31,7 +33,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-from chip_smoke import TRAIN_OVERRIDES, VQA_OVERRIDES, card_line  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    TRAIN_OVERRIDES,
+    VQA_OVERRIDES,
+    W8A8_VQA_OVERRIDES,
+    card_line,
+)
 from torch_profile_vqa import busy_us  # noqa: E402
 
 from exploremultimodal_torch.config import load_config  # noqa: E402
@@ -45,6 +52,7 @@ PHASES = ("step/batch", "step/forward", "step/backward", "step/optimizer")
 FAMILIES = (
     ("port attention kernels", ("flash_",)),
     ("port fused MLP kernels", ("fused_mlp",)),
+    ("port int8 kernels", ("w8a8_",)),
     ("cuBLAS/cuDNN GEMM and conv", ("nvjet", "gemm", "cutlass", "sm90_", "conv", "cudnn")),
     ("reductions", ("reduce_kernel", "norm", "softmax")),
     ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset", "fill",
@@ -63,9 +71,10 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_train: no CUDA device", file=sys.stderr)
         return 1
-    cells = {(): TRAIN_OVERRIDES, ("vqa",): VQA_OVERRIDES}
+    cells = {(): TRAIN_OVERRIDES, ("vqa",): VQA_OVERRIDES,
+             ("vqa_w8a8",): W8A8_VQA_OVERRIDES}
     if tuple(argv) not in cells:
-        print("usage: torch_profile_train.py [vqa]", file=sys.stderr)
+        print("usage: torch_profile_train.py [vqa | vqa_w8a8]", file=sys.stderr)
         return 2
     card = card_line()
     overrides = cells[tuple(argv)]

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one VQA request goes in the PyTorch port, on one GPU.
 
-    python3 scripts/torch_profile_vqa.py
+    python3 scripts/torch_profile_vqa.py          # bf16
+    python3 scripts/torch_profile_vqa.py w8a8     # model.quantize=w8a8_pallas_mlp
 
-Builds the serving configuration of `chip_smoke.py` (vlmo_base, bf16,
-attn_impl=pallas, mlp_impl=fused, seeded random weights, batch 64), warms
+Builds a serving configuration of `chip_smoke.py` (vlmo_base, bf16,
+attn_impl=pallas, mlp_impl=fused, seeded random weights, batch 64; with
+`w8a8` the int8 MLP), warms
 up, then traces REQUESTS requests with torch.profiler. Prints the request
 wall time, the device-busy time (the union of kernel intervals), the
 device's idle share, and the kernels' device time grouped by name, as one
@@ -24,7 +26,13 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import BATCH, SERVE_OVERRIDES, card_line, make_requests  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    BATCH,
+    SERVE_OVERRIDES,
+    W8A8_SERVE_OVERRIDES,
+    card_line,
+    make_requests,
+)
 from exploremultimodal_torch.config import VlmoConfig, load_config  # noqa: E402
 from exploremultimodal_torch.infer import Predictor  # noqa: E402
 from exploremultimodal_torch.models import build_model  # noqa: E402
@@ -43,13 +51,18 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
     return total
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_vqa: no CUDA device", file=sys.stderr)
         return 1
+    cells = {(): SERVE_OVERRIDES, ("w8a8",): W8A8_SERVE_OVERRIDES}
+    if tuple(argv) not in cells:
+        print("usage: torch_profile_vqa.py [w8a8]", file=sys.stderr)
+        return 2
     card = card_line()
 
-    cfg = load_config(SERVE_OVERRIDES)
+    overrides = cells[tuple(argv)]
+    cfg = load_config(overrides)
     state = build_model(cfg, device="cpu", seed=0).state_dict()
     pred = Predictor(cfg, state, max_batch=BATCH, device="cuda")
     (img, ids, mask), = make_requests(VlmoConfig.from_config(cfg),
@@ -77,7 +90,7 @@ def main() -> int:
     busy = busy_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
-        "card": card, "batch": BATCH, "requests": REQUESTS,
+        "card": card, "overrides": overrides, "batch": BATCH, "requests": REQUESTS,
         "wall_ms_per_request": wall_us / 1e3 / REQUESTS,
         "device_busy_ms_per_request": busy / 1e3 / REQUESTS if intervals else None,
         "device_idle_share": 1.0 - busy / wall_us if intervals else None,
@@ -89,4 +102,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
