@@ -51,7 +51,22 @@ Phases, in order; any failure raises and the script exits non-zero:
  15. train finetune_vqa under w8a8_pallas_mlp (row 10 on every FFN call): a
      warm-up step and TRAIN_STEPS timed ones; two steps at w8a8_pallas, two
      at dropout 0 (row 9 trains); a batch-2 step against the CPU;
- 16. print the kernel table as one JSON line, the card line, and last
+ 16. high-resolution serving (model.img_size=1024, 4097 image and 4137 fused
+     tokens): the long flash forward (row 5) against its plain version at
+     both stream shapes, timed beside its plain version and SDPA; then 1 +
+     5 batch-8 requests with row 5 on the image and fused streams, row 1 on
+     the text stream and row 6 on every FFN call, one row compared with the
+     CPU;
+ 17. the dVAE tokenizer: the fused encoder block (row 11) against its plain
+     version at the five blocks it fuses at 256^2 (batch 32), timed beside
+     its plain version and the cuDNN chain; then 1 + 5 tokenizer calls of
+     32 images each with fused=True (5 row-11 launches per call),
+     fused=False, quantize=w8a8 and w8a8_shifted (equal ids required), each
+     path's token agreement with the unfused one, the fused and w8a8 paths
+     against the CPU at batch 2;
+ 18. two pretrain_mum steps with MIM labels from the int8 dVAE
+     (train.discrete_vae_quantize=w8a8);
+ 19. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 """
@@ -73,7 +88,14 @@ from exploremultimodal_torch.infer import Predictor
 from exploremultimodal_torch.models import build_model
 from exploremultimodal_torch.ops import _build
 from exploremultimodal_torch.ops.attention import key_padding_bias
+from exploremultimodal_torch.models.dvae import DalleEncoder, DalleVAE, map_pixels
+from exploremultimodal_torch.ops.dvae_conv import (
+    block_widths,
+    fused_encoder_block,
+    fused_encoder_block_plain,
+)
 from exploremultimodal_torch.ops.flash_attention import (
+    FULL_ROW_FWD_MAX,
     dropout_keep_mask_plain,
     flash_attention_bwd,
     flash_attention_bwd_drop,
@@ -82,7 +104,10 @@ from exploremultimodal_torch.ops.flash_attention import (
     flash_attention_fwd,
     flash_attention_fwd_drop,
     flash_attention_fwd_drop_plain,
+    flash_attention_fwd_long,
+    flash_attention_fwd_long_plain,
     flash_attention_fwd_plain,
+    padded_len,
 )
 from exploremultimodal_torch.ops.mlp_fused import (
     fused_mlp,
@@ -110,7 +135,8 @@ from exploremultimodal_torch.train.trainer import Trainer
 # every kernel wrapper of the port, each with its launch count
 KERNELS = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
            flash_attention_bwd_drop, fused_mlp_fwd, fused_mlp_fwd_drop,
-           w8a8_matmul, w8a8_mlp_fwd, w8a8_mlp_fwd_drop)
+           w8a8_matmul, w8a8_mlp_fwd, w8a8_mlp_fwd_drop, flash_attention_fwd_long,
+           fused_encoder_block)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -201,6 +227,23 @@ W8A8_ATOL, W8A8_RTOL = MLP_ATOL, MLP_RTOL
 # differences of E2E_ATOL, an upstream bf16 difference may move a code by one
 # int8 step (1/127 of a row's absmax, about twice a bf16 ulp there)
 W8A8_E2E_ATOL = 2 * E2E_ATOL
+HIRES_OVERRIDES = SERVE_OVERRIDES + ["model.img_size=1024"]
+HIRES_BATCH = 8  # 64^2 + 1 = 4097 image and 4137 fused tokens per row
+HIRES_CPU_ROWS = 1
+# the tokenizer: `DalleVAE` at 256^2 on the JAX tokenizer bench's batch
+DVAE_SIZE, DVAE_BATCH, DVAE_CALLS = 256, 32, 6  # the first call is the warm-up
+DVAE_CPU_BATCH = 2
+# the blocks the selector fuses at 256^2, n_hid 256, and their pooling
+DVAE_FUSED_BLOCKS = (("group_1_block_1", False), ("group_1_block_2", True),
+                     ("group_2_block_1", False), ("group_2_block_2", True),
+                     ("group_3_block_1", False))
+# row 11 against its plain version, bf16 out. Both round h1, h2 and h3 to
+# bf16 at the same points after fp32 sums in other orders, so a hidden value
+# on a rounding boundary may differ by one bf16 ulp (2**-8 relative) and
+# carry into the later convs, and both round out (|out| ~ 1 here) to bf16.
+# Checked at the path's post_gain (1/64) and at 1, where the residual path
+# counts in full.
+DVAE_ATOL, DVAE_RTOL = 2 ** -6, 2 ** -7
 CHECKED_VQA_PARAMS = (
     "transformer.patch_embed.weight",
     "transformer.txt_embeddings.word_embeddings.weight",
@@ -584,16 +627,240 @@ def check_quant_dot(cfg: VlmoConfig, dev) -> dict:
             "ms": time_ms(lambda: quant_dot(x, w))}
 
 
-def make_requests(cfg: VlmoConfig, rng: np.random.Generator, count: int = N_REQUESTS):
+def check_attention_long(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict]:
+    """Row 5 against `flash_attention_fwd_long_plain` at the high-resolution
+    serving shapes (batch HIRES_BATCH): the image stream (N = 4097) and the
+    fused one (N = 4137), each timed beside its plain version and SDPA. The
+    last row is the fused stream."""
+    heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    txt = text_mask(rng, HIRES_BATCH, cfg.max_text_len)
+    masks = {"image": np.ones((HIRES_BATCH, n_img), np.int32),
+             "fused": np.concatenate([txt, np.ones((HIRES_BATCH, n_img), np.int32)], 1)}
+    rows = []
+    for stream, mask in masks.items():
+        n, bh = mask.shape[1], HIRES_BATCH * heads
+        require(padded_len(n) > FULL_ROW_FWD_MAX, f"N={n} does not take row 5")
+        g = torch.Generator(device=dev).manual_seed(n)
+        q, k, v = (torch.randn((bh, n, d), generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(HIRES_BATCH, n)
+        kb = kb.contiguous()
+        scale = d ** -0.5
+        out = flash_attention_fwd_long(q, k, v, kb, scale)
+        ref = flash_attention_fwd_long_plain(q, k, v, kb, scale)
+        torch.cuda.synchronize()
+        ok, err = within(out, ref, ATTN_ATOL, ATTN_RTOL)
+        require(ok, f"attention_long {stream} N={n}: max|err| {err} beyond atol "
+                f"{ATTN_ATOL} + rtol {ATTN_RTOL}")
+        q4, k4, v4 = (t.view(HIRES_BATCH, heads, n, d) for t in (q, k, v))
+        mask4 = kb.to(torch.bfloat16).view(HIRES_BATCH, 1, 1, n)
+        nbytes = 4 * bh * n * d * 2 + HIRES_BATCH * n * 4
+        bound_ms, bound_by = bound(nbytes, 4 * bh * n * n * d)
+        del ref
+        rows.append({
+            "stream": stream, "shape": f"BH={bh} N={n} D={d}", "max_abs_err": err,
+            "ms": time_ms(lambda: flash_attention_fwd_long(q, k, v, kb, scale)),
+            "plain_ms": time_ms(lambda: flash_attention_fwd_long_plain(q, k, v, kb, scale),
+                                iters=3, warmup=1),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=mask4, scale=scale)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        })
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dvae_encoder(dtype: torch.dtype, dev, quantize: str = "none") -> DalleEncoder:
+    """The tokenizer's encoder at n_hid 256: seeded lecun-normal kernels
+    (`init_random`) and seeded non-zero biases, the same for every dtype and
+    mode."""
+    enc = DalleEncoder(dtype=dtype, quantize=quantize)
+    g = torch.Generator().manual_seed(11)
+    enc.init_random(g)
+    with torch.no_grad():
+        for name, p in enc.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.05)
+    return enc.to(dev).requires_grad_(False).eval()
+
+
+def dvae_block_shapes():
+    """(name, pool, h) of each fused block and its input's height (= width)
+    at DVAE_SIZE^2."""
+    out, h = [], DVAE_SIZE
+    for name, pool in DVAE_FUSED_BLOCKS:
+        out.append((name, pool, h))
+        if pool:
+            h //= 2
+    return out
+
+
+def check_dvae_block(dev) -> list[dict]:
+    """Row 11 against `fused_encoder_block_plain` at the five blocks the
+    tokenizer fuses (batch DVAE_BATCH, 256^2, bf16), at the path's post_gain
+    and at 1, on seeded inputs; each timed beside its plain version and the
+    bf16 cuDNN chain of the same block (the `EncoderBlock` on channels-last
+    memory, and the max-pool where the block pools). The kernel's time
+    leaves out the weights' layout, which the first call builds and keeps
+    on the block. The last row is g3b1."""
+    enc = dvae_encoder(torch.bfloat16, dev)
+    g = torch.Generator(device=dev).manual_seed(12)
+    # off the path, checked only: images that cut the kernel's tiles (56 is
+    # 3.5 tiles of 16 columns at nh 128; 40 is 2.5 tiles of 16 at nh 64,
+    # pooled), batch 2
+    for name, pool, h in (("group_2_block_1", False, 56), ("group_1_block_2", True, 40)):
+        blk = getattr(enc, name)
+        x = torch.randn((2, h, h, block_widths(blk)[0]), generator=g,
+                        device=dev).to(torch.bfloat16)
+        ok, err = within(fused_encoder_block(x, blk, 1.0, pool),
+                         fused_encoder_block_plain(x, blk, 1.0, pool), DVAE_ATOL, DVAE_RTOL)
+        require(ok, f"dvae_block {name} at {h}x{h}: max|err| {err} beyond atol "
+                f"{DVAE_ATOL} + rtol {DVAE_RTOL}")
+        print(f"dvae_block: {name} at {h}x{h} (tiles cut by the edge), pool={pool}: "
+              f"max|err| {err}", flush=True)
+    rows = []
+    for name, pool, h in dvae_block_shapes():
+        blk = getattr(enc, name)
+        cin, nh, cout = block_widths(blk)
+        x = torch.randn((DVAE_BATCH, h, h, cin), generator=g, device=dev).to(torch.bfloat16)
+        errs = []
+        for pg in (enc.post_gain, 1.0):
+            out = fused_encoder_block(x, blk, pg, pool)
+            ref = fused_encoder_block_plain(x, blk, pg, pool)
+            torch.cuda.synchronize()
+            ok, err = within(out, ref, DVAE_ATOL, DVAE_RTOL)
+            require(ok, f"dvae_block {name} post_gain={pg}: max|err| {err} beyond atol "
+                    f"{DVAE_ATOL} + rtol {DVAE_RTOL}")
+            errs.append(err)
+            del out, ref
+
+        def library():
+            y = blk(x.permute(0, 3, 1, 2))
+            return F.max_pool2d(y, 2) if pool else y
+
+        pixels = DVAE_BATCH * h * h
+        flops = 2 * pixels * (9 * (cin * nh + 2 * nh * nh) + nh * cout
+                              + (cin * cout if blk.id_conv is not None else 0))
+        weights = 2 * (9 * (cin * nh + 2 * nh * nh) + nh * cout
+                       + (cin * cout if blk.id_conv is not None else 0))
+        nbytes = 2 * pixels * cin + 2 * pixels * cout // (4 if pool else 1) + weights
+        bound_ms, bound_by = bound(nbytes, flops)
+        rows.append({
+            "block": name, "shape": f"B={DVAE_BATCH} H=W={h} cin={cin} nh={nh} "
+            f"cout={cout} pool={pool}", "max_abs_err": max(errs),
+            "max_abs_err_by_post_gain": errs,
+            "ms": time_ms(lambda: fused_encoder_block(x, blk, enc.post_gain, pool), iters=10),
+            "plain_ms": time_ms(lambda: fused_encoder_block_plain(x, blk, enc.post_gain, pool),
+                                iters=3, warmup=1),
+            "library_ms": time_ms(library, iters=10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+        })
+        del x
+        torch.cuda.empty_cache()
+    return rows
+
+
+# the tokenizer's four ways: DalleVAE keyword arguments
+DVAE_MODES = {"fused": {"fused": True}, "unfused": {}, "w8a8": {"quantize": "w8a8"},
+              "w8a8_shifted": {"quantize": "w8a8_shifted"}}
+# the card against the CPU on the same DVAE_CPU_BATCH images (int8
+# activation scales are per tensor, so both sides tokenize the same batch),
+# token agreement. Int8: the trunk's codes, integer sums and elementwise
+# bf16 steps are the same operations on both devices, so only the fp32
+# output conv sums in another order (a flip needs a top-2 gap near 1e-6).
+# bf16: both round every layer to bf16 after sums in other orders; through
+# 16 blocks that moves the logits by about a percent, which flips the near
+# ties of random weights.
+DVAE_CPU_AGREEMENT = {"fused": 0.9, "w8a8": 0.99}
+
+
+def tokenize_phase(card: str, dev) -> tuple[dict, dict]:
+    """DVAE_CALLS calls of `DalleVAE.get_codebook_indices(map_pixels(x))`
+    on DVAE_BATCH seeded images at 256^2 (bf16, the same seeded weights)
+    for each of DVAE_MODES, timed one by one with a synchronise around each
+    (images already on the card), every kernel's launches counted; the
+    int8 emitters' ids must be equal; each mode's token agreement with the
+    unfused bf16 path; then the fused and w8a8 paths against the CPU on the
+    first DVAE_CPU_BATCH images (tokenized as one batch on both devices).
+    Returns the results and the fused path's launches."""
+    state = dvae_encoder(torch.bfloat16, "cpu").state_dict()
+    rng = np.random.default_rng(21)
+    images = [torch.from_numpy(rng.random((DVAE_BATCH, DVAE_SIZE, DVAE_SIZE, 3),
+                                          dtype=np.float32)).to(dev)
+              for _ in range(DVAE_CALLS)]
+    results, ids, small, fused_launches = {}, {}, {}, None
+    for mode, kw in DVAE_MODES.items():
+        vae = DalleVAE(DVAE_SIZE, dtype=torch.bfloat16, device=dev, **kw)
+        vae.encoder.load_state_dict(state)
+        vae.eval()
+        for fn in KERNELS:
+            fn.launches = 0
+        out, times = [], []
+        for img in images:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out.append(vae.get_codebook_indices(map_pixels(img)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        launches = {fn.__name__: fn.launches for fn in KERNELS}
+        if mode in DVAE_CPU_AGREEMENT:
+            small[mode] = vae.get_codebook_indices(
+                map_pixels(images[0][:DVAE_CPU_BATCH])).cpu()
+        expected = len(DVAE_FUSED_BLOCKS) if mode == "fused" else 0
+        require_launches(f"tokenize_{mode}", launches, {"fused_encoder_block": expected},
+                         DVAE_CALLS)
+        if mode == "fused":
+            fused_launches = launches
+        ids[mode] = torch.stack(out)
+        grid = (DVAE_SIZE // 8) ** 2
+        require(ids[mode].shape == (DVAE_CALLS, DVAE_BATCH, grid)
+                and int(ids[mode].min()) >= 0 and int(ids[mode].max()) < 8192,
+                f"tokenize_{mode}: bad ids {tuple(ids[mode].shape)}")
+        med = statistics.median(times[1:])
+        results[mode] = {
+            "first_call_ms": times[0] * 1e3, "ms": [x * 1e3 for x in times[1:]],
+            "median_ms": med * 1e3, "images_per_s": DVAE_BATCH / med,
+            "launches": launches,
+        }
+        del vae
+        torch.cuda.empty_cache()
+    require(torch.equal(ids["w8a8"], ids["w8a8_shifted"]),
+            "tokenize: the int8 emitters' token ids differ")
+    for mode in DVAE_MODES:
+        results[mode]["agreement_with_unfused"] = (
+            (ids[mode] == ids["unfused"]).float().mean().item())
+
+    for mode, floor in DVAE_CPU_AGREEMENT.items():
+        vae = DalleVAE(DVAE_SIZE, dtype=torch.bfloat16, device="cpu", **DVAE_MODES[mode])
+        vae.encoder.load_state_dict(state)
+        t = time.perf_counter()
+        cpu = vae.eval().get_codebook_indices(map_pixels(images[0][:DVAE_CPU_BATCH].cpu()))
+        cpu_s = time.perf_counter() - t
+        agree = (cpu == small[mode]).float().mean().item()
+        results[mode]["cpu_check"] = {"batch": DVAE_CPU_BATCH, "agreement": agree,
+                                      "cpu_s": cpu_s}
+        print(f"tokenize_{mode}: GPU vs CPU token agreement {agree} at batch "
+              f"{DVAE_CPU_BATCH} ({cpu_s:.1f} s on the CPU)", flush=True)
+        require(agree >= floor, f"tokenize_{mode}: GPU vs CPU token agreement {agree} "
+                f"below {floor}")
+    print("tokenize: " + json.dumps({"card": card, "batch": DVAE_BATCH,
+                                     "size": DVAE_SIZE, "calls": DVAE_CALLS,
+                                     **results}), flush=True)
+    return results, fused_launches
+
+
+def make_requests(cfg: VlmoConfig, rng: np.random.Generator, count: int = N_REQUESTS,
+                  batch: int = BATCH):
     """`count` batches of (uint8 NHWC images, token ids, attention mask)."""
     reqs = []
     for _ in range(count):
-        img = rng.integers(0, 256, (BATCH, cfg.img_size, cfg.img_size, 3),
+        img = rng.integers(0, 256, (batch, cfg.img_size, cfg.img_size, 3),
                            dtype=np.uint8)
-        mask = text_mask(rng, BATCH, cfg.max_text_len)
+        mask = text_mask(rng, batch, cfg.max_text_len)
         ids = rng.integers(1000, cfg.vocab_size, mask.shape).astype(np.int32)
         ids[:, 0] = 101  # [CLS]
-        ids[np.arange(BATCH), mask.sum(1) - 1] = 102  # [SEP]
+        ids[np.arange(batch), mask.sum(1) - 1] = 102  # [SEP]
         ids[mask == 0] = 0  # [PAD]
         reqs.append((img, ids, mask))
     return reqs
@@ -607,18 +874,20 @@ def img_txt_calls(cfg: VlmoConfig) -> int:
 
 
 def serve(tag: str, cfg_dict: dict, cfg: VlmoConfig, card: str, expected: dict,
-          requests: int = N_REQUESTS, e2e_atol: float | None = E2E_ATOL):
-    """`requests` batch-64 VQA requests through `Predictor.vqa_logits` on the
-    card, seeded weights (seed 0) and requests; every kernel's launches
-    counted against `expected` (per request). With `e2e_atol`, the first
-    CPU_CHECK_REQUESTS requests are compared with the CPU plain path.
-    Returns the launches and the logits."""
+          requests: int = N_REQUESTS, e2e_atol: float | None = E2E_ATOL,
+          batch: int = BATCH, cpu_check: tuple[int, int] = (CPU_CHECK_REQUESTS,
+                                                            CPU_CHECK_ROWS)):
+    """`requests` VQA requests of `batch` rows through `Predictor.vqa_logits`
+    on the card, seeded weights (seed 0) and requests; every kernel's
+    launches counted against `expected` (per request). With `e2e_atol`, the
+    first `cpu_check` = (requests, rows) are compared with the CPU plain
+    path. Returns the launches and the logits."""
     t0 = time.perf_counter()
     state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
-    gpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cuda")
+    gpu = Predictor(cfg_dict, state, max_batch=batch, device="cuda")
     print(f"{tag}: vlmo_base weights (seed 0) ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    reqs = make_requests(cfg, np.random.default_rng(0), requests)
+    reqs = make_requests(cfg, np.random.default_rng(0), requests, batch)
 
     for fn in KERNELS:
         fn.launches = 0
@@ -631,25 +900,26 @@ def serve(tag: str, cfg_dict: dict, cfg: VlmoConfig, card: str, expected: dict,
     launches = {fn.__name__: fn.launches for fn in KERNELS}
     require_launches(tag, launches, expected, requests)
     for logits in outputs:
-        require(logits.shape == (BATCH, cfg.vqa_label_size)
+        require(logits.shape == (batch, cfg.vqa_label_size)
                 and bool(np.isfinite(logits).all()),
                 f"bad logits: shape {logits.shape}, finite {np.isfinite(logits).all()}")
     answers = gpu.answers(outputs[0])
-    require(len(answers) == BATCH and all(isinstance(a, str) for a in answers),
+    require(len(answers) == batch and all(isinstance(a, str) for a in answers),
             "answer mapping failed")
 
     errs, agree = [], []
+    check_requests, check_rows = cpu_check
     if e2e_atol is not None:
-        cpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cpu")
-        for r in range(CPU_CHECK_REQUESTS):
-            img, ids, mask = (a[:CPU_CHECK_ROWS] for a in reqs[r])
+        cpu = Predictor(cfg_dict, state, max_batch=batch, device="cpu")
+        for r in range(check_requests):
+            img, ids, mask = (a[:check_rows] for a in reqs[r])
             ref = cpu.vqa_logits(img, ids, mask)
-            got = outputs[r][:CPU_CHECK_ROWS]
+            got = outputs[r][:check_rows]
             errs.append(float(np.abs(got - ref).max()))
             agree.append(float((got.argmax(-1) == ref.argmax(-1)).mean()))
         max_logit = float(max(np.abs(o).max() for o in outputs))
-        print(f"{tag}: GPU vs CPU plain path on {CPU_CHECK_ROWS} rows of "
-              f"{CPU_CHECK_REQUESTS} requests: max|logit err| {errs} "
+        print(f"{tag}: GPU vs CPU plain path on {check_rows} rows of "
+              f"{check_requests} requests: max|logit err| {errs} "
               f"(tol {e2e_atol}, max|logit| {max_logit:.3f}), argmax agreement {agree}",
               flush=True)
         require(max(errs) <= e2e_atol, f"{tag}: GPU logits differ from the CPU path: {errs}")
@@ -657,11 +927,11 @@ def serve(tag: str, cfg_dict: dict, cfg: VlmoConfig, card: str, expected: dict,
     steady = latencies[1:]
     med = statistics.median(steady)
     result = {
-        "card": card, "batch": BATCH, "requests": requests,
+        "card": card, "batch": batch, "requests": requests,
         "first_request_ms": latencies[0] * 1e3,
         "latency_ms": [x * 1e3 for x in steady],
         "median_latency_ms": med * 1e3,
-        "images_per_s": BATCH / med,
+        "images_per_s": batch / med,
         "launches": launches, "expected_launches_per_request": expected,
         "cpu_check_max_abs_err": errs, "cpu_check_argmax_agreement": agree,
         "sample_answers": answers[:4],
@@ -907,11 +1177,14 @@ def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict) -> dict:
     return launches
 
 
-def short_phase(tag: str, cfg_dict: dict, expected: dict):
+def short_phase(tag: str, cfg_dict: dict, expected: dict, check=None):
     """EXTRA_STEPS untimed steps, every kernel's launches counted against
-    `expected` (per step). Returns the launches, the steps' metrics and the
-    ISDA count after them (None without ISDA)."""
+    `expected` (per step); `check(trainer)`, where given, runs first.
+    Returns the launches, the steps' metrics and the ISDA count after them
+    (None without ISDA)."""
     trainer = Trainer(cfg_dict, device="cuda")
+    if check is not None:
+        check(trainer)
     steps, _, launches = run_counted(trainer, EXTRA_STEPS)
     require_launches(tag, launches, expected, EXTRA_STEPS)
     isda = trainer.state.isda
@@ -1109,6 +1382,32 @@ def main() -> int:
          "w8a8_mlp_fwd_drop": 0})
     vqa_cpu_check_phase("vqa_w8a8_cpu_check", W8A8_VQA_OVERRIDES)
 
+    # ---- high-resolution serving: row 5 at the path shapes, then the path
+    hires_dict = load_config(HIRES_OVERRIDES)
+    hires_cfg = VlmoConfig.from_config(hires_dict)
+    long_rows = check_attention_long(hires_cfg, np.random.default_rng(2), dev)
+    for row in long_rows:
+        print("kernel: " + json.dumps({"name": "flash_attention_fwd_long", **row}), flush=True)
+    # row 5 on the image and fused streams (padded N 4224 > FULL_ROW_FWD_MAX),
+    # row 1 on the text stream, row 6 on every FFN call
+    hires_launches, _ = serve(
+        "serve_hires", hires_dict, hires_cfg, card,
+        {"flash_attention_fwd_long": calls - hires_cfg.fusion_layer,
+         "flash_attention_fwd": hires_cfg.fusion_layer, "fused_mlp_fwd": calls},
+        batch=HIRES_BATCH, cpu_check=(1, HIRES_CPU_ROWS))
+
+    # ---- the tokenizer: row 11 at the five fused blocks, then four ways
+    dvae_rows = check_dvae_block(dev)
+    for row in dvae_rows:
+        print("kernel: " + json.dumps({"name": "fused_encoder_block", **row}), flush=True)
+    _, tok_launches = tokenize_phase(card, dev)
+    # pretrain_mum with MIM labels from the int8 dVAE
+    short_phase(
+        "train_dvae_w8a8", load_config(TRAIN_OVERRIDES + ["train.discrete_vae_quantize=w8a8"]),
+        {"flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step},
+        check=lambda tr: require(tr.dvae.encoder.quantize == "w8a8",
+                                 "the trainer's dVAE is not int8"))
+
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
         return {
@@ -1147,6 +1446,10 @@ def main() -> int:
               w8_serve_launches),
         entry("w8a8_mlp_fwd_drop", "cuda", qmlp_src, f"{tpu_q}:366",
               w8_rows["w8a8_mlp_fwd_drop"], w8_vqa_launches),
+        entry("flash_attention_fwd_long", "cuda", fwd_src, f"{tpu_fa}:113", long_rows,
+              hires_launches),
+        entry("fused_encoder_block", "cuda", "exploremultimodal_torch/ops/csrc/dvae_block.cu",
+              "exploremultimodal_tpu/ops/dvae_conv.py:127", dvae_rows, tok_launches),
     ]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

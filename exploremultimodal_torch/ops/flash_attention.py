@@ -6,6 +6,7 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
   - `flash_attention_fwd_drop` `_fwd_drop_call` / `_attn_drop_kernel`
   - `flash_attention_bwd`      `_bwd_call` / `_attn_bwd_kernel`
   - `flash_attention_bwd_drop` `_bwd_drop_call` / `_attn_drop_bwd_kernel`
+  - `flash_attention_fwd_long` `_long_fwd_call` / `_attn_long_kernel`
 The forward kernels are `csrc/flash_attention_fwd.cu`, the backward kernels
 `csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on CUDA tensors
 and its plain PyTorch version on CPU tensors; there is no other fallback.
@@ -26,9 +27,14 @@ HEAD_DIM = 64  # the only head dim the kernels take (every preset's but vlmo_deb
 # the fused backward (and so in-kernel dropout) covers N up to this; longer
 # sequences take the forward kernel and a backward through the plain chain
 LONG_SEQ_THRESHOLD = 512
+# ... and past this padded N the forward is the long kernel (JAX: the
+# full-row forward holds a (128, N) score tile in VMEM up to here)
+FULL_ROW_FWD_MAX = 4096
+PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read the padded N
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 6 + [_I] * 3 + [_F, _P]
+_FWD_LONG_ARGS = [_P] * 5 + [_I] * 3 + [_F, _P]
 _FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 _BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
 _BWD_DROP_ARGS = [_P] * 12 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
@@ -102,6 +108,12 @@ def flash_attention_fwd_plain(qf, kf, vf, key_bias, scale: float, keep=None):
         p = p * keep
     out = torch.matmul(p, vf.float()) / denom
     return out.to(qf.dtype), (m + torch.log(denom)).squeeze(-1)
+
+
+def flash_attention_fwd_long_plain(qf, kf, vf, key_bias, scale: float):
+    """`_attn_long_kernel`: the output of `flash_attention_fwd_plain`, no
+    lse (fp32 scores, bias after scaling, softmax, fp32 p.v / l)."""
+    return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale)[0]
 
 
 def flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale: float,
@@ -191,6 +203,21 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
     return out, lse
 
 
+def flash_attention_fwd_long(qf, kf, vf, key_bias, scale: float):
+    """As `flash_attention_fwd_long_plain`: the kernel on CUDA tensors."""
+    if qf.device.type == "cpu":
+        return flash_attention_fwd_long_plain(qf, kf, vf, key_bias, scale)
+    _check("flash_attention_fwd_long", key_bias, qf, kf, vf)
+    bh, n, _ = qf.shape
+    out = torch.empty_like(qf)
+    fn = _build.load("flash_attention_fwd", _FWD_LONG_ARGS, "flash_attention_fwd_long")
+    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+            out.data_ptr(), bh, bh // key_bias.shape[0], n, scale, _stream(qf))
+    _build.check("flash_attention_fwd_long", rc)
+    flash_attention_fwd_long.launches += 1
+    return out
+
+
 def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
                              rate: float):
     """As `flash_attention_fwd_drop_plain`: the kernel on CUDA tensors."""
@@ -255,7 +282,7 @@ def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
 
 
 for _fn in (flash_attention_fwd, flash_attention_fwd_drop, flash_attention_bwd,
-            flash_attention_bwd_drop):
+            flash_attention_bwd_drop, flash_attention_fwd_long):
     _fn.launches = 0
 
 
@@ -307,13 +334,23 @@ def _reference_flat(qf, kf, vf, key_bias, scale):
     return torch.matmul(probs.to(vf.dtype), vf)
 
 
+def padded_len(n: int) -> int:
+    """N rounded up to PAD_MULTIPLE, the length JAX's routes compare."""
+    return -(-n // PAD_MULTIPLE) * PAD_MULTIPLE
+
+
 class _FlashLong(torch.autograd.Function):
-    """`_flash_long` for N > LONG_SEQ_THRESHOLD: the forward kernel, and a
-    backward that recomputes the plain chain (`_flash_long_bwd`)."""
+    """`_flash_long` for padded N > LONG_SEQ_THRESHOLD: the forward that
+    `_long_primal` picks (the full-row kernel up to FULL_ROW_FWD_MAX, read
+    at call time, the long kernel past it), and a backward that recomputes
+    the plain chain (`_flash_long_bwd`)."""
 
     @staticmethod
     def forward(ctx, qf, kf, vf, key_bias, scale):
-        out, _ = flash_attention_fwd(qf, kf, vf, key_bias, scale)
+        if padded_len(qf.shape[1]) > FULL_ROW_FWD_MAX:
+            out = flash_attention_fwd_long(qf, kf, vf, key_bias, scale)
+        else:
+            out, _ = flash_attention_fwd(qf, kf, vf, key_bias, scale)
         ctx.save_for_backward(qf, kf, vf, key_bias)
         ctx.scale = scale
         return out
@@ -338,7 +375,8 @@ def flash_attention(q, k, v, *, bias=None, scale: float,
     N <= LONG_SEQ_THRESHOLD. Returns (B, H, N, D)."""
     b, h, n, d = q.shape
     use_dropout = dropout_rate > 0.0
-    if use_dropout and n > LONG_SEQ_THRESHOLD:
+    long_seq = padded_len(n) > LONG_SEQ_THRESHOLD
+    if use_dropout and long_seq:
         raise ValueError(
             f"in-kernel attention dropout needs the fused backward "
             f"(N <= {LONG_SEQ_THRESHOLD}); got N={n}")
@@ -352,7 +390,7 @@ def flash_attention(q, k, v, *, bias=None, scale: float,
                                device=q.device).reshape(1)
         out = _FlashCoreDrop.apply(qf, kf, vf, key_bias, seed, scale,
                                    float(dropout_rate))
-    elif n > LONG_SEQ_THRESHOLD:
+    elif long_seq:
         out = _FlashLong.apply(qf, kf, vf, key_bias, scale)
     else:
         out = _FlashCore.apply(qf, kf, vf, key_bias, scale)

@@ -45,10 +45,12 @@ class Linear(nn.Linear):
                         None if self.bias is None else self.bias.to(dt))
 
 
-def _quantize_int8(t: torch.Tensor, dim: int | None = None):
-    """Symmetric int8 codes of t with one scale over `dim` (None: the whole
-    tensor): scale = max(absmax, 1e-8) / 127, codes round(t / scale) clipped
-    to +-127. The scale keeps the reduced dims (fp32)."""
+def _quantize_int8(t: torch.Tensor, dim: int | tuple[int, ...] | None = None):
+    """Symmetric int8 codes of t with one scale over `dim`, a dim or a tuple
+    of dims (None: the whole tensor): scale = max(absmax, 1e-8) / 127, codes
+    round(t / scale) clipped to +-127. The scale keeps the reduced dims
+    (fp32). A conv weight (co, ci, kh, kw) takes dim (1, 2, 3): one scale per
+    output channel, as JAX reduces its HWIO kernel over (kh, kw, ci)."""
     t = t.float()
     absmax = (t.abs().amax(dim, keepdim=True) if dim is not None
               else t.abs().amax().reshape((1,) * t.ndim))

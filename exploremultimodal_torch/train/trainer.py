@@ -5,7 +5,8 @@ Counterpart of `exploremultimodal_tpu/train/trainer.py` for
 the gathered ITC (none of them is a default of either phase):
 
   uint8 batch -> device (pinned memory) -> preprocessing -> frozen dVAE
-  tokens under no_grad (MIM labels, where MIM is trained) -> the phase's
+  tokens under no_grad (MIM labels, where MIM is trained; the dVAE's trunk
+  on int8 codes under `train.discrete_vae_quantize`) -> the phase's
   losses (VQA with the ISDA statistics carried from step to step) ->
   backward -> AdamW step with the scheduled learning rate
 
@@ -64,9 +65,6 @@ def _refuse_unported(cfg: dict) -> None:
         "neg_queue": bool(t.get("neg_queue")),
         "global_reduce": bool(t.get("global_reduce")),
         "accumulation_steps > 1": int(t.get("accumulation_steps", 1)) != 1,
-        # the int8 dVAE trunk convs (ops/quant_conv.py) give other MIM labels
-        "discrete_vae_quantize (int8 dVAE convs)":
-            t.get("discrete_vae_quantize") not in (None, "none"),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -90,8 +88,9 @@ class Trainer:
         t = cfg["train"]
         self.dvae = None
         if "mim" in c.loss_names:
-            self.dvae = create_d_vae(t.get("discrete_vae_type", "dall-e"),
-                                     c.img_size // 2, c.dtype).to(self.device)
+            self.dvae = create_d_vae(
+                t.get("discrete_vae_type", "dall-e"), c.img_size // 2, c.dtype,
+                quantize=t.get("discrete_vae_quantize") or "none", device=self.device)
 
         self.loader = Loader(build_dataset(cfg), cfg["data"]["batch_size"],
                              seed=int(cfg["seed"]))

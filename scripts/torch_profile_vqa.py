@@ -3,10 +3,12 @@
 
     python3 scripts/torch_profile_vqa.py          # bf16
     python3 scripts/torch_profile_vqa.py w8a8     # model.quantize=w8a8_pallas_mlp
+    python3 scripts/torch_profile_vqa.py hires    # model.img_size=1024, batch 8
 
 Builds a serving configuration of `chip_smoke.py` (vlmo_base, bf16,
 attn_impl=pallas, mlp_impl=fused, seeded random weights, batch 64; with
-`w8a8` the int8 MLP), warms
+`w8a8` the int8 MLP; with `hires` 1024^2 images at batch 8, where row 5
+carries the image and fused streams), warms
 up, then traces REQUESTS requests with torch.profiler. Prints the request
 wall time, the device-busy time (the union of kernel intervals), the
 device's idle share, and the kernels' device time grouped by name, as one
@@ -28,6 +30,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (  # noqa: E402
     BATCH,
+    HIRES_BATCH,
+    HIRES_OVERRIDES,
     SERVE_OVERRIDES,
     W8A8_SERVE_OVERRIDES,
     card_line,
@@ -55,18 +59,19 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_vqa: no CUDA device", file=sys.stderr)
         return 1
-    cells = {(): SERVE_OVERRIDES, ("w8a8",): W8A8_SERVE_OVERRIDES}
+    cells = {(): (SERVE_OVERRIDES, BATCH), ("w8a8",): (W8A8_SERVE_OVERRIDES, BATCH),
+             ("hires",): (HIRES_OVERRIDES, HIRES_BATCH)}
     if tuple(argv) not in cells:
-        print("usage: torch_profile_vqa.py [w8a8]", file=sys.stderr)
+        print("usage: torch_profile_vqa.py [w8a8 | hires]", file=sys.stderr)
         return 2
     card = card_line()
 
-    overrides = cells[tuple(argv)]
+    overrides, batch = cells[tuple(argv)]
     cfg = load_config(overrides)
     state = build_model(cfg, device="cpu", seed=0).state_dict()
-    pred = Predictor(cfg, state, max_batch=BATCH, device="cuda")
+    pred = Predictor(cfg, state, max_batch=batch, device="cuda")
     (img, ids, mask), = make_requests(VlmoConfig.from_config(cfg),
-                                      np.random.default_rng(0), 1)
+                                      np.random.default_rng(0), 1, batch)
     for _ in range(2):
         pred.vqa_logits(img, ids, mask)
     torch.cuda.synchronize()
@@ -90,7 +95,7 @@ def main(argv: list[str]) -> int:
     busy = busy_us(intervals)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:15]
     print(json.dumps({
-        "card": card, "overrides": overrides, "batch": BATCH, "requests": REQUESTS,
+        "card": card, "overrides": overrides, "batch": batch, "requests": REQUESTS,
         "wall_ms_per_request": wall_us / 1e3 / REQUESTS,
         "device_busy_ms_per_request": busy / 1e3 / REQUESTS if intervals else None,
         "device_idle_share": 1.0 - busy / wall_us if intervals else None,

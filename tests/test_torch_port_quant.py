@@ -4,12 +4,12 @@
 `ops/quant_fused.py` (the W8A8 matmul, row 8; the W8A8 whole MLP with and
 without hidden dropout, rows 9 and 10; their straight-through (STE)
 backwards), the int8 routes of the backbone, VQA serving and one
-finetune_vqa step under int8 modes, and the trainer's refusal of the int8
-dVAE. Inputs are made with numpy and go through both packages as numpy
-arrays; JAX's Pallas kernels run in interpret mode, as `tests/test_quant.py`
-runs them. The port's wrappers take their plain versions here because the
-tensors lie on the CPU; `chip_smoke.py` holds the CUDA kernels against the
-same plain versions on the card.
+finetune_vqa step under int8 modes (the int8 dVAE is in
+`tests/test_torch_port_dvae.py`). Inputs are made with numpy and go through
+both packages as numpy arrays; JAX's Pallas kernels run in interpret mode,
+as `tests/test_quant.py` runs them. The port's wrappers take their plain
+versions here because the tensors lie on the CPU; `chip_smoke.py` holds the
+CUDA kernels against the same plain versions on the card.
 
 Tolerances. The quantization itself (codes and scales) and every int32 sum
 are exact on both sides, so row 8 is compared exactly. Rows 9 and 10 pass
@@ -42,7 +42,6 @@ from exploremultimodal_torch.ops import mlp_fused as pmlp
 from exploremultimodal_torch.ops import quant as pquant
 from exploremultimodal_torch.ops import quant_fused as pqf
 from exploremultimodal_torch.ops import stochastic as pst
-from exploremultimodal_torch.train import trainer as ptrainer
 from tests.test_torch_port_vqa_train import (  # noqa: F401 (fixtures)
     VQA_TINY as TINY,
     _as_port_bits,
@@ -272,19 +271,6 @@ def test_unknown_quantize_mode_is_rejected():
     with pytest.raises(ValueError, match="quantize"):
         VlmoConfig.from_config(load_config(TINY + ["model.quantize=int4"]))
     assert VlmoConfig.from_config(load_config(TINY + ["model.quantize=none"])).quantize == "none"
-
-
-@pytest.mark.parametrize("value", ["w8a8", "w8a8_shifted"])
-def test_trainer_refuses_the_int8_dvae(value):
-    """`train.discrete_vae_quantize` other than none would run JAX's dVAE
-    trunk convs in int8 (`ops/quant_conv.py`, not ported) and give other MIM
-    labels: the trainer refuses it instead of ignoring it."""
-    base = ["train=pretrain_mum", "train.datasets=[synthetic]",
-            "train.discrete_vae_type=random"]
-    ptrainer._refuse_unported(load_config(base + ["train.discrete_vae_quantize=none"]))
-    with pytest.raises(NotImplementedError, match="discrete_vae_quantize"):
-        ptrainer.Trainer(load_config(base + [f"train.discrete_vae_quantize={value}"]),
-                         device="cpu")
 
 
 def test_int8_mlp_quantizes_fp32_weights_at_bf16():

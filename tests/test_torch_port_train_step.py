@@ -302,7 +302,7 @@ def test_dvae_tokens_match_jax():
                         strict=True)
     from exploremultimodal_torch.models.dvae import DalleVAE
 
-    vae = DalleVAE(32)
+    vae = DalleVAE(32, device="cpu")
     vae.encoder = enc
     got = vae.get_codebook_indices(torch.from_numpy(imgs))
     assert got.shape == want.shape == (2, 16)
