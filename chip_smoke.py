@@ -10,7 +10,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. at each shape the VQA serving path gives each serving kernel, hold the
      kernel against its plain PyTorch version on the card, then time the
      kernel, the plain version and a library call computing the same
-     function (the MLP also at M = 64, one block's time);
+     function (the MLP also at the 1024^2 request's M, at M = 64 and at two
+     ragged M, with its cluster size and hidden splits);
   4. serve batch-64 VQA requests through `Predictor.vqa_logits` at vlmo_base
      full width and depth (bf16, attn_impl=pallas, mlp_impl=fused, seeded
      random weights), check that every request went through both kernels,
@@ -91,6 +92,7 @@ from exploremultimodal_torch.ops.attention import key_padding_bias
 from exploremultimodal_torch.models.dvae import DalleEncoder, DalleVAE, map_pixels
 from exploremultimodal_torch.ops.dvae_conv import (
     block_widths,
+    kernel_grid,
     fused_encoder_block,
     fused_encoder_block_plain,
 )
@@ -109,6 +111,7 @@ from exploremultimodal_torch.ops.flash_attention import (
     flash_attention_fwd_plain,
     padded_len,
 )
+from exploremultimodal_torch.ops.mlp_fused import CLUSTER as MLP_CLUSTER
 from exploremultimodal_torch.ops.mlp_fused import (
     fused_mlp,
     fused_mlp_fwd,
@@ -116,6 +119,7 @@ from exploremultimodal_torch.ops.mlp_fused import (
     fused_mlp_fwd_drop_plain,
     fused_mlp_fwd_plain,
     gelu_tanh,
+    hidden_splits,
 )
 from exploremultimodal_torch.ops.quant import _quantize_int8, quant_dot
 from exploremultimodal_torch.ops.quant_fused import (
@@ -340,17 +344,27 @@ def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict
 
 
 def check_mlp(cfg: VlmoConfig, dev) -> list[dict]:
+    """Row 6 against its plain version at every M the serving paths give it
+    (batch 64 at 224^2, batch 8 at 1024^2), the M = 64 probe and two ragged
+    M (not multiples of the 64-row tile, one of them split over the hidden),
+    each timed beside its plain version and the bf16 chain. The last row is
+    the batch-64 fused stream."""
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    n_hires = (1024 // cfg.patch_size) ** 2 + 1
     g, w1, b1, w2, b2 = mlp_weights(cfg, dev, 1)
     k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
     b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
-    # "probe" is no path shape: M = 64 is two blocks on 132 SMs, so its time
-    # is that of one block's chain of chunks, which the path shapes repeat
-    # once per wave.
-    for stream, tokens in (("probe", 1), ("text", cfg.max_text_len), ("image", n_img),
-                           ("fused", cfg.max_text_len + n_img)):
-        m = BATCH * tokens
+    # "probe" is no path shape: M = 64 is one row tile, its hidden split
+    # over CTAs; the "ragged" rows check the masking of a partial tile
+    shapes = (("probe", 64), ("ragged_split", 1000), ("ragged", 4999),
+              ("hires_text", HIRES_BATCH * cfg.max_text_len),
+              ("text", BATCH * cfg.max_text_len), ("image", BATCH * n_img),
+              ("hires_image", HIRES_BATCH * n_hires),
+              ("hires_fused", HIRES_BATCH * (cfg.max_text_len + n_hires)),
+              ("fused", BATCH * (cfg.max_text_len + n_img)))
+    for stream, m in shapes:
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
         y = fused_mlp_fwd(x, w1, b1, w2, b2)
         ref = fused_mlp_fwd_plain(x, w1, b1, w2, b2)
@@ -362,6 +376,7 @@ def check_mlp(cfg: VlmoConfig, dev) -> list[dict]:
         bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out))
         rows.append({
             "stream": stream, "shape": f"M={m} K={k} H={h} N={n_out}",
+            "cluster": MLP_CLUSTER, "hidden_splits": hidden_splits(m, h, sms),
             "max_abs_err": err,
             "ms": time_ms(lambda: fused_mlp_fwd(x, w1, b1, w2, b2)),
             "plain_ms": time_ms(lambda: fused_mlp_fwd_plain(x, w1, b1, w2, b2)),
@@ -369,6 +384,7 @@ def check_mlp(cfg: VlmoConfig, dev) -> list[dict]:
                 F.gelu(F.linear(x, w1, b1h), approximate="tanh"), w2, b2h)),
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
+        del x, y, ref
     return rows
 
 
@@ -746,9 +762,11 @@ def check_dvae_block(dev) -> list[dict]:
                        + (cin * cout if blk.id_conv is not None else 0))
         nbytes = 2 * pixels * cin + 2 * pixels * cout // (4 if pool else 1) + weights
         bound_ms, bound_by = bound(nbytes, flops)
+        grid, tile, cluster = kernel_grid(nh, h, h, DVAE_BATCH)
         rows.append({
             "block": name, "shape": f"B={DVAE_BATCH} H=W={h} cin={cin} nh={nh} "
-            f"cout={cout} pool={pool}", "max_abs_err": max(errs),
+            f"cout={cout} pool={pool}", "tile": tile, "ctas": grid, "cluster": cluster,
+            "max_abs_err": max(errs),
             "max_abs_err_by_post_gain": errs,
             "ms": time_ms(lambda: fused_encoder_block(x, blk, enc.post_gain, pool), iters=10),
             "plain_ms": time_ms(lambda: fused_encoder_block_plain(x, blk, enc.post_gain, pool),
@@ -1422,7 +1440,8 @@ def main() -> int:
     fwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu"
     bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
-    mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu"
+    mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_sm90.cu"
+    mlp_drop_src = "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu"
     tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
     q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul.cu"
     qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_fwd.cu"
@@ -1438,7 +1457,7 @@ def main() -> int:
               train_rows["flash_attention_bwd_drop"], train_launches),
         entry("fused_mlp_fwd", "cuda", mlp_src, f"{tpu_mlp}:56", mlp_rows,
               serve_launches),
-        entry("fused_mlp_fwd_drop", "cuda", mlp_src, f"{tpu_mlp}:69", mlp_drop_rows,
+        entry("fused_mlp_fwd_drop", "cuda", mlp_drop_src, f"{tpu_mlp}:69", mlp_drop_rows,
               vqa_launches),
         entry("w8a8_matmul", "cuda", q_src, f"{tpu_q}:48", w8_rows["w8a8_matmul"],
               w8p_launches),

@@ -190,14 +190,19 @@ def create_d_vae(d_vae_type: str, image_size: int, dtype: torch.dtype,
                  seed: int = 0, quantize: str = "none",
                  device: str | torch.device = "cuda") -> DalleVAE:
     """The tokenizer for `train.discrete_vae_type` on `device`, its trunk on
-    int8 codes under `quantize` (`train.discrete_vae_quantize`). Only
-    'random' (seeded random weights) is ported: the repository holds no
-    DALL-E weights."""
-    if d_vae_type != "random":
+    int8 codes under `quantize` (`train.discrete_vae_quantize`). 'random'
+    is the seeded random tokenizer (seed 0, as JAX's `jax.random.key(0)`);
+    'dall-e' reaches here only when an `encoder.pkl` exists
+    (`trainer.dvae_type` falls back to 'random' otherwise) and raises: the
+    loader of the OpenAI weights is not ported yet (ROADMAP.md, queue A,
+    item 2), and the port must not train on random codes where JAX would
+    load weights."""
+    if d_vae_type == "dall-e":
         raise NotImplementedError(
-            f"discrete_vae_type {d_vae_type!r}: only 'random' is ported (no "
-            "DALL-E weights are in the repository); pass "
-            "train.discrete_vae_type=random")
+            "discrete_vae_type 'dall-e' with an encoder.pkl present: loading the "
+            "DALL-E weights is not ported yet (ROADMAP.md, queue A, item 2)")
+    if d_vae_type != "random":
+        raise NotImplementedError(f"discrete_vae_type {d_vae_type!r} is not ported")
     vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device=device)
     vae.encoder.init_random(torch.Generator().manual_seed(seed))
     return vae.requires_grad_(False).eval()

@@ -1,12 +1,13 @@
-// Fused bf16 MLP forward for Hopper (sm_90a): y = gelu_tanh(x.W1^T + b1).W2^T + b2
+// Fused bf16 MLP forward with hidden dropout for Hopper (sm_90a):
+// y = dropout(gelu_tanh(x.W1^T + b1)).W2^T + b2
 //
-// Replaces the Pallas kernel `_mlp_kernel`
-// (exploremultimodal_tpu/ops/mlp_pallas.py:56, launched by
-// `_fused_mlp_padded` :122) and, with DROP set, `_mlp_dropout_kernel`
-// (:69, launched at :110). Same function and rounding: bf16 operands,
+// Replaces the Pallas kernel `_mlp_dropout_kernel`
+// (exploremultimodal_tpu/ops/mlp_pallas.py:69, launched at :110); the
+// no-dropout forward (`_mlp_kernel`) is `fused_mlp_sm90.cu`, whose wgmma/TMA
+// design this kernel has yet to take.
+// Same function and rounding: bf16 operands,
 // fp32 accumulation, fp32 biases, tanh-form gelu in fp32, the hidden rounded
-// to bf16 before the second product, the output stored as bf16. With DROP
-// the hidden is dropped between the gelu and the rounding, from uint16 bits
+// to bf16 before the second product, the output stored as bf16. The hidden is dropped between the gelu and the rounding, from uint16 bits
 // the caller drew (M, hidden): h = bits >= t ? h * 65536 / (65536 - t) : 0,
 // in fp32, as `_mlp_dropout_kernel` does. The bits arrive as int16 u - 32768
 // (the port's storage of a uint16 draw u), so the kernel flips each top bit
@@ -116,10 +117,10 @@ __device__ __forceinline__ void load_a(uint32_t a[4], const bf16* tile,
   a[3] = emm::ld32(tile + (r0 + 8) * pitch + col + 8);
 }
 
-// NT: 8-column output tiles per warp, N = 64 * NT. DROP: the hidden
-// dropout of `_mlp_dropout_kernel` from `bits` (m, hdim), threshold `thr`,
-// factor `keep_scale`; without DROP those three are not read.
-template <int NT, bool DROP>
+// NT: 8-column output tiles per warp, N = 64 * NT. The hidden dropout of
+// `_mlp_dropout_kernel` from `bits` (m, hdim), threshold `thr`, factor
+// `keep_scale`.
+template <int NT>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                  const float* __restrict__ b1, const bf16* __restrict__ w2,
@@ -144,7 +145,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
   // chunk
   load_block_async(sX, ldk, x + (size_t)m0 * kdim, kdim, BM, kdim, m - m0);
   load_block_async(sW1, ldk, w1, kdim, HC, kdim, HC);
-  if (DROP) load_block_async(sB, LDB, bits + (size_t)m0 * hdim, hdim, BM, HC, m - m0);
+  load_block_async(sB, LDB, bits + (size_t)m0 * hdim, hdim, BM, HC, m - m0);
   cp_async_commit();
   load_block_async(sW2, LDH, w2, hdim, N, HC, N);
   cp_async_commit();
@@ -204,15 +205,13 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
       const float4 bias = *reinterpret_cast<const float4*>(b1 + c + col);
       float4 h = make_float4(gelu_tanh(s.x + bias.x), gelu_tanh(s.y + bias.y),
                              gelu_tanh(s.z + bias.z), gelu_tanh(s.w + bias.w));
-      if (DROP) {
-        uint2 bv = *reinterpret_cast<const uint2*>(sB + r * LDB + col);
-        bv.x ^= 0x80008000u;  // int16 u - 32768 -> uint16 u
-        bv.y ^= 0x80008000u;
-        h.x = (bv.x & 0xFFFFu) >= (unsigned)thr ? h.x * keep_scale : 0.f;
-        h.y = (bv.x >> 16) >= (unsigned)thr ? h.y * keep_scale : 0.f;
-        h.z = (bv.y & 0xFFFFu) >= (unsigned)thr ? h.z * keep_scale : 0.f;
-        h.w = (bv.y >> 16) >= (unsigned)thr ? h.w * keep_scale : 0.f;
-      }
+      uint2 bv = *reinterpret_cast<const uint2*>(sB + r * LDB + col);
+      bv.x ^= 0x80008000u;  // int16 u - 32768 -> uint16 u
+      bv.y ^= 0x80008000u;
+      h.x = (bv.x & 0xFFFFu) >= (unsigned)thr ? h.x * keep_scale : 0.f;
+      h.y = (bv.x >> 16) >= (unsigned)thr ? h.y * keep_scale : 0.f;
+      h.z = (bv.y & 0xFFFFu) >= (unsigned)thr ? h.z * keep_scale : 0.f;
+      h.w = (bv.y >> 16) >= (unsigned)thr ? h.w * keep_scale : 0.f;
       const uint2 hv = make_uint2(emm::pack_bf16(h.x, h.y), emm::pack_bf16(h.z, h.w));
       *reinterpret_cast<uint2*>(sH + r * LDH + col) = hv;
     }
@@ -221,9 +220,7 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     if (more) {
       load_block_async(sW1, ldk, w1 + (size_t)(c + HC) * kdim, kdim, HC, kdim,
                        HC);
-      if (DROP)
-        load_block_async(sB, LDB, bits + (size_t)m0 * hdim + c + HC, hdim, BM, HC,
-                         m - m0);
+      load_block_async(sB, LDB, bits + (size_t)m0 * hdim + c + HC, hdim, BM, HC, m - m0);
     }
     cp_async_commit();
 
@@ -263,18 +260,18 @@ fused_mlp_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     }
 }
 
-template <int NT, bool DROP>
+template <int NT>
 int launch(const void* x, const void* w1, const void* b1, const void* w2,
            const void* b2, const void* bits, void* y, int m, int kdim, int hdim,
            int thr, float keep_scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(bf16) * ((size_t)(BM + HC) * (kdim + 8) + (size_t)(64 * NT + BM) * LDH) +
-      sizeof(float) * WARPS * BM * LDR + (DROP ? sizeof(uint16_t) * BM * LDB : 0);
+      sizeof(float) * WARPS * BM * LDR + sizeof(uint16_t) * BM * LDB;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_mlp_kernel<NT, DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_mlp_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_mlp_kernel<NT, DROP><<<(m + BM - 1) / BM, THREADS, smem, stream>>>(
+  fused_mlp_kernel<NT><<<(m + BM - 1) / BM, THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const uint16_t*>(bits),
@@ -286,20 +283,8 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
 
 // x: (m, kdim) bf16; w1: (hdim, kdim) bf16; b1: (hdim) fp32; w2: (ndim, hdim)
 // bf16; b2: (ndim) fp32; y: (m, ndim) bf16; all contiguous. kdim % 16 == 0,
-// hdim % 32 == 0, ndim == 768 (VLMo-Base; other widths get their own
-// instantiation with the presets that need them). Returns the launch's
-// cudaError_t.
-extern "C" int fused_mlp_fwd(const void* x, const void* w1, const void* b1,
-                             const void* w2, const void* b2, void* y, int m,
-                             int kdim, int hdim, int ndim, void* stream) {
-  if (m <= 0 || kdim <= 0 || kdim % 16 != 0 || hdim <= 0 || hdim % HC != 0 ||
-      ndim != 768)
-    return cudaErrorInvalidValue;
-  return launch<12, false>(x, w1, b1, w2, b2, nullptr, y, m, kdim, hdim, 0, 1.f,
-                           static_cast<cudaStream_t>(stream));
-}
-
-// As `fused_mlp_fwd`, with the hidden dropout of `_mlp_dropout_kernel`:
+// hdim % 32 == 0, ndim == 768 (VLMo-Base). The hidden dropout of
+// `_mlp_dropout_kernel`:
 // bits: (m, hdim) int16 holding u - 32768 for uint16 draws u, contiguous;
 // an element is kept where u >= threshold (0 < threshold < 65536) and then
 // scaled by keep_scale = 65536 / (65536 - threshold).
@@ -310,6 +295,6 @@ extern "C" int fused_mlp_fwd_drop(const void* x, const void* w1, const void* b1,
   if (m <= 0 || kdim <= 0 || kdim % 16 != 0 || hdim <= 0 || hdim % HC != 0 ||
       ndim != 768 || threshold <= 0 || threshold >= 65536)
     return cudaErrorInvalidValue;
-  return launch<12, true>(x, w1, b1, w2, b2, bits, y, m, kdim, hdim, threshold,
+  return launch<12>(x, w1, b1, w2, b2, bits, y, m, kdim, hdim, threshold,
                           keep_scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,0 +1,326 @@
+// Fused bf16 MLP forward for Hopper (sm_90a) on wgmma and TMA:
+//   y = gelu_tanh(x . W1^T + b1) . W2^T + b2
+//
+// Replaces the Pallas kernel `_mlp_kernel`
+// (exploremultimodal_tpu/ops/mlp_pallas.py:56, launched by
+// `_fused_mlp_padded` :122). Same function and rounding: bf16 operands,
+// fp32 accumulation, fp32 biases, tanh-form gelu in fp32, the hidden rounded
+// to bf16 before the second product, the output stored as bf16. The
+// (M, hidden) intermediate never reaches device memory.
+//
+// What bounds it on an H100: operations. At the VLMo-Base widths (K = N =
+// 768, hidden 3072) it does 2 M (K H + H N) flops against about 2 M (K + N)
+// bytes of activations and 9.4 MB of weights: over 1000 flops per byte at
+// the path's M, far above the ~295 where the tensor cores become the limit.
+//
+// Design. A CTA owns BM = 64 rows of x and walks the hidden in chunks of 64
+// columns; 3 warpgroups: two consumers (wgmma) and one producer warp (TMA).
+//   - x's 64 x 768 tile stays in shared memory (96 KB, one TMA load of 12
+//     boxes); the (64, 768) fp32 output accumulator lives in registers, 384
+//     columns per consumer warpgroup (192 registers a thread; `setmaxnreg`
+//     moves registers from the producer to the consumers).
+//   - Weights stream through a ring of NS = 3 stages of 32 KB on mbarriers,
+//     in the 128-byte swizzle that wgmma reads. Per chunk: three W1 stages
+//     (the chunk's 64 hidden rows x 256 of K each) and three W2 stages (64
+//     hidden columns x 128 output rows for each warpgroup). No whole 96 KB
+//     chunk of W1 is staged at once.
+//   - Per chunk: h (64 x 64) = x . W1[chunk]^T, 32 columns per warpgroup
+//     (m64n32k16 from shared memory); bias, gelu, bf16 into one of two h
+//     tiles in shared memory (swizzled as TMA would write it); one named
+//     barrier between the two consumer warpgroups; then each warpgroup's
+//     384 output columns += h . W2[:, chunk]^T (m64n128k16). The stage
+//     just read is released while the next one's wgmmas run
+//     (wgmma.wait_group 1).
+//   - Clusters of CL = 2 CTAs along M: each weight box is loaded by one CTA
+//     and multicast to both, so the L2 reads of weights fall by half (2.2 to
+//     1.1 GB per call at M = 15,168). Consumers release a stage in every CTA
+//     of the cluster; a producer overwrites a stage only once all have.
+//   - Small M: with fewer row tiles than SMs the wrapper splits the hidden
+//     over `splits` CTAs per tile (grid.y); each writes an fp32 partial of y
+//     and `mlp_sum_splits` adds them in a fixed order, adds b2 and rounds:
+//     deterministic, no atomics.
+//   - Ragged M: TMA fills rows past M with zeros, and stores are guarded.
+// What holds it back (`scripts/torch_kernel_variants.py` times variants of
+// this source on an H100): the round trip of each ring stage. A stage is
+// released only once its wgmmas are done and refilled only then; x's
+// resident tile leaves room for three 32 KB stages, so about one stage of
+// compute covers the release, the TMA and the wait. The variant without the
+// ring's synchronisation (weights left stale) runs in about 0.6 of the
+// time; 16 KB stages, 128-column chunks and deeper wgmma queues were all
+// slower in trials. The gelu epilogue, run by both warpgroups in step,
+// idles the tensor cores about a tenth of the time.
+
+#include <cuda_bf16.h>
+
+#include "sm90.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace emm::sm90;
+
+constexpr int K = 768;          // input width (VLMo-Base)
+constexpr int N = 768;          // output width
+constexpr int BM = 64;          // rows per CTA
+constexpr int HC = 64;          // hidden columns per chunk
+constexpr int CL = 2;           // CTAs per cluster (along M): 1, 2 or 4
+constexpr int NS = 3;           // ring stages
+constexpr int STAGE = 32768;    // bytes per stage
+constexpr int BOX = 8192;       // one 64 x 64 bf16 box
+constexpr int XB = K / 64;      // x boxes
+constexpr int X_BYTES = XB * BOX;
+constexpr int RING_OFF = X_BYTES;
+constexpr int H_OFF = RING_OFF + NS * STAGE;
+constexpr int BAR_OFF = H_OFF + 2 * BOX;
+constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;  // + alignment slack
+constexpr int THREADS = 384;
+constexpr int STAGES_PER_CHUNK = 6;  // 3 of W1, 3 of W2
+static_assert(SMEM <= 232448, "shared memory");
+
+__device__ __forceinline__ float gelu_tanh(float h) {
+  return 0.5f * h *
+         (1.0f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x (m, K), W1 (hidden, K), W2 (N, hidden) through their tensor maps; b1,
+// b2 fp32. `chunks` hidden chunks per CTA, from blockIdx.y * chunks. With
+// `part` null, y = bf16(acc + b2); else part[blockIdx.y] (m, N) = acc.
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
+mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
+                const __grid_constant__ CUtensorMap mw1,
+                const __grid_constant__ CUtensorMap mw2, const float* __restrict__ b1,
+                const float* __restrict__ b2, bf16* __restrict__ y,
+                float* __restrict__ part, int m, int chunks) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sx = base, ring = base + RING_OFF, sh = base + H_OFF;
+  const uint32_t xfull = base + BAR_OFF, full0 = xfull + 8, empty0 = full0 + 8 * NS;
+  const int m0 = blockIdx.x * BM;
+  const int chunk0 = blockIdx.y * chunks;
+  const uint32_t rank = cluster_ctarank();
+
+  if (threadIdx.x == 0) {
+    mbar_init(xfull, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2 * CL);  // each consumer warpgroup of each CTA
+    }
+    fence_barrier_init();
+  }
+  cluster_sync();  // the peer's barriers exist before any multicast or remote arrive
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      const uint16_t mask = (1u << CL) - 1;
+      mbar_arrive_expect_tx(xfull, X_BYTES);
+      for (int b = 0; b < XB; ++b) tma_load_2d(sx + b * BOX, &mx, xfull, 64 * b, m0);
+      const int total = chunks * STAGES_PER_CHUNK;
+      for (int i = 0; i < total + NS; ++i) {
+        const int s = i % NS;
+        mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
+        if (i >= total) continue;  // the tail: every stage released cluster-wide
+        const uint32_t full = full0 + 8 * s, dst = ring + s * STAGE;
+        mbar_arrive_expect_tx(full, STAGE);
+        const int c = chunk0 + i / STAGES_PER_CHUNK, st = i % STAGES_PER_CHUNK;
+        // four 64 x 64 boxes per stage, each loaded by one CTA of the cluster
+        for (int b = rank * (4 / CL); b < (rank + 1) * (4 / CL); ++b) {
+          if (st < 3)  // W1 rows 64c.. (the chunk), K columns 256 st + 64 b
+            tma_load_2d_mc(dst + b * BOX, &mw1, full, 256 * st + 64 * b, HC * c, mask);
+          else  // W2 hidden columns 64c.., output rows 384 w + 128 (st - 3) + 64 (b % 2)
+                // for consumer warpgroup w = b / 2
+            tma_load_2d_mc(dst + b * BOX, &mw2, full, HC * c,
+                           384 * (b / 2) + 128 * (st - 3) + 64 * (b % 2), mask);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    setmaxnreg_inc<240>();
+    const int w = wg;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, q = lane % 4;
+    // stage j read: warp r of this warpgroup releases it in CTA r
+    auto release = [&](int j) {
+      if (lane == 0 && warp < CL) mbar_arrive_cluster(empty0 + 8 * (j % NS), warp);
+    };
+
+    float acc[3][64];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[p][i] = 0.f;
+    mbar_wait(xfull, 0);
+
+    int it = 0;
+    for (int c = 0; c < chunks; ++c) {
+      // h (64 x 32 of this warpgroup) = x . W1[chunk rows 32w..]^T
+      float hacc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) hacc[i] = 0.f;
+#pragma unroll
+      for (int st = 0; st < 3; ++st) {
+        const int cur = it++;
+        mbar_wait(full0 + 8 * (cur % NS), (cur / NS) & 1);
+        const uint32_t stage = ring + (cur % NS) * STAGE;
+        fence_regs(hacc);
+        wgmma_fence();
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            wgmma_ss_n32(hacc, desc_sw128(sx + (4 * st + b) * BOX + 32 * k),
+                         desc_sw128(stage + b * BOX + 32 * 128 * w + 32 * k));
+        wgmma_commit();
+        if (st > 0) {
+          wgmma_wait<1>();
+          release(cur - 1);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(hacc);
+      release(it - 1);
+
+      // bias, gelu, bf16 into h tile c % 2, in the 128-byte swizzle
+      const uint32_t hoff = H_OFF + (c & 1) * BOX;
+      const float* b1c = b1 + HC * (chunk0 + c);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = 32 * w + 8 * j + 2 * q;
+        const float2 bb = *reinterpret_cast<const float2*>(b1c + col);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = 16 * warp + g + 8 * hh;
+          const uint32_t off =
+              hoff + row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2));
+          *reinterpret_cast<uint32_t*>(smem + off) =
+              pack_bf16(gelu_tanh(hacc[4 * j + 2 * hh] + bb.x),
+                        gelu_tanh(hacc[4 * j + 2 * hh + 1] + bb.y));
+        }
+      }
+      fence_proxy_async();
+      named_bar_sync(1, 256);  // the whole 64 x 64 h tile is written
+
+      // acc (64 x 384 of this warpgroup) += h . W2[384w.., chunk]^T
+      const uint32_t shc = sh + (c & 1) * BOX;
+#pragma unroll
+      for (int st = 0; st < 3; ++st) {
+        const int cur = it++;
+        mbar_wait(full0 + 8 * (cur % NS), (cur / NS) & 1);
+        const uint32_t stage = ring + (cur % NS) * STAGE + w * 2 * BOX;
+        fence_regs(acc[st]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          wgmma_ss_n128(acc[st], desc_sw128(shc + 32 * k), desc_sw128(stage + 32 * k));
+        wgmma_commit();
+        if (st > 0) {
+          wgmma_wait<1>();
+          release(cur - 1);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int p = 0; p < 3; ++p) fence_regs(acc[p]);
+      release(it - 1);
+    }
+
+    // epilogue: rows past m are not stored
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = m0 + 16 * warp + g + 8 * hh;
+          const int col = 384 * w + 128 * p + 8 * j + 2 * q;
+          const float v0 = acc[p][4 * j + 2 * hh], v1 = acc[p][4 * j + 2 * hh + 1];
+          if (row < m) {
+            if (part == nullptr) {
+              *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
+                  __floats2bfloat162_rn(v0 + b2[col], v1 + b2[col + 1]);
+            } else {
+              *reinterpret_cast<float2*>(part + ((size_t)blockIdx.y * m + row) * N + col) =
+                  make_float2(v0, v1);
+            }
+          }
+        }
+  }
+}
+
+// y = bf16(sum over splits of part[s] + b2), the splits added in order
+__global__ void mlp_sum_splits(const float4* __restrict__ part, const float* __restrict__ b2,
+                               bf16* __restrict__ y, int m, int splits) {
+  const size_t n4 = (size_t)m * (N / 4);
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  float4 s = part[i];
+  for (int p = 1; p < splits; ++p) {
+    const float4 v = part[(size_t)p * n4 + i];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  const int col = static_cast<int>((i * 4) % N);
+  const float4 b = *reinterpret_cast<const float4*>(b2 + col);
+  const uint2 out = make_uint2(pack_bf16(s.x + b.x, s.y + b.y), pack_bf16(s.z + b.z, s.w + b.w));
+  *reinterpret_cast<uint2*>(y + i * 4) = out;
+}
+
+}  // namespace
+
+// Encodes into `out` (128 bytes, host memory) the tensor map of a row-major
+// bf16 matrix (rows, cols) at `base`, in 64 x 64 boxes. Returns a
+// cudaError_t.
+extern "C" int fused_mlp_sm90_encode(void* out, const void* base, int rows, int cols) {
+  if (rows <= 0 || cols <= 0 || cols % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
+  const uint32_t box[2] = {64, 64};
+  return emm_encode_bf16_map(out, base, 2, dims, strides, box);
+}
+
+// mx, mw1, mw2: the maps of x (m, 768), W1 (hidden, 768) and W2 (768,
+// hidden), each in 64 x 64 boxes (from
+// `fused_mlp_sm90_encode`, host memory); b1 (hidden), b2 (768) fp32; y (m,
+// 768) bf16. With splits > 1, `part` is fp32 scratch of splits x m x 768.
+// hidden % (64 splits) == 0. Launches on `stream`; returns the first
+// launch error.
+extern "C" int fused_mlp_sm90(const void* mx, const void* mw1, const void* mw2, const void* b1,
+                              const void* b2, void* y, void* part, int m, int hdim, int splits,
+                              void* stream) {
+  if (m <= 0 || hdim <= 0 || splits <= 0 || hdim % (HC * splits) != 0 ||
+      (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x, w1, w2;
+  memcpy(&x, mx, sizeof(x));
+  memcpy(&w1, mw1, sizeof(w1));
+  memcpy(&w2, mw2, sizeof(w2));
+  cudaError_t err = cudaFuncSetAttribute(mlp_sm90_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int tiles = (m + BM - 1) / BM;
+  tiles += (CL - tiles % CL) % CL;  // whole clusters; spare CTAs store nothing
+  mlp_sm90_kernel<<<dim3(tiles, splits), THREADS, SMEM, st>>>(
+      x, w1, w2, static_cast<const float*>(b1), static_cast<const float*>(b2),
+      static_cast<bf16*>(y), splits > 1 ? static_cast<float*>(part) : nullptr, m,
+      hdim / HC / splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n4 = (size_t)m * (N / 4);
+  mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float4*>(part), static_cast<const float*>(b2), static_cast<bf16*>(y),
+      m, splits);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -37,6 +37,7 @@ KERNEL_COUT = (256, 512, 1024)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = [_P] * 12 + [_I] * 8 + [ctypes.c_float, _P]
+_GRID_ARGS = [_I] * 4 + [ctypes.POINTER(ctypes.c_int)] * 4
 
 
 def _vmem_estimate(T: int, W: int, cin: int, nh: int, cout: int,
@@ -183,3 +184,12 @@ def fused_encoder_block(x: torch.Tensor, params, post_gain: float,
 
 
 fused_encoder_block.launches = 0
+
+
+def kernel_grid(nh: int, h: int, w: int, batch: int) -> tuple[int, str, int]:
+    """(CTAs launched, output tile "TRxTC", CTAs per cluster) of the kernel
+    at hidden width nh on a batch of h x w images (needs the card)."""
+    tr, tc, grid, cl = (ctypes.c_int() for _ in range(4))
+    fn = _build.load("dvae_block", _GRID_ARGS, "dvae_block_grid")
+    _build.check("dvae_block_grid", fn(nh, h, w, batch, *map(ctypes.byref, (tr, tc, grid, cl))))
+    return grid.value, f"{tr.value}x{tc.value}", cl.value

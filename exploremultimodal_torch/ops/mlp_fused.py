@@ -6,7 +6,8 @@ Counterpart of `exploremultimodal_tpu/ops/mlp_pallas.py`:
   - `fused_mlp_fwd_drop`  `_mlp_dropout_kernel` (hidden dropout from uint16 bits)
   - `fused_mlp`           `fused_bf16_mlp` / `fused_bf16_mlp_dropout`, with
                           the backward of `_vjp_bwd` / `_vjpd_bwd`
-Both kernels are `csrc/fused_mlp_fwd.cu`. The weights are in nn.Linear's
+The no-dropout forward is `csrc/fused_mlp_sm90.cu` (wgmma, TMA, clusters),
+the dropout forward `csrc/fused_mlp_fwd.cu`. The weights are in nn.Linear's
 layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32. The
 dropout bits are uint16 draws u held as the int16 u - 32768
 (`stochastic.bits16`); an element is kept where u >= t.
@@ -27,11 +28,23 @@ from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 # erf-gelu XLA path otherwise. The port keeps the same predicate so the two
 # packages pick the same function (and gelu form) at every width.
 _RESIDENT_BYTES_CAP = 10 * 1024 * 1024
-OUT_DIMS = (768,)  # output widths the kernel is instantiated for
+OUT_DIMS = (768,)  # output widths the kernels are instantiated for
+IN_DIMS = (768,)  # input widths of the sm90 kernel (x's tile stays in shared memory)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 6 + [_I] * 4 + [_P]
+_SM90_ARGTYPES = [_P] * 7 + [_I] * 3 + [_P]
+_ENCODE_ARGTYPES = [_P, _P] + [_I] * 2
 _DROP_ARGTYPES = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
+
+# the sm90 kernel's tiling: 64-row tiles in clusters of 2 CTAs, the hidden
+# walked in 64-column chunks (csrc/fused_mlp_sm90.cu)
+ROW_TILE, CLUSTER, HIDDEN_CHUNK = 64, 2, 64
+# tensor maps (128-byte host buffers, 64 x 64 boxes) by `tensor_map_key`; a
+# map depends only on the address and shape, never on the contents, so a hit
+# is always right; the cache is emptied when it reaches the cap
+_MAPS: dict = {}
+_MAPS_CAP = 256
+_SMS: dict = {}
 
 
 def fits_vmem(in_dim: int, hidden_dim: int, out_dim: int) -> bool:
@@ -91,16 +104,64 @@ def _check(name, x, w1, b1, w2, b2, bits=None):
     return m, k, hdim, ndim
 
 
+def hidden_splits(m: int, hdim: int, sms: int) -> int:
+    """How many CTAs share one row tile's hidden dimension in the sm90
+    kernel. The rule: the largest divisor s of the hidden's 64-column chunks
+    with tiles * s <= sms, where tiles is the number of 64-row tiles rounded
+    up to whole clusters of 2, so that a call fills at most one wave of the
+    card; 1 where the tiles alone pass half a wave (M > ~4,200 on 132 SMs). Each
+    split writes an fp32 partial of y, added in a second pass."""
+    tiles = -(-m // ROW_TILE)
+    tiles += -tiles % CLUSTER
+    chunks = hdim // HIDDEN_CHUNK
+    return max(s for s in range(1, chunks + 1)
+               if chunks % s == 0 and tiles * s <= max(sms, tiles))
+
+
+def tensor_map_key(t: torch.Tensor) -> tuple:
+    """The key of a matrix's tensor map: device, address, shape."""
+    return (t.device.index, t.data_ptr(), tuple(t.shape))
+
+
+def _tensor_map(t: torch.Tensor):
+    key = tensor_map_key(t)
+    buf = _MAPS.get(key)
+    if buf is None:
+        if len(_MAPS) >= _MAPS_CAP:
+            _MAPS.clear()
+        buf = ctypes.create_string_buffer(128)
+        fn = _build.load("fused_mlp_sm90", _ENCODE_ARGTYPES, "fused_mlp_sm90_encode")
+        _build.check("fused_mlp_sm90_encode",
+                     fn(ctypes.addressof(buf), t.data_ptr(), t.shape[0], t.shape[1]))
+        _MAPS[key] = buf
+    return buf
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
 def fused_mlp_fwd(x, w1, b1, w2, b2):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The sm90 kernel on CUDA tensors (x (M, 768), hidden a multiple of
+    64, output 768), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, b1, w2, b2)
     m, k, hdim, ndim = _check("fused_mlp_fwd", x, w1, b1, w2, b2)
-    y = torch.empty((m, ndim), dtype=x.dtype, device=x.device)
-    fn = _build.load("fused_mlp_fwd", _ARGTYPES)
-    rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), m, k, hdim, ndim,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    if k not in IN_DIMS or hdim % HIDDEN_CHUNK:
+        raise ValueError(f"fused_mlp_fwd: needs K in {IN_DIMS} and hidden % "
+                         f"{HIDDEN_CHUNK} == 0, got K {k}, hidden {hdim}")
+    dev = x.device
+    y = torch.empty((m, ndim), dtype=x.dtype, device=dev)
+    splits = hidden_splits(m, hdim, _sm_count(dev))
+    part = (torch.empty((splits, m, ndim), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    maps = [ctypes.addressof(_tensor_map(t)) for t in (x, w1, w2)]
+    fn = _build.load("fused_mlp_sm90", _SM90_ARGTYPES)
+    rc = fn(*maps, b1.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr(), m, hdim, splits,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check("fused_mlp_fwd", rc)
     fused_mlp_fwd.launches += 1
     return y

@@ -21,6 +21,8 @@ the caller passes device="cpu".
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Any, Iterator
 
 import torch
@@ -71,6 +73,23 @@ def _refuse_unported(cfg: dict) -> None:
         raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
+log = logging.getLogger(__name__)
+
+
+def dvae_type(train_cfg: dict) -> str:
+    """`train.discrete_vae_type` as the JAX trainer resolves it
+    (`Trainer._dvae_type`): 'dall-e' without an `encoder.pkl` under
+    `train.discrete_vae_weight_path` falls back, with a warning, to the
+    seeded random tokenizer; every other case passes through."""
+    kind = train_cfg.get("discrete_vae_type", "dall-e")
+    path = train_cfg.get("discrete_vae_weight_path", "")
+    if kind == "dall-e" and not os.path.exists(os.path.join(path, "encoder.pkl")):
+        log.warning("dVAE weights not found at %r — using a randomly initialized "
+                    "tokenizer (MIM targets will be untrained codes)", path)
+        return "random"
+    return kind
+
+
 class Trainer:
     """Builds the task, the frozen tokenizer, the data and the optimizer
     from `cfg` (a `config.load_config` dict) and takes training steps."""
@@ -89,7 +108,7 @@ class Trainer:
         self.dvae = None
         if "mim" in c.loss_names:
             self.dvae = create_d_vae(
-                t.get("discrete_vae_type", "dall-e"), c.img_size // 2, c.dtype,
+                dvae_type(t), c.img_size // 2, c.dtype,
                 quantize=t.get("discrete_vae_quantize") or "none", device=self.device)
 
         self.loader = Loader(build_dataset(cfg), cfg["data"]["batch_size"],

@@ -1,0 +1,127 @@
+#!/usr/bin/env python3
+"""Time variants of the port's wgmma/TMA kernels side by side on one GPU.
+
+    python3 scripts/torch_kernel_variants.py [scripts/torch_kernel_variants.json]
+
+Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
+textual edits applied (the JSON maps a name to {"kind": "mlp" | "dvae",
+"src": file, "edits": [[old, new], ...]}; every `old` must occur). All
+variants are compiled at once with the package's nvcc flags into a
+temporary directory, then each is swapped in for the package's kernel and
+timed, in the order A B ... B A, at the shapes the main paths give it: the
+bf16 fused MLP (row 6) at the serving M, the dVAE block (row 11) at the five
+blocks the tokenizer fuses. A variant whose output leaves the kernel's
+tolerance against the plain version is marked BAD (variants that skip work
+are expected to be). Prints one JSON line per shape, with the card's name
+and power limit first. Needs a CUDA device and nvcc; imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import chip_smoke as cs  # noqa: E402
+from exploremultimodal_torch.ops import _build, dvae_conv, mlp_fused  # noqa: E402
+from exploremultimodal_torch.ops.dvae_conv import (  # noqa: E402
+    block_widths,
+    fused_encoder_block,
+    fused_encoder_block_plain,
+)
+from exploremultimodal_torch.ops.mlp_fused import fused_mlp_fwd, fused_mlp_fwd_plain  # noqa: E402
+
+MLP_ROWS = (64, 320, 2560, 4999, 12608, 15168, 32776)
+SYMBOL = {"mlp": ("fused_mlp_sm90", mlp_fused._SM90_ARGTYPES),
+          "dvae": ("dvae_block", dvae_conv._ARGS)}
+
+
+def build(spec: dict, out: Path) -> dict:
+    procs = {}
+    for name, v in spec.items():
+        src = (_build.CSRC / v["src"]).read_text()
+        for old, new in v.get("edits", []):
+            if old not in src:
+                raise ValueError(f"{name}: {old!r} not in {v['src']}")
+            src = src.replace(old, new)
+        path = out / f"{name}.cu"
+        path.write_text(src)
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+               str(out / f"lib{name}.so"), str(path)]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                       text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name} failed to build:\n{log}")
+        symbol, argtypes = SYMBOL[spec[name]["kind"]]
+        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def compare(names, fns, kind, run, check, **timing) -> dict:
+    """ms of each variant, in the order A B ... B A; a failed check marks it BAD."""
+    res = {}
+    for name in names + names[::-1]:
+        _build._loaded[SYMBOL[kind][0]] = fns[name]
+        ok, err = check()
+        res.setdefault(name, []).append(cs.time_ms(run, **timing))
+        if not ok:
+            res[name].append(f"BAD {err}")
+    return res
+
+
+def main(argv: list[str]) -> int:
+    if not torch.cuda.is_available():
+        print("torch_kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    path = Path(argv[0]) if argv else Path(__file__).with_suffix(".json")
+    spec = json.loads(path.read_text())
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    print(cs.card_line(), flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = build(spec, Path(tmp))
+    mlp = [n for n in spec if spec[n]["kind"] == "mlp"]
+    dvae = [n for n in spec if spec[n]["kind"] == "dvae"]
+    if mlp:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.SERVE_OVERRIDES))
+        g, w1, b1, w2, b2 = cs.mlp_weights(cfg, dev, 1)
+        for m in MLP_ROWS:
+            x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
+            ref = fused_mlp_fwd_plain(x, w1, b1, w2, b2)
+            res = compare(mlp, fns, "mlp", lambda: fused_mlp_fwd(x, w1, b1, w2, b2),
+                          lambda: cs.within(fused_mlp_fwd(x, w1, b1, w2, b2), ref,
+                                            cs.MLP_ATOL, cs.MLP_RTOL))
+            print(json.dumps({"kernel": "fused_mlp_fwd", "M": m, "ms": res}), flush=True)
+    if dvae:
+        enc = cs.dvae_encoder(torch.bfloat16, dev)
+        g = torch.Generator(device=dev).manual_seed(12)
+        for name, pool, h in cs.dvae_block_shapes():
+            blk = getattr(enc, name)
+            x = torch.randn((cs.DVAE_BATCH, h, h, block_widths(blk)[0]), generator=g,
+                            device=dev).to(torch.bfloat16)
+            ref = fused_encoder_block_plain(x, blk, enc.post_gain, pool)
+            res = compare(dvae, fns, "dvae",
+                          lambda: fused_encoder_block(x, blk, enc.post_gain, pool),
+                          lambda: cs.within(fused_encoder_block(x, blk, enc.post_gain, pool),
+                                            ref, cs.DVAE_ATOL, cs.DVAE_RTOL),
+                          iters=5, warmup=1)
+            print(json.dumps({"kernel": "fused_encoder_block", "block": name, "ms": res}),
+                  flush=True)
+            del x, ref
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

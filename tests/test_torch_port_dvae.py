@@ -20,6 +20,8 @@ conv: 1e-5 again, and token ids must be equal.
 """
 
 import functools
+import logging
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -34,10 +36,13 @@ from exploremultimodal_tpu.infer import Predictor as JaxPredictor
 from exploremultimodal_tpu.infer import _vqa_fn
 from exploremultimodal_tpu.models.dvae import DalleEncoder as JaxDalleEncoder
 from exploremultimodal_tpu.models.dvae import DalleVAE as JaxDalleVAE
+from exploremultimodal_tpu.models.dvae import create_d_vae as jax_create_d_vae
 from exploremultimodal_tpu.models.task import VlmoTask as JaxTask
 from exploremultimodal_tpu.models.task import build_model as jax_build_model
 from exploremultimodal_tpu.ops.preprocess import preprocess_batch as jax_preprocess_batch
 from exploremultimodal_tpu.ops.quant_conv import quant_conv as jax_quant_conv
+from exploremultimodal_tpu.train.trainer import Trainer as JaxTrainer
+import exploremultimodal_tpu.models.dvae as jdvae
 import exploremultimodal_torch.models.dvae as pdvae
 import exploremultimodal_torch.ops.dvae_conv as pdc
 import exploremultimodal_torch.ops.flash_attention as pfa
@@ -45,7 +50,8 @@ from exploremultimodal_torch.config import load_config
 from exploremultimodal_torch.infer import Predictor
 from exploremultimodal_torch.models.convert import from_flax_params
 from exploremultimodal_torch.ops.quant_conv import quant_conv
-from exploremultimodal_torch.train.trainer import Trainer
+import exploremultimodal_torch.train.trainer as ptrainer
+from exploremultimodal_torch.train.trainer import Trainer, dvae_type
 
 ATOL = RTOL = 1e-5
 NARROW = dict(n_hid=16)  # the int8 encoder's width here: n_blk 2, vocab 8192
@@ -295,6 +301,66 @@ def test_trainer_int8_dvae_gives_jax_mim_labels(monkeypatch, value):
     want = want.reshape(want.shape[0], -1)
     assert got.shape == want.shape == (2, 16)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _preset_without_dvae_override():
+    return [o for o in TRAIN_TINY if not o.startswith("train.discrete_vae_type")]
+
+
+def test_trainer_falls_back_to_random_dvae_like_jax(monkeypatch, tmp_path, caplog):
+    """The unmodified pretrain_mum preset ('dall-e' at weight/dalle/, with
+    no encoder.pkl there) builds the random tokenizer, as JAX's
+    `Trainer._dvae_type` resolves it, with JAX's warning; its MIM labels on
+    one vlmo_debug batch equal those of JAX's `create_d_vae(path,
+    _dvae_type(), ...)` on the same weights. The dVAE is narrowed to n_hid
+    16 in both packages, and JAX's `init_random` (whose weights both
+    sides replace) is skipped."""
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(pdvae, "DalleEncoder",
+                        functools.partial(pdvae.DalleEncoder, **NARROW))
+    monkeypatch.setattr(jdvae, "DalleEncoder",
+                        functools.partial(jdvae.DalleEncoder, **NARROW))
+    monkeypatch.setattr(jdvae.DalleVAE, "init_random", lambda self, rng: None)
+    overrides = _preset_without_dvae_override()
+    kinds = []
+    monkeypatch.setattr(ptrainer, "create_d_vae", lambda kind, *a, **kw: (
+        kinds.append(kind) or pdvae.create_d_vae(kind, *a, **kw)))
+    with caplog.at_level(logging.WARNING):
+        trainer = Trainer(load_config(overrides), device="cpu")
+    assert "dVAE weights not found at 'weight/dalle/'" in caplog.text
+    assert kinds == ["random"] and trainer.dvae is not None
+
+    jcfg = jax_load_config(overrides)
+    assert jcfg.train.discrete_vae_type == "dall-e"
+    kind = JaxTrainer._dvae_type(SimpleNamespace(cfg=jcfg, logger=logging.getLogger()))
+    assert kind == "random"
+    jvae = jax_create_d_vae(jcfg.train.discrete_vae_weight_path, kind, 32,
+                            dtype=jnp.float32)
+    params = _narrow_params()
+    jvae.encoder_params = params
+    trainer.dvae.encoder.load_state_dict(from_flax_params(params), strict=True)
+    batch = trainer.next_batch()
+    got = trainer.model_batch(batch)["mim_labels"]
+
+    raw = {k: jnp.asarray(v) for k, v in batch.items() if k != "index"}
+    image = jax_preprocess_batch(raw)["image4dalle"]
+    want = np.asarray(jax.jit(jvae.get_codebook_indices)(image))
+    assert got.shape == want.shape == (2, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_trainer_refuses_dalle_weights_it_cannot_load(monkeypatch, tmp_path):
+    """With an encoder.pkl at the preset's weight path the type stays
+    'dall-e', and the port raises instead of training on random codes
+    where JAX would load the weights; other types pass through."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "weight" / "dalle").mkdir(parents=True)
+    (tmp_path / "weight" / "dalle" / "encoder.pkl").write_bytes(b"")
+    cfg = load_config(_preset_without_dvae_override())
+    assert dvae_type(cfg["train"]) == "dall-e"
+    with pytest.raises(NotImplementedError, match="DALL-E weights"):
+        Trainer(cfg, device="cpu")
+    assert dvae_type({"discrete_vae_type": "random"}) == "random"
 
 
 # --------------------------------------------------------------- row 5
