@@ -29,9 +29,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      same weights, batch, ITM negatives and MIM labels (hidden dropout and
      DropPath off, attention dropout on through the hash), compared;
   9. the fused MLP's dropout forward (row 7) against its plain version at
-     the finetune_vqa step's three FFN shapes and two thresholds, timed
-     beside its plain version and the library chain; the fused MLP's
-     autograd backward against the fp32 plain VJP at the largest shape;
+     the finetune_vqa step's three FFN shapes and two thresholds, and at
+     M = 64 and two ragged M, timed beside its plain version and the
+     library chain (with its cluster size and hidden splits); the fused
+     MLP's autograd backward against the fp32 plain VJP at the largest
+     shape;
  10. train finetune_vqa at vlmo_base, batch 32, with mlp_impl=fused (row 7
      on every FFN call, rows 3 and 4 on every attention call): one warm-up
      step and TRAIN_STEPS timed steps, with every launch counted;
@@ -54,10 +56,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      at dropout 0 (row 9 trains); a batch-2 step against the CPU;
  16. high-resolution serving (model.img_size=1024, 4097 image and 4137 fused
      tokens): the long flash forward (row 5) against its plain version at
-     both stream shapes, timed beside its plain version and SDPA; then 1 +
-     5 batch-8 requests with row 5 on the image and fused streams, row 1 on
-     the text stream and row 6 on every FFN call, one row compared with the
-     CPU;
+     both stream shapes, at batch 1 and with a batch row whose first
+     128-key block is all masked, timed beside its plain version and SDPA;
+     then 1 + 5 batch-8 requests with row 5 on the image and fused streams,
+     row 1 on the text stream and row 6 on every FFN call, one row compared
+     with the CPU;
  17. the dVAE tokenizer: the fused encoder block (row 11) against its plain
      version at the five blocks it fuses at 256^2 (batch 32), timed beside
      its plain version and the cuDNN chain; then 1 + 5 tokenizer calls of
@@ -98,6 +101,7 @@ from exploremultimodal_torch.ops.dvae_conv import (
 )
 from exploremultimodal_torch.ops.flash_attention import (
     FULL_ROW_FWD_MAX,
+    LONG_TILE,
     dropout_keep_mask_plain,
     flash_attention_bwd,
     flash_attention_bwd_drop,
@@ -109,6 +113,7 @@ from exploremultimodal_torch.ops.flash_attention import (
     flash_attention_fwd_long,
     flash_attention_fwd_long_plain,
     flash_attention_fwd_plain,
+    long_grid,
     padded_len,
 )
 from exploremultimodal_torch.ops.mlp_fused import CLUSTER as MLP_CLUSTER
@@ -207,8 +212,11 @@ VQA_OVERRIDES = [
 ]
 VQA_BATCH = 32
 # row 7 at the finetune_vqa step's thresholds: drop_rate 0.1 (6554) and a
-# half-dropping one (32768), which reads bits with the top bit set
+# half-dropping one (32768), which reads bits with the top bit set; at the
+# path's threshold also M = 64 (one row tile) and two ragged M (partial
+# row tiles, one of them with the hidden split)
 MLP_DROP_THRESHOLDS = (32768, 6554)
+MLP_DROP_OFF_PATH_ROWS = (64, 1000, 4999)
 # the fused MLP's backward on the card (bf16: the hidden recomputed and
 # rounded to bf16, the gelu VJP and every product with bf16 operands and
 # outputs) against the fp32 VJP of the plain function on the same bf16
@@ -410,17 +418,20 @@ def vqa_mlp_rows(cfg: VlmoConfig) -> tuple[int, ...]:
 
 def check_mlp_drop(cfg: VlmoConfig, dev) -> list[dict]:
     """Row 7 against `fused_mlp_fwd_drop_plain` at each FFN shape of the
-    finetune_vqa step and each threshold, on seeded int16 bits; then the
-    kernel, the plain version and the library chain (bf16 linear, tanh
-    gelu, where, linear) timed. The last row is the path's threshold at the
-    largest shape."""
+    finetune_vqa step and each threshold, and at the path's threshold at
+    M = 64 (one row tile, its hidden split over CTAs) and two ragged M (one
+    of them split), on seeded int16 bits; then the kernel, the plain
+    version and the library chain (bf16 linear, tanh gelu, where, linear)
+    timed. The last row is the path's threshold at the largest shape."""
     g, w1, b1, w2, b2 = mlp_weights(cfg, dev, 2)
     k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
     b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for t in MLP_DROP_THRESHOLDS:
         scale = torch.tensor(keep_scale16(t), dtype=torch.bfloat16, device=dev)
-        for m in vqa_mlp_rows(cfg):
+        extra = MLP_DROP_OFF_PATH_ROWS if t == MLP_DROP_THRESHOLDS[-1] else ()
+        for m in extra + vqa_mlp_rows(cfg):
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16,
                                  generator=g, device=dev)
@@ -441,6 +452,8 @@ def check_mlp_drop(cfg: VlmoConfig, dev) -> list[dict]:
             bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out))
             rows.append({
                 "threshold": t, "shape": f"M={m} K={k} H={h} N={n_out}",
+                "on_path": m not in extra,
+                "cluster": MLP_CLUSTER, "hidden_splits": hidden_splits(m, h, sms),
                 "max_abs_err": err,
                 "kept_share": keep16(bits, t).float().mean().item(),
                 "ms": time_ms(lambda: fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t)),
@@ -646,21 +659,29 @@ def check_quant_dot(cfg: VlmoConfig, dev) -> dict:
 def check_attention_long(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict]:
     """Row 5 against `flash_attention_fwd_long_plain` at the high-resolution
     serving shapes (batch HIRES_BATCH): the image stream (N = 4097) and the
-    fused one (N = 4137), each timed beside its plain version and SDPA. The
-    last row is the fused stream."""
+    fused one (N = 4137), each timed beside its plain version and SDPA;
+    before them two off-path cases: the image stream at batch 1, and the
+    fused stream with every key of the first 128-key block of one batch row
+    masked (the online rescale from a block with no real key). The last row
+    is the fused stream."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
     txt = text_mask(rng, HIRES_BATCH, cfg.max_text_len)
-    masks = {"image": np.ones((HIRES_BATCH, n_img), np.int32),
-             "fused": np.concatenate([txt, np.ones((HIRES_BATCH, n_img), np.int32)], 1)}
+    fused = np.concatenate([txt, np.ones((HIRES_BATCH, n_img), np.int32)], 1)
+    first_block_masked = fused.copy()
+    first_block_masked[HIRES_BATCH // 2, :LONG_TILE] = 0
+    masks = {"image_b1": np.ones((1, n_img), np.int32),
+             "fused_first_block_masked": first_block_masked,
+             "image": np.ones((HIRES_BATCH, n_img), np.int32),
+             "fused": fused}
     rows = []
     for stream, mask in masks.items():
-        n, bh = mask.shape[1], HIRES_BATCH * heads
+        (batch, n), bh = mask.shape, mask.shape[0] * heads
         require(padded_len(n) > FULL_ROW_FWD_MAX, f"N={n} does not take row 5")
         g = torch.Generator(device=dev).manual_seed(n)
         q, k, v = (torch.randn((bh, n, d), generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
-        kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(HIRES_BATCH, n)
+        kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(batch, n)
         kb = kb.contiguous()
         scale = d ** -0.5
         out = flash_attention_fwd_long(q, k, v, kb, scale)
@@ -669,13 +690,14 @@ def check_attention_long(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list
         ok, err = within(out, ref, ATTN_ATOL, ATTN_RTOL)
         require(ok, f"attention_long {stream} N={n}: max|err| {err} beyond atol "
                 f"{ATTN_ATOL} + rtol {ATTN_RTOL}")
-        q4, k4, v4 = (t.view(HIRES_BATCH, heads, n, d) for t in (q, k, v))
-        mask4 = kb.to(torch.bfloat16).view(HIRES_BATCH, 1, 1, n)
-        nbytes = 4 * bh * n * d * 2 + HIRES_BATCH * n * 4
+        q4, k4, v4 = (t.view(batch, heads, n, d) for t in (q, k, v))
+        mask4 = kb.to(torch.bfloat16).view(batch, 1, 1, n)
+        nbytes = 4 * bh * n * d * 2 + batch * n * 4
         bound_ms, bound_by = bound(nbytes, 4 * bh * n * n * d)
         del ref
         rows.append({
-            "stream": stream, "shape": f"BH={bh} N={n} D={d}", "max_abs_err": err,
+            "stream": stream, "shape": f"BH={bh} N={n} D={d}",
+            "grid": list(long_grid(bh, n)), "max_abs_err": err,
             "ms": time_ms(lambda: flash_attention_fwd_long(q, k, v, kb, scale)),
             "plain_ms": time_ms(lambda: flash_attention_fwd_long_plain(q, k, v, kb, scale),
                                 iters=3, warmup=1),
@@ -683,6 +705,7 @@ def check_attention_long(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list
                 q4, k4, v4, attn_mask=mask4, scale=scale)),
             "bound_ms": bound_ms, "bound_by": bound_by,
         })
+        del q, k, v, q4, k4, v4, out
         torch.cuda.empty_cache()
     return rows
 
@@ -1441,7 +1464,6 @@ def main() -> int:
     bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_sm90.cu"
-    mlp_drop_src = "exploremultimodal_torch/ops/csrc/fused_mlp_fwd.cu"
     tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
     q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul.cu"
     qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_fwd.cu"
@@ -1457,7 +1479,7 @@ def main() -> int:
               train_rows["flash_attention_bwd_drop"], train_launches),
         entry("fused_mlp_fwd", "cuda", mlp_src, f"{tpu_mlp}:56", mlp_rows,
               serve_launches),
-        entry("fused_mlp_fwd_drop", "cuda", mlp_drop_src, f"{tpu_mlp}:69", mlp_drop_rows,
+        entry("fused_mlp_fwd_drop", "cuda", mlp_src, f"{tpu_mlp}:69", mlp_drop_rows,
               vqa_launches),
         entry("w8a8_matmul", "cuda", q_src, f"{tpu_q}:48", w8_rows["w8a8_matmul"],
               w8p_launches),
@@ -1465,7 +1487,9 @@ def main() -> int:
               w8_serve_launches),
         entry("w8a8_mlp_fwd_drop", "cuda", qmlp_src, f"{tpu_q}:366",
               w8_rows["w8a8_mlp_fwd_drop"], w8_vqa_launches),
-        entry("flash_attention_fwd_long", "cuda", fwd_src, f"{tpu_fa}:113", long_rows,
+        entry("flash_attention_fwd_long", "cuda",
+              "exploremultimodal_torch/ops/csrc/flash_attention_long_sm90.cu",
+              f"{tpu_fa}:113", long_rows,
               hires_launches),
         entry("fused_encoder_block", "cuda", "exploremultimodal_torch/ops/csrc/dvae_block.cu",
               "exploremultimodal_tpu/ops/dvae_conv.py:127", dvae_rows, tok_launches),

@@ -1,11 +1,10 @@
 // Flash-attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
 //
-// Replaces three Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py:
-// `_attn_kernel` (:152, launched by `_fwd_call` :283), with DROP set
-// `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323), and with
-// LSE cleared `_attn_long_kernel` (:113, launched by `_long_fwd_call` :553),
-// the k-blocked online-softmax forward for padded N > 4096, which returns
-// the output only. Same function: for each (batch*head, query row)
+// Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py:
+// `_attn_kernel` (:152, launched by `_fwd_call` :283) and, with DROP set,
+// `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323). The long
+// forward (`_attn_long_kernel`) is flash_attention_long_sm90.cu. Same
+// function: for each (batch*head, query row)
 //   s   = (q . k^T) * scale + key_bias           fp32
 //   p   = exp(s - max(s));  l = sum(p)
 //   out = ((keep o p) . v) / l                   fp32 sum, stored as bf16
@@ -14,9 +13,6 @@
 // dropout_hash.cuh times 1 / (1 - rate). The mask multiplies the
 // unnormalized p before the p . v product; l and lse stay clean, so the
 // backward rebuilds the clean p from lse and re-applies the same mask.
-// The TPU keeps two kernels because its full-row one holds a (128, N) score
-// tile in VMEM; this one walks the keys in chunks at every N, so the long
-// variant differs only in not storing lse.
 //
 // What bounds it on an H100: memory. At the VLMo shapes (N <= 237, head
 // dim 64) it does 4*N*64 flops per 2*4*64 bytes of q/k/v/out, about N/2
@@ -68,7 +64,7 @@ __device__ __forceinline__ void load_rows(bf16 (*dst)[LD], const bf16* src,
   }
 }
 
-template <bool DROP, bool LSE>
+template <bool DROP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -210,18 +206,18 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       *reinterpret_cast<__nv_bfloat162*>(dst + j * 8 + 2 * t) =
           __floats2bfloat162_rn(o[j][2 * h] / l[h], o[j][2 * h + 1] / l[h]);
     }
-    if (LSE && t == 0) lse[(size_t)bh * n + row] = m[h] + logf(l[h]);
+    if (t == 0) lse[(size_t)bh * n + row] = m[h] + logf(l[h]);
   }
 }
 
-template <bool DROP, bool LSE>
+template <bool DROP>
 int launch(const void* q, const void* k, const void* v, const void* bias,
            const void* seed, void* out, void* lse, int bh, int heads, int n,
            float scale, unsigned threshold, float drop_scale, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || bh > 65535)
     return cudaErrorInvalidValue;
   const dim3 grid((n + BQ - 1) / BQ, bh);
-  flash_fwd_kernel<DROP, LSE>
+  flash_fwd_kernel<DROP>
       <<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const float*>(bias),
@@ -238,8 +234,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, void* lse,
                                    int bh, int heads, int n, float scale,
                                    void* stream) {
-  return launch<false, true>(q, k, v, bias, nullptr, out, lse, bh, heads, n,
-                             scale, 0u, 0.f, stream);
+  return launch<false>(q, k, v, bias, nullptr, out, lse, bh, heads, n, scale,
+                       0u, 0.f, stream);
 }
 
 // As flash_attention_fwd, with attention dropout: `seed` is one int32 on the
@@ -251,15 +247,6 @@ extern "C" int flash_attention_fwd_drop(const void* q, const void* k,
                                         int bh, int heads, int n, float scale,
                                         unsigned threshold, float drop_scale,
                                         void* stream) {
-  return launch<true, true>(q, k, v, bias, seed, out, lse, bh, heads, n, scale,
-                            threshold, drop_scale, stream);
-}
-
-// As flash_attention_fwd without the lse output (`_attn_long_kernel`).
-extern "C" int flash_attention_fwd_long(const void* q, const void* k,
-                                        const void* v, const void* bias,
-                                        void* out, int bh, int heads, int n,
-                                        float scale, void* stream) {
-  return launch<false, false>(q, k, v, bias, nullptr, out, nullptr, bh, heads,
-                              n, scale, 0u, 0.f, stream);
+  return launch<true>(q, k, v, bias, seed, out, lse, bh, heads, n, scale,
+                      threshold, drop_scale, stream);
 }

@@ -1,12 +1,17 @@
 // Fused bf16 MLP forward for Hopper (sm_90a) on wgmma and TMA:
-//   y = gelu_tanh(x . W1^T + b1) . W2^T + b2
+//   y = [dropout](gelu_tanh(x . W1^T + b1)) . W2^T + b2
 //
-// Replaces the Pallas kernel `_mlp_kernel`
-// (exploremultimodal_tpu/ops/mlp_pallas.py:56, launched by
-// `_fused_mlp_padded` :122). Same function and rounding: bf16 operands,
-// fp32 accumulation, fp32 biases, tanh-form gelu in fp32, the hidden rounded
-// to bf16 before the second product, the output stored as bf16. The
-// (M, hidden) intermediate never reaches device memory.
+// Replaces two Pallas kernels of exploremultimodal_tpu/ops/mlp_pallas.py:
+// `_mlp_kernel` (:56, launched by `_fused_mlp_padded` :122) and, with DROP
+// set, `_mlp_dropout_kernel` (:69, launched at :110). Same function and
+// rounding: bf16 operands, fp32 accumulation, fp32 biases, tanh-form gelu
+// in fp32, the hidden rounded to bf16 before the second product, the output
+// stored as bf16. The (M, hidden) intermediate never reaches device memory.
+// With DROP the hidden is dropped between the gelu and the rounding, from
+// uint16 bits the caller drew (M, hidden), in fp32 as `_mlp_dropout_kernel`
+// does: h = u >= t ? h * 65536 / (65536 - t) : 0. The bits arrive as the
+// int16 u - 32768 (the port's storage of a uint16 draw u), so the kernel
+// flips each top bit to read u.
 //
 // What bounds it on an H100: operations. At the VLMo-Base widths (K = N =
 // 768, hidden 3072) it does 2 M (K H + H N) flops against about 2 M (K + N)
@@ -40,6 +45,15 @@
 //     and `mlp_sum_splits` adds them in a fixed order, adds b2 and rounds:
 //     deterministic, no atomics.
 //   - Ragged M: TMA fills rows past M with zeros, and stores are guarded.
+//   - DROP: each chunk's 64 x 64 tile of bits (8 KB, 128-byte rows) comes
+//     by TMA through a 2D map over the caller's (M, hidden) int16 bits, in
+//     the 128-byte swizzle (conflict-free reads in the gelu epilogue), into
+//     one of two slots with their own full/empty barriers. Each CTA loads
+//     its own rows (no multicast); the producer requests a chunk's bits with
+//     the chunk's first W1 stage, three stages before the epilogue reads
+//     them. x, the ring, the h tiles and the two slots take 229,376 of the
+//     232,448 bytes a block may use. The bits add 2 bytes per hidden
+//     element, which leaves the kernel bound by operations.
 // What holds it back (`scripts/torch_kernel_variants.py` times variants of
 // this source on an H100): the round trip of each ring stage. A stage is
 // released only once its wgmmas are done and refilled only then; x's
@@ -48,7 +62,8 @@
 // ring's synchronisation (weights left stale) runs in about 0.6 of the
 // time; 16 KB stages, 128-column chunks and deeper wgmma queues were all
 // slower in trials. The gelu epilogue, run by both warpgroups in step,
-// idles the tensor cores about a tenth of the time.
+// idles the tensor cores about a tenth of the time. The dropout variant
+// inherits the same limit.
 
 #include <cuda_bf16.h>
 
@@ -71,11 +86,15 @@ constexpr int XB = K / 64;      // x boxes
 constexpr int X_BYTES = XB * BOX;
 constexpr int RING_OFF = X_BYTES;
 constexpr int H_OFF = RING_OFF + NS * STAGE;
-constexpr int BAR_OFF = H_OFF + 2 * BOX;
-constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * NS) + 1024;  // + alignment slack
+constexpr int BITS_OFF = H_OFF + 2 * BOX;  // DROP: two 64 x 64 int16 bits slots
+template <bool DROP>
+__host__ __device__ constexpr int bar_off() { return BITS_OFF + (DROP ? 2 * BOX : 0); }
+// barriers: x, NS full, NS empty (and with DROP 2 bits full, 2 bits empty)
+template <bool DROP>
+__host__ __device__ constexpr int smem_bytes() { return bar_off<DROP>() + 8 * (1 + 2 * NS + 4) + 1024; }
 constexpr int THREADS = 384;
 constexpr int STAGES_PER_CHUNK = 6;  // 3 of W1, 3 of W2
-static_assert(SMEM <= 232448, "shared memory");
+static_assert(smem_bytes<true>() <= 232448, "shared memory");
 
 __device__ __forceinline__ float gelu_tanh(float h) {
   return 0.5f * h *
@@ -89,19 +108,24 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // x (m, K), W1 (hidden, K), W2 (N, hidden) through their tensor maps; b1,
 // b2 fp32. `chunks` hidden chunks per CTA, from blockIdx.y * chunks. With
-// `part` null, y = bf16(acc + b2); else part[blockIdx.y] (m, N) = acc.
+// `part` null, y = bf16(acc + b2); else part[blockIdx.y] (m, N) = acc. With
+// DROP, `mbits` maps the (m, hidden) int16 bits; keep where u >= `thr`,
+// then scale by `keep_scale`.
+template <bool DROP>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
 mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                 const __grid_constant__ CUtensorMap mw1,
-                const __grid_constant__ CUtensorMap mw2, const float* __restrict__ b1,
+                const __grid_constant__ CUtensorMap mw2,
+                const __grid_constant__ CUtensorMap mbits, const float* __restrict__ b1,
                 const float* __restrict__ b2, bf16* __restrict__ y,
-                float* __restrict__ part, int m, int chunks) {
+                float* __restrict__ part, int m, int chunks, int thr, float keep_scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - raw);
   const uint32_t sx = base, ring = base + RING_OFF, sh = base + H_OFF;
-  const uint32_t xfull = base + BAR_OFF, full0 = xfull + 8, empty0 = full0 + 8 * NS;
+  const uint32_t xfull = base + bar_off<DROP>(), full0 = xfull + 8, empty0 = full0 + 8 * NS;
+  const uint32_t bfull0 = empty0 + 8 * NS, bempty0 = bfull0 + 16;  // DROP only
   const int m0 = blockIdx.x * BM;
   const int chunk0 = blockIdx.y * chunks;
   const uint32_t rank = cluster_ctarank();
@@ -111,6 +135,12 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
     for (int s = 0; s < NS; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, 2 * CL);  // each consumer warpgroup of each CTA
+    }
+    if (DROP) {
+      for (int s = 0; s < 2; ++s) {
+        mbar_init(bfull0 + 8 * s, 1);
+        mbar_init(bempty0 + 8 * s, 1);  // after both consumer warpgroups read it
+      }
     }
     fence_barrier_init();
   }
@@ -130,8 +160,14 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
         mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
         if (i >= total) continue;  // the tail: every stage released cluster-wide
         const uint32_t full = full0 + 8 * s, dst = ring + s * STAGE;
-        mbar_arrive_expect_tx(full, STAGE);
         const int c = chunk0 + i / STAGES_PER_CHUNK, st = i % STAGES_PER_CHUNK;
+        if (DROP && st == 0) {  // this CTA's bits of chunk c, into slot c % 2
+          const int lc = i / STAGES_PER_CHUNK, slot = lc & 1;
+          mbar_wait(bempty0 + 8 * slot, ((lc >> 1) & 1) ^ 1);
+          mbar_arrive_expect_tx(bfull0 + 8 * slot, BOX);
+          tma_load_2d(base + BITS_OFF + slot * BOX, &mbits, bfull0 + 8 * slot, HC * c, m0);
+        }
+        mbar_arrive_expect_tx(full, STAGE);
         // four 64 x 64 boxes per stage, each loaded by one CTA of the cluster
         for (int b = rank * (4 / CL); b < (rank + 1) * (4 / CL); ++b) {
           if (st < 3)  // W1 rows 64c.. (the chunk), K columns 256 st + 64 b
@@ -190,8 +226,11 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
       fence_regs(hacc);
       release(it - 1);
 
-      // bias, gelu, bf16 into h tile c % 2, in the 128-byte swizzle
+      // bias, gelu, [dropout,] bf16 into h tile c % 2, in the 128-byte
+      // swizzle; the bits tile has the same layout
       const uint32_t hoff = H_OFF + (c & 1) * BOX;
+      const uint32_t boff = BITS_OFF + (c & 1) * BOX;
+      if (DROP) mbar_wait(bfull0 + 8 * (c & 1), (c >> 1) & 1);
       const float* b1c = b1 + HC * (chunk0 + c);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -200,15 +239,21 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = 16 * warp + g + 8 * hh;
-          const uint32_t off =
-              hoff + row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2));
-          *reinterpret_cast<uint32_t*>(smem + off) =
-              pack_bf16(gelu_tanh(hacc[4 * j + 2 * hh] + bb.x),
-                        gelu_tanh(hacc[4 * j + 2 * hh + 1] + bb.y));
+          const uint32_t sw = row * 128 + ((((col >> 3) ^ (row & 7)) << 4) | ((col & 7) * 2));
+          float h0 = gelu_tanh(hacc[4 * j + 2 * hh] + bb.x);
+          float h1 = gelu_tanh(hacc[4 * j + 2 * hh + 1] + bb.y);
+          if (DROP) {
+            // int16 u - 32768 -> uint16 u, two columns per word
+            const uint32_t u = *reinterpret_cast<const uint32_t*>(smem + boff + sw) ^ 0x80008000u;
+            h0 = (u & 0xFFFFu) >= static_cast<uint32_t>(thr) ? h0 * keep_scale : 0.f;
+            h1 = (u >> 16) >= static_cast<uint32_t>(thr) ? h1 * keep_scale : 0.f;
+          }
+          *reinterpret_cast<uint32_t*>(smem + hoff + sw) = pack_bf16(h0, h1);
         }
       }
       fence_proxy_async();
-      named_bar_sync(1, 256);  // the whole 64 x 64 h tile is written
+      named_bar_sync(1, 256);  // the whole 64 x 64 h tile is written (and the bits read)
+      if (DROP && threadIdx.x == 0) mbar_arrive(bempty0 + 8 * (c & 1));
 
       // acc (64 x 384 of this warpgroup) += h . W2[384w.., chunk]^T
       const uint32_t shc = sh + (c & 1) * BOX;
@@ -290,6 +335,42 @@ extern "C" int fused_mlp_sm90_encode(void* out, const void* base, int rows, int 
   return emm_encode_bf16_map(out, base, 2, dims, strides, box);
 }
 
+namespace {
+
+template <bool DROP>
+int launch(const void* mx, const void* mw1, const void* mw2, const void* mbits,
+           const void* b1, const void* b2, void* y, void* part, int m, int hdim, int splits,
+           int thr, float keep_scale, void* stream) {
+  if (m <= 0 || hdim <= 0 || splits <= 0 || hdim % (HC * splits) != 0 ||
+      (splits > 1 && part == nullptr) || (DROP && (thr <= 0 || thr >= 65536)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap x, w1, w2, bits;
+  memcpy(&x, mx, sizeof(x));
+  memcpy(&w1, mw1, sizeof(w1));
+  memcpy(&w2, mw2, sizeof(w2));
+  memcpy(&bits, DROP ? mbits : mx, sizeof(bits));
+  constexpr int smem = smem_bytes<DROP>();
+  cudaError_t err = cudaFuncSetAttribute(mlp_sm90_kernel<DROP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int tiles = (m + BM - 1) / BM;
+  tiles += (CL - tiles % CL) % CL;  // whole clusters; spare CTAs store nothing
+  mlp_sm90_kernel<DROP><<<dim3(tiles, splits), THREADS, smem, st>>>(
+      x, w1, w2, bits, static_cast<const float*>(b1), static_cast<const float*>(b2),
+      static_cast<bf16*>(y), splits > 1 ? static_cast<float*>(part) : nullptr, m,
+      hdim / HC / splits, thr, keep_scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t n4 = (size_t)m * (N / 4);
+  mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(
+      static_cast<const float4*>(part), static_cast<const float*>(b2), static_cast<bf16*>(y),
+      m, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // mx, mw1, mw2: the maps of x (m, 768), W1 (hidden, 768) and W2 (768,
 // hidden), each in 64 x 64 boxes (from
 // `fused_mlp_sm90_encode`, host memory); b1 (hidden), b2 (768) fp32; y (m,
@@ -299,28 +380,19 @@ extern "C" int fused_mlp_sm90_encode(void* out, const void* base, int rows, int 
 extern "C" int fused_mlp_sm90(const void* mx, const void* mw1, const void* mw2, const void* b1,
                               const void* b2, void* y, void* part, int m, int hdim, int splits,
                               void* stream) {
-  if (m <= 0 || hdim <= 0 || splits <= 0 || hdim % (HC * splits) != 0 ||
-      (splits > 1 && part == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap x, w1, w2;
-  memcpy(&x, mx, sizeof(x));
-  memcpy(&w1, mw1, sizeof(w1));
-  memcpy(&w2, mw2, sizeof(w2));
-  cudaError_t err = cudaFuncSetAttribute(mlp_sm90_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int tiles = (m + BM - 1) / BM;
-  tiles += (CL - tiles % CL) % CL;  // whole clusters; spare CTAs store nothing
-  mlp_sm90_kernel<<<dim3(tiles, splits), THREADS, SMEM, st>>>(
-      x, w1, w2, static_cast<const float*>(b1), static_cast<const float*>(b2),
-      static_cast<bf16*>(y), splits > 1 ? static_cast<float*>(part) : nullptr, m,
-      hdim / HC / splits);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t n4 = (size_t)m * (N / 4);
-  mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(
-      static_cast<const float4*>(part), static_cast<const float*>(b2), static_cast<bf16*>(y),
-      m, splits);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(mx, mw1, mw2, nullptr, b1, b2, y, part, m, hdim, splits, 0, 0.f,
+                       stream);
+}
+
+// As fused_mlp_sm90 with the hidden dropout of `_mlp_dropout_kernel`:
+// mbits maps the (m, hidden) int16 bits (u - 32768 for uint16 draws u) in
+// 64 x 64 boxes, as `fused_mlp_sm90_encode` encodes any 2-byte matrix; an
+// element is kept where u >= threshold (0 < threshold < 65536) and then
+// scaled by keep_scale = 65536 / (65536 - threshold).
+extern "C" int fused_mlp_sm90_drop(const void* mx, const void* mw1, const void* mw2,
+                                   const void* mbits, const void* b1, const void* b2, void* y,
+                                   void* part, int m, int hdim, int splits, int threshold,
+                                   float keep_scale, void* stream) {
+  return launch<true>(mx, mw1, mw2, mbits, b1, b2, y, part, m, hdim, splits, threshold,
+                      keep_scale, stream);
 }

@@ -7,9 +7,11 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
   - `flash_attention_bwd`      `_bwd_call` / `_attn_bwd_kernel`
   - `flash_attention_bwd_drop` `_bwd_drop_call` / `_attn_drop_bwd_kernel`
   - `flash_attention_fwd_long` `_long_fwd_call` / `_attn_long_kernel`
-The forward kernels are `csrc/flash_attention_fwd.cu`, the backward kernels
-`csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on CUDA tensors
-and its plain PyTorch version on CPU tensors; there is no other fallback.
+The forward kernels are `csrc/flash_attention_fwd.cu` and, for the long
+forward, `csrc/flash_attention_long_sm90.cu` (wgmma and TMA); the backward
+kernels are `csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on
+CUDA tensors and its plain PyTorch version on CPU tensors; there is no other
+fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
 and columns keep their indices, so the dropout mask at every real (row,
 col) is the same.
@@ -22,6 +24,7 @@ import ctypes
 import torch
 
 from exploremultimodal_torch.ops import _build
+from exploremultimodal_torch.ops.mlp_fused import tensor_map_key
 
 HEAD_DIM = 64  # the only head dim the kernels take (every preset's but vlmo_debug)
 # the fused backward (and so in-kernel dropout) covers N up to this; longer
@@ -30,11 +33,18 @@ LONG_SEQ_THRESHOLD = 512
 # ... and past this padded N the forward is the long kernel (JAX: the
 # full-row forward holds a (128, N) score tile in VMEM up to here)
 FULL_ROW_FWD_MAX = 4096
+# the long kernel's tiling: 128 query rows per CTA, keys in 128-row blocks
+# (csrc/flash_attention_long_sm90.cu); its q/k/v tensor maps by
+# `tensor_map_key`, emptied at the cap
+LONG_TILE = 128
+_MAPS: dict = {}
+_MAPS_CAP = 256
 PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read the padded N
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 6 + [_I] * 3 + [_F, _P]
-_FWD_LONG_ARGS = [_P] * 5 + [_I] * 3 + [_F, _P]
+_FWD_LONG_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
+_ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
 _FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 _BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
 _BWD_DROP_ARGS = [_P] * 12 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
@@ -203,18 +213,62 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
     return out, lse
 
 
+def long_grid(bh: int, n: int) -> tuple[int, int]:
+    """The long kernel's grid: (query tiles of LONG_TILE rows, BH)."""
+    return -(-n // LONG_TILE), bh
+
+
+def long_map_extents(bh: int, n: int):
+    """The 3D tensor map of a (BH, N, 64) bf16 q, k or v for the long
+    kernel: dims innermost first (D, N, BH), the byte strides of dims 1..,
+    and the box (64, LONG_TILE, 1). A box stops at its head's N, so TMA
+    fills a ragged block with zeros instead of reading the next head."""
+    row = 2 * HEAD_DIM
+    return (HEAD_DIM, n, bh), (row, row * n), (HEAD_DIM, LONG_TILE, 1)
+
+
+def _long_map(t: torch.Tensor):
+    key = tensor_map_key(t)
+    buf = _MAPS.get(key)
+    if buf is None:
+        if len(_MAPS) >= _MAPS_CAP:
+            _MAPS.clear()
+        dims, strides, box = long_map_extents(t.shape[0], t.shape[1])
+        buf = ctypes.create_string_buffer(128)
+        fn = _build.load("flash_attention_long_sm90", _ENCODE_ARGS,
+                         "flash_attention_long_sm90_encode")
+        rc = fn(ctypes.addressof(buf), t.data_ptr(), len(dims),
+                (ctypes.c_uint64 * 3)(*dims), (ctypes.c_uint64 * 2)(*strides),
+                (ctypes.c_uint32 * 3)(*box))
+        _build.check("flash_attention_long_sm90_encode", rc)
+        _MAPS[key] = buf
+    return buf
+
+
 def flash_attention_fwd_long(qf, kf, vf, key_bias, scale: float):
-    """As `flash_attention_fwd_long_plain`: the kernel on CUDA tensors."""
+    """As `flash_attention_fwd_long_plain`: the sm90 kernel on CUDA
+    tensors."""
     if qf.device.type == "cpu":
         return flash_attention_fwd_long_plain(qf, kf, vf, key_bias, scale)
+    out = _launch_long(qf, kf, vf, key_bias, scale)
+    flash_attention_fwd_long.launches += 1
+    return out
+
+
+def _launch_long(qf, kf, vf, key_bias, scale: float):
+    """Check the inputs and run the long kernel: the q/k/v maps from the
+    cache, the grid of `long_grid`."""
     _check("flash_attention_fwd_long", key_bias, qf, kf, vf)
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
-    fn = _build.load("flash_attention_fwd", _FWD_LONG_ARGS, "flash_attention_fwd_long")
-    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-            out.data_ptr(), bh, bh // key_bias.shape[0], n, scale, _stream(qf))
+    # the buffers themselves, not their addresses: the list keeps each one
+    # alive through the call even if a later lookup empties the cache
+    maps = [_long_map(t) for t in (qf, kf, vf)]
+    tiles, _ = long_grid(bh, n)
+    fn = _build.load("flash_attention_long_sm90", _FWD_LONG_ARGS)
+    rc = fn(*maps, key_bias.data_ptr(), out.data_ptr(), bh,
+            bh // key_bias.shape[0], n, tiles, scale, _stream(qf))
     _build.check("flash_attention_fwd_long", rc)
-    flash_attention_fwd_long.launches += 1
     return out
 
 

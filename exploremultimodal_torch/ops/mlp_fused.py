@@ -6,8 +6,8 @@ Counterpart of `exploremultimodal_tpu/ops/mlp_pallas.py`:
   - `fused_mlp_fwd_drop`  `_mlp_dropout_kernel` (hidden dropout from uint16 bits)
   - `fused_mlp`           `fused_bf16_mlp` / `fused_bf16_mlp_dropout`, with
                           the backward of `_vjp_bwd` / `_vjpd_bwd`
-The no-dropout forward is `csrc/fused_mlp_sm90.cu` (wgmma, TMA, clusters),
-the dropout forward `csrc/fused_mlp_fwd.cu`. The weights are in nn.Linear's
+Both forwards are `csrc/fused_mlp_sm90.cu` (wgmma, TMA, clusters; the
+dropout forward is its `DROP` variant). The weights are in nn.Linear's
 layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32. The
 dropout bits are uint16 draws u held as the int16 u - 32768
 (`stochastic.bits16`); an element is kept where u >= t.
@@ -34,14 +34,16 @@ IN_DIMS = (768,)  # input widths of the sm90 kernel (x's tile stays in shared me
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SM90_ARGTYPES = [_P] * 7 + [_I] * 3 + [_P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 2
-_DROP_ARGTYPES = [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]
+_DROP_ARGTYPES = [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P]
 
 # the sm90 kernel's tiling: 64-row tiles in clusters of 2 CTAs, the hidden
 # walked in 64-column chunks (csrc/fused_mlp_sm90.cu)
 ROW_TILE, CLUSTER, HIDDEN_CHUNK = 64, 2, 64
 # tensor maps (128-byte host buffers, 64 x 64 boxes) by `tensor_map_key`; a
 # map depends only on the address and shape, never on the contents, so a hit
-# is always right; the cache is emptied when it reaches the cap
+# is always right (the int16 dropout bits and a bf16 matrix of one shape at
+# one address encode the same 2-byte map); the cache is emptied when it
+# reaches the cap
 _MAPS: dict = {}
 _MAPS_CAP = 256
 _SMS: dict = {}
@@ -104,15 +106,22 @@ def _check(name, x, w1, b1, w2, b2, bits=None):
     return m, k, hdim, ndim
 
 
+def row_tiles(m: int) -> int:
+    """The sm90 kernel's 64-row tiles for M rows, rounded up to whole
+    clusters of 2 (a spare CTA stores nothing), as its launcher counts
+    them."""
+    tiles = -(-m // ROW_TILE)
+    return tiles + -tiles % CLUSTER
+
+
 def hidden_splits(m: int, hdim: int, sms: int) -> int:
     """How many CTAs share one row tile's hidden dimension in the sm90
     kernel. The rule: the largest divisor s of the hidden's 64-column chunks
-    with tiles * s <= sms, where tiles is the number of 64-row tiles rounded
-    up to whole clusters of 2, so that a call fills at most one wave of the
-    card; 1 where the tiles alone pass half a wave (M > ~4,200 on 132 SMs). Each
-    split writes an fp32 partial of y, added in a second pass."""
-    tiles = -(-m // ROW_TILE)
-    tiles += -tiles % CLUSTER
+    with tiles * s <= sms, where tiles is `row_tiles`, so that a call fills
+    at most one wave of the card; 1 where the tiles alone pass half a wave
+    (M > ~4,200 on 132 SMs). Each split writes an fp32 partial of y, added
+    in a second pass."""
+    tiles = row_tiles(m)
     chunks = hdim // HIDDEN_CHUNK
     return max(s for s in range(1, chunks + 1)
                if chunks % s == 0 and tiles * s <= max(sms, tiles))
@@ -143,45 +152,61 @@ def _sm_count(device: torch.device) -> int:
     return _SMS[device.index]
 
 
-def fused_mlp_fwd(x, w1, b1, w2, b2):
-    """The sm90 kernel on CUDA tensors (x (M, 768), hidden a multiple of
-    64, output 768), the plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return fused_mlp_fwd_plain(x, w1, b1, w2, b2)
-    m, k, hdim, ndim = _check("fused_mlp_fwd", x, w1, b1, w2, b2)
+def _sm90_shapes(name, x, w1, b1, w2, b2, bits=None):
+    """`_check`, plus what the sm90 kernel alone needs: K in IN_DIMS and a
+    hidden of whole 64-column chunks."""
+    m, k, hdim, ndim = _check(name, x, w1, b1, w2, b2, bits)
     if k not in IN_DIMS or hdim % HIDDEN_CHUNK:
-        raise ValueError(f"fused_mlp_fwd: needs K in {IN_DIMS} and hidden % "
+        raise ValueError(f"{name}: needs K in {IN_DIMS} and hidden % "
                          f"{HIDDEN_CHUNK} == 0, got K {k}, hidden {hdim}")
+    return m, hdim, ndim
+
+
+def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
+    """Check the shapes and run the sm90 kernel (its DROP variant where
+    `bits` is given): maps from the cache, the hidden split of
+    `hidden_splits` and its fp32 scratch."""
+    m, hdim, ndim = _sm90_shapes(name, x, w1, b1, w2, b2, bits)
     dev = x.device
     y = torch.empty((m, ndim), dtype=x.dtype, device=dev)
     splits = hidden_splits(m, hdim, _sm_count(dev))
     part = (torch.empty((splits, m, ndim), dtype=torch.float32, device=dev)
             if splits > 1 else None)
-    maps = [ctypes.addressof(_tensor_map(t)) for t in (x, w1, w2)]
-    fn = _build.load("fused_mlp_sm90", _SM90_ARGTYPES)
-    rc = fn(*maps, b1.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            None if part is None else part.data_ptr(), m, hdim, splits,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("fused_mlp_fwd", rc)
+    tensors = (x, w1, w2) if bits is None else (x, w1, w2, bits)
+    # the buffers themselves, not their addresses: the list keeps each one
+    # alive through the call even if a later lookup empties the cache
+    maps = [_tensor_map(t) for t in tensors]
+    args = (b1.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr(), m, hdim, splits)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bits is None:
+        rc = _build.load("fused_mlp_sm90", _SM90_ARGTYPES)(*maps, *args, stream)
+    else:
+        fn = _build.load("fused_mlp_sm90", _DROP_ARGTYPES, "fused_mlp_sm90_drop")
+        rc = fn(*maps, *args, threshold, keep_scale16(threshold), stream)
+    _build.check(name, rc)
+    return y
+
+
+def fused_mlp_fwd(x, w1, b1, w2, b2):
+    """The sm90 kernel on CUDA tensors (x (M, 768), hidden a multiple of
+    64, output 768), the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return fused_mlp_fwd_plain(x, w1, b1, w2, b2)
+    y = _launch_sm90("fused_mlp_fwd", x, w1, b1, w2, b2)
     fused_mlp_fwd.launches += 1
     return y
 
 
 def fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, threshold: int):
-    """As `fused_mlp_fwd_drop_plain`: the kernel on CUDA tensors (bits int16
-    (M, H)), the plain version on CPU tensors."""
+    """As `fused_mlp_fwd_drop_plain`: the sm90 kernel's DROP variant on
+    CUDA tensors (bits int16 (M, H), the shapes of `fused_mlp_fwd`), the
+    plain version on CPU tensors."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, threshold)
-    m, k, hdim, ndim = _check("fused_mlp_fwd_drop", x, w1, b1, w2, b2, bits)
     if not 0 < threshold < 65536:
         raise ValueError(f"fused_mlp_fwd_drop: threshold {threshold} not in (0, 65536)")
-    y = torch.empty((m, ndim), dtype=x.dtype, device=x.device)
-    fn = _build.load("fused_mlp_fwd", _DROP_ARGTYPES, "fused_mlp_fwd_drop")
-    rc = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), bits.data_ptr(), y.data_ptr(), m, k, hdim, ndim,
-            threshold, keep_scale16(threshold),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("fused_mlp_fwd_drop", rc)
+    y = _launch_sm90("fused_mlp_fwd_drop", x, w1, b1, w2, b2, bits, threshold)
     fused_mlp_fwd_drop.launches += 1
     return y
 

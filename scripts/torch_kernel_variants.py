@@ -4,12 +4,14 @@
     python3 scripts/torch_kernel_variants.py [scripts/torch_kernel_variants.json]
 
 Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
-textual edits applied (the JSON maps a name to {"kind": "mlp" | "dvae",
-"src": file, "edits": [[old, new], ...]}; every `old` must occur). All
-variants are compiled at once with the package's nvcc flags into a
-temporary directory, then each is swapped in for the package's kernel and
-timed, in the order A B ... B A, at the shapes the main paths give it: the
-bf16 fused MLP (row 6) at the serving M, the dVAE block (row 11) at the five
+textual edits applied (the JSON maps a name to {"kind": "mlp" | "mlp_drop"
+| "attn_long" | "dvae", "src": file, "edits": [[old, new], ...]}; every
+`old` must occur). All variants are compiled at once with the package's
+nvcc flags into a temporary directory, then each is swapped in for the
+package's kernel and timed, in the order A B ... B A, at the shapes the
+main paths give it: the bf16 fused MLP (row 6) at the serving M, its
+dropout forward (row 7) at the finetune_vqa M, the long flash forward (row
+5) at the 1024^2 request's two streams, the dVAE block (row 11) at the five
 blocks the tokenizer fuses. A variant whose output leaves the kernel's
 tolerance against the plain version is marked BAD (variants that skip work
 are expected to be). Prints one JSON line per shape, with the card's name
@@ -30,16 +32,27 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
-from exploremultimodal_torch.ops import _build, dvae_conv, mlp_fused  # noqa: E402
+from exploremultimodal_torch.ops import _build, dvae_conv, flash_attention, mlp_fused  # noqa: E402
 from exploremultimodal_torch.ops.dvae_conv import (  # noqa: E402
     block_widths,
     fused_encoder_block,
     fused_encoder_block_plain,
 )
-from exploremultimodal_torch.ops.mlp_fused import fused_mlp_fwd, fused_mlp_fwd_plain  # noqa: E402
+from exploremultimodal_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_fwd_long,
+    flash_attention_fwd_long_plain,
+)
+from exploremultimodal_torch.ops.mlp_fused import (  # noqa: E402
+    fused_mlp_fwd,
+    fused_mlp_fwd_drop,
+    fused_mlp_fwd_drop_plain,
+    fused_mlp_fwd_plain,
+)
 
 MLP_ROWS = (64, 320, 2560, 4999, 12608, 15168, 32776)
 SYMBOL = {"mlp": ("fused_mlp_sm90", mlp_fused._SM90_ARGTYPES),
+          "mlp_drop": ("fused_mlp_sm90_drop", mlp_fused._DROP_ARGTYPES),
+          "attn_long": ("flash_attention_long_sm90", flash_attention._FWD_LONG_ARGS),
           "dvae": ("dvae_block", dvae_conv._ARGS)}
 
 
@@ -93,6 +106,8 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fns = build(spec, Path(tmp))
     mlp = [n for n in spec if spec[n]["kind"] == "mlp"]
+    mlp_drop = [n for n in spec if spec[n]["kind"] == "mlp_drop"]
+    attn_long = [n for n in spec if spec[n]["kind"] == "attn_long"]
     dvae = [n for n in spec if spec[n]["kind"] == "dvae"]
     if mlp:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.SERVE_OVERRIDES))
@@ -104,6 +119,41 @@ def main(argv: list[str]) -> int:
                           lambda: cs.within(fused_mlp_fwd(x, w1, b1, w2, b2), ref,
                                             cs.MLP_ATOL, cs.MLP_RTOL))
             print(json.dumps({"kernel": "fused_mlp_fwd", "M": m, "ms": res}), flush=True)
+    if mlp_drop:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.VQA_OVERRIDES))
+        g, w1, b1, w2, b2 = cs.mlp_weights(cfg, dev, 2)
+        t = cs.MLP_DROP_THRESHOLDS[-1]
+        for m in cs.vqa_mlp_rows(cfg):
+            x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
+            bits = torch.randint(-32768, 32768, (m, w1.shape[0]), dtype=torch.int16,
+                                 generator=g, device=dev)
+            ref = fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, t)
+            res = compare(mlp_drop, fns, "mlp_drop",
+                          lambda: fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t),
+                          lambda: cs.within(fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t),
+                                            ref, cs.MLP_ATOL, cs.MLP_RTOL))
+            print(json.dumps({"kernel": "fused_mlp_fwd_drop", "M": m, "ms": res}), flush=True)
+    if attn_long:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.HIRES_OVERRIDES))
+        heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+        for n in ((cfg.img_size // cfg.patch_size) ** 2 + 1,
+                  (cfg.img_size // cfg.patch_size) ** 2 + 1 + cfg.max_text_len):
+            bh = cs.HIRES_BATCH * heads
+            g = torch.Generator(device=dev).manual_seed(n)
+            q, k, v = (torch.randn((bh, n, d), generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            kb = torch.zeros((cs.HIRES_BATCH, n), dtype=torch.float32, device=dev)
+            kb[:, :cfg.max_text_len // 2] = -1e30
+            ref = flash_attention_fwd_long_plain(q, k, v, kb, d ** -0.5)
+            res = compare(attn_long, fns, "attn_long",
+                          lambda: flash_attention_fwd_long(q, k, v, kb, d ** -0.5),
+                          lambda: cs.within(flash_attention_fwd_long(q, k, v, kb, d ** -0.5),
+                                            ref, cs.ATTN_ATOL, cs.ATTN_RTOL),
+                          iters=10)
+            print(json.dumps({"kernel": "flash_attention_fwd_long", "N": n, "ms": res}),
+                  flush=True)
+            del q, k, v, ref
+            torch.cuda.empty_cache()
     if dvae:
         enc = cs.dvae_encoder(torch.bfloat16, dev)
         g = torch.Generator(device=dev).manual_seed(12)

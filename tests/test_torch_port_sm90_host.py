@@ -3,13 +3,21 @@
 The kernels themselves run only on the card (`chip_smoke.py` holds them
 against their plain versions there); what their wrappers decide on the host
 is tested here: the bf16 fused MLP's hidden-split rule (how many CTAs share
-a row tile's hidden dimension, with partial sums added in a second pass) and
-its cache of tensor maps, keyed by what a map encodes.
+a row tile's hidden dimension, with partial sums added in a second pass),
+its grid and its cache of tensor maps, keyed by what a map encodes (with
+and without the dropout bits, rows 6 and 7); the long flash forward's grid
+and 3D tensor maps (row 5); and the shape and type checks by which both
+wrappers refuse what their kernels do not take.
 """
+
+import ctypes
+import struct
+import types
 
 import pytest
 import torch
 
+import exploremultimodal_torch.ops.flash_attention as fa
 import exploremultimodal_torch.ops.mlp_fused as mf
 
 H100_SMS = 132
@@ -83,3 +91,233 @@ def test_tensor_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
     assert len(calls) == 5 and len(mf._MAPS) <= 4
     mf._tensor_map(w)  # evicted with the rest when the cap was reached
     assert len(calls) == 6
+
+
+# ------------------------------------------- row 7: the sm90 kernel's DROP variant
+
+VQA_M = (1280, 6304, 7584)  # the finetune_vqa step's text, image and fused FFN rows
+
+
+@pytest.mark.parametrize("m,tiles,splits", [
+    (1280, 20, 6),    # text: 20 tiles x 6 splits = 120 CTAs
+    (6304, 100, 1),   # image: 99 tiles and a cluster's spare, one wave
+    (7584, 120, 1),   # fused: 118.5 tiles -> 120, one wave
+    (1000, 16, 8),    # ragged, split
+    (4999, 80, 1),    # ragged, whole tiles past half a wave
+])
+def test_row7_grid_at_path_shapes(m, tiles, splits):
+    """Row 7 takes row 6's grid: 64-row tiles in whole clusters of 2 by
+    hidden splits, at most one wave of the card."""
+    assert mf.row_tiles(m) == tiles == _tiles(m)
+    assert mf.hidden_splits(m, HIDDEN, H100_SMS) == splits
+    assert tiles * splits <= H100_SMS
+    assert tiles * mf.ROW_TILE >= m > (tiles - mf.CLUSTER) * mf.ROW_TILE
+
+
+def test_bits_tensor_map_key_and_cache(monkeypatch):
+    """The int16 dropout bits get their map through the same cache as x and
+    the weights: one encode per (device, address, shape), as a 2-byte
+    (M, H) matrix in 64 x 64 boxes, and the cache stays bounded."""
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert (name, symbol) == ("fused_mlp_sm90", "fused_mlp_sm90_encode")
+
+        def encode(buf, ptr, rows, cols):
+            calls.append((ptr, rows, cols))
+            return 0
+        return encode
+
+    monkeypatch.setattr(mf._build, "load", fake_load)
+    monkeypatch.setattr(mf, "_MAPS", {})
+    monkeypatch.setattr(mf, "_MAPS_CAP", 3)
+    bits = torch.zeros(1280, HIDDEN, dtype=torch.int16)
+    assert mf.tensor_map_key(bits) == (None, bits.data_ptr(), (1280, HIDDEN))
+    assert mf.tensor_map_key(bits) != mf.tensor_map_key(bits[:640])
+    first = mf._tensor_map(bits)
+    assert mf._tensor_map(bits) is first
+    assert calls == [(bits.data_ptr(), 1280, HIDDEN)]
+    for m in VQA_M:
+        mf._tensor_map(torch.zeros(m, HIDDEN, dtype=torch.int16))
+        assert len(mf._MAPS) <= 3
+    assert len(calls) == 4
+
+
+def _fake_encoder(calls):
+    """An encoder that writes (address, dims) into the map buffer, so a map
+    can be told apart from another by its bytes."""
+    def encode(buf, ptr, *dims):
+        calls.append(ptr)
+        packed = struct.pack("<q", ptr) + repr(tuple(
+            tuple(d) if hasattr(d, "__len__") else d for d in dims)).encode()
+        ctypes.memmove(buf, packed, len(packed))
+        return 0
+    return encode
+
+
+def _map_bytes(m) -> bytes:
+    return bytes(m) if isinstance(m, ctypes.Array) else ctypes.string_at(m, 128)
+
+
+@pytest.mark.parametrize("cap", [1, 2, 3, 256])
+def test_row7_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
+    """The cache may empty itself between two of a launch's lookups; every
+    map the kernel receives must still be the one encoded for its tensor
+    (x, w1, w2, bits in that order)."""
+    calls, seen = [], []
+
+    def kernel(*args):
+        seen.append([_map_bytes(m) for m in args[:4]])
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "fused_mlp_sm90"
+        return _fake_encoder(calls) if symbol == "fused_mlp_sm90_encode" else kernel
+
+    monkeypatch.setattr(mf._build, "load", fake_load)
+    monkeypatch.setattr(mf, "_MAPS", {})
+    monkeypatch.setattr(mf, "_MAPS_CAP", cap)
+    monkeypatch.setitem(mf._SMS, None, H100_SMS)
+    monkeypatch.setattr(mf.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    x, w1, b1, w2, b2, bits = _mlp_args(m=128)
+    for _ in range(2):
+        mf._launch_sm90("fused_mlp_fwd_drop", x, w1, b1, w2, b2, bits, 6554)
+    for maps in seen:
+        assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
+            t.data_ptr() for t in (x, w1, w2, bits)]
+    assert len(mf._MAPS) <= cap
+
+
+def _mlp_args(m=64, k=768, h=HIDDEN, n=768, bits_dtype=torch.int16, bits_shape=None):
+    x = torch.zeros(m, k, dtype=torch.bfloat16)
+    w1 = torch.zeros(h, k, dtype=torch.bfloat16)
+    w2 = torch.zeros(n, h, dtype=torch.bfloat16)
+    b1, b2 = torch.zeros(h), torch.zeros(n)
+    bits = torch.zeros(bits_shape or (m, h), dtype=bits_dtype)
+    return x, w1, b1, w2, b2, bits
+
+
+def test_row7_shape_checks_pass_the_path_shape():
+    assert mf._sm90_shapes("t", *_mlp_args(m=7584)) == (7584, HIDDEN, 768)
+
+
+@pytest.mark.parametrize("bad", [
+    {"bits_dtype": torch.int32},            # bits not int16
+    {"bits_dtype": torch.uint8},
+    {"bits_shape": (64, HIDDEN // 2)},      # bits not (M, H)
+    {"bits_shape": (32, HIDDEN)},
+    {"k": 512},                             # x's tile is 768 wide
+    {"h": 3072 - 32},                       # hidden not whole 64-column chunks
+    {"n": 512},                             # output width not instantiated
+])
+def test_row7_shape_checks_raise(bad):
+    with pytest.raises(ValueError):
+        mf._sm90_shapes("fused_mlp_fwd_drop", *_mlp_args(**bad))
+
+
+def test_row7_checks_dtypes():
+    x, w1, b1, w2, b2, bits = _mlp_args()
+    with pytest.raises(ValueError):
+        mf._sm90_shapes("t", x.half(), w1, b1, w2, b2, bits)
+    with pytest.raises(ValueError):
+        mf._sm90_shapes("t", x, w1, b1.half(), w2, b2, bits)
+
+
+# ------------------------------------------- row 5: the long sm90 forward
+
+@pytest.mark.parametrize("bh,n,tiles", [
+    (96, 4097, 33),    # the 1024^2 request's image stream: 32 tiles + 1 row
+    (96, 4137, 33),    # its fused stream: 32 tiles + 41 rows
+    (12, 4097, 33),    # batch 1
+    (3, 200, 2),       # small ragged N
+    (3, 128, 1),
+    (3, 129, 2),
+])
+def test_long_grid_and_map_extents(bh, n, tiles):
+    """Query tiles x BH; the 3D map (D, N, BH) stops each box at its head's
+    N, with byte strides TMA accepts (multiples of 16) and 128-key boxes
+    that cover N, the last one ragged unless N is a multiple of 128."""
+    assert fa.long_grid(bh, n) == (tiles, bh)
+    dims, strides, box = fa.long_map_extents(bh, n)
+    assert dims == (fa.HEAD_DIM, n, bh)
+    assert strides == (2 * fa.HEAD_DIM, 2 * fa.HEAD_DIM * n)
+    assert all(s % 16 == 0 for s in strides)
+    assert box == (fa.HEAD_DIM, fa.LONG_TILE, 1) and box[0] * 2 == 128
+    assert (tiles - 1) * fa.LONG_TILE < n <= tiles * fa.LONG_TILE
+
+
+def test_long_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert (name, symbol) == ("flash_attention_long_sm90",
+                                  "flash_attention_long_sm90_encode")
+
+        def encode(buf, ptr, rank, dims, strides, box):
+            calls.append((ptr, rank, tuple(dims), tuple(strides), tuple(box)))
+            return 0
+        return encode
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_MAPS_CAP", 2)
+    q = torch.zeros(12, 4097, 64, dtype=torch.bfloat16)
+    first = fa._long_map(q)
+    assert fa._long_map(q) is first
+    assert calls == [(q.data_ptr(), 3, *fa.long_map_extents(12, 4097))]
+    for n in (300, 4137, 129):
+        fa._long_map(torch.zeros(3, n, 64, dtype=torch.bfloat16))
+        assert len(fa._MAPS) <= 2
+    assert len(calls) == 4
+
+
+@pytest.mark.parametrize("cap", [1, 2, 256])
+def test_long_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
+    calls, seen = [], []
+
+    def kernel(*args):
+        seen.append([_map_bytes(m) for m in args[:3]])
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "flash_attention_long_sm90"
+        return (_fake_encoder(calls) if symbol == "flash_attention_long_sm90_encode"
+                else kernel)
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_MAPS_CAP", cap)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    kb, q, k, v = _attn_args(bh=6, n=300, b=2)
+    for _ in range(2):
+        out = fa._launch_long(q, k, v, kb, 0.125)
+    assert out.shape == q.shape
+    for maps in seen:
+        assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
+            t.data_ptr() for t in (q, k, v)]
+    assert len(fa._MAPS) <= cap
+
+
+def _attn_args(bh=24, n=4097, d=64, dtype=torch.bfloat16, b=2, bias_n=None,
+               bias_dtype=torch.float32):
+    q, k, v = (torch.zeros(bh, n, d, dtype=dtype) for _ in range(3))
+    return torch.zeros(b, bias_n or n, dtype=bias_dtype), q, k, v
+
+
+def test_long_checks_pass_the_path_shape():
+    fa._check("flash_attention_fwd_long", *_attn_args(bh=96, n=4137, b=8))
+
+
+@pytest.mark.parametrize("bad", [
+    {"d": 32},                         # head dim not 64
+    {"d": 128},
+    {"dtype": torch.float16},          # not bf16
+    {"dtype": torch.float32},
+    {"bias_dtype": torch.bfloat16},    # bias not fp32
+    {"bias_n": 4096},                  # bias not (B, N)
+    {"b": 5},                          # B does not divide BH
+])
+def test_long_checks_raise(bad):
+    with pytest.raises(ValueError):
+        fa._check("flash_attention_fwd_long", *_attn_args(**bad))
