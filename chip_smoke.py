@@ -7,11 +7,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from the checkout's sources (nvcc, sm_90a, one
      process per source, all at once) into exploremultimodal_torch/ops/build/;
-  3. at each shape the VQA serving path gives each serving kernel, hold the
-     kernel against its plain PyTorch version on the card, then time the
-     kernel, the plain version and a library call computing the same
-     function (the MLP also at the 1024^2 request's M, at M = 64 and at two
-     ragged M, with its cluster size and hidden splits);
+  3. the shared memory the sm90 kernels of rows 1 and 9 report against
+     their wrappers' layout; at each shape the VQA serving path gives each
+     serving kernel, hold the kernel against its plain PyTorch version on
+     the card, then time the kernel, the plain version and a library call
+     computing the same function (row 1 also at batch 8 at N = 100, 150
+     and 256, the sm90 kernel's other key widths, and at N = 577 on the
+     mma.sync kernel; the MLP also at the 1024^2 request's M, at M = 64 and
+     at two ragged M, with its cluster size and hidden splits);
   4. serve batch-64 VQA requests through `Predictor.vqa_logits` at vlmo_base
      full width and depth (bf16, attn_impl=pallas, mlp_impl=fused, seeded
      random weights), check that every request went through both kernels,
@@ -43,7 +46,8 @@ Phases, in order; any failure raises and the script exits non-zero:
  12. one finetune_vqa step at batch 2 on the card and on the CPU's plain
      path (hidden dropout and DropPath off), compared;
  13. int8 (W8A8): row 8 against its plain version at the serving M for
-     proj and qkv, row 9 at the serving and finetune_vqa M, row 10 at the
+     proj and qkv, row 9 at M = 64 and two ragged M, the finetune_vqa M and
+     the serving M (with its grid and hidden split), row 10 at the
      finetune_vqa M and two thresholds, each timed beside its plain version,
      the `torch._int_mm` chain and the bf16 chain; `quant_dot` (w8a8) against
      the exact product of its codes;
@@ -73,10 +77,13 @@ Phases, in order; any failure raises and the script exits non-zero:
  19. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
+Kernel times are device times: `time_ms` queues the timed calls behind a
+device-side sleep, so the host's launch overhead does not enter them.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import statistics
 import subprocess
@@ -113,6 +120,10 @@ from exploremultimodal_torch.ops.flash_attention import (
     flash_attention_fwd_long,
     flash_attention_fwd_long_plain,
     flash_attention_fwd_plain,
+    fwd_route,
+    fwd_sm90_grid,
+    fwd_sm90_smem,
+    fwd_sm90_tile,
     long_grid,
     padded_len,
 )
@@ -129,6 +140,9 @@ from exploremultimodal_torch.ops.mlp_fused import (
 from exploremultimodal_torch.ops.quant import _quantize_int8, quant_dot
 from exploremultimodal_torch.ops.quant_fused import (
     int8_product,
+    mlp_grid,
+    mlp_smem,
+    mlp_splits,
     quantize_weights,
     row_quant,
     w8a8_matmul,
@@ -149,6 +163,9 @@ KERNELS = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# device-side sleep ahead of a timed run: ~20 ms at the H100's clocks, more
+# than the host takes to launch 20 calls of any timed function here
+QUEUE_CYCLES = 40_000_000
 
 SERVE_OVERRIDES = [
     "model=vlmo_base", "train=finetune_vqa", "compute_dtype=bfloat16",
@@ -166,6 +183,10 @@ CPU_CHECK_REQUESTS, CPU_CHECK_ROWS = 2, 4
 # in another order in fp32, which can flip the bf16 rounding of a hidden
 # value, and both round y (|y| < 4) to bf16: one ulp is at most 2**-6.
 ATTN_ATOL, ATTN_RTOL, ATTN_LSE_ATOL = 1e-4, 2 ** -7, 1e-4
+# row 1 off the serving path, at batch 8 (BH = 96): the sm90 kernel's key
+# widths 128, 192 and 256 (the serving streams take 64 and 256), and 384^2
+# images (577 tokens), past SM90_FWD_MAX_N, on the mma.sync kernel
+ATTN_OFF_PATH_N, OFF_PATH_BATCH = (100, 150, 256, 577), 8
 MLP_ATOL, MLP_RTOL = 2 ** -6, 2 ** -7
 # GPU kernels vs the CPU plain path, end to end in bf16 over 12 blocks and
 # the 3129-way head: bf16 rounding (2**-8 relative) at every layer, in other
@@ -280,12 +301,16 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of one call, from CUDA events around `iters` calls."""
+    """Mean device time of one call, from CUDA events around `iters` calls.
+    The calls are queued behind a device-side sleep of QUEUE_CYCLES, which
+    outlasts their launch on the host, so that they run back to back and the
+    host's launch overhead does not enter the time of a short kernel."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -305,22 +330,52 @@ def text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
     return (np.arange(length)[None, :] < lens[:, None]).astype(np.int32)
 
 
+def check_layouts() -> dict:
+    """The shared memory each new sm90 kernel reports for itself against
+    the layout its wrapper's host code assumes (rows 1 and 9), all within
+    the 232,448 bytes a block may use."""
+    fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int],
+                           "flash_attention_fwd_sm90_smem")
+    mlp_smem_fn = _build.load("w8a8_mlp_sm90", [], "w8a8_mlp_sm90_smem")
+    got = {f"flash_attention_fwd_sm90 nt={nt}": (fwd_smem(nt), fwd_sm90_smem(nt))
+           for nt in range(16, 257, 16)}
+    got["w8a8_mlp_sm90"] = (mlp_smem_fn(), mlp_smem())
+    for name, (kernel, host) in got.items():
+        require(kernel == host <= 232448,
+                f"{name}: the kernel takes {kernel} bytes of shared memory, its host "
+                f"code assumes {host}")
+    return {name: kernel for name, (kernel, _) in got.items()}
+
+
+def padded_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
+    """Rows of length // 2 .. length real keys, padded to `length`."""
+    lens = rng.integers(length // 2, length + 1, batch)
+    return (np.arange(length)[None, :] < lens[:, None]).astype(np.int32)
+
+
 def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict]:
+    """Row 1 against its plain version: off the path at batch OFF_PATH_BATCH
+    (N = 100, 150 and 256 take the sm90 kernel's other key widths, N = 577,
+    384^2 images, the mma.sync kernel past SM90_FWD_MAX_N), then at the
+    serving streams of batch 64, each timed beside its plain version and
+    SDPA. The last row is the fused stream."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
     txt = text_mask(rng, BATCH, cfg.max_text_len)
-    masks = {
+    masks = {f"off_path_n{n}": padded_mask(rng, OFF_PATH_BATCH, n) for n in ATTN_OFF_PATH_N}
+    masks.update({
         "text": txt,
         "image": np.ones((BATCH, n_img), np.int32),
         "fused": np.concatenate([txt, np.ones((BATCH, n_img), np.int32)], 1),
-    }
+    })
     rows = []
     for stream, mask in masks.items():
-        n, bh = mask.shape[1], BATCH * heads
+        (batch, n), bh = mask.shape, mask.shape[0] * heads
         g = torch.Generator(device=dev).manual_seed(n)
         q, k, v = (torch.randn((bh, n, d), generator=g, device=dev)
                    .to(torch.bfloat16) for _ in range(3))
-        kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(BATCH, n)
+        kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(batch, n)
         kb = kb.contiguous()
         scale = d ** -0.5
         out, lse = flash_attention_fwd(q, k, v, kb, scale)
@@ -335,12 +390,15 @@ def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict
                 f"attention {stream} N={n}: max|out err| {err} beyond atol "
                 f"{ATTN_ATOL} + rtol {ATTN_RTOL}, or max|lse err| {lse_err} "
                 f"beyond {ATTN_LSE_ATOL}")
-        q4, k4, v4 = (t.view(BATCH, heads, n, d) for t in (q, k, v))
-        mask4 = kb.to(torch.bfloat16).view(BATCH, 1, 1, n)
-        nbytes = 4 * bh * n * d * 2 + BATCH * n * 4 + bh * n * 4
+        q4, k4, v4 = (t.view(batch, heads, n, d) for t in (q, k, v))
+        mask4 = kb.to(torch.bfloat16).view(batch, 1, 1, n)
+        nbytes = 4 * bh * n * d * 2 + batch * n * 4 + bh * n * 4
         bound_ms, bound_by = bound(nbytes, 4 * bh * n * n * d)
+        route = fwd_route(n)
         rows.append({
-            "stream": stream, "shape": f"BH={bh} N={n} D={d}",
+            "stream": stream, "shape": f"BH={bh} N={n} D={d}", "route": route,
+            **({"key_width": fwd_sm90_tile(n), "grid": fwd_sm90_grid(bh, sms)}
+               if route == "sm90" else {}),
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "ms": time_ms(lambda: flash_attention_fwd(q, k, v, kb, scale)),
             "plain_ms": time_ms(lambda: flash_attention_fwd_plain(q, k, v, kb, scale)),
@@ -593,16 +651,21 @@ def w8a8_mlp_weights(cfg: VlmoConfig, dev, seed: int):
 
 
 def check_w8a8_mlp(cfg: VlmoConfig, dev, drop: bool) -> list[dict]:
-    """Rows 9 (drop False: the finetune_vqa step's M at dropout 0, then the
-    serving M) and 10 (drop True: the step's M at each threshold) against
+    """Rows 9 (drop False: M = 64 and two ragged M, the finetune_vqa step's
+    M at dropout 0, then the serving M) and 10 (drop True: the step's M at each threshold) against
     their plain versions on seeded inputs and bits; each timed beside its
     plain version, the `torch._int_mm` chain (`library_ms`) and the bf16
     chain. The last row is the path's largest shape (and threshold)."""
     g, (w1, w2), args = w8a8_mlp_weights(cfg, dev, 5 + drop)
     k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def splits(m):
+        return mlp_splits(m, h, sms)
     b1h, b2h = args[2].to(torch.bfloat16), args[5].to(torch.bfloat16)
     cases = ([(t, m) for t in MLP_DROP_THRESHOLDS for m in vqa_mlp_rows(cfg)] if drop
-             else [(0, m) for m in vqa_mlp_rows(cfg) + serve_rows(cfg)])
+             else [(0, m) for m in MLP_DROP_OFF_PATH_ROWS + vqa_mlp_rows(cfg)
+                   + serve_rows(cfg)])
     rows = []
     for t, m in cases:
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -627,7 +690,9 @@ def check_w8a8_mlp(cfg: VlmoConfig, dev, drop: bool) -> list[dict]:
                   + (2 * m * h if drop else 0))
         bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out), PEAK_INT8_OPS)
         rows.append({
-            "threshold": t, "shape": f"M={m} K={k} H={h} N={n_out}", "max_abs_err": err,
+            "threshold": t, "shape": f"M={m} K={k} H={h} N={n_out}",
+            **({} if drop else {"grid": [mlp_grid(m, splits(m)), splits(m)]}),
+            "max_abs_err": err,
             "exact_share": (y == ref).float().mean().item(),
             "ms": time_ms(lambda: kern(x, *args, *extra)),
             "plain_ms": time_ms(lambda: plain(x, *args, *extra), iters=5),
@@ -1315,6 +1380,8 @@ def main() -> int:
             if "registers" in line or "spill" in line or "bytes smem" in line:
                 print(f"  {line.strip()}", flush=True)
 
+    print("smem: " + json.dumps(check_layouts()), flush=True)
+
     cfg_dict = load_config(SERVE_OVERRIDES)
     cfg = VlmoConfig.from_config(cfg_dict)
     attn_rows = check_attention(cfg, np.random.default_rng(0), dev)
@@ -1461,15 +1528,17 @@ def main() -> int:
         }
 
     fwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu"
+    fwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd_sm90.cu"
     bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_sm90.cu"
     tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
     q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul.cu"
-    qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_fwd.cu"
+    qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_sm90.cu"
+    qmlp_drop_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_fwd.cu"
     tpu_q = "exploremultimodal_tpu/ops/quant_pallas.py"
     kernels = [
-        entry("flash_attention_fwd", "cuda", fwd_src, f"{tpu_fa}:152", attn_rows,
+        entry("flash_attention_fwd", "cuda", fwd_sm90_src, f"{tpu_fa}:152", attn_rows,
               serve_launches),
         entry("flash_attention_bwd", "cuda", bwd_src, f"{tpu_fa}:170",
               train_rows["flash_attention_bwd"], drop0_launches),
@@ -1485,7 +1554,7 @@ def main() -> int:
               w8p_launches),
         entry("w8a8_mlp_fwd", "cuda", qmlp_src, f"{tpu_q}:233", w8_rows["w8a8_mlp_fwd"],
               w8_serve_launches),
-        entry("w8a8_mlp_fwd_drop", "cuda", qmlp_src, f"{tpu_q}:366",
+        entry("w8a8_mlp_fwd_drop", "cuda", qmlp_drop_src, f"{tpu_q}:366",
               w8_rows["w8a8_mlp_fwd_drop"], w8_vqa_launches),
         entry("flash_attention_fwd_long", "cuda",
               "exploremultimodal_torch/ops/csrc/flash_attention_long_sm90.cu",

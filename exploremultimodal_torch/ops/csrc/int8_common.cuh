@@ -1,5 +1,6 @@
-// int8 tensor-core, cp.async and row-quantization helpers shared by the
-// W8A8 kernels of this package (w8a8_matmul.cu, w8a8_mlp_fwd.cu).
+// int8 tensor-core, cp.async, row-quantization and MLP-epilogue helpers
+// shared by the W8A8 kernels of this package (w8a8_matmul.cu,
+// w8a8_mlp_fwd.cu, w8a8_mlp_sm90.cu).
 //
 // One warp-wide `mma.sync.m16n8k32` (s8 in, s32 accumulate). Fragment
 // layout, with g = lane / 4 and t = lane % 4, in bytes of a 32-wide k slice
@@ -94,6 +95,22 @@ __device__ __forceinline__ int quantize(float v, float inv) {
 __device__ __forceinline__ void row_scale(float absmax, float& s, float& inv) {
   s = __fmul_rn(fmaxf(absmax, kEps), kInv127);
   inv = __frcp_rn(s);
+}
+
+// the tanh-form gelu of `_mlp_kernel`, 0.5 * h * (1 + tanh(0.79788... * (h +
+// 0.044715 * h * h * h))), in the order the Pallas kernel writes it, every
+// product and sum rounded once (no FMA contraction)
+__device__ __forceinline__ float gelu_tanh(float h) {
+  constexpr float c0 = static_cast<float>(0.044715);
+  constexpr float c1 = static_cast<float>(0.7978845608028654);
+  const float u = __fmul_rn(c1, __fadd_rn(h, __fmul_rn(__fmul_rn(__fmul_rn(c0, h), h), h)));
+  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, tanhf(u)));
+}
+
+// one hidden value of the int8 MLP from its int32 sum: gelu((acc * sx) *
+// sw1 + b1), dequantized with the row's and the column's scales
+__device__ __forceinline__ float hidden(int acc, float sx, float sw1, float b1) {
+  return gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw1), b1));
 }
 
 // Quantizes rows row0 .. row0 + nrows - 1 of the bf16 x (m, K) into int8

@@ -1,19 +1,20 @@
-// W8A8 whole-MLP forward for Hopper (sm_90a):
+// W8A8 whole-MLP forward with hidden dropout for Hopper (sm_90a), on
+// mma.sync:
 //   y = dequant(row_quant(h) . qW2^T) + b2,
-//   h = [dropout] gelu_tanh(dequant(row_quant(x) . qW1^T) + b1)
+//   h = dropout(gelu_tanh(dequant(row_quant(x) . qW1^T) + b1))
 //
-// Replaces the Pallas kernel `_mlp_kernel`
-// (exploremultimodal_tpu/ops/quant_pallas.py:233, launched by
-// `_fused_mlp_padded` :262) and, with DROP set, `_mlp_dropout_kernel`
-// (:366, launched by `_fused_mlp_dropout_padded` :399). Same function and
-// rounding, step by step:
+// Replaces the Pallas kernel `_mlp_dropout_kernel`
+// (exploremultimodal_tpu/ops/quant_pallas.py:366, launched by
+// `_fused_mlp_dropout_padded` :399). The forward without dropout
+// (`_mlp_kernel`) is w8a8_mlp_sm90.cu. Same function and rounding, step by
+// step:
 //   - each bf16 row of x gets its own scale s = max(absmax, 1e-8) * (1/127)
 //     and codes rint(x * (1/s)) clipped to +-127 (half to even);
 //   - the int8 product with the fp32 weights' codes qW1 (H, 768) is summed
 //     exactly in int32, and h = (float(acc) * sx) * sw1 + b1 in fp32;
 //   - the tanh-form gelu, 0.5 * h * (1 + tanh(0.79788... * (h + 0.044715 *
 //     h * h * h))), in the order the Pallas kernel writes it;
-//   - with DROP, h is kept where the caller's uint16 bit u >= t and then
+//   - h is kept where the caller's uint16 bit u >= t and then
 //     scaled by 65536 / (65536 - t), else 0, before the row absmax of h, as
 //     at quant_pallas.py:377-379. The bits arrive as the int16 u - 32768 (the
 //     port's storage of a draw), so the kernel flips each top bit to read u;
@@ -38,12 +39,12 @@
 // What bounds it on an H100: operations. At the VLMo-Base shapes (K = N =
 // 768, H = 3072, M up to 64 * 237 rows) the two products are 2*M*(K*H +
 // H*N) int8 operations against about 2*M*(K + N) bytes of activations
-// (plus 2*M*H of bits with DROP) and 4.7 MB of weight codes: about 1000
+// (plus 2*M*H of bits) and 4.7 MB of weight codes: about 1000
 // operations per byte, above the ~590 where the int8 tensor cores become
 // the limit. The (M, H) hidden, 47 MB as int8 codes at M = 15,168, never
 // reaches device memory.
 //
-// Design (simple first, as the bf16 kernel fused_mlp_fwd.cu):
+// Design (simple first):
 //   - a block of 8 warps owns BM = 32 rows; it quantizes them into shared
 //     memory (one warp per row);
 //   - first product: each warp owns a 16 x 16 piece of the 32 x 64 chunk
@@ -84,20 +85,11 @@ constexpr size_t SMEM = X_BYTES + W1_BYTES + W2_BYTES + H_BYTES + 2 * B_BYTES +
                         7 * BM * sizeof(float);
 static_assert(W2_BYTES >= W1_BYTES, "pass 1 keeps its second W1 buffer in the W2 one");
 
-__device__ __forceinline__ float gelu_tanh(float h) {
-  constexpr float c0 = static_cast<float>(0.044715);
-  constexpr float c1 = static_cast<float>(0.7978845608028654);
-  const float u = __fmul_rn(c1, __fadd_rn(h, __fmul_rn(__fmul_rn(__fmul_rn(c0, h), h), h)));
-  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, tanhf(u)));
-}
-
-// one hidden value from its int32 sum: dequantize, bias, gelu [, dropout]
-template <bool DROP>
+// one hidden value from its int32 sum: dequantize, bias, gelu, dropout
 __device__ __forceinline__ float hidden(int acc, float sx, float sw1, float b1,
                                         uint16_t bits, int thr, float keep_scale) {
-  float h = gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw1), b1));
-  if (DROP) h = (bits ^ 0x8000u) >= static_cast<unsigned>(thr) ? __fmul_rn(h, keep_scale) : 0.f;
-  return h;
+  const float h = i8::hidden(acc, sx, sw1, b1);
+  return (bits ^ 0x8000u) >= static_cast<unsigned>(thr) ? __fmul_rn(h, keep_scale) : 0.f;
 }
 
 // this warp's 16 x 16 piece (rows wm*16.., chunk columns wn*16..) of the
@@ -125,7 +117,7 @@ __device__ __forceinline__ void first_product(int acc[2][4], const int8_t* sX,
 // of the chunk at hidden column c, two at a time: h0, h1 at (row, col) and
 // (row, col + 1), local to the block and the chunk; hh = 0 for the thread's
 // row g, 1 for its row g + 8 of the warp's piece.
-template <bool DROP, typename Fn>
+template <typename Fn>
 __device__ __forceinline__ void for_hidden(int acc[2][4], int c, const float sx[2],
                                            const float* __restrict__ sw1,
                                            const float* __restrict__ b1,
@@ -139,20 +131,18 @@ __device__ __forceinline__ void for_hidden(int acc[2][4], int c, const float sx[
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = wm * 16 + g + 8 * hh;
-      uint32_t bits = 0;
-      if (DROP) bits = *reinterpret_cast<const uint32_t*>(sB + row * LDB + col);
-      const float h0 = hidden<DROP>(acc[j][2 * hh], sx[hh], s.x, b.x, bits & 0xffffu,
-                                    thr, keep_scale);
-      const float h1 = hidden<DROP>(acc[j][2 * hh + 1], sx[hh], s.y, b.y, bits >> 16,
-                                    thr, keep_scale);
+      const uint32_t bits = *reinterpret_cast<const uint32_t*>(sB + row * LDB + col);
+      const float h0 = hidden(acc[j][2 * hh], sx[hh], s.x, b.x, bits & 0xffffu, thr,
+                              keep_scale);
+      const float h1 = hidden(acc[j][2 * hh + 1], sx[hh], s.y, b.y, bits >> 16, thr,
+                              keep_scale);
       fn(hh, row, col, h0, h1);
     }
   }
 }
 
-template <bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
-w8a8_mlp_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ qw1,
+w8a8_mlp_drop_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ qw1,
                 const float* __restrict__ sw1, const float* __restrict__ b1,
                 const int8_t* __restrict__ qw2, const float* __restrict__ sw2,
                 const float* __restrict__ b2, const uint16_t* __restrict__ bits,
@@ -173,14 +163,13 @@ w8a8_mlp_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ qw1,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int wm = warp / 4, wn = warp % 4;  // first-product piece
-  const uint16_t* bits0 = DROP ? bits + (size_t)m0 * hdim : nullptr;
+  const uint16_t* bits0 = bits + (size_t)m0 * hdim;
 
   auto load_w1 = [&](int8_t* dst, int c) {
     i8::load_rows_async(dst, LDK, qw1 + (size_t)c * K, K, HC, K, HC);
   };
   auto load_bits = [&](uint16_t* dst, int c) {
-    if (DROP)
-      i8::load_rows_async(dst, LDB * 2, bits0 + c, (size_t)hdim * 2, BM, HC * 2, m - m0);
+    i8::load_rows_async(dst, LDB * 2, bits0 + c, (size_t)hdim * 2, BM, HC * 2, m - m0);
   };
 
   // ---- pass 1: the row absmax of h -----------------------------------------
@@ -203,7 +192,7 @@ w8a8_mlp_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ qw1,
     i8::cp_async_wait<1>();  // chunk c landed
     __syncthreads();
     first_product(acc1, sX, w1buf[i & 1], wm, wn, g, t);
-    for_hidden<DROP>(acc1, c, sx, sw1, b1, sB[i & 1], wm, wn, g, t, thr, keep_scale,
+    for_hidden(acc1, c, sx, sw1, b1, sB[i & 1], wm, wn, g, t, thr, keep_scale,
                      [&](int hh, int, int, float h0, float h1) {
                        amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(h0), fabsf(h1)));
                      });
@@ -243,7 +232,7 @@ w8a8_mlp_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ qw1,
     i8::cp_async_wait<1>();  // W1 chunk c and its bits landed; the W2 chunk may not have
     __syncthreads();
     first_product(acc1, sX, sW1, wm, wn, g, t);
-    for_hidden<DROP>(acc1, c, sx, sw1, b1, sB[0], wm, wn, g, t, thr, keep_scale,
+    for_hidden(acc1, c, sx, sw1, b1, sB[0], wm, wn, g, t, thr, keep_scale,
                      [&](int hh, int row, int col, float h0, float h1) {
                        const uint32_t q0 = static_cast<uint32_t>(i8::quantize(h0, inv[hh]));
                        const uint32_t q1 = static_cast<uint32_t>(i8::quantize(h1, inv[hh]));
@@ -300,40 +289,14 @@ w8a8_mlp_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ qw1,
     }
 }
 
-template <bool DROP>
-int launch(const void* x, const void* qw1, const void* sw1, const void* b1,
-           const void* qw2, const void* sw2, const void* b2, const void* bits,
-           void* y, int m, int hdim, int thr, float keep_scale, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      w8a8_mlp_kernel<DROP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  w8a8_mlp_kernel<DROP><<<(m + BM - 1) / BM, THREADS, SMEM, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(qw1),
-      static_cast<const float*>(sw1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(qw2), static_cast<const float*>(sw2),
-      static_cast<const float*>(b2), static_cast<const uint16_t*>(bits),
-      static_cast<bf16*>(y), m, hdim, thr, keep_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // x: (m, 768) bf16; qw1: (hdim, 768) int8; sw1, b1: (hdim) fp32; qw2: (768,
-// hdim) int8; sw2, b2: (768) fp32; y: (m, 768) bf16; all contiguous and
-// 16-byte aligned; hdim % 64 == 0 (VLMo-Base: 3072). Returns the launch's
-// cudaError_t.
-extern "C" int w8a8_mlp_fwd(const void* x, const void* qw1, const void* sw1,
-                            const void* b1, const void* qw2, const void* sw2,
-                            const void* b2, void* y, int m, int hdim, void* stream) {
-  if (m <= 0 || hdim <= 0 || hdim % HC != 0) return cudaErrorInvalidValue;
-  return launch<false>(x, qw1, sw1, b1, qw2, sw2, b2, nullptr, y, m, hdim, 0, 1.f,
-                       static_cast<cudaStream_t>(stream));
-}
-
-// As `w8a8_mlp_fwd`, with the hidden dropout of `_mlp_dropout_kernel`:
-// bits: (m, hdim) int16 holding u - 32768 for uint16 draws u, contiguous;
-// an element is kept where u >= threshold (0 < threshold < 65536) and then
-// scaled by keep_scale = 65536 / (65536 - threshold).
+// hdim) int8; sw2, b2: (768) fp32; bits: (m, hdim) int16 holding u - 32768
+// for uint16 draws u; y: (m, 768) bf16; all contiguous and 16-byte aligned;
+// hdim % 64 == 0 (VLMo-Base: 3072). An element of the hidden is kept where
+// u >= threshold (0 < threshold < 65536) and then scaled by keep_scale =
+// 65536 / (65536 - threshold). Returns the launch's cudaError_t.
 extern "C" int w8a8_mlp_fwd_drop(const void* x, const void* qw1, const void* sw1,
                                  const void* b1, const void* qw2, const void* sw2,
                                  const void* b2, const void* bits, void* y, int m,
@@ -341,6 +304,14 @@ extern "C" int w8a8_mlp_fwd_drop(const void* x, const void* qw1, const void* sw1
                                  void* stream) {
   if (m <= 0 || hdim <= 0 || hdim % HC != 0 || threshold <= 0 || threshold >= 65536)
     return cudaErrorInvalidValue;
-  return launch<true>(x, qw1, sw1, b1, qw2, sw2, b2, bits, y, m, hdim, threshold,
-                      keep_scale, static_cast<cudaStream_t>(stream));
+  cudaError_t err = cudaFuncSetAttribute(
+      w8a8_mlp_drop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  w8a8_mlp_drop_kernel<<<(m + BM - 1) / BM, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const int8_t*>(qw1),
+      static_cast<const float*>(sw1), static_cast<const float*>(b1),
+      static_cast<const int8_t*>(qw2), static_cast<const float*>(sw2),
+      static_cast<const float*>(b2), static_cast<const uint16_t*>(bits),
+      static_cast<bf16*>(y), m, hdim, threshold, keep_scale);
+  return static_cast<int>(cudaGetLastError());
 }

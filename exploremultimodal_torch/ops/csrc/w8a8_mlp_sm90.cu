@@ -1,0 +1,514 @@
+// W8A8 whole-MLP forward for Hopper (sm_90a) on int8 wgmma and TMA:
+//   y = dequant(row_quant(h) . qW2^T) + b2,
+//   h = gelu_tanh(dequant(row_quant(x) . qW1^T) + b1)
+//
+// Replaces the Pallas kernel `_mlp_kernel`
+// (exploremultimodal_tpu/ops/quant_pallas.py:233, launched by
+// `_fused_mlp_padded` :262). Same function and rounding, step by step, bit
+// for bit with `w8a8_mlp_fwd_plain`:
+//   - each bf16 row of x gets its own scale s = max(absmax, 1e-8) * (1/127)
+//     and codes rint(x * (1/s)) clipped to +-127 (half to even);
+//   - the int8 product with the weights' codes qW1 (H, 768) is summed
+//     exactly in int32, and h = (float(acc) * sx) * sw1 + b1 in fp32, then
+//     the tanh-form gelu (int8_common.cuh);
+//   - each row of h is quantized over all H columns with its own scale sh;
+//   - the int8 product with qW2 (768, H) is summed in int32, and y =
+//     (float(acc) * sh) * sw2 + b2, rounded once to bf16.
+// Every product and sum outside the tensor cores is __fmul_rn/__fadd_rn.
+//
+// What bounds it on an H100: operations. At the VLMo-Base shapes (K = N =
+// 768, H = 3072) the two products are 2 M (K H + H N) int8 operations
+// against about 2 M (K + N) bytes of activations and 4.7 MB of weight codes:
+// about 1000 operations per byte at the path's M, above the ~590 where the
+// int8 tensor cores become the limit. The (M, H) hidden never reaches
+// device memory.
+//
+// The row re-quantization decides the shape of the kernel: sh needs the
+// absmax of the whole (64, H) row block of h before the second product may
+// start, and the block cannot hold it. So each CTA makes two passes over
+// the hidden, in chunks of HC = 64 columns:
+//   pass 1  the first product and the epilogue of each chunk, keeping only
+//           each row's absmax of h; the two consumer warpgroups (each has 32
+//           of a chunk's 64 columns) combine theirs through shared memory;
+//   pass 2  for each chunk the first product and the epilogue again (bit
+//           for bit the same: int32 sums are exact in any order and the
+//           epilogue is the same code), h's codes at the now known sh into
+//           a 64 x 64 int8 tile in shared memory, and the second product
+//           accumulated, 64 x 768 s32, 384 columns per consumer warpgroup
+//           (192 registers a thread).
+// That is 1.5x the operations of the two products.
+//
+// Design, on the skeleton of fused_mlp_sm90.cu: a CTA owns BM = 64 rows;
+// one producer warp (TMA) and two consumer warpgroups (int8 wgmma,
+// `setmaxnreg` moves registers from the producer to them).
+//   - x's codes (64 x 768, 48 KB) stay in shared memory for both passes:
+//     the consumers quantize x from bf16 themselves, one warp per row, and
+//     write the codes in the 128-byte swizzle wgmma reads (a swizzle row
+//     holds 128 int8 K values; a k32 step is the same 32-byte advance of
+//     the descriptor as a bf16 k16 step). Half of the 96 KB that row 6
+//     gives x's bf16 tile goes to a deeper weight ring.
+//   - Weight codes stream through a ring of NS = 2 stages of 48 KB (six
+//     8 KB boxes) on mbarriers, one stage per chunk and product: a chunk's
+//     W1 (its 64 rows x 768 K bytes, 128-byte swizzle; m64n32k32 per
+//     warpgroup) or its W2 (64 hidden bytes x 768 output rows, in the
+//     64-byte swizzle since a chunk's hidden is 64 bytes wide; m64n128k32).
+//     Both operands of int8 wgmma are K-major, which the codes already are:
+//     qW1 (H, K) and qW2 (N, H). A stage costs about a microsecond of
+//     synchronisation whatever its size (wait, release, refill), so stages
+//     are whole chunks: on an H100, nine 16 KB stages took 0.42 ms a tile,
+//     three 48 KB ones 0.25 and two 0.24 (scripts/torch_kernel_variants.py).
+//   - h's codes go to one of two 64 x 64 tiles (128-byte rows, the first 64
+//     bytes used, as the A operand of the second product); one named
+//     barrier per chunk between the two warpgroups.
+//   - Clusters of CL = 2 CTAs along M: each weight box is loaded by one CTA
+//     and multicast to both, halving the L2 reads of weights. Consumers
+//     release a stage in every CTA of the cluster; a producer overwrites a
+//     stage only once all have, and drains the ring before it exits.
+//   - Small M (SPLIT): where twice the row tiles still fit one wave, a
+//     cluster of two CTAs along y shares each row tile, each taking half
+//     the hidden's chunks. Exact: they trade their pass-1 row absmax over
+//     distributed shared memory (each then has the whole row's), and write
+//     their int32 sums, which `w8a8_mlp_sum_splits` adds (integers, so in
+//     any order) before the same epilogue. M = 2,560 runs on 80 CTAs
+//     instead of 40 (0.25 to 0.145 ms on an H100).
+//   - Ragged M: rows past M quantize to zero codes and are not stored; the
+//     grid is whole clusters (a spare CTA stores nothing).
+//   - Room is kept past the barriers for two 64 x 64 int16 dropout-bits
+//     slots, as fused_mlp_sm90.cu keeps them, so that the hidden-dropout
+//     forward (`_mlp_dropout_kernel`, still w8a8_mlp_fwd.cu) can become a
+//     variant of this kernel (`smem_bytes<true>` fits).
+// What holds it back (variants on an H100, M = 15,168, two waves of 0.24
+// ms a tile): pass 1 about 30% (0.34 ms without it), the ring's
+// synchronisation about 23% (0.38 without it). Independent accumulators
+// for the chain of 24 m64n32k32 products, clusters of 1 or 4, and two
+// software pipelines (a chunk's epilogue or second product beside the next
+// first product; one spilled beside the 192 accumulator registers, the
+// other ran 10% slower) gained nothing.
+// Left for later: feeding h's codes to the second product from registers
+// (the s8 A fragment does not match the s32 accumulator's layout: a byte
+// permutation).
+
+#include "int8_common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace emm::sm90;
+
+constexpr int K = 768;          // input width (VLMo-Base)
+constexpr int N = 768;          // output width
+constexpr int BM = 64;          // rows per CTA
+constexpr int HC = 64;          // hidden columns per chunk
+constexpr int CL = 2;           // CTAs per cluster (along M): 1 or 2
+constexpr int NS = 2;           // ring stages
+constexpr int BOX = 8192;       // a 64 x 128 (W1) or 128 x 64 (W2) int8 box
+constexpr int SB = 6;           // boxes per stage: a chunk of W1 or of W2
+constexpr int STAGE = SB * BOX; // bytes per stage
+constexpr int XT = K / 128;     // x code tiles of 64 rows x 128 bytes
+constexpr int X_BYTES = XT * BOX;
+constexpr int RING_OFF = X_BYTES;
+constexpr int H_OFF = RING_OFF + NS * STAGE;  // two h code tiles
+constexpr int SCALE_OFF = H_OFF + 2 * BOX;    // x's row scales, 2 + 1 x 64 row absmax of h
+constexpr int BAR_OFF = SCALE_OFF + 4 * BM * 4;
+constexpr int BARS = 2 * NS + 1 + 4;          // NS full, NS empty, the peer's absmax, bits
+constexpr int BITS_OFF = (BAR_OFF + 8 * BARS + 1023) / 1024 * 1024;
+template <bool DROP>
+constexpr int smem_bytes() { return BITS_OFF + (DROP ? 2 * BOX : 0) + 1024; }
+constexpr int THREADS = 384;
+static_assert(smem_bytes<true>() <= 232448, "shared memory with the bits slots");
+
+// x (m, K) bf16 rows m0.. -> int8 codes in the 128-byte swizzle at `sx`
+// (XT tiles of 64 rows x 128 bytes) and their scales, one consumer warp per
+// row (`_row_quant`, as i8::quantize_rows); rows past m get zero codes
+__device__ __forceinline__ void quantize_x(const bf16* __restrict__ x, int m, int m0,
+                                           unsigned char* sx, float* scales) {
+  constexpr int PIECES = K / 256;
+  const int lane = threadIdx.x % 32;
+  for (int r = threadIdx.x / 32; r < BM; r += 8) {
+    const int row = m0 + r;
+    float v[PIECES][8];
+    float amax = 0.f;
+#pragma unroll
+    for (int p = 0; p < PIECES; ++p) {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (row < m)
+        raw = *reinterpret_cast<const uint4*>(x + (size_t)row * K + p * 256 + lane * 8);
+      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = __bfloat1622float2(h2[e]);
+        v[p][2 * e] = f.x;
+        v[p][2 * e + 1] = f.y;
+        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    float s, inv;
+    i8::row_scale(amax, s, inv);
+#pragma unroll
+    for (int p = 0; p < PIECES; ++p) {
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        lo |= (static_cast<uint32_t>(i8::quantize(v[p][e], inv)) & 0xffu) << (8 * e);
+        hi |= (static_cast<uint32_t>(i8::quantize(v[p][4 + e], inv)) & 0xffu) << (8 * e);
+      }
+      const int k = p * 256 + lane * 8, kk = k & 127;
+      const int off = (k >> 7) * BOX + r * 128 + ((((kk >> 4) ^ (r & 7)) << 4) | (kk & 15));
+      *reinterpret_cast<uint2*>(sx + off) = make_uint2(lo, hi);
+    }
+    if (lane == 0) scales[r] = s;
+  }
+}
+
+// W1 (hidden, K) and W2 (N, hidden) int8 codes through their tensor maps;
+// x (m, K) bf16; sw1, b1 (hidden) and sw2, b2 (N) fp32; `chunks` hidden
+// chunks of HC per CTA. Without SPLIT: clusters of CL CTAs along M share
+// the weight boxes, and y (m, N) = bf16 result. With SPLIT: clusters of two
+// CTAs along y split the hidden (CTA y takes chunks y * chunks ..), trade
+// their row absmax of h, and write their int32 sums to part[y] (m, N); CTA
+// 0 writes the row scales of h to shs (m); `w8a8_mlp_sum_splits` finishes.
+template <bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 1)
+w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
+                     const __grid_constant__ CUtensorMap mw2, const bf16* __restrict__ x,
+                     const float* __restrict__ sw1, const float* __restrict__ b1,
+                     const float* __restrict__ sw2, const float* __restrict__ b2,
+                     bf16* __restrict__ y, int* __restrict__ part, float* __restrict__ shs_out,
+                     int m, int chunks) {
+  constexpr int CLM = SPLIT ? 1 : CL;  // CTAs sharing the weight boxes
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t sxq = base, ring = base + RING_OFF, sh = base + H_OFF;
+  float* sSx = reinterpret_cast<float*>(smem + SCALE_OFF);
+  float* sAmax = sSx + BM;       // [warpgroup][row]
+  float* sPeer = sAmax + 2 * BM;  // SPLIT: the other CTA's row absmax
+  const uint32_t full0 = base + BAR_OFF, empty0 = full0 + 8 * NS, xbar = empty0 + 8 * NS;
+  const int m0 = blockIdx.x * BM;
+  const int cbase = SPLIT ? blockIdx.y * chunks : 0;  // the first chunk of this CTA
+  const uint32_t rank = cluster_ctarank();
+  const uint32_t group0 = SPLIT ? rank : 0;  // the rank of the first CTA sharing the boxes
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 2 * CLM);  // each consumer warpgroup of each sharing CTA
+    }
+    mbar_init(xbar, BM);  // SPLIT: one remote arrival per row
+    fence_barrier_init();
+  }
+  cluster_sync();  // the peers' barriers exist before any multicast or remote arrive
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: one thread issues every TMA load, in the order the
+    // consumers take the stages: pass 1 W1(0), W1(1), ..., pass 2 W1(0),
+    // W2(0), W1(1), W2(1), ...
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      const uint16_t mask = ((1u << CLM) - 1) << group0;
+      const int b0 = rank - group0;  // this CTA loads boxes b0, b0 + CLM, ...
+      int i = 0;
+      // the next stage: chunk c's W1 (w1) or W2 codes, once its slot is
+      // free in every sharing CTA; each loads every CLM-th box for all
+      auto load = [&](bool w1, int c) {
+        const int s = i % NS;
+        mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
+        ++i;
+        const uint32_t full = full0 + 8 * s, dst = ring + s * STAGE;
+        mbar_arrive_expect_tx(full, STAGE);
+        for (int b = b0; b < SB; b += CLM) {
+          if (w1)  // W1 rows 64c.. (the chunk), K bytes 128 b..
+            tma_load_2d_mc(dst + b * BOX, &mw1, full, 128 * b, HC * (cbase + c), mask);
+          else  // W2 hidden bytes 64c.., output rows 128 b.. (warpgroup b / 3)
+            tma_load_2d_mc(dst + b * BOX, &mw2, full, HC * (cbase + c), 128 * b, mask);
+        }
+      };
+      for (int c = 0; c < chunks; ++c) load(true, c);  // pass 1
+      for (int c = 0; c < chunks; ++c) {
+        load(true, c);
+        load(false, c);
+      }
+      for (int k = 0; k < NS; ++k) {  // the tail: every stage released everywhere
+        mbar_wait(empty0 + 8 * (i % NS), ((i / NS) & 1) ^ 1);
+        ++i;
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<240>();
+  const int w = wg;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, q = lane % 4;
+  // stage j read: warp r of this warpgroup releases it in sharing CTA r
+  auto release = [&](int j) {
+    if (lane == 0 && warp < CLM) mbar_arrive_cluster(empty0 + 8 * (j % NS), group0 + warp);
+  };
+  int it = 0;  // the next stage
+  auto next_stage = [&]() {
+    const int cur = it++;
+    mbar_wait(full0 + 8 * (cur % NS), (cur / NS) & 1);
+    return ring + (cur % NS) * STAGE;
+  };
+
+  quantize_x(x, m, m0, smem, sSx);
+  fence_proxy_async();
+  named_bar_sync(1, 256);  // x's codes and scales are whole
+  // this thread's rows of the accumulators: 16 warp + g (hh = 0) and + 8
+  const float sx[2] = {sSx[16 * warp + g], sSx[16 * warp + g + 8]};
+
+  // hacc (64 x 32 of this warpgroup) = x . W1[chunk rows 32w..]^T over all
+  // K, from a stage holding a chunk's W1
+  auto first_product = [&](int (&hacc)[16], uint32_t stage) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) hacc[i] = 0;
+    fence_regs(hacc);
+    wgmma_fence();
+#pragma unroll
+    for (int b = 0; b < SB; ++b)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        wgmma_ss_s8_n32(hacc, desc_sw128(sxq + b * BOX + 32 * k),
+                        desc_sw128(stage + b * BOX + 32 * 128 * w + 32 * k));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(hacc);
+  };
+  // fn(hh, col, h0, h1) for this thread's hidden values of local chunk c:
+  // h0, h1 at row 16 warp + g + 8 hh, chunk columns col and col + 1
+  auto for_hidden = [&](const int (&hacc)[16], int c, auto fn) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 32 * w + 8 * j + 2 * q;
+      const float2 s = *reinterpret_cast<const float2*>(sw1 + HC * (cbase + c) + col);
+      const float2 b = *reinterpret_cast<const float2*>(b1 + HC * (cbase + c) + col);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        fn(hh, col, i8::hidden(hacc[4 * j + 2 * hh], sx[hh], s.x, b.x),
+           i8::hidden(hacc[4 * j + 2 * hh + 1], sx[hh], s.y, b.y));
+    }
+  };
+
+  // ---- pass 1: each row's absmax of h
+  float amax[2] = {0.f, 0.f};
+  for (int c = 0; c < chunks; ++c) {
+    int hacc[16];
+    const int cur = it;
+    first_product(hacc, next_stage());
+    release(cur);
+    for_hidden(hacc, c, [&](int hh, int, float h0, float h1) {
+      amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(h0), fabsf(h1)));
+    });
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // a row lives on the 4 lanes of a quad
+    amax[hh] = fmaxf(amax[hh], __shfl_xor_sync(0xffffffffu, amax[hh], 1));
+    amax[hh] = fmaxf(amax[hh], __shfl_xor_sync(0xffffffffu, amax[hh], 2));
+    if (q == 0) sAmax[w * BM + 16 * warp + g + 8 * hh] = amax[hh];
+  }
+  named_bar_sync(1, 256);  // both warpgroups' halves of every row
+  if (SPLIT) {  // trade this CTA's row absmax for the other CTA's
+    if (threadIdx.x < BM) {
+      const int r = threadIdx.x;
+      st_cluster_f32(smem_u32(sPeer + r), rank ^ 1, fmaxf(sAmax[r], sAmax[BM + r]));
+      mbar_arrive_cluster(xbar, rank ^ 1);
+    }
+    mbar_wait_cluster(xbar, 0);
+  }
+  float shs[2], inv[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh;
+    float a = fmaxf(sAmax[r], sAmax[BM + r]);
+    if (SPLIT) a = fmaxf(a, sPeer[r]);
+    i8::row_scale(a, shs[hh], inv[hh]);
+  }
+
+  // ---- pass 2: h again, its codes, the second product
+  int acc[3][64];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[p][i] = 0;
+  for (int c = 0; c < chunks; ++c) {
+    int hacc[16];
+    const int w1 = it;
+    first_product(hacc, next_stage());
+    release(w1);
+    // h's codes into tile c % 2: 128-byte rows (the first 64 bytes used) in
+    // the 128-byte swizzle
+    unsigned char* ht = smem + H_OFF + (c & 1) * BOX;
+    for_hidden(hacc, c, [&](int hh, int col, float h0, float h1) {
+      const int row = 16 * warp + g + 8 * hh;
+      const uint32_t c0 = static_cast<uint32_t>(i8::quantize(h0, inv[hh])) & 0xffu;
+      const uint32_t c1 = static_cast<uint32_t>(i8::quantize(h1, inv[hh])) & 0xffu;
+      *reinterpret_cast<uint16_t*>(ht + row * 128 + ((((col >> 4) ^ (row & 7)) << 4) |
+                                                     (col & 15))) =
+          static_cast<uint16_t>(c0 | (c1 << 8));
+    });
+    fence_proxy_async();
+    named_bar_sync(1, 256);  // the whole 64 x 64 tile of h's codes is written
+
+    // acc (64 x 384 of this warpgroup) += h . W2[384w.., chunk]^T: this
+    // warpgroup's three boxes of the stage
+    const int w2 = it;
+    const uint32_t boxes = next_stage() + w * 3 * BOX;
+    const uint32_t hc = sh + (c & 1) * BOX;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) fence_regs(acc[p]);
+    wgmma_fence();
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int k = 0; k < HC / 32; ++k)
+        wgmma_ss_s8_n128(acc[p], desc_sw128(hc + 32 * k), desc_sw64(boxes + p * BOX + 32 * k));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int p = 0; p < 3; ++p) fence_regs(acc[p]);
+    release(w2);
+  }
+
+  // epilogue: y = (acc * sh) * sw2 + b2, or with SPLIT the int32 sums and
+  // the row scales; rows past m are not stored
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = m0 + 16 * warp + g + 8 * hh;
+    if (SPLIT && blockIdx.y == 0 && w == 0 && q == 0 && row < m) shs_out[row] = shs[hh];
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = 384 * w + 128 * p + 8 * j + 2 * q;
+      const float2 s = *reinterpret_cast<const float2*>(sw2 + col);
+      const float2 b = *reinterpret_cast<const float2*>(b2 + col);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = m0 + 16 * warp + g + 8 * hh;
+        if (row >= m) continue;
+        const int a0 = acc[p][4 * j + 2 * hh], a1 = acc[p][4 * j + 2 * hh + 1];
+        if (SPLIT) {
+          *reinterpret_cast<int2*>(part + ((size_t)blockIdx.y * m + row) * N + col) =
+              make_int2(a0, a1);
+        } else {
+          const float v0 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a0), shs[hh]), s.x), b.x);
+          const float v1 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a1), shs[hh]), s.y), b.y);
+          *reinterpret_cast<__nv_bfloat162*>(y + (size_t)row * N + col) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      }
+    }
+}
+
+// y = bf16((float(part[0] + part[1]) * sh) * sw2 + b2): the split kernel's
+// two int32 sums added exactly, then its epilogue
+__global__ void w8a8_mlp_sum_splits(const int4* __restrict__ part,
+                                    const float* __restrict__ shs, const float* __restrict__ sw2,
+                                    const float* __restrict__ b2, bf16* __restrict__ y, int m) {
+  const size_t n4 = (size_t)m * (N / 4);
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n4) return;
+  const int4 a = part[i], c = part[n4 + i];
+  const int row = static_cast<int>(i / (N / 4)), col = static_cast<int>(i % (N / 4)) * 4;
+  const float s = shs[row];
+  const float4 w = *reinterpret_cast<const float4*>(sw2 + col);
+  const float4 b = *reinterpret_cast<const float4*>(b2 + col);
+  auto out = [&](int v, float wk, float bk) {
+    return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), s), wk), bk);
+  };
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(out(a.x + c.x, w.x, b.x), out(a.y + c.y, w.y, b.y));
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(out(a.z + c.z, w.z, b.z), out(a.w + c.w, w.w, b.w));
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(y + i * 4) = v;
+}
+
+template <bool SPLIT>
+int launch(const CUtensorMap& w1, const CUtensorMap& w2, const void* x, const void* sw1,
+           const void* b1, const void* sw2, const void* b2, void* y, void* part, void* shs,
+           int m, int chunks, int grid, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<false>();
+  cudaError_t err = cudaFuncSetAttribute(w8a8_mlp_sm90_kernel<SPLIT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, SPLIT ? 2 : 1, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = SPLIT ? 1 : CL;
+  cluster.val.clusterDim.y = SPLIT ? 2 : 1;
+  cluster.val.clusterDim.z = 1;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, w8a8_mlp_sm90_kernel<SPLIT>, w1, w2,
+                           static_cast<const bf16*>(x), static_cast<const float*>(sw1),
+                           static_cast<const float*>(b1), static_cast<const float*>(sw2),
+                           static_cast<const float*>(b2), static_cast<bf16*>(y),
+                           static_cast<int*>(part), static_cast<float*>(shs), m, chunks);
+  if (err != cudaSuccess || !SPLIT) return static_cast<int>(err);
+  const size_t n4 = (size_t)m * (N / 4);
+  w8a8_mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
+      static_cast<const int4*>(part), static_cast<const float*>(shs),
+      static_cast<const float*>(sw2), static_cast<const float*>(b2), static_cast<bf16*>(y), m);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Encodes into `out` (128 bytes, host memory) the tensor map of a row-major
+// int8 matrix (rows, cols) at `base` in boxes of box_cols x box_rows bytes
+// with the given swizzle (bytes): (128, 64, 128) for qW1, (64, 128, 64) for
+// qW2. Returns a cudaError_t.
+extern "C" int w8a8_mlp_sm90_encode(void* out, const void* base, int rows, int cols,
+                                    int box_cols, int box_rows, int swizzle) {
+  const bool w1 = box_cols == 128 && box_rows == 64 && swizzle == 128;
+  const bool w2 = box_cols == 64 && box_rows == 128 && swizzle == 64;
+  if (rows <= 0 || cols <= 0 || cols % 16 != 0 || !(w1 || w2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {static_cast<uint64_t>(cols)};
+  const uint32_t box[2] = {static_cast<uint32_t>(box_cols), static_cast<uint32_t>(box_rows)};
+  return emm_encode_map(out, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, dims, strides, box,
+                        w1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+// The kernel's dynamic shared memory.
+extern "C" int w8a8_mlp_sm90_smem() { return smem_bytes<false>(); }
+
+// mw1, mw2: the maps of qW1 (hidden, 768) and qW2 (768, hidden) int8 (from
+// `w8a8_mlp_sm90_encode`, host memory); x (m, 768) bf16; sw1, b1 (hidden)
+// and sw2, b2 (768) fp32; y (m, 768) bf16; all contiguous and 16-byte
+// aligned; hidden % (64 splits) == 0. splits 1: `grid` 64-row tiles in
+// whole clusters of 2; splits 2 (the hidden split over a cluster of two):
+// `grid` the 64-row tiles, `part` int32 scratch of 2 x m x 768 and `shs`
+// fp32 scratch of m. Launches on `stream`; returns the first launch error.
+extern "C" int w8a8_mlp_sm90(const void* mw1, const void* mw2, const void* x, const void* sw1,
+                             const void* b1, const void* sw2, const void* b2, void* y,
+                             void* part, void* shs, int m, int hdim, int grid, int splits,
+                             void* stream) {
+  const int tiles = (m + BM - 1) / BM;
+  const bool ok =
+      m > 0 && hdim > 0 && (splits == 1 || splits == 2) && hdim % (HC * splits) == 0 &&
+      (splits == 1 ? grid % CL == 0 && grid >= tiles && grid <= tiles + 1
+                   : grid == tiles && part != nullptr && shs != nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap w1, w2;
+  memcpy(&w1, mw1, sizeof(w1));
+  memcpy(&w2, mw2, sizeof(w2));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = hdim / HC / splits;
+  return splits == 1
+             ? launch<false>(w1, w2, x, sw1, b1, sw2, b2, y, part, shs, m, chunks, grid, st)
+             : launch<true>(w1, w2, x, sw1, b1, sw2, b2, y, part, shs, m, chunks, grid, st);
+}

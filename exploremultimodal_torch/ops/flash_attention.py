@@ -7,9 +7,11 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
   - `flash_attention_bwd`      `_bwd_call` / `_attn_bwd_kernel`
   - `flash_attention_bwd_drop` `_bwd_drop_call` / `_attn_drop_bwd_kernel`
   - `flash_attention_fwd_long` `_long_fwd_call` / `_attn_long_kernel`
-The forward kernels are `csrc/flash_attention_fwd.cu` and, for the long
-forward, `csrc/flash_attention_long_sm90.cu` (wgmma and TMA); the backward
-kernels are `csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on
+The forward kernels are `csrc/flash_attention_fwd_sm90.cu` (wgmma and TMA,
+N <= SM90_FWD_MAX_N), `csrc/flash_attention_fwd.cu` (mma.sync: the forward
+at longer N and the dropout forward) and, for the long forward,
+`csrc/flash_attention_long_sm90.cu` (wgmma and TMA); the backward kernels
+are `csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on
 CUDA tensors and its plain PyTorch version on CPU tensors; there is no other
 fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
@@ -24,7 +26,7 @@ import ctypes
 import torch
 
 from exploremultimodal_torch.ops import _build
-from exploremultimodal_torch.ops.mlp_fused import tensor_map_key
+from exploremultimodal_torch.ops.mlp_fused import SMEM_LIMIT, _sm_count, tensor_map_key
 
 HEAD_DIM = 64  # the only head dim the kernels take (every preset's but vlmo_debug)
 # the fused backward (and so in-kernel dropout) covers N up to this; longer
@@ -34,9 +36,22 @@ LONG_SEQ_THRESHOLD = 512
 # full-row forward holds a (128, N) score tile in VMEM up to here)
 FULL_ROW_FWD_MAX = 4096
 # the long kernel's tiling: 128 query rows per CTA, keys in 128-row blocks
-# (csrc/flash_attention_long_sm90.cu); its q/k/v tensor maps by
-# `tensor_map_key`, emptied at the cap
+# (csrc/flash_attention_long_sm90.cu)
 LONG_TILE = 128
+# the forward's route: up to this N the sm90 kernel, which holds a head's
+# whole K and V in shared memory (csrc/flash_attention_fwd_sm90.cu); past
+# it, up to FULL_ROW_FWD_MAX, the mma.sync kernel (csrc/flash_attention_fwd.cu)
+SM90_FWD_MAX_N = 256
+# the sm90 forward's layout, as its source sets it: key widths in steps of
+# 16 (its wgmma N), keys and query rows in 64-row TMA boxes and tiles, up to
+# 4 heads in flight per CTA, each slot a head's Q, K and V (128 bytes a row)
+# and its fp32 bias row, then a full and an empty barrier per slot and 1024
+# bytes of alignment slack
+SM90_FWD_WIDTH_STEP = 16
+SM90_FWD_BOX = 64
+SM90_FWD_MAX_SLOTS = 4
+# q/k/v tensor maps of the sm90 kernels by (kernel, `tensor_map_key`),
+# emptied at the cap
 _MAPS: dict = {}
 _MAPS_CAP = 256
 PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read the padded N
@@ -44,6 +59,7 @@ PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read th
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 6 + [_I] * 3 + [_F, _P]
 _FWD_LONG_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
+_FWD_SM90_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
 _FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 _BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
@@ -195,21 +211,86 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def fwd_route(n: int) -> str:
+    """The forward kernel that takes rows of N keys: "sm90" up to
+    SM90_FWD_MAX_N, "mma_sync" past it."""
+    return "sm90" if n <= SM90_FWD_MAX_N else "mma_sync"
+
+
+def fwd_sm90_tile(n: int) -> int:
+    """The sm90 forward's key width for N keys, the wgmma N of its Q K^T:
+    N rounded up to 16 (48 at N = 40, 208 at 197, 240 at 237)."""
+    return -(-n // SM90_FWD_WIDTH_STEP) * SM90_FWD_WIDTH_STEP
+
+
+def fwd_sm90_grid(bh: int, sms: int) -> int:
+    """The sm90 forward's persistent grid: one CTA per SM, or one per head
+    where there are fewer heads; CTA c takes heads c, c + grid, ..."""
+    return min(bh, sms)
+
+
+def fwd_sm90_map_extents(bh: int, n: int):
+    """The 3D tensor map of a (BH, N, 64) bf16 q, k or v for the sm90
+    forward: dims innermost first (D, N, BH), the byte strides of dims 1..,
+    and the box (64, 64, 1); a box stops at its head's N and TMA fills the
+    rest of the head's slot with zeros."""
+    row = 2 * HEAD_DIM
+    return (HEAD_DIM, n, bh), (row, row * n), (HEAD_DIM, SM90_FWD_BOX, 1)
+
+
+def _slot_bytes(nt: int) -> int:
+    """A slot at key width nt: Q, K and V of the rows its boxes load, and
+    the bias row."""
+    rows = -(-nt // SM90_FWD_BOX) * SM90_FWD_BOX
+    return 3 * rows * 2 * HEAD_DIM + 4 * rows
+
+
+def fwd_sm90_slots(nt: int) -> int:
+    """Heads in flight per CTA at key width nt: as many slots as fit."""
+    return min(SM90_FWD_MAX_SLOTS,
+               (SMEM_LIMIT - 1024 - 16 * SM90_FWD_MAX_SLOTS) // _slot_bytes(nt))
+
+
+def fwd_sm90_smem(nt: int) -> int:
+    """The sm90 forward's dynamic shared memory at key width nt."""
+    return fwd_sm90_slots(nt) * (_slot_bytes(nt) + 16) + 1024
+
+
 def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
-    """The kernel on CUDA tensors, the plain version on CPU tensors. Same
-    arguments and results as `flash_attention_fwd_plain`."""
+    """The kernel of `fwd_route` on CUDA tensors, the plain version on CPU
+    tensors. Same arguments and results as `flash_attention_fwd_plain`."""
     if qf.device.type == "cpu":
         return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale)
     _check("flash_attention_fwd", key_bias, qf, kf, vf)
     bh, n, _ = qf.shape
+    if fwd_route(n) == "sm90":
+        out, lse = _launch_fwd_sm90(qf, kf, vf, key_bias, scale)
+    else:
+        out = torch.empty_like(qf)
+        lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+        fn = _build.load("flash_attention_fwd", _FWD_ARGS)
+        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
+                scale, _stream(qf))
+        _build.check("flash_attention_fwd", rc)
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float):
+    """Run the sm90 forward on checked inputs: the q/k/v maps from the
+    cache, the key width of `fwd_sm90_tile`, the grid of `fwd_sm90_grid`."""
+    bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-    fn = _build.load("flash_attention_fwd", _FWD_ARGS)
-    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
-            scale, _stream(qf))
-    _build.check("flash_attention_fwd", rc)
-    flash_attention_fwd.launches += 1
+    # the buffers themselves, not their addresses: the list keeps each one
+    # alive through the call even if a later lookup empties the cache
+    maps = [_map("short", t) for t in (qf, kf, vf)]
+    fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
+    rc = fn(*maps, key_bias.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
+            bh // key_bias.shape[0], n, fwd_sm90_tile(n),
+            fwd_sm90_grid(bh, _sm_count(qf.device)), scale, _stream(qf))
+    _build.check("flash_attention_fwd_sm90", rc)
     return out, lse
 
 
@@ -227,22 +308,33 @@ def long_map_extents(bh: int, n: int):
     return (HEAD_DIM, n, bh), (row, row * n), (HEAD_DIM, LONG_TILE, 1)
 
 
-def _long_map(t: torch.Tensor):
-    key = tensor_map_key(t)
+# the sm90 kernels' q/k/v maps: source, and the extents for (BH, N)
+_MAP_KINDS = {"long": ("flash_attention_long_sm90", long_map_extents),
+              "short": ("flash_attention_fwd_sm90", fwd_sm90_map_extents)}
+
+
+def _map(kind: str, t: torch.Tensor):
+    """The cached 3D tensor map of q, k or v `t` for the sm90 kernel `kind`
+    ("long" or "short"), encoded on a miss."""
+    key = (kind, *tensor_map_key(t))
     buf = _MAPS.get(key)
     if buf is None:
         if len(_MAPS) >= _MAPS_CAP:
             _MAPS.clear()
-        dims, strides, box = long_map_extents(t.shape[0], t.shape[1])
+        src, extents = _MAP_KINDS[kind]
+        dims, strides, box = extents(t.shape[0], t.shape[1])
         buf = ctypes.create_string_buffer(128)
-        fn = _build.load("flash_attention_long_sm90", _ENCODE_ARGS,
-                         "flash_attention_long_sm90_encode")
+        fn = _build.load(src, _ENCODE_ARGS, f"{src}_encode")
         rc = fn(ctypes.addressof(buf), t.data_ptr(), len(dims),
                 (ctypes.c_uint64 * 3)(*dims), (ctypes.c_uint64 * 2)(*strides),
                 (ctypes.c_uint32 * 3)(*box))
-        _build.check("flash_attention_long_sm90_encode", rc)
+        _build.check(f"{src}_encode", rc)
         _MAPS[key] = buf
     return buf
+
+
+def _long_map(t: torch.Tensor):
+    return _map("long", t)
 
 
 def flash_attention_fwd_long(qf, kf, vf, key_bias, scale: float):

@@ -47,6 +47,7 @@ ROW_TILE, CLUSTER, HIDDEN_CHUNK = 64, 2, 64
 _MAPS: dict = {}
 _MAPS_CAP = 256
 _SMS: dict = {}
+SMEM_LIMIT = 232448  # dynamic shared memory an H100 block may use
 
 
 def fits_vmem(in_dim: int, hidden_dim: int, out_dim: int) -> bool:

@@ -10,7 +10,8 @@ Counterpart of `exploremultimodal_tpu/ops/quant_pallas.py`:
   - `w8a8_mlp_fwd_drop`  `_mlp_dropout_kernel` (row 10): with hidden dropout
   - `w8a8_mlp`           `fused_w8a8_mlp` / `fused_w8a8_mlp_dropout`, with the
                          backward of `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`
-Row 8 is `csrc/w8a8_matmul.cu`, rows 9 and 10 `csrc/w8a8_mlp_fwd.cu`. Weights
+Row 8 is `csrc/w8a8_matmul.cu`, row 9 `csrc/w8a8_mlp_sm90.cu` (int8 wgmma and
+TMA), row 10 `csrc/w8a8_mlp_fwd.cu` (mma.sync). Weights
 are in nn.Linear's layout, (out, in), and so are their int8 codes, with one
 fp32 scale per output channel. The plain versions take each int8 product
 exactly, as a float64 product of the codes (every sum is an integer below
@@ -24,17 +25,36 @@ import ctypes
 import torch
 
 from exploremultimodal_torch.ops import _build
-from exploremultimodal_torch.ops.mlp_fused import gelu_tanh, mlp_backward
+from exploremultimodal_torch.ops.mlp_fused import (
+    _sm_count,
+    gelu_tanh,
+    mlp_backward,
+    tensor_map_key,
+)
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 
 _EPS = 1e-8
 IN_DIM = OUT_DIM = 768  # the kernels' K and MLP output width (vlmo_base)
 MATMUL_OUT_DIMS = (768, 2304)  # proj and qkv
-HIDDEN_CHUNK = 64  # the MLP kernel walks the hidden in chunks this wide
+HIDDEN_CHUNK = 64  # the MLP kernels walk the hidden in chunks this wide
+# the row-9 kernel's layout, as csrc/w8a8_mlp_sm90.cu sets it: 64-row tiles
+# in clusters of 2 CTAs along M, or, split, of 2 CTAs along the hidden; the
+# weight codes in TMA boxes of (bytes a row, rows, swizzle bytes): qW1 (H,
+# 768) in K-major 128 x 64 boxes, qW2 (768, H) in 64 x 128 boxes (a chunk's
+# 64 hidden bytes a row); x's codes (64 x 768), a ring of 2 stages of six
+# boxes (a chunk of W1 or of W2), two h code tiles, 4 x 64 row scales, the
+# barriers, then (with dropout) two bits slots and 1024 bytes of slack
+MLP_ROW_TILE, MLP_CLUSTER = 64, 2
+MLP_BOXES = {"w1": (128, 64, 128), "w2": (64, 128, 64)}
+MLP_RING_STAGES, MLP_STAGE_BOXES, MLP_BOX_BYTES = 2, 6, 8192
+# the row-9 weight maps by (operand, `tensor_map_key`), emptied at the cap
+_MAPS: dict = {}
+_MAPS_CAP = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MATMUL_ARGTYPES = [_P] * 4 + [_I] * 2 + [_P]
-_MLP_ARGTYPES = [_P] * 8 + [_I] * 2 + [_P]
+_MLP_SM90_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
+_ENCODE_ARGTYPES = [_P, _P] + [_I] * 5
 _MLP_DROP_ARGTYPES = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _P]
 
 
@@ -162,18 +182,92 @@ def _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits=None):
     return m, hdim
 
 
+def mlp_splits(m: int, hdim: int, sms: int) -> int:
+    """How many CTAs share a row tile's hidden in the row-9 kernel: 2 (a
+    cluster of two, each with half the 64-column chunks, their int32 sums
+    added in a second pass) while the doubled tiles fit one wave of `sms`
+    and the chunks halve, else 1."""
+    tiles = -(-m // MLP_ROW_TILE)
+    return 2 if 2 * tiles <= sms and (hdim // HIDDEN_CHUNK) % 2 == 0 else 1
+
+
+def mlp_grid(m: int, splits: int = 1) -> int:
+    """The row-9 kernel's CTAs along M for M rows: the 64-row tiles, rounded
+    up to whole clusters of 2 where the cluster runs along M (splits 1; a
+    spare CTA stores nothing); the grid has `splits` CTAs along y."""
+    tiles = -(-m // MLP_ROW_TILE)
+    return tiles + -tiles % MLP_CLUSTER if splits == 1 else tiles
+
+
+def mlp_map_extents(rows: int, cols: int, operand: str):
+    """The 2D tensor map of a row-major int8 (rows, cols) matrix of codes for
+    the row-9 kernel, `operand` "w1" (qW1) or "w2" (qW2): dims innermost
+    first (cols, rows), the row stride in bytes, the box (bytes a row,
+    rows) and the swizzle in bytes."""
+    box_cols, box_rows, swizzle = MLP_BOXES[operand]
+    return (cols, rows), (cols,), (box_cols, box_rows), swizzle
+
+
+def mlp_smem(drop: bool = False) -> int:
+    """The row-9 kernel's dynamic shared memory; with `drop`, that of the
+    layout with the two bits slots of a dropout variant."""
+    box = MLP_BOX_BYTES
+    x_codes = IN_DIM // 128 * box
+    before_bars = (x_codes + MLP_RING_STAGES * MLP_STAGE_BOXES * box + 2 * box
+                   + 4 * MLP_ROW_TILE * 4)
+    bits_off = -(-(before_bars + 8 * (2 * MLP_RING_STAGES + 5)) // 1024) * 1024
+    return bits_off + (2 * box if drop else 0) + 1024
+
+
+def _mlp_map(t: torch.Tensor, operand: str):
+    """The cached tensor map of int8 codes `t` as `operand` ("w1" or "w2"),
+    encoded on a miss."""
+    key = (operand, *tensor_map_key(t))
+    buf = _MAPS.get(key)
+    if buf is None:
+        if len(_MAPS) >= _MAPS_CAP:
+            _MAPS.clear()
+        (cols, rows), _, (box_cols, box_rows), swizzle = mlp_map_extents(
+            t.shape[0], t.shape[1], operand)
+        buf = ctypes.create_string_buffer(128)
+        fn = _build.load("w8a8_mlp_sm90", _ENCODE_ARGTYPES, "w8a8_mlp_sm90_encode")
+        _build.check("w8a8_mlp_sm90_encode",
+                     fn(ctypes.addressof(buf), t.data_ptr(), rows, cols, box_cols,
+                        box_rows, swizzle))
+        _MAPS[key] = buf
+    return buf
+
+
+def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2):
+    """Check the inputs and run the row-9 kernel: the weight maps from the
+    cache, the hidden split of `mlp_splits` with its scratch, the grid of
+    `mlp_grid`."""
+    m, hdim = _check_mlp("w8a8_mlp_fwd", x, qw1, sw1, b1, qw2, sw2, b2)
+    dev = x.device
+    y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=dev)
+    splits = mlp_splits(m, hdim, _sm_count(dev))
+    part = shs = None
+    if splits > 1:
+        part = torch.empty((splits, m, OUT_DIM), dtype=torch.int32, device=dev)
+        shs = torch.empty((m,), dtype=torch.float32, device=dev)
+    # the buffers themselves, not their addresses: the list keeps each one
+    # alive through the call even if a later lookup empties the cache
+    maps = [_mlp_map(qw1, "w1"), _mlp_map(qw2, "w2")]
+    fn = _build.load("w8a8_mlp_sm90", _MLP_SM90_ARGTYPES)
+    rc = fn(*maps, x.data_ptr(), sw1.data_ptr(), b1.data_ptr(), sw2.data_ptr(),
+            b2.data_ptr(), y.data_ptr(), None if part is None else part.data_ptr(),
+            None if shs is None else shs.data_ptr(), m, hdim, mlp_grid(m, splits), splits,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("w8a8_mlp_fwd", rc)
+    return y
+
+
 def w8a8_mlp_fwd(x, qw1, sw1, b1, qw2, sw2, b2):
     """As `w8a8_mlp_fwd_plain`: the row-9 kernel on CUDA tensors, the plain
     version on CPU tensors."""
     if x.device.type == "cpu":
         return w8a8_mlp_fwd_plain(x, qw1, sw1, b1, qw2, sw2, b2)
-    m, hdim = _check_mlp("w8a8_mlp_fwd", x, qw1, sw1, b1, qw2, sw2, b2)
-    y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=x.device)
-    fn = _build.load("w8a8_mlp_fwd", _MLP_ARGTYPES)
-    rc = fn(x.data_ptr(), qw1.data_ptr(), sw1.data_ptr(), b1.data_ptr(),
-            qw2.data_ptr(), sw2.data_ptr(), b2.data_ptr(), y.data_ptr(), m, hdim,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("w8a8_mlp_fwd", rc)
+    y = _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2)
     w8a8_mlp_fwd.launches += 1
     return y
 

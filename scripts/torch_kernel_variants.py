@@ -5,14 +5,17 @@
 
 Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
 textual edits applied (the JSON maps a name to {"kind": "mlp" | "mlp_drop"
-| "attn_long" | "dvae", "src": file, "edits": [[old, new], ...]}; every
+| "attn" | "attn_long" | "w8a8_mlp" | "dvae", "src": file, "edits": [[old,
+new], ...]}; every
 `old` must occur). All variants are compiled at once with the package's
 nvcc flags into a temporary directory, then each is swapped in for the
 package's kernel and timed, in the order A B ... B A, at the shapes the
 main paths give it: the bf16 fused MLP (row 6) at the serving M, its
-dropout forward (row 7) at the finetune_vqa M, the long flash forward (row
-5) at the 1024^2 request's two streams, the dVAE block (row 11) at the five
-blocks the tokenizer fuses. A variant whose output leaves the kernel's
+dropout forward (row 7) at the finetune_vqa M, the short flash forward (row
+1) at the batch-64 request's three streams, the long flash forward (row 5)
+at the 1024^2 request's two streams, the W8A8 MLP (row 9) at the int8
+request's M, the dVAE block (row 11) at the five blocks the tokenizer
+fuses. A variant whose output leaves the kernel's
 tolerance against the plain version is marked BAD (variants that skip work
 are expected to be). Prints one JSON line per shape, with the card's name
 and power limit first. Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -27,20 +30,30 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import chip_smoke as cs  # noqa: E402
-from exploremultimodal_torch.ops import _build, dvae_conv, flash_attention, mlp_fused  # noqa: E402
+from exploremultimodal_torch.ops import (  # noqa: E402
+    _build,
+    dvae_conv,
+    flash_attention,
+    mlp_fused,
+    quant_fused,
+)
 from exploremultimodal_torch.ops.dvae_conv import (  # noqa: E402
     block_widths,
     fused_encoder_block,
     fused_encoder_block_plain,
 )
+from exploremultimodal_torch.ops.attention import key_padding_bias  # noqa: E402
 from exploremultimodal_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_fwd,
     flash_attention_fwd_long,
     flash_attention_fwd_long_plain,
+    flash_attention_fwd_plain,
 )
 from exploremultimodal_torch.ops.mlp_fused import (  # noqa: E402
     fused_mlp_fwd,
@@ -48,11 +61,17 @@ from exploremultimodal_torch.ops.mlp_fused import (  # noqa: E402
     fused_mlp_fwd_drop_plain,
     fused_mlp_fwd_plain,
 )
+from exploremultimodal_torch.ops.quant_fused import (  # noqa: E402
+    w8a8_mlp_fwd,
+    w8a8_mlp_fwd_plain,
+)
 
 MLP_ROWS = (64, 320, 2560, 4999, 12608, 15168, 32776)
 SYMBOL = {"mlp": ("fused_mlp_sm90", mlp_fused._SM90_ARGTYPES),
           "mlp_drop": ("fused_mlp_sm90_drop", mlp_fused._DROP_ARGTYPES),
+          "attn": ("flash_attention_fwd_sm90", flash_attention._FWD_SM90_ARGS),
           "attn_long": ("flash_attention_long_sm90", flash_attention._FWD_LONG_ARGS),
+          "w8a8_mlp": ("w8a8_mlp_sm90", quant_fused._MLP_SM90_ARGTYPES),
           "dvae": ("dvae_block", dvae_conv._ARGS)}
 
 
@@ -107,7 +126,9 @@ def main(argv: list[str]) -> int:
         fns = build(spec, Path(tmp))
     mlp = [n for n in spec if spec[n]["kind"] == "mlp"]
     mlp_drop = [n for n in spec if spec[n]["kind"] == "mlp_drop"]
+    attn = [n for n in spec if spec[n]["kind"] == "attn"]
     attn_long = [n for n in spec if spec[n]["kind"] == "attn_long"]
+    w8a8_mlp = [n for n in spec if spec[n]["kind"] == "w8a8_mlp"]
     dvae = [n for n in spec if spec[n]["kind"] == "dvae"]
     if mlp:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.SERVE_OVERRIDES))
@@ -133,6 +154,38 @@ def main(argv: list[str]) -> int:
                           lambda: cs.within(fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t),
                                             ref, cs.MLP_ATOL, cs.MLP_RTOL))
             print(json.dumps({"kernel": "fused_mlp_fwd_drop", "M": m, "ms": res}), flush=True)
+    if attn:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.SERVE_OVERRIDES))
+        heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+        n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+        rng = np.random.default_rng(0)
+        txt = cs.text_mask(rng, cs.BATCH, cfg.max_text_len)
+        masks = {"text": txt, "image": np.ones((cs.BATCH, n_img), np.int32),
+                 "fused": np.concatenate([txt, np.ones((cs.BATCH, n_img), np.int32)], 1)}
+        for stream, mask in masks.items():
+            n, bh = mask.shape[1], cs.BATCH * heads
+            g = torch.Generator(device=dev).manual_seed(n)
+            q, k, v = (torch.randn((bh, n, d), generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(3))
+            kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(cs.BATCH, n)
+            kb = kb.contiguous()
+            ref = flash_attention_fwd_plain(q, k, v, kb, d ** -0.5)[0]
+            res = compare(attn, fns, "attn",
+                          lambda: flash_attention_fwd(q, k, v, kb, d ** -0.5),
+                          lambda: cs.within(flash_attention_fwd(q, k, v, kb, d ** -0.5)[0],
+                                            ref, cs.ATTN_ATOL, cs.ATTN_RTOL))
+            print(json.dumps({"kernel": "flash_attention_fwd", "stream": stream, "N": n,
+                              "ms": res}), flush=True)
+    if w8a8_mlp:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.W8A8_SERVE_OVERRIDES))
+        g, _, args = cs.w8a8_mlp_weights(cfg, dev, 5)
+        for m in cs.serve_rows(cfg):
+            x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
+            ref = w8a8_mlp_fwd_plain(x, *args)
+            res = compare(w8a8_mlp, fns, "w8a8_mlp", lambda: w8a8_mlp_fwd(x, *args),
+                          lambda: cs.within(w8a8_mlp_fwd(x, *args), ref, cs.W8A8_ATOL,
+                                            cs.W8A8_RTOL))
+            print(json.dumps({"kernel": "w8a8_mlp_fwd", "M": m, "ms": res}), flush=True)
     if attn_long:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.HIRES_OVERRIDES))
         heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads

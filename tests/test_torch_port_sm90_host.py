@@ -321,3 +321,251 @@ def test_long_checks_pass_the_path_shape():
 def test_long_checks_raise(bad):
     with pytest.raises(ValueError):
         fa._check("flash_attention_fwd_long", *_attn_args(**bad))
+
+
+# ------------------------------------------- row 1: the short sm90 forward
+
+import exploremultimodal_torch.ops.quant_fused as qf  # noqa: E402
+
+SMEM_LIMIT = mf.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,route", [
+    (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
+    (257, "mma_sync"), (577, "mma_sync"), (4096, "mma_sync"),
+])
+def test_row1_route_by_length(n, route):
+    """Rows of up to 256 keys take the sm90 kernel (a head's whole K and V
+    in one slot); longer ones, up to FULL_ROW_FWD_MAX, the mma.sync kernel."""
+    assert fa.fwd_route(n) == route
+    assert (n <= fa.SM90_FWD_MAX_N) == (route == "sm90")
+
+
+@pytest.mark.parametrize("n,width", [
+    (1, 16), (16, 16), (17, 32), (40, 48), (100, 112), (197, 208), (237, 240), (256, 256),
+])
+def test_row1_key_width(n, width):
+    """The key width (the wgmma N of Q K^T) is N rounded up to 16, so at
+    most 15 padded keys are computed."""
+    assert fa.fwd_sm90_tile(n) == width
+    assert width % 16 == 0 and 0 <= width - n < 16
+
+
+@pytest.mark.parametrize("bh,grid", [(96, 96), (768, 132), (1152, 132), (12, 12)])
+def test_row1_persistent_grid(bh, grid):
+    """One CTA per SM, or one per head where there are fewer heads (the
+    1024^2 request's text stream, BH = 96)."""
+    assert fa.fwd_sm90_grid(bh, H100_SMS) == grid
+    heads_per_cta = -(-bh // grid)
+    assert heads_per_cta * grid >= bh > (heads_per_cta - 1) * grid
+
+
+@pytest.mark.parametrize("bh,n", [(768, 40), (768, 197), (768, 237), (96, 40), (3, 1)])
+def test_row1_map_extents(bh, n):
+    """3D map (D, N, BH) with byte strides TMA accepts and 64-row boxes, so
+    a box stops at its head's N and the slot's rows past N are zeros."""
+    dims, strides, box = fa.fwd_sm90_map_extents(bh, n)
+    assert dims == (fa.HEAD_DIM, n, bh)
+    assert strides == (2 * fa.HEAD_DIM, 2 * fa.HEAD_DIM * n)
+    assert all(s % 16 == 0 for s in strides)
+    assert box == (fa.HEAD_DIM, fa.SM90_FWD_BOX, 1) and box[0] * 2 == 128
+    boxes = -(-fa.fwd_sm90_tile(n) // fa.SM90_FWD_BOX)
+    assert boxes * box[1] >= fa.fwd_sm90_tile(n) >= n
+
+
+@pytest.mark.parametrize("nt", range(16, 257, 16))
+def test_row1_shared_memory_budget(nt):
+    """Every key width's slots fit a block, with at least one slot and at
+    most SM90_FWD_MAX_SLOTS; the two VLMo-wide widths keep two heads in
+    flight."""
+    slots = fa.fwd_sm90_slots(nt)
+    assert 1 <= slots <= fa.SM90_FWD_MAX_SLOTS
+    assert fa.fwd_sm90_smem(nt) <= SMEM_LIMIT
+    rows = -(-nt // 64) * 64
+    assert fa.fwd_sm90_smem(nt) >= slots * 3 * rows * 128
+    if nt >= 208:
+        assert slots == 2
+
+
+def test_row1_maps_are_encoded_once_and_apart_from_row5(monkeypatch):
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert symbol == f"{name}_encode"
+
+        def encode(buf, ptr, rank, dims, strides, box):
+            calls.append((name, ptr, tuple(dims), tuple(box)))
+            return 0
+        return encode
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    q = torch.zeros(12, 197, 64, dtype=torch.bfloat16)
+    first = fa._map("short", q)
+    assert fa._map("short", q) is first
+    assert fa._map("long", q) is not first  # another kernel, another box
+    assert calls == [
+        ("flash_attention_fwd_sm90", q.data_ptr(), (64, 197, 12), (64, 64, 1)),
+        ("flash_attention_long_sm90", q.data_ptr(), (64, 197, 12), (64, 128, 1))]
+
+
+@pytest.mark.parametrize("cap", [1, 2, 256])
+def test_row1_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
+    calls, seen, launches = [], [], []
+
+    def kernel(*args):
+        seen.append([_map_bytes(m) for m in args[:3]])
+        launches.append(args[3:])
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "flash_attention_fwd_sm90"
+        return (_fake_encoder(calls) if symbol == "flash_attention_fwd_sm90_encode"
+                else kernel)
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_MAPS_CAP", cap)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
+    kb, q, k, v = _attn_args(bh=24, n=237, b=2)
+    for _ in range(2):
+        out, lse = fa._launch_fwd_sm90(q, k, v, kb, 0.125)
+    assert out.shape == q.shape and lse.shape == (24, 237)
+    for maps in seen:
+        assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
+            t.data_ptr() for t in (q, k, v)]
+    # bias, out, lse, then bh, heads, n, the key width and the grid
+    assert launches[-1][3:8] == (24, 12, 237, 240, 24)
+    assert len(fa._MAPS) <= cap
+
+
+@pytest.mark.parametrize("bad", [
+    {"d": 32}, {"dtype": torch.float16}, {"bias_dtype": torch.bfloat16},
+    {"bias_n": 40}, {"b": 5},
+])
+def test_row1_checks_raise(bad):
+    with pytest.raises(ValueError):
+        fa._check("flash_attention_fwd", *_attn_args(**{"bh": 24, "n": 197, **bad}))
+
+
+# ------------------------------------------- row 9: the W8A8 MLP on int8 wgmma
+
+@pytest.mark.parametrize("m,grid,splits", [
+    (64, 1, 2),        # one tile, its hidden over a cluster of two
+    (1000, 16, 2),     # ragged
+    (2560, 40, 2),     # the int8 request's text stream: 80 CTAs
+    (4999, 80, 1),     # split would pass a wave: clusters along M
+    (12608, 198, 1),   # image stream: 197 tiles and a cluster's spare
+    (15168, 238, 1),   # fused stream: 237 tiles and a spare
+])
+def test_row9_grid_and_cluster_shape(m, grid, splits):
+    """Split over the hidden (clusters of two along y) while the doubled
+    tiles fit one wave, else clusters of two along M sharing the weight
+    boxes, the tiles rounded up to whole clusters."""
+    assert qf.mlp_splits(m, HIDDEN, H100_SMS) == splits
+    assert qf.mlp_splits(m, HIDDEN - 64, H100_SMS) == 1  # 47 chunks do not halve
+    assert qf.mlp_grid(m, splits) == grid
+    tiles = -(-m // qf.MLP_ROW_TILE)
+    if splits == 1:
+        assert grid % qf.MLP_CLUSTER == 0 and tiles <= grid <= tiles + 1
+    else:
+        assert grid == tiles and grid * splits <= H100_SMS
+
+
+@pytest.mark.parametrize("rows,cols,operand,box,swizzle", [
+    (3072, 768, "w1", (128, 64), 128),   # qW1 (H, K): K-major 128-byte rows
+    (768, 3072, "w2", (64, 128), 64),    # qW2 (N, H): a chunk's 64 hidden bytes
+    (1024, 768, "w1", (128, 64), 128),
+])
+def test_row9_map_extents(rows, cols, operand, box, swizzle):
+    dims, strides, got_box, got_swizzle = qf.mlp_map_extents(rows, cols, operand)
+    assert dims == (cols, rows) and strides == (cols,) and strides[0] % 16 == 0
+    assert got_box == box and got_swizzle == swizzle
+    assert got_box[0] <= got_swizzle  # a box row within its swizzle span
+    # six boxes make a chunk of W1 (64 rows x 768) or of W2 (768 rows x 64)
+    assert got_box[0] * got_box[1] * qf.MLP_STAGE_BOXES == 64 * 768
+
+
+def test_row9_shared_memory_budget():
+    """The kernel fits a block, and so does the layout with the two int16
+    dropout-bits slots a dropout variant would add."""
+    assert qf.mlp_smem() <= qf.mlp_smem(drop=True) <= SMEM_LIMIT
+    assert qf.mlp_smem(drop=True) - qf.mlp_smem() == 2 * 64 * 64 * 2
+    ring = qf.MLP_RING_STAGES * qf.MLP_STAGE_BOXES * qf.MLP_BOX_BYTES
+    assert qf.mlp_smem() > 64 * 768 + ring  # x's codes and the ring
+
+
+def test_row9_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert (name, symbol) == ("w8a8_mlp_sm90", "w8a8_mlp_sm90_encode")
+
+        def encode(buf, ptr, rows, cols, box_cols, box_rows, swizzle):
+            calls.append((ptr, rows, cols, box_cols, box_rows, swizzle))
+            return 0
+        return encode
+
+    monkeypatch.setattr(qf._build, "load", fake_load)
+    monkeypatch.setattr(qf, "_MAPS", {})
+    monkeypatch.setattr(qf, "_MAPS_CAP", 3)
+    qw1 = torch.zeros(3072, 768, dtype=torch.int8)
+    first = qf._mlp_map(qw1, "w1")
+    assert qf._mlp_map(qw1, "w1") is first
+    assert calls == [(qw1.data_ptr(), 3072, 768, 128, 64, 128)]
+    others = [torch.zeros(768, 3072, dtype=torch.int8) for _ in range(4)]  # 4 addresses
+    for t in others:
+        qf._mlp_map(t, "w2")
+        assert len(qf._MAPS) <= 3
+    assert len(calls) == 5
+
+
+def _w8a8_args(m=64, k=768, h=3072, n=768, x_dtype=torch.bfloat16, w_dtype=torch.int8):
+    return (torch.zeros(m, k, dtype=x_dtype), torch.zeros(h, k, dtype=w_dtype),
+            torch.zeros(h), torch.zeros(h), torch.zeros(n, h, dtype=w_dtype),
+            torch.zeros(n), torch.zeros(n))
+
+
+@pytest.mark.parametrize("m,cap", [(128, 1), (2560, 2), (15168, 256)])
+def test_row9_launch_passes_live_maps_across_an_eviction(monkeypatch, m, cap):
+    calls, seen, launches = [], [], []
+
+    def kernel(*args):
+        seen.append([_map_bytes(t) for t in args[:2]])
+        launches.append(args[8:])
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "w8a8_mlp_sm90"
+        return _fake_encoder(calls) if symbol == "w8a8_mlp_sm90_encode" else kernel
+
+    monkeypatch.setattr(qf._build, "load", fake_load)
+    monkeypatch.setattr(qf, "_MAPS", {})
+    monkeypatch.setattr(qf, "_MAPS_CAP", cap)
+    monkeypatch.setattr(qf, "_sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(qf.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    args = _w8a8_args(m=m)
+    for _ in range(2):
+        assert qf._launch_mlp_sm90(*args).shape == (m, 768)
+    for maps in seen:
+        assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
+            args[1].data_ptr(), args[4].data_ptr()]
+    splits = qf.mlp_splits(m, HIDDEN, H100_SMS)
+    part, shs, *rest = launches[-1]
+    assert (part is None) == (shs is None) == (splits == 1)
+    assert rest[:4] == [m, 3072, qf.mlp_grid(m, splits), splits]
+    assert len(qf._MAPS) <= cap
+
+
+@pytest.mark.parametrize("bad", [
+    {"k": 512},                      # K must be 768
+    {"h": 3072 - 32},                # hidden in whole 64-column chunks
+    {"n": 512},                      # output width 768
+    {"x_dtype": torch.float16},      # x bf16
+    {"w_dtype": torch.uint8},        # codes int8
+])
+def test_row9_checks_raise(bad):
+    with pytest.raises(ValueError):
+        qf._launch_mlp_sm90(*_w8a8_args(**bad))
