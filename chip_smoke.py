@@ -7,8 +7,8 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from the checkout's sources (nvcc, sm_90a, one
      process per source, all at once) into exploremultimodal_torch/ops/build/;
-  3. the shared memory the sm90 kernels of rows 1 and 9 report against
-     their wrappers' layout; at each shape the VQA serving path gives each
+  3. the shared memory the sm90 kernels of rows 1, 4, 9 and 10 report
+     against their wrappers' layout; at each shape the VQA serving path gives each
      serving kernel, hold the kernel against its plain PyTorch version on
      the card, then time the kernel, the plain version and a library call
      computing the same function (row 1 also at batch 8 at N = 100, 150
@@ -20,9 +20,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      random weights), check that every request went through both kernels,
      compare two requests with the CPU's plain path, and time the requests;
   5. at each shape the pretrain_mum step gives the training kernels (the
-     flash backward, the dropout forward and the dropout backward), hold
-     each against its plain version, check the in-kernel dropout mask bit
-     for bit, and time kernel, plain version and SDPA;
+     flash backward, the dropout forward and the dropout backward), and at
+     batch 8 at N = 512 (the dropout backward's mma.sync route), hold each
+     against its plain version, check the in-kernel dropout mask bit for
+     bit, and time kernel, plain version and SDPA (the backward rows
+     against SDPA's backward alone, and its forward and backward);
   6. train pretrain_mum at vlmo_base, batch 32, on the synthetic data with a
      random dVAE (attn_impl=auto: the dropout kernels): one warm-up step and
      TRAIN_STEPS timed steps, with every launch counted;
@@ -47,8 +49,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      path (hidden dropout and DropPath off), compared;
  13. int8 (W8A8): row 8 against its plain version at the serving M for
      proj and qkv, row 9 at M = 64 and two ragged M, the finetune_vqa M and
-     the serving M (with its grid and hidden split), row 10 at the
-     finetune_vqa M and two thresholds, each timed beside its plain version,
+     the serving M (with its grid and hidden split), row 10 at M = 64 and
+     two ragged M, the finetune_vqa M and two thresholds (with its grid and
+     split), each timed beside its plain version,
      the `torch._int_mm` chain and the bf16 chain; `quant_dot` (w8a8) against
      the exact product of its codes;
  14. serve batch-64 requests with model.quantize=w8a8_pallas_mlp (row 9 on
@@ -109,6 +112,9 @@ from exploremultimodal_torch.ops.dvae_conv import (
 from exploremultimodal_torch.ops.flash_attention import (
     FULL_ROW_FWD_MAX,
     LONG_TILE,
+    SM90_BWD_ROLES,
+    bwd_route,
+    bwd_sm90_layout,
     dropout_keep_mask_plain,
     flash_attention_bwd,
     flash_attention_bwd_drop,
@@ -203,6 +209,9 @@ TRAIN_STEPS = 5  # timed, after one warm-up step, in each training phase
 EXTRA_STEPS = 2  # untimed, in each variant of a training phase
 CPU_TRAIN_BATCH = 2
 DROP_SEED = 1234
+# the dropout backward off the path: one N past SM90_BWD_MAX_N (its mma.sync
+# route), at batch 8
+BWD_OFF_PATH_N = 512
 # backward kernels vs plain versions, bf16 out. Both sum fp32 products of
 # bf16 inputs, in other orders; the kernel keeps 16 mantissa bits of p and ds
 # for its products with k, q and do (2**-17 relative per term). Both round
@@ -331,15 +340,22 @@ def text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
 
 
 def check_layouts() -> dict:
-    """The shared memory each new sm90 kernel reports for itself against
-    the layout its wrapper's host code assumes (rows 1 and 9), all within
-    the 232,448 bytes a block may use."""
+    """The shared memory each sm90 kernel with a layout mirrored on the
+    host reports for itself against that mirror (rows 1, 4, 9 and 10), all
+    within the 232,448 bytes a block may use."""
     fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int],
                            "flash_attention_fwd_sm90_smem")
-    mlp_smem_fn = _build.load("w8a8_mlp_sm90", [], "w8a8_mlp_sm90_smem")
+    bwd_smem = _build.load("flash_attention_bwd_sm90", [ctypes.c_int] * 2,
+                           "flash_attention_bwd_sm90_smem")
+    mlp_smem_fn = _build.load("w8a8_mlp_sm90", [ctypes.c_int], "w8a8_mlp_sm90_smem")
     got = {f"flash_attention_fwd_sm90 nt={nt}": (fwd_smem(nt), fwd_sm90_smem(nt))
            for nt in range(16, 257, 16)}
-    got["w8a8_mlp_sm90"] = (mlp_smem_fn(), mlp_smem())
+    for r, role in enumerate(SM90_BWD_ROLES):
+        got.update({f"flash_attention_bwd_sm90 {role} nt={nt}":
+                    (bwd_smem(nt, r), bwd_sm90_layout(nt, role)["smem"])
+                    for nt in range(16, 257, 16)})
+    got["w8a8_mlp_sm90"] = (mlp_smem_fn(0), mlp_smem())
+    got["w8a8_mlp_sm90 drop"] = (mlp_smem_fn(1), mlp_smem(drop=True))
     for name, (kernel, host) in got.items():
         require(kernel == host <= 232448,
                 f"{name}: the kernel takes {kernel} bytes of shared memory, its host "
@@ -652,10 +668,12 @@ def w8a8_mlp_weights(cfg: VlmoConfig, dev, seed: int):
 
 def check_w8a8_mlp(cfg: VlmoConfig, dev, drop: bool) -> list[dict]:
     """Rows 9 (drop False: M = 64 and two ragged M, the finetune_vqa step's
-    M at dropout 0, then the serving M) and 10 (drop True: the step's M at each threshold) against
-    their plain versions on seeded inputs and bits; each timed beside its
-    plain version, the `torch._int_mm` chain (`library_ms`) and the bf16
-    chain. The last row is the path's largest shape (and threshold)."""
+    M at dropout 0, then the serving M) and 10 (drop True: the step's M at
+    each threshold, and at the path's threshold first M = 64 and two ragged
+    M) against their plain versions on seeded inputs and bits, with the
+    grid and hidden split of each; each timed beside its plain version, the
+    `torch._int_mm` chain (`library_ms`) and the bf16 chain. The last row is
+    the path's largest shape (and threshold)."""
     g, (w1, w2), args = w8a8_mlp_weights(cfg, dev, 5 + drop)
     k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -663,9 +681,11 @@ def check_w8a8_mlp(cfg: VlmoConfig, dev, drop: bool) -> list[dict]:
     def splits(m):
         return mlp_splits(m, h, sms)
     b1h, b2h = args[2].to(torch.bfloat16), args[5].to(torch.bfloat16)
-    cases = ([(t, m) for t in MLP_DROP_THRESHOLDS for m in vqa_mlp_rows(cfg)] if drop
-             else [(0, m) for m in MLP_DROP_OFF_PATH_ROWS + vqa_mlp_rows(cfg)
-                   + serve_rows(cfg)])
+    path_t = MLP_DROP_THRESHOLDS[-1]
+    cases = ([(t, m) for t in MLP_DROP_THRESHOLDS
+              for m in (MLP_DROP_OFF_PATH_ROWS if t == path_t else ()) + vqa_mlp_rows(cfg)]
+             if drop else [(0, m) for m in MLP_DROP_OFF_PATH_ROWS + vqa_mlp_rows(cfg)
+                           + serve_rows(cfg)])
     rows = []
     for t, m in cases:
         x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
@@ -691,7 +711,8 @@ def check_w8a8_mlp(cfg: VlmoConfig, dev, drop: bool) -> list[dict]:
         bound_ms, bound_by = bound(nbytes, 2 * m * (k * h + h * n_out), PEAK_INT8_OPS)
         rows.append({
             "threshold": t, "shape": f"M={m} K={k} H={h} N={n_out}",
-            **({} if drop else {"grid": [mlp_grid(m, splits(m)), splits(m)]}),
+            "on_path": m not in MLP_DROP_OFF_PATH_ROWS,
+            "grid": [mlp_grid(m, splits(m)), splits(m)],
             "max_abs_err": err,
             "exact_share": (y == ref).float().mean().item(),
             "ms": time_ms(lambda: kern(x, *args, *extra)),
@@ -1068,16 +1089,21 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> t
 
 
 def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dict:
-    """Rows 2, 3 and 4 at each shape of the pretrain_mum step: the text,
-    image and fused (MLM) streams at B = 32 and ITM's fused pair rows at
-    3B. Each kernel against its plain version on the same inputs, then the
-    kernel, the plain version and SDPA through autograd timed."""
+    """Rows 2, 3 and 4 off the path at batch 8 at N = BWD_OFF_PATH_N (row
+    4's mma.sync route), then at each shape of the pretrain_mum step: the
+    text, image and fused (MLM) streams at B = 32 and ITM's fused pair rows
+    at 3B. Each kernel against its plain version on the same inputs, then
+    the kernel, the plain version and SDPA timed: the forward rows against
+    SDPA's forward, the backward rows against SDPA's backward alone (its
+    forward run once, outside the timing) and, as `library_fwd_bwd_ms`,
+    its forward and backward together."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
     rate, scale = cfg.attn_drop_rate, d ** -0.5
     txt = synthetic_text_mask(rng, TRAIN_BATCH, cfg.max_text_len)
     txt3 = np.concatenate([txt, txt, txt[rng.permutation(TRAIN_BATCH)]])
     masks = {
+        f"off_path_n{BWD_OFF_PATH_N}": padded_mask(rng, OFF_PATH_BATCH, BWD_OFF_PATH_N),
         "text": txt,
         "image": np.ones((TRAIN_BATCH, n_img), np.int32),
         "fused": np.concatenate([txt, np.ones((TRAIN_BATCH, n_img), np.int32)], 1),
@@ -1086,6 +1112,7 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
     rows = {"flash_attention_bwd": [], "flash_attention_fwd_drop": [],
             "flash_attention_bwd_drop": []}
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for stream, mask in masks.items():
         b, n = mask.shape
         bh = b * heads
@@ -1118,9 +1145,16 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
                     torch.autograd.grad(out, leaves, do4)
             return run
 
-        library = {"flash_attention_bwd": sdpa(0.0, True),
+        def sdpa_bwd(p: float):
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, dropout_p=p,
+                                                 scale=scale)
+            return lambda: torch.autograd.grad(out, leaves, do4, retain_graph=True)
+
+        library = {"flash_attention_bwd": sdpa_bwd(0.0),
                    "flash_attention_fwd_drop": sdpa(rate, False),
-                   "flash_attention_bwd_drop": sdpa(rate, True)}
+                   "flash_attention_bwd_drop": sdpa_bwd(rate)}
+        library_fwd_bwd = {"flash_attention_bwd": sdpa(0.0, True),
+                           "flash_attention_bwd_drop": sdpa(rate, True)}
         for name, (kern, plain) in calls.items():
             got, want = kern(), plain()
             torch.cuda.synchronize()
@@ -1136,10 +1170,17 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
                     "beyond its tolerance")
             nbytes = ((8 if is_bwd else 4) * bh * n * d * 2 + b * n * 4 + bh * n * 4)
             bound_ms, bound_by = bound(nbytes, (10 if is_bwd else 4) * bh * n * n * d)
+            route = {}
+            if name == "flash_attention_bwd_drop":
+                route = {"route": bwd_route(n)}
+                if route["route"] == "sm90":
+                    route.update(key_width=fwd_sm90_tile(n), grid=fwd_sm90_grid(bh, sms))
             rows[name].append({
-                "stream": stream, "shape": f"BH={bh} N={n} D={d}", "max_abs_err": err,
+                "stream": stream, "shape": f"BH={bh} N={n} D={d}",
+                "on_path": not stream.startswith("off_path"), **route, "max_abs_err": err,
                 "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
                 "library_ms": time_ms(library[name]),
+                **({"library_fwd_bwd_ms": time_ms(library_fwd_bwd[name])} if is_bwd else {}),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             })
     return rows
@@ -1377,7 +1418,7 @@ def main() -> int:
     for name, (secs, log) in logs.items():
         print(f"build: {name} {secs:.1f} s", flush=True)
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "bytes smem" in line:
+            if any(k in line for k in ("registers", "spill", "bytes smem", "Performance Loss")):
                 print(f"  {line.strip()}", flush=True)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
@@ -1530,12 +1571,12 @@ def main() -> int:
     fwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu"
     fwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd_sm90.cu"
     bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
+    bwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd_sm90.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_sm90.cu"
     tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
     q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul.cu"
     qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_sm90.cu"
-    qmlp_drop_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_fwd.cu"
     tpu_q = "exploremultimodal_tpu/ops/quant_pallas.py"
     kernels = [
         entry("flash_attention_fwd", "cuda", fwd_sm90_src, f"{tpu_fa}:152", attn_rows,
@@ -1544,7 +1585,7 @@ def main() -> int:
               train_rows["flash_attention_bwd"], drop0_launches),
         entry("flash_attention_fwd_drop", "cuda", fwd_src, f"{tpu_fa}:209",
               train_rows["flash_attention_fwd_drop"], train_launches),
-        entry("flash_attention_bwd_drop", "cuda", bwd_src, f"{tpu_fa}:237",
+        entry("flash_attention_bwd_drop", "cuda", bwd_sm90_src, f"{tpu_fa}:237",
               train_rows["flash_attention_bwd_drop"], train_launches),
         entry("fused_mlp_fwd", "cuda", mlp_src, f"{tpu_mlp}:56", mlp_rows,
               serve_launches),
@@ -1554,7 +1595,7 @@ def main() -> int:
               w8p_launches),
         entry("w8a8_mlp_fwd", "cuda", qmlp_src, f"{tpu_q}:233", w8_rows["w8a8_mlp_fwd"],
               w8_serve_launches),
-        entry("w8a8_mlp_fwd_drop", "cuda", qmlp_drop_src, f"{tpu_q}:366",
+        entry("w8a8_mlp_fwd_drop", "cuda", qmlp_src, f"{tpu_q}:366",
               w8_rows["w8a8_mlp_fwd_drop"], w8_vqa_launches),
         entry("flash_attention_fwd_long", "cuda",
               "exploremultimodal_torch/ops/csrc/flash_attention_long_sm90.cu",

@@ -1,6 +1,6 @@
 // int8 tensor-core, cp.async, row-quantization and MLP-epilogue helpers
 // shared by the W8A8 kernels of this package (w8a8_matmul.cu,
-// w8a8_mlp_fwd.cu, w8a8_mlp_sm90.cu).
+// w8a8_mlp_sm90.cu).
 //
 // One warp-wide `mma.sync.m16n8k32` (s8 in, s32 accumulate). Fragment
 // layout, with g = lane / 4 and t = lane % 4, in bytes of a 32-wide k slice

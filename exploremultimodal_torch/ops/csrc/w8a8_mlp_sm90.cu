@@ -1,16 +1,24 @@
 // W8A8 whole-MLP forward for Hopper (sm_90a) on int8 wgmma and TMA:
 //   y = dequant(row_quant(h) . qW2^T) + b2,
-//   h = gelu_tanh(dequant(row_quant(x) . qW1^T) + b1)
+//   h = [dropout](gelu_tanh(dequant(row_quant(x) . qW1^T) + b1))
 //
-// Replaces the Pallas kernel `_mlp_kernel`
+// Replaces the Pallas kernels `_mlp_kernel`
 // (exploremultimodal_tpu/ops/quant_pallas.py:233, launched by
-// `_fused_mlp_padded` :262). Same function and rounding, step by step, bit
-// for bit with `w8a8_mlp_fwd_plain`:
+// `_fused_mlp_padded` :262) and, with DROP set, `_mlp_dropout_kernel`
+// (:366, launched by `_fused_mlp_dropout_padded` :399). Same function and
+// rounding, step by step, bit for bit with `w8a8_mlp_fwd_plain` and
+// `w8a8_mlp_fwd_drop_plain`:
 //   - each bf16 row of x gets its own scale s = max(absmax, 1e-8) * (1/127)
 //     and codes rint(x * (1/s)) clipped to +-127 (half to even);
 //   - the int8 product with the weights' codes qW1 (H, 768) is summed
 //     exactly in int32, and h = (float(acc) * sx) * sw1 + b1 in fp32, then
 //     the tanh-form gelu (int8_common.cuh);
+//   - DROP: h is kept where the caller's uint16 bit u >= t and then scaled
+//     by __fmul_rn(h, 65536 / (65536 - t)), else 0, before the row absmax of
+//     h (quant_pallas.py:377-379). The bits arrive as the int16 u - 32768
+//     (the port's storage of a draw), so the kernel flips each top bit. A
+//     dropped h is multiplied by 0 (+-0: the same code 0 and absmax as the
+//     plain version's 0);
 //   - each row of h is quantized over all H columns with its own scale sh;
 //   - the int8 product with qW2 (768, H) is summed in int32, and y =
 //     (float(acc) * sh) * sw2 + b2, rounded once to bf16.
@@ -73,10 +81,13 @@
 //     instead of 40 (0.25 to 0.145 ms on an H100).
 //   - Ragged M: rows past M quantize to zero codes and are not stored; the
 //     grid is whole clusters (a spare CTA stores nothing).
-//   - Room is kept past the barriers for two 64 x 64 int16 dropout-bits
-//     slots, as fused_mlp_sm90.cu keeps them, so that the hidden-dropout
-//     forward (`_mlp_dropout_kernel`, still w8a8_mlp_fwd.cu) can become a
-//     variant of this kernel (`smem_bytes<true>` fits).
+//   - DROP: each chunk's 64 x 64 int16 bits (8 KB: 128-byte rows, read as
+//     bytes through a 2D map over the caller's (M, 2 H) bytes, 128-byte
+//     swizzle) come by TMA into NB slots past the barriers, with their own
+//     full and empty barriers, in both passes, since pass 1's absmax is
+//     taken after the mask. Each CTA loads its own rows and chunks (no
+//     multicast); the producer requests a chunk's bits right after its W1
+//     stage.
 // What holds it back (variants on an H100, M = 15,168, two waves of 0.24
 // ms a tile): pass 1 about 30% (0.34 ms without it), the ring's
 // synchronisation about 23% (0.38 without it). Independent accumulators
@@ -84,6 +95,9 @@
 // software pipelines (a chunk's epilogue or second product beside the next
 // first product; one spilled beside the 192 accumulator registers, the
 // other ran 10% slower) gained nothing.
+// DROP costs about 8% over the kernel without it at M = 6,304 and 7,584
+// (nothing at 1,280); an evict-first L2 hint on the bits would take 3% of
+// it, more bits slots issued further ahead nothing.
 // Left for later: feeding h's codes to the second product from registers
 // (the s8 A fragment does not match the s32 accumulator's layout: a byte
 // permutation).
@@ -111,10 +125,11 @@ constexpr int RING_OFF = X_BYTES;
 constexpr int H_OFF = RING_OFF + NS * STAGE;  // two h code tiles
 constexpr int SCALE_OFF = H_OFF + 2 * BOX;    // x's row scales, 2 + 1 x 64 row absmax of h
 constexpr int BAR_OFF = SCALE_OFF + 4 * BM * 4;
-constexpr int BARS = 2 * NS + 1 + 4;          // NS full, NS empty, the peer's absmax, bits
-constexpr int BITS_OFF = (BAR_OFF + 8 * BARS + 1023) / 1024 * 1024;
+constexpr int NB = 2;           // DROP: bits slots
+constexpr int BARS = 2 * NS + 1 + 2 * NB;     // NS full, NS empty, the peer's absmax, bits
+constexpr int BITS_OFF = (BAR_OFF + 8 * BARS + 1023) / 1024 * 1024;  // DROP: the bits slots
 template <bool DROP>
-constexpr int smem_bytes() { return BITS_OFF + (DROP ? 2 * BOX : 0) + 1024; }
+constexpr int smem_bytes() { return BITS_OFF + (DROP ? NB * BOX : 0) + 1024; }
 constexpr int THREADS = 384;
 static_assert(smem_bytes<true>() <= 232448, "shared memory with the bits slots");
 
@@ -170,14 +185,17 @@ __device__ __forceinline__ void quantize_x(const bf16* __restrict__ x, int m, in
 // CTAs along y split the hidden (CTA y takes chunks y * chunks ..), trade
 // their row absmax of h, and write their int32 sums to part[y] (m, N); CTA
 // 0 writes the row scales of h to shs (m); `w8a8_mlp_sum_splits` finishes.
-template <bool SPLIT>
+// With DROP, `mbits` maps the (m, hidden) int16 bits as (m, 2 hidden)
+// bytes; keep where u >= `thr`, then scale by `keep_scale`.
+template <bool SPLIT, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
-                     const __grid_constant__ CUtensorMap mw2, const bf16* __restrict__ x,
+                     const __grid_constant__ CUtensorMap mw2,
+                     const __grid_constant__ CUtensorMap mbits, const bf16* __restrict__ x,
                      const float* __restrict__ sw1, const float* __restrict__ b1,
                      const float* __restrict__ sw2, const float* __restrict__ b2,
                      bf16* __restrict__ y, int* __restrict__ part, float* __restrict__ shs_out,
-                     int m, int chunks) {
+                     int m, int chunks, int thr, float keep_scale) {
   constexpr int CLM = SPLIT ? 1 : CL;  // CTAs sharing the weight boxes
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -188,6 +206,7 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
   float* sAmax = sSx + BM;       // [warpgroup][row]
   float* sPeer = sAmax + 2 * BM;  // SPLIT: the other CTA's row absmax
   const uint32_t full0 = base + BAR_OFF, empty0 = full0 + 8 * NS, xbar = empty0 + 8 * NS;
+  const uint32_t bfull0 = xbar + 8, bempty0 = bfull0 + 8 * NB;  // DROP only
   const int m0 = blockIdx.x * BM;
   const int cbase = SPLIT ? blockIdx.y * chunks : 0;  // the first chunk of this CTA
   const uint32_t rank = cluster_ctarank();
@@ -199,6 +218,12 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
       mbar_init(empty0 + 8 * s, 2 * CLM);  // each consumer warpgroup of each sharing CTA
     }
     mbar_init(xbar, BM);  // SPLIT: one remote arrival per row
+    if (DROP) {
+      for (int s = 0; s < NB; ++s) {
+        mbar_init(bfull0 + 8 * s, 1);
+        mbar_init(bempty0 + 8 * s, 8);  // each consumer warp, once its reads are done
+      }
+    }
     fence_barrier_init();
   }
   cluster_sync();  // the peers' barriers exist before any multicast or remote arrive
@@ -212,9 +237,12 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
     if (threadIdx.x == 256) {
       const uint16_t mask = ((1u << CLM) - 1) << group0;
       const int b0 = rank - group0;  // this CTA loads boxes b0, b0 + CLM, ...
-      int i = 0;
+      int i = 0, nb = 0;  // stages and bits loads so far
       // the next stage: chunk c's W1 (w1) or W2 codes, once its slot is
-      // free in every sharing CTA; each loads every CLM-th box for all
+      // free in every sharing CTA; each loads every CLM-th box for all.
+      // With DROP a W1 stage brings this CTA's bits of chunk c after it: a
+      // bits slot frees after its chunk's epilogue, a W1 stage after its
+      // product, so the stage does not wait for the slot.
       auto load = [&](bool w1, int c) {
         const int s = i % NS;
         mbar_wait(empty0 + 8 * s, ((i / NS) & 1) ^ 1);
@@ -226,6 +254,14 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
             tma_load_2d_mc(dst + b * BOX, &mw1, full, 128 * b, HC * (cbase + c), mask);
           else  // W2 hidden bytes 64c.., output rows 128 b.. (warpgroup b / 3)
             tma_load_2d_mc(dst + b * BOX, &mw2, full, HC * (cbase + c), 128 * b, mask);
+        }
+        if (DROP && w1) {
+          const int slot = nb % NB;
+          mbar_wait(bempty0 + 8 * slot, ((nb / NB) & 1) ^ 1);
+          ++nb;
+          mbar_arrive_expect_tx(bfull0 + 8 * slot, BOX);
+          tma_load_2d(base + BITS_OFF + slot * BOX, &mbits, bfull0 + 8 * slot,
+                      2 * HC * (cbase + c), m0);
         }
       };
       for (int c = 0; c < chunks; ++c) load(true, c);  // pass 1
@@ -281,17 +317,42 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
     fence_regs(hacc);
   };
   // fn(hh, col, h0, h1) for this thread's hidden values of local chunk c:
-  // h0, h1 at row 16 warp + g + 8 hh, chunk columns col and col + 1
+  // h0, h1 at row 16 warp + g + 8 hh, chunk columns col and col + 1; with
+  // DROP, masked by the bits of the chunk's next slot, which it releases
+  int kb = 0;  // DROP: bits loads consumed
   auto for_hidden = [&](const int (&hacc)[16], int c, auto fn) {
+    const int slot = kb % NB;
+    const unsigned char* bits = smem + BITS_OFF + slot * BOX;
+    if (DROP) mbar_wait(bfull0 + 8 * slot, (kb / NB) & 1);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int col = 32 * w + 8 * j + 2 * q;
       const float2 s = *reinterpret_cast<const float2*>(sw1 + HC * (cbase + c) + col);
       const float2 b = *reinterpret_cast<const float2*>(b1 + HC * (cbase + c) + col);
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        fn(hh, col, i8::hidden(hacc[4 * j + 2 * hh], sx[hh], s.x, b.x),
-           i8::hidden(hacc[4 * j + 2 * hh + 1], sx[hh], s.y, b.y));
+      for (int hh = 0; hh < 2; ++hh) {
+        float h0 = i8::hidden(hacc[4 * j + 2 * hh], sx[hh], s.x, b.x);
+        float h1 = i8::hidden(hacc[4 * j + 2 * hh + 1], sx[hh], s.y, b.y);
+        if (DROP) {
+          // int16 u - 32768 -> uint16 u, two columns per word, 128-byte swizzle
+          const int row = 16 * warp + g + 8 * hh;
+          const uint32_t u = *reinterpret_cast<const uint32_t*>(
+                                 bits + row * 128 + ((((col >> 3) ^ (row & 7)) << 4) |
+                                                     ((col & 7) * 2))) ^
+                             0x80008000u;
+          // a factor of 0 or keep_scale, not a branch: a select of 0 lets the
+          // compiler skip the gelu of dropped values behind a branch, which
+          // cost 35% (h * 0 = +-0 takes code 0 and adds 0 to the absmax)
+          h0 = __fmul_rn(h0, (u & 0xFFFFu) >= static_cast<uint32_t>(thr) ? keep_scale : 0.f);
+          h1 = __fmul_rn(h1, (u >> 16) >= static_cast<uint32_t>(thr) ? keep_scale : 0.f);
+        }
+        fn(hh, col, h0, h1);
+      }
+    }
+    if (DROP) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bempty0 + 8 * slot);
+      ++kb;
     }
   };
 
@@ -431,12 +492,13 @@ __global__ void w8a8_mlp_sum_splits(const int4* __restrict__ part,
   *reinterpret_cast<uint2*>(y + i * 4) = v;
 }
 
-template <bool SPLIT>
-int launch(const CUtensorMap& w1, const CUtensorMap& w2, const void* x, const void* sw1,
-           const void* b1, const void* sw2, const void* b2, void* y, void* part, void* shs,
-           int m, int chunks, int grid, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<false>();
-  cudaError_t err = cudaFuncSetAttribute(w8a8_mlp_sm90_kernel<SPLIT>,
+template <bool SPLIT, bool DROP>
+int launch(const CUtensorMap& w1, const CUtensorMap& w2, const CUtensorMap& bits, const void* x,
+           const void* sw1, const void* b1, const void* sw2, const void* b2, void* y, void* part,
+           void* shs, int m, int chunks, int grid, int thr, float keep_scale,
+           cudaStream_t stream) {
+  constexpr int smem = smem_bytes<DROP>();
+  cudaError_t err = cudaFuncSetAttribute(w8a8_mlp_sm90_kernel<SPLIT, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -451,11 +513,12 @@ int launch(const CUtensorMap& w1, const CUtensorMap& w2, const void* x, const vo
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, w8a8_mlp_sm90_kernel<SPLIT>, w1, w2,
+  err = cudaLaunchKernelEx(&cfg, w8a8_mlp_sm90_kernel<SPLIT, DROP>, w1, w2, bits,
                            static_cast<const bf16*>(x), static_cast<const float*>(sw1),
                            static_cast<const float*>(b1), static_cast<const float*>(sw2),
                            static_cast<const float*>(b2), static_cast<bf16*>(y),
-                           static_cast<int*>(part), static_cast<float*>(shs), m, chunks);
+                           static_cast<int*>(part), static_cast<float*>(shs), m, chunks, thr,
+                           keep_scale);
   if (err != cudaSuccess || !SPLIT) return static_cast<int>(err);
   const size_t n4 = (size_t)m * (N / 4);
   w8a8_mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
@@ -468,8 +531,9 @@ int launch(const CUtensorMap& w1, const CUtensorMap& w2, const void* x, const vo
 
 // Encodes into `out` (128 bytes, host memory) the tensor map of a row-major
 // int8 matrix (rows, cols) at `base` in boxes of box_cols x box_rows bytes
-// with the given swizzle (bytes): (128, 64, 128) for qW1, (64, 128, 64) for
-// qW2. Returns a cudaError_t.
+// with the given swizzle (bytes): (128, 64, 128) for qW1 and for the
+// dropout bits (an int16 (M, H) matrix read as (M, 2 H) bytes), (64, 128,
+// 64) for qW2. Returns a cudaError_t.
 extern "C" int w8a8_mlp_sm90_encode(void* out, const void* base, int rows, int cols,
                                     int box_cols, int box_rows, int swizzle) {
   const bool w1 = box_cols == 128 && box_rows == 64 && swizzle == 128;
@@ -483,8 +547,39 @@ extern "C" int w8a8_mlp_sm90_encode(void* out, const void* base, int rows, int c
                         w1 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
-// The kernel's dynamic shared memory.
-extern "C" int w8a8_mlp_sm90_smem() { return smem_bytes<false>(); }
+// The kernel's dynamic shared memory, with the bits slots where `drop`.
+extern "C" int w8a8_mlp_sm90_smem(int drop) {
+  return drop ? smem_bytes<true>() : smem_bytes<false>();
+}
+
+namespace {
+
+// checks the launch's shape and runs the kernel of `splits` (DROP with the
+// bits' map `mbits`, else none)
+template <bool DROP>
+int run(const void* mw1, const void* mw2, const void* mbits, const void* x, const void* sw1,
+        const void* b1, const void* sw2, const void* b2, void* y, void* part, void* shs, int m,
+        int hdim, int grid, int splits, int thr, float keep_scale, void* stream) {
+  const int tiles = (m + BM - 1) / BM;
+  const bool ok =
+      m > 0 && hdim > 0 && (splits == 1 || splits == 2) && hdim % (HC * splits) == 0 &&
+      (!DROP || (thr > 0 && thr < 65536)) &&
+      (splits == 1 ? grid % CL == 0 && grid >= tiles && grid <= tiles + 1
+                   : grid == tiles && part != nullptr && shs != nullptr);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap w1, w2, bits;
+  memcpy(&w1, mw1, sizeof(w1));
+  memcpy(&w2, mw2, sizeof(w2));
+  memcpy(&bits, DROP ? mbits : mw1, sizeof(bits));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int chunks = hdim / HC / splits;
+  return splits == 1 ? launch<false, DROP>(w1, w2, bits, x, sw1, b1, sw2, b2, y, part, shs, m,
+                                           chunks, grid, thr, keep_scale, st)
+                     : launch<true, DROP>(w1, w2, bits, x, sw1, b1, sw2, b2, y, part, shs, m,
+                                          chunks, grid, thr, keep_scale, st);
+}
+
+}  // namespace
 
 // mw1, mw2: the maps of qW1 (hidden, 768) and qW2 (768, hidden) int8 (from
 // `w8a8_mlp_sm90_encode`, host memory); x (m, 768) bf16; sw1, b1 (hidden)
@@ -497,18 +592,20 @@ extern "C" int w8a8_mlp_sm90(const void* mw1, const void* mw2, const void* x, co
                              const void* b1, const void* sw2, const void* b2, void* y,
                              void* part, void* shs, int m, int hdim, int grid, int splits,
                              void* stream) {
-  const int tiles = (m + BM - 1) / BM;
-  const bool ok =
-      m > 0 && hdim > 0 && (splits == 1 || splits == 2) && hdim % (HC * splits) == 0 &&
-      (splits == 1 ? grid % CL == 0 && grid >= tiles && grid <= tiles + 1
-                   : grid == tiles && part != nullptr && shs != nullptr);
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap w1, w2;
-  memcpy(&w1, mw1, sizeof(w1));
-  memcpy(&w2, mw2, sizeof(w2));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = hdim / HC / splits;
-  return splits == 1
-             ? launch<false>(w1, w2, x, sw1, b1, sw2, b2, y, part, shs, m, chunks, grid, st)
-             : launch<true>(w1, w2, x, sw1, b1, sw2, b2, y, part, shs, m, chunks, grid, st);
+  return run<false>(mw1, mw2, nullptr, x, sw1, b1, sw2, b2, y, part, shs, m, hdim, grid, splits,
+                    0, 0.f, stream);
+}
+
+// As w8a8_mlp_sm90 with the hidden dropout of `_mlp_dropout_kernel`: mbits
+// maps the (m, hidden) int16 bits (u - 32768 for uint16 draws u) as (m, 2
+// hidden) bytes (`w8a8_mlp_sm90_encode` with the qW1 box); an element of
+// the hidden is kept where u >= threshold (0 < threshold < 65536) and then
+// scaled by keep_scale = 65536 / (65536 - threshold).
+extern "C" int w8a8_mlp_sm90_drop(const void* mw1, const void* mw2, const void* mbits,
+                                  const void* x, const void* sw1, const void* b1,
+                                  const void* sw2, const void* b2, void* y, void* part,
+                                  void* shs, int m, int hdim, int grid, int splits,
+                                  int threshold, float keep_scale, void* stream) {
+  return run<true>(mw1, mw2, mbits, x, sw1, b1, sw2, b2, y, part, shs, m, hdim, grid, splits,
+                   threshold, keep_scale, stream);
 }

@@ -10,8 +10,10 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
 The forward kernels are `csrc/flash_attention_fwd_sm90.cu` (wgmma and TMA,
 N <= SM90_FWD_MAX_N), `csrc/flash_attention_fwd.cu` (mma.sync: the forward
 at longer N and the dropout forward) and, for the long forward,
-`csrc/flash_attention_long_sm90.cu` (wgmma and TMA); the backward kernels
-are `csrc/flash_attention_bwd.cu`. Each wrapper runs its kernel on
+`csrc/flash_attention_long_sm90.cu` (wgmma and TMA); the dropout backward
+is `csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, N <= SM90_BWD_MAX_N),
+and the backward without dropout and the dropout backward at longer N are
+`csrc/flash_attention_bwd.cu` (mma.sync). Each wrapper runs its kernel on
 CUDA tensors and its plain PyTorch version on CPU tensors; there is no other
 fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
@@ -50,6 +52,16 @@ SM90_FWD_MAX_N = 256
 SM90_FWD_WIDTH_STEP = 16
 SM90_FWD_BOX = 64
 SM90_FWD_MAX_SLOTS = 4
+# the dropout backward's route: up to this N the sm90 kernels, which hold a
+# head's B-side pair in shared memory (csrc/flash_attention_bwd_sm90.cu);
+# past it, up to LONG_SEQ_THRESHOLD, the mma.sync kernels
+# (csrc/flash_attention_bwd.cu)
+SM90_BWD_MAX_N = 256
+# the sm90 backward's two kernels (roles): "dq" keeps queries as M and
+# loads K and V per head, Q, dO and O per 64-row tile; "dkdv" keeps keys as
+# M and loads Q and dO per head (with lse and delta), K and V per tile
+SM90_BWD_ROLES = {"dq": (1, 3), "dkdv": (2, 2)}  # (column vectors, tile boxes)
+_BAR_BYTES = 8 * 4 * SM90_FWD_MAX_SLOTS
 # q/k/v tensor maps of the sm90 kernels by (kernel, `tensor_map_key`),
 # emptied at the cap
 _MAPS: dict = {}
@@ -64,6 +76,7 @@ _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
 _FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 _BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
 _BWD_DROP_ARGS = [_P] * 12 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_SM90_DROP_ARGS = [_P] * 12 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
 
 
 # ------------------------------------------------------------- dropout hash
@@ -294,6 +307,29 @@ def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float):
     return out, lse
 
 
+def bwd_route(n: int) -> str:
+    """The dropout backward's kernels for rows of N keys: "sm90" up to
+    SM90_BWD_MAX_N, "mma_sync" past it."""
+    return "sm90" if n <= SM90_BWD_MAX_N else "mma_sync"
+
+
+def bwd_sm90_layout(nt: int, role: str) -> dict:
+    """The sm90 backward's shared memory at key width nt for `role` ("dq"
+    or "dkdv"), as its source lays it out: head slots of the B-side pair
+    (2 x nt rounded up to 64 rows of 128 bytes) and their column vectors,
+    tile stages of 64-row boxes; the stages take what leaves room for two
+    head slots (at most SM90_FWD_MAX_SLOTS), the slots what is left."""
+    vectors, boxes = SM90_BWD_ROLES[role]
+    ntb = -(-nt // SM90_FWD_BOX) * SM90_FWD_BOX
+    head, vec = 2 * ntb * 2 * HEAD_DIM, vectors * ntb * 4
+    tile = boxes * SM90_FWD_BOX * 2 * HEAD_DIM
+    room = SMEM_LIMIT - 1024 - _BAR_BYTES
+    stages = min(SM90_FWD_MAX_SLOTS, (room - 2 * (head + vec)) // tile)
+    slots = min(SM90_FWD_MAX_SLOTS, (room - stages * tile) // (head + vec))
+    smem = slots * (head + vec) + stages * tile + _BAR_BYTES + 1024
+    return {"head_slots": slots, "tile_stages": stages, "smem": smem}
+
+
 def long_grid(bh: int, n: int) -> tuple[int, int]:
     """The long kernel's grid: (query tiles of LONG_TILE rows, BH)."""
     return -(-n // LONG_TILE), bh
@@ -308,14 +344,16 @@ def long_map_extents(bh: int, n: int):
     return (HEAD_DIM, n, bh), (row, row * n), (HEAD_DIM, LONG_TILE, 1)
 
 
-# the sm90 kernels' q/k/v maps: source, and the extents for (BH, N)
+# the sm90 kernels' q/k/v maps: source, and the extents for (BH, N); the
+# backward's q, k, v, o and do take the short forward's boxes
 _MAP_KINDS = {"long": ("flash_attention_long_sm90", long_map_extents),
-              "short": ("flash_attention_fwd_sm90", fwd_sm90_map_extents)}
+              "short": ("flash_attention_fwd_sm90", fwd_sm90_map_extents),
+              "bwd": ("flash_attention_bwd_sm90", fwd_sm90_map_extents)}
 
 
 def _map(kind: str, t: torch.Tensor):
-    """The cached 3D tensor map of q, k or v `t` for the sm90 kernel `kind`
-    ("long" or "short"), encoded on a miss."""
+    """The cached 3D tensor map of q, k, v (o, do) `t` for the sm90 kernel
+    `kind` ("long", "short" or "bwd"), encoded on a miss."""
     key = (kind, *tensor_map_key(t))
     buf = _MAPS.get(key)
     if buf is None:
@@ -406,24 +444,49 @@ def flash_attention_bwd(qf, kf, vf, key_bias, of, dof, lse, scale: float):
 
 def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
                              scale: float, rate: float):
-    """As `flash_attention_bwd_drop_plain`: the kernels on CUDA tensors."""
+    """As `flash_attention_bwd_drop_plain`: the kernels of `bwd_route` on
+    CUDA tensors."""
     if qf.device.type == "cpu":
         return flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of,
                                               dof, lse, scale, rate)
     _check("flash_attention_bwd_drop", key_bias, qf, kf, vf, of, dof, lse=lse,
            seed=seed)
     bh, n, _ = qf.shape
+    if bwd_route(n) == "sm90":
+        dq, dk, dv = _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale, rate)
+    else:
+        dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+        delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+        fn = _build.load("flash_attention_bwd", _BWD_DROP_ARGS,
+                         "flash_attention_bwd_drop")
+        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+                seed.data_ptr(), of.data_ptr(), dof.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+                bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
+                dropout_scale(rate), _stream(qf))
+        _build.check("flash_attention_bwd_drop", rc)
+    flash_attention_bwd_drop.launches += 1
+    return dq, dk, dv
+
+
+def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
+                     rate: float):
+    """Run the sm90 dropout backward (its dq kernel, then its dk/dv kernel)
+    on checked inputs: the q/k/v/o/do maps from the cache, the key width of
+    `fwd_sm90_tile`, the persistent grid of `fwd_sm90_grid`."""
+    bh, n, _ = qf.shape
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
     delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-    fn = _build.load("flash_attention_bwd", _BWD_DROP_ARGS,
-                     "flash_attention_bwd_drop")
-    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-            seed.data_ptr(), of.data_ptr(), dof.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-            bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
-            dropout_scale(rate), _stream(qf))
+    # the buffers themselves, not their addresses: the list keeps each one
+    # alive through the call even if a later lookup empties the cache
+    maps = [_map("bwd", t) for t in (qf, kf, vf, of, dof)]
+    fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_DROP_ARGS,
+                     "flash_attention_bwd_sm90_drop")
+    rc = fn(*maps, key_bias.data_ptr(), seed.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, bh // key_bias.shape[0], n,
+            fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
+            dropout_threshold(rate), dropout_scale(rate), _stream(qf))
     _build.check("flash_attention_bwd_drop", rc)
-    flash_attention_bwd_drop.launches += 1
     return dq, dk, dv
 
 

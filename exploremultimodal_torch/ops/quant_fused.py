@@ -10,8 +10,8 @@ Counterpart of `exploremultimodal_tpu/ops/quant_pallas.py`:
   - `w8a8_mlp_fwd_drop`  `_mlp_dropout_kernel` (row 10): with hidden dropout
   - `w8a8_mlp`           `fused_w8a8_mlp` / `fused_w8a8_mlp_dropout`, with the
                          backward of `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`
-Row 8 is `csrc/w8a8_matmul.cu`, row 9 `csrc/w8a8_mlp_sm90.cu` (int8 wgmma and
-TMA), row 10 `csrc/w8a8_mlp_fwd.cu` (mma.sync). Weights
+Row 8 is `csrc/w8a8_matmul.cu`, rows 9 and 10 `csrc/w8a8_mlp_sm90.cu` (int8
+wgmma and TMA; row 10 its `DROP` variant). Weights
 are in nn.Linear's layout, (out, in), and so are their int8 codes, with one
 fp32 scale per output channel. The plain versions take each int8 product
 exactly, as a float64 product of the codes (every sum is an integer below
@@ -43,19 +43,22 @@ HIDDEN_CHUNK = 64  # the MLP kernels walk the hidden in chunks this wide
 # 768) in K-major 128 x 64 boxes, qW2 (768, H) in 64 x 128 boxes (a chunk's
 # 64 hidden bytes a row); x's codes (64 x 768), a ring of 2 stages of six
 # boxes (a chunk of W1 or of W2), two h code tiles, 4 x 64 row scales, the
-# barriers, then (with dropout) two bits slots and 1024 bytes of slack
+# barriers, then (with dropout) MLP_BITS_SLOTS bits slots and 1024 bytes of
+# slack. The int16 dropout bits (M, H) are read as (M, 2 H) bytes in qW1's
+# box: 64 rows of a chunk's 64 values
 MLP_ROW_TILE, MLP_CLUSTER = 64, 2
-MLP_BOXES = {"w1": (128, 64, 128), "w2": (64, 128, 64)}
-MLP_RING_STAGES, MLP_STAGE_BOXES, MLP_BOX_BYTES = 2, 6, 8192
-# the row-9 weight maps by (operand, `tensor_map_key`), emptied at the cap
+MLP_BOXES = {"w1": (128, 64, 128), "w2": (64, 128, 64), "bits": (128, 64, 128)}
+MLP_RING_STAGES, MLP_STAGE_BOXES, MLP_BOX_BYTES, MLP_BITS_SLOTS = 2, 6, 8192, 2
+# the row-9/10 weight and bits maps by (operand, `tensor_map_key`), emptied
+# at the cap
 _MAPS: dict = {}
 _MAPS_CAP = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MATMUL_ARGTYPES = [_P] * 4 + [_I] * 2 + [_P]
 _MLP_SM90_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
+_MLP_SM90_DROP_ARGTYPES = [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 5
-_MLP_DROP_ARGTYPES = [_P] * 9 + [_I] * 3 + [ctypes.c_float, _P]
 
 
 def quantize_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -200,35 +203,37 @@ def mlp_grid(m: int, splits: int = 1) -> int:
 
 
 def mlp_map_extents(rows: int, cols: int, operand: str):
-    """The 2D tensor map of a row-major int8 (rows, cols) matrix of codes for
-    the row-9 kernel, `operand` "w1" (qW1) or "w2" (qW2): dims innermost
-    first (cols, rows), the row stride in bytes, the box (bytes a row,
-    rows) and the swizzle in bytes."""
+    """The 2D tensor map of a row-major (rows, cols) matrix of bytes for the
+    row-9/10 kernel, `operand` "w1" (qW1), "w2" (qW2) or "bits" (the int16
+    dropout bits, cols = 2 H bytes): dims innermost first (cols, rows), the
+    row stride in bytes, the box (bytes a row, rows) and the swizzle in
+    bytes."""
     box_cols, box_rows, swizzle = MLP_BOXES[operand]
     return (cols, rows), (cols,), (box_cols, box_rows), swizzle
 
 
 def mlp_smem(drop: bool = False) -> int:
-    """The row-9 kernel's dynamic shared memory; with `drop`, that of the
-    layout with the two bits slots of a dropout variant."""
+    """The row-9 kernel's dynamic shared memory; with `drop`, that of its
+    DROP variant (row 10), with the two bits slots."""
     box = MLP_BOX_BYTES
     x_codes = IN_DIM // 128 * box
     before_bars = (x_codes + MLP_RING_STAGES * MLP_STAGE_BOXES * box + 2 * box
                    + 4 * MLP_ROW_TILE * 4)
-    bits_off = -(-(before_bars + 8 * (2 * MLP_RING_STAGES + 5)) // 1024) * 1024
-    return bits_off + (2 * box if drop else 0) + 1024
+    bars = 2 * MLP_RING_STAGES + 1 + 2 * MLP_BITS_SLOTS
+    bits_off = -(-(before_bars + 8 * bars) // 1024) * 1024
+    return bits_off + (MLP_BITS_SLOTS * box if drop else 0) + 1024
 
 
 def _mlp_map(t: torch.Tensor, operand: str):
-    """The cached tensor map of int8 codes `t` as `operand` ("w1" or "w2"),
-    encoded on a miss."""
+    """The cached tensor map of `t` as `operand` ("w1" or "w2": int8 codes;
+    "bits": the int16 bits, as bytes), encoded on a miss."""
     key = (operand, *tensor_map_key(t))
     buf = _MAPS.get(key)
     if buf is None:
         if len(_MAPS) >= _MAPS_CAP:
             _MAPS.clear()
         (cols, rows), _, (box_cols, box_rows), swizzle = mlp_map_extents(
-            t.shape[0], t.shape[1], operand)
+            t.shape[0], t.shape[1] * t.element_size(), operand)
         buf = ctypes.create_string_buffer(128)
         fn = _build.load("w8a8_mlp_sm90", _ENCODE_ARGTYPES, "w8a8_mlp_sm90_encode")
         _build.check("w8a8_mlp_sm90_encode",
@@ -238,11 +243,14 @@ def _mlp_map(t: torch.Tensor, operand: str):
     return buf
 
 
-def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2):
-    """Check the inputs and run the row-9 kernel: the weight maps from the
-    cache, the hidden split of `mlp_splits` with its scratch, the grid of
-    `mlp_grid`."""
-    m, hdim = _check_mlp("w8a8_mlp_fwd", x, qw1, sw1, b1, qw2, sw2, b2)
+def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2, bits=None, threshold: int = 0):
+    """Check the inputs and run the row-9 kernel, or with `bits` its DROP
+    variant (row 10): the weight (and bits) maps from the cache, the hidden
+    split of `mlp_splits` with its scratch, the grid of `mlp_grid`."""
+    name = "w8a8_mlp_fwd" if bits is None else "w8a8_mlp_fwd_drop"
+    m, hdim = _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits)
+    if bits is not None:
+        _require(name, 0 < threshold < 65536, f"threshold {threshold} not in (0, 65536)")
     dev = x.device
     y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=dev)
     splits = mlp_splits(m, hdim, _sm_count(dev))
@@ -253,12 +261,17 @@ def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2):
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_mlp_map(qw1, "w1"), _mlp_map(qw2, "w2")]
-    fn = _build.load("w8a8_mlp_sm90", _MLP_SM90_ARGTYPES)
-    rc = fn(*maps, x.data_ptr(), sw1.data_ptr(), b1.data_ptr(), sw2.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), None if part is None else part.data_ptr(),
-            None if shs is None else shs.data_ptr(), m, hdim, mlp_grid(m, splits), splits,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _build.check("w8a8_mlp_fwd", rc)
+    args = (x.data_ptr(), sw1.data_ptr(), b1.data_ptr(), sw2.data_ptr(), b2.data_ptr(),
+            y.data_ptr(), None if part is None else part.data_ptr(),
+            None if shs is None else shs.data_ptr(), m, hdim, mlp_grid(m, splits), splits)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if bits is None:
+        rc = _build.load("w8a8_mlp_sm90", _MLP_SM90_ARGTYPES)(*maps, *args, stream)
+    else:
+        maps.append(_mlp_map(bits, "bits"))
+        fn = _build.load("w8a8_mlp_sm90", _MLP_SM90_DROP_ARGTYPES, "w8a8_mlp_sm90_drop")
+        rc = fn(*maps, *args, threshold, keep_scale16(threshold), stream)
+    _build.check(name, rc)
     return y
 
 
@@ -273,20 +286,11 @@ def w8a8_mlp_fwd(x, qw1, sw1, b1, qw2, sw2, b2):
 
 
 def w8a8_mlp_fwd_drop(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold: int):
-    """As `w8a8_mlp_fwd_drop_plain`: the row-10 kernel on CUDA tensors (bits
-    int16 (M, H)), the plain version on CPU tensors."""
+    """As `w8a8_mlp_fwd_drop_plain`: the row-9 kernel's DROP variant on
+    CUDA tensors (bits int16 (M, H)), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return w8a8_mlp_fwd_drop_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold)
-    m, hdim = _check_mlp("w8a8_mlp_fwd_drop", x, qw1, sw1, b1, qw2, sw2, b2, bits)
-    _require("w8a8_mlp_fwd_drop", 0 < threshold < 65536,
-             f"threshold {threshold} not in (0, 65536)")
-    y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=x.device)
-    fn = _build.load("w8a8_mlp_fwd", _MLP_DROP_ARGTYPES, "w8a8_mlp_fwd_drop")
-    rc = fn(x.data_ptr(), qw1.data_ptr(), sw1.data_ptr(), b1.data_ptr(),
-            qw2.data_ptr(), sw2.data_ptr(), b2.data_ptr(), bits.data_ptr(),
-            y.data_ptr(), m, hdim, threshold, keep_scale16(threshold),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("w8a8_mlp_fwd_drop", rc)
+    y = _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold)
     w8a8_mlp_fwd_drop.launches += 1
     return y
 

@@ -1,0 +1,126 @@
+#!/usr/bin/env python3
+"""Time rows 4 and 10 of two checkouts of the port on one GPU, in turns.
+
+    python3 scripts/torch_compare_parent.py PARENT_DIR
+
+PARENT_DIR is another checkout of the repository (e.g. a `git archive` of
+the parent commit unpacked into a gitignored directory). The script runs
+one worker process per turn, in the order parent, this tree, this tree,
+parent; each worker imports `exploremultimodal_torch` from its own tree
+(building its kernels there), times that tree's `flash_attention_bwd_drop`
+(row 4) at the pretrain_mum step's four shapes (text 40, image 197 and
+fused 237 tokens at batch 32, ITM's fused pair rows at batch 96; 12 heads,
+head dim 64, attention dropout 0.1) and `w8a8_mlp_fwd_drop` (row 10) at the
+finetune_vqa step's three FFN shapes (M = 1,280, 6,304, 7,584 at batch 32;
+threshold 6554) on the same seeded inputs, and prints one JSON line. The
+times are device times (CUDA events around 20 calls queued behind a
+device-side sleep, as `chip_smoke.time_ms`). Prints the card's name and
+power limit first and a summary line last. Needs a CUDA device and nvcc;
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+HEADS, HEAD_DIM, RATE, TEXT_LEN, IMAGE_LEN = 12, 64, 0.1, 40, 197
+ATTN_SHAPES = {"text": (32, TEXT_LEN), "image": (32, IMAGE_LEN),
+               "fused": (32, TEXT_LEN + IMAGE_LEN), "itm": (96, TEXT_LEN + IMAGE_LEN)}
+MLP_ROWS, MLP_THRESHOLD, WIDTH, HIDDEN = (1280, 6304, 7584), 6554, 768, 3072
+QUEUE_CYCLES = 40_000_000
+
+
+def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def worker(tree: Path) -> dict:
+    sys.path.insert(0, str(tree))
+    import numpy as np
+    import torch
+
+    from exploremultimodal_torch.ops import flash_attention as fa
+    from exploremultimodal_torch.ops import quant_fused as qf
+
+    assert Path(fa.__file__).resolve().is_relative_to(tree.resolve()), fa.__file__
+    dev = torch.device("cuda")
+    out = {"tree": str(tree), "flash_attention_bwd_drop": {}, "w8a8_mlp_fwd_drop": {}}
+    rng = np.random.default_rng(1)
+    seed = torch.tensor([1234], dtype=torch.int32, device=dev)
+    for name, (b, n) in ATTN_SHAPES.items():
+        g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
+        q, k, v, do = (torch.randn((b * HEADS, n, HEAD_DIM), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        real = rng.integers(n // 2, n + 1, b)
+        kb = torch.from_numpy(np.where(np.arange(n)[None, :] < real[:, None], 0.0, -1e30)
+                              .astype(np.float32)).to(dev)
+        o, lse = fa.flash_attention_fwd_drop_plain(q, k, v, kb, seed, HEAD_DIM ** -0.5, RATE)
+        out["flash_attention_bwd_drop"][name] = time_ms(torch, lambda: fa.flash_attention_bwd_drop(
+            q, k, v, kb, seed, o, do, lse, HEAD_DIM ** -0.5, RATE))
+        del q, k, v, do, o, lse
+    g = torch.Generator(device=dev).manual_seed(6)
+    w1 = torch.randn((HIDDEN, WIDTH), generator=g, device=dev) * 0.02
+    w2 = torch.randn((WIDTH, HIDDEN), generator=g, device=dev) * 0.02
+    b1 = torch.randn(HIDDEN, generator=g, device=dev) * 0.02
+    b2 = torch.randn(WIDTH, generator=g, device=dev) * 0.02
+    args = (*qf.quantize_weights(w1), b1, *qf.quantize_weights(w2), b2)
+    for m in MLP_ROWS:
+        x = torch.randn((m, WIDTH), generator=g, device=dev).to(torch.bfloat16)
+        bits = torch.randint(-32768, 32768, (m, HIDDEN), dtype=torch.int16, generator=g,
+                             device=dev)
+        out["w8a8_mlp_fwd_drop"][f"M={m}"] = time_ms(torch, lambda: qf.w8a8_mlp_fwd_drop(
+            x, *args, bits, MLP_THRESHOLD))
+    return out
+
+
+def main(argv: list[str]) -> int:
+    if len(argv) == 2 and argv[0] == "--worker":
+        print(json.dumps(worker(Path(argv[1]))), flush=True)
+        return 0
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_compare_parent: no CUDA device", file=sys.stderr)
+        return 1
+    parent = Path(argv[0]).resolve()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True, capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    runs = []
+    for label, tree in (("parent", parent), ("change", HERE), ("change", HERE),
+                        ("parent", parent)):
+        res = subprocess.run([sys.executable, __file__, "--worker", str(tree)], cwd=tree,
+                             check=True, capture_output=True, text=True)
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        print(json.dumps({"run": label, **line}), flush=True)
+        runs.append((label, line))
+    summary = {}
+    for kernel in ("flash_attention_bwd_drop", "w8a8_mlp_fwd_drop"):
+        for shape in runs[0][1][kernel]:
+            summary[f"{kernel} {shape}"] = {
+                label: [r[kernel][shape] for lab, r in runs if lab == label]
+                for label in ("parent", "change")}
+    print(json.dumps({"ms_parent_change_change_parent": summary}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

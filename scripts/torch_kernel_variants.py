@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """Time variants of the port's wgmma/TMA kernels side by side on one GPU.
 
-    python3 scripts/torch_kernel_variants.py [scripts/torch_kernel_variants.json]
+    python3 scripts/torch_kernel_variants.py [spec.json [kind ...]]
 
 Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
-textual edits applied (the JSON maps a name to {"kind": "mlp" | "mlp_drop"
-| "attn" | "attn_long" | "w8a8_mlp" | "dvae", "src": file, "edits": [[old,
-new], ...]}; every
-`old` must occur). All variants are compiled at once with the package's
+textual edits applied (the JSON, by default
+scripts/torch_kernel_variants.json, maps a name to {"kind": "mlp" |
+"mlp_drop" | "attn" | "attn_long" | "attn_bwd" | "w8a8_mlp" |
+"w8a8_mlp_drop" | "dvae", "src": file, "edits": [[old, new], ...]}; every
+`old` must occur); kinds named after the file keep only their variants.
+All variants are compiled at once with the package's
 nvcc flags into a temporary directory, then each is swapped in for the
 package's kernel and timed, in the order A B ... B A, at the shapes the
 main paths give it: the bf16 fused MLP (row 6) at the serving M, its
 dropout forward (row 7) at the finetune_vqa M, the short flash forward (row
 1) at the batch-64 request's three streams, the long flash forward (row 5)
-at the 1024^2 request's two streams, the W8A8 MLP (row 9) at the int8
-request's M, the dVAE block (row 11) at the five blocks the tokenizer
-fuses. A variant whose output leaves the kernel's
+at the 1024^2 request's two streams, the dropout backward (row 4) at the
+pretrain_mum step's four shapes, the W8A8 MLP (row 9) at the int8
+request's M and its dropout forward (row 10) at the int8 finetune_vqa M,
+the dVAE block (row 11) at the five blocks the tokenizer fuses. A variant whose output leaves the kernel's
 tolerance against the plain version is marked BAD (variants that skip work
 are expected to be). Prints one JSON line per shape, with the card's name
 and power limit first. Needs a CUDA device and nvcc; imports nothing of JAX.
@@ -50,6 +53,8 @@ from exploremultimodal_torch.ops.dvae_conv import (  # noqa: E402
 )
 from exploremultimodal_torch.ops.attention import key_padding_bias  # noqa: E402
 from exploremultimodal_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bwd_drop,
+    flash_attention_bwd_drop_plain,
     flash_attention_fwd,
     flash_attention_fwd_long,
     flash_attention_fwd_long_plain,
@@ -63,6 +68,8 @@ from exploremultimodal_torch.ops.mlp_fused import (  # noqa: E402
 )
 from exploremultimodal_torch.ops.quant_fused import (  # noqa: E402
     w8a8_mlp_fwd,
+    w8a8_mlp_fwd_drop,
+    w8a8_mlp_fwd_drop_plain,
     w8a8_mlp_fwd_plain,
 )
 
@@ -71,7 +78,9 @@ SYMBOL = {"mlp": ("fused_mlp_sm90", mlp_fused._SM90_ARGTYPES),
           "mlp_drop": ("fused_mlp_sm90_drop", mlp_fused._DROP_ARGTYPES),
           "attn": ("flash_attention_fwd_sm90", flash_attention._FWD_SM90_ARGS),
           "attn_long": ("flash_attention_long_sm90", flash_attention._FWD_LONG_ARGS),
+          "attn_bwd": ("flash_attention_bwd_sm90_drop", flash_attention._BWD_SM90_DROP_ARGS),
           "w8a8_mlp": ("w8a8_mlp_sm90", quant_fused._MLP_SM90_ARGTYPES),
+          "w8a8_mlp_drop": ("w8a8_mlp_sm90_drop", quant_fused._MLP_SM90_DROP_ARGTYPES),
           "dvae": ("dvae_block", dvae_conv._ARGS)}
 
 
@@ -119,6 +128,8 @@ def main(argv: list[str]) -> int:
         return 1
     path = Path(argv[0]) if argv else Path(__file__).with_suffix(".json")
     spec = json.loads(path.read_text())
+    if argv[1:]:
+        spec = {n: v for n, v in spec.items() if v["kind"] in argv[1:]}
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
@@ -129,6 +140,8 @@ def main(argv: list[str]) -> int:
     attn = [n for n in spec if spec[n]["kind"] == "attn"]
     attn_long = [n for n in spec if spec[n]["kind"] == "attn_long"]
     w8a8_mlp = [n for n in spec if spec[n]["kind"] == "w8a8_mlp"]
+    attn_bwd = [n for n in spec if spec[n]["kind"] == "attn_bwd"]
+    w8a8_mlp_drop = [n for n in spec if spec[n]["kind"] == "w8a8_mlp_drop"]
     dvae = [n for n in spec if spec[n]["kind"] == "dvae"]
     if mlp:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.SERVE_OVERRIDES))
@@ -186,6 +199,54 @@ def main(argv: list[str]) -> int:
                           lambda: cs.within(w8a8_mlp_fwd(x, *args), ref, cs.W8A8_ATOL,
                                             cs.W8A8_RTOL))
             print(json.dumps({"kernel": "w8a8_mlp_fwd", "M": m, "ms": res}), flush=True)
+    if attn_bwd:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.TRAIN_OVERRIDES))
+        heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+        rate, scale = cfg.attn_drop_rate, d ** -0.5
+        n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+        rng = np.random.default_rng(1)
+        txt = cs.synthetic_text_mask(rng, cs.TRAIN_BATCH, cfg.max_text_len)
+        txt3 = np.concatenate([txt, txt, txt[rng.permutation(cs.TRAIN_BATCH)]])
+        masks = {"text": txt, "image": np.ones((cs.TRAIN_BATCH, n_img), np.int32),
+                 "fused": np.concatenate([txt, np.ones((cs.TRAIN_BATCH, n_img), np.int32)], 1),
+                 "itm": np.concatenate([txt3, np.ones((3 * cs.TRAIN_BATCH, n_img), np.int32)],
+                                       1)}
+        seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
+        for stream, mask in masks.items():
+            b, n = mask.shape
+            g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
+            q, k, v, do = (torch.randn((b * heads, n, d), generator=g, device=dev)
+                           .to(torch.bfloat16) for _ in range(4))
+            kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(b, n).contiguous()
+            o, lse = cs.flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)
+            ref = flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale, rate)
+
+            def run():
+                return flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate)
+
+            def check():
+                checks = [cs.within(x, y, cs.BWD_ATOL, cs.BWD_RTOL) for x, y in zip(run(), ref)]
+                return all(ok for ok, _ in checks), max(e for _, e in checks)
+
+            res = compare(attn_bwd, fns, "attn_bwd", run, check)
+            print(json.dumps({"kernel": "flash_attention_bwd_drop", "stream": stream, "N": n,
+                              "BH": b * heads, "ms": res}), flush=True)
+            del q, k, v, do, o, lse, ref
+            torch.cuda.empty_cache()
+    if w8a8_mlp_drop:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.W8A8_VQA_OVERRIDES))
+        g, _, args = cs.w8a8_mlp_weights(cfg, dev, 6)
+        t = cs.MLP_DROP_THRESHOLDS[-1]
+        for m in cs.vqa_mlp_rows(cfg):
+            x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
+            bits = torch.randint(-32768, 32768, (m, args[0].shape[0]), dtype=torch.int16,
+                                 generator=g, device=dev)
+            ref = w8a8_mlp_fwd_drop_plain(x, *args, bits, t)
+            res = compare(w8a8_mlp_drop, fns, "w8a8_mlp_drop",
+                          lambda: w8a8_mlp_fwd_drop(x, *args, bits, t),
+                          lambda: cs.within(w8a8_mlp_fwd_drop(x, *args, bits, t), ref,
+                                            cs.W8A8_ATOL, cs.W8A8_RTOL))
+            print(json.dumps({"kernel": "w8a8_mlp_fwd_drop", "M": m, "ms": res}), flush=True)
     if attn_long:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.HIRES_OVERRIDES))
         heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads

@@ -50,9 +50,9 @@ TOP = 20
 PHASES = ("step/batch", "step/forward", "step/backward", "step/optimizer")
 # kernel families, by the first substring of the kernel's name that matches
 FAMILIES = (
-    ("port attention kernels", ("flash_", "attn_long_sm90")),
-    ("port fused MLP kernels", ("mlp_sm90", "mlp_sum_splits")),
+    ("port attention kernels", ("flash_", "attn_long_sm90", "attn_fwd_sm90", "attn_bwd_sm90")),
     ("port int8 kernels", ("w8a8_",)),
+    ("port fused MLP kernels", ("mlp_sm90", "mlp_sum_splits")),
     ("cuBLAS/cuDNN GEMM and conv", ("nvjet", "gemm", "cutlass", "sm90_", "conv", "cudnn")),
     ("reductions", ("reduce_kernel", "norm", "softmax")),
     ("elementwise and copies", ("elementwise", "copy", "Memcpy", "Memset", "fill",

@@ -569,3 +569,299 @@ def test_row9_launch_passes_live_maps_across_an_eviction(monkeypatch, m, cap):
 def test_row9_checks_raise(bad):
     with pytest.raises(ValueError):
         qf._launch_mlp_sm90(*_w8a8_args(**bad))
+
+
+# ------------------------------------------- row 4: the sm90 dropout backward
+
+BWD_SRC = fa._build.CSRC / "flash_attention_bwd_sm90.cu"
+
+
+@pytest.mark.parametrize("n,route", [
+    (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
+    (257, "mma_sync"), (512, "mma_sync"),
+])
+def test_row4_route_by_length(n, route):
+    """Rows of up to 256 keys take the sm90 backward (a head's B-side pair
+    in one head slot); longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync
+    kernels of flash_attention_bwd.cu."""
+    assert fa.bwd_route(n) == route
+    assert (n <= fa.SM90_BWD_MAX_N) == (route == "sm90")
+    assert n <= fa.LONG_SEQ_THRESHOLD
+
+
+@pytest.mark.parametrize("bh,n,width,grid,tail", [
+    (384, 40, 48, 132, 48),     # pretrain text stream: one 48-wide slab
+    (384, 197, 208, 132, 16),   # image: three 64-wide slabs and a 16-wide one
+    (384, 237, 240, 132, 48),   # MLM fused rows
+    (1152, 237, 240, 132, 48),  # ITM fused pair rows
+    (96, 256, 256, 96, 0),      # four whole slabs; fewer heads than SMs
+])
+def test_row4_widths_grid_and_slabs_at_path_shapes(bh, n, width, grid, tail):
+    """The key width is N rounded up to 16 (as row 1's), walked in 64-wide
+    slabs and a tail of width % 64; the grid is persistent, one CTA per SM
+    or per head."""
+    assert fa.fwd_sm90_tile(n) == width and width % 64 == tail
+    assert 0 <= width - n < 16
+    assert fa.fwd_sm90_grid(bh, H100_SMS) == grid
+    tiles = -(-n // fa.SM90_FWD_BOX)
+    assert (tiles - 1) * 64 < n <= tiles * 64
+
+
+@pytest.mark.parametrize("role", ["dq", "dkdv"])
+@pytest.mark.parametrize("nt", range(16, 257, 16))
+def test_row4_shared_memory_budget(nt, role):
+    """Both kernels fit a block at every key width with at least two head
+    slots (so the next head loads while one computes) and two tile stages,
+    at most four of each; the slots hold the B-side pair of a head."""
+    lay = fa.bwd_sm90_layout(nt, role)
+    assert 2 <= lay["head_slots"] <= fa.SM90_FWD_MAX_SLOTS
+    assert 2 <= lay["tile_stages"] <= fa.SM90_FWD_MAX_SLOTS
+    assert lay["smem"] <= SMEM_LIMIT
+    rows = -(-nt // 64) * 64
+    boxes = 3 if role == "dq" else 2
+    assert lay["smem"] >= (lay["head_slots"] * 2 * rows * 128
+                           + lay["tile_stages"] * boxes * 64 * 128)
+
+
+@pytest.mark.parametrize("nt,role,slots,stages,smem", [
+    (48, "dq", 4, 4, 166016), (48, "dkdv", 4, 4, 134272),
+    (208, "dq", 2, 3, 208000), (240, "dq", 2, 3, 208000),
+    (240, "dkdv", 2, 4, 201856), (256, "dkdv", 2, 4, 201856),
+])
+def test_row4_layout_at_path_widths(nt, role, slots, stages, smem):
+    """The mirror of the source's `layout` at the path's widths (the source
+    reports its own through `flash_attention_bwd_sm90_smem`, which
+    `chip_smoke.py` holds against this mirror on the card), and the
+    constants the mirror shares with the source."""
+    lay = fa.bwd_sm90_layout(nt, role)
+    assert (lay["head_slots"], lay["tile_stages"], lay["smem"]) == (slots, stages, smem)
+    src = BWD_SRC.read_text()
+    for const in ("D = 64;", "BOX = 64;", "MAX_SLOTS = 4;", "SMEM_LIMIT = 232448;",
+                  "BAR_BYTES = 8 * 4 * MAX_SLOTS;"):
+        assert f"constexpr int {const}" in src
+    assert SMEM_LIMIT == 232448 and fa.SM90_FWD_BOX == 64 and fa.HEAD_DIM == 64
+
+
+@pytest.mark.parametrize("bh,n", [(384, 40), (384, 197), (1152, 237), (96, 256)])
+def test_row4_map_extents(bh, n):
+    """q, k, v, o and do take the forward's 3D map: (D, N, BH) in 64-row
+    boxes that stop at the head's N, byte strides TMA accepts."""
+    src, extents = fa._MAP_KINDS["bwd"]
+    assert src == "flash_attention_bwd_sm90"
+    dims, strides, box = extents(bh, n)
+    assert dims == (fa.HEAD_DIM, n, bh) and box == (64, 64, 1)
+    assert all(s % 16 == 0 for s in strides)
+
+
+def test_row4_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert symbol == f"{name}_encode"
+
+        def encode(buf, ptr, rank, dims, strides, box):
+            calls.append((name, ptr, tuple(dims), tuple(box)))
+            return 0
+        return encode
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_MAPS_CAP", 3)
+    q = torch.zeros(12, 197, 64, dtype=torch.bfloat16)
+    first = fa._map("bwd", q)
+    assert fa._map("bwd", q) is first
+    assert fa._map("short", q) is not first  # the forward's own map
+    assert calls == [
+        ("flash_attention_bwd_sm90", q.data_ptr(), (64, 197, 12), (64, 64, 1)),
+        ("flash_attention_fwd_sm90", q.data_ptr(), (64, 197, 12), (64, 64, 1))]
+    for _ in range(4):
+        fa._map("bwd", torch.zeros(3, 40, 64, dtype=torch.bfloat16))
+        assert len(fa._MAPS) <= 3
+
+
+def _bwd_args(bh=24, n=237, b=2):
+    kb, q, k, v = _attn_args(bh=bh, n=n, b=b)
+    o, do = torch.zeros_like(q), torch.zeros_like(q)
+    return (q, k, v, kb, torch.zeros(1, dtype=torch.int32), o, do,
+            torch.zeros(bh, n))
+
+
+@pytest.mark.parametrize("n,cap", [(40, 1), (237, 2), (256, 256)])
+def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
+    """Five maps per launch (q, k, v, o, do): each one the kernel receives
+    is the one encoded for its tensor, even where the cache empties itself
+    between two lookups; then the bias, seed, lse, delta, dq, dk, dv
+    pointers, (bh, heads, n, key width, grid), the scale and the dropout
+    threshold and factor."""
+    calls, seen, launches = [], [], []
+
+    def kernel(*args):
+        seen.append([_map_bytes(m) for m in args[:5]])
+        launches.append(args[5:])
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "flash_attention_bwd_sm90"
+        if symbol == "flash_attention_bwd_sm90_encode":
+            return _fake_encoder(calls)
+        assert symbol == "flash_attention_bwd_sm90_drop" and len(argtypes) == 21
+        return kernel
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_MAPS_CAP", cap)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
+    q, k, v, kb, seed, o, do, lse = _bwd_args(n=n)
+    for _ in range(2):
+        dq, dk, dv = fa._launch_bwd_sm90(q, k, v, kb, seed, o, do, lse, 0.125, 0.1)
+    assert dq.shape == dk.shape == dv.shape == q.shape
+    for maps in seen:
+        assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
+            t.data_ptr() for t in (q, k, v, o, do)]
+    rest = launches[-1]
+    assert rest[0] == kb.data_ptr() and rest[1] == seed.data_ptr() and rest[2] == lse.data_ptr()
+    assert rest[7:12] == (24, 12, n, fa.fwd_sm90_tile(n), 24)
+    assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert len(fa._MAPS) <= cap
+
+
+@pytest.mark.parametrize("bad", [
+    {"lse_dtype": torch.bfloat16}, {"lse_shape": (24, 236)}, {"seed_dtype": torch.int64},
+    {"seed_len": 2}, {"d": 32}, {"bias_n": 200},
+])
+def test_row4_checks_raise(bad):
+    """What the backward kernels refuse: an lse not fp32 (BH, N), a seed not
+    one int32, and the forward's shape rules for q, k, v, o, do and bias."""
+    kb, q, k, v = _attn_args(bh=24, n=197, b=2, d=bad.get("d", 64),
+                             bias_n=bad.get("bias_n"))
+    lse = torch.zeros(bad.get("lse_shape", (24, 197)), dtype=bad.get("lse_dtype", torch.float32))
+    seed = torch.zeros(bad.get("seed_len", 1), dtype=bad.get("seed_dtype", torch.int32))
+    with pytest.raises(ValueError):
+        fa._check("flash_attention_bwd_drop", kb, q, k, v, q.clone(), q.clone(), lse=lse,
+                  seed=seed)
+
+
+def test_row4_checks_pass_the_path_shape():
+    q, k, v, kb, seed, o, do, lse = _bwd_args(bh=1152, n=237, b=96)
+    fa._check("flash_attention_bwd_drop", kb, q, k, v, o, do, lse=lse, seed=seed)
+
+
+# ------------------------------------------- row 10: row 9's kernel with dropout
+
+@pytest.mark.parametrize("m,grid,splits", [
+    (64, 1, 2),        # one tile, its hidden over a cluster of two
+    (1000, 16, 2),     # ragged, split
+    (1280, 20, 2),     # the int8 finetune_vqa step's text rows: 40 CTAs
+    (4999, 80, 1),     # ragged, clusters along M
+    (6304, 100, 1),    # image rows: 99 tiles and a cluster's spare
+    (7584, 120, 1),    # fused rows: 119 tiles and a spare
+])
+def test_row10_grid_and_splits_at_path_shapes(m, grid, splits):
+    """Row 10 takes row 9's grid: the hidden split over a cluster of two
+    while the doubled tiles fit one wave, else clusters of two along M."""
+    assert qf.mlp_splits(m, HIDDEN, H100_SMS) == splits
+    assert qf.mlp_grid(m, splits) == grid
+    assert grid * splits <= H100_SMS or splits == 1
+
+
+@pytest.mark.parametrize("m", [64, 1280, 7584])
+def test_row10_bits_map_extents(m):
+    """The int16 bits (M, H) are mapped as (M, 2 H) bytes in qW1's box: 64
+    rows of one chunk's 64 values (128 bytes) in the 128-byte swizzle, so
+    a chunk's bits are one 8 KB box."""
+    dims, strides, box, swizzle = qf.mlp_map_extents(m, 2 * HIDDEN, "bits")
+    assert dims == (2 * HIDDEN, m) and strides == (2 * HIDDEN,)
+    assert box == (2 * qf.HIDDEN_CHUNK, qf.MLP_ROW_TILE) and swizzle == 128
+    assert box[0] * box[1] == qf.MLP_BOX_BYTES
+    assert qf.MLP_BOXES["bits"] == qf.MLP_BOXES["w1"]
+
+
+def test_row10_shared_memory_budget():
+    """Two 8 KB bits slots past the barriers, within a block's shared
+    memory (the kernel reports its own through `w8a8_mlp_sm90_smem(1)`,
+    held against this on the card by `chip_smoke.py`)."""
+    assert qf.mlp_smem(drop=True) == qf.mlp_smem() + 2 * qf.MLP_BOX_BYTES <= SMEM_LIMIT
+    assert qf.mlp_smem(drop=True) == 183296
+
+
+def test_row10_bits_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert (name, symbol) == ("w8a8_mlp_sm90", "w8a8_mlp_sm90_encode")
+
+        def encode(buf, ptr, rows, cols, box_cols, box_rows, swizzle):
+            calls.append((ptr, rows, cols, box_cols, box_rows, swizzle))
+            return 0
+        return encode
+
+    monkeypatch.setattr(qf._build, "load", fake_load)
+    monkeypatch.setattr(qf, "_MAPS", {})
+    monkeypatch.setattr(qf, "_MAPS_CAP", 3)
+    bits = torch.zeros(1280, HIDDEN, dtype=torch.int16)
+    first = qf._mlp_map(bits, "bits")
+    assert qf._mlp_map(bits, "bits") is first
+    assert calls == [(bits.data_ptr(), 1280, 2 * HIDDEN, 128, 64, 128)]
+    keep = [torch.zeros(m, HIDDEN, dtype=torch.int16) for m in (6304, 7584, 64, 1000)]
+    for t in keep:
+        qf._mlp_map(t, "bits")
+        assert len(qf._MAPS) <= 3
+    assert len(calls) == 5
+
+
+@pytest.mark.parametrize("m,cap", [(64, 1), (1280, 2), (7584, 256)])
+def test_row10_launch_passes_live_maps_across_an_eviction(monkeypatch, m, cap):
+    """The DROP entry gets three live maps (qW1, qW2, the bits), the split's
+    scratch where it splits, the grid and split, then the threshold and the
+    keep factor."""
+    calls, seen, launches = [], [], []
+
+    def kernel(*args):
+        seen.append([_map_bytes(t) for t in args[:3]])
+        launches.append(args[3:])
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "w8a8_mlp_sm90"
+        if symbol == "w8a8_mlp_sm90_encode":
+            return _fake_encoder(calls)
+        assert symbol == "w8a8_mlp_sm90_drop" and len(argtypes) == 18
+        return kernel
+
+    monkeypatch.setattr(qf._build, "load", fake_load)
+    monkeypatch.setattr(qf, "_MAPS", {})
+    monkeypatch.setattr(qf, "_MAPS_CAP", cap)
+    monkeypatch.setattr(qf, "_sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(qf.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    args = _w8a8_args(m=m)
+    bits = torch.zeros(m, HIDDEN, dtype=torch.int16)
+    for _ in range(2):
+        assert qf._launch_mlp_sm90(*args, bits, 6554).shape == (m, 768)
+    for maps in seen:
+        assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
+            args[1].data_ptr(), args[4].data_ptr(), bits.data_ptr()]
+    splits = qf.mlp_splits(m, HIDDEN, H100_SMS)
+    rest = launches[-1]
+    part, shs = rest[6:8]
+    assert (part is None) == (shs is None) == (splits == 1)
+    assert rest[8:] == (m, HIDDEN, qf.mlp_grid(m, splits), splits, 6554,
+                        qf.keep_scale16(6554), 0)
+    assert len(qf._MAPS) <= cap
+
+
+@pytest.mark.parametrize("bad", [
+    {"bits_dtype": torch.int32},     # bits int16
+    {"bits_shape": (64, HIDDEN // 2)},
+    {"bits_shape": (32, HIDDEN)},
+    {"threshold": 0},                # a threshold in (0, 65536)
+    {"threshold": 65536},
+    {"k": 512},                      # row 9's shape rules hold too
+])
+def test_row10_checks_raise(bad):
+    args = _w8a8_args(k=bad.get("k", 768))
+    bits = torch.zeros(bad.get("bits_shape", (64, HIDDEN)), dtype=bad.get("bits_dtype",
+                                                                          torch.int16))
+    with pytest.raises(ValueError):
+        qf._launch_mlp_sm90(*args, bits, bad.get("threshold", 6554))
