@@ -20,11 +20,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      random weights), check that every request went through both kernels,
      compare two requests with the CPU's plain path, and time the requests;
   5. at each shape the pretrain_mum step gives the training kernels (the
-     flash backward, the dropout forward and the dropout backward), and at
-     batch 8 at N = 512 (the dropout backward's mma.sync route), hold each
-     against its plain version, check the in-kernel dropout mask bit for
-     bit, and time kernel, plain version and SDPA (the backward rows
-     against SDPA's backward alone, and its forward and backward);
+     flash backward, the dropout forward and the dropout backward: rows 2,
+     3 and 4, all three on the sm90 kernels there), and at batch 8 at N =
+     256 (the widest sm90 instantiation) and N = 512 (the mma.sync
+     routes), hold each against its plain version, with its route, key
+     width and grid, check the in-kernel dropout mask bit for bit (through
+     the sm90 forward and backward), and time kernel, plain version and
+     SDPA (the backward rows against SDPA's backward alone, and its forward
+     and backward);
   6. train pretrain_mum at vlmo_base, batch 32, on the synthetic data with a
      random dVAE (attn_impl=auto: the dropout kernels): one warm-up step and
      TRAIN_STEPS timed steps, with every launch counted;
@@ -32,7 +35,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      flash forward and backward kernels;
   8. one step at batch 2 on the card and on the CPU's plain path from the
      same weights, batch, ITM negatives and MIM labels (hidden dropout and
-     DropPath off, attention dropout on through the hash), compared;
+     DropPath off, attention dropout on through the hash), compared
+     (itc_temp's gradient at the card's own ITC features, and those
+     features);
   9. the fused MLP's dropout forward (row 7) against its plain version at
      the finetune_vqa step's three FFN shapes and two thresholds, and at
      M = 64 and two ragged M, timed beside its plain version and the
@@ -88,6 +93,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -209,9 +215,10 @@ TRAIN_STEPS = 5  # timed, after one warm-up step, in each training phase
 EXTRA_STEPS = 2  # untimed, in each variant of a training phase
 CPU_TRAIN_BATCH = 2
 DROP_SEED = 1234
-# the dropout backward off the path: one N past SM90_BWD_MAX_N (its mma.sync
-# route), at batch 8
-BWD_OFF_PATH_N = 512
+# rows 2, 3 and 4 off the path, at batch 8: the widest key width of their
+# sm90 kernels, and one N past SM90_FWD_MAX_N and SM90_BWD_MAX_N (their
+# mma.sync routes)
+TRAIN_OFF_PATH_N = (256, 512)
 # backward kernels vs plain versions, bf16 out. Both sum fp32 products of
 # bf16 inputs, in other orders; the kernel keeps 16 mantissa bits of p and ds
 # for its products with k, q and do (2**-17 relative per term). Both round
@@ -225,6 +232,15 @@ BWD_ATOL, BWD_RTOL = 1e-3, 2 ** -7
 # 10% in relative L2 norm. The first AdamW step moves each weight by about
 # lr * sign(grad); the two devices must agree on that direction for 90% of
 # the elements (gradients near zero may flip under the bf16 noise).
+# itc_temp's gradient is sum(dL/dsim * sim) over the in-batch similarities,
+# a difference of near-equal cosines at random weights (-1.5e-4 against a
+# total gradient norm of 46.6): the bf16 rounding of the features it is
+# taken from moves it by 3% to 84% between equally exact builds (on an H100,
+# the fp32 plain attention among them). So its 10% holds it against the
+# CPU's gradient rescaled by the two devices' closed forms from their own
+# ITC features (itc_temp_closed_form), and those features are held within
+# 10% in relative L2 norm: a wrong itc_temp gradient fails the first, wrong
+# features the second.
 LOSS_RTOL, GRAD_REL_TOL, UPDATE_AGREEMENT = 2e-2, 0.1, 0.9
 CHECKED_PARAMS = (
     "transformer.patch_embed.weight",
@@ -1089,10 +1105,11 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> t
 
 
 def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dict:
-    """Rows 2, 3 and 4 off the path at batch 8 at N = BWD_OFF_PATH_N (row
-    4's mma.sync route), then at each shape of the pretrain_mum step: the
-    text, image and fused (MLM) streams at B = 32 and ITM's fused pair rows
-    at 3B. Each kernel against its plain version on the same inputs, then
+    """Rows 2, 3 and 4 off the path at batch 8 at N = TRAIN_OFF_PATH_N (the
+    sm90 kernels' widest key width, then the mma.sync routes), then at each
+    shape of the pretrain_mum step: the text, image and fused (MLM) streams
+    at B = 32 and ITM's fused pair rows at 3B, all on the sm90 kernels. Each
+    kernel against its plain version on the same inputs, then
     the kernel, the plain version and SDPA timed: the forward rows against
     SDPA's forward, the backward rows against SDPA's backward alone (its
     forward run once, outside the timing) and, as `library_fwd_bwd_ms`,
@@ -1102,13 +1119,13 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
     rate, scale = cfg.attn_drop_rate, d ** -0.5
     txt = synthetic_text_mask(rng, TRAIN_BATCH, cfg.max_text_len)
     txt3 = np.concatenate([txt, txt, txt[rng.permutation(TRAIN_BATCH)]])
-    masks = {
-        f"off_path_n{BWD_OFF_PATH_N}": padded_mask(rng, OFF_PATH_BATCH, BWD_OFF_PATH_N),
+    masks = {f"off_path_n{n}": padded_mask(rng, OFF_PATH_BATCH, n) for n in TRAIN_OFF_PATH_N}
+    masks.update({
         "text": txt,
         "image": np.ones((TRAIN_BATCH, n_img), np.int32),
         "fused": np.concatenate([txt, np.ones((TRAIN_BATCH, n_img), np.int32)], 1),
         "itm": np.concatenate([txt3, np.ones((3 * TRAIN_BATCH, n_img), np.int32)], 1),
-    }
+    })
     rows = {"flash_attention_bwd": [], "flash_attention_fwd_drop": [],
             "flash_attention_bwd_drop": []}
     seed = torch.tensor([DROP_SEED], dtype=torch.int32, device=dev)
@@ -1170,14 +1187,15 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
                     "beyond its tolerance")
             nbytes = ((8 if is_bwd else 4) * bh * n * d * 2 + b * n * 4 + bh * n * 4)
             bound_ms, bound_by = bound(nbytes, (10 if is_bwd else 4) * bh * n * n * d)
-            route = {}
-            if name == "flash_attention_bwd_drop":
-                route = {"route": bwd_route(n)}
-                if route["route"] == "sm90":
-                    route.update(key_width=fwd_sm90_tile(n), grid=fwd_sm90_grid(bh, sms))
+            route = {"route": bwd_route(n) if is_bwd else fwd_route(n)}
+            on_path = not stream.startswith("off_path")
+            require(route["route"] == "sm90" or not on_path,
+                    f"{name} {stream} N={n}: the step's shapes must take the sm90 kernels")
+            if route["route"] == "sm90":
+                route.update(key_width=fwd_sm90_tile(n), grid=fwd_sm90_grid(bh, sms))
             rows[name].append({
                 "stream": stream, "shape": f"BH={bh} N={n} D={d}",
-                "on_path": not stream.startswith("off_path"), **route, "max_abs_err": err,
+                "on_path": on_path, **route, "max_abs_err": err,
                 "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
                 "library_ms": time_ms(library[name]),
                 **({"library_fwd_bwd_ms": time_ms(library_fwd_bwd[name])} if is_bwd else {}),
@@ -1345,18 +1363,36 @@ def short_phase(tag: str, cfg_dict: dict, expected: dict, check=None):
     return launches, steps, count
 
 
+def itc_temp_closed_form(feats: dict, log_temp: float) -> float:
+    """d(ITC loss)/d itc_temp from one step's normalised ITC features
+    ({"v": images, "l": texts}), in fp64: sum(dL/dsim * sim), the loss
+    seeing itc_temp only through sim = i t^T exp(itc_temp)."""
+    sim = feats["v"] @ feats["l"].T * math.exp(log_temp)
+    eye = torch.eye(len(sim), dtype=sim.dtype)
+    d_sim = (sim.softmax(-1) - eye + (sim.T.softmax(-1) - eye).T) / (2 * len(sim))
+    return float((d_sim * sim).sum())
+
+
 def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
                  **step_kw) -> dict:
     """One step on each trainer from the same host batch; the losses, the
-    named gradients (relative L2) and the signs of the first AdamW update
-    compared against LOSS_RTOL, GRAD_REL_TOL and UPDATE_AGREEMENT."""
+    named gradients (relative L2; itc_temp's against the CPU's rescaled to
+    the card's ITC features, and those features) and the signs of the first
+    AdamW update compared against LOSS_RTOL, GRAD_REL_TOL and
+    UPDATE_AGREEMENT."""
     before = {k: p.detach().clone() for k, p in cpu.task.named_parameters()
               if k in names}
+    feats = {"gpu": {}, "cpu": {}}
+    hooks = [t.task.itc_head.register_forward_hook(
+        lambda mod, args, out, f=feats[d]: f.__setitem__(args[1], out.detach().double().cpu()))
+        for d, t in (("gpu", gpu), ("cpu", cpu)) if "itc_temp" in names]
     t0 = time.perf_counter()
     m_cpu = cpu.step(batch, **step_kw)
     cpu_s = time.perf_counter() - t0
     m_gpu = gpu.step(batch, **step_kw)
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
     lr = float(m_cpu["lr"])
     p_cpu, p_gpu = dict(cpu.task.named_parameters()), dict(gpu.task.named_parameters())
     losses = {k: (float(m_gpu[k]), float(m_cpu[k])) for k in m_cpu
@@ -1368,18 +1404,30 @@ def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
         step_cpu = (p_cpu[k].detach() - before[k]) / lr
         step_gpu = (p_gpu[k].detach().cpu() - before[k]) / lr
         agree[k] = (torch.sign(step_cpu) == torch.sign(step_gpu)).float().mean().item()
+    held, itc = dict(grads), {}
+    if "itc_temp" in names:
+        closed = {d: itc_temp_closed_form(f, float(before["itc_temp"]))
+                  for d, f in feats.items()}
+        g_gpu, g_cpu = float(p_gpu["itc_temp"].grad), float(p_cpu["itc_temp"].grad)
+        want = g_cpu * closed["gpu"] / closed["cpu"]
+        f_gpu, f_cpu = (torch.cat([f["v"], f["l"]]) for f in (feats["gpu"], feats["cpu"]))
+        itc = {"grad_gpu_cpu": (g_gpu, g_cpu), "closed_form_gpu_cpu": (closed["gpu"],
+               closed["cpu"]), "feature_rel_err": ((f_gpu - f_cpu).norm() / f_cpu.norm()).item()}
+        held["itc_temp"] = itc["grad_rel_err_at_gpu_features"] = abs(g_gpu - want) / abs(want)
+        held["itc_features"] = itc["feature_rel_err"]
     result = {
         "batch": CPU_TRAIN_BATCH, "cpu_step_s": cpu_s,
         "losses_gpu_cpu": losses, "grad_norm_gpu_cpu": (float(m_gpu["grad_norm"]),
                                                         float(m_cpu["grad_norm"])),
         "grad_rel_err": grads, "update_sign_agreement": agree, "lr": lr,
+        **({"itc_temp": itc} if itc else {}),
     }
     print(f"{tag}: " + json.dumps(result), flush=True)
     for k, (g, c) in losses.items():
         require(abs(g - c) <= LOSS_RTOL * abs(c) + 1e-3,
                 f"{tag} {k}: GPU {g} vs CPU {c} beyond rtol {LOSS_RTOL}")
-    require(max(grads.values()) <= GRAD_REL_TOL,
-            f"{tag}: gradients differ from the CPU path: {grads}")
+    require(max(held.values()) <= GRAD_REL_TOL,
+            f"{tag}: gradients differ from the CPU path: {held}")
     require(min(agree.values()) >= UPDATE_AGREEMENT,
             f"{tag}: post-step parameters differ from the CPU path: {agree}")
     return result
@@ -1568,9 +1616,7 @@ def main() -> int:
             "library_ms": big["library_ms"],
         }
 
-    fwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd.cu"
     fwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd_sm90.cu"
-    bwd_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd.cu"
     bwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd_sm90.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_sm90.cu"
@@ -1581,9 +1627,9 @@ def main() -> int:
     kernels = [
         entry("flash_attention_fwd", "cuda", fwd_sm90_src, f"{tpu_fa}:152", attn_rows,
               serve_launches),
-        entry("flash_attention_bwd", "cuda", bwd_src, f"{tpu_fa}:170",
+        entry("flash_attention_bwd", "cuda", bwd_sm90_src, f"{tpu_fa}:170",
               train_rows["flash_attention_bwd"], drop0_launches),
-        entry("flash_attention_fwd_drop", "cuda", fwd_src, f"{tpu_fa}:209",
+        entry("flash_attention_fwd_drop", "cuda", fwd_sm90_src, f"{tpu_fa}:209",
               train_rows["flash_attention_fwd_drop"], train_launches),
         entry("flash_attention_bwd_drop", "cuda", bwd_sm90_src, f"{tpu_fa}:237",
               train_rows["flash_attention_bwd_drop"], train_launches),

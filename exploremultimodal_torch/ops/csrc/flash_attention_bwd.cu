@@ -2,8 +2,9 @@
 //
 // Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py:
 // `_attn_bwd_kernel` (:170, launched by `_bwd_call` :395) and, with DROP set,
-// `_attn_drop_bwd_kernel` (:237, launched by `_bwd_drop_call` :362). Same
-// function: for each batch*head, with p = exp(s - lse) the clean
+// `_attn_drop_bwd_kernel` (:237, launched by `_bwd_drop_call` :362), for
+// rows of 256 < N <= 512 keys: shorter rows (every VLMo stream at 224^2)
+// take flash_attention_bwd_sm90.cu. Same function: for each batch*head, with p = exp(s - lse) the clean
 // probabilities rebuilt from the forward's lse and keep the forward's mask
 // (1 without dropout; dropout_hash.cuh times 1 / (1 - rate) with it),
 //   delta = rowsum(do o o)

@@ -1,15 +1,17 @@
-// Flash-attention backward with in-kernel dropout for Hopper (sm_90a) on
-// wgmma and TMA, for N <= 256; bf16 in and out, fp32 math.
+// Flash-attention backward, with and without in-kernel dropout (DROP), for
+// Hopper (sm_90a) on wgmma and TMA, for N <= 256; bf16 in and out, fp32
+// math.
 //
-// Replaces the Pallas kernel `_attn_drop_bwd_kernel`
-// (exploremultimodal_tpu/ops/flash_attention.py:237, launched by
-// `_bwd_drop_call` :362) at every length the VLMo training paths give it
-// (text 40, image 197, fused 237 tokens). Longer rows (256 < N <= 512) take
-// the mma.sync kernel of flash_attention_bwd.cu, and so does the backward
-// without dropout (`_attn_bwd_kernel`) for now; this source is templated on
-// DROP for it. Same function: for each batch*head, with p = exp(s - lse)
-// the clean probabilities rebuilt from the forward's lse and keep the
-// forward's mask (dropout_hash.cuh, times 1 / (1 - rate)),
+// Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py
+// at every length the VLMo training paths give them (text 40, image 197,
+// fused 237 tokens): `_attn_bwd_kernel` (:170, launched by `_bwd_call` :395;
+// entry `flash_attention_bwd_sm90`) and, with DROP, `_attn_drop_bwd_kernel`
+// (:237, launched by `_bwd_drop_call` :362; entry
+// `flash_attention_bwd_sm90_drop`). Longer rows (256 < N <= 512) take the
+// mma.sync kernels of flash_attention_bwd.cu. Same function: for each
+// batch*head, with p = exp(s - lse) the clean probabilities rebuilt from the
+// forward's lse and keep the forward's mask (dropout_hash.cuh, times 1 / (1
+// - rate); 1 without DROP),
 //   delta = rowsum(do o o)
 //   dv    = (keep o p)^T . do
 //   ds    = p o ((do . v^T) o keep - delta)
@@ -18,10 +20,10 @@
 // What bounds it on an H100: the ALUs. The products are 10 N^2 D flops per
 // head against 16 N D bytes (q, k, v, o, do in, dq, dk, dv out), N / 1.6
 // flops per byte: below the ~295 where the tensor cores would be the
-// limit, but every (row, key) element also costs a three-round integer hash
-// (the mask), an exp2 and a few FMAs on the CUDA cores, about 20 operations
-// at half the fp32 rate, which at N ~ 200 outweighs both the products and
-// the bytes.
+// limit, but every (row, key) element also costs an exp2 and a few FMAs
+// on the CUDA cores and, with DROP, a three-round integer hash (the mask),
+// about 20 operations at half the fp32 rate, which at N ~ 200 outweighs
+// both the products and the bytes.
 //
 // Design: two persistent kernels, so that dq is reduced inside one CTA and
 // the backward stays deterministic (no fp32 atomics), as the mma.sync one:
@@ -503,6 +505,40 @@ int launch(const CUtensorMap (&m)[5], const float* bias, const int32_t* seed, co
                                       dv, bh, n, nt, heads, grid, scale, thr, drop_scale, st);
 }
 
+// the maps' bytes into kernel arguments, then launch<nt % 64, DROP>
+template <bool DROP>
+int dispatch(const void* const (&maps)[5], const void* bias, const void* seed, const void* lse,
+             void* delta, void* dq, void* dk, void* dv, int bh, int heads, int n, int nt,
+             int grid, float scale, uint32_t thr, float drop_scale, void* stream) {
+  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > 256 ||
+      nt % 16 != 0 || grid <= 0 || grid > bh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[5];
+  for (int k = 0; k < 5; ++k) memcpy(&m[k], maps[k], sizeof(CUtensorMap));
+  const auto* b = static_cast<const float*>(bias);
+  const auto* sd = static_cast<const int32_t*>(seed);
+  const auto* l = static_cast<const float*>(lse);
+  auto* d = static_cast<float*>(delta);
+  auto* q = static_cast<bf16*>(dq);
+  auto* k = static_cast<bf16*>(dk);
+  auto* v = static_cast<bf16*>(dv);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (nt % BOX) {
+    case 0:
+      return launch<0, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
+                             drop_scale, st);
+    case 16:
+      return launch<16, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
+                              drop_scale, st);
+    case 32:
+      return launch<32, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
+                              drop_scale, st);
+    default:
+      return launch<48, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
+                              drop_scale, st);
+  }
+}
+
 }  // namespace
 
 // Encodes into `out` (128 bytes, host memory) the bf16 tensor map of a
@@ -526,12 +562,24 @@ extern "C" int flash_attention_bwd_sm90_smem(int nt, int role) {
 
 // mq, mk, mv, mo, mdo: the maps of q, k, v, o, do, each (bh, n, 64) bf16
 // (from `flash_attention_bwd_sm90_encode`, host memory); bias (bh /
-// heads, n) fp32; seed one int32 on the device; lse (bh, n) fp32 from the
-// forward; delta (bh, n) fp32 scratch; dq, dk, dv (bh, n, 64) bf16. `nt`:
-// the key width, n rounded up to 16 (n <= nt <= 256); `grid`: persistent
-// CTAs, 1..bh. Keeps where the hash bits are >= threshold, scaled by
-// drop_scale. Launches two kernels on `stream`; returns the first launch
-// error as cudaError_t.
+// heads, n) fp32; lse (bh, n) fp32 from the forward; delta (bh, n) fp32
+// scratch; dq, dk, dv (bh, n, 64) bf16. `nt`: the key width, n rounded up to
+// 16 (n <= nt <= 256); `grid`: persistent CTAs, 1..bh. The backward without
+// dropout. Launches two kernels on `stream`; returns the first launch error
+// as cudaError_t.
+extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const void* mv,
+                                        const void* mo, const void* mdo, const void* bias,
+                                        const void* lse, void* delta, void* dq, void* dk,
+                                        void* dv, int bh, int heads, int n, int nt, int grid,
+                                        float scale, void* stream) {
+  const void* maps[5] = {mq, mk, mv, mo, mdo};
+  return dispatch<false>(maps, bias, nullptr, lse, delta, dq, dk, dv, bh, heads, n, nt, grid,
+                         scale, 0u, 1.f, stream);
+}
+
+// As flash_attention_bwd_sm90, with the forward's dropout: `seed` is one
+// int32 on the device; keeps where the hash bits are >= threshold, scaled
+// by drop_scale.
 extern "C" int flash_attention_bwd_sm90_drop(const void* mq, const void* mk, const void* mv,
                                              const void* mo, const void* mdo, const void* bias,
                                              const void* seed, const void* lse, void* delta,
@@ -539,32 +587,7 @@ extern "C" int flash_attention_bwd_sm90_drop(const void* mq, const void* mk, con
                                              int n, int nt, int grid, float scale,
                                              unsigned threshold, float drop_scale,
                                              void* stream) {
-  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > 256 ||
-      nt % 16 != 0 || grid <= 0 || grid > bh)
-    return static_cast<int>(cudaErrorInvalidValue);
   const void* maps[5] = {mq, mk, mv, mo, mdo};
-  CUtensorMap m[5];
-  for (int k = 0; k < 5; ++k) memcpy(&m[k], maps[k], sizeof(CUtensorMap));
-  const auto* b = static_cast<const float*>(bias);
-  const auto* sd = static_cast<const int32_t*>(seed);
-  const auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<float*>(delta);
-  auto* q = static_cast<bf16*>(dq);
-  auto* k = static_cast<bf16*>(dk);
-  auto* v = static_cast<bf16*>(dv);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (nt % BOX) {
-    case 0:
-      return launch<0, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, threshold,
-                             drop_scale, st);
-    case 16:
-      return launch<16, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, threshold,
-                              drop_scale, st);
-    case 32:
-      return launch<32, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, threshold,
-                              drop_scale, st);
-    default:
-      return launch<48, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, threshold,
-                              drop_scale, st);
-  }
+  return dispatch<true>(maps, bias, seed, lse, delta, dq, dk, dv, bh, heads, n, nt, grid, scale,
+                        threshold, drop_scale, stream);
 }

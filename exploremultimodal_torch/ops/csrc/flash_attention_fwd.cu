@@ -2,8 +2,8 @@
 //
 // Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py:
 // `_attn_kernel` (:152, launched by `_fwd_call` :283) and, with DROP set,
-// `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323). Without
-// DROP it takes only rows of 256 < N <= 4096 keys: shorter rows (every
+// `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323). It takes
+// only rows of 256 < N <= 4096 keys (512 with DROP): shorter rows (every
 // VLMo stream at 224^2) take flash_attention_fwd_sm90.cu, and the long
 // forward (`_attn_long_kernel`) is flash_attention_long_sm90.cu. Same
 // function: for each (batch*head, query row)

@@ -1,16 +1,21 @@
 // Short-sequence flash-attention forward for Hopper (sm_90a) on wgmma and
-// TMA, for N <= 256.
+// TMA, for N <= 256, with and without attention dropout (DROP).
 //
-// Replaces the Pallas kernel `_attn_kernel`
-// (exploremultimodal_tpu/ops/flash_attention.py:152, launched by `_fwd_call`
-// :283) at every length the VLMo paths give it (text 40, image 197, fused
-// 237 tokens). Longer rows (256 < N <= 4096) take the mma.sync kernel of
-// flash_attention_fwd.cu. Same function: for each (batch*head, query row)
+// Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py
+// at every length the VLMo paths give them (text 40, image 197, fused 237
+// tokens): `_attn_kernel` (:152, launched by `_fwd_call` :283) and, with
+// DROP, `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323).
+// Longer rows (256 < N <= 4096, or 512 with dropout) take the mma.sync
+// kernel of flash_attention_fwd.cu. Same function: for each (batch*head,
+// query row)
 //   s   = (q . k^T) * scale + key_bias           fp32
 //   m   = max(s) over all N keys;  p = exp(s - m);  l = sum(p)
-//   out = (p . v) / l                            fp32 sum, stored as bf16
+//   out = ((keep o p) . v) / l                   fp32 sum, stored as bf16
 //   lse = m + log(l)                             fp32, read by the backward
-// with bf16 q, k, v (head dim 64) and an fp32 (B, N) key bias.
+// with bf16 q, k, v (head dim 64) and an fp32 (B, N) key bias. keep is 1
+// without DROP; with it, the hash mask of dropout_hash.cuh times 1 / (1 -
+// rate), applied after the row sum, so l and lse stay clean and the
+// backward rebuilds the clean p from lse.
 //
 // What bounds it on an H100: memory. It does 4 N^2 D flops per head against
 // 8 N D bytes of q, k, v and out, N / 2 flops per byte: about 20 to 120 at
@@ -50,6 +55,16 @@
 //     transpose. p is split into hi + lo bf16 parts and P V runs twice,
 //     which keeps 16 mantissa bits of p (one bf16 p left the tolerance in
 //     row 5).
+//   - DROP: each consumer takes the head's hash keys and, before the score
+//     registers are live, hashes its NT / 2 (row, key) pairs of the tile
+//     into NT / 64 words of keep bits. After adding p to l and before the
+//     hi + lo split, p becomes p * scale where its bit is set and 0 where
+//     not. Hashing inside the pack loop instead (as a factor p * keep)
+//     spilled at NT = 256, and so did the bits hashed while Q K^T runs
+//     (NT = 192-256) or applied as the factor (NT = 256).
+//   - The consumer walks its slots with a running slot and phase, not i %
+//     SLOTS: the division by 3 slots at NT = 144-192 made ptxas spill at
+//     NT = 192.
 //   - Finish: O / l as bf16 and lse for rows < N, stored from registers.
 // What holds it back (scripts/torch_kernel_variants.py on an H100, BH =
 // 768): at N = 197 and 237 (0.062 and 0.075 ms, 2.7x the bound) the
@@ -66,6 +81,7 @@
 
 #include <utility>
 
+#include "dropout_hash.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -103,13 +119,43 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The dropout of one head: its hash keys, the uint32 threshold and the
+// inverted-dropout factor
+struct Drop {
+  emm::DropKeys key;
+  uint32_t thr;
+  float scale;
+};
+
 // One warpgroup's 64 query rows (from row0) of head bh: Q at sq (64 rows),
 // K at sk and V at sv (NT rows each), the bias row in log2 units at sb.
-template <int NT>
+template <int NT, bool DROP>
 __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
                                        const float* sb, bf16* __restrict__ out,
                                        float* __restrict__ lse, int bh, int n, int row0,
-                                       float scale_log2, int warp, int g, int qd) {
+                                       float scale_log2, int warp, int g, int qd,
+                                       const Drop& drop) {
+  // DROP: the tile's keep bits, bit i % 32 of kb[i / 32] for score register
+  // i, hashed before the scores take their registers. The fence keeps the
+  // compiler from sinking the hashes into the pack loop below, where the
+  // scores, p and its hi/lo parts already fill the registers.
+  constexpr int KB = DROP ? (NT + 63) / 64 : 1;
+  uint32_t kb[KB];
+  if constexpr (DROP) {
+#pragma unroll
+    for (int w = 0; w < KB; ++w) kb[w] = 0u;
+#pragma unroll
+    for (int jj = 0; jj < NT / 8; ++jj)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * jj + r, row = row0 + 16 * warp + g + 8 * (r >> 1);
+        const uint32_t bits = emm::dropout_bits(drop.key, row, 8 * jj + 2 * qd + (r & 1));
+        kb[i / 32] |= static_cast<uint32_t>(bits >= drop.thr) << (i % 32);
+      }
+#pragma unroll
+    for (int w = 0; w < KB; ++w) asm volatile("" : "+r"(kb[w]));
+  }
+
   // S (64 x NT) = Q K^T
   float sc[NT / 2];
 #pragma unroll
@@ -153,9 +199,15 @@ __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
     for (int r = 0; r < 4; ++r) {
       // register r of slice kk: key tile 2 kk + (r >> 1), row half r & 1
       const int jj = 2 * kk + (r >> 1), h = r & 1;
-      const float p0 = exp2f(sc[4 * jj + 2 * h] - mx[h]);
-      const float p1 = exp2f(sc[4 * jj + 2 * h + 1] - mx[h]);
+      float p0 = exp2f(sc[4 * jj + 2 * h] - mx[h]);
+      float p1 = exp2f(sc[4 * jj + 2 * h + 1] - mx[h]);
       l[h] += p0 + p1;
+      if constexpr (DROP) {  // after the clean row sum: only P V sees the mask;
+        // p is computed either way, so the select has no work to skip
+        const int i = 4 * jj + 2 * h;
+        p0 = (kb[i / 32] >> (i % 32) & 1u) ? p0 * drop.scale : 0.f;
+        p1 = (kb[i / 32] >> (i % 32 + 1) & 1u) ? p1 * drop.scale : 0.f;
+      }
       const __nv_bfloat162 hv = __floats2bfloat162_rn(p0, p1);
       hi[kk][r] = *reinterpret_cast<const uint32_t*>(&hv);
       const float2 hf = __bfloat1622float2(hv);
@@ -196,14 +248,16 @@ __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
 
 // q, k, v through their (D, n, bh) maps in (64, 64, 1) boxes; bias (bh /
 // heads, n) fp32; out (bh, n, D) bf16; lse (bh, n) fp32. scale_log2 =
-// scale * log2(e).
-template <int NT>
+// scale * log2(e). With DROP, seed is one int32 on the device; a (row, key)
+// is kept where its hash bits are >= thr, then scaled by drop_scale.
+template <int NT, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
                      const __grid_constant__ CUtensorMap mv, const float* __restrict__ bias,
                      bf16* __restrict__ out, float* __restrict__ lse, int bh_total, int n,
-                     int heads, float scale_log2) {
+                     int heads, float scale_log2, const int32_t* __restrict__ seed,
+                     uint32_t thr, float drop_scale) {
   using C = Cfg<NT>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -254,34 +308,44 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   setmaxnreg_inc<240>();
   const int w = wg, warp = (threadIdx.x / 32) % 4;
   const int g = lane / 4, qd = lane % 4;
-  int i = 0, u = 0;
-  for (int bh = blockIdx.x; bh < bh_total; bh += gridDim.x, ++i) {
-    const int s = i % C::SLOTS;
-    mbar_wait(full0 + 8 * s, (i / C::SLOTS) & 1);
+  const int32_t sd = DROP ? *seed : 0;
+  Drop drop{{0u, 0u}, thr, drop_scale};
+  int s = 0, u = 0;
+  uint32_t phase = 0;
+  for (int bh = blockIdx.x; bh < bh_total; bh += gridDim.x) {
+    mbar_wait(full0 + 8 * s, phase);
     const uint32_t sq = base + s * C::SLOT;
+    if constexpr (DROP) drop.key = emm::dropout_keys(sd, bh);
     for (int t = 0; t < tiles; ++t, ++u) {
       if ((u & 1) != w) continue;
-      attend<NT>(sq + t * 64 * D * 2, sq + C::TILE, sq + 2 * C::TILE, sbias + s * C::NTB, out,
-                 lse, bh, n, 64 * t, scale_log2, warp, g, qd);
+      attend<NT, DROP>(sq + t * 64 * D * 2, sq + C::TILE, sq + 2 * C::TILE, sbias + s * C::NTB,
+                       out, lse, bh, n, 64 * t, scale_log2, warp, g, qd, drop);
     }
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    if (++s == C::SLOTS) {
+      s = 0;
+      phase ^= 1u;
+    }
   }
 }
 
-template <int NT>
+template <int NT, bool DROP>
 int launch(const void* mq, const void* mk, const void* mv, const void* bias, void* out,
-           void* lse, int bh, int heads, int n, int grid, float scale, void* stream) {
+           void* lse, int bh, int heads, int n, int grid, float scale, const void* seed,
+           uint32_t thr, float drop_scale, void* stream) {
   CUtensorMap q, k, v;
   memcpy(&q, mq, sizeof(q));
   memcpy(&k, mk, sizeof(k));
   memcpy(&v, mv, sizeof(v));
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_sm90_kernel<NT>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_sm90_kernel<NT, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg<NT>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_sm90_kernel<NT><<<grid, THREADS, Cfg<NT>::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
-      static_cast<float*>(lse), bh, n, heads, scale * LOG2E);
+  attn_fwd_sm90_kernel<NT, DROP>
+      <<<grid, THREADS, Cfg<NT>::SMEM, static_cast<cudaStream_t>(stream)>>>(
+          q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
+          static_cast<float*>(lse), bh, n, heads, scale * LOG2E,
+          static_cast<const int32_t*>(seed), thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -295,6 +359,21 @@ void for_widths(int nt, Fn fn, std::integer_sequence<int, I...>) {
 template <typename Fn>
 void for_widths(int nt, Fn fn) {
   for_widths(nt, fn, std::make_integer_sequence<int, 16>());
+}
+
+template <bool DROP>
+int dispatch(const void* mq, const void* mk, const void* mv, const void* bias, void* out,
+             void* lse, int bh, int heads, int n, int nt, int grid, float scale,
+             const void* seed, uint32_t thr, float drop_scale, void* stream) {
+  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || grid <= 0 || grid > bh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int key_width = nt;  // the instantiation that runs
+  int rc = static_cast<int>(cudaErrorInvalidValue);
+  for_widths(key_width, [&](auto w) {
+    rc = launch<decltype(w)::value, DROP>(mq, mk, mv, bias, out, lse, bh, heads, n, grid, scale,
+                                          seed, thr, drop_scale, stream);
+  });
+  return rc;
 }
 
 }  // namespace
@@ -328,13 +407,19 @@ extern "C" int flash_attention_fwd_sm90(const void* mq, const void* mk, const vo
                                         const void* bias, void* out, void* lse, int bh,
                                         int heads, int n, int nt, int grid, float scale,
                                         void* stream) {
-  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || grid <= 0 || grid > bh)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int key_width = nt;  // the instantiation that runs
-  int rc = static_cast<int>(cudaErrorInvalidValue);
-  for_widths(key_width, [&](auto w) {
-    rc = launch<decltype(w)::value>(mq, mk, mv, bias, out, lse, bh, heads, n, grid, scale,
-                                    stream);
-  });
-  return rc;
+  return dispatch<false>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, nullptr,
+                         0u, 1.f, stream);
+}
+
+// As flash_attention_fwd_sm90, with attention dropout: `seed` is one int32
+// on the device; a (row, key) is kept where its hash bits are >=
+// `threshold` (min(int(rate * 2^32), 2^32 - 1)) and then scaled by
+// `drop_scale`.
+extern "C" int flash_attention_fwd_sm90_drop(const void* mq, const void* mk, const void* mv,
+                                             const void* bias, const void* seed, void* out,
+                                             void* lse, int bh, int heads, int n, int nt,
+                                             int grid, float scale, unsigned threshold,
+                                             float drop_scale, void* stream) {
+  return dispatch<true>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
+                        threshold, drop_scale, stream);
 }

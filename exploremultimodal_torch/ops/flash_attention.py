@@ -7,15 +7,15 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
   - `flash_attention_bwd`      `_bwd_call` / `_attn_bwd_kernel`
   - `flash_attention_bwd_drop` `_bwd_drop_call` / `_attn_drop_bwd_kernel`
   - `flash_attention_fwd_long` `_long_fwd_call` / `_attn_long_kernel`
-The forward kernels are `csrc/flash_attention_fwd_sm90.cu` (wgmma and TMA,
-N <= SM90_FWD_MAX_N), `csrc/flash_attention_fwd.cu` (mma.sync: the forward
-at longer N and the dropout forward) and, for the long forward,
-`csrc/flash_attention_long_sm90.cu` (wgmma and TMA); the dropout backward
-is `csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, N <= SM90_BWD_MAX_N),
-and the backward without dropout and the dropout backward at longer N are
-`csrc/flash_attention_bwd.cu` (mma.sync). Each wrapper runs its kernel on
-CUDA tensors and its plain PyTorch version on CPU tensors; there is no other
-fallback.
+Rows 1 and 3 (the forward without and with dropout) share
+`csrc/flash_attention_fwd_sm90.cu` (wgmma and TMA, N <= SM90_FWD_MAX_N, row
+3 its `DROP` variant), and rows 2 and 4 (the backward without and with
+dropout) share `csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, N <=
+SM90_BWD_MAX_N, row 4 its `DROP` variant). Longer rows take the mma.sync
+kernels of `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`,
+and the long forward (row 5) is `csrc/flash_attention_long_sm90.cu` (wgmma
+and TMA). Each wrapper runs its kernel on CUDA tensors and its plain
+PyTorch version on CPU tensors; there is no other fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
 and columns keep their indices, so the dropout mask at every real (row,
 col) is the same.
@@ -40,9 +40,11 @@ FULL_ROW_FWD_MAX = 4096
 # the long kernel's tiling: 128 query rows per CTA, keys in 128-row blocks
 # (csrc/flash_attention_long_sm90.cu)
 LONG_TILE = 128
-# the forward's route: up to this N the sm90 kernel, which holds a head's
-# whole K and V in shared memory (csrc/flash_attention_fwd_sm90.cu); past
-# it, up to FULL_ROW_FWD_MAX, the mma.sync kernel (csrc/flash_attention_fwd.cu)
+# the forward's route, with and without dropout: up to this N the sm90
+# kernel, which holds a head's whole K and V in shared memory
+# (csrc/flash_attention_fwd_sm90.cu); past it, up to FULL_ROW_FWD_MAX (or
+# LONG_SEQ_THRESHOLD with dropout), the mma.sync kernel
+# (csrc/flash_attention_fwd.cu)
 SM90_FWD_MAX_N = 256
 # the sm90 forward's layout, as its source sets it: key widths in steps of
 # 16 (its wgmma N), keys and query rows in 64-row TMA boxes and tiles, up to
@@ -52,8 +54,9 @@ SM90_FWD_MAX_N = 256
 SM90_FWD_WIDTH_STEP = 16
 SM90_FWD_BOX = 64
 SM90_FWD_MAX_SLOTS = 4
-# the dropout backward's route: up to this N the sm90 kernels, which hold a
-# head's B-side pair in shared memory (csrc/flash_attention_bwd_sm90.cu);
+# the backward's route, with and without dropout: up to this N the sm90
+# kernels, which hold a head's B-side pair in shared memory
+# (csrc/flash_attention_bwd_sm90.cu);
 # past it, up to LONG_SEQ_THRESHOLD, the mma.sync kernels
 # (csrc/flash_attention_bwd.cu)
 SM90_BWD_MAX_N = 256
@@ -72,10 +75,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = [_P] * 6 + [_I] * 3 + [_F, _P]
 _FWD_LONG_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
 _FWD_SM90_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
+_FWD_SM90_DROP_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
 _FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 _BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
 _BWD_DROP_ARGS = [_P] * 12 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_SM90_ARGS = [_P] * 11 + [_I] * 5 + [_F, _P]
 _BWD_SM90_DROP_ARGS = [_P] * 12 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
 
 
@@ -225,8 +230,8 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def fwd_route(n: int) -> str:
-    """The forward kernel that takes rows of N keys: "sm90" up to
-    SM90_FWD_MAX_N, "mma_sync" past it."""
+    """The forward kernel (rows 1 and 3) that takes rows of N keys: "sm90"
+    up to SM90_FWD_MAX_N, "mma_sync" past it."""
     return "sm90" if n <= SM90_FWD_MAX_N else "mma_sync"
 
 
@@ -290,26 +295,37 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
     return out, lse
 
 
-def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float):
+def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
+                     rate: float = 0.0):
     """Run the sm90 forward on checked inputs: the q/k/v maps from the
-    cache, the key width of `fwd_sm90_tile`, the grid of `fwd_sm90_grid`."""
+    cache, the key width of `fwd_sm90_tile`, the grid of `fwd_sm90_grid`;
+    with a `seed`, its dropout variant at `rate` (row 3)."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_map("short", t) for t in (qf, kf, vf)]
-    fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
-    rc = fn(*maps, key_bias.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
-            bh // key_bias.shape[0], n, fwd_sm90_tile(n),
-            fwd_sm90_grid(bh, _sm_count(qf.device)), scale, _stream(qf))
-    _build.check("flash_attention_fwd_sm90", rc)
+    shape = (bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n),
+             fwd_sm90_grid(bh, _sm_count(qf.device)), scale)
+    if seed is None:
+        fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
+        rc = fn(*maps, key_bias.data_ptr(), out.data_ptr(), lse.data_ptr(), *shape,
+                _stream(qf))
+        _build.check("flash_attention_fwd_sm90", rc)
+    else:
+        fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_DROP_ARGS,
+                         "flash_attention_fwd_sm90_drop")
+        rc = fn(*maps, key_bias.data_ptr(), seed.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), *shape, dropout_threshold(rate), dropout_scale(rate),
+                _stream(qf))
+        _build.check("flash_attention_fwd_sm90_drop", rc)
     return out, lse
 
 
 def bwd_route(n: int) -> str:
-    """The dropout backward's kernels for rows of N keys: "sm90" up to
-    SM90_BWD_MAX_N, "mma_sync" past it."""
+    """The backward's kernels (rows 2 and 4) for rows of N keys: "sm90" up
+    to SM90_BWD_MAX_N, "mma_sync" past it."""
     return "sm90" if n <= SM90_BWD_MAX_N else "mma_sync"
 
 
@@ -404,40 +420,47 @@ def _launch_long(qf, kf, vf, key_bias, scale: float):
 
 def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
                              rate: float):
-    """As `flash_attention_fwd_drop_plain`: the kernel on CUDA tensors."""
+    """As `flash_attention_fwd_drop_plain`: the kernel of `fwd_route` on
+    CUDA tensors."""
     if qf.device.type == "cpu":
         return flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale,
                                               rate)
     _check("flash_attention_fwd_drop", key_bias, qf, kf, vf, seed=seed)
     bh, n, _ = qf.shape
-    out = torch.empty_like(qf)
-    lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-    fn = _build.load("flash_attention_fwd", _FWD_DROP_ARGS,
-                     "flash_attention_fwd_drop")
-    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-            seed.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
-            bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
-            dropout_scale(rate), _stream(qf))
-    _build.check("flash_attention_fwd_drop", rc)
+    if fwd_route(n) == "sm90":
+        out, lse = _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate)
+    else:
+        out = torch.empty_like(qf)
+        lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+        fn = _build.load("flash_attention_fwd", _FWD_DROP_ARGS,
+                         "flash_attention_fwd_drop")
+        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+                seed.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
+                bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
+                dropout_scale(rate), _stream(qf))
+        _build.check("flash_attention_fwd_drop", rc)
     flash_attention_fwd_drop.launches += 1
     return out, lse
 
 
 def flash_attention_bwd(qf, kf, vf, key_bias, of, dof, lse, scale: float):
-    """(dq, dk, dv): the kernels on CUDA tensors, `flash_attention_bwd_plain`
-    on CPU tensors."""
+    """(dq, dk, dv): the kernels of `bwd_route` on CUDA tensors,
+    `flash_attention_bwd_plain` on CPU tensors."""
     if qf.device.type == "cpu":
         return flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale)
     _check("flash_attention_bwd", key_bias, qf, kf, vf, of, dof, lse=lse)
     bh, n, _ = qf.shape
-    dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
-    delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-    fn = _build.load("flash_attention_bwd", _BWD_ARGS)
-    rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-            of.data_ptr(), dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-            bh // key_bias.shape[0], n, scale, _stream(qf))
-    _build.check("flash_attention_bwd", rc)
+    if bwd_route(n) == "sm90":
+        dq, dk, dv = _launch_bwd_sm90(qf, kf, vf, key_bias, None, of, dof, lse, scale)
+    else:
+        dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
+        delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+        fn = _build.load("flash_attention_bwd", _BWD_ARGS)
+        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
+                of.data_ptr(), dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
+                bh // key_bias.shape[0], n, scale, _stream(qf))
+        _build.check("flash_attention_bwd", rc)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -470,23 +493,31 @@ def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
 
 
 def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
-                     rate: float):
-    """Run the sm90 dropout backward (its dq kernel, then its dk/dv kernel)
-    on checked inputs: the q/k/v/o/do maps from the cache, the key width of
-    `fwd_sm90_tile`, the persistent grid of `fwd_sm90_grid`."""
+                     rate: float = 0.0):
+    """Run the sm90 backward (its dq kernel, then its dk/dv kernel) on
+    checked inputs: the q/k/v/o/do maps from the cache, the key width of
+    `fwd_sm90_tile`, the persistent grid of `fwd_sm90_grid`; without a
+    `seed` the backward without dropout (row 2), with one its dropout
+    variant at `rate` (row 4)."""
     bh, n, _ = qf.shape
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
     delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_map("bwd", t) for t in (qf, kf, vf, of, dof)]
-    fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_DROP_ARGS,
-                     "flash_attention_bwd_sm90_drop")
-    rc = fn(*maps, key_bias.data_ptr(), seed.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, bh // key_bias.shape[0], n,
-            fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
-            dropout_threshold(rate), dropout_scale(rate), _stream(qf))
-    _build.check("flash_attention_bwd_drop", rc)
+    bufs = (lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    shape = (bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n),
+             fwd_sm90_grid(bh, _sm_count(qf.device)), scale)
+    if seed is None:
+        fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_ARGS)
+        rc = fn(*maps, key_bias.data_ptr(), *bufs, *shape, _stream(qf))
+        _build.check("flash_attention_bwd_sm90", rc)
+    else:
+        fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_DROP_ARGS,
+                         "flash_attention_bwd_sm90_drop")
+        rc = fn(*maps, key_bias.data_ptr(), seed.data_ptr(), *bufs, *shape,
+                dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+        _build.check("flash_attention_bwd_sm90_drop", rc)
     return dq, dk, dv
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time rows 4 and 10 of two checkouts of the port on one GPU, in turns.
+"""Time rows 2, 3, 4 and 10 of two checkouts of the port on one GPU, in turns.
 
     python3 scripts/torch_compare_parent.py PARENT_DIR
 
@@ -7,12 +7,14 @@ PARENT_DIR is another checkout of the repository (e.g. a `git archive` of
 the parent commit unpacked into a gitignored directory). The script runs
 one worker process per turn, in the order parent, this tree, this tree,
 parent; each worker imports `exploremultimodal_torch` from its own tree
-(building its kernels there), times that tree's `flash_attention_bwd_drop`
-(row 4) at the pretrain_mum step's four shapes (text 40, image 197 and
-fused 237 tokens at batch 32, ITM's fused pair rows at batch 96; 12 heads,
-head dim 64, attention dropout 0.1) and `w8a8_mlp_fwd_drop` (row 10) at the
-finetune_vqa step's three FFN shapes (M = 1,280, 6,304, 7,584 at batch 32;
-threshold 6554) on the same seeded inputs, and prints one JSON line. The
+(building its kernels there), times that tree's `flash_attention_bwd`
+(row 2, the backward without dropout), `flash_attention_fwd_drop` (row 3)
+and `flash_attention_bwd_drop` (row 4) at the pretrain_mum step's four
+shapes (text 40, image 197 and fused 237 tokens at batch 32, ITM's fused
+pair rows at batch 96; 12 heads, head dim 64, attention dropout 0.1) and
+`w8a8_mlp_fwd_drop` (row 10) at the finetune_vqa step's three FFN shapes
+(M = 1,280, 6,304, 7,584 at batch 32; threshold 6554) on the same seeded
+inputs, and prints one JSON line. The
 times are device times (CUDA events around 20 calls queued behind a
 device-side sleep, as `chip_smoke.time_ms`). Prints the card's name and
 power limit first and a summary line last. Needs a CUDA device and nvcc;
@@ -32,6 +34,8 @@ ATTN_SHAPES = {"text": (32, TEXT_LEN), "image": (32, IMAGE_LEN),
                "fused": (32, TEXT_LEN + IMAGE_LEN), "itm": (96, TEXT_LEN + IMAGE_LEN)}
 MLP_ROWS, MLP_THRESHOLD, WIDTH, HIDDEN = (1280, 6304, 7584), 6554, 768, 3072
 QUEUE_CYCLES = 40_000_000
+KERNELS = ("flash_attention_bwd", "flash_attention_fwd_drop", "flash_attention_bwd_drop",
+           "w8a8_mlp_fwd_drop")
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -59,7 +63,7 @@ def worker(tree: Path) -> dict:
 
     assert Path(fa.__file__).resolve().is_relative_to(tree.resolve()), fa.__file__
     dev = torch.device("cuda")
-    out = {"tree": str(tree), "flash_attention_bwd_drop": {}, "w8a8_mlp_fwd_drop": {}}
+    out = {"tree": str(tree), **{name: {} for name in KERNELS}}
     rng = np.random.default_rng(1)
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     for name, (b, n) in ATTN_SHAPES.items():
@@ -69,10 +73,16 @@ def worker(tree: Path) -> dict:
         real = rng.integers(n // 2, n + 1, b)
         kb = torch.from_numpy(np.where(np.arange(n)[None, :] < real[:, None], 0.0, -1e30)
                               .astype(np.float32)).to(dev)
-        o, lse = fa.flash_attention_fwd_drop_plain(q, k, v, kb, seed, HEAD_DIM ** -0.5, RATE)
+        scale = HEAD_DIM ** -0.5
+        o, lse = fa.flash_attention_fwd_plain(q, k, v, kb, scale)
+        od, lsed = fa.flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, RATE)
+        out["flash_attention_bwd"][name] = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, kb, o, do, lse, scale))
+        out["flash_attention_fwd_drop"][name] = time_ms(
+            torch, lambda: fa.flash_attention_fwd_drop(q, k, v, kb, seed, scale, RATE))
         out["flash_attention_bwd_drop"][name] = time_ms(torch, lambda: fa.flash_attention_bwd_drop(
-            q, k, v, kb, seed, o, do, lse, HEAD_DIM ** -0.5, RATE))
-        del q, k, v, do, o, lse
+            q, k, v, kb, seed, od, do, lsed, scale, RATE))
+        del q, k, v, do, o, lse, od, lsed
     g = torch.Generator(device=dev).manual_seed(6)
     w1 = torch.randn((HIDDEN, WIDTH), generator=g, device=dev) * 0.02
     w2 = torch.randn((WIDTH, HIDDEN), generator=g, device=dev) * 0.02
@@ -113,7 +123,7 @@ def main(argv: list[str]) -> int:
         print(json.dumps({"run": label, **line}), flush=True)
         runs.append((label, line))
     summary = {}
-    for kernel in ("flash_attention_bwd_drop", "w8a8_mlp_fwd_drop"):
+    for kernel in KERNELS:
         for shape in runs[0][1][kernel]:
             summary[f"{kernel} {shape}"] = {
                 label: [r[kernel][shape] for lab, r in runs if lab == label]

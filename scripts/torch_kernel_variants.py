@@ -6,7 +6,7 @@
 Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
 textual edits applied (the JSON, by default
 scripts/torch_kernel_variants.json, maps a name to {"kind": "mlp" |
-"mlp_drop" | "attn" | "attn_long" | "attn_bwd" | "w8a8_mlp" |
+"mlp_drop" | "attn" | "attn_drop" | "attn_long" | "attn_bwd" | "w8a8_mlp" |
 "w8a8_mlp_drop" | "dvae", "src": file, "edits": [[old, new], ...]}; every
 `old` must occur); kinds named after the file keep only their variants.
 All variants are compiled at once with the package's
@@ -14,9 +14,11 @@ nvcc flags into a temporary directory, then each is swapped in for the
 package's kernel and timed, in the order A B ... B A, at the shapes the
 main paths give it: the bf16 fused MLP (row 6) at the serving M, its
 dropout forward (row 7) at the finetune_vqa M, the short flash forward (row
-1) at the batch-64 request's three streams, the long flash forward (row 5)
-at the 1024^2 request's two streams, the dropout backward (row 4) at the
-pretrain_mum step's four shapes, the W8A8 MLP (row 9) at the int8
+1) at the batch-64 request's three streams, its dropout variant (row 3)
+at the pretrain_mum step's four shapes, the long flash forward (row 5) at
+the 1024^2 request's two streams, the backward (row 4 with dropout, row 2
+without) at the pretrain_mum step's four shapes, the W8A8 MLP (row 9) at
+the int8
 request's M and its dropout forward (row 10) at the int8 finetune_vqa M,
 the dVAE block (row 11) at the five blocks the tokenizer fuses. A variant whose output leaves the kernel's
 tolerance against the plain version is marked BAD (variants that skip work
@@ -53,9 +55,13 @@ from exploremultimodal_torch.ops.dvae_conv import (  # noqa: E402
 )
 from exploremultimodal_torch.ops.attention import key_padding_bias  # noqa: E402
 from exploremultimodal_torch.ops.flash_attention import (  # noqa: E402
+    flash_attention_bwd,
     flash_attention_bwd_drop,
     flash_attention_bwd_drop_plain,
+    flash_attention_bwd_plain,
     flash_attention_fwd,
+    flash_attention_fwd_drop,
+    flash_attention_fwd_drop_plain,
     flash_attention_fwd_long,
     flash_attention_fwd_long_plain,
     flash_attention_fwd_plain,
@@ -74,14 +80,17 @@ from exploremultimodal_torch.ops.quant_fused import (  # noqa: E402
 )
 
 MLP_ROWS = (64, 320, 2560, 4999, 12608, 15168, 32776)
-SYMBOL = {"mlp": ("fused_mlp_sm90", mlp_fused._SM90_ARGTYPES),
-          "mlp_drop": ("fused_mlp_sm90_drop", mlp_fused._DROP_ARGTYPES),
-          "attn": ("flash_attention_fwd_sm90", flash_attention._FWD_SM90_ARGS),
-          "attn_long": ("flash_attention_long_sm90", flash_attention._FWD_LONG_ARGS),
-          "attn_bwd": ("flash_attention_bwd_sm90_drop", flash_attention._BWD_SM90_DROP_ARGS),
-          "w8a8_mlp": ("w8a8_mlp_sm90", quant_fused._MLP_SM90_ARGTYPES),
-          "w8a8_mlp_drop": ("w8a8_mlp_sm90_drop", quant_fused._MLP_SM90_DROP_ARGTYPES),
-          "dvae": ("dvae_block", dvae_conv._ARGS)}
+# the entry points each kind swaps in, with their argument types
+SYMBOL = {"mlp": {"fused_mlp_sm90": mlp_fused._SM90_ARGTYPES},
+          "mlp_drop": {"fused_mlp_sm90_drop": mlp_fused._DROP_ARGTYPES},
+          "attn": {"flash_attention_fwd_sm90": flash_attention._FWD_SM90_ARGS},
+          "attn_drop": {"flash_attention_fwd_sm90_drop": flash_attention._FWD_SM90_DROP_ARGS},
+          "attn_long": {"flash_attention_long_sm90": flash_attention._FWD_LONG_ARGS},
+          "attn_bwd": {"flash_attention_bwd_sm90_drop": flash_attention._BWD_SM90_DROP_ARGS,
+                       "flash_attention_bwd_sm90": flash_attention._BWD_SM90_ARGS},
+          "w8a8_mlp": {"w8a8_mlp_sm90": quant_fused._MLP_SM90_ARGTYPES},
+          "w8a8_mlp_drop": {"w8a8_mlp_sm90_drop": quant_fused._MLP_SM90_DROP_ARGTYPES},
+          "dvae": {"dvae_block": dvae_conv._ARGS}}
 
 
 def build(spec: dict, out: Path) -> dict:
@@ -103,18 +112,20 @@ def build(spec: dict, out: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name} failed to build:\n{log}")
-        symbol, argtypes = SYMBOL[spec[name]["kind"]]
-        fn = getattr(ctypes.CDLL(str(out / f"lib{name}.so")), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        fns[name] = fn
+        lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        fns[name] = {}
+        for symbol, argtypes in SYMBOL[spec[name]["kind"]].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+            fns[name][symbol] = fn
     return fns
 
 
-def compare(names, fns, kind, run, check, **timing) -> dict:
+def compare(names, fns, run, check, **timing) -> dict:
     """ms of each variant, in the order A B ... B A; a failed check marks it BAD."""
     res = {}
     for name in names + names[::-1]:
-        _build._loaded[SYMBOL[kind][0]] = fns[name]
+        _build._loaded.update(fns[name])
         ok, err = check()
         res.setdefault(name, []).append(cs.time_ms(run, **timing))
         if not ok:
@@ -138,6 +149,7 @@ def main(argv: list[str]) -> int:
     mlp = [n for n in spec if spec[n]["kind"] == "mlp"]
     mlp_drop = [n for n in spec if spec[n]["kind"] == "mlp_drop"]
     attn = [n for n in spec if spec[n]["kind"] == "attn"]
+    attn_drop = [n for n in spec if spec[n]["kind"] == "attn_drop"]
     attn_long = [n for n in spec if spec[n]["kind"] == "attn_long"]
     w8a8_mlp = [n for n in spec if spec[n]["kind"] == "w8a8_mlp"]
     attn_bwd = [n for n in spec if spec[n]["kind"] == "attn_bwd"]
@@ -149,7 +161,7 @@ def main(argv: list[str]) -> int:
         for m in MLP_ROWS:
             x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
             ref = fused_mlp_fwd_plain(x, w1, b1, w2, b2)
-            res = compare(mlp, fns, "mlp", lambda: fused_mlp_fwd(x, w1, b1, w2, b2),
+            res = compare(mlp, fns, lambda: fused_mlp_fwd(x, w1, b1, w2, b2),
                           lambda: cs.within(fused_mlp_fwd(x, w1, b1, w2, b2), ref,
                                             cs.MLP_ATOL, cs.MLP_RTOL))
             print(json.dumps({"kernel": "fused_mlp_fwd", "M": m, "ms": res}), flush=True)
@@ -162,7 +174,7 @@ def main(argv: list[str]) -> int:
             bits = torch.randint(-32768, 32768, (m, w1.shape[0]), dtype=torch.int16,
                                  generator=g, device=dev)
             ref = fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, t)
-            res = compare(mlp_drop, fns, "mlp_drop",
+            res = compare(mlp_drop, fns,
                           lambda: fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t),
                           lambda: cs.within(fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t),
                                             ref, cs.MLP_ATOL, cs.MLP_RTOL))
@@ -183,7 +195,7 @@ def main(argv: list[str]) -> int:
             kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(cs.BATCH, n)
             kb = kb.contiguous()
             ref = flash_attention_fwd_plain(q, k, v, kb, d ** -0.5)[0]
-            res = compare(attn, fns, "attn",
+            res = compare(attn, fns,
                           lambda: flash_attention_fwd(q, k, v, kb, d ** -0.5),
                           lambda: cs.within(flash_attention_fwd(q, k, v, kb, d ** -0.5)[0],
                                             ref, cs.ATTN_ATOL, cs.ATTN_RTOL))
@@ -195,11 +207,11 @@ def main(argv: list[str]) -> int:
         for m in cs.serve_rows(cfg):
             x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
             ref = w8a8_mlp_fwd_plain(x, *args)
-            res = compare(w8a8_mlp, fns, "w8a8_mlp", lambda: w8a8_mlp_fwd(x, *args),
+            res = compare(w8a8_mlp, fns, lambda: w8a8_mlp_fwd(x, *args),
                           lambda: cs.within(w8a8_mlp_fwd(x, *args), ref, cs.W8A8_ATOL,
                                             cs.W8A8_RTOL))
             print(json.dumps({"kernel": "w8a8_mlp_fwd", "M": m, "ms": res}), flush=True)
-    if attn_bwd:
+    if attn_bwd or attn_drop:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.TRAIN_OVERRIDES))
         heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
         rate, scale = cfg.attn_drop_rate, d ** -0.5
@@ -212,26 +224,49 @@ def main(argv: list[str]) -> int:
                  "itm": np.concatenate([txt3, np.ones((3 * cs.TRAIN_BATCH, n_img), np.int32)],
                                        1)}
         seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
+        bwd_tol = [(cs.BWD_ATOL, cs.BWD_RTOL)] * 3
+        fwd_tol = [(cs.ATTN_ATOL, cs.ATTN_RTOL), (cs.ATTN_LSE_ATOL, 0.0)]
         for stream, mask in masks.items():
             b, n = mask.shape
             g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
             q, k, v, do = (torch.randn((b * heads, n, d), generator=g, device=dev)
                            .to(torch.bfloat16) for _ in range(4))
             kb = key_padding_bias(torch.from_numpy(mask).to(dev)).reshape(b, n).contiguous()
-            o, lse = cs.flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)
-            ref = flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale, rate)
+            o, lse = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)
+            o0, lse0 = flash_attention_fwd_plain(q, k, v, kb, scale)
+            runs = {  # kernel: (its kind's variants, run, plain version, tolerances)
+                "flash_attention_bwd_drop": (
+                    attn_bwd,
+                    lambda: flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate),
+                    lambda: flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale,
+                                                           rate),
+                    bwd_tol),
+                "flash_attention_bwd": (
+                    attn_bwd,
+                    lambda: flash_attention_bwd(q, k, v, kb, o0, do, lse0, scale),
+                    lambda: flash_attention_bwd_plain(q, k, v, kb, o0, do, lse0, scale),
+                    bwd_tol),
+                "flash_attention_fwd_drop": (
+                    attn_drop,
+                    lambda: flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate),
+                    lambda: flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate),
+                    fwd_tol),
+            }
+            for kernel, (names, run, plain, tols) in runs.items():
+                if not names:
+                    continue
+                ref = plain()
 
-            def run():
-                return flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate)
+                def check():
+                    checks = [cs.within(x, y, atol, rtol)
+                              for x, y, (atol, rtol) in zip(run(), ref, tols)]
+                    return all(ok for ok, _ in checks), max(e for _, e in checks)
 
-            def check():
-                checks = [cs.within(x, y, cs.BWD_ATOL, cs.BWD_RTOL) for x, y in zip(run(), ref)]
-                return all(ok for ok, _ in checks), max(e for _, e in checks)
-
-            res = compare(attn_bwd, fns, "attn_bwd", run, check)
-            print(json.dumps({"kernel": "flash_attention_bwd_drop", "stream": stream, "N": n,
-                              "BH": b * heads, "ms": res}), flush=True)
-            del q, k, v, do, o, lse, ref
+                res = compare(names, fns, run, check)
+                print(json.dumps({"kernel": kernel, "stream": stream, "N": n, "BH": b * heads,
+                                  "ms": res}), flush=True)
+                del ref
+            del q, k, v, do, o, lse, o0, lse0
             torch.cuda.empty_cache()
     if w8a8_mlp_drop:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.W8A8_VQA_OVERRIDES))
@@ -242,7 +277,7 @@ def main(argv: list[str]) -> int:
             bits = torch.randint(-32768, 32768, (m, args[0].shape[0]), dtype=torch.int16,
                                  generator=g, device=dev)
             ref = w8a8_mlp_fwd_drop_plain(x, *args, bits, t)
-            res = compare(w8a8_mlp_drop, fns, "w8a8_mlp_drop",
+            res = compare(w8a8_mlp_drop, fns,
                           lambda: w8a8_mlp_fwd_drop(x, *args, bits, t),
                           lambda: cs.within(w8a8_mlp_fwd_drop(x, *args, bits, t), ref,
                                             cs.W8A8_ATOL, cs.W8A8_RTOL))
@@ -259,7 +294,7 @@ def main(argv: list[str]) -> int:
             kb = torch.zeros((cs.HIRES_BATCH, n), dtype=torch.float32, device=dev)
             kb[:, :cfg.max_text_len // 2] = -1e30
             ref = flash_attention_fwd_long_plain(q, k, v, kb, d ** -0.5)
-            res = compare(attn_long, fns, "attn_long",
+            res = compare(attn_long, fns,
                           lambda: flash_attention_fwd_long(q, k, v, kb, d ** -0.5),
                           lambda: cs.within(flash_attention_fwd_long(q, k, v, kb, d ** -0.5),
                                             ref, cs.ATTN_ATOL, cs.ATTN_RTOL),
@@ -276,7 +311,7 @@ def main(argv: list[str]) -> int:
             x = torch.randn((cs.DVAE_BATCH, h, h, block_widths(blk)[0]), generator=g,
                             device=dev).to(torch.bfloat16)
             ref = fused_encoder_block_plain(x, blk, enc.post_gain, pool)
-            res = compare(dvae, fns, "dvae",
+            res = compare(dvae, fns,
                           lambda: fused_encoder_block(x, blk, enc.post_gain, pool),
                           lambda: cs.within(fused_encoder_block(x, blk, enc.post_gain, pool),
                                             ref, cs.DVAE_ATOL, cs.DVAE_RTOL),

@@ -2,12 +2,15 @@
 """Where the time of one training step goes in the PyTorch port, on one GPU.
 
     python3 scripts/torch_profile_train.py             # pretrain_mum
+    python3 scripts/torch_profile_train.py drop0       # pretrain_mum, attention dropout 0
     python3 scripts/torch_profile_train.py vqa         # finetune_vqa
     python3 scripts/torch_profile_train.py vqa_w8a8    # finetune_vqa, int8 MLP
 
 Builds a training configuration of `chip_smoke.py`: with no argument its
 pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
-0.1, batch 32, synthetic data, random dVAE); with `vqa` its finetune_vqa
+0.1, batch 32, synthetic data, random dVAE); with `drop0` that step at
+attn_impl=pallas and attention dropout 0 (the flash forward and backward
+without dropout, rows 1 and 2); with `vqa` its finetune_vqa
 step (the same with mlp_impl=fused, no dVAE); with `vqa_w8a8` that step
 under model.quantize=w8a8_pallas_mlp. Takes two warm-up steps,
 times UNTRACED steps on the host clock with a synchronise around each, then
@@ -71,10 +74,12 @@ def main(argv: list[str]) -> int:
     if not torch.cuda.is_available():
         print("torch_profile_train: no CUDA device", file=sys.stderr)
         return 1
-    cells = {(): TRAIN_OVERRIDES, ("vqa",): VQA_OVERRIDES,
+    cells = {(): TRAIN_OVERRIDES,
+             ("drop0",): TRAIN_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"],
+             ("vqa",): VQA_OVERRIDES,
              ("vqa_w8a8",): W8A8_VQA_OVERRIDES}
     if tuple(argv) not in cells:
-        print("usage: torch_profile_train.py [vqa | vqa_w8a8]", file=sys.stderr)
+        print("usage: torch_profile_train.py [drop0 | vqa | vqa_w8a8]", file=sys.stderr)
         return 2
     card = card_line()
     overrides = cells[tuple(argv)]

@@ -6,8 +6,11 @@ is tested here: the bf16 fused MLP's hidden-split rule (how many CTAs share
 a row tile's hidden dimension, with partial sums added in a second pass),
 its grid and its cache of tensor maps, keyed by what a map encodes (with
 and without the dropout bits, rows 6 and 7); the long flash forward's grid
-and 3D tensor maps (row 5); and the shape and type checks by which both
-wrappers refuse what their kernels do not take.
+and 3D tensor maps (row 5); the routes of the flash forward and backward
+by sequence length (rows 1-4: the sm90 kernels up to 256 keys, the
+mma.sync ones past it) and the arguments each launch passes; and the shape
+and type checks by which the wrappers refuse what their kernels do not
+take.
 """
 
 import ctypes
@@ -576,17 +579,92 @@ def test_row9_checks_raise(bad):
 BWD_SRC = fa._build.CSRC / "flash_attention_bwd_sm90.cu"
 
 
-@pytest.mark.parametrize("n,route", [
+# per row: the wrapper, its route function, and the (source, entry,
+# argument types) it loads on the sm90 and on the mma.sync route
+ROUTED = {
+    1: (fa.flash_attention_fwd, fa.fwd_route,
+        ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90", fa._FWD_SM90_ARGS),
+        ("flash_attention_fwd", "flash_attention_fwd", fa._FWD_ARGS)),
+    2: (fa.flash_attention_bwd, fa.bwd_route,
+        ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90", fa._BWD_SM90_ARGS),
+        ("flash_attention_bwd", "flash_attention_bwd", fa._BWD_ARGS)),
+    3: (fa.flash_attention_fwd_drop, fa.fwd_route,
+        ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90_drop", fa._FWD_SM90_DROP_ARGS),
+        ("flash_attention_fwd", "flash_attention_fwd_drop", fa._FWD_DROP_ARGS)),
+    4: (fa.flash_attention_bwd_drop, fa.bwd_route,
+        ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90_drop", fa._BWD_SM90_DROP_ARGS),
+        ("flash_attention_bwd", "flash_attention_bwd_drop", fa._BWD_DROP_ARGS)),
+}
+
+
+def _routed_launch(monkeypatch, row: int, n: int, bh: int = 24, b: int = 2):
+    """Call row `row`'s wrapper on (bh, n, 64) tensors on the meta device
+    (neither CPU, which takes the plain version, nor CUDA) with a fake
+    loader; returns the (source, entry, argument types) of each kernel it
+    loaded and how far its launch count moved."""
+    loaded = []
+
+    def fake_load(name, argtypes, symbol=None):
+        symbol = symbol or name
+        if not symbol.endswith("_encode"):
+            loaded.append((name, symbol, argtypes))
+        return lambda *args: 0
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
+    q, k, v, o, do = (torch.empty(bh, n, 64, dtype=torch.bfloat16, device="meta")
+                      for _ in range(5))
+    kb = torch.empty(b, n, device="meta")
+    lse = torch.empty(bh, n, device="meta")
+    seed = torch.empty(1, dtype=torch.int32, device="meta")
+    wrapper = ROUTED[row][0]
+    args = {1: (q, k, v, kb, 0.125), 2: (q, k, v, kb, o, do, lse, 0.125),
+            3: (q, k, v, kb, seed, 0.125, 0.1),
+            4: (q, k, v, kb, seed, o, do, lse, 0.125, 0.1)}[row]
+    before = wrapper.launches
+    wrapper(*args)
+    return loaded, wrapper.launches - before
+
+
+ROUTE_CASES = [
     (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
     (257, "mma_sync"), (512, "mma_sync"),
-])
-def test_row4_route_by_length(n, route):
+]
+
+
+def _check_route(monkeypatch, row: int, n: int, route: str):
+    """Row `row`'s route at N keys, and the wrapper loads the entry of that
+    route (its source, symbol and argument types), and only that, and
+    counts one launch."""
+    _, route_of, sm90, mma_sync = ROUTED[row]
+    limit = fa.SM90_FWD_MAX_N if route_of is fa.fwd_route else fa.SM90_BWD_MAX_N
+    assert route_of(n) == route
+    assert (n <= limit) == (route == "sm90") and n <= fa.LONG_SEQ_THRESHOLD
+    loaded, launches = _routed_launch(monkeypatch, row, n)
+    assert loaded == [sm90 if route == "sm90" else mma_sync] and launches == 1
+    source, symbol, _ = loaded[0]
+    assert f'extern "C" int {symbol}(' in (fa._build.CSRC / f"{source}.cu").read_text()
+
+
+@pytest.mark.parametrize("row", [1, 2, 3])
+@pytest.mark.parametrize("n,route", ROUTE_CASES)
+def test_route_by_length(monkeypatch, row, n, route):
+    """Rows of up to 256 keys take the sm90 kernels (row 1's forward, with
+    or without the dropout mask, and the sm90 backward: a head's operands in
+    one slot); longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync kernels
+    of flash_attention_fwd.cu and flash_attention_bwd.cu by their old entry
+    points and argument types."""
+    _check_route(monkeypatch, row, n, route)
+
+
+@pytest.mark.parametrize("n,route", ROUTE_CASES)
+def test_row4_route_by_length(monkeypatch, n, route):
     """Rows of up to 256 keys take the sm90 backward (a head's B-side pair
     in one head slot); longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync
     kernels of flash_attention_bwd.cu."""
-    assert fa.bwd_route(n) == route
-    assert (n <= fa.SM90_BWD_MAX_N) == (route == "sm90")
-    assert n <= fa.LONG_SEQ_THRESHOLD
+    _check_route(monkeypatch, 4, n, route)
 
 
 @pytest.mark.parametrize("bh,n,width,grid,tail", [
@@ -724,6 +802,83 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     assert rest[7:12] == (24, 12, n, fa.fwd_sm90_tile(n), 24)
     assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert len(fa._MAPS) <= cap
+
+
+def _fake_sm90_loader(monkeypatch, source, entry, nargs, cap):
+    """A loader for `source`'s encoder and its `entry` (checked to be given
+    `nargs` argument types): the kernel records the maps' bytes and the
+    rest of its arguments."""
+    calls, launches = [], []
+
+    def kernel(*args):
+        launches.append(args)
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == source
+        if symbol == f"{source}_encode":
+            return _fake_encoder(calls)
+        assert (symbol or name) == entry and len(argtypes) == nargs
+        return kernel
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    monkeypatch.setattr(fa, "_MAPS_CAP", cap)
+    monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
+    return launches
+
+
+def _map_addresses(args, count):
+    return [struct.unpack("<q", _map_bytes(m)[:8])[0] for m in args[:count]]
+
+
+@pytest.mark.parametrize("n,cap", [(40, 1), (237, 2), (256, 256)])
+def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
+    """Row 2 on the sm90 backward: the entry without dropout
+    (`flash_attention_bwd_sm90`, no seed, threshold or factor) gets the five
+    maps of q, k, v, o, do, live across a cache eviction; then the bias,
+    lse, delta, dq, dk, dv pointers, (bh, heads, n, key width, grid), the
+    scale and the stream."""
+    launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
+                                 "flash_attention_bwd_sm90", 18, cap)
+    q, k, v, kb, _, o, do, lse = _bwd_args(n=n)
+    for _ in range(2):
+        dq, dk, dv = fa._launch_bwd_sm90(q, k, v, kb, None, o, do, lse, 0.125)
+        assert _map_addresses(launches[-1], 5) == [t.data_ptr() for t in (q, k, v, o, do)]
+    assert dq.shape == dk.shape == dv.shape == q.shape
+    rest = launches[-1][5:]
+    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 18
+    assert rest[0] == kb.data_ptr() and rest[1] == lse.data_ptr()
+    assert rest[3:6] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert rest[6:11] == (24, 12, n, fa.fwd_sm90_tile(n), 24)
+    assert rest[11:] == (0.125, 0)
+    assert len(fa._MAPS) <= cap
+
+
+@pytest.mark.parametrize("n,cap", [(40, 1), (197, 2), (256, 256)])
+def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
+    """Row 3 on row 1's sm90 forward: the `DROP` entry
+    (`flash_attention_fwd_sm90_drop`) gets row 1's "short" maps of q, k, v,
+    live across a cache eviction; then the bias, seed, out, lse pointers,
+    row 1's (bh, heads, n, key width, grid), the scale, the uint32
+    threshold, the fp32 factor and the stream."""
+    launches = _fake_sm90_loader(monkeypatch, "flash_attention_fwd_sm90",
+                                 "flash_attention_fwd_sm90_drop", 16, cap)
+    kb, q, k, v = _attn_args(bh=24, n=n, b=2)
+    seed = torch.zeros(1, dtype=torch.int32)
+    for _ in range(2):
+        out, lse = fa._launch_fwd_sm90(q, k, v, kb, 0.125, seed, 0.1)
+        assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
+    assert out.shape == q.shape and lse.shape == (24, n)
+    rest = launches[-1][3:]
+    assert len(launches[-1]) == len(fa._FWD_SM90_DROP_ARGS) == 16
+    assert rest[:4] == (kb.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr())
+    assert rest[4:9] == (24, 12, n, fa.fwd_sm90_tile(n), fa.fwd_sm90_grid(24, H100_SMS))
+    assert rest[9:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert fa.dropout_threshold(0.1) == 429496729
+    assert len(fa._MAPS) <= cap
+    assert all(key[0] == "short" for key in fa._MAPS)
 
 
 @pytest.mark.parametrize("bad", [
