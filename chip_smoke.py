@@ -7,8 +7,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from the checkout's sources (nvcc, sm_90a, one
      process per source, all at once) into exploremultimodal_torch/ops/build/;
-  3. the shared memory the sm90 kernels of rows 1, 4, 9 and 10 report
-     against their wrappers' layout; at each shape the VQA serving path gives each
+  3. the shared memory the sm90 kernels of rows 1, 2/4 (up to 512 keys), 8,
+     9 and 10 report against their wrappers' layout; at each shape the VQA
+     serving path gives each
      serving kernel, hold the kernel against its plain PyTorch version on
      the card, then time the kernel, the plain version and a library call
      computing the same function (row 1 also at batch 8 at N = 100, 150
@@ -21,13 +22,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      compare two requests with the CPU's plain path, and time the requests;
   5. at each shape the pretrain_mum step gives the training kernels (the
      flash backward, the dropout forward and the dropout backward: rows 2,
-     3 and 4, all three on the sm90 kernels there), and at batch 8 at N =
-     256 (the widest sm90 instantiation) and N = 512 (the mma.sync
-     routes), hold each against its plain version, with its route, key
-     width and grid, check the in-kernel dropout mask bit for bit (through
-     the sm90 forward and backward), and time kernel, plain version and
-     SDPA (the backward rows against SDPA's backward alone, and its forward
-     and backward);
+     3 and 4, all three on the sm90 kernels there), and off the path at
+     batch 8 at N = 256, 333 (ragged) and 512 and at batch 32 at N = 333
+     and 512 (pretrain_txt's length; the backward's sm90 kernels up to 512
+     keys, in work units of a head's tile groups where heads are fewer than
+     SMs; the dropout forward's mma.sync route past 256), hold each against
+     its plain version, with its route, key width and grid, check the
+     in-kernel dropout mask bit for bit (through the sm90 forward and
+     backward at ITM's shape, and through the backward at N = 512), and time
+     kernel, plain version and SDPA (the backward rows against SDPA's
+     backward alone, and its forward and backward);
   6. train pretrain_mum at vlmo_base, batch 32, on the synthetic data with a
      random dVAE (attn_impl=auto: the dropout kernels): one warm-up step and
      TRAIN_STEPS timed steps, with every launch counted;
@@ -52,8 +56,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      2 and 6;
  12. one finetune_vqa step at batch 2 on the card and on the CPU's plain
      path (hidden dropout and DropPath off), compared;
- 13. int8 (W8A8): row 8 against its plain version at the serving M for
-     proj and qkv, row 9 at M = 64 and two ragged M, the finetune_vqa M and
+ 13. int8 (W8A8): row 8 bit for bit against its plain version for proj and
+     qkv at M = 64, two ragged M, the finetune_vqa M and the serving M (with
+     its grid), row 9 at M = 64 and two ragged M, the finetune_vqa M and
      the serving M (with its grid and hidden split), row 10 at M = 64 and
      two ragged M, the finetune_vqa M and two thresholds (with its grid and
      split), each timed beside its plain version,
@@ -61,8 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      the exact product of its codes;
  14. serve batch-64 requests with model.quantize=w8a8_pallas_mlp (row 9 on
      every FFN call), compare two with the CPU's plain path, print the argmax
-     agreement with phase 4's bf16 logits; two requests at w8a8_pallas (row 8
-     on qkv and proj as well);
+     agreement with phase 4's bf16 logits; then as many at w8a8_pallas (row 8
+     on qkv and proj as well), one compared with the CPU, all timed;
  15. train finetune_vqa under w8a8_pallas_mlp (row 10 on every FFN call): a
      warm-up step and TRAIN_STEPS timed ones; two steps at w8a8_pallas, two
      at dropout 0 (row 9 trains); a batch-2 step against the CPU;
@@ -118,9 +123,11 @@ from exploremultimodal_torch.ops.dvae_conv import (
 from exploremultimodal_torch.ops.flash_attention import (
     FULL_ROW_FWD_MAX,
     LONG_TILE,
+    SM90_BWD_MAX_N,
     SM90_BWD_ROLES,
     bwd_route,
     bwd_sm90_layout,
+    bwd_sm90_units,
     dropout_keep_mask_plain,
     flash_attention_bwd,
     flash_attention_bwd_drop,
@@ -152,6 +159,8 @@ from exploremultimodal_torch.ops.mlp_fused import (
 from exploremultimodal_torch.ops.quant import _quantize_int8, quant_dot
 from exploremultimodal_torch.ops.quant_fused import (
     int8_product,
+    matmul_grid,
+    matmul_smem,
     mlp_grid,
     mlp_smem,
     mlp_splits,
@@ -215,16 +224,19 @@ TRAIN_STEPS = 5  # timed, after one warm-up step, in each training phase
 EXTRA_STEPS = 2  # untimed, in each variant of a training phase
 CPU_TRAIN_BATCH = 2
 DROP_SEED = 1234
-# rows 2, 3 and 4 off the path, at batch 8: the widest key width of their
-# sm90 kernels, and one N past SM90_FWD_MAX_N and SM90_BWD_MAX_N (their
-# mma.sync routes)
-TRAIN_OFF_PATH_N = (256, 512)
+# rows 2, 3 and 4 off the path, (batch, N): at batch 8 (BH = 96, fewer
+# heads than SMs) the widest key width the sm90 forward takes, a ragged N
+# past it (padded width 336: one head slot in the backward) and the fused
+# backward's longest, and at batch 32 (BH = 384) those two, the shape
+# pretrain_txt's 512 tokens give; row 3 takes the mma.sync forward past 256
+TRAIN_OFF_PATH = ((8, 256), (8, 333), (8, 512), (32, 333), (32, 512))
 # backward kernels vs plain versions, bf16 out. Both sum fp32 products of
 # bf16 inputs, in other orders; the kernel keeps 16 mantissa bits of p and ds
 # for its products with k, q and do (2**-17 relative per term). Both round
 # dq, dk and dv to bf16, which may differ by one ulp (2**-7 of |x|) where the
 # fp32 values straddle a rounding boundary; 1e-3 covers the fp32 differences
-# of sums of up to 237 terms of magnitude below 1 near zero.
+# near zero of sums of up to 512 terms whose magnitudes sum to below 4 (p
+# sums to 1 over the keys; |do| < 4): 512 * 2**-24 plus 4 * 2**-17 of it.
 BWD_ATOL, BWD_RTOL = 1e-3, 2 ** -7
 # one step on the card against the CPU's plain path, both in bf16 with sums
 # in other orders through 12 blocks: losses within 2% (the bf16 rounding of
@@ -273,7 +285,6 @@ MLP_DROP_OFF_PATH_ROWS = (64, 1000, 4999)
 MLP_BWD_REL_L2, MLP_BWD_ATOL_SHARE = 2e-2, 5e-2
 W8A8_SERVE_OVERRIDES = SERVE_OVERRIDES + ["model.quantize=w8a8_pallas_mlp"]
 W8A8_VQA_OVERRIDES = VQA_OVERRIDES + ["model.quantize=w8a8_pallas_mlp"]
-W8A8_VARIANT_REQUESTS = 2  # the w8a8_pallas serving variant, launches counted
 # int8 kernels vs plain versions on the card, bf16 out. Both take the same
 # int8 codes (the same roundings of the scales) and exact int32 sums, then
 # the same fp32 products, so row 8 is expected bit for bit. Rows 9/10 pass h
@@ -357,19 +368,22 @@ def text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
 
 def check_layouts() -> dict:
     """The shared memory each sm90 kernel with a layout mirrored on the
-    host reports for itself against that mirror (rows 1, 4, 9 and 10), all
-    within the 232,448 bytes a block may use."""
+    host reports for itself against that mirror (rows 1, 2/4 at every key
+    width up to SM90_BWD_MAX_N, 8, 9 and 10), all within the 232,448 bytes a
+    block may use."""
     fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int],
                            "flash_attention_fwd_sm90_smem")
     bwd_smem = _build.load("flash_attention_bwd_sm90", [ctypes.c_int] * 2,
                            "flash_attention_bwd_sm90_smem")
     mlp_smem_fn = _build.load("w8a8_mlp_sm90", [ctypes.c_int], "w8a8_mlp_sm90_smem")
+    matmul_smem_fn = _build.load("w8a8_matmul_sm90", [], "w8a8_matmul_sm90_smem")
     got = {f"flash_attention_fwd_sm90 nt={nt}": (fwd_smem(nt), fwd_sm90_smem(nt))
            for nt in range(16, 257, 16)}
     for r, role in enumerate(SM90_BWD_ROLES):
         got.update({f"flash_attention_bwd_sm90 {role} nt={nt}":
                     (bwd_smem(nt, r), bwd_sm90_layout(nt, role)["smem"])
-                    for nt in range(16, 257, 16)})
+                    for nt in range(16, SM90_BWD_MAX_N + 1, 16)})
+    got["w8a8_matmul_sm90"] = (matmul_smem_fn(), matmul_smem())
     got["w8a8_mlp_sm90"] = (mlp_smem_fn(0), mlp_smem())
     got["w8a8_mlp_sm90 drop"] = (mlp_smem_fn(1), mlp_smem(drop=True))
     for name, (kernel, host) in got.items():
@@ -644,28 +658,32 @@ def int_mm_mlp(x, qw1, sw1, b1, qw2, sw2, b2, bits=None, t=0):
 
 
 def check_w8a8_matmul(cfg: VlmoConfig, dev) -> list[dict]:
-    """Row 8 against `w8a8_matmul_plain` at the serving path's M for proj
-    (N = 768) and qkv (N = 2304), each timed beside its plain version, the
-    `torch._int_mm` chain (`library_ms`) and the bf16 `F.linear`. The last
-    row is qkv at the largest M."""
+    """Row 8 bit for bit against `w8a8_matmul_plain` for proj (N = 768)
+    and qkv (N = 2304) at M = 64, two ragged M, the finetune_vqa step's M
+    and the serving path's M, with the grid of each; each timed beside its
+    plain version, the `torch._int_mm` chain (`library_ms`) and the bf16
+    `F.linear`. The last row is qkv at the largest M."""
     g = torch.Generator(device=dev).manual_seed(4)
     k = cfg.embed_dim
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = []
     for n_out in (k, 3 * k):
         w = (torch.randn((n_out, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
         qw, sw = quantize_weights(w)
-        for m in serve_rows(cfg):
+        for m in MLP_DROP_OFF_PATH_ROWS + vqa_mlp_rows(cfg) + serve_rows(cfg):
             x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
             y = w8a8_matmul(x, qw, sw)
             ref = w8a8_matmul_plain(x, qw, sw)
             torch.cuda.synchronize()
-            ok, err = within(y, ref, W8A8_ATOL, W8A8_RTOL)
-            require(ok, f"w8a8_matmul M={m} N={n_out}: max|err| {err} beyond atol "
-                    f"{W8A8_ATOL} + rtol {W8A8_RTOL}")
+            err = (y.float() - ref.float()).abs().max().item()
+            require(torch.equal(y, ref), f"w8a8_matmul M={m} N={n_out}: max|err| {err}, "
+                    "not bit for bit with its plain version")
             nbytes = 2 * m * k + n_out * k + 4 * n_out + 2 * m * n_out
             bound_ms, bound_by = bound(nbytes, 2 * m * k * n_out, PEAK_INT8_OPS)
             rows.append({
-                "shape": f"M={m} K={k} N={n_out}", "max_abs_err": err,
+                "shape": f"M={m} K={k} N={n_out}",
+                "on_path": m not in MLP_DROP_OFF_PATH_ROWS,
+                "grid": list(matmul_grid(m, n_out, sms)), "max_abs_err": err,
                 "exact_share": (y == ref).float().mean().item(),
                 "ms": time_ms(lambda: w8a8_matmul(x, qw, sw)),
                 "plain_ms": time_ms(lambda: w8a8_matmul_plain(x, qw, sw), iters=5),
@@ -1105,10 +1123,11 @@ def within(got: torch.Tensor, want: torch.Tensor, atol: float, rtol: float) -> t
 
 
 def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dict:
-    """Rows 2, 3 and 4 off the path at batch 8 at N = TRAIN_OFF_PATH_N (the
-    sm90 kernels' widest key width, then the mma.sync routes), then at each
-    shape of the pretrain_mum step: the text, image and fused (MLM) streams
-    at B = 32 and ITM's fused pair rows at 3B, all on the sm90 kernels. Each
+    """Rows 2, 3 and 4 off the path at the (batch, N) of TRAIN_OFF_PATH
+    (the backward on its sm90 kernels throughout, with its work units),
+    then at each shape of the pretrain_mum step: the text, image and fused
+    (MLM) streams at B = 32 and ITM's fused pair rows at 3B, all on the sm90
+    kernels. Each
     kernel against its plain version on the same inputs, then
     the kernel, the plain version and SDPA timed: the forward rows against
     SDPA's forward, the backward rows against SDPA's backward alone (its
@@ -1119,7 +1138,7 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
     rate, scale = cfg.attn_drop_rate, d ** -0.5
     txt = synthetic_text_mask(rng, TRAIN_BATCH, cfg.max_text_len)
     txt3 = np.concatenate([txt, txt, txt[rng.permutation(TRAIN_BATCH)]])
-    masks = {f"off_path_n{n}": padded_mask(rng, OFF_PATH_BATCH, n) for n in TRAIN_OFF_PATH_N}
+    masks = {f"off_path_b{b}_n{n}": padded_mask(rng, b, n) for b, n in TRAIN_OFF_PATH}
     masks.update({
         "text": txt,
         "image": np.ones((TRAIN_BATCH, n_img), np.int32),
@@ -1191,7 +1210,10 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
             on_path = not stream.startswith("off_path")
             require(route["route"] == "sm90" or not on_path,
                     f"{name} {stream} N={n}: the step's shapes must take the sm90 kernels")
-            if route["route"] == "sm90":
+            if is_bwd:
+                tpg, grid = bwd_sm90_units(bh, n, sms)
+                route.update(key_width=fwd_sm90_tile(n), grid=grid, tiles_per_unit=tpg)
+            elif route["route"] == "sm90":
                 route.update(key_width=fwd_sm90_tile(n), grid=fwd_sm90_grid(bh, sms))
             rows[name].append({
                 "stream": stream, "shape": f"BH={bh} N={n} D={d}",
@@ -1204,9 +1226,10 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
     return rows
 
 
-def check_dropout_mask(cfg: VlmoConfig, dev, batch: int) -> dict:
-    """The in-kernel dropout mask, bit for bit, at ITM's shape (the largest
-    batch*head, row and column indices of the step). The inputs make every
+def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None) -> dict:
+    """The in-kernel dropout mask, bit for bit, at `batch` rows of N tokens
+    (by default the fused length: at ITM's batch the largest batch*head, row
+    and column indices of the step). The inputs make every
     checked output element carry exactly one mask bit: q and k are zero on
     each other's dims, so p = 1/N everywhere, and one-hot windows of W rows
     pick the bits out:
@@ -1219,7 +1242,7 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int) -> dict:
     value by scale / (N (1 - rate)), and the check allows a quarter of
     that."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
-    n = cfg.max_text_len + (cfg.img_size // cfg.patch_size) ** 2 + 1
+    n = n or cfg.max_text_len + (cfg.img_size // cfg.patch_size) ** 2 + 1
     b, rate, scale, width = batch, cfg.attn_drop_rate, d ** -0.5, 31
     bh = b * heads
     seed = torch.tensor([DROP_SEED + 1], dtype=torch.int32, device=dev)
@@ -1493,6 +1516,9 @@ def main() -> int:
             print("kernel: " + json.dumps({"name": name, **row}), flush=True)
     print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev, 3 * TRAIN_BATCH)),
           flush=True)
+    # the backward's sm90 kernels past 256 keys (one head slot, work units)
+    print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev, OFF_PATH_BATCH,
+                                                           SM90_BWD_MAX_N)), flush=True)
     per_step = attention_calls_per_step(train_cfg)
     train_launches = timed_phase("train", train_dict, CHECKED_PARAMS, {
         "flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step})
@@ -1561,7 +1587,7 @@ def main() -> int:
         "serve_w8a8_pallas", load_config(SERVE_OVERRIDES + ["model.quantize=w8a8_pallas"]),
         w8_cfg, card, {"w8a8_matmul": 2 * calls, "w8a8_mlp_fwd": calls,
                        "flash_attention_fwd": calls},
-        requests=W8A8_VARIANT_REQUESTS, e2e_atol=None)
+        e2e_atol=W8A8_E2E_ATOL, cpu_check=(1, CPU_CHECK_ROWS))
     # row 10 on every FFN call, rows 3 and 4 on every attention call
     w8_vqa_launches = timed_phase("vqa_w8a8_train", load_config(W8A8_VQA_OVERRIDES),
                                   CHECKED_VQA_PARAMS, {
@@ -1621,7 +1647,7 @@ def main() -> int:
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
     mlp_src = "exploremultimodal_torch/ops/csrc/fused_mlp_sm90.cu"
     tpu_mlp = "exploremultimodal_tpu/ops/mlp_pallas.py"
-    q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul.cu"
+    q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul_sm90.cu"
     qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_sm90.cu"
     tpu_q = "exploremultimodal_tpu/ops/quant_pallas.py"
     kernels = [

@@ -1,14 +1,13 @@
 // Flash-attention backward, with and without in-kernel dropout (DROP), for
-// Hopper (sm_90a) on wgmma and TMA, for N <= 256; bf16 in and out, fp32
+// Hopper (sm_90a) on wgmma and TMA, for N <= 512; bf16 in and out, fp32
 // math.
 //
 // Replaces two Pallas kernels of exploremultimodal_tpu/ops/flash_attention.py
-// at every length the VLMo training paths give them (text 40, image 197,
-// fused 237 tokens): `_attn_bwd_kernel` (:170, launched by `_bwd_call` :395;
-// entry `flash_attention_bwd_sm90`) and, with DROP, `_attn_drop_bwd_kernel`
-// (:237, launched by `_bwd_drop_call` :362; entry
-// `flash_attention_bwd_sm90_drop`). Longer rows (256 < N <= 512) take the
-// mma.sync kernels of flash_attention_bwd.cu. Same function: for each
+// at every length the fused backward takes (N <= 512; the VLMo training
+// paths give text 40, image 197, fused 237 tokens): `_attn_bwd_kernel`
+// (:170, launched by `_bwd_call` :395) and, with DROP, `_attn_drop_bwd_kernel`
+// (:237, launched by `_bwd_drop_call` :362); one entry,
+// `flash_attention_bwd_sm90`, takes either, by its seed. Same function: for each
 // batch*head, with p = exp(s - lse) the clean probabilities rebuilt from the
 // forward's lse and keep the forward's mask (dropout_hash.cuh, times 1 / (1
 // - rate); 1 without DROP),
@@ -35,19 +34,33 @@
 //   - DKDV keeps keys as M: per 64-key tile, S^T = K Q^T and dP^T = V dO^T,
 //     then dv += (keep o p)^T dO and dk += ds^T Q, both from registers
 //     against dO and Q read MN-major.
-// Each CTA takes heads c, c + grid, ... (one CTA per SM). The head's B-side
-// pair (K and V for DQ, Q and dO for DKDV) comes by TMA into one of up to
-// four head slots, with its column vectors (the key bias, or lse and
-// delta) written beside it by the producer warp, so the next head loads
-// while this one computes. The M-side operands come in 64-row tiles (Q, dO
-// and O for DQ; K and V for DKDV) through a ring of up to four stages.
-// Two consumer warpgroups take a CTA's tiles in turn. Boxes are 64 rows of
-// a 3D map over (D, N, BH), so TMA stops at the head's N and fills the
+// A work unit is a head and a group of `tpg` of its 64-row M-side tiles
+// (all of them, unless heads are fewer than SMs and smaller groups shorten
+// the busiest CTA: at BH = 96, N = 512 four groups of two); CTA (x, y)
+// takes group y of heads x, x + grid, ... (at most one CTA per SM). Each
+// tile's dq, or dk and dv, is still summed in one CTA: no atomics, the
+// same result for any grouping. The unit's B-side pair (K and V for DQ, Q
+// and dO for DKDV, the head's whole N) comes by TMA into one of up to four
+// head slots, with its column vectors (the key bias, or lse and delta)
+// written beside it by the producer warp, so the next unit loads while
+// this one computes; past about 320 keys only one slot fits (128 KB at N =
+// 512) and the next unit's pair waits for the slot. The M-side operands
+// come in 64-row tiles (Q, dO and O for DQ; K and V for DKDV) through a
+// ring of up to four stages. Two consumer warpgroups take a CTA's tiles in
+// turn. A parity wait cannot tell a stage's phase from the one two phases
+// earlier, and with an odd stage count a stage's previous tile is the
+// other warpgroup's: a warpgroup that ran ahead could pass its wait before
+// its tile had landed. So each waits first, as the producer did before
+// loading the tile, for the stage's previous tile to be released; that
+// wait cannot alias (the tile before that one was its own, released), and
+// it costs nothing the load did not already wait for. Boxes are 64 rows
+// of a 3D map over (D, N, BH), so TMA stops at the head's N and fills the
 // rest with zeros. Each tile walks the other side's N in 64-wide slabs and
 // a last slab of NT % 64 (NT = N rounded up to 16), so no more than 15
 // padded columns are computed (widths 48 / 208 / 240 at N = 40 / 197 /
 // 237), and a slab's S and dP (64 + 64 fp32 registers) never sit beside
-// another's.
+// another's; the slab loop does not depend on N, so N up to 512 takes the
+// same four instantiations (by NT % 64) as N <= 256.
 //
 // What holds it back (scripts/torch_kernel_variants.py on an H100, the
 // pretrain_mum step's shapes): the two kernels recompute S, dP, exp2 and
@@ -79,6 +92,7 @@ constexpr int D = 64;                   // head dim
 constexpr int BOX = 64;                 // rows per TMA box, per tile and per slab
 constexpr int BOX_BYTES = BOX * D * 2;  // one 64 x 64 bf16 box, 128-byte swizzle
 constexpr int MAX_SLOTS = 4;            // head slots and tile stages, each at most
+constexpr int MAX_NT = 512;             // the widest key width (the fused backward's N)
 constexpr int THREADS = 384;            // two consumer warpgroups and a producer warpgroup
 constexpr int SMEM_LIMIT = 232448;
 constexpr int BAR_BYTES = 8 * 4 * MAX_SLOTS;  // full and empty barriers of slots and stages
@@ -89,7 +103,8 @@ enum Role { DQ = 0, DKDV = 1 };
 // Shared memory at key width nt: `hs` head slots (the B-side pair, 2 x ntb
 // rows), `ts` tile stages (3 or 2 boxes), the head slots' column vectors,
 // the barriers, 1024 bytes of alignment slack. Tile stages first take what
-// leaves room for two head slots, then head slots what is left.
+// leaves room for two head slots (or, where that leaves fewer than two
+// stages, one slot), then head slots what is left.
 struct Layout {
   int ntb, head, vec, tile, ts, hs, tile_off, vec_off, bar_off, smem;
 };
@@ -101,7 +116,8 @@ __host__ __device__ inline Layout layout(int nt, int role) {
   L.vec = (role == DQ ? 1 : 2) * L.ntb * 4;
   L.tile = (role == DQ ? 3 : 2) * BOX_BYTES;
   const int room = SMEM_LIMIT - 1024 - BAR_BYTES;
-  const int ts = (room - 2 * (L.head + L.vec)) / L.tile;
+  int ts = (room - 2 * (L.head + L.vec)) / L.tile;
+  if (ts < 2) ts = (room - (L.head + L.vec)) / L.tile;
   L.ts = ts < MAX_SLOTS ? ts : MAX_SLOTS;
   const int hs = (room - L.ts * L.tile) / (L.head + L.vec);
   L.hs = hs < MAX_SLOTS ? hs : MAX_SLOTS;
@@ -298,9 +314,13 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
 // writes delta (bh, n) and dq (out0). ROLE DKDV: mx, my = Q, dO, ma, mb =
 // K, V (mc unused); reads delta; writes dk (out0) and dv (out1). Every map
 // is over (D, n, bh) in (64, 64, 1) boxes. bias (bh / heads, n) fp32; lse
-// (bh, n) fp32; seed one int32 on the device. `nt` is n rounded up to 16,
-// TAIL = nt % 64 the width of the last slab.
-template <int ROLE, int TAIL, bool DROP>
+// (bh, n) fp32; seed one int32 on the device (DROP). `nt` is n rounded up
+// to 16, TAIL = nt % 64 the width of the last slab; with GROUPS a work unit
+// is a head and `tpg` of its 64-row tiles (group blockIdx.y), else a whole
+// head (the loop of every shape whose heads fill the card: with t0 and t1
+// taken at run time it ran 2-6% slower on the pretrain_mum step's shapes,
+// variant `attn_bwd_no_fork` of scripts/torch_kernel_variants.json).
+template <int ROLE, int TAIL, bool DROP, bool GROUPS>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                      const __grid_constant__ CUtensorMap my,
@@ -310,7 +330,7 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                      const float* __restrict__ lse, float* __restrict__ delta,
                      const int32_t* __restrict__ seed, bf16* __restrict__ out0,
                      bf16* __restrict__ out1, int bh_total, int n, int nt, int heads,
-                     float scale, uint32_t thr, float drop_scale) {
+                     int tpg, float scale, uint32_t thr, float drop_scale) {
   const Layout L = layout(nt, ROLE);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -321,6 +341,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
   const uint32_t hfull0 = base + L.bar_off, hempty0 = hfull0 + 8 * MAX_SLOTS;
   const uint32_t tfull0 = hempty0 + 8 * MAX_SLOTS, tempty0 = tfull0 + 8 * MAX_SLOTS;
   const int tiles = (n + BOX - 1) / BOX;
+  const int t0 = GROUPS ? blockIdx.y * tpg : 0;  // this CTA's tiles of a head
+  const int t1 = GROUPS ? min(tiles, t0 + tpg) : tiles;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < L.hs; ++s) {
@@ -364,7 +386,7 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
           tma_load_3d(dst + b * BOX_BYTES, &mx, hfull, 0, BOX * b, bh);
           tma_load_3d(dst + L.head / 2 + b * BOX_BYTES, &my, hfull, 0, BOX * b, bh);
         }
-        for (int t = 0; t < tiles; ++t, ++u) {
+        for (int t = t0; t < t1; ++t, ++u) {
           const int st = u % L.ts;
           mbar_wait(tempty0 + 8 * st, ((u / L.ts) & 1) ^ 1);
           const uint32_t tfull = tfull0 + 8 * st, tile = base + L.tile_off + st * L.tile;
@@ -402,9 +424,12 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
     const float* v = svec + s * vstride;
     c.key = DROP ? emm::dropout_keys(sd, bh) : emm::DropKeys{0u, 0u};
     const size_t hbase = (size_t)bh * n;
-    for (int t = 0; t < tiles; ++t, ++u) {
+    for (int t = t0; t < t1; ++t, ++u) {
       if ((u & 1) != w) continue;
       const int st = u % L.ts;
+      // tile u - L.ts released: its load is complete, so this parity names
+      // tile u's own phase (see the header)
+      mbar_wait(tempty0 + 8 * st, ((u / L.ts) & 1) ^ 1);
       mbar_wait(tfull0 + 8 * st, (u / L.ts) & 1);
       const uint32_t ta = base + L.tile_off + st * L.tile, tb = ta + BOX_BYTES;
       const int r0 = BOX * t;
@@ -475,67 +500,57 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
   }
 }
 
-template <int ROLE, int TAIL, bool DROP>
+template <int ROLE, int TAIL, bool DROP, bool GROUPS>
 int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
                const CUtensorMap& b, const CUtensorMap& c, const float* bias, const float* lse,
                float* delta, const int32_t* seed, bf16* out0, bf16* out1, int bh, int n,
-               int nt, int heads, int grid, float scale, uint32_t thr, float drop_scale,
-               cudaStream_t stream) {
+               int nt, int heads, int grid, int tpg, float scale, uint32_t thr,
+               float drop_scale, cudaStream_t stream) {
   const int smem = layout(nt, ROLE).smem;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_sm90_kernel<ROLE, TAIL, DROP>,
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_sm90_kernel<ROLE, TAIL, DROP><<<grid, THREADS, smem, stream>>>(
-      x, y, a, b, c, bias, lse, delta, seed, out0, out1, bh, n, nt, heads, scale, thr,
+  const int groups = ((n + BOX - 1) / BOX + tpg - 1) / tpg;
+  attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>
+      <<<dim3(grid, groups), THREADS, smem, stream>>>(
+      x, y, a, b, c, bias, lse, delta, seed, out0, out1, bh, n, nt, heads, tpg, scale, thr,
       drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // DQ, then DKDV (which reads the delta DQ writes), both on `stream`
-template <int TAIL, bool DROP>
+template <int TAIL, bool DROP, bool GROUPS>
 int launch(const CUtensorMap (&m)[5], const float* bias, const int32_t* seed, const float* lse,
            float* delta, bf16* dq, bf16* dk, bf16* dv, int bh, int heads, int n, int nt,
-           int grid, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
+           int grid, int tpg, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
   enum { Q, K, V, O, DO };
-  int rc = launch_one<DQ, TAIL, DROP>(m[K], m[V], m[Q], m[DO], m[O], bias, lse, delta, seed, dq,
-                                      nullptr, bh, n, nt, heads, grid, scale, thr, drop_scale,
-                                      st);
+  int rc = launch_one<DQ, TAIL, DROP, GROUPS>(m[K], m[V], m[Q], m[DO], m[O], bias, lse, delta,
+                                              seed, dq, nullptr, bh, n, nt, heads, grid, tpg,
+                                              scale, thr, drop_scale, st);
   if (rc != 0) return rc;
-  return launch_one<DKDV, TAIL, DROP>(m[Q], m[DO], m[K], m[V], m[V], bias, lse, delta, seed, dk,
-                                      dv, bh, n, nt, heads, grid, scale, thr, drop_scale, st);
+  return launch_one<DKDV, TAIL, DROP, GROUPS>(m[Q], m[DO], m[K], m[V], m[V], bias, lse, delta,
+                                              seed, dk, dv, bh, n, nt, heads, grid, tpg, scale,
+                                              thr, drop_scale, st);
 }
 
-// the maps' bytes into kernel arguments, then launch<nt % 64, DROP>
-template <bool DROP>
-int dispatch(const void* const (&maps)[5], const void* bias, const void* seed, const void* lse,
-             void* delta, void* dq, void* dk, void* dv, int bh, int heads, int n, int nt,
-             int grid, float scale, uint32_t thr, float drop_scale, void* stream) {
-  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > 256 ||
-      nt % 16 != 0 || grid <= 0 || grid > bh)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap m[5];
-  for (int k = 0; k < 5; ++k) memcpy(&m[k], maps[k], sizeof(CUtensorMap));
-  const auto* b = static_cast<const float*>(bias);
-  const auto* sd = static_cast<const int32_t*>(seed);
-  const auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<float*>(delta);
-  auto* q = static_cast<bf16*>(dq);
-  auto* k = static_cast<bf16*>(dk);
-  auto* v = static_cast<bf16*>(dv);
-  const auto st = static_cast<cudaStream_t>(stream);
+// launch<nt % 64, DROP, GROUPS>, GROUPS where a unit is less than a head
+template <bool DROP, bool GROUPS>
+int dispatch(const CUtensorMap (&m)[5], const float* b, const int32_t* sd, const float* l,
+             float* d, bf16* q, bf16* k, bf16* v, int bh, int heads, int n, int nt, int grid,
+             int tpg, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
   switch (nt % BOX) {
     case 0:
-      return launch<0, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
-                             drop_scale, st);
+      return launch<0, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                     scale, thr, drop_scale, st);
     case 16:
-      return launch<16, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
-                              drop_scale, st);
+      return launch<16, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                      scale, thr, drop_scale, st);
     case 32:
-      return launch<32, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
-                              drop_scale, st);
+      return launch<32, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                      scale, thr, drop_scale, st);
     default:
-      return launch<48, DROP>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, scale, thr,
-                              drop_scale, st);
+      return launch<48, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                      scale, thr, drop_scale, st);
   }
 }
 
@@ -556,38 +571,49 @@ extern "C" int flash_attention_bwd_sm90_encode(void* out, const void* base, int 
 // The dynamic shared memory of the dq (role 0) or dk/dv (role 1) kernel at
 // key width `nt`, -1 for an nt it does not take.
 extern "C" int flash_attention_bwd_sm90_smem(int nt, int role) {
-  if (nt <= 0 || nt > 256 || nt % 16 != 0 || (role != DQ && role != DKDV)) return -1;
+  if (nt <= 0 || nt > MAX_NT || nt % 16 != 0 || (role != DQ && role != DKDV)) return -1;
   return layout(nt, role).smem;
 }
 
 // mq, mk, mv, mo, mdo: the maps of q, k, v, o, do, each (bh, n, 64) bf16
 // (from `flash_attention_bwd_sm90_encode`, host memory); bias (bh /
-// heads, n) fp32; lse (bh, n) fp32 from the forward; delta (bh, n) fp32
-// scratch; dq, dk, dv (bh, n, 64) bf16. `nt`: the key width, n rounded up to
-// 16 (n <= nt <= 256); `grid`: persistent CTAs, 1..bh. The backward without
-// dropout. Launches two kernels on `stream`; returns the first launch error
-// as cudaError_t.
+// heads, n) fp32; seed: null for the backward without dropout, else one
+// int32 on the device, with which it keeps the forward's dropout (where the
+// hash bits are >= threshold, scaled by drop_scale); lse (bh, n) fp32 from
+// the forward; delta (bh, n) fp32 scratch; dq, dk, dv (bh, n, 64) bf16.
+// `nt`: the key width, n rounded up to 16 (n <= nt <= 512); `tpg`: 64-row
+// tiles per work unit (>= 1); `grid`: persistent CTAs per tile group,
+// 1..bh (the launch has ceil(ceil(n / 64) / tpg) groups along y).
+// Launches two kernels on `stream`; returns the first launch error as
+// cudaError_t.
 extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const void* mv,
                                         const void* mo, const void* mdo, const void* bias,
-                                        const void* lse, void* delta, void* dq, void* dk,
-                                        void* dv, int bh, int heads, int n, int nt, int grid,
-                                        float scale, void* stream) {
+                                        const void* seed, const void* lse, void* delta, void* dq,
+                                        void* dk, void* dv, int bh, int heads, int n, int nt,
+                                        int grid, int tpg, float scale, unsigned threshold,
+                                        float drop_scale, void* stream) {
+  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > MAX_NT ||
+      nt % 16 != 0 || tpg <= 0 || grid <= 0 || grid > bh)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap m[5];
   const void* maps[5] = {mq, mk, mv, mo, mdo};
-  return dispatch<false>(maps, bias, nullptr, lse, delta, dq, dk, dv, bh, heads, n, nt, grid,
-                         scale, 0u, 1.f, stream);
-}
-
-// As flash_attention_bwd_sm90, with the forward's dropout: `seed` is one
-// int32 on the device; keeps where the hash bits are >= threshold, scaled
-// by drop_scale.
-extern "C" int flash_attention_bwd_sm90_drop(const void* mq, const void* mk, const void* mv,
-                                             const void* mo, const void* mdo, const void* bias,
-                                             const void* seed, const void* lse, void* delta,
-                                             void* dq, void* dk, void* dv, int bh, int heads,
-                                             int n, int nt, int grid, float scale,
-                                             unsigned threshold, float drop_scale,
-                                             void* stream) {
-  const void* maps[5] = {mq, mk, mv, mo, mdo};
-  return dispatch<true>(maps, bias, seed, lse, delta, dq, dk, dv, bh, heads, n, nt, grid, scale,
-                        threshold, drop_scale, stream);
+  for (int k = 0; k < 5; ++k) memcpy(&m[k], maps[k], sizeof(CUtensorMap));
+  const auto* b = static_cast<const float*>(bias);
+  const auto* sd = static_cast<const int32_t*>(seed);
+  const auto* l = static_cast<const float*>(lse);
+  auto* d = static_cast<float*>(delta);
+  auto* q = static_cast<bf16*>(dq);
+  auto* k = static_cast<bf16*>(dk);
+  auto* v = static_cast<bf16*>(dv);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const bool groups = tpg < (n + BOX - 1) / BOX;
+  if (sd == nullptr)
+    return groups ? dispatch<false, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                          scale, 0u, 1.f, st)
+                  : dispatch<false, false>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                           scale, 0u, 1.f, st);
+  return groups ? dispatch<true, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                       scale, threshold, drop_scale, st)
+                : dispatch<true, false>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                                        scale, threshold, drop_scale, st);
 }

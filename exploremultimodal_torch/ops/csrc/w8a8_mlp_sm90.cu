@@ -50,11 +50,10 @@
 // one producer warp (TMA) and two consumer warpgroups (int8 wgmma,
 // `setmaxnreg` moves registers from the producer to them).
 //   - x's codes (64 x 768, 48 KB) stay in shared memory for both passes:
-//     the consumers quantize x from bf16 themselves, one warp per row, and
-//     write the codes in the 128-byte swizzle wgmma reads (a swizzle row
-//     holds 128 int8 K values; a k32 step is the same 32-byte advance of
-//     the descriptor as a bf16 k16 step). Half of the 96 KB that row 6
-//     gives x's bf16 tile goes to a deeper weight ring.
+//     the consumers quantize x from bf16 themselves, one warp per row,
+//     into the 128-byte swizzle wgmma reads (`i8::quantize_sw128`).
+//     Half of the 96 KB that row 6 gives x's bf16 tile goes to a deeper
+//     weight ring.
 //   - Weight codes stream through a ring of NS = 2 stages of 48 KB (six
 //     8 KB boxes) on mbarriers, one stage per chunk and product: a chunk's
 //     W1 (its 64 rows x 768 K bytes, 128-byte swizzle; m64n32k32 per
@@ -132,51 +131,6 @@ template <bool DROP>
 constexpr int smem_bytes() { return BITS_OFF + (DROP ? NB * BOX : 0) + 1024; }
 constexpr int THREADS = 384;
 static_assert(smem_bytes<true>() <= 232448, "shared memory with the bits slots");
-
-// x (m, K) bf16 rows m0.. -> int8 codes in the 128-byte swizzle at `sx`
-// (XT tiles of 64 rows x 128 bytes) and their scales, one consumer warp per
-// row (`_row_quant`, as i8::quantize_rows); rows past m get zero codes
-__device__ __forceinline__ void quantize_x(const bf16* __restrict__ x, int m, int m0,
-                                           unsigned char* sx, float* scales) {
-  constexpr int PIECES = K / 256;
-  const int lane = threadIdx.x % 32;
-  for (int r = threadIdx.x / 32; r < BM; r += 8) {
-    const int row = m0 + r;
-    float v[PIECES][8];
-    float amax = 0.f;
-#pragma unroll
-    for (int p = 0; p < PIECES; ++p) {
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-      if (row < m)
-        raw = *reinterpret_cast<const uint4*>(x + (size_t)row * K + p * 256 + lane * 8);
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        v[p][2 * e] = f.x;
-        v[p][2 * e + 1] = f.y;
-        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
-      }
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
-    float s, inv;
-    i8::row_scale(amax, s, inv);
-#pragma unroll
-    for (int p = 0; p < PIECES; ++p) {
-      uint32_t lo = 0, hi = 0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        lo |= (static_cast<uint32_t>(i8::quantize(v[p][e], inv)) & 0xffu) << (8 * e);
-        hi |= (static_cast<uint32_t>(i8::quantize(v[p][4 + e], inv)) & 0xffu) << (8 * e);
-      }
-      const int k = p * 256 + lane * 8, kk = k & 127;
-      const int off = (k >> 7) * BOX + r * 128 + ((((kk >> 4) ^ (r & 7)) << 4) | (kk & 15));
-      *reinterpret_cast<uint2*>(sx + off) = make_uint2(lo, hi);
-    }
-    if (lane == 0) scales[r] = s;
-  }
-}
 
 // W1 (hidden, K) and W2 (N, hidden) int8 codes through their tensor maps;
 // x (m, K) bf16; sw1, b1 (hidden) and sw2, b2 (N) fp32; `chunks` hidden
@@ -293,7 +247,8 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
     return ring + (cur % NS) * STAGE;
   };
 
-  quantize_x(x, m, m0, smem, sSx);
+  // x's codes and scales, one consumer warp per row (`_row_quant`)
+  i8::quantize_sw128<K>(x, m, m0, smem, sSx, threadIdx.x / 32, 8);
   fence_proxy_async();
   named_bar_sync(1, 256);  // x's codes and scales are whole
   // this thread's rows of the accumulators: 16 warp + g (hh = 0) and + 8

@@ -9,12 +9,11 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
   - `flash_attention_fwd_long` `_long_fwd_call` / `_attn_long_kernel`
 Rows 1 and 3 (the forward without and with dropout) share
 `csrc/flash_attention_fwd_sm90.cu` (wgmma and TMA, N <= SM90_FWD_MAX_N, row
-3 its `DROP` variant), and rows 2 and 4 (the backward without and with
-dropout) share `csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, N <=
-SM90_BWD_MAX_N, row 4 its `DROP` variant). Longer rows take the mma.sync
-kernels of `csrc/flash_attention_fwd.cu` and `csrc/flash_attention_bwd.cu`,
-and the long forward (row 5) is `csrc/flash_attention_long_sm90.cu` (wgmma
-and TMA). Each wrapper runs its kernel on CUDA tensors and its plain
+3 its `DROP` variant; longer rows take the mma.sync kernels of
+`csrc/flash_attention_fwd.cu`), and rows 2 and 4 (the backward without and
+with dropout) share `csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, every
+N the fused backward takes, row 4 its `DROP` variant). The long forward
+(row 5) is `csrc/flash_attention_long_sm90.cu` (wgmma and TMA). Each wrapper runs its kernel on CUDA tensors and its plain
 PyTorch version on CPU tensors; there is no other fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
 and columns keep their indices, so the dropout mask at every real (row,
@@ -54,12 +53,10 @@ SM90_FWD_MAX_N = 256
 SM90_FWD_WIDTH_STEP = 16
 SM90_FWD_BOX = 64
 SM90_FWD_MAX_SLOTS = 4
-# the backward's route, with and without dropout: up to this N the sm90
-# kernels, which hold a head's B-side pair in shared memory
-# (csrc/flash_attention_bwd_sm90.cu);
-# past it, up to LONG_SEQ_THRESHOLD, the mma.sync kernels
-# (csrc/flash_attention_bwd.cu)
-SM90_BWD_MAX_N = 256
+# the backward, with and without dropout, runs the sm90 kernels, which hold
+# a work unit's B-side pair in shared memory (csrc/flash_attention_bwd_sm90.cu),
+# at every N up to this, the fused backward's reach
+SM90_BWD_MAX_N = LONG_SEQ_THRESHOLD
 # the sm90 backward's two kernels (roles): "dq" keeps queries as M and
 # loads K and V per head, Q, dO and O per 64-row tile; "dkdv" keeps keys as
 # M and loads Q and dO per head (with lse and delta), K and V per tile
@@ -78,10 +75,7 @@ _FWD_SM90_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
 _FWD_SM90_DROP_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
 _FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
-_BWD_ARGS = [_P] * 11 + [_I] * 3 + [_F, _P]
-_BWD_DROP_ARGS = [_P] * 12 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
-_BWD_SM90_ARGS = [_P] * 11 + [_I] * 5 + [_F, _P]
-_BWD_SM90_DROP_ARGS = [_P] * 12 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_SM90_ARGS = [_P] * 12 + [_I] * 6 + [_F, ctypes.c_uint32, _F, _P]
 
 
 # ------------------------------------------------------------- dropout hash
@@ -325,8 +319,11 @@ def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
 
 def bwd_route(n: int) -> str:
     """The backward's kernels (rows 2 and 4) for rows of N keys: "sm90" up
-    to SM90_BWD_MAX_N, "mma_sync" past it."""
-    return "sm90" if n <= SM90_BWD_MAX_N else "mma_sync"
+    to SM90_BWD_MAX_N; longer rows take the plain chain's backward
+    (`_FlashLong`) and no kernel."""
+    if n > SM90_BWD_MAX_N:
+        raise ValueError(f"the fused backward takes N <= {SM90_BWD_MAX_N}, got {n}")
+    return "sm90"
 
 
 def bwd_sm90_layout(nt: int, role: str) -> dict:
@@ -334,16 +331,39 @@ def bwd_sm90_layout(nt: int, role: str) -> dict:
     or "dkdv"), as its source lays it out: head slots of the B-side pair
     (2 x nt rounded up to 64 rows of 128 bytes) and their column vectors,
     tile stages of 64-row boxes; the stages take what leaves room for two
-    head slots (at most SM90_FWD_MAX_SLOTS), the slots what is left."""
+    head slots (or for one, where two would leave fewer than two stages),
+    at most SM90_FWD_MAX_SLOTS, the slots what is left."""
     vectors, boxes = SM90_BWD_ROLES[role]
     ntb = -(-nt // SM90_FWD_BOX) * SM90_FWD_BOX
     head, vec = 2 * ntb * 2 * HEAD_DIM, vectors * ntb * 4
     tile = boxes * SM90_FWD_BOX * 2 * HEAD_DIM
     room = SMEM_LIMIT - 1024 - _BAR_BYTES
-    stages = min(SM90_FWD_MAX_SLOTS, (room - 2 * (head + vec)) // tile)
+    stages = (room - 2 * (head + vec)) // tile
+    if stages < 2:
+        stages = (room - (head + vec)) // tile
+    stages = min(SM90_FWD_MAX_SLOTS, stages)
     slots = min(SM90_FWD_MAX_SLOTS, (room - stages * tile) // (head + vec))
     smem = slots * (head + vec) + stages * tile + _BAR_BYTES + 1024
     return {"head_slots": slots, "tile_stages": stages, "smem": smem}
+
+
+def bwd_sm90_units(bh: int, n: int, sms: int) -> tuple[int, int]:
+    """The sm90 backward's work units for BH heads of N rows on `sms` SMs:
+    (64-row tiles per unit, persistent CTAs per tile group). A unit is a
+    head and a group of its tiles; the launch has one row of CTAs per group
+    (its y), CTA (x, y) takes group y of heads x, x + grid, ..., and its two
+    consumer warpgroups its tiles in turn. Of the groupings, the one whose
+    busiest warpgroup runs the fewest tiles, and of those the fewest groups
+    (each group loads the head's B-side pair again): whole heads wherever
+    heads are at least the SMs, and at N <= 256."""
+    tiles = -(-n // SM90_FWD_BOX)
+    best = None
+    for tpg in range(tiles, 0, -1):
+        grid = max(1, min(bh, sms // -(-tiles // tpg)))
+        busiest = -(-(-(-bh // grid) * tpg) // 2)
+        if best is None or busiest < best[0]:
+            best = (busiest, tpg, grid)
+    return best[1], best[2]
 
 
 def long_grid(bh: int, n: int) -> tuple[int, int]:
@@ -444,80 +464,51 @@ def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
 
 
 def flash_attention_bwd(qf, kf, vf, key_bias, of, dof, lse, scale: float):
-    """(dq, dk, dv): the kernels of `bwd_route` on CUDA tensors,
+    """(dq, dk, dv): the sm90 kernels on CUDA tensors,
     `flash_attention_bwd_plain` on CPU tensors."""
     if qf.device.type == "cpu":
         return flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale)
     _check("flash_attention_bwd", key_bias, qf, kf, vf, of, dof, lse=lse)
-    bh, n, _ = qf.shape
-    if bwd_route(n) == "sm90":
-        dq, dk, dv = _launch_bwd_sm90(qf, kf, vf, key_bias, None, of, dof, lse, scale)
-    else:
-        dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
-        delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-        fn = _build.load("flash_attention_bwd", _BWD_ARGS)
-        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-                of.data_ptr(), dof.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-                bh // key_bias.shape[0], n, scale, _stream(qf))
-        _build.check("flash_attention_bwd", rc)
+    grads = _launch_bwd_sm90(qf, kf, vf, key_bias, None, of, dof, lse, scale)
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
                              scale: float, rate: float):
-    """As `flash_attention_bwd_drop_plain`: the kernels of `bwd_route` on
-    CUDA tensors."""
+    """As `flash_attention_bwd_drop_plain`: the sm90 kernels on CUDA
+    tensors."""
     if qf.device.type == "cpu":
         return flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of,
                                               dof, lse, scale, rate)
     _check("flash_attention_bwd_drop", key_bias, qf, kf, vf, of, dof, lse=lse,
            seed=seed)
-    bh, n, _ = qf.shape
-    if bwd_route(n) == "sm90":
-        dq, dk, dv = _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale, rate)
-    else:
-        dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
-        delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-        fn = _build.load("flash_attention_bwd", _BWD_DROP_ARGS,
-                         "flash_attention_bwd_drop")
-        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-                seed.data_ptr(), of.data_ptr(), dof.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh,
-                bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
-                dropout_scale(rate), _stream(qf))
-        _build.check("flash_attention_bwd_drop", rc)
+    grads = _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale, rate)
     flash_attention_bwd_drop.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
                      rate: float = 0.0):
     """Run the sm90 backward (its dq kernel, then its dk/dv kernel) on
     checked inputs: the q/k/v/o/do maps from the cache, the key width of
-    `fwd_sm90_tile`, the persistent grid of `fwd_sm90_grid`; without a
+    `fwd_sm90_tile`, the work units and grid of `bwd_sm90_units`; without a
     `seed` the backward without dropout (row 2), with one its dropout
     variant at `rate` (row 4)."""
     bh, n, _ = qf.shape
+    bwd_route(n)
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
     delta = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_map("bwd", t) for t in (qf, kf, vf, of, dof)]
-    bufs = (lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    shape = (bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n),
-             fwd_sm90_grid(bh, _sm_count(qf.device)), scale)
-    if seed is None:
-        fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_ARGS)
-        rc = fn(*maps, key_bias.data_ptr(), *bufs, *shape, _stream(qf))
-        _build.check("flash_attention_bwd_sm90", rc)
-    else:
-        fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_DROP_ARGS,
-                         "flash_attention_bwd_sm90_drop")
-        rc = fn(*maps, key_bias.data_ptr(), seed.data_ptr(), *bufs, *shape,
-                dropout_threshold(rate), dropout_scale(rate), _stream(qf))
-        _build.check("flash_attention_bwd_sm90_drop", rc)
+    tpg, grid = bwd_sm90_units(bh, n, _sm_count(qf.device))
+    fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_ARGS)
+    rc = fn(*maps, key_bias.data_ptr(), None if seed is None else seed.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n), grid, tpg, scale,
+            dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+    _build.check("flash_attention_bwd_sm90", rc)
     return dq, dk, dv
 
 

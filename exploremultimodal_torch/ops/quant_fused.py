@@ -10,8 +10,8 @@ Counterpart of `exploremultimodal_tpu/ops/quant_pallas.py`:
   - `w8a8_mlp_fwd_drop`  `_mlp_dropout_kernel` (row 10): with hidden dropout
   - `w8a8_mlp`           `fused_w8a8_mlp` / `fused_w8a8_mlp_dropout`, with the
                          backward of `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`
-Row 8 is `csrc/w8a8_matmul.cu`, rows 9 and 10 `csrc/w8a8_mlp_sm90.cu` (int8
-wgmma and TMA; row 10 its `DROP` variant). Weights
+Row 8 is `csrc/w8a8_matmul_sm90.cu`, rows 9 and 10 `csrc/w8a8_mlp_sm90.cu`
+(all three on int8 wgmma and TMA; row 10 row 9's `DROP` variant). Weights
 are in nn.Linear's layout, (out, in), and so are their int8 codes, with one
 fp32 scale per output channel. The plain versions take each int8 product
 exactly, as a float64 product of the codes (every sum is an integer below
@@ -49,13 +49,23 @@ HIDDEN_CHUNK = 64  # the MLP kernels walk the hidden in chunks this wide
 MLP_ROW_TILE, MLP_CLUSTER = 64, 2
 MLP_BOXES = {"w1": (128, 64, 128), "w2": (64, 128, 64), "bits": (128, 64, 128)}
 MLP_RING_STAGES, MLP_STAGE_BOXES, MLP_BOX_BYTES, MLP_BITS_SLOTS = 2, 6, 8192, 2
-# the row-9/10 weight and bits maps by (operand, `tensor_map_key`), emptied
-# at the cap
+# the row-8 kernel's layout, as csrc/w8a8_matmul_sm90.cu sets it: a CTA per
+# 128-row block; output tiles of 128 columns (its two consumer warpgroups
+# take them in turn), split over the grid's y where the row blocks leave
+# SMs idle; x's codes (128 x 768), a ring of 6 stages of two 64-row boxes
+# of qw (128 K bytes a row, 128-byte swizzle), four 64 x 64 bf16 boxes of y
+# staged for their TMA stores, 128 row scales, the barriers and 1024 bytes
+# of slack
+MATMUL_ROW_TILE, MATMUL_COL_TILE, MATMUL_RING_STAGES = 128, 128, 6
+# the tensor maps' boxes (columns, rows) and swizzle bytes: qw's int8 codes
+# and y's bf16 values, each box 8 KB
+MATMUL_BOXES = {"w": (128, 64, 128), "y": (64, 64, 128)}
+# the row-8/9/10 maps by (operand, `tensor_map_key`), emptied at the cap
 _MAPS: dict = {}
 _MAPS_CAP = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MATMUL_ARGTYPES = [_P] * 4 + [_I] * 2 + [_P]
+_MATMUL_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
 _MLP_SM90_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
 _MLP_SM90_DROP_ARGTYPES = [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 5
@@ -139,6 +149,60 @@ def _on_one_device(x, tensors) -> bool:
                for t in tensors)
 
 
+def matmul_grid(m: int, n: int, sms: int) -> tuple[int, int, int]:
+    """The row-8 kernel's grid for y (M, N) on `sms` SMs: (CTAs along M, the
+    128-row blocks; CTAs along N; output tiles per CTA along N). The tiles
+    are split while the row blocks leave SMs idle, as evenly as whole tiles
+    allow."""
+    grid_x = -(-m // MATMUL_ROW_TILE)
+    tiles = n // MATMUL_COL_TILE
+    per = -(-tiles // max(1, min(tiles, sms // grid_x)))
+    return grid_x, -(-tiles // per), per
+
+
+def matmul_map_extents(rows: int, cols: int, operand: str):
+    """The 2D tensor map of the row-8 kernel's row-major (rows, cols)
+    operand "w" (qw's int8 codes) or "y" (the bf16 output): dims innermost
+    first (cols, rows) in elements, the row stride in bytes, the box
+    (elements a row, rows) and the swizzle in bytes."""
+    box_cols, box_rows, swizzle = MATMUL_BOXES[operand]
+    elem = 1 if operand == "w" else 2
+    return (cols, rows), (cols * elem,), (box_cols, box_rows), swizzle
+
+
+def matmul_smem() -> int:
+    """The row-8 kernel's dynamic shared memory."""
+    box = MLP_BOX_BYTES
+    x_codes = MATMUL_ROW_TILE * IN_DIM
+    ring = MATMUL_RING_STAGES * 2 * box
+    return x_codes + ring + 4 * box + 4 * MATMUL_ROW_TILE + 8 * 2 * MATMUL_RING_STAGES + 1024
+
+
+def _cached_map(source: str, argtypes: list, key: tuple, *args):
+    """The tensor map under `key`, encoded on a miss into a 128-byte buffer
+    by `source`'s encoder (`<source>_encode`, taking `argtypes`) from
+    `args`; the cache empties itself at the cap."""
+    buf = _MAPS.get(key)
+    if buf is None:
+        if len(_MAPS) >= _MAPS_CAP:
+            _MAPS.clear()
+        buf = ctypes.create_string_buffer(128)
+        fn = _build.load(source, argtypes, f"{source}_encode")
+        _build.check(f"{source}_encode", fn(ctypes.addressof(buf), *args))
+        _MAPS[key] = buf
+    return buf
+
+
+def _matmul_map(t: torch.Tensor, operand: str):
+    """The cached tensor map of `t` as the row-8 kernel's `operand` ("w" or
+    "y")."""
+    (cols, rows), _, (box_cols, box_rows), _ = matmul_map_extents(t.shape[0], t.shape[1],
+                                                                    operand)
+    return _cached_map("w8a8_matmul_sm90", _ENCODE_ARGTYPES,
+                       ("matmul_" + operand, *tensor_map_key(t)), t.data_ptr(), rows, cols,
+                       box_cols, box_rows, t.element_size())
+
+
 def w8a8_matmul(x, qw, sw):
     """As `w8a8_matmul_plain`: the row-8 kernel on CUDA tensors (bf16 x
     (M, 768), int8 qw (N, 768) with N in MATMUL_OUT_DIMS, fp32 sw (N,)), the
@@ -156,10 +220,14 @@ def w8a8_matmul(x, qw, sw):
              f"{tuple(x.shape)} {x.dtype}, qw {tuple(qw.shape)} {qw.dtype}, sw "
              f"{tuple(sw.shape)} {sw.dtype}")
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    fn = _build.load("w8a8_matmul", _MATMUL_ARGTYPES)
-    rc = fn(x.data_ptr(), qw.data_ptr(), sw.data_ptr(), y.data_ptr(), m, n,
+    # the buffers themselves, not their addresses: the list keeps each one
+    # alive through the call even if a later lookup empties the cache
+    maps = [_matmul_map(qw, "w"), _matmul_map(y, "y")]
+    grid_x, _, per = matmul_grid(m, n, _sm_count(x.device))
+    fn = _build.load("w8a8_matmul_sm90", _MATMUL_ARGTYPES)
+    rc = fn(*maps, x.data_ptr(), sw.data_ptr(), m, n, grid_x, per,
             torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check("w8a8_matmul", rc)
+    _build.check("w8a8_matmul_sm90", rc)
     w8a8_matmul.launches += 1
     return y
 
@@ -226,21 +294,11 @@ def mlp_smem(drop: bool = False) -> int:
 
 def _mlp_map(t: torch.Tensor, operand: str):
     """The cached tensor map of `t` as `operand` ("w1" or "w2": int8 codes;
-    "bits": the int16 bits, as bytes), encoded on a miss."""
-    key = (operand, *tensor_map_key(t))
-    buf = _MAPS.get(key)
-    if buf is None:
-        if len(_MAPS) >= _MAPS_CAP:
-            _MAPS.clear()
-        (cols, rows), _, (box_cols, box_rows), swizzle = mlp_map_extents(
-            t.shape[0], t.shape[1] * t.element_size(), operand)
-        buf = ctypes.create_string_buffer(128)
-        fn = _build.load("w8a8_mlp_sm90", _ENCODE_ARGTYPES, "w8a8_mlp_sm90_encode")
-        _build.check("w8a8_mlp_sm90_encode",
-                     fn(ctypes.addressof(buf), t.data_ptr(), rows, cols, box_cols,
-                        box_rows, swizzle))
-        _MAPS[key] = buf
-    return buf
+    "bits": the int16 bits, as bytes)."""
+    (cols, rows), _, (box_cols, box_rows), swizzle = mlp_map_extents(
+        t.shape[0], t.shape[1] * t.element_size(), operand)
+    return _cached_map("w8a8_mlp_sm90", _ENCODE_ARGTYPES, (operand, *tensor_map_key(t)),
+                       t.data_ptr(), rows, cols, box_cols, box_rows, swizzle)
 
 
 def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2, bits=None, threshold: int = 0):

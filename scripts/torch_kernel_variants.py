@@ -6,8 +6,9 @@
 Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
 textual edits applied (the JSON, by default
 scripts/torch_kernel_variants.json, maps a name to {"kind": "mlp" |
-"mlp_drop" | "attn" | "attn_drop" | "attn_long" | "attn_bwd" | "w8a8_mlp" |
-"w8a8_mlp_drop" | "dvae", "src": file, "edits": [[old, new], ...]}; every
+"mlp_drop" | "attn" | "attn_drop" | "attn_long" | "attn_bwd" | "w8a8_matmul" |
+"w8a8_mlp" | "w8a8_mlp_drop" | "dvae", "src": file, "edits": [[old, new],
+...]}; every
 `old` must occur); kinds named after the file keep only their variants.
 All variants are compiled at once with the package's
 nvcc flags into a temporary directory, then each is swapped in for the
@@ -17,7 +18,9 @@ dropout forward (row 7) at the finetune_vqa M, the short flash forward (row
 1) at the batch-64 request's three streams, its dropout variant (row 3)
 at the pretrain_mum step's four shapes, the long flash forward (row 5) at
 the 1024^2 request's two streams, the backward (row 4 with dropout, row 2
-without) at the pretrain_mum step's four shapes, the W8A8 MLP (row 9) at
+without) at the pretrain_mum step's four shapes and at N = 256, 333 and 512
+at batch 8 and N = 512 at batch 32, the W8A8 matmul (row 8) for proj and
+qkv at the int8 step's and request's M, the W8A8 MLP (row 9) at
 the int8
 request's M and its dropout forward (row 10) at the int8 finetune_vqa M,
 the dVAE block (row 11) at the five blocks the tokenizer fuses. A variant whose output leaves the kernel's
@@ -86,8 +89,8 @@ SYMBOL = {"mlp": {"fused_mlp_sm90": mlp_fused._SM90_ARGTYPES},
           "attn": {"flash_attention_fwd_sm90": flash_attention._FWD_SM90_ARGS},
           "attn_drop": {"flash_attention_fwd_sm90_drop": flash_attention._FWD_SM90_DROP_ARGS},
           "attn_long": {"flash_attention_long_sm90": flash_attention._FWD_LONG_ARGS},
-          "attn_bwd": {"flash_attention_bwd_sm90_drop": flash_attention._BWD_SM90_DROP_ARGS,
-                       "flash_attention_bwd_sm90": flash_attention._BWD_SM90_ARGS},
+          "attn_bwd": {"flash_attention_bwd_sm90": flash_attention._BWD_SM90_ARGS},
+          "w8a8_matmul": {"w8a8_matmul_sm90": quant_fused._MATMUL_ARGTYPES},
           "w8a8_mlp": {"w8a8_mlp_sm90": quant_fused._MLP_SM90_ARGTYPES},
           "w8a8_mlp_drop": {"w8a8_mlp_sm90_drop": quant_fused._MLP_SM90_DROP_ARGTYPES},
           "dvae": {"dvae_block": dvae_conv._ARGS}}
@@ -154,6 +157,7 @@ def main(argv: list[str]) -> int:
     w8a8_mlp = [n for n in spec if spec[n]["kind"] == "w8a8_mlp"]
     attn_bwd = [n for n in spec if spec[n]["kind"] == "attn_bwd"]
     w8a8_mlp_drop = [n for n in spec if spec[n]["kind"] == "w8a8_mlp_drop"]
+    w8a8_matmul = [n for n in spec if spec[n]["kind"] == "w8a8_matmul"]
     dvae = [n for n in spec if spec[n]["kind"] == "dvae"]
     if mlp:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.SERVE_OVERRIDES))
@@ -201,6 +205,20 @@ def main(argv: list[str]) -> int:
                                             ref, cs.ATTN_ATOL, cs.ATTN_RTOL))
             print(json.dumps({"kernel": "flash_attention_fwd", "stream": stream, "N": n,
                               "ms": res}), flush=True)
+    if w8a8_matmul:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.W8A8_SERVE_OVERRIDES))
+        g = torch.Generator(device=dev).manual_seed(4)
+        for n_out in (768, 2304):
+            w = (torch.randn((n_out, 768), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+            qw, sw = quant_fused.quantize_weights(w)
+            for m in cs.vqa_mlp_rows(cfg) + cs.serve_rows(cfg):
+                x = torch.randn((m, 768), generator=g, device=dev).to(torch.bfloat16)
+                ref = quant_fused.w8a8_matmul_plain(x, qw, sw)
+                res = compare(w8a8_matmul, fns, lambda: quant_fused.w8a8_matmul(x, qw, sw),
+                              lambda: cs.within(quant_fused.w8a8_matmul(x, qw, sw), ref, 0.0,
+                                                0.0))
+                print(json.dumps({"kernel": "w8a8_matmul", "M": m, "N": n_out, "ms": res}),
+                      flush=True)
     if w8a8_mlp:
         cfg = cs.VlmoConfig.from_config(cs.load_config(cs.W8A8_SERVE_OVERRIDES))
         g, _, args = cs.w8a8_mlp_weights(cfg, dev, 5)
@@ -223,6 +241,9 @@ def main(argv: list[str]) -> int:
                  "fused": np.concatenate([txt, np.ones((cs.TRAIN_BATCH, n_img), np.int32)], 1),
                  "itm": np.concatenate([txt3, np.ones((3 * cs.TRAIN_BATCH, n_img), np.int32)],
                                        1)}
+        if attn_bwd:  # the backward past the step's shapes, on its sm90 kernels
+            masks.update({f"off_path_b{b}_n{n}": cs.padded_mask(rng, b, n)
+                          for b, n in cs.TRAIN_OFF_PATH if (b, n) != (32, 333)})
         seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
         bwd_tol = [(cs.BWD_ATOL, cs.BWD_RTOL)] * 3
         fwd_tol = [(cs.ATTN_ATOL, cs.ATTN_RTOL), (cs.ATTN_LSE_ATOL, 0.0)]
@@ -246,8 +267,8 @@ def main(argv: list[str]) -> int:
                     lambda: flash_attention_bwd(q, k, v, kb, o0, do, lse0, scale),
                     lambda: flash_attention_bwd_plain(q, k, v, kb, o0, do, lse0, scale),
                     bwd_tol),
-                "flash_attention_fwd_drop": (
-                    attn_drop,
+                "flash_attention_fwd_drop": (  # the sm90 forward takes N <= 256
+                    attn_drop if n <= flash_attention.SM90_FWD_MAX_N else [],
                     lambda: flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate),
                     lambda: flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate),
                     fwd_tol),

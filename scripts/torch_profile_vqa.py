@@ -3,11 +3,13 @@
 
     python3 scripts/torch_profile_vqa.py          # bf16
     python3 scripts/torch_profile_vqa.py w8a8     # model.quantize=w8a8_pallas_mlp
+    python3 scripts/torch_profile_vqa.py w8a8_pallas  # model.quantize=w8a8_pallas
     python3 scripts/torch_profile_vqa.py hires    # model.img_size=1024, batch 8
 
 Builds a serving configuration of `chip_smoke.py` (vlmo_base, bf16,
 attn_impl=pallas, mlp_impl=fused, seeded random weights, batch 64; with
-`w8a8` the int8 MLP; with `hires` 1024^2 images at batch 8, where row 5
+`w8a8` the int8 MLP; with `w8a8_pallas` also qkv and proj on the int8
+matmul, row 8; with `hires` 1024^2 images at batch 8, where row 5
 carries the image and fused streams), warms
 up, then traces REQUESTS requests with torch.profiler. Prints the request
 wall time, the device-busy time (the union of kernel intervals), the
@@ -60,9 +62,10 @@ def main(argv: list[str]) -> int:
         print("torch_profile_vqa: no CUDA device", file=sys.stderr)
         return 1
     cells = {(): (SERVE_OVERRIDES, BATCH), ("w8a8",): (W8A8_SERVE_OVERRIDES, BATCH),
+             ("w8a8_pallas",): (SERVE_OVERRIDES + ["model.quantize=w8a8_pallas"], BATCH),
              ("hires",): (HIRES_OVERRIDES, HIRES_BATCH)}
     if tuple(argv) not in cells:
-        print("usage: torch_profile_vqa.py [w8a8 | hires]", file=sys.stderr)
+        print("usage: torch_profile_vqa.py [w8a8 | w8a8_pallas | hires]", file=sys.stderr)
         return 2
     card = card_line()
 

@@ -7,10 +7,12 @@ a row tile's hidden dimension, with partial sums added in a second pass),
 its grid and its cache of tensor maps, keyed by what a map encodes (with
 and without the dropout bits, rows 6 and 7); the long flash forward's grid
 and 3D tensor maps (row 5); the routes of the flash forward and backward
-by sequence length (rows 1-4: the sm90 kernels up to 256 keys, the
-mma.sync ones past it) and the arguments each launch passes; and the shape
-and type checks by which the wrappers refuse what their kernels do not
-take.
+by sequence length (rows 1 and 3: the sm90 kernel up to 256 keys, the
+mma.sync one past it; rows 2 and 4: the sm90 kernels up to 512), the
+backward's work units, a model of how its warpgroups wait on its tile
+ring, and the arguments each launch passes; the W8A8
+matmul's grid, shared memory and tensor maps (row 8); and the shape and
+type checks by which the wrappers refuse what their kernels do not take.
 """
 
 import ctypes
@@ -574,26 +576,176 @@ def test_row9_checks_raise(bad):
         qf._launch_mlp_sm90(*_w8a8_args(**bad))
 
 
+# ------------------------------------------- row 8: the W8A8 matmul on int8 wgmma
+
+MATMUL_SRC = qf._build.CSRC / "w8a8_matmul_sm90.cu"
+
+
+@pytest.mark.parametrize("m,n,grid_x,grid_y,per", [
+    (64, 2304, 1, 18, 1),      # one block: a tile per CTA
+    (1000, 768, 8, 6, 1),      # ragged
+    (1280, 2304, 10, 9, 2),    # the int8 finetune_vqa step's text rows: 90 CTAs
+    (1280, 768, 10, 6, 1),
+    (2560, 2304, 20, 6, 3),    # the int8 request's text stream: 120 CTAs
+    (2560, 768, 20, 6, 1),
+    (6304, 2304, 50, 2, 9),    # the step's image rows: two CTAs a block
+    (7584, 768, 60, 2, 3),     # the step's fused rows
+    (12608, 2304, 99, 1, 18),  # the request's image stream
+    (15168, 2304, 119, 1, 18),  # the fused stream: 118.5 blocks
+    (15168, 768, 119, 1, 6),
+])
+def test_row8_grid_and_split_at_path_shapes(m, n, grid_x, grid_y, per):
+    """A CTA per 128-row block; the 128-column output tiles split over y
+    while the blocks leave SMs idle, every CTA with at least one tile and
+    the grid within one wave."""
+    assert qf.matmul_grid(m, n, H100_SMS) == (grid_x, grid_y, per)
+    tiles = n // 128
+    assert grid_x == -(-m // 128)
+    assert (grid_y - 1) * per < tiles <= grid_y * per
+    assert grid_x * grid_y <= H100_SMS or grid_y == 1
+    if per > 1:  # one tile fewer a CTA would pass one wave
+        assert grid_x * -(-tiles // (per - 1)) > H100_SMS
+
+
+@pytest.mark.parametrize("rows,cols,operand,box", [
+    (2304, 768, "w", (128, 64)),   # qkv's codes: K-major rows of 768 bytes
+    (768, 768, "w", (128, 64)),    # proj's
+    (15168, 2304, "y", (64, 64)),  # y: 64 bf16 columns (128 bytes) a box row
+    (1000, 768, "y", (64, 64)),
+])
+def test_row8_map_extents(rows, cols, operand, box):
+    """Both maps in the 128-byte swizzle, each box 8 KB with rows of 128
+    bytes, the boxes the source's encoder accepts (KB bytes a row, 64 rows);
+    the row stride in bytes is a multiple of 16, as TMA needs."""
+    dims, strides, got_box, swizzle = qf.matmul_map_extents(rows, cols, operand)
+    elem = 1 if operand == "w" else 2
+    assert dims == (cols, rows) and strides == (cols * elem,) and strides[0] % 16 == 0
+    assert got_box == box and swizzle == 128 and got_box[0] * elem == swizzle
+    assert got_box[0] * got_box[1] * elem == qf.MLP_BOX_BYTES
+    src = MATMUL_SRC.read_text()
+    assert "box_cols * elem_bytes != KB || box_rows != 64" in src
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in src
+
+
+def test_row8_shared_memory_budget():
+    """The mirror of the source's layout: x's codes for 128 rows, six ring
+    stages of two boxes, four staged y boxes (a pair a warpgroup), the row
+    scales, the barriers and the slack fit a block; the constants are the
+    source's."""
+    src = MATMUL_SRC.read_text()
+    for const in ("K = 768;", "BM = 128;", "BN = 128;", "KB = 128;", "NS = 6;",
+                  "BOX = 8192;", "STAGE = 2 * BOX;", "THREADS = 384;"):
+        assert f"constexpr int {const}" in src
+    for off in ("SCALE_OFF = OUT_OFF + 4 * BOX;", "BAR_OFF = SCALE_OFF + BM * 4;",
+                "SMEM = BAR_OFF + 8 * 2 * NS + 1024;"):
+        assert f"constexpr int {off}" in src
+    assert (qf.MATMUL_ROW_TILE, qf.MATMUL_COL_TILE, qf.MATMUL_RING_STAGES) == (128, 128, 6)
+    assert qf.matmul_smem() == 231008 <= SMEM_LIMIT
+    assert qf.matmul_smem() > 128 * 768 + 6 * 2 * 8192 + 4 * 8192  # codes, ring, y boxes
+
+
+def test_row8_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        assert (name, symbol) == ("w8a8_matmul_sm90", "w8a8_matmul_sm90_encode")
+
+        def encode(buf, ptr, rows, cols, box_cols, box_rows, elem_bytes):
+            calls.append((ptr, rows, cols, box_cols, box_rows, elem_bytes))
+            return 0
+        return encode
+
+    monkeypatch.setattr(qf._build, "load", fake_load)
+    monkeypatch.setattr(qf, "_MAPS", {})
+    monkeypatch.setattr(qf, "_MAPS_CAP", 3)
+    qw = torch.zeros(2304, 768, dtype=torch.int8)
+    y = torch.zeros(64, 2304, dtype=torch.bfloat16)
+    first = qf._matmul_map(qw, "w")
+    assert qf._matmul_map(qw, "w") is first
+    assert qf._matmul_map(y, "y") is not first  # another operand, another map
+    assert calls == [(qw.data_ptr(), 2304, 768, 128, 64, 1), (y.data_ptr(), 64, 2304, 64, 64, 2)]
+    for _ in range(4):
+        qf._matmul_map(torch.zeros(64, 768, dtype=torch.bfloat16), "y")
+        assert len(qf._MAPS) <= 3
+
+
+@pytest.mark.parametrize("m,n,cap", [(64, 2304, 1), (2560, 768, 2), (15168, 2304, 256)])
+def test_row8_launch_passes_live_maps_across_an_eviction(monkeypatch, m, n, cap):
+    """On tensors of the meta device (neither CPU nor CUDA): the maps of qw
+    and of the new y, each the one encoded for its tensor even where the
+    cache empties itself between the lookups, then x and sw, (m, n), the
+    grid's x and the tiles per CTA of `matmul_grid`, the stream; one
+    launch counted per call."""
+    calls, seen = [], []
+
+    def kernel(*args):
+        seen.append(([_map_bytes(t) for t in args[:2]], args[2:]))
+        return 0
+
+    def fake_load(name, argtypes, symbol=None):
+        assert name == "w8a8_matmul_sm90"
+        if symbol == "w8a8_matmul_sm90_encode":
+            return _fake_encoder(calls)
+        assert symbol is None and len(argtypes) == 9
+        return kernel
+
+    monkeypatch.setattr(qf._build, "load", fake_load)
+    monkeypatch.setattr(qf, "_MAPS", {})
+    monkeypatch.setattr(qf, "_MAPS_CAP", cap)
+    monkeypatch.setattr(qf, "_sm_count", lambda dev: H100_SMS)
+    monkeypatch.setattr(qf.torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    x = torch.empty(m, 768, dtype=torch.bfloat16, device="meta")
+    qw = torch.empty(n, 768, dtype=torch.int8, device="meta")
+    sw = torch.empty(n, device="meta")
+    before = qf.w8a8_matmul.launches
+    for _ in range(2):
+        y = qf.w8a8_matmul(x, qw, sw)
+        assert y.shape == (m, n) and y.dtype == torch.bfloat16
+    assert qf.w8a8_matmul.launches - before == 2
+    maps, rest = seen[-1]
+    assert [struct.unpack("<q", b[:8])[0] for b in maps] == [qw.data_ptr(), y.data_ptr()]
+    grid_x, _, per = qf.matmul_grid(m, n, H100_SMS)
+    assert rest == (x.data_ptr(), sw.data_ptr(), m, n, grid_x, per, 0)
+    assert len(qf._MAPS) <= cap
+
+
+@pytest.mark.parametrize("bad", [
+    {"k": 512},                      # K must be 768
+    {"n": 1536},                     # N is proj's 768 or qkv's 2304
+    {"x_dtype": torch.float16},      # x bf16
+    {"w_dtype": torch.uint8},        # codes int8
+    {"sw_dtype": torch.bfloat16},    # scales fp32
+])
+def test_row8_checks_raise(bad):
+    x = torch.empty(64, bad.get("k", 768), dtype=bad.get("x_dtype", torch.bfloat16),
+                    device="meta")
+    n = bad.get("n", 2304)
+    qw = torch.empty(n, bad.get("k", 768), dtype=bad.get("w_dtype", torch.int8), device="meta")
+    sw = torch.empty(n, dtype=bad.get("sw_dtype", torch.float32), device="meta")
+    with pytest.raises(ValueError):
+        qf.w8a8_matmul(x, qw, sw)
+
+
 # ------------------------------------------- row 4: the sm90 dropout backward
 
 BWD_SRC = fa._build.CSRC / "flash_attention_bwd_sm90.cu"
 
 
 # per row: the wrapper, its route function, and the (source, entry,
-# argument types) it loads on the sm90 and on the mma.sync route
+# argument types) it loads on the sm90 and on the mma.sync route (the
+# backward has no mma.sync route)
 ROUTED = {
     1: (fa.flash_attention_fwd, fa.fwd_route,
         ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90", fa._FWD_SM90_ARGS),
         ("flash_attention_fwd", "flash_attention_fwd", fa._FWD_ARGS)),
     2: (fa.flash_attention_bwd, fa.bwd_route,
-        ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90", fa._BWD_SM90_ARGS),
-        ("flash_attention_bwd", "flash_attention_bwd", fa._BWD_ARGS)),
+        ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90", fa._BWD_SM90_ARGS), None),
     3: (fa.flash_attention_fwd_drop, fa.fwd_route,
         ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90_drop", fa._FWD_SM90_DROP_ARGS),
         ("flash_attention_fwd", "flash_attention_fwd_drop", fa._FWD_DROP_ARGS)),
     4: (fa.flash_attention_bwd_drop, fa.bwd_route,
-        ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90_drop", fa._BWD_SM90_DROP_ARGS),
-        ("flash_attention_bwd", "flash_attention_bwd_drop", fa._BWD_DROP_ARGS)),
+        ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90", fa._BWD_SM90_ARGS), None),
 }
 
 
@@ -632,6 +784,11 @@ ROUTE_CASES = [
     (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
     (257, "mma_sync"), (512, "mma_sync"),
 ]
+# the backward's: every N the fused backward takes, on the sm90 kernels
+BWD_ROUTE_CASES = [
+    (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
+    (257, "sm90"), (333, "sm90"), (512, "sm90"),
+]
 
 
 def _check_route(monkeypatch, row: int, n: int, route: str):
@@ -648,23 +805,41 @@ def _check_route(monkeypatch, row: int, n: int, route: str):
     assert f'extern "C" int {symbol}(' in (fa._build.CSRC / f"{source}.cu").read_text()
 
 
-@pytest.mark.parametrize("row", [1, 2, 3])
+@pytest.mark.parametrize("row", [1, 3])
 @pytest.mark.parametrize("n,route", ROUTE_CASES)
 def test_route_by_length(monkeypatch, row, n, route):
-    """Rows of up to 256 keys take the sm90 kernels (row 1's forward, with
-    or without the dropout mask, and the sm90 backward: a head's operands in
-    one slot); longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync kernels
-    of flash_attention_fwd.cu and flash_attention_bwd.cu by their old entry
-    points and argument types."""
+    """Rows of up to 256 keys take row 1's sm90 forward, with or without
+    the dropout mask; longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync
+    kernel of flash_attention_fwd.cu by its old entry points and argument
+    types."""
     _check_route(monkeypatch, row, n, route)
 
 
-@pytest.mark.parametrize("n,route", ROUTE_CASES)
+@pytest.mark.parametrize("n,route", BWD_ROUTE_CASES)
+def test_row2_route_by_length(monkeypatch, n, route):
+    """Row 2 takes the sm90 backward's one entry (no seed) at every N up to
+    LONG_SEQ_THRESHOLD, past 256 keys too."""
+    _check_route(monkeypatch, 2, n, route)
+
+
+@pytest.mark.parametrize("n,route", BWD_ROUTE_CASES)
 def test_row4_route_by_length(monkeypatch, n, route):
-    """Rows of up to 256 keys take the sm90 backward (a head's B-side pair
-    in one head slot); longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync
-    kernels of flash_attention_bwd.cu."""
+    """Row 4 takes the same entry (with its seed) at every N up to
+    LONG_SEQ_THRESHOLD: a unit's B-side pair in one head slot past about
+    320 keys."""
     _check_route(monkeypatch, 4, n, route)
+
+
+def test_bwd_route_is_sm90_for_every_n_the_fused_backward_takes():
+    """No N up to 512 leaves the sm90 backward, the threshold is the fused
+    backward's own, and a longer row (the plain chain's backward) is refused."""
+    assert fa.SM90_BWD_MAX_N == fa.LONG_SEQ_THRESHOLD == 512
+    assert {fa.bwd_route(n) for n in range(1, 513)} == {"sm90"}
+    with pytest.raises(ValueError):
+        fa.bwd_route(513)
+    assert "mma_sync" not in "".join(str(r[3]) for r in ROUTED.values() if r[1] is fa.bwd_route)
+    assert not (fa._build.CSRC / "flash_attention_bwd.cu").exists()
+    assert "flash_attention_bwd" not in fa._build.KERNELS
 
 
 @pytest.mark.parametrize("bh,n,width,grid,tail", [
@@ -677,12 +852,13 @@ def test_row4_route_by_length(monkeypatch, n, route):
 def test_row4_widths_grid_and_slabs_at_path_shapes(bh, n, width, grid, tail):
     """The key width is N rounded up to 16 (as row 1's), walked in 64-wide
     slabs and a tail of width % 64; the grid is persistent, one CTA per SM
-    or per head."""
+    or per head: at these shapes a work unit is a whole head."""
     assert fa.fwd_sm90_tile(n) == width and width % 64 == tail
     assert 0 <= width - n < 16
     assert fa.fwd_sm90_grid(bh, H100_SMS) == grid
     tiles = -(-n // fa.SM90_FWD_BOX)
     assert (tiles - 1) * 64 < n <= tiles * 64
+    assert fa.bwd_sm90_units(bh, n, H100_SMS) == (tiles, grid)
 
 
 @pytest.mark.parametrize("role", ["dq", "dkdv"])
@@ -699,6 +875,51 @@ def test_row4_shared_memory_budget(nt, role):
     boxes = 3 if role == "dq" else 2
     assert lay["smem"] >= (lay["head_slots"] * 2 * rows * 128
                            + lay["tile_stages"] * boxes * 64 * 128)
+
+
+@pytest.mark.parametrize("role", ["dq", "dkdv"])
+@pytest.mark.parametrize("nt", range(16, 513, 16))
+def test_row4_layout_fits_the_block_up_to_512(nt, role):
+    """At every key width up to 512 both kernels fit a block with two to four
+    tile stages and one to four head slots; two slots (the next unit's pair
+    loading while one computes) wherever two still leave two stages, one
+    past that (from 336 keys: a slot holds 2 x 384 rows of 128 bytes)."""
+    lay = fa.bwd_sm90_layout(nt, role)
+    assert 2 <= lay["tile_stages"] <= fa.SM90_FWD_MAX_SLOTS
+    assert 1 <= lay["head_slots"] <= fa.SM90_FWD_MAX_SLOTS
+    assert lay["smem"] <= SMEM_LIMIT
+    assert (lay["head_slots"] >= 2) == (nt <= 320)
+    rows = -(-nt // 64) * 64
+    boxes = 3 if role == "dq" else 2
+    assert lay["smem"] >= (lay["head_slots"] * 2 * rows * 128
+                           + lay["tile_stages"] * boxes * 64 * 128)
+
+
+@pytest.mark.parametrize("bh,n,tpg,grid", [
+    (96, 512, 2, 33),     # off-path batch 8 at N = 512: four groups of two tiles
+    (96, 256, 4, 96),     # N = 256: no grouping shortens the busiest CTA
+    (96, 333, 6, 96),     # ragged 333 (six tiles): whole heads
+    (96, 40, 1, 96),      # one tile a head
+    (384, 512, 8, 132),   # pretrain_txt's batch 32 x 12 heads: whole heads
+    (384, 237, 4, 132),   # pretrain_mum's shapes keep whole heads
+    (1152, 237, 4, 132),
+])
+def test_row4_work_units(bh, n, tpg, grid):
+    """Work units are a head and a group of `tpg` of its 64-row tiles, one
+    row of `grid` CTAs per group; the CTAs fill at least min(SMs, units)
+    and at most the SMs, and the grouping shortens the busiest warpgroup's
+    run of tiles or is a whole head."""
+    tiles = -(-n // 64)
+    assert fa.bwd_sm90_units(bh, n, H100_SMS) == (tpg, grid)
+    groups = -(-tiles // tpg)
+    assert min(H100_SMS, bh * groups) <= grid * groups <= H100_SMS or groups == 1
+    assert grid == min(bh, H100_SMS) if groups == 1 else grid <= bh
+
+    def busiest(t):
+        g = max(1, min(bh, H100_SMS // -(-tiles // t)))
+        return -(-(-(-bh // g) * t) // 2)
+    assert busiest(tpg) == min(busiest(t) for t in range(1, tiles + 1))
+    assert all(busiest(t) > busiest(tpg) for t in range(tpg + 1, tiles + 1))
 
 
 @pytest.mark.parametrize("nt,role,slots,stages,smem", [
@@ -718,6 +939,79 @@ def test_row4_layout_at_path_widths(nt, role, slots, stages, smem):
                   "BAR_BYTES = 8 * 4 * MAX_SLOTS;"):
         assert f"constexpr int {const}" in src
     assert SMEM_LIMIT == 232448 and fa.SM90_FWD_BOX == 64 and fa.HEAD_DIM == 64
+
+
+def _ring_early_waits(stages: int, tiles: int, release_wait: bool, trials: int) -> int:
+    """Runs the backward's tile ring under random schedules and counts the
+    consumer waits that pass before their tile has landed. The producer
+    loads tile u into stage u % stages once tile u - stages is released;
+    loads land in any order; warpgroup u % 2 waits for tile u on the
+    stage's full barrier by the parity (u // stages) & 1, which an mbarrier
+    passes while the stage's current phase has the other parity. With
+    `release_wait` it first waits, as the source does, on the stage's empty
+    barrier by the producer's parity for tile u, ((u // stages) & 1) ^ 1."""
+    import random
+    rng = random.Random(stages * 1000 + tiles)
+    early = 0
+    for _ in range(trials):
+        full = [0] * stages      # completed phases of each stage's full barrier
+        empty = [0] * stages     # ... and of its empty barrier (tiles released)
+        issued, landed = 0, set()
+        nxt = [0, 1]             # each warpgroup's next tile
+        step = [0, 0]            # 0: before its waits, 1: released seen, 2: holding
+        while min(nxt) < tiles or 2 in step:
+            moves = []
+            if issued < tiles and empty[issued % stages] >= issued // stages:
+                moves.append(("issue", 0))
+            moves += [("land", u) for u in range(issued) if u not in landed]
+            for w in (0, 1):
+                u, st = nxt[w], nxt[w] % stages
+                if step[w] == 2:
+                    moves.append(("release", w))
+                elif u >= tiles:
+                    continue
+                elif step[w] == 0 and release_wait:
+                    if empty[st] % 2 != ((u // stages) & 1) ^ 1:
+                        moves.append(("released", w))
+                elif full[st] % 2 != (u // stages) & 1:
+                    moves.append(("wait", w))
+            if not moves:  # a schedule the race has wedged
+                break
+            kind, arg = rng.choice(moves)
+            if kind == "issue":
+                issued += 1
+            elif kind == "land":
+                landed.add(arg)
+                full[arg % stages] += 1
+            elif kind == "released":
+                step[arg] = 1
+            elif kind == "wait":
+                early += nxt[arg] not in landed
+                step[arg] = 2
+            else:
+                empty[nxt[arg] % stages] += 1
+                step[arg], nxt[arg] = 0, nxt[arg] + 2
+    return early
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_row4_ring_waits_pass_only_for_landed_tiles(stages):
+    """Rows 2 and 4 take alternate tiles from one ring in two warpgroups
+    by parity waits, which cannot tell a phase from the one two phases
+    earlier. With an odd stage count (3: the dq kernel at key widths
+    208-256 and 464-512, the dk/dv kernel at 272-320) a stage's previous
+    tile is the other warpgroup's, and a warpgroup that runs ahead can pass
+    its wait before its tile has landed. The source's first wait, for the
+    stage's previous tile to be released, leaves no such schedule at any
+    stage count; the model finds the race without it, so it has teeth."""
+    src = BWD_SRC.read_text()
+    assert ("      mbar_wait(tempty0 + 8 * st, ((u / L.ts) & 1) ^ 1);\n"
+            "      mbar_wait(tfull0 + 8 * st, (u / L.ts) & 1);\n") in src
+    assert {fa.bwd_sm90_layout(nt, r)["tile_stages"] for nt in range(16, 513, 16)
+            for r in ("dq", "dkdv")} <= {2, 3, 4}
+    assert _ring_early_waits(stages, 12, release_wait=True, trials=300) == 0
+    unguarded = _ring_early_waits(stages, 12, release_wait=False, trials=300)
+    assert (unguarded > 0) == (stages % 2 == 1)
 
 
 @pytest.mark.parametrize("bh,n", [(384, 40), (384, 197), (1152, 237), (96, 256)])
@@ -769,8 +1063,8 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     """Five maps per launch (q, k, v, o, do): each one the kernel receives
     is the one encoded for its tensor, even where the cache empties itself
     between two lookups; then the bias, seed, lse, delta, dq, dk, dv
-    pointers, (bh, heads, n, key width, grid), the scale and the dropout
-    threshold and factor."""
+    pointers, (bh, heads, n, key width, grid, tiles per unit), the scale
+    and the dropout threshold and factor."""
     calls, seen, launches = [], [], []
 
     def kernel(*args):
@@ -782,7 +1076,7 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert name == "flash_attention_bwd_sm90"
         if symbol == "flash_attention_bwd_sm90_encode":
             return _fake_encoder(calls)
-        assert symbol == "flash_attention_bwd_sm90_drop" and len(argtypes) == 21
+        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 22
         return kernel
 
     monkeypatch.setattr(fa._build, "load", fake_load)
@@ -799,8 +1093,8 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
             t.data_ptr() for t in (q, k, v, o, do)]
     rest = launches[-1]
     assert rest[0] == kb.data_ptr() and rest[1] == seed.data_ptr() and rest[2] == lse.data_ptr()
-    assert rest[7:12] == (24, 12, n, fa.fwd_sm90_tile(n), 24)
-    assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert rest[7:13] == (24, 12, n, fa.fwd_sm90_tile(n), *fa.bwd_sm90_units(24, n, H100_SMS)[::-1])
+    assert rest[13:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -835,24 +1129,25 @@ def _map_addresses(args, count):
 
 @pytest.mark.parametrize("n,cap", [(40, 1), (237, 2), (256, 256)])
 def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
-    """Row 2 on the sm90 backward: the entry without dropout
-    (`flash_attention_bwd_sm90`, no seed, threshold or factor) gets the five
+    """Row 2 on the sm90 backward: its one entry (`flash_attention_bwd_sm90`)
+    with a null seed, no dropout (threshold 0, factor 1), gets the five
     maps of q, k, v, o, do, live across a cache eviction; then the bias,
-    lse, delta, dq, dk, dv pointers, (bh, heads, n, key width, grid), the
-    scale and the stream."""
+    lse, delta, dq, dk, dv pointers, (bh, heads, n, key width, grid, tiles
+    per unit), the scale and the stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
-                                 "flash_attention_bwd_sm90", 18, cap)
+                                 "flash_attention_bwd_sm90", 22, cap)
     q, k, v, kb, _, o, do, lse = _bwd_args(n=n)
     for _ in range(2):
         dq, dk, dv = fa._launch_bwd_sm90(q, k, v, kb, None, o, do, lse, 0.125)
         assert _map_addresses(launches[-1], 5) == [t.data_ptr() for t in (q, k, v, o, do)]
     assert dq.shape == dk.shape == dv.shape == q.shape
     rest = launches[-1][5:]
-    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 18
-    assert rest[0] == kb.data_ptr() and rest[1] == lse.data_ptr()
-    assert rest[3:6] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert rest[6:11] == (24, 12, n, fa.fwd_sm90_tile(n), 24)
-    assert rest[11:] == (0.125, 0)
+    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 22
+    assert rest[0] == kb.data_ptr() and rest[1] is None and rest[2] == lse.data_ptr()
+    assert rest[4:7] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    tpg, grid = fa.bwd_sm90_units(24, n, H100_SMS)
+    assert rest[7:13] == (24, 12, n, fa.fwd_sm90_tile(n), grid, tpg)
+    assert rest[13:] == (0.125, 0, 1.0, 0)
     assert len(fa._MAPS) <= cap
 
 

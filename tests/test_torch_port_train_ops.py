@@ -160,7 +160,7 @@ def test_wrappers_take_the_plain_versions_on_the_cpu():
 
 
 @pytest.mark.parametrize("n,rate", [(40, 0.0), (197, 0.0), (197, RATE),
-                                    (237, RATE), (520, 0.0)])
+                                    (237, RATE), (333, RATE), (520, 0.0)])
 def test_flash_attention_grads_match_jax_vjp(n, rate):
     """The port's `flash_attention` (autograd over rows 1+2, rows 3+4, or
     the long-sequence recompute backward at N > 512) against `jax.vjp` of
