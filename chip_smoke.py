@@ -7,15 +7,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
   2. build every CUDA kernel from the checkout's sources (nvcc, sm_90a, one
      process per source, all at once) into exploremultimodal_torch/ops/build/;
-  3. the shared memory the sm90 kernels of rows 1, 2/4 (up to 512 keys), 8,
-     9 and 10 report against their wrappers' layout; at each shape the VQA
-     serving path gives each
+  3. the shared memory the sm90 kernels of rows 1, 2/4 (up to 512 keys),
+     1/3/5's streamed kernel, 8, 9 and 10 report against their wrappers'
+     layout; at each shape the VQA serving path gives each
      serving kernel, hold the kernel against its plain PyTorch version on
      the card, then time the kernel, the plain version and a library call
      computing the same function (row 1 also at batch 8 at N = 100, 150
-     and 256, the sm90 kernel's other key widths, and at N = 577 on the
-     mma.sync kernel; the MLP also at the 1024^2 request's M, at M = 64 and
-     at two ragged M, with its cluster size and hidden splits);
+     and 256, the short sm90 kernel's other key widths, and past 256 keys
+     on the streamed kernel at N = 333, 512 and 577 (384^2 images) and at
+     batch 32 at N = 512, with route, grid and tiles; the MLP also at the
+     1024^2 request's M, at M = 64 and at two ragged M, with its cluster
+     size and hidden splits);
   4. serve batch-64 VQA requests through `Predictor.vqa_logits` at vlmo_base
      full width and depth (bf16, attn_impl=pallas, mlp_impl=fused, seeded
      random weights), check that every request went through both kernels,
@@ -26,12 +28,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      batch 8 at N = 256, 333 (ragged) and 512 and at batch 32 at N = 333
      and 512 (pretrain_txt's length; the backward's sm90 kernels up to 512
      keys, in work units of a head's tile groups where heads are fewer than
-     SMs; the dropout forward's mma.sync route past 256), hold each against
+     SMs; the dropout forward's streamed kernel past 256), hold each against
      its plain version, with its route, key width and grid, check the
-     in-kernel dropout mask bit for bit (through the sm90 forward and
-     backward at ITM's shape, and through the backward at N = 512), and time
-     kernel, plain version and SDPA (the backward rows against SDPA's
-     backward alone, and its forward and backward);
+     in-kernel dropout mask bit for bit (through the short sm90 forward and
+     the backward at ITM's shape, and through the streamed forward and the
+     backward at N = 512), and time kernel, plain version and SDPA (the
+     backward rows against SDPA's backward alone, and its forward and
+     backward);
   6. train pretrain_mum at vlmo_base, batch 32, on the synthetic data with a
      random dVAE (attn_impl=auto: the dropout kernels): one warm-up step and
      TRAIN_STEPS timed steps, with every launch counted;
@@ -87,7 +90,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      against the CPU at batch 2;
  18. two pretrain_mum steps with MIM labels from the int8 dVAE
      (train.discrete_vae_quantize=w8a8);
- 19. print the kernel table as one JSON line, the card line, and last
+ 19. train pretrain_txt at vlmo_base, batch 32, 512 tokens (text-only MLM,
+     attn_impl=auto: rows 3 and 4 at BH = 384, N = 512 on the streamed
+     forward and the sm90 backward, 12 launches each a step): one warm-up
+     step and TRAIN_STEPS timed steps with every launch counted, the text
+     side moved and the fixed attention and frozen vision side not; two
+     steps at attn_impl=pallas and attention dropout 0 (rows 1 and 2 at N =
+     512); one batch-2 step on the card and on the CPU's plain path,
+     compared as in phase 8;
+ 20. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -143,8 +154,10 @@ from exploremultimodal_torch.ops.flash_attention import (
     fwd_sm90_grid,
     fwd_sm90_smem,
     fwd_sm90_tile,
+    long_ctas,
     long_grid,
     padded_len,
+    stream_smem,
 )
 from exploremultimodal_torch.ops.mlp_fused import CLUSTER as MLP_CLUSTER
 from exploremultimodal_torch.ops.mlp_fused import (
@@ -204,10 +217,13 @@ CPU_CHECK_REQUESTS, CPU_CHECK_ROWS = 2, 4
 # in another order in fp32, which can flip the bf16 rounding of a hidden
 # value, and both round y (|y| < 4) to bf16: one ulp is at most 2**-6.
 ATTN_ATOL, ATTN_RTOL, ATTN_LSE_ATOL = 1e-4, 2 ** -7, 1e-4
-# row 1 off the serving path, at batch 8 (BH = 96): the sm90 kernel's key
-# widths 128, 192 and 256 (the serving streams take 64 and 256), and 384^2
-# images (577 tokens), past SM90_FWD_MAX_N, on the mma.sync kernel
-ATTN_OFF_PATH_N, OFF_PATH_BATCH = (100, 150, 256, 577), 8
+# row 1 off the serving path, (batch, N), at batch 8 (BH = 96): the short
+# sm90 kernel's key widths 128, 192 and 256 (the serving streams take 64
+# and 256), then past SM90_FWD_MAX_N on the streamed kernel a ragged N, the
+# fused backward's longest and 384^2 images (577 tokens); pretrain_txt's
+# 512 tokens at batch 32 (BH = 384) are on that phase's path at dropout 0
+OFF_PATH_BATCH = 8
+ATTN_OFF_PATH = ((8, 100), (8, 150), (8, 256), (8, 333), (8, 512), (8, 577))
 MLP_ATOL, MLP_RTOL = 2 ** -6, 2 ** -7
 # GPU kernels vs the CPU plain path, end to end in bf16 over 12 blocks and
 # the 3129-way head: bf16 rounding (2**-8 relative) at every layer, in other
@@ -225,11 +241,12 @@ EXTRA_STEPS = 2  # untimed, in each variant of a training phase
 CPU_TRAIN_BATCH = 2
 DROP_SEED = 1234
 # rows 2, 3 and 4 off the path, (batch, N): at batch 8 (BH = 96, fewer
-# heads than SMs) the widest key width the sm90 forward takes, a ragged N
-# past it (padded width 336: one head slot in the backward) and the fused
-# backward's longest, and at batch 32 (BH = 384) those two, the shape
-# pretrain_txt's 512 tokens give; row 3 takes the mma.sync forward past 256
-TRAIN_OFF_PATH = ((8, 256), (8, 333), (8, 512), (32, 333), (32, 512))
+# heads than SMs) the widest key width the short sm90 forward takes, a
+# ragged N past it (padded width 336: one head slot in the backward) and the
+# fused backward's longest, and at batch 32 (BH = 384) the ragged one;
+# pretrain_txt's 512 tokens at batch 32 are on that phase's path. Row 3
+# takes the streamed forward past 256 keys
+TRAIN_OFF_PATH = ((8, 256), (8, 333), (8, 512), (32, 333))
 # backward kernels vs plain versions, bf16 out. Both sum fp32 products of
 # bf16 inputs, in other orders; the kernel keeps 16 mantissa bits of p and ds
 # for its products with k, q and do (2**-17 relative per term). Both round
@@ -262,6 +279,29 @@ CHECKED_PARAMS = (
     "mim_head.fc.weight",
     "itc_temp",
 )
+
+# pretrain_txt: text-only MLM at BERT length (the JAX package's bert_mlm
+# bench, `model.max_text_len=512` as its preset says), attn_impl=auto with
+# attention dropout 0.1: rows 3 and 4 at BH = 384, N = 512 on every block
+TXT_OVERRIDES = [
+    "model=vlmo_base", "train=pretrain_txt", "model.max_text_len=512",
+    "compute_dtype=bfloat16", "train.datasets=[synthetic]", "data.batch_size=32",
+]
+TXT_BATCH, TXT_LEN = 32, 512
+# the trained text side must move; the fixed shared attention (0x lr) and the
+# frozen vision side must not
+CHECKED_TXT_PARAMS = (
+    "transformer.txt_embeddings.word_embeddings.weight",
+    "transformer.blocks.0.mlp_l.fc1.weight",
+    "transformer.blocks.11.mlp_l.fc2.weight",
+    "mlm_head.transform_dense.weight",
+)
+FIXED_TXT_PARAMS = ("transformer.blocks.0.attn.qkv.weight", "transformer.norm.weight",
+                    "transformer.blocks.5.mlp_v.fc1.weight")
+# compared with the CPU: the trained ones and a fixed attention weight's
+# gradient (computed, never applied)
+COMPARED_TXT_PARAMS = CHECKED_TXT_PARAMS + ("transformer.blocks.0.attn.qkv.weight",
+                                            "transformer.blocks.11.attn.proj.weight")
 
 VQA_OVERRIDES = [
     "model=vlmo_base", "train=finetune_vqa", "compute_dtype=bfloat16",
@@ -369,10 +409,12 @@ def text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
 def check_layouts() -> dict:
     """The shared memory each sm90 kernel with a layout mirrored on the
     host reports for itself against that mirror (rows 1, 2/4 at every key
-    width up to SM90_BWD_MAX_N, 8, 9 and 10), all within the 232,448 bytes a
-    block may use."""
+    width up to SM90_BWD_MAX_N, the streamed kernel of rows 1, 3 and 5, 8,
+    9 and 10), all within the 232,448 bytes a block may use."""
     fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int],
                            "flash_attention_fwd_sm90_smem")
+    stream_smem_fn = _build.load("flash_attention_long_sm90", [],
+                                 "flash_attention_long_sm90_smem")
     bwd_smem = _build.load("flash_attention_bwd_sm90", [ctypes.c_int] * 2,
                            "flash_attention_bwd_sm90_smem")
     mlp_smem_fn = _build.load("w8a8_mlp_sm90", [ctypes.c_int], "w8a8_mlp_sm90_smem")
@@ -383,6 +425,7 @@ def check_layouts() -> dict:
         got.update({f"flash_attention_bwd_sm90 {role} nt={nt}":
                     (bwd_smem(nt, r), bwd_sm90_layout(nt, role)["smem"])
                     for nt in range(16, SM90_BWD_MAX_N + 1, 16)})
+    got["flash_attention_long_sm90"] = (stream_smem_fn(), stream_smem())
     got["w8a8_matmul_sm90"] = (matmul_smem_fn(), matmul_smem())
     got["w8a8_mlp_sm90"] = (mlp_smem_fn(0), mlp_smem())
     got["w8a8_mlp_sm90 drop"] = (mlp_smem_fn(1), mlp_smem(drop=True))
@@ -393,6 +436,20 @@ def check_layouts() -> dict:
     return {name: kernel for name, (kernel, _) in got.items()}
 
 
+def fwd_layout(bh: int, n: int, sms: int) -> dict:
+    """The forward's route at (BH, N) and how it tiles the work: the short
+    kernel's key width and persistent grid, or the streamed kernel's
+    persistent grid over its work items (128-row query tiles x BH) and
+    their 128-key blocks."""
+    route = fwd_route(n)
+    if route == "sm90":
+        return {"route": route, "key_width": fwd_sm90_tile(n),
+                "grid": fwd_sm90_grid(bh, sms)}
+    tiles, _ = long_grid(bh, n)
+    return {"route": route, "grid": long_ctas(bh, n, sms), "items": tiles * bh,
+            "query_tile": LONG_TILE, "key_blocks": -(-n // LONG_TILE)}
+
+
 def padded_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
     """Rows of length // 2 .. length real keys, padded to `length`."""
     lens = rng.integers(length // 2, length + 1, batch)
@@ -400,20 +457,22 @@ def padded_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray
 
 
 def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict]:
-    """Row 1 against its plain version: off the path at batch OFF_PATH_BATCH
-    (N = 100, 150 and 256 take the sm90 kernel's other key widths, N = 577,
-    384^2 images, the mma.sync kernel past SM90_FWD_MAX_N), then at the
-    serving streams of batch 64, each timed beside its plain version and
-    SDPA. The last row is the fused stream."""
+    """Row 1 against its plain version: off the path at the (batch, N) of
+    ATTN_OFF_PATH (N = 100, 150 and 256 take the short sm90 kernel's other
+    key widths; N = 333, 512 and 577, 384^2 images, the streamed kernel past
+    SM90_FWD_MAX_N), then at the serving streams of batch 64 and at
+    pretrain_txt's 512 tokens at batch 32 (its path at attention dropout 0,
+    the streamed kernel), each timed beside its plain version and SDPA."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
     txt = text_mask(rng, BATCH, cfg.max_text_len)
-    masks = {f"off_path_n{n}": padded_mask(rng, OFF_PATH_BATCH, n) for n in ATTN_OFF_PATH_N}
+    masks = {f"off_path_b{b}_n{n}": padded_mask(rng, b, n) for b, n in ATTN_OFF_PATH}
     masks.update({
         "text": txt,
         "image": np.ones((BATCH, n_img), np.int32),
         "fused": np.concatenate([txt, np.ones((BATCH, n_img), np.int32)], 1),
+        "txt": synthetic_text_mask(rng, TXT_BATCH, TXT_LEN),
     })
     rows = []
     for stream, mask in masks.items():
@@ -440,11 +499,8 @@ def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict
         mask4 = kb.to(torch.bfloat16).view(batch, 1, 1, n)
         nbytes = 4 * bh * n * d * 2 + batch * n * 4 + bh * n * 4
         bound_ms, bound_by = bound(nbytes, 4 * bh * n * n * d)
-        route = fwd_route(n)
         rows.append({
-            "stream": stream, "shape": f"BH={bh} N={n} D={d}", "route": route,
-            **({"key_width": fwd_sm90_tile(n), "grid": fwd_sm90_grid(bh, sms)}
-               if route == "sm90" else {}),
+            "stream": stream, "shape": f"BH={bh} N={n} D={d}", **fwd_layout(bh, n, sms),
             "max_abs_err": err, "lse_max_abs_err": lse_err,
             "ms": time_ms(lambda: flash_attention_fwd(q, k, v, kb, scale)),
             "plain_ms": time_ms(lambda: flash_attention_fwd_plain(q, k, v, kb, scale)),
@@ -785,6 +841,7 @@ def check_attention_long(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list
     masked (the online rescale from a block with no real key). The last row
     is the fused stream."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
     txt = text_mask(rng, HIRES_BATCH, cfg.max_text_len)
     fused = np.concatenate([txt, np.ones((HIRES_BATCH, n_img), np.int32)], 1)
@@ -817,7 +874,8 @@ def check_attention_long(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list
         del ref
         rows.append({
             "stream": stream, "shape": f"BH={bh} N={n} D={d}",
-            "grid": list(long_grid(bh, n)), "max_abs_err": err,
+            "grid": long_ctas(bh, n, sms), "items": math.prod(long_grid(bh, n)),
+            "max_abs_err": err,
             "ms": time_ms(lambda: flash_attention_fwd_long(q, k, v, kb, scale)),
             "plain_ms": time_ms(lambda: flash_attention_fwd_long_plain(q, k, v, kb, scale),
                                 iters=3, warmup=1),
@@ -1126,8 +1184,9 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
     """Rows 2, 3 and 4 off the path at the (batch, N) of TRAIN_OFF_PATH
     (the backward on its sm90 kernels throughout, with its work units),
     then at each shape of the pretrain_mum step: the text, image and fused
-    (MLM) streams at B = 32 and ITM's fused pair rows at 3B, all on the sm90
-    kernels. Each
+    (MLM) streams at B = 32 and ITM's fused pair rows at 3B, all on the
+    short sm90 forward, and last pretrain_txt's 512 tokens at B = 32 (row 3
+    on the streamed forward). Each
     kernel against its plain version on the same inputs, then
     the kernel, the plain version and SDPA timed: the forward rows against
     SDPA's forward, the backward rows against SDPA's backward alone (its
@@ -1144,6 +1203,7 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
         "image": np.ones((TRAIN_BATCH, n_img), np.int32),
         "fused": np.concatenate([txt, np.ones((TRAIN_BATCH, n_img), np.int32)], 1),
         "itm": np.concatenate([txt3, np.ones((3 * TRAIN_BATCH, n_img), np.int32)], 1),
+        "txt": synthetic_text_mask(rng, TXT_BATCH, TXT_LEN),
     })
     rows = {"flash_attention_bwd": [], "flash_attention_fwd_drop": [],
             "flash_attention_bwd_drop": []}
@@ -1206,15 +1266,16 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev) -> dic
                     "beyond its tolerance")
             nbytes = ((8 if is_bwd else 4) * bh * n * d * 2 + b * n * 4 + bh * n * 4)
             bound_ms, bound_by = bound(nbytes, (10 if is_bwd else 4) * bh * n * n * d)
-            route = {"route": bwd_route(n) if is_bwd else fwd_route(n)}
             on_path = not stream.startswith("off_path")
-            require(route["route"] == "sm90" or not on_path,
-                    f"{name} {stream} N={n}: the step's shapes must take the sm90 kernels")
             if is_bwd:
                 tpg, grid = bwd_sm90_units(bh, n, sms)
-                route.update(key_width=fwd_sm90_tile(n), grid=grid, tiles_per_unit=tpg)
-            elif route["route"] == "sm90":
-                route.update(key_width=fwd_sm90_tile(n), grid=fwd_sm90_grid(bh, sms))
+                route = {"route": bwd_route(n), "key_width": fwd_sm90_tile(n),
+                         "grid": grid, "tiles_per_unit": tpg}
+            else:
+                route = fwd_layout(bh, n, sms)
+            require(route["route"] == ("sm90_stream" if stream == "txt" and not is_bwd
+                                       else "sm90") or not on_path,
+                    f"{name} {stream} N={n}: a step's shape took {route['route']}")
             rows[name].append({
                 "stream": stream, "shape": f"BH={bh} N={n} D={d}",
                 "on_path": on_path, **route, "max_abs_err": err,
@@ -1332,23 +1393,27 @@ def require_launches(tag: str, launches: dict, expected: dict, runs: int) -> Non
                 f"expected {per_run} per run")
 
 
-def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict) -> dict:
+def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict, unmoved=()) -> dict:
     """A training step at vlmo_base, batch 32: one warm-up step, then
     TRAIN_STEPS steps timed one by one, each with a synchronise around it,
-    every kernel's launches counted against `expected` (per step) and the
-    `checked` parameters required to move."""
+    every kernel's launches counted against `expected` (per step), the
+    `checked` parameters required to move and the `unmoved` ones (fixed or
+    frozen by the phase) required to stay."""
     t0 = time.perf_counter()
     trainer = Trainer(cfg_dict, device="cuda")
     print(f"{tag}: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
     params = dict(trainer.task.named_parameters())
-    before = {k: params[k].detach().clone() for k in checked}
+    before = {k: params[k].detach().clone() for k in (*checked, *unmoved)}
     trainer.step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    steps, times, launches = run_counted(trainer, TRAIN_STEPS, timed=True)
+    metrics, times, launches = run_counted(trainer, TRAIN_STEPS, timed=True)
     require_launches(tag, launches, expected, TRAIN_STEPS)
     moved = {k: (params[k].detach() - before[k]).abs().max().item() for k in checked}
     require(all(x > 0 for x in moved.values()), f"{tag}: parameters did not change: {moved}")
+    stayed = {k: (params[k].detach() - before[k]).abs().max().item() for k in unmoved}
+    require(all(x == 0 for x in stayed.values()),
+            f"{tag}: fixed or frozen parameters changed: {stayed}")
     batch, med = cfg_dict["data"]["batch_size"], statistics.median(times)
     result = {
         "batch": batch, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in times],
@@ -1356,8 +1421,8 @@ def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict) -> dict:
         "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
         "launches": launches, "expected_launches_per_step": expected,
         "losses": [{k: v for k, v in m.items() if k.endswith("_task_loss") or k in
-                    ("vqa_mean_score", "total_loss", "grad_norm", "lr")} for m in steps],
-        "max_param_change": moved,
+                    ("vqa_mean_score", "total_loss", "grad_norm", "lr")} for m in metrics],
+        "max_param_change": moved, **({"fixed_param_change": stayed} if unmoved else {}),
     }
     print(f"{tag}: " + json.dumps(result), flush=True)
     del trainer
@@ -1471,6 +1536,42 @@ def vqa_cpu_check_phase(tag: str, overrides: list[str]) -> dict:
     return result
 
 
+def txt_phase() -> dict:
+    """pretrain_txt at vlmo_base, batch 32, 512 tokens: a warm-up step and
+    TRAIN_STEPS timed ones through rows 3 and 4 (12 launches each a step), the
+    trained text side moved and the fixed and frozen parameters not; two
+    steps at attention dropout 0 through rows 1 and 2; a batch-2 step
+    against the CPU's plain path (hidden dropout and DropPath off,
+    attention dropout on through the hash). Returns each run's launches."""
+    txt_dict = load_config(TXT_OVERRIDES)
+    txt_cfg = VlmoConfig.from_config(txt_dict)
+    require(txt_cfg.attn_impl == "auto" and txt_cfg.attn_drop_rate > 0
+            and txt_cfg.max_text_len == TXT_LEN and txt_cfg.loss_names == ("mlm",)
+            and txt_dict["data"]["batch_size"] == TXT_BATCH
+            and padded_len(TXT_LEN) <= SM90_BWD_MAX_N and fwd_route(TXT_LEN) == "sm90_stream",
+            "the pretrain_txt phase must run text-only MLM at 512 tokens through the "
+            "dropout kernels, the forward on the streamed kernel")
+    depth = txt_cfg.depth
+    launches = {"txt_train": timed_phase(
+        "txt_train", txt_dict, CHECKED_TXT_PARAMS, {
+            "flash_attention_fwd_drop": depth, "flash_attention_bwd_drop": depth,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0},
+        unmoved=FIXED_TXT_PARAMS)}
+    launches["txt_attn_drop0"], _, _ = short_phase(
+        "txt_attn_drop0",
+        load_config(TXT_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"]),
+        {"flash_attention_fwd": depth, "flash_attention_bwd": depth,
+         "flash_attention_fwd_drop": 0, "flash_attention_bwd_drop": 0})
+    cfg_dict = load_config(TXT_OVERRIDES + [
+        f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
+        "model.drop_path_rate=0.0"])
+    gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
+    compare_step("txt_cpu_check", gpu, cpu, cpu.next_batch(), COMPARED_TXT_PARAMS)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1516,7 +1617,8 @@ def main() -> int:
             print("kernel: " + json.dumps({"name": name, **row}), flush=True)
     print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev, 3 * TRAIN_BATCH)),
           flush=True)
-    # the backward's sm90 kernels past 256 keys (one head slot, work units)
+    # the streamed forward and the backward's sm90 kernels past 256 keys
+    # (one head slot, work units)
     print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev, OFF_PATH_BATCH,
                                                            SM90_BWD_MAX_N)), flush=True)
     per_step = attention_calls_per_step(train_cfg)
@@ -1631,6 +1733,9 @@ def main() -> int:
         check=lambda tr: require(tr.dvae.encoder.quantize == "w8a8",
                                  "the trainer's dVAE is not int8"))
 
+    # pretrain_txt at 512 tokens: rows 3 and 4 (and 1 and 2 at dropout 0)
+    txt_launches = txt_phase()
+
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
         return {
@@ -1642,6 +1747,7 @@ def main() -> int:
             "library_ms": big["library_ms"],
         }
 
+    stream_src = "exploremultimodal_torch/ops/csrc/flash_attention_long_sm90.cu"
     fwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_fwd_sm90.cu"
     bwd_sm90_src = "exploremultimodal_torch/ops/csrc/flash_attention_bwd_sm90.cu"
     tpu_fa = "exploremultimodal_tpu/ops/flash_attention.py"
@@ -1650,15 +1756,18 @@ def main() -> int:
     q_src = "exploremultimodal_torch/ops/csrc/w8a8_matmul_sm90.cu"
     qmlp_src = "exploremultimodal_torch/ops/csrc/w8a8_mlp_sm90.cu"
     tpu_q = "exploremultimodal_tpu/ops/quant_pallas.py"
+    # rows 1-4 at their largest path shape, pretrain_txt's BH = 384, N = 512
+    # (rows 1 and 3 on the streamed kernel there, the short one on the other
+    # paths), with that phase's launches
     kernels = [
-        entry("flash_attention_fwd", "cuda", fwd_sm90_src, f"{tpu_fa}:152", attn_rows,
-              serve_launches),
+        entry("flash_attention_fwd", "cuda", stream_src, f"{tpu_fa}:152", attn_rows,
+              txt_launches["txt_attn_drop0"]),
         entry("flash_attention_bwd", "cuda", bwd_sm90_src, f"{tpu_fa}:170",
-              train_rows["flash_attention_bwd"], drop0_launches),
-        entry("flash_attention_fwd_drop", "cuda", fwd_sm90_src, f"{tpu_fa}:209",
-              train_rows["flash_attention_fwd_drop"], train_launches),
+              train_rows["flash_attention_bwd"], txt_launches["txt_attn_drop0"]),
+        entry("flash_attention_fwd_drop", "cuda", stream_src, f"{tpu_fa}:209",
+              train_rows["flash_attention_fwd_drop"], txt_launches["txt_train"]),
         entry("flash_attention_bwd_drop", "cuda", bwd_sm90_src, f"{tpu_fa}:237",
-              train_rows["flash_attention_bwd_drop"], train_launches),
+              train_rows["flash_attention_bwd_drop"], txt_launches["txt_train"]),
         entry("fused_mlp_fwd", "cuda", mlp_src, f"{tpu_mlp}:56", mlp_rows,
               serve_launches),
         entry("fused_mlp_fwd_drop", "cuda", mlp_src, f"{tpu_mlp}:69", mlp_drop_rows,
@@ -1669,13 +1778,13 @@ def main() -> int:
               w8_serve_launches),
         entry("w8a8_mlp_fwd_drop", "cuda", qmlp_src, f"{tpu_q}:366",
               w8_rows["w8a8_mlp_fwd_drop"], w8_vqa_launches),
-        entry("flash_attention_fwd_long", "cuda",
-              "exploremultimodal_torch/ops/csrc/flash_attention_long_sm90.cu",
-              f"{tpu_fa}:113", long_rows,
+        entry("flash_attention_fwd_long", "cuda", stream_src, f"{tpu_fa}:113", long_rows,
               hires_launches),
         entry("fused_encoder_block", "cuda", "exploremultimodal_torch/ops/csrc/dvae_block.cu",
               "exploremultimodal_tpu/ops/dvae_conv.py:127", dvae_rows, tok_launches),
     ]
+    for k in kernels[:4:2]:  # rows 1 and 3: the short kernel up to 256 keys
+        k["sources"] = [fwd_sm90_src, stream_src]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -155,6 +155,36 @@ TRAIN_PRESETS: dict[str, dict[str, Any]] = {
         "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
                 "momentum": 0.9},
     },
+    # text-only MLM; BERT-length text with model.max_text_len=512
+    "pretrain_txt": {
+        "phase": "pretrain_txt",
+        "loss_names": ["mlm"],
+        "datasets": ["book", "wiki"],
+        "fixed_attn": True,  # shared attention and norms at 0x lr: the 'l' experts train
+        "start_epoch": 0,
+        "epochs": 10,
+        "cur_epoch": 0,
+        "warmup_epochs": 3,
+        "warmup_steps": 10000,
+        "weight_decay": 0.01,
+        "weight_decay_end": 0.01,
+        "base_lr": 2.0e-4,
+        "warmup_lr": 5.0e-7,
+        "min_lr": 5.0e-6,
+        "lr_mult_head": 5,
+        "lr_mult_fusion": 5,
+        "flat_loss": False,
+        "clip_grad": None,
+        "auto_resume": True,
+        "resume": "",
+        "accumulation_steps": 1,
+        "save_freq": 1,
+        "print_freq": 300,
+        "print_stat_level": 2,
+        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
+        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
+                "momentum": 0.9},
+    },
 }
 
 _PRESETS = {"model": MODEL_PRESETS, "train": TRAIN_PRESETS}

@@ -1,6 +1,6 @@
 """The synthetic dataset (counterpart of
-`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain and
-VQA contracts): the same samples, drawn in the same order from the same numpy
+`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain,
+text-only and VQA contracts): the same samples, drawn in the same order from the same numpy
 generator, so a seed gives the JAX package's batch.
 
 The repository holds no image-text arrow shards, so this is the training
@@ -23,12 +23,15 @@ class SyntheticDataset:
     token ids and mask, MLM ids and labels, a uint8 image, its blockwise
     patch mask, the half-size uint8 image for the dVAE tokenizer (where
     `second_size` is set) and a one-hot VQA target over `vqa_label_size`
-    answers (where that is set)."""
+    answers (where that is set). With `text_only` a sample ends before its
+    image is drawn (the text phases: token ids and mask, MLM ids and
+    labels)."""
 
     def __init__(self, size: int = 256, *, img_size: int = 224,
                  second_size: int | None = 112, max_text_len: int = 40,
                  vocab_size: int = 30522, mask_generator: MaskingGenerator,
-                 vqa_label_size: int | None = None, seed: int = 0):
+                 vqa_label_size: int | None = None, text_only: bool = False,
+                 seed: int = 0):
         self.size = size
         self.img_size = img_size
         self.second_size = second_size
@@ -36,6 +39,7 @@ class SyntheticDataset:
         self.vocab_size = vocab_size
         self.mask_generator = mask_generator
         self.vqa_label_size = vqa_label_size
+        self.text_only = text_only
         self.seed = seed
 
     def __len__(self) -> int:
@@ -63,9 +67,11 @@ class SyntheticDataset:
             "text_mask": mask,
             "text_ids_mlm": ids_mlm,
             "text_labels_mlm": labels,
-            "image_u8": rng.integers(0, 256, (self.img_size, self.img_size, 3),
-                                     dtype=np.uint8),
         }
+        if self.text_only:
+            return sample
+        sample["image_u8"] = rng.integers(0, 256, (self.img_size, self.img_size, 3),
+                                          dtype=np.uint8)
         sample["image_bool_masked_pos"] = self.mask_generator(rng).reshape(-1)
         if self.second_size:
             sample["image4dalle_u8"] = rng.integers(
@@ -81,7 +87,8 @@ def build_dataset(cfg: dict) -> SyntheticDataset:
     """The training dataset of `cfg`, as the JAX `MultiTaskData` builds the
     `synthetic` key: a phase with masked images (pretraining, or MIM) gets
     the configured patch masker and the dVAE's half-size image, any other
-    the default masker and no second image; `vqa` adds the VQA targets.
+    the default masker and no second image; `vqa` adds the VQA targets; a
+    phase named `*txt*` whose losses are at most MLM gets text-only samples.
     Only `train.datasets=[synthetic]` is ported."""
     t = cfg["train"]
     keys = list(t["datasets"])
@@ -108,4 +115,5 @@ def build_dataset(cfg: dict) -> SyntheticDataset:
         second_size=m["img_size"] // 2 if masked_image else None,
         max_text_len=m["max_text_len"], vocab_size=m["vocab_size"],
         mask_generator=masker,
-        vqa_label_size=d["vqav2_label_size"] if "vqa" in losses else None)
+        vqa_label_size=d["vqav2_label_size"] if "vqa" in losses else None,
+        text_only=losses <= {"mlm"} and "txt" in t["phase"])

@@ -6,6 +6,8 @@
     python -m exploremultimodal_torch.main train=finetune_vqa model=vlmo_base \\
         compute_dtype=bfloat16 model.mlp_impl=fused 'train.datasets=[synthetic]' \\
         data.batch_size=32 steps=10
+    python -m exploremultimodal_torch.main train=pretrain_txt model=vlmo_base \\
+        model.max_text_len=512 'train.datasets=[synthetic]' data.batch_size=32 steps=10
 
 Runs on the GPU; `device=cpu` runs the plain PyTorch path on the CPU. Without
 `steps=N` it trains `train.epochs` epochs of the loader. Each step's metrics
@@ -18,7 +20,7 @@ import json
 import sys
 import time
 
-TRAINED_PHASES = ("pretrain_mum", "finetune_vqa")
+TRAINED_PHASES = ("pretrain_mum", "finetune_vqa", "pretrain_txt")
 
 
 def main(argv: list[str] | None = None) -> int:

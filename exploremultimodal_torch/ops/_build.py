@@ -20,9 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-KERNELS = ("flash_attention_fwd_sm90", "flash_attention_fwd", "flash_attention_long_sm90",
-           "flash_attention_bwd_sm90", "fused_mlp_sm90", "w8a8_matmul_sm90", "w8a8_mlp_sm90",
-           "dvae_block")
+KERNELS = ("flash_attention_fwd_sm90", "flash_attention_long_sm90", "flash_attention_bwd_sm90",
+           "fused_mlp_sm90", "w8a8_matmul_sm90", "w8a8_mlp_sm90", "dvae_block")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -5,8 +5,8 @@
 // at every length the VLMo paths give them (text 40, image 197, fused 237
 // tokens): `_attn_kernel` (:152, launched by `_fwd_call` :283) and, with
 // DROP, `_attn_drop_kernel` (:209, launched by `_fwd_drop_call` :323).
-// Longer rows (256 < N <= 4096, or 512 with dropout) take the mma.sync
-// kernel of flash_attention_fwd.cu. Same function: for each (batch*head,
+// Longer rows (256 < N <= 4096, or 512 with dropout) take the streamed
+// kernel of flash_attention_long_sm90.cu. Same function: for each (batch*head,
 // query row)
 //   s   = (q . k^T) * scale + key_bias           fp32
 //   m   = max(s) over all N keys;  p = exp(s - m);  l = sum(p)
@@ -398,28 +398,22 @@ extern "C" int flash_attention_fwd_sm90_smem(int nt) {
   return smem;
 }
 
-// mq, mk, mv: the maps of q, k, v (bh, n, 64) bf16 (from
-// `flash_attention_fwd_sm90_encode`, host memory); bias (bh / heads, n)
-// fp32; out (bh, n, 64) bf16; lse (bh, n) fp32; `nt`: the key width, n
-// rounded up to 16 (n <= nt <= 256); `grid`: persistent CTAs, 1..bh.
+// The one entry of rows 1 and 3. mq, mk, mv: the maps of q, k, v (bh, n,
+// 64) bf16 (from `flash_attention_fwd_sm90_encode`, host memory); bias (bh /
+// heads, n) fp32; out (bh, n, 64) bf16; lse (bh, n) fp32; `nt`: the key
+// width, n rounded up to 16 (n <= nt <= 256); `grid`: persistent CTAs,
+// 1..bh. seed: null without dropout (row 1); for row 3 one int32 on the
+// device, a (row, key) kept where its hash bits are >= `threshold`
+// (min(int(rate * 2^32), 2^32 - 1)) and then scaled by `drop_scale`.
 // Launches on `stream`; returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd_sm90(const void* mq, const void* mk, const void* mv,
-                                        const void* bias, void* out, void* lse, int bh,
-                                        int heads, int n, int nt, int grid, float scale,
+                                        const void* bias, const void* seed, void* out,
+                                        void* lse, int bh, int heads, int n, int nt, int grid,
+                                        float scale, unsigned threshold, float drop_scale,
                                         void* stream) {
-  return dispatch<false>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, nullptr,
-                         0u, 1.f, stream);
-}
-
-// As flash_attention_fwd_sm90, with attention dropout: `seed` is one int32
-// on the device; a (row, key) is kept where its hash bits are >=
-// `threshold` (min(int(rate * 2^32), 2^32 - 1)) and then scaled by
-// `drop_scale`.
-extern "C" int flash_attention_fwd_sm90_drop(const void* mq, const void* mk, const void* mv,
-                                             const void* bias, const void* seed, void* out,
-                                             void* lse, int bh, int heads, int n, int nt,
-                                             int grid, float scale, unsigned threshold,
-                                             float drop_scale, void* stream) {
-  return dispatch<true>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
-                        threshold, drop_scale, stream);
+  return seed == nullptr
+             ? dispatch<false>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale,
+                               nullptr, 0u, 1.f, stream)
+             : dispatch<true>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
+                              threshold, drop_scale, stream);
 }

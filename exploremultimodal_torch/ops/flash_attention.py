@@ -9,12 +9,14 @@ Counterpart of `exploremultimodal_tpu/ops/flash_attention.py`:
   - `flash_attention_fwd_long` `_long_fwd_call` / `_attn_long_kernel`
 Rows 1 and 3 (the forward without and with dropout) share
 `csrc/flash_attention_fwd_sm90.cu` (wgmma and TMA, N <= SM90_FWD_MAX_N, row
-3 its `DROP` variant; longer rows take the mma.sync kernels of
-`csrc/flash_attention_fwd.cu`), and rows 2 and 4 (the backward without and
-with dropout) share `csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, every
-N the fused backward takes, row 4 its `DROP` variant). The long forward
-(row 5) is `csrc/flash_attention_long_sm90.cu` (wgmma and TMA). Each wrapper runs its kernel on CUDA tensors and its plain
-PyTorch version on CPU tensors; there is no other fallback.
+3 its `DROP` variant) and, past SM90_FWD_MAX_N, the streamed kernel of
+`csrc/flash_attention_long_sm90.cu` (wgmma and TMA; its `LSE` and `LSE` +
+`DROP` variants), which also runs the long forward (row 5) without an lse.
+Rows 2 and 4 (the backward without and with dropout) share
+`csrc/flash_attention_bwd_sm90.cu` (wgmma and TMA, every N the fused
+backward takes, row 4 its `DROP` variant). Each wrapper runs its kernel on
+CUDA tensors and its plain PyTorch version on CPU tensors; there is no
+other fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
 and columns keep their indices, so the dropout mask at every real (row,
 col) is the same.
@@ -36,14 +38,18 @@ LONG_SEQ_THRESHOLD = 512
 # ... and past this padded N the forward is the long kernel (JAX: the
 # full-row forward holds a (128, N) score tile in VMEM up to here)
 FULL_ROW_FWD_MAX = 4096
-# the long kernel's tiling: 128 query rows per CTA, keys in 128-row blocks
-# (csrc/flash_attention_long_sm90.cu)
+# the streamed kernel's tiling: work items of 128 query rows, keys in
+# 128-row blocks through a ring of LONG_STAGES stages, LONG_Q_SLOTS items'
+# Q in flight (csrc/flash_attention_long_sm90.cu)
 LONG_TILE = 128
-# the forward's route, with and without dropout: up to this N the sm90
-# kernel, which holds a head's whole K and V in shared memory
-# (csrc/flash_attention_fwd_sm90.cu); past it, up to FULL_ROW_FWD_MAX (or
-# LONG_SEQ_THRESHOLD with dropout), the mma.sync kernel
-# (csrc/flash_attention_fwd.cu)
+LONG_STAGES = 3
+LONG_Q_SLOTS = 2
+# the forward's route, with and without dropout: up to this N the short
+# sm90 kernel, which holds a head's whole K and V in shared memory
+# (csrc/flash_attention_fwd_sm90.cu); past it the streamed kernel, which
+# takes K and V in 128-key blocks (csrc/flash_attention_long_sm90.cu, its
+# lse variants): up to FULL_ROW_FWD_MAX (or LONG_SEQ_THRESHOLD with
+# dropout) for rows 1 and 3, past it for row 5
 SM90_FWD_MAX_N = 256
 # the sm90 forward's layout, as its source sets it: key widths in steps of
 # 16 (its wgmma N), keys and query rows in 64-row TMA boxes and tiles, up to
@@ -69,12 +75,11 @@ _MAPS_CAP = 256
 PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read the padded N
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_FWD_ARGS = [_P] * 6 + [_I] * 3 + [_F, _P]
-_FWD_LONG_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
-_FWD_SM90_ARGS = [_P] * 6 + [_I] * 5 + [_F, _P]
-_FWD_SM90_DROP_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
+# each forward's one entry: maps, bias, seed (null without dropout), out,
+# lse (null for row 5), shape ints, then scale, threshold, factor, stream
+_FWD_LONG_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
+_FWD_SM90_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
-_FWD_DROP_ARGS = [_P] * 7 + [_I] * 3 + [_F, ctypes.c_uint32, _F, _P]
 _BWD_SM90_ARGS = [_P] * 12 + [_I] * 6 + [_F, ctypes.c_uint32, _F, _P]
 
 
@@ -225,8 +230,9 @@ def _stream(t: torch.Tensor) -> int:
 
 def fwd_route(n: int) -> str:
     """The forward kernel (rows 1 and 3) that takes rows of N keys: "sm90"
-    up to SM90_FWD_MAX_N, "mma_sync" past it."""
-    return "sm90" if n <= SM90_FWD_MAX_N else "mma_sync"
+    (the short kernel) up to SM90_FWD_MAX_N, "sm90_stream" (the streamed
+    kernel, K and V in 128-key blocks) past it."""
+    return "sm90" if n <= SM90_FWD_MAX_N else "sm90_stream"
 
 
 def fwd_sm90_tile(n: int) -> int:
@@ -274,46 +280,36 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
     if qf.device.type == "cpu":
         return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale)
     _check("flash_attention_fwd", key_bias, qf, kf, vf)
-    bh, n, _ = qf.shape
-    if fwd_route(n) == "sm90":
-        out, lse = _launch_fwd_sm90(qf, kf, vf, key_bias, scale)
-    else:
-        out = torch.empty_like(qf)
-        lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-        fn = _build.load("flash_attention_fwd", _FWD_ARGS)
-        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
-                scale, _stream(qf))
-        _build.check("flash_attention_fwd", rc)
+    out, lse = _launch_fwd(qf, kf, vf, key_bias, scale)
     flash_attention_fwd.launches += 1
     return out, lse
 
 
+def _launch_fwd(qf, kf, vf, key_bias, scale: float, seed=None, rate: float = 0.0):
+    """Run the forward of `fwd_route` on checked inputs; with a `seed`, its
+    dropout variant at `rate` (row 3). Returns (out, lse)."""
+    if fwd_route(qf.shape[1]) == "sm90":
+        return _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate)
+    return _launch_stream(qf, kf, vf, key_bias, scale, seed, rate, with_lse=True)
+
+
 def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
                      rate: float = 0.0):
-    """Run the sm90 forward on checked inputs: the q/k/v maps from the
-    cache, the key width of `fwd_sm90_tile`, the grid of `fwd_sm90_grid`;
-    with a `seed`, its dropout variant at `rate` (row 3)."""
+    """Run the short sm90 forward on checked inputs: the q/k/v maps from
+    the cache, the key width of `fwd_sm90_tile`, the grid of
+    `fwd_sm90_grid`; with a `seed`, its dropout variant at `rate` (row 3)."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_map("short", t) for t in (qf, kf, vf)]
-    shape = (bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n),
-             fwd_sm90_grid(bh, _sm_count(qf.device)), scale)
-    if seed is None:
-        fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
-        rc = fn(*maps, key_bias.data_ptr(), out.data_ptr(), lse.data_ptr(), *shape,
-                _stream(qf))
-        _build.check("flash_attention_fwd_sm90", rc)
-    else:
-        fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_DROP_ARGS,
-                         "flash_attention_fwd_sm90_drop")
-        rc = fn(*maps, key_bias.data_ptr(), seed.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), *shape, dropout_threshold(rate), dropout_scale(rate),
-                _stream(qf))
-        _build.check("flash_attention_fwd_sm90_drop", rc)
+    fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
+    rc = fn(*maps, key_bias.data_ptr(), None if seed is None else seed.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
+            fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
+            dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+    _build.check("flash_attention_fwd_sm90", rc)
     return out, lse
 
 
@@ -367,12 +363,31 @@ def bwd_sm90_units(bh: int, n: int, sms: int) -> tuple[int, int]:
 
 
 def long_grid(bh: int, n: int) -> tuple[int, int]:
-    """The long kernel's grid: (query tiles of LONG_TILE rows, BH)."""
+    """The streamed kernel's work (rows 5, and 1 and 3 past
+    SM90_FWD_MAX_N): (query tiles of LONG_TILE rows, BH); an item is a
+    tile of one head, the tile numbered fastest."""
     return -(-n // LONG_TILE), bh
 
 
+def long_ctas(bh: int, n: int, sms: int) -> int:
+    """The streamed kernel's persistent grid: one CTA per SM, or one per
+    work item where there are fewer; CTA c takes items c, c + grid, ..."""
+    tiles, _ = long_grid(bh, n)
+    return min(tiles * bh, sms)
+
+
+def stream_smem() -> int:
+    """The streamed kernel's dynamic shared memory, as its source lays it
+    out: LONG_Q_SLOTS Q slots, LONG_STAGES stages of K and V blocks, their
+    bias rows, a full and an empty barrier per slot and per stage, and 1024
+    bytes of alignment slack."""
+    tile = LONG_TILE * HEAD_DIM * 2
+    return (LONG_Q_SLOTS * tile + 2 * LONG_STAGES * tile + LONG_STAGES * LONG_TILE * 4
+            + 8 * (2 * LONG_Q_SLOTS + 2 * LONG_STAGES) + 1024)
+
+
 def long_map_extents(bh: int, n: int):
-    """The 3D tensor map of a (BH, N, 64) bf16 q, k or v for the long
+    """The 3D tensor map of a (BH, N, 64) bf16 q, k or v for the streamed
     kernel: dims innermost first (D, N, BH), the byte strides of dims 1..,
     and the box (64, LONG_TILE, 1). A box stops at its head's N, so TMA
     fills a ragged block with zeros instead of reading the next head."""
@@ -422,20 +437,34 @@ def flash_attention_fwd_long(qf, kf, vf, key_bias, scale: float):
 
 
 def _launch_long(qf, kf, vf, key_bias, scale: float):
-    """Check the inputs and run the long kernel: the q/k/v maps from the
-    cache, the grid of `long_grid`."""
+    """Check the inputs and run the streamed kernel without an lse (row
+    5). Returns out."""
     _check("flash_attention_fwd_long", key_bias, qf, kf, vf)
+    return _launch_stream(qf, kf, vf, key_bias, scale)[0]
+
+
+def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
+                   rate: float = 0.0, with_lse: bool = False):
+    """Run the streamed kernel on checked inputs: the q/k/v maps from the
+    cache, the work of `long_grid` on the CTAs of `long_ctas`; `with_lse`
+    for rows 1 and 3, and with a
+    `seed` the dropout variant at `rate` (row 3). Returns (out, lse or
+    None)."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
+    lse = (torch.empty((bh, n), dtype=torch.float32, device=qf.device)
+           if with_lse or seed is not None else None)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_long_map(t) for t in (qf, kf, vf)]
     tiles, _ = long_grid(bh, n)
     fn = _build.load("flash_attention_long_sm90", _FWD_LONG_ARGS)
-    rc = fn(*maps, key_bias.data_ptr(), out.data_ptr(), bh,
-            bh // key_bias.shape[0], n, tiles, scale, _stream(qf))
-    _build.check("flash_attention_fwd_long", rc)
-    return out
+    rc = fn(*maps, key_bias.data_ptr(), None if seed is None else seed.data_ptr(),
+            out.data_ptr(), None if lse is None else lse.data_ptr(), bh,
+            bh // key_bias.shape[0], n, tiles, long_ctas(bh, n, _sm_count(qf.device)),
+            scale, dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+    _build.check("flash_attention_long_sm90", rc)
+    return out, lse
 
 
 def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
@@ -446,19 +475,7 @@ def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
         return flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale,
                                               rate)
     _check("flash_attention_fwd_drop", key_bias, qf, kf, vf, seed=seed)
-    bh, n, _ = qf.shape
-    if fwd_route(n) == "sm90":
-        out, lse = _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate)
-    else:
-        out = torch.empty_like(qf)
-        lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
-        fn = _build.load("flash_attention_fwd", _FWD_DROP_ARGS,
-                         "flash_attention_fwd_drop")
-        rc = fn(qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), key_bias.data_ptr(),
-                seed.data_ptr(), out.data_ptr(), lse.data_ptr(), bh,
-                bh // key_bias.shape[0], n, scale, dropout_threshold(rate),
-                dropout_scale(rate), _stream(qf))
-        _build.check("flash_attention_fwd_drop", rc)
+    out, lse = _launch_fwd(qf, kf, vf, key_bias, scale, seed, rate)
     flash_attention_fwd_drop.launches += 1
     return out, lse
 
@@ -572,9 +589,10 @@ def padded_len(n: int) -> int:
 
 class _FlashLong(torch.autograd.Function):
     """`_flash_long` for padded N > LONG_SEQ_THRESHOLD: the forward that
-    `_long_primal` picks (the full-row kernel up to FULL_ROW_FWD_MAX, read
-    at call time, the long kernel past it), and a backward that recomputes
-    the plain chain (`_flash_long_bwd`)."""
+    `_long_primal` picks (row 1 up to FULL_ROW_FWD_MAX, read at call time,
+    on the streamed kernel's lse variant; row 5, the same kernel without an
+    lse, past it), and a backward that recomputes the plain chain
+    (`_flash_long_bwd`)."""
 
     @staticmethod
     def forward(ctx, qf, kf, vf, key_bias, scale):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time rows 2, 3, 4, 8 and 10 of two checkouts of the port on one GPU, in turns.
+"""Time rows 1, 2, 3, 4, 8 and 10 of two checkouts of the port on one GPU, in turns.
 
     python3 scripts/torch_compare_parent.py PARENT_DIR
 
@@ -13,7 +13,9 @@ and `flash_attention_bwd_drop` (row 4) at the pretrain_mum step's four
 shapes (text 40, image 197 and fused 237 tokens at batch 32, ITM's fused
 pair rows at batch 96; 12 heads, head dim 64, attention dropout 0.1), rows
 2 and 4 also at N = 256, 333 and 512 at batch 8 and N = 333 and 512 at
-batch 32, `w8a8_matmul` (row 8) for proj (N = 768) and qkv (N = 2,304)
+batch 32, row 3 also at those past 256 keys, `flash_attention_fwd` (row 1)
+at the same four step shapes and at N = 333, 512 and 577 at batch 8 and N
+= 512 at batch 32, `w8a8_matmul` (row 8) for proj (N = 768) and qkv (N = 2,304)
 at the int8 finetune_vqa step's and batch-64 request's M, and
 `w8a8_mlp_fwd_drop` (row 10) at the finetune_vqa step's three FFN shapes
 (M = 1,280, 6,304, 7,584 at batch 32; threshold 6554) on the same seeded
@@ -38,11 +40,13 @@ ATTN_SHAPES = {"text": (32, TEXT_LEN), "image": (32, IMAGE_LEN),
 # the backward alone past the step's shapes (batch, N)
 BWD_SHAPES = {f"b{b}_n{n}": (b, n) for b, n in ((8, 256), (8, 333), (8, 512), (32, 333),
                                                 (32, 512))}
+# the forward without dropout past 256 keys
+FWD_SHAPES = {f"b{b}_n{n}": (b, n) for b, n in ((8, 333), (8, 512), (8, 577), (32, 512))}
 MATMUL_ROWS = (1280, 6304, 7584, 2560, 12608, 15168)
 MLP_ROWS, MLP_THRESHOLD, WIDTH, HIDDEN = (1280, 6304, 7584), 6554, 768, 3072
 QUEUE_CYCLES = 40_000_000
-KERNELS = ("flash_attention_bwd", "flash_attention_fwd_drop", "flash_attention_bwd_drop",
-           "w8a8_matmul", "w8a8_mlp_fwd_drop")
+KERNELS = ("flash_attention_fwd", "flash_attention_bwd", "flash_attention_fwd_drop",
+           "flash_attention_bwd_drop", "w8a8_matmul", "w8a8_mlp_fwd_drop")
 
 
 def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -73,7 +77,7 @@ def worker(tree: Path) -> dict:
     out = {"tree": str(tree), **{name: {} for name in KERNELS}}
     rng = np.random.default_rng(1)
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
-    for name, (b, n) in {**ATTN_SHAPES, **BWD_SHAPES}.items():
+    for name, (b, n) in {**ATTN_SHAPES, **BWD_SHAPES, **FWD_SHAPES}.items():
         g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
         q, k, v, do = (torch.randn((b * HEADS, n, HEAD_DIM), generator=g, device=dev)
                        .to(torch.bfloat16) for _ in range(4))
@@ -83,9 +87,14 @@ def worker(tree: Path) -> dict:
         scale = HEAD_DIM ** -0.5
         o, lse = fa.flash_attention_fwd_plain(q, k, v, kb, scale)
         od, lsed = fa.flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, RATE)
+        if name in ATTN_SHAPES or name in FWD_SHAPES:
+            out["flash_attention_fwd"][name] = time_ms(
+                torch, lambda: fa.flash_attention_fwd(q, k, v, kb, scale))
+        if n > fa.LONG_SEQ_THRESHOLD:
+            continue
         out["flash_attention_bwd"][name] = time_ms(torch, lambda: fa.flash_attention_bwd(
             q, k, v, kb, o, do, lse, scale))
-        if name in ATTN_SHAPES:
+        if name in ATTN_SHAPES or n > 256:
             out["flash_attention_fwd_drop"][name] = time_ms(
                 torch, lambda: fa.flash_attention_fwd_drop(q, k, v, kb, seed, scale, RATE))
         out["flash_attention_bwd_drop"][name] = time_ms(torch, lambda: fa.flash_attention_bwd_drop(

@@ -6,8 +6,9 @@
 Each variant is a kernel source of `exploremultimodal_torch/ops/csrc/` with
 textual edits applied (the JSON, by default
 scripts/torch_kernel_variants.json, maps a name to {"kind": "mlp" |
-"mlp_drop" | "attn" | "attn_drop" | "attn_long" | "attn_bwd" | "w8a8_matmul" |
-"w8a8_mlp" | "w8a8_mlp_drop" | "dvae", "src": file, "edits": [[old, new],
+"mlp_drop" | "attn" | "attn_drop" | "attn_long" | "attn_stream" | "attn_stream_drop" |
+"attn_bwd" | "w8a8_matmul" | "w8a8_mlp" | "w8a8_mlp_drop" | "dvae", "src": file,
+"edits": [[old, new],
 ...]}; every
 `old` must occur); kinds named after the file keep only their variants.
 All variants are compiled at once with the package's
@@ -17,7 +18,9 @@ main paths give it: the bf16 fused MLP (row 6) at the serving M, its
 dropout forward (row 7) at the finetune_vqa M, the short flash forward (row
 1) at the batch-64 request's three streams, its dropout variant (row 3)
 at the pretrain_mum step's four shapes, the long flash forward (row 5) at
-the 1024^2 request's two streams, the backward (row 4 with dropout, row 2
+the 1024^2 request's two streams, rows 1 and 3 past 256 keys on the same
+streamed kernel (row 1 at N = 333, 512 and 577 at batch 8 and N = 512 at
+batch 32, row 3 at N = 333 and 512 at batch 8 and 32), the backward (row 4 with dropout, row 2
 without) at the pretrain_mum step's four shapes and at N = 256, 333 and 512
 at batch 8 and N = 512 at batch 32, the W8A8 matmul (row 8) for proj and
 qkv at the int8 step's and request's M, the W8A8 MLP (row 9) at
@@ -87,8 +90,10 @@ MLP_ROWS = (64, 320, 2560, 4999, 12608, 15168, 32776)
 SYMBOL = {"mlp": {"fused_mlp_sm90": mlp_fused._SM90_ARGTYPES},
           "mlp_drop": {"fused_mlp_sm90_drop": mlp_fused._DROP_ARGTYPES},
           "attn": {"flash_attention_fwd_sm90": flash_attention._FWD_SM90_ARGS},
-          "attn_drop": {"flash_attention_fwd_sm90_drop": flash_attention._FWD_SM90_DROP_ARGS},
+          "attn_drop": {"flash_attention_fwd_sm90": flash_attention._FWD_SM90_ARGS},
           "attn_long": {"flash_attention_long_sm90": flash_attention._FWD_LONG_ARGS},
+          "attn_stream": {"flash_attention_long_sm90": flash_attention._FWD_LONG_ARGS},
+          "attn_stream_drop": {"flash_attention_long_sm90": flash_attention._FWD_LONG_ARGS},
           "attn_bwd": {"flash_attention_bwd_sm90": flash_attention._BWD_SM90_ARGS},
           "w8a8_matmul": {"w8a8_matmul_sm90": quant_fused._MATMUL_ARGTYPES},
           "w8a8_mlp": {"w8a8_mlp_sm90": quant_fused._MLP_SM90_ARGTYPES},
@@ -154,6 +159,8 @@ def main(argv: list[str]) -> int:
     attn = [n for n in spec if spec[n]["kind"] == "attn"]
     attn_drop = [n for n in spec if spec[n]["kind"] == "attn_drop"]
     attn_long = [n for n in spec if spec[n]["kind"] == "attn_long"]
+    attn_stream = [n for n in spec if spec[n]["kind"] == "attn_stream"]
+    attn_stream_drop = [n for n in spec if spec[n]["kind"] == "attn_stream_drop"]
     w8a8_mlp = [n for n in spec if spec[n]["kind"] == "w8a8_mlp"]
     attn_bwd = [n for n in spec if spec[n]["kind"] == "attn_bwd"]
     w8a8_mlp_drop = [n for n in spec if spec[n]["kind"] == "w8a8_mlp_drop"]
@@ -243,7 +250,8 @@ def main(argv: list[str]) -> int:
                                        1)}
         if attn_bwd:  # the backward past the step's shapes, on its sm90 kernels
             masks.update({f"off_path_b{b}_n{n}": cs.padded_mask(rng, b, n)
-                          for b, n in cs.TRAIN_OFF_PATH if (b, n) != (32, 333)})
+                          for b, n in cs.TRAIN_OFF_PATH + ((cs.TXT_BATCH, cs.TXT_LEN),)
+                          if (b, n) != (32, 333)})
         seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
         bwd_tol = [(cs.BWD_ATOL, cs.BWD_RTOL)] * 3
         fwd_tol = [(cs.ATTN_ATOL, cs.ATTN_RTOL), (cs.ATTN_LSE_ATOL, 0.0)]
@@ -323,6 +331,44 @@ def main(argv: list[str]) -> int:
             print(json.dumps({"kernel": "flash_attention_fwd_long", "N": n, "ms": res}),
                   flush=True)
             del q, k, v, ref
+            torch.cuda.empty_cache()
+    if attn_stream or attn_stream_drop:
+        cfg = cs.VlmoConfig.from_config(cs.load_config(cs.TRAIN_OVERRIDES))
+        heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+        rate, scale = cfg.attn_drop_rate, d ** -0.5
+        rng = np.random.default_rng(1)
+        seed = torch.tensor([cs.DROP_SEED], dtype=torch.int32, device=dev)
+        shapes = {(b, n) for b, n in cs.ATTN_OFF_PATH if n > flash_attention.SM90_FWD_MAX_N}
+        shapes |= {(b, n) for b, n in cs.TRAIN_OFF_PATH if n > flash_attention.SM90_FWD_MAX_N}
+        shapes.add((cs.TXT_BATCH, cs.TXT_LEN))
+        for b, n in sorted(shapes):
+            g = torch.Generator(device=dev).manual_seed(b * 1000 + n)
+            q, k, v = (torch.randn((b * heads, n, d), generator=g, device=dev)
+                       .to(torch.bfloat16) for _ in range(3))
+            kb = key_padding_bias(torch.from_numpy(cs.padded_mask(rng, b, n)).to(dev))
+            kb = kb.reshape(b, n).contiguous()
+            runs = {  # kernel: (its kind's variants, run, plain version)
+                "flash_attention_fwd": (
+                    attn_stream, lambda: flash_attention_fwd(q, k, v, kb, scale),
+                    flash_attention_fwd_plain(q, k, v, kb, scale)),
+                "flash_attention_fwd_drop": (
+                    attn_stream_drop if n <= flash_attention.LONG_SEQ_THRESHOLD else [],
+                    lambda: flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate),
+                    flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)),
+            }
+            for kernel, (names, run, ref) in runs.items():
+                if not names:
+                    continue
+
+                def check(run=run, ref=ref):
+                    got = run()
+                    oks = [cs.within(got[0], ref[0], cs.ATTN_ATOL, cs.ATTN_RTOL),
+                           cs.within(got[1], ref[1], cs.ATTN_LSE_ATOL, 0.0)]
+                    return all(ok for ok, _ in oks), max(e for _, e in oks)
+                res = compare(names, fns, run, check)
+                print(json.dumps({"kernel": kernel, "BH": b * heads, "N": n, "ms": res}),
+                      flush=True)
+            del q, k, v
             torch.cuda.empty_cache()
     if dvae:
         enc = cs.dvae_encoder(torch.bfloat16, dev)

@@ -5,6 +5,7 @@
     python3 scripts/torch_profile_train.py drop0       # pretrain_mum, attention dropout 0
     python3 scripts/torch_profile_train.py vqa         # finetune_vqa
     python3 scripts/torch_profile_train.py vqa_w8a8    # finetune_vqa, int8 MLP
+    python3 scripts/torch_profile_train.py txt         # pretrain_txt, 512 tokens
 
 Builds a training configuration of `chip_smoke.py`: with no argument its
 pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
@@ -12,14 +13,17 @@ pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
 attn_impl=pallas and attention dropout 0 (the flash forward and backward
 without dropout, rows 1 and 2); with `vqa` its finetune_vqa
 step (the same with mlp_impl=fused, no dVAE); with `vqa_w8a8` that step
-under model.quantize=w8a8_pallas_mlp. Takes two warm-up steps,
+under model.quantize=w8a8_pallas_mlp; with `txt` its pretrain_txt step
+(text-only MLM at 512 tokens, batch 32, attention dropout 0.1: rows 3 and
+4 at BH = 384, N = 512). Takes two warm-up steps,
 times UNTRACED steps on the host clock with a synchronise around each, then
 traces STEPS steps with torch.profiler.
 Prints, as one JSON line: the untraced and traced wall time per step; the
 device-busy time (the union of kernel intervals, profiler ranges left out)
 and the device's idle share of the traced wall; the host time of the step's
 four phases (the trainer's `step/*` ranges, under the profiler); the device
-time by kernel family; and the kernels' device time grouped by name. Needs
+time by kernel family, the port's attention kernels' share of the busy
+time; and the kernels' device time grouped by name. Needs
 a CUDA device; imports nothing of JAX.
 """
 
@@ -38,6 +42,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from chip_smoke import (  # noqa: E402
     TRAIN_OVERRIDES,
+    TXT_OVERRIDES,
     VQA_OVERRIDES,
     W8A8_VQA_OVERRIDES,
     card_line,
@@ -53,7 +58,7 @@ TOP = 20
 PHASES = ("step/batch", "step/forward", "step/backward", "step/optimizer")
 # kernel families, by the first substring of the kernel's name that matches
 FAMILIES = (
-    ("port attention kernels", ("flash_", "attn_long_sm90", "attn_fwd_sm90", "attn_bwd_sm90")),
+    ("port attention kernels", ("flash_", "attn_stream_sm90", "attn_fwd_sm90", "attn_bwd_sm90")),
     ("port int8 kernels", ("w8a8_",)),
     ("port fused MLP kernels", ("mlp_sm90", "mlp_sum_splits")),
     ("cuBLAS/cuDNN GEMM and conv", ("nvjet", "gemm", "cutlass", "sm90_", "conv", "cudnn")),
@@ -77,9 +82,10 @@ def main(argv: list[str]) -> int:
     cells = {(): TRAIN_OVERRIDES,
              ("drop0",): TRAIN_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"],
              ("vqa",): VQA_OVERRIDES,
-             ("vqa_w8a8",): W8A8_VQA_OVERRIDES}
+             ("vqa_w8a8",): W8A8_VQA_OVERRIDES,
+             ("txt",): TXT_OVERRIDES}
     if tuple(argv) not in cells:
-        print("usage: torch_profile_train.py [drop0 | vqa | vqa_w8a8]", file=sys.stderr)
+        print("usage: torch_profile_train.py [drop0 | vqa | vqa_w8a8 | txt]", file=sys.stderr)
         return 2
     card = card_line()
     overrides = cells[tuple(argv)]
@@ -133,6 +139,8 @@ def main(argv: list[str]) -> int:
         "phase_host_ms_per_step": {k: phases[k] / 1e3 / STEPS for k in PHASES},
         "family_device_ms_per_step": {k: v / 1e3 / STEPS for k, v in
                                       sorted(by_family.items(), key=lambda kv: -kv[1])},
+        "attention_share_of_busy": (by_family["port attention kernels"] / busy
+                                    if intervals else None),
         "kernels": [{"name": k[:90], "ms_per_step": v[0] / 1e3 / STEPS,
                      "calls_per_step": v[1] / STEPS}
                     for k, v in top],

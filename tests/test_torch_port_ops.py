@@ -49,7 +49,7 @@ def _attn_inputs(n, b=2, h=2, d=64, seed=0):
 # ------------------------------------------------------------------ attention
 
 
-@pytest.mark.parametrize("n", [40, 197, 237])
+@pytest.mark.parametrize("n", [40, 197, 237, 333, 512])
 def test_flash_attention_plain_matches_jax_kernel(n):
     """The port's flash forward (plain version on the CPU) against JAX's
     `flash_attention`, which runs `_attn_kernel` in interpret mode, and its
@@ -216,7 +216,8 @@ def test_normalize_image_matches_jax():
 @pytest.mark.parametrize("group,name", [("model", "vlmo_base"),
                                         ("model", "vlmo_debug"),
                                         ("train", "finetune_vqa"),
-                                        ("train", "pretrain_mum")])
+                                        ("train", "pretrain_mum"),
+                                        ("train", "pretrain_txt")])
 def test_presets_equal_the_jax_yaml(group, name):
     """Every preset is a whole copy of what the JAX loader reads from the
     YAML."""

@@ -7,10 +7,11 @@ a row tile's hidden dimension, with partial sums added in a second pass),
 its grid and its cache of tensor maps, keyed by what a map encodes (with
 and without the dropout bits, rows 6 and 7); the long flash forward's grid
 and 3D tensor maps (row 5); the routes of the flash forward and backward
-by sequence length (rows 1 and 3: the sm90 kernel up to 256 keys, the
-mma.sync one past it; rows 2 and 4: the sm90 kernels up to 512), the
-backward's work units, a model of how its warpgroups wait on its tile
-ring, and the arguments each launch passes; the W8A8
+by sequence length (rows 1 and 3: the short sm90 kernel up to 256 keys,
+the streamed one of row 5 past it; rows 2 and 4: the sm90 kernels up to
+512), the backward's work units, models of how the warpgroups wait on the
+backward's tile ring and on the streamed forward's key ring, and the
+arguments each launch passes; the W8A8
 matmul's grid, shared memory and tensor maps (row 8); and the shape and
 type checks by which the wrappers refuse what their kernels do not take.
 """
@@ -238,6 +239,10 @@ def test_row7_checks_dtypes():
     (3, 200, 2),       # small ragged N
     (3, 128, 1),
     (3, 129, 2),
+    (96, 333, 3),      # rows 1 and 3 past 256 keys at batch 8, a ragged N
+    (96, 512, 4),
+    (96, 577, 5),      # 384^2 images
+    (384, 512, 4),     # pretrain_txt at batch 32
 ])
 def test_long_grid_and_map_extents(bh, n, tiles):
     """Query tiles x BH; the 3D map (D, N, BH) stops each box at its head's
@@ -279,10 +284,13 @@ def test_long_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
 
 @pytest.mark.parametrize("cap", [1, 2, 256])
 def test_long_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
-    calls, seen = [], []
+    """Row 5's maps of q, k, v stay live across a cache eviction; it passes
+    no seed and no lse (the output only), and the persistent grid."""
+    calls, seen, launches = [], [], []
 
     def kernel(*args):
         seen.append([_map_bytes(m) for m in args[:3]])
+        launches.append(args[3:])
         return 0
 
     def fake_load(name, argtypes, symbol=None):
@@ -294,6 +302,7 @@ def test_long_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     monkeypatch.setattr(fa, "_MAPS", {})
     monkeypatch.setattr(fa, "_MAPS_CAP", cap)
     monkeypatch.setattr(fa, "_stream", lambda t: 0)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
     kb, q, k, v = _attn_args(bh=6, n=300, b=2)
     for _ in range(2):
         out = fa._launch_long(q, k, v, kb, 0.125)
@@ -301,6 +310,9 @@ def test_long_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     for maps in seen:
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v)]
+    # bias, no seed, out, no lse, (bh, heads, n, tiles, CTAs)
+    assert launches[-1][1] is None and launches[-1][3] is None
+    assert launches[-1][4:9] == (6, 3, 300, 3, 18)
     assert len(fa._MAPS) <= cap
 
 
@@ -337,11 +349,12 @@ SMEM_LIMIT = mf.SMEM_LIMIT
 
 @pytest.mark.parametrize("n,route", [
     (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
-    (257, "mma_sync"), (577, "mma_sync"), (4096, "mma_sync"),
+    (257, "sm90_stream"), (577, "sm90_stream"), (4096, "sm90_stream"),
 ])
 def test_row1_route_by_length(n, route):
-    """Rows of up to 256 keys take the sm90 kernel (a head's whole K and V
-    in one slot); longer ones, up to FULL_ROW_FWD_MAX, the mma.sync kernel."""
+    """Rows of up to 256 keys take the short sm90 kernel (a head's whole K
+    and V in one slot); longer ones, up to FULL_ROW_FWD_MAX, the streamed
+    kernel (K and V in 128-key blocks)."""
     assert fa.fwd_route(n) == route
     assert (n <= fa.SM90_FWD_MAX_N) == (route == "sm90")
 
@@ -440,8 +453,11 @@ def test_row1_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     for maps in seen:
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v)]
-    # bias, out, lse, then bh, heads, n, the key width and the grid
-    assert launches[-1][3:8] == (24, 12, 237, 240, 24)
+    # bias, a null seed, out, lse, then bh, heads, n, the key width and
+    # the grid, the scale and no dropout (threshold 0, factor 1)
+    assert launches[-1][1] is None
+    assert launches[-1][4:9] == (24, 12, 237, 240, 24)
+    assert launches[-1][9:12] == (0.125, 0, 1.0)
     assert len(fa._MAPS) <= cap
 
 
@@ -733,17 +749,17 @@ BWD_SRC = fa._build.CSRC / "flash_attention_bwd_sm90.cu"
 
 
 # per row: the wrapper, its route function, and the (source, entry,
-# argument types) it loads on the sm90 and on the mma.sync route (the
-# backward has no mma.sync route)
+# argument types) it loads on the sm90 and on the sm90_stream route (the
+# backward has no sm90_stream route)
 ROUTED = {
     1: (fa.flash_attention_fwd, fa.fwd_route,
         ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90", fa._FWD_SM90_ARGS),
-        ("flash_attention_fwd", "flash_attention_fwd", fa._FWD_ARGS)),
+        ("flash_attention_long_sm90", "flash_attention_long_sm90", fa._FWD_LONG_ARGS)),
     2: (fa.flash_attention_bwd, fa.bwd_route,
         ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90", fa._BWD_SM90_ARGS), None),
     3: (fa.flash_attention_fwd_drop, fa.fwd_route,
-        ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90_drop", fa._FWD_SM90_DROP_ARGS),
-        ("flash_attention_fwd", "flash_attention_fwd_drop", fa._FWD_DROP_ARGS)),
+        ("flash_attention_fwd_sm90", "flash_attention_fwd_sm90", fa._FWD_SM90_ARGS),
+        ("flash_attention_long_sm90", "flash_attention_long_sm90", fa._FWD_LONG_ARGS)),
     4: (fa.flash_attention_bwd_drop, fa.bwd_route,
         ("flash_attention_bwd_sm90", "flash_attention_bwd_sm90", fa._BWD_SM90_ARGS), None),
 }
@@ -782,7 +798,7 @@ def _routed_launch(monkeypatch, row: int, n: int, bh: int = 24, b: int = 2):
 
 ROUTE_CASES = [
     (1, "sm90"), (40, "sm90"), (197, "sm90"), (237, "sm90"), (256, "sm90"),
-    (257, "mma_sync"), (512, "mma_sync"),
+    (257, "sm90_stream"), (512, "sm90_stream"),
 ]
 # the backward's: every N the fused backward takes, on the sm90 kernels
 BWD_ROUTE_CASES = [
@@ -795,12 +811,12 @@ def _check_route(monkeypatch, row: int, n: int, route: str):
     """Row `row`'s route at N keys, and the wrapper loads the entry of that
     route (its source, symbol and argument types), and only that, and
     counts one launch."""
-    _, route_of, sm90, mma_sync = ROUTED[row]
+    _, route_of, sm90, stream = ROUTED[row]
     limit = fa.SM90_FWD_MAX_N if route_of is fa.fwd_route else fa.SM90_BWD_MAX_N
     assert route_of(n) == route
     assert (n <= limit) == (route == "sm90") and n <= fa.LONG_SEQ_THRESHOLD
     loaded, launches = _routed_launch(monkeypatch, row, n)
-    assert loaded == [sm90 if route == "sm90" else mma_sync] and launches == 1
+    assert loaded == [sm90 if route == "sm90" else stream] and launches == 1
     source, symbol, _ = loaded[0]
     assert f'extern "C" int {symbol}(' in (fa._build.CSRC / f"{source}.cu").read_text()
 
@@ -808,10 +824,10 @@ def _check_route(monkeypatch, row: int, n: int, route: str):
 @pytest.mark.parametrize("row", [1, 3])
 @pytest.mark.parametrize("n,route", ROUTE_CASES)
 def test_route_by_length(monkeypatch, row, n, route):
-    """Rows of up to 256 keys take row 1's sm90 forward, with or without
-    the dropout mask; longer ones, up to LONG_SEQ_THRESHOLD, the mma.sync
-    kernel of flash_attention_fwd.cu by its old entry points and argument
-    types."""
+    """Rows of up to 256 keys take row 1's short sm90 forward, with or
+    without the dropout mask; longer ones, up to LONG_SEQ_THRESHOLD, the
+    streamed kernel of flash_attention_long_sm90.cu, row 5's, by its one
+    entry. Each kernel has one entry for both rows."""
     _check_route(monkeypatch, row, n, route)
 
 
@@ -1153,13 +1169,13 @@ def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
 
 @pytest.mark.parametrize("n,cap", [(40, 1), (197, 2), (256, 256)])
 def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
-    """Row 3 on row 1's sm90 forward: the `DROP` entry
-    (`flash_attention_fwd_sm90_drop`) gets row 1's "short" maps of q, k, v,
-    live across a cache eviction; then the bias, seed, out, lse pointers,
-    row 1's (bh, heads, n, key width, grid), the scale, the uint32
+    """Row 3 on row 1's sm90 forward: its one entry
+    (`flash_attention_fwd_sm90`) with the seed gets row 1's "short" maps of
+    q, k, v, live across a cache eviction; then the bias, seed, out, lse
+    pointers, row 1's (bh, heads, n, key width, grid), the scale, the uint32
     threshold, the fp32 factor and the stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_fwd_sm90",
-                                 "flash_attention_fwd_sm90_drop", 16, cap)
+                                 "flash_attention_fwd_sm90", 16, cap)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32)
     for _ in range(2):
@@ -1167,7 +1183,7 @@ def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
     assert out.shape == q.shape and lse.shape == (24, n)
     rest = launches[-1][3:]
-    assert len(launches[-1]) == len(fa._FWD_SM90_DROP_ARGS) == 16
+    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 16
     assert rest[:4] == (kb.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr())
     assert rest[4:9] == (24, 12, n, fa.fwd_sm90_tile(n), fa.fwd_sm90_grid(24, H100_SMS))
     assert rest[9:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
@@ -1315,3 +1331,174 @@ def test_row10_checks_raise(bad):
                                                                           torch.int16))
     with pytest.raises(ValueError):
         qf._launch_mlp_sm90(*args, bits, bad.get("threshold", 6554))
+
+
+# ------------------------------- rows 1 and 3 past 256 keys: the streamed kernel
+
+STREAM_SRC = fa._build.CSRC / "flash_attention_long_sm90.cu"
+
+
+@pytest.mark.parametrize("bh,n,tiles,ctas", [
+    (96, 333, 3, 132),     # row 1 / 3 at batch 8, a ragged N
+    (96, 512, 4, 132),     # the fused backward's longest
+    (96, 577, 5, 132),     # 384^2 images
+    (384, 512, 4, 132),    # pretrain_txt, batch 32
+    (384, 333, 3, 132),
+    (12, 300, 3, 36),      # fewer items than SMs: a CTA each
+    (3, 257, 3, 9),
+])
+def test_stream_work_items_and_grid(bh, n, tiles, ctas):
+    """Past 256 keys rows 1 and 3 take the streamed kernel: work items of
+    128 query rows (tiles x BH, the last tile ragged unless N is a multiple
+    of 128) on a persistent grid of one CTA per SM, or one per item where
+    there are fewer; every CTA's share differs from another's by at most
+    one item."""
+    assert fa.fwd_route(n) == "sm90_stream"
+    assert fa.long_grid(bh, n) == (tiles, bh)
+    assert (tiles - 1) * fa.LONG_TILE < n <= tiles * fa.LONG_TILE
+    assert fa.long_ctas(bh, n, H100_SMS) == ctas
+    shares = [len(range(c, tiles * bh, ctas)) for c in range(ctas)]
+    assert sum(shares) == tiles * bh and max(shares) - min(shares) <= 1
+
+
+def test_stream_shared_memory_matches_its_source():
+    """The host's mirror of the streamed kernel's layout (which
+    `chip_smoke.py` holds against `flash_attention_long_sm90_smem` on the
+    card) and the constants it shares with the source: two Q slots and
+    three stages of 16 KB K and V blocks, 117 KB under a block's limit."""
+    src = STREAM_SRC.read_text()
+    for const in ("D = 64;", "BQ = 128;", "BK = 128;", f"NS = {fa.LONG_STAGES};",
+                  f"QS = {fa.LONG_Q_SLOTS};", "THREADS = 384;",
+                  "SMEM = BAR_OFF + 8 * (2 * QS + 2 * NS) + 1024;"):
+        assert f"constexpr int {const}" in src, const
+    assert fa.LONG_TILE == 128 and fa.HEAD_DIM == 64
+    assert fa.stream_smem() == 2 * 16384 + 6 * 16384 + 3 * 512 + 80 + 1024 == 133712
+    assert fa.stream_smem() <= SMEM_LIMIT
+
+
+def test_stream_entry_checks_its_launch():
+    """The one C entry of rows 5, 1 and 3 refuses what it cannot run (a
+    seed without an lse, a tile count that does not cover N, a grid
+    beyond the items), picks its variant by the null pointers, and its
+    argument list is the wrapper's."""
+    src = STREAM_SRC.read_text()
+    entry = src[src.index('extern "C" int flash_attention_long_sm90('):]
+    for guard in ("tiles != (n + BQ - 1) / BQ", "grid <= 0 || grid > bh * tiles",
+                  "(seed != nullptr && lse == nullptr)"):
+        assert guard in entry, guard
+    assert "if (lse == nullptr)\n    return launch<false, false>" in entry
+    assert "if (seed == nullptr)\n    return launch<true, false>" in entry
+    assert "return launch<true, true>" in entry
+    head = entry[:entry.index("{")]
+    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 16
+    assert not (fa._build.CSRC / "flash_attention_fwd.cu").exists()
+    assert not (fa._build.CSRC / "mma_bf16.cuh").exists()
+    assert "flash_attention_fwd" not in fa._build.KERNELS
+    assert all("mma_bf16" not in p.read_text() for p in fa._build.CSRC.iterdir())
+
+
+@pytest.mark.parametrize("row", [1, 3])
+@pytest.mark.parametrize("n,cap", [(257, 1), (333, 2), (512, 256)])
+def test_stream_launch_passes_live_maps_across_an_eviction(monkeypatch, row, n, cap):
+    """Rows 1 and 3 past 256 keys: the streamed kernel's one entry gets the
+    "long" maps of q, k, v (row 5's cache) live across an eviction; then
+    the bias, the seed (null for row 1), out and lse pointers, (bh, heads,
+    n, tiles, CTAs), the scale, the threshold and factor (0 and 1 without
+    dropout) and the stream."""
+    launches = _fake_sm90_loader(monkeypatch, "flash_attention_long_sm90",
+                                 "flash_attention_long_sm90", 16, cap)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
+    kb, q, k, v = _attn_args(bh=24, n=n, b=2)
+    seed = torch.zeros(1, dtype=torch.int32) if row == 3 else None
+    for _ in range(2):
+        out, lse = fa._launch_fwd(q, k, v, kb, 0.125, seed, 0.1 if seed is not None else 0.0)
+        assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
+    assert out.shape == q.shape and lse.shape == (24, n)
+    rest = launches[-1][3:]
+    assert rest[:4] == (kb.data_ptr(), None if seed is None else seed.data_ptr(),
+                        out.data_ptr(), lse.data_ptr())
+    tiles, _ = fa.long_grid(24, n)
+    assert rest[4:9] == (24, 12, n, tiles, fa.long_ctas(24, n, H100_SMS))
+    if seed is None:
+        assert rest[9:] == (0.125, 0, 1.0, 0)
+    else:
+        assert rest[9:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert len(fa._MAPS) <= cap
+    assert all(key[0] == "long" for key in fa._MAPS)
+
+
+def _shared_ring_faults(stages: int, uses: int, release_count: int, trials: int) -> int:
+    """Runs a ring that both warpgroups read in full (the streamed kernel's
+    K/V stages and Q slots, the short forward's head slots) under random
+    schedules, and counts the faults: a consumer wait that passes before
+    its load has landed, a load issued into a stage that a warpgroup still
+    reads, and a schedule that wedges. The producer waits for use u's stage
+    on its empty barrier by the parity ((u // stages) & 1) ^ 1, each
+    warpgroup for use u on the full barrier by (u // stages) & 1 (an
+    mbarrier passes while its current phase has the other parity), reads,
+    and arrives on the empty barrier; the empty phase completes after
+    `release_count` arrivals (the source's count of 8 is both warpgroups'
+    4 warps: 2 here)."""
+    import random
+    rng = random.Random(stages * 1000 + uses + release_count)
+    faults = 0
+    for _ in range(trials):
+        full, empty, arrivals = [0] * stages, [0] * stages, [0] * stages
+        issued, landed = 0, set()
+        released = [set() for _ in range(uses)]
+        nxt, holding = [0, 0], [False, False]
+        while min(nxt) < uses or any(holding):
+            moves = []
+            if issued < uses and empty[issued % stages] % 2 == (issued // stages) & 1:
+                moves.append(("issue", 0))
+            moves += [("land", u) for u in range(issued) if u not in landed]
+            for w in (0, 1):
+                u = nxt[w]
+                if holding[w]:
+                    moves.append(("release", w))
+                elif u < uses and full[u % stages] % 2 != (u // stages) & 1:
+                    moves.append(("wait", w))
+            if not moves:
+                faults += 1
+                break
+            kind, arg = rng.choice(moves)
+            if kind == "issue":
+                faults += issued >= stages and len(released[issued - stages]) < 2
+                issued += 1
+            elif kind == "land":
+                landed.add(arg)
+                full[arg % stages] += 1
+            elif kind == "wait":
+                faults += nxt[arg] not in landed
+                holding[arg] = True
+            else:
+                u = nxt[arg]
+                released[u].add(arg)
+                arrivals[u % stages] += 1
+                if arrivals[u % stages] == release_count:
+                    arrivals[u % stages] = 0
+                    empty[u % stages] += 1
+                holding[arg], nxt[arg] = False, u + 1
+    return faults
+
+
+@pytest.mark.parametrize("stages", [1, 2, 3, 4])
+def test_shared_rings_of_rows_1_3_5_wait_only_for_landed_loads(stages):
+    """The audit of the forward's rings (rows 1, 3 and 5): each is read in
+    full by both warpgroups, and its empty barriers count every consumer
+    warp, so a warpgroup runs at most one ring's length ahead of the other
+    and no parity wait meets the phase two before its own; the model finds
+    no fault at any stage count. Counting one warpgroup's release (as if
+    each stage were read by one) lets the producer overwrite a stage the
+    other still reads, which the model finds, so it has teeth."""
+    stream = STREAM_SRC.read_text()
+    short = (fa._build.CSRC / "flash_attention_fwd_sm90.cu").read_text()
+    assert "mbar_init(qempty0 + 8 * s, 8);" in stream
+    assert all("mbar_init(empty0 + 8 * s, 8);" in src for src in (stream, short))
+    assert "mbar_wait(empty0 + 8 * s, kr.phase ^ 1u);" in stream
+    assert "mbar_wait(full0 + 8 * kr.slot, kr.phase);" in stream
+    assert "mbar_arrive(empty0 + 8 * prev.slot);" in stream
+    assert "mbar_wait(qempty0 + 8 * qr.slot, qr.phase ^ 1u);" in stream
+    assert "mbar_wait(qfull0 + 8 * qr.slot, qr.phase);" in stream
+    assert _shared_ring_faults(stages, 10, release_count=2, trials=300) == 0
+    assert _shared_ring_faults(stages, 10, release_count=1, trials=300) > 0

@@ -86,7 +86,7 @@ def test_dropout_threshold_and_scale_are_the_kernels():
 # ------------------------------------------------- plain kernels, rows 2-4
 
 
-@pytest.mark.parametrize("n", [40, 197, 237])
+@pytest.mark.parametrize("n", [40, 197, 237, 333, 512])
 def test_plain_dropout_forward_matches_jax_kernel(n):
     """Row 3: `flash_attention_fwd_drop_plain` against `_fwd_drop_call`
     (interpret mode), out and lse, fp32 throughout. Tolerance 1e-5: the two
