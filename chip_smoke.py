@@ -2,6 +2,9 @@
 """Drive the PyTorch port (exploremultimodal_torch) on one CUDA GPU.
 
     python3 chip_smoke.py        # from the repository root; needs one GPU and nvcc
+    python3 chip_smoke.py --train-loop-samples 64 640
+                                 # the build and phase 20 alone at each size,
+                                 # then the loop's fixed and per-step cost
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -98,7 +101,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      steps at attn_impl=pallas and attention dropout 0 (rows 1 and 2 at N =
      512); one batch-2 step on the card and on the CPU's plain path,
      compared as in phase 8;
- 20. print the kernel table as one JSON line, the card line, and last
+ 20. the run around the step, through `main.setup` and `phases.dispatch`
+     (the dirs in a temporary directory, deleted at the end): finetune_vqa
+     at vlmo_base, batch 32, mlp_impl=fused, 64 synthetic samples, two
+     epochs each evaluated (rows 7, 3 and 4 on the 4 steps, row 6 and no
+     row 1 on the 4 eval batches), finite `log_stats.json` lines with
+     `val_vqa_mean_score`, checkpoint-0 and checkpoint-1 on disk; the
+     checkpoint restored into a new trainer bit for bit (parameters, AdamW
+     moments, step, both generators); a relaunch with train.epochs=3 that
+     resumes from checkpoint-1 for one epoch (step 6); serving from the
+     newest checkpoint through `Predictor.from_checkpoint` (rows 1 and 6 on
+     every request) against a CPU `Predictor.from_checkpoint` of the same
+     directory; throughput_mode (5 warm-up and 40 timed steps); each run's
+     wall, epoch, eval, save and load seconds, the checkpoint's bytes, the
+     throughput, and a step in the loop against throughput mode's step;
+ 21. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -111,8 +128,10 @@ import ctypes
 import json
 import math
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -187,6 +206,9 @@ from exploremultimodal_torch.ops.quant_fused import (
     w8a8_mlp_fwd_plain,
 )
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
+from exploremultimodal_torch.main import setup
+from exploremultimodal_torch.train import checkpoints as ckpt_lib
+from exploremultimodal_torch.train.phases import dispatch
 from exploremultimodal_torch.train.trainer import Trainer
 
 # every kernel wrapper of the port, each with its launch count
@@ -309,6 +331,11 @@ VQA_OVERRIDES = [
     "data.batch_size=32",  # the JAX package's VQA bench batch
 ]
 VQA_BATCH = 32
+# the run around the step (phase 20): two steps and two eval batches an epoch
+LOOP_SAMPLES = 64
+# throughput mode's warm-up and timed steps (JAX's defaults are 20 and 200)
+LOOP_THROUGHPUT = ["throughput_warmup=5", "throughput_iters=40"]
+LOOP_REQUESTS = 3
 # row 7 at the finetune_vqa step's thresholds: drop_rate 0.1 (6554) and a
 # half-dropping one (32768), which reads bits with the top bit set; at the
 # path's threshold also M = 64 (one row tile) and two ragged M (partial
@@ -1572,7 +1599,184 @@ def txt_phase() -> dict:
     return launches
 
 
-def main() -> int:
+def _loop_counts(launches: dict, calls: int, steps: int, eval_batches: int, tag: str):
+    """Rows 7, 3 and 4 on every FFN and attention call of the steps, row 6
+    on every FFN call of the evaluation, rows 1 and 2 never (attention at
+    eval takes the plain chain under attn_impl=auto)."""
+    want = {"fused_mlp_fwd_drop": calls * steps, "flash_attention_fwd_drop": calls * steps,
+            "flash_attention_bwd_drop": calls * steps, "fused_mlp_fwd": calls * eval_batches,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{tag}: launches {got}, expected {want}")
+
+
+def _run_phase(overrides: list[str]):
+    """`main.setup` and `phases.dispatch` on the card with every count set to
+    0 just before; returns (result, cfg, launches, wall seconds)."""
+    cfg, logger = setup(overrides)
+    for fn in KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = dispatch(cfg, logger, device="cuda")
+    torch.cuda.synchronize()
+    return result, cfg, {fn.__name__: fn.launches for fn in KERNELS}, time.perf_counter() - t0
+
+
+def _same_state(a, b) -> dict:
+    """Which parts of two train states are equal bit for bit."""
+    sa, sb = ckpt_lib.state_dict(a), ckpt_lib.state_dict(b)
+    oa, ob = sa["optimizer"]["state"], sb["optimizer"]["state"]
+    return {
+        "step": sa["step"] == sb["step"],
+        "parameters": sa["model"].keys() == sb["model"].keys() and all(
+            torch.equal(v, sb["model"][k]) for k, v in sa["model"].items()),
+        "adamw_moments": bool(oa) and oa.keys() == ob.keys() and all(
+            torch.equal(oa[i][k], ob[i][k]) for i in oa
+            for k in ("exp_avg", "exp_avg_sq", "step")),
+        "generators": all(torch.equal(sa[k], sb[k])
+                          for k in ("generator", "seed_generator")),
+    }
+
+
+def train_loop_phase(card: str, calls: int, samples: int = LOOP_SAMPLES) -> dict:
+    """Phase 20: two evaluated epochs of finetune_vqa at vlmo_base on
+    `samples` synthetic samples, a restore and a relaunch that resumes,
+    serving from the newest checkpoint and throughput mode, through the
+    port's `setup` and `dispatch`."""
+    batches = samples // VQA_BATCH  # per epoch, for training and for eval
+    out = {"card": card, "samples": samples}
+    with tempfile.TemporaryDirectory() as root:
+        exp = os.path.join(root, "finetune_vqa", "vlmo_base", "default")
+        base = VQA_OVERRIDES + [f"data.synthetic_size={samples}", "train.epochs=2",
+                                f"exp_dir={exp}"]
+        result1, cfg1, launches1, wall1 = _run_phase(base + [f"run_dir={exp}/run1"])
+        _loop_counts(launches1, calls, 2 * batches, 2 * batches, "train_loop run 1")
+        lines = [json.loads(x) for x in open(os.path.join(cfg1["run_dir"], "log_stats.json"))]
+        require(len(lines) == len(result1["history"]) == 2
+                and all("val_vqa_mean_score" in x and "val_total_loss" in x for x in lines)
+                and all(np.isfinite(v) for x in lines for v in x.values()),
+                f"train_loop run 1: log_stats.json {lines}")
+        kept = [os.path.basename(p) for _, p in ckpt_lib._scan(exp)]
+        require(kept == ["checkpoint-0", "checkpoint-1"],
+                f"train_loop run 1: checkpoints on disk {kept}")
+        state1 = result1["state"]
+        n_params = sum(p.numel() for p in state1.task.parameters())
+        t1 = result1["times"]
+        out["run1"] = {"wall_s": wall1, "epoch_s": t1["epoch_s"], "eval_s": t1["eval_s"],
+                       "save_s": t1["save_s"], "checkpoint_bytes": t1["checkpoint_bytes"],
+                       "params": n_params, "ms_per_step_epoch1": 1e3 * t1["epoch_s"][1] / batches,
+                       "launches": launches1, "log_stats": lines}
+        print(f"train_loop: run 1 (2 epochs, each evaluated): wall {wall1:.2f} s, "
+              f"epochs {t1['epoch_s']} s, evals {t1['eval_s']} s, saves {t1['save_s']} s, "
+              f"checkpoint {t1['checkpoint_bytes']} bytes for {n_params} parameters "
+              f"({card})", flush=True)
+
+        # the checkpoint read back into a new trainer, against run 1's state
+        probe_cfg = load_config(base + ["train.epochs=3", f"run_dir={exp}/probe"])
+        probe = Trainer(probe_cfg, device="cuda")
+        t0 = time.perf_counter()
+        _, next_epoch = ckpt_lib.auto_load(exp, probe.state, probe_cfg)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        same = _same_state(probe.state, state1)
+        require(next_epoch == 2 and all(same.values()),
+                f"train_loop: restored state {same}, next epoch {next_epoch}")
+        out["restore"] = {"load_s": load_s, "bit_for_bit": same}
+        print(f"train_loop: checkpoint-1 restored bit for bit {same} in {load_s:.2f} s "
+              f"({card})", flush=True)
+        del probe, result1, state1
+        torch.cuda.empty_cache()
+
+        # a relaunch under the same exp_dir: one more epoch, from checkpoint-1
+        result2, _, launches2, wall2 = _run_phase(
+            base + ["train.epochs=3", f"run_dir={exp}/run2"])
+        _loop_counts(launches2, calls, batches, batches, "train_loop run 2")
+        require([h["epoch"] for h in result2["history"]] == [2]
+                and result2["state"].step == 3 * batches,
+                f"train_loop run 2: history {result2['history']}, "
+                f"step {result2['state'].step}")
+        t2 = result2["times"]
+        out["run2"] = {"wall_s": wall2, "load_s": t2["load_s"], "epoch_s": t2["epoch_s"],
+                       "eval_s": t2["eval_s"], "save_s": t2["save_s"], "launches": launches2,
+                       "history": result2["history"]}
+        print(f"train_loop: run 2 (resumed at epoch 2, step {result2['state'].step}): wall "
+              f"{wall2:.2f} s, load {t2['load_s']:.2f} s, epoch {t2['epoch_s']} s, eval "
+              f"{t2['eval_s']} s, save {t2['save_s']} s ({card})", flush=True)
+        del result2
+        torch.cuda.empty_cache()
+        latest = ckpt_lib._scan(exp)[-1][1]
+        out["checkpoints_on_disk"] = [os.path.relpath(p, exp) for _, p in ckpt_lib._scan(exp)]
+
+        # serving from the newest checkpoint: rows 1 and 6 on every request
+        serve_cfg = VlmoConfig.from_config(load_config(SERVE_OVERRIDES))
+        gpu = Predictor.from_checkpoint(latest, SERVE_OVERRIDES, max_batch=BATCH,
+                                        device="cuda")
+        reqs = make_requests(serve_cfg, np.random.default_rng(3), LOOP_REQUESTS, BATCH)
+        for fn in KERNELS:
+            fn.launches = 0
+        latencies, outputs = [], []
+        for img, ids, mask in reqs:
+            t = time.perf_counter()
+            outputs.append(gpu.vqa_logits(img, ids, mask))
+            latencies.append(time.perf_counter() - t)
+        served = {fn.__name__: fn.launches for fn in KERNELS}
+        require_launches("train_loop serve", served,
+                         {"flash_attention_fwd": calls, "fused_mlp_fwd": calls}, LOOP_REQUESTS)
+        cpu = Predictor.from_checkpoint(latest, SERVE_OVERRIDES, max_batch=BATCH,
+                                        device="cpu")
+        img, ids, mask = (a[:CPU_CHECK_ROWS] for a in reqs[0])
+        err = float(np.abs(outputs[0][:CPU_CHECK_ROWS] - cpu.vqa_logits(img, ids, mask)).max())
+        require(all(o.shape == (BATCH, serve_cfg.vqa_label_size) and np.isfinite(o).all()
+                    for o in outputs) and err <= E2E_ATOL,
+                f"train_loop serve: logits vs the CPU {err} (tol {E2E_ATOL})")
+        out["serve"] = {"checkpoint": os.path.relpath(latest, exp), "launches": served,
+                        "latency_ms": [x * 1e3 for x in latencies],
+                        "cpu_check_max_abs_err": err}
+        print(f"train_loop: served {LOOP_REQUESTS} batch-{BATCH} requests from "
+              f"{os.path.relpath(latest, exp)}: latency ms "
+              f"{[round(x * 1e3, 2) for x in latencies]}, CPU check max|err| {err} "
+              f"(tol {E2E_ATOL}) ({card})", flush=True)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+        # throughput mode at the same overrides: a short warm-up, then the
+        # timed steps in 4 chunks
+        result3, _, _, wall3 = _run_phase(
+            base + LOOP_THROUGHPUT + ["throughput_mode=true", f"exp_dir={root}/throughput",
+                                      f"run_dir={root}/throughput/run"])
+        timed_ms = 1e3 * VQA_BATCH / result3["throughput"]
+        out["throughput"] = {"samples_per_s": result3["throughput"], "wall_s": wall3,
+                             "ms_per_step": timed_ms}
+        print(f"train_loop: throughput {result3['throughput']:.2f} samples/s "
+              f"({timed_ms:.2f} ms/step, batch {VQA_BATCH}) ({card})", flush=True)
+        loop_ms = out["run1"]["ms_per_step_epoch1"]
+        print(f"train_loop: a step in the loop (epoch 1, {batches} steps) {loop_ms:.2f} ms, "
+              f"{loop_ms / timed_ms:.3f}x throughput mode's ({card})", flush=True)
+    print("train_loop: " + json.dumps(out), flush=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def loop_fit(card: str, calls: int, sizes: list[int]) -> int:
+    """Phase 20 alone at each of `sizes` synthetic samples, then the
+    second epoch's seconds fitted as fixed + per-step * steps over the
+    sizes: what the loop adds per epoch and per step, against throughput
+    mode's step at the largest size."""
+    outs = [train_loop_phase(card, calls, n) for n in sizes]
+    steps = np.array([o["samples"] // VQA_BATCH for o in outs], dtype=float)
+    epoch_s = np.array([o["run1"]["epoch_s"][1] for o in outs])
+    fit = {"steps": steps.tolist(), "epoch1_s": epoch_s.tolist(),
+           "throughput_ms": [o["throughput"]["ms_per_step"] for o in outs]}
+    if len(set(steps)) > 1:
+        per_step, fixed = np.polyfit(steps, epoch_s, 1)
+        fit.update(per_step_ms=1e3 * per_step, fixed_ms=1e3 * fixed,
+                   per_step_over_throughput=1e3 * per_step / fit["throughput_ms"][-1])
+    print("train_loop_fit: " + json.dumps(fit) + f" ({card})", flush=True)
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1592,6 +1796,9 @@ def main() -> int:
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "bytes smem", "Performance Loss")):
                 print(f"  {line.strip()}", flush=True)
+    if args[:1] == ["--train-loop-samples"]:
+        return loop_fit(card, img_txt_calls(VlmoConfig.from_config(load_config(
+            SERVE_OVERRIDES))), [int(n) for n in args[1:]])
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -1735,6 +1942,10 @@ def main() -> int:
 
     # pretrain_txt at 512 tokens: rows 3 and 4 (and 1 and 2 at dropout 0)
     txt_launches = txt_phase()
+
+    # the run around the step: epochs with evaluation, checkpoints, resume,
+    # serving from a checkpoint, throughput mode
+    train_loop_phase(card, calls)
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path

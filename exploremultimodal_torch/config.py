@@ -4,10 +4,11 @@ Counterpart of `exploremultimodal_tpu/config` + `configs/*.yaml` and of
 `VlmoConfig` in `exploremultimodal_tpu/models/task.py`. The presets are plain
 dicts, copied from the YAML files, because the serving machine has no PyYAML;
 `tests/test_torch_port_ops.py` holds each one equal to what the JAX loader
-reads. Only the presets and keys the VQA serving path and the pretrain_mum
-and finetune_vqa training steps read are here. Keys the JAX code reads with a default
-(`data.synthetic_size`, `train.mlm_gather_cap`, ...) are read with the same
-default here.
+reads. Every model and train preset of the YAML is here, and the base
+keys the serving path, the training step and the run around it (the
+directories, evaluation, throughput mode, logging) read. Keys the JAX code
+reads with a default (`data.synthetic_size`, `train.mlm_gather_cap`,
+`train.resume_sha256`, ...) are read with the same default here.
 """
 
 from __future__ import annotations
@@ -23,12 +24,14 @@ import torch
 QUANTIZE_MODES = ("none", "w8a8", "w8a8_pallas", "w8a8_pallas_mlp",
                   "w8a8_pallas_noproj")
 
-# base.yaml: the keys the serving path and the training step read
-# (data.img_size and data.patch_size are the model's, as base.yaml's
-# interpolations make them)
+# base.yaml: the keys the serving path, the training step and the run
+# around it read (data.img_size and data.patch_size are the model's, as
+# base.yaml's interpolations make them; wandb.name is `${tag}` there, and
+# `load_config` resolves it the same way)
 BASE: dict[str, Any] = {
     "data": {
         "batch_size": 256,
+        "eval_batch_size": None,
         "mask_style": "block",
         "num_mask_patches": 75,
         "max_mask_patches_per_block": None,
@@ -39,11 +42,28 @@ BASE: dict[str, Any] = {
         "mlm_prob": 0.15,
         "vqav2_label_size": 3129,
     },
+    "wandb": {
+        "enable": False,
+        "project": "vlmo_tpu",
+        "mode": "offline",
+        "name": "${tag}",
+        "alert": False,
+        "watch": False,
+    },
+    "exp_dir": None,
+    "run_dir": None,
+    "output_dir": "output",
+    "tag": "default",
     "seed": 0,
+    "eval_mode": False,
+    "throughput_mode": False,
+    "log_level": "info",
     "compute_dtype": "bfloat16",
     "vlmo_ema": False,
     "model_ema": False,
+    "minimize_metric": None,
     "attn_impl": "auto",
+    "profile_steps": 0,
 }
 
 _MODEL_COMMON: dict[str, Any] = {
@@ -66,125 +86,95 @@ _MODEL_COMMON: dict[str, Any] = {
     "init_values": 0.1,
 }
 
+
+def _model(name: str, embed_dim: int, depth: int, num_heads: int,
+           fusion_layer: int, **extra) -> dict[str, Any]:
+    return {**_MODEL_COMMON, "name": name, "embed_dim": embed_dim, "depth": depth,
+            "num_heads": num_heads, "fusion_layer": fusion_layer, **extra}
+
+
+# configs/model/*.yaml. Rows 6 and 7 (`mlp_impl: fused` on the card) are
+# built at width 768 only: vlmo_tiny and vlmo_small under `fused` raise at
+# the kernel's shape check on the card (ops/mlp_fused.py `OUT_DIMS`);
+# vlmo_large and vlmo_huge fail `fits_vmem` and take the plain chain, as in
+# JAX
 MODEL_PRESETS: dict[str, dict[str, Any]] = {
-    # configs/model/vlmo_base.yaml
-    "vlmo_base": {
-        **_MODEL_COMMON,
-        "name": "vlmo_base",
-        "embed_dim": 768,
-        "depth": 12,
-        "num_heads": 12,
-        "fusion_layer": 6,
-        "quantize": "none",
-        "mlp_impl": "xla",
-    },
-    # configs/model/vlmo_debug.yaml
-    "vlmo_debug": {
-        **_MODEL_COMMON,
-        "name": "vlmo_debug",
-        "embed_dim": 96,
-        "depth": 2,
-        "num_heads": 3,
-        "fusion_layer": 1,
-    },
+    "vlmo_tiny": _model("vlmo_tiny", 192, 12, 3, 6),
+    "vlmo_small": _model("vlmo_small", 384, 12, 6, 6),
+    "vlmo_base": _model("vlmo_base", 768, 12, 12, 6, quantize="none", mlp_impl="xla"),
+    "vlmo_large": _model("vlmo_large", 1024, 24, 16, 12, init_values=1e-5),
+    "vlmo_huge": _model("vlmo_huge", 1024, 24, 16, 12, init_values=1e-5),
+    "vlmo_debug": _model("vlmo_debug", 96, 2, 3, 1),
 }
+
+
+def _train(phase: str, loss_names: list[str], datasets: list[str], *,
+           base_lr: float = 3.0e-6, lr_mult_head: float = 50,
+           lr_mult_fusion: float = 5, warmup_steps: int = 2500,
+           **extra) -> dict[str, Any]:
+    """A configs/train/*.yaml: the phase's own keys over the schedule,
+    optimizer and run keys every train preset carries."""
+    return {
+        "phase": phase,
+        "loss_names": loss_names,
+        "datasets": datasets,
+        **extra,
+        "start_epoch": 0,
+        "epochs": 10,
+        "cur_epoch": 0,
+        "warmup_epochs": 3,
+        "warmup_steps": warmup_steps,
+        "weight_decay": 0.01,
+        "weight_decay_end": 0.01,
+        "base_lr": base_lr,
+        "warmup_lr": 5.0e-7,
+        "min_lr": 5.0e-6,
+        "lr_mult_head": lr_mult_head,
+        "lr_mult_fusion": lr_mult_fusion,
+        "flat_loss": False,
+        "clip_grad": None,
+        "auto_resume": True,
+        "resume": "",
+        "accumulation_steps": 1,
+        "save_freq": 1,
+        "print_freq": 300,
+        "print_stat_level": 2,
+        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
+        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
+                "momentum": 0.9},
+    }
+
+
+_PRETRAIN = {"base_lr": 2.0e-4, "lr_mult_head": 1, "lr_mult_fusion": 1}
+_DALLE = {"discrete_vae_weight_path": "weight/dalle/", "discrete_vae_type": "dall-e"}
 
 # configs/train/*.yaml, whole
 TRAIN_PRESETS: dict[str, dict[str, Any]] = {
-    "finetune_vqa": {
-        "phase": "finetune_vqa",
-        "loss_names": ["vqa"],
-        "datasets": ["vqa"],
-        "kl_alpha": 0.0,  # R-Drop: a second stochastic forward + symmetric KL
-        "isda_lambda": 0,  # implicit semantic data augmentation
-        "start_epoch": 0,
-        "epochs": 10,
-        "cur_epoch": 0,
-        "warmup_epochs": 3,
-        "warmup_steps": 2500,
-        "weight_decay": 0.01,
-        "weight_decay_end": 0.01,
-        "base_lr": 3.0e-6,
-        "warmup_lr": 5.0e-7,
-        "min_lr": 5.0e-6,
-        "lr_mult_head": 50,
-        "lr_mult_fusion": 5,
-        "flat_loss": False,
-        "clip_grad": None,
-        "auto_resume": True,
-        "resume": "",
-        "accumulation_steps": 1,
-        "save_freq": 1,
-        "print_freq": 300,
-        "print_stat_level": 2,
-        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
-        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
-                "momentum": 0.9},
-    },
-    "pretrain_mum": {
-        "phase": "pretrain_mum",
-        "loss_names": ["mlm", "itc", "itm", "mim"],
-        "datasets": ["vg", "coco", "gcc", "sbu", "f30k"],
-        "global_reduce": False,
-        "neg_queue": False,
-        "queue_size": 65536,
-        "discrete_vae_weight_path": "weight/dalle/",
-        "discrete_vae_type": "dall-e",
-        "mim_head_pos": "img",
-        "start_epoch": 0,
-        "epochs": 10,
-        "cur_epoch": 0,
-        "warmup_epochs": 3,
-        "warmup_steps": 2500,
-        "weight_decay": 0.01,
-        "weight_decay_end": 0.01,
-        "base_lr": 2.0e-4,
-        "warmup_lr": 5.0e-7,
-        "min_lr": 5.0e-6,
-        "lr_mult_head": 1,
-        "lr_mult_fusion": 1,
-        "flat_loss": False,
-        "clip_grad": None,
-        "auto_resume": True,
-        "resume": "",
-        "accumulation_steps": 1,
-        "save_freq": 1,
-        "print_freq": 300,
-        "print_stat_level": 2,
-        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
-        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
-                "momentum": 0.9},
-    },
-    # text-only MLM; BERT-length text with model.max_text_len=512
-    "pretrain_txt": {
-        "phase": "pretrain_txt",
-        "loss_names": ["mlm"],
-        "datasets": ["book", "wiki"],
-        "fixed_attn": True,  # shared attention and norms at 0x lr: the 'l' experts train
-        "start_epoch": 0,
-        "epochs": 10,
-        "cur_epoch": 0,
-        "warmup_epochs": 3,
-        "warmup_steps": 10000,
-        "weight_decay": 0.01,
-        "weight_decay_end": 0.01,
-        "base_lr": 2.0e-4,
-        "warmup_lr": 5.0e-7,
-        "min_lr": 5.0e-6,
-        "lr_mult_head": 5,
-        "lr_mult_fusion": 5,
-        "flat_loss": False,
-        "clip_grad": None,
-        "auto_resume": True,
-        "resume": "",
-        "accumulation_steps": 1,
-        "save_freq": 1,
-        "print_freq": 300,
-        "print_stat_level": 2,
-        "lr_scheduler": {"name": "linear", "decay_epochs": 30, "decay_rate": 0.1},
-        "opt": {"name": "adamw", "eps": 1.0e-8, "betas": [0.9, 0.98],
-                "momentum": 0.9},
-    },
+    "pretrain_mum": _train(
+        "pretrain_mum", ["mlm", "itc", "itm", "mim"],
+        ["vg", "coco", "gcc", "sbu", "f30k"], **_PRETRAIN,
+        global_reduce=False, neg_queue=False, queue_size=65536, **_DALLE,
+        mim_head_pos="img"),
+    # text-only MLM; BERT-length text with model.max_text_len=512; the
+    # shared attention and norms at 0x lr: the 'l' experts train
+    "pretrain_txt": _train(
+        "pretrain_txt", ["mlm"], ["book", "wiki"], base_lr=2.0e-4,
+        lr_mult_head=5, lr_mult_fusion=5, warmup_steps=10000, fixed_attn=True),
+    "pretrain_vis": _train(
+        "pretrain_vis", ["mim"], ["coco", "vg", "gcc", "sbu", "f30k"], **_PRETRAIN,
+        **_DALLE, mim_head_pos="img"),
+    # kl_alpha: R-Drop (a second stochastic forward + symmetric KL);
+    # isda_lambda: implicit semantic data augmentation
+    "finetune_vqa": _train("finetune_vqa", ["vqa"], ["vqa"], kl_alpha=0.0,
+                           isda_lambda=0),
+    "finetune_nlvr2": _train("finetune_nlvr2", ["nlvr2"], ["nlvr2"]),
+    "finetune_retrieval": _train("finetune_retrieval", ["itc", "irtr"], ["coco"],
+                                 draw_false_text=3),
+    "finetune_caption": _train("finetune_caption", ["mlm"], ["coco"]),
+    "finetune_ref": _train("finetune_ref", ["refcoco"], ["refcoco"]),
+    "finetune_inpainting": _train("finetune_inpainting", ["mim"], ["coco"],
+                                  mim_head_pos="mum"),
+    "finetune_vis": _train("finetune_vis", ["imgcls"], ["imgcls"]),
 }
 
 _PRESETS = {"model": MODEL_PRESETS, "train": TRAIN_PRESETS}
@@ -244,6 +234,8 @@ def load_config(overrides: Iterable[str] = ()) -> dict[str, Any]:
         for part in parents:
             node = node.setdefault(part, {})
         node[leaf] = value
+    if cfg["wandb"].get("name") == "${tag}":
+        cfg["wandb"]["name"] = cfg["tag"]
     return cfg
 
 

@@ -83,13 +83,16 @@ class SyntheticDataset:
         return sample
 
 
-def build_dataset(cfg: dict) -> SyntheticDataset:
-    """The training dataset of `cfg`, as the JAX `MultiTaskData` builds the
-    `synthetic` key: a phase with masked images (pretraining, or MIM) gets
+def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
+    """The dataset of `cfg` for `split` ('train', 'val' or 'test'), as the
+    JAX `MultiTaskData` builds the `synthetic` key, whose samples are the
+    same in every split: a phase with masked images (pretraining, or MIM) gets
     the configured patch masker and the dVAE's half-size image, any other
     the default masker and no second image; `vqa` adds the VQA targets; a
     phase named `*txt*` whose losses are at most MLM gets text-only samples.
     Only `train.datasets=[synthetic]` is ported."""
+    if split not in ("train", "val", "test"):
+        raise ValueError(f"split {split!r}")
     t = cfg["train"]
     keys = list(t["datasets"])
     if keys != ["synthetic"]:

@@ -2,7 +2,8 @@
 
 Counterpart of `exploremultimodal_tpu/data/pipeline.py` for one process: the
 same per-epoch permutation from (seed, epoch), the same drop_last batches and
-the same `collate`. Images stay uint8 up to the device; on a CUDA device
+the same `collate`; for evaluation the same unshuffled order, padded to whole
+batches with its first samples instead of dropping the rest. Images stay uint8 up to the device; on a CUDA device
 every batch crosses through pinned memory without blocking the host.
 """
 
@@ -31,19 +32,31 @@ def collate(samples: list[Sample]) -> dict[str, Any]:
 
 
 class Loader:
-    """Epoch-ordered, drop_last batches of a map-style dataset."""
+    """Batches of a map-style dataset: with `train` (the default) shuffled
+    from (seed, epoch) and drop_last; otherwise (JAX's val and test
+    loaders) in index order, the last batch filled up with the order's
+    first samples."""
 
-    def __init__(self, dataset, batch_size: int, *, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, *, seed: int = 0, train: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.train = train
+
+    def _order(self, epoch: int) -> np.ndarray:
+        n = len(self.dataset)
+        if self.train:
+            order = np.random.default_rng((self.seed, epoch)).permutation(n)
+            return order[: (n // self.batch_size) * self.batch_size]
+        order = np.arange(n)
+        return np.concatenate([order, order[: -n % self.batch_size]])
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.train else -(-n // self.batch_size)
 
     def epoch(self, epoch: int) -> Iterator[dict[str, Any]]:
-        order = np.random.default_rng((self.seed, epoch)).permutation(
-            len(self.dataset))
+        order = self._order(epoch)
         for b in range(len(self)):
             idx = order[b * self.batch_size: (b + 1) * self.batch_size]
             yield collate([self.dataset[int(i)] for i in idx])

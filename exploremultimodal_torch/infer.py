@@ -5,7 +5,9 @@ Every call pads its batch to a power-of-two bucket (at most `max_batch`) with
 copies of the last row, runs, and slices the result back, as the JAX
 `Predictor` does. Weights come as a `VlmoTask` state_dict: from
 `models.convert.from_flax_params`, or from `build_model(...).state_dict()`
-for seeded random weights.
+for seeded random weights; or through `Predictor.from_checkpoint`, from a
+checkpoint directory the trainer saved, a BEiT/VLMo `.pth` file, or a
+`file://` or `https://` URL of either.
 """
 
 from __future__ import annotations
@@ -16,9 +18,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from exploremultimodal_torch.config import VlmoConfig
+from exploremultimodal_torch.config import VlmoConfig, load_config
 from exploremultimodal_torch.data.vqa_vocab import RESOURCE_DIR, load_vqa_vocab
-from exploremultimodal_torch.models.task import VlmoTask, resolve_device
+from exploremultimodal_torch.models.task import VlmoTask, build_model, resolve_device
 from exploremultimodal_torch.ops.preprocess import normalize_image
 
 
@@ -49,6 +51,39 @@ class Predictor:
         self.max_batch = int(max_batch)
         self._tokenizer = None
         self._vqa_vocab = None
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: str, overrides: Sequence[str] = (),
+                        max_batch: int = 64,
+                        device: str | torch.device = "cuda") -> "Predictor":
+        """Serve the weights of `checkpoint`: a checkpoint directory of the
+        port's trainer (`checkpoint-<epoch>/`), a BEiT/VLMo `.pth` file
+        (`models.import_torch`, over seeded random weights for what it
+        lacks), or a `file://` / `https://` URL of either. `overrides` select
+        the model and train groups the weights were trained with (the train
+        phase decides which heads exist)."""
+        from exploremultimodal_torch.models.import_torch import (
+            import_torch_state,
+            load_torch_checkpoint,
+        )
+        from exploremultimodal_torch.train import checkpoints as ckpt_lib
+
+        cfg = load_config(list(overrides))
+        path = checkpoint
+        if path.startswith(("http://", "https://", "file://")):
+            path = ckpt_lib._fetch_url_checkpoint(path)
+        if os.path.isdir(path):
+            state, _ = ckpt_lib.read_checkpoint(path)
+            state_dict = state["model"]
+        elif ckpt_lib.is_torch_checkpoint(path):
+            target = build_model(cfg, device="cpu", seed=0).state_dict()
+            state_dict, _, _ = import_torch_state(
+                load_torch_checkpoint(path), target,
+                max_text_len=cfg["model"]["max_text_len"])
+        else:
+            raise ValueError(f"{checkpoint!r} is neither a checkpoint directory "
+                             "nor a torch file")
+        return cls(cfg, state_dict, max_batch=max_batch, device=device)
 
     # ------------------------------------------------------- host helpers
 

@@ -2,7 +2,8 @@
 
 Counterpart of `exploremultimodal_tpu/models/dvae.py` (`_Conv`,
 `EncoderBlock`, `DalleEncoder`, `DalleVAE` with `fused` and `quantize`,
-`init_random`, `create_d_vae`), with the same module names so
+`init_random`, `create_d_vae`, `import_dalle_torch_state`,
+`load_dalle_vae`: the encoder only), with the same module names so
 `convert.from_flax_params` maps the JAX encoder's parameters. Eager cuDNN
 convolution in the compute dtype, the bias added after it in that dtype, as
 flax does; `quantize` runs the input conv and the trunk on int8 codes
@@ -17,6 +18,7 @@ in the JAX package; the module convolutions run NCHW.
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 import torch.nn.functional as F
@@ -186,21 +188,61 @@ class DalleVAE(nn.Module):
         return torch.softmax(self._encode(images), dim=-1)
 
 
+def import_dalle_torch_state(state: dict) -> dict[str, torch.Tensor]:
+    """An OpenAI `dall_e` encoder state dict as `DalleEncoder`'s state dict.
+
+    The `dall_e` names (its `encoder.py`) and the port's:
+      blocks.input.{w,b}                            -> input_conv.conv
+      blocks.group_{g}.block_{b}.id_path.{w,b}      -> group_{g}_block_{b}.id_conv.conv
+      blocks.group_{g}.block_{b}.res_path.conv_{k}.{w,b}
+                                                    -> group_{g}_block_{b}.conv_{k}.conv
+      blocks.output.conv.{w,b}                      -> output_conv.conv
+    Both keep torch's OIHW kernels, so the tensors pass as they are (in
+    fp32)."""
+    out = {}
+    for name, w in state.items():
+        if not name.endswith(".w"):
+            continue
+        b = state[name[:-2] + ".b"]
+        parts = name.split(".")
+        if parts[1] in ("input", "output"):
+            mod = f"{parts[1]}_conv"
+        else:
+            g, blk = parts[1].split("_")[1], parts[2].split("_")[1]
+            leaf = "id_conv" if parts[3] == "id_path" else parts[4]
+            mod = f"group_{g}_block_{blk}.{leaf}"
+        out[f"{mod}.conv.weight"] = torch.as_tensor(w).detach().float().cpu()
+        out[f"{mod}.conv.bias"] = torch.as_tensor(b).detach().float().cpu()
+    return out
+
+
+def load_dalle_vae(weight_dir: str, image_size: int, dtype: torch.dtype = torch.float32,
+                   quantize: str = "none",
+                   device: str | torch.device = "cuda") -> DalleVAE:
+    """The tokenizer with OpenAI's encoder weights from
+    `<weight_dir>/encoder.pkl` (a pickled module or a state dict), on
+    `device`. Only the encoder is loaded: `decoder.pkl` waits for the
+    decoder's port (`DalleDecoder`, which inpainting serving needs)."""
+    obj = torch.load(os.path.join(weight_dir, "encoder.pkl"), map_location="cpu",
+                     weights_only=False)
+    state = obj if isinstance(obj, dict) else obj.state_dict()
+    vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device=device)
+    vae.encoder.load_state_dict(import_dalle_torch_state(state), strict=True)
+    return vae.requires_grad_(False).eval()
+
+
 def create_d_vae(d_vae_type: str, image_size: int, dtype: torch.dtype,
                  seed: int = 0, quantize: str = "none",
-                 device: str | torch.device = "cuda") -> DalleVAE:
+                 device: str | torch.device = "cuda",
+                 weight_path: str = "") -> DalleVAE:
     """The tokenizer for `train.discrete_vae_type` on `device`, its trunk on
-    int8 codes under `quantize` (`train.discrete_vae_quantize`). 'random'
-    is the seeded random tokenizer (seed 0, as JAX's `jax.random.key(0)`);
-    'dall-e' reaches here only when an `encoder.pkl` exists
-    (`trainer.dvae_type` falls back to 'random' otherwise) and raises: the
-    loader of the OpenAI weights is not ported yet (ROADMAP.md, queue A,
-    item 2), and the port must not train on random codes where JAX would
-    load weights."""
+    int8 codes under `quantize` (`train.discrete_vae_quantize`). 'dall-e'
+    loads OpenAI's encoder from `weight_path` (`load_dalle_vae`; the
+    trainer's `dvae_type` falls back to 'random' where no `encoder.pkl`
+    exists); 'random' is the seeded random tokenizer (seed 0, as JAX's
+    `jax.random.key(0)`)."""
     if d_vae_type == "dall-e":
-        raise NotImplementedError(
-            "discrete_vae_type 'dall-e' with an encoder.pkl present: loading the "
-            "DALL-E weights is not ported yet (ROADMAP.md, queue A, item 2)")
+        return load_dalle_vae(weight_path, image_size, dtype, quantize, device)
     if d_vae_type != "random":
         raise NotImplementedError(f"discrete_vae_type {d_vae_type!r} is not ported")
     vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device=device)

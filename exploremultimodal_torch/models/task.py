@@ -142,11 +142,13 @@ class VlmoTask(nn.Module):
     # ---------------------------------------------------------------- forward
 
     def forward(self, batch: dict, rng: StepRng | None = None,
-                negatives=None, isda_state=None, isda_ratio: float = 0.0) -> dict:
+                negatives=None, isda_state=None, isda_ratio: float = 0.0,
+                generator: torch.Generator | None = None) -> dict:
         """The union of the active objectives, as JAX's `__call__`. ITC runs
         first: its below-fusion hidden states feed MLM's fused forward and
         ITM's pair rows. `rng` None is deterministic (no dropout); the ITM
-        negatives then come from `negatives` = (neg_img_idx, neg_txt_idx).
+        negatives then come from `negatives` = (neg_img_idx, neg_txt_idx)
+        or are drawn on `generator`.
         VQA takes the ISDA statistics `isda_state` (None: no ISDA) and
         returns their update as `isda_state`."""
         names = self.config.loss_names
@@ -161,7 +163,7 @@ class VlmoTask(nn.Module):
         if "mim" in names:
             ret.update(obj.compute_mim(self, batch, rng))
         if "itm" in names:
-            ret.update(obj.compute_itm(self, batch, shared, rng, negatives))
+            ret.update(obj.compute_itm(self, batch, shared, rng, negatives, generator))
         if "vqa" in names:
             ret.update(obj.compute_vqa(self, batch, rng, isda_state=isda_state,
                                        isda_ratio=isda_ratio))

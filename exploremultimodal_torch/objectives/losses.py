@@ -140,28 +140,34 @@ def compute_itc(task, batch: dict, rng: StepRng | None = None) -> dict:
 
 
 def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
-                     rng: StepRng | None = None, negatives=None):
+                     rng: StepRng | None = None, negatives=None,
+                     generator: torch.Generator | None = None):
     """ITC-guided hard negatives and the [pos, img-neg, txt-neg] 3*bs pair
     rows below the fusion layer. Returns (pair_img, pair_txt, pair_mask,
     labels). The negatives are drawn on `rng.generator` (one image per text
     from softmax(sim_t2i), one text per image from softmax(sim_i2t), the
-    positive excluded; the same law as JAX's categorical, other draws), or
-    given as `negatives` = (neg_img_idx, neg_txt_idx)."""
+    positive excluded; the same law as JAX's categorical, other draws), on
+    `generator` in a deterministic forward (`rng` None: its sampling stream,
+    as JAX's eval step keeps its `sample` rng), or given as `negatives` =
+    (neg_img_idx, neg_txt_idx)."""
     img, txt_ids, txt_mask = batch["image"], batch["text_ids"], batch["text_mask"]
     bs = img.shape[0]
     if negatives is None:
-        if rng is None:
-            raise ValueError("ITM negatives need a StepRng or given indices")
+        if generator is None:
+            if rng is None:
+                raise ValueError("ITM negatives need a StepRng, a generator or given "
+                                 "indices")
+            generator = rng.generator
         if sim_dict is not None:
             w_i2t, w_t2i = (torch.softmax(sim_dict[k].detach().float(), dim=1)
                             for k in ("sim_i2t", "sim_t2i"))
         else:  # JAX's standard-normal log-weights
-            w_i2t, w_t2i = (torch.randn((bs, bs), generator=rng.generator,
+            w_i2t, w_t2i = (torch.randn((bs, bs), generator=generator,
                                         device=img.device).exp() for _ in range(2))
         eye = torch.eye(bs, dtype=torch.bool, device=img.device)
         w_i2t, w_t2i = (w.masked_fill(eye, 0.0) for w in (w_i2t, w_t2i))
-        neg_img_idx = torch.multinomial(w_t2i, 1, generator=rng.generator)[:, 0]
-        neg_txt_idx = torch.multinomial(w_i2t, 1, generator=rng.generator)[:, 0]
+        neg_img_idx = torch.multinomial(w_t2i, 1, generator=generator)[:, 0]
+        neg_txt_idx = torch.multinomial(w_i2t, 1, generator=generator)[:, 0]
     else:
         neg_img_idx, neg_txt_idx = (torch.as_tensor(i, device=img.device).long()
                                     for i in negatives)
@@ -194,11 +200,12 @@ def itm_loss_from_co(task, co_feats, labels) -> dict:
 
 
 def compute_itm(task, batch: dict, sim_dict: dict | None = None,
-                rng: StepRng | None = None, negatives=None) -> dict:
+                rng: StepRng | None = None, negatives=None,
+                generator: torch.Generator | None = None) -> dict:
     """Image-text matching with ITC-guided hard negatives: one fused forward
     over the 3*bs [pos, img-neg, txt-neg] rows."""
     pair_img, pair_txt, pair_mask, labels = itm_sample_pairs(
-        task, batch, sim_dict, rng, negatives)
+        task, batch, sim_dict, rng, negatives, generator)
     co_feats, _ = task.transformer.fuse_from_hidden(pair_img, pair_txt, pair_mask,
                                                     rng=rng)
     return itm_loss_from_co(task, co_feats, labels)

@@ -9,6 +9,10 @@ chain, which rounds the scores to the compute dtype before the fp32
 softmax, as the XLA chain does, and draws a Bernoulli dropout mask on the
 step's generator. (JAX's `'recompute'` rematerializes the chain in the
 backward; here autograd stores it, which changes memory, not values.)
+`'saveprobs'` (JAX's chain that keeps only the probabilities for the
+backward) and `'jax_flash'` (an upstream TPU library kernel, which JAX
+takes only on a TPU and otherwise sends to the stored-probs chain) run the
+plain chain as well, as JAX does off the TPU.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from exploremultimodal_torch.ops.flash_attention import (
 from exploremultimodal_torch.ops.stochastic import StepRng
 
 NEG_INF = -1e30
-IMPLS = ("auto", "recompute", "xla", "pallas")
+IMPLS = ("auto", "recompute", "xla", "saveprobs", "jax_flash", "pallas")
 
 
 def key_padding_bias(mask: torch.Tensor | None) -> torch.Tensor | None:

@@ -1,8 +1,10 @@
-"""The pretrain_mum and finetune_vqa training steps on one GPU.
+"""The trainer of the pretrain_mum, finetune_vqa and pretrain_txt phases on
+one GPU: the step, the epochs around it with evaluation, checkpoints and
+auto-resume, and throughput mode.
 
 Counterpart of `exploremultimodal_tpu/train/trainer.py` for
 `accumulation_steps=1` without the momentum encoder, the negative queue or
-the gathered ITC (none of them is a default of either phase):
+the gathered ITC (none of them is a default of these phases). A step:
 
   uint8 batch -> device (pinned memory) -> preprocessing -> frozen dVAE
   tokens under no_grad (MIM labels, where MIM is trained; the dVAE's trunk
@@ -14,6 +16,15 @@ The four phases of a step are `torch.profiler` ranges (`step/batch`,
 `step/forward`, `step/backward`, `step/optimizer`), which cost nothing
 without a profiler; `scripts/torch_profile_train.py` reads them.
 
+`train` runs the epochs from `train.start_epoch` (or the epoch after the
+checkpoint `checkpoints.auto_load` restores), evaluates after each on the
+val split (`evaluate`: count-weighted means of a deterministic forward
+under no_grad), keeps the best `minimize_metric`, saves every
+`train.save_freq` epochs and appends the epoch's means to
+`log_stats.json`. Device values are read on the host only at the logging
+cadence (`train.print_freq`, every 50 steps for the metric sink) and once
+per epoch, so the loop adds no sync to a step.
+
 Parameters and optimizer state are fp32; activations run in
 `compute_dtype`, as in the JAX trainer. The entry point runs on CUDA unless
 the caller passes device="cpu".
@@ -21,10 +32,13 @@ the caller passes device="cpu".
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import time
 from typing import Any, Iterator
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -45,7 +59,12 @@ from exploremultimodal_torch.train.optim import (
     global_norm,
     phase_frozen_predicate,
 )
+from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.state import TrainState, create_train_state
+from exploremultimodal_torch.utils import MetricLogger, create_logger
+from exploremultimodal_torch.utils.experiment_log import ExperimentLogger
+from exploremultimodal_torch.utils.metrics import read_floats
+from exploremultimodal_torch.utils.profiling import check_finite_and_dump, trace
 
 METRIC_KEYS = ("_task_loss", "_Loss", "_mean_acc", "_mean_score", "itc_temp",
                "_dropped_positions")
@@ -92,12 +111,21 @@ def dvae_type(train_cfg: dict) -> str:
 
 class Trainer:
     """Builds the task, the frozen tokenizer, the data and the optimizer
-    from `cfg` (a `config.load_config` dict) and takes training steps."""
+    from `cfg` (a `config.load_config` dict); takes training steps and runs
+    epochs. The run dir (`output_dir`: checkpoints, `log_stats.json`, the
+    metric sink) and the experiment dir that auto-resume scans (`exp_dir`)
+    resolve as in JAX's trainer. Without a `logger` it logs to stderr only;
+    `main.setup` gives it one that also writes to the run dir."""
 
-    def __init__(self, cfg: dict, device: str | torch.device = "cuda"):
+    def __init__(self, cfg: dict, device: str | torch.device = "cuda", logger=None):
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.output_dir = (cfg.get("run_dir") or cfg.get("exp_dir")
+                           or cfg.get("output_dir", "output"))
+        self.exp_dir = cfg.get("exp_dir") or self.output_dir
+        self.logger = logger or create_logger(level=cfg.get("log_level", "info"))
+        self.exp_logger: ExperimentLogger | None = None
         self.config = c = VlmoConfig.from_config(cfg)
         task = VlmoTask(c)
         task.init_weights(torch.Generator().manual_seed(int(cfg["seed"])))
@@ -109,10 +137,14 @@ class Trainer:
         if "mim" in c.loss_names:
             self.dvae = create_d_vae(
                 dvae_type(t), c.img_size // 2, c.dtype,
-                quantize=t.get("discrete_vae_quantize") or "none", device=self.device)
+                quantize=t.get("discrete_vae_quantize") or "none", device=self.device,
+                weight_path=t.get("discrete_vae_weight_path", ""))
 
-        self.loader = Loader(build_dataset(cfg), cfg["data"]["batch_size"],
-                             seed=int(cfg["seed"]))
+        d = cfg["data"]
+        self.loader = Loader(build_dataset(cfg), d["batch_size"], seed=int(cfg["seed"]))
+        self.val_loader = Loader(build_dataset(cfg, "val"),
+                                 d.get("eval_batch_size") or d["batch_size"],
+                                 seed=int(cfg["seed"]), train=False)
         self.steps_per_epoch = max(len(self.loader), 1)
         frozen = phase_frozen_predicate(tuple(t["loss_names"]), t.get("phase"),
                                         t.get("mim_head_pos", "img"))
@@ -189,7 +221,181 @@ class Trainer:
         st.step += 1
         return metrics
 
-    def train(self, steps: int) -> list[dict[str, float]]:
+    def train_steps(self, steps: int) -> list[dict[str, float]]:
         """`steps` training steps; per-step metrics as floats."""
         out = [self.step() for _ in range(steps)]
         return [{k: float(v) for k, v in m.items()} for m in out]
+
+    # ------------------------------------------------------------ the epochs
+
+    def train(self) -> dict:
+        """The epochs from `train.start_epoch` or the auto-resumed epoch to
+        `train.epochs`, each evaluated, saved and logged. Returns
+        {"best_metric", "history" (one dict per epoch: its means and the
+        `val_`-prefixed evaluation), "state", "times" (seconds of each
+        epoch's steps, evaluation and save, of the resume's load, and the
+        last checkpoint's bytes)}."""
+        cfg, t = self.cfg, self.cfg["train"]
+        n_params = sum(p.numel() for p in self.task.parameters())
+        self.logger.info(
+            f"phase={t['phase']} model={cfg['model']['name']} "
+            f"params={n_params / 1e6:.1f}M device={self.device} "
+            f"steps/epoch={self.steps_per_epoch}")
+        times: dict[str, Any] = {"epoch_s": [], "eval_s": [], "save_s": [],
+                                 "load_s": None, "checkpoint_bytes": None}
+        start_epoch = int(t.get("start_epoch", 0))
+        if t.get("auto_resume", True):
+            t0 = time.perf_counter()
+            restored = ckpt_lib.auto_load(self.exp_dir, self.state, cfg,
+                                          logger=self.logger)
+            if restored is not None:
+                _, start_epoch = restored
+                times["load_s"] = time.perf_counter() - t0
+        self.exp_logger = ExperimentLogger(cfg, self.output_dir)
+
+        best_metric = None
+        minimize = cfg.get("minimize_metric") or "total_loss"
+        history = []
+        for epoch in range(start_epoch, int(t["epochs"])):
+            t0 = time.perf_counter()
+            epoch_stats = self.train_one_epoch(epoch)
+            t1 = time.perf_counter()
+            val_stats = self.evaluate() if len(self.val_loader) > 0 else {}
+            t2 = time.perf_counter()
+            times["epoch_s"].append(t1 - t0)
+            times["eval_s"].append(t2 - t1)
+            metric = val_stats.get(minimize, epoch_stats.get(minimize))
+            is_best = best_metric is None or (metric is not None and metric < best_metric)
+            if is_best and metric is not None:
+                best_metric = metric
+            if (epoch + 1) % int(t.get("save_freq", 1)) == 0:
+                path = ckpt_lib.save(self.output_dir, self.state, cfg, epoch,
+                                     is_best=is_best, scan_root=self.exp_dir,
+                                     logger=self.logger)
+                times["save_s"].append(time.perf_counter() - t2)
+                times["checkpoint_bytes"] = os.path.getsize(
+                    os.path.join(path, ckpt_lib.STATE_FILE))
+            stats = {"epoch": epoch, **epoch_stats,
+                     **{f"val_{k}": v for k, v in val_stats.items()}}
+            history.append(stats)
+            with open(os.path.join(self.output_dir, "log_stats.json"), "a") as f:
+                f.write(json.dumps({k: float(v) if isinstance(v, (int, float)) else v
+                                    for k, v in stats.items()}) + "\n")
+        if cfg.get("wandb", {}).get("alert", False):
+            self.exp_logger.alert(
+                f"{t['phase']} end", f"best {minimize} {best_metric} after "
+                f"{int(t['epochs'])} epochs (tag {cfg.get('tag', '')})")
+        self.exp_logger.finish()
+        return {"best_metric": best_metric, "history": history, "state": self.state,
+                "times": times}
+
+    def train_one_epoch(self, epoch: int) -> dict[str, float]:
+        """One epoch of steps in the loader's order for `epoch`; returns the
+        means of each metric over its steps. The total loss is checked
+        finite every `train.print_freq` steps; `profile_steps` steps of the
+        first epoch, from its fourth, are traced with torch.profiler into
+        `<output_dir>/profile`."""
+        cfg = self.cfg
+        meter = MetricLogger(logger=self.logger)
+        print_freq = int(cfg["train"].get("print_freq", 300))
+        profile_steps = int(cfg.get("profile_steps", 0)) if epoch == 0 else 0
+        profile_at, profiler = 3, None
+        batches = meter.log_every(self.loader.epoch(epoch), print_freq,
+                                  header=f"Epoch [{epoch}]")
+        for i, batch in enumerate(batches):
+            if profile_steps and i == profile_at:
+                profiler = trace(os.path.join(self.output_dir, "profile"))
+                profiler.__enter__()
+            metrics = self.step(batch)
+            if profiler is not None and i == profile_at + profile_steps - 1:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                profiler.__exit__(None, None, None)
+                profiler = None
+                self.logger.info(f"profiler trace written to {self.output_dir}/profile")
+            meter.update(**metrics)
+            if i % print_freq == 0:
+                check_finite_and_dump(metrics, self.state.step, self.output_dir,
+                                      self.logger)
+            if self.exp_logger is not None and i % 50 == 0:
+                names = list(metrics)
+                self.exp_logger.log(head="train", step=self.state.step,
+                                    **dict(zip(names, read_floats(list(metrics.values())))))
+        if profiler is not None:
+            profiler.__exit__(None, None, None)
+        meter.synchronize_between_processes()
+        return {k: m.global_avg for k, m in meter.meters.items()}
+
+    # ------------------------------------------------------------ evaluation
+
+    @torch.no_grad()
+    def eval_step(self, batch: dict[str, Any], generator: torch.Generator):
+        """A deterministic forward of `batch` (no dropout, no ISDA), as JAX's
+        eval step: (metrics, counts), 0-d device tensors, the counts those
+        of the `*_count` outputs. ITM draws its negatives on `generator`."""
+        outputs = self.task(self.model_batch(batch), generator=generator)
+        metrics = _metrics_from_outputs(outputs)
+        metrics["total_loss"] = total_loss(outputs)
+        counts = {k: v for k, v in outputs.items() if k.endswith("_count")
+                  and isinstance(v, torch.Tensor) and v.ndim == 0}
+        return metrics, counts
+
+    def evaluate(self, loader: Loader | None = None) -> dict[str, float]:
+        """Count-weighted means of the eval step's metrics over `loader`
+        (the val split by default): a `*_mean_acc` or `*_mean_score` weighs
+        each batch by its `*_count` (and raises KeyError without one), every
+        other metric by 1. The device values are read once, at the end."""
+        loader = self.val_loader if loader is None else loader
+        generator = torch.Generator(device=self.device).manual_seed(0)
+        terms: list[tuple[str, torch.Tensor, Any]] = []
+        for batch in loader.epoch(0):
+            metrics, counts = self.eval_step(batch, generator)
+            for k, v in metrics.items():
+                count_key = k.replace("_mean_acc", "_count").replace("_mean_score", "_count")
+                if count_key != k and count_key not in counts:
+                    raise KeyError(
+                        f"eval metric '{k}' has no matching '{count_key}' in counts "
+                        f"{sorted(counts)}; emit it from the objective")
+                terms.append((k, v, counts.get(count_key, 1.0)))
+        values = read_floats([v for _, v, _ in terms] + [w for _, _, w in terms])
+        sums: dict[str, float] = {}
+        weights: dict[str, float] = {}
+        for (k, _, _), value, weight in zip(terms, values, values[len(terms):]):
+            sums[k] = sums.get(k, 0.0) + value * weight
+            weights[k] = weights.get(k, 0.0) + weight
+        return {k: sums[k] / max(weights[k], 1e-9) for k in sums}
+
+    # ------------------------------------------------------- throughput mode
+
+    def throughput(self) -> float:
+        """Samples per second of the whole training step on one batch: after
+        `throughput_warmup` steps, `throughput_iters` steps timed in 4
+        chunks (JAX's 20 and 200 where the config leaves them out), with the
+        device synchronised before each clock read; logs the mean and spread
+        of the chunks and returns the mean."""
+        n_warmup = int(self.cfg.get("throughput_warmup", 20))
+        n_iters = int(self.cfg.get("throughput_iters", 200))
+        batch = next(self.loader.epoch(0))
+
+        def sync() -> None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        for _ in range(n_warmup):
+            self.step(batch)
+        sync()
+        bs = self.cfg["data"]["batch_size"]
+        n_chunks = 4
+        per_chunk = max(n_iters // n_chunks, 1)
+        chunk_sps = []
+        for _ in range(n_chunks):
+            t0 = time.perf_counter()
+            for _ in range(per_chunk):
+                self.step(batch)
+            sync()
+            chunk_sps.append(per_chunk * bs / (time.perf_counter() - t0))
+        sps, std = float(np.mean(chunk_sps)), float(np.std(chunk_sps))
+        self.logger.info(
+            f"throughput: {sps:.1f} ± {std:.1f} samples/s ({bs / sps * 1000:.1f} "
+            f"ms/step, batch {bs}, {n_chunks}x{per_chunk} iters)")
+        return sps

@@ -349,17 +349,73 @@ def test_trainer_falls_back_to_random_dvae_like_jax(monkeypatch, tmp_path, caplo
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_trainer_refuses_dalle_weights_it_cannot_load(monkeypatch, tmp_path):
-    """With an encoder.pkl at the preset's weight path the type stays
-    'dall-e', and the port raises instead of training on random codes
-    where JAX would load the weights; other types pass through."""
+class _Node(torch.nn.Module):
+    """A module whose state_dict has the `dall_e` package's names (its
+    convolutions hold parameters `w` and `b`), pickled whole as OpenAI's
+    `encoder.pkl` is."""
+
+    def __init__(self, state: dict | None = None):
+        super().__init__()
+        for name, value in (state or {}).items():
+            node = self
+            *path, leaf = name.split(".")
+            for part in path:
+                if not hasattr(node, part):
+                    node.add_module(part, _Node())
+                node = getattr(node, part)
+            node.register_parameter(leaf, torch.nn.Parameter(value))
+
+
+def _dalle_state(params) -> dict:
+    """A flax encoder tree in the `dall_e` names and layout (OIHW `w`, `b`)."""
+    out = {}
+    for key, value in from_flax_params(params).items():
+        mod, _, leaf = key.rpartition(".conv.")
+        leaf = {"weight": "w", "bias": "b"}[leaf]
+        if mod in ("input_conv", "output_conv"):
+            name = "blocks.input" if mod == "input_conv" else "blocks.output.conv"
+        else:
+            block, conv = mod.split(".")
+            _, g, _, b = block.split("_")
+            name = (f"blocks.group_{g}.block_{b}.id_path" if conv == "id_conv"
+                    else f"blocks.group_{g}.block_{b}.res_path.{conv}")
+        out[f"{name}.{leaf}"] = value
+    return out
+
+
+@pytest.mark.parametrize("pickled", ["state_dict", "module"])
+def test_trainer_loads_dalle_weights_like_jax(monkeypatch, tmp_path, pickled):
+    """With an `encoder.pkl` at the preset's weight path the type stays
+    'dall-e' and the trainer loads OpenAI's encoder through
+    `load_dalle_vae`, from a `torch.save`d state dict or a pickled module
+    with the `dall_e` names; its MIM labels on one vlmo_debug batch equal
+    those of JAX's `load_dalle_vae` on the same file, bit for bit. The dVAE
+    is narrowed to n_hid 16 in both packages (JAX also reads a
+    `decoder.pkl`, here an empty state dict; the port loads the encoder
+    only)."""
     monkeypatch.chdir(tmp_path)
-    (tmp_path / "weight" / "dalle").mkdir(parents=True)
-    (tmp_path / "weight" / "dalle" / "encoder.pkl").write_bytes(b"")
+    monkeypatch.setattr(pdvae, "DalleEncoder",
+                        functools.partial(pdvae.DalleEncoder, **NARROW))
+    monkeypatch.setattr(jdvae, "DalleEncoder",
+                        functools.partial(jdvae.DalleEncoder, **NARROW))
+    weights = tmp_path / "weight" / "dalle"
+    weights.mkdir(parents=True)
+    state = _dalle_state(_narrow_params())
+    torch.save(state if pickled == "state_dict" else _Node(state),
+               weights / "encoder.pkl")
+    torch.save({}, weights / "decoder.pkl")
     cfg = load_config(_preset_without_dvae_override())
     assert dvae_type(cfg["train"]) == "dall-e"
-    with pytest.raises(NotImplementedError, match="DALL-E weights"):
-        Trainer(cfg, device="cpu")
+    trainer = Trainer(cfg, device="cpu")
+    batch = trainer.next_batch()
+    got = trainer.model_batch(batch)["mim_labels"]
+
+    jvae = jdvae.load_dalle_vae(str(weights), 32)
+    raw = {k: jnp.asarray(v) for k, v in batch.items() if k != "index"}
+    image = jax_preprocess_batch(raw)["image4dalle"]
+    want = np.asarray(jax.jit(jvae.get_codebook_indices)(image))
+    assert got.shape == want.shape == (2, 16)
+    np.testing.assert_array_equal(got.numpy(), want)
     assert dvae_type({"discrete_vae_type": "random"}) == "random"
 
 

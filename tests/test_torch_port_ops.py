@@ -81,7 +81,7 @@ def test_flash_attention_plain_matches_jax_kernel(n):
                                rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["recompute", "xla", "auto"])
+@pytest.mark.parametrize("impl", ["recompute", "xla", "auto", "saveprobs", "jax_flash"])
 def test_plain_attention_chain_matches_jax(impl):
     """The plain chain in bf16, where rounding the scores to the compute
     dtype matters. Tolerance: one bf16 ulp at |out| < 2 (2**-7), for a
@@ -213,11 +213,13 @@ def test_normalize_image_matches_jax():
 # ------------------------------------------------------------------- config
 
 
-@pytest.mark.parametrize("group,name", [("model", "vlmo_base"),
-                                        ("model", "vlmo_debug"),
-                                        ("train", "finetune_vqa"),
-                                        ("train", "pretrain_mum"),
-                                        ("train", "pretrain_txt")])
+@pytest.mark.parametrize("group,name", [
+    ("model", n) for n in ("vlmo_tiny", "vlmo_small", "vlmo_base", "vlmo_large",
+                           "vlmo_huge", "vlmo_debug")] + [
+    ("train", n) for n in ("pretrain_mum", "pretrain_txt", "pretrain_vis",
+                           "finetune_vqa", "finetune_nlvr2", "finetune_retrieval",
+                           "finetune_caption", "finetune_ref", "finetune_inpainting",
+                           "finetune_vis")])
 def test_presets_equal_the_jax_yaml(group, name):
     """Every preset is a whole copy of what the JAX loader reads from the
     YAML."""
@@ -227,12 +229,23 @@ def test_presets_equal_the_jax_yaml(group, name):
     assert got == want
 
 
-def test_base_keys_equal_the_jax_yaml():
-    want = jax_load_config([]).to_dict()
-    got = port_config.BASE
+@pytest.mark.parametrize("overrides", [[], ["tag=run7"]])
+def test_base_keys_equal_the_jax_yaml(overrides):
+    """The base keys the port reads (the run's directories, modes, logging
+    and wandb among them, `wandb.name` resolved from `tag`) as JAX loads
+    them; every train preset carries the run keys the loop reads."""
+    want = jax_load_config(overrides).to_dict()
+    got = port_config.load_config(overrides)
+    assert set(port_config.BASE) <= set(got)
     assert got["data"] == {k: want["data"][k] for k in got["data"]}
-    assert {k: v for k, v in got.items() if k != "data"} == \
-        {k: want[k] for k in got if k != "data"}
+    for key in set(port_config.BASE) - {"data"}:
+        assert got[key] == want[key], key
+    assert {"exp_dir", "run_dir", "output_dir", "tag", "eval_mode", "throughput_mode",
+            "minimize_metric", "profile_steps", "log_level", "wandb"} <= set(got)
+    assert "eval_batch_size" in got["data"]
+    for name in port_config.TRAIN_PRESETS:
+        t = port_config.load_config([f"train={name}"])["train"]
+        assert {"save_freq", "print_freq", "auto_resume", "resume", "start_epoch"} <= set(t)
 
 
 @pytest.mark.parametrize("overrides", [

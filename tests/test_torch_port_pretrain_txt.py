@@ -214,7 +214,7 @@ def test_one_step_moves_only_the_text_side(monkeypatch):
                "mlp_v": blk.mlp_v.fc1.weight,
                "patch_embed": trainer.task.transformer.patch_embed.weight}
     before = {k: p.detach().clone() for k, p in watched.items()}
-    metrics = trainer.train(2)
+    metrics = trainer.train_steps(2)
     for m in metrics:
         assert all(np.isfinite(v) for v in m.values()), m
         assert {"mlm_task_loss", "total_loss", "grad_norm", "lr"} <= set(m)

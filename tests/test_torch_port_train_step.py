@@ -320,7 +320,7 @@ def test_trainer_refuses_without_cuda_and_trains_on_the_cpu(monkeypatch):
     trainer = Trainer(cfg, device="cpu")
     w = trainer.task.transformer.blocks[0].attn.qkv.weight
     before = w.detach().clone()
-    metrics = trainer.train(2)
+    metrics = trainer.train_steps(2)
     assert trainer.state.step == 2 and len(metrics) == 2
     for m in metrics:
         assert all(np.isfinite(v) for v in m.values()), m

@@ -525,7 +525,7 @@ def test_trainer_trains_finetune_vqa_on_the_cpu(monkeypatch):
     w = trainer.task.transformer.blocks[1].mlp_vl.fc1.weight
     before = w.detach().clone()
     launches = pmlp.fused_mlp_fwd_drop.launches
-    metrics = trainer.train(2)
+    metrics = trainer.train_steps(2)
     assert pmlp.fused_mlp_fwd_drop.launches == launches
     assert trainer.state.step == 2 and len(metrics) == 2
     for m in metrics:
