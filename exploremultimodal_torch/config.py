@@ -242,8 +242,8 @@ def load_config(overrides: Iterable[str] = ()) -> dict[str, Any]:
 @dataclasses.dataclass(frozen=True)
 class VlmoConfig:
     """Static model + task configuration (the subset of the JAX VlmoConfig
-    that serving, pretrain_mum and finetune_vqa read, same field names and
-    defaults)."""
+    that serving and the ported phases read, same field names and
+    defaults; `train.draw_false_text` is read by the dataset, as in JAX)."""
 
     img_size: int = 224
     patch_size: int = 16

@@ -1,6 +1,6 @@
 """The synthetic dataset (counterpart of
 `exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain,
-text-only and VQA contracts): the same samples, drawn in the same order from the same numpy
+text-only, VQA, retrieval and NLVR2 contracts): the same samples, drawn in the same order from the same numpy
 generator, so a seed gives the JAX package's batch.
 
 The repository holds no image-text arrow shards, so this is the training
@@ -22,16 +22,18 @@ class SyntheticDataset:
     """Deterministic in-memory samples with the pretrain batch contract:
     token ids and mask, MLM ids and labels, a uint8 image, its blockwise
     patch mask, the half-size uint8 image for the dVAE tokenizer (where
-    `second_size` is set) and a one-hot VQA target over `vqa_label_size`
-    answers (where that is set). With `text_only` a sample ends before its
-    image is drawn (the text phases: token ids and mask, MLM ids and
-    labels)."""
+    `second_size` is set), a one-hot VQA target over `vqa_label_size`
+    answers (where that is set), `draw_false_text` false captions (token ids
+    and an all-ones mask) for retrieval, and with `nlvr` an image pair (the
+    first the sample's image) and a 0/1 answer. With `text_only` a sample
+    ends before its image is drawn (the text phases: token ids and mask,
+    MLM ids and labels)."""
 
     def __init__(self, size: int = 256, *, img_size: int = 224,
                  second_size: int | None = 112, max_text_len: int = 40,
                  vocab_size: int = 30522, mask_generator: MaskingGenerator,
                  vqa_label_size: int | None = None, text_only: bool = False,
-                 seed: int = 0):
+                 draw_false_text: int = 0, nlvr: bool = False, seed: int = 0):
         self.size = size
         self.img_size = img_size
         self.second_size = second_size
@@ -40,6 +42,8 @@ class SyntheticDataset:
         self.mask_generator = mask_generator
         self.vqa_label_size = vqa_label_size
         self.text_only = text_only
+        self.draw_false_text = draw_false_text
+        self.nlvr = nlvr
         self.seed = seed
 
     def __len__(self) -> int:
@@ -80,6 +84,15 @@ class SyntheticDataset:
             t = np.zeros(self.vqa_label_size, np.float32)
             t[rng.integers(0, self.vqa_label_size)] = 1.0
             sample["vqa_targets"] = t
+        if self.draw_false_text:
+            sample["false_text_ids"] = rng.integers(
+                1000, self.vocab_size, (self.draw_false_text, L)).astype(np.int32)
+            sample["false_text_mask"] = np.ones((self.draw_false_text, L), np.int32)
+        if self.nlvr:
+            sample["image_0_u8"] = sample["image_u8"]
+            sample["image_1_u8"] = rng.integers(
+                0, 256, (self.img_size, self.img_size, 3), dtype=np.uint8)
+            sample["answers"] = np.int32(rng.integers(0, 2))
         return sample
 
 
@@ -88,8 +101,10 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
     JAX `MultiTaskData` builds the `synthetic` key, whose samples are the
     same in every split: a phase with masked images (pretraining, or MIM) gets
     the configured patch masker and the dVAE's half-size image, any other
-    the default masker and no second image; `vqa` adds the VQA targets; a
-    phase named `*txt*` whose losses are at most MLM gets text-only samples.
+    the default masker and no second image; `vqa` adds the VQA targets,
+    `irtr` `train.draw_false_text` false captions (3 where unset), `nlvr2`
+    the image pair and answer; a phase named `*txt*` whose losses are at
+    most MLM gets text-only samples.
     Only `train.datasets=[synthetic]` is ported."""
     if split not in ("train", "val", "test"):
         raise ValueError(f"split {split!r}")
@@ -119,4 +134,6 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
         max_text_len=m["max_text_len"], vocab_size=m["vocab_size"],
         mask_generator=masker,
         vqa_label_size=d["vqav2_label_size"] if "vqa" in losses else None,
-        text_only=losses <= {"mlm"} and "txt" in t["phase"])
+        text_only=losses <= {"mlm"} and "txt" in t["phase"],
+        draw_false_text=int(t.get("draw_false_text", 3)) if "irtr" in losses else 0,
+        nlvr="nlvr2" in losses)

@@ -1,5 +1,12 @@
 """Serving API over one set of VLMo weights (counterpart of
-`exploremultimodal_tpu/infer.py`; the VQA endpoint only).
+`exploremultimodal_tpu/infer.py`): VQA answers, the ITC embeddings of
+images and texts and their similarity, the ITM match probability and the
+NLVR2 probability.
+
+Each text endpoint has a method on token-id arrays (`vqa_logits`,
+`encode_text_ids`, `itm_score_ids`, `nlvr2_ids`) and one on strings (`vqa`,
+`encode_text`, `itm_score`, `nlvr2`) that tokenizes with the BERT tokenizer
+and calls it. Images are uint8 NHWC arrays at the model's size.
 
 Every call pads its batch to a power-of-two bucket (at most `max_batch`) with
 copies of the last row, runs, and slices the result back, as the JAX
@@ -39,7 +46,10 @@ def _pad_to(x: np.ndarray, b: int) -> np.ndarray:
 
 
 class Predictor:
-    """VQA serving over one set of weights, on `device` (CUDA by default)."""
+    """Serving over one set of weights, on `device` (CUDA by default). The
+    endpoints need the heads of the train phase the weights come from:
+    `vqa*` finetune_vqa's, `encode_*`, `similarity` and `itm_score*`
+    pretrain_mum's (ITC and ITM), `nlvr2*` finetune_nlvr2's."""
 
     def __init__(self, cfg: dict, state_dict: dict, *, max_batch: int = 64,
                  device: str | torch.device = "cuda"):
@@ -123,6 +133,40 @@ class Predictor:
             out = fn(*tensors)
         return out.cpu().numpy()[:n]
 
+    @staticmethod
+    def _images(images: np.ndarray) -> np.ndarray:
+        if not isinstance(images, np.ndarray) or images.dtype != np.uint8:
+            raise ValueError("pass uint8 NHWC images")
+        return images
+
+    def _encode_image_fn(self, img_u8) -> torch.Tensor:
+        t = self.task
+        h = t.stream_below_fusion(img=normalize_image(img_u8, t.config.dtype))
+        feats = t.continue_single_stream(h, None, "v")
+        return t.itc_project(feats[:, 0], "v").to(torch.float32)
+
+    def _encode_text_fn(self, ids, mask) -> torch.Tensor:
+        t = self.task
+        h = t.stream_below_fusion(txt=ids, txt_mask=mask)
+        feats = t.continue_single_stream(h, mask, "l")
+        return t.itc_project(feats[:, 0], "l").to(torch.float32)
+
+    def _itm_fn(self, img_u8, ids, mask) -> torch.Tensor:
+        batch = {"image": normalize_image(img_u8, self.task.config.dtype),
+                 "text_ids": ids, "text_mask": mask}
+        logits = self.task.itm_head(self.task.infer(batch, infer_mode="img-txt")["cls_feats"])
+        return torch.softmax(logits.to(torch.float32), dim=-1)[:, 1]
+
+    def _nlvr2_fn(self, img0_u8, img1_u8, ids, mask) -> torch.Tensor:
+        dt = self.task.config.dtype
+        batch = {"image_0": normalize_image(img0_u8, dt),
+                 "image_1": normalize_image(img1_u8, dt),
+                 "text_ids": ids, "text_mask": mask}
+        cls = [self.task.infer(batch, infer_mode="img-txt",
+                               image_token_type_idx=i)["cls_feats"] for i in (1, 2)]
+        logits = self.task.nlvr2_logits(torch.cat(cls, dim=-1))
+        return torch.softmax(logits.to(torch.float32), dim=-1)[:, 1]
+
     def _vqa_fn(self, img_u8, ids, mask) -> torch.Tensor:
         batch = {
             "image": normalize_image(img_u8, self.task.config.dtype),
@@ -138,8 +182,7 @@ class Predictor:
                    mask: np.ndarray) -> np.ndarray:
         """(N, H, W, 3) uint8 images, (N, L) int32 token ids and mask ->
         (N, vqa_label_size) fp32 logits."""
-        if img_u8.dtype != np.uint8:
-            raise ValueError("pass uint8 NHWC images")
+        self._images(img_u8)
         if not len(img_u8) == len(ids) == len(mask):
             raise ValueError("vqa_logits expects paired images, ids and masks")
         return self._run(self._vqa_fn, len(img_u8), img_u8, ids, mask)
@@ -148,3 +191,52 @@ class Predictor:
         """Answer strings for paired (image_i, question_i)."""
         ids, mask = self.tokenize(questions)
         return self.answers(self.vqa_logits(images, ids, mask))
+
+    def encode_image(self, images: np.ndarray) -> np.ndarray:
+        """(N, H, W, 3) uint8 images -> (N, itc_dim) unit-norm fp32 ITC
+        embeddings."""
+        img = self._images(images)
+        return self._run(self._encode_image_fn, len(img), img)
+
+    def encode_text_ids(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """(N, L) int32 token ids and mask -> (N, itc_dim) unit-norm fp32
+        ITC embeddings."""
+        if len(ids) != len(mask):
+            raise ValueError("encode_text_ids expects paired ids and masks")
+        return self._run(self._encode_text_fn, len(ids), ids, mask)
+
+    def encode_text(self, texts: Sequence[str]) -> np.ndarray:
+        return self.encode_text_ids(*self.tokenize(texts))
+
+    def similarity(self, img_emb: np.ndarray, txt_emb: np.ndarray) -> np.ndarray:
+        """(N_img, N_txt) cosines scaled by the ITC temperature exp(itc_temp)
+        (1 / model.itc_temp for weights without an ITC head)."""
+        t = self.task
+        temp = (float(np.exp(t.itc_temp.detach().float().cpu().numpy()))
+                if hasattr(t, "itc_temp") else 1.0 / float(t.config.itc_temp))
+        return (img_emb @ txt_emb.T) * temp
+
+    def itm_score_ids(self, images: np.ndarray, ids: np.ndarray,
+                      mask: np.ndarray) -> np.ndarray:
+        """The ITM head's match probability (N,) of paired (image_i, text_i)."""
+        img = self._images(images)
+        if not len(img) == len(ids) == len(mask):
+            raise ValueError("itm_score expects paired images and texts")
+        return self._run(self._itm_fn, len(img), img, ids, mask)
+
+    def itm_score(self, images: np.ndarray, texts: Sequence[str]) -> np.ndarray:
+        return self.itm_score_ids(images, *self.tokenize(texts))
+
+    def nlvr2_ids(self, images_left: np.ndarray, images_right: np.ndarray,
+                  ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """P(the statement is true of the image pair) (N,): the statement
+        fused with each image (token types 1 and 2), the concatenated CLS
+        features through the NLVR2 head, as `compute_nlvr2` evaluates."""
+        img0, img1 = self._images(images_left), self._images(images_right)
+        if not len(img0) == len(img1) == len(ids) == len(mask):
+            raise ValueError("nlvr2 expects paired left and right images and texts")
+        return self._run(self._nlvr2_fn, len(ids), img0, img1, ids, mask)
+
+    def nlvr2(self, images_left: np.ndarray, images_right: np.ndarray,
+              statements: Sequence[str]) -> np.ndarray:
+        return self.nlvr2_ids(images_left, images_right, *self.tokenize(statements))

@@ -8,6 +8,11 @@
     python -m exploremultimodal_torch.main train=pretrain_txt model=vlmo_base \\
         model.max_text_len=512 'train.datasets=[synthetic]' data.batch_size=32 \\
         eval_mode=true
+    python -m exploremultimodal_torch.main train=finetune_retrieval model=vlmo_base \\
+        compute_dtype=bfloat16 'train.datasets=[synthetic]' data.batch_size=32
+
+(The phases it trains: pretrain_mum, pretrain_txt, pretrain_vis,
+finetune_vqa, finetune_nlvr2 and finetune_retrieval.)
 
 `setup` makes the experiment dir `exp_dir = <output_dir>/<phase>/<model>/<tag>`
 (stable across relaunches: auto-resume scans it, timestamped subruns

@@ -1,6 +1,7 @@
 """Task heads (counterpart of `exploremultimodal_tpu/models/heads.py`): the
-VQA classifier with its ISDA statistics and the pretrain_mum heads, with
-flax's parameter names."""
+VQA classifier with its ISDA statistics, the pretrain_mum heads, the NLVR2
+classifier, the IRTR rank head and the MAE pixel decoder, with flax's
+parameter names."""
 
 from __future__ import annotations
 
@@ -30,6 +31,43 @@ class VQAClassifier(nn.Module):
         h = F.gelu(self.ln(self.fc1(x)).to(self.dtype))
         logits = self.fc2(h)
         return (logits, h) if return_hidden else logits
+
+
+class NLVR2Classifier(nn.Module):
+    """The two images' concatenated CLS features: 2hs -> 2hs -> LayerNorm ->
+    gelu (erf) -> 2."""
+
+    def __init__(self, dim: int, norm_eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Linear(2 * dim, 2 * dim, dtype=dtype)
+        self.ln = LayerNorm(2 * dim, eps=norm_eps)
+        self.fc2 = Linear(2 * dim, 2, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.ln(self.fc1(x)).to(self.dtype)))
+
+
+class MAEHead(nn.Module):
+    """Masked-autoencoder pixel decoder: hs -> patch_size^2 * 3."""
+
+    def __init__(self, dim: int, patch_size: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc = Linear(dim, patch_size * patch_size * 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x)
+
+
+class RankHead(nn.Module):
+    """IRTR rank score: hs -> 1."""
+
+    def __init__(self, dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc = Linear(dim, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x)
 
 
 # --------------------------------------------------------------------- ISDA

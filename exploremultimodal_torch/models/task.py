@@ -1,6 +1,7 @@
 """VlmoTask: the backbone, the heads and the multitask forward (counterpart
 of `exploremultimodal_tpu/models/task.py`; the VQA head for serving and
-finetune_vqa, and the pretrain_mum heads MLM, ITC, ITM and MIM).
+finetune_vqa, the pretrain_mum heads MLM, ITC, ITM and MIM, pretrain_vis's
+MAE head, finetune_nlvr2's classifier and finetune_retrieval's rank head).
 
 The frozen dVAE is not a submodule: the trainer computes the MIM targets and
 hands them in as `batch['mim_labels']`, as the JAX trainer does.
@@ -17,8 +18,11 @@ from exploremultimodal_torch.config import VlmoConfig
 from exploremultimodal_torch.models.heads import (
     ITCHead,
     ITMHead,
+    MAEHead,
     MIMHead,
     MLMTransform,
+    NLVR2Classifier,
+    RankHead,
     VQAClassifier,
 )
 from exploremultimodal_torch.models.vlmo import (
@@ -29,8 +33,8 @@ from exploremultimodal_torch.models.vlmo import (
 from exploremultimodal_torch.objectives import losses as obj
 from exploremultimodal_torch.ops.stochastic import StepRng
 
-SUPPORTED_HEADS = ("vqa", "mlm", "itc", "itm", "mim")
-TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim", "vqa")
+# every head the port builds, each trained by its objective
+TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim", "vqa", "mae", "nlvr2", "irtr")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -48,7 +52,7 @@ class VlmoTask(nn.Module):
     def __init__(self, config: VlmoConfig):
         super().__init__()
         c = self.config = config
-        unsupported = [n for n in c.loss_names if n not in SUPPORTED_HEADS]
+        unsupported = [n for n in c.loss_names if n not in TRAINED_OBJECTIVES]
         if unsupported:
             raise NotImplementedError(f"not ported yet: heads {unsupported}")
         self.transformer = VLMO(
@@ -57,6 +61,7 @@ class VlmoTask(nn.Module):
             mlp_ratio=c.mlp_ratio, norm_eps=c.norm_eps,
             init_values=c.init_values, vocab_size=c.vocab_size,
             max_text_len=c.max_text_len, fusion_layer=c.fusion_layer,
+            num_token_types=3 if "nlvr2" in c.loss_names else 2,
             experts_per_block=expert_layout(c.depth, c.fusion_layer, c.phase),
             dtype=c.dtype, attn_impl=c.attn_impl, mlp_impl=c.mlp_impl,
             drop_rate=c.drop_rate, attn_drop_rate=c.attn_drop_rate,
@@ -72,24 +77,35 @@ class VlmoTask(nn.Module):
             self.itm_head = ITMHead(hs, c.dtype)
         if "mim" in names:
             self.mim_head = MIMHead(hs, c.img_vocab_size, c.dtype)
+        if "mae" in names:
+            self.mae_head = MAEHead(hs, c.patch_size, c.dtype)
         if "vqa" in names:
             self.vqa_classifier = VQAClassifier(hs, c.vqa_label_size,
                                                 c.norm_eps, c.dtype)
+        if "nlvr2" in names:
+            self.nlvr2_classifier = NLVR2Classifier(hs, c.norm_eps, c.dtype)
+        if "irtr" in names:
+            self.rank_output = RankHead(hs, c.dtype)
 
     # ------------------------------------------------------------------ infer
 
     def infer(self, batch: dict, infer_mode: str = "img-txt",
               mask_txt: bool = False, mask_img: bool = False,
+              image_token_type_idx: int = 1,
               rng: StepRng | None = None) -> dict:
         """`exploremultimodal_tpu.models.task.VlmoTask.infer`: 'img_only',
         'txt_only' or 'img-txt', with the MLM text (`mask_txt`) or the
-        masked image patches (`mask_img`). `rng` None is deterministic."""
+        masked image patches (`mask_img`). The image is
+        `batch['image_<idx - 1>']` where the batch has it (NLVR2's pair),
+        else `batch['image']`, at token type `image_token_type_idx`. `rng`
+        None is deterministic."""
         if infer_mode not in ("img_only", "txt_only", "img-txt"):
             raise ValueError(f"infer_mode {infer_mode!r}")
         img = bool_masked_pos = None
         txt_ids = txt_labels = txt_mask = None
         if "img" in infer_mode:
-            img = batch["image"]
+            key = f"image_{image_token_type_idx - 1}"
+            img = batch[key if key in batch else "image"]
             if mask_img:
                 bool_masked_pos = batch["image_bool_masked_pos"]
         if "txt" in infer_mode:
@@ -99,7 +115,8 @@ class VlmoTask(nn.Module):
             txt_mask = batch["text_mask"]
         co_feats, co_masks = self.transformer.forward_features(
             img=img, txt=txt_ids, txt_mask=txt_mask,
-            bool_masked_pos=bool_masked_pos, rng=rng)
+            bool_masked_pos=bool_masked_pos, rng=rng,
+            img_token_type_idx=image_token_type_idx)
         if txt_ids is not None:
             txt_feats = co_feats[:, : self.config.max_text_len]
             img_feats = co_feats[:, self.config.max_text_len:]
@@ -129,6 +146,29 @@ class VlmoTask(nn.Module):
     def mlm_logits(self, txt_feats: torch.Tensor) -> torch.Tensor:
         h = self.mlm_head(txt_feats)
         return self.transformer.attend_vocab(h) + self.mlm_head.bias
+
+    def itc_project(self, feats: torch.Tensor, route: str) -> torch.Tensor:
+        return self.itc_head(feats, route)
+
+    def mae_logits(self, patch_feats: torch.Tensor) -> torch.Tensor:
+        return self.mae_head(patch_feats)
+
+    def nlvr2_logits(self, cls_feats: torch.Tensor) -> torch.Tensor:
+        """Logits over (False, True) from the two images' concatenated CLS
+        features (B, 2 hs)."""
+        return self.nlvr2_classifier(cls_feats)
+
+    def rank_logits(self, cls_feats: torch.Tensor) -> torch.Tensor:
+        return self.rank_output(cls_feats)
+
+    def stream_below_fusion(self, img=None, txt=None, txt_mask=None,
+                            rng: StepRng | None = None) -> torch.Tensor:
+        return self.transformer.stream_below_fusion(img=img, txt=txt,
+                                                    txt_mask=txt_mask, rng=rng)
+
+    def continue_single_stream(self, x, mask, route: str,
+                               rng: StepRng | None = None) -> torch.Tensor:
+        return self.transformer.continue_single_stream(x, mask, route, rng=rng)
 
     def backbone_interval_img(self, img, bool_masked_pos,
                               rng: StepRng | None = None):
@@ -167,6 +207,12 @@ class VlmoTask(nn.Module):
         if "vqa" in names:
             ret.update(obj.compute_vqa(self, batch, rng, isda_state=isda_state,
                                        isda_ratio=isda_ratio))
+        if "nlvr2" in names:
+            ret.update(obj.compute_nlvr2(self, batch, rng))
+        if "irtr" in names:
+            ret.update(obj.compute_irtr(self, batch, rng))
+        if "mae" in names:
+            ret.update(obj.compute_mae(self, batch, rng))
         return ret
 
     @torch.no_grad()
@@ -221,6 +267,23 @@ def total_loss(outputs: dict, flat: bool = False) -> torch.Tensor:
     if total is None:
         raise ValueError("no *_task_loss in the outputs")
     return total
+
+
+def adjust_downstream_params(state_dict: dict, loss_names) -> dict:
+    """Downstream warm start, as JAX's `adjust_downstream_params`: with
+    `irtr` among the losses and both heads in `state_dict`, the rank head
+    takes the ITM head's 'match' row. Returns a new state dict. (NLVR2's
+    token-type table is not touched here: the importer loads a table only
+    at its own shape, so a pretrained 2-row table leaves the 3-row one at
+    its init, as in JAX.)"""
+    keys = ("itm_head.fc.weight", "itm_head.fc.bias", "rank_output.fc.weight",
+            "rank_output.fc.bias")
+    if "irtr" not in loss_names or not all(k in state_dict for k in keys):
+        return state_dict
+    out = dict(state_dict)
+    out["rank_output.fc.weight"] = state_dict["itm_head.fc.weight"][1:2].clone()
+    out["rank_output.fc.bias"] = state_dict["itm_head.fc.bias"][1:2].clone()
+    return out
 
 
 def build_model(cfg: dict, device: str | torch.device = "cuda",

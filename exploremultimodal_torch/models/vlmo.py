@@ -206,13 +206,16 @@ class Pooler(nn.Module):
 
 def expert_layout(depth: int, fusion_layer: int,
                   phase: str | None) -> tuple[tuple[str, ...], ...]:
-    """Which FFN experts exist in each block for a train phase."""
+    """Which FFN experts exist in each block for a train phase: those of
+    JAX's parameter tree. pretrain_txt has no fused expert; every other
+    phase has it above the fusion layer only. (JAX's `expert_layout` lists
+    all three routes in every block for the phases beyond pretrain_txt,
+    pretrain_mum and finetune_vqa, but flax makes a parameter only where the
+    forwards of `VLMO.init_streams` reach it, and route 'vl' runs only
+    above the fusion layer.)"""
     if phase in ("pretrain_txt",):
         return tuple(("v", "l") for _ in range(depth))
-    if phase in ("pretrain_mum", "finetune_vqa"):
-        return tuple(("v", "l") if i < fusion_layer else ROUTES
-                     for i in range(depth))
-    return tuple(ROUTES for _ in range(depth))
+    return tuple(("v", "l") if i < fusion_layer else ROUTES for i in range(depth))
 
 
 class VLMO(nn.Module):
@@ -223,7 +226,8 @@ class VLMO(nn.Module):
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  norm_eps: float = 1e-12, init_values: float | None = None,
                  vocab_size: int = 30522, max_text_len: int = 40,
-                 fusion_layer: int = 6, experts_per_block=None, dtype: torch.dtype = torch.float32,
+                 fusion_layer: int = 6, num_token_types: int = 2,
+                 experts_per_block=None, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla",
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
                  drop_path_rate: float = 0.0, quantize: str = "none"):
@@ -241,7 +245,8 @@ class VLMO(nn.Module):
         self.pos_embed = nn.Parameter(torch.zeros(1, self.num_patches + 1, embed_dim))
         self.img_cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.img_mask_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
-        self.token_type_embeddings = nn.Embedding(2, embed_dim)
+        # 3 rows for NLVR2: its second image takes token type 2
+        self.token_type_embeddings = nn.Embedding(num_token_types, embed_dim)
         self.txt_embeddings = BertTextEmbeddings(vocab_size, embed_dim,
                                                  max_text_len, norm_eps, dtype,
                                                  drop_rate)
@@ -258,10 +263,12 @@ class VLMO(nn.Module):
     # ------------------------------------------------------------------ embed
 
     def embed_img(self, img: torch.Tensor, bool_masked_pos=None,
-                  rng: StepRng | None = None) -> torch.Tensor:
-        """img: (B, H, W, C) NHWC -> (B, 1 + num_patches, D), token type 1.
-        Patches where `bool_masked_pos` (B, num_patches) is set become
-        `img_mask_token` (the masked-image objectives)."""
+                  rng: StepRng | None = None,
+                  img_token_type_idx: int = 1) -> torch.Tensor:
+        """img: (B, H, W, C) NHWC -> (B, 1 + num_patches, D), token type
+        `img_token_type_idx` (1; NLVR2's second image 2). Patches where
+        `bool_masked_pos` (B, num_patches) is set become `img_mask_token`
+        (the masked-image objectives)."""
         dt, pe = self.dtype, self.patch_embed
         x = F.conv2d(img.to(dt).permute(0, 3, 1, 2), pe.weight.to(dt),
                      pe.bias.to(dt), stride=self.patch_size)
@@ -272,7 +279,7 @@ class VLMO(nn.Module):
         cls = self.img_cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         x = fast_dropout(x, self.drop_rate, rng)
-        return x + self.token_type_embeddings.weight[1].to(x.dtype)
+        return x + self.token_type_embeddings.weight[img_token_type_idx].to(x.dtype)
 
     def embed_txt(self, ids: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
         x = self.txt_embeddings(ids, rng)
@@ -292,12 +299,14 @@ class VLMO(nn.Module):
         return torch.ones(x.shape[:2], dtype=torch.int32, device=x.device)
 
     def forward_features(self, img=None, txt=None, txt_mask=None,
-                         bool_masked_pos=None, rng: StepRng | None = None):
+                         bool_masked_pos=None, rng: StepRng | None = None,
+                         img_token_type_idx: int = 1):
         """img-only -> route 'v' through every block; txt-only -> route 'l';
         both -> separate streams below the fusion layer, then [txt, img]
-        concatenated on route 'vl'. Returns (features, mask)."""
+        concatenated on route 'vl'. The image takes token type
+        `img_token_type_idx`. Returns (features, mask)."""
         if txt is None:
-            x = self.embed_img(img, bool_masked_pos, rng)
+            x = self.embed_img(img, bool_masked_pos, rng, img_token_type_idx)
             mask = self._img_mask(x)
             x = self.run_blocks(x, mask, "v", rng=rng)
             return self.norm(x).to(self.dtype), mask
@@ -307,7 +316,7 @@ class VLMO(nn.Module):
 
         # the two streams block by block, in JAX's order, so the random
         # draws come in the same order as JAX's
-        img_x = self.embed_img(img, bool_masked_pos, rng)
+        img_x = self.embed_img(img, bool_masked_pos, rng, img_token_type_idx)
         txt_x = self.embed_txt(txt, rng)
         img_bias = key_padding_bias(self._img_mask(img_x))
         txt_bias = key_padding_bias(txt_mask)

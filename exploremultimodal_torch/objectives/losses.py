@@ -1,10 +1,11 @@
-"""The pretrain_mum and finetune_vqa objectives as fixed-shape functions.
+"""The pretraining and downstream objectives as fixed-shape functions.
 
 Counterpart of `exploremultimodal_tpu/objectives/losses.py`: `_gather_cap`,
 `masked_cross_entropy`, `gather_masked_positions`, `compute_mlm`, the
 in-batch (naive) branch of `compute_itc`, `itm_sample_pairs`,
 `itm_loss_from_co`, `compute_itm`, `compute_mim`, `_bce_with_logits`,
-`compute_vqa_score` and `compute_vqa` (with ISDA and R-Drop). Each `compute_*` takes
+`compute_vqa_score`, `compute_vqa` (with ISDA and R-Drop),
+`compute_nlvr2`, `patchify`, `compute_mae` and `compute_irtr`. Each `compute_*` takes
 the task module, the model batch and the step's `StepRng` (None:
 deterministic) and returns `<name>_task_loss` plus metrics. ITC runs first;
 its below-fusion hidden states (`itc_h_img`, `itc_h_txt`) feed MLM's fused
@@ -290,3 +291,74 @@ def compute_vqa(task, batch: dict, rng: StepRng | None = None,
         ret["vqa_task_loss"] = (vqa_loss + loss2) / 2.0
         ret["vqa_kl_task_loss"] = (kl + r_kl) / 4.0 * task.config.kl_alpha
     return ret
+
+
+# ------------------------------------------------------------------ NLVR2
+
+
+def compute_nlvr2(task, batch: dict, rng: StepRng | None = None) -> dict:
+    """NLVR2: the statement fused with each image of the pair (token types 1
+    and 2), the two CLS features concatenated, a 2-way CE on `answers`."""
+    cls = [task.infer(batch, "img-txt", image_token_type_idx=i, rng=rng)["cls_feats"]
+           for i in (1, 2)]
+    logits = task.nlvr2_logits(torch.cat(cls, dim=-1))
+    labels = batch["answers"].long()
+    loss, acc, count = masked_cross_entropy(logits, labels,
+                                            torch.ones_like(labels, dtype=torch.bool))
+    return {"nlvr2_task_loss": loss, "nlvr2_logits": logits,
+            "nlvr2_mean_acc": acc, "nlvr2_count": count}
+
+
+# ------------------------------------------------------------------- MAE
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B, num_patches, patch_size^2 * C), patches in the
+    patch embedding's row-major order."""
+    b, h, w, c = images.shape
+    gh, gw = h // patch_size, w // patch_size
+    x = images.reshape(b, gh, patch_size, gw, patch_size, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, gh * gw, patch_size * patch_size * c)
+
+
+def compute_mae(task, batch: dict, rng: StepRng | None = None) -> dict:
+    """Masked pixel regression: the masked image stream's patch features
+    decoded to pixels, against each patch's pixels normalised by their own
+    mean and variance; the MSE over the masked patches."""
+    img_feats = task.infer(batch, "img_only", mask_img=True, rng=rng)["img_feats"]
+    pred = task.mae_logits(img_feats[:, 1:])
+    targets = patchify(batch["image"].float(), task.config.patch_size)
+    mean = targets.mean(dim=-1, keepdim=True)
+    var = targets.var(dim=-1, keepdim=True, correction=0)
+    targets = (targets - mean) / torch.sqrt(var + 1e-6)
+    mask = batch["image_bool_masked_pos"].float()
+    per_patch = ((pred.float() - targets) ** 2).mean(dim=-1)
+    count = mask.sum()
+    return {"mae_task_loss": (per_patch * mask).sum() / count.clamp_min(1.0),
+            "mae_count": count}
+
+
+# ------------------------------------------------------------------ IRTR
+
+
+def compute_irtr(task, batch: dict, rng: StepRng | None = None) -> dict:
+    """Text retrieval ranking: each image fused with its caption and its F
+    drawn false captions (B (F + 1) rows, the image repeated), the rank
+    head's scores, a CE with the true caption at index 0."""
+    img = batch["image"]
+    false_ids, false_mask = batch["false_text_ids"], batch["false_text_mask"]
+    b, f, length = false_ids.shape
+    ids = torch.cat([batch["text_ids"][:, None], false_ids], dim=1)
+    mask = torch.cat([batch["text_mask"][:, None], false_mask], dim=1)
+    flat = {
+        "image": img[:, None].expand(b, f + 1, *img.shape[1:]).reshape(
+            b * (f + 1), *img.shape[1:]),
+        "text_ids": ids.reshape(b * (f + 1), length),
+        "text_mask": mask.reshape(b * (f + 1), length),
+    }
+    cls = task.infer(flat, "img-txt", rng=rng)["cls_feats"]
+    score = task.rank_logits(cls)[:, 0].reshape(b, f + 1)
+    labels = torch.zeros(b, dtype=torch.long, device=score.device)
+    loss, acc, count = masked_cross_entropy(score, labels,
+                                            torch.ones_like(labels, dtype=torch.bool))
+    return {"irtr_task_loss": loss, "irtr_mean_acc": acc, "irtr_count": count}

@@ -1,5 +1,6 @@
-"""The trainer of the pretrain_mum, finetune_vqa and pretrain_txt phases on
-one GPU: the step, the epochs around it with evaluation, checkpoints and
+"""The trainer of the pretrain_mum, pretrain_txt, pretrain_vis (MIM or
+MAE), finetune_vqa, finetune_nlvr2 and finetune_retrieval phases on one
+GPU: the step, the epochs around it with evaluation, checkpoints and
 auto-resume, and throughput mode.
 
 Counterpart of `exploremultimodal_tpu/train/trainer.py` for
@@ -80,7 +81,8 @@ def _refuse_unported(cfg: dict) -> None:
     t = cfg["train"]
     names = set(t["loss_names"])
     unported = {
-        "loss_names beyond mlm/itc/itm/mim/vqa": not names <= set(TRAINED_OBJECTIVES),
+        f"loss_names beyond {'/'.join(TRAINED_OBJECTIVES)}":
+            not names <= set(TRAINED_OBJECTIVES),
         "vlmo_ema (momentum ITC)": bool(cfg.get("vlmo_ema")),
         "model_ema": bool(cfg.get("model_ema")),
         "neg_queue": bool(t.get("neg_queue")),
@@ -331,25 +333,31 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: dict[str, Any], generator: torch.Generator):
         """A deterministic forward of `batch` (no dropout, no ISDA), as JAX's
-        eval step: (metrics, counts), 0-d device tensors, the counts those
-        of the `*_count` outputs. ITM draws its negatives on `generator`."""
+        eval step: (metrics, counts, extra), 0-d device tensors, the counts
+        those of the `*_count` outputs, `extra` the VQA and NLVR2 logits
+        where the losses give them. ITM draws its negatives on `generator`."""
         outputs = self.task(self.model_batch(batch), generator=generator)
         metrics = _metrics_from_outputs(outputs)
         metrics["total_loss"] = total_loss(outputs)
         counts = {k: v for k, v in outputs.items() if k.endswith("_count")
                   and isinstance(v, torch.Tensor) and v.ndim == 0}
-        return metrics, counts
+        extra = {k: outputs[k] for k in ("vqa_logits", "nlvr2_logits") if k in outputs}
+        return metrics, counts, extra
 
     def evaluate(self, loader: Loader | None = None) -> dict[str, float]:
         """Count-weighted means of the eval step's metrics over `loader`
         (the val split by default): a `*_mean_acc` or `*_mean_score` weighs
         each batch by its `*_count` (and raises KeyError without one), every
-        other metric by 1. The device values are read once, at the end."""
+        other metric by 1. Where a batch carries NLVR2's `table_name`s, the
+        accuracy of the rows whose table is a `dev` or a `test` one, as
+        `nlvr2_dev_acc` / `nlvr2_test_acc`, weighed by those rows. The
+        device values are read once, at the end (the NLVR2 logits of such a
+        batch when it is evaluated)."""
         loader = self.val_loader if loader is None else loader
         generator = torch.Generator(device=self.device).manual_seed(0)
-        terms: list[tuple[str, torch.Tensor, Any]] = []
+        terms: list[tuple[str, torch.Tensor | float, Any]] = []
         for batch in loader.epoch(0):
-            metrics, counts = self.eval_step(batch, generator)
+            metrics, counts, extra = self.eval_step(batch, generator)
             for k, v in metrics.items():
                 count_key = k.replace("_mean_acc", "_count").replace("_mean_score", "_count")
                 if count_key != k and count_key not in counts:
@@ -357,6 +365,16 @@ class Trainer:
                         f"eval metric '{k}' has no matching '{count_key}' in counts "
                         f"{sorted(counts)}; emit it from the objective")
                 terms.append((k, v, counts.get(count_key, 1.0)))
+            tables = batch.get("table_name")
+            if "nlvr2_logits" in extra and isinstance(tables, list):
+                preds = extra["nlvr2_logits"].argmax(-1).cpu().numpy()
+                answers = np.asarray(batch["answers"])
+                for bucket in ("dev", "test"):
+                    sel = np.array([bucket in t for t in tables], bool)
+                    if sel.any():
+                        terms.append((f"nlvr2_{bucket}_acc",
+                                      float((preds[sel] == answers[sel]).mean()),
+                                      float(sel.sum())))
         values = read_floats([v for _, v, _ in terms] + [w for _, _, w in terms])
         sums: dict[str, float] = {}
         weights: dict[str, float] = {}

@@ -6,6 +6,10 @@
     python3 scripts/torch_profile_train.py vqa         # finetune_vqa
     python3 scripts/torch_profile_train.py vqa_w8a8    # finetune_vqa, int8 MLP
     python3 scripts/torch_profile_train.py txt         # pretrain_txt, 512 tokens
+    python3 scripts/torch_profile_train.py vis         # pretrain_vis (MIM), fused MLP
+    python3 scripts/torch_profile_train.py vis_mae     # pretrain_vis with MAE
+    python3 scripts/torch_profile_train.py nlvr2       # finetune_nlvr2
+    python3 scripts/torch_profile_train.py retrieval   # finetune_retrieval (ITC + IRTR)
 
 Builds a training configuration of `chip_smoke.py`: with no argument its
 pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
@@ -15,7 +19,11 @@ without dropout, rows 1 and 2); with `vqa` its finetune_vqa
 step (the same with mlp_impl=fused, no dVAE); with `vqa_w8a8` that step
 under model.quantize=w8a8_pallas_mlp; with `txt` its pretrain_txt step
 (text-only MLM at 512 tokens, batch 32, attention dropout 0.1: rows 3 and
-4 at BH = 384, N = 512). Takes two warm-up steps,
+4 at BH = 384, N = 512); with `vis`, `vis_mae`, `nlvr2` and `retrieval` its
+downstream steps at batch 32 (pretrain_vis with mlp_impl=fused, MIM or
+MAE: rows 3, 4 and 7 on 12 image blocks; finetune_nlvr2 and
+finetune_retrieval at their defaults: rows 3 and 4 on 36 and 42 attention
+calls). Takes two warm-up steps,
 times UNTRACED steps on the host clock with a synchronise around each, then
 traces STEPS steps with torch.profiler.
 Prints, as one JSON line: the untraced and traced wall time per step; the
@@ -41,8 +49,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from chip_smoke import (  # noqa: E402
+    NLVR2_OVERRIDES,
+    RETRIEVAL_OVERRIDES,
     TRAIN_OVERRIDES,
     TXT_OVERRIDES,
+    VIS_OVERRIDES,
     VQA_OVERRIDES,
     W8A8_VQA_OVERRIDES,
     card_line,
@@ -83,9 +94,14 @@ def main(argv: list[str]) -> int:
              ("drop0",): TRAIN_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"],
              ("vqa",): VQA_OVERRIDES,
              ("vqa_w8a8",): W8A8_VQA_OVERRIDES,
-             ("txt",): TXT_OVERRIDES}
+             ("txt",): TXT_OVERRIDES,
+             ("vis",): VIS_OVERRIDES,
+             ("vis_mae",): VIS_OVERRIDES + ["train.loss_names=[mae]"],
+             ("nlvr2",): NLVR2_OVERRIDES,
+             ("retrieval",): RETRIEVAL_OVERRIDES}
     if tuple(argv) not in cells:
-        print("usage: torch_profile_train.py [drop0 | vqa | vqa_w8a8 | txt]", file=sys.stderr)
+        print("usage: torch_profile_train.py [drop0 | vqa | vqa_w8a8 | txt | vis | vis_mae | "
+              "nlvr2 | retrieval]", file=sys.stderr)
         return 2
     card = card_line()
     overrides = cells[tuple(argv)]

@@ -70,3 +70,34 @@ def test_itc_temp_closed_form_is_the_autograd_gradient(base):
     want = chip_smoke.itc_temp_closed_form(feats, log_temp)
     got = float(trainer.task.itc_temp.grad)
     assert want != 0.0 and abs(got - want) <= 1e-2 * abs(want)
+
+
+RETRIEVAL = [o for o in OVERRIDES if not o.startswith("train=")] + ["train=finetune_retrieval"]
+RETRIEVAL_NAMES = ("transformer.patch_embed.weight", "transformer.blocks.0.attn.qkv.weight",
+                   "itc_head.dense_v.weight", "rank_output.fc.weight")
+
+
+@pytest.mark.parametrize("fed", [True, False])
+def test_compare_step_feeds_the_cpu_itc_feature_gradient(monkeypatch, fed):
+    """finetune_retrieval's check: with `itc_grad_from_cpu` the card's
+    backward takes the CPU's gradient at the ITC features, so a card whose
+    own gradient there is off (scaled by 3 here) still has its towers'
+    backward held, and that error is reported; without it the same card is
+    refused."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    trainer = Trainer(load_config(RETRIEVAL), device="cpu")
+    card, cpu = copy.deepcopy(trainer), copy.deepcopy(trainer)
+    batch = trainer.next_batch()
+
+    def off_by_3(mod, args, out):
+        out.register_hook(lambda g: g * 3.0)
+
+    card.task.itc_head.register_forward_hook(off_by_3)
+    if fed:
+        result = chip_smoke.compare_step("t", card, cpu, batch, RETRIEVAL_NAMES,
+                                         itc_grad_from_cpu=True)
+        assert max(result["grad_rel_err"].values()) == 0.0
+        assert result["own_feature_grad_rel_err"] == pytest.approx({"v": 2.0, "l": 2.0}, rel=1e-2)
+    else:
+        with pytest.raises(RuntimeError, match="gradients differ"):
+            chip_smoke.compare_step("t", card, cpu, batch, RETRIEVAL_NAMES)
