@@ -8,6 +8,11 @@
     python3 chip_smoke.py --downstream
                                  # the build, rows 2-4 at IRTR's shape and its
                                  # dropout mask, phases 21 and 22 alone
+    python3 chip_smoke.py --momentum
+                                 # the build, rows 1, 3 and 4 at the shapes
+                                 # phase 23 alone gives them and the dropout
+                                 # mask at its microbatches' rows, phase 6's
+                                 # timed step and phase 23 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -20,7 +25,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      the card, then time the kernel, the plain version and a library call
      computing the same function (row 1 also at batch 8 at N = 100, 150
      and 256, the short sm90 kernel's other key widths, and past 256 keys
-     on the streamed kernel at N = 333, 512 and 577 (384^2 images) and at
+     on the streamed kernel at N = 333, 512 and 577 (384^2 images), at the
+     momentum encoder's text and image streams at batch 32 (phase 23) and at
      batch 32 at N = 512, with route, grid and tiles; the MLP also at the
      1024^2 request's M, at M = 64 and at two ragged M, with its cluster
      size and hidden splits);
@@ -31,14 +37,17 @@ Phases, in order; any failure raises and the script exits non-zero:
   5. at each shape the pretrain_mum step gives the training kernels (the
      flash backward, the dropout forward and the dropout backward: rows 2,
      3 and 4, all three on the sm90 kernels there), at finetune_retrieval's
-     IRTR rows (BH = 1,536, N = 237), and off the path at
+     IRTR rows (BH = 1,536, N = 237), at the microbatches of
+     accumulation_steps=2 (phase 23: the streams at BH = 192 and ITM's pair
+     rows at BH = 576), and off the path at
      batch 8 at N = 256, 333 (ragged) and 512 and at batch 32 at N = 333
      and 512 (pretrain_txt's length; the backward's sm90 kernels up to 512
      keys, in work units of a head's tile groups where heads are fewer than
      SMs; the dropout forward's streamed kernel past 256), hold each against
      its plain version, with its route, key width and grid, check the
      in-kernel dropout mask bit for bit (through the short sm90 forward and
-     the backward at ITM's and at IRTR's shape, and through the streamed
+     the backward at ITM's, at IRTR's and at the microbatches' shapes
+     (BH = 192 and 576, N = 237), and through the streamed
      forward and the backward at N = 512), and time kernel, plain version
      and SDPA (the backward rows against SDPA's backward alone, and its
      forward and backward);
@@ -134,7 +143,30 @@ Phases, in order; any failure raises and the script exits non-zero:
      pretrain_mum's heads, nlvr2 on finetune_nlvr2's; rows 1 and 6 on every
      attention and FFN call (12, 12, 18 and 36 a request), 4 rows of each
      against the CPU's plain path, the requests timed;
- 23. print the kernel table as one JSON line, the card line, and last
+ 23. pretrain_mum's full recipe at vlmo_base, batch 32 (vlmo_ema,
+     train.neg_queue with 65,536 columns of itc_dim 256, model_ema;
+     attn_impl=auto, attention dropout 0.1): one warm-up step (one leaf of
+     each EMA tree set to 0 before it must then hold p (1 - decay) at its
+     own decay; the queues' written columns unit-norm) and TRAIN_STEPS
+     timed steps with every launch counted (rows 3 and 4 54 times a step,
+     row 1 never: the momentum encoder's deterministic forward takes the
+     plain chain under auto), the pointer 32 on each step, i2i, t2t, i2i_l
+     and t2t_l finite, the median step beside phase 6's; ALTERNATED_PAIRS
+     steps of the recipe and of plain pretrain_mum taken in turn in one
+     process, the added time of each pair; `evaluate` on 2
+     val batches equal to an evaluation of a task holding the eval EMA's
+     tree; two steps at attn_impl=pallas (row 1 24 times a step on the
+     momentum encoder); two at accumulation_steps=2 (rows 3 and 4 108
+     times a step, at BH = 192); one batch-4 step at accumulation_steps=2
+     against the CPU's plain path (compared as in phase 8, itc_temp at each
+     device's own features through the momentum losses; the queues' new
+     columns each device's own momentum features, within
+     MOMENTUM_FEATURE_TOL across the two, as the momentum features of trees
+     drawn from four more seeds, with the control (the tree's weights
+     rounded to float8 e4m3) above it; one leaf of each tree, set to 0 before
+     the step, within MOMENTUM_LEAF_TOL across the two, with the control
+     (the other tree's decay) above it);
+ 24. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -226,6 +258,9 @@ from exploremultimodal_torch.ops.quant_fused import (
 )
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 from exploremultimodal_torch.main import setup
+from exploremultimodal_torch.data.datasets import build_dataset
+from exploremultimodal_torch.data.pipeline import Loader
+from exploremultimodal_torch.objectives.losses import itc_losses
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.phases import dispatch
 from exploremultimodal_torch.train.retrieval import encode_split, recall_at_k
@@ -477,6 +512,35 @@ RECALL_SAMPLES, RECALL_BATCH = 16, 8
 # the endpoints at batch 64 under attn_impl=pallas, mlp_impl=fused: rows 1 and
 # 6 on every attention and FFN call; encode_*, similarity and itm_score on
 # pretrain_mum's heads, nlvr2 on finetune_nlvr2's
+# pretrain_mum's full recipe (phase 23): the momentum encoder with the
+# negative queues (the default 65,536 columns of itc_dim 256) and the local
+# g2l ITC, and the eval EMA, at phase 6's settings
+MOMENTUM_OVERRIDES = TRAIN_OVERRIDES + ["vlmo_ema=true", "train.neg_queue=true",
+                                        "model_ema=true"]
+MOMENTUM_LOSSES = ("i2i_Loss", "t2t_Loss", "i2i_l_Loss", "t2t_l_Loss")
+MOMENTUM_LEAF = "transformer.blocks.0.attn.qkv.weight"
+MOMENTUM_EVAL_BATCHES = 2
+ALTERNATED_PAIRS = 12  # recipe and plain pretrain_mum steps in turn
+MOMENTUM_CPU_BATCH = 4  # two microbatches of 2 at accumulation_steps=2
+# the streams whose shapes phase 23 alone gives rows 1 (the momentum
+# encoder under attn_impl=pallas) and 3 and 4 (accumulation_steps=2)
+MOMENTUM_STREAMS = ("momentum_text", "momentum_image")
+ACCUM_STREAMS = ("accum_text", "accum_image", "accum_fused", "accum_itm")
+# after the step compared with the CPU, in relative L2 norm: the queues' new
+# columns, each device's own momentum features bit for bit, held against
+# each other within MOMENTUM_FEATURE_TOL, as are the momentum features of
+# the trees drawn from MOMENTUM_GAP_SEEDS on new batches; the card's
+# features from the tree's weights rounded to float8 e4m3 (the control)
+# must read above it. On an H100 the gaps read 1.10-1.16% (image) and
+# 0.29-0.40% (text) on all five, the e4m3 control 6.3-7.4% and 3.6-3.7%:
+# the limit sits between. MOMENTUM_CPU_LEAF, set to 0 in both trees before
+# the step, then holds p (1 - decay), held across the devices within
+# MOMENTUM_LEAF_TOL (read 0; AdamW's first step, lr * sign(g), can leave
+# at most 2 lr an element between them, under 5e-5 of this leaf), and the
+# other tree's decay (0.98 and 49 apart) must read above it
+MOMENTUM_GAP_SEEDS = (1, 2, 3, 4)
+MOMENTUM_CPU_LEAF = "itm_head.fc.weight"  # not read by the momentum forward
+MOMENTUM_FEATURE_TOL, MOMENTUM_LEAF_TOL = 2e-2, 1e-4
 ENDPOINT_OVERRIDES = ["model=vlmo_base", "compute_dtype=bfloat16", "attn_impl=pallas",
                       "model.mlp_impl=fused"]
 
@@ -573,24 +637,33 @@ def padded_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray
     return (np.arange(length)[None, :] < lens[:, None]).astype(np.int32)
 
 
-def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev) -> list[dict]:
+def check_attention(cfg: VlmoConfig, rng: np.random.Generator, dev,
+                    only: tuple[str, ...] | None = None) -> list[dict]:
     """Row 1 against its plain version: off the path at the (batch, N) of
     ATTN_OFF_PATH (N = 100, 150 and 256 take the short sm90 kernel's other
     key widths; N = 333, 512 and 577, 384^2 images, the streamed kernel past
-    SM90_FWD_MAX_N), then at the serving streams of batch 64 and at
-    pretrain_txt's 512 tokens at batch 32 (its path at attention dropout 0,
-    the streamed kernel), each timed beside its plain version and SDPA."""
+    SM90_FWD_MAX_N), then at the serving streams of batch 64, at the
+    momentum encoder's text and image streams of pretrain_mum's batch 32
+    (phase 23 under attn_impl=pallas) and at pretrain_txt's 512 tokens at
+    batch 32 (its path at attention dropout 0, the streamed kernel), each
+    timed beside its plain version and SDPA; with `only`, those streams
+    alone."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
     txt = text_mask(rng, BATCH, cfg.max_text_len)
     masks = {f"off_path_b{b}_n{n}": padded_mask(rng, b, n) for b, n in ATTN_OFF_PATH}
+    txt512 = synthetic_text_mask(rng, TXT_BATCH, TXT_LEN)
     masks.update({
         "text": txt,
         "image": np.ones((BATCH, n_img), np.int32),
         "fused": np.concatenate([txt, np.ones((BATCH, n_img), np.int32)], 1),
-        "txt": synthetic_text_mask(rng, TXT_BATCH, TXT_LEN),
+        "momentum_text": synthetic_text_mask(rng, TRAIN_BATCH, cfg.max_text_len),
+        "momentum_image": np.ones((TRAIN_BATCH, n_img), np.int32),
+        "txt": txt512,
     })
+    if only is not None:
+        masks = {k: v for k, v in masks.items() if k in only}
     rows = []
     for stream, mask in masks.items():
         (batch, n), bh = mask.shape, mask.shape[0] * heads
@@ -1305,7 +1378,9 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev,
     (MLM) streams at B = 32 and ITM's fused pair rows at 3B, all on the
     short sm90 forward, then finetune_retrieval's IRTR rows (each image
     fused with its caption and 3 false ones: 4B = 128 rows, BH = 1,536, N =
-    237), and last pretrain_txt's 512 tokens at B = 32 (row 3 on the
+    237), the microbatches of pretrain_mum at accumulation_steps=2 (phase
+    23: the three streams at B/2, BH = 192, and ITM's pair rows at 3B/2, BH
+    = 576), and last pretrain_txt's 512 tokens at B = 32 (row 3 on the
     streamed forward); with `only`, those streams alone. Each
     kernel against its plain version on the same inputs, then
     the kernel, the plain version and SDPA timed: the forward rows against
@@ -1318,6 +1393,9 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev,
     txt = synthetic_text_mask(rng, TRAIN_BATCH, cfg.max_text_len)
     txt3 = np.concatenate([txt, txt, txt[rng.permutation(TRAIN_BATCH)]])
     masks = {f"off_path_b{b}_n{n}": padded_mask(rng, b, n) for b, n in TRAIN_OFF_PATH}
+    half = TRAIN_BATCH // 2  # a microbatch at accumulation_steps=2
+    mtxt = txt[:half]
+    mtxt3 = np.concatenate([mtxt, mtxt, np.roll(mtxt, 1, 0)])
     masks.update({
         "text": txt,
         "image": np.ones((TRAIN_BATCH, n_img), np.int32),
@@ -1325,6 +1403,10 @@ def check_attention_train(cfg: VlmoConfig, rng: np.random.Generator, dev,
         "itm": np.concatenate([txt3, np.ones((3 * TRAIN_BATCH, n_img), np.int32)], 1),
         "irtr": np.concatenate([irtr_text_mask(txt), np.ones(
             (IRTR_ROWS * TRAIN_BATCH, n_img), np.int32)], 1),
+        "accum_text": mtxt,
+        "accum_image": np.ones((half, n_img), np.int32),
+        "accum_fused": np.concatenate([mtxt, np.ones((half, n_img), np.int32)], 1),
+        "accum_itm": np.concatenate([mtxt3, np.ones((3 * half, n_img), np.int32)], 1),
         "txt": synthetic_text_mask(rng, TXT_BATCH, TXT_LEN),
     })
     if only is not None:
@@ -1526,6 +1608,10 @@ def require_launches(tag: str, launches: dict, expected: dict, runs: int) -> Non
                 f"expected {per_run} per run")
 
 
+# timed_phase's results by tag, for a later phase to print its own beside
+TIMED: dict[str, dict] = {}
+
+
 def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict, unmoved=()) -> dict:
     """A training step at vlmo_base, batch 32: one warm-up step, then
     TRAIN_STEPS steps timed one by one, each with a synchronise around it,
@@ -1558,6 +1644,7 @@ def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict, unmoved=()) -
         "max_param_change": moved, **({"fixed_param_change": stayed} if unmoved else {}),
     }
     print(f"{tag}: " + json.dumps(result), flush=True)
+    TIMED[tag] = result
     del trainer
     torch.cuda.empty_cache()
     return launches
@@ -1595,20 +1682,29 @@ def itc_temp_closed_form(feats: dict, log_temp: float) -> float:
 
 
 def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
-                 itc_grad_from_cpu: bool = False, unheld=(), **step_kw) -> dict:
+                 itc_grad_from_cpu: bool = False, unheld=(), itc_temp_grad=None,
+                 **step_kw) -> dict:
     """One step on each trainer from the same host batch; the losses, the
     named gradients (relative L2; itc_temp's against the CPU's rescaled to
     the card's ITC features, and those features) and the signs of the first
     AdamW update compared against LOSS_RTOL, GRAD_REL_TOL and
     UPDATE_AGREEMENT. With `itc_grad_from_cpu`, the card's backward takes
     the CPU's gradient at the ITC features (ITC_GRAD_NOTE); the card's own
-    is reported beside it. The `unheld` names are reported, not held."""
+    is reported beside it. The `unheld` names are reported, not held.
+    `itc_temp_grad(device, feats, log_temp)` gives itc_temp's gradient from
+    a device's own ITC features (`feats`: each route's features, one
+    tensor per forward; default: `itc_temp_closed_form` of the in-batch
+    ITC)."""
     before = {k: p.detach().clone() for k, p in cpu.task.named_parameters()
               if k in names}
     feats = {"gpu": {}, "cpu": {}}
     hooks = [t.task.itc_head.register_forward_hook(
-        lambda mod, args, out, f=feats[d]: f.__setitem__(args[1], out.detach().double().cpu()))
+        lambda mod, args, out, f=feats[d]: f.setdefault(args[1], []).append(
+            out.detach().double().cpu()))
         for d, t in (("gpu", gpu), ("cpu", cpu)) if "itc_temp" in names]
+    if itc_temp_grad is None:
+        def itc_temp_grad(device, f, log_temp):
+            return itc_temp_closed_form({r: torch.cat(v) for r, v in f.items()}, log_temp)
     feat_grads: dict = {"gpu": {}, "cpu": {}}
     if itc_grad_from_cpu:
         def keep(mod, args, out):
@@ -1643,11 +1739,11 @@ def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
         agree[k] = (torch.sign(step_cpu) == torch.sign(step_gpu)).float().mean().item()
     held, itc = {k: v for k, v in grads.items() if k not in unheld}, {}
     if "itc_temp" in names:
-        closed = {d: itc_temp_closed_form(f, float(before["itc_temp"]))
+        closed = {d: itc_temp_grad(d, f, float(before["itc_temp"]))
                   for d, f in feats.items()}
         g_gpu, g_cpu = float(p_gpu["itc_temp"].grad), float(p_cpu["itc_temp"].grad)
         want = g_cpu * closed["gpu"] / closed["cpu"]
-        f_gpu, f_cpu = (torch.cat([f["v"], f["l"]]) for f in (feats["gpu"], feats["cpu"]))
+        f_gpu, f_cpu = (torch.cat([*f["v"], *f["l"]]) for f in (feats["gpu"], feats["cpu"]))
         itc = {"grad_gpu_cpu": (g_gpu, g_cpu), "closed_form_gpu_cpu": (closed["gpu"],
                closed["cpu"]), "feature_rel_err": ((f_gpu - f_cpu).norm() / f_cpu.norm()).item()}
         held["itc_temp"] = itc["grad_rel_err_at_gpu_features"] = abs(g_gpu - want) / abs(want)
@@ -1655,7 +1751,7 @@ def compare_step(tag: str, gpu: Trainer, cpu: Trainer, batch: dict, names,
     own = {r: ((feat_grads["gpu"][r] - g).norm() / g.norm()).item()
            for r, g in feat_grads["cpu"].items()}
     result = {
-        "batch": CPU_TRAIN_BATCH, "cpu_step_s": cpu_s,
+        "batch": len(batch["text_ids"]), "cpu_step_s": cpu_s,
         "losses_gpu_cpu": losses, "grad_norm_gpu_cpu": (float(m_gpu["grad_norm"]),
                                                         float(m_cpu["grad_norm"])),
         "grad_rel_err": grads, "update_sign_agreement": agree, "lr": lr,
@@ -2096,6 +2192,314 @@ def downstream_serve_phase(card: str) -> dict:
     return out
 
 
+def momentum_itc_temp_grad(feats: dict, branch: dict, log_temp: float) -> float:
+    """d(loss)/d itc_temp of a momentum step in fp64 from a device's own
+    features: each microbatch's globals (`feats['v'][i]`, `feats['l'][i]`)
+    against the full batch's momentum features and the queue the step
+    contrasted them with (`branch`, `record_momentum_branch`), through
+    `itc_losses`, averaged over the microbatches as the step averages their
+    losses. ITC is the only loss that reads itc_temp (ITM's hard negatives
+    take its sims detached)."""
+    t = torch.tensor(log_temp, dtype=torch.float64, requires_grad=True)
+    mf = {k: v.double() if v.is_floating_point() else v for k, v in branch["feats"].items()}
+    queue = {k: v.double() for k, v in branch["queue"].items()}
+    size = len(feats["v"][0])
+    loss = sum(itc_losses(i, tx, t.exp(), None, mf, queue, k * size)["itc_task_loss"]
+               for k, (i, tx) in enumerate(zip(feats["v"], feats["l"]))) / len(feats["v"])
+    loss.backward()
+    return float(t.grad)
+
+
+def record_momentum_branch(trainer: Trainer, store: dict, key: str) -> None:
+    """Keep in `store[key]` a host copy of the momentum features and the
+    queues that each step of `trainer` contrasts against (before the step
+    writes the queues)."""
+    branch = trainer.momentum_branch
+
+    def recorded(mb):
+        feats, queue = branch(mb)
+        store[key] = {"feats": {k: v.detach().cpu().clone() for k, v in feats.items()},
+                      "queue": {k: v.detach().cpu().clone() for k, v in queue.items()}}
+        return feats, queue
+
+    trainer.momentum_branch = recorded
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def momentum_cpu_check() -> dict:
+    """One batch-MOMENTUM_CPU_BATCH step of the recipe at
+    accumulation_steps=2 on the card and on the CPU's plain path, from the
+    same weights, trees (copies of the same seeded init), queues (the
+    CPU's, copied to the card), batch, ITM negatives and MIM labels; hidden
+    dropout and DropPath off, attention dropout on through the hash.
+    Compared as phase 8 compares, itc_temp's gradient at each device's own
+    features through `momentum_itc_temp_grad`; then the queues' new
+    columns, equal on each device to its own momentum features, and
+    MOMENTUM_CPU_LEAF of both trees, across the devices, each beside the
+    control that must fail (`momentum_feature_gaps`)."""
+    cfg_dict = load_config(MOMENTUM_OVERRIDES + [
+        f"data.batch_size={MOMENTUM_CPU_BATCH}", "train.accumulation_steps=2",
+        "model.drop_rate=0.0", "model.drop_path_rate=0.0"])
+    gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
+    trainers = {"gpu": gpu, "cpu": cpu}
+    with torch.no_grad():
+        gpu.state.img_queue.copy_(cpu.state.img_queue)
+        gpu.state.txt_queue.copy_(cpu.state.txt_queue)
+        for tr in trainers.values():
+            for tree in (tr.state.ema_task, tr.state.model_ema_task):
+                tree.get_parameter(MOMENTUM_CPU_LEAF).zero_()
+    batch = cpu.next_batch()
+    labels = cpu.model_batch(batch)["mim_labels"]
+    mb = MOMENTUM_CPU_BATCH // 2
+    negatives = (torch.arange(1, mb + 1) % mb, torch.arange(mb - 1, 2 * mb - 1) % mb)
+    branches: dict = {}
+    for d, tr in trainers.items():
+        record_momentum_branch(tr, branches, d)
+    result = compare_step(
+        "momentum_cpu_check", gpu, cpu, batch, CHECKED_PARAMS, negatives=negatives,
+        mim_labels=labels,
+        itc_temp_grad=lambda d, f, lt: momentum_itc_temp_grad(f, branches[d], lt))
+    require(gpu.state.queue_ptr == cpu.state.queue_ptr == MOMENTUM_CPU_BATCH,
+            f"momentum_cpu_check: queue pointers {gpu.state.queue_ptr}, "
+            f"{cpu.state.queue_ptr}, expected {MOMENTUM_CPU_BATCH}")
+    cols = slice(0, MOMENTUM_CPU_BATCH)
+    written = {d: {k: getattr(tr.state, f"{k}_queue")[:, cols].cpu() for k in ("img", "txt")}
+               for d, tr in trainers.items()}
+    own = all(torch.equal(written[d][k], branches[d]["feats"][f"{k[0]}_feat_m"].float().T)
+              for d in written for k in ("img", "txt"))
+    step_gap = {f"{k}_queue": rel_l2(written["gpu"][k], written["cpu"][k])
+                for k in ("img", "txt")}
+    # each tree's leaf after the step: p (1 - its decay); the control is
+    # the other tree's decay on the CPU's parameters
+    p1 = cpu.task.get_parameter(MOMENTUM_CPU_LEAF).detach()
+    trees = {"vlmo_ema": ("ema_task", "model_ema_decay"),
+             "model_ema": ("model_ema_task", "ema_decay")}
+    leaf, leaf_control = {}, {}
+    for name, (attr, other) in trees.items():
+        got = getattr(gpu.state, attr).get_parameter(MOMENTUM_CPU_LEAF)
+        leaf[name] = rel_l2(got, getattr(cpu.state, attr).get_parameter(MOMENTUM_CPU_LEAF))
+        leaf_control[name] = rel_l2(got, p1 * (1.0 - getattr(cpu.state, other)))
+    gaps = momentum_feature_gaps(gpu, cpu, labels)
+    gaps["step"] = {"gap": step_gap}
+    worst = max(max(g["gap"].values()) for g in gaps.values())
+    least_control = {c: min(min(g[c].values()) for k, g in gaps.items() if k != "step")
+                     for c in ("dropout", "e4m3_weights")}
+    print("momentum_cpu_check: " + json.dumps({
+        "feature_gaps": gaps, "max_feature_gap": worst,
+        "min_control": least_control, "feature_tol": MOMENTUM_FEATURE_TOL,
+        "ema_leaf_rel_err": leaf, "ema_leaf_control": leaf_control,
+        "leaf_tol": MOMENTUM_LEAF_TOL, "queue_holds_own_features": own}), flush=True)
+    require(own and worst <= MOMENTUM_FEATURE_TOL < least_control["e4m3_weights"],
+            f"momentum_cpu_check: queue columns (own features: {own}) or momentum "
+            f"features differ by {worst}, or the e4m3 control reads "
+            f"{least_control['e4m3_weights']}, within {MOMENTUM_FEATURE_TOL}")
+    require(max(leaf.values()) <= MOMENTUM_LEAF_TOL < min(leaf_control.values()),
+            f"momentum_cpu_check: the EMA leaves differ by {leaf}, or the other "
+            f"decay's control reads {leaf_control}, within {MOMENTUM_LEAF_TOL}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return result
+
+
+def momentum_feature_gaps(gpu: Trainer, cpu: Trainer, labels: torch.Tensor) -> dict:
+    """For each seed of MOMENTUM_GAP_SEEDS, the momentum tree drawn anew
+    from it on the CPU and copied to the card, and the CPU trainer's next
+    batch: the relative L2 gap of the queue's features (`i_feat_m`,
+    `t_feat_m`) between the two devices, and that of the card's features
+    under two faults (the controls): the momentum forward's attention
+    dropout on (`dropout`), and the tree's weights rounded to float8 e4m3
+    with a scale for each tensor (`e4m3_weights`)."""
+    out = {}
+    tree = gpu.state.ema_task
+    for seed in MOMENTUM_GAP_SEEDS:
+        cpu.state.ema_task.init_weights(torch.Generator().manual_seed(seed))
+        tree.load_state_dict(cpu.state.ema_task.state_dict())
+        batch = cpu.next_batch()
+        mbs = {"gpu": gpu.model_batch(batch, labels), "cpu": cpu.model_batch(batch, labels)}
+        feats = {}
+        with torch.no_grad():
+            for d, tr in (("gpu", gpu), ("cpu", cpu)):
+                feats[d] = tr.state.ema_task.itc_momentum_feats(mbs[d])
+            rng, infer = gpu.state.step_rng(), tree.infer
+            tree.infer = lambda b, mode, **kw: infer(b, mode, rng=rng, **kw)
+            feats["dropout"] = tree.itc_momentum_feats(mbs["gpu"])
+            del tree.infer
+            for p in tree.parameters():
+                scale = p.abs().max().clamp_min(1e-30) / 448.0
+                p.copy_((p / scale).to(torch.float8_e4m3fn).float() * scale)
+            feats["e4m3_weights"] = tree.itc_momentum_feats(mbs["gpu"])
+
+        def gap(d):
+            return {f"{k}_queue": rel_l2(feats[d][f"{k[0]}_feat_m"],
+                                         feats["cpu"][f"{k[0]}_feat_m"]) for k in ("img", "txt")}
+
+        out[f"seed_{seed}"] = {"gap": gap("gpu"), "dropout": gap("dropout"),
+                               "e4m3_weights": gap("e4m3_weights")}
+    return out
+
+
+def alternated_steps(recipe: Trainer, plain: Trainer) -> dict:
+    """The recipe's step and plain pretrain_mum's taken in turn in one
+    process, ALTERNATED_PAIRS pairs after a warm-up step of each (the
+    first of each pair alternating), each step timed with a synchronise
+    around it: the host's drift and the card's clocks fall on both alike."""
+    plain.step()
+    recipe.step()
+    times: dict[str, list[float]] = {"recipe": [], "plain": []}
+    for i in range(ALTERNATED_PAIRS):
+        for name in (("plain", "recipe") if i % 2 == 0 else ("recipe", "plain")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            (recipe if name == "recipe" else plain).step()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    diffs = sorted(r - p for r, p in zip(times["recipe"], times["plain"]))
+    return {"pairs": ALTERNATED_PAIRS, "ms_per_step": times,
+            "median_ms_per_step": {k: statistics.median(v) for k, v in times.items()},
+            "added_ms_per_step_median": statistics.median(diffs),
+            "added_ms_per_step_quartiles": [diffs[len(diffs) // 4],
+                                            diffs[(3 * len(diffs)) // 4]]}
+
+
+def momentum_phase(card: str) -> dict:
+    """Phase 23: pretrain_mum's full recipe at vlmo_base, batch 32."""
+    cfg_dict = load_config(MOMENTUM_OVERRIDES)
+    cfg = VlmoConfig.from_config(cfg_dict)
+    t = cfg_dict["train"]
+    require(cfg.attn_impl == "auto" and cfg.attn_drop_rate > 0 and cfg_dict["vlmo_ema"]
+            and cfg_dict["model_ema"] and t["neg_queue"] and t["queue_size"] == 65536
+            and cfg.itc_dim == 256 and t["accumulation_steps"] == 1
+            and cfg_dict["data"]["batch_size"] == TRAIN_BATCH,
+            "the momentum phase must run the recipe's defaults at batch 32")
+    per_step = attention_calls_per_step(cfg)
+    momentum_calls = 2 * cfg.depth  # the momentum encoder's image and text streams
+    expected = {"flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    if "train" not in TIMED:  # alone (--momentum): phase 6's step in this run
+        timed_phase("train", load_config(TRAIN_OVERRIDES), CHECKED_PARAMS, {
+            "flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step})
+
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg_dict, device="cuda")
+    print(f"momentum_train: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    st = trainer.state
+    q_size = st.img_queue.shape[1]
+    require((st.ema_decay, st.model_ema_decay) == (0.995, 0.9999)
+            and st.img_queue.shape == (256, 65536),
+            f"momentum_train: decays {st.ema_decay}, {st.model_ema_decay}, queue "
+            f"{tuple(st.img_queue.shape)}")
+    # the warm-up step, with one leaf of each tree set to 0 before it: after
+    # it the leaf holds p * (1 - decay), each tree at its own decay
+    with torch.no_grad():
+        for tree in (st.ema_task, st.model_ema_task):
+            tree.get_parameter(MOMENTUM_LEAF).zero_()
+    ptr0 = st.queue_ptr
+    trainer.step()
+    torch.cuda.synchronize()
+    p1 = trainer.task.get_parameter(MOMENTUM_LEAF).detach()
+    decay_err = {name: rel_l2(tree.get_parameter(MOMENTUM_LEAF), p1 * (1.0 - d))
+                 for name, tree, d in (("vlmo_ema", st.ema_task, st.ema_decay),
+                                       ("model_ema", st.model_ema_task, st.model_ema_decay))}
+    norms = torch.cat([torch.linalg.vector_norm(q[:, ptr0:ptr0 + TRAIN_BATCH], dim=0)
+                       for q in (st.img_queue, st.txt_queue)])
+    norm_err = (norms - 1.0).abs().max().item()
+    require(max(decay_err.values()) <= 1e-5 and norm_err <= 1e-2,
+            f"momentum_train: EMA leaves off their decays {decay_err} or written queue "
+            f"columns off unit norm by {norm_err}")
+    torch.cuda.reset_peak_memory_stats()
+    metrics, times, launches = run_counted(trainer, TRAIN_STEPS, timed=True)
+    require_launches("momentum_train", launches, expected, TRAIN_STEPS)
+    ptr = (ptr0 + TRAIN_BATCH * (1 + TRAIN_STEPS)) % q_size
+    require(st.queue_ptr == ptr and all(k in m for m in metrics for k in MOMENTUM_LOSSES),
+            f"momentum_train: queue pointer {st.queue_ptr} (expected {ptr}) or the "
+            f"momentum losses missing: {sorted(metrics[-1])}")
+    med = statistics.median(times)
+    plain = TIMED["train"]["median_ms_per_step"]
+    result = {
+        "batch": TRAIN_BATCH, "steps": TRAIN_STEPS, "ms_per_step": [x * 1e3 for x in times],
+        "median_ms_per_step": med * 1e3, "plain_pretrain_mum_median_ms_per_step": plain,
+        "added_ms_per_step": med * 1e3 - plain, "images_per_s": TRAIN_BATCH / med,
+        "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": launches, "expected_launches_per_step": expected,
+        "ema_decay_rel_err": decay_err, "queue_norm_err": norm_err, "queue_ptr": st.queue_ptr,
+        "losses": [{k: v for k, v in m.items() if k.endswith(("_task_loss", "_Loss"))
+                    or k in ("total_loss", "grad_norm", "lr")} for m in metrics],
+    }
+    print("momentum_train: " + json.dumps(result), flush=True)
+    plain_trainer = Trainer(load_config(TRAIN_OVERRIDES), device="cuda")
+    print("momentum_alternated: " + json.dumps(alternated_steps(trainer, plain_trainer)),
+          flush=True)
+    del plain_trainer
+    torch.cuda.empty_cache()
+
+    # evaluation runs the eval EMA: equal to an evaluation of a task that
+    # holds its tree
+    val = build_dataset({**cfg_dict, "data": {**cfg_dict["data"], "synthetic_size":
+                                              MOMENTUM_EVAL_BATCHES * TRAIN_BATCH}}, "val")
+    loader = Loader(val, TRAIN_BATCH, seed=int(cfg_dict["seed"]), train=False)
+    require(len(loader) == MOMENTUM_EVAL_BATCHES, f"{len(loader)} eval batches")
+    got = trainer.evaluate(loader)
+    ref = build_model(cfg_dict, device="cuda")
+    ref.load_state_dict(st.model_ema_task.state_dict())
+    trainer.eval_task = lambda: ref
+    want = trainer.evaluate(loader)
+    trainer.eval_task = lambda: trainer.task
+    live = trainer.evaluate(loader)
+    del trainer.eval_task
+    eval_err = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want)
+    print("momentum_eval: " + json.dumps({
+        "eval_ema": got, "task_with_eval_ema_tree": want, "live_parameters": live,
+        "max_rel_diff": eval_err}), flush=True)
+    require(set(got) == set(want) and eval_err <= 1e-6 and all(
+        np.isfinite(v) for v in got.values()),
+        f"momentum_eval: evaluate is not the eval EMA's tree: {got} vs {want}")
+    del trainer, ref
+    torch.cuda.empty_cache()
+
+    # attn_impl=pallas: row 1 on the momentum encoder's 24 attention calls
+    pallas, _, _ = short_phase("momentum_pallas",
+                               load_config(MOMENTUM_OVERRIDES + ["attn_impl=pallas"]),
+                               {**expected, "flash_attention_fwd": momentum_calls})
+    # two microbatches of 16: rows 3 and 4 twice a step, at BH = 16 x 12
+    accum, _, _ = short_phase(
+        "momentum_accum2", load_config(MOMENTUM_OVERRIDES + ["train.accumulation_steps=2"]),
+        {**expected, "flash_attention_fwd_drop": 2 * per_step,
+         "flash_attention_bwd_drop": 2 * per_step})
+    momentum_cpu_check()
+    return {"train": launches, "pallas": pallas, "accum": accum}
+
+
+def accum_dropout_masks(cfg: VlmoConfig, dev) -> None:
+    """The dropout mask bit for bit at the microbatches' rows of
+    accumulation_steps=2: the streams' B/2 and ITM's 3B/2 (BH = 192 and
+    576, N = 237)."""
+    for rows in (TRAIN_BATCH // 2, 3 * TRAIN_BATCH // 2):
+        print("dropout_mask: " + json.dumps(check_dropout_mask(cfg, dev, rows)), flush=True)
+
+
+def momentum_only(card: str, dev) -> int:
+    """The build, rows 1, 3 and 4 at the shapes phase 23 alone gives them
+    and the dropout mask at its microbatches' rows, then phase 23 alone
+    (`--momentum`), with phase 6's timed step for its baseline."""
+    train_cfg = VlmoConfig.from_config(load_config(TRAIN_OVERRIDES))
+    rows = check_attention(VlmoConfig.from_config(load_config(SERVE_OVERRIDES)),
+                           np.random.default_rng(0), dev, only=MOMENTUM_STREAMS)
+    for row in rows:
+        print("kernel: " + json.dumps({"name": "flash_attention_fwd", **row}), flush=True)
+    train_rows = check_attention_train(train_cfg, np.random.default_rng(1), dev,
+                                       only=ACCUM_STREAMS)
+    for name, entries in train_rows.items():
+        for row in entries:
+            print("kernel: " + json.dumps({"name": name, **row}), flush=True)
+    accum_dropout_masks(train_cfg, dev)
+    momentum_phase(card)
+    return 0
+
+
 def downstream_only(card: str, dev) -> int:
     """The build, rows 2-4 at IRTR's shape and its dropout mask, then the
     downstream phases alone (`--downstream`)."""
@@ -2137,6 +2541,8 @@ def main(argv: list[str] | None = None) -> int:
             SERVE_OVERRIDES))), [int(n) for n in args[1:]])
     if args[:1] == ["--downstream"]:
         return downstream_only(card, dev)
+    if args[:1] == ["--momentum"]:
+        return momentum_only(card, dev)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -2169,6 +2575,7 @@ def main(argv: list[str] | None = None) -> int:
     # IRTR's rows: BH = 1,536, N = 237
     print("dropout_mask: " + json.dumps(check_dropout_mask(train_cfg, dev,
                                                            IRTR_ROWS * TRAIN_BATCH)), flush=True)
+    accum_dropout_masks(train_cfg, dev)
     per_step = attention_calls_per_step(train_cfg)
     train_launches = timed_phase("train", train_dict, CHECKED_PARAMS, {
         "flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step})
@@ -2292,6 +2699,10 @@ def main(argv: list[str] | None = None) -> int:
     # retrieval and NLVR2 endpoints
     downstream_train_phase(card)
     downstream_serve_phase(card)
+
+    # pretrain_mum's full recipe: the momentum encoder, the queues, the eval
+    # EMA and accumulation
+    momentum_phase(card)
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path

@@ -60,7 +60,9 @@ BASE: dict[str, Any] = {
     "log_level": "info",
     "compute_dtype": "bfloat16",
     "vlmo_ema": False,
+    "vlmo_ema_decay": 0.995,
     "model_ema": False,
+    "model_ema_decay": 0.9999,
     "minimize_metric": None,
     "attn_impl": "auto",
     "profile_steps": 0,

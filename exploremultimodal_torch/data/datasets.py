@@ -24,8 +24,10 @@ class SyntheticDataset:
     patch mask, the half-size uint8 image for the dVAE tokenizer (where
     `second_size` is set), a one-hot VQA target over `vqa_label_size`
     answers (where that is set), `draw_false_text` false captions (token ids
-    and an all-ones mask) for retrieval, and with `nlvr` an image pair (the
-    first the sample's image) and a 0/1 answer. With `text_only` a sample
+    and an all-ones mask) for retrieval, with `nlvr` an image pair (the
+    first the sample's image) and a 0/1 answer, and with `image_aug` a
+    second uint8 view `image_aug_u8` for the momentum encoder, drawn right
+    after the image. With `text_only` a sample
     ends before its image is drawn (the text phases: token ids and mask,
     MLM ids and labels)."""
 
@@ -33,7 +35,8 @@ class SyntheticDataset:
                  second_size: int | None = 112, max_text_len: int = 40,
                  vocab_size: int = 30522, mask_generator: MaskingGenerator,
                  vqa_label_size: int | None = None, text_only: bool = False,
-                 draw_false_text: int = 0, nlvr: bool = False, seed: int = 0):
+                 draw_false_text: int = 0, nlvr: bool = False,
+                 image_aug: bool = False, seed: int = 0):
         self.size = size
         self.img_size = img_size
         self.second_size = second_size
@@ -44,6 +47,7 @@ class SyntheticDataset:
         self.text_only = text_only
         self.draw_false_text = draw_false_text
         self.nlvr = nlvr
+        self.image_aug = image_aug
         self.seed = seed
 
     def __len__(self) -> int:
@@ -76,6 +80,9 @@ class SyntheticDataset:
             return sample
         sample["image_u8"] = rng.integers(0, 256, (self.img_size, self.img_size, 3),
                                           dtype=np.uint8)
+        if self.image_aug:
+            sample["image_aug_u8"] = rng.integers(
+                0, 256, (self.img_size, self.img_size, 3), dtype=np.uint8)
         sample["image_bool_masked_pos"] = self.mask_generator(rng).reshape(-1)
         if self.second_size:
             sample["image4dalle_u8"] = rng.integers(
@@ -103,7 +110,8 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
     the configured patch masker and the dVAE's half-size image, any other
     the default masker and no second image; `vqa` adds the VQA targets,
     `irtr` `train.draw_false_text` false captions (3 where unset), `nlvr2`
-    the image pair and answer; a phase named `*txt*` whose losses are at
+    the image pair and answer, `vlmo_ema` the momentum encoder's second
+    view on the train split; a phase named `*txt*` whose losses are at
     most MLM gets text-only samples.
     Only `train.datasets=[synthetic]` is ported."""
     if split not in ("train", "val", "test"):
@@ -136,4 +144,5 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
         vqa_label_size=d["vqav2_label_size"] if "vqa" in losses else None,
         text_only=losses <= {"mlm"} and "txt" in t["phase"],
         draw_false_text=int(t.get("draw_false_text", 3)) if "irtr" in losses else 0,
-        nlvr="nlvr2" in losses)
+        nlvr="nlvr2" in losses,
+        image_aug=bool(cfg.get("vlmo_ema")) and split == "train")

@@ -1,4 +1,5 @@
-"""Flax parameter tree -> state_dict of `VlmoTask`.
+"""Flax parameter tree -> state_dict of `VlmoTask`; a JAX `TrainState`'s
+trees and queues -> the port's `TrainState` (`load_flax_train_state`).
 
 The torch modules carry the flax module names, so the map is a rename of
 the leaf, `blocks_<i>` -> `blocks.<i>`, and a transpose of each kernel:
@@ -52,3 +53,36 @@ def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         # copy() keeps 0-d leaves (itc_temp) 0-d; ascontiguousarray would not
         out[key] = torch.from_numpy(arr.copy())
     return out
+
+
+def load_flax_train_state(state, parts: Mapping[str, Any]) -> None:
+    """Carry the fields of a JAX `TrainState` into the port's `TrainState`
+    in place. `parts` maps JAX's field names to host values (numpy leaves,
+    e.g. from `jax.device_get`); any subset of:
+      params            -> state.task
+      ema_params        -> state.ema_task (the momentum encoder)
+      model_ema_params  -> state.model_ema_task (the eval EMA)
+      img_queue, txt_queue  -> the queues, (itc_dim, Q) each
+      queue_ptr         -> state.queue_ptr
+    A field the port's state was not built with raises ValueError."""
+    unknown = set(parts) - {"params", "ema_params", "model_ema_params", "img_queue",
+                            "txt_queue", "queue_ptr"}
+    if unknown:
+        raise ValueError(f"not fields of a JAX TrainState: {sorted(unknown)}")
+    trees = {"params": state.task, "ema_params": state.ema_task,
+             "model_ema_params": state.model_ema_task}
+    for name, tree in trees.items():
+        if name not in parts:
+            continue
+        if tree is None:
+            raise ValueError(f"{name} given, but the port's state has no such tree")
+        # in place: the tensors keep their addresses
+        tree.load_state_dict(from_flax_params(parts[name]), strict=True)
+    for name in ("img_queue", "txt_queue"):
+        if name in parts:
+            queue = getattr(state, name)
+            if queue is None:
+                raise ValueError(f"{name} given, but the port's state has no queues")
+            queue.copy_(torch.from_numpy(np.array(parts[name], dtype=np.float32)))
+    if "queue_ptr" in parts:
+        state.queue_ptr = int(np.asarray(parts["queue_ptr"]))

@@ -179,31 +179,61 @@ class VlmoTask(nn.Module):
         x = t.run_blocks(x, t._img_mask(x), "v", 0, t.fusion_layer, rng)
         return t.norm(x).to(t.dtype)
 
+    # --------------------------------------------------------------- momentum
+
+    def itc_momentum_feats(self, batch: dict) -> dict:
+        """The momentum branch's features, for a task that holds the
+        momentum encoder's tree: deterministic image-only and text-only
+        forwards (the image from `batch['image_aug']` where present), the
+        projected globals `i_feat_m` / `t_feat_m`, the image locals pooled
+        to 4 x 4 (`patch_pooling`) as `i_feat_l_m`, the text locals as
+        `t_feat_l_m`, and their mask `t_mask_m`, carried with the features
+        so the global-to-local loss stays full-batch under accumulation."""
+        aug = dict(batch)
+        if batch.get("image_aug") is not None:
+            aug["image"] = batch["image_aug"]
+        img = self.infer(aug, "img_only")["co_feats"]
+        txt = self.infer(aug, "txt_only")["co_feats"]
+        return {
+            "i_feat_m": self.itc_project(img[:, 0], "v"),
+            "t_feat_m": self.itc_project(txt[:, 0], "l"),
+            "i_feat_l_m": obj.patch_pooling(self.itc_project(img[:, 1:], "v")),
+            "t_feat_l_m": self.itc_project(txt[:, 1:], "l"),
+            "t_mask_m": batch["text_mask"][:, 1:],
+        }
+
     # ---------------------------------------------------------------- forward
 
     def forward(self, batch: dict, rng: StepRng | None = None,
                 negatives=None, isda_state=None, isda_ratio: float = 0.0,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None,
+                momentum_feats: dict | None = None, queue: dict | None = None,
+                pos_offset: int = 0) -> dict:
         """The union of the active objectives, as JAX's `__call__`. ITC runs
         first: its below-fusion hidden states feed MLM's fused forward and
         ITM's pair rows. `rng` None is deterministic (no dropout); the ITM
         negatives then come from `negatives` = (neg_img_idx, neg_txt_idx)
         or are drawn on `generator`.
         VQA takes the ISDA statistics `isda_state` (None: no ISDA) and
-        returns their update as `isda_state`."""
+        returns their update as `isda_state`. ITC takes the momentum
+        encoder's `momentum_feats` and the negative `queue` (None: in-batch
+        ITC); `pos_offset` is a microbatch's first row in the full batch
+        those features cover, which ITM's hard negatives also read."""
         names = self.config.loss_names
         if not names:
             return self.infer(batch)
         ret: dict = {}
         if "itc" in names:
-            ret.update(obj.compute_itc(self, batch, rng))
+            ret.update(obj.compute_itc(self, batch, rng, momentum_feats=momentum_feats,
+                                       queue=queue, pos_offset=pos_offset))
         shared = ret if "itc" in names else None
         if "mlm" in names:
             ret.update(obj.compute_mlm(self, batch, rng, shared=shared))
         if "mim" in names:
             ret.update(obj.compute_mim(self, batch, rng))
         if "itm" in names:
-            ret.update(obj.compute_itm(self, batch, shared, rng, negatives, generator))
+            ret.update(obj.compute_itm(self, batch, shared, rng, negatives, generator,
+                                       pos_offset))
         if "vqa" in names:
             ret.update(obj.compute_vqa(self, batch, rng, isda_state=isda_state,
                                        isda_ratio=isda_ratio))

@@ -1,8 +1,9 @@
 """The pretraining and downstream objectives as fixed-shape functions.
 
 Counterpart of `exploremultimodal_tpu/objectives/losses.py`: `_gather_cap`,
-`masked_cross_entropy`, `gather_masked_positions`, `compute_mlm`, the
-in-batch (naive) branch of `compute_itc`, `itm_sample_pairs`,
+`masked_cross_entropy`, `gather_masked_positions`, `compute_mlm`,
+`compute_itc` and `itc_losses` (in-batch, or against the momentum
+encoder's features and the negative queues), `patch_pooling`, `in_batch_g2l_loss`, `itm_sample_pairs`,
 `itm_loss_from_co`, `compute_itm`, `compute_mim`, `_bce_with_logits`,
 `compute_vqa_score`, `compute_vqa` (with ISDA and R-Drop),
 `compute_nlvr2`, `patchify`, `compute_mae` and `compute_irtr`. Each `compute_*` takes
@@ -17,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.profiler import record_function
 
 from exploremultimodal_torch.models import heads
 from exploremultimodal_torch.ops.stochastic import StepRng
@@ -95,10 +97,13 @@ def compute_mlm(task, batch: dict, rng: StepRng | None = None,
 # ------------------------------------------------------------------- ITC
 
 
-def compute_itc(task, batch: dict, rng: StepRng | None = None) -> dict:
-    """Image-text contrastive loss over in-batch similarities. The
-    single-modality streams split at the fusion layer, and the below-fusion
-    hidden states are returned for MLM and ITM."""
+def compute_itc(task, batch: dict, rng: StepRng | None = None,
+                momentum_feats: dict | None = None, queue: dict | None = None,
+                pos_offset: int = 0) -> dict:
+    """Image-text contrastive loss (`itc_losses` on the batch's projected
+    global features). The single-modality streams split at the fusion
+    layer, and the below-fusion hidden states are returned for MLM and
+    ITM."""
     temp = torch.exp(task.itc_temp.clamp(0.0, ITC_TEMP_MAX))
     t = task.transformer
     h_img = t.stream_below_fusion(img=batch["image"], rng=rng)
@@ -108,33 +113,130 @@ def compute_itc(task, batch: dict, rng: StepRng | None = None) -> dict:
     txt_feats = t.continue_single_stream(h_txt, batch["text_mask"], "l", rng=rng)
     i_feat = task.itc_head(img_feats[:, 0], "v").float()
     t_feat = task.itc_head(txt_feats[:, 0], "l").float()
+    with record_function("itc/sims"):
+        ret = itc_losses(i_feat, t_feat, temp, batch["text_mask"], momentum_feats, queue,
+                         pos_offset)
+    ret.update({"itc_i_feat": i_feat, "itc_t_feat": t_feat, "itc_h_img": h_img,
+                "itc_h_txt": h_txt})
+    return ret
 
+
+def itc_losses(i_feat, t_feat, temp, text_mask, momentum_feats: dict | None = None,
+               queue: dict | None = None, pos_offset: int = 0) -> dict:
+    """The ITC losses, accuracies and sims of normalised global features
+    `i_feat` / `t_feat` (B, itc_dim) at the logit scale `temp`, in their
+    dtype (fp32 in training).
+
+    Without `momentum_feats`, in-batch similarities. With them (the momentum
+    encoder's {'i_feat_m', 't_feat_m', and optionally 'i_feat_l_m',
+    't_feat_l_m', 't_mask_m'}, `VlmoTask.itc_momentum_feats`), each row is
+    contrasted against the momentum features, then `queue`'s columns
+    ({'img', 'txt'}, (itc_dim, Q)) where given, with the in-modal i2i / t2t
+    losses and, with the locals, the global-to-local i2i_l / t2t_l ones
+    (the text locals masked by `t_mask_m`, else by `text_mask[:, 1:]`).
+    Under gradient accumulation the momentum features cover the full batch
+    and the features are one microbatch's, whose rows start at
+    `pos_offset` in it: the positives sit on that offset diagonal, and the
+    accuracies are taken over the momentum columns only."""
     bs = i_feat.shape[0]
-    targets = torch.arange(bs, device=i_feat.device)
-    sim_i2t = i_feat @ t_feat.T * temp
-    sim_t2i = sim_i2t.T
+    rows = torch.arange(bs, device=i_feat.device)
+    targets, n_pos_cols = rows, bs
+    in_modal = local_g2l = None
+    if momentum_feats is None:
+        sim_i2t = i_feat @ t_feat.T * temp
+        sim_t2i = sim_i2t.T
+    else:
+        mf = momentum_feats
+        i_all, t_all = (mf[k].to(i_feat.dtype).T for k in ("i_feat_m", "t_feat_m"))
+        targets, n_pos_cols = rows + pos_offset, i_all.shape[1]
+        if queue is not None:
+            i_all = torch.cat([i_all, queue["img"].to(i_feat.dtype)], dim=1)
+            t_all = torch.cat([t_all, queue["txt"].to(i_feat.dtype)], dim=1)
+        sim_i2t = i_feat @ t_all * temp
+        sim_t2i = t_feat @ i_all * temp
+        in_modal = (i_feat @ i_all * temp, t_feat @ t_all * temp)
+        if "i_feat_l_m" in mf:
+            t_mask_m = mf.get("t_mask_m")
+            if t_mask_m is None:
+                t_mask_m = text_mask[:, 1:]
+            local_g2l = (
+                in_batch_g2l_loss(mf["i_feat_l_m"], i_feat, temp, pos_offset=pos_offset),
+                in_batch_g2l_loss(mf["t_feat_l_m"], t_feat, temp, t_mask_m,
+                                  pos_offset=pos_offset))
 
-    def ce(sim):
-        return -torch.log_softmax(sim, dim=-1)[targets, targets].mean()
+    def ce(sim):  # the target column of each row, sims of any width
+        return -torch.log_softmax(sim, dim=-1)[rows, targets].mean()
 
-    i2t_loss, t2i_loss = ce(sim_i2t), ce(sim_t2i)
+    def acc(sim):
+        return (sim[:, :n_pos_cols].argmax(-1) == targets).float().mean()
+
+    losses = [ce(sim_i2t), ce(sim_t2i)]
     n = torch.tensor(float(bs), device=i_feat.device)
-    return {
-        "i2t_Loss": i2t_loss,
-        "t2i_Loss": t2i_loss,
+    ret = {
+        "i2t_Loss": losses[0],
+        "t2i_Loss": losses[1],
         "sim_i2t": sim_i2t,
         "sim_t2i": sim_t2i,
         "itc_temp": temp,
-        "itc_i2t_mean_acc": (sim_i2t.argmax(-1) == targets).float().mean(),
+        "itc_i2t_mean_acc": acc(sim_i2t),
         "itc_i2t_count": n,
-        "itc_t2i_mean_acc": (sim_t2i.argmax(-1) == targets).float().mean(),
+        "itc_t2i_mean_acc": acc(sim_t2i),
         "itc_t2i_count": n,
-        "itc_i_feat": i_feat,
-        "itc_t_feat": t_feat,
-        "itc_h_img": h_img,
-        "itc_h_txt": h_txt,
-        "itc_task_loss": (i2t_loss + t2i_loss) / 2,
     }
+    if in_modal is not None:
+        losses += [ce(sim) for sim in in_modal]
+        ret.update({"i2i_Loss": losses[2], "t2t_Loss": losses[3]})
+        if local_g2l is not None:
+            losses += list(local_g2l)
+            ret.update({"i2i_l_Loss": local_g2l[0], "t2t_l_Loss": local_g2l[1]})
+    ret["itc_task_loss"] = sum(losses) / len(losses)
+    return ret
+
+
+def patch_pooling(x: torch.Tensor) -> torch.Tensor:
+    """A sqrt(N) x sqrt(N) patch grid average-pooled in windows of
+    c = int(N ** 0.25) with stride c and floor semantics (F.avg_pool2d's):
+    14 x 14 pools 3 x 3 windows into 4 x 4 locals, dropping the last two
+    rows and columns."""
+    bs, length, dim = x.shape
+    b1 = int(length ** 0.5)
+    c1 = int(b1 ** 0.5)
+    out = b1 // c1
+    x = x.reshape(bs, b1, b1, dim)[:, : out * c1, : out * c1]
+    x = x.reshape(bs, out, c1, out, c1, dim)
+    return x.mean(dim=(2, 4)).reshape(bs, -1, dim)
+
+
+def in_batch_g2l_loss(l, m, temp, attention_mask=None, pos_offset: int = 0):
+    """Global-to-local contrast: each global feature of `m` (M, d) against
+    its own sample's local features of `l` (N, L, d) as positives and every
+    other sample's locals as negatives. `l` and `attention_mask` (N, L)
+    cover the full batch; `m` is the microbatch whose rows start at
+    `pos_offset` in it, so the negative pool does not shrink under
+    accumulation. Masked locals drop out through -10000 logits, as in JAX.
+    In fp32, or fp64 where an input is."""
+    l, m = (x.to(torch.promote_types(x.dtype, torch.float32)) for x in (l, m))
+    n, n_locals, _ = l.shape
+    rows = m.shape[0]
+    l_pos = l[pos_offset:pos_offset + rows]
+    u_p = torch.einsum("mld,md->ml", l_pos, m)[:, :, None] / temp  # (M, L, 1)
+    if attention_mask is not None:
+        am_pos = attention_mask[pos_offset:pos_offset + rows].float()
+        am = am_pos[:, :, None]
+        u_p = am * u_p + 10000.0 * (1 - am)
+    u_n = torch.einsum("md,nld->mnl", m, l) / temp  # (M, N, L)
+    own = pos_offset + torch.arange(rows, device=l.device)
+    n_mask = 1.0 - (own[:, None] == torch.arange(n, device=l.device)[None, :]).float()
+    n_mask = n_mask[:, :, None]
+    u_n = n_mask * u_n - 10000.0 * (1.0 - n_mask)
+    if attention_mask is not None:
+        am = attention_mask[None].float()
+        u_n = am * u_n - 10000.0 * (1 - am)
+    u_n = u_n.reshape(rows, 1, n * n_locals).expand(rows, n_locals, n * n_locals)
+    logp = torch.log_softmax(torch.cat([u_p, u_n], dim=2), dim=2)[:, :, 0]
+    if attention_mask is not None:
+        return (-(logp * am_pos).sum(1) / am_pos.sum(1)).mean()
+    return -logp.mean()
 
 
 # ------------------------------------------------------------------- ITM
@@ -142,7 +244,7 @@ def compute_itc(task, batch: dict, rng: StepRng | None = None) -> dict:
 
 def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
                      rng: StepRng | None = None, negatives=None,
-                     generator: torch.Generator | None = None):
+                     generator: torch.Generator | None = None, pos_offset: int = 0):
     """ITC-guided hard negatives and the [pos, img-neg, txt-neg] 3*bs pair
     rows below the fusion layer. Returns (pair_img, pair_txt, pair_mask,
     labels). The negatives are drawn on `rng.generator` (one image per text
@@ -150,7 +252,9 @@ def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
     positive excluded; the same law as JAX's categorical, other draws), on
     `generator` in a deterministic forward (`rng` None: its sampling stream,
     as JAX's eval step keeps its `sample` rng), or given as `negatives` =
-    (neg_img_idx, neg_txt_idx)."""
+    (neg_img_idx, neg_txt_idx). Where the shared sims are wider than the
+    batch (momentum ITC: the momentum columns, then the queue's), the
+    weights take the batch's own columns [pos_offset, pos_offset + bs)."""
     img, txt_ids, txt_mask = batch["image"], batch["text_ids"], batch["text_mask"]
     bs = img.shape[0]
     if negatives is None:
@@ -160,7 +264,10 @@ def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
                                  "indices")
             generator = rng.generator
         if sim_dict is not None:
-            w_i2t, w_t2i = (torch.softmax(sim_dict[k].detach().float(), dim=1)
+            def own_cols(sim):
+                return sim if sim.shape[1] == bs else sim[:, pos_offset:pos_offset + bs]
+
+            w_i2t, w_t2i = (torch.softmax(own_cols(sim_dict[k].detach().float()), dim=1)
                             for k in ("sim_i2t", "sim_t2i"))
         else:  # JAX's standard-normal log-weights
             w_i2t, w_t2i = (torch.randn((bs, bs), generator=generator,
@@ -202,11 +309,11 @@ def itm_loss_from_co(task, co_feats, labels) -> dict:
 
 def compute_itm(task, batch: dict, sim_dict: dict | None = None,
                 rng: StepRng | None = None, negatives=None,
-                generator: torch.Generator | None = None) -> dict:
+                generator: torch.Generator | None = None, pos_offset: int = 0) -> dict:
     """Image-text matching with ITC-guided hard negatives: one fused forward
     over the 3*bs [pos, img-neg, txt-neg] rows."""
     pair_img, pair_txt, pair_mask, labels = itm_sample_pairs(
-        task, batch, sim_dict, rng, negatives, generator)
+        task, batch, sim_dict, rng, negatives, generator, pos_offset)
     co_feats, _ = task.transformer.fuse_from_hidden(pair_img, pair_txt, pair_mask,
                                                     rng=rng)
     return itm_loss_from_co(task, co_feats, labels)

@@ -19,9 +19,14 @@ read orbax checkpoints (it cannot import JAX).
 
 `state.pt` holds the fp32 parameters (`VlmoTask.state_dict()`), the AdamW
 state (`torch.optim.AdamW.state_dict()`: its moments and step counts), the
-step, the ISDA statistics, and the states of both of `TrainState`'s
-generators, so that a resumed run draws the dropout an uninterrupted one
-draws.
+step, the ISDA statistics, the momentum encoder's and the eval EMA's trees,
+the negative queues and their pointer (each None where the run has none),
+and the states of both of `TrainState`'s generators, so that a resumed run
+draws the dropout an uninterrupted one draws. A full resume restores all
+of it; a warm start (a phase or tag mismatch, or a `.pth` import) loads
+the parameters only and leaves both EMA trees and the queues as the run
+built them, as JAX's `state.replace(params=...)` does: the trees then hold
+the run's initial weights, not the loaded ones.
 """
 
 from __future__ import annotations
@@ -61,23 +66,47 @@ def state_dict(state: TrainState) -> dict[str, Any]:
         "seed_generator": state.seed_generator.get_state(),
         "isda": None if isda is None else {
             "count": isda.count, "mean": isda.mean, "cov": isda.cov},
+        "ema": None if state.ema_task is None else state.ema_task.state_dict(),
+        "model_ema": (None if state.model_ema_task is None
+                      else state.model_ema_task.state_dict()),
+        "queue": None if state.img_queue is None else {
+            "img": state.img_queue, "txt": state.txt_queue, "ptr": state.queue_ptr},
     }
 
 
+def _check_present(sd: dict, key: str, present: bool, flag: str) -> None:
+    if (sd.get(key) is not None) != present:
+        raise ValueError(f"the checkpoint's {key} does not match the run's {flag}")
+
+
 def load_state_dict(state: TrainState, sd: dict[str, Any]) -> None:
-    """Restore `sd` (from `state_dict`) into `state` in place."""
+    """Restore `sd` (from `state_dict`) into `state` in place. Each of the
+    ISDA statistics, the two EMA trees and the queues must be in both or
+    in neither (ValueError otherwise)."""
+    _check_present(sd, "isda", state.isda is not None, "train.isda_lambda")
+    _check_present(sd, "ema", state.ema_task is not None, "vlmo_ema")
+    _check_present(sd, "model_ema", state.model_ema_task is not None, "model_ema")
+    _check_present(sd, "queue", state.img_queue is not None, "train.neg_queue")
     state.task.load_state_dict(sd["model"], strict=True)
     state.optimizer.torch.load_state_dict(sd["optimizer"])
     state.step = int(sd["step"])
     # a generator's state is a host ByteTensor, whatever device it draws on
     state.generator.set_state(sd["generator"].cpu())
     state.seed_generator.set_state(sd["seed_generator"].cpu())
-    if (sd["isda"] is None) != (state.isda is None):
-        raise ValueError("the checkpoint's ISDA statistics do not match the run's "
-                         "train.isda_lambda")
     if sd["isda"] is not None:
         dev = state.isda.count.device
         state.isda = ISDAState(**{k: v.to(dev) for k, v in sd["isda"].items()})
+    for key, tree in (("ema", state.ema_task), ("model_ema", state.model_ema_task)):
+        if tree is not None:
+            tree.load_state_dict(sd[key], strict=True)
+    if state.img_queue is not None:
+        q = sd["queue"]
+        if q["img"].shape != state.img_queue.shape:
+            raise ValueError(f"the checkpoint's queues are {tuple(q['img'].shape)}, the "
+                             f"run's {tuple(state.img_queue.shape)}")
+        state.img_queue.copy_(q["img"])
+        state.txt_queue.copy_(q["txt"])
+        state.queue_ptr = int(q["ptr"])
 
 
 def save(output_dir: str, state: TrainState, cfg: dict, epoch: int, *,

@@ -3,19 +3,30 @@ MAE), finetune_vqa, finetune_nlvr2 and finetune_retrieval phases on one
 GPU: the step, the epochs around it with evaluation, checkpoints and
 auto-resume, and throughput mode.
 
-Counterpart of `exploremultimodal_tpu/train/trainer.py` for
-`accumulation_steps=1` without the momentum encoder, the negative queue or
-the gathered ITC (none of them is a default of these phases). A step:
+Counterpart of `exploremultimodal_tpu/train/trainer.py` at one process
+(`train.global_reduce` is the identity there, as in JAX at a 1-device data
+axis). A step:
 
   uint8 batch -> device (pinned memory) -> preprocessing -> frozen dVAE
   tokens under no_grad (MIM labels, where MIM is trained; the dVAE's trunk
-  on int8 codes under `train.discrete_vae_quantize`) -> the phase's
-  losses (VQA with the ISDA statistics carried from step to step) ->
-  backward -> AdamW step with the scheduled learning rate
+  on int8 codes under `train.discrete_vae_quantize`) -> with `vlmo_ema`,
+  the momentum encoder's ITC features under no_grad, with dropout off ->
+  the phase's losses (ITC against the momentum features and the negative
+  queues where they are on; VQA with the ISDA statistics carried from
+  step to step) -> backward -> AdamW step with the scheduled learning
+  rate -> the momentum and eval EMA updates, each at its own decay -> the
+  queues take the full batch's momentum features
 
-The four phases of a step are `torch.profiler` ranges (`step/batch`,
-`step/forward`, `step/backward`, `step/optimizer`), which cost nothing
-without a profiler; `scripts/torch_profile_train.py` reads them.
+With `train.accumulation_steps` = A > 1 the losses and the backward run on
+A contiguous microbatches of the batch, each against the full batch's
+momentum features (its positives at its row offset) and its own dropout
+draws; the gradients, the loss and the scalar metrics are the means over
+the microbatches, and ISDA's statistics pass from one to the next.
+
+The phases of a step are `torch.profiler` ranges (`step/batch`,
+`step/momentum`, `step/forward`, `step/backward`, `step/optimizer`,
+`step/ema`; and `itc/sims` inside ITC), which cost nothing without a
+profiler; `scripts/torch_profile_train.py` reads them.
 
 `train` runs the epochs from `train.start_epoch` (or the epoch after the
 checkpoint `checkpoints.auto_load` restores), evaluates after each on the
@@ -61,7 +72,12 @@ from exploremultimodal_torch.train.optim import (
     phase_frozen_predicate,
 )
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
-from exploremultimodal_torch.train.state import TrainState, create_train_state
+from exploremultimodal_torch.train.state import (
+    TrainState,
+    create_train_state,
+    ema_update,
+    queue_update,
+)
 from exploremultimodal_torch.utils import MetricLogger, create_logger
 from exploremultimodal_torch.utils.experiment_log import ExperimentLogger
 from exploremultimodal_torch.utils.metrics import read_floats
@@ -77,21 +93,22 @@ def _metrics_from_outputs(outputs: dict) -> dict[str, torch.Tensor]:
             and isinstance(v, torch.Tensor) and v.ndim == 0}
 
 
+def _rows(v) -> int | None:
+    """A batch entry's rows: a tensor's first dimension or a list's length;
+    None for a 0-d tensor or anything else."""
+    if isinstance(v, torch.Tensor):
+        return v.shape[0] if v.ndim else None
+    return len(v) if isinstance(v, list) else None
+
+
 def _refuse_unported(cfg: dict) -> None:
-    t = cfg["train"]
-    names = set(t["loss_names"])
-    unported = {
-        f"loss_names beyond {'/'.join(TRAINED_OBJECTIVES)}":
-            not names <= set(TRAINED_OBJECTIVES),
-        "vlmo_ema (momentum ITC)": bool(cfg.get("vlmo_ema")),
-        "model_ema": bool(cfg.get("model_ema")),
-        "neg_queue": bool(t.get("neg_queue")),
-        "global_reduce": bool(t.get("global_reduce")),
-        "accumulation_steps > 1": int(t.get("accumulation_steps", 1)) != 1,
-    }
-    bad = [k for k, v in unported.items() if v]
+    """Losses without a ported head raise NotImplementedError (and every
+    dataset but the synthetic one, in `build_dataset`)."""
+    bad = sorted(set(cfg["train"]["loss_names"]) - set(TRAINED_OBJECTIVES))
     if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+        raise NotImplementedError(
+            f"not ported yet: loss_names {bad} (the port trains "
+            f"{'/'.join(TRAINED_OBJECTIVES)})")
 
 
 log = logging.getLogger(__name__)
@@ -158,10 +175,21 @@ class Trainer:
                 trainable[name] = p
         optimizer, self.schedule = create_optimizer(cfg, trainable,
                                                     self.steps_per_epoch)
+        self.accum = int(t.get("accumulation_steps", 1))
+        if self.accum < 1:
+            raise ValueError(f"train.accumulation_steps={self.accum}")
+        # two independent EMA trees, as in JAX: the ITC momentum encoder
+        # (vlmo_ema) and the checkpointed eval EMA (model_ema); the queues
+        # are built under neg_queue whether or not the momentum branch runs
         self.state: TrainState = create_train_state(
             self.task, optimizer, int(cfg["seed"]) + 7,
             isda_classes=c.vqa_label_size if c.isda_lambda > 0 else 0,
-            isda_dim=2 * c.embed_dim)
+            isda_dim=2 * c.embed_dim,
+            ema_decay=cfg.get("vlmo_ema_decay", 0.995) if cfg.get("vlmo_ema") else None,
+            model_ema_decay=(cfg.get("model_ema_decay", 0.9999) if cfg.get("model_ema")
+                             else None),
+            queue_size=int(t.get("queue_size", 0)) if t.get("neg_queue") else 0,
+            itc_dim=c.itc_dim)
         self._batches: Iterator[dict] | None = None
 
     # ------------------------------------------------------------------ data
@@ -191,35 +219,78 @@ class Trainer:
 
     # ------------------------------------------------------------------ step
 
+    def momentum_branch(self, mb: dict) -> tuple[dict | None, dict | None]:
+        """The momentum encoder's features of the full batch under no_grad,
+        with dropout off, and the queues where they are used; (None, None)
+        without `vlmo_ema`. The same features feed every microbatch's loss
+        and the step's queue update."""
+        st = self.state
+        if st.ema_task is None:
+            return None, None
+        with torch.no_grad():
+            feats = st.ema_task.itc_momentum_feats(mb)
+        queue = None if st.img_queue is None else {"img": st.img_queue,
+                                                   "txt": st.txt_queue}
+        return feats, queue
+
     def step(self, batch: dict[str, Any] | None = None, *, negatives=None,
              mim_labels: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         """One training step on `batch` (default: the next of the loader).
         Returns the step's metrics as 0-d device tensors; nothing here waits
         for the device. The gradients stay on the parameters until the next
         step. `negatives` and `mim_labels` replace the sampled ITM negatives
-        and the dVAE labels (for comparisons across devices)."""
+        and the dVAE labels (for comparisons across devices); under
+        accumulation the one pair of `negatives` serves every microbatch."""
         st = self.state
         # ISDA's strength ramps with the epoch, as in the JAX trainer
         epoch = st.step // self.steps_per_epoch
         isda_ratio = (self.config.isda_lambda * epoch
                       / max(int(self.cfg["train"]["epochs"]), 1))
+        flat = bool(self.cfg["train"].get("flat_loss"))
         with record_function("step/batch"):
             mb = self.model_batch(self.next_batch() if batch is None else batch,
                                   mim_labels)
-        with record_function("step/forward"):
-            st.optimizer.zero_grad()
-            outputs = self.task(mb, rng=st.step_rng(), negatives=negatives,
-                                isda_state=st.isda, isda_ratio=isda_ratio)
-            loss = total_loss(outputs, flat=bool(self.cfg["train"].get("flat_loss")))
-        with record_function("step/backward"):
-            loss.backward()
+        with record_function("step/momentum"):
+            momentum_feats, queue = self.momentum_branch(mb)
+        st.optimizer.zero_grad()
+        accum = self.accum
+        rows = next(v.shape[0] for v in mb.values()
+                    if isinstance(v, torch.Tensor) and v.ndim > 0)
+        if rows % accum:
+            raise ValueError(f"batch of {rows} rows in {accum} microbatches")
+        size = rows // accum
+        sums: dict[str, torch.Tensor] = {}
+        isda = st.isda
+        for i in range(accum):
+            with record_function("step/forward"):
+                micro = {k: v[i * size:(i + 1) * size] if _rows(v) == rows else v
+                         for k, v in mb.items()}
+                outputs = self.task(micro, rng=st.step_rng(), negatives=negatives,
+                                    isda_state=isda, isda_ratio=isda_ratio,
+                                    momentum_feats=momentum_feats, queue=queue,
+                                    pos_offset=i * size)
+                loss = total_loss(outputs, flat=flat)
+            with record_function("step/backward"):
+                (loss / accum).backward()
+            isda = outputs.get("isda_state", isda)
+            for k, v in {**_metrics_from_outputs(outputs),
+                         "total_loss": loss.detach()}.items():
+                sums[k] = v if k not in sums else sums[k] + v
         with record_function("step/optimizer"):
-            metrics = _metrics_from_outputs(outputs)
-            metrics["total_loss"] = loss.detach()
+            metrics = {k: v / accum for k, v in sums.items()}
             metrics["grad_norm"] = global_norm(st.optimizer.params)
             metrics["lr"] = torch.tensor(self.schedule(st.step))
             st.optimizer.step(st.step)
-        st.isda = outputs.get("isda_state", st.isda)
+        with record_function("step/ema"):
+            if st.ema_task is not None:
+                ema_update(st.ema_task, self.task, st.ema_decay)
+            if st.model_ema_task is not None:
+                ema_update(st.model_ema_task, self.task, st.model_ema_decay)
+            if st.img_queue is not None and momentum_feats is not None:
+                st.queue_ptr = queue_update(st.img_queue, st.txt_queue, st.queue_ptr,
+                                            momentum_feats["i_feat_m"],
+                                            momentum_feats["t_feat_m"])
+        st.isda = isda
         st.step += 1
         return metrics
 
@@ -330,13 +401,20 @@ class Trainer:
 
     # ------------------------------------------------------------ evaluation
 
+    def eval_task(self):
+        """The tree evaluation runs: the eval EMA's under `model_ema`, never
+        the momentum encoder's; else the task's own parameters."""
+        ema = self.state.model_ema_task
+        return self.task if ema is None else ema
+
     @torch.no_grad()
     def eval_step(self, batch: dict[str, Any], generator: torch.Generator):
-        """A deterministic forward of `batch` (no dropout, no ISDA), as JAX's
-        eval step: (metrics, counts, extra), 0-d device tensors, the counts
-        those of the `*_count` outputs, `extra` the VQA and NLVR2 logits
-        where the losses give them. ITM draws its negatives on `generator`."""
-        outputs = self.task(self.model_batch(batch), generator=generator)
+        """A deterministic forward of `batch` (no dropout, no ISDA, in-batch
+        ITC) on `eval_task()`, as JAX's eval step: (metrics, counts, extra),
+        0-d device tensors, the counts those of the `*_count` outputs,
+        `extra` the VQA and NLVR2 logits where the losses give them. ITM
+        draws its negatives on `generator`."""
+        outputs = self.eval_task()(self.model_batch(batch), generator=generator)
         metrics = _metrics_from_outputs(outputs)
         metrics["total_loss"] = total_loss(outputs)
         counts = {k: v for k, v in outputs.items() if k.endswith("_count")
@@ -346,8 +424,9 @@ class Trainer:
 
     def evaluate(self, loader: Loader | None = None) -> dict[str, float]:
         """Count-weighted means of the eval step's metrics over `loader`
-        (the val split by default): a `*_mean_acc` or `*_mean_score` weighs
-        each batch by its `*_count` (and raises KeyError without one), every
+        (the val split by default), on `eval_task()`: a `*_mean_acc` or
+        `*_mean_score` weighs each batch by its `*_count` (and raises
+        KeyError without one), every
         other metric by 1. Where a batch carries NLVR2's `table_name`s, the
         accuracy of the rows whose table is a `dev` or a `test` one, as
         `nlvr2_dev_acc` / `nlvr2_test_acc`, weighed by those rows. The

@@ -24,6 +24,17 @@ OVERRIDES = [
 NAMES = ("transformer.blocks.0.attn.qkv.weight", "itc_temp")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two torch threads while this file runs, the count restored after:
+    beside the other test processes, one thread per core oversubscribes
+    the cores and the bf16 steps here slow down tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def base():
     """One seeded trainer and a batch; each test steps copies of the
@@ -101,3 +112,86 @@ def test_compare_step_feeds_the_cpu_itc_feature_gradient(monkeypatch, fed):
     else:
         with pytest.raises(RuntimeError, match="gradients differ"):
             chip_smoke.compare_step("t", card, cpu, batch, RETRIEVAL_NAMES)
+
+
+# phase 23's comparison: pretrain_mum's recipe (momentum encoder, a queue of
+# 16 columns, the eval EMA) at accumulation_steps=2, two microbatches of 2
+MOMENTUM = OVERRIDES + ["vlmo_ema=true", "train.neg_queue=true", "train.queue_size=16",
+                        "model_ema=true", "train.accumulation_steps=2", "data.batch_size=4"]
+
+
+@pytest.fixture(scope="module")
+def momentum_base():
+    trainer = Trainer(load_config(MOMENTUM), device="cpu")
+    return copy.deepcopy(trainer), trainer.next_batch()
+
+
+def test_momentum_itc_temp_grad_is_the_autograd_gradient(momentum_base):
+    """`momentum_itc_temp_grad`, from the step's own features (both
+    microbatches' globals, the momentum features and the queue it
+    contrasted them with), is itc_temp's gradient autograd gives, up to
+    the fp32 rounding of the step's sums."""
+    trainer, batch = copy.deepcopy(momentum_base[0]), momentum_base[1]
+    feats, branches = {}, {}
+    trainer.task.itc_head.register_forward_hook(
+        lambda mod, args, out: feats.setdefault(args[1], []).append(out.detach().double()))
+    chip_smoke.record_momentum_branch(trainer, branches, "cpu")
+    log_temp = float(trainer.task.itc_temp)
+    trainer.step(batch)
+    assert len(feats["v"]) == len(feats["l"]) == 2
+    want = chip_smoke.momentum_itc_temp_grad(feats, branches["cpu"], log_temp)
+    got = float(trainer.task.itc_temp.grad)
+    assert want != 0.0 and abs(got - want) <= 1e-3 * abs(want)
+
+
+@pytest.mark.parametrize("factor", [1.0, 2.0])
+def test_compare_step_holds_the_momentum_step(monkeypatch, momentum_base, factor):
+    """Phase 23's comparison on a stand-in card: a sound step passes with
+    itc_temp held at each device's own momentum features; the card's
+    itc_temp gradient doubled fails."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    (card, cpu), batch = (copy.deepcopy(momentum_base[0]) for _ in range(2)), momentum_base[1]
+    card.task.itc_temp.register_hook(lambda g: g * factor)
+    branches = {}
+    for d, tr in (("gpu", card), ("cpu", cpu)):
+        chip_smoke.record_momentum_branch(tr, branches, d)
+    kw = {"negatives": (torch.tensor([1, 0]), torch.tensor([1, 0])),
+          "itc_temp_grad": lambda d, f, lt: chip_smoke.momentum_itc_temp_grad(
+              f, branches[d], lt)}
+    if factor == 1.0:
+        result = chip_smoke.compare_step("t", card, cpu, batch, NAMES, **kw)
+        assert result["itc_temp"]["grad_rel_err_at_gpu_features"] == 0.0
+        assert "i2i_l_Loss" in result["losses_gpu_cpu"]
+    else:
+        with pytest.raises(RuntimeError, match="gradients differ"):
+            chip_smoke.compare_step("t", card, cpu, batch, NAMES, **kw)
+
+
+def test_momentum_feature_gaps_read_the_devices_and_the_controls(monkeypatch,
+                                                                momentum_base):
+    """`momentum_feature_gaps` on a stand-in card: the momentum tree drawn
+    anew from each seed on both trainers, so two CPU trainers read a gap
+    of exactly 0; each control (the momentum forward with its attention
+    dropout on, the tree's weights rounded to e4m3) reads a gap."""
+    monkeypatch.setattr(chip_smoke, "MOMENTUM_GAP_SEEDS", (1, 2))
+    card, cpu = (copy.deepcopy(momentum_base[0]) for _ in range(2))
+    labels = cpu.model_batch(momentum_base[1])["mim_labels"]
+    gaps = chip_smoke.momentum_feature_gaps(card, cpu, labels)
+    assert set(gaps) == {"seed_1", "seed_2"}
+    for g in gaps.values():
+        assert g["gap"] == {"img_queue": 0.0, "txt_queue": 0.0}
+        assert min(g["dropout"].values()) > 0.0 and min(g["e4m3_weights"].values()) > 0.0
+    assert "infer" not in vars(card.state.ema_task)
+
+
+def test_alternated_steps_time_both_trainers_in_turn(monkeypatch, momentum_base, base):
+    """`alternated_steps` steps the recipe and plain pretrain_mum in turn,
+    after a warm-up step of each: one time per step, and the added time
+    of each pair."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "ALTERNATED_PAIRS", 2)
+    recipe, plain = copy.deepcopy(momentum_base[0]), copy.deepcopy(base[0])
+    out = chip_smoke.alternated_steps(recipe, plain)
+    assert recipe.state.step == plain.state.step == 3
+    assert all(len(v) == 2 for v in out["ms_per_step"].values())
+    assert out["pairs"] == 2 and len(out["added_ms_per_step_quartiles"]) == 2

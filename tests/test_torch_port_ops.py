@@ -229,7 +229,8 @@ def test_presets_equal_the_jax_yaml(group, name):
     assert got == want
 
 
-@pytest.mark.parametrize("overrides", [[], ["tag=run7"]])
+@pytest.mark.parametrize("overrides", [[], ["tag=run7"],
+                                       ["vlmo_ema_decay=0.99", "model_ema_decay=0.999"]])
 def test_base_keys_equal_the_jax_yaml(overrides):
     """The base keys the port reads (the run's directories, modes, logging
     and wandb among them, `wandb.name` resolved from `tag`) as JAX loads
@@ -243,6 +244,8 @@ def test_base_keys_equal_the_jax_yaml(overrides):
     assert {"exp_dir", "run_dir", "output_dir", "tag", "eval_mode", "throughput_mode",
             "minimize_metric", "profile_steps", "log_level", "wandb"} <= set(got)
     assert "eval_batch_size" in got["data"]
+    assert {"vlmo_ema", "vlmo_ema_decay", "model_ema", "model_ema_decay"} <= set(
+        port_config.BASE)
     for name in port_config.TRAIN_PRESETS:
         t = port_config.load_config([f"train={name}"])["train"]
         assert {"save_freq", "print_freq", "auto_resume", "resume", "start_epoch"} <= set(t)
