@@ -13,6 +13,8 @@
                                  # phase 23 alone gives them and the dropout
                                  # mask at its microbatches' rows, phase 6's
                                  # timed step and phase 23 alone
+    python3 chip_smoke.py --finetune-rest
+                                 # the build and phase 24 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -118,7 +120,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      (the dirs in a temporary directory, deleted at the end): finetune_vqa
      at vlmo_base, batch 32, mlp_impl=fused, 64 synthetic samples, two
      epochs each evaluated (rows 7, 3 and 4 on the 4 steps, row 6 and no
-     row 1 on the 4 eval batches), finite `log_stats.json` lines with
+     row 1 on the 4 eval batches and the 2 batches of the test-split
+     submission, written after training), finite `log_stats.json` lines with
      `val_vqa_mean_score`, checkpoint-0 and checkpoint-1 on disk; the
      checkpoint restored into a new trainer bit for bit (parameters, AdamW
      moments, step, both generators); a relaunch with train.epochs=3 that
@@ -166,7 +169,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      rounded to float8 e4m3) above it; one leaf of each tree, set to 0 before
      the step, within MOMENTUM_LEAF_TOL across the two, with the control
      (the other tree's decay) above it);
- 24. print the kernel table as one JSON line, the card line, and last
+ 24. the last four phases at vlmo_base, batch 32, on the synthetic data at
+     their defaults (rows 3 and 4 18 times a step, img_txt_calls):
+     finetune_caption (MLM over image-text pairs; C9: the image side, the
+     fused experts and the pooler held fixed), finetune_vis (imgcls, the
+     fused path on captioned samples), finetune_ref (the box head) and
+     finetune_inpainting (MIM on the fused stream, region masks, random
+     dVAE labels through cuDNN): each a warm-up step and TRAIN_STEPS timed
+     ones, the trained parameters moved and the frozen ones not, then a
+     batch-2 step against the CPU (as phase 8); two steps of the MPP
+     objective (`train=pretrain_mum train.loss_names=[mpp]`); two
+     finetune_vqa steps and the test-split submission written and read
+     back; serving at batch 64 under SERVE_OVERRIDES: `caption_ids` (16
+     tokens, 8 iterations: rows 1 and 6 f + 8 d = 102 times a request),
+     held to the CPU by teacher forcing on 4 rows (at each iteration the
+     CPU's MLM logits from the card's ids within E2E_ATOL, and the card's
+     next ids equal to the CPU's keep/re-mask rule applied to the card's
+     logits), and `inpaint_ids` with one region mask a row (f + d = 18),
+     held to the CPU on 4 rows (MIM logits within E2E_ATOL, merged codes
+     at the masked patches in at least INPAINT_AGREEMENT agreement, the
+     pixels outside the mask within 1e-5 of the CPU's resized input, the
+     codes outside the mask the card's dVAE encoder's own); the latencies
+     timed; one forward and backward of `DiscreteVAE` at its defaults on
+     the card and the CPU (no Gumbel noise): the reconstruction loss within
+     1e-3 relative, every gradient within GRAD_REL_TOL;
+ 25. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -190,11 +217,18 @@ import torch
 import torch.nn.functional as F
 
 from exploremultimodal_torch.config import VlmoConfig, load_config
-from exploremultimodal_torch.infer import Predictor
+from exploremultimodal_torch.data.masking import RegionMaskingGenerator
+from exploremultimodal_torch.infer import Predictor, mask_predict_step
 from exploremultimodal_torch.models import build_model
 from exploremultimodal_torch.ops import _build
+from exploremultimodal_torch.data.vqa_vocab import load_vqa_vocab
 from exploremultimodal_torch.ops.attention import key_padding_bias
-from exploremultimodal_torch.models.dvae import DalleEncoder, DalleVAE, map_pixels
+from exploremultimodal_torch.models.dvae import (
+    DalleEncoder,
+    DalleVAE,
+    DiscreteVAE,
+    map_pixels,
+)
 from exploremultimodal_torch.ops.dvae_conv import (
     block_widths,
     kernel_grid,
@@ -239,6 +273,7 @@ from exploremultimodal_torch.ops.mlp_fused import (
     gelu_tanh,
     hidden_splits,
 )
+from exploremultimodal_torch.ops.preprocess import normalize_image
 from exploremultimodal_torch.ops.quant import _quantize_int8, quant_dot
 from exploremultimodal_torch.ops.quant_fused import (
     int8_product,
@@ -262,7 +297,7 @@ from exploremultimodal_torch.data.datasets import build_dataset
 from exploremultimodal_torch.data.pipeline import Loader
 from exploremultimodal_torch.objectives.losses import itc_losses
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
-from exploremultimodal_torch.train.phases import dispatch
+from exploremultimodal_torch.train.phases import dispatch, write_vqa_submission
 from exploremultimodal_torch.train.retrieval import encode_split, recall_at_k
 from exploremultimodal_torch.train.trainer import Trainer
 
@@ -543,6 +578,53 @@ MOMENTUM_CPU_LEAF = "itm_head.fc.weight"  # not read by the momentum forward
 MOMENTUM_FEATURE_TOL, MOMENTUM_LEAF_TOL = 2e-2, 1e-4
 ENDPOINT_OVERRIDES = ["model=vlmo_base", "compute_dtype=bfloat16", "attn_impl=pallas",
                       "model.mlp_impl=fused"]
+# the last four phases (phase 24) at their defaults, as DOWNSTREAM, by
+# objective (finetune_vis is `imgcls`, apart from phase 21's pretrain_vis);
+# finetune_inpainting with its recipe's region masks. Each: trained
+# parameters (must move; the CPU comparison holds their gradients) and
+# frozen ones (must stay)
+REST_OVERRIDES = {
+    "caption": DOWNSTREAM + ["train=finetune_caption"],
+    "imgcls": DOWNSTREAM + ["train=finetune_vis"],
+    "ref": DOWNSTREAM + ["train=finetune_ref"],
+    "inpainting": DOWNSTREAM + ["train=finetune_inpainting", "data.mask_style=region"],
+}
+REST_CHECKED = {
+    "caption": ("transformer.txt_embeddings.word_embeddings.weight",
+                "transformer.blocks.0.attn.qkv.weight", "transformer.blocks.0.mlp_l.fc1.weight",
+                "transformer.blocks.11.attn.qkv.weight", "mlm_head.transform_dense.weight"),
+    "imgcls": ("transformer.patch_embed.weight", "transformer.blocks.0.attn.qkv.weight",
+            "transformer.blocks.11.mlp_vl.fc1.weight", "transformer.pooler.dense.weight",
+            "img_classifier.fc.weight"),
+    "ref": ("transformer.patch_embed.weight", "transformer.blocks.0.attn.qkv.weight",
+            "transformer.blocks.11.mlp_vl.fc1.weight", "transformer.pooler.dense.weight",
+            "ref_head.fc1.weight", "ref_head.fc2.weight"),
+    "inpainting": ("transformer.patch_embed.weight", "transformer.img_mask_token",
+                   "transformer.blocks.0.attn.qkv.weight",
+                   "transformer.blocks.11.mlp_vl.fc1.weight", "mim_head.fc.weight"),
+}
+# C9: finetune_caption's [mlm] freezes the image side, the mask token, the
+# fused experts and the pooler (as JAX's phase_frozen_predicate), though its
+# MLM runs the fused stream on image-text pairs
+REST_FROZEN = {
+    "caption": ("transformer.patch_embed.weight", "transformer.pos_embed",
+                "transformer.img_cls_token", "transformer.img_mask_token",
+                "transformer.blocks.0.mlp_v.fc1.weight", "transformer.blocks.11.mlp_vl.fc1.weight",
+                "transformer.pooler.dense.weight"),
+    "imgcls": ("transformer.img_mask_token",),
+    "ref": ("transformer.img_mask_token",),
+    "inpainting": ("transformer.pooler.dense.weight",),
+}
+MPP_OVERRIDES = DOWNSTREAM + ["train=pretrain_mum", "train.loss_names=[mpp]"]
+SUBMIT_SAMPLES = 64
+# caption serving: [CLS] [MASK] x 16 [SEP] [PAD]... at 8 refinements
+CAPTION_TOKENS, CAPTION_ITERS, MASK_ID = 16, 8, 103
+# inpainting: one region of up to INPAINT_REGION patches a row; at the
+# masked patches the card's and the CPU's merged codes (MIM argmaxes) must
+# agree at least this often (bf16 near-ties may flip), elsewhere they are the
+# dVAE's own codes
+INPAINT_REGION, INPAINT_AGREEMENT, INPAINT_PIXEL_ATOL = 75, 0.9, 1e-5
+DISCRETE_VAE_BATCH, DISCRETE_VAE_LOSS_RTOL = 4, 1e-3
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1823,8 +1905,9 @@ def txt_phase() -> dict:
 
 def _loop_counts(launches: dict, calls: int, steps: int, eval_batches: int, tag: str):
     """Rows 7, 3 and 4 on every FFN and attention call of the steps, row 6
-    on every FFN call of the evaluation, rows 1 and 2 never (attention at
-    eval takes the plain chain under attn_impl=auto)."""
+    on every FFN call of the `eval_batches` deterministic batches (the
+    evaluations and the test-split submission), rows 1 and 2 never
+    (attention there takes the plain chain under attn_impl=auto)."""
     want = {"fused_mlp_fwd_drop": calls * steps, "flash_attention_fwd_drop": calls * steps,
             "flash_attention_bwd_drop": calls * steps, "fused_mlp_fwd": calls * eval_batches,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0}
@@ -1872,7 +1955,11 @@ def train_loop_phase(card: str, calls: int, samples: int = LOOP_SAMPLES) -> dict
         base = VQA_OVERRIDES + [f"data.synthetic_size={samples}", "train.epochs=2",
                                 f"exp_dir={exp}"]
         result1, cfg1, launches1, wall1 = _run_phase(base + [f"run_dir={exp}/run1"])
-        _loop_counts(launches1, calls, 2 * batches, 2 * batches, "train_loop run 1")
+        # two evaluations of the val split, then the submission of the test
+        # split, each `batches` batches
+        _loop_counts(launches1, calls, 2 * batches, 3 * batches, "train_loop run 1")
+        require(os.path.isfile(result1["submission"] or ""),
+                f"train_loop run 1: no submission ({result1['submission']})")
         lines = [json.loads(x) for x in open(os.path.join(cfg1["run_dir"], "log_stats.json"))]
         require(len(lines) == len(result1["history"]) == 2
                 and all("val_vqa_mean_score" in x and "val_total_loss" in x for x in lines)
@@ -1912,7 +1999,7 @@ def train_loop_phase(card: str, calls: int, samples: int = LOOP_SAMPLES) -> dict
         # a relaunch under the same exp_dir: one more epoch, from checkpoint-1
         result2, _, launches2, wall2 = _run_phase(
             base + ["train.epochs=3", f"run_dir={exp}/run2"])
-        _loop_counts(launches2, calls, batches, batches, "train_loop run 2")
+        _loop_counts(launches2, calls, batches, 2 * batches, "train_loop run 2")
         require([h["epoch"] for h in result2["history"]] == [2]
                 and result2["state"].step == 3 * batches,
                 f"train_loop run 2: history {result2['history']}, "
@@ -2473,6 +2560,320 @@ def momentum_phase(card: str) -> dict:
     return {"train": launches, "pallas": pallas, "accum": accum}
 
 
+def caption_launches(cfg: VlmoConfig, n_iter: int) -> int:
+    """Attention calls and FFN calls of one `caption_ids` request: the image
+    stream below the fusion layer once, then at each iteration the text
+    stream below it and the fused rows above it."""
+    return cfg.fusion_layer + n_iter * cfg.depth
+
+
+def inpaint_launches(cfg: VlmoConfig) -> int:
+    """Attention calls and FFN calls of one `inpaint_ids` request: one
+    img-txt forward (the masked image and the caption below the fusion
+    layer, the fused rows above it)."""
+    return cfg.fusion_layer + cfg.depth
+
+
+def caption_rows(batch: int, length: int, tokens: int = CAPTION_TOKENS):
+    """`caption`'s rows: [CLS] [MASK] x tokens [SEP] [PAD]..., and their mask."""
+    row = [101] + [MASK_ID] * tokens + [102] + [0] * (length - 2 - tokens)
+    mask = np.zeros((batch, length), np.int32)
+    mask[:, : tokens + 2] = 1
+    return np.tile(np.asarray(row, np.int32), (batch, 1)), mask
+
+
+def caption_teacher_forced(gpu: Predictor, cpu: Predictor, img: np.ndarray,
+                           ids: np.ndarray, mask: np.ndarray, n_iter: int,
+                           rows: int) -> dict:
+    """`caption_ids`'s loop replayed on `gpu` (the card) with each
+    iteration checked on `cpu` at the first `rows` rows: the CPU's MLM
+    logits from the card's current ids (teacher forcing) against the
+    card's, and the card's next ids against `mask_predict_step` on the CPU
+    applied to the card's own logits (bit for bit). Returns the logit
+    errors, whether each iteration's ids agreed, and the card's final ids."""
+    errs, same = [], []
+    with torch.inference_mode():
+        dev = gpu.device
+        t_img, t_ids, t_mask = (torch.from_numpy(a).to(dev) for a in (img, ids, mask))
+        h_img = gpu.task.stream_below_fusion(img=normalize_image(t_img, gpu.task.config.dtype))
+        c_img = normalize_image(torch.from_numpy(img[:rows]), cpu.task.config.dtype)
+        h_img_cpu = cpu.task.stream_below_fusion(img=c_img)
+        c_mask = torch.from_numpy(mask[:rows])
+        gen = t_ids == MASK_ID
+        n_gen = gen.sum(dim=1, dtype=torch.int32)
+        cur = t_ids
+        for it in range(n_iter):
+            logits = gpu._caption_logits(h_img, cur, t_mask)
+            nxt = mask_predict_step(logits, t_ids, gen, n_gen, it, n_iter, MASK_ID)
+            head = logits[:rows].cpu()
+            ref = cpu._caption_logits(h_img_cpu, cur[:rows].cpu(), c_mask)
+            errs.append(float((head - ref).abs().max()))
+            rule = mask_predict_step(head, t_ids[:rows].cpu(), gen[:rows].cpu(),
+                                     n_gen[:rows].cpu(), it, n_iter, MASK_ID)
+            same.append(bool(torch.equal(nxt[:rows].cpu(), rule)))
+            cur = nxt
+    return {"logit_err": errs, "rule_equal": same, "ids": cur.cpu().numpy()}
+
+
+def caption_serve(card: str, cfg_dict: dict) -> dict:
+    """`caption_ids` at batch 64 on the card, seeded weights (seed 0):
+    N_REQUESTS requests (the first a warm-up) of CAPTION_TOKENS generated
+    tokens at CAPTION_ITERS iterations, launches counted against
+    `caption_launches`, the first request replayed by
+    `caption_teacher_forced` against the CPU on CPU_CHECK_ROWS rows."""
+    cfg = VlmoConfig.from_config(cfg_dict)
+    state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
+    gpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cuda")
+    cpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cpu")
+    rng = np.random.default_rng(11)
+    ids, mask = caption_rows(BATCH, cfg.max_text_len)
+    imgs = [rng.integers(0, 256, (BATCH, cfg.img_size, cfg.img_size, 3), dtype=np.uint8)
+            for _ in range(N_REQUESTS)]
+    per_request = caption_launches(cfg, CAPTION_ITERS)
+    for fn in KERNELS:
+        fn.launches = 0
+    latencies, outs = [], []
+    for img in imgs:
+        t = time.perf_counter()
+        outs.append(gpu.caption_ids(img, ids, mask, CAPTION_ITERS, MASK_ID))
+        latencies.append(time.perf_counter() - t)
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    require_launches("serve_caption", launches, {
+        "flash_attention_fwd": per_request, "fused_mlp_fwd": per_request,
+        "flash_attention_fwd_drop": 0, "fused_mlp_fwd_drop": 0}, N_REQUESTS)
+    gen = ids == MASK_ID
+    require(all(o.shape == ids.shape and o.dtype == np.int32 and not (o == MASK_ID).any()
+                and (o[~gen] == ids[~gen]).all() for o in outs),
+            "serve_caption: bad ids (shape, dtype, an unfilled [MASK] or a moved token)")
+    forced = caption_teacher_forced(gpu, cpu, imgs[0], ids, mask, CAPTION_ITERS,
+                                    CPU_CHECK_ROWS)
+    require(max(forced["logit_err"]) <= E2E_ATOL,
+            f"serve_caption: MLM logits on the card vs the CPU (teacher-forced): "
+            f"{forced['logit_err']} (tol {E2E_ATOL})")
+    require(all(forced["rule_equal"]),
+            f"serve_caption: the card's next ids differ from the keep/re-mask rule on "
+            f"its own logits: {forced['rule_equal']}")
+    med = statistics.median(latencies[1:])
+    out = {"card": card, "batch": BATCH, "tokens": CAPTION_TOKENS,
+           "iterations": CAPTION_ITERS, "first_request_ms": latencies[0] * 1e3,
+           "latency_ms": [x * 1e3 for x in latencies[1:]], "median_latency_ms": med * 1e3,
+           "rows_per_s": BATCH / med, "launches": launches,
+           "expected_launches_per_request": per_request,
+           "teacher_forced_logit_err": forced["logit_err"],
+           "rule_equal": forced["rule_equal"],
+           "replay_equals_request": bool(np.array_equal(forced["ids"], outs[0]))}
+    print("serve_caption: " + json.dumps(out), flush=True)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def inpaint_serve(card: str, cfg_dict: dict) -> dict:
+    """`inpaint_ids` at batch 64 on the card with one region mask a row
+    (the random dVAE with its decoder, seed 0, the task's weights seed 0):
+    N_REQUESTS requests (the first a warm-up), launches counted against
+    `inpaint_launches`, the first request's first CPU_CHECK_ROWS rows held
+    to the CPU: the MIM logits within E2E_ATOL, the merged codes at the
+    masked patches in INPAINT_AGREEMENT agreement, the pixels outside the
+    mask within INPAINT_PIXEL_ATOL of the CPU's resized input and the codes
+    outside it the card's dVAE encoder's own."""
+    cfg = VlmoConfig.from_config(cfg_dict)
+    grid = cfg.img_size // cfg.patch_size
+    state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
+    gpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cuda")
+    cpu = Predictor(cfg_dict, state, max_batch=BATCH, device="cpu")
+    region = RegionMaskingGenerator(grid, INPAINT_REGION)
+    rng = np.random.default_rng(12)
+    reqs = [(img, np.stack([region(rng).reshape(-1) for _ in range(BATCH)]), ids, mask)
+            for img, ids, mask in make_requests(cfg, rng, N_REQUESTS, BATCH)]
+    _ = gpu.dvae, cpu.dvae  # both tokenizers built outside the timing
+    per_request = inpaint_launches(cfg)
+    for fn in KERNELS:
+        fn.launches = 0
+    latencies, outs = [], []
+    for img, pm, ids, mask in reqs:
+        t = time.perf_counter()
+        outs.append(gpu.inpaint_ids(img, pm, ids, mask))
+        latencies.append(time.perf_counter() - t)
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    require_launches("serve_inpaint", launches, {
+        "flash_attention_fwd": per_request, "fused_mlp_fwd": per_request,
+        "flash_attention_fwd_drop": 0, "fused_mlp_fwd_drop": 0}, N_REQUESTS)
+    size = cfg.img_size // 2
+    require(all(o.shape == (BATCH, size, size, 3) and np.isfinite(o).all()
+                and o.min() >= 0 and o.max() <= 1 and c.shape == (BATCH, grid * grid)
+                for o, c in outs), "serve_inpaint: bad images or codes")
+    rows = CPU_CHECK_ROWS
+    img, pm, ids, mask = (a[:rows] for a in reqs[0])
+    got_img, got_codes = outs[0][0][:rows], outs[0][1][:rows]
+    want_img, want_codes = cpu.inpaint_ids(img, pm, ids, mask)
+    with torch.inference_mode():
+        args = [torch.from_numpy(a) for a in (img, pm, ids, mask)]
+        logits_cpu = cpu._inpaint_logits(*args)
+        logits_gpu = gpu._inpaint_logits(*(a.cuda() for a in args)).cpu()
+        small = F.interpolate((args[0].float() / 255.0).permute(0, 3, 1, 2),
+                              size=(size, size), mode="bilinear", align_corners=False,
+                              antialias=True).permute(0, 2, 3, 1)
+        # the encoder on the request's whole batch, as the request ran it
+        full = torch.from_numpy(reqs[0][0]).cuda()
+        own_resized = gpu.dvae.get_codebook_indices(map_pixels(F.interpolate(
+            (full.float() / 255.0).permute(0, 3, 1, 2), size=(size, size),
+            mode="bilinear", align_corners=False, antialias=True).permute(0, 2, 3, 1)))[:rows]
+        own = gpu.dvae.get_codebook_indices(map_pixels(
+            torch.from_numpy(outs[0][0]).cuda()))[:rows].cpu().numpy()
+    logit_err = float((logits_gpu - logits_cpu).abs().max())
+    masked = pm > 0
+    agree = float((got_codes[masked] == want_codes[masked]).mean())
+    cell = size // grid
+    pix = np.repeat(np.repeat(pm.reshape(rows, grid, grid), cell, 1), cell, 2) == 0
+    pixel_err = float(np.abs(got_img[pix] - small.numpy()[pix]).max())
+    own_equal = bool((got_codes[~masked] == own_resized.cpu().numpy()[~masked]).all())
+    require(logit_err <= E2E_ATOL, f"serve_inpaint: MIM logits differ from the CPU by "
+            f"{logit_err} (tol {E2E_ATOL})")
+    require(agree >= INPAINT_AGREEMENT, f"serve_inpaint: merged codes at the masked patches "
+            f"agree {agree} with the CPU's (limit {INPAINT_AGREEMENT})")
+    require(pixel_err <= INPAINT_PIXEL_ATOL, f"serve_inpaint: pixels outside the mask "
+            f"{pixel_err} from the CPU's resized input (tol {INPAINT_PIXEL_ATOL})")
+    require(own_equal, "serve_inpaint: codes outside the mask are not the dVAE encoder's own")
+    med = statistics.median(latencies[1:])
+    out = {"card": card, "batch": BATCH, "first_request_ms": latencies[0] * 1e3,
+           "latency_ms": [x * 1e3 for x in latencies[1:]], "median_latency_ms": med * 1e3,
+           "rows_per_s": BATCH / med, "launches": launches,
+           "expected_launches_per_request": per_request,
+           "masked_patches_per_row": float(pm.sum(1).mean()),
+           "cpu_check_mim_logit_err": logit_err, "masked_code_agreement": agree,
+           "unmasked_pixel_err": pixel_err, "unmasked_codes_own": own_equal,
+           "image_err_vs_cpu": float(np.abs(got_img - want_img).max()),
+           "repainted_codes_reencoded_agreement": float((own == got_codes).mean())}
+    print("serve_inpaint: " + json.dumps(out), flush=True)
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def discrete_vae_check(card: str) -> dict:
+    """One forward and backward of `DiscreteVAE` at its defaults (image
+    256, 3 layers, hidden 64, 8192 tokens) on DISCRETE_VAE_BATCH seeded
+    images, on the card and on the CPU from the same seeded weights,
+    without Gumbel noise: the reconstruction loss within
+    DISCRETE_VAE_LOSS_RTOL, every gradient within GRAD_REL_TOL (relative
+    L2); the card's forward and backward timed."""
+    torch.manual_seed(0)
+    cpu = DiscreteVAE()
+    gpu = DiscreteVAE().cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    img = torch.from_numpy(np.random.default_rng(13).random(
+        (DISCRETE_VAE_BATCH, 256, 256, 3), np.float32))
+    _, loss_cpu = cpu(img)
+    loss_cpu.backward()
+    img_gpu = img.cuda()
+    _, loss_gpu = gpu(img_gpu)
+    loss_gpu.backward()
+    errs = {k: rel_l2(p.grad.cpu(), cpu.get_parameter(k).grad)
+            for k, p in gpu.named_parameters()}
+
+    def fwd_bwd():
+        gpu.zero_grad()
+        gpu(img_gpu)[1].backward()
+
+    ms = time_ms(fwd_bwd, iters=5, warmup=1)
+    lc, lg = float(loss_cpu), float(loss_gpu)
+    out = {"card": card, "batch": DISCRETE_VAE_BATCH, "loss_gpu_cpu": (lg, lc),
+           "loss_rel_err": abs(lg - lc) / abs(lc), "max_grad_rel_err": max(errs.values()),
+           "grad_rel_err": errs, "fwd_bwd_ms": ms,
+           "ids_equal": float((gpu.get_codebook_indices(img_gpu).cpu()
+                               == cpu.get_codebook_indices(img)).float().mean())}
+    print("discrete_vae: " + json.dumps(out), flush=True)
+    require(out["loss_rel_err"] <= DISCRETE_VAE_LOSS_RTOL,
+            f"discrete_vae: loss {lg} vs CPU {lc} beyond {DISCRETE_VAE_LOSS_RTOL}")
+    require(out["max_grad_rel_err"] <= GRAD_REL_TOL,
+            f"discrete_vae: gradients differ from the CPU's: {errs}")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def submission_phase(card: str) -> dict:
+    """Two finetune_vqa steps (VQA_OVERRIDES, SUBMIT_SAMPLES samples) and
+    the test-split submission: `write_vqa_submission` writes
+    `submit/vqa_submit_0.json` and the merged `vqa_submit.json`, read back
+    as one answer (a string of the vocabulary) per test row, the
+    question ids the samples'."""
+    with tempfile.TemporaryDirectory() as root:
+        cfg_dict = load_config(VQA_OVERRIDES + [f"data.synthetic_size={SUBMIT_SAMPLES}",
+                                                f"output_dir={root}"])
+        trainer = Trainer(cfg_dict, device="cuda")
+        calls = img_txt_calls(trainer.config)
+        run_counted(trainer, EXTRA_STEPS)
+        for fn in KERNELS:
+            fn.launches = 0
+        t = time.perf_counter()
+        path = write_vqa_submission(trainer)
+        secs = time.perf_counter() - t
+        launches = {fn.__name__: fn.launches for fn in KERNELS}
+        rows = json.load(open(path))
+        part = json.load(open(os.path.join(root, "submit", "vqa_submit_0.json")))
+    answers = set(load_vqa_vocab()["id2answer"].values())
+    batches = -(-SUBMIT_SAMPLES // VQA_BATCH)
+    require(path.endswith("vqa_submit.json") and rows == part
+            and len(rows) == batches * VQA_BATCH
+            and all(set(r) == {"question_id", "answer"} and r["answer"] in answers
+                    and isinstance(r["question_id"], int) for r in rows)
+            and sorted({r["question_id"] for r in rows}) == list(range(SUBMIT_SAMPLES)),
+            f"vqa_submission: malformed submission of {len(rows)} rows")
+    # the eval forward is deterministic: the plain attention chain under
+    # attn_impl=auto, row 6 on every FFN call
+    require_launches("vqa_submission", launches, {
+        "fused_mlp_fwd": calls, "flash_attention_fwd_drop": 0, "flash_attention_fwd": 0},
+        batches)
+    out = {"card": card, "rows": len(rows), "seconds": secs, "launches": launches,
+           "sample": rows[:2]}
+    del trainer
+    torch.cuda.empty_cache()
+    print("vqa_submission: " + json.dumps(out), flush=True)
+    return out
+
+
+def finetune_rest_phase(card: str) -> dict:
+    """Phase 24: finetune_caption, finetune_vis, finetune_ref and
+    finetune_inpainting at vlmo_base, batch 32 (each timed with its
+    launches, moved and frozen parameters, then against the CPU), the MPP
+    objective and the VQA submission (short), then caption and inpaint
+    serving and the DiscreteVAE check."""
+    out = {}
+    for name, overrides in REST_OVERRIDES.items():
+        cfg_dict = load_config(overrides)
+        cfg = VlmoConfig.from_config(cfg_dict)
+        require(cfg.attn_impl == "auto" and cfg.attn_drop_rate > 0 and cfg.mlp_impl == "xla"
+                and cfg_dict["data"]["batch_size"] == TRAIN_BATCH,
+                f"{name}: the phase must run its defaults at batch 32")
+        calls = img_txt_calls(cfg)  # one img-txt forward: f + d = 18
+        out[name] = timed_phase(f"{name}_train", cfg_dict, REST_CHECKED[name], {
+            "flash_attention_fwd_drop": calls, "flash_attention_bwd_drop": calls,
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0, "fused_mlp_fwd": 0,
+            "fused_mlp_fwd_drop": 0}, unmoved=REST_FROZEN[name])
+        downstream_cpu_check(f"{name}_cpu_check", overrides, REST_CHECKED[name])
+    mpp = VlmoConfig.from_config(load_config(MPP_OVERRIDES))
+    _, steps, _ = short_phase("mpp_train", load_config(MPP_OVERRIDES), {
+        "flash_attention_fwd_drop": img_txt_calls(mpp),
+        "flash_attention_bwd_drop": img_txt_calls(mpp)})
+    require(all(np.isfinite(m.get("mpp_task_loss", np.nan)) and m["mpp_task_loss"] > 0
+                for m in steps), f"mpp_train: no finite positive MPP loss in {steps}")
+    out["submission"] = submission_phase(card)
+    out["caption"] = caption_serve(card, load_config(ENDPOINT_OVERRIDES
+                                                     + ["train=finetune_caption"]))
+    out["inpaint"] = inpaint_serve(card, load_config(ENDPOINT_OVERRIDES
+                                                     + ["train=finetune_inpainting"]))
+    out["discrete_vae"] = discrete_vae_check(card)
+    return out
+
+
+def finetune_rest_only(card: str) -> int:
+    """The build, then phase 24 alone (`--finetune-rest`)."""
+    finetune_rest_phase(card)
+    return 0
+
+
 def accum_dropout_masks(cfg: VlmoConfig, dev) -> None:
     """The dropout mask bit for bit at the microbatches' rows of
     accumulation_steps=2: the streams' B/2 and ITM's 3B/2 (BH = 192 and
@@ -2543,6 +2944,8 @@ def main(argv: list[str] | None = None) -> int:
         return downstream_only(card, dev)
     if args[:1] == ["--momentum"]:
         return momentum_only(card, dev)
+    if args[:1] == ["--finetune-rest"]:
+        return finetune_rest_only(card)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -2703,6 +3106,10 @@ def main(argv: list[str] | None = None) -> int:
     # pretrain_mum's full recipe: the momentum encoder, the queues, the eval
     # EMA and accumulation
     momentum_phase(card)
+
+    # the last four phases, MPP, the VQA submission, caption and inpaint
+    # serving, the DiscreteVAE
+    finetune_rest_phase(card)
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path

@@ -267,6 +267,7 @@ class VlmoConfig:
     phase: str | None = None
     loss_names: tuple[str, ...] = ()
     vqa_label_size: int = 3129
+    num_classes: int = 0
     mim_head_pos: str = "img"
     global_reduce: bool = False
     mlm_gather_cap: float = 0.375
@@ -310,6 +311,7 @@ class VlmoConfig:
             phase=t["phase"],
             loss_names=tuple(t["loss_names"]),
             vqa_label_size=cfg["data"].get("vqav2_label_size", 3129),
+            num_classes=int(m.get("num_classes") or 0),
             mim_head_pos=t.get("mim_head_pos", "img"),
             global_reduce=bool(t.get("global_reduce", False)),
             mlm_gather_cap=float(t.get("mlm_gather_cap", 0.375)),

@@ -1,7 +1,8 @@
 """The synthetic dataset (counterpart of
-`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, its pretrain,
-text-only, VQA, retrieval and NLVR2 contracts): the same samples, drawn in the same order from the same numpy
-generator, so a seed gives the JAX package's batch.
+`exploremultimodal_tpu/data/datasets.py` `SyntheticDataset`, every one of its
+contracts: pretrain, text-only, VQA, retrieval, NLVR2, image classification,
+MPP and referring boxes): the same samples, drawn in the same order from the
+same numpy generator, so a seed gives the JAX package's batch.
 
 The repository holds no image-text arrow shards, so this is the training
 data of the port for now.
@@ -13,7 +14,7 @@ from typing import Any
 
 import numpy as np
 
-from exploremultimodal_torch.data.masking import MaskingGenerator
+from exploremultimodal_torch.data.masking import MaskingGenerator, RegionMaskingGenerator
 
 Sample = dict[str, Any]
 
@@ -36,7 +37,8 @@ class SyntheticDataset:
                  vocab_size: int = 30522, mask_generator: MaskingGenerator,
                  vqa_label_size: int | None = None, text_only: bool = False,
                  draw_false_text: int = 0, nlvr: bool = False,
-                 image_aug: bool = False, seed: int = 0):
+                 image_aug: bool = False, num_classes: int | None = None,
+                 mpp_labels: bool = False, ref_boxes: bool = False, seed: int = 0):
         self.size = size
         self.img_size = img_size
         self.second_size = second_size
@@ -48,6 +50,9 @@ class SyntheticDataset:
         self.draw_false_text = draw_false_text
         self.nlvr = nlvr
         self.image_aug = image_aug
+        self.num_classes = num_classes
+        self.mpp_labels = mpp_labels
+        self.ref_boxes = ref_boxes
         self.seed = seed
 
     def __len__(self) -> int:
@@ -83,6 +88,8 @@ class SyntheticDataset:
         if self.image_aug:
             sample["image_aug_u8"] = rng.integers(
                 0, 256, (self.img_size, self.img_size, 3), dtype=np.uint8)
+        if self.num_classes:
+            sample["label"] = np.int32(rng.integers(0, self.num_classes))
         sample["image_bool_masked_pos"] = self.mask_generator(rng).reshape(-1)
         if self.second_size:
             sample["image4dalle_u8"] = rng.integers(
@@ -95,6 +102,16 @@ class SyntheticDataset:
             sample["false_text_ids"] = rng.integers(
                 1000, self.vocab_size, (self.draw_false_text, L)).astype(np.int32)
             sample["false_text_mask"] = np.ones((self.draw_false_text, L), np.int32)
+        if self.mpp_labels:
+            masked = sample["image_bool_masked_pos"]
+            rgb = rng.integers(0, 256, (masked.shape[0], 3)).astype(np.int32)
+            rgb[masked == 0] = -100
+            sample["image_labels_mpp"] = rgb
+        if self.ref_boxes:
+            w, h = rng.uniform(0.1, 0.5, 2)
+            cx = rng.uniform(w / 2, 1 - w / 2)
+            cy = rng.uniform(h / 2, 1 - h / 2)
+            sample["ref_box"] = np.asarray([cx, cy, w, h], np.float32)
         if self.nlvr:
             sample["image_0_u8"] = sample["image_u8"]
             sample["image_1_u8"] = rng.integers(
@@ -108,9 +125,12 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
     JAX `MultiTaskData` builds the `synthetic` key, whose samples are the
     same in every split: a phase with masked images (pretraining, or MIM) gets
     the configured patch masker and the dVAE's half-size image, any other
-    the default masker and no second image; `vqa` adds the VQA targets,
-    `irtr` `train.draw_false_text` false captions (3 where unset), `nlvr2`
-    the image pair and answer, `vlmo_ema` the momentum encoder's second
+    the default masker and no second image; `data.mask_style=region`
+    gives a phase with masked images one region a sample instead; `vqa`
+    adds the VQA targets, `irtr` `train.draw_false_text` false captions (3
+    where unset), `nlvr2` the image pair and answer, `imgcls` a class
+    label of `model.num_classes` (1000 where 0), `mpp` the MPP targets,
+    `refcoco` the referring box, `vlmo_ema` the momentum encoder's second
     view on the train split; a phase named `*txt*` whose losses are at
     most MLM gets text-only samples.
     Only `train.datasets=[synthetic]` is ported."""
@@ -123,12 +143,12 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
             f"train.datasets={keys}: only the synthetic dataset is ported (the "
             "repository holds no arrow shards); pass 'train.datasets=[synthetic]'")
     d, m = cfg["data"], cfg["model"]
-    if d.get("mask_style", "block") != "block":
-        raise NotImplementedError(f"data.mask_style={d['mask_style']!r}")
     losses = set(t["loss_names"])
     masked_image = t["phase"].startswith("pretrain") or "mim" in losses
     grid = m["img_size"] // m["patch_size"]
-    if masked_image:
+    if masked_image and d.get("mask_style", "block") == "region":
+        masker = RegionMaskingGenerator(grid, d["num_mask_patches"])
+    elif masked_image:
         masker = MaskingGenerator(
             grid, num_masking_patches=d["num_mask_patches"],
             min_num_patches=d.get("min_mask_patches_per_block") or 4,
@@ -145,4 +165,6 @@ def build_dataset(cfg: dict, split: str = "train") -> SyntheticDataset:
         text_only=losses <= {"mlm"} and "txt" in t["phase"],
         draw_false_text=int(t.get("draw_false_text", 3)) if "irtr" in losses else 0,
         nlvr="nlvr2" in losses,
-        image_aug=bool(cfg.get("vlmo_ema")) and split == "train")
+        image_aug=bool(cfg.get("vlmo_ema")) and split == "train",
+        num_classes=int(m.get("num_classes") or 1000) if "imgcls" in losses else None,
+        mpp_labels="mpp" in losses, ref_boxes="refcoco" in losses)

@@ -1,9 +1,10 @@
-"""BEiT-style blockwise image mask generator (counterpart of
-`exploremultimodal_tpu/data/masking.py` `MaskingGenerator`, the same draws
-from the same numpy generator).
+"""Image patch maskers (counterpart of `exploremultimodal_tpu/data/masking.py`:
+`MaskingGenerator`, `RandomMaskingGenerator`, `RegionMaskingGenerator`, the
+same draws from the same numpy generator).
 
-Random-aspect rectangular blocks of at least `min_num_patches` are placed
-until `num_masking_patches` of the grid are masked, or no block fits.
+`MaskingGenerator` (BEiT's blockwise masks) places random-aspect
+rectangular blocks of at least `min_num_patches` until
+`num_masking_patches` of the grid are masked, or no block fits.
 """
 
 from __future__ import annotations
@@ -56,4 +57,45 @@ class MaskingGenerator:
             if delta == 0:
                 break
             count += delta
+        return mask
+
+
+class RandomMaskingGenerator:
+    """`num_mask` patches of the grid drawn uniformly (one permutation of
+    the patches), as a flat (num_patches,) int32 mask."""
+
+    def __init__(self, input_size: int | tuple[int, int], num_mask: int):
+        if not isinstance(input_size, tuple):
+            input_size = (input_size, input_size)
+        self.num_patches = input_size[0] * input_size[1]
+        self.num_mask = num_mask
+
+    def __call__(self, rng: np.random.Generator) -> np.ndarray:
+        mask = np.zeros(self.num_patches, dtype=np.int32)
+        mask[rng.permutation(self.num_patches)[: self.num_mask]] = 1
+        return mask
+
+
+class RegionMaskingGenerator:
+    """One random rectangle of at most `num_masking_patches` patches
+    (`data.mask_style=region`, the inpainting hole): a height drawn
+    uniformly, the widest width that keeps the area within the budget,
+    then a uniform position. The draw favours thin regions, so the masked
+    area is skewed below the budget."""
+
+    def __init__(self, input_size: int | tuple[int, int], num_masking_patches: int):
+        if not isinstance(input_size, tuple):
+            input_size = (input_size, input_size)
+        self.height, self.width = input_size
+        self.num_masking_patches = num_masking_patches
+
+    def __call__(self, rng: np.random.Generator) -> np.ndarray:
+        """(height, width) int32 mask, 1 inside the region."""
+        mask = np.zeros((self.height, self.width), dtype=np.int32)
+        target = max(1, self.num_masking_patches)
+        h = int(rng.integers(1, min(self.height, target) + 1))
+        w = min(self.width, max(1, target // h))
+        top = int(rng.integers(0, self.height - h + 1))
+        left = int(rng.integers(0, self.width - w + 1))
+        mask[top: top + h, left: left + w] = 1
         return mask

@@ -1,12 +1,16 @@
 """Serving API over one set of VLMo weights (counterpart of
 `exploremultimodal_tpu/infer.py`): VQA answers, the ITC embeddings of
-images and texts and their similarity, the ITM match probability and the
-NLVR2 probability.
+images and texts and their similarity, the ITM match probability, the
+NLVR2 probability, captions by mask-predict decoding over the MLM head,
+and text-conditioned inpainting through the MIM head and the DALL-E
+decoder.
 
 Each text endpoint has a method on token-id arrays (`vqa_logits`,
-`encode_text_ids`, `itm_score_ids`, `nlvr2_ids`) and one on strings (`vqa`,
-`encode_text`, `itm_score`, `nlvr2`) that tokenizes with the BERT tokenizer
-and calls it. Images are uint8 NHWC arrays at the model's size.
+`encode_text_ids`, `itm_score_ids`, `nlvr2_ids`, `caption_ids`,
+`inpaint_ids`) and one on strings (`vqa`, `encode_text`, `itm_score`,
+`nlvr2`, `caption`, `inpaint`) that tokenizes with the BERT tokenizer and
+calls it; a machine without `transformers` serves through the former.
+Images are uint8 NHWC arrays at the model's size.
 
 Every call pads its batch to a power-of-two bucket (at most `max_batch`) with
 copies of the last row, runs, and slices the result back, as the JAX
@@ -19,14 +23,17 @@ checkpoint directory the trainer saved, a BEiT/VLMo `.pth` file, or a
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from exploremultimodal_torch.config import VlmoConfig, load_config
 from exploremultimodal_torch.data.vqa_vocab import RESOURCE_DIR, load_vqa_vocab
+from exploremultimodal_torch.models.dvae import create_d_vae, map_pixels, unmap_pixels
 from exploremultimodal_torch.models.task import VlmoTask, build_model, resolve_device
 from exploremultimodal_torch.ops.preprocess import normalize_image
 
@@ -45,11 +52,33 @@ def _pad_to(x: np.ndarray, b: int) -> np.ndarray:
     return np.pad(x, pad, mode="edge")
 
 
+def mask_predict_step(logits: torch.Tensor, ids: torch.Tensor, gen: torch.Tensor,
+                      n_gen: torch.Tensor, it: int, n_iter: int,
+                      mask_id: int) -> torch.Tensor:
+    """Iteration `it` of `n_iter` of mask-predict decoding, as the body of
+    JAX's `_caption_fn`: every generated position (`gen`, `n_gen` of them
+    a row) takes the argmax of its fp32 `logits`; the ceil(n_gen (it + 1) /
+    n_iter) most confident (largest log-softmax maximum; ranks from two
+    stable sorts, positions not generated at -inf) keep it and the rest
+    take `mask_id`; the other positions keep `ids`. The ids keep their
+    dtype (int32)."""
+    pred = logits.argmax(dim=-1).to(ids.dtype)
+    conf = torch.log_softmax(logits, dim=-1).amax(dim=-1)
+    conf = torch.where(gen, conf, torch.full_like(conf, -math.inf))
+    # JAX's int32 / int true division: float32
+    n_keep = torch.ceil((n_gen * (it + 1)).to(torch.float32) / n_iter).to(torch.int32)
+    order = torch.argsort(-conf, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    keep = rank < n_keep[:, None]
+    return torch.where(gen, torch.where(keep, pred, torch.full_like(pred, mask_id)), ids)
+
+
 class Predictor:
     """Serving over one set of weights, on `device` (CUDA by default). The
     endpoints need the heads of the train phase the weights come from:
     `vqa*` finetune_vqa's, `encode_*`, `similarity` and `itm_score*`
-    pretrain_mum's (ITC and ITM), `nlvr2*` finetune_nlvr2's."""
+    pretrain_mum's (ITC and ITM), `nlvr2*` finetune_nlvr2's, `caption*`
+    finetune_caption's (MLM), `inpaint*` finetune_inpainting's (MIM)."""
 
     def __init__(self, cfg: dict, state_dict: dict, *, max_batch: int = 64,
                  device: str | torch.device = "cuda"):
@@ -61,6 +90,7 @@ class Predictor:
         self.max_batch = int(max_batch)
         self._tokenizer = None
         self._vqa_vocab = None
+        self._dvae = None
 
     @classmethod
     def from_checkpoint(cls, checkpoint: str, overrides: Sequence[str] = (),
@@ -125,12 +155,16 @@ class Predictor:
         id2ans = self._vqa_vocab["id2answer"]
         return [id2ans[int(i)] for i in logits.argmax(axis=-1)]
 
-    def _run(self, fn, n: int, *arrays: np.ndarray) -> np.ndarray:
+    def _run(self, fn, n: int, *arrays: np.ndarray):
+        """`fn` on the arrays padded to the batch's bucket; its output (or
+        each of a tuple of outputs) sliced back to `n` rows on the host."""
         b = _next_bucket(n, self.max_batch)
         tensors = [torch.from_numpy(np.ascontiguousarray(_pad_to(a, b)))
                    .to(self.device) for a in arrays]
         with torch.inference_mode():
             out = fn(*tensors)
+        if isinstance(out, tuple):
+            return tuple(o.cpu().numpy()[:n] for o in out)
         return out.cpu().numpy()[:n]
 
     @staticmethod
@@ -175,6 +209,77 @@ class Predictor:
         }
         infer = self.task.infer(batch, infer_mode="img-txt")
         return self.task.vqa_logits(infer["cls_feats"]).to(torch.float32)
+
+    def _caption_logits(self, h_img, ids, mask) -> torch.Tensor:
+        """The MLM head's fp32 logits of the text rows `ids` fused with the
+        image's hidden states below the fusion layer `h_img`: the text
+        stream below fusion, then the fused top."""
+        t = self.task
+        h_txt = t.stream_below_fusion(txt=ids, txt_mask=mask)
+        co_feats, _ = t.transformer.fuse_from_hidden(h_img, h_txt, mask)
+        return t.mlm_logits(co_feats[:, : t.config.max_text_len]).to(torch.float32)
+
+    def _caption_fn(self, img_u8, ids, mask, n_iter: int, mask_id: int) -> torch.Tensor:
+        """Mask-predict decoding (JAX's `_caption_fn`): the image stream
+        below the fusion layer runs once; each of the `n_iter` iterations
+        runs the text stream and the fused top on the current ids and takes
+        one `mask_predict_step`. No value is read on the host inside the
+        loop."""
+        t = self.task
+        h_img = t.stream_below_fusion(img=normalize_image(img_u8, t.config.dtype))
+        gen = ids == mask_id
+        n_gen = gen.sum(dim=1, dtype=torch.int32)
+        cur = ids
+        for it in range(n_iter):
+            cur = mask_predict_step(self._caption_logits(h_img, cur, mask), ids, gen, n_gen,
+                                    it, n_iter, mask_id)
+        return cur
+
+    def _inpaint_logits(self, img_u8, patch_mask, ids, mask) -> torch.Tensor:
+        """MIM logits of every patch, the masked ones replaced by the mask
+        token, from the fused image-text stream (compute_mim's `mum`
+        path)."""
+        t = self.task
+        batch = {"image": normalize_image(img_u8, t.config.dtype),
+                 "image_bool_masked_pos": patch_mask, "text_ids": ids, "text_mask": mask}
+        img_feats = t.infer(batch, infer_mode="img-txt", mask_img=True)["img_feats"]
+        return t.mim_logits(img_feats[:, 1:]).to(torch.float32)
+
+    def _inpaint_fn(self, img_u8, patch_mask, ids, mask):
+        """The image at the dVAE's size (antialiased bilinear, as
+        `jax.image.resize` downscales), its codes, the MIM head's codes at
+        the masked patches merged in, decoded, and pasted into the image at
+        the masked cells; all on the device. Returns (images in [0, 1],
+        merged int32 codes)."""
+        grid = self.task.config.img_size // self.task.config.patch_size
+        size, cell = self.dvae.image_size, self.dvae.image_size // grid
+        img = F.interpolate((img_u8.to(torch.float32) / 255.0).permute(0, 3, 1, 2),
+                            size=(size, size), mode="bilinear", align_corners=False,
+                            antialias=True).permute(0, 2, 3, 1)
+        codes = self.dvae.get_codebook_indices(map_pixels(img))
+        pred = self._inpaint_logits(img_u8, patch_mask, ids, mask).argmax(dim=-1)
+        merged = torch.where(patch_mask > 0, pred, codes)
+        recon = unmap_pixels(torch.sigmoid(self.dvae.decode(merged)[..., :3]))
+        pix = patch_mask.reshape(-1, grid, grid).repeat_interleave(cell, 1)
+        pix = pix.repeat_interleave(cell, 2)[..., None]
+        out = torch.where(pix > 0, recon, img).clamp(0.0, 1.0)
+        return out, merged.to(torch.int32)
+
+    @property
+    def dvae(self):
+        """The frozen DALL-E tokenizer with its decoder at img_size // 2,
+        built at first use as JAX's `Predictor.dvae` builds it: OpenAI's
+        weights from `train.discrete_vae_weight_path` where an
+        `encoder.pkl` is there, else the seeded random one."""
+        if self._dvae is None:
+            from exploremultimodal_torch.train.trainer import dvae_type
+
+            t = self.cfg["train"]
+            self._dvae = create_d_vae(
+                dvae_type(t), self.task.config.img_size // 2, self.task.config.dtype,
+                device=self.device, weight_path=t.get("discrete_vae_weight_path", ""),
+                decoder=True)
+        return self._dvae
 
     # ---------------------------------------------------------- endpoints
 
@@ -240,3 +345,65 @@ class Predictor:
     def nlvr2(self, images_left: np.ndarray, images_right: np.ndarray,
               statements: Sequence[str]) -> np.ndarray:
         return self.nlvr2_ids(images_left, images_right, *self.tokenize(statements))
+
+    def caption_ids(self, images: np.ndarray, ids: np.ndarray, mask: np.ndarray,
+                    n_iter: int, mask_id: int) -> np.ndarray:
+        """Mask-predict decoding over the MLM head (`_caption_fn`): (N, H, W,
+        3) uint8 images and (N, L) int32 rows `[CLS] [MASK]... [SEP]
+        [PAD]...` with their mask -> the (N, L) int32 ids after `n_iter`
+        refinements, every `mask_id` filled."""
+        img = self._images(images)
+        if not len(img) == len(ids) == len(mask):
+            raise ValueError("caption_ids expects paired images, ids and masks")
+        def fn(*xs):
+            return self._caption_fn(*xs, n_iter=int(n_iter), mask_id=int(mask_id))
+
+        return self._run(fn, len(img), img, ids.astype(np.int32), mask.astype(np.int32))
+
+    def caption(self, images: np.ndarray, max_tokens: int = 16,
+                n_iter: int = 8) -> list[str]:
+        """Caption strings: `max_tokens` (at most max_text_len - 2)
+        generated tokens by `caption_ids`, decoded by the tokenizer without
+        the special tokens."""
+        tok = self.tokenizer
+        length = self.task.config.max_text_len
+        n_tok = min(int(max_tokens), length - 2)
+        row = ([tok.cls_token_id] + [tok.mask_token_id] * n_tok + [tok.sep_token_id]
+               + [tok.pad_token_id] * (length - 2 - n_tok))
+        n = len(images)
+        ids = np.tile(np.asarray(row, np.int32), (n, 1))
+        mask = np.zeros((n, length), np.int32)
+        mask[:, : n_tok + 2] = 1
+        out = self.caption_ids(images, ids, mask, n_iter, tok.mask_token_id)
+        special = {tok.sep_token_id, tok.pad_token_id, tok.cls_token_id,
+                   tok.mask_token_id}
+        return [tok.decode([int(t) for t in r[1: n_tok + 1] if int(t) not in special],
+                           skip_special_tokens=True).strip() for r in out]
+
+    def inpaint_ids(self, images: np.ndarray, patch_mask: np.ndarray, ids: np.ndarray,
+                    mask: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Text-conditioned inpainting (`_inpaint_fn`): (N, H, W, 3) uint8
+        images, `patch_mask` (N, grid^2) or (N, grid, grid) 0/1 with the
+        patches to repaint, (N, L) int32 caption ids and mask -> (the
+        repainted fp32 images in [0, 1] at img_size // 2, NHWC; the merged
+        (N, grid^2) int32 dVAE codes). Needs the dVAE's grid (img_size / 16)
+        to be the patch grid, i.e. patch_size 16."""
+        img = self._images(images)
+        c = self.task.config
+        grid = c.img_size // c.patch_size
+        if c.img_size // 16 != grid:
+            raise ValueError(f"inpaint needs patch_size 16 (the dVAE's 8x grid at "
+                             f"img_size // 2), not {c.patch_size}")
+        n = len(img)
+        pm = np.asarray(patch_mask, np.int32).reshape(n, grid * grid)
+        if not n == len(ids) == len(mask):
+            raise ValueError("inpaint expects paired images, masks and texts")
+        return self._run(self._inpaint_fn, n, img, pm, ids.astype(np.int32),
+                         mask.astype(np.int32))
+
+    def inpaint(self, images: np.ndarray, patch_mask: np.ndarray,
+                texts: Sequence[str] | None = None) -> tuple[np.ndarray, np.ndarray]:
+        """`inpaint_ids` with optional captions of the whole image (empty
+        ones where None)."""
+        ids, mask = self.tokenize(list(texts) if texts is not None else [""] * len(images))
+        return self.inpaint_ids(images, patch_mask, ids, mask)

@@ -5,6 +5,10 @@ The torch modules carry the flax module names, so the map is a rename of
 the leaf, `blocks_<i>` -> `blocks.<i>`, and a transpose of each kernel:
   Dense `kernel` (in, out)      -> Linear `weight` (out, in)
   Conv  `kernel` HWIO           -> Conv2d `weight` OIHW
+  ConvTranspose `kernel` HWIO   -> ConvTranspose2d `weight` (I, O, H, W),
+                                   flipped in H and W (`DiscreteVAE`'s
+                                   `dec_convs_<i>`: flax correlates with
+                                   the kernel as it is, torch flips it)
   Embed `embedding`             -> `weight`
   LayerNorm `scale`             -> `weight`
   `bias`, `q_bias`, `v_bias`, `gamma_1`, `gamma_2`, `pos_embed`,
@@ -22,6 +26,8 @@ import numpy as np
 import torch
 
 _LEAF = {"embedding": "weight", "scale": "weight"}
+# modules that are flax `ConvTranspose`s (transpose_kernel=False)
+_CONV_TRANSPOSE = re.compile(r"^dec_convs_\d+$")
 
 
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()):
@@ -42,6 +48,8 @@ def from_flax_params(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         if name == "kernel":
             if arr.ndim == 2:
                 arr = arr.T
+            elif arr.ndim == 4 and mods and _CONV_TRANSPOSE.match(mods[-1]):
+                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
             elif arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             else:

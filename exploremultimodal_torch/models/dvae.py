@@ -1,10 +1,12 @@
-"""DALL-E dVAE encoder: the frozen image tokenizer of MIM.
+"""DALL-E dVAE: the frozen image tokenizer of MIM, its decoder, and the
+trainable `DiscreteVAE`.
 
-Counterpart of `exploremultimodal_tpu/models/dvae.py` (`_Conv`,
-`EncoderBlock`, `DalleEncoder`, `DalleVAE` with `fused` and `quantize`,
-`init_random`, `create_d_vae`, `import_dalle_torch_state`,
-`load_dalle_vae`: the encoder only), with the same module names so
-`convert.from_flax_params` maps the JAX encoder's parameters. Eager cuDNN
+Counterpart of `exploremultimodal_tpu/models/dvae.py` (`map_pixels`,
+`unmap_pixels`, `_Conv`, `EncoderBlock`, `DecoderBlock`, `DalleEncoder`,
+`DalleDecoder`, `DalleVAE` with `fused`, `quantize` and `decode`,
+`init_random`, `create_d_vae`, `import_dalle_torch_state`, `load_dalle_vae`,
+`DiscreteVAE` and `_ResBlock`), with the same module names so
+`convert.from_flax_params` maps the JAX modules' parameters. Eager cuDNN
 convolution in the compute dtype, the bias added after it in that dtype, as
 flax does; `quantize` runs the input conv and the trunk on int8 codes
 (`ops/quant_conv.py`), and `DalleVAE(fused=True)` runs the blocks JAX's
@@ -36,6 +38,27 @@ QUANT_IMPLS = {"none": None, "w8a8": "direct", "w8a8_shifted": "shifted"}
 def map_pixels(x: torch.Tensor) -> torch.Tensor:
     """[0, 1] pixels -> the logit-Laplace domain."""
     return (1 - 2 * LOGIT_LAPLACE_EPS) * x + LOGIT_LAPLACE_EPS
+
+
+def unmap_pixels(x: torch.Tensor) -> torch.Tensor:
+    """The logit-Laplace domain -> [0, 1] pixels, clipped."""
+    return ((x - LOGIT_LAPLACE_EPS) / (1 - 2 * LOGIT_LAPLACE_EPS)).clamp(0.0, 1.0)
+
+
+@torch.no_grad()
+def lecun_init_(module: nn.Module, generator: torch.Generator) -> None:
+    """flax's Conv init on every conv of `module`: lecun_normal kernels (a
+    normal of variance 1 / fan_in, truncated at 2 std) and zero biases,
+    from `generator`."""
+    for mod in module.modules():
+        if isinstance(mod, nn.Conv2d):
+            fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            tmp = torch.empty(mod.weight.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std,
+                                  generator=generator)
+            mod.weight.copy_(tmp)
+            mod.bias.zero_()
 
 
 class _Conv(nn.Module):
@@ -90,6 +113,29 @@ class EncoderBlock(nn.Module):
         return identity + h * float(torch.tensor(self.post_gain, dtype=h.dtype))
 
 
+class DecoderBlock(nn.Module):
+    """The decoder's residual block: id_path(x) + post_gain * conv3x3(relu
+    conv3x3 relu conv3x3 relu conv1x1 relu), in the compute dtype."""
+
+    def __init__(self, cin: int, n_out: int, post_gain: float, dtype: torch.dtype):
+        super().__init__()
+        n_hid = n_out // 4
+        self.post_gain = post_gain
+        self.id_conv = _Conv(cin, n_out, 1, dtype) if cin != n_out else None
+        self.conv_1 = _Conv(cin, n_hid, 1, dtype)
+        self.conv_2 = _Conv(n_hid, n_hid, 3, dtype)
+        self.conv_3 = _Conv(n_hid, n_hid, 3, dtype)
+        self.conv_4 = _Conv(n_hid, n_out, 3, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        identity = self.id_conv(x) if self.id_conv is not None else x
+        h = self.conv_1(F.relu(x))
+        h = self.conv_2(F.relu(h))
+        h = self.conv_3(F.relu(h))
+        h = self.conv_4(F.relu(h))
+        return identity + h * float(torch.tensor(self.post_gain, dtype=h.dtype))
+
+
 class DalleEncoder(nn.Module):
     """OpenAI dVAE encoder: NCHW logit-Laplace pixels -> fp32 code logits.
     `quantize` reaches the input conv and every block, never `output_conv`.
@@ -139,37 +185,66 @@ class DalleEncoder(nn.Module):
                 x = F.max_pool2d(x, 2)
         return self.output_conv(F.relu(x).float())
 
-    @torch.no_grad()
     def init_random(self, generator: torch.Generator) -> None:
-        """flax's Conv init: lecun_normal kernels (a normal of variance
-        1 / fan_in, truncated at 2 std) and zero biases, from `generator`."""
-        for mod in self.modules():
-            if isinstance(mod, nn.Conv2d):
-                fan_in = mod.in_channels * mod.kernel_size[0] * mod.kernel_size[1]
-                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-                tmp = torch.empty(mod.weight.shape, dtype=torch.float32)
-                nn.init.trunc_normal_(tmp, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-                mod.weight.copy_(tmp)
-                mod.bias.zero_()
+        lecun_init_(self, generator)
+
+
+class DalleDecoder(nn.Module):
+    """OpenAI dVAE decoder: NCHW one-hot codes -> NCHW fp32 logit-Laplace
+    statistics (2 x 3 channels). The input and output 1x1 convs run in
+    fp32, the blocks in the compute dtype; each group but the last ends in
+    a 2x nearest upsampling (each pixel repeated, as `jax.image.resize`
+    gives at an exact 2x)."""
+
+    def __init__(self, group_count: int = 4, n_init: int = 128, n_hid: int = 256,
+                 n_blk_per_group: int = 2, output_channels: int = 3,
+                 vocab_size: int = 8192, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        post_gain = 1.0 / (group_count * n_blk_per_group) ** 2
+        self.input_conv = _Conv(vocab_size, n_init, 1, torch.float32)
+        cin = n_init
+        self.groups = []
+        for g, mult in enumerate((8, 4, 2, 1), start=1):
+            names = []
+            for b in range(1, n_blk_per_group + 1):
+                name = f"group_{g}_block_{b}"
+                setattr(self, name, DecoderBlock(cin, mult * n_hid, post_gain, dtype))
+                cin = mult * n_hid
+                names.append(name)
+            self.groups.append(names)
+        self.output_conv = _Conv(cin, 2 * output_channels, 1, torch.float32)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        x = self.input_conv(z)
+        for g, names in enumerate(self.groups):
+            for name in names:
+                x = getattr(self, name)(x)
+            if g < len(self.groups) - 1:
+                x = x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+        return self.output_conv(F.relu(x).float())
+
+    def init_random(self, generator: torch.Generator) -> None:
+        lecun_init_(self, generator)
 
 
 class DalleVAE(nn.Module):
-    """The frozen tokenizer (JAX `DalleVAE`, encoder only), on `device`
-    (CUDA by default; without a GPU it raises unless given 'cpu').
-    `fused=True` runs the blocks JAX's selector fuses through the fused
-    block kernel, `quantize` the trunk on int8 codes; the two are exclusive,
-    as in JAX."""
+    """The frozen tokenizer (JAX `DalleVAE`), on `device` (CUDA by default;
+    without a GPU it raises unless given 'cpu'). `fused=True` runs the
+    blocks JAX's selector fuses through the fused block kernel, `quantize`
+    the trunk on int8 codes; the two are exclusive, as in JAX. With
+    `decoder` it also holds the `DalleDecoder` that `decode` runs (the
+    inpainting endpoint's); the trainer's tokenizer goes without."""
 
     def __init__(self, image_size: int, dtype: torch.dtype = torch.float32,
                  fused: bool = False, quantize: str = "none",
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", decoder: bool = False):
         super().__init__()
         if fused and quantize != "none":
             raise ValueError("fused kernel and int8 encoder paths are exclusive")
         self.image_size = image_size
         self.fused = fused
         self.encoder = DalleEncoder(dtype=dtype, quantize=quantize)
+        self.decoder = DalleDecoder(dtype=dtype) if decoder else None
         self.to(resolve_device(device))
 
     def _encode(self, images: torch.Tensor) -> torch.Tensor:
@@ -186,6 +261,19 @@ class DalleVAE(nn.Module):
     def get_codebook_probs(self, images: torch.Tensor) -> torch.Tensor:
         """NHWC logit-Laplace images -> (B, H/8, W/8, vocab) softmax."""
         return torch.softmax(self._encode(images), dim=-1)
+
+    @torch.no_grad()
+    def decode(self, img_seq: torch.Tensor) -> torch.Tensor:
+        """(B, N) token ids on a square grid -> NHWC fp32 logit-Laplace
+        statistics at 8x the grid (the first 3 channels the means)."""
+        if self.decoder is None:
+            raise RuntimeError("this tokenizer has no decoder: build it with "
+                               "decoder=True, or load a decoder.pkl with weights")
+        b, n = img_seq.shape
+        grid = math.isqrt(n)
+        one_hot = F.one_hot(img_seq.reshape(b, grid, grid).long(),
+                            self.encoder.vocab_size).to(torch.float32)
+        return self.decoder(one_hot.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def import_dalle_torch_state(state: dict) -> dict[str, torch.Tensor]:
@@ -219,32 +307,151 @@ def import_dalle_torch_state(state: dict) -> dict[str, torch.Tensor]:
 def load_dalle_vae(weight_dir: str, image_size: int, dtype: torch.dtype = torch.float32,
                    quantize: str = "none",
                    device: str | torch.device = "cuda") -> DalleVAE:
-    """The tokenizer with OpenAI's encoder weights from
-    `<weight_dir>/encoder.pkl` (a pickled module or a state dict), on
-    `device`. Only the encoder is loaded: `decoder.pkl` waits for the
-    decoder's port (`DalleDecoder`, which inpainting serving needs)."""
-    obj = torch.load(os.path.join(weight_dir, "encoder.pkl"), map_location="cpu",
-                     weights_only=False)
-    state = obj if isinstance(obj, dict) else obj.state_dict()
-    vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device=device)
-    vae.encoder.load_state_dict(import_dalle_torch_state(state), strict=True)
-    return vae.requires_grad_(False).eval()
+    """The tokenizer with OpenAI's weights from `<weight_dir>/encoder.pkl`
+    and `decoder.pkl` (each a pickled module or a state dict, both read
+    through the same name map), on `device`. Both files must exist, as
+    JAX's loader opens both; a `decoder.pkl` without weights leaves the
+    tokenizer without a decoder (JAX's then holds an empty tree), so
+    `decode` raises."""
+    states = {}
+    for part in ("encoder", "decoder"):
+        obj = torch.load(os.path.join(weight_dir, f"{part}.pkl"), map_location="cpu",
+                         weights_only=False)
+        states[part] = import_dalle_torch_state(
+            obj if isinstance(obj, dict) else obj.state_dict())
+    vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device="cpu",
+                   decoder=bool(states["decoder"]))
+    vae.encoder.load_state_dict(states["encoder"], strict=True)
+    if vae.decoder is not None:
+        vae.decoder.load_state_dict(states["decoder"], strict=True)
+    return vae.to(resolve_device(device)).requires_grad_(False).eval()
 
 
 def create_d_vae(d_vae_type: str, image_size: int, dtype: torch.dtype,
                  seed: int = 0, quantize: str = "none",
                  device: str | torch.device = "cuda",
-                 weight_path: str = "") -> DalleVAE:
+                 weight_path: str = "", decoder: bool = False) -> DalleVAE:
     """The tokenizer for `train.discrete_vae_type` on `device`, its trunk on
     int8 codes under `quantize` (`train.discrete_vae_quantize`). 'dall-e'
-    loads OpenAI's encoder from `weight_path` (`load_dalle_vae`; the
-    trainer's `dvae_type` falls back to 'random' where no `encoder.pkl`
-    exists); 'random' is the seeded random tokenizer (seed 0, as JAX's
-    `jax.random.key(0)`)."""
+    loads OpenAI's encoder and decoder from `weight_path`
+    (`load_dalle_vae`; the trainer's `dvae_type` falls back to 'random'
+    where no `encoder.pkl` exists); 'random' is the seeded random tokenizer
+    (seed 0, as JAX's `jax.random.key(0)`), with a random decoder, drawn
+    after the encoder, under `decoder`. Every other type raises, as in JAX
+    (`DiscreteVAE` has no entry point there either)."""
     if d_vae_type == "dall-e":
         return load_dalle_vae(weight_path, image_size, dtype, quantize, device)
     if d_vae_type != "random":
         raise NotImplementedError(f"discrete_vae_type {d_vae_type!r} is not ported")
-    vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device=device)
-    vae.encoder.init_random(torch.Generator().manual_seed(seed))
-    return vae.requires_grad_(False).eval()
+    vae = DalleVAE(image_size, dtype=dtype, quantize=quantize, device="cpu",
+                   decoder=decoder)
+    generator = torch.Generator().manual_seed(seed)
+    vae.encoder.init_random(generator)
+    if vae.decoder is not None:
+        vae.decoder.init_random(generator)
+    return vae.to(resolve_device(device)).requires_grad_(False).eval()
+
+
+# --------------------------------------------------- trainable DiscreteVAE
+
+
+def _conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """`conv` on NCHW `x` in `dtype` (input, kernel and bias cast to it, as
+    flax's `Conv(dtype=...)`)."""
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), bias, conv.stride, conv.padding)
+
+
+class _ResBlock(nn.Module):
+    """relu(conv3x3) -> relu(conv3x3) -> conv1x1, plus the input (flax's
+    auto-named `Conv_0`, `Conv_1`, `Conv_2`)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.Conv_0 = nn.Conv2d(dim, dim, 3, padding=1)
+        self.Conv_1 = nn.Conv2d(dim, dim, 3, padding=1)
+        self.Conv_2 = nn.Conv2d(dim, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(_conv_in(self.Conv_0, x, self.dtype))
+        h = F.relu(_conv_in(self.Conv_1, h, self.dtype))
+        return _conv_in(self.Conv_2, h, self.dtype) + x
+
+
+class DiscreteVAE(nn.Module):
+    """The trainable dVAE (JAX's `DiscreteVAE`): `num_layers` stride-2 4x4
+    convs with residual blocks down to the code logits, a Gumbel-softmax
+    (or plain softmax) mix of the codebook, and `num_layers` stride-2 4x4
+    transposed convs with residual blocks back to pixels. NHWC at the
+    public methods. The transposed convs `dec_convs_<i>` are JAX's
+    `ConvTranspose(4, stride 2, 'SAME')`: a correlation of the 2x dilated
+    input, padded by 2, with the unflipped kernel, which
+    `ConvTranspose2d(4, 2, padding=1)` computes with the kernel flipped
+    (`convert.from_flax_params` flips it)."""
+
+    def __init__(self, image_size: int = 256, num_tokens: int = 8192,
+                 codebook_dim: int = 512, num_layers: int = 3, hidden_dim: int = 64,
+                 channels: int = 3, temperature: float = 0.9,
+                 straight_through: bool = False, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.image_size = image_size
+        self.num_tokens = num_tokens
+        self.num_layers = num_layers
+        self.temperature = temperature
+        self.straight_through = straight_through
+        self.dtype = dtype
+        self.codebook = nn.Embedding(num_tokens, codebook_dim)
+        for i in range(num_layers):
+            setattr(self, f"enc_convs_{i}", nn.Conv2d(
+                channels if i == 0 else hidden_dim, hidden_dim, 4, stride=2, padding=1))
+            setattr(self, f"dec_convs_{i}", nn.ConvTranspose2d(
+                codebook_dim if i == 0 else hidden_dim, hidden_dim, 4, stride=2,
+                padding=1))
+            setattr(self, f"enc_res_{i}", _ResBlock(hidden_dim, dtype))
+            setattr(self, f"dec_res_{i}", _ResBlock(hidden_dim, dtype))
+        self.to_logits = nn.Conv2d(hidden_dim, num_tokens, 1)
+        self.to_pixels = nn.Conv2d(hidden_dim, channels, 1)
+
+    def encode_logits(self, img: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> NHWC fp32 code logits at 1 / 2^num_layers."""
+        x = img.permute(0, 3, 1, 2)
+        for i in range(self.num_layers):
+            x = F.relu(_conv_in(getattr(self, f"enc_convs_{i}"), x, self.dtype))
+            x = getattr(self, f"enc_res_{i}")(x)
+        return _conv_in(self.to_logits, x.float(), torch.float32).permute(0, 2, 3, 1)
+
+    def decode_codes(self, codes: torch.Tensor) -> torch.Tensor:
+        """NHWC codebook vectors -> NHWC fp32 pixels."""
+        x = codes.permute(0, 3, 1, 2).to(self.dtype)
+        for i in range(self.num_layers):
+            conv = getattr(self, f"dec_convs_{i}")
+            x = F.relu(F.conv_transpose2d(x, conv.weight.to(self.dtype),
+                                          conv.bias.to(self.dtype), conv.stride,
+                                          conv.padding))
+            x = getattr(self, f"dec_res_{i}")(x)
+        return _conv_in(self.to_pixels, x.float(), torch.float32).permute(0, 2, 3, 1)
+
+    @torch.no_grad()
+    def get_codebook_indices(self, img: torch.Tensor) -> torch.Tensor:
+        """NHWC images -> (B, h * w) int64 code ids."""
+        return self.encode_logits(img).argmax(dim=-1).flatten(1)
+
+    def forward(self, img: torch.Tensor, generator: torch.Generator | None = None,
+                temp: float | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """(reconstruction, mean squared reconstruction loss). With a
+        `generator`, Gumbel noise drawn on it perturbs the logits before the
+        softmax at `temp` (the module's temperature by default); without
+        one the softmax is deterministic. `straight_through` takes the
+        one-hot argmax forward and the soft gradient backward."""
+        logits = self.encode_logits(img)
+        temp = self.temperature if temp is None else temp
+        if generator is not None:
+            u = torch.rand(logits.shape, generator=generator, device=logits.device)
+            logits = logits - torch.log(-torch.log(u + 1e-20) + 1e-20)
+        soft = torch.softmax(logits / temp, dim=-1)
+        if self.straight_through:
+            hard = F.one_hot(soft.argmax(-1), self.num_tokens).to(soft.dtype)
+            soft = hard + soft - soft.detach()
+        recon = self.decode_codes(soft @ self.codebook.weight)
+        return recon, ((recon - img) ** 2).mean()

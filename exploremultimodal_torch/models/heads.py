@@ -1,7 +1,7 @@
 """Task heads (counterpart of `exploremultimodal_tpu/models/heads.py`): the
 VQA classifier with its ISDA statistics, the pretrain_mum heads, the NLVR2
-classifier, the IRTR rank head and the MAE pixel decoder, with flax's
-parameter names."""
+classifier, the IRTR rank head, the MAE pixel decoder, the MPP decoder, the
+image classifier and the referring-box head, with flax's parameter names."""
 
 from __future__ import annotations
 
@@ -57,6 +57,49 @@ class MAEHead(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(x)
+
+
+class MPPHead(nn.Module):
+    """Masked-patch prediction: dense -> gelu (erf) -> fp32 LayerNorm ->
+    3 x 256 discretised RGB logits."""
+
+    def __init__(self, dim: int, norm_eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.transform_dense = Linear(dim, dim, dtype=dtype)
+        self.transform_ln = LayerNorm(dim, eps=norm_eps)
+        self.decoder = Linear(dim, 256 * 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.gelu(self.transform_dense(x))
+        return self.decoder(self.transform_ln(x).to(self.dtype))
+
+
+class ImgClsHead(nn.Module):
+    """Image classification over the pooled features: hs -> num_classes."""
+
+    def __init__(self, dim: int, num_classes: int, dtype: torch.dtype):
+        super().__init__()
+        self.fc = Linear(dim, num_classes, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc(x)
+
+
+class RefHead(nn.Module):
+    """Referring-expression box: hs -> 2hs -> LayerNorm -> gelu (erf) -> 4,
+    then a sigmoid in fp32: a normalised (cx, cy, w, h) box."""
+
+    def __init__(self, dim: int, norm_eps: float, dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.fc1 = Linear(dim, 2 * dim, dtype=dtype)
+        self.ln = LayerNorm(2 * dim, eps=norm_eps)
+        self.fc2 = Linear(2 * dim, 4, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        box = self.fc2(F.gelu(self.ln(self.fc1(x)).to(self.dtype)))
+        return torch.sigmoid(box.float())
 
 
 class RankHead(nn.Module):

@@ -1,7 +1,8 @@
 """VlmoTask: the backbone, the heads and the multitask forward (counterpart
 of `exploremultimodal_tpu/models/task.py`; the VQA head for serving and
 finetune_vqa, the pretrain_mum heads MLM, ITC, ITM and MIM, pretrain_vis's
-MAE head, finetune_nlvr2's classifier and finetune_retrieval's rank head).
+MAE head, finetune_nlvr2's classifier, finetune_retrieval's rank head, the
+MPP decoder, finetune_vis's image classifier and finetune_ref's box head).
 
 The frozen dVAE is not a submodule: the trainer computes the MIM targets and
 hands them in as `batch['mim_labels']`, as the JAX trainer does.
@@ -16,13 +17,16 @@ from torch import nn
 
 from exploremultimodal_torch.config import VlmoConfig
 from exploremultimodal_torch.models.heads import (
+    ImgClsHead,
     ITCHead,
     ITMHead,
     MAEHead,
     MIMHead,
     MLMTransform,
+    MPPHead,
     NLVR2Classifier,
     RankHead,
+    RefHead,
     VQAClassifier,
 )
 from exploremultimodal_torch.models.vlmo import (
@@ -34,7 +38,8 @@ from exploremultimodal_torch.objectives import losses as obj
 from exploremultimodal_torch.ops.stochastic import StepRng
 
 # every head the port builds, each trained by its objective
-TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim", "vqa", "mae", "nlvr2", "irtr")
+TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim", "vqa", "mae", "nlvr2", "irtr",
+                      "mpp", "imgcls", "refcoco")
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -77,6 +82,8 @@ class VlmoTask(nn.Module):
             self.itm_head = ITMHead(hs, c.dtype)
         if "mim" in names:
             self.mim_head = MIMHead(hs, c.img_vocab_size, c.dtype)
+        if "mpp" in names:
+            self.mpp_head = MPPHead(hs, c.norm_eps, c.dtype)
         if "mae" in names:
             self.mae_head = MAEHead(hs, c.patch_size, c.dtype)
         if "vqa" in names:
@@ -86,6 +93,10 @@ class VlmoTask(nn.Module):
             self.nlvr2_classifier = NLVR2Classifier(hs, c.norm_eps, c.dtype)
         if "irtr" in names:
             self.rank_output = RankHead(hs, c.dtype)
+        if "imgcls" in names:
+            self.img_classifier = ImgClsHead(hs, c.num_classes or 1000, c.dtype)
+        if "refcoco" in names:
+            self.ref_head = RefHead(hs, c.norm_eps, c.dtype)
 
     # ------------------------------------------------------------------ infer
 
@@ -150,8 +161,21 @@ class VlmoTask(nn.Module):
     def itc_project(self, feats: torch.Tensor, route: str) -> torch.Tensor:
         return self.itc_head(feats, route)
 
+    def mim_logits(self, patch_feats: torch.Tensor) -> torch.Tensor:
+        return self.mim_head(patch_feats)
+
+    def mpp_logits(self, patch_feats: torch.Tensor) -> torch.Tensor:
+        return self.mpp_head(patch_feats)
+
     def mae_logits(self, patch_feats: torch.Tensor) -> torch.Tensor:
         return self.mae_head(patch_feats)
+
+    def imgcls_logits(self, cls_feats: torch.Tensor) -> torch.Tensor:
+        return self.img_classifier(cls_feats)
+
+    def ref_box(self, cls_feats: torch.Tensor) -> torch.Tensor:
+        """The normalised (cx, cy, w, h) box, fp32."""
+        return self.ref_head(cls_feats)
 
     def nlvr2_logits(self, cls_feats: torch.Tensor) -> torch.Tensor:
         """Logits over (False, True) from the two images' concatenated CLS
@@ -241,8 +265,14 @@ class VlmoTask(nn.Module):
             ret.update(obj.compute_nlvr2(self, batch, rng))
         if "irtr" in names:
             ret.update(obj.compute_irtr(self, batch, rng))
+        if "mpp" in names:
+            ret.update(obj.compute_mpp(self, batch, rng))
         if "mae" in names:
             ret.update(obj.compute_mae(self, batch, rng))
+        if "imgcls" in names:
+            ret.update(obj.compute_imgcls(self, batch, rng))
+        if "refcoco" in names:
+            ret.update(obj.compute_refcoco(self, batch, rng))
         return ret
 
     @torch.no_grad()

@@ -6,7 +6,8 @@ Counterpart of `exploremultimodal_tpu/objectives/losses.py`: `_gather_cap`,
 encoder's features and the negative queues), `patch_pooling`, `in_batch_g2l_loss`, `itm_sample_pairs`,
 `itm_loss_from_co`, `compute_itm`, `compute_mim`, `_bce_with_logits`,
 `compute_vqa_score`, `compute_vqa` (with ISDA and R-Drop),
-`compute_nlvr2`, `patchify`, `compute_mae` and `compute_irtr`. Each `compute_*` takes
+`compute_nlvr2`, `compute_mpp`, `patchify`, `compute_mae`, `compute_imgcls`,
+`box_iou_giou`, `compute_refcoco` and `compute_irtr`. Each `compute_*` takes
 the task module, the model batch and the step's `StepRng` (None:
 deterministic) and returns `<name>_task_loss` plus metrics. ITC runs first;
 its below-fusion hidden states (`itc_h_img`, `itc_h_txt`) feed MLM's fused
@@ -416,6 +417,22 @@ def compute_nlvr2(task, batch: dict, rng: StepRng | None = None) -> dict:
             "nlvr2_mean_acc": acc, "nlvr2_count": count}
 
 
+# ------------------------------------------------------------------- MPP
+
+
+def compute_mpp(task, batch: dict, rng: StepRng | None = None) -> dict:
+    """Masked-patch prediction: a 256-way CE on each of the three colour
+    channels of the masked patches, from the fused stream with the masked
+    image; labels `batch['image_labels_mpp']` (B, P, 3), -100 ignored."""
+    infer = task.infer(batch, "img-txt", mask_img=True, rng=rng)
+    logits = task.mpp_logits(infer["img_feats"][:, 1:])
+    b, p, _ = logits.shape
+    labels = batch["image_labels_mpp"].long()
+    loss, acc, count = masked_cross_entropy(logits.reshape(b, p, 3, 256), labels,
+                                            labels != -100)
+    return {"mpp_task_loss": loss, "mpp_mean_acc": acc, "mpp_count": count}
+
+
 # ------------------------------------------------------------------- MAE
 
 
@@ -443,6 +460,59 @@ def compute_mae(task, batch: dict, rng: StepRng | None = None) -> dict:
     count = mask.sum()
     return {"mae_task_loss": (per_patch * mask).sum() / count.clamp_min(1.0),
             "mae_count": count}
+
+
+# ---------------------------------------------------------------- IMGCLS
+
+
+def compute_imgcls(task, batch: dict, rng: StepRng | None = None) -> dict:
+    """Image classification over the pooled CLS: of the fused stream where
+    the batch has captions (`text_ids`), else of the image stream; a CE on
+    `batch['label']`."""
+    mode = "img-txt" if batch.get("text_ids") is not None else "img_only"
+    logits = task.imgcls_logits(task.infer(batch, mode, rng=rng)["cls_feats"])
+    labels = batch["label"].long()
+    loss, acc, count = masked_cross_entropy(logits, labels,
+                                            torch.ones_like(labels, dtype=torch.bool))
+    return {"imgcls_task_loss": loss, "imgcls_mean_acc": acc, "imgcls_count": count}
+
+
+# --------------------------------------------------------------- REFCOCO
+
+
+def _cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
+    cx, cy, w, h = b.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+def box_iou_giou(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (IoU, GIoU) of xyxy boxes `a`, `b` (..., 4), with 1e-6 floors
+    under the union and the enclosing area."""
+    def area(x):
+        return (x[..., 2:] - x[..., :2]).clamp_min(0.0).prod(-1)
+
+    inter = (torch.minimum(a[..., 2:], b[..., 2:])
+             - torch.maximum(a[..., :2], b[..., :2])).clamp_min(0.0).prod(-1)
+    union = area(a) + area(b) - inter
+    iou = inter / union.clamp_min(1e-6)
+    enclose = (torch.maximum(a[..., 2:], b[..., 2:])
+               - torch.minimum(a[..., :2], b[..., :2])).clamp_min(0.0).prod(-1)
+    return iou, iou - (enclose - union) / enclose.clamp_min(1e-6)
+
+
+def compute_refcoco(task, batch: dict, rng: StepRng | None = None) -> dict:
+    """Referring-expression grounding: the fused CLS regresses one
+    normalised (cx, cy, w, h) box against `batch['ref_box']`; the loss is
+    5 L1 + 2 (1 - GIoU), in fp32; the metrics accuracy at IoU >= 0.5 and
+    the mean IoU (`refcoco_mean_score`)."""
+    pred = task.ref_box(task.infer(batch, "img-txt", rng=rng)["cls_feats"])
+    target = batch["ref_box"].float()
+    l1 = (pred - target).abs().sum(-1)
+    iou, giou = box_iou_giou(_cxcywh_to_xyxy(pred), _cxcywh_to_xyxy(target))
+    return {"refcoco_task_loss": (5.0 * l1 + 2.0 * (1.0 - giou)).mean(),
+            "refcoco_mean_acc": (iou >= 0.5).float().mean(),
+            "refcoco_mean_score": iou.mean(),
+            "refcoco_count": torch.tensor(float(pred.shape[0]), device=pred.device)}
 
 
 # ------------------------------------------------------------------ IRTR

@@ -1,33 +1,85 @@
 """Phase driver (counterpart of `exploremultimodal_tpu/train/phases.py`)
-for the phases the port trains: pretrain_mum, pretrain_txt, pretrain_vis
-(MIM, or MAE with `train.loss_names=[mae]`), finetune_vqa, finetune_nlvr2
-and finetune_retrieval. They share one `Trainer`; `eval_mode` restores the
-newest checkpoint through `checkpoints.auto_load` and evaluates, and
-`throughput_mode` times the step. After training, finetune_retrieval
+for every phase the JAX package registers: pretrain_mum, pretrain_txt,
+pretrain_vis (MIM, or MAE with `train.loss_names=[mae]`), finetune_vqa,
+finetune_nlvr2, finetune_retrieval, finetune_caption (MLM over image-text
+pairs), finetune_vis (image classification), finetune_ref (referring
+boxes) and finetune_inpainting (MIM on the fused stream, region masks with
+`data.mask_style=region`). They share one `Trainer`; `eval_mode` restores
+the newest checkpoint through `checkpoints.auto_load` and evaluates, and
+`throughput_mode` times the step. After training, finetune_vqa writes its
+test-split submission (`write_vqa_submission`) and finetune_retrieval
 reports recall@{1,5,10} on the val split (`retrieval.evaluate_retrieval`),
-as `result['recalls']`; JAX's phase skips it with a warning where it
-fails, this one only where the losses have no ITC heads.
-
-finetune_vqa's test-split submission (`write_vqa_submission`) is not
-ported yet; the driver warns after training, as JAX warns when the
-submission cannot be written.
+as `result['recalls']`; JAX's phases skip each with a warning where it
+fails, these only where the recall's losses have no ITC heads.
 """
 
 from __future__ import annotations
 
+import glob
+import json
+import os
 from typing import Any
 
+import torch
+
+from exploremultimodal_torch.data.datasets import build_dataset
+from exploremultimodal_torch.data.pipeline import Loader
+from exploremultimodal_torch.data.vqa_vocab import load_vqa_vocab
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.retrieval import evaluate_retrieval
 from exploremultimodal_torch.train.trainer import Trainer
 
 TRAINED_PHASES = ("pretrain_mum", "pretrain_txt", "pretrain_vis", "finetune_vqa",
-                  "finetune_nlvr2", "finetune_retrieval")
+                  "finetune_nlvr2", "finetune_retrieval", "finetune_caption",
+                  "finetune_vis", "finetune_ref", "finetune_inpainting")
 
 
 def refuse_untrained(phase: str) -> None:
     if phase not in TRAINED_PHASES:
-        raise NotImplementedError(f"train={phase}: the port trains {TRAINED_PHASES}")
+        raise NotImplementedError(
+            f"train={phase}: unknown phase; the port trains {TRAINED_PHASES}")
+
+
+def write_vqa_submission(trainer: Trainer) -> str | None:
+    """finetune_vqa's test-split answers, as JAX's `write_vqa_submission`
+    at one process: the argmax answer of each test question under the
+    task's own parameters (a deterministic forward), through the
+    `vqa_dict.json` vocabulary, to `<output_dir>/submit/vqa_submit_0.json`,
+    then every `vqa_submit_*.json` there merged into `vqa_submit.json`,
+    whose path is returned (None where the test split is empty). The
+    question id is the batch's `qid`; the synthetic samples carry none, and
+    their index stands in for it (JAX's raises there, and its phase skips
+    the submission with a warning)."""
+    cfg = trainer.cfg
+    loader = Loader(build_dataset(cfg, "test"),
+                    cfg["data"].get("eval_batch_size") or cfg["data"]["batch_size"],
+                    seed=int(cfg["seed"]), train=False)
+    if len(loader) == 0:
+        trainer.logger.info("no VQA test split available; skipping submission")
+        return None
+    id2answer = load_vqa_vocab()["id2answer"]
+    preds, qids = [], []
+    with torch.no_grad():
+        for batch in loader.epoch(0):
+            logits = trainer.task(trainer.model_batch(batch))["vqa_logits"]
+            preds.append(logits.argmax(-1))
+            qids += batch["qid" if "qid" in batch else "index"].tolist()
+    preds = torch.cat(preds).tolist()
+    results = [{"question_id": int(q), "answer": id2answer.get(int(p), "")}
+               for q, p in zip(qids, preds)]
+    out_dir = os.path.join(trainer.output_dir, "submit")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "vqa_submit_0.json"), "w") as f:
+        json.dump(results, f)
+    merged = []
+    for part in sorted(glob.glob(os.path.join(out_dir, "vqa_submit_*.json"))):
+        with open(part) as f:
+            merged += json.load(f)
+    final = os.path.join(out_dir, "vqa_submit.json")
+    with open(final, "w") as f:
+        json.dump(merged, f)
+    trainer.logger.info(f"wrote VQA submission ({len(merged)} answers) → {final}")
+    return final
 
 
 def dispatch(cfg: dict, logger, device: str = "cuda") -> Any:
@@ -43,8 +95,7 @@ def dispatch(cfg: dict, logger, device: str = "cuda") -> Any:
         return stats
     result = trainer.train()
     if phase == "finetune_vqa":
-        logger.warning("VQA submission skipped: the test-split submission is not "
-                       "ported yet")
+        result["submission"] = write_vqa_submission(trainer)
     if phase == "finetune_retrieval" and len(trainer.val_loader) > 0:
         if "itc" in trainer.config.loss_names:
             result["recalls"] = evaluate_retrieval(trainer)

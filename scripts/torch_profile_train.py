@@ -11,6 +11,10 @@
     python3 scripts/torch_profile_train.py nlvr2       # finetune_nlvr2
     python3 scripts/torch_profile_train.py retrieval   # finetune_retrieval (ITC + IRTR)
     python3 scripts/torch_profile_train.py momentum    # pretrain_mum's full recipe
+    python3 scripts/torch_profile_train.py caption     # finetune_caption
+    python3 scripts/torch_profile_train.py imgcls      # finetune_vis
+    python3 scripts/torch_profile_train.py ref         # finetune_ref
+    python3 scripts/torch_profile_train.py inpainting  # finetune_inpainting, region masks
 
 Builds a training configuration of `chip_smoke.py`: with no argument its
 pretrain_mum step (vlmo_base, bf16, attn_impl=auto with attention dropout
@@ -26,7 +30,9 @@ MAE: rows 3, 4 and 7 on 12 image blocks; finetune_nlvr2 and
 finetune_retrieval at their defaults: rows 3 and 4 on 36 and 42 attention
 calls); with `momentum` pretrain_mum's full recipe (the momentum encoder
 with the 65,536-column queues and the local g2l losses, and the eval EMA:
-chip_smoke's phase 23). Takes two warm-up steps,
+chip_smoke's phase 23); with `caption`, `imgcls`, `ref` and `inpainting`
+the last four phases at their defaults (phase 24: rows 3 and 4 on 18
+attention calls). Takes two warm-up steps,
 times UNTRACED steps on the host clock with a synchronise around each, then
 traces STEPS steps with torch.profiler.
 Prints, as one JSON line: the untraced and traced wall time per step; the
@@ -56,6 +62,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from chip_smoke import (  # noqa: E402
     MOMENTUM_OVERRIDES,
     NLVR2_OVERRIDES,
+    REST_OVERRIDES,
     RETRIEVAL_OVERRIDES,
     TRAIN_OVERRIDES,
     TXT_OVERRIDES,
@@ -106,10 +113,15 @@ def main(argv: list[str]) -> int:
              ("vis_mae",): VIS_OVERRIDES + ["train.loss_names=[mae]"],
              ("nlvr2",): NLVR2_OVERRIDES,
              ("retrieval",): RETRIEVAL_OVERRIDES,
-             ("momentum",): MOMENTUM_OVERRIDES}
+             ("momentum",): MOMENTUM_OVERRIDES,
+             ("caption",): REST_OVERRIDES["caption"],
+             ("imgcls",): REST_OVERRIDES["imgcls"],
+             ("ref",): REST_OVERRIDES["ref"],
+             ("inpainting",): REST_OVERRIDES["inpainting"]}
     if tuple(argv) not in cells:
         print("usage: torch_profile_train.py [drop0 | vqa | vqa_w8a8 | txt | vis | vis_mae | "
-              "nlvr2 | retrieval | momentum]", file=sys.stderr)
+              "nlvr2 | retrieval | momentum | caption | imgcls | ref | inpainting]",
+              file=sys.stderr)
         return 2
     card = card_line()
     overrides = cells[tuple(argv)]

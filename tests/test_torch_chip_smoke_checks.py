@@ -195,3 +195,89 @@ def test_alternated_steps_time_both_trainers_in_turn(monkeypatch, momentum_base,
     assert recipe.state.step == plain.state.step == 3
     assert all(len(v) == 2 for v in out["ms_per_step"].values())
     assert out["pairs"] == 2 and len(out["added_ms_per_step_quartiles"]) == 2
+
+
+# ------------------------------------------------- caption and inpaint serving
+
+SERVE_TINY = ["model=vlmo_debug", "model.img_size=32", "model.embed_dim=32",
+              "model.num_heads=2", "model.max_text_len=10", "compute_dtype=float32"]
+
+
+def _predictor(train, seed=0, jitter=0.0):
+    from exploremultimodal_torch.infer import Predictor
+    from exploremultimodal_torch.models import build_model
+
+    cfg = load_config(SERVE_TINY + [f"train={train}"])
+    state = build_model(cfg, device="cpu", seed=seed).state_dict()
+    gen = torch.Generator().manual_seed(1)
+    state = {k: v + jitter * torch.randn(v.shape, generator=gen) if v.is_floating_point()
+             else v for k, v in state.items()}
+    return Predictor(cfg, state, device="cpu")
+
+
+def _images(n):
+    import numpy as np
+
+    return np.random.default_rng(3).integers(0, 256, (n, 32, 32, 3), dtype=np.uint8)
+
+
+@pytest.mark.parametrize("n_iter", [1, 3])
+def test_serving_launch_formulas_count_the_blocks(monkeypatch, n_iter):
+    """`caption_launches` (f + n_iter d) and `inpaint_launches` (f + d) are
+    the blocks a `caption_ids` and an `inpaint_ids` request run, each block
+    one attention and one FFN call: counted here by wrapping
+    `Block.forward` on the CPU."""
+    import functools
+
+    from exploremultimodal_torch.config import VlmoConfig
+    from exploremultimodal_torch.models import dvae, vlmo
+
+    monkeypatch.setattr(dvae, "DalleEncoder", functools.partial(dvae.DalleEncoder, n_hid=16))
+    monkeypatch.setattr(dvae, "DalleDecoder", functools.partial(dvae.DalleDecoder, n_hid=16,
+                                                                n_init=8))
+    calls = []
+    forward = vlmo.Block.forward
+    monkeypatch.setattr(vlmo.Block, "forward",
+                        lambda self, *a, **k: calls.append(1) or forward(self, *a, **k))
+    cap = _predictor("finetune_caption")
+    cfg = VlmoConfig.from_config(cap.cfg)
+    ids, mask = chip_smoke.caption_rows(2, 10, tokens=6)
+    cap.caption_ids(_images(2), ids, mask, n_iter, chip_smoke.MASK_ID)
+    assert len(calls) == chip_smoke.caption_launches(cfg, n_iter) \
+        == cfg.fusion_layer + n_iter * cfg.depth
+    calls.clear()
+    inp = _predictor("finetune_inpainting")
+    inp.inpaint_ids(_images(2), [[1, 0, 0, 1], [0, 1, 0, 0]], ids, mask)
+    assert len(calls) == chip_smoke.inpaint_launches(cfg) == cfg.fusion_layer + cfg.depth
+
+
+def test_caption_teacher_forcing_holds_the_rule_to_the_cards_logits(monkeypatch):
+    """`caption_teacher_forced` with a CPU predictor standing in for the
+    card: against itself every iteration's logits agree exactly, the next
+    ids follow the keep/re-mask rule and the replay ends in `caption_ids`'s
+    ids; with jittered weights on the stand-in the logits differ and the
+    rule still holds (it is applied to the card's own logits); a card that
+    keeps one position more than the rule at every iteration is caught."""
+    import numpy as np
+
+    cpu = _predictor("finetune_caption")
+    ids, mask = chip_smoke.caption_rows(3, 10, tokens=6)
+    img = _images(3)
+    same = chip_smoke.caption_teacher_forced(cpu, cpu, img, ids, mask, 3, 2)
+    assert same["logit_err"] == [0.0] * 3 and all(same["rule_equal"])
+    np.testing.assert_array_equal(same["ids"], cpu.caption_ids(img, ids, mask, 3,
+                                                                chip_smoke.MASK_ID))
+    other = _predictor("finetune_caption", jitter=1e-3)
+    near = chip_smoke.caption_teacher_forced(other, cpu, img, ids, mask, 3, 2)
+    assert min(near["logit_err"]) > 0 and all(near["rule_equal"])
+    step, seen = chip_smoke.mask_predict_step, []
+
+    def card_keeps_one_more(logits, ids_, gen, n_gen, it, n_iter, mask_id):
+        seen.append(1)
+        if len(seen) % 2:  # the card's call; the rule's on the CPU follows it
+            return step(logits, ids_, gen, n_gen + 1, it, n_iter, mask_id)
+        return step(logits, ids_, gen, n_gen, it, n_iter, mask_id)
+
+    monkeypatch.setattr(chip_smoke, "mask_predict_step", card_keeps_one_more)
+    bad = chip_smoke.caption_teacher_forced(cpu, cpu, img, ids, mask, 3, 2)
+    assert not all(bad["rule_equal"])

@@ -24,8 +24,10 @@ weights themselves). The EMA decays are set apart from their defaults (0.9
 and 0.99), so that one step moves each tree well past that rounding.
 """
 
+import copy
 import functools
 import itertools
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -140,11 +142,23 @@ def _close_metrics(got: dict, want: dict) -> None:
                                    rtol=1e-4 if k == "grad_norm" else RTOL)
 
 
+@functools.cache
+def _jax_trainer(family: tuple) -> JaxTrainer:
+    """One JAX Trainer for each family of overrides (the same losses and
+    recipe, any accumulation), built once for the module."""
+    return JaxTrainer(jax_load_config(list(family) + [f"exp_dir={tempfile.mkdtemp()}"]))
+
+
 def _run(tmp, overrides, steps, accum_rows=BATCH):
     """`steps` steps of JAX's Trainer and the port's from JAX's initial state
     on the port's first batches; returns (JAX trainer, its state before and
-    after, its metrics, the port's trainer, its metrics, the batches)."""
-    jtrainer = JaxTrainer(jax_load_config(overrides + [f"exp_dir={tmp}/jax"]))
+    after, its metrics, the port's trainer, its metrics, the batches). The
+    JAX trainer is its family's (`_jax_trainer`), with these overrides'
+    config, so its train step is traced for their accumulation."""
+    family = tuple(o for o in overrides if not o.startswith("train.accumulation_steps="))
+    jtrainer = copy.copy(_jax_trainer(family))
+    jtrainer.cfg = jax_load_config(overrides + [f"exp_dir={tmp}/jax"])
+    jtrainer._eval_step = None
     trainer = Trainer(load_config(overrides + [f"exp_dir={tmp}/port"]), device="cpu")
     batches = [trainer.next_batch() for _ in range(steps)]
     state = jtrainer.init_state(_jbatch(batches[0]))
@@ -251,8 +265,8 @@ def test_in_batch_g2l_loss_matches_jax(offset, masked):
         return jlosses.in_batch_g2l_loss(l, m, temp, None if am is None else jnp.asarray(am),
                                          pos_offset=offset)
 
-    want, (wl, wm) = jax.value_and_grad(jloss, argnums=(0, 1))(jnp.asarray(loc),
-                                                               jnp.asarray(glob))
+    want, (wl, wm) = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1)))(
+        jnp.asarray(loc), jnp.asarray(glob))
     tl, tm = (torch.from_numpy(x).requires_grad_() for x in (loc, glob))
     got = plosses.in_batch_g2l_loss(tl, tm, temp,
                                     None if am is None else torch.from_numpy(am),
@@ -465,7 +479,7 @@ def test_accumulation_matches_jax(tmp_path, case):
     (square sims of each microbatch, positives on the plain diagonal) with
     ITM, finite and equal to JAX."""
     extra = RECIPE if case == "momentum" else ["train.loss_names=[itc,itm]"]
-    out = _run(tmp_path, TINY + STEP + extra + ["train.accumulation_steps=2"], 1,
+    out = _run(tmp_path, TINY + extra + STEP + ["train.accumulation_steps=2"], 1,
                accum_rows=BATCH // 2)
     _check_step(*out[1:6])
     metrics = out[5][0]
@@ -537,7 +551,8 @@ def test_checkpoint_round_trip_and_warm_start(tmp_path):
                                  "train.accumulation_steps=2", "train.global_reduce=true"])
 def test_trainer_accepts_the_recipe_keys(key):
     """Each of the five keys builds a trainer that takes a step; an arrow
-    dataset and a loss without a ported head are still refused."""
+    dataset and a loss the port has no head for (every loss of the JAX
+    package has one) are still refused."""
     trainer = Trainer(load_config(TINY + [key]), device="cpu")
     metrics = trainer.step()
     assert np.isfinite(float(metrics["total_loss"]))
@@ -552,4 +567,4 @@ def test_trainer_accepts_the_recipe_keys(key):
     with pytest.raises(NotImplementedError, match="datasets"):
         Trainer(load_config(TINY + [key, "train.datasets=[coco]"]), device="cpu")
     with pytest.raises(NotImplementedError, match="loss_names"):
-        Trainer(load_config(TINY + [key, "train.loss_names=[itc,mpp]"]), device="cpu")
+        Trainer(load_config(TINY + [key, "train.loss_names=[itc,unknown]"]), device="cpu")

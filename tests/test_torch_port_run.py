@@ -181,7 +181,7 @@ def test_main_eval_throughput_and_dirs(tmp_path):
     assert "samples/s" in open(tmp_path / "tp" / "log_p0.txt").read()
     assert not (tmp_path / "pretrain_txt").exists()
     with pytest.raises(NotImplementedError, match="the port trains"):
-        port_main(base + ["train=finetune_caption"])
+        port_main(base + ["train.phase=finetune_unknown"])
 
 
 def test_throughput_returns_samples_per_second():

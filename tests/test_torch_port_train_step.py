@@ -9,6 +9,8 @@ optimizer, the schedules, the data and the dVAE tokenizer, each against its
 JAX counterpart.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +29,7 @@ from exploremultimodal_tpu.train import optim as joptim
 from exploremultimodal_torch.config import load_config
 from exploremultimodal_torch.data.pipeline import collate
 from exploremultimodal_torch.main import main as port_main
+from exploremultimodal_torch.models import dvae as pdvae
 from exploremultimodal_torch.models.convert import from_flax_params
 from exploremultimodal_torch.models.dvae import DalleEncoder
 from exploremultimodal_torch.models.task import VlmoTask, total_loss
@@ -51,11 +54,25 @@ def _impl(attn):
     return TINY + [f"attn_impl={attn}"]
 
 
+def _narrow(mp):
+    """The trainer's random dVAE at n_hid 16, where its labels are not
+    compared (its full width costs seconds to build and to run on the
+    CPU); `test_dvae_tokens_match_jax` holds the full width to JAX."""
+    mp.setattr(pdvae, "DalleEncoder", functools.partial(DalleEncoder, n_hid=16))
+
+
+@pytest.fixture
+def narrow_dvae(monkeypatch):
+    _narrow(monkeypatch)
+
+
 @pytest.fixture(scope="module")
 def host_batch():
     """One loader batch of the synthetic pretrain data, as the port's
     trainer draws it, with MIM labels from a seeded numpy draw."""
-    trainer = Trainer(load_config(TINY), device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        _narrow(mp)
+        trainer = Trainer(load_config(TINY), device="cpu")
     batch = trainer.next_batch()
     batch["mim_labels"] = np.random.default_rng(5).integers(
         0, 8192, batch["image_bool_masked_pos"].shape).astype(np.int32)
@@ -251,7 +268,7 @@ def test_param_groups_match_jax(flax_params):
             assert all(jp(n) == pp(n) for n in names), losses
 
 
-def test_synthetic_batches_match_jax():
+def test_synthetic_batches_match_jax(narrow_dvae):
     """The port's loader over its synthetic dataset gives the batches of
     JAX's `MultiTaskData(...).train_loader()` for the same config and
     epoch: same keys, dtypes and values."""
@@ -309,7 +326,7 @@ def test_dvae_tokens_match_jax():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_trainer_refuses_without_cuda_and_trains_on_the_cpu(monkeypatch):
+def test_trainer_refuses_without_cuda_and_trains_on_the_cpu(monkeypatch, narrow_dvae):
     """Without a GPU the trainer raises unless device='cpu' is asked for;
     on the CPU two steps with every dropout live give finite metrics and
     move the weights; the command line takes the same overrides."""

@@ -363,7 +363,8 @@ def test_compute_vqa_losses_and_gradients_match_jax(flax_params, model_batch, ml
         out = jtask.apply({"params": p}, jbatch, deterministic=True)
         return jax_total_loss(out), out
 
-    (jloss, jout), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(flax_params)
+    (jloss, jout), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        flax_params)
     task = _port_task(overrides, flax_params)
     out = task({k: torch.from_numpy(v) for k, v in model_batch.items()})
     loss = total_loss(out)
@@ -401,7 +402,8 @@ def test_isda_and_rdrop_match_jax(flax_params, model_batch, mlp_impl):
                                 "droppath": jax.random.key(2)})
         return jax_total_loss(out), out
 
-    (jloss, jout), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(flax_params)
+    (jloss, jout), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        flax_params)
     task = _port_task(overrides, flax_params)
     assert task.config.kl_alpha == 1.0 and task.config.isda_lambda == 0.5
     rng = pst.StepRng(torch.Generator().manual_seed(0), torch.Generator().manual_seed(1),
