@@ -15,6 +15,7 @@
                                  # timed step and phase 23 alone
     python3 chip_smoke.py --finetune-rest
                                  # the build and phase 24 alone
+    python3 chip_smoke.py --data # the build and phase 25 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -193,7 +194,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      timed; one forward and backward of `DiscreteVAE` at its defaults on
      the card and the CPU (no Gumbel noise): the reconstruction loss within
      1e-3 relative, every gradient within GRAD_REL_TOL;
- 25. print the kernel table as one JSON line, the card line, and last
+ 25. real data (DATA_IMAGES seeded 640x480 JPEGs at quality 90 with five
+     captions each, coco's train and val tables, vg, vqav2_train with
+     answers and question ids, a save_to_disk text corpus, in a temporary
+     directory): which of pyarrow, PIL and `datasets` import and whether
+     `jpeglib.h`, libjpeg and the native loader's build are found (a part
+     whose package is missing is left out, named on a line of its own; the
+     native route without the library); the tokenizer's and the collator's
+     host microseconds per caption and per 512-token packed sample; the
+     train loader's images per second at 1, 8 and 16 threads; two loaders
+     of one seed and epoch giving the same batches at 8 threads;
+     pretrain_mum at vlmo_base, batch 32, from coco and vg (rows 3 and 4 54
+     times a step), steps fed by the loader against steps on batches
+     collated before, in DATA_ROUNDS rounds, with the loader's wait and
+     `step/batch` host ms, and the same on the synthetic samples; finetune_vqa from vqav2_train (mlp_impl=fused:
+     rows 7, 3 and 4 18 times a step) and pretrain_txt from the corpus at
+     512 tokens (rows 3 and 4 12 times), each timed as phase 6; one batch-2
+     pretrain_mum step from the shards against the CPU (as phase 8);
+     `Predictor.vqa` on 64 PIL images and question strings against
+     `vqa_logits` on the same rows (rows 1 and 6 18 times a request, the
+     answers equal);
+ 26. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -203,14 +224,19 @@ device-side sleep, so the host's launch overhead does not enter them.
 from __future__ import annotations
 
 import ctypes
+import ctypes.util
+import importlib
+import io
 import json
 import math
+import shutil
 import statistics
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -293,8 +319,11 @@ from exploremultimodal_torch.ops.quant_fused import (
 )
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 from exploremultimodal_torch.main import setup
-from exploremultimodal_torch.data.datasets import build_dataset
+from exploremultimodal_torch.data import native
+from exploremultimodal_torch.data.datamodule import MultiTaskData
+from exploremultimodal_torch.data.datasets import TextCorpusDataset, build_dataset
 from exploremultimodal_torch.data.pipeline import Loader
+from exploremultimodal_torch.data.tokenization import MlmCollator, encode_texts, get_tokenizer
 from exploremultimodal_torch.objectives.losses import itc_losses
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.phases import dispatch, write_vqa_submission
@@ -383,6 +412,18 @@ BWD_ATOL, BWD_RTOL = 1e-3, 2 ** -7
 # 10% in relative L2 norm: a wrong itc_temp gradient fails the first, wrong
 # features the second.
 LOSS_RTOL, GRAD_REL_TOL, UPDATE_AGREEMENT = 2e-2, 0.1, 0.9
+# The comparisons with the CPU (phases 8, 12, 15, 19, 21, 23, 24, 25) run
+# at half depth, fusion layer 3 of 6: every attention and FFN call has the
+# shapes of the full-depth step, and the CPU's step and both trainers'
+# builds take half the time (it keeps the whole script near 600 s). The
+# named parameters of the last block (11) are the shallower model's (5).
+CHECK_DEPTH = ["model.depth=6", "model.fusion_layer=3"]
+
+
+def at_check_depth(names) -> tuple:
+    return tuple(n.replace("transformer.blocks.11.", "transformer.blocks.5.") for n in names)
+
+
 # ITC_GRAD_NOTE: finetune_retrieval trains ITC without MIM, MLM or ITM. At
 # random weights every image's ITC feature is nearly the same (the loss sits
 # at ln 2 for 2 rows), so the loss's gradient at an image feature is a
@@ -555,7 +596,7 @@ MOMENTUM_OVERRIDES = TRAIN_OVERRIDES + ["vlmo_ema=true", "train.neg_queue=true",
 MOMENTUM_LOSSES = ("i2i_Loss", "t2t_Loss", "i2i_l_Loss", "t2t_l_Loss")
 MOMENTUM_LEAF = "transformer.blocks.0.attn.qkv.weight"
 MOMENTUM_EVAL_BATCHES = 2
-ALTERNATED_PAIRS = 12  # recipe and plain pretrain_mum steps in turn
+ALTERNATED_PAIRS = 6  # recipe and plain pretrain_mum steps in turn
 MOMENTUM_CPU_BATCH = 4  # two microbatches of 2 at accumulation_steps=2
 # the streams whose shapes phase 23 alone gives rows 1 (the momentum
 # encoder under attn_impl=pallas) and 3 and 4 (accumulation_steps=2)
@@ -617,6 +658,43 @@ REST_FROZEN = {
 }
 MPP_OVERRIDES = DOWNSTREAM + ["train=pretrain_mum", "train.loss_names=[mpp]"]
 SUBMIT_SAMPLES = 64
+
+# phase 25: real data. Seeded shards in a temporary directory: DATA_IMAGES
+# JPEGs at COCO's size and quality (a smooth random field plus noise, so
+# decoding costs what a photograph's does), five captions each from
+# DATA_SENTENCES; coco's train and val tables, vg, vqav2_train with answers
+# and question ids, and a save_to_disk text corpus of DATA_TEXTS texts
+DATA_IMAGES, DATA_W, DATA_H, DATA_QUALITY = 320, 640, 480, 90
+DATA_CAPTIONS = 5
+DATA_TEXTS = 4000
+DATA_SENTENCES = (
+    "a man riding a wave on top of a surfboard in the ocean",
+    "two dogs are playing with a red frisbee in a grassy park near some tall trees",
+    "a red double decker bus parked beside the road in front of an old building",
+    "a plate of food with broccoli rice and grilled chicken on a wooden table",
+    "people walking down a busy city street while it is raining",
+    "a cat sleeping on the keyboard of an open laptop computer",
+    "a passenger train passing through a small station in the countryside at sunset",
+    "a young woman holding an umbrella while waiting for the bus",
+    "several zebras grazing in a dry field with mountains in the background",
+    "a kitchen with white cabinets a stainless steel refrigerator and a small window",
+    "a little boy swinging a baseball bat at a ball during a game",
+    "an airplane flying high above the clouds on a clear blue day",
+    "a bowl of fresh fruit including bananas apples and oranges sits on the counter",
+    "a skier going down a snowy slope next to a line of pine trees",
+    "a group of people sitting around a table sharing a large pizza",
+    "a giraffe standing next to a tree and eating leaves from its branches",
+    "a bathroom with a white sink a mirror and a shower curtain",
+    "an elephant walking along a dirt road with a person riding on its back",
+    "a street sign at the corner of two roads under a cloudy sky",
+    "a brown teddy bear sitting on a bed covered with a striped blanket",
+)
+DATA_QUESTIONS = ("what color is the bus", "how many people are in the picture",
+                  "is it raining", "what is the man holding", "what animal is this",
+                  "is there a dog in the image", "what room is this", "what sport is played")
+DATA_WORKERS = (1, 8, 16)
+LOADER_BATCHES = 4  # batches timed per loader setting, after the first
+DATA_ROUNDS = 2  # rounds of TRAIN_STEPS loader-fed then TRAIN_STEPS pre-collated steps
 # caption serving: [CLS] [MASK] x 16 [SEP] [PAD]... at 8 refinements
 CAPTION_TOKENS, CAPTION_ITERS, MASK_ID = 16, 8, 103
 # inpainting: one region of up to INPAINT_REGION patches a row; at the
@@ -625,6 +703,14 @@ CAPTION_TOKENS, CAPTION_ITERS, MASK_ID = 16, 8, 103
 # dVAE's own codes
 INPAINT_REGION, INPAINT_AGREEMENT, INPAINT_PIXEL_ATOL = 75, 0.9, 1e-5
 DISCRETE_VAE_BATCH, DISCRETE_VAE_LOSS_RTOL = 4, 1e-3
+
+
+START = time.perf_counter()
+
+
+def elapsed(label: str) -> None:
+    """The script's wall seconds so far, after `label`."""
+    print(f"elapsed: {label} {time.perf_counter() - START:.1f} s", flush=True)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1638,11 +1724,13 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None) -
             keep.float().mean().item()}
 
 
-def cpu_check_phase() -> dict:
-    """One step at batch CPU_TRAIN_BATCH on the card and on the CPU's plain
-    path: same seeded weights, batch, attention-dropout seeds, ITM negatives
-    and MIM labels (the CPU dVAE's), hidden dropout and DropPath off."""
-    cfg_dict = load_config(TRAIN_OVERRIDES + [
+def cpu_check_phase(overrides: list[str] = TRAIN_OVERRIDES,
+                    tag: str = "train_cpu_check") -> dict:
+    """One pretrain_mum step at batch CPU_TRAIN_BATCH on the card and on the
+    CPU's plain path: same seeded weights, batch (the CPU trainer's first),
+    attention-dropout seeds, ITM negatives and MIM labels (the CPU dVAE's),
+    hidden dropout and DropPath off."""
+    cfg_dict = load_config(overrides + CHECK_DEPTH + [
         f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
         "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
@@ -1652,8 +1740,8 @@ def cpu_check_phase() -> dict:
     b = CPU_TRAIN_BATCH
     negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
     agreement = (gpu_labels == labels).float().mean().item()
-    print(f"train_cpu_check: dvae_token_agreement {agreement}", flush=True)
-    result = compare_step("train_cpu_check", gpu, cpu, batch, CHECKED_PARAMS,
+    print(f"{tag}: dvae_token_agreement {agreement}", flush=True)
+    result = compare_step(tag, gpu, cpu, batch, at_check_depth(CHECKED_PARAMS),
                           negatives=negatives, mim_labels=labels)
     del gpu, cpu
     torch.cuda.empty_cache()
@@ -1857,11 +1945,11 @@ def vqa_cpu_check_phase(tag: str, overrides: list[str]) -> dict:
     CPU's plain path: same seeded weights, batch and attention-dropout
     seeds, hidden dropout and DropPath off (the fused MLP without dropout:
     row 6, or row 9 under int8)."""
-    cfg_dict = load_config(overrides + [
+    cfg_dict = load_config(overrides + CHECK_DEPTH + [
         f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
         "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
-    result = compare_step(tag, gpu, cpu, cpu.next_batch(), CHECKED_VQA_PARAMS)
+    result = compare_step(tag, gpu, cpu, cpu.next_batch(), at_check_depth(CHECKED_VQA_PARAMS))
     del gpu, cpu
     torch.cuda.empty_cache()
     return result
@@ -1893,11 +1981,12 @@ def txt_phase() -> dict:
         load_config(TXT_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"]),
         {"flash_attention_fwd": depth, "flash_attention_bwd": depth,
          "flash_attention_fwd_drop": 0, "flash_attention_bwd_drop": 0})
-    cfg_dict = load_config(TXT_OVERRIDES + [
+    cfg_dict = load_config(TXT_OVERRIDES + CHECK_DEPTH + [
         f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
         "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
-    compare_step("txt_cpu_check", gpu, cpu, cpu.next_batch(), COMPARED_TXT_PARAMS)
+    compare_step("txt_cpu_check", gpu, cpu, cpu.next_batch(),
+                 at_check_depth(COMPARED_TXT_PARAMS))
     del gpu, cpu
     torch.cuda.empty_cache()
     return launches
@@ -2090,7 +2179,7 @@ def downstream_cpu_check(tag: str, overrides: list[str], names,
     path: same seeded weights, batch and attention-dropout seeds, hidden
     dropout and DropPath off; MIM labels, where the phase trains MIM, from
     the CPU's dVAE on both."""
-    cfg_dict = load_config(overrides + [
+    cfg_dict = load_config(overrides + CHECK_DEPTH + [
         f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
         "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
@@ -2098,7 +2187,8 @@ def downstream_cpu_check(tag: str, overrides: list[str], names,
     kw = {}
     if cpu.dvae is not None:
         kw["mim_labels"] = cpu.model_batch(batch)["mim_labels"]
-    result = compare_step(tag, gpu, cpu, batch, names, itc_grad_from_cpu, unheld, **kw)
+    result = compare_step(tag, gpu, cpu, batch, at_check_depth(names), itc_grad_from_cpu,
+                          at_check_depth(unheld), **kw)
     del gpu, cpu
     torch.cuda.empty_cache()
     return result
@@ -2328,7 +2418,7 @@ def momentum_cpu_check() -> dict:
     columns, equal on each device to its own momentum features, and
     MOMENTUM_CPU_LEAF of both trees, across the devices, each beside the
     control that must fail (`momentum_feature_gaps`)."""
-    cfg_dict = load_config(MOMENTUM_OVERRIDES + [
+    cfg_dict = load_config(MOMENTUM_OVERRIDES + CHECK_DEPTH + [
         f"data.batch_size={MOMENTUM_CPU_BATCH}", "train.accumulation_steps=2",
         "model.drop_rate=0.0", "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
@@ -2347,7 +2437,8 @@ def momentum_cpu_check() -> dict:
     for d, tr in trainers.items():
         record_momentum_branch(tr, branches, d)
     result = compare_step(
-        "momentum_cpu_check", gpu, cpu, batch, CHECKED_PARAMS, negatives=negatives,
+        "momentum_cpu_check", gpu, cpu, batch, at_check_depth(CHECKED_PARAMS),
+        negatives=negatives,
         mim_labels=labels,
         itc_temp_grad=lambda d, f, lt: momentum_itc_temp_grad(f, branches[d], lt))
     require(gpu.state.queue_ptr == cpu.state.queue_ptr == MOMENTUM_CPU_BATCH,
@@ -2915,6 +3006,350 @@ def downstream_only(card: str, dev) -> int:
     downstream_serve_phase(card)
     return 0
 
+# ---------------------------------------------------------------- phase 25
+
+
+def data_packages() -> dict:
+    """What the data layer needs on this machine: pyarrow, PIL (and HF
+    `datasets`, which the port does not use), `jpeglib.h` and libjpeg, and
+    whether the native loader builds from `native/emmloader.cc`."""
+    out: dict = {}
+    for mod in ("pyarrow", "PIL", "datasets"):
+        try:
+            out[mod] = getattr(importlib.import_module(mod), "__version__", "?")
+        except ImportError as e:
+            out[mod] = f"missing ({e})"
+    dirs = ["/usr/include", "/usr/local/include",
+            *os.environ.get("CPATH", "").split(os.pathsep)]
+    out["jpeglib.h"] = next((os.path.join(d, "jpeglib.h") for d in dirs
+                             if d and os.path.exists(os.path.join(d, "jpeglib.h"))), None)
+    out["libjpeg"] = ctypes.util.find_library("jpeg")
+    try:
+        native.require()
+        out["native_loader"] = "built"
+    except RuntimeError as e:
+        lines = str(e).splitlines()
+        out["native_loader"] = next((x.strip() for x in lines if "error" in x), lines[0])
+    return out
+
+
+def write_shards(root: str, rng: np.random.Generator) -> dict:
+    """The phase's tables under `root` (see DATA_IMAGES); returns their
+    sizes."""
+    import pyarrow as pa
+    from PIL import Image
+
+    def write(name: str, table, stream: bool = False):
+        path = os.path.join(root, name)
+        with pa.OSFile(path, "wb") as sink:
+            with (pa.ipc.new_stream if stream else pa.ipc.new_file)(sink, table.schema) as w:
+                w.write_table(table)
+
+    def jpeg(seed: int) -> bytes:
+        r = np.random.default_rng(seed)
+        coarse = r.integers(0, 256, (DATA_H // 32 + 1, DATA_W // 32 + 1, 3), dtype=np.uint8)
+        field = np.asarray(Image.fromarray(coarse).resize((DATA_W, DATA_H), Image.BICUBIC),
+                           np.float32)
+        noise = r.standard_normal(field.shape, dtype=np.float32) * 8
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(field + noise, 0, 255).astype(np.uint8)).save(
+            buf, format="JPEG", quality=DATA_QUALITY)
+        return buf.getvalue()
+
+    with ThreadPoolExecutor(8) as pool:
+        images = list(pool.map(jpeg, rng.integers(0, 2 ** 63, DATA_IMAGES)))
+    caps = [[DATA_SENTENCES[j] for j in rng.integers(0, len(DATA_SENTENCES), DATA_CAPTIONS)]
+            for _ in range(DATA_IMAGES)]
+    train, vg, val = slice(0, 192), slice(192, 256), slice(256, 288)
+    for name, sl in (("coco_caption_karpathy_train", train), ("vg", vg),
+                     ("coco_caption_karpathy_val", val)):
+        write(f"{name}.arrow", pa.table({"image": images[sl], "caption": caps[sl]}))
+    n_q = rng.integers(1, 3, DATA_IMAGES)
+    write("vqav2_train.arrow", pa.table({
+        "image": images,
+        "questions": [[DATA_QUESTIONS[j] for j in rng.integers(0, len(DATA_QUESTIONS), n)]
+                      for n in n_q],
+        "answers": [[["yes"]] * n for n in n_q],
+        "answer_labels": [[list(map(int, rng.integers(0, 3129, 3))) for _ in range(n)]
+                          for n in n_q],
+        "answer_scores": [[[1.0, 0.6, 0.3]] * n for n in n_q],
+        "question_id": [[1000 * i + k for k in range(n)] for i, n in enumerate(n_q)],
+    }))
+    corpus = os.path.join(root, "bookcorpus")
+    os.makedirs(os.path.join(corpus, "train"))
+    texts = [" ".join(DATA_SENTENCES[j] for j in rng.integers(0, len(DATA_SENTENCES), k)) + "."
+             for k in rng.integers(1, 4, DATA_TEXTS)]
+    write("bookcorpus/train/data-00000-of-00001.arrow", pa.table({"text": texts}), stream=True)
+    with open(os.path.join(corpus, "train", "state.json"), "w") as f:
+        json.dump({"_data_files": [{"filename": "data-00000-of-00001.arrow"}]}, f)
+    with open(os.path.join(corpus, "dataset_dict.json"), "w") as f:
+        json.dump({"splits": ["train"]}, f)
+    return {"images": DATA_IMAGES, "jpeg_mean_kb": sum(map(len, images)) / len(images) / 1e3,
+            "coco_train_rows": 192, "vg_rows": 64, "coco_val_rows": 32,
+            "vqa_questions": int(n_q.sum()), "corpus_texts": DATA_TEXTS}
+
+
+def data_overrides(root: str, phase: str, *extra: str) -> list[str]:
+    return ["model=vlmo_base", f"train={phase}", "compute_dtype=bfloat16",
+            f"data.data_root={root}", f"data.batch_size={TRAIN_BATCH}", *extra]
+
+
+def loader_rate(cfg_dict: dict, workers: int) -> dict:
+    """Images per second of the train loader alone at `workers` threads:
+    LOADER_BATCHES batches after the first (which starts the producer)."""
+    cfg = {**cfg_dict, "data": {**cfg_dict["data"], "num_workers": workers}}
+    batches = MultiTaskData(cfg).train_loader().epoch(0)
+    next(batches)
+    t0 = time.perf_counter()
+    n = sum(len(next(batches)["text_ids"]) for _ in range(LOADER_BATCHES))
+    secs = time.perf_counter() - t0
+    batches.close()
+    return {"workers": workers, "images": n, "seconds": secs, "images_per_s": n / secs}
+
+
+def same_batches(cfg_dict: dict) -> None:
+    """Two loaders of one config at 8 threads, same seed and epoch: the same
+    first two batches, array for array."""
+    cfg = {**cfg_dict, "data": {**cfg_dict["data"], "num_workers": 8}}
+    a, b = (MultiTaskData(cfg).train_loader().epoch(1) for _ in range(2))
+    for _ in range(2):
+        x, y = next(a), next(b)
+        require(x.keys() == y.keys() and all(
+            np.array_equal(x[k], y[k]) if isinstance(x[k], np.ndarray) else x[k] == y[k]
+            for k in x), "two loaders with one seed and epoch gave different batches")
+    a.close()
+    b.close()
+
+
+def tokenizer_costs(root: str) -> dict:
+    """Host microseconds (one thread, warm word cache) of the tokenizer and
+    the whole-word collator per 40-token caption and per 512-token packed
+    sample, and of a whole packed sample of the corpus."""
+    tok, col = get_tokenizer(), MlmCollator(get_tokenizer())
+    caps = [DATA_SENTENCES[i % len(DATA_SENTENCES)] for i in range(2000)]
+
+    def per_call_us(fn, items):
+        fn(items[0])
+        t0 = time.perf_counter()
+        for x in items:
+            fn(x)
+        return (time.perf_counter() - t0) / len(items) * 1e6
+
+    ids40 = [encode_texts(tok, [c], 40)[0] for c in caps[:500]]
+    corpus = TextCorpusDataset(os.path.join(root, "bookcorpus"), tokenizer=tok,
+                               max_text_len=TXT_LEN, mlm_collator=col)
+    packed = [" ".join(caps[i: i + 45]) for i in range(0, 1800, 45)]
+    ids512 = [encode_texts(tok, [p], TXT_LEN)[0] for p in packed]
+    out = {
+        "caption_encode_us": per_call_us(lambda c: encode_texts(tok, [c], 40), caps),
+        "caption_collate_us": per_call_us(lambda x: col(x, seed=7), ids40),
+        "packed_encode_us": per_call_us(lambda p: encode_texts(tok, [p], TXT_LEN), packed),
+        "packed_collate_us": per_call_us(lambda x: col(x, seed=7), ids512),
+        "packed_sample_us": per_call_us(corpus.__getitem__, list(range(64))),
+        "packed_tokens": int(ids512[0].astype(bool).sum()),
+    }
+    print("data_tokenizer: " + json.dumps(out), flush=True)
+    return out
+
+
+def timed_host(fn, store: list):
+    def wrapped(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        store.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return wrapped
+
+
+def loader_step_phase(card: str, cfg_dict: dict, tag: str = "data_train") -> dict:
+    """pretrain_mum at vlmo_base, batch 32, from the shards: a warm-up step,
+    then DATA_ROUNDS rounds of TRAIN_STEPS steps fed by the loader (its 8
+    threads working beside the step) and TRAIN_STEPS on batches collated
+    before with the loader stopped, each step synchronised; rows 3 and 4 counted on the fed steps;
+    the host ms of the loader's wait and of `model_batch` (`step/batch`:
+    the H2D copy, preprocessing, the dVAE's labels)."""
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg_dict, device="cuda")
+    print(f"{tag}: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    waits, prep = [], []
+    trainer.next_batch = timed_host(trainer.next_batch, waits)
+    trainer.model_batch = timed_host(trainer.model_batch, prep)
+    params = dict(trainer.task.named_parameters())
+    before = {k: params[k].detach().clone() for k in CHECKED_PARAMS}
+    trainer.step()
+    per_step = attention_calls_per_step(trainer.config)
+    fed, pre, fed_wait, fed_prep, pre_prep, launches = [], [], [], [], [], {}
+    for _ in range(DATA_ROUNDS):
+        waits.clear()
+        prep.clear()
+        metrics, times, counted = run_counted(trainer, TRAIN_STEPS, timed=True)
+        require_launches(tag, counted, {"flash_attention_fwd_drop": per_step,
+                                                 "flash_attention_bwd_drop": per_step},
+                         TRAIN_STEPS)
+        launches = {k: launches.get(k, 0) + v for k, v in counted.items()}
+        fed += times
+        fed_wait += waits
+        fed_prep += prep
+        batches = [trainer.next_batch() for _ in range(TRAIN_STEPS)]
+        trainer._batches.close()  # no loader thread runs beside these steps
+        trainer._batches = None
+        prep.clear()
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            trainer.step(b)
+            torch.cuda.synchronize()
+            pre.append(time.perf_counter() - t)
+        pre_prep += prep
+    moved = {k: (params[k].detach() - before[k]).abs().max().item() for k in CHECKED_PARAMS}
+    require(all(x > 0 for x in moved.values()), f"{tag}: parameters did not change: {moved}")
+    result = {
+        "card": card, "batch": TRAIN_BATCH, "rounds": DATA_ROUNDS, "steps": TRAIN_STEPS,
+        "fed_ms": [x * 1e3 for x in fed], "precollated_ms": [x * 1e3 for x in pre],
+        "fed_median_ms": statistics.median(fed) * 1e3,
+        "precollated_median_ms": statistics.median(pre) * 1e3,
+        "fed_loader_wait_ms": fed_wait, "fed_step_batch_ms": fed_prep,
+        "precollated_step_batch_ms": pre_prep,
+        "fed_losses": [{k: v for k, v in m.items() if k.endswith("_task_loss")}
+                       for m in metrics],
+        "launches": launches, "expected_launches_per_step": per_step,
+    }
+    print(f"{tag}: " + json.dumps(result), flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return result
+
+
+def data_serve(card: str, root: str) -> dict:
+    """`Predictor.vqa` on 64 PIL images (the shards' 640x480 JPEGs) and their
+    questions as strings, against `vqa_logits` on the same rows
+    (`preprocess_images` and `tokenize` done before): N_REQUESTS requests
+    each, the first a warm-up; rows 1 and 6 on every attention and FFN
+    call; the answers equal."""
+    import pyarrow as pa
+    from PIL import Image
+
+    cfg_dict = load_config(SERVE_OVERRIDES)
+    cfg = VlmoConfig.from_config(cfg_dict)
+    state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
+    pred = Predictor(cfg_dict, state, max_batch=BATCH, device="cuda")
+    with pa.memory_map(os.path.join(root, "vqav2_train.arrow")) as src:
+        table = pa.ipc.open_file(src).read_all()
+    raw = table["image"].to_pylist()[:BATCH]
+    questions = [q[0] for q in table["questions"].to_pylist()[:BATCH]]
+    images = [Image.open(io.BytesIO(b)) for b in raw]
+    calls = img_txt_calls(cfg)
+    expected = {"flash_attention_fwd": calls, "fused_mlp_fwd": calls}
+
+    def run(fn):
+        for f in KERNELS:
+            f.launches = 0
+        times, outs = [], []
+        for _ in range(N_REQUESTS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs.append(fn())
+            times.append(time.perf_counter() - t)
+        launches = {f.__name__: f.launches for f in KERNELS}
+        require_launches("data_serve", launches, expected, N_REQUESTS)
+        return times[1:], outs[-1], launches
+
+    t0 = time.perf_counter()
+    u8 = pred.preprocess_images(images)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ids, mask = pred.tokenize(questions)
+    tok_ms = (time.perf_counter() - t0) * 1e3
+    str_times, answers, launches = run(lambda: pred.vqa(images, questions))
+    id_times, logits, _ = run(lambda: pred.vqa_logits(u8, ids, mask))
+    require(answers == pred.answers(logits),
+            "data_serve: vqa on PIL images and strings answers otherwise than vqa_logits")
+    result = {
+        "card": card, "batch": BATCH, "requests": N_REQUESTS - 1,
+        "vqa_strings_pil_ms": [x * 1e3 for x in str_times],
+        "vqa_strings_pil_median_ms": statistics.median(str_times) * 1e3,
+        "vqa_logits_ms": [x * 1e3 for x in id_times],
+        "vqa_logits_median_ms": statistics.median(id_times) * 1e3,
+        "preprocess_images_ms": prep_ms, "tokenize_ms": tok_ms,
+        "launches": launches, "sample_answers": answers[:4],
+    }
+    print("data_serve: " + json.dumps(result), flush=True)
+    return result
+
+
+def data_phase(card: str) -> dict:
+    """Phase 25: the data layer on this machine. The parts whose packages
+    are missing are left out, each named with its reason on a line of its
+    own; every part that runs raises on its own failure."""
+    pkgs = data_packages()
+    print("data_packages: " + json.dumps(pkgs), flush=True)
+    have = {m: not str(pkgs[m]).startswith("missing") for m in ("pyarrow", "PIL")}
+    out: dict = {"packages": pkgs}
+    if not all(have.values()):
+        missing = [m for m, ok in have.items() if not ok]
+        print(f"data: left out: the shards, the arrow loaders, the training paths and "
+              f"serving on PIL images (missing {missing})", flush=True)
+        return data_phase_synthetic(card, out)
+    root = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        t0 = time.perf_counter()
+        out["shards"] = write_shards(root, np.random.default_rng(25))
+        print(f"data_shards: {json.dumps(out['shards'])} written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out["tokenizer"] = tokenizer_costs(root)
+        mum = load_config(data_overrides(root, "pretrain_mum", "train.discrete_vae_type=random"))
+        rates = [loader_rate(mum, w) for w in DATA_WORKERS]
+        if pkgs["native_loader"] == "built":
+            native_cfg = {**mum, "data": {**mum["data"], "native_loader": True}}
+            rates += [{"route": "native", **loader_rate(native_cfg, w)} for w in DATA_WORKERS]
+        else:
+            print(f"data: left out: the native route (jpeglib.h {pkgs['jpeglib.h']}, libjpeg "
+                  f"{pkgs['libjpeg']}: {pkgs['native_loader']})", flush=True)
+        out["loader"] = rates
+        print("data_loader: " + json.dumps({"card": card, "pil": rates}), flush=True)
+        same_batches(mum)
+        out["train"] = loader_step_phase(card, mum)
+        # the same comparison on the synthetic samples (numpy draws on the
+        # loader's threads)
+        out["train_synthetic"] = loader_step_phase(card, load_config(TRAIN_OVERRIDES),
+                                                   "data_train_synthetic")
+        vqa = load_config(data_overrides(root, "finetune_vqa", "model.mlp_impl=fused"))
+        calls = img_txt_calls(VlmoConfig.from_config(vqa))
+        out["vqa_launches"] = timed_phase("vqa_arrow_train", vqa, CHECKED_VQA_PARAMS, {
+            "fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+            "flash_attention_bwd_drop": calls})
+        txt = load_config(data_overrides(root, "pretrain_txt", f"model.max_text_len={TXT_LEN}"))
+        depth = VlmoConfig.from_config(txt).depth
+        out["txt_launches"] = timed_phase("txt_arrow_train", txt, CHECKED_TXT_PARAMS, {
+            "flash_attention_fwd_drop": depth, "flash_attention_bwd_drop": depth},
+            unmoved=FIXED_TXT_PARAMS)
+        cpu_check_phase(data_overrides(root, "pretrain_mum", "train.discrete_vae_type=random"),
+                        tag="data_cpu_check")
+        out["serve"] = data_serve(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def data_phase_synthetic(card: str, out: dict) -> dict:
+    """The parts that need neither pyarrow nor PIL: the tokenizer and the
+    collator on the fixed sentences, the block masks and `ShardedLoader`
+    over the synthetic samples (two loaders, one seed: equal batches)."""
+    tok, col = get_tokenizer(), MlmCollator(get_tokenizer())
+    ids, _ = encode_texts(tok, list(DATA_SENTENCES), 40)
+    col(ids, seed=1)
+    cfg = load_config(TRAIN_OVERRIDES)
+    same_batches(cfg)
+    out["loader"] = [loader_rate(cfg, w) for w in DATA_WORKERS]
+    print("data_loader: " + json.dumps({"card": card, "synthetic": out["loader"]}), flush=True)
+    return out
+
+
+def data_only(card: str) -> int:
+    """The build, then phase 25 alone (`--data`)."""
+    data_phase(card)
+    return 0
+
 
 def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
@@ -2937,6 +3372,7 @@ def main(argv: list[str] | None = None) -> int:
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "bytes smem", "Performance Loss")):
                 print(f"  {line.strip()}", flush=True)
+    elapsed("build")
     if args[:1] == ["--train-loop-samples"]:
         return loop_fit(card, img_txt_calls(VlmoConfig.from_config(load_config(
             SERVE_OVERRIDES))), [int(n) for n in args[1:]])
@@ -2946,6 +3382,8 @@ def main(argv: list[str] | None = None) -> int:
         return momentum_only(card, dev)
     if args[:1] == ["--finetune-rest"]:
         return finetune_rest_only(card)
+    if args[:1] == ["--data"]:
+        return data_only(card)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -2956,9 +3394,11 @@ def main(argv: list[str] | None = None) -> int:
     for row in attn_rows + mlp_rows:
         print("kernel: " + json.dumps(row), flush=True)
 
+    elapsed("phase 3")
     calls = img_txt_calls(cfg)
     serve_launches, bf16_outputs = serve("serve", cfg_dict, cfg, card, {
         "flash_attention_fwd": calls, "fused_mlp_fwd": calls})
+    elapsed("phase 4")
 
     train_dict = load_config(TRAIN_OVERRIDES)
     train_cfg = VlmoConfig.from_config(train_dict)
@@ -2988,6 +3428,7 @@ def main(argv: list[str] | None = None) -> int:
         load_config(TRAIN_OVERRIDES + ["attn_impl=pallas", "model.attn_drop_rate=0.0"]),
         {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step})
     cpu_check_phase()
+    elapsed("phases 5-8")
 
     vqa_dict = load_config(VQA_OVERRIDES)
     vqa_cfg = VlmoConfig.from_config(vqa_dict)
@@ -3021,6 +3462,7 @@ def main(argv: list[str] | None = None) -> int:
         {"flash_attention_fwd": calls, "flash_attention_bwd": calls,
          "fused_mlp_fwd": calls, "fused_mlp_fwd_drop": 0})
     vqa_cpu_check_phase("vqa_cpu_check", VQA_OVERRIDES)
+    elapsed("phases 9-12")
 
     # ---- int8 (W8A8): rows 8, 9 and 10 at the path shapes, then the paths
     w8_dict = load_config(W8A8_SERVE_OVERRIDES)
@@ -3064,6 +3506,7 @@ def main(argv: list[str] | None = None) -> int:
         {"w8a8_mlp_fwd": calls, "flash_attention_fwd": calls, "flash_attention_bwd": calls,
          "w8a8_mlp_fwd_drop": 0})
     vqa_cpu_check_phase("vqa_w8a8_cpu_check", W8A8_VQA_OVERRIDES)
+    elapsed("phases 13-15")
 
     # ---- high-resolution serving: row 5 at the path shapes, then the path
     hires_dict = load_config(HIRES_OVERRIDES)
@@ -3079,6 +3522,7 @@ def main(argv: list[str] | None = None) -> int:
          "flash_attention_fwd": hires_cfg.fusion_layer, "fused_mlp_fwd": calls},
         batch=HIRES_BATCH, cpu_check=(1, HIRES_CPU_ROWS))
 
+    elapsed("phase 16")
     # ---- the tokenizer: row 11 at the five fused blocks, then four ways
     dvae_rows = check_dvae_block(dev)
     for row in dvae_rows:
@@ -3091,25 +3535,36 @@ def main(argv: list[str] | None = None) -> int:
         check=lambda tr: require(tr.dvae.encoder.quantize == "w8a8",
                                  "the trainer's dVAE is not int8"))
 
+    elapsed("phases 17-18")
     # pretrain_txt at 512 tokens: rows 3 and 4 (and 1 and 2 at dropout 0)
     txt_launches = txt_phase()
+    elapsed("phase 19")
 
     # the run around the step: epochs with evaluation, checkpoints, resume,
     # serving from a checkpoint, throughput mode
     train_loop_phase(card, calls)
+    elapsed("phase 20")
 
     # pretrain_vis, finetune_nlvr2 and finetune_retrieval, then the
     # retrieval and NLVR2 endpoints
     downstream_train_phase(card)
     downstream_serve_phase(card)
+    elapsed("phases 21-22")
 
     # pretrain_mum's full recipe: the momentum encoder, the queues, the eval
     # EMA and accumulation
     momentum_phase(card)
+    elapsed("phase 23")
 
     # the last four phases, MPP, the VQA submission, caption and inpaint
     # serving, the DiscreteVAE
     finetune_rest_phase(card)
+    elapsed("phase 24")
+
+    # real data: the shards, the tokenizer, the loader, the three training
+    # paths and serving on PIL images and strings
+    data_phase(card)
+    elapsed("phase 25")
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path

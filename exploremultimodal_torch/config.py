@@ -7,8 +7,10 @@ dicts, copied from the YAML files, because the serving machine has no PyYAML;
 reads. Every model and train preset of the YAML is here, and the base
 keys the serving path, the training step and the run around it (the
 directories, evaluation, throughput mode, logging) read. Keys the JAX code
-reads with a default (`data.synthetic_size`, `train.mlm_gather_cap`,
-`train.resume_sha256`, ...) are read with the same default here.
+reads with a default (`data.synthetic_size`, `data.nlp_max_text_len`,
+`train.mlm_gather_cap`, `train.resume_sha256`, ...) are read with the same
+default here. base.yaml's `data.device_preprocess` is read by neither
+package: both preprocess on the device.
 """
 
 from __future__ import annotations
@@ -30,8 +32,10 @@ QUANTIZE_MODES = ("none", "w8a8", "w8a8_pallas", "w8a8_pallas_mlp",
 # `load_config` resolves it the same way)
 BASE: dict[str, Any] = {
     "data": {
+        "data_root": "datasets/arrows/",
         "batch_size": 256,
         "eval_batch_size": None,
+        "image_only": False,
         "mask_style": "block",
         "num_mask_patches": 75,
         "max_mask_patches_per_block": None,
@@ -40,6 +44,9 @@ BASE: dict[str, Any] = {
         "tokenizer_dir": "resource",
         "whole_word_masking": True,
         "mlm_prob": 0.15,
+        "num_workers": 8,
+        "prefetch_depth": 4,
+        "native_loader": False,
         "vqav2_label_size": 3129,
     },
     "wandb": {

@@ -1,2 +1,4 @@
-"""Host-side data: the VQA answer vocabulary, and the synthetic pretrain
-dataset with its masking generator and batching."""
+"""Host-side data: the BERT tokenizer and MLM collators, the image
+transforms and the native JPEG loader, the arrow, text-corpus and
+synthetic datasets, the VQA answer vocabulary, the patch maskers, and the
+threaded loader that batches them for a phase (`datamodule.MultiTaskData`)."""

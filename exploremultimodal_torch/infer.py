@@ -8,9 +8,10 @@ decoder.
 Each text endpoint has a method on token-id arrays (`vqa_logits`,
 `encode_text_ids`, `itm_score_ids`, `nlvr2_ids`, `caption_ids`,
 `inpaint_ids`) and one on strings (`vqa`, `encode_text`, `itm_score`,
-`nlvr2`, `caption`, `inpaint`) that tokenizes with the BERT tokenizer and
-calls it; a machine without `transformers` serves through the former.
-Images are uint8 NHWC arrays at the model's size.
+`nlvr2`, `caption`, `inpaint`) that tokenizes with the port's BERT
+WordPiece tokenizer (`data/tokenization.py`) and calls it. Images are
+uint8 NHWC arrays at the model's size, or PIL images of any size, which
+`preprocess_images` resizes as the eval transform does.
 
 Every call pads its batch to a power-of-two bucket (at most `max_batch`) with
 copies of the last row, runs, and slices the result back, as the JAX
@@ -32,7 +33,9 @@ import torch
 import torch.nn.functional as F
 
 from exploremultimodal_torch.config import VlmoConfig, load_config
-from exploremultimodal_torch.data.vqa_vocab import RESOURCE_DIR, load_vqa_vocab
+from exploremultimodal_torch.data.tokenization import encode_texts, get_tokenizer
+from exploremultimodal_torch.data.transforms import EvalTransform
+from exploremultimodal_torch.data.vqa_vocab import load_vqa_vocab
 from exploremultimodal_torch.models.dvae import create_d_vae, map_pixels, unmap_pixels
 from exploremultimodal_torch.models.task import VlmoTask, build_model, resolve_device
 from exploremultimodal_torch.ops.preprocess import normalize_image
@@ -130,23 +133,19 @@ class Predictor:
     @property
     def tokenizer(self):
         if self._tokenizer is None:
-            from transformers import BertTokenizerFast
-
             d = self.cfg["data"]
-            roots = [d.get("tokenizer_dir"), RESOURCE_DIR]
-            dirs = [os.path.join(r, d["tokenizer"]) for r in roots if r]
-            local = next((p for p in dirs if os.path.isdir(p)), None)
-            if local is None:
-                raise FileNotFoundError(f"no tokenizer under {dirs}")
-            self._tokenizer = BertTokenizerFast.from_pretrained(local)
+            self._tokenizer = get_tokenizer(d["tokenizer"], d.get("tokenizer_dir"))
         return self._tokenizer
 
     def tokenize(self, texts: Sequence[str]) -> tuple[np.ndarray, np.ndarray]:
-        enc = self.tokenizer(list(texts), padding="max_length", truncation=True,
-                             max_length=self.task.config.max_text_len,
-                             return_tensors="np")
-        return (enc["input_ids"].astype(np.int32),
-                enc["attention_mask"].astype(np.int32))
+        """(N, max_text_len) int32 ids and mask, padded and truncated."""
+        return encode_texts(self.tokenizer, list(texts), self.task.config.max_text_len)
+
+    def preprocess_images(self, images) -> np.ndarray:
+        """PIL images of any size -> (N, S, S, 3) uint8 at the model's size,
+        resized bicubic as `transforms.EvalTransform` does."""
+        t = EvalTransform(self.task.config.img_size)
+        return np.stack([np.asarray(t(im)) for im in images])
 
     def answers(self, logits: np.ndarray) -> list[str]:
         """Answer strings: argmax over the VQA head through vqa_dict.json."""
@@ -167,11 +166,14 @@ class Predictor:
             return tuple(o.cpu().numpy()[:n] for o in out)
         return out.cpu().numpy()[:n]
 
-    @staticmethod
-    def _images(images: np.ndarray) -> np.ndarray:
-        if not isinstance(images, np.ndarray) or images.dtype != np.uint8:
-            raise ValueError("pass uint8 NHWC images")
-        return images
+    def _images(self, images) -> np.ndarray:
+        """uint8 NHWC arrays as they are; anything else (PIL images) through
+        `preprocess_images`."""
+        if isinstance(images, np.ndarray):
+            if images.dtype != np.uint8:
+                raise ValueError("pass uint8 NHWC images (or PIL images)")
+            return images
+        return self.preprocess_images(images)
 
     def _encode_image_fn(self, img_u8) -> torch.Tensor:
         t = self.task
@@ -283,16 +285,15 @@ class Predictor:
 
     # ---------------------------------------------------------- endpoints
 
-    def vqa_logits(self, img_u8: np.ndarray, ids: np.ndarray,
-                   mask: np.ndarray) -> np.ndarray:
-        """(N, H, W, 3) uint8 images, (N, L) int32 token ids and mask ->
-        (N, vqa_label_size) fp32 logits."""
-        self._images(img_u8)
+    def vqa_logits(self, img_u8, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """(N, H, W, 3) uint8 images (or PIL images), (N, L) int32 token ids
+        and mask -> (N, vqa_label_size) fp32 logits."""
+        img_u8 = self._images(img_u8)
         if not len(img_u8) == len(ids) == len(mask):
             raise ValueError("vqa_logits expects paired images, ids and masks")
         return self._run(self._vqa_fn, len(img_u8), img_u8, ids, mask)
 
-    def vqa(self, images: np.ndarray, questions: Sequence[str]) -> list[str]:
+    def vqa(self, images, questions: Sequence[str]) -> list[str]:
         """Answer strings for paired (image_i, question_i)."""
         ids, mask = self.tokenize(questions)
         return self.answers(self.vqa_logits(images, ids, mask))
@@ -370,6 +371,7 @@ class Predictor:
         n_tok = min(int(max_tokens), length - 2)
         row = ([tok.cls_token_id] + [tok.mask_token_id] * n_tok + [tok.sep_token_id]
                + [tok.pad_token_id] * (length - 2 - n_tok))
+        images = self._images(images)
         n = len(images)
         ids = np.tile(np.asarray(row, np.int32), (n, 1))
         mask = np.zeros((n, length), np.int32)

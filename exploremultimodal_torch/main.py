@@ -1,5 +1,7 @@
 """Command line: the JAX CLI's override syntax, one experiment per call.
 
+    python -m exploremultimodal_torch.main train=pretrain_mum model=vlmo_base \\
+        data.data_root=datasets/arrows/ data.batch_size=32 steps=10
     python -m exploremultimodal_torch.main train=finetune_vqa model=vlmo_base \\
         compute_dtype=bfloat16 model.mlp_impl=fused 'train.datasets=[synthetic]' \\
         data.batch_size=32 train.epochs=2
@@ -11,8 +13,8 @@
     python -m exploremultimodal_torch.main train=finetune_retrieval model=vlmo_base \\
         compute_dtype=bfloat16 'train.datasets=[synthetic]' data.batch_size=32
 
-(The phases it trains: pretrain_mum, pretrain_txt, pretrain_vis,
-finetune_vqa, finetune_nlvr2 and finetune_retrieval.)
+(It trains every phase of `train/phases.py`, from the preset's own
+`train.datasets` under `data.data_root`, or from synthetic samples.)
 
 `setup` makes the experiment dir `exp_dir = <output_dir>/<phase>/<model>/<tag>`
 (stable across relaunches: auto-resume scans it, timestamped subruns

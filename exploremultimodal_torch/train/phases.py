@@ -22,9 +22,7 @@ from typing import Any
 
 import torch
 
-from exploremultimodal_torch.data.datasets import build_dataset
-from exploremultimodal_torch.data.pipeline import Loader
-from exploremultimodal_torch.data.vqa_vocab import load_vqa_vocab
+from exploremultimodal_torch.data.vqa_vocab import load_or_build_vqa_vocab
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.retrieval import evaluate_retrieval
 from exploremultimodal_torch.train.trainer import Trainer
@@ -47,17 +45,14 @@ def write_vqa_submission(trainer: Trainer) -> str | None:
     `vqa_dict.json` vocabulary, to `<output_dir>/submit/vqa_submit_0.json`,
     then every `vqa_submit_*.json` there merged into `vqa_submit.json`,
     whose path is returned (None where the test split is empty). The
-    question id is the batch's `qid`; the synthetic samples carry none, and
-    their index stands in for it (JAX's raises there, and its phase skips
-    the submission with a warning)."""
-    cfg = trainer.cfg
-    loader = Loader(build_dataset(cfg, "test"),
-                    cfg["data"].get("eval_batch_size") or cfg["data"]["batch_size"],
-                    seed=int(cfg["seed"]), train=False)
+    question id is the batch's `qid`, which the VQA arrow tables give; the
+    synthetic samples carry none, and their index stands in for it (JAX's
+    raises there, and its phase skips the submission with a warning)."""
+    loader = trainer.data.test_loader()
     if len(loader) == 0:
         trainer.logger.info("no VQA test split available; skipping submission")
         return None
-    id2answer = load_vqa_vocab()["id2answer"]
+    id2answer = load_or_build_vqa_vocab()["id2answer"]
     preds, qids = [], []
     with torch.no_grad():
         for batch in loader.epoch(0):

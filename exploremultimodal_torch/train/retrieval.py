@@ -12,12 +12,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from exploremultimodal_torch.data.pipeline import Loader, to_device
+from exploremultimodal_torch.data.pipeline import ShardedLoader, to_device
 from exploremultimodal_torch.ops.preprocess import normalize_image
 
 
 @torch.no_grad()
-def encode_split(task, loader: Loader, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
+def encode_split(task, loader: ShardedLoader, device: torch.device) -> tuple[np.ndarray, np.ndarray]:
     """(image features (N, D), text features (N, D)), unit-norm and
     row-aligned, fp32 on the host, for the batches of `loader` in order."""
     i_all, t_all = [], []
@@ -48,7 +48,7 @@ def recall_at_k(img_feats: np.ndarray, txt_feats: np.ndarray,
     return out
 
 
-def evaluate_retrieval(trainer, loader: Loader | None = None) -> dict[str, float]:
+def evaluate_retrieval(trainer, loader: ShardedLoader | None = None) -> dict[str, float]:
     """Recall@K of the trainer's current weights over `loader` (its val
     split by default)."""
     if "itc" not in trainer.task.config.loss_names:

@@ -55,8 +55,8 @@ import torch
 from torch.profiler import record_function
 
 from exploremultimodal_torch.config import VlmoConfig
-from exploremultimodal_torch.data.datasets import build_dataset
-from exploremultimodal_torch.data.pipeline import Loader, to_device
+from exploremultimodal_torch.data.datamodule import MultiTaskData
+from exploremultimodal_torch.data.pipeline import ShardedLoader, to_device
 from exploremultimodal_torch.models.dvae import create_d_vae
 from exploremultimodal_torch.models.task import (
     TRAINED_OBJECTIVES,
@@ -102,8 +102,7 @@ def _rows(v) -> int | None:
 
 
 def _refuse_unported(cfg: dict) -> None:
-    """Losses without a ported head raise NotImplementedError (and every
-    dataset but the synthetic one, in `build_dataset`)."""
+    """Losses without a ported head raise NotImplementedError."""
     bad = sorted(set(cfg["train"]["loss_names"]) - set(TRAINED_OBJECTIVES))
     if bad:
         raise NotImplementedError(
@@ -129,9 +128,11 @@ def dvae_type(train_cfg: dict) -> str:
 
 
 class Trainer:
-    """Builds the task, the frozen tokenizer, the data and the optimizer
-    from `cfg` (a `config.load_config` dict); takes training steps and runs
-    epochs. The run dir (`output_dir`: checkpoints, `log_stats.json`, the
+    """Builds the task, the frozen tokenizer, the data (`MultiTaskData`:
+    the keys of `train.datasets` found under `data.data_root`, or the
+    synthetic samples, on threaded loaders; none at all raises
+    FileNotFoundError) and the optimizer from `cfg` (a
+    `config.load_config` dict); takes training steps and runs epochs. The run dir (`output_dir`: checkpoints, `log_stats.json`, the
     metric sink) and the experiment dir that auto-resume scans (`exp_dir`)
     resolve as in JAX's trainer. Without a `logger` it logs to stderr only;
     `main.setup` gives it one that also writes to the run dir."""
@@ -159,11 +160,16 @@ class Trainer:
                 quantize=t.get("discrete_vae_quantize") or "none", device=self.device,
                 weight_path=t.get("discrete_vae_weight_path", ""))
 
-        d = cfg["data"]
-        self.loader = Loader(build_dataset(cfg), d["batch_size"], seed=int(cfg["seed"]))
-        self.val_loader = Loader(build_dataset(cfg, "val"),
-                                 d.get("eval_batch_size") or d["batch_size"],
-                                 seed=int(cfg["seed"]), train=False)
+        self.data = MultiTaskData(cfg)
+        if len(self.data.datasets["train"]) == 0:
+            d = cfg["data"]
+            raise FileNotFoundError(
+                f"no training data: no key of train.datasets={list(t['datasets'])} has "
+                f"its files under data.data_root={d.get('data_root')!r} (arrow tables, or "
+                "a save_to_disk corpus for book / wiki); 'train.datasets=[synthetic]' "
+                "trains on synthetic samples")
+        self.loader = self.data.train_loader()
+        self.val_loader = self.data.val_loader()
         self.steps_per_epoch = max(len(self.loader), 1)
         frozen = phase_frozen_predicate(tuple(t["loss_names"]), t.get("phase"),
                                         t.get("mim_head_pos", "img"))
@@ -422,7 +428,7 @@ class Trainer:
         extra = {k: outputs[k] for k in ("vqa_logits", "nlvr2_logits") if k in outputs}
         return metrics, counts, extra
 
-    def evaluate(self, loader: Loader | None = None) -> dict[str, float]:
+    def evaluate(self, loader: ShardedLoader | None = None) -> dict[str, float]:
         """Count-weighted means of the eval step's metrics over `loader`
         (the val split by default), on `eval_task()`: a `*_mean_acc` or
         `*_mean_score` weighs each batch by its `*_count` (and raises

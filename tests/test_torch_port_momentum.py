@@ -551,8 +551,8 @@ def test_checkpoint_round_trip_and_warm_start(tmp_path):
                                  "train.accumulation_steps=2", "train.global_reduce=true"])
 def test_trainer_accepts_the_recipe_keys(key):
     """Each of the five keys builds a trainer that takes a step; an arrow
-    dataset and a loss the port has no head for (every loss of the JAX
-    package has one) are still refused."""
+    dataset whose tables are absent (no training data) and a loss the port
+    has no head for (every loss of the JAX package has one) are refused."""
     trainer = Trainer(load_config(TINY + [key]), device="cpu")
     metrics = trainer.step()
     assert np.isfinite(float(metrics["total_loss"]))
@@ -564,7 +564,7 @@ def test_trainer_accepts_the_recipe_keys(key):
         assert st.img_queue.shape == (ITC_DIM, 65536) and st.queue_ptr == 0
         norms = torch.linalg.vector_norm(st.img_queue[:, :8], dim=0)
         torch.testing.assert_close(norms, torch.ones(8))
-    with pytest.raises(NotImplementedError, match="datasets"):
+    with pytest.raises(FileNotFoundError, match="datasets"):
         Trainer(load_config(TINY + [key, "train.datasets=[coco]"]), device="cpu")
     with pytest.raises(NotImplementedError, match="loss_names"):
         Trainer(load_config(TINY + [key, "train.loss_names=[itc,unknown]"]), device="cpu")

@@ -344,5 +344,5 @@ def test_trainer_refuses_without_cuda_and_trains_on_the_cpu(monkeypatch, narrow_
         assert {"total_loss", "grad_norm", "lr", *LOSSES} <= set(m)
     assert not torch.equal(w.detach(), before)
     assert port_main(TINY + ["steps=1", "device=cpu"]) == 0
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(FileNotFoundError, match="datasets"):
         Trainer(load_config(TINY + ["train.datasets=[coco]"]), device="cpu")
