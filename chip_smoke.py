@@ -16,6 +16,8 @@
     python3 chip_smoke.py --finetune-rest
                                  # the build and phase 24 alone
     python3 chip_smoke.py --data # the build and phase 25 alone
+    python3 chip_smoke.py --parallel
+                                 # the build and phase 26 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -214,7 +216,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      `Predictor.vqa` on 64 PIL images and question strings against
      `vqa_logits` on the same rows (rows 1 and 6 18 times a request, the
      answers equal);
- 26. print the kernel table as one JSON line, the card line, and last
+ 26. more than one process: rows 3 and 4 with a row index (rank 1 of 2's
+     global rows; ITM's pair rows in their three runs) against their plain
+     versions at the step's shapes, the mask bit for bit at ITM's, each
+     timed with the index and without; the two-rank probe (the card count,
+     NCCL's answer to two ranks on one device, gloo's to CUDA tensors for
+     all_reduce, all_gather_into_tensor and reduce_scatter_tensor, from two
+     processes of this script); dp, zero1, fsdp (remat on), fsdp_offload
+     and dp with parallel.remat=dots on an NCCL group of one rank at
+     vlmo_base, batch 32: the first step's losses equal across them, the
+     median of PARALLEL_STEPS timed steps, peak memory, rows 3 and 4 a step
+     (row 3 twice under remat); where two ranks can run, dp and fsdp at 2 x
+     16 against one rank at 32 (losses within LOSS_RTOL, gradients within
+     GRAD_REL_TOL), else the reason; `Predictor(devices=["cuda:0"])` against
+     the plain `Predictor` (equal logits, rows 1 and 6 18 times a request);
+ 27. print the kernel table as one JSON line, the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -1670,7 +1686,8 @@ def irtr_text_mask(txt: np.ndarray) -> np.ndarray:
     return rows.reshape(b * IRTR_ROWS, length)
 
 
-def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None) -> dict:
+def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
+                       row_index: torch.Tensor | None = None) -> dict:
     """The in-kernel dropout mask, bit for bit, at `batch` rows of N tokens
     (by default the fused length: at ITM's batch the largest batch*head, row
     and column indices of the step). The inputs make every
@@ -1684,13 +1701,18 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None) -
     with ds = (keep - delta) / N. In the forward and dv a kept bit is
     nonzero and a dropped one zero; in dq and dk a flipped bit moves the
     value by scale / (N (1 - rate)), and the check allows a quarter of
-    that."""
+    that. With a `row_index` ((batch,) int32, each row's index in a global
+    batch) the kernels and the plain mask key each head by it; the mask is
+    then required to differ from the one each row's own index gives."""
     heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
     n = n or cfg.max_text_len + (cfg.img_size // cfg.patch_size) ** 2 + 1
     b, rate, scale, width = batch, cfg.attn_drop_rate, d ** -0.5, 31
     bh = b * heads
     seed = torch.tensor([DROP_SEED + 1], dtype=torch.int32, device=dev)
-    keep = dropout_keep_mask_plain(seed, bh, n, rate) != 0
+    keep = dropout_keep_mask_plain(seed, bh, n, rate, row_index) != 0
+    if row_index is not None:
+        require(not torch.equal(keep, dropout_keep_mask_plain(seed, bh, n, rate) != 0),
+                "dropout mask: the row index left every head's mask as it was")
     kb = torch.zeros((b, n), dtype=torch.float32, device=dev)
     ds_tol = 0.25 * scale / (n * (1.0 - rate))
     bits = 0
@@ -1705,10 +1727,12 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None) -
         do[:, :, 0] = 1
         do[:, c + i, 32 + i] = 1
         q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
-        out, _ = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate)
-        o, lse = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate)
-        dq, dk, dv = flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate)
-        pq, pk, _ = flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale, rate)
+        out, _ = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, row_index)
+        o, lse = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate, row_index)
+        dq, dk, dv = flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate,
+                                              row_index)
+        pq, pk, _ = flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale, rate,
+                                                   row_index)
         torch.cuda.synchronize()
         require(torch.equal(out[:, :, 1:1 + w] != 0, keep[:, :, c:c + w]),
                 f"dropout forward: mask bits differ in key window {c}..{c + w}")
@@ -1721,7 +1745,7 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None) -
                 f"in window {c}..{c + w}: a mask bit differs")
         bits += 4 * bh * n * w
     return {"shape": f"BH={bh} N={n}", "mask_bits_checked": bits, "kept_share":
-            keep.float().mean().item()}
+            keep.float().mean().item(), "row_index": row_index is not None}
 
 
 def cpu_check_phase(overrides: list[str] = TRAIN_OVERRIDES,
@@ -3351,11 +3375,396 @@ def data_only(card: str) -> int:
     return 0
 
 
+# ---- phase 26: training and serving on more than one process
+
+# the presets of phase 26 at one rank of a real process group: (tag, overrides)
+PARALLEL_RUNS = (("dp", ["parallel=dp"]), ("zero1", ["parallel=zero1"]),
+                 ("fsdp", ["parallel=fsdp"]), ("fsdp_offload", ["parallel=fsdp_offload"]),
+                 ("dp_dots", ["parallel=dp", "parallel.remat=dots"]))
+PARALLEL_STEPS = 3  # timed, after the first (whose losses every preset must share)
+TWO_RANKS = 2  # the two-rank run: 2 x TRAIN_BATCH // 2 rows against 1 x TRAIN_BATCH
+PROBE_TIMEOUT_S = 90
+# the two-rank comparison's gradients (the phase 8 set, at full depth)
+TWO_RANK_PARAMS = tuple(k for k in CHECKED_PARAMS if k != "itc_temp") + ("itm_head.fc.weight",)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def row_index_of(rank: int, world: int, rows: int, runs: int, dev) -> torch.Tensor:
+    """Rank `rank`'s global rows of an attention call of `rows` rows in
+    `runs` runs (`StepRng.row_index`)."""
+    from exploremultimodal_torch.ops.stochastic import StepRng
+
+    rng = StepRng(torch.Generator(), torch.Generator(), torch.device("cpu"), rank=rank,
+                  world=world)
+    with rng.runs(runs):
+        return rng.row_index(rows, dev)
+
+
+def check_row_index(cfg: VlmoConfig, dev) -> list[dict]:
+    """Rows 3 and 4 with a non-identity row index (rank 1 of 2: its rows
+    of the global batch) at the pretrain_mum step's shapes: the streams'
+    32 rows (one run: rows 32..63) at N = 40, 197, 237, and ITM's 96 pair
+    rows in its three runs (64 k + 32 + j), against their plain versions on
+    the same inputs and index, within the existing bf16 limits; the mask bit
+    for bit at ITM's shape (`check_dropout_mask`); and the kernels timed
+    at each shape with the index and without it, in turns."""
+    heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    rate, scale = cfg.attn_drop_rate, d ** -0.5
+    n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    seed = torch.tensor([DROP_SEED + 2], dtype=torch.int32, device=dev)
+    shapes = (("text", TRAIN_BATCH, cfg.max_text_len, 1), ("image", TRAIN_BATCH, n_img, 1),
+              ("fused", TRAIN_BATCH, cfg.max_text_len + n_img, 1),
+              ("itm", 3 * TRAIN_BATCH, cfg.max_text_len + n_img, 3))
+    rows = []
+    for stream, b, n, runs in shapes:
+        idx = row_index_of(1, TWO_RANKS, b, runs, dev)
+        bh = b * heads
+        g = torch.Generator(device=dev).manual_seed(7 * b + n)
+        q, k, v, do = (torch.randn((bh, n, d), generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        kb = torch.zeros((b, n), dtype=torch.float32, device=dev)
+        od, lsed = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate, idx)
+        got, want = (flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, idx),
+                     (od, lsed))
+        bgot = flash_attention_bwd_drop(q, k, v, kb, seed, od, do, lsed, scale, rate, idx)
+        bwant = flash_attention_bwd_drop_plain(q, k, v, kb, seed, od, do, lsed, scale, rate,
+                                               idx)
+        torch.cuda.synchronize()
+        checks = [within(got[0], want[0], ATTN_ATOL, ATTN_RTOL),
+                  within(got[1], want[1], ATTN_LSE_ATOL, 0.0)]
+        checks += [within(x, y, BWD_ATOL, BWD_RTOL) for x, y in zip(bgot, bwant)]
+        require(all(ok for ok, _ in checks),
+                f"rows 3/4 with a row index, {stream} BH={bh} N={n}: max|err| "
+                f"{[e for _, e in checks]} beyond the tolerances")
+        timed = {}
+        for name, with_idx in (("plain_index", None), ("index", idx), ("index", idx),
+                               ("plain_index", None)):
+            timed.setdefault(f"fwd_{name}_ms", []).append(time_ms(
+                lambda: flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, with_idx)))
+            timed.setdefault(f"bwd_{name}_ms", []).append(time_ms(
+                lambda: flash_attention_bwd_drop(q, k, v, kb, seed, od, do, lsed, scale,
+                                                 rate, with_idx)))
+        rows.append({"stream": stream, "shape": f"BH={bh} N={n}", "runs": runs,
+                     "first_rows": idx[:4].tolist(), "max_abs_err": max(e for _, e in checks),
+                     **timed})
+    mask = check_dropout_mask(cfg, dev, 3 * TRAIN_BATCH,
+                              row_index=row_index_of(1, TWO_RANKS, 3 * TRAIN_BATCH, 3, dev))
+    print("dropout_mask: " + json.dumps(mask), flush=True)
+    return rows
+
+
+def losses_of(m: dict) -> dict:
+    return {k: float(v) for k, v in m.items() if k.endswith("_task_loss") or k == "total_loss"}
+
+
+def group_overrides(port: int, world: int = 1, rank: int = 0) -> list[str]:
+    return [f"runtime.coordinator_address=localhost:{port}", f"runtime.num_processes={world}",
+            f"runtime.process_id={rank}"]
+
+
+def preset_phase(card: str, port: int) -> dict:
+    """Every preset on a real process group of one rank (NCCL, started by
+    `runtime.coordinator_address`) at vlmo_base, pretrain_mum's defaults,
+    batch 32: the first step (its losses required equal across the
+    presets within fp32 sum order: one rank computes the same step under
+    each), then PARALLEL_STEPS timed, with rows 3 and 4 counted (row 3
+    twice a block under remat, which runs the forward again in the
+    backward) and the peak memory."""
+    cfg = VlmoConfig.from_config(load_config(TRAIN_OVERRIDES))
+    per_step = attention_calls_per_step(cfg)
+    out = {}
+    for tag, extra in PARALLEL_RUNS:
+        cfg_dict = load_config(TRAIN_OVERRIDES + group_overrides(port) + extra)
+        t0 = time.perf_counter()
+        trainer = Trainer(cfg_dict, device="cuda")
+        ready_s = time.perf_counter() - t0
+        require(trainer.runtime.distributed and trainer.runtime.world == 1,
+                f"{tag}: no process group")
+        first = losses_of(trainer.step())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times, launches = run_counted(trainer, PARALLEL_STEPS, timed=True)
+        remat = trainer.config.remat
+        expected = {"flash_attention_fwd_drop": per_step * (2 if remat else 1),
+                    "flash_attention_bwd_drop": per_step}
+        require_launches(f"parallel_{tag}", launches, expected, PARALLEL_STEPS)
+        out[tag] = {
+            "preset": trainer.preset, "remat": remat, "trainer_s": ready_s,
+            "median_ms_per_step": statistics.median(times) * 1e3,
+            "ms_per_step": [x * 1e3 for x in times],
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step": {k: launches[k] / PARALLEL_STEPS for k in expected},
+            "first_step_losses": first, "card": card,
+        }
+        print(f"parallel_{tag}: " + json.dumps(out[tag]), flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    ref = out["dp"]["first_step_losses"]
+    for tag, r in out.items():
+        for k, want in ref.items():
+            got = r["first_step_losses"][k]
+            require(abs(got - want) <= 1e-5 * abs(want) + 1e-6,
+                    f"parallel_{tag}: first-step {k} {got} against dp's {want}")
+    return out
+
+
+def probe_child(rank: int, port: int, backend: str, path: str) -> int:
+    """One of two ranks on the one card: which collectives `backend` runs
+    on CUDA tensors (each attempted, its error recorded)."""
+    import torch.distributed as dist
+
+    result = {"backend": backend, "rank": rank}
+    try:
+        dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=2,
+                                rank=rank)
+        x = torch.full((4,), float(rank + 1), device="cuda")
+        ops = {"all_reduce": lambda: dist.all_reduce(x.clone()),
+               "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+                   torch.empty(8, device="cuda"), x),
+               "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+                   torch.empty(2, device="cuda"), x)}
+        for name, op in ops.items():
+            try:
+                op()
+                torch.cuda.synchronize()
+                result[name] = "ok"
+            except Exception as e:  # the probe's answer, not a failure
+                result[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+        dist.destroy_process_group()
+    except Exception as e:
+        result["init"] = f"{type(e).__name__}: {str(e).splitlines()[0][:300]}"
+    with open(path, "w") as f:
+        json.dump(result, f)
+    return 0
+
+
+def spawn_ranks(args: list[list[str]], timeout: float) -> list[tuple[int, str]]:
+    """Start a process of this script per argument list, wait for each (the
+    rest are killed once one outlives `timeout`); (exit code, output)."""
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *a],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for a in args]
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append((p.communicate(timeout=timeout)[0], p))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                outs.append((f"timed out after {timeout} s", p))
+                timeout = 5
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [(p.returncode, log) for log, p in outs]
+
+
+def probe_two_ranks(tmp: str) -> dict:
+    """What the card's machine allows two ranks: the devices, NCCL's answer
+    to two ranks on one device, gloo's to CUDA tensors."""
+    out = {"device_count": torch.cuda.device_count()}
+    backends = ("nccl", "gloo")
+    ports = {b: free_port() for b in backends}
+    paths = {(b, r): os.path.join(tmp, f"probe_{b}_{r}.json") for b in backends
+             for r in range(TWO_RANKS)}
+    # both backends' two ranks at once
+    runs = spawn_ranks([["--probe-rank", str(r), str(ports[b]), b, paths[(b, r)]]
+                        for b, r in paths], PROBE_TIMEOUT_S)
+    for b in backends:
+        found = [json.load(open(paths[(b, r)])) if os.path.exists(paths[(b, r)]) else
+                 {"exit": rc, "log": log[-600:]}
+                 for r, (rc, log) in zip(range(TWO_RANKS),
+                                         runs[backends.index(b) * TWO_RANKS:])]
+        out[b] = found[0] if all(f == {**found[0], "rank": f.get("rank")}
+                                 for f in found) else found
+    print("two_rank_probe: " + json.dumps(out), flush=True)
+    return out
+
+
+def two_rank_child(rank: int, port: int, tag: str, workdir: str) -> int:
+    """Rank `rank` of the two-rank step over gloo on the one card: its half
+    of the parent's batch, the parent's ITM negatives and MIM labels; its
+    losses and the named gradients (whole) to `workdir`."""
+    import torch.distributed as dist
+
+    inputs = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=TWO_RANKS, rank=rank)
+    cfg_dict = load_config(inputs["overrides"] + group_overrides(port, TWO_RANKS, rank)
+                           + [f"data.batch_size={TRAIN_BATCH // TWO_RANKS}", f"parallel={tag}"])
+    trainer = Trainer(cfg_dict, device="cuda")
+    ckpt_lib.load_model_state_dict(trainer.task, inputs["weights"])
+    per = TRAIN_BATCH // TWO_RANKS
+    lo, hi = rank * per, (rank + 1) * per
+    batch = {k: v[lo:hi] for k, v in inputs["batch"].items()}
+    m = trainer.step(batch, negatives=tuple(n[lo:hi] for n in inputs["negatives"]),
+                     mim_labels=inputs["mim_labels"][lo:hi])
+    grads = {}
+    for k, p in trainer.task.named_parameters():
+        if k in TWO_RANK_PARAMS:
+            g = p.grad
+            if hasattr(g, "to_local"):
+                # fsdp's dim-0 shards gathered by hand: a DTensor's own
+                # gather (functional collectives) crashes on gloo with CUDA
+                # tensors; these parameters split evenly
+                local = g.to_local().contiguous()
+                g = local.new_empty((TWO_RANKS * local.shape[0], *local.shape[1:]))
+                dist.all_gather_into_tensor(g, local)
+            grads[k] = g.float().cpu()
+    torch.save({"losses": losses_of(m), "grads": grads},
+               os.path.join(workdir, f"out_{tag}_{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def two_rank_phase(card: str, probe: dict, tmp: str) -> dict:
+    """dp and fsdp at 2 x 16 rows against one rank at 32 on the same global
+    batch (the same weights, ITM negatives and MIM labels; hidden dropout
+    and DropPath off, attention dropout on through the hash keyed by the
+    global rows), where a route gives two ranks: two cards over NCCL, or
+    the one card over gloo. Losses within LOSS_RTOL, the named gradients
+    within GRAD_REL_TOL relative L2. Where no route does, says why."""
+    gloo = probe["gloo"] if isinstance(probe["gloo"], dict) else {}
+    # what each preset's step calls: DDP's all-reduce and the losses'
+    # gathers; FSDP2's all-gather and reduce-scatter as well
+    needs = {"dp": ("all_reduce", "all_gather_into_tensor"),
+             "fsdp": ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")}
+    tags = [t for t, ops in needs.items() if all(gloo.get(o) == "ok" for o in ops)]
+    out = {"ran": tags, "card": card}
+    if len(tags) < len(needs):
+        out["why"] = (f"{probe['device_count']} device(s); NCCL: {probe['nccl']}; gloo on "
+                      f"CUDA tensors: { {o: gloo.get(o) for o in needs['fsdp']} }")
+        print(f"two_rank: {sorted(set(needs) - set(tags))} left to the CPU tests "
+              f"(tests/test_torch_port_parallel.py): {out['why']}", flush=True)
+    if not tags:
+        return out
+    require(probe["device_count"] < TWO_RANKS,
+            "two_rank: more than one card: run the two ranks over NCCL, one per card")
+    overrides = TRAIN_OVERRIDES + ["model.drop_rate=0.0", "model.drop_path_rate=0.0"]
+    one = Trainer(load_config(overrides), device="cuda")
+    batch = one.next_batch()
+    labels = one.model_batch(batch)["mim_labels"].cpu()
+    b = TRAIN_BATCH
+    negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
+    weights = {k: v.cpu() for k, v in one.task.state_dict().items()}
+    m = one.step(batch, negatives=negatives, mim_labels=labels)
+    want = {"losses": losses_of(m), "grads": {
+        k: p.grad.float().cpu() for k, p in one.task.named_parameters()
+        if k in TWO_RANK_PARAMS}}
+    del one
+    torch.cuda.empty_cache()
+    torch.save({"overrides": overrides, "weights": weights, "batch": batch,
+                "negatives": negatives, "mim_labels": labels}, os.path.join(tmp, "in.pt"))
+    # every preset's two ranks at once (their own ports)
+    t0 = time.perf_counter()
+    ports = {tag: free_port() for tag in tags}
+    runs = spawn_ranks([["--two-rank", str(r), str(ports[tag]), tag, tmp]
+                        for tag in tags for r in range(TWO_RANKS)], 600)
+    for i, (rc, log) in enumerate(runs):
+        require(rc == 0, f"two_rank {tags[i // TWO_RANKS]} rank {i % TWO_RANKS} exited "
+                f"{rc}:\n{log[-3000:]}")
+    out["s"] = time.perf_counter() - t0
+    for tag in tags:
+        got = [torch.load(os.path.join(tmp, f"out_{tag}_{r}.pt")) for r in range(TWO_RANKS)]
+        res = {"losses_two_one": {
+            k: (got[0]["losses"][k], w) for k, w in want["losses"].items()},
+            "grad_rel_err": {k: ((got[0]["grads"][k] - w).norm() / w.norm()).item()
+                             for k, w in want["grads"].items()}}
+        print(f"two_rank_{tag}: " + json.dumps(res), flush=True)
+        for k, (g, w) in res["losses_two_one"].items():
+            require(abs(g - w) <= LOSS_RTOL * abs(w) + 1e-3,
+                    f"two_rank {tag} {k}: two ranks {g} against one {w}")
+            require(got[1]["losses"][k] == g, f"two_rank {tag} {k}: the ranks disagree")
+        require(max(res["grad_rel_err"].values()) <= GRAD_REL_TOL,
+                f"two_rank {tag}: gradients {res['grad_rel_err']}")
+        out[tag] = res
+    return out
+
+
+def mesh_serve_phase(card: str) -> dict:
+    """`Predictor(devices=[cuda:0])` (mesh serving: a replica per device,
+    here one) against the plain `Predictor` on the same batch-64 requests:
+    equal logits, and rows 1 and 6 on every attention and FFN call."""
+    cfg_dict = load_config(SERVE_OVERRIDES)
+    cfg = VlmoConfig.from_config(cfg_dict)
+    sd = build_model(cfg_dict, device="cpu", seed=0).state_dict()
+    plain = Predictor(cfg_dict, sd, device="cuda")
+    mesh = Predictor(cfg_dict, sd, device="cuda", devices=["cuda:0"])
+    img, ids, mask = make_requests(cfg, np.random.default_rng(26), count=1)[0]
+    want = plain.vqa_logits(img, ids, mask)
+    for fn in KERNELS:
+        fn.launches = 0
+    got = mesh.vqa_logits(img, ids, mask)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    calls = img_txt_calls(cfg)
+    require_launches("mesh_serve", launches, {"flash_attention_fwd": calls,
+                                              "fused_mlp_fwd": calls}, 1)
+    require(np.array_equal(got, want), "mesh_serve: the replica's logits differ")
+    out = {"replicas": len(mesh.replicas), "launches": launches, "equal": True, "card": card}
+    print("mesh_serve: " + json.dumps(out), flush=True)
+    del plain, mesh
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(card: str, dev) -> dict:
+    """Phase 26: the row index of rows 3 and 4, every preset on a process
+    group of one rank, the two-rank probe and (where a route allows) the
+    two-rank step, mesh serving."""
+    import torch.distributed as dist
+
+    cfg = VlmoConfig.from_config(load_config(TRAIN_OVERRIDES))
+    out = {"row_index": check_row_index(cfg, dev)}
+    for row in out["row_index"]:
+        print("kernel_row_index: " + json.dumps(row), flush=True)
+    elapsed("phase 26 row index")
+    tmp = tempfile.mkdtemp(prefix="emm_parallel_")
+    try:
+        out["probe"] = probe_two_ranks(tmp)
+        elapsed("phase 26 probe")
+        out["presets"] = preset_phase(card, free_port())
+        elapsed("phase 26 presets")
+        out["two_rank"] = two_rank_phase(card, out["probe"], tmp)
+        elapsed("phase 26 two ranks")
+        out["mesh_serve"] = mesh_serve_phase(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return out
+
+
+def parallel_only(card: str, dev) -> int:
+    """The build, then phase 26 alone (`--parallel`)."""
+    parallel_phase(card, dev)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    # phase 26's rank processes (this script, started by itself)
+    if args[:1] in (["--probe-rank"], ["--two-rank"]):
+        import faulthandler
+
+        faulthandler.enable()
+    if args[:1] == ["--probe-rank"]:
+        return probe_child(int(args[1]), int(args[2]), args[3], args[4])
+    if args[:1] == ["--two-rank"]:
+        return two_rank_child(int(args[1]), int(args[2]), args[3], args[4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3384,6 +3793,8 @@ def main(argv: list[str] | None = None) -> int:
         return finetune_rest_only(card)
     if args[:1] == ["--data"]:
         return data_only(card)
+    if args[:1] == ["--parallel"]:
+        return parallel_only(card, dev)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -3565,6 +3976,12 @@ def main(argv: list[str] | None = None) -> int:
     # paths and serving on PIL images and strings
     data_phase(card)
     elapsed("phase 25")
+
+    # more than one process: rows 3 and 4 keyed by the global row, every
+    # preset on a process group, two ranks where the card allows, mesh
+    # serving
+    parallel_phase(card, dev)
+    elapsed("phase 26")
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path

@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of exploremultimodal_tpu for one NVIDIA H100.
+"""PyTorch/CUDA port of exploremultimodal_tpu for NVIDIA H100s.
 
-This slice serves VQA (`infer.Predictor`) on the VLMo backbone, with the
-flash-attention forward and the fused bf16 MLP as hand-written CUDA kernels
-(`ops/csrc`). It imports neither JAX nor `exploremultimodal_tpu`; entry
+It trains every phase and serves every endpoint of the VLMo stack, with
+each Pallas kernel of the JAX package hand-written for Hopper in CUDA
+(`ops/csrc`), on one process or, under a `parallel` preset, on several
+(`parallel/`). It imports neither JAX nor `exploremultimodal_tpu`; entry
 points run on CUDA unless the caller passes `device="cpu"`.
 """

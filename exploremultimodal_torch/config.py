@@ -10,7 +10,11 @@ directories, evaluation, throughput mode, logging) read. Keys the JAX code
 reads with a default (`data.synthetic_size`, `data.nlp_max_text_len`,
 `train.mlm_gather_cap`, `train.resume_sha256`, ...) are read with the same
 default here. base.yaml's `data.device_preprocess` is read by neither
-package: both preprocess on the device.
+package: both preprocess on the device; its `runtime.prng_impl` (JAX's
+random-bit generator) is kept for equality and read by nothing here.
+The `parallel` group is configs/parallel/*.yaml, read by
+`parallel/partitioning.py`; the `runtime` keys start and shape the process
+group (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -73,6 +77,16 @@ BASE: dict[str, Any] = {
     "minimize_metric": None,
     "attn_impl": "auto",
     "profile_steps": 0,
+    # the process group: coordinator_address null is one process, unless
+    # torchrun's environment names a group (parallel/mesh.py)
+    "runtime": {
+        "coordinator_address": None,
+        "num_processes": None,
+        "process_id": None,
+        "prng_impl": "rbg",
+        # mesh axis sizes; -1 takes every remaining process
+        "mesh": {"data": -1, "fsdp": 1, "tensor": 1},
+    },
 }
 
 _MODEL_COMMON: dict[str, Any] = {
@@ -186,9 +200,25 @@ TRAIN_PRESETS: dict[str, dict[str, Any]] = {
     "finetune_vis": _train("finetune_vis", ["imgcls"], ["imgcls"]),
 }
 
-_PRESETS = {"model": MODEL_PRESETS, "train": TRAIN_PRESETS}
+# configs/parallel/*.yaml: what each preset shards, and `remat` (false,
+# true: every block checkpointed whole, or 'dots': the matmul outputs kept)
+PARALLEL_PRESETS: dict[str, dict[str, Any]] = {
+    "dp": {"name": "dp", "shard_params": False, "shard_opt_state": False,
+           "remat": False},
+    "zero1": {"name": "zero1", "shard_params": False, "shard_opt_state": True,
+              "remat": False},
+    "fsdp": {"name": "fsdp", "shard_params": True, "shard_opt_state": True,
+             "remat": True},
+    "fsdp_offload": {"name": "fsdp_offload", "shard_params": True,
+                     "shard_opt_state": True, "remat": True,
+                     "offload_opt_state": True},
+    "tp": {"name": "tp", "shard_params": True, "shard_opt_state": True,
+           "tensor_parallel": True, "remat": False},
+}
+
+_PRESETS = {"model": MODEL_PRESETS, "train": TRAIN_PRESETS, "parallel": PARALLEL_PRESETS}
 # base.yaml's defaults
-DEFAULT_GROUPS = {"model": "vlmo_debug", "train": "pretrain_mum"}
+DEFAULT_GROUPS = {"model": "vlmo_debug", "train": "pretrain_mum", "parallel": "dp"}
 
 
 def parse_value(text: str) -> Any:
@@ -285,6 +315,7 @@ class VlmoConfig:
     mlp_impl: str = "xla"
     kl_alpha: float = 0.0
     isda_lambda: float = 0.0
+    remat: bool | str = False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -329,4 +360,15 @@ class VlmoConfig:
             mlp_impl=str(m.get("mlp_impl", "xla")),
             kl_alpha=float(t.get("kl_alpha", 0.0)),
             isda_lambda=float(t.get("isda_lambda", 0.0)),
+            remat=_remat((cfg.get("parallel") or {}).get("remat", False)),
         )
+
+
+def _remat(value) -> bool | str:
+    """`parallel.remat` as JAX's task reads it: a string stays ('dots'),
+    anything else is a flag."""
+    if isinstance(value, str):
+        if value not in ("dots", "true", "false"):
+            raise ValueError(f"parallel.remat={value!r} (false | true | dots)")
+        return value if value == "dots" else value == "true"
+    return bool(value)

@@ -15,7 +15,11 @@ uint8 NHWC arrays at the model's size, or PIL images of any size, which
 
 Every call pads its batch to a power-of-two bucket (at most `max_batch`) with
 copies of the last row, runs, and slices the result back, as the JAX
-`Predictor` does. Weights come as a `VlmoTask` state_dict: from
+`Predictor` does. With `devices` (JAX's `mesh`: data-parallel serving) the
+process keeps one replica of the weights on each device, as JAX's single
+controller does; the bucket rounds up to a multiple of the devices, each
+replica runs its equal shard of it, and the outputs are concatenated in
+order. Weights come as a `VlmoTask` state_dict: from
 `models.convert.from_flax_params`, or from `build_model(...).state_dict()`
 for seeded random weights; or through `Predictor.from_checkpoint`, from a
 checkpoint directory the trainer saved, a BEiT/VLMo `.pth` file, or a
@@ -24,6 +28,7 @@ checkpoint directory the trainer saved, a BEiT/VLMo `.pth` file, or a
 
 from __future__ import annotations
 
+import copy
 import math
 import os
 from typing import Sequence
@@ -84,27 +89,35 @@ class Predictor:
     finetune_caption's (MLM), `inpaint*` finetune_inpainting's (MIM)."""
 
     def __init__(self, cfg: dict, state_dict: dict, *, max_batch: int = 64,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 devices: Sequence[str | torch.device] | None = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
         task = VlmoTask(VlmoConfig.from_config(cfg))
         task.load_state_dict(state_dict, strict=True)
-        self.task = task.to(self.device).eval().requires_grad_(False)
+        task.eval().requires_grad_(False)
+        # one replica per device (`devices`), else the one on `device`
+        self.replicas = [(dev, copy.deepcopy(task).to(dev)) for dev in
+                         (resolve_device(d) for d in (devices or [device]))]
+        self.device, self.task = self.replicas[0]
         self.max_batch = int(max_batch)
         self._tokenizer = None
         self._vqa_vocab = None
+        # the dVAE of the first replica's device, and of the others'
         self._dvae = None
+        self._dvaes: dict = {}
 
     @classmethod
     def from_checkpoint(cls, checkpoint: str, overrides: Sequence[str] = (),
-                        max_batch: int = 64,
-                        device: str | torch.device = "cuda") -> "Predictor":
+                        max_batch: int = 64, device: str | torch.device = "cuda",
+                        devices: Sequence[str | torch.device] | None = None
+                        ) -> "Predictor":
         """Serve the weights of `checkpoint`: a checkpoint directory of the
         port's trainer (`checkpoint-<epoch>/`), a BEiT/VLMo `.pth` file
         (`models.import_torch`, over seeded random weights for what it
         lacks), or a `file://` / `https://` URL of either. `overrides` select
         the model and train groups the weights were trained with (the train
-        phase decides which heads exist)."""
+        phase decides which heads exist); `devices` as the constructor takes
+        them."""
         from exploremultimodal_torch.models.import_torch import (
             import_torch_state,
             load_torch_checkpoint,
@@ -126,7 +139,7 @@ class Predictor:
         else:
             raise ValueError(f"{checkpoint!r} is neither a checkpoint directory "
                              "nor a torch file")
-        return cls(cfg, state_dict, max_batch=max_batch, device=device)
+        return cls(cfg, state_dict, max_batch=max_batch, device=device, devices=devices)
 
     # ------------------------------------------------------- host helpers
 
@@ -155,16 +168,27 @@ class Predictor:
         return [id2ans[int(i)] for i in logits.argmax(axis=-1)]
 
     def _run(self, fn, n: int, *arrays: np.ndarray):
-        """`fn` on the arrays padded to the batch's bucket; its output (or
-        each of a tuple of outputs) sliced back to `n` rows on the host."""
-        b = _next_bucket(n, self.max_batch)
-        tensors = [torch.from_numpy(np.ascontiguousarray(_pad_to(a, b)))
-                   .to(self.device) for a in arrays]
-        with torch.inference_mode():
-            out = fn(*tensors)
-        if isinstance(out, tuple):
-            return tuple(o.cpu().numpy()[:n] for o in out)
-        return out.cpu().numpy()[:n]
+        """`fn` on the arrays padded to the batch's bucket (a multiple of
+        the replicas), each replica on its equal shard; its output (or each
+        of a tuple of outputs) concatenated in order and sliced back to `n`
+        rows on the host."""
+        d = len(self.replicas)
+        b = -(-_next_bucket(n, self.max_batch) // d) * d
+        shard = b // d
+        padded = [np.ascontiguousarray(_pad_to(a, b)) for a in arrays]
+        outs = []
+        try:
+            with torch.inference_mode():
+                # every replica's launches first, then the reads
+                for k, (self.device, self.task) in enumerate(self.replicas):
+                    outs.append(fn(*(torch.from_numpy(a[k * shard:(k + 1) * shard])
+                                     .to(self.device) for a in padded)))
+        finally:
+            self.device, self.task = self.replicas[0]
+        if isinstance(outs[0], tuple):
+            return tuple(np.concatenate([o[i].cpu().numpy() for o in outs])[:n]
+                         for i in range(len(outs[0])))
+        return np.concatenate([o.cpu().numpy() for o in outs])[:n]
 
     def _images(self, images) -> np.ndarray:
         """uint8 NHWC arrays as they are; anything else (PIL images) through
@@ -272,16 +296,22 @@ class Predictor:
         """The frozen DALL-E tokenizer with its decoder at img_size // 2,
         built at first use as JAX's `Predictor.dvae` builds it: OpenAI's
         weights from `train.discrete_vae_weight_path` where an
-        `encoder.pkl` is there, else the seeded random one."""
-        if self._dvae is None:
+        `encoder.pkl` is there, else the seeded random one; one on each
+        replica's device."""
+        first = self.device == self.replicas[0][0]
+        if (self._dvae if first else self._dvaes.get(self.device)) is None:
             from exploremultimodal_torch.train.trainer import dvae_type
 
             t = self.cfg["train"]
-            self._dvae = create_d_vae(
+            vae = create_d_vae(
                 dvae_type(t), self.task.config.img_size // 2, self.task.config.dtype,
                 device=self.device, weight_path=t.get("discrete_vae_weight_path", ""),
                 decoder=True)
-        return self._dvae
+            if first:
+                self._dvae = vae
+            else:
+                self._dvaes[self.device] = vae
+        return self._dvae if first else self._dvaes[self.device]
 
     # ---------------------------------------------------------- endpoints
 

@@ -27,6 +27,19 @@ evaluates the newest checkpoint (`eval_mode=true`), or times the step
 Runs on the GPU; `device=cpu` runs the plain PyTorch path on the CPU.
 `steps=N` only takes N steps, prints each step's metrics as one JSON line and
 writes nothing.
+
+On more than one process, one per GPU, with a `parallel` preset:
+
+    torchrun --nproc_per_node=4 -m exploremultimodal_torch.main parallel=fsdp \
+        train=pretrain_mum model=vlmo_base 'train.datasets=[synthetic]' \
+        data.batch_size=32 train.epochs=1
+
+(`data.batch_size` is each process's; `runtime.coordinator_address=host:port
+runtime.num_processes=N runtime.process_id=r` starts the same group without
+torchrun). Every process calls `parallel.initialize_runtime` first; rank 0
+alone makes the directories, writes the logs, `log_stats.json`, the config
+and the checkpoints, and prints the `steps=N` lines; the others take its
+run dir.
 """
 
 from __future__ import annotations
@@ -38,23 +51,33 @@ import tarfile
 import time
 
 
-def setup(overrides: list[str]) -> tuple[dict, object]:
+def setup(overrides: list[str], device: str = "cuda") -> tuple[dict, object]:
     """The config of `overrides` with `exp_dir` and `run_dir` resolved and
-    made, the run's logger, and the config and code snapshots."""
+    made (rank 0's run dir on every process), the run's logger, and the
+    config and code snapshots (rank 0)."""
+    import torch.distributed as dist
+
     from exploremultimodal_torch.config import load_config
+    from exploremultimodal_torch.parallel import initialize_runtime
     from exploremultimodal_torch.utils import create_logger
 
     cfg = load_config(overrides)
+    rank = initialize_runtime(cfg, device).rank
     if not cfg.get("exp_dir"):
         cfg["exp_dir"] = os.path.join(cfg.get("output_dir") or "output",
                                       cfg["train"]["phase"], cfg["model"]["name"],
                                       str(cfg.get("tag", "default")))
     if not cfg.get("run_dir"):
-        cfg["run_dir"] = os.path.join(cfg["exp_dir"], time.strftime("%Y%m%d-%H%M%S"))
-    os.makedirs(cfg["run_dir"], exist_ok=True)
-    logger = create_logger(cfg["run_dir"], level=cfg.get("log_level", "info"))
-    _write_config(cfg)
-    _snapshot_code(cfg["run_dir"])
+        run_dir = [os.path.join(cfg["exp_dir"], time.strftime("%Y%m%d-%H%M%S"))]
+        if dist.is_initialized():
+            dist.broadcast_object_list(run_dir, src=0)
+        cfg["run_dir"] = run_dir[0]
+    if rank == 0:
+        os.makedirs(cfg["run_dir"], exist_ok=True)
+    logger = create_logger(cfg["run_dir"], level=cfg.get("log_level", "info"), rank=rank)
+    if rank == 0:
+        _write_config(cfg)
+        _snapshot_code(cfg["run_dir"])
     logger.info(f"exp_dir: {cfg['exp_dir']}  run_dir: {cfg['run_dir']}")
     return cfg, logger
 
@@ -86,10 +109,13 @@ def _steps(cfg: dict, steps: int, device: str) -> None:
         metrics = {k: float(v) for k, v in trainer.step().items()}
         metrics["step"] = trainer.state.step
         metrics["step_s"] = time.perf_counter() - t0
-        print(json.dumps(metrics), flush=True)
+        if trainer.runtime.rank == 0:
+            print(json.dumps(metrics), flush=True)
 
 
 def main(argv: list[str] | None = None) -> int:
+    import torch.distributed as dist
+
     from exploremultimodal_torch.config import load_config
     from exploremultimodal_torch.train.phases import dispatch, refuse_untrained
 
@@ -107,9 +133,10 @@ def main(argv: list[str] | None = None) -> int:
     if opts["steps"] is not None:
         _steps(load_config(overrides), int(opts["steps"]), opts["device"])
         return 0
-    cfg, logger = setup(overrides)
+    cfg, logger = setup(overrides, opts["device"])
     result = dispatch(cfg, logger, device=opts["device"])
-    _write_config(cfg)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        _write_config(cfg)
     if isinstance(result, dict) and "best_metric" in result:
         logger.info(f"best metric: {result['best_metric']}")
     return 0

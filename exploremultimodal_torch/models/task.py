@@ -36,6 +36,7 @@ from exploremultimodal_torch.models.vlmo import (
 )
 from exploremultimodal_torch.objectives import losses as obj
 from exploremultimodal_torch.ops.stochastic import StepRng
+from exploremultimodal_torch.parallel.collectives import DataAxis
 
 # every head the port builds, each trained by its objective
 TRAINED_OBJECTIVES = ("mlm", "itc", "itm", "mim", "vqa", "mae", "nlvr2", "irtr",
@@ -70,7 +71,7 @@ class VlmoTask(nn.Module):
             experts_per_block=expert_layout(c.depth, c.fusion_layer, c.phase),
             dtype=c.dtype, attn_impl=c.attn_impl, mlp_impl=c.mlp_impl,
             drop_rate=c.drop_rate, attn_drop_rate=c.attn_drop_rate,
-            drop_path_rate=c.drop_path_rate, quantize=c.quantize)
+            drop_path_rate=c.drop_path_rate, quantize=c.quantize, remat=c.remat)
         hs, names = c.embed_dim, c.loss_names
         if "mlm" in names:
             self.mlm_head = MLMTransform(hs, c.vocab_size, c.norm_eps, c.dtype)
@@ -232,7 +233,8 @@ class VlmoTask(nn.Module):
                 negatives=None, isda_state=None, isda_ratio: float = 0.0,
                 generator: torch.Generator | None = None,
                 momentum_feats: dict | None = None, queue: dict | None = None,
-                pos_offset: int = 0) -> dict:
+                pos_offset: int = 0, axis: DataAxis | None = None,
+                method: str | None = None) -> dict:
         """The union of the active objectives, as JAX's `__call__`. ITC runs
         first: its below-fusion hidden states feed MLM's fused forward and
         ITM's pair rows. `rng` None is deterministic (no dropout); the ITM
@@ -242,37 +244,38 @@ class VlmoTask(nn.Module):
         returns their update as `isda_state`. ITC takes the momentum
         encoder's `momentum_feats` and the negative `queue` (None: in-batch
         ITC); `pos_offset` is a microbatch's first row in the full batch
-        those features cover, which ITM's hard negatives also read."""
+        those features cover, which ITM's hard negatives also read.
+        `axis` (the step's `DataAxis`, None at one process) spans the
+        processes the batch is split over (`objectives/losses.py`).
+        `method` names another method to run on `batch` alone (as JAX's
+        `apply(..., method=...)`): `itc_momentum_feats`, so that a sharded
+        task is entered through its `__call__`."""
+        if method is not None:
+            return getattr(self, method)(batch)
         names = self.config.loss_names
         if not names:
             return self.infer(batch)
         ret: dict = {}
         if "itc" in names:
             ret.update(obj.compute_itc(self, batch, rng, momentum_feats=momentum_feats,
-                                       queue=queue, pos_offset=pos_offset))
+                                       queue=queue, pos_offset=pos_offset, axis=axis))
         shared = ret if "itc" in names else None
         if "mlm" in names:
-            ret.update(obj.compute_mlm(self, batch, rng, shared=shared))
+            ret.update(obj.compute_mlm(self, batch, rng, shared=shared, axis=axis))
         if "mim" in names:
-            ret.update(obj.compute_mim(self, batch, rng))
+            ret.update(obj.compute_mim(self, batch, rng, axis=axis))
         if "itm" in names:
             ret.update(obj.compute_itm(self, batch, shared, rng, negatives, generator,
-                                       pos_offset))
+                                       pos_offset, axis=axis))
         if "vqa" in names:
             ret.update(obj.compute_vqa(self, batch, rng, isda_state=isda_state,
-                                       isda_ratio=isda_ratio))
-        if "nlvr2" in names:
-            ret.update(obj.compute_nlvr2(self, batch, rng))
-        if "irtr" in names:
-            ret.update(obj.compute_irtr(self, batch, rng))
-        if "mpp" in names:
-            ret.update(obj.compute_mpp(self, batch, rng))
-        if "mae" in names:
-            ret.update(obj.compute_mae(self, batch, rng))
-        if "imgcls" in names:
-            ret.update(obj.compute_imgcls(self, batch, rng))
-        if "refcoco" in names:
-            ret.update(obj.compute_refcoco(self, batch, rng))
+                                       isda_ratio=isda_ratio, axis=axis))
+        for name, compute in (("nlvr2", obj.compute_nlvr2), ("irtr", obj.compute_irtr),
+                              ("mpp", obj.compute_mpp), ("mae", obj.compute_mae),
+                              ("imgcls", obj.compute_imgcls),
+                              ("refcoco", obj.compute_refcoco)):
+            if name in names:
+                ret.update(compute(self, batch, rng, axis=axis))
         return ret
 
     @torch.no_grad()

@@ -19,16 +19,30 @@ a transpose. Numerics follow the JAX modules:
 Dropout and DropPath draw on the step's `StepRng`; without one (`rng=None`)
 the forward is deterministic, as JAX's `deterministic=True`. Images are
 NHWC, as in the JAX package.
+
+`remat` (`parallel.remat`, JAX's `nn.remat` over each block) checkpoints
+every block under autograd: `True` keeps only its inputs and runs it again
+in the backward; 'dots' keeps the outputs of its matrix products (JAX's
+`dots_with_no_batch_dims_saveable`: the 2-D GEMMs, not attention's batched
+products) and runs the elementwise chains and the kernels again. The
+block's random streams are rewound for the recomputation
+(`StepRng.replay`), so it draws the first forward's masks.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from exploremultimodal_torch.ops.attention import key_padding_bias, multi_head_attention
 from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp
@@ -129,16 +143,32 @@ class Attention(nn.Module):
         return fast_dropout(out, self.proj_drop, rng)
 
 
+# the products 'dots' keeps: the 2-D GEMMs of the linear layers (bf16,
+# fp32 and int8); attention's batched products and every kernel run again
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten._int_mm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+
+
 class Block(nn.Module):
     """Pre-LN block: x += DropPath(g1 * Attn(LN1 x));
-    x += DropPath(g2 * MLP[route](LN2 x))."""
+    x += DropPath(g2 * MLP[route](LN2 x)). `remat` (False, True or 'dots')
+    checkpoints it under autograd."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float,
                  norm_eps: float, init_values: float | None,
                  experts: Sequence[str], dtype: torch.dtype, attn_impl: str,
                  mlp_impl: str, drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path_rate: float = 0.0, quantize: str = "none"):
+                 drop_path_rate: float = 0.0, quantize: str = "none",
+                 remat: bool | str = False):
         super().__init__()
+        self.remat = remat
         self.dtype = dtype
         self.experts = tuple(experts)
         self.drop_path_rate = drop_path_rate
@@ -159,7 +189,21 @@ class Block(nn.Module):
                 rng: StepRng | None = None) -> torch.Tensor:
         if route not in self.experts:
             raise ValueError(f"route {route!r} not among experts {self.experts}")
+        if not self.remat or not torch.is_grad_enabled():
+            return self._forward(x, bias, route, rng)
+        replay = None if rng is None else rng.replay()
 
+        def run(x, bias):
+            if replay is None:
+                return self._forward(x, bias, route, rng)
+            with replay:
+                return self._forward(x, bias, route, rng)
+
+        return checkpoint(run, x, bias, use_reentrant=False, preserve_rng_state=False,
+                          **({"context_fn": _DOTS_CONTEXT} if self.remat == "dots" else {}))
+
+    def _forward(self, x: torch.Tensor, bias: torch.Tensor | None, route: str,
+                 rng: StepRng | None) -> torch.Tensor:
         def residual(branch, gamma):
             if gamma is not None:
                 branch = branch * gamma.to(branch.dtype)
@@ -230,7 +274,8 @@ class VLMO(nn.Module):
                  experts_per_block=None, dtype: torch.dtype = torch.float32,
                  attn_impl: str = "xla", mlp_impl: str = "xla",
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
-                 drop_path_rate: float = 0.0, quantize: str = "none"):
+                 drop_path_rate: float = 0.0, quantize: str = "none",
+                 remat: bool | str = False):
         super().__init__()
         self.dtype = dtype
         self.drop_rate = drop_rate
@@ -255,7 +300,7 @@ class VLMO(nn.Module):
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, norm_eps, init_values,
                   layout[i], dtype, attn_impl, mlp_impl, drop_rate,
-                  attn_drop_rate, dpr[i], quantize)
+                  attn_drop_rate, dpr[i], quantize, remat)
             for i in range(depth))
         self.norm = LayerNorm(embed_dim, eps=norm_eps)
         self.pooler = Pooler(embed_dim, dtype)

@@ -12,10 +12,24 @@ the task module, the model batch and the step's `StepRng` (None:
 deterministic) and returns `<name>_task_loss` plus metrics. ITC runs first;
 its below-fusion hidden states (`itc_h_img`, `itc_h_txt`) feed MLM's fused
 forward and ITM's pairs.
+
+On more than one process each takes the `DataAxis` of the step
+(`parallel/collectives.py`; None at one process). With its `global_batch`
+(`train.global_reduce: false`) the losses are JAX's step over the whole
+batch: ITC against every process's features (gathered with their
+gradient), ITM's negatives from the whole batch (their below-fusion states
+gathered with their gradient), and every loss and metric a mean over the
+whole batch, the same on every process: the count-weighted ones (MLM, MIM,
+MPP, ITM, MAE) from numerators and counts summed over the processes, the
+others (equal rows on every process) as the sum of the processes' means
+over their number; counts and `*_dropped_positions` summed. Without it
+(`train.global_reduce: true`, JAX's `shard_map` step) each process keeps
+its own losses, ITC against the gathered features with its rows first.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -23,6 +37,7 @@ from torch.profiler import record_function
 
 from exploremultimodal_torch.models import heads
 from exploremultimodal_torch.ops.stochastic import StepRng
+from exploremultimodal_torch.parallel.collectives import DataAxis, all_gather_with_grad
 
 ITC_TEMP_MAX = 4.6052  # log(100)
 
@@ -34,19 +49,39 @@ def _gather_cap(cap: float, length: int) -> int:
     return max(1, min(length, int(math.ceil(cap * length))))
 
 
-def masked_cross_entropy(logits, labels, valid):
-    """Mean CE and accuracy over `valid` positions, as logit[label] - lse.
-    Returns (loss, mean_acc, count)."""
+def _global(axis: DataAxis | None) -> DataAxis | None:
+    """The axis where the losses are the whole batch's, else None."""
+    return axis if axis is not None and axis.global_batch else None
+
+
+def _ranks_mean(axis: DataAxis | None, *values):
+    """Per-process means over equally many rows as the whole batch's
+    (`DataAxis.mean`); as they are without a global axis."""
+    axis = _global(axis)
+    return values if axis is None else axis.mean(*values)
+
+
+def _ranks_count(axis: DataAxis | None, count: torch.Tensor) -> torch.Tensor:
+    axis = _global(axis)
+    return count if axis is None else axis.sum(count.detach())
+
+
+def masked_cross_entropy(logits, labels, valid, axis: DataAxis | None = None):
+    """Mean CE and accuracy over `valid` positions, as logit[label] - lse
+    (over every process's positions with a global `axis`). Returns (loss,
+    mean_acc, count)."""
     valid_f = valid.to(torch.float32)
     count = valid_f.sum()
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     label_logit = torch.gather(lf, -1, safe[..., None])[..., 0]
+    num = -((label_logit - lse) * valid_f).sum()
+    correct = ((logits.argmax(dim=-1) == safe) * valid_f).sum()
+    if _global(axis) is not None:
+        num, correct, count = axis.sum(torch.stack([num, correct, count])).unbind()
     denom = count.clamp_min(1.0)
-    loss = -((label_logit - lse) * valid_f).sum() / denom
-    acc = ((logits.argmax(dim=-1) == safe) * valid_f).sum() / denom
-    return loss, acc, count
+    return num / denom, correct / denom, count
 
 
 def gather_masked_positions(feats, labels, valid, k: int):
@@ -56,13 +91,13 @@ def gather_masked_positions(feats, labels, valid, k: int):
     return g_feats, torch.gather(labels, 1, order), torch.gather(valid, 1, order)
 
 
-def _capped(feats, labels, valid, cap: float, name: str):
+def _capped(feats, labels, valid, cap: float, name: str, axis: DataAxis | None = None):
     k = _gather_cap(cap, labels.shape[1])
     extra = {}
     if k < labels.shape[1]:
         # masked positions beyond the cap fall out of the loss; counted
-        extra[f"{name}_dropped_positions"] = (
-            (valid.sum(dim=1) - k).clamp_min(0).sum().to(torch.float32))
+        extra[f"{name}_dropped_positions"] = _ranks_count(
+            axis, (valid.sum(dim=1) - k).clamp_min(0).sum().to(torch.float32))
         feats, labels, valid = gather_masked_positions(feats, labels, valid, k)
     return feats, labels, valid, extra
 
@@ -71,7 +106,7 @@ def _capped(feats, labels, valid, cap: float, name: str):
 
 
 def compute_mlm(task, batch: dict, rng: StepRng | None = None,
-                shared: dict | None = None) -> dict:
+                shared: dict | None = None, axis: DataAxis | None = None) -> dict:
     """Masked-language-modeling CE over the masked text positions. With ITC's
     below-fusion image hidden in `shared`, only the masked text stream runs
     below the fusion layer."""
@@ -90,8 +125,9 @@ def compute_mlm(task, batch: dict, rng: StepRng | None = None,
         txt_feats, labels = infer["txt_feats"], infer["txt_labels"]
     labels = labels.long()
     txt_feats, labels, valid, extra = _capped(
-        txt_feats, labels, labels != -100, task.config.mlm_gather_cap, "mlm")
-    loss, acc, count = masked_cross_entropy(task.mlm_logits(txt_feats), labels, valid)
+        txt_feats, labels, labels != -100, task.config.mlm_gather_cap, "mlm", axis)
+    loss, acc, count = masked_cross_entropy(task.mlm_logits(txt_feats), labels, valid,
+                                            axis)
     return {"mlm_task_loss": loss, "mlm_mean_acc": acc, "mlm_count": count, **extra}
 
 
@@ -100,7 +136,7 @@ def compute_mlm(task, batch: dict, rng: StepRng | None = None,
 
 def compute_itc(task, batch: dict, rng: StepRng | None = None,
                 momentum_feats: dict | None = None, queue: dict | None = None,
-                pos_offset: int = 0) -> dict:
+                pos_offset: int = 0, axis: DataAxis | None = None) -> dict:
     """Image-text contrastive loss (`itc_losses` on the batch's projected
     global features). The single-modality streams split at the fusion
     layer, and the below-fusion hidden states are returned for MLM and
@@ -116,14 +152,15 @@ def compute_itc(task, batch: dict, rng: StepRng | None = None,
     t_feat = task.itc_head(txt_feats[:, 0], "l").float()
     with record_function("itc/sims"):
         ret = itc_losses(i_feat, t_feat, temp, batch["text_mask"], momentum_feats, queue,
-                         pos_offset)
+                         pos_offset, axis)
     ret.update({"itc_i_feat": i_feat, "itc_t_feat": t_feat, "itc_h_img": h_img,
                 "itc_h_txt": h_txt})
     return ret
 
 
 def itc_losses(i_feat, t_feat, temp, text_mask, momentum_feats: dict | None = None,
-               queue: dict | None = None, pos_offset: int = 0) -> dict:
+               queue: dict | None = None, pos_offset: int = 0,
+               axis: DataAxis | None = None) -> dict:
     """The ITC losses, accuracies and sims of normalised global features
     `i_feat` / `t_feat` (B, itc_dim) at the logit scale `temp`, in their
     dtype (fp32 in training).
@@ -138,18 +175,45 @@ def itc_losses(i_feat, t_feat, temp, text_mask, momentum_feats: dict | None = No
     Under gradient accumulation the momentum features cover the full batch
     and the features are one microbatch's, whose rows start at
     `pos_offset` in it: the positives sit on that offset diagonal, and the
-    accuracies are taken over the momentum columns only."""
+    accuracies are taken over the momentum columns only.
+
+    On more than one process (`axis`): without `global_batch`, JAX's
+    `global_reduce` branch, which comes before the momentum one: each row
+    against every process's features, this process's first. With it, in
+    batch, each row against every process's features in rank order, its
+    positive at its global row; against the momentum encoder, the trainer
+    hands in the whole batch's momentum features and the microbatch's
+    offset in them. `itc_cols` tells ITM which columns of the sims are the
+    (micro)batch's."""
     bs = i_feat.shape[0]
     rows = torch.arange(bs, device=i_feat.device)
     targets, n_pos_cols = rows, bs
     in_modal = local_g2l = None
-    if momentum_feats is None:
+    cols = None
+    if axis is not None and not axis.global_batch:
+        i_all, t_all = (all_gather_with_grad(f, axis.group) for f in (i_feat, t_feat))
+        sim_i2t = i_feat @ t_all.T * temp
+        sim_t2i = t_feat @ i_all.T * temp
+        cols = rows
+    elif momentum_feats is None and axis is not None:
+        i_all, t_all = axis.gather(i_feat), axis.gather(t_feat)
+        sim_i2t = i_feat @ t_all.T * temp
+        sim_t2i = t_feat @ i_all.T * temp
+        targets, n_pos_cols = rows + axis.rank * bs, axis.size * bs
+        cols = torch.arange(n_pos_cols, device=i_feat.device)
+    elif momentum_feats is None:
         sim_i2t = i_feat @ t_feat.T * temp
         sim_t2i = sim_i2t.T
     else:
         mf = momentum_feats
         i_all, t_all = (mf[k].to(i_feat.dtype).T for k in ("i_feat_m", "t_feat_m"))
         targets, n_pos_cols = rows + pos_offset, i_all.shape[1]
+        if axis is not None:
+            # each process's microbatch rows in the whole batch's columns
+            per = n_pos_cols // axis.size
+            first = pos_offset - axis.rank * per
+            cols = (torch.arange(axis.size, device=i_feat.device)[:, None] * per + first
+                    + rows[None]).reshape(-1)
         if queue is not None:
             i_all = torch.cat([i_all, queue["img"].to(i_feat.dtype)], dim=1)
             t_all = torch.cat([t_all, queue["txt"].to(i_feat.dtype)], dim=1)
@@ -172,24 +236,29 @@ def itc_losses(i_feat, t_feat, temp, text_mask, momentum_feats: dict | None = No
         return (sim[:, :n_pos_cols].argmax(-1) == targets).float().mean()
 
     losses = [ce(sim_i2t), ce(sim_t2i)]
-    n = torch.tensor(float(bs), device=i_feat.device)
+    if in_modal is not None:
+        losses += [ce(sim) for sim in in_modal]
+        if local_g2l is not None:
+            losses += list(local_g2l)
+    *losses, acc_i2t, acc_t2i = _ranks_mean(axis, *losses, acc(sim_i2t), acc(sim_t2i))
+    n = torch.tensor(float(bs * (axis.size if _global(axis) else 1)), device=i_feat.device)
     ret = {
         "i2t_Loss": losses[0],
         "t2i_Loss": losses[1],
         "sim_i2t": sim_i2t,
         "sim_t2i": sim_t2i,
         "itc_temp": temp,
-        "itc_i2t_mean_acc": acc(sim_i2t),
+        "itc_i2t_mean_acc": acc_i2t,
         "itc_i2t_count": n,
-        "itc_t2i_mean_acc": acc(sim_t2i),
+        "itc_t2i_mean_acc": acc_t2i,
         "itc_t2i_count": n,
     }
+    if cols is not None:
+        ret["itc_cols"] = cols
     if in_modal is not None:
-        losses += [ce(sim) for sim in in_modal]
         ret.update({"i2i_Loss": losses[2], "t2t_Loss": losses[3]})
         if local_g2l is not None:
-            losses += list(local_g2l)
-            ret.update({"i2i_l_Loss": local_g2l[0], "t2t_l_Loss": local_g2l[1]})
+            ret.update({"i2i_l_Loss": losses[4], "t2t_l_Loss": losses[5]})
     ret["itc_task_loss"] = sum(losses) / len(losses)
     return ret
 
@@ -245,7 +314,8 @@ def in_batch_g2l_loss(l, m, temp, attention_mask=None, pos_offset: int = 0):
 
 def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
                      rng: StepRng | None = None, negatives=None,
-                     generator: torch.Generator | None = None, pos_offset: int = 0):
+                     generator: torch.Generator | None = None, pos_offset: int = 0,
+                     axis: DataAxis | None = None):
     """ITC-guided hard negatives and the [pos, img-neg, txt-neg] 3*bs pair
     rows below the fusion layer. Returns (pair_img, pair_txt, pair_mask,
     labels). The negatives are drawn on `rng.generator` (one image per text
@@ -255,9 +325,18 @@ def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
     as JAX's eval step keeps its `sample` rng), or given as `negatives` =
     (neg_img_idx, neg_txt_idx). Where the shared sims are wider than the
     batch (momentum ITC: the momentum columns, then the queue's), the
-    weights take the batch's own columns [pos_offset, pos_offset + bs)."""
+    weights take the batch's own columns [pos_offset, pos_offset + bs)
+    (ITC's `itc_cols` where it gives them).
+
+    With a global `axis` the candidates are every process's rows of the
+    (micro)batch in rank order, this process's row j at rank * bs + j; the
+    negatives' indices (given or drawn) are into them, and the rows they
+    pick come from the gathered below-fusion states (with their gradient)
+    or, without ITC, the gathered inputs."""
     img, txt_ids, txt_mask = batch["image"], batch["text_ids"], batch["text_mask"]
     bs = img.shape[0]
+    g = _global(axis)
+    cands, first = (bs, 0) if g is None else (g.size * bs, g.rank * bs)
     if negatives is None:
         if generator is None:
             if rng is None:
@@ -266,14 +345,18 @@ def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
             generator = rng.generator
         if sim_dict is not None:
             def own_cols(sim):
+                if "itc_cols" in sim_dict:
+                    return sim[:, sim_dict["itc_cols"]]
                 return sim if sim.shape[1] == bs else sim[:, pos_offset:pos_offset + bs]
 
             w_i2t, w_t2i = (torch.softmax(own_cols(sim_dict[k].detach().float()), dim=1)
                             for k in ("sim_i2t", "sim_t2i"))
         else:  # JAX's standard-normal log-weights
-            w_i2t, w_t2i = (torch.randn((bs, bs), generator=generator,
+            w_i2t, w_t2i = (torch.randn((bs, cands), generator=generator,
                                         device=img.device).exp() for _ in range(2))
-        eye = torch.eye(bs, dtype=torch.bool, device=img.device)
+        # each row's own candidate, the positive, is never its negative
+        eye = torch.zeros((bs, cands), dtype=torch.bool, device=img.device)
+        eye[:, first:first + bs] = torch.eye(bs, dtype=torch.bool, device=img.device)
         w_i2t, w_t2i = (w.masked_fill(eye, 0.0) for w in (w_i2t, w_t2i))
         neg_img_idx = torch.multinomial(w_t2i, 1, generator=generator)[:, 0]
         neg_txt_idx = torch.multinomial(w_i2t, 1, generator=generator)[:, 0]
@@ -281,49 +364,66 @@ def itm_sample_pairs(task, batch: dict, sim_dict: dict | None = None,
         neg_img_idx, neg_txt_idx = (torch.as_tensor(i, device=img.device).long()
                                     for i in negatives)
 
+    mask_all = txt_mask if g is None else g.gather_const(txt_mask)
     if sim_dict is not None and "itc_h_img" in sim_dict:
         h_img, h_txt = sim_dict["itc_h_img"], sim_dict["itc_h_txt"]
-        pair_img = torch.cat([h_img, h_img[neg_img_idx], h_img], dim=0)
-        pair_txt = torch.cat([h_txt, h_txt, h_txt[neg_txt_idx]], dim=0)
+        h_img_all, h_txt_all = (h_img, h_txt) if g is None else (g.gather(h_img),
+                                                                 g.gather(h_txt))
+        pair_img = torch.cat([h_img, h_img_all[neg_img_idx], h_img], dim=0)
+        pair_txt = torch.cat([h_txt, h_txt, h_txt_all[neg_txt_idx]], dim=0)
     else:
         t = task.transformer
-        h_img = t.stream_below_fusion(
-            img=torch.cat([img, img[neg_img_idx]], dim=0), rng=rng)
-        h_txt = t.stream_below_fusion(
-            txt=torch.cat([txt_ids, txt_ids[neg_txt_idx]], dim=0),
-            txt_mask=torch.cat([txt_mask, txt_mask[neg_txt_idx]], dim=0), rng=rng)
+        img_all, ids_all = (img, txt_ids) if g is None else (g.gather_const(img),
+                                                             g.gather_const(txt_ids))
+        # two runs of rows: the batch, then its negatives
+        with _runs(rng, 2):
+            h_img = t.stream_below_fusion(
+                img=torch.cat([img, img_all[neg_img_idx]], dim=0), rng=rng)
+            h_txt = t.stream_below_fusion(
+                txt=torch.cat([txt_ids, ids_all[neg_txt_idx]], dim=0),
+                txt_mask=torch.cat([txt_mask, mask_all[neg_txt_idx]], dim=0), rng=rng)
         pair_img = torch.cat([h_img[:bs], h_img[bs:], h_img[:bs]], dim=0)
         pair_txt = torch.cat([h_txt[:bs], h_txt[:bs], h_txt[bs:]], dim=0)
-    pair_mask = torch.cat([txt_mask, txt_mask, txt_mask[neg_txt_idx]], dim=0)
+    pair_mask = torch.cat([txt_mask, txt_mask, mask_all[neg_txt_idx]], dim=0)
     labels = torch.cat([torch.ones(bs, dtype=torch.long, device=img.device),
                         torch.zeros(2 * bs, dtype=torch.long, device=img.device)])
     return pair_img, pair_txt, pair_mask, labels
 
 
-def itm_loss_from_co(task, co_feats, labels) -> dict:
+def _runs(rng: StepRng | None, count: int):
+    """The attention calls inside take their rows as `count` runs of the
+    global batch (`StepRng.runs`)."""
+    return contextlib.nullcontext() if rng is None else rng.runs(count)
+
+
+def itm_loss_from_co(task, co_feats, labels, axis: DataAxis | None = None) -> dict:
     """ITM head and CE on fused pair rows."""
     logits = task.itm_head(task.transformer.pool(co_feats))
     loss, acc, count = masked_cross_entropy(logits, labels,
-                                            torch.ones_like(labels, dtype=torch.bool))
+                                            torch.ones_like(labels, dtype=torch.bool), axis)
     return {"itm_task_loss": loss, "itm_mean_acc": acc, "itm_count": count}
 
 
 def compute_itm(task, batch: dict, sim_dict: dict | None = None,
                 rng: StepRng | None = None, negatives=None,
-                generator: torch.Generator | None = None, pos_offset: int = 0) -> dict:
+                generator: torch.Generator | None = None, pos_offset: int = 0,
+                axis: DataAxis | None = None) -> dict:
     """Image-text matching with ITC-guided hard negatives: one fused forward
-    over the 3*bs [pos, img-neg, txt-neg] rows."""
+    over the 3*bs [pos, img-neg, txt-neg] rows (three runs of the global
+    batch's rows, as JAX lays out its pair batch)."""
     pair_img, pair_txt, pair_mask, labels = itm_sample_pairs(
-        task, batch, sim_dict, rng, negatives, generator, pos_offset)
-    co_feats, _ = task.transformer.fuse_from_hidden(pair_img, pair_txt, pair_mask,
-                                                    rng=rng)
-    return itm_loss_from_co(task, co_feats, labels)
+        task, batch, sim_dict, rng, negatives, generator, pos_offset, axis)
+    with _runs(rng, 3):
+        co_feats, _ = task.transformer.fuse_from_hidden(pair_img, pair_txt, pair_mask,
+                                                        rng=rng)
+    return itm_loss_from_co(task, co_feats, labels, axis)
 
 
 # ------------------------------------------------------------------- MIM
 
 
-def compute_mim(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_mim(task, batch: dict, rng: StepRng | None = None,
+                axis: DataAxis | None = None) -> dict:
     """Masked-image-modeling CE against the frozen dVAE codes in
     `batch['mim_labels']`, over the masked patches."""
     labels = batch["mim_labels"].long()
@@ -338,8 +438,9 @@ def compute_mim(task, batch: dict, rng: StepRng | None = None) -> dict:
     else:
         raise ValueError(f"mim_head_pos {head_pos!r}")
     patch_feats, labels, valid, extra = _capped(
-        img_feats[:, 1:], labels, valid, task.config.mim_gather_cap, "mim")
-    loss, acc, count = masked_cross_entropy(task.mim_head(patch_feats), labels, valid)
+        img_feats[:, 1:], labels, valid, task.config.mim_gather_cap, "mim", axis)
+    loss, acc, count = masked_cross_entropy(task.mim_head(patch_feats), labels, valid,
+                                            axis)
     return {"mim_task_loss": loss, "mim_mean_acc": acc, "mim_count": count, **extra}
 
 
@@ -361,14 +462,16 @@ def compute_vqa_score(logits, targets):
 
 def compute_vqa(task, batch: dict, rng: StepRng | None = None,
                 isda_state: heads.ISDAState | None = None,
-                isda_ratio: float = 0.0) -> dict:
+                isda_ratio: float = 0.0, axis: DataAxis | None = None) -> dict:
     """VQAv2 BCE over the soft targets `batch['vqa_targets']`, summed over
     the answers and averaged over the rows. With an `isda_state` and a
     StepRng, ISDA: the statistics take the batch's classifier hiddens and
     the training logits their augmentation. With `kl_alpha` > 0 and a
     StepRng, R-Drop: a second forward with fresh dropout from the same
     StepRng, the two BCEs averaged, and the symmetric KL of the two
-    answer distributions added as `vqa_kl_task_loss`."""
+    answer distributions added as `vqa_kl_task_loss`. With a global `axis`,
+    ISDA's statistics take every process's rows (gathered), and the KL is
+    summed over them."""
     infer = task.infer(batch, "img-txt", rng=rng)
     logits, hidden = task.vqa_logits(infer["cls_feats"], return_hidden=True)
     targets = batch["vqa_targets"].float()
@@ -377,25 +480,32 @@ def compute_vqa(task, batch: dict, rng: StepRng | None = None,
     new_isda_state = isda_state
     train_logits = logits
     if isda_state is not None and rng is not None:
-        new_isda_state = heads.isda_update(isda_state, hidden,
-                                           (targets > 0).float())
+        g = _global(axis)
+        onehot = (targets > 0).float()
+        new_isda_state = heads.isda_update(
+            isda_state, hidden if g is None else g.gather_const(hidden),
+            onehot if g is None else g.gather_const(onehot))
         train_logits = heads.isda_logits(
             logits, task.vqa_last_kernel(), targets.argmax(dim=1),
             new_isda_state.cov, isda_ratio)
 
     vqa_loss = _bce_with_logits(train_logits, targets).mean() * num_answers
     score, count = compute_vqa_score(logits, targets)
+    vqa_loss, score = _ranks_mean(axis, vqa_loss, score)
+    count = _ranks_count(axis, count)
     ret = {"vqa_logits": logits, "vqa_task_loss": vqa_loss,
            "vqa_mean_score": score, "vqa_count": count,
            "isda_state": new_isda_state}
 
     if task.config.kl_alpha > 0 and rng is not None:
         logits2 = task.vqa_logits(task.infer(batch, "img-txt", rng=rng)["cls_feats"])
-        loss2 = _bce_with_logits(logits2, targets).mean() * num_answers
+        (loss2,) = _ranks_mean(axis, _bce_with_logits(logits2, targets).mean() * num_answers)
         p = torch.log_softmax(logits.float(), dim=-1)
         q = torch.log_softmax(logits2.float(), dim=-1)
         kl = (q.exp() * (q - p)).sum()
         r_kl = (p.exp() * (p - q)).sum()
+        if _global(axis) is not None:
+            kl, r_kl = axis.sum(torch.stack([kl, r_kl])).unbind()
         ret["vqa_task_loss"] = (vqa_loss + loss2) / 2.0
         ret["vqa_kl_task_loss"] = (kl + r_kl) / 4.0 * task.config.kl_alpha
     return ret
@@ -404,7 +514,8 @@ def compute_vqa(task, batch: dict, rng: StepRng | None = None,
 # ------------------------------------------------------------------ NLVR2
 
 
-def compute_nlvr2(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_nlvr2(task, batch: dict, rng: StepRng | None = None,
+                  axis: DataAxis | None = None) -> dict:
     """NLVR2: the statement fused with each image of the pair (token types 1
     and 2), the two CLS features concatenated, a 2-way CE on `answers`."""
     cls = [task.infer(batch, "img-txt", image_token_type_idx=i, rng=rng)["cls_feats"]
@@ -412,7 +523,7 @@ def compute_nlvr2(task, batch: dict, rng: StepRng | None = None) -> dict:
     logits = task.nlvr2_logits(torch.cat(cls, dim=-1))
     labels = batch["answers"].long()
     loss, acc, count = masked_cross_entropy(logits, labels,
-                                            torch.ones_like(labels, dtype=torch.bool))
+                                            torch.ones_like(labels, dtype=torch.bool), axis)
     return {"nlvr2_task_loss": loss, "nlvr2_logits": logits,
             "nlvr2_mean_acc": acc, "nlvr2_count": count}
 
@@ -420,7 +531,8 @@ def compute_nlvr2(task, batch: dict, rng: StepRng | None = None) -> dict:
 # ------------------------------------------------------------------- MPP
 
 
-def compute_mpp(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_mpp(task, batch: dict, rng: StepRng | None = None,
+                axis: DataAxis | None = None) -> dict:
     """Masked-patch prediction: a 256-way CE on each of the three colour
     channels of the masked patches, from the fused stream with the masked
     image; labels `batch['image_labels_mpp']` (B, P, 3), -100 ignored."""
@@ -429,7 +541,7 @@ def compute_mpp(task, batch: dict, rng: StepRng | None = None) -> dict:
     b, p, _ = logits.shape
     labels = batch["image_labels_mpp"].long()
     loss, acc, count = masked_cross_entropy(logits.reshape(b, p, 3, 256), labels,
-                                            labels != -100)
+                                            labels != -100, axis)
     return {"mpp_task_loss": loss, "mpp_mean_acc": acc, "mpp_count": count}
 
 
@@ -445,7 +557,8 @@ def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(b, gh * gw, patch_size * patch_size * c)
 
 
-def compute_mae(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_mae(task, batch: dict, rng: StepRng | None = None,
+                axis: DataAxis | None = None) -> dict:
     """Masked pixel regression: the masked image stream's patch features
     decoded to pixels, against each patch's pixels normalised by their own
     mean and variance; the MSE over the masked patches."""
@@ -457,15 +570,17 @@ def compute_mae(task, batch: dict, rng: StepRng | None = None) -> dict:
     targets = (targets - mean) / torch.sqrt(var + 1e-6)
     mask = batch["image_bool_masked_pos"].float()
     per_patch = ((pred.float() - targets) ** 2).mean(dim=-1)
-    count = mask.sum()
-    return {"mae_task_loss": (per_patch * mask).sum() / count.clamp_min(1.0),
-            "mae_count": count}
+    num, count = (per_patch * mask).sum(), mask.sum()
+    if _global(axis) is not None:
+        num, count = axis.sum(torch.stack([num, count])).unbind()
+    return {"mae_task_loss": num / count.clamp_min(1.0), "mae_count": count}
 
 
 # ---------------------------------------------------------------- IMGCLS
 
 
-def compute_imgcls(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_imgcls(task, batch: dict, rng: StepRng | None = None,
+                   axis: DataAxis | None = None) -> dict:
     """Image classification over the pooled CLS: of the fused stream where
     the batch has captions (`text_ids`), else of the image stream; a CE on
     `batch['label']`."""
@@ -473,7 +588,7 @@ def compute_imgcls(task, batch: dict, rng: StepRng | None = None) -> dict:
     logits = task.imgcls_logits(task.infer(batch, mode, rng=rng)["cls_feats"])
     labels = batch["label"].long()
     loss, acc, count = masked_cross_entropy(logits, labels,
-                                            torch.ones_like(labels, dtype=torch.bool))
+                                            torch.ones_like(labels, dtype=torch.bool), axis)
     return {"imgcls_task_loss": loss, "imgcls_mean_acc": acc, "imgcls_count": count}
 
 
@@ -500,7 +615,8 @@ def box_iou_giou(a: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.
     return iou, iou - (enclose - union) / enclose.clamp_min(1e-6)
 
 
-def compute_refcoco(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_refcoco(task, batch: dict, rng: StepRng | None = None,
+                    axis: DataAxis | None = None) -> dict:
     """Referring-expression grounding: the fused CLS regresses one
     normalised (cx, cy, w, h) box against `batch['ref_box']`; the loss is
     5 L1 + 2 (1 - GIoU), in fp32; the metrics accuracy at IoU >= 0.5 and
@@ -509,16 +625,18 @@ def compute_refcoco(task, batch: dict, rng: StepRng | None = None) -> dict:
     target = batch["ref_box"].float()
     l1 = (pred - target).abs().sum(-1)
     iou, giou = box_iou_giou(_cxcywh_to_xyxy(pred), _cxcywh_to_xyxy(target))
-    return {"refcoco_task_loss": (5.0 * l1 + 2.0 * (1.0 - giou)).mean(),
-            "refcoco_mean_acc": (iou >= 0.5).float().mean(),
-            "refcoco_mean_score": iou.mean(),
-            "refcoco_count": torch.tensor(float(pred.shape[0]), device=pred.device)}
+    loss, acc, score = _ranks_mean(axis, (5.0 * l1 + 2.0 * (1.0 - giou)).mean(),
+                                   (iou >= 0.5).float().mean(), iou.mean())
+    count = torch.tensor(float(pred.shape[0]), device=pred.device)
+    return {"refcoco_task_loss": loss, "refcoco_mean_acc": acc,
+            "refcoco_mean_score": score, "refcoco_count": _ranks_count(axis, count)}
 
 
 # ------------------------------------------------------------------ IRTR
 
 
-def compute_irtr(task, batch: dict, rng: StepRng | None = None) -> dict:
+def compute_irtr(task, batch: dict, rng: StepRng | None = None,
+                 axis: DataAxis | None = None) -> dict:
     """Text retrieval ranking: each image fused with its caption and its F
     drawn false captions (B (F + 1) rows, the image repeated), the rank
     head's scores, a CE with the true caption at index 0."""
@@ -537,5 +655,5 @@ def compute_irtr(task, batch: dict, rng: StepRng | None = None) -> dict:
     score = task.rank_logits(cls)[:, 0].reshape(b, f + 1)
     labels = torch.zeros(b, dtype=torch.long, device=score.device)
     loss, acc, count = masked_cross_entropy(score, labels,
-                                            torch.ones_like(labels, dtype=torch.bool))
+                                            torch.ones_like(labels, dtype=torch.bool), axis)
     return {"irtr_task_loss": loss, "irtr_mean_acc": acc, "irtr_count": count}

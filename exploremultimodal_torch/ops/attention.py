@@ -3,7 +3,7 @@
 Counterpart of `exploremultimodal_tpu/ops/attention.py`. `'pallas'` goes to
 the flash-attention kernels (fp32 scores, as the TPU kernels keep them),
 with the dropout mask made inside the kernels when attention dropout is
-live. `'auto'` resolves as JAX's does: `'pallas'` while attention dropout
+live, keyed by each row's index in the global batch (`StepRng.row_index`). `'auto'` resolves as JAX's does: `'pallas'` while attention dropout
 is live, `'recompute'` otherwise. `'recompute'` and `'xla'` run the plain
 chain, which rounds the scores to the compute dtype before the fp32
 softmax, as the XLA chain does, and draws a Bernoulli dropout mask on the
@@ -55,7 +55,8 @@ def multi_head_attention(q, k, v, *, bias=None, scale: float | None = None,
         if use_dropout:
             return flash_attention(q, k, v, bias=bias, scale=scale,
                                    dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_rng.attention_seed())
+                                   dropout_seed=dropout_rng.attention_seed(),
+                                   row_index=dropout_rng.row_index(q.shape[0], q.device))
         return flash_attention(q, k, v, bias=bias, scale=scale)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:

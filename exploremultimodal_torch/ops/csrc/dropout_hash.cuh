@@ -2,7 +2,9 @@
 // hash (exploremultimodal_tpu/ops/flash_attention.py `_dropout_keys` :88,
 // `_dropout_bits` :70, `_keep_mask` :97). The mask is a pure function of
 // (seed, batch*head, query row, key column), so the backward regenerates the
-// forward's mask and it never reaches device memory. All arithmetic is
+// forward's mask and it never reaches device memory. The batch*head is the
+// head's index in JAX's global batch (`dropout_head`): a process that runs
+// its share of the batch passes each row's global index. All arithmetic is
 // uint32 with wraparound, as in the JAX kernels.
 #pragma once
 
@@ -18,6 +20,15 @@ __device__ __forceinline__ DropKeys dropout_keys(int32_t seed, int bh) {
   const uint32_t s = static_cast<uint32_t>(seed);
   const uint32_t b = static_cast<uint32_t>(bh);
   return {(s ^ (b * 0x9E3779B9u)) | 1u, (s * 0x85EBCA6Bu) ^ (b + 0x165667B1u)};
+}
+
+// The batch*head that keys head `bh` of a call of `heads` heads a row: bh
+// itself without a row index, else the head's index in the global batch,
+// row_index[bh / heads] * heads + bh % heads. Read once per head, for the
+// key only; nothing is addressed by it.
+__device__ __forceinline__ int dropout_head(const int32_t* row_index, int bh,
+                                            int heads) {
+  return row_index == nullptr ? bh : row_index[bh / heads] * heads + bh % heads;
 }
 
 // counter = row * 2^16 + col, avalanched by three murmur rounds

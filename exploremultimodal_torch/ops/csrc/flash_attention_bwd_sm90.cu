@@ -314,7 +314,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
 // writes delta (bh, n) and dq (out0). ROLE DKDV: mx, my = Q, dO, ma, mb =
 // K, V (mc unused); reads delta; writes dk (out0) and dv (out1). Every map
 // is over (D, n, bh) in (64, 64, 1) boxes. bias (bh / heads, n) fp32; lse
-// (bh, n) fp32; seed one int32 on the device (DROP). `nt` is n rounded up
+// (bh, n) fp32; seed one int32 on the device (DROP) and row_index null or
+// (bh / heads) int32, each row's global index, which keys its heads' masks
+// (`dropout_head`). `nt` is n rounded up
 // to 16, TAIL = nt % 64 the width of the last slab; with GROUPS a work unit
 // is a head and `tpg` of its 64-row tiles (group blockIdx.y), else a whole
 // head (the loop of every shape whose heads fill the card: with t0 and t1
@@ -328,9 +330,9 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                      const __grid_constant__ CUtensorMap mb,
                      const __grid_constant__ CUtensorMap mc, const float* __restrict__ bias,
                      const float* __restrict__ lse, float* __restrict__ delta,
-                     const int32_t* __restrict__ seed, bf16* __restrict__ out0,
-                     bf16* __restrict__ out1, int bh_total, int n, int nt, int heads,
-                     int tpg, float scale, uint32_t thr, float drop_scale) {
+                     const int32_t* __restrict__ seed, const int32_t* __restrict__ row_index,
+                     bf16* __restrict__ out0, bf16* __restrict__ out1, int bh_total, int n,
+                     int nt, int heads, int tpg, float scale, uint32_t thr, float drop_scale) {
   const Layout L = layout(nt, ROLE);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -422,7 +424,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
     mbar_wait(hfull0 + 8 * s, (i / L.hs) & 1);
     const uint32_t sx = base + s * L.head, sy = sx + L.head / 2;
     const float* v = svec + s * vstride;
-    c.key = DROP ? emm::dropout_keys(sd, bh) : emm::DropKeys{0u, 0u};
+    c.key = DROP ? emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads))
+                 : emm::DropKeys{0u, 0u};
     const size_t hbase = (size_t)bh * n;
     for (int t = t0; t < t1; ++t, ++u) {
       if ((u & 1) != w) continue;
@@ -503,8 +506,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
 template <int ROLE, int TAIL, bool DROP, bool GROUPS>
 int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
                const CUtensorMap& b, const CUtensorMap& c, const float* bias, const float* lse,
-               float* delta, const int32_t* seed, bf16* out0, bf16* out1, int bh, int n,
-               int nt, int heads, int grid, int tpg, float scale, uint32_t thr,
+               float* delta, const int32_t* seed, const int32_t* rix, bf16* out0, bf16* out1,
+               int bh, int n, int nt, int heads, int grid, int tpg, float scale, uint32_t thr,
                float drop_scale, cudaStream_t stream) {
   const int smem = layout(nt, ROLE).smem;
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>,
@@ -513,43 +516,44 @@ int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
   const int groups = ((n + BOX - 1) / BOX + tpg - 1) / tpg;
   attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>
       <<<dim3(grid, groups), THREADS, smem, stream>>>(
-      x, y, a, b, c, bias, lse, delta, seed, out0, out1, bh, n, nt, heads, tpg, scale, thr,
-      drop_scale);
+      x, y, a, b, c, bias, lse, delta, seed, rix, out0, out1, bh, n, nt, heads, tpg, scale,
+      thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // DQ, then DKDV (which reads the delta DQ writes), both on `stream`
 template <int TAIL, bool DROP, bool GROUPS>
-int launch(const CUtensorMap (&m)[5], const float* bias, const int32_t* seed, const float* lse,
-           float* delta, bf16* dq, bf16* dk, bf16* dv, int bh, int heads, int n, int nt,
-           int grid, int tpg, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
+int launch(const CUtensorMap (&m)[5], const float* bias, const int32_t* seed,
+           const int32_t* rix, const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
+           int bh, int heads, int n, int nt, int grid, int tpg, float scale, uint32_t thr,
+           float drop_scale, cudaStream_t st) {
   enum { Q, K, V, O, DO };
   int rc = launch_one<DQ, TAIL, DROP, GROUPS>(m[K], m[V], m[Q], m[DO], m[O], bias, lse, delta,
-                                              seed, dq, nullptr, bh, n, nt, heads, grid, tpg,
-                                              scale, thr, drop_scale, st);
+                                              seed, rix, dq, nullptr, bh, n, nt, heads, grid,
+                                              tpg, scale, thr, drop_scale, st);
   if (rc != 0) return rc;
   return launch_one<DKDV, TAIL, DROP, GROUPS>(m[Q], m[DO], m[K], m[V], m[V], bias, lse, delta,
-                                              seed, dk, dv, bh, n, nt, heads, grid, tpg, scale,
-                                              thr, drop_scale, st);
+                                              seed, rix, dk, dv, bh, n, nt, heads, grid, tpg,
+                                              scale, thr, drop_scale, st);
 }
 
 // launch<nt % 64, DROP, GROUPS>, GROUPS where a unit is less than a head
 template <bool DROP, bool GROUPS>
-int dispatch(const CUtensorMap (&m)[5], const float* b, const int32_t* sd, const float* l,
-             float* d, bf16* q, bf16* k, bf16* v, int bh, int heads, int n, int nt, int grid,
-             int tpg, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
+int dispatch(const CUtensorMap (&m)[5], const float* b, const int32_t* sd, const int32_t* rix,
+             const float* l, float* d, bf16* q, bf16* k, bf16* v, int bh, int heads, int n,
+             int nt, int grid, int tpg, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
   switch (nt % BOX) {
     case 0:
-      return launch<0, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+      return launch<0, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                      scale, thr, drop_scale, st);
     case 16:
-      return launch<16, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+      return launch<16, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                       scale, thr, drop_scale, st);
     case 32:
-      return launch<32, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+      return launch<32, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                       scale, thr, drop_scale, st);
     default:
-      return launch<48, DROP, GROUPS>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+      return launch<48, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                       scale, thr, drop_scale, st);
   }
 }
@@ -579,7 +583,9 @@ extern "C" int flash_attention_bwd_sm90_smem(int nt, int role) {
 // (from `flash_attention_bwd_sm90_encode`, host memory); bias (bh /
 // heads, n) fp32; seed: null for the backward without dropout, else one
 // int32 on the device, with which it keeps the forward's dropout (where the
-// hash bits are >= threshold, scaled by drop_scale); lse (bh, n) fp32 from
+// hash bits are >= threshold, scaled by drop_scale); row_index: null (each
+// row's own index), or (bh / heads) int32 on the device, each row's index in
+// the global batch, which keys its heads' masks (with a seed only); lse (bh, n) fp32 from
 // the forward; delta (bh, n) fp32 scratch; dq, dk, dv (bh, n, 64) bf16.
 // `nt`: the key width, n rounded up to 16 (n <= nt <= 512); `tpg`: 64-row
 // tiles per work unit (>= 1); `grid`: persistent CTAs per tile group,
@@ -588,18 +594,21 @@ extern "C" int flash_attention_bwd_sm90_smem(int nt, int role) {
 // cudaError_t.
 extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const void* mv,
                                         const void* mo, const void* mdo, const void* bias,
-                                        const void* seed, const void* lse, void* delta, void* dq,
+                                        const void* seed, const void* row_index,
+                                        const void* lse, void* delta, void* dq,
                                         void* dk, void* dv, int bh, int heads, int n, int nt,
                                         int grid, int tpg, float scale, unsigned threshold,
                                         float drop_scale, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > MAX_NT ||
-      nt % 16 != 0 || tpg <= 0 || grid <= 0 || grid > bh)
+      nt % 16 != 0 || tpg <= 0 || grid <= 0 || grid > bh ||
+      (row_index != nullptr && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[5];
   const void* maps[5] = {mq, mk, mv, mo, mdo};
   for (int k = 0; k < 5; ++k) memcpy(&m[k], maps[k], sizeof(CUtensorMap));
   const auto* b = static_cast<const float*>(bias);
   const auto* sd = static_cast<const int32_t*>(seed);
+  const auto* rix = static_cast<const int32_t*>(row_index);
   const auto* l = static_cast<const float*>(lse);
   auto* d = static_cast<float*>(delta);
   auto* q = static_cast<bf16*>(dq);
@@ -608,12 +617,12 @@ extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const vo
   const auto st = static_cast<cudaStream_t>(stream);
   const bool groups = tpg < (n + BOX - 1) / BOX;
   if (sd == nullptr)
-    return groups ? dispatch<false, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+    return groups ? dispatch<false, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                           scale, 0u, 1.f, st)
-                  : dispatch<false, false>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                           scale, 0u, 1.f, st);
-  return groups ? dispatch<true, true>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                  : dispatch<false, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid,
+                                           tpg, scale, 0u, 1.f, st);
+  return groups ? dispatch<true, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                        scale, threshold, drop_scale, st)
-                : dispatch<true, false>(m, b, sd, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
+                : dispatch<true, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
                                         scale, threshold, drop_scale, st);
 }

@@ -176,7 +176,8 @@ struct Ring {
 // item i is query tile i % tiles of head i / tiles; CTA c takes items c,
 // c + gridDim.x, ... scale_log2 = scale * log2(e). With DROP, seed is one
 // int32 on the device; a (row, key) is kept where its hash bits are >=
-// thr, then scaled by drop_scale.
+// thr, then scaled by drop_scale; row_index (null or bh / heads int32)
+// gives each row's global index, which keys its heads' masks.
 template <bool LSE, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
@@ -184,7 +185,8 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mv,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         float* __restrict__ lse, int n, int heads, int tiles, int items,
-                        float scale_log2, const int32_t* __restrict__ seed, uint32_t thr,
+                        float scale_log2, const int32_t* __restrict__ seed,
+                        const int32_t* __restrict__ row_index, uint32_t thr,
                         float drop_scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -259,7 +261,7 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     // rows 16 warp + g (h = 0) and + 8 (h = 1) of this warpgroup's 64
     const int row0 = (item % tiles) * BQ + 64 * w + 16 * warp + g;
     emm::DropKeys key{0u, 0u};
-    if constexpr (DROP) key = emm::dropout_keys(sd, bh);
+    if constexpr (DROP) key = emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads));
     // DROP: block j's keep bits, bit i % 32 of kb[i / 32] for score
     // register i (row row0 + 8 ((i >> 1) & 1), key 8 (i >> 2) + 2 qd + (i &
     // 1) of the block), hashed while the scores are not live (before the
@@ -407,7 +409,8 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 template <bool LSE, bool DROP>
 int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const void* bias,
            void* out, void* lse, int heads, int n, int tiles, int items, int grid, float scale,
-           const void* seed, uint32_t thr, float drop_scale, void* stream) {
+           const void* seed, const void* row_index, uint32_t thr, float drop_scale,
+           void* stream) {
   cudaError_t err = cudaFuncSetAttribute(attn_stream_sm90_kernel<LSE, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -415,7 +418,8 @@ int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, con
       <<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
           q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<float*>(lse), n, heads, tiles, items, scale * LOG2E,
-          static_cast<const int32_t*>(seed), thr, drop_scale);
+          static_cast<const int32_t*>(seed), static_cast<const int32_t*>(row_index), thr,
+          drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -443,16 +447,18 @@ extern "C" int flash_attention_long_sm90_smem() { return SMEM; }
 // (the output only), else (bh, n) fp32 (rows 1 and 3). seed: null without
 // dropout; for row 3 one int32 on the device, a (row, key) kept where its
 // hash bits are >= `threshold` (min(int(rate * 2^32), 2^32 - 1)) and then
-// scaled by `drop_scale`; it needs an lse. Launches on `stream`; returns
-// the launch's cudaError_t.
+// scaled by `drop_scale`; it needs an lse. row_index: null (each row's own
+// index), or (bh / heads) int32 on the device, each row's index in the
+// global batch, which keys its heads' masks (row 3 only). Launches on
+// `stream`; returns the launch's cudaError_t.
 extern "C" int flash_attention_long_sm90(const void* mq, const void* mk, const void* mv,
-                                         const void* bias, const void* seed, void* out,
-                                         void* lse, int bh, int heads, int n, int tiles,
-                                         int grid, float scale, unsigned threshold,
-                                         float drop_scale, void* stream) {
+                                         const void* bias, const void* seed,
+                                         const void* row_index, void* out, void* lse, int bh,
+                                         int heads, int n, int tiles, int grid, float scale,
+                                         unsigned threshold, float drop_scale, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || tiles != (n + BQ - 1) / BQ ||
       (long long)bh * tiles > 0x7fffffff || grid <= 0 || grid > bh * tiles ||
-      (seed != nullptr && lse == nullptr))
+      (seed != nullptr && lse == nullptr) || (row_index != nullptr && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap q, k, v;
   memcpy(&q, mq, sizeof(q));
@@ -461,10 +467,10 @@ extern "C" int flash_attention_long_sm90(const void* mq, const void* mk, const v
   const int items = bh * tiles;
   if (lse == nullptr)
     return launch<false, false>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
-                                seed, threshold, drop_scale, stream);
+                                seed, nullptr, threshold, drop_scale, stream);
   if (seed == nullptr)
     return launch<true, false>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
-                               seed, threshold, drop_scale, stream);
+                               seed, nullptr, threshold, drop_scale, stream);
   return launch<true, true>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale, seed,
-                            threshold, drop_scale, stream);
+                            row_index, threshold, drop_scale, stream);
 }

@@ -75,12 +75,13 @@ _MAPS_CAP = 256
 PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read the padded N
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# each forward's one entry: maps, bias, seed (null without dropout), out,
-# lse (null for row 5), shape ints, then scale, threshold, factor, stream
-_FWD_LONG_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
-_FWD_SM90_ARGS = [_P] * 7 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
+# each forward's one entry: maps, bias, seed (null without dropout), row
+# index (null: each row's own), out, lse (null for row 5), shape ints, then
+# scale, threshold, factor, stream
+_FWD_LONG_ARGS = [_P] * 8 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
+_FWD_SM90_ARGS = [_P] * 8 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
-_BWD_SM90_ARGS = [_P] * 12 + [_I] * 6 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_SM90_ARGS = [_P] * 13 + [_I] * 6 + [_F, ctypes.c_uint32, _F, _P]
 
 
 # ------------------------------------------------------------- dropout hash
@@ -102,15 +103,30 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo * c + (((hi * c) & 0xFFFF) << 16)) & 0xFFFFFFFF
 
 
-def dropout_keep_mask_plain(seed: torch.Tensor, bh: int, n: int,
-                            rate: float) -> torch.Tensor:
+def dropout_heads(bh: int, row_index: torch.Tensor | None,
+                  device: torch.device) -> torch.Tensor:
+    """(bh,) int64: the batch*head that keys each head's mask. Without a
+    `row_index`, the head's own index bh; with one ((B,) int32, each row's
+    index in the global batch, B dividing bh), row_index[bh // H] * H +
+    bh % H, H = bh // B: the head's index in JAX's global batch
+    (`dropout_head` in csrc/dropout_hash.cuh)."""
+    b = torch.arange(bh, dtype=torch.int64, device=device)
+    if row_index is None:
+        return b
+    heads = bh // row_index.numel()
+    return row_index.to(device=device, dtype=torch.int64)[b // heads] * heads + b % heads
+
+
+def dropout_keep_mask_plain(seed: torch.Tensor, bh: int, n: int, rate: float,
+                            row_index: torch.Tensor | None = None) -> torch.Tensor:
     """(bh, n, n) fp32 of {0, 1/(1-rate)}: the keep mask the dropout kernels
     make inside, for the int32 `seed` (one element, on the result's
-    device). The uint32 hash of `_dropout_bits`/`_dropout_keys` is emulated
-    in int64 masked to 32 bits."""
+    device) and the heads of `dropout_heads(bh, row_index)`. The uint32
+    hash of `_dropout_bits`/`_dropout_keys` is emulated in int64 masked to
+    32 bits."""
     dev = seed.device
     s = seed.reshape(()).to(torch.int64) & 0xFFFFFFFF
-    b = torch.arange(bh, dtype=torch.int64, device=dev).view(bh, 1, 1)
+    b = dropout_heads(bh, row_index, dev).view(bh, 1, 1)
     key0 = (s ^ _mul32(b, 0x9E3779B9)) | 1
     key1 = _mul32(s, 0x85EBCA6B) ^ ((b + 0x165667B1) & 0xFFFFFFFF)
     r = torch.arange(n, dtype=torch.int64, device=dev).view(1, n, 1)
@@ -160,9 +176,10 @@ def flash_attention_fwd_long_plain(qf, kf, vf, key_bias, scale: float):
 
 
 def flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale: float,
-                                   rate: float):
-    """`_attn_drop_kernel`: the forward with the hash mask of `seed`."""
-    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate)
+                                   rate: float, row_index=None):
+    """`_attn_drop_kernel`: the forward with the hash mask of `seed` (and
+    `row_index`, `dropout_keep_mask_plain`)."""
+    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate, row_index)
     return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale, keep)
 
 
@@ -186,9 +203,10 @@ def flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale: float,
 
 
 def flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of, dof, lse,
-                                   scale: float, rate: float):
-    """`_attn_drop_bwd_kernel`: the backward with the mask of `seed`."""
-    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate)
+                                   scale: float, rate: float, row_index=None):
+    """`_attn_drop_bwd_kernel`: the backward with the mask of `seed` (and
+    `row_index`)."""
+    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate, row_index)
     return flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale,
                                      keep)
 
@@ -196,10 +214,11 @@ def flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of, dof, lse,
 # ----------------------------------------------------------- kernel wrappers
 
 
-def _check(name: str, key_bias, *tensors, lse=None, seed=None) -> None:
+def _check(name: str, key_bias, *tensors, lse=None, seed=None, row_index=None) -> None:
     """Raise unless the kernels take these inputs: contiguous, 16-byte
     aligned bf16 (B*H, N, 64) tensors on one device, an fp32 (B, N) bias,
-    an fp32 (B*H, N) lse and an int32 one-element seed."""
+    an fp32 (B*H, N) lse, an int32 one-element seed and a contiguous int32
+    (B,) row index."""
     bh, n, _ = tensors[0].shape
     dev = tensors[0].device
     for t in tensors:
@@ -222,6 +241,11 @@ def _check(name: str, key_bias, *tensors, lse=None, seed=None) -> None:
     if seed is not None and (seed.dtype != torch.int32 or seed.numel() != 1
                              or seed.device != dev):
         raise ValueError(f"{name}: seed must be one int32 on {dev}")
+    if row_index is not None and (row_index.dtype != torch.int32 or row_index.shape != (b,)
+                                  or not row_index.is_contiguous()
+                                  or row_index.device != dev):
+        raise ValueError(f"{name}: row_index must be a contiguous int32 ({b},) tensor "
+                         f"on {dev}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -285,19 +309,27 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
     return out, lse
 
 
-def _launch_fwd(qf, kf, vf, key_bias, scale: float, seed=None, rate: float = 0.0):
+def _launch_fwd(qf, kf, vf, key_bias, scale: float, seed=None, rate: float = 0.0,
+                row_index=None):
     """Run the forward of `fwd_route` on checked inputs; with a `seed`, its
-    dropout variant at `rate` (row 3). Returns (out, lse)."""
+    dropout variant at `rate` (row 3), its masks keyed by `row_index`
+    where given. Returns (out, lse)."""
     if fwd_route(qf.shape[1]) == "sm90":
-        return _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate)
-    return _launch_stream(qf, kf, vf, key_bias, scale, seed, rate, with_lse=True)
+        return _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate, row_index)
+    return _launch_stream(qf, kf, vf, key_bias, scale, seed, rate, with_lse=True,
+                          row_index=row_index)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
-                     rate: float = 0.0):
+                     rate: float = 0.0, row_index=None):
     """Run the short sm90 forward on checked inputs: the q/k/v maps from
     the cache, the key width of `fwd_sm90_tile`, the grid of
-    `fwd_sm90_grid`; with a `seed`, its dropout variant at `rate` (row 3)."""
+    `fwd_sm90_grid`; with a `seed`, its dropout variant at `rate` (row 3),
+    keyed by `row_index` where given."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
@@ -305,7 +337,7 @@ def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
     # alive through the call even if a later lookup empties the cache
     maps = [_map("short", t) for t in (qf, kf, vf)]
     fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
-    rc = fn(*maps, key_bias.data_ptr(), None if seed is None else seed.data_ptr(),
+    rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index),
             out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
             fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
             dropout_threshold(rate), dropout_scale(rate), _stream(qf))
@@ -444,12 +476,11 @@ def _launch_long(qf, kf, vf, key_bias, scale: float):
 
 
 def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
-                   rate: float = 0.0, with_lse: bool = False):
+                   rate: float = 0.0, with_lse: bool = False, row_index=None):
     """Run the streamed kernel on checked inputs: the q/k/v maps from the
     cache, the work of `long_grid` on the CTAs of `long_ctas`; `with_lse`
-    for rows 1 and 3, and with a
-    `seed` the dropout variant at `rate` (row 3). Returns (out, lse or
-    None)."""
+    for rows 1 and 3, and with a `seed` the dropout variant at `rate` (row
+    3), keyed by `row_index` where given. Returns (out, lse or None)."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = (torch.empty((bh, n), dtype=torch.float32, device=qf.device)
@@ -459,8 +490,7 @@ def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
     maps = [_long_map(t) for t in (qf, kf, vf)]
     tiles, _ = long_grid(bh, n)
     fn = _build.load("flash_attention_long_sm90", _FWD_LONG_ARGS)
-    rc = fn(*maps, key_bias.data_ptr(), None if seed is None else seed.data_ptr(),
-            out.data_ptr(), None if lse is None else lse.data_ptr(), bh,
+    rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index), out.data_ptr(), None if lse is None else lse.data_ptr(), bh,
             bh // key_bias.shape[0], n, tiles, long_ctas(bh, n, _sm_count(qf.device)),
             scale, dropout_threshold(rate), dropout_scale(rate), _stream(qf))
     _build.check("flash_attention_long_sm90", rc)
@@ -468,14 +498,15 @@ def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
 
 
 def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
-                             rate: float):
+                             rate: float, row_index=None):
     """As `flash_attention_fwd_drop_plain`: the kernel of `fwd_route` on
     CUDA tensors."""
     if qf.device.type == "cpu":
         return flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale,
-                                              rate)
-    _check("flash_attention_fwd_drop", key_bias, qf, kf, vf, seed=seed)
-    out, lse = _launch_fwd(qf, kf, vf, key_bias, scale, seed, rate)
+                                              rate, row_index)
+    _check("flash_attention_fwd_drop", key_bias, qf, kf, vf, seed=seed,
+           row_index=row_index)
+    out, lse = _launch_fwd(qf, kf, vf, key_bias, scale, seed, rate, row_index)
     flash_attention_fwd_drop.launches += 1
     return out, lse
 
@@ -492,26 +523,27 @@ def flash_attention_bwd(qf, kf, vf, key_bias, of, dof, lse, scale: float):
 
 
 def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
-                             scale: float, rate: float):
+                             scale: float, rate: float, row_index=None):
     """As `flash_attention_bwd_drop_plain`: the sm90 kernels on CUDA
     tensors."""
     if qf.device.type == "cpu":
         return flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of,
-                                              dof, lse, scale, rate)
+                                              dof, lse, scale, rate, row_index)
     _check("flash_attention_bwd_drop", key_bias, qf, kf, vf, of, dof, lse=lse,
-           seed=seed)
-    grads = _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale, rate)
+           seed=seed, row_index=row_index)
+    grads = _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale, rate,
+                             row_index)
     flash_attention_bwd_drop.launches += 1
     return grads
 
 
 def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
-                     rate: float = 0.0):
+                     rate: float = 0.0, row_index=None):
     """Run the sm90 backward (its dq kernel, then its dk/dv kernel) on
     checked inputs: the q/k/v/o/do maps from the cache, the key width of
     `fwd_sm90_tile`, the work units and grid of `bwd_sm90_units`; without a
     `seed` the backward without dropout (row 2), with one its dropout
-    variant at `rate` (row 4)."""
+    variant at `rate` (row 4), keyed by `row_index` where given."""
     bh, n, _ = qf.shape
     bwd_route(n)
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
@@ -521,7 +553,7 @@ def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
     maps = [_map("bwd", t) for t in (qf, kf, vf, of, dof)]
     tpg, grid = bwd_sm90_units(bh, n, _sm_count(qf.device))
     fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_ARGS)
-    rc = fn(*maps, key_bias.data_ptr(), None if seed is None else seed.data_ptr(),
+    rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n), grid, tpg, scale,
             dropout_threshold(rate), dropout_scale(rate), _stream(qf))
@@ -556,23 +588,24 @@ class _FlashCore(torch.autograd.Function):
 
 
 class _FlashCoreDrop(torch.autograd.Function):
-    """`_flash_core_drop`: both kernels with the in-kernel dropout mask."""
+    """`_flash_core_drop`: both kernels with the in-kernel dropout mask,
+    keyed by `row_index` where given."""
 
     @staticmethod
-    def forward(ctx, qf, kf, vf, key_bias, seed, scale, rate):
+    def forward(ctx, qf, kf, vf, key_bias, seed, scale, rate, row_index):
         out, lse = flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale,
-                                            rate)
-        ctx.save_for_backward(qf, kf, vf, key_bias, seed, out, lse)
+                                            rate, row_index)
+        ctx.save_for_backward(qf, kf, vf, key_bias, seed, out, lse, row_index)
         ctx.scale, ctx.rate = scale, rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        qf, kf, vf, key_bias, seed, out, lse = ctx.saved_tensors
+        qf, kf, vf, key_bias, seed, out, lse, row_index = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, out,
                                               g.contiguous(), lse, ctx.scale,
-                                              ctx.rate)
-        return dq, dk, dv, None, None, None, None
+                                              ctx.rate, row_index)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _reference_flat(qf, kf, vf, key_bias, scale):
@@ -615,13 +648,15 @@ class _FlashLong(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, bias=None, scale: float,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None, row_index=None):
     """Differentiable fused attention, as JAX's `flash_attention`.
 
     q, k, v: (B, H, N, D); bias: (B, 1, 1, N) additive key-padding bias or
     None. With dropout_rate > 0, `dropout_seed` (one int32 on q's device)
     seeds the in-kernel mask, which the backward regenerates; that needs
-    N <= LONG_SEQ_THRESHOLD. Returns (B, H, N, D)."""
+    N <= LONG_SEQ_THRESHOLD. `row_index` ((B,) int32 on q's device, or
+    None for each row's own index) gives each row's index in the global
+    batch, which keys its mask. Returns (B, H, N, D)."""
     b, h, n, d = q.shape
     use_dropout = dropout_rate > 0.0
     long_seq = padded_len(n) > LONG_SEQ_THRESHOLD
@@ -638,7 +673,7 @@ def flash_attention(q, k, v, *, bias=None, scale: float,
         seed = torch.as_tensor(dropout_seed, dtype=torch.int32,
                                device=q.device).reshape(1)
         out = _FlashCoreDrop.apply(qf, kf, vf, key_bias, seed, scale,
-                                   float(dropout_rate))
+                                   float(dropout_rate), row_index)
     elif long_seq:
         out = _FlashLong.apply(qf, kf, vf, key_bias, scale)
     else:

@@ -11,23 +11,34 @@ JAX drew.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 _SEED_LOW, _SEED_HIGH = -2**31, 2**31
+# the row indices of `StepRng.row_index`, by (rows, runs, rank, world,
+# device): made once, read by the kernels at every step
+_ROW_INDEX: dict = {}
 
 
 class StepRng:
     """The random streams of one training step.
 
     `generator` lives on the compute device and draws the hidden-dropout
-    bits, the DropPath masks and the ITM negatives. The attention-dropout
-    hash takes one int32 seed per attention call: they are drawn together
-    for the step, on the host generator `seed_generator`, and copied to the
-    device once, so no attention call waits on the host, and the same host
-    seed gives the same masks on every device."""
+    bits, the DropPath masks and the ITM negatives; a process of a group
+    seeds its own (the trainer: seed + rank, as JAX's `initialize_runtime`
+    seeds each process's host generators). The attention-dropout hash takes
+    one int32 seed per attention call: they are drawn together for the
+    step, on the host generator `seed_generator`, and copied to the device
+    once, so no attention call waits on the host, and the same host seed
+    gives the same masks on every device and every rank. A rank's rows
+    differ from another's by their index in the global batch
+    (`row_index`), which keys the hash as JAX's step over the whole batch
+    keys it."""
 
     def __init__(self, generator: torch.Generator, seed_generator: torch.Generator,
-                 device: torch.device, max_attention_calls: int = 256):
+                 device: torch.device, max_attention_calls: int = 256, *,
+                 rank: int = 0, world: int = 1):
         self.generator = generator
         seeds = torch.randint(_SEED_LOW, _SEED_HIGH, (max_attention_calls,),
                               dtype=torch.int32, generator=seed_generator)
@@ -35,6 +46,51 @@ class StepRng:
             seeds = seeds.pin_memory()
         self._seeds = seeds.to(device, non_blocking=True)
         self.attention_calls = 0
+        self.rank, self.world = rank, world
+        self.row_runs = 1
+
+    def row_index(self, rows: int, device: torch.device) -> torch.Tensor | None:
+        """The global index of each of an attention call's `rows` rows, as
+        (rows,) int32 on `device`, or None at one process (each row is its
+        own). A call's rows are `row_runs` runs of equal length R, the
+        process's share of each run of the global batch: row j of run k is
+        k * world * R + rank * R + j (one run for a stream over the batch,
+        three for ITM's [pos, img-neg, txt-neg] pair rows)."""
+        if self.world == 1:
+            return None
+        key = (rows, self.row_runs, self.rank, self.world, device)
+        idx = _ROW_INDEX.get(key)
+        if idx is None:
+            per = rows // self.row_runs
+            run = torch.arange(self.row_runs)[:, None] * (self.world * per)
+            idx = (run + self.rank * per + torch.arange(per)).reshape(-1)
+            idx = _ROW_INDEX[key] = idx.to(device=device, dtype=torch.int32)
+        return idx
+
+    @contextlib.contextmanager
+    def runs(self, count: int):
+        """Attention calls inside take their rows as `count` runs
+        (`row_index`)."""
+        old, self.row_runs = self.row_runs, count
+        try:
+            yield
+        finally:
+            self.row_runs = old
+
+    def state(self) -> tuple:
+        """What the next draws depend on: the attention calls so far, the
+        generator's state and the row layout."""
+        return self.attention_calls, self.generator.get_state(), self.row_runs
+
+    def restore(self, state: tuple) -> None:
+        self.attention_calls, gen, self.row_runs = state
+        self.generator.set_state(gen)
+
+    def replay(self) -> "Replay":
+        """A context that draws, each time it is entered, what the first
+        entry drew: for a forward that a checkpoint runs again in the
+        backward (`models.vlmo.Block`)."""
+        return Replay(self)
 
     def attention_seed(self) -> torch.Tensor:
         """The next attention call's seed: one int32 on the device."""
@@ -45,6 +101,32 @@ class StepRng:
                 "one step: raise StepRng's max_attention_calls")
         self.attention_calls += 1
         return self._seeds[i:i + 1]
+
+
+class Replay:
+    """Entered the first time, a no-op that notes the streams' state;
+    entered again (a recomputed forward), it rewinds the streams to that
+    state, and on exit puts back the state they had at the entry, so the
+    draws after the recomputation are those an uncheckpointed step makes."""
+
+    def __init__(self, rng: StepRng):
+        self.rng = rng
+        self.start = rng.state()
+        self.entered = False
+        self.resume = None
+
+    def __enter__(self):
+        if self.entered:
+            self.resume = self.rng.state()
+            self.rng.restore(self.start)
+        self.entered = True
+        return self
+
+    def __exit__(self, *exc):
+        if self.resume is not None:
+            self.rng.restore(self.resume)
+            self.resume = None
+        return False
 
 
 def drop_path_plain(x: torch.Tensor, rate: float, keep: torch.Tensor) -> torch.Tensor:

@@ -27,6 +27,17 @@ of it; a warm start (a phase or tag mismatch, or a `.pth` import) loads
 the parameters only and leaves both EMA trees and the queues as the run
 built them, as JAX's `state.replace(params=...)` does: the trees then hold
 the run's initial weights, not the loaded ones.
+
+On more than one process the file is the same: every process takes part
+in gathering the state whole (fsdp's shards through
+`torch.distributed.checkpoint.state_dict` with `full_state_dict` and
+`cpu_offload`, zero1's moments consolidated on rank 0), rank 0 writes it,
+and barriers stand around the directory's removal and rename, as JAX's
+`sync_global_devices` do. The generators saved are rank 0's; a resume
+restores the host generator (the attention seeds) on every process and
+the device one on rank 0, the others keeping their own seed + rank stream.
+Every process reads the file and takes its shards of it, so a checkpoint
+written at one world size loads at another.
 """
 
 from __future__ import annotations
@@ -45,6 +56,13 @@ from typing import Any
 import torch
 
 from exploremultimodal_torch.models.heads import ISDAState
+from exploremultimodal_torch.parallel.partitioning import (
+    barrier,
+    full,
+    is_main,
+    load_model_state_dict,
+    model_state_dict,
+)
 from exploremultimodal_torch.train.state import TrainState
 
 CKPT_PREFIX = "checkpoint-"
@@ -56,19 +74,20 @@ def _ckpt_dir(output_dir: str, epoch: int) -> str:
 
 
 def state_dict(state: TrainState) -> dict[str, Any]:
-    """Everything a resume needs, as tensors and plain values."""
+    """Everything a resume needs, as tensors and plain values, whole
+    (every process of a group must call; rank 0's is the one to save)."""
     isda = state.isda
     return {
         "step": int(state.step),
-        "model": state.task.state_dict(),
-        "optimizer": state.optimizer.torch.state_dict(),
+        "model": model_state_dict(state.task),
+        "optimizer": state.optimizer.full_state_dict(),
         "generator": state.generator.get_state(),
         "seed_generator": state.seed_generator.get_state(),
         "isda": None if isda is None else {
             "count": isda.count, "mean": isda.mean, "cov": isda.cov},
-        "ema": None if state.ema_task is None else state.ema_task.state_dict(),
+        "ema": None if state.ema_task is None else model_state_dict(state.ema_task),
         "model_ema": (None if state.model_ema_task is None
-                      else state.model_ema_task.state_dict()),
+                      else model_state_dict(state.model_ema_task)),
         "queue": None if state.img_queue is None else {
             "img": state.img_queue, "txt": state.txt_queue, "ptr": state.queue_ptr},
     }
@@ -87,18 +106,19 @@ def load_state_dict(state: TrainState, sd: dict[str, Any]) -> None:
     _check_present(sd, "ema", state.ema_task is not None, "vlmo_ema")
     _check_present(sd, "model_ema", state.model_ema_task is not None, "model_ema")
     _check_present(sd, "queue", state.img_queue is not None, "train.neg_queue")
-    state.task.load_state_dict(sd["model"], strict=True)
-    state.optimizer.torch.load_state_dict(sd["optimizer"])
+    load_model_state_dict(state.task, sd["model"])
+    state.optimizer.load_full_state_dict(sd["optimizer"])
     state.step = int(sd["step"])
     # a generator's state is a host ByteTensor, whatever device it draws on
-    state.generator.set_state(sd["generator"].cpu())
+    if state.rank == 0:
+        state.generator.set_state(sd["generator"].cpu())
     state.seed_generator.set_state(sd["seed_generator"].cpu())
     if sd["isda"] is not None:
         dev = state.isda.count.device
         state.isda = ISDAState(**{k: v.to(dev) for k, v in sd["isda"].items()})
     for key, tree in (("ema", state.ema_task), ("model_ema", state.model_ema_task)):
         if tree is not None:
-            tree.load_state_dict(sd[key], strict=True)
+            load_model_state_dict(tree, sd[key])
     if state.img_queue is not None:
         q = sd["queue"]
         if q["img"].shape != state.img_queue.shape:
@@ -118,23 +138,28 @@ def save(output_dir: str, state: TrainState, cfg: dict, epoch: int, *,
     The files are written into `checkpoint-{epoch}.tmp/`, which `_scan`
     does not match, and the directory is renamed into place only once both
     are whole: a run killed during the save leaves the previous checkpoint
-    the newest one."""
+    the newest one. Every process of a group calls it; rank 0 writes."""
     path = _ckpt_dir(output_dir, epoch)
     tmp = path + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
-    torch.save(state_dict(state), os.path.join(tmp, STATE_FILE))
-    meta = {"phase": cfg["train"]["phase"], "tag": cfg.get("tag", "default"),
-            "epoch": epoch, "step": int(state.step), "best": bool(is_best)}
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump(meta, f)
-    if os.path.exists(path):
-        shutil.rmtree(path)
-    os.replace(tmp, path)
-    _apply_retention(scan_root or output_dir, keep_epoch=epoch, logger=logger)
-    if logger:
-        logger.info(f"saved checkpoint {path}" + (" (best)" if is_best else ""))
+    sd = state_dict(state)
+    if is_main():
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        torch.save(sd, os.path.join(tmp, STATE_FILE))
+        meta = {"phase": cfg["train"]["phase"], "tag": cfg.get("tag", "default"),
+                "epoch": epoch, "step": int(state.step), "best": bool(is_best)}
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f)
+    barrier()
+    if is_main():
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        _apply_retention(scan_root or output_dir, keep_epoch=epoch, logger=logger)
+        if logger:
+            logger.info(f"saved checkpoint {path}" + (" (best)" if is_best else ""))
+    barrier()
     return path
 
 
@@ -276,7 +301,7 @@ def auto_load(output_dir: str, state: TrainState, cfg: dict, *,
     own = state.task.state_dict()
     params = {k: v for k, v in sd["model"].items()
               if k in own and own[k].shape == v.shape}
-    state.task.load_state_dict(params, strict=False)
+    load_model_state_dict(state.task, params, strict=False)
     if logger:
         logger.info(f"loaded params from {path} (phase/tag mismatch: "
                     f"{meta.get('phase')}/{meta.get('tag')} vs "
@@ -290,10 +315,12 @@ def _load_torch(path: str, state: TrainState, cfg: dict, logger=None) -> None:
         load_torch_checkpoint,
     )
 
-    target = state.task.state_dict()
+    # the task's tensors whole on every process (the importer reads their
+    # shapes and keeps what the file lacks)
+    target = {k: full(v) for k, v in state.task.state_dict().items()}
     new, loaded, missing = import_torch_state(
         load_torch_checkpoint(path), target, max_text_len=cfg["model"]["max_text_len"])
-    state.task.load_state_dict(new, strict=True)
+    load_model_state_dict(state.task, new)
     if logger:
         logger.info(f"imported torch checkpoint {path}: {len(loaded)} tensors loaded, "
                     f"{len(missing)} params kept at init")

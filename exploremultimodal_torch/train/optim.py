@@ -22,6 +22,8 @@ from typing import Callable, Iterable
 
 import torch
 
+from exploremultimodal_torch.parallel.partitioning import full, like, local
+
 Schedule = Callable[[int], float]
 
 HEAD_NAMES = (
@@ -175,18 +177,70 @@ def fixed_attn_predicate(name: str) -> bool:
 
 class Optimizer:
     """torch AdamW driven by the schedules: `step(t)` clips, sets each
-    group's lr and weight decay for step t, and updates."""
+    group's lr and weight decay for step t, and updates.
+
+    The presets (`parallel/partitioning.py`): with a `zero_group` the
+    update is `ZeroRedundancyOptimizer` over the same groups, each process
+    of the group holding the moments of its share of the parameters
+    (zero1); sharded (DTensor) parameters hold sharded moments (fsdp), and
+    the gradient norm sums their shards over the processes; with `offload`
+    the moments live in pinned host memory between steps and are copied to
+    the device around each update (fsdp_offload on CUDA)."""
 
     def __init__(self, groups: list[dict], schedule: Schedule,
                  wd_schedule: Schedule | None, weight_decay: float,
-                 clip_grad: float | None, betas, eps: float):
+                 clip_grad: float | None, betas, eps: float, *,
+                 zero_group=None, offload: bool = False):
         self.schedule = schedule
         self.wd_schedule = wd_schedule
         self.weight_decay = weight_decay
         self.clip_grad = clip_grad
         self.params = [p for g in groups for p in g["params"]]
-        self.torch = torch.optim.AdamW(groups, lr=0.0, betas=tuple(betas),
-                                       eps=eps, weight_decay=0.0)
+        self.offload = offload
+        # (state, key, the sharded layout or None, device) of each parked
+        # moment, and the host buffers, kept from step to step
+        self._parked: list = []
+        self._host: dict = {}
+        if zero_group is not None:
+            from torch.distributed.optim import ZeroRedundancyOptimizer
+
+            self.torch = ZeroRedundancyOptimizer(
+                groups, optimizer_class=torch.optim.AdamW, process_group=zero_group,
+                lr=0.0, betas=tuple(betas), eps=eps, weight_decay=0.0)
+        else:
+            self.torch = torch.optim.AdamW(groups, lr=0.0, betas=tuple(betas),
+                                           eps=eps, weight_decay=0.0)
+
+    @property
+    def zero(self) -> bool:
+        return not isinstance(self.torch, torch.optim.AdamW)
+
+    def stage_in(self) -> None:
+        """The parked moments back on their parameters' devices."""
+        for st, k, layout, dev in self._parked:
+            st[k] = _with_local(layout, st[k].to(dev, non_blocking=True))
+        self._parked = []
+
+    def park(self) -> None:
+        """Every moment's local shard copied to pinned host memory, where it
+        stays in the state until `stage_in` (`offload`); the device copy is
+        freed."""
+        for st in self.torch.state.values():
+            for k, v in st.items():
+                if k == "step" or not isinstance(v, torch.Tensor):
+                    continue
+                loc = local(v)
+                host = self._host.get((id(st), k))
+                if host is None:
+                    host = self._host[(id(st), k)] = torch.empty(
+                        loc.shape, dtype=loc.dtype, pin_memory=loc.is_cuda)
+                host.copy_(loc, non_blocking=True)
+                # a sharded moment's layout, not the moment: nothing keeps
+                # its device shard alive
+                layout = (None if loc is v else
+                          (v.device_mesh, v.placements, v.shape, v.stride()))
+                self._parked.append((st, k, layout, loc.device))
+                st[k] = host
 
     def zero_grad(self) -> None:
         self.torch.zero_grad(set_to_none=True)
@@ -206,20 +260,56 @@ class Optimizer:
                                self.clip_grad / norm)
             for p in self.params:
                 if p.grad is not None:
-                    p.grad.mul_(coef)
+                    local(p.grad).mul_(coef)
         lr = self.schedule(t)
         wd = self.wd_schedule(t) if self.wd_schedule else self.weight_decay
         for g in self.torch.param_groups:
             g["lr"] = lr * g["lr_mult"]
             g["weight_decay"] = wd if g["decay"] else 0.0
+        self.stage_in()
         self.torch.step()
+        if self.offload:
+            self.park()
+
+    def full_state_dict(self) -> dict | None:
+        """The update's state whole, in `torch.optim.AdamW`'s format (moments
+        by parameter index, on the host): the zero1 shards consolidated on
+        rank 0, the fsdp shards gathered. Every process must call; ranks
+        other than 0 of a zero1 group get None."""
+        self.stage_in()
+        try:
+            if self.zero:
+                self.torch.consolidate_state_dict(to=0)
+                if self.torch.global_rank != 0:
+                    return None
+            sd = self.torch.state_dict()
+            sd["state"] = {i: {k: full(v).cpu() if isinstance(v, torch.Tensor) else v
+                               for k, v in st.items()} for i, st in sd["state"].items()}
+            return sd
+        finally:
+            if self.offload:
+                self.park()
+
+    def load_full_state_dict(self, sd: dict) -> None:
+        """Load `full_state_dict`'s format: each moment sharded as its
+        parameter is."""
+        self.stage_in()
+        if not self.zero:
+            sd = {**sd, "state": {i: {k: like(self.params[i], v)
+                                      if isinstance(v, torch.Tensor) and k != "step" else v
+                                      for k, v in st.items()}
+                                  for i, st in sd["state"].items()}}
+        self.torch.load_state_dict(sd)
+        if self.offload:
+            self.park()
 
 
 def create_optimizer(cfg: dict, named_params: dict[str, torch.Tensor],
-                     steps_per_epoch: int) -> tuple[Optimizer, Schedule]:
+                     steps_per_epoch: int, *, zero_group=None,
+                     offload: bool = False) -> tuple[Optimizer, Schedule]:
     """AdamW over the trainable `named_params` (torch names), grouped by
     LR multiplier and weight decay as the JAX `create_optimizer` groups
-    them."""
+    them; `zero_group` and `offload` as `Optimizer` takes them."""
     t = cfg["train"]
     opt = t["opt"]
     name = opt["name"].lower().replace("fused", "")
@@ -240,12 +330,35 @@ def create_optimizer(cfg: dict, named_params: dict[str, torch.Tensor],
                     for (m, d), ps in groups.items()]
     return Optimizer(param_groups, schedule, build_wd_schedule(t, steps_per_epoch),
                      float(t["weight_decay"]), t.get("clip_grad"),
-                     opt.get("betas", [0.9, 0.999]), float(opt.get("eps", 1e-8))
-                     ), schedule
+                     opt.get("betas", [0.9, 0.999]), float(opt.get("eps", 1e-8)),
+                     zero_group=zero_group, offload=offload), schedule
+
+
+def _with_local(layout: tuple | None, loc: torch.Tensor) -> torch.Tensor:
+    """`loc` as the local shard of a DTensor of `layout` (mesh, placements,
+    shape, stride); `loc` itself where the layout is None."""
+    if layout is None:
+        return loc
+    from torch.distributed.tensor import DTensor
+
+    mesh, placements, shape, stride = layout
+    return DTensor.from_local(loc, mesh, placements, run_check=False, shape=shape,
+                              stride=stride)
 
 
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
-    """The fp32 L2 norm of every gradient together."""
-    norms = [torch.linalg.vector_norm(p.grad.float()) for p in params
-             if p.grad is not None]
-    return torch.linalg.vector_norm(torch.stack(norms))
+    """The fp32 L2 norm of every gradient together. Sharded (DTensor)
+    gradients add their shards' squares over the processes."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not any(hasattr(g, "device_mesh") for g in grads):
+        norms = [torch.linalg.vector_norm(g.float()) for g in grads]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    import torch.distributed as dist
+
+    sharded = [g for g in grads if hasattr(g, "device_mesh")]
+    sq = torch.stack([torch.linalg.vector_norm(local(g).float()) ** 2 for g in sharded]).sum()
+    dist.all_reduce(sq, group=sharded[0].device_mesh.get_group())
+    # a gradient kept whole on every process counts once
+    whole = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads
+             if not hasattr(g, "device_mesh")]
+    return torch.sqrt(sq + torch.stack(whole).sum() if whole else sq)

@@ -15,7 +15,6 @@ fails, these only where the recall's losses have no ITC heads.
 
 from __future__ import annotations
 
-import glob
 import json
 import os
 from typing import Any
@@ -23,6 +22,7 @@ from typing import Any
 import torch
 
 from exploremultimodal_torch.data.vqa_vocab import load_or_build_vqa_vocab
+from exploremultimodal_torch.parallel.partitioning import barrier, is_main
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.retrieval import evaluate_retrieval
 from exploremultimodal_torch.train.trainer import Trainer
@@ -39,15 +39,17 @@ def refuse_untrained(phase: str) -> None:
 
 
 def write_vqa_submission(trainer: Trainer) -> str | None:
-    """finetune_vqa's test-split answers, as JAX's `write_vqa_submission`
-    at one process: the argmax answer of each test question under the
-    task's own parameters (a deterministic forward), through the
-    `vqa_dict.json` vocabulary, to `<output_dir>/submit/vqa_submit_0.json`,
-    then every `vqa_submit_*.json` there merged into `vqa_submit.json`,
-    whose path is returned (None where the test split is empty). The
-    question id is the batch's `qid`, which the VQA arrow tables give; the
-    synthetic samples carry none, and their index stands in for it (JAX's
-    raises there, and its phase skips the submission with a warning)."""
+    """finetune_vqa's test-split answers, as JAX's `write_vqa_submission`:
+    the argmax answer of each test question under the task's own
+    parameters (a deterministic forward), through the `vqa_dict.json`
+    vocabulary, each process's stride of the split to
+    `<output_dir>/submit/vqa_submit_<rank>.json`; after a barrier rank 0
+    merges the parts in rank order into `vqa_submit.json`, whose path it
+    returns (the other ranks their part's; None where the test split is
+    empty). The question id is the batch's `qid`, which the VQA arrow
+    tables give; the synthetic samples carry none, and their index stands
+    in for it (JAX's raises there, and its phase skips the submission with
+    a warning)."""
     loader = trainer.data.test_loader()
     if len(loader) == 0:
         trainer.logger.info("no VQA test split available; skipping submission")
@@ -64,11 +66,16 @@ def write_vqa_submission(trainer: Trainer) -> str | None:
                for q, p in zip(qids, preds)]
     out_dir = os.path.join(trainer.output_dir, "submit")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "vqa_submit_0.json"), "w") as f:
+    rt = trainer.runtime
+    part = os.path.join(out_dir, f"vqa_submit_{rt.rank}.json")
+    with open(part, "w") as f:
         json.dump(results, f)
+    barrier()
+    if not is_main():
+        return part
     merged = []
-    for part in sorted(glob.glob(os.path.join(out_dir, "vqa_submit_*.json"))):
-        with open(part) as f:
+    for r in range(rt.world):
+        with open(os.path.join(out_dir, f"vqa_submit_{r}.json")) as f:
             merged += json.load(f)
     final = os.path.join(out_dir, "vqa_submit.json")
     with open(final, "w") as f:

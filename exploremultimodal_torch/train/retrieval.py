@@ -24,10 +24,11 @@ def encode_split(task, loader: ShardedLoader, device: torch.device) -> tuple[np.
     for batch in loader.epoch(0):
         b = to_device({k: batch[k] for k in ("image_u8", "text_ids", "text_mask")}, device)
         b["image"] = normalize_image(b.pop("image_u8"))
-        img = task.infer(b, infer_mode="img_only")["co_feats"][:, 0]
-        txt = task.infer(b, infer_mode="txt_only")["co_feats"][:, 0]
-        i_all.append(task.itc_project(img, "v").float().cpu().numpy())
-        t_all.append(task.itc_project(txt, "l").float().cpu().numpy())
+        # the single-modality streams' projected CLS features, through the
+        # task's `__call__` (a sharded task gathers its parameters there)
+        feats = task(b, method="itc_momentum_feats")
+        i_all.append(feats["i_feat_m"].float().cpu().numpy())
+        t_all.append(feats["t_feat_m"].float().cpu().numpy())
     return np.concatenate(i_all), np.concatenate(t_all)
 
 

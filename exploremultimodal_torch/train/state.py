@@ -21,7 +21,12 @@ key on) stay put.
 JAX folds one key with the step; the port keeps two generators instead: one
 on the compute device for hidden dropout, DropPath, the ITM negatives and
 the queues' initial draw, and one on the host that draws each step's
-attention-dropout seeds.
+attention-dropout seeds. On more than one process (`rank` of `world`) the
+host generator and the queues' draw are the same on every process, and
+the device generator is re-seeded with seed + rank after the queues.
+
+Under fsdp the EMA trees are sharded as the task is (`wrap_task`), and
+`ema_update` works on each process's shards.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch import nn
 
 from exploremultimodal_torch.models.heads import ISDAState
 from exploremultimodal_torch.ops.stochastic import StepRng
+from exploremultimodal_torch.parallel.partitioning import local
 from exploremultimodal_torch.train.optim import Optimizer
 
 
@@ -41,7 +47,7 @@ from exploremultimodal_torch.train.optim import Optimizer
 class TrainState:
     step: int
     task: nn.Module
-    optimizer: Optimizer
+    optimizer: Optimizer | None
     generator: torch.Generator
     seed_generator: torch.Generator
     isda: ISDAState | None = None
@@ -52,11 +58,14 @@ class TrainState:
     img_queue: torch.Tensor | None = None
     txt_queue: torch.Tensor | None = None
     queue_ptr: int = 0
+    rank: int = 0
+    world: int = 1
 
     def step_rng(self) -> StepRng:
         """The random streams of the next step (or microbatch)."""
-        dev = next(self.task.parameters()).device
-        return StepRng(self.generator, self.seed_generator, dev)
+        dev = local(next(self.task.parameters())).device
+        return StepRng(self.generator, self.seed_generator, dev, rank=self.rank,
+                       world=self.world)
 
 
 def ema_copy(task: nn.Module) -> nn.Module:
@@ -64,18 +73,22 @@ def ema_copy(task: nn.Module) -> nn.Module:
     return copy.deepcopy(task).requires_grad_(False)
 
 
-def create_train_state(task: nn.Module, optimizer: Optimizer, seed: int,
+def create_train_state(task: nn.Module, optimizer: Optimizer | None, seed: int,
                        isda_classes: int = 0, isda_dim: int = 0, *,
                        ema_decay: float | None = None,
                        model_ema_decay: float | None = None,
-                       queue_size: int = 0, itc_dim: int = 256) -> TrainState:
+                       queue_size: int = 0, itc_dim: int = 256,
+                       rank: int = 0, world: int = 1) -> TrainState:
     """Step 0, with both generators seeded from `seed` (the JAX state's
     rng is key(cfg.seed + 7); the trainer passes the same number), and zero
     ISDA statistics of `isda_classes` x `isda_dim` on the device where
     `isda_classes` is set. A decay given builds its EMA tree as a copy of
     the task's current parameters; `queue_size` > 0 builds the two queues
     from standard normals on the state's generator (the image queue
-    first), each column L2-normalised, and the pointer at 0."""
+    first), each column L2-normalised, and the pointer at 0. Process
+    `rank` > 0 of `world` then re-seeds the device generator with seed +
+    rank. `optimizer` may be set later (the presets shard the task
+    first)."""
     dev = next(task.parameters()).device
     generator = torch.Generator(device=dev).manual_seed(seed)
     img_q = txt_q = None
@@ -84,7 +97,9 @@ def create_train_state(task: nn.Module, optimizer: Optimizer, seed: int,
                         for _ in range(2))
         img_q, txt_q = (q / torch.linalg.vector_norm(q, dim=0, keepdim=True)
                         for q in (img_q, txt_q))
-    return TrainState(
+    if rank:
+        generator.manual_seed(seed + rank)
+    return TrainState(rank=rank, world=world,
         step=0, task=task, optimizer=optimizer, generator=generator,
         seed_generator=torch.Generator().manual_seed(seed),
         isda=ISDAState.create(isda_classes, isda_dim, dev) if isda_classes else None,
@@ -100,8 +115,8 @@ def ema_update(ema: nn.Module, task: nn.Module, decay: float) -> None:
     """timm's ModelEmaV2 update in place, `e * decay + p * (1 - decay)` over
     every parameter of `task` (the trainable and the frozen, as JAX's over
     its whole `params` tree); buffers are copied."""
-    e = list(ema.parameters())
-    p = [x.detach() for x in task.parameters()]
+    e = [local(x) for x in ema.parameters()]
+    p = [local(x.detach()) for x in task.parameters()]
     if len(e) != len(p):
         raise ValueError(f"EMA tree of {len(e)} tensors for a task of {len(p)}")
     torch._foreach_mul_(e, decay)
@@ -113,9 +128,11 @@ def ema_update(ema: nn.Module, task: nn.Module, decay: float) -> None:
 @torch.no_grad()
 def queue_update(img_queue: torch.Tensor, txt_queue: torch.Tensor, ptr: int,
                  i_feat: torch.Tensor, t_feat: torch.Tensor) -> int:
-    """dequeue_and_enqueue at one process: the rows of `i_feat` / `t_feat`
-    (B, itc_dim) written in place as the queues' columns from `ptr` on,
-    wrapping around; returns the pointer advanced by B."""
+    """dequeue_and_enqueue: the rows of `i_feat` / `t_feat` (B, itc_dim)
+    written in place as the queues' columns from `ptr` on, wrapping around;
+    returns the pointer advanced by B. On more than one process the trainer
+    hands in every process's rows in rank order (`concat_all_gather`, as
+    JAX's gathers them here), so every process's queues stay the same."""
     q_size, n = img_queue.shape[1], i_feat.shape[0]
     idx = (ptr + torch.arange(n, device=img_queue.device)) % q_size
     img_queue[:, idx] = i_feat.T.to(img_queue.dtype)

@@ -40,6 +40,27 @@ per epoch, so the loop adds no sync to a step.
 Parameters and optimizer state are fp32; activations run in
 `compute_dtype`, as in the JAX trainer. The entry point runs on CUDA unless
 the caller passes device="cpu".
+
+On more than one process (`parallel/mesh.py`: `runtime.coordinator_address`
+or torchrun) each process takes `data.batch_size` rows of every batch (its
+stride of the loader's order), the task and optimizer are wrapped by the
+`parallel` preset (`parallel/partitioning.py`: DDP, ZeRO-1, FSDP2, FSDP2
+with the moments offloaded), and the losses follow JAX's step
+(`objectives/losses.py`): with `train.global_reduce` false, or where the
+data axis has one process, the whole batch's losses on every process
+(their backward scaled by the process count, since the presets average
+the gradients); with it true on a data axis of more than one, each
+process's own losses, averaged over the processes with the gradients
+(JAX's `shard_map` path: refused under fsdp and with ISDA, as JAX refuses
+them). Under accumulation, process r's microbatch i is rows [i B/A, (i+1)
+B/A) of its own B rows, and the processes' microbatches i together form
+the step's i-th global microbatch; JAX's scan takes global rows [i B_g/A,
+(i+1) B_g/A) instead, so the two agree at one process or at A = 1. The
+gradient norm is the global gradient's (sharded gradients add their
+squares over the processes), the momentum features and the queues cover
+every process's rows in rank order, and the epoch's meters sum over the
+processes. Rank 0 alone writes the logs, `log_stats.json` and the
+checkpoints.
 """
 
 from __future__ import annotations
@@ -52,6 +73,7 @@ from typing import Any, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from exploremultimodal_torch.config import VlmoConfig
@@ -65,6 +87,17 @@ from exploremultimodal_torch.models.task import (
     total_loss,
 )
 from exploremultimodal_torch.ops.preprocess import preprocess_batch
+from exploremultimodal_torch.parallel import DataAxis, create_mesh, initialize_runtime
+from exploremultimodal_torch.parallel.collectives import concat_all_gather
+from exploremultimodal_torch.parallel.partitioning import (
+    is_main,
+    offloads,
+    preset_name,
+    set_gradient_sync,
+    sync_whole_grads,
+    wrap_task,
+    zero_group,
+)
 from exploremultimodal_torch.train.optim import (
     create_optimizer,
     flax_path,
@@ -81,6 +114,7 @@ from exploremultimodal_torch.train.state import (
 from exploremultimodal_torch.utils import MetricLogger, create_logger
 from exploremultimodal_torch.utils.experiment_log import ExperimentLogger
 from exploremultimodal_torch.utils.metrics import read_floats
+from exploremultimodal_torch.utils import timing
 from exploremultimodal_torch.utils.profiling import check_finite_and_dump, trace
 
 METRIC_KEYS = ("_task_loss", "_Loss", "_mean_acc", "_mean_score", "itc_temp",
@@ -113,6 +147,16 @@ def _refuse_unported(cfg: dict) -> None:
 log = logging.getLogger(__name__)
 
 
+def _process_means(metrics: dict[str, torch.Tensor], axis: DataAxis) -> dict:
+    """JAX's `shard_map` path: each process's metrics averaged over the
+    processes, its `*_dropped_positions` counts summed (one all-reduce)."""
+    names = list(metrics)
+    out = torch.stack([metrics[k].float().reshape(()) for k in names])
+    dist.all_reduce(out, group=axis.group)
+    return {k: v if k.endswith("_dropped_positions") else v / axis.size
+            for k, v in zip(names, out.unbind())}
+
+
 def dvae_type(train_cfg: dict) -> str:
     """`train.discrete_vae_type` as the JAX trainer resolves it
     (`Trainer._dvae_type`): 'dall-e' without an `encoder.pkl` under
@@ -140,13 +184,33 @@ class Trainer:
     def __init__(self, cfg: dict, device: str | torch.device = "cuda", logger=None):
         _refuse_unported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        resolve_device(device)
+        # the process group (where one is configured) and this process's
+        # device: cuda:<local rank> on CUDA
+        self.runtime = rt = initialize_runtime(cfg, device)
+        self.device = rt.device
+        self.mesh = create_mesh(cfg, rt)
+        self.preset = preset_name(cfg)
         self.output_dir = (cfg.get("run_dir") or cfg.get("exp_dir")
                            or cfg.get("output_dir", "output"))
         self.exp_dir = cfg.get("exp_dir") or self.output_dir
-        self.logger = logger or create_logger(level=cfg.get("log_level", "info"))
+        self.logger = logger or create_logger(level=cfg.get("log_level", "info"),
+                                              rank=rt.rank)
         self.exp_logger: ExperimentLogger | None = None
         self.config = c = VlmoConfig.from_config(cfg)
+        # JAX's shard_map path (each process's own losses): global_reduce
+        # on a data axis of more than one process
+        use_gather = c.global_reduce and self.mesh.shape["data"] > 1
+        if use_gather and self.preset in ("fsdp", "tp"):
+            raise ValueError(
+                "train.global_reduce=true needs params replicated over the data axis "
+                f"(dp/zero1 presets); with parallel={self.preset} leave it false — the "
+                "whole batch's losses already give global-batch ITC")
+        if use_gather and c.isda_lambda:
+            raise ValueError("global_reduce + ISDA are unsupported together (the "
+                             "reference uses them in disjoint phases)")
+        self.axis = (DataAxis(dist.group.WORLD, rt.rank, rt.world, not use_gather)
+                     if rt.world > 1 else None)
         task = VlmoTask(c)
         task.init_weights(torch.Generator().manual_seed(int(cfg["seed"])))
         # fp32 master weights; the Linears cast to the compute dtype at use
@@ -160,7 +224,7 @@ class Trainer:
                 quantize=t.get("discrete_vae_quantize") or "none", device=self.device,
                 weight_path=t.get("discrete_vae_weight_path", ""))
 
-        self.data = MultiTaskData(cfg)
+        self.data = MultiTaskData(cfg, process_index=rt.rank, process_count=rt.world)
         if len(self.data.datasets["train"]) == 0:
             d = cfg["data"]
             raise FileNotFoundError(
@@ -173,14 +237,9 @@ class Trainer:
         self.steps_per_epoch = max(len(self.loader), 1)
         frozen = phase_frozen_predicate(tuple(t["loss_names"]), t.get("phase"),
                                         t.get("mim_head_pos", "img"))
-        trainable = {}
         for name, p in self.task.named_parameters():
             if frozen is not None and frozen(flax_path(name)):
                 p.requires_grad_(False)
-            else:
-                trainable[name] = p
-        optimizer, self.schedule = create_optimizer(cfg, trainable,
-                                                    self.steps_per_epoch)
         self.accum = int(t.get("accumulation_steps", 1))
         if self.accum < 1:
             raise ValueError(f"train.accumulation_steps={self.accum}")
@@ -188,14 +247,26 @@ class Trainer:
         # (vlmo_ema) and the checkpointed eval EMA (model_ema); the queues
         # are built under neg_queue whether or not the momentum branch runs
         self.state: TrainState = create_train_state(
-            self.task, optimizer, int(cfg["seed"]) + 7,
+            self.task, None, int(cfg["seed"]) + 7,
             isda_classes=c.vqa_label_size if c.isda_lambda > 0 else 0,
             isda_dim=2 * c.embed_dim,
             ema_decay=cfg.get("vlmo_ema_decay", 0.995) if cfg.get("vlmo_ema") else None,
             model_ema_decay=(cfg.get("model_ema_decay", 0.9999) if cfg.get("model_ema")
                              else None),
             queue_size=int(t.get("queue_size", 0)) if t.get("neg_queue") else 0,
-            itc_dim=c.itc_dim)
+            itc_dim=c.itc_dim, rank=rt.rank, world=rt.world)
+        # the preset: `model` is what the training forward calls (DDP's
+        # wrapper, or the task sharded with its EMA trees); the optimizer
+        # takes the parameters as the preset left them
+        st = self.state
+        self.model = wrap_task(self.task, [tree for tree in (st.ema_task, st.model_ema_task)
+                                           if tree is not None], cfg, self.mesh, rt)
+        trainable = {n: p for n, p in self.task.named_parameters() if p.requires_grad}
+        st.optimizer, self.schedule = create_optimizer(
+            cfg, trainable, self.steps_per_epoch,
+            zero_group=(zero_group(self.mesh) if rt.distributed and self.preset == "zero1"
+                        else None),
+            offload=offloads(cfg, self.device))
         self._batches: Iterator[dict] | None = None
 
     # ------------------------------------------------------------------ data
@@ -234,7 +305,10 @@ class Trainer:
         if st.ema_task is None:
             return None, None
         with torch.no_grad():
-            feats = st.ema_task.itc_momentum_feats(mb)
+            feats = st.ema_task(mb, method="itc_momentum_feats")
+            if self.axis is not None:
+                # every process's rows, in rank order (JAX's global batch)
+                feats = {k: concat_all_gather(v, self.axis.group) for k, v in feats.items()}
         queue = None if st.img_queue is None else {"img": st.img_queue,
                                                    "txt": st.txt_queue}
         return feats, queue
@@ -267,23 +341,35 @@ class Trainer:
         size = rows // accum
         sums: dict[str, torch.Tensor] = {}
         isda = st.isda
+        axis = self.axis
+        # the whole batch's loss is each process's: the presets average the
+        # processes' gradients, so its backward is scaled by their count
+        scale = axis.size if axis is not None and axis.global_batch else 1
+        # the momentum features cover every process's rows in rank order
+        first = (axis.rank * rows if axis is not None and axis.global_batch
+                 and momentum_feats is not None else 0)
         for i in range(accum):
-            with record_function("step/forward"):
-                micro = {k: v[i * size:(i + 1) * size] if _rows(v) == rows else v
-                         for k, v in mb.items()}
-                outputs = self.task(micro, rng=st.step_rng(), negatives=negatives,
-                                    isda_state=isda, isda_ratio=isda_ratio,
-                                    momentum_feats=momentum_feats, queue=queue,
-                                    pos_offset=i * size)
-                loss = total_loss(outputs, flat=flat)
-            with record_function("step/backward"):
-                (loss / accum).backward()
+            with set_gradient_sync(self.model, i == accum - 1):
+                with record_function("step/forward"):
+                    micro = {k: v[i * size:(i + 1) * size] if _rows(v) == rows else v
+                             for k, v in mb.items()}
+                    outputs = self.model(micro, rng=st.step_rng(), negatives=negatives,
+                                         isda_state=isda, isda_ratio=isda_ratio,
+                                         momentum_feats=momentum_feats, queue=queue,
+                                         pos_offset=first + i * size, axis=axis)
+                    loss = total_loss(outputs, flat=flat)
+                with record_function("step/backward"):
+                    (loss * scale / accum).backward()
             isda = outputs.get("isda_state", isda)
             for k, v in {**_metrics_from_outputs(outputs),
                          "total_loss": loss.detach()}.items():
                 sums[k] = v if k not in sums else sums[k] + v
         with record_function("step/optimizer"):
+            if self.preset == "fsdp" and self.runtime.distributed:
+                sync_whole_grads(st.optimizer.params)
             metrics = {k: v / accum for k, v in sums.items()}
+            if axis is not None and not axis.global_batch:
+                metrics = _process_means(metrics, axis)
             metrics["grad_norm"] = global_norm(st.optimizer.params)
             metrics["lr"] = torch.tensor(self.schedule(st.step))
             st.optimizer.step(st.step)
@@ -293,6 +379,7 @@ class Trainer:
             if st.model_ema_task is not None:
                 ema_update(st.model_ema_task, self.task, st.model_ema_decay)
             if st.img_queue is not None and momentum_feats is not None:
+                # already every process's rows (`momentum_branch`)
                 st.queue_ptr = queue_update(st.img_queue, st.txt_queue, st.queue_ptr,
                                             momentum_feats["i_feat_m"],
                                             momentum_feats["t_feat_m"])
@@ -330,7 +417,7 @@ class Trainer:
             if restored is not None:
                 _, start_epoch = restored
                 times["load_s"] = time.perf_counter() - t0
-        self.exp_logger = ExperimentLogger(cfg, self.output_dir)
+        self.exp_logger = ExperimentLogger(cfg, self.output_dir, enable=is_main())
 
         best_metric = None
         minimize = cfg.get("minimize_metric") or "total_loss"
@@ -352,14 +439,16 @@ class Trainer:
                                      is_best=is_best, scan_root=self.exp_dir,
                                      logger=self.logger)
                 times["save_s"].append(time.perf_counter() - t2)
-                times["checkpoint_bytes"] = os.path.getsize(
-                    os.path.join(path, ckpt_lib.STATE_FILE))
+                if is_main():
+                    times["checkpoint_bytes"] = os.path.getsize(
+                        os.path.join(path, ckpt_lib.STATE_FILE))
             stats = {"epoch": epoch, **epoch_stats,
                      **{f"val_{k}": v for k, v in val_stats.items()}}
             history.append(stats)
-            with open(os.path.join(self.output_dir, "log_stats.json"), "a") as f:
-                f.write(json.dumps({k: float(v) if isinstance(v, (int, float)) else v
-                                    for k, v in stats.items()}) + "\n")
+            if is_main():
+                with open(os.path.join(self.output_dir, "log_stats.json"), "a") as f:
+                    f.write(json.dumps({k: float(v) if isinstance(v, (int, float)) else v
+                                        for k, v in stats.items()}) + "\n")
         if cfg.get("wandb", {}).get("alert", False):
             self.exp_logger.alert(
                 f"{t['phase']} end", f"best {minimize} {best_metric} after "
@@ -419,8 +508,10 @@ class Trainer:
         ITC) on `eval_task()`, as JAX's eval step: (metrics, counts, extra),
         0-d device tensors, the counts those of the `*_count` outputs,
         `extra` the VQA and NLVR2 logits where the losses give them. ITM
-        draws its negatives on `generator`."""
-        outputs = self.eval_task()(self.model_batch(batch), generator=generator)
+        draws its negatives on `generator`. On more than one process, the
+        whole batch's metrics (the step's `DataAxis`)."""
+        outputs = self.eval_task()(self.model_batch(batch), generator=generator,
+                                   axis=self.axis)
         metrics = _metrics_from_outputs(outputs)
         metrics["total_loss"] = total_loss(outputs)
         counts = {k: v for k, v in outputs.items() if k.endswith("_count")
@@ -435,9 +526,11 @@ class Trainer:
         KeyError without one), every
         other metric by 1. Where a batch carries NLVR2's `table_name`s, the
         accuracy of the rows whose table is a `dev` or a `test` one, as
-        `nlvr2_dev_acc` / `nlvr2_test_acc`, weighed by those rows. The
-        device values are read once, at the end (the NLVR2 logits of such a
-        batch when it is evaluated)."""
+        `nlvr2_dev_acc` / `nlvr2_test_acc`, weighed by those rows (every
+        process's, summed over the processes). The device values are read
+        once, at the end (the NLVR2 logits of such a batch when it is
+        evaluated). On more than one process each evaluates its stride of
+        the split."""
         loader = self.val_loader if loader is None else loader
         generator = torch.Generator(device=self.device).manual_seed(0)
         terms: list[tuple[str, torch.Tensor | float, Any]] = []
@@ -466,37 +559,40 @@ class Trainer:
         for (k, _, _), value, weight in zip(terms, values, values[len(terms):]):
             sums[k] = sums.get(k, 0.0) + value * weight
             weights[k] = weights.get(k, 0.0) + weight
+        if self.axis is not None:
+            # the NLVR2 buckets hold this process's rows alone
+            buckets = ("nlvr2_dev_acc", "nlvr2_test_acc")
+            both = torch.tensor([sums.get(k, 0.0) for k in buckets]
+                                + [weights.get(k, 0.0) for k in buckets],
+                                dtype=torch.float64, device=self.device)
+            dist.all_reduce(both, group=self.axis.group)
+            for j, k in enumerate(buckets):
+                sums.pop(k, None), weights.pop(k, None)
+                if both[2 + j] > 0:
+                    sums[k], weights[k] = float(both[j]), float(both[2 + j])
         return {k: sums[k] / max(weights[k], 1e-9) for k in sums}
 
     # ------------------------------------------------------- throughput mode
 
     def throughput(self) -> float:
-        """Samples per second of the whole training step on one batch: after
-        `throughput_warmup` steps, `throughput_iters` steps timed in 4
-        chunks (JAX's 20 and 200 where the config leaves them out), with the
-        device synchronised before each clock read; logs the mean and spread
-        of the chunks and returns the mean."""
+        """Samples per second of the whole training step on one batch (every
+        process's rows): after `throughput_warmup` steps, `throughput_iters`
+        steps timed in 4 chunks (JAX's 20 and 200 where the config leaves
+        them out), each fenced by `utils.timing` (a host read of the step's
+        loss); logs the mean and spread of the chunks and returns the
+        mean."""
         n_warmup = int(self.cfg.get("throughput_warmup", 20))
         n_iters = int(self.cfg.get("throughput_iters", 200))
         batch = next(self.loader.epoch(0))
 
-        def sync() -> None:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        def step():
+            return self.step(batch)
 
-        for _ in range(n_warmup):
-            self.step(batch)
-        sync()
-        bs = self.cfg["data"]["batch_size"]
+        timing.timeit(step, n_warmup, 0)
+        bs = self.cfg["data"]["batch_size"] * self.runtime.world
         n_chunks = 4
         per_chunk = max(n_iters // n_chunks, 1)
-        chunk_sps = []
-        for _ in range(n_chunks):
-            t0 = time.perf_counter()
-            for _ in range(per_chunk):
-                self.step(batch)
-            sync()
-            chunk_sps.append(per_chunk * bs / (time.perf_counter() - t0))
+        chunk_sps = [bs / timing.timeit(step, 0, per_chunk) for _ in range(n_chunks)]
         sps, std = float(np.mean(chunk_sps)), float(np.std(chunk_sps))
         self.logger.info(
             f"throughput: {sps:.1f} ± {std:.1f} samples/s ({bs / sps * 1000:.1f} "

@@ -4,7 +4,8 @@
 With `wandb.enable` set, `wandb` is imported where it is installed (its
 files under the output dir); its absence or failure never fails the run.
 Otherwise metrics go to `<output_dir>/metrics.jsonl`, alerts to
-`alerts.jsonl` and the min/max summary to `summary.json`.
+`alerts.jsonl` and the min/max summary to `summary.json`. With `enable`
+false (every process of a group but rank 0) it writes nothing.
 """
 
 from __future__ import annotations
@@ -24,12 +25,15 @@ def _summary_mode(key: str) -> str | None:
 
 
 class ExperimentLogger:
-    def __init__(self, cfg: dict, output_dir: str | None = None):
+    def __init__(self, cfg: dict, output_dir: str | None = None, enable: bool = True):
+        self.enable = enable
         self.output_dir = output_dir or "."
         self.step = 0
         self._summary: dict[str, float] = {}
         self._wandb = None
         self._path = os.path.join(self.output_dir, "metrics.jsonl")
+        if not enable:
+            return
         os.makedirs(self.output_dir, exist_ok=True)
         w = cfg.get("wandb") or {}
         if not w.get("enable"):
@@ -45,6 +49,8 @@ class ExperimentLogger:
             self._wandb = None
 
     def log(self, head: str = "train", step: int | None = None, **metrics: float) -> None:
+        if not self.enable:
+            return
         if step is None:
             step, self.step = self.step, self.step + 1
         record: dict[str, Any] = {"_step": step, "_time": time.time()}
@@ -70,6 +76,8 @@ class ExperimentLogger:
     def alert(self, title: str, text: str) -> None:
         """An end-of-phase or anomaly alert; without a wandb client it is
         appended to `<output_dir>/alerts.jsonl`."""
+        if not self.enable:
+            return
         if self._wandb is not None:
             try:
                 import wandb
@@ -84,6 +92,8 @@ class ExperimentLogger:
                                 "text": text}) + "\n")
 
     def finish(self) -> None:
+        if not self.enable:
+            return
         if self._wandb is not None:
             self._wandb.finish()
         else:

@@ -17,6 +17,7 @@ from typing import Iterable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def read_floats(values: list) -> list[float]:
@@ -64,9 +65,15 @@ class SmoothedValue:
         return values
 
     def synchronize_between_processes(self) -> None:
-        """One process has nothing to sum with (multi-process training is
-        not ported yet)."""
+        """The count and the total summed over the processes of the group
+        (nothing to sum with at one process), as JAX's meter does."""
         self._flush()
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            dev = (torch.device("cuda", torch.cuda.current_device())
+                   if dist.get_backend() == "nccl" else torch.device("cpu"))
+            summed = torch.tensor([self.count, self.total], dtype=torch.float64, device=dev)
+            dist.all_reduce(summed)
+            self.count, self.total = int(summed[0].item()), float(summed[1].item())
 
     @property
     def median(self) -> float:

@@ -1,0 +1,158 @@
+"""One rank of the port's two-process CPU test (tests/test_torch_port_parallel.py).
+
+    python tests/_torch_parallel_child.py <port> <rank> <world> <workdir>
+
+Starts a gloo group through `runtime.coordinator_address`, reads the
+parent's inputs from `<workdir>/in.pt` (the global batch, the ITM
+negatives, the weights, the configs of the cases) and, before the first
+case that needs JAX's weights, `<workdir>/in_jax.pt`, which the parent
+writes while the ranks run; runs every case on its share of the batch,
+and writes what each gave to `<workdir>/out_<rank>.pt`.
+Imports torch and the port only.
+"""
+
+import os
+import sys
+import time
+import traceback
+
+import torch
+import torch.distributed as dist
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from exploremultimodal_torch.config import load_config  # noqa: E402
+from exploremultimodal_torch.parallel import (  # noqa: E402
+    all_gather_with_grad,
+    concat_all_gather,
+    global_sum,
+    initialize_runtime,
+)
+from exploremultimodal_torch.train import checkpoints as ckpt_lib  # noqa: E402
+from exploremultimodal_torch.train.trainer import Trainer  # noqa: E402
+from exploremultimodal_torch.utils.metrics import SmoothedValue  # noqa: E402
+
+
+def rows_of(batch: dict, lo: int, hi: int) -> dict:
+    return {k: v[lo:hi] for k, v in batch.items()}
+
+
+def collectives(rank: int, world: int) -> dict:
+    out = {}
+    group = dist.group.WORLD
+    x = torch.arange(8, dtype=torch.float32).reshape(4, 2) + 100 * rank
+    out["gather"] = all_gather_with_grad(x, group, roll_local_first=False)
+    out["rolled"] = all_gather_with_grad(x, group, roll_local_first=True)
+    out["const"] = concat_all_gather(x, group)
+    # the gradient of one global loss over the gathered rows, each rank
+    # holding its rows (the parent holds it against dense autodiff)
+    g = torch.Generator().manual_seed(0)
+    full = torch.randn(4 * world, 3, generator=g)
+    w = torch.randn(4 * world, 3, generator=g)
+    mine = full[4 * rank:4 * (rank + 1)].clone().requires_grad_()
+    loss = global_sum((torch.tanh(all_gather_with_grad(mine, group, False)) * w).sum()
+                      / world, group)
+    loss.backward()
+    out["vjp"] = mine.grad
+    mine2 = full[4 * rank:4 * (rank + 1)].clone().requires_grad_()
+    concat_all_gather(mine2, group).sum()
+    out["const_requires_grad"] = torch.tensor(concat_all_gather(mine2, group).requires_grad)
+    v = SmoothedValue()
+    for value in range(rank, rank + 3):
+        v.update(torch.tensor(float(value)), n=rank + 1)
+    v.synchronize_between_processes()
+    out["meter"] = torch.tensor([v.count, v.total], dtype=torch.float64)
+    return out
+
+
+def step_case(case: dict, inputs: dict, rank: int, world: int) -> dict:
+    cfg = load_config(case["overrides"])
+    tr = Trainer(cfg, device="cpu")
+    if case.get("park"):
+        # fsdp_offload parks the moments only on CUDA; here too, to run it
+        tr.state.optimizer.offload = True
+    if case["weights"] is not None:
+        ckpt_lib.load_model_state_dict(tr.task, inputs["weights"][case["weights"]])
+        if tr.state.ema_task is not None:
+            ckpt_lib.load_model_state_dict(tr.state.ema_task,
+                                           inputs["weights"][case["weights"]])
+    per = inputs["batch_rows"] // world
+    batch = (None if case["batch"] is None else
+             rows_of(inputs["batches"][case["batch"]], rank * per, (rank + 1) * per))
+    negatives = None
+    if case.get("negatives"):
+        negatives = tuple(n[rank * per:(rank + 1) * per] for n in inputs["negatives"])
+    out = {}
+    for i in range(case.get("steps", 1)):
+        m = tr.step(batch, negatives=negatives)
+        out[f"metrics_{i}"] = {k: v.detach().clone() for k, v in m.items()}
+    if case["params"]:
+        full = ckpt_lib.model_state_dict(tr.task)
+        out["params"] = {k: full[k] for k in case["params"]} if rank == 0 else {}
+    if tr.state.img_queue is not None:
+        out["queue"] = tr.state.img_queue.clone()
+        out["queue_ptr"] = torch.tensor(tr.state.queue_ptr)
+    if case.get("save"):
+        path = ckpt_lib.save(case["save"], tr.state, cfg, 0)
+        out["saved"] = path
+    if case.get("load"):
+        restored = ckpt_lib.auto_load(case["load"], tr.state, cfg)
+        full = ckpt_lib.model_state_dict(tr.task)
+        out["loaded_epoch"] = torch.tensor(restored[1])
+        out["loaded"] = {k: full[k] for k in case["params"]} if rank == 0 else {}
+        out["loaded_step"] = torch.tensor(tr.state.step)
+        sd = tr.state.optimizer.full_state_dict()
+        if rank == 0:
+            out["loaded_moments"] = sd["state"][0]["exp_avg"]
+    if case.get("submit"):
+        from exploremultimodal_torch.train.phases import write_vqa_submission
+
+        tr.output_dir = case["submit"]
+        out["submission"] = write_vqa_submission(tr)
+    return out
+
+
+def wait_for(path: str, timeout: float = 180.0) -> dict:
+    """The parent's second file (JAX's weights), once it is there."""
+    end = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > end:
+            raise TimeoutError(path)
+        time.sleep(0.05)
+    return {**torch.load(path, weights_only=False), "jax": True}
+
+
+def main() -> int:
+    port, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+    inputs = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
+    results = {}
+    base = [f"runtime.coordinator_address=localhost:{port}", f"runtime.num_processes={world}",
+            f"runtime.process_id={rank}"]
+    try:
+        initialize_runtime(load_config(base), "cpu")
+        for name, case in inputs["cases"].items():
+            if case.get("jax") and "jax" not in inputs:
+                inputs.update(wait_for(os.path.join(workdir, "in_jax.pt")))
+            case = {**case, "overrides": case["overrides"] + base}
+            if case.get("raises"):
+                try:
+                    Trainer(load_config(case["overrides"]), device="cpu")
+                    results[name] = {"raised": None}
+                except ValueError as e:
+                    results[name] = {"raised": str(e)}
+                continue
+            results[name] = step_case(case, inputs, rank, world)
+        results["collectives"] = collectives(rank, world)
+    except Exception:
+        traceback.print_exc()
+        return 1
+    finally:
+        torch.save(results, os.path.join(workdir, f"out_{rank}.pt"))
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,6 +17,7 @@ type checks by which the wrappers refuse what their kernels do not take.
 """
 
 import ctypes
+import math
 import struct
 import types
 
@@ -310,9 +311,9 @@ def test_long_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     for maps in seen:
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v)]
-    # bias, no seed, out, no lse, (bh, heads, n, tiles, CTAs)
-    assert launches[-1][1] is None and launches[-1][3] is None
-    assert launches[-1][4:9] == (6, 3, 300, 3, 18)
+    # bias, no seed, no row index, out, no lse, (bh, heads, n, tiles, CTAs)
+    assert launches[-1][1] is None and launches[-1][2] is None and launches[-1][4] is None
+    assert launches[-1][5:10] == (6, 3, 300, 3, 18)
     assert len(fa._MAPS) <= cap
 
 
@@ -453,11 +454,11 @@ def test_row1_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     for maps in seen:
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v)]
-    # bias, a null seed, out, lse, then bh, heads, n, the key width and
-    # the grid, the scale and no dropout (threshold 0, factor 1)
-    assert launches[-1][1] is None
-    assert launches[-1][4:9] == (24, 12, 237, 240, 24)
-    assert launches[-1][9:12] == (0.125, 0, 1.0)
+    # bias, a null seed and row index, out, lse, then bh, heads, n, the key
+    # width and the grid, the scale and no dropout (threshold 0, factor 1)
+    assert launches[-1][1] is None and launches[-1][2] is None
+    assert launches[-1][5:10] == (24, 12, 237, 240, 24)
+    assert launches[-1][10:13] == (0.125, 0, 1.0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1079,8 +1080,8 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     """Five maps per launch (q, k, v, o, do): each one the kernel receives
     is the one encoded for its tensor, even where the cache empties itself
     between two lookups; then the bias, seed, lse, delta, dq, dk, dv
-    pointers, (bh, heads, n, key width, grid, tiles per unit), the scale
-    and the dropout threshold and factor."""
+    pointers (a null row index), (bh, heads, n, key width, grid, tiles per
+    unit), the scale and the dropout threshold and factor."""
     calls, seen, launches = [], [], []
 
     def kernel(*args):
@@ -1092,7 +1093,7 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert name == "flash_attention_bwd_sm90"
         if symbol == "flash_attention_bwd_sm90_encode":
             return _fake_encoder(calls)
-        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 22
+        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 23
         return kernel
 
     monkeypatch.setattr(fa._build, "load", fake_load)
@@ -1108,9 +1109,10 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v, o, do)]
     rest = launches[-1]
-    assert rest[0] == kb.data_ptr() and rest[1] == seed.data_ptr() and rest[2] == lse.data_ptr()
-    assert rest[7:13] == (24, 12, n, fa.fwd_sm90_tile(n), *fa.bwd_sm90_units(24, n, H100_SMS)[::-1])
-    assert rest[13:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert rest[0] == kb.data_ptr() and rest[1] == seed.data_ptr() and rest[2] is None
+    assert rest[3] == lse.data_ptr()
+    assert rest[8:14] == (24, 12, n, fa.fwd_sm90_tile(n), *fa.bwd_sm90_units(24, n, H100_SMS)[::-1])
+    assert rest[14:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1146,24 +1148,25 @@ def _map_addresses(args, count):
 @pytest.mark.parametrize("n,cap", [(40, 1), (237, 2), (256, 256)])
 def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     """Row 2 on the sm90 backward: its one entry (`flash_attention_bwd_sm90`)
-    with a null seed, no dropout (threshold 0, factor 1), gets the five
-    maps of q, k, v, o, do, live across a cache eviction; then the bias,
-    lse, delta, dq, dk, dv pointers, (bh, heads, n, key width, grid, tiles
-    per unit), the scale and the stream."""
+    with a null seed and row index, no dropout (threshold 0, factor 1),
+    gets the five maps of q, k, v, o, do, live across a cache eviction;
+    then the bias, lse, delta, dq, dk, dv pointers, (bh, heads, n, key
+    width, grid, tiles per unit), the scale and the stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
-                                 "flash_attention_bwd_sm90", 22, cap)
+                                 "flash_attention_bwd_sm90", 23, cap)
     q, k, v, kb, _, o, do, lse = _bwd_args(n=n)
     for _ in range(2):
         dq, dk, dv = fa._launch_bwd_sm90(q, k, v, kb, None, o, do, lse, 0.125)
         assert _map_addresses(launches[-1], 5) == [t.data_ptr() for t in (q, k, v, o, do)]
     assert dq.shape == dk.shape == dv.shape == q.shape
     rest = launches[-1][5:]
-    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 22
-    assert rest[0] == kb.data_ptr() and rest[1] is None and rest[2] == lse.data_ptr()
-    assert rest[4:7] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 23
+    assert rest[0] == kb.data_ptr() and rest[1] is None and rest[2] is None
+    assert rest[3] == lse.data_ptr()
+    assert rest[5:8] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tpg, grid = fa.bwd_sm90_units(24, n, H100_SMS)
-    assert rest[7:13] == (24, 12, n, fa.fwd_sm90_tile(n), grid, tpg)
-    assert rest[13:] == (0.125, 0, 1.0, 0)
+    assert rest[8:14] == (24, 12, n, fa.fwd_sm90_tile(n), grid, tpg)
+    assert rest[14:] == (0.125, 0, 1.0, 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1171,22 +1174,25 @@ def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
 def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     """Row 3 on row 1's sm90 forward: its one entry
     (`flash_attention_fwd_sm90`) with the seed gets row 1's "short" maps of
-    q, k, v, live across a cache eviction; then the bias, seed, out, lse
+    q, k, v, live across a cache eviction; then the bias, seed, row index
+    (the global rows of a process's share of the batch), out, lse
     pointers, row 1's (bh, heads, n, key width, grid), the scale, the uint32
     threshold, the fp32 factor and the stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_fwd_sm90",
-                                 "flash_attention_fwd_sm90", 16, cap)
+                                 "flash_attention_fwd_sm90", 17, cap)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32)
+    rows = torch.tensor([4, 5], dtype=torch.int32)
     for _ in range(2):
-        out, lse = fa._launch_fwd_sm90(q, k, v, kb, 0.125, seed, 0.1)
+        out, lse = fa._launch_fwd_sm90(q, k, v, kb, 0.125, seed, 0.1, rows)
         assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
     assert out.shape == q.shape and lse.shape == (24, n)
     rest = launches[-1][3:]
-    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 16
-    assert rest[:4] == (kb.data_ptr(), seed.data_ptr(), out.data_ptr(), lse.data_ptr())
-    assert rest[4:9] == (24, 12, n, fa.fwd_sm90_tile(n), fa.fwd_sm90_grid(24, H100_SMS))
-    assert rest[9:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 17
+    assert rest[:5] == (kb.data_ptr(), seed.data_ptr(), rows.data_ptr(), out.data_ptr(),
+                        lse.data_ptr())
+    assert rest[5:10] == (24, 12, n, fa.fwd_sm90_tile(n), fa.fwd_sm90_grid(24, H100_SMS))
+    assert rest[10:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert fa.dropout_threshold(0.1) == 429496729
     assert len(fa._MAPS) <= cap
     assert all(key[0] == "short" for key in fa._MAPS)
@@ -1384,13 +1390,14 @@ def test_stream_entry_checks_its_launch():
     src = STREAM_SRC.read_text()
     entry = src[src.index('extern "C" int flash_attention_long_sm90('):]
     for guard in ("tiles != (n + BQ - 1) / BQ", "grid <= 0 || grid > bh * tiles",
-                  "(seed != nullptr && lse == nullptr)"):
+                  "(seed != nullptr && lse == nullptr)",
+                  "(row_index != nullptr && seed == nullptr)"):
         assert guard in entry, guard
     assert "if (lse == nullptr)\n    return launch<false, false>" in entry
     assert "if (seed == nullptr)\n    return launch<true, false>" in entry
     assert "return launch<true, true>" in entry
     head = entry[:entry.index("{")]
-    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 16
+    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 17
     assert not (fa._build.CSRC / "flash_attention_fwd.cu").exists()
     assert not (fa._build.CSRC / "mma_bf16.cuh").exists()
     assert "flash_attention_fwd" not in fa._build.KERNELS
@@ -1402,27 +1409,30 @@ def test_stream_entry_checks_its_launch():
 def test_stream_launch_passes_live_maps_across_an_eviction(monkeypatch, row, n, cap):
     """Rows 1 and 3 past 256 keys: the streamed kernel's one entry gets the
     "long" maps of q, k, v (row 5's cache) live across an eviction; then
-    the bias, the seed (null for row 1), out and lse pointers, (bh, heads,
-    n, tiles, CTAs), the scale, the threshold and factor (0 and 1 without
-    dropout) and the stream."""
+    the bias, the seed and row index (null for row 1), out and lse
+    pointers, (bh, heads, n, tiles, CTAs), the scale, the threshold and
+    factor (0 and 1 without dropout) and the stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_long_sm90",
-                                 "flash_attention_long_sm90", 16, cap)
+                                 "flash_attention_long_sm90", 17, cap)
     monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32) if row == 3 else None
+    rows = torch.tensor([6, 7], dtype=torch.int32) if row == 3 else None
     for _ in range(2):
-        out, lse = fa._launch_fwd(q, k, v, kb, 0.125, seed, 0.1 if seed is not None else 0.0)
+        out, lse = fa._launch_fwd(q, k, v, kb, 0.125, seed, 0.1 if seed is not None else 0.0,
+                                  rows)
         assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
     assert out.shape == q.shape and lse.shape == (24, n)
     rest = launches[-1][3:]
-    assert rest[:4] == (kb.data_ptr(), None if seed is None else seed.data_ptr(),
-                        out.data_ptr(), lse.data_ptr())
+    assert rest[:5] == (kb.data_ptr(), None if seed is None else seed.data_ptr(),
+                        None if rows is None else rows.data_ptr(), out.data_ptr(),
+                        lse.data_ptr())
     tiles, _ = fa.long_grid(24, n)
-    assert rest[4:9] == (24, 12, n, tiles, fa.long_ctas(24, n, H100_SMS))
+    assert rest[5:10] == (24, 12, n, tiles, fa.long_ctas(24, n, H100_SMS))
     if seed is None:
-        assert rest[9:] == (0.125, 0, 1.0, 0)
+        assert rest[10:] == (0.125, 0, 1.0, 0)
     else:
-        assert rest[9:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+        assert rest[10:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert len(fa._MAPS) <= cap
     assert all(key[0] == "long" for key in fa._MAPS)
 
@@ -1502,3 +1512,61 @@ def test_shared_rings_of_rows_1_3_5_wait_only_for_landed_loads(stages):
     assert "mbar_wait(qfull0 + 8 * qr.slot, qr.phase);" in stream
     assert _shared_ring_faults(stages, 10, release_count=2, trials=300) == 0
     assert _shared_ring_faults(stages, 10, release_count=1, trials=300) > 0
+
+
+# ------------------------------------- rows 3 and 4: the global row index
+
+@pytest.mark.parametrize("bad", [
+    {"dtype": torch.int64}, {"shape": (3,)}, {"shape": (2, 1)}, {"strided": True},
+])
+def test_row_index_checks_raise(bad):
+    """What rows 3 and 4 refuse as a row index: not int32, not (B,), not
+    contiguous."""
+    kb, q, k, v = _attn_args(bh=24, n=197, b=2)
+    seed = torch.zeros(1, dtype=torch.int32)
+    shape = bad.get("shape", (2,))
+    rows = torch.arange(4 if bad.get("strided") else math.prod(shape),
+                        dtype=bad.get("dtype", torch.int32))
+    rows = rows[::2] if bad.get("strided") else rows.reshape(shape)
+    with pytest.raises(ValueError, match="row_index"):
+        fa._check("flash_attention_fwd_drop", kb, q, k, v, seed=seed, row_index=rows)
+
+
+@pytest.mark.parametrize("n", [40, 237, 512])
+def test_row4_launch_passes_the_row_index(monkeypatch, n):
+    """Row 4 hands its row index to the backward's entry right after the
+    seed, for both kernels the entry launches to key the mask by."""
+    launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
+                                 "flash_attention_bwd_sm90", 23, 256)
+    q, k, v, kb, seed, o, do, lse = _bwd_args(n=n)
+    rows = torch.tensor([8, 9], dtype=torch.int32)
+    fa._launch_bwd_sm90(q, k, v, kb, seed, o, do, lse, 0.125, 0.1, rows)
+    rest = launches[-1][5:]
+    assert rest[1:4] == (seed.data_ptr(), rows.data_ptr(), lse.data_ptr())
+
+
+@pytest.mark.parametrize("src,entry", [
+    ("flash_attention_fwd_sm90.cu", "flash_attention_fwd_sm90("),
+    ("flash_attention_long_sm90.cu", "flash_attention_long_sm90("),
+    ("flash_attention_bwd_sm90.cu", "flash_attention_bwd_sm90("),
+])
+def test_entries_key_the_mask_by_the_row_index(src, entry):
+    """Each dropout entry takes the row index after its seed and hands it
+    to the kernel, which keys every head's hash by `dropout_head` (the
+    head's own index where the pointer is null); the streamed and backward
+    entries refuse an index without a seed, the short forward passes none
+    to its kernel without one."""
+    text = (fa._build.CSRC / src).read_text()
+    head = text[text.index(f'extern "C" int {entry}'):]
+    head = head[:head.index("{")]
+    assert "const void* seed," in head and "const void* row_index" in head
+    assert head.index("seed") < head.index("row_index")
+    assert "emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads))" in text
+    assert "emm::dropout_keys(sd, bh)" not in text
+    if src != "flash_attention_fwd_sm90.cu":
+        assert "(row_index != nullptr && seed == nullptr)" in text
+    else:
+        assert "nullptr, nullptr, 0u, 1.f, stream)" in text
+    hash_src = (fa._build.CSRC / "dropout_hash.cuh").read_text()
+    assert ("row_index == nullptr ? bh : row_index[bh / heads] * heads + bh % heads"
+            in hash_src)
