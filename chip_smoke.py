@@ -18,6 +18,7 @@
     python3 chip_smoke.py --data # the build and phase 25 alone
     python3 chip_smoke.py --parallel
                                  # the build and phase 26 alone
+    python3 chip_smoke.py --tp   # the build and phase 27 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -230,7 +231,24 @@ Phases, in order; any failure raises and the script exits non-zero:
      16 against one rank at 32 (losses within LOSS_RTOL, gradients within
      GRAD_REL_TOL), else the reason; `Predictor(devices=["cuda:0"])` against
      the plain `Predictor` (equal logits, rows 1 and 6 18 times a request);
- 27. print the kernel table as one JSON line, the card line, and last
+ 27. tensor parallelism (parallel=tp, TP = 2): rows 3 and 4 holding heads
+     6..11 of 12 at the tp step's BH = 192 (N = 40, 197, 237) and ITM's
+     576 (N = 237) against their plain versions with the heads' offset,
+     the mask bit for bit at ITM's shape and equal to the whole call's at
+     those heads, each timed with the offset and without; rows 6 and 7 in
+     the partial mode (fp32, no b2) at hidden 1,536 and 768 and the
+     finetune_vqa step's M against their plain versions, the shares summed
+     plus b2 against the whole plain MLP, each timed beside the whole
+     kernel; pretrain_mum (rows 3 and 4 54 times a step) and finetune_vqa
+     with mlp_impl=fused (rows 7, 3 and 4 18 times a step, row 6 18 times
+     an evaluation batch) at vlmo_base, batch 32, every dropout on, on two
+     gloo ranks of this script on the one card against one process on the
+     same weights and batch (losses within LOSS_RTOL, gradients gathered
+     whole within GRAD_REL_TOL), with each rank's step time, peak memory
+     and all-reduces; the ranks' checkpoint read in one process (logits
+     within E2E_ATOL);
+ 28. print the kernel table as one JSON line (rows 3, 4, 6 and 7 with
+     their tp launches), the card line, and last
      {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
@@ -1687,7 +1705,8 @@ def irtr_text_mask(txt: np.ndarray) -> np.ndarray:
 
 
 def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
-                       row_index: torch.Tensor | None = None) -> dict:
+                       row_index: torch.Tensor | None = None, heads: int | None = None,
+                       heads_total: int | None = None, head0: int = 0) -> dict:
     """The in-kernel dropout mask, bit for bit, at `batch` rows of N tokens
     (by default the fused length: at ITM's batch the largest batch*head, row
     and column indices of the step). The inputs make every
@@ -1703,13 +1722,22 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
     value by scale / (N (1 - rate)), and the check allows a quarter of
     that. With a `row_index` ((batch,) int32, each row's index in a global
     batch) the kernels and the plain mask key each head by it; the mask is
-    then required to differ from the one each row's own index gives."""
-    heads, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    then required to differ from the one each row's own index gives. With
+    `heads` of each row's `heads_total` from `head0` on (a tensor rank's),
+    the plain mask is required equal to the whole call's at those heads."""
+    d = cfg.embed_dim // cfg.num_heads
+    heads = heads or cfg.num_heads
+    offset = {} if heads_total is None else {"heads_total": heads_total, "head0": head0}
     n = n or cfg.max_text_len + (cfg.img_size // cfg.patch_size) ** 2 + 1
     b, rate, scale, width = batch, cfg.attn_drop_rate, d ** -0.5, 31
     bh = b * heads
     seed = torch.tensor([DROP_SEED + 1], dtype=torch.int32, device=dev)
-    keep = dropout_keep_mask_plain(seed, bh, n, rate, row_index) != 0
+    keep = dropout_keep_mask_plain(seed, bh, n, rate, row_index, batch=b, **offset) != 0
+    if offset:
+        whole = dropout_keep_mask_plain(seed, b * heads_total, n, rate, row_index) != 0
+        require(torch.equal(keep, whole.view(b, heads_total, n, n)[
+            :, head0:head0 + heads].reshape(bh, n, n)),
+            "dropout mask: a tensor rank's heads are not the whole call's")
     if row_index is not None:
         require(not torch.equal(keep, dropout_keep_mask_plain(seed, bh, n, rate) != 0),
                 "dropout mask: the row index left every head's mask as it was")
@@ -1727,12 +1755,14 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
         do[:, :, 0] = 1
         do[:, c + i, 32 + i] = 1
         q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
-        out, _ = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, row_index)
-        o, lse = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate, row_index)
+        out, _ = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, row_index,
+                                          **offset)
+        o, lse = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate, row_index,
+                                                **offset)
         dq, dk, dv = flash_attention_bwd_drop(q, k, v, kb, seed, o, do, lse, scale, rate,
-                                              row_index)
+                                              row_index, **offset)
         pq, pk, _ = flash_attention_bwd_drop_plain(q, k, v, kb, seed, o, do, lse, scale, rate,
-                                                   row_index)
+                                                   row_index, **offset)
         torch.cuda.synchronize()
         require(torch.equal(out[:, :, 1:1 + w] != 0, keep[:, :, c:c + w]),
                 f"dropout forward: mask bits differ in key window {c}..{c + w}")
@@ -1745,7 +1775,8 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
                 f"in window {c}..{c + w}: a mask bit differs")
         bits += 4 * bh * n * w
     return {"shape": f"BH={bh} N={n}", "mask_bits_checked": bits, "kept_share":
-            keep.float().mean().item(), "row_index": row_index is not None}
+            keep.float().mean().item(), "row_index": row_index is not None,
+            **({"heads": f"{head0}..{head0 + heads - 1} of {heads_total}"} if offset else {})}
 
 
 def cpu_check_phase(overrides: list[str] = TRAIN_OVERRIDES,
@@ -3751,13 +3782,325 @@ def parallel_only(card: str, dev) -> int:
     return 0
 
 
+# ---- phase 27: tensor parallelism (parallel=tp) on two gloo ranks
+TP = 2  # the tensor axis: two processes of this script on the one card
+TP_STEPS = 3  # timed on each rank, after the compared step
+TP_TIMEOUT_S = 420
+TP_MLP_THRESHOLD = 6554  # finetune_vqa's hidden dropout 0.1
+TP_MLP_SIZES = (2, 4)  # hidden 1,536 and 768 of 3,072
+
+
+def check_tp_attention(cfg: VlmoConfig, dev) -> list[dict]:
+    """Rows 3 and 4 holding heads 6..11 of 12 (tensor rank 1 of TP) at the
+    tp step's shapes: the streams' BH = 192 at N = 40, 197 and 237, and
+    ITM's BH = 576 at N = 237, against their plain versions with the same
+    heads' offset, within the existing bf16 limits; the mask bit for bit at
+    ITM's shape (`check_dropout_mask` at the offset, whose plain mask is
+    required equal to the whole call's at those heads); each timed with
+    the offset and without it (the same heads keyed as a whole call's), in
+    turns."""
+    heads_total, d = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    heads = heads_total // TP
+    offset = {"heads_total": heads_total, "head0": heads}
+    rate, scale = cfg.attn_drop_rate, d ** -0.5
+    n_img = (cfg.img_size // cfg.patch_size) ** 2 + 1
+    n_fused = cfg.max_text_len + n_img
+    seed = torch.tensor([DROP_SEED + 3], dtype=torch.int32, device=dev)
+    rows = []
+    for stream, b, n in (("text", TRAIN_BATCH, cfg.max_text_len), ("image", TRAIN_BATCH, n_img),
+                         ("fused", TRAIN_BATCH, n_fused), ("itm", 3 * TRAIN_BATCH, n_fused)):
+        bh = b * heads
+        g = torch.Generator(device=dev).manual_seed(11 * b + n)
+        q, k, v, do = (torch.randn((bh, n, d), generator=g, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        kb = torch.zeros((b, n), dtype=torch.float32, device=dev)
+        od, lsed = flash_attention_fwd_drop_plain(q, k, v, kb, seed, scale, rate, **offset)
+        got = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, **offset)
+        bgot = flash_attention_bwd_drop(q, k, v, kb, seed, od, do, lsed, scale, rate, **offset)
+        bwant = flash_attention_bwd_drop_plain(q, k, v, kb, seed, od, do, lsed, scale, rate,
+                                               **offset)
+        torch.cuda.synchronize()
+        checks = [within(got[0], od, ATTN_ATOL, ATTN_RTOL),
+                  within(got[1], lsed, ATTN_LSE_ATOL, 0.0)]
+        checks += [within(x, y, BWD_ATOL, BWD_RTOL) for x, y in zip(bgot, bwant)]
+        require(all(ok for ok, _ in checks),
+                f"rows 3/4 at heads {heads}..{heads_total - 1}, {stream} BH={bh} N={n}: "
+                f"max|err| {[e for _, e in checks]} beyond the tolerances")
+        timed = {}
+        for name, kw in (("no_offset", {}), ("offset", offset), ("offset", offset),
+                         ("no_offset", {})):
+            timed.setdefault(f"fwd_{name}_ms", []).append(time_ms(
+                lambda: flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, **kw)))
+            timed.setdefault(f"bwd_{name}_ms", []).append(time_ms(
+                lambda: flash_attention_bwd_drop(q, k, v, kb, seed, od, do, lsed, scale, rate,
+                                                 **kw)))
+        fwd_bound = bound(4 * bh * n * d * 2 + b * n * 4 + bh * n * 4, 4 * bh * n * n * d)
+        bwd_bound = bound(8 * bh * n * d * 2 + b * n * 4 + bh * n * 4, 10 * bh * n * n * d)
+        rows.append({"stream": stream, "shape": f"BH={bh} N={n}", "heads": f"{heads}.."
+                     f"{heads_total - 1} of {heads_total}",
+                     "max_abs_err": max(e for _, e in checks),
+                     "fwd_bound_ms": fwd_bound[0], "bwd_bound_ms": bwd_bound[0], **timed})
+    mask = check_dropout_mask(cfg, dev, 3 * TRAIN_BATCH, heads=heads, **offset)
+    print("dropout_mask: " + json.dumps(mask), flush=True)
+    return rows
+
+
+def check_tp_mlp(cfg: VlmoConfig, dev) -> list[dict]:
+    """Rows 6 and 7 in the partial mode (fp32 out, no b2) on each tensor
+    rank's share of the hidden at T = 2 and 4 (1,536 and 768 of 3,072), at
+    the finetune_vqa step's M (text, image, fused rows; its evaluation at
+    batch 32 gives row 6 the same): each rank's share against its plain
+    version, and the T shares summed in fp32, b2 added and rounded once
+    against the whole plain MLP within the whole kernel's limits
+    (MLP_ATOL, MLP_RTOL); rank 0's share timed beside the whole kernel at
+    hidden 3,072 on the same rows, its plain version and the library chain
+    on the share."""
+    g, w1, b1, w2, b2 = mlp_weights(cfg, dev, 4)
+    k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+    for drop in (False, True):
+        t = TP_MLP_THRESHOLD if drop else 0
+        kernel = fused_mlp_fwd_drop if drop else fused_mlp_fwd
+        plain = fused_mlp_fwd_drop_plain if drop else fused_mlp_fwd_plain
+        for m in vqa_mlp_rows(cfg):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            bits = (torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g,
+                                  device=dev) if drop else None)
+            whole_args = (x, w1, b1, w2, b2) + ((bits, t) if drop else ())
+            whole = plain(*whole_args)
+            for size in TP_MLP_SIZES:
+                hs = h // size
+                shares = []
+                for r in range(size):
+                    cols = slice(r * hs, (r + 1) * hs)
+                    shares.append((x, w1[cols].contiguous(), b1[cols].contiguous(),
+                                   w2[:, cols].contiguous(), None)
+                                  + ((bits[:, cols].contiguous(), t) if drop else ()))
+                parts = [kernel(*a) for a in shares]
+                refs = [plain(*a) for a in shares]
+                torch.cuda.synchronize()
+                errs = [within(p_, r_, MLP_ATOL, MLP_RTOL) for p_, r_ in zip(parts, refs)]
+                summed = (torch.stack(parts).sum(0) + b2).to(torch.bfloat16)
+                sum_ok, sum_err = within(summed, whole, MLP_ATOL, MLP_RTOL)
+                require(all(ok for ok, _ in errs) and sum_ok and all(
+                    p_.dtype == torch.float32 for p_ in parts),
+                    f"mlp partial drop={drop} M={m} hidden {hs}: max|err| "
+                    f"{[e for _, e in errs]}, summed {sum_err}")
+                a0 = shares[0]
+                w1h, w2h = a0[1], a0[3]
+                b1h = a0[2].to(torch.bfloat16)
+
+                def library():
+                    hh = F.gelu(F.linear(x, w1h, b1h), approximate="tanh")
+                    if drop:
+                        hh = torch.where(keep16(a0[5], t),
+                                         hh * torch.tensor(keep_scale16(t), dtype=hh.dtype,
+                                                           device=dev),
+                                         torch.zeros_like(hh))
+                    return F.linear(hh, w2h).float()
+
+                nbytes = (2 * (m * k + hs * k + n_out * hs) + 4 * hs + 4 * m * n_out
+                          + (2 * m * hs if drop else 0))
+                bound_ms, bound_by = bound(nbytes, 2 * m * (k * hs + hs * n_out))
+                rows.append({
+                    "name": "fused_mlp_fwd_drop" if drop else "fused_mlp_fwd",
+                    "shape": f"M={m} K={k} H={hs} of {h} N={n_out}", "tensor": size,
+                    "hidden_splits": hidden_splits(m, hs, sms),
+                    "max_abs_err": max(e for _, e in errs), "summed_err": sum_err,
+                    "ms": time_ms(lambda: kernel(*a0)),
+                    "whole_ms": time_ms(lambda: kernel(*whole_args)),
+                    "plain_ms": time_ms(lambda: plain(*a0), iters=5),
+                    "library_ms": time_ms(library),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                })
+                del parts, refs, summed
+    return rows
+
+
+def tp_rank_child(rank: int, port: int, tag: str, workdir: str) -> int:
+    """Rank `rank` of phase 27's tp = 2 step over gloo on the one card (the
+    group started before the `Trainer`, which joins it): the parent's
+    weights and batch (and ITM negatives and MIM labels), every dropout on;
+    the compared step's losses, launches and all-reduces (counted by
+    wrapping `dist.all_reduce`), the named gradients gathered whole over
+    the tensor axis, then TP_STEPS timed steps and the peak memory. For
+    finetune_vqa also one evaluation batch (row 6's launches, the logits)
+    and a checkpoint, which rank 0 writes whole."""
+    import torch.distributed as dist
+
+    from exploremultimodal_torch.parallel.partitioning import gather_tensor, tensor_split
+
+    inputs = torch.load(os.path.join(workdir, f"in_{tag}.pt"), weights_only=False)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=TP,
+                            rank=rank)
+    reduced = []
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **kw):
+        reduced.append(t.numel() * t.element_size())
+        return all_reduce(t, *a, **kw)
+
+    dist.all_reduce = counted
+    cfg_dict = load_config(inputs["overrides"] + group_overrides(port, TP, rank)
+                           + ["parallel=tp"])
+    trainer = Trainer(cfg_dict, device="cuda")
+    require(trainer.mesh.tensor_size == TP and trainer.axis is None, "tp: not a tensor axis")
+    ckpt_lib.load_model_state_dict(trainer.task, inputs["weights"])
+    batch, kw = inputs["batch"], inputs["step_kwargs"]
+    for fn in KERNELS:
+        fn.launches = 0
+    reduced.clear()
+    m = trainer.step(batch, **kw)
+    torch.cuda.synchronize()
+    out = {"losses": losses_of(m), "launches": {fn.__name__: fn.launches for fn in KERNELS},
+           "all_reduces": len(reduced), "all_reduce_bytes": sum(reduced), "grads": {}}
+    for k, p in trainer.task.named_parameters():
+        if k in inputs["params"]:
+            g, how = p.grad.contiguous(), tensor_split(k)
+            if how is not None:
+                parts = [torch.empty_like(g) for _ in range(TP)]
+                dist.all_gather(parts, g, group=trainer.mesh.tensor_group)
+                g = gather_tensor(parts, how)
+            out["grads"][k] = g.float().cpu()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.step(batch, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out.update(ms_per_step=[x * 1e3 for x in times],
+               median_ms_per_step=statistics.median(times) * 1e3,
+               peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+    if tag == "vqa":
+        out["saved"] = ckpt_lib.save(os.path.join(workdir, "ckpt"), trainer.state, cfg_dict, 0)
+        for fn in KERNELS:
+            fn.launches = 0
+        _, _, extra = trainer.eval_step(batch, torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        out["eval_launches"] = {fn.__name__: fn.launches for fn in KERNELS}
+        out["eval_logits"] = extra["vqa_logits"].float().cpu()
+    torch.save(out, os.path.join(workdir, f"out_{tag}_{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def tp_step_phase(card: str, tag: str, tmp: str) -> dict:
+    """pretrain_mum ("mum", rows 3 and 4 54 times a step) or finetune_vqa
+    with mlp_impl=fused ("vqa": rows 7, 3 and 4 18 times, row 6 18 times an
+    evaluation batch, each MLP in the partial mode) at vlmo_base, batch 32,
+    every dropout on: one process on the card, then two tensor ranks
+    (`tp_rank_child`) on the same weights and batch. Losses within
+    LOSS_RTOL and equal on both ranks, the named gradients within
+    GRAD_REL_TOL (relative L2), the launches counted per step; for "vqa"
+    the ranks' checkpoint read in one process gives their logits within
+    E2E_ATOL."""
+    mum = tag == "mum"
+    overrides = TRAIN_OVERRIDES if mum else VQA_OVERRIDES
+    names = TWO_RANK_PARAMS if mum else CHECKED_VQA_PARAMS
+    cfg = VlmoConfig.from_config(load_config(overrides))
+    one = Trainer(load_config(overrides), device="cuda")
+    batch = one.next_batch()
+    kw = {}
+    if mum:
+        b = TRAIN_BATCH
+        kw = {"negatives": (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b),
+              "mim_labels": one.model_batch(batch)["mim_labels"].cpu()}
+    weights = {k: v.cpu() for k, v in one.task.state_dict().items()}
+    m = one.step(batch, **kw)
+    want = {"losses": losses_of(m), "grads": {k: p.grad.float().cpu() for k, p in
+                                              one.task.named_parameters() if k in names}}
+    del one
+    torch.cuda.empty_cache()
+    torch.save({"overrides": overrides, "weights": weights, "batch": batch, "step_kwargs": kw,
+                "params": names}, os.path.join(tmp, f"in_{tag}.pt"))
+    t0 = time.perf_counter()
+    port = free_port()
+    runs = spawn_ranks([["--tp-rank", str(r), str(port), tag, tmp] for r in range(TP)],
+                       TP_TIMEOUT_S)
+    for r, (rc, log) in enumerate(runs):
+        require(rc == 0, f"tp {tag} rank {r} exited {rc}:\n{log[-3000:]}")
+    got = [torch.load(os.path.join(tmp, f"out_{tag}_{r}.pt")) for r in range(TP)]
+    calls = img_txt_calls(cfg)
+    expected = ({"flash_attention_fwd_drop": attention_calls_per_step(cfg),
+                 "flash_attention_bwd_drop": attention_calls_per_step(cfg)} if mum else
+                {"fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+                 "flash_attention_bwd_drop": calls, "fused_mlp_fwd": 0})
+    res = {"s": time.perf_counter() - t0, "card": card, "ranks": []}
+    for r, g in enumerate(got):
+        require_launches(f"tp_{tag} rank {r}", g["launches"], expected, 1)
+        if not mum:
+            require_launches(f"tp_{tag} eval rank {r}", g["eval_launches"],
+                             {"fused_mlp_fwd": calls, "fused_mlp_fwd_drop": 0}, 1)
+        for k, w in want["losses"].items():
+            require(abs(g["losses"][k] - w) <= LOSS_RTOL * abs(w) + 1e-3,
+                    f"tp {tag} rank {r} {k}: {g['losses'][k]} against one process's {w}")
+            require(g["losses"][k] == got[0]["losses"][k], f"tp {tag} {k}: the ranks disagree")
+        grad_err = {k: ((g["grads"][k] - w).norm() / w.norm()).item()
+                    for k, w in want["grads"].items()}
+        require(max(grad_err.values()) <= GRAD_REL_TOL, f"tp {tag} rank {r}: gradients "
+                f"{grad_err}")
+        res["ranks"].append({
+            "median_ms_per_step": g["median_ms_per_step"], "ms_per_step": g["ms_per_step"],
+            "peak_memory_gib": g["peak_memory_gib"], "all_reduces_per_step": g["all_reduces"],
+            "all_reduce_gb_per_step": g["all_reduce_bytes"] / 1e9,
+            "launches_per_step": {k: g["launches"][k] for k in expected},
+            **({} if mum else {"eval_launches": {"fused_mlp_fwd": g["eval_launches"][
+                "fused_mlp_fwd"]}}),
+            "grad_rel_err": grad_err})
+    res["losses_tp_one"] = {k: (got[0]["losses"][k], w) for k, w in want["losses"].items()}
+    if not mum:
+        # the checkpoint the two ranks wrote (rank 0, the whole torch
+        # layout), read by one process: its logits are the ranks'
+        reader = Trainer(load_config(overrides), device="cuda")
+        restored = ckpt_lib.auto_load(os.path.join(tmp, "ckpt"), reader.state, reader.cfg)
+        require(restored is not None and reader.state.step == 1 + TP_STEPS,
+                f"tp checkpoint: restored {restored}, step {reader.state.step}")
+        _, _, extra = reader.eval_step(batch, torch.Generator(device="cuda").manual_seed(0))
+        diff = (extra["vqa_logits"].float().cpu() - got[0]["eval_logits"]).abs().max().item()
+        require(diff <= E2E_ATOL, f"tp checkpoint: logits {diff} apart, beyond {E2E_ATOL}")
+        res["checkpoint_logits_max_abs_diff"] = diff
+        del reader
+        torch.cuda.empty_cache()
+    print(f"tp_{tag}: " + json.dumps(res), flush=True)
+    return res
+
+
+def tp_phase(card: str, dev) -> dict:
+    """Phase 27: rows 3 and 4 with the heads' offset, rows 6 and 7 in the
+    partial mode, then the tp = 2 pretrain_mum and finetune_vqa steps over
+    gloo against one process, and the checkpoint across layouts."""
+    train_cfg = VlmoConfig.from_config(load_config(TRAIN_OVERRIDES))
+    vqa_cfg = VlmoConfig.from_config(load_config(VQA_OVERRIDES))
+    out = {"attention": check_tp_attention(train_cfg, dev), "mlp": check_tp_mlp(vqa_cfg, dev)}
+    for row in out["attention"] + out["mlp"]:
+        print("kernel_tp: " + json.dumps(row), flush=True)
+    elapsed("phase 27 kernels")
+    tmp = tempfile.mkdtemp(prefix="emm_tp_")
+    try:
+        out["pretrain_mum"] = tp_step_phase(card, "mum", tmp)
+        elapsed("phase 27 pretrain_mum")
+        out["vqa"] = tp_step_phase(card, "vqa", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def tp_only(card: str, dev) -> int:
+    """The build, then phase 27 alone (`--tp`)."""
+    tp_phase(card, dev)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    # phase 26's rank processes (this script, started by itself)
-    if args[:1] in (["--probe-rank"], ["--two-rank"]):
+    # phase 26's and 27's rank processes (this script, started by itself)
+    if args[:1] in (["--probe-rank"], ["--two-rank"], ["--tp-rank"]):
         import faulthandler
 
         faulthandler.enable()
@@ -3765,6 +4108,8 @@ def main(argv: list[str] | None = None) -> int:
         return probe_child(int(args[1]), int(args[2]), args[3], args[4])
     if args[:1] == ["--two-rank"]:
         return two_rank_child(int(args[1]), int(args[2]), args[3], args[4])
+    if args[:1] == ["--tp-rank"]:
+        return tp_rank_child(int(args[1]), int(args[2]), args[3], args[4])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -3795,6 +4140,8 @@ def main(argv: list[str] | None = None) -> int:
         return data_only(card)
     if args[:1] == ["--parallel"]:
         return parallel_only(card, dev)
+    if args[:1] == ["--tp"]:
+        return tp_only(card, dev)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -3983,6 +4330,12 @@ def main(argv: list[str] | None = None) -> int:
     parallel_phase(card, dev)
     elapsed("phase 26")
 
+    # tensor parallelism: rows 3 and 4 at the global heads, rows 6 and 7's
+    # partial mode, the tp = 2 steps over gloo, the checkpoint across
+    # layouts
+    tp = tp_phase(card, dev)
+    elapsed("phase 27")
+
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
         return {
@@ -4032,6 +4385,16 @@ def main(argv: list[str] | None = None) -> int:
     ]
     for k in kernels[:4:2]:  # rows 1 and 3: the short kernel up to 256 keys
         k["sources"] = [fwd_sm90_src, stream_src]
+    # phase 27's launches a step (rows 6: an evaluation batch) on each
+    # tensor rank of the tp = 2 steps
+    mum_tp, vqa_tp = tp["pretrain_mum"]["ranks"][0], tp["vqa"]["ranks"][0]
+    tp_launches = {"flash_attention_fwd_drop": mum_tp["launches_per_step"],
+                   "flash_attention_bwd_drop": mum_tp["launches_per_step"],
+                   "fused_mlp_fwd_drop": vqa_tp["launches_per_step"],
+                   "fused_mlp_fwd": vqa_tp["eval_launches"]}
+    for k in kernels:
+        if k["name"] in tp_launches:
+            k["tp_launches"] = tp_launches[k["name"]][k["name"]]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

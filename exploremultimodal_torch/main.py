@@ -34,12 +34,20 @@ On more than one process, one per GPU, with a `parallel` preset:
         train=pretrain_mum model=vlmo_base 'train.datasets=[synthetic]' \
         data.batch_size=32 train.epochs=1
 
-(`data.batch_size` is each process's; `runtime.coordinator_address=host:port
-runtime.num_processes=N runtime.process_id=r` starts the same group without
-torchrun). Every process calls `parallel.initialize_runtime` first; rank 0
-alone makes the directories, writes the logs, `log_stats.json`, the config
-and the checkpoints, and prints the `steps=N` lines; the others take its
-run dir.
+Tensor parallelism splits every block over T processes, which take the
+same rows (with `runtime.mesh.data` or `runtime.mesh.fsdp` > 1 as well, the
+data x fsdp processes split the batch):
+
+    torchrun --nproc_per_node=2 -m exploremultimodal_torch.main parallel=tp \
+        train=pretrain_mum model=vlmo_base 'train.datasets=[synthetic]' \
+        data.batch_size=32 steps=10
+
+(`data.batch_size` is each process's of the data group;
+`runtime.coordinator_address=host:port runtime.num_processes=N
+runtime.process_id=r` starts the same group without torchrun). Every
+process calls `parallel.initialize_runtime` first; rank 0 alone makes the
+directories, writes the logs, `log_stats.json`, the config and the
+checkpoints, and prints the `steps=N` lines; the others take its run dir.
 """
 
 from __future__ import annotations

@@ -25,6 +25,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from exploremultimodal_torch.parallel.partitioning import load_model_state_dict
+
 _LEAF = {"embedding": "weight", "scale": "weight"}
 # modules that are flax `ConvTranspose`s (transpose_kernel=False)
 _CONV_TRANSPOSE = re.compile(r"^dec_convs_\d+$")
@@ -84,8 +86,9 @@ def load_flax_train_state(state, parts: Mapping[str, Any]) -> None:
             continue
         if tree is None:
             raise ValueError(f"{name} given, but the port's state has no such tree")
-        # in place: the tensors keep their addresses
-        tree.load_state_dict(from_flax_params(parts[name]), strict=True)
+        # in place: the tensors keep their addresses (this rank's shares
+        # where the tree is split or sharded)
+        load_model_state_dict(tree, from_flax_params(parts[name]), strict=True)
     for name in ("img_queue", "txt_queue"):
         if name in parts:
             queue = getattr(state, name)

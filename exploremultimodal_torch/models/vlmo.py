@@ -27,6 +27,18 @@ in the backward; 'dots' keeps the outputs of its matrix products (JAX's
 products) and runs the elementwise chains and the kernels again. The
 block's random streams are rewound for the recomputation
 (`StepRng.replay`), so it draws the first forward's masks.
+
+Tensor parallelism (`parallel.partitioning.shard_tensor_parallel` sets
+`tensor`, a `TensorAxis`, on each `Attention` and `Mlp`): a rank holds H/T
+heads of q, k and v and the matching input columns of proj, and hidden/T
+rows of fc1 with their columns of fc2 (Megatron's split). The block's
+input enters each through `copy_to_tensor_region`; proj and fc2 give
+partial sums without their biases, which `reduce_from_tensor_region` adds
+over the ranks in fp32 before the bias and one rounding. The dropout masks
+are the one-process step's: attention's hash keyed by the global head
+(`heads_total`, `head0`), the hidden dropout this rank's columns of the
+whole draw, every draw after a reduce (proj and post-fc2 dropout, DropPath)
+made whole on each rank from generators the ranks share.
 """
 
 from __future__ import annotations
@@ -55,6 +67,18 @@ from exploremultimodal_torch.ops.stochastic import (
     dropout_threshold16,
     fast_dropout,
 )
+from exploremultimodal_torch.parallel.collectives import TensorAxis
+
+
+def _share(tensor: TensorAxis | None) -> tuple[int, int] | None:
+    return None if tensor is None else (tensor.rank, tensor.size)
+
+
+def _partial_linear(layer: Linear, x: torch.Tensor, tensor: TensorAxis) -> torch.Tensor:
+    """A row-parallel layer: this rank's product without the bias, summed
+    over the tensor group, then the bias (`Linear`'s dtype)."""
+    dt = layer.dtype
+    return tensor.reduce(F.linear(x.to(dt), layer.weight.to(dt))) + layer.bias.to(dt)
 
 ROUTES = ("v", "l", "vl")
 
@@ -78,7 +102,10 @@ class Mlp(nn.Module):
     hidden dropout inside it), whose fc1/fc2 weights stay fp32 in every
     compute dtype because JAX's int8 MLP quantizes its fp32 parameters;
     'none' with `mlp_impl='fused'` where `fits_vmem` admits the shape -> the
-    bf16 fused kernel; else two `dense` layers with erf gelu."""
+    bf16 fused kernel; else two `dense` layers with erf gelu. The route is
+    chosen at the whole hidden, so a tensor rank's share of it takes the
+    same one; the fused kernel then runs in its partial mode (fp32, no b2),
+    and the unfused fc2 without its bias, before the reduce."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
                  mlp_impl: str = "xla", drop_rate: float = 0.0,
@@ -95,20 +122,33 @@ class Mlp(nn.Module):
         else:
             self.fc1 = dense(mode, dim, hidden_dim, dtype=dtype)
             self.fc2 = dense(mode, hidden_dim, dim, dtype=dtype)
+        self.tensor: TensorAxis | None = None
 
     def forward(self, x: torch.Tensor, rng: StepRng | None = None) -> torch.Tensor:
+        tp = self.tensor
+        if tp is not None:
+            x = tp.copy(x)
         if self.int8 or self.fused:
             # the hidden dropout inside the kernel, from uint16 bits drawn
             # here (JAX's `fused_*_mlp_dropout`), then the post-fc2 one
             t = dropout_threshold16(self.drop_rate) if rng is not None else 0
-            bits = (bits16(rng, x.shape[:-1] + (self.fc1.out_features,), x.device)
-                    if t > 0 else None)
-            mlp = w8a8_mlp if self.int8 else fused_mlp
-            y = mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
-                    self.fc2.weight, self.fc2.bias, bits, t)
+            # this rank's hidden columns (the weight's rows; `out_features`
+            # stays the whole hidden)
+            shape = x.shape[:-1] + (self.fc1.weight.shape[0],)
+            bits = (None if t == 0 else bits16(rng, shape, x.device) if tp is None
+                    else bits16(rng, shape, x.device, share=_share(tp)))
+            if tp is None:
+                mlp = w8a8_mlp if self.int8 else fused_mlp
+                y = mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
+                        self.fc2.weight, self.fc2.bias, bits, t)
+            else:
+                part = fused_mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
+                                 self.fc2.weight, None, bits, t)
+                y = (tp.reduce(part) + self.fc2.bias.float()).to(x.dtype)
             return fast_dropout(y, self.drop_rate, rng)
-        h = fast_dropout(F.gelu(self.fc1(x)), self.drop_rate, rng)
-        return fast_dropout(self.fc2(h), self.drop_rate, rng)
+        h = fast_dropout(F.gelu(self.fc1(x)), self.drop_rate, rng, _share(tp))
+        y = self.fc2(h) if tp is None else _partial_linear(self.fc2, h, tp)
+        return fast_dropout(y, self.drop_rate, rng)
 
 
 class Attention(nn.Module):
@@ -127,19 +167,27 @@ class Attention(nn.Module):
         self.q_bias = nn.Parameter(torch.zeros(dim))
         self.v_bias = nn.Parameter(torch.zeros(dim))
         self.proj = dense(site_mode(quantize, "proj"), dim, dim, dtype=dtype)
+        # under tensor parallelism: heads head0 .. head0 + H/T - 1 of H
+        self.tensor: TensorAxis | None = None
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor | None,
                 rng: StepRng | None = None) -> torch.Tensor:
         b, n, c = x.shape
-        h, hd = self.num_heads, c // self.num_heads
+        tp = self.tensor
+        hd = c // self.num_heads
+        h = self.num_heads if tp is None else self.num_heads // tp.size
+        if tp is not None:
+            x = tp.copy(x)
         qkv = self.qkv(x).reshape(b, n, 3, h, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
         q = q + self.q_bias.reshape(h, 1, hd).to(q.dtype)
         v = v + self.v_bias.reshape(h, 1, hd).to(v.dtype)
+        heads = {} if tp is None else {"heads_total": self.num_heads, "head0": tp.rank * h}
         out = multi_head_attention(q, k, v, bias=bias, scale=hd ** -0.5,
                                    dropout_rate=self.attn_drop,
-                                   dropout_rng=rng, impl=self.impl)
-        out = self.proj(out.transpose(1, 2).reshape(b, n, c))
+                                   dropout_rng=rng, impl=self.impl, **heads)
+        out = out.transpose(1, 2).reshape(b, n, h * hd)
+        out = self.proj(out) if tp is None else _partial_linear(self.proj, out, tp)
         return fast_dropout(out, self.proj_drop, rng)
 
 

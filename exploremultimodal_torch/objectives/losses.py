@@ -209,10 +209,11 @@ def itc_losses(i_feat, t_feat, temp, text_mask, momentum_feats: dict | None = No
         i_all, t_all = (mf[k].to(i_feat.dtype).T for k in ("i_feat_m", "t_feat_m"))
         targets, n_pos_cols = rows + pos_offset, i_all.shape[1]
         if axis is not None:
-            # each process's microbatch rows in the whole batch's columns
-            per = n_pos_cols // axis.size
-            first = pos_offset - axis.rank * per
-            cols = (torch.arange(axis.size, device=i_feat.device)[:, None] * per + first
+            # the (micro)batch's rows in the whole batch's columns: each
+            # process's bs rows follow the previous one's (the trainer's
+            # microbatch i is global rows i B_g / A + rank * bs + j)
+            first = pos_offset - axis.rank * bs
+            cols = (torch.arange(axis.size, device=i_feat.device)[:, None] * bs + first
                     + rows[None]).reshape(-1)
         if queue is not None:
             i_all = torch.cat([i_all, queue["img"].to(i_feat.dtype)], dim=1)

@@ -40,9 +40,14 @@ def key_padding_bias(mask: torch.Tensor | None) -> torch.Tensor | None:
 def multi_head_attention(q, k, v, *, bias=None, scale: float | None = None,
                          dropout_rate: float = 0.0,
                          dropout_rng: StepRng | None = None,
-                         impl: str = "recompute"):
+                         impl: str = "recompute", heads_total: int | None = None,
+                         head0: int = 0):
     """q, k, v: (B, H, N, D) -> (B, H, N, D). Attention dropout is live
-    when `dropout_rate` > 0 and a step's `dropout_rng` is given."""
+    when `dropout_rate` > 0 and a step's `dropout_rng` is given. Under
+    tensor parallelism the H heads are head0 .. head0 + H - 1 of each row's
+    `heads_total`, and the dropout masks are those of the whole call's
+    heads: the hash keyed by the global head, or the plain chain's draw of
+    every head, of which this call keeps its own."""
     if impl not in IMPLS:
         raise ValueError(f"attn_impl {impl!r} not in {IMPLS}")
     if scale is None:
@@ -56,15 +61,18 @@ def multi_head_attention(q, k, v, *, bias=None, scale: float | None = None,
             return flash_attention(q, k, v, bias=bias, scale=scale,
                                    dropout_rate=dropout_rate,
                                    dropout_seed=dropout_rng.attention_seed(),
-                                   row_index=dropout_rng.row_index(q.shape[0], q.device))
+                                   row_index=dropout_rng.row_index(q.shape[0], q.device),
+                                   heads_total=heads_total, head0=head0)
         return flash_attention(q, k, v, bias=bias, scale=scale)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         scores = scores + bias.to(scores.dtype)
     probs = torch.softmax(scores.to(v.dtype).float(), dim=-1)
     if use_dropout:
-        keep = torch.rand(probs.shape, generator=dropout_rng.generator,
-                          device=probs.device) < 1.0 - dropout_rate
+        b, h, n, m = probs.shape
+        draw = (b, h if heads_total is None else heads_total, n, m)
+        keep = torch.rand(draw, generator=dropout_rng.generator,
+                          device=probs.device)[:, head0:head0 + h] < 1.0 - dropout_rate
         probs = torch.where(keep, probs / (1.0 - dropout_rate),
                             torch.zeros_like(probs))
     return torch.matmul(probs.to(v.dtype), v)

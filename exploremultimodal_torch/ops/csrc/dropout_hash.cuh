@@ -4,7 +4,8 @@
 // (seed, batch*head, query row, key column), so the backward regenerates the
 // forward's mask and it never reaches device memory. The batch*head is the
 // head's index in JAX's global batch (`dropout_head`): a process that runs
-// its share of the batch passes each row's global index. All arithmetic is
+// its share of the batch passes each row's global index, and one that holds
+// a share of the heads passes their offset and the heads' total. All arithmetic is
 // uint32 with wraparound, as in the JAX kernels.
 #pragma once
 
@@ -22,13 +23,17 @@ __device__ __forceinline__ DropKeys dropout_keys(int32_t seed, int bh) {
   return {(s ^ (b * 0x9E3779B9u)) | 1u, (s * 0x85EBCA6Bu) ^ (b + 0x165667B1u)};
 }
 
-// The batch*head that keys head `bh` of a call of `heads` heads a row: bh
-// itself without a row index, else the head's index in the global batch,
-// row_index[bh / heads] * heads + bh % heads. Read once per head, for the
-// key only; nothing is addressed by it.
-__device__ __forceinline__ int dropout_head(const int32_t* row_index, int bh,
-                                            int heads) {
-  return row_index == nullptr ? bh : row_index[bh / heads] * heads + bh % heads;
+// The batch*head that keys head `bh` of a call of `heads` heads a row:
+// (row_index ? row_index[b] : b) * heads_total + head0 + h, b = bh / heads,
+// h = bh % heads. A rank that holds heads head0 .. head0 + heads - 1 of the
+// `heads_total` heads of each row (tensor parallelism) keys them by their
+// global index; with heads_total = heads and head0 = 0 it is bh itself
+// without a row index, else the head's index in the global batch. Read once
+// per head, for the key only; nothing is addressed by it.
+__device__ __forceinline__ int dropout_head(const int32_t* row_index, int bh, int heads,
+                                            int heads_total, int head0) {
+  const int b = bh / heads, h = bh % heads;
+  return (row_index == nullptr ? b : row_index[b]) * heads_total + head0 + h;
 }
 
 // counter = row * 2^16 + col, avalanched by three murmur rounds

@@ -315,8 +315,9 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
 // K, V (mc unused); reads delta; writes dk (out0) and dv (out1). Every map
 // is over (D, n, bh) in (64, 64, 1) boxes. bias (bh / heads, n) fp32; lse
 // (bh, n) fp32; seed one int32 on the device (DROP) and row_index null or
-// (bh / heads) int32, each row's global index, which keys its heads' masks
-// (`dropout_head`). `nt` is n rounded up
+// (bh / heads) int32, each row's global index, which with the heads' offset
+// head0 and total heads_total keys its heads' masks (`dropout_head`). `nt`
+// is n rounded up
 // to 16, TAIL = nt % 64 the width of the last slab; with GROUPS a work unit
 // is a head and `tpg` of its 64-row tiles (group blockIdx.y), else a whole
 // head (the loop of every shape whose heads fill the card: with t0 and t1
@@ -332,7 +333,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                      const float* __restrict__ lse, float* __restrict__ delta,
                      const int32_t* __restrict__ seed, const int32_t* __restrict__ row_index,
                      bf16* __restrict__ out0, bf16* __restrict__ out1, int bh_total, int n,
-                     int nt, int heads, int tpg, float scale, uint32_t thr, float drop_scale) {
+                     int nt, int heads, int heads_total, int head0, int tpg, float scale,
+                     uint32_t thr, float drop_scale) {
   const Layout L = layout(nt, ROLE);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -424,7 +426,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
     mbar_wait(hfull0 + 8 * s, (i / L.hs) & 1);
     const uint32_t sx = base + s * L.head, sy = sx + L.head / 2;
     const float* v = svec + s * vstride;
-    c.key = DROP ? emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads))
+    c.key = DROP ? emm::dropout_keys(
+                       sd, emm::dropout_head(row_index, bh, heads, heads_total, head0))
                  : emm::DropKeys{0u, 0u};
     const size_t hbase = (size_t)bh * n;
     for (int t = t0; t < t1; ++t, ++u) {
@@ -507,8 +510,8 @@ template <int ROLE, int TAIL, bool DROP, bool GROUPS>
 int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
                const CUtensorMap& b, const CUtensorMap& c, const float* bias, const float* lse,
                float* delta, const int32_t* seed, const int32_t* rix, bf16* out0, bf16* out1,
-               int bh, int n, int nt, int heads, int grid, int tpg, float scale, uint32_t thr,
-               float drop_scale, cudaStream_t stream) {
+               int bh, int n, int nt, int heads, int heads_total, int head0, int grid, int tpg,
+               float scale, uint32_t thr, float drop_scale, cudaStream_t stream) {
   const int smem = layout(nt, ROLE).smem;
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -516,8 +519,8 @@ int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
   const int groups = ((n + BOX - 1) / BOX + tpg - 1) / tpg;
   attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>
       <<<dim3(grid, groups), THREADS, smem, stream>>>(
-      x, y, a, b, c, bias, lse, delta, seed, rix, out0, out1, bh, n, nt, heads, tpg, scale,
-      thr, drop_scale);
+      x, y, a, b, c, bias, lse, delta, seed, rix, out0, out1, bh, n, nt, heads, heads_total,
+      head0, tpg, scale, thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,36 +528,38 @@ int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
 template <int TAIL, bool DROP, bool GROUPS>
 int launch(const CUtensorMap (&m)[5], const float* bias, const int32_t* seed,
            const int32_t* rix, const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
-           int bh, int heads, int n, int nt, int grid, int tpg, float scale, uint32_t thr,
-           float drop_scale, cudaStream_t st) {
+           int bh, int heads, int heads_total, int head0, int n, int nt, int grid, int tpg,
+           float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
   enum { Q, K, V, O, DO };
   int rc = launch_one<DQ, TAIL, DROP, GROUPS>(m[K], m[V], m[Q], m[DO], m[O], bias, lse, delta,
-                                              seed, rix, dq, nullptr, bh, n, nt, heads, grid,
-                                              tpg, scale, thr, drop_scale, st);
+                                              seed, rix, dq, nullptr, bh, n, nt, heads,
+                                              heads_total, head0, grid, tpg, scale, thr,
+                                              drop_scale, st);
   if (rc != 0) return rc;
   return launch_one<DKDV, TAIL, DROP, GROUPS>(m[Q], m[DO], m[K], m[V], m[V], bias, lse, delta,
-                                              seed, rix, dk, dv, bh, n, nt, heads, grid, tpg,
-                                              scale, thr, drop_scale, st);
+                                              seed, rix, dk, dv, bh, n, nt, heads, heads_total,
+                                              head0, grid, tpg, scale, thr, drop_scale, st);
 }
 
 // launch<nt % 64, DROP, GROUPS>, GROUPS where a unit is less than a head
 template <bool DROP, bool GROUPS>
 int dispatch(const CUtensorMap (&m)[5], const float* b, const int32_t* sd, const int32_t* rix,
-             const float* l, float* d, bf16* q, bf16* k, bf16* v, int bh, int heads, int n,
-             int nt, int grid, int tpg, float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
+             const float* l, float* d, bf16* q, bf16* k, bf16* v, int bh, int heads,
+             int heads_total, int head0, int n, int nt, int grid, int tpg, float scale,
+             uint32_t thr, float drop_scale, cudaStream_t st) {
   switch (nt % BOX) {
     case 0:
-      return launch<0, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                     scale, thr, drop_scale, st);
+      return launch<0, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
+                                     n, nt, grid, tpg, scale, thr, drop_scale, st);
     case 16:
-      return launch<16, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                      scale, thr, drop_scale, st);
+      return launch<16, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
+                                      n, nt, grid, tpg, scale, thr, drop_scale, st);
     case 32:
-      return launch<32, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                      scale, thr, drop_scale, st);
+      return launch<32, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
+                                      n, nt, grid, tpg, scale, thr, drop_scale, st);
     default:
-      return launch<48, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                      scale, thr, drop_scale, st);
+      return launch<48, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
+                                      n, nt, grid, tpg, scale, thr, drop_scale, st);
   }
 }
 
@@ -585,8 +590,10 @@ extern "C" int flash_attention_bwd_sm90_smem(int nt, int role) {
 // int32 on the device, with which it keeps the forward's dropout (where the
 // hash bits are >= threshold, scaled by drop_scale); row_index: null (each
 // row's own index), or (bh / heads) int32 on the device, each row's index in
-// the global batch, which keys its heads' masks (with a seed only); lse (bh, n) fp32 from
-// the forward; delta (bh, n) fp32 scratch; dq, dk, dv (bh, n, 64) bf16.
+// the global batch, which keys its heads' masks (with a seed only);
+// heads_total, head0: the call holds heads head0 .. head0 + heads - 1 of
+// each row's heads_total (tensor parallelism), which key the masks by their
+// global index (heads and 0 otherwise); lse (bh, n) fp32 from the forward; delta (bh, n) fp32 scratch; dq, dk, dv (bh, n, 64) bf16.
 // `nt`: the key width, n rounded up to 16 (n <= nt <= 512); `tpg`: 64-row
 // tiles per work unit (>= 1); `grid`: persistent CTAs per tile group,
 // 1..bh (the launch has ceil(ceil(n / 64) / tpg) groups along y).
@@ -596,11 +603,13 @@ extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const vo
                                         const void* mo, const void* mdo, const void* bias,
                                         const void* seed, const void* row_index,
                                         const void* lse, void* delta, void* dq,
-                                        void* dk, void* dv, int bh, int heads, int n, int nt,
-                                        int grid, int tpg, float scale, unsigned threshold,
+                                        void* dk, void* dv, int bh, int heads,
+                                        int heads_total, int head0, int n, int nt, int grid,
+                                        int tpg, float scale, unsigned threshold,
                                         float drop_scale, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > MAX_NT ||
-      nt % 16 != 0 || tpg <= 0 || grid <= 0 || grid > bh ||
+      nt % 16 != 0 || tpg <= 0 || grid <= 0 || grid > bh || head0 < 0 ||
+      head0 + heads > heads_total ||
       (row_index != nullptr && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[5];
@@ -617,12 +626,13 @@ extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const vo
   const auto st = static_cast<cudaStream_t>(stream);
   const bool groups = tpg < (n + BOX - 1) / BOX;
   if (sd == nullptr)
-    return groups ? dispatch<false, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                          scale, 0u, 1.f, st)
-                  : dispatch<false, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid,
-                                           tpg, scale, 0u, 1.f, st);
-  return groups ? dispatch<true, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                       scale, threshold, drop_scale, st)
-                : dispatch<true, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, n, nt, grid, tpg,
-                                        scale, threshold, drop_scale, st);
+    return groups ? dispatch<false, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
+                                          head0, n, nt, grid, tpg, scale, 0u, 1.f, st)
+                  : dispatch<false, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
+                                           head0, n, nt, grid, tpg, scale, 0u, 1.f, st);
+  return groups ? dispatch<true, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
+                                       head0, n, nt, grid, tpg, scale, threshold, drop_scale, st)
+                : dispatch<true, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
+                                        head0, n, nt, grid, tpg, scale, threshold, drop_scale,
+                                        st);
 }

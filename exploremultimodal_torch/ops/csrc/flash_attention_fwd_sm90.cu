@@ -257,7 +257,8 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mv, const float* __restrict__ bias,
                      bf16* __restrict__ out, float* __restrict__ lse, int bh_total, int n,
                      int heads, float scale_log2, const int32_t* __restrict__ seed,
-                     const int32_t* __restrict__ row_index, uint32_t thr, float drop_scale) {
+                     const int32_t* __restrict__ row_index, int heads_total, int head0,
+                     uint32_t thr, float drop_scale) {
   using C = Cfg<NT>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -315,7 +316,8 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   for (int bh = blockIdx.x; bh < bh_total; bh += gridDim.x) {
     mbar_wait(full0 + 8 * s, phase);
     const uint32_t sq = base + s * C::SLOT;
-    if constexpr (DROP) drop.key = emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads));
+    if constexpr (DROP)
+      drop.key = emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads, heads_total, head0));
     for (int t = 0; t < tiles; ++t, ++u) {
       if ((u & 1) != w) continue;
       attend<NT, DROP>(sq + t * 64 * D * 2, sq + C::TILE, sq + 2 * C::TILE, sbias + s * C::NTB,
@@ -332,7 +334,8 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 template <int NT, bool DROP>
 int launch(const void* mq, const void* mk, const void* mv, const void* bias, void* out,
            void* lse, int bh, int heads, int n, int grid, float scale, const void* seed,
-           const void* row_index, uint32_t thr, float drop_scale, void* stream) {
+           const void* row_index, int heads_total, int head0, uint32_t thr, float drop_scale,
+           void* stream) {
   CUtensorMap q, k, v;
   memcpy(&q, mq, sizeof(q));
   memcpy(&k, mk, sizeof(k));
@@ -345,8 +348,8 @@ int launch(const void* mq, const void* mk, const void* mv, const void* bias, voi
       <<<grid, THREADS, Cfg<NT>::SMEM, static_cast<cudaStream_t>(stream)>>>(
           q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<float*>(lse), bh, n, heads, scale * LOG2E,
-          static_cast<const int32_t*>(seed), static_cast<const int32_t*>(row_index), thr,
-          drop_scale);
+          static_cast<const int32_t*>(seed), static_cast<const int32_t*>(row_index),
+          heads_total, head0, thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -365,15 +368,17 @@ void for_widths(int nt, Fn fn) {
 template <bool DROP>
 int dispatch(const void* mq, const void* mk, const void* mv, const void* bias, void* out,
              void* lse, int bh, int heads, int n, int nt, int grid, float scale,
-             const void* seed, const void* row_index, uint32_t thr, float drop_scale,
-             void* stream) {
-  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || grid <= 0 || grid > bh)
+             const void* seed, const void* row_index, int heads_total, int head0, uint32_t thr,
+             float drop_scale, void* stream) {
+  if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || grid <= 0 ||
+      grid > bh || head0 < 0 || head0 + heads > heads_total)
     return static_cast<int>(cudaErrorInvalidValue);
   const int key_width = nt;  // the instantiation that runs
   int rc = static_cast<int>(cudaErrorInvalidValue);
   for_widths(key_width, [&](auto w) {
     rc = launch<decltype(w)::value, DROP>(mq, mk, mv, bias, out, lse, bh, heads, n, grid, scale,
-                                          seed, row_index, thr, drop_scale, stream);
+                                          seed, row_index, heads_total, head0, thr, drop_scale,
+                                          stream);
   });
   return rc;
 }
@@ -409,16 +414,19 @@ extern "C" int flash_attention_fwd_sm90_smem(int nt) {
 // (min(int(rate * 2^32), 2^32 - 1)) and then scaled by `drop_scale`.
 // row_index: null (each row's own index), or (bh / heads) int32 on the
 // device, each row's index in the global batch, which keys its heads' masks
-// (`dropout_head`); row 3 only. Launches on `stream`; returns the launch's
-// cudaError_t.
+// (`dropout_head`); row 3 only. heads_total, head0: the call holds heads
+// head0 .. head0 + heads - 1 of each row's heads_total (tensor parallelism),
+// which key the masks by their global index; heads and 0 otherwise.
+// Launches on `stream`; returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd_sm90(const void* mq, const void* mk, const void* mv,
                                         const void* bias, const void* seed,
                                         const void* row_index, void* out, void* lse, int bh,
-                                        int heads, int n, int nt, int grid, float scale,
-                                        unsigned threshold, float drop_scale, void* stream) {
+                                        int heads, int heads_total, int head0, int n, int nt,
+                                        int grid, float scale, unsigned threshold,
+                                        float drop_scale, void* stream) {
   return seed == nullptr
              ? dispatch<false>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale,
-                               nullptr, nullptr, 0u, 1.f, stream)
+                               nullptr, nullptr, heads_total, head0, 0u, 1.f, stream)
              : dispatch<true>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
-                              row_index, threshold, drop_scale, stream);
+                              row_index, heads_total, head0, threshold, drop_scale, stream);
 }

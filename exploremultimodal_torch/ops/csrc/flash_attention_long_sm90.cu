@@ -177,7 +177,8 @@ struct Ring {
 // c + gridDim.x, ... scale_log2 = scale * log2(e). With DROP, seed is one
 // int32 on the device; a (row, key) is kept where its hash bits are >=
 // thr, then scaled by drop_scale; row_index (null or bh / heads int32)
-// gives each row's global index, which keys its heads' masks.
+// gives each row's global index and head0 / heads_total the heads' offset
+// and total, which key its heads' masks (`dropout_head`).
 template <bool LSE, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
@@ -186,8 +187,8 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                         const float* __restrict__ bias, bf16* __restrict__ out,
                         float* __restrict__ lse, int n, int heads, int tiles, int items,
                         float scale_log2, const int32_t* __restrict__ seed,
-                        const int32_t* __restrict__ row_index, uint32_t thr,
-                        float drop_scale) {
+                        const int32_t* __restrict__ row_index, int heads_total,
+                        int head0, uint32_t thr, float drop_scale) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -261,7 +262,8 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     // rows 16 warp + g (h = 0) and + 8 (h = 1) of this warpgroup's 64
     const int row0 = (item % tiles) * BQ + 64 * w + 16 * warp + g;
     emm::DropKeys key{0u, 0u};
-    if constexpr (DROP) key = emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads));
+    if constexpr (DROP)
+      key = emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads, heads_total, head0));
     // DROP: block j's keep bits, bit i % 32 of kb[i / 32] for score
     // register i (row row0 + 8 ((i >> 1) & 1), key 8 (i >> 2) + 2 qd + (i &
     // 1) of the block), hashed while the scores are not live (before the
@@ -409,8 +411,8 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 template <bool LSE, bool DROP>
 int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const void* bias,
            void* out, void* lse, int heads, int n, int tiles, int items, int grid, float scale,
-           const void* seed, const void* row_index, uint32_t thr, float drop_scale,
-           void* stream) {
+           const void* seed, const void* row_index, int heads_total, int head0, uint32_t thr,
+           float drop_scale, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(attn_stream_sm90_kernel<LSE, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -418,8 +420,8 @@ int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, con
       <<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
           q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<float*>(lse), n, heads, tiles, items, scale * LOG2E,
-          static_cast<const int32_t*>(seed), static_cast<const int32_t*>(row_index), thr,
-          drop_scale);
+          static_cast<const int32_t*>(seed), static_cast<const int32_t*>(row_index),
+          heads_total, head0, thr, drop_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -449,14 +451,19 @@ extern "C" int flash_attention_long_sm90_smem() { return SMEM; }
 // hash bits are >= `threshold` (min(int(rate * 2^32), 2^32 - 1)) and then
 // scaled by `drop_scale`; it needs an lse. row_index: null (each row's own
 // index), or (bh / heads) int32 on the device, each row's index in the
-// global batch, which keys its heads' masks (row 3 only). Launches on
-// `stream`; returns the launch's cudaError_t.
+// global batch, which keys its heads' masks (row 3 only). heads_total,
+// head0: the call holds heads head0 .. head0 + heads - 1 of each row's
+// heads_total (tensor parallelism), which key the masks by their global
+// index; heads and 0 otherwise. Launches on `stream`; returns the launch's
+// cudaError_t.
 extern "C" int flash_attention_long_sm90(const void* mq, const void* mk, const void* mv,
                                          const void* bias, const void* seed,
                                          const void* row_index, void* out, void* lse, int bh,
-                                         int heads, int n, int tiles, int grid, float scale,
-                                         unsigned threshold, float drop_scale, void* stream) {
+                                         int heads, int heads_total, int head0, int n,
+                                         int tiles, int grid, float scale, unsigned threshold,
+                                         float drop_scale, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || tiles != (n + BQ - 1) / BQ ||
+      head0 < 0 || head0 + heads > heads_total ||
       (long long)bh * tiles > 0x7fffffff || grid <= 0 || grid > bh * tiles ||
       (seed != nullptr && lse == nullptr) || (row_index != nullptr && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -467,10 +474,12 @@ extern "C" int flash_attention_long_sm90(const void* mq, const void* mk, const v
   const int items = bh * tiles;
   if (lse == nullptr)
     return launch<false, false>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
-                                seed, nullptr, threshold, drop_scale, stream);
+                                seed, nullptr, heads_total, head0, threshold, drop_scale,
+                                stream);
   if (seed == nullptr)
     return launch<true, false>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
-                               seed, nullptr, threshold, drop_scale, stream);
+                               seed, nullptr, heads_total, head0, threshold, drop_scale,
+                               stream);
   return launch<true, true>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale, seed,
-                            row_index, threshold, drop_scale, stream);
+                            row_index, heads_total, head0, threshold, drop_scale, stream);
 }

@@ -44,6 +44,12 @@
 //     over `splits` CTAs per tile (grid.y); each writes an fp32 partial of y
 //     and `mlp_sum_splits` adds them in a fixed order, adds b2 and rounds:
 //     deterministic, no atomics.
+//   - Partial mode (tensor parallelism: this rank's share of the hidden,
+//     whose fc2 is row-parallel): y is the fp32 (m, 768) sum over the
+//     given hidden without b2, unrounded, for the all-reduce to add to the
+//     other ranks' before b2 and the one rounding. At one split the kernel
+//     stores its accumulator into y; at more, `mlp_sum_splits<true>` adds
+//     the splits' partials into y.
 //   - Ragged M: TMA fills rows past M with zeros, and stores are guarded.
 //   - DROP: each chunk's 64 x 64 tile of bits (8 KB, 128-byte rows) comes
 //     by TMA through a 2D map over the caller's (M, hidden) int16 bits, in
@@ -302,9 +308,11 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
   }
 }
 
-// y = bf16(sum over splits of part[s] + b2), the splits added in order
+// y = bf16(sum over splits of part[s] + b2), the splits added in order;
+// PARTIAL: y = the fp32 sum, without b2
+template <bool PARTIAL>
 __global__ void mlp_sum_splits(const float4* __restrict__ part, const float* __restrict__ b2,
-                               bf16* __restrict__ y, int m, int splits) {
+                               void* __restrict__ y, int m, int splits) {
   const size_t n4 = (size_t)m * (N / 4);
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
@@ -316,10 +324,15 @@ __global__ void mlp_sum_splits(const float4* __restrict__ part, const float* __r
     s.z += v.z;
     s.w += v.w;
   }
-  const int col = static_cast<int>((i * 4) % N);
-  const float4 b = *reinterpret_cast<const float4*>(b2 + col);
-  const uint2 out = make_uint2(pack_bf16(s.x + b.x, s.y + b.y), pack_bf16(s.z + b.z, s.w + b.w));
-  *reinterpret_cast<uint2*>(y + i * 4) = out;
+  if constexpr (PARTIAL) {
+    static_cast<float4*>(y)[i] = s;
+  } else {
+    const int col = static_cast<int>((i * 4) % N);
+    const float4 b = *reinterpret_cast<const float4*>(b2 + col);
+    const uint2 out =
+        make_uint2(pack_bf16(s.x + b.x, s.y + b.y), pack_bf16(s.z + b.z, s.w + b.w));
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(y) + i * 4) = out;
+  }
 }
 
 }  // namespace
@@ -340,9 +353,10 @@ namespace {
 template <bool DROP>
 int launch(const void* mx, const void* mw1, const void* mw2, const void* mbits,
            const void* b1, const void* b2, void* y, void* part, int m, int hdim, int splits,
-           int thr, float keep_scale, void* stream) {
+           int partial, int thr, float keep_scale, void* stream) {
   if (m <= 0 || hdim <= 0 || splits <= 0 || hdim % (HC * splits) != 0 ||
-      (splits > 1 && part == nullptr) || (DROP && (thr <= 0 || thr >= 65536)))
+      (splits > 1 && part == nullptr) || (!partial && b2 == nullptr) ||
+      (DROP && (thr <= 0 || thr >= 65536)))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap x, w1, w2, bits;
   memcpy(&x, mx, sizeof(x));
@@ -356,16 +370,22 @@ int launch(const void* mx, const void* mw1, const void* mw2, const void* mbits,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int tiles = (m + BM - 1) / BM;
   tiles += (CL - tiles % CL) % CL;  // whole clusters; spare CTAs store nothing
+  // the kernel's fp32 partials: the splits' scratch, or in partial mode at
+  // one split y itself; none where it rounds y
+  float* kpart = static_cast<float*>(splits > 1 ? part : partial ? y : nullptr);
   mlp_sm90_kernel<DROP><<<dim3(tiles, splits), THREADS, smem, st>>>(
       x, w1, w2, bits, static_cast<const float*>(b1), static_cast<const float*>(b2),
-      static_cast<bf16*>(y), splits > 1 ? static_cast<float*>(part) : nullptr, m,
-      hdim / HC / splits, thr, keep_scale);
+      static_cast<bf16*>(y), kpart, m, hdim / HC / splits, thr, keep_scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const size_t n4 = (size_t)m * (N / 4);
-  mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, st>>>(
-      static_cast<const float4*>(part), static_cast<const float*>(b2), static_cast<bf16*>(y),
-      m, splits);
+  const unsigned blocks = static_cast<unsigned>((n4 + 255) / 256);
+  if (partial)
+    mlp_sum_splits<true><<<blocks, 256, 0, st>>>(static_cast<const float4*>(part), nullptr, y,
+                                                  m, splits);
+  else
+    mlp_sum_splits<false><<<blocks, 256, 0, st>>>(static_cast<const float4*>(part),
+                                                   static_cast<const float*>(b2), y, m, splits);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,24 +395,25 @@ int launch(const void* mx, const void* mw1, const void* mw2, const void* mbits,
 // hidden), each in 64 x 64 boxes (from
 // `fused_mlp_sm90_encode`, host memory); b1 (hidden), b2 (768) fp32; y (m,
 // 768) bf16. With splits > 1, `part` is fp32 scratch of splits x m x 768.
-// hidden % (64 splits) == 0. Launches on `stream`; returns the first
-// launch error.
+// hidden % (64 splits) == 0. With `partial` set, y is fp32 (m, 768): the
+// sum over this hidden without b2 (which may be null), unrounded.
+// Launches on `stream`; returns the first launch error.
 extern "C" int fused_mlp_sm90(const void* mx, const void* mw1, const void* mw2, const void* b1,
                               const void* b2, void* y, void* part, int m, int hdim, int splits,
-                              void* stream) {
-  return launch<false>(mx, mw1, mw2, nullptr, b1, b2, y, part, m, hdim, splits, 0, 0.f,
-                       stream);
+                              int partial, void* stream) {
+  return launch<false>(mx, mw1, mw2, nullptr, b1, b2, y, part, m, hdim, splits, partial, 0,
+                       0.f, stream);
 }
 
 // As fused_mlp_sm90 with the hidden dropout of `_mlp_dropout_kernel`:
 // mbits maps the (m, hidden) int16 bits (u - 32768 for uint16 draws u) in
 // 64 x 64 boxes, as `fused_mlp_sm90_encode` encodes any 2-byte matrix; an
 // element is kept where u >= threshold (0 < threshold < 65536) and then
-// scaled by keep_scale = 65536 / (65536 - threshold).
+// scaled by keep_scale = 65536 / (65536 - threshold); `partial` as there.
 extern "C" int fused_mlp_sm90_drop(const void* mx, const void* mw1, const void* mw2,
                                    const void* mbits, const void* b1, const void* b2, void* y,
-                                   void* part, int m, int hdim, int splits, int threshold,
-                                   float keep_scale, void* stream) {
-  return launch<true>(mx, mw1, mw2, mbits, b1, b2, y, part, m, hdim, splits, threshold,
-                      keep_scale, stream);
+                                   void* part, int m, int hdim, int splits, int partial,
+                                   int threshold, float keep_scale, void* stream) {
+  return launch<true>(mx, mw1, mw2, mbits, b1, b2, y, part, m, hdim, splits, partial,
+                      threshold, keep_scale, stream);
 }

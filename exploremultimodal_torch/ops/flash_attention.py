@@ -76,12 +76,13 @@ PAD_MULTIPLE = 128  # JAX pads N to its query block, BLOCK_Q; the routes read th
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each forward's one entry: maps, bias, seed (null without dropout), row
-# index (null: each row's own), out, lse (null for row 5), shape ints, then
-# scale, threshold, factor, stream
-_FWD_LONG_ARGS = [_P] * 8 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
-_FWD_SM90_ARGS = [_P] * 8 + [_I] * 5 + [_F, ctypes.c_uint32, _F, _P]
+# index (null: each row's own), out, lse (null for row 5), shape ints (bh,
+# heads, the heads' total and first index, ...), then scale, threshold,
+# factor, stream
+_FWD_LONG_ARGS = [_P] * 8 + [_I] * 7 + [_F, ctypes.c_uint32, _F, _P]
+_FWD_SM90_ARGS = [_P] * 8 + [_I] * 7 + [_F, ctypes.c_uint32, _F, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
-_BWD_SM90_ARGS = [_P] * 13 + [_I] * 6 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_SM90_ARGS = [_P] * 13 + [_I] * 8 + [_F, ctypes.c_uint32, _F, _P]
 
 
 # ------------------------------------------------------------- dropout hash
@@ -103,30 +104,40 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     return (lo * c + (((hi * c) & 0xFFFF) << 16)) & 0xFFFFFFFF
 
 
-def dropout_heads(bh: int, row_index: torch.Tensor | None,
-                  device: torch.device) -> torch.Tensor:
-    """(bh,) int64: the batch*head that keys each head's mask. Without a
-    `row_index`, the head's own index bh; with one ((B,) int32, each row's
-    index in the global batch, B dividing bh), row_index[bh // H] * H +
-    bh % H, H = bh // B: the head's index in JAX's global batch
-    (`dropout_head` in csrc/dropout_hash.cuh)."""
+def dropout_heads(bh: int, row_index: torch.Tensor | None, device: torch.device,
+                  batch: int | None = None, heads_total: int | None = None,
+                  head0: int = 0) -> torch.Tensor:
+    """(bh,) int64: the batch*head that keys each head's mask
+    (`dropout_head` in csrc/dropout_hash.cuh). The call's bh heads are B
+    rows of H = bh // B heads (B: `row_index`'s length, else `batch`); its
+    head h of row b keys (row_index[b] or b) * heads_total + head0 + h, the
+    head's index in JAX's global batch: `row_index` ((B,) int32) gives each
+    row's index in the global batch, `heads_total` (default H) and `head0`
+    (default 0) the heads a rank holds under tensor parallelism, head0 ..
+    head0 + H - 1 of each row's heads_total. By default each head's own
+    index bh."""
     b = torch.arange(bh, dtype=torch.int64, device=device)
-    if row_index is None:
+    if row_index is None and heads_total is None:
         return b
-    heads = bh // row_index.numel()
-    return row_index.to(device=device, dtype=torch.int64)[b // heads] * heads + b % heads
+    heads = bh // (batch if row_index is None else row_index.numel())
+    rows = b // heads
+    if row_index is not None:
+        rows = row_index.to(device=device, dtype=torch.int64)[rows]
+    return rows * (heads if heads_total is None else heads_total) + head0 + b % heads
 
 
 def dropout_keep_mask_plain(seed: torch.Tensor, bh: int, n: int, rate: float,
-                            row_index: torch.Tensor | None = None) -> torch.Tensor:
+                            row_index: torch.Tensor | None = None, batch: int | None = None,
+                            heads_total: int | None = None, head0: int = 0) -> torch.Tensor:
     """(bh, n, n) fp32 of {0, 1/(1-rate)}: the keep mask the dropout kernels
     make inside, for the int32 `seed` (one element, on the result's
-    device) and the heads of `dropout_heads(bh, row_index)`. The uint32
-    hash of `_dropout_bits`/`_dropout_keys` is emulated in int64 masked to
-    32 bits."""
+    device) and the heads of `dropout_heads(bh, row_index, batch=batch,
+    heads_total=heads_total, head0=head0)`. The uint32 hash of
+    `_dropout_bits`/`_dropout_keys` is emulated in int64 masked to 32
+    bits."""
     dev = seed.device
     s = seed.reshape(()).to(torch.int64) & 0xFFFFFFFF
-    b = dropout_heads(bh, row_index, dev).view(bh, 1, 1)
+    b = dropout_heads(bh, row_index, dev, batch, heads_total, head0).view(bh, 1, 1)
     key0 = (s ^ _mul32(b, 0x9E3779B9)) | 1
     key1 = _mul32(s, 0x85EBCA6B) ^ ((b + 0x165667B1) & 0xFFFFFFFF)
     r = torch.arange(n, dtype=torch.int64, device=dev).view(1, n, 1)
@@ -176,10 +187,12 @@ def flash_attention_fwd_long_plain(qf, kf, vf, key_bias, scale: float):
 
 
 def flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale: float,
-                                   rate: float, row_index=None):
+                                   rate: float, row_index=None, heads_total=None,
+                                   head0: int = 0):
     """`_attn_drop_kernel`: the forward with the hash mask of `seed` (and
-    `row_index`, `dropout_keep_mask_plain`)."""
-    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate, row_index)
+    `row_index`, `heads_total` and `head0`: `dropout_keep_mask_plain`)."""
+    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate, row_index,
+                                   key_bias.shape[0], heads_total, head0)
     return flash_attention_fwd_plain(qf, kf, vf, key_bias, scale, keep)
 
 
@@ -203,10 +216,12 @@ def flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale: float,
 
 
 def flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of, dof, lse,
-                                   scale: float, rate: float, row_index=None):
+                                   scale: float, rate: float, row_index=None,
+                                   heads_total=None, head0: int = 0):
     """`_attn_drop_bwd_kernel`: the backward with the mask of `seed` (and
-    `row_index`)."""
-    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate, row_index)
+    `row_index`, `heads_total` and `head0`)."""
+    keep = dropout_keep_mask_plain(seed, qf.shape[0], qf.shape[1], rate, row_index,
+                                   key_bias.shape[0], heads_total, head0)
     return flash_attention_bwd_plain(qf, kf, vf, key_bias, of, dof, lse, scale,
                                      keep)
 
@@ -214,11 +229,12 @@ def flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of, dof, lse,
 # ----------------------------------------------------------- kernel wrappers
 
 
-def _check(name: str, key_bias, *tensors, lse=None, seed=None, row_index=None) -> None:
+def _check(name: str, key_bias, *tensors, lse=None, seed=None, row_index=None,
+           heads_total=None, head0: int = 0) -> None:
     """Raise unless the kernels take these inputs: contiguous, 16-byte
     aligned bf16 (B*H, N, 64) tensors on one device, an fp32 (B, N) bias,
-    an fp32 (B*H, N) lse, an int32 one-element seed and a contiguous int32
-    (B,) row index."""
+    an fp32 (B*H, N) lse, an int32 one-element seed, a contiguous int32
+    (B,) row index, and heads head0 .. head0 + H - 1 within heads_total."""
     bh, n, _ = tensors[0].shape
     dev = tensors[0].device
     for t in tensors:
@@ -246,6 +262,9 @@ def _check(name: str, key_bias, *tensors, lse=None, seed=None, row_index=None) -
                                   or row_index.device != dev):
         raise ValueError(f"{name}: row_index must be a contiguous int32 ({b},) tensor "
                          f"on {dev}")
+    if heads_total is not None and not 0 <= head0 <= heads_total - bh // b:
+        raise ValueError(f"{name}: heads {head0}..{head0 + bh // b - 1} not within "
+                         f"{heads_total}")
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -310,14 +329,22 @@ def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
 
 
 def _launch_fwd(qf, kf, vf, key_bias, scale: float, seed=None, rate: float = 0.0,
-                row_index=None):
+                row_index=None, heads_total=None, head0: int = 0):
     """Run the forward of `fwd_route` on checked inputs; with a `seed`, its
-    dropout variant at `rate` (row 3), its masks keyed by `row_index`
-    where given. Returns (out, lse)."""
+    dropout variant at `rate` (row 3), its masks keyed by `row_index`,
+    `heads_total` and `head0` where given. Returns (out, lse)."""
     if fwd_route(qf.shape[1]) == "sm90":
-        return _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate, row_index)
+        return _launch_fwd_sm90(qf, kf, vf, key_bias, scale, seed, rate, row_index,
+                                heads_total, head0)
     return _launch_stream(qf, kf, vf, key_bias, scale, seed, rate, with_lse=True,
-                          row_index=row_index)
+                          row_index=row_index, heads_total=heads_total, head0=head0)
+
+
+def _heads(bh: int, key_bias, heads_total, head0: int) -> tuple[int, int, int]:
+    """The kernels' (heads, heads_total, head0): a call of B rows holds H =
+    bh // B heads of each, by default all of the row's."""
+    heads = bh // key_bias.shape[0]
+    return heads, heads if heads_total is None else heads_total, head0
 
 
 def _ptr(t) -> int | None:
@@ -325,11 +352,11 @@ def _ptr(t) -> int | None:
 
 
 def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
-                     rate: float = 0.0, row_index=None):
+                     rate: float = 0.0, row_index=None, heads_total=None, head0: int = 0):
     """Run the short sm90 forward on checked inputs: the q/k/v maps from
     the cache, the key width of `fwd_sm90_tile`, the grid of
     `fwd_sm90_grid`; with a `seed`, its dropout variant at `rate` (row 3),
-    keyed by `row_index` where given."""
+    keyed by `row_index`, `heads_total` and `head0` where given."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = torch.empty((bh, n), dtype=torch.float32, device=qf.device)
@@ -338,8 +365,8 @@ def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
     maps = [_map("short", t) for t in (qf, kf, vf)]
     fn = _build.load("flash_attention_fwd_sm90", _FWD_SM90_ARGS)
     rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index),
-            out.data_ptr(), lse.data_ptr(), bh, bh // key_bias.shape[0], n,
-            fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
+            out.data_ptr(), lse.data_ptr(), bh, *_heads(bh, key_bias, heads_total, head0),
+            n, fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
             dropout_threshold(rate), dropout_scale(rate), _stream(qf))
     _build.check("flash_attention_fwd_sm90", rc)
     return out, lse
@@ -476,11 +503,13 @@ def _launch_long(qf, kf, vf, key_bias, scale: float):
 
 
 def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
-                   rate: float = 0.0, with_lse: bool = False, row_index=None):
+                   rate: float = 0.0, with_lse: bool = False, row_index=None,
+                   heads_total=None, head0: int = 0):
     """Run the streamed kernel on checked inputs: the q/k/v maps from the
     cache, the work of `long_grid` on the CTAs of `long_ctas`; `with_lse`
     for rows 1 and 3, and with a `seed` the dropout variant at `rate` (row
-    3), keyed by `row_index` where given. Returns (out, lse or None)."""
+    3), keyed by `row_index`, `heads_total` and `head0` where given.
+    Returns (out, lse or None)."""
     bh, n, _ = qf.shape
     out = torch.empty_like(qf)
     lse = (torch.empty((bh, n), dtype=torch.float32, device=qf.device)
@@ -490,23 +519,25 @@ def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
     maps = [_long_map(t) for t in (qf, kf, vf)]
     tiles, _ = long_grid(bh, n)
     fn = _build.load("flash_attention_long_sm90", _FWD_LONG_ARGS)
-    rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index), out.data_ptr(), None if lse is None else lse.data_ptr(), bh,
-            bh // key_bias.shape[0], n, tiles, long_ctas(bh, n, _sm_count(qf.device)),
-            scale, dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+    rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index), out.data_ptr(),
+            _ptr(lse), bh, *_heads(bh, key_bias, heads_total, head0), n, tiles,
+            long_ctas(bh, n, _sm_count(qf.device)), scale, dropout_threshold(rate),
+            dropout_scale(rate), _stream(qf))
     _build.check("flash_attention_long_sm90", rc)
     return out, lse
 
 
 def flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale: float,
-                             rate: float, row_index=None):
+                             rate: float, row_index=None, heads_total=None, head0: int = 0):
     """As `flash_attention_fwd_drop_plain`: the kernel of `fwd_route` on
     CUDA tensors."""
     if qf.device.type == "cpu":
         return flash_attention_fwd_drop_plain(qf, kf, vf, key_bias, seed, scale,
-                                              rate, row_index)
+                                              rate, row_index, heads_total, head0)
     _check("flash_attention_fwd_drop", key_bias, qf, kf, vf, seed=seed,
-           row_index=row_index)
-    out, lse = _launch_fwd(qf, kf, vf, key_bias, scale, seed, rate, row_index)
+           row_index=row_index, heads_total=heads_total, head0=head0)
+    out, lse = _launch_fwd(qf, kf, vf, key_bias, scale, seed, rate, row_index,
+                           heads_total, head0)
     flash_attention_fwd_drop.launches += 1
     return out, lse
 
@@ -523,27 +554,30 @@ def flash_attention_bwd(qf, kf, vf, key_bias, of, dof, lse, scale: float):
 
 
 def flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, of, dof, lse,
-                             scale: float, rate: float, row_index=None):
+                             scale: float, rate: float, row_index=None, heads_total=None,
+                             head0: int = 0):
     """As `flash_attention_bwd_drop_plain`: the sm90 kernels on CUDA
     tensors."""
     if qf.device.type == "cpu":
         return flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of,
-                                              dof, lse, scale, rate, row_index)
+                                              dof, lse, scale, rate, row_index,
+                                              heads_total, head0)
     _check("flash_attention_bwd_drop", key_bias, qf, kf, vf, of, dof, lse=lse,
-           seed=seed, row_index=row_index)
+           seed=seed, row_index=row_index, heads_total=heads_total, head0=head0)
     grads = _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale, rate,
-                             row_index)
+                             row_index, heads_total, head0)
     flash_attention_bwd_drop.launches += 1
     return grads
 
 
 def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
-                     rate: float = 0.0, row_index=None):
+                     rate: float = 0.0, row_index=None, heads_total=None, head0: int = 0):
     """Run the sm90 backward (its dq kernel, then its dk/dv kernel) on
     checked inputs: the q/k/v/o/do maps from the cache, the key width of
     `fwd_sm90_tile`, the work units and grid of `bwd_sm90_units`; without a
     `seed` the backward without dropout (row 2), with one its dropout
-    variant at `rate` (row 4), keyed by `row_index` where given."""
+    variant at `rate` (row 4), keyed by `row_index`, `heads_total` and
+    `head0` where given."""
     bh, n, _ = qf.shape
     bwd_route(n)
     dq, dk, dv = (torch.empty_like(t) for t in (qf, kf, vf))
@@ -555,7 +589,8 @@ def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
     fn = _build.load("flash_attention_bwd_sm90", _BWD_SM90_ARGS)
     rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, bh // key_bias.shape[0], n, fwd_sm90_tile(n), grid, tpg, scale,
+            bh, *_heads(bh, key_bias, heads_total, head0), n, fwd_sm90_tile(n), grid, tpg,
+            scale,
             dropout_threshold(rate), dropout_scale(rate), _stream(qf))
     _build.check("flash_attention_bwd_sm90", rc)
     return dq, dk, dv
@@ -589,14 +624,15 @@ class _FlashCore(torch.autograd.Function):
 
 class _FlashCoreDrop(torch.autograd.Function):
     """`_flash_core_drop`: both kernels with the in-kernel dropout mask,
-    keyed by `row_index` where given."""
+    keyed by `row_index` and the heads' (`heads_total`, `head0`) where
+    given."""
 
     @staticmethod
-    def forward(ctx, qf, kf, vf, key_bias, seed, scale, rate, row_index):
+    def forward(ctx, qf, kf, vf, key_bias, seed, scale, rate, row_index, heads):
         out, lse = flash_attention_fwd_drop(qf, kf, vf, key_bias, seed, scale,
-                                            rate, row_index)
+                                            rate, row_index, *heads)
         ctx.save_for_backward(qf, kf, vf, key_bias, seed, out, lse, row_index)
-        ctx.scale, ctx.rate = scale, rate
+        ctx.scale, ctx.rate, ctx.heads = scale, rate, heads
         return out
 
     @staticmethod
@@ -604,8 +640,8 @@ class _FlashCoreDrop(torch.autograd.Function):
         qf, kf, vf, key_bias, seed, out, lse, row_index = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd_drop(qf, kf, vf, key_bias, seed, out,
                                               g.contiguous(), lse, ctx.scale,
-                                              ctx.rate, row_index)
-        return dq, dk, dv, None, None, None, None, None
+                                              ctx.rate, row_index, *ctx.heads)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _reference_flat(qf, kf, vf, key_bias, scale):
@@ -648,7 +684,8 @@ class _FlashLong(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, bias=None, scale: float,
-                    dropout_rate: float = 0.0, dropout_seed=None, row_index=None):
+                    dropout_rate: float = 0.0, dropout_seed=None, row_index=None,
+                    heads_total: int | None = None, head0: int = 0):
     """Differentiable fused attention, as JAX's `flash_attention`.
 
     q, k, v: (B, H, N, D); bias: (B, 1, 1, N) additive key-padding bias or
@@ -656,7 +693,10 @@ def flash_attention(q, k, v, *, bias=None, scale: float,
     seeds the in-kernel mask, which the backward regenerates; that needs
     N <= LONG_SEQ_THRESHOLD. `row_index` ((B,) int32 on q's device, or
     None for each row's own index) gives each row's index in the global
-    batch, which keys its mask. Returns (B, H, N, D)."""
+    batch, which keys its mask; `heads_total` and `head0` say which of each
+    row's heads the H are (head0 .. head0 + H - 1 of heads_total, a tensor
+    rank's share; by default all), which key their masks by their global
+    index. Returns (B, H, N, D)."""
     b, h, n, d = q.shape
     use_dropout = dropout_rate > 0.0
     long_seq = padded_len(n) > LONG_SEQ_THRESHOLD
@@ -673,7 +713,7 @@ def flash_attention(q, k, v, *, bias=None, scale: float,
         seed = torch.as_tensor(dropout_seed, dtype=torch.int32,
                                device=q.device).reshape(1)
         out = _FlashCoreDrop.apply(qf, kf, vf, key_bias, seed, scale,
-                                   float(dropout_rate), row_index)
+                                   float(dropout_rate), row_index, (heads_total, head0))
     elif long_seq:
         out = _FlashLong.apply(qf, kf, vf, key_bias, scale)
     else:

@@ -11,6 +11,13 @@ dropout forward is its `DROP` variant). The weights are in nn.Linear's
 layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32. The
 dropout bits are uint16 draws u held as the int16 u - 32768
 (`stochastic.bits16`); an element is kept where u >= t.
+
+With b2 None each function is in its partial mode: the output is the fp32
+sum over the given hidden, without b2 and unrounded. That is a tensor
+rank's share of a row-parallel fc2 (`models.vlmo.Mlp` under tensor
+parallelism), which the all-reduce adds to the other ranks' before b2 and
+the one rounding, so the sum is the whole kernel's but for the order of
+the fp32 additions.
 """
 
 from __future__ import annotations
@@ -32,9 +39,10 @@ OUT_DIMS = (768,)  # output widths the kernels are instantiated for
 IN_DIMS = (768,)  # input widths of the sm90 kernel (x's tile stays in shared memory)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SM90_ARGTYPES = [_P] * 7 + [_I] * 3 + [_P]
+# maps, biases, y, part, then m, hidden, splits, partial (and the threshold)
+_SM90_ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 2
-_DROP_ARGTYPES = [_P] * 8 + [_I] * 4 + [ctypes.c_float, _P]
+_DROP_ARGTYPES = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
 
 # the sm90 kernel's tiling: 64-row tiles in clusters of 2 CTAs, the hidden
 # walked in 64-column chunks (csrc/fused_mlp_sm90.cu)
@@ -65,13 +73,14 @@ def _plain(x, w1, b1, w2, b2, bits, threshold):
         scale = torch.tensor(keep_scale16(threshold), dtype=torch.float32,
                              device=x.device)
         h = torch.where(keep16(bits, threshold), h * scale, torch.zeros_like(h))
-    y = F.linear(h.to(x.dtype).float(), w2.to(x.dtype).float()) + b2.float()
-    return y.to(x.dtype)
+    y = F.linear(h.to(x.dtype).float(), w2.to(x.dtype).float())
+    return y if b2 is None else (y + b2.float()).to(x.dtype)
 
 
 def fused_mlp_fwd_plain(x, w1, b1, w2, b2):
     """x: (M, K). fp32 products of the input-dtype operands, fp32 biases,
-    the hidden rounded to x's dtype before the second product."""
+    the hidden rounded to x's dtype before the second product. With b2
+    None, the partial mode: the fp32 product, no b2, not rounded."""
     return _plain(x, w1, b1, w2, b2, None, 0)
 
 
@@ -86,11 +95,12 @@ def fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, threshold: int):
 def _check(name, x, w1, b1, w2, b2, bits=None):
     m, k = x.shape
     hdim, ndim = w1.shape[0], w2.shape[0]
-    tensors = (x, w1, b1, w2, b2) + (() if bits is None else (bits,))
+    tensors = tuple(t for t in (x, w1, b1, w2, b2, bits) if t is not None)
     ok = (x.dtype == w1.dtype == w2.dtype == torch.bfloat16
-          and b1.dtype == b2.dtype == torch.float32
+          and b1.dtype == torch.float32
+          and (b2 is None or (b2.dtype == torch.float32 and b2.shape == (ndim,)))
           and w1.shape == (hdim, k) and w2.shape == (ndim, hdim)
-          and b1.shape == (hdim,) and b2.shape == (ndim,)
+          and b1.shape == (hdim,)
           and (bits is None or (bits.dtype == torch.int16
                                 and bits.shape == (m, hdim)))
           and k % 16 == 0 and hdim % 32 == 0 and ndim in OUT_DIMS
@@ -99,10 +109,11 @@ def _check(name, x, w1, b1, w2, b2, bits=None):
     if not ok:
         raise ValueError(
             f"{name}: needs contiguous, 16-byte aligned bf16 x (M, K), "
-            f"w1 (H, K), w2 (N, H), fp32 b1, b2 (and int16 bits (M, H)) on one "
-            f"device, K % 16 == 0, H % 32 == 0, N in {OUT_DIMS}; got x "
+            f"w1 (H, K), w2 (N, H), fp32 b1, b2 or None (and int16 bits (M, H)) on "
+            f"one device, K % 16 == 0, H % 32 == 0, N in {OUT_DIMS}; got x "
             f"{tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)} {w1.dtype}, "
-            f"w2 {tuple(w2.shape)} {w2.dtype}, b1 {b1.dtype}, b2 {b2.dtype}"
+            f"w2 {tuple(w2.shape)} {w2.dtype}, b1 {b1.dtype}, "
+            f"b2 {None if b2 is None else b2.dtype}"
             + ("" if bits is None else f", bits {tuple(bits.shape)} {bits.dtype}"))
     return m, k, hdim, ndim
 
@@ -166,10 +177,12 @@ def _sm90_shapes(name, x, w1, b1, w2, b2, bits=None):
 def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
     """Check the shapes and run the sm90 kernel (its DROP variant where
     `bits` is given): maps from the cache, the hidden split of
-    `hidden_splits` and its fp32 scratch."""
+    `hidden_splits` and its fp32 scratch; with b2 None its partial mode,
+    into an fp32 y."""
     m, hdim, ndim = _sm90_shapes(name, x, w1, b1, w2, b2, bits)
     dev = x.device
-    y = torch.empty((m, ndim), dtype=x.dtype, device=dev)
+    partial = b2 is None
+    y = torch.empty((m, ndim), dtype=torch.float32 if partial else x.dtype, device=dev)
     splits = hidden_splits(m, hdim, _sm_count(dev))
     part = (torch.empty((splits, m, ndim), dtype=torch.float32, device=dev)
             if splits > 1 else None)
@@ -177,8 +190,8 @@ def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_tensor_map(t) for t in tensors]
-    args = (b1.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            None if part is None else part.data_ptr(), m, hdim, splits)
+    args = (b1.data_ptr(), None if partial else b2.data_ptr(), y.data_ptr(),
+            None if part is None else part.data_ptr(), m, hdim, splits, int(partial))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if bits is None:
         rc = _build.load("fused_mlp_sm90", _SM90_ARGTYPES)(*maps, *args, stream)
@@ -191,7 +204,8 @@ def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
 
 def fused_mlp_fwd(x, w1, b1, w2, b2):
     """The sm90 kernel on CUDA tensors (x (M, 768), hidden a multiple of
-    64, output 768), the plain version on CPU tensors."""
+    64, output 768), the plain version on CPU tensors; with b2 None the
+    partial mode (fp32, no b2)."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, b1, w2, b2)
     y = _launch_sm90("fused_mlp_fwd", x, w1, b1, w2, b2)
@@ -253,20 +267,21 @@ class _FusedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, w1, b1, w2, b2, bits, threshold):
         args = (x2, w1.to(x2.dtype).contiguous(), b1.float().contiguous(),
-                w2.to(x2.dtype).contiguous(), b2.float().contiguous())
+                w2.to(x2.dtype).contiguous(), None if b2 is None else b2.float().contiguous())
         y = fused_mlp_fwd(*args) if bits is None else fused_mlp_fwd_drop(
             *args, bits, threshold)
         ctx.save_for_backward(x2, w1, b1, w2, bits)
         ctx.threshold = threshold
-        ctx.b2_dtype = b2.dtype
+        ctx.b2_dtype = None if b2 is None else b2.dtype
         return y
 
     @staticmethod
     def backward(ctx, g):
         x2, w1, b1, w2, bits = ctx.saved_tensors
-        grads = mlp_backward(g, x2, w1, b1, w2, bits, ctx.threshold, ctx.b2_dtype,
-                             approximate="tanh")
-        return (*grads, None, None)
+        dx, dw1, db1, dw2, db2 = mlp_backward(g, x2, w1, b1, w2, bits, ctx.threshold,
+                                              ctx.b2_dtype or torch.float32,
+                                              approximate="tanh")
+        return dx, dw1, db1, dw2, None if ctx.b2_dtype is None else db2, None, None
 
 
 def fused_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0):
@@ -274,7 +289,9 @@ def fused_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0):
     axis of x, differentiable in x, w1, b1, w2 and b2. The weights may be
     fp32 masters: they are cast to x's dtype for the kernels. With `bits`
     (x.shape[:-1] + (hidden,), as `stochastic.bits16` draws them) the hidden
-    is dropped where bits < `threshold`."""
+    is dropped where bits < `threshold`. With b2 None, the partial mode: the
+    fp32 product over this hidden, no b2, not rounded; its backward is the
+    whole one's but db2 (and dx is this hidden's share)."""
     *lead, k = x.shape
     x2 = x.reshape(-1, k).contiguous()
     if bits is not None:

@@ -26,15 +26,18 @@ class StepRng:
 
     `generator` lives on the compute device and draws the hidden-dropout
     bits, the DropPath masks and the ITM negatives; a process of a group
-    seeds its own (the trainer: seed + rank, as JAX's `initialize_runtime`
-    seeds each process's host generators). The attention-dropout hash takes
+    seeds its own (the trainer: seed + data coordinate, as JAX's
+    `initialize_runtime` seeds each process's host generators with its
+    index), so tensor peers, which run the same rows, draw the same. The attention-dropout hash takes
     one int32 seed per attention call: they are drawn together for the
     step, on the host generator `seed_generator`, and copied to the device
     once, so no attention call waits on the host, and the same host seed
     gives the same masks on every device and every rank. A rank's rows
     differ from another's by their index in the global batch
-    (`row_index`), which keys the hash as JAX's step over the whole batch
-    keys it."""
+    (`row_index`, from the rank's data coordinate `rank` of the data
+    axis's `world` processes), which keys the hash as JAX's step over the
+    whole batch keys it; under tensor parallelism the attention call adds
+    its heads' offset."""
 
     def __init__(self, generator: torch.Generator, seed_generator: torch.Generator,
                  device: torch.device, max_attention_calls: int = 256, *,
@@ -158,13 +161,25 @@ def keep_scale16(threshold: int) -> float:
     return 65536.0 / (65536 - threshold)
 
 
-def bits16(rng: StepRng, shape, device: torch.device) -> torch.Tensor:
+def bits16(rng: StepRng, shape, device: torch.device,
+           share: tuple[int, int] | None = None) -> torch.Tensor:
     """Uniform uint16 draws u (JAX's `jax.random.bits(..., uint16)`) on
     `rng.generator`, stored in 2 bytes as the int16 u - 32768: the order of
     the unsigned values is kept, so one signed comparison (`keep16`) reads
-    u >= t, and the bit pattern is u with its top bit flipped."""
-    return torch.randint(-32768, 32768, tuple(shape), dtype=torch.int16,
-                         generator=rng.generator, device=device)
+    u >= t, and the bit pattern is u with its top bit flipped. With `share`
+    = (t, T), a tensor rank's columns of a hidden split T ways: the draw of
+    the whole last axis (T times `shape`'s), of which columns t W .. (t +
+    1) W - 1, W = shape[-1], so the mask is the one-process step's (at T
+    times the draws)."""
+    shape = tuple(shape)
+    if share is None:
+        return torch.randint(-32768, 32768, shape, dtype=torch.int16,
+                             generator=rng.generator, device=device)
+    t, n = share
+    width = shape[-1]
+    whole = torch.randint(-32768, 32768, shape[:-1] + (n * width,), dtype=torch.int16,
+                          generator=rng.generator, device=device)
+    return whole[..., t * width:(t + 1) * width]
 
 
 def keep16(bits: torch.Tensor, threshold: int) -> torch.Tensor:
@@ -188,9 +203,13 @@ def fast_dropout_plain(x: torch.Tensor, rate: float, bits: torch.Tensor) -> torc
     return torch.where(keep16(bits, t), x * scale, torch.zeros_like(x))
 
 
-def fast_dropout(x: torch.Tensor, rate: float, rng: StepRng | None) -> torch.Tensor:
-    """Hidden dropout from uint16 bits drawn on `rng.generator`; identity
+def fast_dropout(x: torch.Tensor, rate: float, rng: StepRng | None,
+                 share: tuple[int, int] | None = None) -> torch.Tensor:
+    """Hidden dropout from uint16 bits drawn on `rng.generator` (a tensor
+    rank's columns of the whole draw with `share`, as `bits16`); identity
     when `rng` is None or the rate is 0."""
     if rng is None or dropout_threshold16(rate) == 0:
         return x
-    return fast_dropout_plain(x, rate, bits16(rng, x.shape, x.device))
+    bits = (bits16(rng, x.shape, x.device) if share is None
+            else bits16(rng, x.shape, x.device, share=share))
+    return fast_dropout_plain(x, rate, bits)

@@ -5,9 +5,12 @@ optimizer."""
 
 from exploremultimodal_torch.parallel.collectives import (
     DataAxis,
+    TensorAxis,
     all_gather_with_grad,
     concat_all_gather,
+    copy_to_tensor_region,
     global_sum,
+    reduce_from_tensor_region,
 )
 from exploremultimodal_torch.parallel.mesh import (
     DATA_AXIS,
@@ -21,7 +24,7 @@ from exploremultimodal_torch.parallel.mesh import (
 )
 
 __all__ = [
-    "DATA_AXIS", "FSDP_AXIS", "TENSOR_AXIS", "DataAxis", "Mesh", "Runtime",
-    "all_gather_with_grad", "concat_all_gather", "create_mesh", "global_sum",
-    "initialize_runtime", "mesh_shape",
+    "DATA_AXIS", "FSDP_AXIS", "TENSOR_AXIS", "DataAxis", "Mesh", "Runtime", "TensorAxis",
+    "all_gather_with_grad", "concat_all_gather", "copy_to_tensor_region", "create_mesh",
+    "global_sum", "initialize_runtime", "mesh_shape", "reduce_from_tensor_region",
 ]

@@ -11,11 +11,24 @@
   global_sum            a sum over the processes whose backward hands each
                         process the gradient of its own term
 
+and the two ends of a tensor-parallel region (Megatron's f and g), over
+the tensor group:
+
+  copy_to_tensor_region     identity forward, all-reduce backward: before
+                            the column-parallel qkv and fc1, whose input
+                            gradient is each rank's share
+  reduce_from_tensor_region all-reduce forward, identity backward: after
+                            the row-parallel proj and fc2, whose output is
+                            each rank's partial sum
+
+Both add in fp32 and round once to the input's dtype.
+
 With no group (one process) each is the identity, as JAX's are with
 `axis_name=None`.
 
-`DataAxis` is what the objectives get from the trainer: the group, the
-rank, the size, and which of JAX's two steps the losses follow. With
+`DataAxis` is what the objectives get from the trainer: the data group
+(the processes that split the batch, `mesh.Mesh.data_group`), the rank,
+the size, and which of JAX's two steps the losses follow. With
 `global_batch` (`train.global_reduce: false`) they are JAX's GSPMD step
 over the global batch: ITC against the gathered features, ITM's
 negatives from the whole batch, every loss and metric a mean over the
@@ -64,6 +77,45 @@ class _Sum(torch.autograd.Function):
         return g, None
 
 
+def _all_reduce_fp32(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.to(torch.float32, copy=True).contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out.to(x.dtype)
+
+
+class _CopyToRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_fp32(g, ctx.group), None
+
+
+class _ReduceFromRegion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_fp32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tensor_region(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """`x` itself; its gradient summed over the tensor group (the ranks'
+    shares of the input gradient). The identity with no group."""
+    return x if group is None else _CopyToRegion.apply(x, group)
+
+
+def reduce_from_tensor_region(x: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """The sum of `x` over the tensor group (the ranks' partial outputs);
+    its gradient passes through. The identity with no group."""
+    return x if group is None else _ReduceFromRegion.apply(x, group)
+
+
 def all_gather_with_grad(x: torch.Tensor, group: Any = None,
                          roll_local_first: bool = True) -> torch.Tensor:
     """Every process's `x` stacked along dim 0 in rank order, with the
@@ -92,6 +144,22 @@ def global_sum(x: torch.Tensor, group: Any = None) -> torch.Tensor:
     gradient reaches each process's own `x` alone, so the processes'
     gradients add up to the gradient of the sum."""
     return x if group is None else _Sum.apply(x, group)
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorAxis:
+    """The processes a block's heads and hidden are split over: `group`,
+    this process's `rank` (its tensor coordinate t) of `size` (T)."""
+
+    group: Any
+    rank: int
+    size: int
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        return copy_to_tensor_region(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return reduce_from_tensor_region(x, self.group)
 
 
 @dataclasses.dataclass(frozen=True)

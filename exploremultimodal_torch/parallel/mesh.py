@@ -7,12 +7,22 @@ axes over the processes:
 
   data    batch parallelism (each process its own rows of the batch)
   fsdp    parameter and optimizer-state sharding, also over the batch
-  tensor  tensor parallelism (not ported: a size > 1 raises)
+  tensor  tensor parallelism (the Megatron split of each block's qkv, proj,
+          fc1 and fc2: `partitioning.shard_tensor_parallel`)
+
+The tensor axis is innermost, as in JAX's axis order, so a tensor group is
+consecutive ranks: rank r has data coordinate r // T (its place among the
+data x fsdp processes that split the batch) and tensor coordinate r % T.
 
 `initialize_runtime` starts the group: from `runtime.coordinator_address`
 / `num_processes` / `process_id` (JAX's keys), or from torchrun's `RANK` /
 `WORLD_SIZE` / `LOCAL_RANK` / `MASTER_ADDR`; with neither it starts none,
 as JAX starts no distributed runtime. NCCL on CUDA, gloo on the CPU.
+
+JAX seeds each process's host generators with seed + process index, and a
+JAX tensor group on one host is one process; the port seeds them with seed
++ data coordinate, so that tensor peers draw the same host masks (the MLM
+collator) and take the same rows.
 """
 
 from __future__ import annotations
@@ -32,10 +42,6 @@ DATA_AXIS = "data"
 FSDP_AXIS = "fsdp"
 TENSOR_AXIS = "tensor"
 MESH_AXES = (DATA_AXIS, FSDP_AXIS, TENSOR_AXIS)
-TP_SLICE = ("tensor parallelism (parallel=tp, runtime.mesh.tensor > 1) is the next "
-            "slice of the port: the Megatron split of qkv/proj/fc1/fc2, the dropout "
-            "mask keyed by the global head and the fused MLP kernels at hidden "
-            "3072 / t")
 
 log = logging.getLogger(__name__)
 
@@ -71,10 +77,10 @@ def _group_spec(cfg: dict) -> tuple[str, int, int, int] | None:
 
 def initialize_runtime(cfg: dict, device: str | torch.device = "cuda") -> Runtime:
     """Start (once) the process group `cfg` or torchrun names, and seed
-    Python's and numpy's generators with `seed + rank` (every call, as
-    JAX's does: the host data path draws on them). On CUDA the process
-    takes `cuda:<local rank>` and NCCL; on the CPU gloo. Returns the
-    process's `Runtime`."""
+    Python's and numpy's generators with `seed + data coordinate` (every
+    call, as JAX's does with its process index: the host data path draws on
+    them). On CUDA the process takes `cuda:<local rank>` and NCCL; on the
+    CPU gloo. Returns the process's `Runtime`."""
     dev = torch.device(device)
     spec = _group_spec(cfg)
     if dist.is_initialized():
@@ -90,7 +96,7 @@ def initialize_runtime(cfg: dict, device: str | torch.device = "cuda") -> Runtim
         rank, world, local = 0, 1, 0
     if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
         dev = torch.device("cuda", local % torch.cuda.device_count())
-    seed = int(cfg.get("seed", 0)) + rank
+    seed = int(cfg.get("seed", 0)) + rank // mesh_shape(cfg, world=world)[TENSOR_AXIS]
     random.seed(seed)
     np.random.seed(seed % 2**32)
     return Runtime(rank, world, local, dev, dist.is_initialized())
@@ -145,25 +151,56 @@ def mesh_shape(cfg: dict | None = None, *, world: int, data: int = -1, fsdp: int
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The (data, fsdp, tensor) axis sizes and, where a process group runs,
-    the `DeviceMesh` over it (None at one process without a group)."""
+    the `DeviceMesh` over it (None at one process without a group), with
+    this process's two groups: `data_group`, the data x fsdp processes of
+    its tensor coordinate that split the batch (the whole group at a tensor
+    axis of 1), and `tensor_group`, the processes of its data coordinate
+    that split each block (None at a tensor axis of 1); `data_rank` and
+    `tensor_rank` are its coordinates in them."""
 
     shape: dict
     device_mesh: Any = None
+    data_group: Any = None
+    tensor_group: Any = None
+    data_rank: int = 0
+    tensor_rank: int = 0
+
+    @property
+    def data_size(self) -> int:
+        """The processes that split the batch: data x fsdp."""
+        return self.shape[DATA_AXIS] * self.shape[FSDP_AXIS]
+
+    @property
+    def tensor_size(self) -> int:
+        return self.shape[TENSOR_AXIS]
+
+
+def _data_groups(world: int, tensor: int, rank: int):
+    """The data group of `rank`: the processes of its tensor coordinate.
+    Every process makes every group, in the same order, as `new_group`
+    asks."""
+    mine = None
+    for t in range(tensor):
+        group = dist.new_group(list(range(t, world, tensor)))
+        if rank % tensor == t:
+            mine = group
+    return mine
 
 
 def create_mesh(cfg: dict, runtime: Runtime) -> Mesh:
     """The mesh of `cfg`'s `runtime.mesh` and preset over the runtime's
-    processes; the tp preset or a tensor axis > 1 raises
-    NotImplementedError."""
-    tensor = ((cfg.get("runtime") or {}).get("mesh") or {}).get(TENSOR_AXIS, 1)
-    if tensor != 1 or (cfg.get("parallel") or {}).get("tensor_parallel"):
-        raise NotImplementedError(TP_SLICE)
+    processes, the tensor axis innermost, and this process's data and
+    tensor groups."""
     shape = mesh_shape(cfg, world=runtime.world)
-    device_mesh = None
-    if runtime.distributed:
-        from torch.distributed.device_mesh import init_device_mesh
+    if not runtime.distributed:
+        return Mesh(shape)
+    from torch.distributed.device_mesh import init_device_mesh
 
-        device_mesh = init_device_mesh(runtime.device.type,
-                                       tuple(shape[a] for a in MESH_AXES),
-                                       mesh_dim_names=MESH_AXES)
-    return Mesh(shape, device_mesh)
+    device_mesh = init_device_mesh(runtime.device.type, tuple(shape[a] for a in MESH_AXES),
+                                   mesh_dim_names=MESH_AXES)
+    tensor = shape[TENSOR_AXIS]
+    if tensor == 1:
+        return Mesh(shape, device_mesh, dist.group.WORLD, None, runtime.rank, 0)
+    return Mesh(shape, device_mesh, _data_groups(runtime.world, tensor, runtime.rank),
+                device_mesh.get_group(TENSOR_AXIS), runtime.rank // tensor,
+                runtime.rank % tensor)

@@ -22,7 +22,13 @@ from typing import Callable, Iterable
 
 import torch
 
-from exploremultimodal_torch.parallel.partitioning import full, like, local
+from exploremultimodal_torch.parallel.partitioning import (
+    full,
+    gather_tensor,
+    like,
+    local,
+    shard_tensor,
+)
 
 Schedule = Callable[[int], float]
 
@@ -183,7 +189,9 @@ class Optimizer:
     update is `ZeroRedundancyOptimizer` over the same groups, each process
     of the group holding the moments of its share of the parameters
     (zero1); sharded (DTensor) parameters hold sharded moments (fsdp), and
-    the gradient norm sums their shards over the processes; with `offload`
+    the gradient norm sums their shards over the processes; a parameter
+    split over the tensor axis (`partitioning.mark_tensor_sharded`) holds
+    its share's moments, which the whole state gathers; with `offload`
     the moments live in pinned host memory between steps and are copied to
     the device around each update (fsdp_offload on CUDA)."""
 
@@ -283,21 +291,46 @@ class Optimizer:
                 if self.torch.global_rank != 0:
                     return None
             sd = self.torch.state_dict()
-            sd["state"] = {i: {k: full(v).cpu() if isinstance(v, torch.Tensor) else v
-                               for k, v in st.items()} for i, st in sd["state"].items()}
+            sd["state"] = {i: {k: self._whole(i, k, v) for k, v in st.items()}
+                           for i, st in sd["state"].items()}
             return sd
         finally:
             if self.offload:
                 self.park()
+
+    def _whole(self, i: int, key: str, v):
+        """Moment `key` of parameter i whole on the host: gathered from
+        its fsdp shards, then from the tensor axis where the parameter is
+        split there (every process must call)."""
+        if not isinstance(v, torch.Tensor):
+            return v
+        v = full(v)
+        axis = getattr(self.params[i], "tensor_axis", None)
+        if axis is not None and key != "step":
+            import torch.distributed as dist
+
+            parts = [torch.empty_like(v) for _ in range(axis.size)]
+            dist.all_gather(parts, v.contiguous(), group=axis.group)
+            v = gather_tensor(parts, self.params[i].tensor_split)
+        return v.cpu()
+
+    def _share(self, i: int, key: str, v):
+        """Moment `key` (whole) of parameter i as the parameter is held:
+        this rank's share over the tensor axis, then its fsdp shard."""
+        if not isinstance(v, torch.Tensor) or key == "step":
+            return v
+        p = self.params[i]
+        axis = getattr(p, "tensor_axis", None)
+        if axis is not None:
+            v = shard_tensor(v, p.tensor_split, axis.rank, axis.size)
+        return like(p, v)
 
     def load_full_state_dict(self, sd: dict) -> None:
         """Load `full_state_dict`'s format: each moment sharded as its
         parameter is."""
         self.stage_in()
         if not self.zero:
-            sd = {**sd, "state": {i: {k: like(self.params[i], v)
-                                      if isinstance(v, torch.Tensor) and k != "step" else v
-                                      for k, v in st.items()}
+            sd = {**sd, "state": {i: {k: self._share(i, k, v) for k, v in st.items()}
                                   for i, st in sd["state"].items()}}
         self.torch.load_state_dict(sd)
         if self.offload:
@@ -348,8 +381,13 @@ def _with_local(layout: tuple | None, loc: torch.Tensor) -> torch.Tensor:
 
 def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """The fp32 L2 norm of every gradient together. Sharded (DTensor)
-    gradients add their shards' squares over the processes."""
-    grads = [p.grad for p in params if p.grad is not None]
+    gradients add their shards' squares over the processes; gradients of
+    parameters split over the tensor axis add theirs over the tensor group,
+    and those whole on it count once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    if any(hasattr(p, "tensor_axis") for p in params):
+        return _tensor_norm(params)
     if not any(hasattr(g, "device_mesh") for g in grads):
         norms = [torch.linalg.vector_norm(g.float()) for g in grads]
         return torch.linalg.vector_norm(torch.stack(norms))
@@ -362,3 +400,33 @@ def global_norm(params: Iterable[torch.Tensor]) -> torch.Tensor:
     whole = [torch.linalg.vector_norm(g.float()) ** 2 for g in grads
              if not hasattr(g, "device_mesh")]
     return torch.sqrt(sq + torch.stack(whole).sum() if whole else sq)
+
+
+def _tensor_norm(params: list[torch.Tensor]) -> torch.Tensor:
+    """`global_norm` where some parameters are split over the tensor axis:
+    the squares of four kinds of gradient, whole, fsdp-sharded,
+    tensor-split, both; the fsdp-sharded sums added over the fsdp group,
+    then the tensor-split ones over the tensor group."""
+    import torch.distributed as dist
+
+    dev = local(params[0].grad).device
+    # squares by kind: 2 * (tensor-split) + (fsdp-sharded)
+    sums = [torch.zeros((), dtype=torch.float32, device=dev) for _ in range(4)]
+    fsdp_group = tensor_group = None
+    for p in params:
+        g = p.grad
+        dtensor, split = hasattr(g, "device_mesh"), hasattr(p, "tensor_axis")
+        if dtensor:
+            fsdp_group = g.device_mesh.get_group()
+        if split:
+            tensor_group = p.tensor_axis.group
+        sums[2 * split + dtensor] = (sums[2 * split + dtensor]
+                                     + torch.linalg.vector_norm(local(g).float()) ** 2)
+    whole, fsdp, split, both = sums
+    if fsdp_group is not None:
+        v = torch.stack([fsdp, both])
+        dist.all_reduce(v, group=fsdp_group)
+        fsdp, both = v.unbind()
+    v = torch.stack([split, both])
+    dist.all_reduce(v, group=tensor_group)
+    return torch.sqrt(whole + fsdp + v.sum())

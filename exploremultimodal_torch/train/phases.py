@@ -66,15 +66,17 @@ def write_vqa_submission(trainer: Trainer) -> str | None:
                for q, p in zip(qids, preds)]
     out_dir = os.path.join(trainer.output_dir, "submit")
     os.makedirs(out_dir, exist_ok=True)
-    rt = trainer.runtime
-    part = os.path.join(out_dir, f"vqa_submit_{rt.rank}.json")
-    with open(part, "w") as f:
-        json.dump(results, f)
+    # one part per data coordinate (tensor peers answer the same rows)
+    mesh = trainer.mesh
+    part = os.path.join(out_dir, f"vqa_submit_{mesh.data_rank}.json")
+    if mesh.tensor_rank == 0:
+        with open(part, "w") as f:
+            json.dump(results, f)
     barrier()
     if not is_main():
         return part
     merged = []
-    for r in range(rt.world):
+    for r in range(mesh.data_size):
         with open(os.path.join(out_dir, f"vqa_submit_{r}.json")) as f:
             merged += json.load(f)
     final = os.path.join(out_dir, "vqa_submit.json")

@@ -18,10 +18,15 @@ axis). A step:
   queues take the full batch's momentum features
 
 With `train.accumulation_steps` = A > 1 the losses and the backward run on
-A contiguous microbatches of the batch, each against the full batch's
-momentum features (its positives at its row offset) and its own dropout
-draws; the gradients, the loss and the scalar metrics are the means over
-the microbatches, and ISDA's statistics pass from one to the next.
+A microbatches of the batch, each against the full batch's momentum
+features (its positives at its row offset) and its own dropout draws; the
+gradients, the loss and the scalar metrics are the means over the
+microbatches, and ISDA's statistics pass from one to the next. Microbatch
+i is JAX's: rows [i B_g/A, (i+1) B_g/A) of the global batch of B_g rows
+(its scan slices the global batch), of which process p of a data axis of
+P takes rows i B_g/A + p B_g/(A P) + j; so on more than one process the
+step's batch is first gathered over the data group (one all-gather, only
+under accumulation).
 
 The phases of a step are `torch.profiler` ranges (`step/batch`,
 `step/momentum`, `step/forward`, `step/backward`, `step/optimizer`,
@@ -42,25 +47,24 @@ Parameters and optimizer state are fp32; activations run in
 the caller passes device="cpu".
 
 On more than one process (`parallel/mesh.py`: `runtime.coordinator_address`
-or torchrun) each process takes `data.batch_size` rows of every batch (its
-stride of the loader's order), the task and optimizer are wrapped by the
-`parallel` preset (`parallel/partitioning.py`: DDP, ZeRO-1, FSDP2, FSDP2
-with the moments offloaded), and the losses follow JAX's step
+or torchrun) each process of the data group (the data x fsdp processes of
+one tensor coordinate) takes `data.batch_size` rows of every batch (its
+stride of the loader's order, by its data coordinate; tensor peers take
+the same rows), the task and optimizer are wrapped by the `parallel`
+preset (`parallel/partitioning.py`: DDP, ZeRO-1, FSDP2, FSDP2 with the
+moments offloaded, and under tp or a tensor axis > 1 the blocks split over
+the tensor group first), and the losses follow JAX's step
 (`objectives/losses.py`): with `train.global_reduce` false, or where the
 data axis has one process, the whole batch's losses on every process
 (their backward scaled by the process count, since the presets average
 the gradients); with it true on a data axis of more than one, each
 process's own losses, averaged over the processes with the gradients
 (JAX's `shard_map` path: refused under fsdp and with ISDA, as JAX refuses
-them). Under accumulation, process r's microbatch i is rows [i B/A, (i+1)
-B/A) of its own B rows, and the processes' microbatches i together form
-the step's i-th global microbatch; JAX's scan takes global rows [i B_g/A,
-(i+1) B_g/A) instead, so the two agree at one process or at A = 1. The
-gradient norm is the global gradient's (sharded gradients add their
-squares over the processes), the momentum features and the queues cover
-every process's rows in rank order, and the epoch's meters sum over the
-processes. Rank 0 alone writes the logs, `log_stats.json` and the
-checkpoints.
+them). The gradient norm is the global gradient's (sharded gradients add
+their squares over the processes, tensor-split ones over the tensor
+group), the momentum features and the queues cover every process's rows
+in rank order, and the epoch's meters sum over the processes. Rank 0 alone
+writes the logs, `log_stats.json` and the checkpoints.
 """
 
 from __future__ import annotations
@@ -135,6 +139,23 @@ def _rows(v) -> int | None:
     return len(v) if isinstance(v, list) else None
 
 
+def _gather_rows(mb: dict, rows: int, axis: DataAxis) -> dict:
+    """The batch's entries of `rows` rows gathered over the data group in
+    rank order (JAX's global batch); the rest as they are."""
+    out = {}
+    for k, v in mb.items():
+        if isinstance(v, torch.Tensor) and _rows(v) == rows:
+            flag = v.dtype == torch.bool
+            v = concat_all_gather(v.to(torch.uint8) if flag else v, axis.group)
+            v = v.bool() if flag else v
+        elif isinstance(v, list) and len(v) == rows:
+            parts = [None] * axis.size
+            dist.all_gather_object(parts, v, group=axis.group)
+            v = [x for part in parts for x in part]
+        out[k] = v
+    return out
+
+
 def _refuse_unported(cfg: dict) -> None:
     """Losses without a ported head raise NotImplementedError."""
     bad = sorted(set(cfg["train"]["loss_names"]) - set(TRAINED_OBJECTIVES))
@@ -201,6 +222,14 @@ class Trainer:
         # JAX's shard_map path (each process's own losses): global_reduce
         # on a data axis of more than one process
         use_gather = c.global_reduce and self.mesh.shape["data"] > 1
+        if self.mesh.tensor_size > 1 and c.quantize != "none":
+            raise NotImplementedError(
+                f"model.quantize={c.quantize} under tensor parallelism is a later slice "
+                "of the port: rows 8-10 quantize each activation row over its whole K "
+                "or hidden, which a tensor rank's share does not hold")
+        if self.mesh.tensor_size > 1 and self.preset == "zero1":
+            raise ValueError("a tensor axis > 1 takes parallel=tp, fsdp or dp: zero1 "
+                             "hands whole moments to the fsdp group")
         if use_gather and self.preset in ("fsdp", "tp"):
             raise ValueError(
                 "train.global_reduce=true needs params replicated over the data axis "
@@ -209,8 +238,12 @@ class Trainer:
         if use_gather and c.isda_lambda:
             raise ValueError("global_reduce + ISDA are unsupported together (the "
                              "reference uses them in disjoint phases)")
-        self.axis = (DataAxis(dist.group.WORLD, rt.rank, rt.world, not use_gather)
-                     if rt.world > 1 else None)
+        m = self.mesh
+        self.axis = (DataAxis(m.data_group, m.data_rank, m.data_size, not use_gather)
+                     if m.data_size > 1 else None)
+        # FSDP2 holds the parameters: the fsdp preset, or tp over an fsdp axis
+        self.fsdp = rt.distributed and (self.preset == "fsdp" or (
+            self.preset == "tp" and m.shape["fsdp"] > 1))
         task = VlmoTask(c)
         task.init_weights(torch.Generator().manual_seed(int(cfg["seed"])))
         # fp32 master weights; the Linears cast to the compute dtype at use
@@ -224,7 +257,7 @@ class Trainer:
                 quantize=t.get("discrete_vae_quantize") or "none", device=self.device,
                 weight_path=t.get("discrete_vae_weight_path", ""))
 
-        self.data = MultiTaskData(cfg, process_index=rt.rank, process_count=rt.world)
+        self.data = MultiTaskData(cfg, process_index=m.data_rank, process_count=m.data_size)
         if len(self.data.datasets["train"]) == 0:
             d = cfg["data"]
             raise FileNotFoundError(
@@ -254,7 +287,7 @@ class Trainer:
             model_ema_decay=(cfg.get("model_ema_decay", 0.9999) if cfg.get("model_ema")
                              else None),
             queue_size=int(t.get("queue_size", 0)) if t.get("neg_queue") else 0,
-            itc_dim=c.itc_dim, rank=rt.rank, world=rt.world)
+            itc_dim=c.itc_dim, rank=m.data_rank, world=m.data_size)
         # the preset: `model` is what the training forward calls (DDP's
         # wrapper, or the task sharded with its EMA trees); the optimizer
         # takes the parameters as the preset left them
@@ -348,15 +381,22 @@ class Trainer:
         # the momentum features cover every process's rows in rank order
         first = (axis.rank * rows if axis is not None and axis.global_batch
                  and momentum_feats is not None else 0)
+        # JAX's microbatches: global rows [i B_g/A, (i+1) B_g/A), this
+        # process's share of each at rank * size in it
+        gathered = accum > 1 and axis is not None
+        if gathered:
+            mb = _gather_rows(mb, rows, axis)
         for i in range(accum):
+            lo = (i * axis.size + axis.rank) * size if gathered else i * size
             with set_gradient_sync(self.model, i == accum - 1):
                 with record_function("step/forward"):
-                    micro = {k: v[i * size:(i + 1) * size] if _rows(v) == rows else v
-                             for k, v in mb.items()}
+                    micro = {k: v[lo:lo + size] if _rows(v) == rows * (
+                        axis.size if gathered else 1) else v for k, v in mb.items()}
                     outputs = self.model(micro, rng=st.step_rng(), negatives=negatives,
                                          isda_state=isda, isda_ratio=isda_ratio,
                                          momentum_feats=momentum_feats, queue=queue,
-                                         pos_offset=first + i * size, axis=axis)
+                                         pos_offset=lo if gathered else first + i * size,
+                                         axis=axis)
                     loss = total_loss(outputs, flat=flat)
                 with record_function("step/backward"):
                     (loss * scale / accum).backward()
@@ -365,8 +405,9 @@ class Trainer:
                          "total_loss": loss.detach()}.items():
                 sums[k] = v if k not in sums else sums[k] + v
         with record_function("step/optimizer"):
-            if self.preset == "fsdp" and self.runtime.distributed:
-                sync_whole_grads(st.optimizer.params)
+            if self.fsdp:
+                sync_whole_grads(st.optimizer.params,
+                                 None if axis is None else axis.group)
             metrics = {k: v / accum for k, v in sums.items()}
             if axis is not None and not axis.global_batch:
                 metrics = _process_means(metrics, axis)
@@ -589,7 +630,7 @@ class Trainer:
             return self.step(batch)
 
         timing.timeit(step, n_warmup, 0)
-        bs = self.cfg["data"]["batch_size"] * self.runtime.world
+        bs = self.cfg["data"]["batch_size"] * self.mesh.data_size
         n_chunks = 4
         per_chunk = max(n_iters // n_chunks, 1)
         chunk_sps = [bs / timing.timeit(step, 0, per_chunk) for _ in range(n_chunks)]

@@ -1,4 +1,5 @@
-"""One rank of the port's two-process CPU test (tests/test_torch_port_parallel.py).
+"""One rank of the port's multi-process CPU tests (tests/test_torch_port_parallel.py,
+tests/test_torch_port_tp.py).
 
     python tests/_torch_parallel_child.py <port> <rank> <world> <workdir>
 
@@ -6,8 +7,9 @@ Starts a gloo group through `runtime.coordinator_address`, reads the
 parent's inputs from `<workdir>/in.pt` (the global batch, the ITM
 negatives, the weights, the configs of the cases) and, before the first
 case that needs JAX's weights, `<workdir>/in_jax.pt`, which the parent
-writes while the ranks run; runs every case on its share of the batch,
-and writes what each gave to `<workdir>/out_<rank>.pt`.
+writes while the ranks run; runs every case on its share of the batch
+(by its data coordinate: tensor peers take the same rows), and writes what
+each gave to `<workdir>/out_<rank>.pt`.
 Imports torch and the port only.
 """
 
@@ -23,12 +25,14 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from exploremultimodal_torch.config import load_config  # noqa: E402
+from exploremultimodal_torch.models.convert import load_flax_train_state  # noqa: E402
 from exploremultimodal_torch.parallel import (  # noqa: E402
     all_gather_with_grad,
     concat_all_gather,
     global_sum,
     initialize_runtime,
 )
+from exploremultimodal_torch.parallel.partitioning import tensor_split  # noqa: E402
 from exploremultimodal_torch.train import checkpoints as ckpt_lib  # noqa: E402
 from exploremultimodal_torch.train.trainer import Trainer  # noqa: E402
 from exploremultimodal_torch.utils.metrics import SmoothedValue  # noqa: E402
@@ -77,19 +81,31 @@ def step_case(case: dict, inputs: dict, rank: int, world: int) -> dict:
         if tr.state.ema_task is not None:
             ckpt_lib.load_model_state_dict(tr.state.ema_task,
                                            inputs["weights"][case["weights"]])
-    per = inputs["batch_rows"] // world
+    if case.get("flax"):
+        load_flax_train_state(tr.state, inputs["flax"][case["flax"]])
+    # this process's rows: its data coordinate's share (tensor peers, which
+    # split the blocks, take the same rows)
+    d, size = tr.mesh.data_rank, tr.mesh.data_size
+    per = inputs["batch_rows"] // size
     batch = (None if case["batch"] is None else
-             rows_of(inputs["batches"][case["batch"]], rank * per, (rank + 1) * per))
+             rows_of(inputs["batches"][case["batch"]], d * per, (d + 1) * per))
     negatives = None
     if case.get("negatives"):
-        negatives = tuple(n[rank * per:(rank + 1) * per] for n in inputs["negatives"])
-    out = {}
+        given = inputs["negatives"] if case["negatives"] is True else case["negatives"]
+        # per microbatch under accumulation: indices into its candidates
+        per_neg = given[0].shape[0] // size
+        negatives = tuple(n[d * per_neg:(d + 1) * per_neg] for n in given)
+    out = {"mesh": (tr.mesh.data_rank, tr.mesh.tensor_rank, tr.preset)}
     for i in range(case.get("steps", 1)):
         m = tr.step(batch, negatives=negatives)
         out[f"metrics_{i}"] = {k: v.detach().clone() for k, v in m.items()}
     if case["params"]:
         full = ckpt_lib.model_state_dict(tr.task)
         out["params"] = {k: full[k] for k in case["params"]} if rank == 0 else {}
+    if case.get("whole_params"):
+        # the parameters each rank holds whole on the tensor axis, as held
+        out["whole_params"] = {k: v.clone() for k, v in tr.task.state_dict().items()
+                               if tensor_split(k) is None}
     if tr.state.img_queue is not None:
         out["queue"] = tr.state.img_queue.clone()
         out["queue_ptr"] = torch.tensor(tr.state.queue_ptr)
@@ -105,6 +121,7 @@ def step_case(case: dict, inputs: dict, rank: int, world: int) -> dict:
         sd = tr.state.optimizer.full_state_dict()
         if rank == 0:
             out["loaded_moments"] = sd["state"][0]["exp_avg"]
+            out["loaded_optimizer"] = sd
     if case.get("submit"):
         from exploremultimodal_torch.train.phases import write_vqa_submission
 
@@ -129,6 +146,7 @@ def main() -> int:
     results = {}
     base = [f"runtime.coordinator_address=localhost:{port}", f"runtime.num_processes={world}",
             f"runtime.process_id={rank}"]
+    torch.set_num_threads(int(os.environ.get("OMP_NUM_THREADS", "2")))
     try:
         initialize_runtime(load_config(base), "cpu")
         for name, case in inputs["cases"].items():
@@ -139,8 +157,8 @@ def main() -> int:
                 try:
                     Trainer(load_config(case["overrides"]), device="cpu")
                     results[name] = {"raised": None}
-                except ValueError as e:
-                    results[name] = {"raised": str(e)}
+                except (ValueError, NotImplementedError) as e:
+                    results[name] = {"raised": str(e), "type": type(e).__name__}
                 continue
             results[name] = step_case(case, inputs, rank, world)
         results["collectives"] = collectives(rank, world)

@@ -1,6 +1,7 @@
 """Training and serving on more than one process: the port's parallel
 presets, collectives, global-batch losses, rank-keyed attention dropout,
-remat, checkpoints across world sizes and mesh serving, on the CPU.
+remat, accumulation across processes, checkpoints across world sizes and
+mesh serving, on the CPU (tensor parallelism: tests/test_torch_port_tp.py).
 
 Two ranks are two child processes (`tests/_torch_parallel_child.py`, torch
 and the port only) on a gloo group through `runtime.coordinator_address`,
@@ -18,6 +19,7 @@ the order of the cross-rank sums and FSDP2's sharded norm. Against JAX, as
 the port's one-process tests hold it (rtol 1e-5, the norm 1e-4).
 """
 
+import itertools
 import json
 import os
 import socket
@@ -47,7 +49,6 @@ from exploremultimodal_torch.models.convert import from_flax_params, load_flax_t
 from exploremultimodal_torch.ops import flash_attention as pfa
 from exploremultimodal_torch.ops.stochastic import StepRng
 from exploremultimodal_torch.parallel import mesh_shape
-from exploremultimodal_torch.parallel.mesh import TP_SLICE
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.phases import write_vqa_submission
 from exploremultimodal_torch.train.trainer import Trainer
@@ -81,6 +82,16 @@ PARAMS = ("transformer.blocks.0.attn.qkv.weight", "transformer.blocks.1.mlp_vl.f
 ITC_PARAMS = ("transformer.blocks.0.attn.qkv.weight", "itc_head.dense_v.weight", "itc_temp")
 STEP_METRICS = ("total_loss", "itc_task_loss", "mlm_task_loss", "itm_task_loss",
                 "mlm_mean_acc", "itm_mean_acc", "itc_i2t_mean_acc", "i2t_Loss")
+# the recipe at accumulation_steps=2: two microbatches of 4 global rows,
+# each rank 2 of them; the ITM negatives of a microbatch, indices into its
+# 4 rows (images for each text, then texts for each image), as
+# tests/test_torch_port_momentum.py gives them to both packages
+ACCUM = RECIPE + ["train.accumulation_steps=2"]
+ACCUM_NEG = (np.array([2, 3, 1, 0]), np.array([1, 0, 3, 2]))
+ACCUM_METRICS = ("total_loss", "itc_task_loss", "i2t_Loss", "i2i_Loss", "t2t_l_Loss",
+                 "mlm_task_loss", "itm_task_loss")
+JAX_STATE = ("params", "ema_params", "model_ema_params", "img_queue", "txt_queue",
+             "queue_ptr")
 
 
 def _free_port() -> int:
@@ -116,6 +127,20 @@ def _jax_step(jtrainer, state, batch):
     new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()},
                         jnp.asarray(0.0))
     return from_flax_params(jax.device_get(new.params)), jax.device_get(metrics)
+
+
+def _jax_accum_step(jtrainer, state, batch):
+    """JAX's jitted step of the recipe at accumulation_steps=2 with the
+    ITM negatives given (`jax.random.categorical` returns ACCUM_NEG's in
+    turn: the step traces its microbatch body once, so one pair serves both
+    microbatches); the state's parts after it and the metrics."""
+    given = itertools.cycle(ACCUM_NEG)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "categorical",
+                   lambda key, logits, axis=-1: jnp.asarray(next(given)))
+        new, metrics = jtrainer.make_train_step()(
+            state, {k: jnp.asarray(v) for k, v in batch.items()}, jnp.asarray(0.0))
+    return jax.device_get({k: getattr(new, k) for k in JAX_STATE}), jax.device_get(metrics)
 
 
 def _close(got, want, rtol=1e-5, atol=2e-6, what=""):
@@ -190,6 +215,15 @@ def _run(tmp: str) -> dict:
     cases["vqa"] = {"overrides": VQA + ["data.batch_size=2", f"exp_dir={tmp}/vqa"],
                     "weights": None, "batch": None, "params": (), "steps": 0,
                     "submit": f"{tmp}/vqa_two"}
+    # int8 under tensor parallelism: refused, naming the later slice
+    for mode in ("w8a8", "w8a8_pallas"):
+        cases[f"int8_{mode}"] = {"overrides": ITC + ["data.batch_size=4", "parallel=tp",
+                                                     f"model.quantize={mode}"],
+                                 "raises": True}
+    # accumulation across the two ranks, from JAX's initial state (in_jax.pt)
+    cases["accum"] = {"overrides": ACCUM + ["data.batch_size=4", f"exp_dir={tmp}/accum"],
+                      "weights": None, "flax": "accum", "batch": "step",
+                      "negatives": ACCUM_NEG, "params": PARAMS, "jax": True}
     # the ITC-only cases last: they take JAX's initial weights (in_jax.pt)
     for flag in ("true", "false"):
         cases[f"gr_{flag}"] = {
@@ -219,8 +253,14 @@ def _run(tmp: str) -> dict:
         jstate, jparts = _jax_init(jgspmd, jbatch)
         load_flax_train_state(itc_one.state, jparts)
         weights["itc"] = {k: v.clone() for k, v in itc_one.task.state_dict().items()}
+        # the recipe at accumulation_steps=2 on JAX's GSPMD step (8 rows)
+        jaccum = _jax_trainer(ACCUM + ["data.batch_size=8"], f"{tmp}/ja")
+        step_batch = {k: v for k, v in batch.items() if not isinstance(v, list)}
+        jaccum_state, _ = _jax_init(jaccum, step_batch)
+        accum_init = jax.device_get({k: getattr(jaccum_state, k) for k in JAX_STATE})
         with open(os.path.join(tmp, "in_jax.tmp"), "wb") as f:
-            torch.save({"weights": weights, "batches": {"step": batch, "itc": jbatch}}, f)
+            torch.save({"weights": weights, "batches": {"step": batch, "itc": jbatch},
+                        "flax": {"accum": accum_init}}, f)
         os.replace(os.path.join(tmp, "in_jax.tmp"), os.path.join(tmp, "in_jax.pt"))
         out = {"one": {}, "jax": {}}
         # meanwhile: the one-process steps and JAX's
@@ -238,6 +278,7 @@ def _run(tmp: str) -> dict:
                                 "ptr": tr.state.queue_ptr,
                                 "moments": tr.state.optimizer.full_state_dict()}
         out["jax"]["gr_false"] = _jax_step(jgspmd, jstate, jbatch)
+        out["jax"]["accum"] = _jax_accum_step(jaccum, jaccum_state, step_batch)
         jshard = _jax_trainer(ITC + ["data.batch_size=8", "train.global_reduce=true",
                                      "runtime.mesh.data=2", "runtime.mesh.fsdp=4"],
                               f"{tmp}/js")
@@ -300,12 +341,15 @@ def test_mesh_that_does_not_cover_the_world_raises():
         mesh_shape(load_config(["runtime.mesh.data=3", "runtime.mesh.fsdp=1"]), world=2)
 
 
-@pytest.mark.parametrize("overrides", [["parallel=tp"], ["runtime.mesh.tensor=2",
-                                                         "runtime.mesh.data=1"]])
-def test_tensor_parallelism_raises_naming_the_next_slice(overrides):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        Trainer(load_config(TINY + ["train.loss_names=[itc]"] + overrides), device="cpu")
-    assert "Megatron" in TP_SLICE
+@pytest.mark.parametrize("mode", ["w8a8", "w8a8_pallas"])
+def test_int8_under_tensor_parallelism_raises_naming_the_later_slice(run, mode):
+    """`model.quantize` other than none on a tensor axis of 2 (parallel=tp
+    over the two ranks): rows 8-10 quantize each activation row over its
+    whole K or hidden, so the combination is refused as a later slice."""
+    for rank in run["ranks"]:
+        got = rank[f"int8_{mode}"]
+        assert got["type"] == "NotImplementedError" and "later slice" in got["raised"]
+        assert mode in got["raised"]
 
 
 # ------------------------------------------------------------ collectives
@@ -469,6 +513,28 @@ def test_global_reduce_matches_jaxs_paths(run, flag):
         _close(got["grad_norm"], want["grad_norm"], rtol=1e-4, what="grad_norm")
     params = run["ranks"][0][f"gr_{flag}"]["params"]
     for k in ITC_PARAMS:
+        _close(params[k], want_params[k], rtol=1e-4, atol=1e-6, what=k)
+
+
+def test_accumulation_on_two_ranks_takes_jaxs_microbatches(run):
+    """The recipe at accumulation_steps=2 on two ranks of 4 rows equals
+    JAX's step over the 8 rows, whose scan slices the global batch: rank p's
+    rows of microbatch i are global rows 4 i + 2 p + j, its positives at
+    that offset in the momentum features, the ITM negatives drawn among the
+    microbatch's 4 rows. The losses, the gradient norm, the updated
+    parameters and both EMA trees' queues, from JAX's initial state."""
+    want_parts, want = run["jax"]["accum"]
+    want_params = from_flax_params(want_parts["params"])
+    for rank in run["ranks"]:
+        got = rank["accum"]["metrics_0"]
+        for k in ACCUM_METRICS:
+            _close(got[k], want[k], what=k)
+        _close(got["grad_norm"], want["grad_norm"], rtol=1e-4, what="grad_norm")
+        _close(rank["accum"]["queue"], want_parts["img_queue"], rtol=1e-4, atol=1e-6,
+               what="queue")
+        assert int(rank["accum"]["queue_ptr"]) == int(want_parts["queue_ptr"]) == ROWS
+    params = run["ranks"][0]["accum"]["params"]
+    for k in PARAMS:
         _close(params[k], want_params[k], rtol=1e-4, atol=1e-6, what=k)
 
 

@@ -311,9 +311,10 @@ def test_long_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     for maps in seen:
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v)]
-    # bias, no seed, no row index, out, no lse, (bh, heads, n, tiles, CTAs)
+    # bias, no seed, no row index, out, no lse, (bh, heads, the heads' total
+    # and first, n, tiles, CTAs)
     assert launches[-1][1] is None and launches[-1][2] is None and launches[-1][4] is None
-    assert launches[-1][5:10] == (6, 3, 300, 3, 18)
+    assert launches[-1][5:12] == (6, 3, 3, 0, 300, 3, 18)
     assert len(fa._MAPS) <= cap
 
 
@@ -454,11 +455,12 @@ def test_row1_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
     for maps in seen:
         assert [struct.unpack("<q", b[:8])[0] for b in maps] == [
             t.data_ptr() for t in (q, k, v)]
-    # bias, a null seed and row index, out, lse, then bh, heads, n, the key
-    # width and the grid, the scale and no dropout (threshold 0, factor 1)
+    # bias, a null seed and row index, out, lse, then bh, heads, the heads'
+    # total and first, n, the key width and the grid, the scale and no
+    # dropout (threshold 0, factor 1)
     assert launches[-1][1] is None and launches[-1][2] is None
-    assert launches[-1][5:10] == (24, 12, 237, 240, 24)
-    assert launches[-1][10:13] == (0.125, 0, 1.0)
+    assert launches[-1][5:12] == (24, 12, 12, 0, 237, 240, 24)
+    assert launches[-1][12:15] == (0.125, 0, 1.0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1080,8 +1082,9 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     """Five maps per launch (q, k, v, o, do): each one the kernel receives
     is the one encoded for its tensor, even where the cache empties itself
     between two lookups; then the bias, seed, lse, delta, dq, dk, dv
-    pointers (a null row index), (bh, heads, n, key width, grid, tiles per
-    unit), the scale and the dropout threshold and factor."""
+    pointers (a null row index), (bh, heads, the heads' total and first, n,
+    key width, grid, tiles per unit), the scale and the dropout threshold
+    and factor."""
     calls, seen, launches = [], [], []
 
     def kernel(*args):
@@ -1093,7 +1096,7 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert name == "flash_attention_bwd_sm90"
         if symbol == "flash_attention_bwd_sm90_encode":
             return _fake_encoder(calls)
-        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 23
+        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 25
         return kernel
 
     monkeypatch.setattr(fa._build, "load", fake_load)
@@ -1111,8 +1114,9 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     rest = launches[-1]
     assert rest[0] == kb.data_ptr() and rest[1] == seed.data_ptr() and rest[2] is None
     assert rest[3] == lse.data_ptr()
-    assert rest[8:14] == (24, 12, n, fa.fwd_sm90_tile(n), *fa.bwd_sm90_units(24, n, H100_SMS)[::-1])
-    assert rest[14:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert rest[8:16] == (24, 12, 12, 0, n, fa.fwd_sm90_tile(n),
+                          *fa.bwd_sm90_units(24, n, H100_SMS)[::-1])
+    assert rest[16:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1150,23 +1154,24 @@ def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     """Row 2 on the sm90 backward: its one entry (`flash_attention_bwd_sm90`)
     with a null seed and row index, no dropout (threshold 0, factor 1),
     gets the five maps of q, k, v, o, do, live across a cache eviction;
-    then the bias, lse, delta, dq, dk, dv pointers, (bh, heads, n, key
-    width, grid, tiles per unit), the scale and the stream."""
+    then the bias, lse, delta, dq, dk, dv pointers, (bh, heads, the heads'
+    total and first, n, key width, grid, tiles per unit), the scale and the
+    stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
-                                 "flash_attention_bwd_sm90", 23, cap)
+                                 "flash_attention_bwd_sm90", 25, cap)
     q, k, v, kb, _, o, do, lse = _bwd_args(n=n)
     for _ in range(2):
         dq, dk, dv = fa._launch_bwd_sm90(q, k, v, kb, None, o, do, lse, 0.125)
         assert _map_addresses(launches[-1], 5) == [t.data_ptr() for t in (q, k, v, o, do)]
     assert dq.shape == dk.shape == dv.shape == q.shape
     rest = launches[-1][5:]
-    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 23
+    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 25
     assert rest[0] == kb.data_ptr() and rest[1] is None and rest[2] is None
     assert rest[3] == lse.data_ptr()
     assert rest[5:8] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tpg, grid = fa.bwd_sm90_units(24, n, H100_SMS)
-    assert rest[8:14] == (24, 12, n, fa.fwd_sm90_tile(n), grid, tpg)
-    assert rest[14:] == (0.125, 0, 1.0, 0)
+    assert rest[8:16] == (24, 12, 12, 0, n, fa.fwd_sm90_tile(n), grid, tpg)
+    assert rest[16:] == (0.125, 0, 1.0, 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1176,10 +1181,11 @@ def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     (`flash_attention_fwd_sm90`) with the seed gets row 1's "short" maps of
     q, k, v, live across a cache eviction; then the bias, seed, row index
     (the global rows of a process's share of the batch), out, lse
-    pointers, row 1's (bh, heads, n, key width, grid), the scale, the uint32
-    threshold, the fp32 factor and the stream."""
+    pointers, row 1's (bh, heads, the heads' total and first, n, key width,
+    grid), the scale, the uint32 threshold, the fp32 factor and the
+    stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_fwd_sm90",
-                                 "flash_attention_fwd_sm90", 17, cap)
+                                 "flash_attention_fwd_sm90", 19, cap)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32)
     rows = torch.tensor([4, 5], dtype=torch.int32)
@@ -1188,11 +1194,12 @@ def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
     assert out.shape == q.shape and lse.shape == (24, n)
     rest = launches[-1][3:]
-    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 17
+    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 19
     assert rest[:5] == (kb.data_ptr(), seed.data_ptr(), rows.data_ptr(), out.data_ptr(),
                         lse.data_ptr())
-    assert rest[5:10] == (24, 12, n, fa.fwd_sm90_tile(n), fa.fwd_sm90_grid(24, H100_SMS))
-    assert rest[10:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert rest[5:12] == (24, 12, 12, 0, n, fa.fwd_sm90_tile(n),
+                          fa.fwd_sm90_grid(24, H100_SMS))
+    assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert fa.dropout_threshold(0.1) == 429496729
     assert len(fa._MAPS) <= cap
     assert all(key[0] == "short" for key in fa._MAPS)
@@ -1397,7 +1404,7 @@ def test_stream_entry_checks_its_launch():
     assert "if (seed == nullptr)\n    return launch<true, false>" in entry
     assert "return launch<true, true>" in entry
     head = entry[:entry.index("{")]
-    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 17
+    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 19
     assert not (fa._build.CSRC / "flash_attention_fwd.cu").exists()
     assert not (fa._build.CSRC / "mma_bf16.cuh").exists()
     assert "flash_attention_fwd" not in fa._build.KERNELS
@@ -1410,10 +1417,11 @@ def test_stream_launch_passes_live_maps_across_an_eviction(monkeypatch, row, n, 
     """Rows 1 and 3 past 256 keys: the streamed kernel's one entry gets the
     "long" maps of q, k, v (row 5's cache) live across an eviction; then
     the bias, the seed and row index (null for row 1), out and lse
-    pointers, (bh, heads, n, tiles, CTAs), the scale, the threshold and
-    factor (0 and 1 without dropout) and the stream."""
+    pointers, (bh, heads, the heads' total and first, n, tiles, CTAs), the
+    scale, the threshold and factor (0 and 1 without dropout) and the
+    stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_long_sm90",
-                                 "flash_attention_long_sm90", 17, cap)
+                                 "flash_attention_long_sm90", 19, cap)
     monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32) if row == 3 else None
@@ -1428,11 +1436,11 @@ def test_stream_launch_passes_live_maps_across_an_eviction(monkeypatch, row, n, 
                         None if rows is None else rows.data_ptr(), out.data_ptr(),
                         lse.data_ptr())
     tiles, _ = fa.long_grid(24, n)
-    assert rest[5:10] == (24, 12, n, tiles, fa.long_ctas(24, n, H100_SMS))
+    assert rest[5:12] == (24, 12, 12, 0, n, tiles, fa.long_ctas(24, n, H100_SMS))
     if seed is None:
-        assert rest[10:] == (0.125, 0, 1.0, 0)
+        assert rest[12:] == (0.125, 0, 1.0, 0)
     else:
-        assert rest[10:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+        assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
     assert len(fa._MAPS) <= cap
     assert all(key[0] == "long" for key in fa._MAPS)
 
@@ -1537,7 +1545,7 @@ def test_row4_launch_passes_the_row_index(monkeypatch, n):
     """Row 4 hands its row index to the backward's entry right after the
     seed, for both kernels the entry launches to key the mask by."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
-                                 "flash_attention_bwd_sm90", 23, 256)
+                                 "flash_attention_bwd_sm90", 25, 256)
     q, k, v, kb, seed, o, do, lse = _bwd_args(n=n)
     rows = torch.tensor([8, 9], dtype=torch.int32)
     fa._launch_bwd_sm90(q, k, v, kb, seed, o, do, lse, 0.125, 0.1, rows)
@@ -1553,20 +1561,24 @@ def test_row4_launch_passes_the_row_index(monkeypatch, n):
 def test_entries_key_the_mask_by_the_row_index(src, entry):
     """Each dropout entry takes the row index after its seed and hands it
     to the kernel, which keys every head's hash by `dropout_head` (the
-    head's own index where the pointer is null); the streamed and backward
-    entries refuse an index without a seed, the short forward passes none
-    to its kernel without one."""
+    head's own index where the pointer is null and the call holds every
+    head of its rows); the streamed and backward entries refuse an index
+    without a seed, the short forward passes none to its kernel without
+    one. Each takes the heads' total and first index after `heads` and
+    refuses heads beyond the total."""
     text = (fa._build.CSRC / src).read_text()
     head = text[text.index(f'extern "C" int {entry}'):]
     head = head[:head.index("{")]
     assert "const void* seed," in head and "const void* row_index" in head
     assert head.index("seed") < head.index("row_index")
-    assert "emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads))" in text
+    assert " ".join(head.split()).count("int heads, int heads_total, int head0,") == 1
+    assert "emm::dropout_head(row_index, bh, heads, heads_total, head0)" in text
+    assert "head0 + heads > heads_total" in text
     assert "emm::dropout_keys(sd, bh)" not in text
     if src != "flash_attention_fwd_sm90.cu":
         assert "(row_index != nullptr && seed == nullptr)" in text
     else:
-        assert "nullptr, nullptr, 0u, 1.f, stream)" in text
+        assert "nullptr, nullptr, heads_total, head0, 0u, 1.f, stream)" in text
     hash_src = (fa._build.CSRC / "dropout_hash.cuh").read_text()
-    assert ("row_index == nullptr ? bh : row_index[bh / heads] * heads + bh % heads"
+    assert ("(row_index == nullptr ? b : row_index[b]) * heads_total + head0 + h"
             in hash_src)
