@@ -19,6 +19,10 @@
     python3 chip_smoke.py --parallel
                                  # the build and phase 26 alone
     python3 chip_smoke.py --tp   # the build and phase 27 alone
+    python3 chip_smoke.py --optim
+                                 # the build and phase 28 alone
+    python3 chip_smoke.py --tp-int8
+                                 # the build and phase 29 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -247,9 +251,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      whole within GRAD_REL_TOL), with each rank's step time, peak memory
      and all-reduces; the ranks' checkpoint read in one process (logits
      within E2E_ATOL);
- 28. print the kernel table as one JSON line (rows 3, 4, 6 and 7 with
-     their tp launches), the card line, and last
-     {"ok": true, "device": {...}}.
+ 28. the optimizer menu: one pretrain_mum step's gradients at vlmo_base,
+     batch 32 (rows 3 and 4 54 times), then every rule of JAX's table and
+     lookahead_adamw (OPTIM_LOOKAHEAD_UPDATES updates) applied to them on
+     the card over every parameter, each update's host time, and in fp32
+     on the CPU over OPTIM_CPU_PARAMS, the largest difference against
+     OPTIM_STEP_RTOL of the step (lion: the sign agreement of the step);
+     OPTIM_TIMED_STEPS timed training steps under lamb and adafactor with
+     rows 3 and 4 counted; lamb and adafactor at fsdp on two gloo ranks of
+     this script against one process (losses within LOSS_RTOL, gradients
+     within GRAD_REL_TOL, each rule's update on the step's gradients within
+     OPTIM_TWO_RANK_REL_L2 and OPTIM_TWO_RANK_SIZE, and its control, each
+     shard's own leaf statistics, outside them);
+ 29. int8 under tensor parallelism: row 8's partial mode on proj's row
+     shares (K 384) and its whole mode on qkv's column share (N 1,152), and
+     rows 9 and 10's split mode (two launches around the all-reduce-max) on
+     the hidden's shares (1,536 of 3,072), at the finetune_vqa step's M,
+     against their plain versions, the shares summed against the whole
+     plain call, each timed beside the whole kernel, its plain version and
+     the `torch._int_mm` chain on the share; then finetune_vqa at
+     model.quantize=w8a8_pallas, TP = 2, batch 32, every dropout on, on two
+     gloo ranks against one process (rows 8 whole and partial and 10 split
+     18 times a step, row 9 split on an evaluation batch), and the ranks'
+     checkpoint read in one process;
+ 30. print the kernel table as one JSON line (rows 3, 4, 6 and 7 with
+     their tp launches; rows 8-10's split modes as entries of their own),
+     the card line, and last {"ok": true, "device": {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
 device-side sleep, so the host's launch overhead does not enter them.
@@ -257,6 +284,7 @@ device-side sleep, so the host's launch overhead does not enter them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import ctypes.util
 import importlib
@@ -345,11 +373,17 @@ from exploremultimodal_torch.ops.quant_fused import (
     quantize_weights,
     row_quant,
     w8a8_matmul,
+    w8a8_matmul_partial,
+    w8a8_matmul_partial_plain,
     w8a8_matmul_plain,
+    w8a8_mlp_amax_plain,
     w8a8_mlp_fwd,
     w8a8_mlp_fwd_drop,
     w8a8_mlp_fwd_drop_plain,
+    w8a8_mlp_fwd_drop_split,
     w8a8_mlp_fwd_plain,
+    w8a8_mlp_fwd_split,
+    w8a8_mlp_partial_plain,
 )
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 from exploremultimodal_torch.main import setup
@@ -362,13 +396,16 @@ from exploremultimodal_torch.objectives.losses import itc_losses
 from exploremultimodal_torch.train import checkpoints as ckpt_lib
 from exploremultimodal_torch.train.phases import dispatch, write_vqa_submission
 from exploremultimodal_torch.train.retrieval import encode_split, recall_at_k
+from exploremultimodal_torch.train.optim import RULES as OPTIM_RULE_TABLE
+from exploremultimodal_torch.train.optim import create_optimizer
 from exploremultimodal_torch.train.trainer import Trainer
 
 # every kernel wrapper of the port, each with its launch count
 KERNELS = (flash_attention_fwd, flash_attention_bwd, flash_attention_fwd_drop,
            flash_attention_bwd_drop, fused_mlp_fwd, fused_mlp_fwd_drop,
            w8a8_matmul, w8a8_mlp_fwd, w8a8_mlp_fwd_drop, flash_attention_fwd_long,
-           fused_encoder_block)
+           fused_encoder_block, w8a8_matmul_partial, w8a8_mlp_fwd_split,
+           w8a8_mlp_fwd_drop_split)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_INT8_OPS = 1979e12  # H100 SXM, dense int8 tensor cores
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -3576,6 +3613,12 @@ def probe_child(rank: int, port: int, backend: str, path: str) -> int:
     return 0
 
 
+def require_ranks(done: list, tags: list) -> None:
+    """Each rank process of `spawn_ranks` exited 0 (tags[i] names the i-th)."""
+    for (rc, log), tag in zip(done, tags):
+        require(rc == 0, f"{tag} exited {rc}:\n{log[-3000:]}")
+
+
 def spawn_ranks(args: list[list[str]], timeout: float) -> list[tuple[int, str]]:
     """Start a process of this script per argument list, wait for each (the
     rest are killed once one outlives `timeout`); (exit code, output)."""
@@ -3625,7 +3668,8 @@ def probe_two_ranks(tmp: str) -> dict:
 def two_rank_child(rank: int, port: int, tag: str, workdir: str) -> int:
     """Rank `rank` of the two-rank step over gloo on the one card: its half
     of the parent's batch, the parent's ITM negatives and MIM labels; its
-    losses and the named gradients (whole) to `workdir`."""
+    losses and the named gradients (whole) to `workdir`; where the parent
+    asks for "rules" (phase 28), `rule_updates` on the step's gradients."""
     import torch.distributed as dist
 
     inputs = torch.load(os.path.join(workdir, "in.pt"), weights_only=False)
@@ -3638,22 +3682,32 @@ def two_rank_child(rank: int, port: int, tag: str, workdir: str) -> int:
     per = TRAIN_BATCH // TWO_RANKS
     lo, hi = rank * per, (rank + 1) * per
     batch = {k: v[lo:hi] for k, v in inputs["batch"].items()}
+    named = {k: p for k, p in trainer.task.named_parameters() if p.requires_grad}
+    before = ({k: p.detach().to_local().clone() if hasattr(p, "to_local") else
+               p.detach().clone() for k, p in named.items()} if inputs.get("rules") else None)
     m = trainer.step(batch, negatives=tuple(n[lo:hi] for n in inputs["negatives"]),
                      mim_labels=inputs["mim_labels"][lo:hi])
+
+    def whole(t):
+        if hasattr(t, "to_local"):
+            # fsdp's dim-0 shards gathered by hand: a DTensor's own gather
+            # (functional collectives) crashes on gloo with CUDA tensors;
+            # these parameters split evenly
+            local = t.to_local().contiguous()
+            t = local.new_empty((TWO_RANKS * local.shape[0], *local.shape[1:]))
+            dist.all_gather_into_tensor(t, local)
+        return t.float().cpu()
+
     grads = {}
     for k, p in trainer.task.named_parameters():
         if k in TWO_RANK_PARAMS:
-            g = p.grad
-            if hasattr(g, "to_local"):
-                # fsdp's dim-0 shards gathered by hand: a DTensor's own
-                # gather (functional collectives) crashes on gloo with CUDA
-                # tensors; these parameters split evenly
-                local = g.to_local().contiguous()
-                g = local.new_empty((TWO_RANKS * local.shape[0], *local.shape[1:]))
-                dist.all_gather_into_tensor(g, local)
-            grads[k] = g.float().cpu()
-    torch.save({"losses": losses_of(m), "grads": grads},
-               os.path.join(workdir, f"out_{tag}_{rank}.pt"))
+            grads[k] = whole(p.grad)
+    out = {"losses": losses_of(m), "grads": grads}
+    if before is not None:
+        out["updates"] = rule_updates(named, before, {k: p.grad for k, p in named.items()},
+                                      inputs["overrides"], trainer.steps_per_epoch,
+                                      ("whole", "local"), whole)
+    torch.save(out, os.path.join(workdir, f"out_{tag}_{rank}.pt"))
     dist.destroy_process_group()
     return 0
 
@@ -3974,8 +4028,9 @@ def tp_rank_child(rank: int, port: int, tag: str, workdir: str) -> int:
     out.update(ms_per_step=[x * 1e3 for x in times],
                median_ms_per_step=statistics.median(times) * 1e3,
                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
-    if tag == "vqa":
-        out["saved"] = ckpt_lib.save(os.path.join(workdir, "ckpt"), trainer.state, cfg_dict, 0)
+    if tag != "mum":
+        out["saved"] = ckpt_lib.save(os.path.join(workdir, f"ckpt_{tag}"), trainer.state,
+                                     cfg_dict, 0)
         for fn in KERNELS:
             fn.launches = 0
         _, _, extra = trainer.eval_step(batch, torch.Generator(device="cuda").manual_seed(0))
@@ -3987,20 +4042,28 @@ def tp_rank_child(rank: int, port: int, tag: str, workdir: str) -> int:
     return 0
 
 
+def tp_overrides(tag: str) -> list[str]:
+    if tag == "mum":
+        return TRAIN_OVERRIDES
+    return VQA_OVERRIDES + (["model.quantize=w8a8_pallas"] if tag == "vqa_w8" else [])
+
+
 def tp_step_phase(card: str, tag: str, tmp: str) -> dict:
-    """pretrain_mum ("mum", rows 3 and 4 54 times a step) or finetune_vqa
+    """pretrain_mum ("mum", rows 3 and 4 54 times a step), finetune_vqa
     with mlp_impl=fused ("vqa": rows 7, 3 and 4 18 times, row 6 18 times an
-    evaluation batch, each MLP in the partial mode) at vlmo_base, batch 32,
-    every dropout on: one process on the card, then two tensor ranks
-    (`tp_rank_child`) on the same weights and batch. Losses within
-    LOSS_RTOL and equal on both ranks, the named gradients within
-    GRAD_REL_TOL (relative L2), the launches counted per step; for "vqa"
-    the ranks' checkpoint read in one process gives their logits within
-    E2E_ATOL."""
-    mum = tag == "mum"
-    overrides = TRAIN_OVERRIDES if mum else VQA_OVERRIDES
+    evaluation batch, each MLP in the partial mode) or at
+    model.quantize=w8a8_pallas ("vqa_w8": rows 8 whole (qkv) and partial
+    (proj), 10 split, 3 and 4 18 times a step; rows 8 and 9 split 18 times
+    an evaluation batch) at vlmo_base, batch 32, every dropout on: one
+    process on the card, then two tensor ranks (`tp_rank_child`) on the
+    same weights and batch. Losses within LOSS_RTOL and equal on both
+    ranks, the named gradients within GRAD_REL_TOL (relative L2), the
+    launches counted per step; for finetune_vqa the ranks' checkpoint read
+    in one process gives their logits within E2E_ATOL (W8A8_E2E_ATOL for
+    int8)."""
+    mum, int8 = tag == "mum", tag == "vqa_w8"
+    overrides = tp_overrides(tag)
     names = TWO_RANK_PARAMS if mum else CHECKED_VQA_PARAMS
-    cfg = VlmoConfig.from_config(load_config(overrides))
     one = Trainer(load_config(overrides), device="cuda")
     batch = one.next_batch()
     kw = {}
@@ -4018,22 +4081,30 @@ def tp_step_phase(card: str, tag: str, tmp: str) -> dict:
                 "params": names}, os.path.join(tmp, f"in_{tag}.pt"))
     t0 = time.perf_counter()
     port = free_port()
-    runs = spawn_ranks([["--tp-rank", str(r), str(port), tag, tmp] for r in range(TP)],
-                       TP_TIMEOUT_S)
-    for r, (rc, log) in enumerate(runs):
-        require(rc == 0, f"tp {tag} rank {r} exited {rc}:\n{log[-3000:]}")
+    require_ranks(spawn_ranks([["--tp-rank", str(r), str(port), tag, tmp] for r in range(TP)],
+                              TP_TIMEOUT_S), [f"tp {tag} rank {r}" for r in range(TP)])
+    cfg = VlmoConfig.from_config(load_config(overrides))
     got = [torch.load(os.path.join(tmp, f"out_{tag}_{r}.pt")) for r in range(TP)]
     calls = img_txt_calls(cfg)
-    expected = ({"flash_attention_fwd_drop": attention_calls_per_step(cfg),
-                 "flash_attention_bwd_drop": attention_calls_per_step(cfg)} if mum else
-                {"fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
-                 "flash_attention_bwd_drop": calls, "fused_mlp_fwd": 0})
+    if mum:
+        expected = {"flash_attention_fwd_drop": attention_calls_per_step(cfg),
+                    "flash_attention_bwd_drop": attention_calls_per_step(cfg)}
+    elif int8:
+        expected = {"w8a8_matmul": calls, "w8a8_matmul_partial": calls,
+                    "w8a8_mlp_fwd_drop_split": calls, "flash_attention_fwd_drop": calls,
+                    "flash_attention_bwd_drop": calls, "w8a8_mlp_fwd_drop": 0,
+                    "fused_mlp_fwd_drop": 0}
+        eval_expected = {"w8a8_matmul": calls, "w8a8_matmul_partial": calls,
+                         "w8a8_mlp_fwd_split": calls, "w8a8_mlp_fwd": 0}
+    else:
+        expected = {"fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+                    "flash_attention_bwd_drop": calls, "fused_mlp_fwd": 0}
+        eval_expected = {"fused_mlp_fwd": calls, "fused_mlp_fwd_drop": 0}
     res = {"s": time.perf_counter() - t0, "card": card, "ranks": []}
     for r, g in enumerate(got):
         require_launches(f"tp_{tag} rank {r}", g["launches"], expected, 1)
         if not mum:
-            require_launches(f"tp_{tag} eval rank {r}", g["eval_launches"],
-                             {"fused_mlp_fwd": calls, "fused_mlp_fwd_drop": 0}, 1)
+            require_launches(f"tp_{tag} eval rank {r}", g["eval_launches"], eval_expected, 1)
         for k, w in want["losses"].items():
             require(abs(g["losses"][k] - w) <= LOSS_RTOL * abs(w) + 1e-3,
                     f"tp {tag} rank {r} {k}: {g['losses'][k]} against one process's {w}")
@@ -4047,20 +4118,22 @@ def tp_step_phase(card: str, tag: str, tmp: str) -> dict:
             "peak_memory_gib": g["peak_memory_gib"], "all_reduces_per_step": g["all_reduces"],
             "all_reduce_gb_per_step": g["all_reduce_bytes"] / 1e9,
             "launches_per_step": {k: g["launches"][k] for k in expected},
-            **({} if mum else {"eval_launches": {"fused_mlp_fwd": g["eval_launches"][
-                "fused_mlp_fwd"]}}),
+            **({} if mum else {"eval_launches": {k: g["eval_launches"][k]
+                                                 for k in eval_expected}}),
             "grad_rel_err": grad_err})
     res["losses_tp_one"] = {k: (got[0]["losses"][k], w) for k, w in want["losses"].items()}
     if not mum:
         # the checkpoint the two ranks wrote (rank 0, the whole torch
         # layout), read by one process: its logits are the ranks'
         reader = Trainer(load_config(overrides), device="cuda")
-        restored = ckpt_lib.auto_load(os.path.join(tmp, "ckpt"), reader.state, reader.cfg)
+        restored = ckpt_lib.auto_load(os.path.join(tmp, f"ckpt_{tag}"), reader.state,
+                                      reader.cfg)
         require(restored is not None and reader.state.step == 1 + TP_STEPS,
                 f"tp checkpoint: restored {restored}, step {reader.state.step}")
         _, _, extra = reader.eval_step(batch, torch.Generator(device="cuda").manual_seed(0))
         diff = (extra["vqa_logits"].float().cpu() - got[0]["eval_logits"]).abs().max().item()
-        require(diff <= E2E_ATOL, f"tp checkpoint: logits {diff} apart, beyond {E2E_ATOL}")
+        atol = W8A8_E2E_ATOL if int8 else E2E_ATOL
+        require(diff <= atol, f"tp checkpoint: logits {diff} apart, beyond {atol}")
         res["checkpoint_logits_max_abs_diff"] = diff
         del reader
         torch.cuda.empty_cache()
@@ -4091,6 +4164,499 @@ def tp_phase(card: str, dev) -> dict:
 def tp_only(card: str, dev) -> int:
     """The build, then phase 27 alone (`--tp`)."""
     tp_phase(card, dev)
+    return 0
+
+
+# ---- phase 28: the optimizer menu
+OPTIM_RULES = tuple(sorted(OPTIM_RULE_TABLE)) + ("lookahead_adamw",)
+OPTIM_LOOKAHEAD_UPDATES = 7  # lookahead syncs at the 6th
+OPTIM_TIMED = ("lamb", "adafactor")
+OPTIM_TIMED_STEPS = 3
+# the leaves the CPU updates beside the card (the rules work leaf by leaf
+# and pretrain_mum clips nothing, so a subset's update is the whole one's
+# there): Dense kernels adafactor factors, the 3-D pos_embed (factored, not
+# a kernel), the conv kernel, biases, a head, the 0-d itc_temp
+OPTIM_CPU_PARAMS = ("transformer.blocks.0.attn.qkv.weight",
+                    "transformer.blocks.11.mlp_vl.fc1.weight",
+                    "transformer.blocks.5.mlp_v.fc2.bias", "transformer.blocks.3.attn.q_bias",
+                    "transformer.patch_embed.weight", "transformer.pos_embed",
+                    "itm_head.fc.weight", "itc_temp")
+OPTIM_UPDATES = 2  # a rule's first update also makes its state
+# the card's fp32 update against the CPU's: every element within this share
+# of the leaf's largest step plus 4 fp32 spacings of the parameter (the
+# devices round the moments' square roots and sums differently); lion's
+# step is a sign, compared by the share of equal signs
+OPTIM_STEP_RTOL, OPTIM_SIGN_AGREEMENT = 1e-3, 0.999
+# the two-rank update (fsdp, gloo) against one process's on the same
+# gradients (theirs 0.2% apart in relative L2): the difference's relative
+# L2 (a first step of lamb, or of adafactor on a leaf it does not factor,
+# is near a sign of the gradient, whose flips where the two gradients
+# straddle 0 set this reading: up to 2.7% / 1.7% on the H100), and each
+# fsdp shard's part's size (|ratio - 1|), which such flips leave alone and
+# a leaf statistic of one shard alone moves. Read on the H100: lamb
+# 1.4e-5 (its control 7.6e-3), adafactor 2.9e-4 (its control 0.82)
+OPTIM_TWO_RANK_REL_L2 = 0.1
+OPTIM_TWO_RANK_SIZE = {"lamb": 1e-4, "adafactor": 2e-3}
+
+
+def optim_warmup_end(overrides: list[str], steps_per_epoch: int) -> int:
+    """The schedule's last warm-up step (its base rate): the rules are
+    compared there, not at the warm-up's first rates (5e-7 and up), whose
+    steps lamb's trust ratio takes down to a few fp32 spacings of the
+    weights."""
+    t = load_config(overrides)["train"]
+    return min(int(t["warmup_steps"]), max(int(t["epochs"] * steps_per_epoch) - 1, 1))
+
+
+def optim_rules_phase(card: str, trainer: Trainer) -> dict:
+    """One pretrain_mum step of `trainer` (vlmo_base, batch 32; rows 3 and
+    4 counted) for its gradients; then each rule of OPTIM_RULES applied to
+    them from
+    the step's weights, OPTIM_UPDATES times (lookahead's
+    OPTIM_LOOKAHEAD_UPDATES) at the schedule's last warm-up steps: on the
+    card over every trainable parameter
+    (each update's host time, synchronised: the `step/optimizer` range's
+    optimizer part; the first also makes the state), and in fp32 on the
+    CPU over OPTIM_CPU_PARAMS, their changes compared."""
+    per_step = attention_calls_per_step(trainer.config)
+    for fn in KERNELS:
+        fn.launches = 0
+    trainer.step()
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    require_launches("optim_grads", launches, {"flash_attention_fwd_drop": per_step,
+                                               "flash_attention_bwd_drop": per_step}, 1)
+    named = {n: p for n, p in trainer.task.named_parameters() if p.requires_grad}
+    grads = {n: p.grad.detach().clone() for n, p in named.items()}
+    base = {n: p.detach().clone() for n, p in named.items()}
+    spe = trainer.steps_per_epoch
+    del named
+    cpu_grads = {n: grads[n].cpu() for n in OPTIM_CPU_PARAMS}
+    out = {"card": card, "launches": {k: launches[k] for k in (
+        "flash_attention_fwd_drop", "flash_attention_bwd_drop")}, "rules": {}}
+    for name in OPTIM_RULES:
+        updates = (OPTIM_LOOKAHEAD_UPDATES if name.startswith("lookahead_")
+                   else OPTIM_UPDATES)
+        rule_cfg = load_config(TRAIN_OVERRIDES + [f"train.opt.name={name}"])
+        gpu = {n: p.clone().requires_grad_() for n, p in base.items()}
+        cpu = {n: base[n].cpu().clone().requires_grad_() for n in OPTIM_CPU_PARAMS}
+        gopt, _ = create_optimizer(rule_cfg, gpu, spe)
+        copt, _ = create_optimizer(rule_cfg, cpu, spe)
+        times = []
+        last = optim_warmup_end(TRAIN_OVERRIDES + [f"train.opt.name={name}"], spe)
+        for t in range(last - updates + 1, last + 1):
+            for n, p in gpu.items():
+                p.grad = grads[n]
+            for n, p in cpu.items():
+                p.grad = cpu_grads[n]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gopt.step(t)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            copt.step(t)
+        diffs, worst = {}, 0.0
+        for n in OPTIM_CPU_PARAMS:
+            b = base[n].cpu().double()
+            got, want = gpu[n].detach().cpu().double() - b, cpu[n].detach().double() - b
+            require(torch.isfinite(got).all(), f"optim {name} {n}: non-finite update")
+            if name == "lion":
+                agree = (torch.sign(got) == torch.sign(want)).double().mean().item()
+                require(agree >= OPTIM_SIGN_AGREEMENT,
+                        f"optim lion {n}: signs agree on {agree}")
+                diffs[n] = agree
+                continue
+            bf = b.abs().float()
+            spacing = (torch.nextafter(bf, torch.full_like(bf, math.inf)) - bf).double()
+            limit = OPTIM_STEP_RTOL * want.abs().max() + 4 * spacing
+            over = ((got - want).abs() - limit).max().item()
+            diffs[n] = (got - want).abs().max().item()
+            worst = max(worst, diffs[n] / max(want.abs().max().item(), 1e-30))
+            require(over <= 0, f"optim {name} {n}: card and CPU steps {diffs[n]} apart")
+        out["rules"][name] = {
+            "updates": updates, "opt_ms": [x * 1e3 for x in times],
+            "median_opt_ms": statistics.median(times[1:]) * 1e3,
+            "max_abs_diff": diffs, "max_diff_of_largest_step": worst,
+            "state_mib": sum(v.numel() * v.element_size() for st in gopt.torch.state.values()
+                             for v in st.values() if isinstance(v, torch.Tensor)
+                             and v.is_cuda) / 2**20}
+        print(f"optim_{name}: " + json.dumps(out["rules"][name]), flush=True)
+        del gopt, copt, gpu, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def optim_timed_phase(card: str, trainer: Trainer) -> dict:
+    """OPTIM_TIMED_STEPS timed pretrain_mum steps of `trainer` (vlmo_base,
+    batch 32) after a warm-up step, under each rule of OPTIM_TIMED in turn
+    (the trainer's optimizer replaced by `create_optimizer` of the next
+    rule), rows 3 and 4 counted at 54 a step."""
+    per_step = attention_calls_per_step(trainer.config)
+    named = {n: p for n, p in trainer.task.named_parameters() if p.requires_grad}
+    out = {}
+    for name in OPTIM_TIMED:
+        trainer.state.optimizer, trainer.schedule = create_optimizer(
+            load_config(TRAIN_OVERRIDES + [f"train.opt.name={name}"]), named,
+            trainer.steps_per_epoch)
+        trainer.step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        metrics, times, launches = run_counted(trainer, OPTIM_TIMED_STEPS, timed=True)
+        expected = {"flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step}
+        require_launches(f"optim_train_{name}", launches, expected, OPTIM_TIMED_STEPS)
+        out[name] = {"card": card, "median_ms_per_step": statistics.median(times) * 1e3,
+                     "ms_per_step": [x * 1e3 for x in times],
+                     "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "launches_per_step": {k: launches[k] / OPTIM_TIMED_STEPS
+                                           for k in expected},
+                     "losses": [losses_of(m) for m in metrics]}
+        print(f"optim_train_{name}: " + json.dumps(out[name]), flush=True)
+    return out
+
+
+def rule_updates(named: dict, before: dict, grads: dict, overrides: list[str], spe: int,
+                 variants: tuple, gather) -> dict:
+    """Each rule of OPTIM_TIMED applied once, at `optim_warmup_end`, to the
+    gradients `grads` from the weights `before` (each trainable parameter's
+    local piece), for each of `variants`: "whole", optax's leaf statistics
+    (lamb's trust ratio, adafactor's row and column sums) added over the
+    shards as the port adds them, or "local", each process's own shard's
+    alone (`optim._leaf_sums` left unreduced: the fault a missing
+    all-reduce would be, the control of the two-rank check).
+    {rule: {variant: {name: the TWO_RANK_PARAMS parameter after, whole}}}."""
+    from unittest import mock
+
+    from exploremultimodal_torch.parallel.partitioning import local
+    from exploremultimodal_torch.train import optim as optim_mod
+
+    out: dict = {}
+    for rule in OPTIM_TIMED:
+        rule_overrides = overrides + [f"train.opt.name={rule}"]
+        t = optim_warmup_end(rule_overrides, spe)
+        for variant in variants:
+            with torch.no_grad():
+                for k, p in named.items():
+                    local(p).copy_(before[k])
+                    p.grad = grads[k]
+            opt, _ = create_optimizer(load_config(rule_overrides), named, spe)
+            with mock.patch.object(optim_mod, "_leaf_sums", lambda ps, parts: list(parts)) \
+                    if variant == "local" else contextlib.nullcontext():
+                opt.step(t)
+            out.setdefault(rule, {})[variant] = {k: gather(named[k].detach()).clone()
+                                                 for k in TWO_RANK_PARAMS}
+            del opt
+    return out
+
+
+def update_gaps(got: dict, want: dict, before: dict) -> dict:
+    """The two-rank update against one process's, per named parameter: the
+    relative L2 of the difference, and the size of each fsdp shard's part
+    (dim-0 halves) against one process's, |ratio - 1| at the worse half."""
+    rel, size = {}, {}
+    for k, w in want.items():
+        b = before[k].double()
+        dg, dw = got[k].double() - b, w.double() - b
+        rel[k] = ((dg - dw).norm() / dw.norm()).item()
+        size[k] = max(abs((g.norm() / x.norm()).item() - 1.0) for g, x in zip(
+            dg.chunk(TWO_RANKS), dw.chunk(TWO_RANKS)) if x.norm() > 0)
+    return {"rel_l2": rel, "size": size}
+
+
+def optim_two_rank_phase(card: str, probe: dict, tmp: str) -> dict:
+    """lamb and adafactor at fsdp on two gloo ranks of this script on the
+    one card (2 x 16 rows; `two_rank_child`, one pair of ranks for both
+    rules) against one process at 32 on the same weights, batch, ITM
+    negatives and MIM labels (hidden dropout and DropPath off): losses
+    within LOSS_RTOL, the named gradients within GRAD_REL_TOL; each rule
+    applied to the step's gradients (`rule_updates`), the update held to
+    one process's within OPTIM_TWO_RANK_REL_L2 (relative L2) and the
+    rule's OPTIM_TWO_RANK_SIZE (each shard's part's size), and the control
+    (the leaf statistics of each shard alone) required outside them. Where gloo
+    cannot run fsdp's collectives on CUDA tensors, says why."""
+    gloo = probe["gloo"] if isinstance(probe["gloo"], dict) else {}
+    ops = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
+    if not all(gloo.get(o) == "ok" for o in ops):
+        why = f"gloo on CUDA tensors: { {o: gloo.get(o) for o in ops} }"
+        print(f"optim_two_rank: left to the CPU tests (tests/test_torch_port_optim_ranks.py): "
+              f"{why}", flush=True)
+        return {"ran": [], "why": why, "card": card}
+    b = TRAIN_BATCH
+    negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
+    base = TRAIN_OVERRIDES + ["model.drop_rate=0.0", "model.drop_path_rate=0.0"]
+    one = Trainer(load_config(base), device="cuda")
+    batch = one.next_batch()
+    labels = one.model_batch(batch)["mim_labels"].cpu()
+    weights = {k: v.cpu() for k, v in one.task.state_dict().items()}
+    named = {k: p for k, p in one.task.named_parameters() if p.requires_grad}
+    before = {k: p.detach().clone() for k, p in named.items()}
+    m = one.step(batch, negatives=negatives, mim_labels=labels)
+    grads = {k: p.grad.detach().clone() for k, p in named.items()}
+    want = {"losses": losses_of(m),
+            "grads": {k: grads[k].float().cpu() for k in TWO_RANK_PARAMS},
+            "params": rule_updates(named, before, grads, base, one.steps_per_epoch,
+                                   ("whole",), lambda t: t.float().cpu())}
+    del one, named, before, grads
+    torch.cuda.empty_cache()
+    torch.save({"overrides": base, "weights": weights, "batch": batch, "negatives": negatives,
+                "mim_labels": labels, "rules": True}, os.path.join(tmp, "in.pt"))
+    t0 = time.perf_counter()
+    port = free_port()
+    require_ranks(spawn_ranks([["--two-rank", str(r), str(port), "fsdp", tmp]
+                               for r in range(TWO_RANKS)], 600),
+                  [f"optim_two_rank rank {r}" for r in range(TWO_RANKS)])
+    out = {"ran": list(OPTIM_TIMED), "card": card, "s": time.perf_counter() - t0}
+    got = [torch.load(os.path.join(tmp, f"out_fsdp_{r}.pt")) for r in range(TWO_RANKS)]
+    res = {"losses_two_one": {k: (got[0]["losses"][k], w) for k, w in want["losses"].items()},
+           "grad_rel_err": {k: ((got[0]["grads"][k] - w).norm() / w.norm()).item()
+                            for k, w in want["grads"].items()}}
+    for k, (g, w) in res["losses_two_one"].items():
+        require(abs(g - w) <= LOSS_RTOL * abs(w) + 1e-3,
+                f"optim_two_rank {k}: two ranks {g} against one {w}")
+        require(got[1]["losses"][k] == g, f"optim_two_rank {k}: the ranks disagree")
+    require(max(res["grad_rel_err"].values()) <= GRAD_REL_TOL,
+            f"optim_two_rank: gradients {res['grad_rel_err']}")
+    start = {k: weights[k].float() for k in TWO_RANK_PARAMS}
+    for rule in OPTIM_TIMED:
+        whole = want["params"][rule]["whole"]
+        gaps = {v: update_gaps(got[0]["updates"][rule][v], whole, start)
+                for v in ("whole", "local")}
+        res[rule] = gaps
+        print(f"optim_two_rank_{rule}: " + json.dumps(
+            {**gaps, "grad_rel_err": res["grad_rel_err"],
+             "losses_two_one": res["losses_two_one"]}), flush=True)
+    for rule in OPTIM_TIMED:
+        gaps = res[rule]
+        size = OPTIM_TWO_RANK_SIZE[rule]
+        require(max(gaps["whole"]["rel_l2"].values()) <= OPTIM_TWO_RANK_REL_L2
+                and max(gaps["whole"]["size"].values()) <= size,
+                f"optim_two_rank {rule}: the update {gaps['whole']} against one process's")
+        require(max(gaps["local"]["rel_l2"].values()) > OPTIM_TWO_RANK_REL_L2
+                or max(gaps["local"]["size"].values()) > size,
+                f"optim_two_rank {rule}: the control (each shard's own leaf statistics) "
+                f"passes: {gaps['local']}")
+    out.update(res)
+    return out
+
+
+def optim_phase(card: str, dev, probe: dict | None = None) -> dict:
+    """Phase 28: every rule on one step's gradients, card against CPU;
+    lamb's and adafactor's timed steps; both at fsdp on two gloo ranks."""
+    t0 = time.perf_counter()
+    trainer = Trainer(load_config(TRAIN_OVERRIDES), device="cuda")
+    out = {"rules": optim_rules_phase(card, trainer)}
+    elapsed("phase 28 rules")
+    out["timed"] = optim_timed_phase(card, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    elapsed("phase 28 timed steps")
+    tmp = tempfile.mkdtemp(prefix="emm_optim_")
+    try:
+        out["two_rank"] = optim_two_rank_phase(card, probe or probe_two_ranks(tmp), tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 28: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def optim_only(card: str, dev) -> int:
+    """The build, then phase 28 alone (`--optim`)."""
+    optim_phase(card, dev)
+    return 0
+
+
+# ---- phase 29: int8 under tensor parallelism
+TP_INT8_HIDDEN = 2  # hidden shares: 1,536 of 3,072 columns
+
+
+def int_mm_rows_at(x, qw, sw, amax):
+    """Row 8's partial mode through `torch._int_mm` and PyTorch ops."""
+    qx, sx = row_quant(x.float(), amax)
+    return torch._int_mm(qx, qw.T).float() * sx * sw
+
+
+def int_mm_mlp_split(x, qw1, sw1, b1, qw2, sw2, amax, bits=None, t=0):
+    """Rows 9/10's split mode through `torch._int_mm` and PyTorch ops: both
+    passes' work, the hidden once."""
+    qx, sx = row_quant(x.float())
+    h = F.gelu(torch._int_mm(qx, qw1.T).float() * sx * sw1 + b1, approximate="tanh")
+    if bits is not None:
+        h = torch.where(keep16(bits, t), h * keep_scale16(t), 0.0)
+    qh, sh = row_quant(h, torch.maximum(h.abs().amax(1), amax))
+    return torch._int_mm(qh, qw2.T).float() * sh * sw2
+
+
+def check_tp_int8_matmul(cfg: VlmoConfig, dev) -> list[dict]:
+    """Row 8 at the tensor shares of the finetune_vqa step's M: proj's row
+    share (K 384) in the partial mode (x's rows at their absmax over the
+    whole K, the weight's channels at theirs) bit for bit with its plain
+    version, the two shares summed against the whole plain call within a
+    bf16 ulp (W8A8_ATOL, W8A8_RTOL); qkv's column share (N 1,152: heads 6
+    of 12 of each of q, k, v) in the whole mode bit for bit, and equal to
+    the whole call's columns. Each timed beside the whole kernel, its plain
+    version and the `torch._int_mm` chain on the share."""
+    g = torch.Generator(device=dev).manual_seed(29)
+    k = cfg.embed_dim
+    half = k // TP
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w = (torch.randn((k, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    wq = (torch.randn((3 * k, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+    qw, sw = quantize_weights(w)
+    qkv_rows = torch.cat([torch.arange(j * k, j * k + half, device=dev) for j in range(3)])
+    qwq, swq = quantize_weights(wq)
+    qwq_t, swq_t = quantize_weights(wq[qkv_rows].contiguous())
+    require(torch.equal(qwq_t, qwq[qkv_rows]) and torch.equal(swq_t, swq[qkv_rows]),
+            "qkv's column share: codes differ from the whole call's rows")
+    wmax = w.float().abs().amax(1)
+    rows = []
+    for m in vqa_mlp_rows(cfg):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        amax = x.float().abs().amax(1)
+        shares = []
+        for r in range(TP):
+            cols = slice(r * half, (r + 1) * half)
+            qw_t, sw_t = quantize_weights(w[:, cols].contiguous(), wmax)
+            require(torch.equal(qw_t, qw[:, cols]) and torch.equal(sw_t, sw),
+                    "proj's row share: codes differ from the whole call's columns")
+            shares.append((x[:, cols].contiguous(), qw_t.contiguous(), sw_t, amax))
+        parts = [w8a8_matmul_partial(*a) for a in shares]
+        refs = [w8a8_matmul_partial_plain(*a) for a in shares]
+        whole = w8a8_matmul_plain(x, qw, sw)
+        torch.cuda.synchronize()
+        exact = all(torch.equal(p_, r_) for p_, r_ in zip(parts, refs))
+        err = max((p_ - r_).abs().max().item() for p_, r_ in zip(parts, refs))
+        summed = (parts[0] + parts[1]).to(torch.bfloat16)
+        sum_ok, sum_err = within(summed, whole, W8A8_ATOL, W8A8_RTOL)
+        require(exact and sum_ok and parts[0].dtype == torch.float32,
+                f"w8a8_matmul_partial M={m}: max|err| {err}, summed {sum_err}")
+        a0 = shares[0]
+        nbytes = 2 * m * half + k * half + 4 * k + 4 * m + 4 * m * k
+        bound_ms, bound_by = bound(nbytes, 2 * m * half * k, PEAK_INT8_OPS)
+        rows.append({
+            "name": "w8a8_matmul_partial", "shape": f"M={m} K={half} of {k} N={k}",
+            "tensor": TP, "grid": list(matmul_grid(m, k, sms)), "max_abs_err": err,
+            "summed_err": sum_err, "ms": time_ms(lambda: w8a8_matmul_partial(*a0)),
+            "whole_ms": time_ms(lambda: w8a8_matmul(x, qw, sw)),
+            "plain_ms": time_ms(lambda: w8a8_matmul_partial_plain(*a0), iters=5),
+            "library_ms": time_ms(lambda: int_mm_rows_at(*a0)),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        yq = w8a8_matmul(x, qwq_t, swq_t)
+        refq = w8a8_matmul_plain(x, qwq_t, swq_t)
+        torch.cuda.synchronize()
+        require(torch.equal(yq, refq) and torch.equal(yq, w8a8_matmul_plain(x, qwq, swq)[
+            :, qkv_rows]), f"w8a8_matmul qkv share M={m}: not the whole call's columns")
+        nbytes = 2 * m * k + 3 * half * k + 4 * 3 * half + 2 * m * 3 * half
+        bound_ms, bound_by = bound(nbytes, 2 * m * k * 3 * half, PEAK_INT8_OPS)
+        rows.append({
+            "name": "w8a8_matmul", "shape": f"M={m} K={k} N={3 * half} of {3 * k}",
+            "tensor": TP, "grid": list(matmul_grid(m, 3 * half, sms)), "max_abs_err": 0.0,
+            "ms": time_ms(lambda: w8a8_matmul(x, qwq_t, swq_t)),
+            "whole_ms": time_ms(lambda: w8a8_matmul(x, qwq, swq)),
+            "plain_ms": time_ms(lambda: w8a8_matmul_plain(x, qwq_t, swq_t), iters=5),
+            "library_ms": time_ms(lambda: int_mm_rows(x, qwq_t, swq_t)),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+def check_tp_int8_mlp(cfg: VlmoConfig, dev) -> list[dict]:
+    """Rows 9 and 10's split mode on the hidden's TP_INT8_HIDDEN shares at
+    the finetune_vqa step's M (row 10 at its threshold): each share's first
+    launch's row absmax within W8A8_RTOL of its plain version's, the shares'
+    maxima (the all-reduce-max, done here in one process) giving each
+    share's second launch, whose fp32 partial output is held against its
+    plain version at the global absmax, and the shares summed plus b2
+    against the whole plain MLP (W8A8_ATOL, W8A8_RTOL). Share 0 timed
+    beside the whole kernel at hidden 3,072, its plain versions and the
+    `torch._int_mm` chain on the share."""
+    g, (w1, w2), (qw1, sw1, b1, qw2, sw2, b2) = w8a8_mlp_weights(cfg, dev, 29)
+    k, h, n_out = w1.shape[1], w1.shape[0], w2.shape[0]
+    hs = h // TP_INT8_HIDDEN
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    w2max = w2.float().abs().amax(1)
+    rows = []
+    for drop in (False, True):
+        t = TP_MLP_THRESHOLD if drop else 0
+        split = w8a8_mlp_fwd_drop_split if drop else w8a8_mlp_fwd_split
+        whole_kernel = w8a8_mlp_fwd_drop if drop else w8a8_mlp_fwd
+        whole_plain = w8a8_mlp_fwd_drop_plain if drop else w8a8_mlp_fwd_plain
+        for m in vqa_mlp_rows(cfg):
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            bits = (torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g,
+                                  device=dev) if drop else None)
+            extra = (bits, t) if drop else ()
+            whole_args = (x, qw1, sw1, b1, qw2, sw2, b2) + extra
+            whole = whole_plain(*whole_args)
+            shares = []
+            for r in range(TP_INT8_HIDDEN):
+                cols = slice(r * hs, (r + 1) * hs)
+                qw2_t, sw2_t = quantize_weights(w2[:, cols].float().contiguous(), w2max)
+                require(torch.equal(qw2_t, qw2[:, cols]) and torch.equal(sw2_t, sw2),
+                        "the hidden's share: qW2's codes differ from the whole call's")
+                shares.append(((x, qw1[cols].contiguous(), sw1[cols].contiguous(),
+                                b1[cols].contiguous(), qw2_t.contiguous(), sw2_t),
+                               None if bits is None else bits[:, cols].contiguous()))
+            plain_amax = [w8a8_mlp_amax_plain(*a[:4], b, t) for a, b in shares]
+            amax = torch.stack(plain_amax).amax(0)
+            seen = []
+
+            def reduce_max(a):  # the all-reduce-max, the other shares' from plain
+                seen.append(a.clone())
+                return torch.maximum(a, amax, out=a)
+
+            parts = [split(*a, *((b, t) if drop else ()), reduce_max) for a, b in shares]
+            refs = [w8a8_mlp_partial_plain(*a, amax, b, t) for a, b in shares]
+            torch.cuda.synchronize()
+            amax_ok = all(within(s_, p_, 0.0, W8A8_RTOL)[0] for s_, p_ in zip(seen, plain_amax))
+            errs = [within(p_, r_, W8A8_ATOL, W8A8_RTOL) for p_, r_ in zip(parts, refs)]
+            summed = (torch.stack(parts).sum(0) + b2).to(torch.bfloat16)
+            sum_ok, sum_err = within(summed, whole, W8A8_ATOL, W8A8_RTOL)
+            require(amax_ok and all(ok for ok, _ in errs) and sum_ok,
+                    f"{split.__name__} M={m}: absmax {amax_ok}, max|err| "
+                    f"{[e for _, e in errs]}, summed {sum_err}")
+            a0, bits0 = shares[0]
+            ex0 = (bits0, t) if drop else ()
+
+            def no_reduce(a):
+                return torch.maximum(a, amax, out=a)
+
+            nbytes = (2 * m * k + hs * k + n_out * hs + 8 * hs + 4 * n_out + 4 * m * n_out
+                      + 8 * m + (2 * m * hs if drop else 0))
+            bound_ms, bound_by = bound(nbytes, 2 * m * (k * hs + hs * n_out), PEAK_INT8_OPS)
+            rows.append({
+                "name": split.__name__, "threshold": t,
+                "shape": f"M={m} K={k} H={hs} of {h} N={n_out}", "tensor": TP_INT8_HIDDEN,
+                "grid": [mlp_grid(m, mlp_splits(m, hs, sms)), mlp_splits(m, hs, sms)],
+                "max_abs_err": max(e for _, e in errs), "summed_err": sum_err,
+                "ms": time_ms(lambda: split(*a0, *ex0, no_reduce)),
+                "whole_ms": time_ms(lambda: whole_kernel(*whole_args)),
+                "plain_ms": time_ms(lambda: (w8a8_mlp_amax_plain(*a0[:4], *ex0),
+                                             w8a8_mlp_partial_plain(*a0, amax, *ex0)), iters=5),
+                "library_ms": time_ms(lambda: int_mm_mlp_split(*a0, amax, *ex0)),
+                "bound_ms": bound_ms, "bound_by": bound_by})
+    return rows
+
+
+def tp_int8_phase(card: str, dev) -> dict:
+    """Phase 29: rows 8-10's split modes at the tensor shares, then the
+    int8 finetune_vqa step on two tensor ranks against one process, and
+    their checkpoint read in one process."""
+    t0 = time.perf_counter()
+    vqa_cfg = VlmoConfig.from_config(load_config(VQA_OVERRIDES))
+    out = {"matmul": check_tp_int8_matmul(vqa_cfg, dev), "mlp": check_tp_int8_mlp(vqa_cfg, dev)}
+    for row in out["matmul"] + out["mlp"]:
+        print("kernel_tp_int8: " + json.dumps(row), flush=True)
+    elapsed("phase 29 kernels")
+    tmp = tempfile.mkdtemp(prefix="emm_tp_int8_")
+    try:
+        out["vqa_w8"] = tp_step_phase(card, "vqa_w8", tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 29: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def tp_int8_only(card: str, dev) -> int:
+    """The build, then phase 29 alone (`--tp-int8`)."""
+    tp_int8_phase(card, dev)
     return 0
 
 
@@ -4142,6 +4708,10 @@ def main(argv: list[str] | None = None) -> int:
         return parallel_only(card, dev)
     if args[:1] == ["--tp"]:
         return tp_only(card, dev)
+    if args[:1] == ["--optim"]:
+        return optim_only(card, dev)
+    if args[:1] == ["--tp-int8"]:
+        return tp_int8_only(card, dev)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -4327,7 +4897,7 @@ def main(argv: list[str] | None = None) -> int:
     # more than one process: rows 3 and 4 keyed by the global row, every
     # preset on a process group, two ranks where the card allows, mesh
     # serving
-    parallel_phase(card, dev)
+    par = parallel_phase(card, dev)
     elapsed("phase 26")
 
     # tensor parallelism: rows 3 and 4 at the global heads, rows 6 and 7's
@@ -4335,6 +4905,16 @@ def main(argv: list[str] | None = None) -> int:
     # layouts
     tp = tp_phase(card, dev)
     elapsed("phase 27")
+
+    # the optimizer menu: every rule on one step's gradients, card against
+    # CPU; lamb and adafactor trained, and at fsdp on two gloo ranks
+    optim_phase(card, dev, par["probe"])
+    elapsed("phase 28")
+
+    # int8 under tensor parallelism: rows 8-10's split modes, the int8
+    # finetune_vqa step on two tensor ranks
+    tp_int8 = tp_int8_phase(card, dev)
+    elapsed("phase 29")
 
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
@@ -4395,6 +4975,24 @@ def main(argv: list[str] | None = None) -> int:
     for k in kernels:
         if k["name"] in tp_launches:
             k["tp_launches"] = tp_launches[k["name"]][k["name"]]
+    # rows 8-10's split modes, each with its launches on phase 29's int8 tp
+    # step (rows 8 and 10) or evaluation batch (row 9), on rank 0
+    w8_tp = tp_int8["vqa_w8"]["ranks"][0]
+    split_launches = {**w8_tp["launches_per_step"], **{
+        "w8a8_mlp_fwd_split": w8_tp["eval_launches"]["w8a8_mlp_fwd_split"]}}
+    partial_rows = [r for r in tp_int8["matmul"] if r["name"] == "w8a8_matmul_partial"]
+    kernels += [
+        entry("w8a8_matmul_partial", "cuda", q_src, f"{tpu_q}:48", partial_rows,
+              split_launches),
+        entry("w8a8_mlp_fwd_split", "cuda", qmlp_src, f"{tpu_q}:233",
+              [r for r in tp_int8["mlp"] if r["name"] == "w8a8_mlp_fwd_split"], split_launches),
+        entry("w8a8_mlp_fwd_drop_split", "cuda", qmlp_src, f"{tpu_q}:366",
+              [r for r in tp_int8["mlp"] if r["name"] == "w8a8_mlp_fwd_drop_split"],
+              split_launches),
+    ]
+    for k in kernels[-3:]:
+        k["tensor"] = TP
+    kernels[6]["tp_launches"] = w8_tp["launches_per_step"]["w8a8_matmul"]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,7 +34,10 @@ heads of q, k and v and the matching input columns of proj, and hidden/T
 rows of fc1 with their columns of fc2 (Megatron's split). The block's
 input enters each through `copy_to_tensor_region`; proj and fc2 give
 partial sums without their biases, which `reduce_from_tensor_region` adds
-over the ranks in fp32 before the bias and one rounding. The dropout masks
+over the ranks in fp32 before the bias and one rounding; the int8 sites
+take the whole call's codes, their scales maxed over the ranks where K or
+the hidden is split (`ops/quant.py` `partial_dense`, `w8a8_mlp`'s split
+mode). The dropout masks
 are the one-process step's: attention's hash keyed by the global head
 (`heads_total`, `head0`), the hidden dropout this rank's columns of the
 whole draw, every draw after a reduce (proj and post-fc2 dropout, DropPath)
@@ -58,7 +61,7 @@ from torch.utils.checkpoint import (
 
 from exploremultimodal_torch.ops.attention import key_padding_bias, multi_head_attention
 from exploremultimodal_torch.ops.mlp_fused import fits_vmem, fused_mlp
-from exploremultimodal_torch.ops.quant import Linear, dense, site_mode
+from exploremultimodal_torch.ops.quant import Linear, dense, partial_dense, site_mode
 from exploremultimodal_torch.ops.quant_fused import w8a8_mlp
 from exploremultimodal_torch.ops.stochastic import (
     StepRng,
@@ -76,9 +79,13 @@ def _share(tensor: TensorAxis | None) -> tuple[int, int] | None:
 
 def _partial_linear(layer: Linear, x: torch.Tensor, tensor: TensorAxis) -> torch.Tensor:
     """A row-parallel layer: this rank's product without the bias, summed
-    over the tensor group, then the bias (`Linear`'s dtype)."""
+    over the tensor group, then the bias (`Linear`'s dtype). An int8 layer's
+    partial sums are fp32, added before the bias and one rounding."""
     dt = layer.dtype
-    return tensor.reduce(F.linear(x.to(dt), layer.weight.to(dt))) + layer.bias.to(dt)
+    part = partial_dense(layer, x, tensor)
+    if part.dtype == dt:
+        return tensor.reduce(part) + layer.bias.to(dt)
+    return (tensor.reduce(part) + layer.bias.float()).to(dt)
 
 ROUTES = ("v", "l", "vl")
 
@@ -105,7 +112,9 @@ class Mlp(nn.Module):
     bf16 fused kernel; else two `dense` layers with erf gelu. The route is
     chosen at the whole hidden, so a tensor rank's share of it takes the
     same one; the fused kernel then runs in its partial mode (fp32, no b2),
-    and the unfused fc2 without its bias, before the reduce."""
+    the int8 one in its split mode (rows 9/10: the hidden's row scales and
+    W2's channel scales maxed over the tensor group), and the unfused fc2
+    without its bias, before the reduce."""
 
     def __init__(self, dim: int, hidden_dim: int, dtype: torch.dtype,
                  mlp_impl: str = "xla", drop_rate: float = 0.0,
@@ -137,13 +146,16 @@ class Mlp(nn.Module):
             shape = x.shape[:-1] + (self.fc1.weight.shape[0],)
             bits = (None if t == 0 else bits16(rng, shape, x.device) if tp is None
                     else bits16(rng, shape, x.device, share=_share(tp)))
+            mlp = w8a8_mlp if self.int8 else fused_mlp
             if tp is None:
-                mlp = w8a8_mlp if self.int8 else fused_mlp
                 y = mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
                         self.fc2.weight, self.fc2.bias, bits, t)
             else:
-                part = fused_mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
-                                 self.fc2.weight, None, bits, t)
+                # the partial mode: the int8 MLP's codes and scales need the
+                # tensor group (maxima over the whole hidden)
+                split = {"tensor": tp} if self.int8 else {}
+                part = mlp(x.to(self.fc1.dtype), self.fc1.weight, self.fc1.bias,
+                           self.fc2.weight, None, bits, t, **split)
                 y = (tp.reduce(part) + self.fc2.bias.float()).to(x.dtype)
             return fast_dropout(y, self.drop_rate, rng)
         h = fast_dropout(F.gelu(self.fc1(x)), self.drop_rate, rng, _share(tp))

@@ -55,22 +55,27 @@ __device__ __forceinline__ float hidden(int acc, float sx, float sw1, float b1) 
 // k16 step) and their scales (`_row_quant`). Warp `warp` of the `nwarps`
 // taking part quantizes rows warp, warp + nwarps, ..., the next row's loads
 // in flight while this one is quantized; each lane holds 8 values a
-// 256-column piece, the warp takes the absmax, every code is quantize(x,
-// 1/s). Rows past m get zero codes. K % 256 == 0, 64 % nwarps == 0; x and
-// dst 16-byte aligned.
+// 256-column piece (the last piece of a K % 256 == 128 row on lanes 0-15
+// only), the warp takes the absmax, every code is quantize(x, 1/s). With
+// `given` (m floats), a row's absmax is given[row] instead (a tensor rank's
+// share of the row: its absmax over the whole K). Rows past m get zero
+// codes. K % 128 == 0, 64 % nwarps == 0; x and dst 16-byte aligned.
 template <int K>
 __device__ __forceinline__ void quantize_sw128(const __nv_bfloat16* __restrict__ x, int m,
                                                int row0, unsigned char* dst, float* scales,
-                                               int warp, int nwarps) {
-  static_assert(K % 256 == 0, "8 values a lane per 256 columns");
-  constexpr int PIECES = K / 256;
+                                               int warp, int nwarps,
+                                               const float* __restrict__ given = nullptr) {
+  static_assert(K % 128 == 0, "whole 128-byte swizzle rows");
+  constexpr int PIECES = (K + 255) / 256;
   const int lane = threadIdx.x % 32;
-  // the raw bf16 of row r, zeros past 64 or m
+  // whether this lane holds columns of piece p
+  auto held = [&](int p) { return p * 256 + lane * 8 < K; };
+  // the raw bf16 of row r, zeros past 64, m or K
   auto load = [&](uint4 (&raw)[PIECES], int r) {
     const int row = row0 + r;
 #pragma unroll
     for (int p = 0; p < PIECES; ++p)
-      raw[p] = r < 64 && row < m
+      raw[p] = r < 64 && row < m && held(p)
                    ? *reinterpret_cast<const uint4*>(x + (size_t)row * K + p * 256 + lane * 8)
                    : make_uint4(0u, 0u, 0u, 0u);
   };
@@ -94,10 +99,12 @@ __device__ __forceinline__ void quantize_sw128(const __nv_bfloat16* __restrict__
     }
 #pragma unroll
     for (int o = 16; o > 0; o /= 2) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (given != nullptr) amax = row0 + r < m ? given[row0 + r] : 0.f;
     float s, inv;
     row_scale(amax, s, inv);
 #pragma unroll
     for (int p = 0; p < PIECES; ++p) {
+      if (!held(p)) continue;
       uint32_t lo = 0, hi = 0;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {

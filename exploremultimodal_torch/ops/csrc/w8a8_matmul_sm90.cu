@@ -50,6 +50,13 @@
 //     output tiles are split over more CTAs, each quantizing its rows again:
 //     M = 1,280 and 2,560 run on 60-120 CTAs instead of 10-20.
 //   - Ragged M: rows past M quantize to zero codes and are not stored.
+// The partial mode (PARTIAL, K = 384): a tensor rank's share of a
+// row-parallel site (proj at a tensor axis of 2, its 384 input columns of
+// 768). Each row's absmax over the whole K comes from outside (`amax`, the
+// ranks' all-reduce-max), so the share's codes are the whole call's; the
+// weight codes and scales are the caller's (maxed over the ranks too); the
+// epilogue stores fp32 (acc * s) * sw from the registers, unrounded, for
+// the ranks' fp32 sum. qkv's column share (N = 1,152) runs the whole mode.
 // What holds it back (scripts/torch_kernel_variants.py on an H100, M =
 // 15,168, qkv): the products alone take 0.014 ms, the ring and the x
 // prologue bring them to 0.025; the epilogue, whose ~3.5 us a tile is longer
@@ -66,34 +73,49 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace emm::sm90;
 
-constexpr int K = 768;                // input width (VLMo-Base)
 constexpr int BM = 128;               // rows per CTA and per tile
 constexpr int BN = 128;               // output columns per tile
 constexpr int KB = 128;               // K bytes per ring stage: one swizzle row
-constexpr int KSTEPS = K / KB;        // stages per tile
 constexpr int NS = 6;                 // ring stages
 constexpr int BOX = 8192;             // 64 rows x 128 bytes: a TMA box, in the 128-byte swizzle
 constexpr int STAGE = 2 * BOX;        // 128 weight rows (output columns) x KB bytes
-constexpr int X_OFF = 0;              // x's codes: rows 64 h.. in KSTEPS boxes from h KSTEPS BOX
-constexpr int RING_OFF = X_OFF + 2 * KSTEPS * BOX;
-constexpr int OUT_OFF = RING_OFF + NS * STAGE;  // two 64 x 64 bf16 boxes per warpgroup
-constexpr int SCALE_OFF = OUT_OFF + 4 * BOX;    // the rows' scales
-constexpr int BAR_OFF = SCALE_OFF + BM * 4;     // NS full, NS empty barriers
-constexpr int SMEM = BAR_OFF + 8 * 2 * NS + 1024;  // 1024 bytes of alignment slack
+// the shared memory of input width K: x's codes (rows 64 h.. in KSTEPS
+// boxes from h KSTEPS BOX), the ring, two 64 x 64 bf16 boxes per warpgroup,
+// the rows' scales, NS full and NS empty barriers, 1024 bytes of slack
+template <int K>
+struct Layout {
+  static constexpr int KSTEPS = K / KB;  // stages per tile
+  static constexpr int X_OFF = 0;
+  static constexpr int RING_OFF = X_OFF + 2 * KSTEPS * BOX;
+  static constexpr int OUT_OFF = RING_OFF + NS * STAGE;
+  static constexpr int SCALE_OFF = OUT_OFF + 4 * BOX;
+  static constexpr int BAR_OFF = SCALE_OFF + BM * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * 2 * NS + 1024;
+  static_assert(SMEM <= 232448, "shared memory of a block");
+};
+constexpr int K_WHOLE = 768;          // input width (VLMo-Base)
+constexpr int K_SHARE = 384;          // proj's row share at a tensor axis of 2
+constexpr int SMEM = Layout<K_WHOLE>::SMEM;
 constexpr int THREADS = 384;
 // named barriers: both consumer warpgroups; warpgroup w's epilogue
 // (EPI + w); the order barrier that lets warpgroup w's products start (GO + w)
 constexpr int ALL = 1, EPI = 2, GO = 4;
-static_assert(SMEM <= 232448, "shared memory of a block");
+
 
 // mw: the tensor map of qw (n, K) int8 in 64-row boxes of KB bytes; my: that
 // of y (m, n) bf16 in 64 x 64 boxes. x (m, K) bf16; sw (n) fp32. CTA
 // (bx, by) owns rows BM bx.. and output tiles by per .. by per + per - 1
-// (of `tiles`).
+// (of `tiles`). PARTIAL: the rows' absmax from `amax` (m), and fp32 y32
+// (m, n) stored from the registers (my unused).
+template <int K, bool PARTIAL>
 __global__ void __launch_bounds__(THREADS, 1)
 w8a8_matmul_sm90_kernel(const __grid_constant__ CUtensorMap mw,
                         const __grid_constant__ CUtensorMap my, const bf16* __restrict__ x,
-                        const float* __restrict__ sw, int m, int tiles, int per) {
+                        const float* __restrict__ sw, const float* __restrict__ amax,
+                        float* __restrict__ y32, int m, int tiles, int per) {
+  using L = Layout<K>;
+  constexpr int KSTEPS = L::KSTEPS, X_OFF = L::X_OFF, RING_OFF = L::RING_OFF;
+  constexpr int OUT_OFF = L::OUT_OFF, SCALE_OFF = L::SCALE_OFF, BAR_OFF = L::BAR_OFF;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -141,7 +163,7 @@ w8a8_matmul_sm90_kernel(const __grid_constant__ CUtensorMap mw,
   const uint32_t xs = base + X_OFF;
   float* scales = reinterpret_cast<float*>(smem + SCALE_OFF);
   i8::quantize_sw128<K>(x, m, m0 + 64 * w, smem + X_OFF + w * KSTEPS * BOX, scales + 64 * w,
-                        warp, 4);
+                        warp, 4, PARTIAL ? amax : nullptr);
   fence_proxy_async();
   named_bar_sync(ALL, 256);  // every row's codes and scale
   // this thread's rows of the accumulators: 64 h + 16 warp + g (+ 8)
@@ -191,6 +213,28 @@ w8a8_matmul_sm90_kernel(const __grid_constant__ CUtensorMap mw,
     // the other warpgroup's next tile may take the tensor cores
     if (j + w < theirs) named_bar_arrive(GO + 1 - w, 256);
 
+    if constexpr (PARTIAL) {
+      // fp32 (acc * sx) * sw straight from the registers; rows past m not
+      // stored
+      const int n = tiles * BN;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int jj = 0; jj < 16; ++jj) {
+          const int col = BN * t + 8 * jj + 2 * q;
+          const float2 s = *reinterpret_cast<const float2*>(sw + col);
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int row = m0 + 64 * h + 16 * warp + g + 8 * hh;
+            if (row >= m) continue;
+            *reinterpret_cast<float2*>(y32 + (size_t)row * n + col) = make_float2(
+                __fmul_rn(__fmul_rn(__int2float_rn(acc[h][4 * jj + 2 * hh]), sx[h][hh]), s.x),
+                __fmul_rn(__fmul_rn(__int2float_rn(acc[h][4 * jj + 2 * hh + 1]), sx[h][hh]),
+                          s.y));
+          }
+        }
+      continue;
+    }
     // epilogue, 64 rows at a time: (acc * sx) * sw to bf16 into the two
     // boxes once the last store has read them, then stored by TMA
 #pragma unroll
@@ -246,8 +290,32 @@ extern "C" int w8a8_matmul_sm90_encode(void* out, const void* base, int rows, in
                         2, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
-// The kernel's dynamic shared memory.
+// The kernel's dynamic shared memory (the whole mode's, K = 768).
 extern "C" int w8a8_matmul_sm90_smem() { return SMEM; }
+
+namespace {
+
+template <int K, bool PARTIAL>
+int launch(const void* mw, const void* my, const void* x, const void* sw, const void* amax,
+           void* y32, int m, int n, int grid_x, int per, void* stream) {
+  const int tiles = n / BN;
+  if (m <= 0 || n <= 0 || n % BN != 0 || per <= 0 || grid_x != (m + BM - 1) / BM)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap w, y;
+  memcpy(&w, mw, sizeof(w));
+  memcpy(&y, PARTIAL ? mw : my, sizeof(y));
+  constexpr int smem = Layout<K>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(w8a8_matmul_sm90_kernel<K, PARTIAL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  w8a8_matmul_sm90_kernel<K, PARTIAL><<<dim3(grid_x, (tiles + per - 1) / per), THREADS, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      w, y, static_cast<const bf16*>(x), static_cast<const float*>(sw),
+      static_cast<const float*>(amax), static_cast<float*>(y32), m, tiles, per);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
 
 // mw, my: the maps of qw (n, 768) int8 and y (m, n) bf16 (from
 // `w8a8_matmul_sm90_encode`, host memory); x (m, 768) bf16; sw (n) fp32; all
@@ -256,17 +324,16 @@ extern "C" int w8a8_matmul_sm90_smem() { return SMEM; }
 // `stream`; returns the launch's cudaError_t.
 extern "C" int w8a8_matmul_sm90(const void* mw, const void* my, const void* x, const void* sw,
                                 int m, int n, int grid_x, int per, void* stream) {
-  const int tiles = n / BN;
-  if (m <= 0 || n <= 0 || n % BN != 0 || per <= 0 || grid_x != (m + BM - 1) / BM)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap w, y;
-  memcpy(&w, mw, sizeof(w));
-  memcpy(&y, my, sizeof(y));
-  cudaError_t err = cudaFuncSetAttribute(w8a8_matmul_sm90_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  w8a8_matmul_sm90_kernel<<<dim3(grid_x, (tiles + per - 1) / per), THREADS, SMEM,
-                            static_cast<cudaStream_t>(stream)>>>(
-      w, y, static_cast<const bf16*>(x), static_cast<const float*>(sw), m, tiles, per);
-  return static_cast<int>(cudaGetLastError());
+  return launch<K_WHOLE, false>(mw, my, x, sw, nullptr, nullptr, m, n, grid_x, per, stream);
+}
+
+// The partial mode: mw the map of the share's qw (n, 384) int8; x (m, 384)
+// bf16, each row quantized at amax[row] (m fp32, its absmax over the whole
+// K); sw (n) fp32; y32 (m, n) fp32 = (acc * s) * sw, unrounded. As
+// w8a8_matmul_sm90 otherwise.
+extern "C" int w8a8_matmul_sm90_partial(const void* mw, const void* x, const void* sw,
+                                        const void* amax, void* y32, int m, int n, int grid_x,
+                                        int per, void* stream) {
+  if (amax == nullptr || y32 == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<K_SHARE, true>(mw, nullptr, x, sw, amax, y32, m, n, grid_x, per, stream);
 }

@@ -97,6 +97,18 @@
 // DROP costs about 8% over the kernel without it at M = 6,304 and 7,584
 // (nothing at 1,280); an evict-first L2 hint on the bits would take 3% of
 // it, more bits slots issued further ahead nothing.
+// The split mode, for a tensor rank's share of the hidden (`parallel=tp`,
+// 1,536 of 3,072 columns at a tensor axis of 2): sh needs each row's absmax
+// over the whole hidden, which no launch on one rank holds. The two passes
+// above become two launches around the caller's all-reduce-max of M floats:
+//   AMAX     pass 1 alone, storing each row's absmax of the share's h;
+//   PARTIAL  pass 2 alone at the rows' global absmax (given), storing fp32
+//            (acc * sh) * sw2 without b2, unrounded, for the ranks' fp32 sum.
+// h is kept nowhere: pass 2 computes it again, bit for bit, as the whole
+// kernel does, so the split costs the whole kernel's 1.5x of the two
+// products and one launch more. The hidden split over a cluster of two
+// (SPLIT) runs in both; in AMAX its CTAs trade their absmax as above, in
+// PARTIAL the sum of the int32 parts writes fp32 without b2.
 // Left for later: feeding h's codes to the second product from registers
 // (the s8 A fragment does not match the s32 accumulator's layout: a byte
 // permutation).
@@ -129,6 +141,8 @@ constexpr int BARS = 2 * NS + 1 + 2 * NB;     // NS full, NS empty, the peer's a
 constexpr int BITS_OFF = (BAR_OFF + 8 * BARS + 1023) / 1024 * 1024;  // DROP: the bits slots
 template <bool DROP>
 constexpr int smem_bytes() { return BITS_OFF + (DROP ? NB * BOX : 0) + 1024; }
+// the whole kernel; the split mode's first launch; its second
+constexpr int WHOLE = 0, AMAX = 1, PARTIAL = 2;
 constexpr int THREADS = 384;
 static_assert(smem_bytes<true>() <= 232448, "shared memory with the bits slots");
 
@@ -140,16 +154,20 @@ static_assert(smem_bytes<true>() <= 232448, "shared memory with the bits slots")
 // their row absmax of h, and write their int32 sums to part[y] (m, N); CTA
 // 0 writes the row scales of h to shs (m); `w8a8_mlp_sum_splits` finishes.
 // With DROP, `mbits` maps the (m, hidden) int16 bits as (m, 2 hidden)
-// bytes; keep where u >= `thr`, then scale by `keep_scale`.
-template <bool SPLIT, bool DROP>
+// bytes; keep where u >= `thr`, then scale by `keep_scale`. MODE AMAX:
+// pass 1 only, each row's absmax of h to `amax` (m); PARTIAL: pass 2 only,
+// at the absmax `amax` gives, fp32 `yf` (m, N) without b2 (or, SPLIT, the
+// int32 sums as above).
+template <bool SPLIT, bool DROP, int MODE>
 __global__ void __launch_bounds__(THREADS, 1)
 w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
                      const __grid_constant__ CUtensorMap mw2,
                      const __grid_constant__ CUtensorMap mbits, const bf16* __restrict__ x,
                      const float* __restrict__ sw1, const float* __restrict__ b1,
                      const float* __restrict__ sw2, const float* __restrict__ b2,
-                     bf16* __restrict__ y, int* __restrict__ part, float* __restrict__ shs_out,
-                     int m, int chunks, int thr, float keep_scale) {
+                     bf16* __restrict__ y, float* __restrict__ yf, float* __restrict__ amax_io,
+                     int* __restrict__ part, float* __restrict__ shs_out, int m, int chunks,
+                     int thr, float keep_scale) {
   constexpr int CLM = SPLIT ? 1 : CL;  // CTAs sharing the weight boxes
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -218,11 +236,13 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
                       2 * HC * (cbase + c), m0);
         }
       };
-      for (int c = 0; c < chunks; ++c) load(true, c);  // pass 1
-      for (int c = 0; c < chunks; ++c) {
-        load(true, c);
-        load(false, c);
-      }
+      if (MODE != PARTIAL)
+        for (int c = 0; c < chunks; ++c) load(true, c);  // pass 1
+      if (MODE != AMAX)
+        for (int c = 0; c < chunks; ++c) {
+          load(true, c);
+          load(false, c);
+        }
       for (int k = 0; k < NS; ++k) {  // the tail: every stage released everywhere
         mbar_wait(empty0 + 8 * (i % NS), ((i / NS) & 1) ^ 1);
         ++i;
@@ -311,38 +331,54 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
     }
   };
 
-  // ---- pass 1: each row's absmax of h
-  float amax[2] = {0.f, 0.f};
-  for (int c = 0; c < chunks; ++c) {
-    int hacc[16];
-    const int cur = it;
-    first_product(hacc, next_stage());
-    release(cur);
-    for_hidden(hacc, c, [&](int hh, int, float h0, float h1) {
-      amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(h0), fabsf(h1)));
-    });
-  }
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {  // a row lives on the 4 lanes of a quad
-    amax[hh] = fmaxf(amax[hh], __shfl_xor_sync(0xffffffffu, amax[hh], 1));
-    amax[hh] = fmaxf(amax[hh], __shfl_xor_sync(0xffffffffu, amax[hh], 2));
-    if (q == 0) sAmax[w * BM + 16 * warp + g + 8 * hh] = amax[hh];
-  }
-  named_bar_sync(1, 256);  // both warpgroups' halves of every row
-  if (SPLIT) {  // trade this CTA's row absmax for the other CTA's
-    if (threadIdx.x < BM) {
-      const int r = threadIdx.x;
-      st_cluster_f32(smem_u32(sPeer + r), rank ^ 1, fmaxf(sAmax[r], sAmax[BM + r]));
-      mbar_arrive_cluster(xbar, rank ^ 1);
+  // ---- pass 1: each row's absmax of h (PARTIAL: given)
+  if (MODE != PARTIAL) {
+    float amax[2] = {0.f, 0.f};
+    for (int c = 0; c < chunks; ++c) {
+      int hacc[16];
+      const int cur = it;
+      first_product(hacc, next_stage());
+      release(cur);
+      for_hidden(hacc, c, [&](int hh, int, float h0, float h1) {
+        amax[hh] = fmaxf(amax[hh], fmaxf(fabsf(h0), fabsf(h1)));
+      });
     }
-    mbar_wait_cluster(xbar, 0);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {  // a row lives on the 4 lanes of a quad
+      amax[hh] = fmaxf(amax[hh], __shfl_xor_sync(0xffffffffu, amax[hh], 1));
+      amax[hh] = fmaxf(amax[hh], __shfl_xor_sync(0xffffffffu, amax[hh], 2));
+      if (q == 0) sAmax[w * BM + 16 * warp + g + 8 * hh] = amax[hh];
+    }
+    named_bar_sync(1, 256);  // both warpgroups' halves of every row
+    if (SPLIT) {  // trade this CTA's row absmax for the other CTA's
+      if (threadIdx.x < BM) {
+        const int r = threadIdx.x;
+        st_cluster_f32(smem_u32(sPeer + r), rank ^ 1, fmaxf(sAmax[r], sAmax[BM + r]));
+        mbar_arrive_cluster(xbar, rank ^ 1);
+      }
+      mbar_wait_cluster(xbar, 0);
+    }
+  }
+  if (MODE == AMAX) {  // the share's row absmax; CTA 0 of a split pair stores it
+    if (threadIdx.x < BM && m0 + threadIdx.x < m && (!SPLIT || blockIdx.y == 0)) {
+      const int r = threadIdx.x;
+      float a = fmaxf(sAmax[r], sAmax[BM + r]);
+      if (SPLIT) a = fmaxf(a, sPeer[r]);
+      amax_io[m0 + r] = a;
+    }
+    return;
   }
   float shs[2], inv[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int r = 16 * warp + g + 8 * hh;
-    float a = fmaxf(sAmax[r], sAmax[BM + r]);
-    if (SPLIT) a = fmaxf(a, sPeer[r]);
+    float a;
+    if (MODE == PARTIAL) {
+      a = m0 + r < m ? amax_io[m0 + r] : 0.f;
+    } else {
+      a = fmaxf(sAmax[r], sAmax[BM + r]);
+      if (SPLIT) a = fmaxf(a, sPeer[r]);
+    }
     i8::row_scale(a, shs[hh], inv[hh]);
   }
 
@@ -404,7 +440,8 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
     for (int j = 0; j < 16; ++j) {
       const int col = 384 * w + 128 * p + 8 * j + 2 * q;
       const float2 s = *reinterpret_cast<const float2*>(sw2 + col);
-      const float2 b = *reinterpret_cast<const float2*>(b2 + col);
+      const float2 b = MODE == PARTIAL || SPLIT ? make_float2(0.f, 0.f)
+                                                : *reinterpret_cast<const float2*>(b2 + col);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int row = m0 + 16 * warp + g + 8 * hh;
@@ -413,6 +450,10 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
         if (SPLIT) {
           *reinterpret_cast<int2*>(part + ((size_t)blockIdx.y * m + row) * N + col) =
               make_int2(a0, a1);
+        } else if (MODE == PARTIAL) {
+          *reinterpret_cast<float2*>(yf + (size_t)row * N + col) =
+              make_float2(__fmul_rn(__fmul_rn(__int2float_rn(a0), shs[hh]), s.x),
+                          __fmul_rn(__fmul_rn(__int2float_rn(a1), shs[hh]), s.y));
         } else {
           const float v0 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a0), shs[hh]), s.x), b.x);
           const float v1 = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(a1), shs[hh]), s.y), b.y);
@@ -424,10 +465,13 @@ w8a8_mlp_sm90_kernel(const __grid_constant__ CUtensorMap mw1,
 }
 
 // y = bf16((float(part[0] + part[1]) * sh) * sw2 + b2): the split kernel's
-// two int32 sums added exactly, then its epilogue
+// two int32 sums added exactly, then its epilogue; with PARTIAL, fp32 yf =
+// (float(part[0] + part[1]) * sh) * sw2, without b2
+template <bool PARTIAL>
 __global__ void w8a8_mlp_sum_splits(const int4* __restrict__ part,
                                     const float* __restrict__ shs, const float* __restrict__ sw2,
-                                    const float* __restrict__ b2, bf16* __restrict__ y, int m) {
+                                    const float* __restrict__ b2, bf16* __restrict__ y,
+                                    float* __restrict__ yf, int m) {
   const size_t n4 = (size_t)m * (N / 4);
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n4) return;
@@ -435,6 +479,12 @@ __global__ void w8a8_mlp_sum_splits(const int4* __restrict__ part,
   const int row = static_cast<int>(i / (N / 4)), col = static_cast<int>(i % (N / 4)) * 4;
   const float s = shs[row];
   const float4 w = *reinterpret_cast<const float4*>(sw2 + col);
+  if (PARTIAL) {
+    auto out = [&](int v, float wk) { return __fmul_rn(__fmul_rn(__int2float_rn(v), s), wk); };
+    *reinterpret_cast<float4*>(yf + i * 4) = make_float4(
+        out(a.x + c.x, w.x), out(a.y + c.y, w.y), out(a.z + c.z, w.z), out(a.w + c.w, w.w));
+    return;
+  }
   const float4 b = *reinterpret_cast<const float4*>(b2 + col);
   auto out = [&](int v, float wk, float bk) {
     return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), s), wk), bk);
@@ -447,13 +497,13 @@ __global__ void w8a8_mlp_sum_splits(const int4* __restrict__ part,
   *reinterpret_cast<uint2*>(y + i * 4) = v;
 }
 
-template <bool SPLIT, bool DROP>
+template <bool SPLIT, bool DROP, int MODE>
 int launch(const CUtensorMap& w1, const CUtensorMap& w2, const CUtensorMap& bits, const void* x,
            const void* sw1, const void* b1, const void* sw2, const void* b2, void* y, void* part,
-           void* shs, int m, int chunks, int grid, int thr, float keep_scale,
+           void* shs, void* amax, int m, int chunks, int grid, int thr, float keep_scale,
            cudaStream_t stream) {
   constexpr int smem = smem_bytes<DROP>();
-  cudaError_t err = cudaFuncSetAttribute(w8a8_mlp_sm90_kernel<SPLIT, DROP>,
+  cudaError_t err = cudaFuncSetAttribute(w8a8_mlp_sm90_kernel<SPLIT, DROP, MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -468,17 +518,20 @@ int launch(const CUtensorMap& w1, const CUtensorMap& w2, const CUtensorMap& bits
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, w8a8_mlp_sm90_kernel<SPLIT, DROP>, w1, w2, bits,
+  err = cudaLaunchKernelEx(&cfg, w8a8_mlp_sm90_kernel<SPLIT, DROP, MODE>, w1, w2, bits,
                            static_cast<const bf16*>(x), static_cast<const float*>(sw1),
                            static_cast<const float*>(b1), static_cast<const float*>(sw2),
                            static_cast<const float*>(b2), static_cast<bf16*>(y),
+                           static_cast<float*>(y), static_cast<float*>(amax),
                            static_cast<int*>(part), static_cast<float*>(shs), m, chunks, thr,
                            keep_scale);
-  if (err != cudaSuccess || !SPLIT) return static_cast<int>(err);
+  if (err != cudaSuccess || !SPLIT || MODE == AMAX) return static_cast<int>(err);
   const size_t n4 = (size_t)m * (N / 4);
-  w8a8_mlp_sum_splits<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
-      static_cast<const int4*>(part), static_cast<const float*>(shs),
-      static_cast<const float*>(sw2), static_cast<const float*>(b2), static_cast<bf16*>(y), m);
+  w8a8_mlp_sum_splits<MODE == PARTIAL>
+      <<<static_cast<unsigned>((n4 + 255) / 256), 256, 0, stream>>>(
+          static_cast<const int4*>(part), static_cast<const float*>(shs),
+          static_cast<const float*>(sw2), static_cast<const float*>(b2), static_cast<bf16*>(y),
+          static_cast<float*>(y), m);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -510,15 +563,18 @@ extern "C" int w8a8_mlp_sm90_smem(int drop) {
 namespace {
 
 // checks the launch's shape and runs the kernel of `splits` (DROP with the
-// bits' map `mbits`, else none)
-template <bool DROP>
+// bits' map `mbits`, else none) in MODE (the split modes take `amax`, and
+// no b2)
+template <bool DROP, int MODE>
 int run(const void* mw1, const void* mw2, const void* mbits, const void* x, const void* sw1,
-        const void* b1, const void* sw2, const void* b2, void* y, void* part, void* shs, int m,
-        int hdim, int grid, int splits, int thr, float keep_scale, void* stream) {
+        const void* b1, const void* sw2, const void* b2, void* y, void* part, void* shs,
+        void* amax, int m, int hdim, int grid, int splits, int thr, float keep_scale,
+        void* stream) {
   const int tiles = (m + BM - 1) / BM;
   const bool ok =
       m > 0 && hdim > 0 && (splits == 1 || splits == 2) && hdim % (HC * splits) == 0 &&
-      (!DROP || (thr > 0 && thr < 65536)) &&
+      (!DROP || (thr > 0 && thr < 65536)) && (MODE == WHOLE || amax != nullptr) &&
+      (MODE != WHOLE || b2 != nullptr) && (MODE == AMAX || y != nullptr) &&
       (splits == 1 ? grid % CL == 0 && grid >= tiles && grid <= tiles + 1
                    : grid == tiles && part != nullptr && shs != nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
@@ -528,10 +584,11 @@ int run(const void* mw1, const void* mw2, const void* mbits, const void* x, cons
   memcpy(&bits, DROP ? mbits : mw1, sizeof(bits));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int chunks = hdim / HC / splits;
-  return splits == 1 ? launch<false, DROP>(w1, w2, bits, x, sw1, b1, sw2, b2, y, part, shs, m,
-                                           chunks, grid, thr, keep_scale, st)
-                     : launch<true, DROP>(w1, w2, bits, x, sw1, b1, sw2, b2, y, part, shs, m,
-                                          chunks, grid, thr, keep_scale, st);
+  return splits == 1
+             ? launch<false, DROP, MODE>(w1, w2, bits, x, sw1, b1, sw2, b2, y, part, shs, amax,
+                                         m, chunks, grid, thr, keep_scale, st)
+             : launch<true, DROP, MODE>(w1, w2, bits, x, sw1, b1, sw2, b2, y, part, shs, amax,
+                                        m, chunks, grid, thr, keep_scale, st);
 }
 
 }  // namespace
@@ -547,8 +604,8 @@ extern "C" int w8a8_mlp_sm90(const void* mw1, const void* mw2, const void* x, co
                              const void* b1, const void* sw2, const void* b2, void* y,
                              void* part, void* shs, int m, int hdim, int grid, int splits,
                              void* stream) {
-  return run<false>(mw1, mw2, nullptr, x, sw1, b1, sw2, b2, y, part, shs, m, hdim, grid, splits,
-                    0, 0.f, stream);
+  return run<false, WHOLE>(mw1, mw2, nullptr, x, sw1, b1, sw2, b2, y, part, shs, nullptr, m,
+                           hdim, grid, splits, 0, 0.f, stream);
 }
 
 // As w8a8_mlp_sm90 with the hidden dropout of `_mlp_dropout_kernel`: mbits
@@ -561,6 +618,47 @@ extern "C" int w8a8_mlp_sm90_drop(const void* mw1, const void* mw2, const void* 
                                   const void* sw2, const void* b2, void* y, void* part,
                                   void* shs, int m, int hdim, int grid, int splits,
                                   int threshold, float keep_scale, void* stream) {
-  return run<true>(mw1, mw2, mbits, x, sw1, b1, sw2, b2, y, part, shs, m, hdim, grid, splits,
-                   threshold, keep_scale, stream);
+  return run<true, WHOLE>(mw1, mw2, mbits, x, sw1, b1, sw2, b2, y, part, shs, nullptr, m, hdim,
+                          grid, splits, threshold, keep_scale, stream);
+}
+
+// The split mode's first launch: each row's absmax (amax, m fp32) of the
+// hidden of this share, qW1 (hidden, 768), after the dropout (the _drop
+// entry); sw2 and qW2's map as for its second launch, y unused. Then,
+// after the caller has maxed amax over the ranks, the second launch
+// (`_partial`): y (m, 768) fp32 = (acc * sh) * sw2, without b2, sh from
+// amax. The arguments as w8a8_mlp_sm90's, amax where b2 is; `part` and
+// `shs` the scratch of splits 2.
+extern "C" int w8a8_mlp_sm90_amax(const void* mw1, const void* mw2, const void* x,
+                                  const void* sw1, const void* b1, const void* sw2, void* amax,
+                                  void* y, void* part, void* shs, int m, int hdim, int grid,
+                                  int splits, void* stream) {
+  return run<false, AMAX>(mw1, mw2, nullptr, x, sw1, b1, sw2, nullptr, y, part, shs, amax, m,
+                          hdim, grid, splits, 0, 0.f, stream);
+}
+
+extern "C" int w8a8_mlp_sm90_partial(const void* mw1, const void* mw2, const void* x,
+                                     const void* sw1, const void* b1, const void* sw2,
+                                     void* amax, void* y, void* part, void* shs, int m,
+                                     int hdim, int grid, int splits, void* stream) {
+  return run<false, PARTIAL>(mw1, mw2, nullptr, x, sw1, b1, sw2, nullptr, y, part, shs, amax,
+                             m, hdim, grid, splits, 0, 0.f, stream);
+}
+
+extern "C" int w8a8_mlp_sm90_amax_drop(const void* mw1, const void* mw2, const void* mbits,
+                                       const void* x, const void* sw1, const void* b1,
+                                       const void* sw2, void* amax, void* y, void* part,
+                                       void* shs, int m, int hdim, int grid, int splits,
+                                       int threshold, float keep_scale, void* stream) {
+  return run<true, AMAX>(mw1, mw2, mbits, x, sw1, b1, sw2, nullptr, y, part, shs, amax, m,
+                         hdim, grid, splits, threshold, keep_scale, stream);
+}
+
+extern "C" int w8a8_mlp_sm90_partial_drop(const void* mw1, const void* mw2, const void* mbits,
+                                          const void* x, const void* sw1, const void* b1,
+                                          const void* sw2, void* amax, void* y, void* part,
+                                          void* shs, int m, int hdim, int grid, int splits,
+                                          int threshold, float keep_scale, void* stream) {
+  return run<true, PARTIAL>(mw1, mw2, mbits, x, sw1, b1, sw2, nullptr, y, part, shs, amax, m,
+                            hdim, grid, splits, threshold, keep_scale, stream);
 }

@@ -6,6 +6,7 @@ Counterpart of `exploremultimodal_tpu/ops/quant.py`:
   - `QuantLinear`   `QuantDense`, with nn.Linear's parameter names
   - `dense`         `dense`: `Linear` or `QuantLinear(impl='xla'|'pallas')`
   - `site_mode`     `site_mode`
+  - `partial_dense` a row-parallel share of any of them (`parallel=tp`)
 `Linear` is flax `Dense(dtype=...)`; the 'pallas' impl is the row-8 kernel
 of `ops/quant_fused.py`. `quant_dot`'s product is a plain int8 GEMM, an XLA
 dot outside any Pallas kernel in JAX: `torch._int_mm` on the card, an exact
@@ -22,6 +23,7 @@ from exploremultimodal_torch.ops.quant_fused import (
     divide_by_127,
     int8_product,
     pallas_quant_dot,
+    pallas_quant_dot_partial,
 )
 
 _EPS = 1e-8
@@ -45,15 +47,19 @@ class Linear(nn.Linear):
                         None if self.bias is None else self.bias.to(dt))
 
 
-def _quantize_int8(t: torch.Tensor, dim: int | tuple[int, ...] | None = None):
+def _quantize_int8(t: torch.Tensor, dim: int | tuple[int, ...] | None = None,
+                   absmax: torch.Tensor | None = None):
     """Symmetric int8 codes of t with one scale over `dim`, a dim or a tuple
     of dims (None: the whole tensor): scale = max(absmax, 1e-8) / 127, codes
     round(t / scale) clipped to +-127. The scale keeps the reduced dims
     (fp32). A conv weight (co, ci, kh, kw) takes dim (1, 2, 3): one scale per
-    output channel, as JAX reduces its HWIO kernel over (kh, kw, ci)."""
+    output channel, as JAX reduces its HWIO kernel over (kh, kw, ci).
+    `absmax`, where given (with the reduced dims kept), replaces t's own: a
+    tensor-split share's, the max over the whole tensor."""
     t = t.float()
-    absmax = (t.abs().amax(dim, keepdim=True) if dim is not None
-              else t.abs().amax().reshape((1,) * t.ndim))
+    if absmax is None:
+        absmax = (t.abs().amax(dim, keepdim=True) if dim is not None
+                  else t.abs().amax().reshape((1,) * t.ndim))
     scale = divide_by_127(absmax.clamp_min(_EPS))
     return torch.round(t / scale).clamp(-127, 127).to(torch.int8), scale
 
@@ -96,6 +102,41 @@ def quant_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) . w^T for w (N, K): the `w8a8` int8 forward, the STE
     backward."""
     return _QuantDot.apply(x, w)
+
+
+class _QuantDotPartial(torch.autograd.Function):
+    """`_QuantDot` on a row-parallel share (x (..., K/T), w (N, K/T)): the
+    absmax of all of x and each channel's of w maxed over the tensor group
+    (one all-reduce), the share's codes at those scales, and the fp32
+    partial product, unrounded. The backward is the whole one's on the
+    share (the gradient taken in x's dtype, as the whole output's)."""
+
+    @staticmethod
+    def forward(ctx, x, w, tensor):
+        ctx.save_for_backward(x, w)
+        amax = tensor.max_(torch.cat([x.float().abs().amax().reshape(1),
+                                      w.float().abs().amax(1)]))
+        qx, sx = _quantize_int8(x, absmax=amax[:1].reshape((1,) * x.ndim))
+        qw, sw = _quantize_int8(w, dim=1, absmax=amax[1:, None])
+        y = _int_dot(qx.reshape(-1, x.shape[-1]), qw).reshape(*x.shape[:-1], -1)
+        return y * (sx.reshape(()) * sw.reshape(-1))
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_QuantDot.backward(ctx, g.to(ctx.saved_tensors[0].dtype)), None)
+
+
+def partial_dense(layer: "Linear", x: torch.Tensor, tensor) -> torch.Tensor:
+    """A row-parallel layer's product on this tensor rank's share (x's
+    columns, the weight's), without the bias: `Linear`'s in its dtype, a
+    `QuantLinear`'s the fp32 partial sum of its int8 product
+    (`quant_dot` or row 8's partial mode), with the whole call's codes."""
+    dt = layer.dtype
+    if not isinstance(layer, QuantLinear):
+        return F.linear(x.to(dt), layer.weight.to(dt))
+    if layer.impl == "xla":
+        return _QuantDotPartial.apply(x.to(dt), layer.weight.to(dt), tensor)
+    return pallas_quant_dot_partial(x.to(dt), layer.weight.to(dt), tensor)
 
 
 class QuantLinear(Linear):

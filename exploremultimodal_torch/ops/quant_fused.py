@@ -10,6 +10,21 @@ Counterpart of `exploremultimodal_tpu/ops/quant_pallas.py`:
   - `w8a8_mlp_fwd_drop`  `_mlp_dropout_kernel` (row 10): with hidden dropout
   - `w8a8_mlp`           `fused_w8a8_mlp` / `fused_w8a8_mlp_dropout`, with the
                          backward of `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`
+and the tensor-split modes, which give a tensor rank's share of the whole
+call under `parallel=tp` (GSPMD's partition of these sites in JAX):
+  - `w8a8_matmul_partial`   row 8 on a row-parallel share (proj: K = 384 of
+                            768): x's rows quantized at their absmax over the
+                            whole K, given from outside, and the fp32 partial
+                            product (acc * sx) * sw, unrounded
+  - `w8a8_mlp_fwd_split`, `w8a8_mlp_fwd_drop_split`
+                            rows 9 and 10 on a rank's hidden columns in two
+                            launches: the first pass's row absmax of h, then,
+                            after the caller's all-reduce-max of it, the second
+                            pass at the global scale, writing the fp32 partial
+                            output without b2
+  - `pallas_quant_dot_partial`, `w8a8_mlp(tensor=...)`
+                            the differentiable functions over them, whose
+                            weight scales are maxima over the tensor group
 Row 8 is `csrc/w8a8_matmul_sm90.cu`, rows 9 and 10 `csrc/w8a8_mlp_sm90.cu`
 (all three on int8 wgmma and TMA; row 10 row 9's `DROP` variant). Weights
 are in nn.Linear's layout, (out, in), and so are their int8 codes, with one
@@ -35,7 +50,10 @@ from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 
 _EPS = 1e-8
 IN_DIM = OUT_DIM = 768  # the kernels' K and MLP output width (vlmo_base)
-MATMUL_OUT_DIMS = (768, 2304)  # proj and qkv
+# row 8's (K, N): qkv and proj whole, qkv's column share at a tensor axis of
+# 2 (heads 6 of 12); proj's row share (K 384) takes the partial mode
+MATMUL_SHAPES = ((768, 768), (768, 2304), (768, 1152))
+PARTIAL_SHAPES = ((384, 768),)
 HIDDEN_CHUNK = 64  # the MLP kernels walk the hidden in chunks this wide
 # the row-9 kernel's layout, as csrc/w8a8_mlp_sm90.cu sets it: 64-row tiles
 # in clusters of 2 CTAs along M, or, split, of 2 CTAs along the hidden; the
@@ -66,18 +84,23 @@ _MAPS_CAP = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _MATMUL_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
+_MATMUL_PARTIAL_ARGTYPES = [_P] * 5 + [_I] * 4 + [_P]
 _MLP_SM90_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
 _MLP_SM90_DROP_ARGTYPES = [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 5
 
 
-def quantize_weights(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def quantize_weights(w: torch.Tensor, absmax: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-output-channel symmetric int8 codes of w (N, K): sw =
     max(absmax, 1e-8) / 127 and qw = round(w / sw), clipped to +-127, both
-    divisions as in JAX's `quantize_weights`. Returns (qw int8 (N, K),
-    sw fp32 (N,))."""
+    divisions as in JAX's `quantize_weights`. `absmax` (N,), where given,
+    replaces each channel's own (a row-parallel share's: the max over the
+    whole K). Returns (qw int8 (N, K), sw fp32 (N,))."""
     w = w.float()
-    sw = divide_by_127(w.abs().amax(1).clamp_min(_EPS))
+    if absmax is None:
+        absmax = w.abs().amax(1)
+    sw = divide_by_127(absmax.clamp_min(_EPS))
     qw = torch.round(w / sw[:, None]).clamp(-127, 127)
     return qw.to(torch.int8), sw
 
@@ -90,11 +113,14 @@ def divide_by_127(t: torch.Tensor) -> torch.Tensor:
     return t / torch.full_like(t, 127.0)
 
 
-def row_quant(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def row_quant(t: torch.Tensor, absmax: torch.Tensor | None = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
     """`_row_quant` of fp32 t (M, K): per row, s = max(absmax, 1e-8) *
     (1/127) and codes round(t * (1/s)) (half to even, as jnp.round), clipped
-    to +-127. Returns (int8 (M, K), fp32 (M, 1))."""
-    scale = t.abs().amax(1, keepdim=True).clamp_min(_EPS) * (1.0 / 127.0)
+    to +-127. `absmax` (M,), where given, replaces each row's own (a share's
+    row: the max over the whole row). Returns (int8 (M, K), fp32 (M, 1))."""
+    amax = t.abs().amax(1, keepdim=True) if absmax is None else absmax.reshape(-1, 1)
+    scale = amax.clamp_min(_EPS) * (1.0 / 127.0)
     q = torch.round(t * torch.reciprocal(scale)).clamp(-127, 127)
     return q.to(torch.int8), scale
 
@@ -112,15 +138,44 @@ def w8a8_matmul_plain(x, qw, sw):
     return (int8_product(qx, qw) * sx * sw).to(x.dtype)
 
 
-def _mlp_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold):
+def w8a8_matmul_partial_plain(x, qw, sw, amax):
+    """Row 8's partial mode on a row-parallel share: x (M, K) with its rows
+    quantized at `amax` (M,), their absmax over the whole K, the exact int8
+    product with the share's qw (N, K), and (acc * sx) * sw in fp32,
+    unrounded (the ranks' partial sums add in fp32)."""
+    qx, sx = row_quant(x.float(), amax)
+    return int8_product(qx, qw) * sx * sw
+
+
+def _mlp_hidden(x, qw1, sw1, b1, bits, threshold):
+    """The int8 MLP's fp32 hidden (M, H), after the dropout where `bits`."""
     qx, sx = row_quant(x.float())
     h = gelu_tanh(int8_product(qx, qw1) * sx * sw1 + b1)
     if bits is not None:
         scale = torch.tensor(keep_scale16(threshold), dtype=torch.float32,
                              device=x.device)
         h = torch.where(keep16(bits, threshold), h * scale, torch.zeros_like(h))
-    qh, sh = row_quant(h)
+    return h
+
+
+def _mlp_plain(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold):
+    qh, sh = row_quant(_mlp_hidden(x, qw1, sw1, b1, bits, threshold))
     return (int8_product(qh, qw2) * sh * sw2 + b2).to(x.dtype)
+
+
+def w8a8_mlp_amax_plain(x, qw1, sw1, b1, bits=None, threshold: int = 0):
+    """The split mode's first launch: each row's absmax (M,) of the hidden
+    over this share's columns qw1 (H/T, K), after the dropout where
+    `bits`."""
+    return _mlp_hidden(x, qw1, sw1, b1, bits, threshold).abs().amax(1)
+
+
+def w8a8_mlp_partial_plain(x, qw1, sw1, b1, qw2, sw2, amax, bits=None, threshold: int = 0):
+    """The split mode's second launch: the share's hidden quantized at the
+    rows' absmax `amax` over the whole hidden, the int8 product with qw2's
+    share (N, H/T), and (acc * sh) * sw2 in fp32, without b2, unrounded."""
+    qh, sh = row_quant(_mlp_hidden(x, qw1, sw1, b1, bits, threshold), amax)
+    return int8_product(qh, qw2) * sh * sw2
 
 
 def w8a8_mlp_fwd_plain(x, qw1, sw1, b1, qw2, sw2, b2):
@@ -203,22 +258,30 @@ def _matmul_map(t: torch.Tensor, operand: str):
                        box_cols, box_rows, t.element_size())
 
 
-def w8a8_matmul(x, qw, sw):
-    """As `w8a8_matmul_plain`: the row-8 kernel on CUDA tensors (bf16 x
-    (M, 768), int8 qw (N, 768) with N in MATMUL_OUT_DIMS, fp32 sw (N,)), the
-    plain version on CPU tensors."""
-    if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, qw, sw)
+def _check_matmul(name, x, qw, sw, shapes, amax=None):
     m, k = x.shape
     n = qw.shape[0]
-    _require("w8a8_matmul",
+    tensors = (x, qw, sw) + (() if amax is None else (amax,))
+    _require(name,
              x.dtype == torch.bfloat16 and qw.dtype == torch.int8
-             and sw.dtype == torch.float32 and k == IN_DIM and qw.shape == (n, k)
-             and n in MATMUL_OUT_DIMS and sw.shape == (n,) and _on_one_device(x, (x, qw, sw)),
-             f"needs contiguous, 16-byte aligned bf16 x (M, {IN_DIM}), int8 qw (N, "
-             f"{IN_DIM}) with N in {MATMUL_OUT_DIMS}, fp32 sw (N,) on one device; got x "
-             f"{tuple(x.shape)} {x.dtype}, qw {tuple(qw.shape)} {qw.dtype}, sw "
-             f"{tuple(sw.shape)} {sw.dtype}")
+             and sw.dtype == torch.float32 and (k, n) in shapes and qw.shape == (n, k)
+             and sw.shape == (n,) and _on_one_device(x, tensors)
+             and (amax is None or (amax.dtype == torch.float32 and amax.shape == (m,))),
+             f"needs contiguous, 16-byte aligned bf16 x (M, K), int8 qw (N, K) with (K, N) "
+             f"in {shapes}, fp32 sw (N,)" + ("" if amax is None else ", fp32 amax (M,)")
+             + f" on one device; got x {tuple(x.shape)} {x.dtype}, qw {tuple(qw.shape)} "
+             f"{qw.dtype}, sw {tuple(sw.shape)} {sw.dtype}"
+             + ("" if amax is None else f", amax {tuple(amax.shape)} {amax.dtype}"))
+    return m, n
+
+
+def w8a8_matmul(x, qw, sw):
+    """As `w8a8_matmul_plain`: the row-8 kernel on CUDA tensors (bf16 x
+    (M, 768), int8 qw (N, 768) with (K, N) in MATMUL_SHAPES, fp32 sw (N,)),
+    the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, qw, sw)
+    m, n = _check_matmul("w8a8_matmul", x, qw, sw, MATMUL_SHAPES)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
@@ -232,16 +295,37 @@ def w8a8_matmul(x, qw, sw):
     return y
 
 
+def w8a8_matmul_partial(x, qw, sw, amax):
+    """As `w8a8_matmul_partial_plain`: row 8's partial mode on CUDA tensors
+    (bf16 x (M, 384), int8 qw (768, 384), fp32 sw (768,) and amax (M,);
+    (K, N) in PARTIAL_SHAPES), storing fp32 y (M, N) from its registers;
+    the plain version on CPU tensors."""
+    if x.device.type == "cpu":
+        return w8a8_matmul_partial_plain(x, qw, sw, amax)
+    m, n = _check_matmul("w8a8_matmul_partial", x, qw, sw, PARTIAL_SHAPES, amax)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    maps = [_matmul_map(qw, "w")]
+    grid_x, _, per = matmul_grid(m, n, _sm_count(x.device))
+    fn = _build.load("w8a8_matmul_sm90", _MATMUL_PARTIAL_ARGTYPES, "w8a8_matmul_sm90_partial")
+    rc = fn(*maps, x.data_ptr(), sw.data_ptr(), amax.data_ptr(), y.data_ptr(), m, n,
+            grid_x, per, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check("w8a8_matmul_sm90_partial", rc)
+    w8a8_matmul_partial.launches += 1
+    return y
+
+
 def _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits=None):
     m, k = x.shape
     hdim = qw1.shape[0]
     tensors = (x, qw1, sw1, b1, qw2, sw2, b2) + (() if bits is None else (bits,))
+    tensors = tuple(t for t in tensors if t is not None)
     _require(name,
              x.dtype == torch.bfloat16 and qw1.dtype == qw2.dtype == torch.int8
-             and sw1.dtype == sw2.dtype == b1.dtype == b2.dtype == torch.float32
+             and sw1.dtype == sw2.dtype == b1.dtype == torch.float32
+             and (b2 is None or (b2.dtype == torch.float32 and b2.shape == (OUT_DIM,)))
              and k == IN_DIM and qw1.shape == (hdim, k) and hdim % HIDDEN_CHUNK == 0
              and qw2.shape == (OUT_DIM, hdim) and sw1.shape == b1.shape == (hdim,)
-             and sw2.shape == b2.shape == (OUT_DIM,)
+             and sw2.shape == (OUT_DIM,)
              and (bits is None or (bits.dtype == torch.int16 and bits.shape == (m, hdim)))
              and _on_one_device(x, tensors),
              f"needs contiguous, 16-byte aligned bf16 x (M, {IN_DIM}), int8 qw1 (H, "
@@ -333,6 +417,72 @@ def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2, bits=None, threshold: int = 
     return y
 
 
+def _launch_mlp_split(x, qw1, sw1, b1, qw2, sw2, reduce_max, bits=None, threshold: int = 0):
+    """Check the inputs and run rows 9/10's split mode: the first pass
+    (`w8a8_mlp_sm90_amax`, each row's absmax of this share's hidden),
+    `reduce_max` of it in place (the all-reduce-max over the tensor group),
+    then the second pass (`w8a8_mlp_sm90_partial`) at the rows' global
+    scales into an fp32 y without b2; the hidden split of `mlp_splits`
+    with its scratch, the grid of `mlp_grid`, in both."""
+    name = "w8a8_mlp_fwd_split" if bits is None else "w8a8_mlp_fwd_drop_split"
+    m, hdim = _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, None, bits)
+    if bits is not None:
+        _require(name, 0 < threshold < 65536, f"threshold {threshold} not in (0, 65536)")
+    dev = x.device
+    amax = torch.empty((m,), dtype=torch.float32, device=dev)
+    y = torch.empty((m, OUT_DIM), dtype=torch.float32, device=dev)
+    splits = mlp_splits(m, hdim, _sm_count(dev))
+    part = shs = None
+    if splits > 1:
+        part = torch.empty((splits, m, OUT_DIM), dtype=torch.int32, device=dev)
+        shs = torch.empty((m,), dtype=torch.float32, device=dev)
+    maps = [_mlp_map(qw1, "w1"), _mlp_map(qw2, "w2")]
+    if bits is not None:
+        maps.append(_mlp_map(bits, "bits"))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    grid = mlp_grid(m, splits)
+    scratch = (None if part is None else part.data_ptr(),
+               None if shs is None else shs.data_ptr())
+    drop = () if bits is None else (threshold, keep_scale16(threshold))
+    # the whole kernel's arguments, the absmax where b2 was
+    types = _MLP_SM90_ARGTYPES if bits is None else _MLP_SM90_DROP_ARGTYPES
+    suffix = "" if bits is None else "_drop"
+    for mode in ("amax", "partial"):
+        if mode == "partial":
+            reduce_max(amax)
+        fn = _build.load("w8a8_mlp_sm90", types, f"w8a8_mlp_sm90_{mode}{suffix}")
+        rc = fn(*maps, x.data_ptr(), sw1.data_ptr(), b1.data_ptr(), sw2.data_ptr(),
+                amax.data_ptr(), y.data_ptr(), *scratch, m, hdim, grid, splits, *drop, stream)
+        _build.check(f"w8a8_mlp_sm90_{mode}{suffix}", rc)
+    return y
+
+
+def w8a8_mlp_fwd_split(x, qw1, sw1, b1, qw2, sw2, reduce_max):
+    """Row 9's split mode on a tensor rank's hidden share (bf16 x (M, 768),
+    qw1 (H/T, 768), qw2 (768, H/T), the fp32 scales and b1): the fp32
+    partial output (M, 768) without b2, each row of h quantized at its
+    absmax over the whole hidden (`reduce_max` makes the share's whole).
+    Two kernel launches on CUDA tensors (one call counted); the plain
+    versions on CPU tensors."""
+    if x.device.type == "cpu":
+        amax = reduce_max(w8a8_mlp_amax_plain(x, qw1, sw1, b1))
+        return w8a8_mlp_partial_plain(x, qw1, sw1, b1, qw2, sw2, amax)
+    y = _launch_mlp_split(x, qw1, sw1, b1, qw2, sw2, reduce_max)
+    w8a8_mlp_fwd_split.launches += 1
+    return y
+
+
+def w8a8_mlp_fwd_drop_split(x, qw1, sw1, b1, qw2, sw2, bits, threshold: int, reduce_max):
+    """Row 10's split mode: `w8a8_mlp_fwd_split` with the hidden dropout of
+    this share's columns of the whole bits (int16 (M, H/T))."""
+    if x.device.type == "cpu":
+        amax = reduce_max(w8a8_mlp_amax_plain(x, qw1, sw1, b1, bits, threshold))
+        return w8a8_mlp_partial_plain(x, qw1, sw1, b1, qw2, sw2, amax, bits, threshold)
+    y = _launch_mlp_split(x, qw1, sw1, b1, qw2, sw2, reduce_max, bits, threshold)
+    w8a8_mlp_fwd_drop_split.launches += 1
+    return y
+
+
 def w8a8_mlp_fwd(x, qw1, sw1, b1, qw2, sw2, b2):
     """As `w8a8_mlp_fwd_plain`: the row-9 kernel on CUDA tensors, the plain
     version on CPU tensors."""
@@ -354,8 +504,11 @@ def w8a8_mlp_fwd_drop(x, qw1, sw1, b1, qw2, sw2, b2, bits, threshold: int):
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul_partial.launches = 0
 w8a8_mlp_fwd.launches = 0
 w8a8_mlp_fwd_drop.launches = 0
+w8a8_mlp_fwd_split.launches = 0
+w8a8_mlp_fwd_drop_split.launches = 0
 
 
 class _PallasQuantDot(torch.autograd.Function):
@@ -371,7 +524,7 @@ class _PallasQuantDot(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x2, w = ctx.saved_tensors
-        return (g @ w.to(g.dtype)).to(x2.dtype), (g.T @ x2.to(g.dtype)).to(w.dtype)
+        return _ste_backward(g, x2, w)
 
 
 def pallas_quant_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -379,6 +532,40 @@ def pallas_quant_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     W8A8 forward (per-row activation scales) and the STE backward."""
     *lead, k = x.shape
     y = _PallasQuantDot.apply(x.reshape(-1, k).contiguous(), w)
+    return y.reshape(*lead, w.shape[0])
+
+
+def _ste_backward(g, x2, w):
+    """`_pqd_bwd`: dx = g . w in x's dtype, dw = g^T . x in w's dtype."""
+    return (g @ w.to(g.dtype)).to(x2.dtype), (g.T @ x2.to(g.dtype)).to(w.dtype)
+
+
+class _PallasQuantDotPartial(torch.autograd.Function):
+    """`_PallasQuantDot` on a row-parallel share (x2 (M, K/T), w (N, K/T)):
+    each row's absmax of x2 and each channel's of w maxed over the tensor
+    group (one all-reduce), the share's codes at those scales, row 8's
+    partial mode. The backward is the whole one's on the share (the fp32
+    gradient taken in x's dtype, as the whole call's output is)."""
+
+    @staticmethod
+    def forward(ctx, x2, w, tensor):
+        m = x2.shape[0]
+        amax = tensor.max_(torch.cat([x2.float().abs().amax(1), w.float().abs().amax(1)]))
+        qw, sw = quantize_weights(w, amax[m:])
+        ctx.save_for_backward(x2, w)
+        return w8a8_matmul_partial(x2, qw, sw, amax[:m].contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        return (*_ste_backward(g.to(x2.dtype), x2, w), None)
+
+
+def pallas_quant_dot_partial(x: torch.Tensor, w: torch.Tensor, tensor) -> torch.Tensor:
+    """This tensor rank's fp32 partial sum of `pallas_quant_dot(x, w)` for
+    a row-parallel share: x (..., K/T) and w (N, K/T) its columns."""
+    *lead, k = x.shape
+    y = _PallasQuantDotPartial.apply(x.reshape(-1, k).contiguous(), w, tensor)
     return y.reshape(*lead, w.shape[0])
 
 
@@ -390,35 +577,46 @@ class _W8A8Mlp(torch.autograd.Function):
     forward takes tanh, as the JAX package does."""
 
     @staticmethod
-    def forward(ctx, x2, w1, b1, w2, b2, bits, threshold):
+    def forward(ctx, x2, w1, b1, w2, b2, bits, threshold, tensor):
         qw1, sw1 = quantize_weights(w1)
-        qw2, sw2 = quantize_weights(w2)
-        args = (x2, qw1, sw1, b1.float().contiguous(), qw2, sw2, b2.float().contiguous())
-        y = w8a8_mlp_fwd(*args) if bits is None else w8a8_mlp_fwd_drop(
-            *args, bits, threshold)
         ctx.save_for_backward(x2, w1, b1, w2, bits)
         ctx.threshold = threshold
-        ctx.b2_dtype = b2.dtype
-        return y
+        ctx.b2_dtype = None if b2 is None else b2.dtype
+        if tensor is not None:
+            # the split mode: W2's channels maxed over the whole hidden, and
+            # h's rows over it inside the call
+            qw2, sw2 = quantize_weights(w2, tensor.max_(w2.float().abs().amax(1)))
+            args = (x2, qw1, sw1, b1.float().contiguous(), qw2, sw2)
+            return (w8a8_mlp_fwd_split(*args, tensor.max_) if bits is None
+                    else w8a8_mlp_fwd_drop_split(*args, bits, threshold, tensor.max_))
+        qw2, sw2 = quantize_weights(w2)
+        args = (x2, qw1, sw1, b1.float().contiguous(), qw2, sw2, b2.float().contiguous())
+        return w8a8_mlp_fwd(*args) if bits is None else w8a8_mlp_fwd_drop(
+            *args, bits, threshold)
 
     @staticmethod
     def backward(ctx, g):
         x2, w1, b1, w2, bits = ctx.saved_tensors
-        grads = mlp_backward(g, x2, w1, b1, w2, bits, ctx.threshold, ctx.b2_dtype,
-                             approximate="none")
-        return (*grads, None, None)
+        dx, dw1, db1, dw2, db2 = mlp_backward(g, x2, w1, b1, w2, bits, ctx.threshold,
+                                              ctx.b2_dtype or torch.float32,
+                                              approximate="none")
+        return dx, dw1, db1, dw2, None if ctx.b2_dtype is None else db2, None, None, None
 
 
-def w8a8_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0):
+def w8a8_mlp(x, w1, b1, w2, b2, bits=None, threshold: int = 0, tensor=None):
     """tanh-gelu(x . w1^T + b1) [hidden dropout] . w2^T + b2 over the last
     axis of x with both products on int8 codes (rows 9 and 10),
     differentiable in x, w1, b1, w2 and b2 (STE). The weights are quantized
     as given: JAX's int8 MLP quantizes its fp32 parameters. With `bits`
     (x.shape[:-1] + (hidden,), as `stochastic.bits16` draws them) the hidden
-    is dropped where bits < `threshold`."""
+    is dropped where bits < `threshold`. With a `tensor` axis (and b2
+    None), the split mode on this rank's hidden share (w1's rows, w2's
+    columns, the bits' columns): the fp32 partial output without b2, every
+    code and scale the whole call's; its backward is the whole one's but
+    db2 (dx is this share's)."""
     *lead, k = x.shape
     x2 = x.reshape(-1, k).contiguous()
     if bits is not None:
         bits = bits.reshape(x2.shape[0], -1).contiguous()
-    y = _W8A8Mlp.apply(x2, w1, b1, w2, b2, bits, threshold)
+    y = _W8A8Mlp.apply(x2, w1, b1, w2, b2, bits, threshold, tensor)
     return y.reshape(*lead, w2.shape[0])

@@ -161,6 +161,12 @@ class TensorAxis:
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
         return reduce_from_tensor_region(x, self.group)
 
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` replaced in place by its elementwise max over the tensor
+        group (the int8 sites' scales over a split K or hidden)."""
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
+        return x
+
 
 @dataclasses.dataclass(frozen=True)
 class DataAxis:

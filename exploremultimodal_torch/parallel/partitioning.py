@@ -2,16 +2,16 @@
 (counterpart of `exploremultimodal_tpu/parallel/partitioning.py` and of the
 sharding half of JAX's `Trainer.shard_state`).
 
-  dp            `DistributedDataParallel`: parameters and AdamW state
+  dp            `DistributedDataParallel`: parameters and optimizer state
                 replicated, gradients all-reduced (averaged) in buckets
-  zero1         DDP's gradients, AdamW's moments sharded over the `fsdp`
+  zero1         DDP's gradients, the optimizer's state sharded over the `fsdp`
                 axis (`ZeroRedundancyOptimizer` over the port's parameter
                 groups: each process updates its share and broadcasts it)
   fsdp          `fully_shard` (FSDP2) on every block and on the task:
-                parameters, gradients and AdamW's moments sharded over the
+                parameters, gradients and the optimizer's state sharded over the
                 `fsdp` axis (and replicated over `data`, where both are >
                 1), gathered per block for its forward and backward
-  fsdp_offload  fsdp, with AdamW's moments parked in pinned host memory
+  fsdp_offload  fsdp, with the optimizer's state parked in pinned host memory
                 and copied to the device around each update
                 (`train.optim.Optimizer`, `offload`); on a CPU device the
                 state stays where it is, as JAX skips the staging there
@@ -151,7 +151,8 @@ def preset_name(cfg: dict) -> str:
 
 
 def offloads(cfg: dict, device: torch.device) -> bool:
-    """Whether AdamW's state parks in host memory: fsdp_offload on CUDA."""
+    """Whether the optimizer's state parks in host memory: fsdp_offload on
+    CUDA."""
     return bool((cfg.get("parallel") or {}).get("offload_opt_state")) \
         and device.type == "cuda"
 
@@ -195,7 +196,7 @@ def sync_whole_grads(params, group: Any = None) -> None:
 
 
 def zero_group(mesh: Mesh):
-    """The processes that share AdamW's state under zero1: the `fsdp`
+    """The processes that share the optimizer's state under zero1: the `fsdp`
     axis."""
     return mesh.device_mesh[FSDP_AXIS].get_group()
 

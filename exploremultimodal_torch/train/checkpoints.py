@@ -17,8 +17,10 @@ A checkpoint of the port is a directory; a file is a `.pth`, as the JAX
 package tells its orbax directories from `.pth` files. The port does not
 read orbax checkpoints (it cannot import JAX).
 
-`state.pt` holds the fp32 parameters (`VlmoTask.state_dict()`), the AdamW
-state (`torch.optim.AdamW.state_dict()`: its moments and step counts), the
+`state.pt` holds the fp32 parameters (`VlmoTask.state_dict()`), the
+optimizer's state (`train.optim.Optimizer.full_state_dict()`: the torch
+optimizer's state dict, whole, with the rule's name: AdamW's moments and
+step counts, or another rule's entries), the
 step, the ISDA statistics, the momentum encoder's and the eval EMA's trees,
 the negative queues and their pointer (each None where the run has none),
 and the states of both of `TrainState`'s generators, so that a resumed run

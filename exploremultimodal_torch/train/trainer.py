@@ -13,7 +13,8 @@ axis). A step:
   the momentum encoder's ITC features under no_grad, with dropout off ->
   the phase's losses (ITC against the momentum features and the negative
   queues where they are on; VQA with the ISDA statistics carried from
-  step to step) -> backward -> AdamW step with the scheduled learning
+  step to step) -> backward -> the optimizer's step (`train.opt.name`,
+  AdamW by default) with the scheduled learning
   rate -> the momentum and eval EMA updates, each at its own decay -> the
   queues take the full batch's momentum features
 
@@ -222,11 +223,6 @@ class Trainer:
         # JAX's shard_map path (each process's own losses): global_reduce
         # on a data axis of more than one process
         use_gather = c.global_reduce and self.mesh.shape["data"] > 1
-        if self.mesh.tensor_size > 1 and c.quantize != "none":
-            raise NotImplementedError(
-                f"model.quantize={c.quantize} under tensor parallelism is a later slice "
-                "of the port: rows 8-10 quantize each activation row over its whole K "
-                "or hidden, which a tensor rank's share does not hold")
         if self.mesh.tensor_size > 1 and self.preset == "zero1":
             raise ValueError("a tensor axis > 1 takes parallel=tp, fsdp or dp: zero1 "
                              "hands whole moments to the fsdp group")
@@ -239,6 +235,12 @@ class Trainer:
             raise ValueError("global_reduce + ISDA are unsupported together (the "
                              "reference uses them in disjoint phases)")
         m = self.mesh
+        if c.quantize == "w8a8" and m.data_size > 1 and not use_gather:
+            raise NotImplementedError(
+                "model.quantize=w8a8 on a data axis of more than one process: JAX's "
+                "GSPMD step takes quant_dot's one activation scale over the whole global "
+                "batch, which the port does not gather yet (ROADMAP A10); use "
+                "w8a8_pallas (a scale per row) or train.global_reduce=true")
         self.axis = (DataAxis(m.data_group, m.data_rank, m.data_size, not use_gather)
                      if m.data_size > 1 else None)
         # FSDP2 holds the parameters: the fsdp preset, or tp over an fsdp axis

@@ -13,6 +13,7 @@ each gave to `<workdir>/out_<rank>.pt`.
 Imports torch and the port only.
 """
 
+import contextlib
 import os
 import sys
 import time
@@ -32,7 +33,13 @@ from exploremultimodal_torch.parallel import (  # noqa: E402
     global_sum,
     initialize_runtime,
 )
-from exploremultimodal_torch.parallel.partitioning import tensor_split  # noqa: E402
+from exploremultimodal_torch.parallel.partitioning import (  # noqa: E402
+    full,
+    gather_tensor,
+    like,
+    shard_tensor,
+    tensor_split,
+)
 from exploremultimodal_torch.train import checkpoints as ckpt_lib  # noqa: E402
 from exploremultimodal_torch.train.trainer import Trainer  # noqa: E402
 from exploremultimodal_torch.utils.metrics import SmoothedValue  # noqa: E402
@@ -96,9 +103,43 @@ def step_case(case: dict, inputs: dict, rank: int, world: int) -> dict:
         per_neg = given[0].shape[0] // size
         negatives = tuple(n[d * per_neg:(d + 1) * per_neg] for n in given)
     out = {"mesh": (tr.mesh.data_rank, tr.mesh.tensor_rank, tr.preset)}
-    for i in range(case.get("steps", 1)):
-        m = tr.step(batch, negatives=negatives)
-        out[f"metrics_{i}"] = {k: v.detach().clone() for k, v in m.items()}
+    if case.get("resume"):
+        # a checkpoint of this layout, taken mid-run: the steps go on from it
+        ckpt_lib.auto_load(case["resume"], tr.state, cfg)
+    if case.get("load_raises"):
+        # a checkpoint of another optimizer rule
+        try:
+            ckpt_lib.auto_load(case["load_raises"], tr.state, cfg)
+            out["load_error"] = None
+        except ValueError as e:
+            out["load_error"] = str(e)
+        return out
+    if case.get("inject"):
+        # the optimizer alone, on seeded whole gradients given to each
+        # parameter as it is held (its tensor share, then its fsdp shard)
+        opt = tr.state.optimizer
+        for i in range(case["inject"]):
+            opt.zero_grad()
+            whole = seeded_grads(inputs["grad_shapes"], i)
+            for name, p in tr.task.named_parameters():
+                if p.requires_grad:
+                    p.grad = held_like(p, whole[name])
+            opt.step(i)
+    if case.get("logits"):
+        with torch.no_grad():
+            _, _, extra = tr.eval_step(batch, torch.Generator().manual_seed(0))
+        out["logits"] = extra["vqa_logits"].detach().float().clone()
+    codes = CodeRecorder() if case.get("record") else contextlib.nullcontext([])
+    with codes as records:
+        for i in range(0 if case.get("inject") else case.get("steps", 1)):
+            m = tr.step(batch, negatives=negatives)
+            out[f"metrics_{i}"] = {k: v.detach().clone() for k, v in m.items()}
+            if case.get("save_after") == i + 1:
+                out["saved"] = ckpt_lib.save(case["save"], tr.state, cfg, 0)
+    if case.get("record"):
+        out["codes"] = records
+    if case.get("grads"):
+        out["grads"] = whole_grads(tr.task, case["grads"])
     if case["params"]:
         full = ckpt_lib.model_state_dict(tr.task)
         out["params"] = {k: full[k] for k in case["params"]} if rank == 0 else {}
@@ -109,7 +150,7 @@ def step_case(case: dict, inputs: dict, rank: int, world: int) -> dict:
     if tr.state.img_queue is not None:
         out["queue"] = tr.state.img_queue.clone()
         out["queue_ptr"] = torch.tensor(tr.state.queue_ptr)
-    if case.get("save"):
+    if case.get("save") and not case.get("save_after"):
         path = ckpt_lib.save(case["save"], tr.state, cfg, 0)
         out["saved"] = path
     if case.get("load"):
@@ -128,6 +169,74 @@ def step_case(case: dict, inputs: dict, rank: int, world: int) -> dict:
         tr.output_dir = case["submit"]
         out["submission"] = write_vqa_submission(tr)
     return out
+
+
+class CodeRecorder:
+    """A context that records, in call order, every int8 code tensor and
+    scale the quantizers give (`quant_fused.row_quant`,
+    `quant_fused.quantize_weights`, `quant._quantize_int8`), as (name,
+    codes, scale); a call whose result equals the one before is recorded
+    once (the split MLP's second pass quantizes x again)."""
+
+    def __enter__(self) -> list:
+        from exploremultimodal_torch.ops import quant, quant_fused
+
+        self.records: list = []
+        self.saved = [(quant_fused, "row_quant"), (quant_fused, "quantize_weights"),
+                      (quant, "_quantize_int8")]
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in self.saved]
+        for mod, name, fn in self.saved:
+            setattr(mod, name, self._wrap(name, fn))
+        return self.records
+
+    def _wrap(self, name, fn):
+        def recorded(*args, **kwargs):
+            q, s = fn(*args, **kwargs)
+            rec = (name, q.detach().clone(), s.detach().float().reshape(-1).clone())
+            last = self.records[-1] if self.records else None
+            if not (last and last[0] == name and last[1].shape == q.shape
+                    and torch.equal(last[1], rec[1]) and torch.equal(last[2], rec[2])):
+                self.records.append(rec)
+            return q, s
+        return recorded
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def whole_grads(task, names) -> dict:
+    """The gradients of the parameters `names` whole: gathered from their
+    fsdp shards, then over the tensor axis (every process must call)."""
+    named = dict(task.named_parameters())
+    out = {}
+    for name in names:
+        p = named[name]
+        g = full(p.grad)
+        axis = getattr(p, "tensor_axis", None)
+        if axis is not None:
+            parts = [torch.empty_like(g) for _ in range(axis.size)]
+            dist.all_gather(parts, g.contiguous(), group=axis.group)
+            g = gather_tensor(parts, p.tensor_split)
+        out[name] = g.detach().clone()
+    return out
+
+
+def seeded_grads(shapes: dict, step: int) -> dict:
+    """Whole gradients of `shapes` (by torch name, in name order) drawn
+    from a seed of the step: N(0, 0.01^2), the same in every process."""
+    g = torch.Generator().manual_seed(1000 + step)
+    return {name: torch.randn(shapes[name], generator=g) * 0.01 for name in sorted(shapes)}
+
+
+def held_like(p: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """A whole tensor as parameter p is held: its tensor share, then its
+    fsdp shard."""
+    axis = getattr(p, "tensor_axis", None)
+    if axis is not None:
+        whole = shard_tensor(whole, p.tensor_split, axis.rank, axis.size)
+    return like(p, whole)
 
 
 def wait_for(path: str, timeout: float = 180.0) -> dict:

@@ -215,11 +215,18 @@ def _run(tmp: str) -> dict:
     cases["vqa"] = {"overrides": VQA + ["data.batch_size=2", f"exp_dir={tmp}/vqa"],
                     "weights": None, "batch": None, "params": (), "steps": 0,
                     "submit": f"{tmp}/vqa_two"}
-    # int8 under tensor parallelism: refused, naming the later slice
+    # int8 under tensor parallelism: built, no longer refused
     for mode in ("w8a8", "w8a8_pallas"):
         cases[f"int8_{mode}"] = {"overrides": ITC + ["data.batch_size=4", "parallel=tp",
                                                      f"model.quantize={mode}"],
                                  "raises": True}
+    # w8a8's one activation scale on a data axis of two: refused on JAX's
+    # GSPMD step, built on its shard_map step and for the row-scaled mode
+    for tag, extra in (("gspmd", []), ("gr", ["train.global_reduce=true"]),
+                       ("pallas", ["model.quantize=w8a8_pallas"])):
+        cases[f"int8_dp_{tag}"] = {"overrides": ITC + ["data.batch_size=4", "parallel=dp",
+                                                       "model.quantize=w8a8"] + extra,
+                                   "raises": True}
     # accumulation across the two ranks, from JAX's initial state (in_jax.pt)
     cases["accum"] = {"overrides": ACCUM + ["data.batch_size=4", f"exp_dir={tmp}/accum"],
                       "weights": None, "flax": "accum", "batch": "step",
@@ -344,12 +351,27 @@ def test_mesh_that_does_not_cover_the_world_raises():
 @pytest.mark.parametrize("mode", ["w8a8", "w8a8_pallas"])
 def test_int8_under_tensor_parallelism_raises_naming_the_later_slice(run, mode):
     """`model.quantize` other than none on a tensor axis of 2 (parallel=tp
-    over the two ranks): rows 8-10 quantize each activation row over its
-    whole K or hidden, so the combination is refused as a later slice."""
+    over the two ranks) was refused as a later slice; rows 8-10 now have
+    their tensor-split modes, so the trainer builds on both ranks without
+    raising (its steps are held to one process's by
+    tests/test_torch_port_tp_int8.py)."""
     for rank in run["ranks"]:
-        got = rank[f"int8_{mode}"]
-        assert got["type"] == "NotImplementedError" and "later slice" in got["raised"]
-        assert mode in got["raised"]
+        assert rank[f"int8_{mode}"] == {"raised": None}
+
+
+@pytest.mark.parametrize("tag", ["gspmd", "gr", "pallas"])
+def test_w8a8_on_a_data_axis_is_refused_where_jax_takes_the_global_scale(run, tag):
+    """`model.quantize=w8a8` (one activation scale per tensor) under dp on
+    two processes: JAX's GSPMD step takes that scale over the global batch,
+    which the port does not gather, so the trainer refuses it; JAX's
+    shard_map step (`global_reduce`) takes each process's own, as the port
+    does, and `w8a8_pallas` scales each row: both build."""
+    for rank in run["ranks"]:
+        raised = rank[f"int8_dp_{tag}"]
+        if tag == "gspmd":
+            assert raised["type"] == "NotImplementedError" and "A10" in raised["raised"]
+        else:
+            assert raised == {"raised": None}
 
 
 # ------------------------------------------------------------ collectives

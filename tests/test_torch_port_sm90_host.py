@@ -650,9 +650,10 @@ def test_row8_shared_memory_budget():
     """The mirror of the source's layout: x's codes for 128 rows, six ring
     stages of two boxes, four staged y boxes (a pair a warpgroup), the row
     scales, the barriers and the slack fit a block; the constants are the
-    source's."""
+    source's (the whole mode's K 768, the partial mode's 384)."""
     src = MATMUL_SRC.read_text()
-    for const in ("K = 768;", "BM = 128;", "BN = 128;", "KB = 128;", "NS = 6;",
+    for const in ("K_WHOLE = 768;", "K_SHARE = 384;", "BM = 128;", "BN = 128;", "KB = 128;",
+                  "NS = 6;",
                   "BOX = 8192;", "STAGE = 2 * BOX;", "THREADS = 384;"):
         assert f"constexpr int {const}" in src
     for off in ("SCALE_OFF = OUT_OFF + 4 * BOX;", "BAR_OFF = SCALE_OFF + BM * 4;",
