@@ -23,6 +23,9 @@
                                  # the build and phase 28 alone
     python3 chip_smoke.py --tp-int8
                                  # the build and phase 29 alone
+    python3 chip_smoke.py --widths
+                                 # the build, the layouts (phase 3's first
+                                 # check) and phase 30 alone
 
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card's name and power limit, torch and CUDA versions;
@@ -274,9 +277,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      gloo ranks against one process (rows 8 whole and partial and 10 split
      18 times a step, row 9 split on an evaluation batch), and the ranks'
      checkpoint read in one process;
- 30. print the kernel table as one JSON line (rows 3, 4, 6 and 7 with
-     their tp launches; rows 8-10's split modes as entries of their own),
-     the card line, and last {"ok": true, "device": {...}}.
+ 30. the presets' widths (ROADMAP A9): rows 6 and 7 at vlmo_tiny's and
+     vlmo_small's widths (K = N = 192 and 384) at the serving and
+     finetune_vqa M within MLP_ATOL; row 8 bit for bit at vlmo_large's qkv
+     and proj (K 1,024) at the serving M, at vlmo_tiny's and vlmo_small's,
+     and at every tensor share of vlmo_base and vlmo_large at T = 2 and 4
+     (qkv's columns whole, N down to 576; proj's rows partial, K down to
+     192) with the shares summed against the whole call; rows 9 and 10 bit
+     for bit at vlmo_large's widths (K = N = 1,024, hidden 4,096; the
+     second product in two parts) at the serving and step M and split at
+     hidden 2,048; each timed beside its plain version and library chain;
+     then vlmo_large pretrain_mum at batch 16 (rows 3 and 4 108 times a
+     step at 16 heads, the MLP on the erf chain: no row 6 or 7; a warm-up
+     and TRAIN_STEPS timed steps, peak memory) with a batch-2 step against
+     the CPU at CHECK_DEPTH; vlmo_large serving at w8a8_pallas (rows 8, 9
+     and 1 72, 36 and 36 times a request; one request's rows against the
+     CPU within W8A8_E2E_ATOL) and its int8 finetune_vqa step (rows 8, 10,
+     3 and 4 72, 36, 36 and 36 times a step); vlmo_tiny and vlmo_small
+     serving (rows 1 and 6 18 times a request, against the CPU) and
+     finetune_vqa with mlp_impl=fused (rows 7, 3 and 4 18 times a step, a
+     batch-2 step against the CPU);
+ 31. print the kernel table as one JSON line (rows 3, 4, 6 and 7 with
+     their tp launches; rows 8-10's split modes as entries of their own;
+     rows 6-10 with their phase-30 widths, each width's largest shape with
+     its launches there), the card line, and last {"ok": true, "device":
+     {...}}.
 It imports nothing of JAX. The bounds use the H100 SXM data-sheet peaks.
 Kernel times are device times: `time_ms` queues the timed calls behind a
 device-side sleep, so the host's launch overhead does not enter them.
@@ -352,7 +377,9 @@ from exploremultimodal_torch.ops.flash_attention import (
     stream_smem,
 )
 from exploremultimodal_torch.ops.mlp_fused import CLUSTER as MLP_CLUSTER
+from exploremultimodal_torch.ops.mlp_fused import sm90_smem as fused_sm90_smem
 from exploremultimodal_torch.ops.mlp_fused import (
+    fits_vmem,
     fused_mlp,
     fused_mlp_fwd,
     fused_mlp_fwd_drop,
@@ -364,10 +391,14 @@ from exploremultimodal_torch.ops.mlp_fused import (
 from exploremultimodal_torch.ops.preprocess import normalize_image
 from exploremultimodal_torch.ops.quant import _quantize_int8, quant_dot
 from exploremultimodal_torch.ops.quant_fused import (
+    MATMUL_K_MAX,
+    MATMUL_K_MIN,
+    MLP_WIDTHS,
     int8_product,
     matmul_grid,
     matmul_smem,
     mlp_grid,
+    mlp_layout,
     mlp_smem,
     mlp_splits,
     quantize_weights,
@@ -829,16 +860,18 @@ def text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
 def check_layouts() -> dict:
     """The shared memory each sm90 kernel with a layout mirrored on the
     host reports for itself against that mirror (rows 1, 2/4 at every key
-    width up to SM90_BWD_MAX_N, the streamed kernel of rows 1, 3 and 5, 8,
-    9 and 10), all within the 232,448 bytes a block may use."""
+    width up to SM90_BWD_MAX_N, the streamed kernel of rows 1, 3 and 5, 6
+    and 7, 8 at every K it takes, 9 and 10 at every preset's width), all
+    within the 232,448 bytes a block may use."""
     fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int],
                            "flash_attention_fwd_sm90_smem")
     stream_smem_fn = _build.load("flash_attention_long_sm90", [],
                                  "flash_attention_long_sm90_smem")
     bwd_smem = _build.load("flash_attention_bwd_sm90", [ctypes.c_int] * 2,
                            "flash_attention_bwd_sm90_smem")
-    mlp_smem_fn = _build.load("w8a8_mlp_sm90", [ctypes.c_int], "w8a8_mlp_sm90_smem")
-    matmul_smem_fn = _build.load("w8a8_matmul_sm90", [], "w8a8_matmul_sm90_smem")
+    mlp_smem_fn = _build.load("w8a8_mlp_sm90", [ctypes.c_int] * 2, "w8a8_mlp_sm90_smem")
+    matmul_smem_fn = _build.load("w8a8_matmul_sm90", [ctypes.c_int], "w8a8_matmul_sm90_smem")
+    fused_smem_fn = _build.load("fused_mlp_sm90", [ctypes.c_int], "fused_mlp_sm90_smem")
     got = {f"flash_attention_fwd_sm90 nt={nt}": (fwd_smem(nt), fwd_sm90_smem(nt))
            for nt in range(16, 257, 16)}
     for r, role in enumerate(SM90_BWD_ROLES):
@@ -846,9 +879,13 @@ def check_layouts() -> dict:
                     (bwd_smem(nt, r), bwd_sm90_layout(nt, role)["smem"])
                     for nt in range(16, SM90_BWD_MAX_N + 1, 16)})
     got["flash_attention_long_sm90"] = (stream_smem_fn(), stream_smem())
-    got["w8a8_matmul_sm90"] = (matmul_smem_fn(), matmul_smem())
-    got["w8a8_mlp_sm90"] = (mlp_smem_fn(0), mlp_smem())
-    got["w8a8_mlp_sm90 drop"] = (mlp_smem_fn(1), mlp_smem(drop=True))
+    got.update({f"w8a8_matmul_sm90 k={k}": (matmul_smem_fn(k), matmul_smem(k))
+                for k in range(MATMUL_K_MIN, MATMUL_K_MAX + 1, 64)})
+    for k in MLP_WIDTHS:
+        got[f"w8a8_mlp_sm90 k={k}"] = (mlp_smem_fn(k, 0), mlp_smem(False, k))
+        got[f"w8a8_mlp_sm90 drop k={k}"] = (mlp_smem_fn(k, 1), mlp_smem(True, k))
+    got["fused_mlp_sm90"] = (fused_smem_fn(0), fused_sm90_smem(False))
+    got["fused_mlp_sm90 drop"] = (fused_smem_fn(1), fused_sm90_smem(True))
     for name, (kernel, host) in got.items():
         require(kernel == host <= 232448,
                 f"{name}: the kernel takes {kernel} bytes of shared memory, its host "
@@ -1524,16 +1561,19 @@ def img_txt_calls(cfg: VlmoConfig) -> int:
 def serve(tag: str, cfg_dict: dict, cfg: VlmoConfig, card: str, expected: dict,
           requests: int = N_REQUESTS, e2e_atol: float | None = E2E_ATOL,
           batch: int = BATCH, cpu_check: tuple[int, int] = (CPU_CHECK_REQUESTS,
-                                                            CPU_CHECK_ROWS)):
+                                                            CPU_CHECK_ROWS),
+          state: dict | None = None):
     """`requests` VQA requests of `batch` rows through `Predictor.vqa_logits`
-    on the card, seeded weights (seed 0) and requests; every kernel's
-    launches counted against `expected` (per request). With `e2e_atol`, the
-    first `cpu_check` = (requests, rows) are compared with the CPU plain
-    path. Returns the launches and the logits."""
+    on the card, seeded weights (seed 0, or the given `state`) and
+    requests; every kernel's launches counted against `expected` (per
+    request). With `e2e_atol`, the first `cpu_check` = (requests, rows) are
+    compared with the CPU plain path. Returns the launches and the
+    logits."""
     t0 = time.perf_counter()
-    state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
+    if state is None:
+        state = build_model(cfg_dict, device="cpu", seed=0).state_dict()
     gpu = Predictor(cfg_dict, state, max_batch=batch, device="cuda")
-    print(f"{tag}: vlmo_base weights (seed 0) ready in "
+    print(f"{tag}: {cfg_dict['model']['name']} weights (seed 0) ready in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     reqs = make_requests(cfg, np.random.default_rng(0), requests, batch)
 
@@ -1874,15 +1914,18 @@ def require_launches(tag: str, launches: dict, expected: dict, runs: int) -> Non
 TIMED: dict[str, dict] = {}
 
 
-def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict, unmoved=()) -> dict:
-    """A training step at vlmo_base, batch 32: one warm-up step, then
-    TRAIN_STEPS steps timed one by one, each with a synchronise around it,
-    every kernel's launches counted against `expected` (per step), the
-    `checked` parameters required to move and the `unmoved` ones (fixed or
-    frozen by the phase) required to stay."""
+def timed_phase(tag: str, cfg_dict: dict, checked, expected: dict, unmoved=(),
+                trainer: Trainer | None = None) -> dict:
+    """A training step at vlmo_base, batch 32 (or the config's model and
+    batch): one warm-up step, then TRAIN_STEPS steps timed one by one, each
+    with a synchronise around it, every kernel's launches counted against
+    `expected` (per step), the `checked` parameters required to move and
+    the `unmoved` ones (fixed or frozen by the phase) required to stay; on
+    a new trainer of `cfg_dict`, or the given one."""
     t0 = time.perf_counter()
-    trainer = Trainer(cfg_dict, device="cuda")
-    print(f"{tag}: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
+    if trainer is None:
+        trainer = Trainer(cfg_dict, device="cuda")
+        print(f"{tag}: Trainer ready in {time.perf_counter() - t0:.1f} s", flush=True)
     params = dict(trainer.task.named_parameters())
     before = {k: params[k].detach().clone() for k in (*checked, *unmoved)}
     trainer.step()
@@ -4075,8 +4118,9 @@ def tp_step_phase(card: str, tag: str, tmp: str) -> dict:
     m = one.step(batch, **kw)
     want = {"losses": losses_of(m), "grads": {k: p.grad.float().cpu() for k, p in
                                               one.task.named_parameters() if k in names}}
-    del one
-    torch.cuda.empty_cache()
+    if mum:  # finetune_vqa's trainer reads the ranks' checkpoint back below
+        del one
+        torch.cuda.empty_cache()
     torch.save({"overrides": overrides, "weights": weights, "batch": batch, "step_kwargs": kw,
                 "params": names}, os.path.join(tmp, f"in_{tag}.pt"))
     t0 = time.perf_counter()
@@ -4124,18 +4168,26 @@ def tp_step_phase(card: str, tag: str, tmp: str) -> dict:
     res["losses_tp_one"] = {k: (got[0]["losses"][k], w) for k, w in want["losses"].items()}
     if not mum:
         # the checkpoint the two ranks wrote (rank 0, the whole torch
-        # layout), read by one process: its logits are the ranks'
-        reader = Trainer(load_config(overrides), device="cuda")
+        # layout), read by the one process's trainer: its logits are the
+        # ranks'. Its floating tensors are set to NaN first, so a tensor the
+        # load missed cannot keep this trainer's stepped values unseen
+        reader = one
+        floats = [v for v in reader.task.state_dict().values() if v.is_floating_point()]
+        with torch.no_grad():
+            for v in floats:
+                v.fill_(float("nan"))
         restored = ckpt_lib.auto_load(os.path.join(tmp, f"ckpt_{tag}"), reader.state,
                                       reader.cfg)
         require(restored is not None and reader.state.step == 1 + TP_STEPS,
                 f"tp checkpoint: restored {restored}, step {reader.state.step}")
+        missed = sum(not bool(torch.isfinite(v).all()) for v in floats)
+        require(missed == 0, f"tp checkpoint: {missed} of {len(floats)} tensors not loaded")
         _, _, extra = reader.eval_step(batch, torch.Generator(device="cuda").manual_seed(0))
         diff = (extra["vqa_logits"].float().cpu() - got[0]["eval_logits"]).abs().max().item()
         atol = W8A8_E2E_ATOL if int8 else E2E_ATOL
         require(diff <= atol, f"tp checkpoint: logits {diff} apart, beyond {atol}")
         res["checkpoint_logits_max_abs_diff"] = diff
-        del reader
+        del reader, one
         torch.cuda.empty_cache()
     print(f"tp_{tag}: " + json.dumps(res), flush=True)
     return res
@@ -4168,6 +4220,10 @@ def tp_only(card: str, dev) -> int:
 
 
 # ---- phase 28: the optimizer menu
+# one pretrain_mum trainer for the whole phase, at hidden dropout and
+# DropPath 0 (attention dropout on) as its two-rank check needs: the rules'
+# gradients and the timed steps come from it too
+OPTIM_OVERRIDES = TRAIN_OVERRIDES + ["model.drop_rate=0.0", "model.drop_path_rate=0.0"]
 OPTIM_RULES = tuple(sorted(OPTIM_RULE_TABLE)) + ("lookahead_adamw",)
 OPTIM_LOOKAHEAD_UPDATES = 7  # lookahead syncs at the 6th
 OPTIM_TIMED = ("lamb", "adafactor")
@@ -4362,7 +4418,38 @@ def update_gaps(got: dict, want: dict, before: dict) -> dict:
     return {"rel_l2": rel, "size": size}
 
 
-def optim_two_rank_phase(card: str, probe: dict, tmp: str) -> dict:
+def optim_two_rank_reference(trainer: Trainer) -> dict:
+    """The one-process side of phase 28's two-rank check, from `trainer`
+    (OPTIM_OVERRIDES) before any other step: its weights, one batch with
+    fixed ITM negatives and MIM labels, the step's losses and the named
+    gradients, and each rule of OPTIM_TIMED applied whole to the step's
+    gradients (`rule_updates`); then the trainer's parameters are put back
+    and their gradients dropped, for the rest of the phase."""
+    from exploremultimodal_torch.parallel.partitioning import local
+
+    b = TRAIN_BATCH
+    negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
+    batch = trainer.next_batch()
+    labels = trainer.model_batch(batch)["mim_labels"].cpu()
+    weights = {k: v.cpu() for k, v in trainer.task.state_dict().items()}
+    named = {k: p for k, p in trainer.task.named_parameters() if p.requires_grad}
+    before = {k: p.detach().clone() for k, p in named.items()}
+    m = trainer.step(batch, negatives=negatives, mim_labels=labels)
+    grads = {k: p.grad.detach().clone() for k, p in named.items()}
+    want = {"losses": losses_of(m),
+            "grads": {k: grads[k].float().cpu() for k in TWO_RANK_PARAMS},
+            "params": rule_updates(named, before, grads, OPTIM_OVERRIDES,
+                                   trainer.steps_per_epoch, ("whole",),
+                                   lambda t: t.float().cpu())}
+    with torch.no_grad():
+        for k, p in named.items():
+            local(p).copy_(before[k])
+            p.grad = None
+    return {"want": want, "weights": weights, "batch": batch, "negatives": negatives,
+            "labels": labels}
+
+
+def optim_two_rank_phase(card: str, probe: dict, tmp: str, ref: dict) -> dict:
     """lamb and adafactor at fsdp on two gloo ranks of this script on the
     one card (2 x 16 rows; `two_rank_child`, one pair of ranks for both
     rules) against one process at 32 on the same weights, batch, ITM
@@ -4371,7 +4458,8 @@ def optim_two_rank_phase(card: str, probe: dict, tmp: str) -> dict:
     applied to the step's gradients (`rule_updates`), the update held to
     one process's within OPTIM_TWO_RANK_REL_L2 (relative L2) and the
     rule's OPTIM_TWO_RANK_SIZE (each shard's part's size), and the control
-    (the leaf statistics of each shard alone) required outside them. Where gloo
+    (the leaf statistics of each shard alone) required outside them; the
+    one process's side is `ref` (`optim_two_rank_reference`). Where gloo
     cannot run fsdp's collectives on CUDA tensors, says why."""
     gloo = probe["gloo"] if isinstance(probe["gloo"], dict) else {}
     ops = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor")
@@ -4380,25 +4468,10 @@ def optim_two_rank_phase(card: str, probe: dict, tmp: str) -> dict:
         print(f"optim_two_rank: left to the CPU tests (tests/test_torch_port_optim_ranks.py): "
               f"{why}", flush=True)
         return {"ran": [], "why": why, "card": card}
-    b = TRAIN_BATCH
-    negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
-    base = TRAIN_OVERRIDES + ["model.drop_rate=0.0", "model.drop_path_rate=0.0"]
-    one = Trainer(load_config(base), device="cuda")
-    batch = one.next_batch()
-    labels = one.model_batch(batch)["mim_labels"].cpu()
-    weights = {k: v.cpu() for k, v in one.task.state_dict().items()}
-    named = {k: p for k, p in one.task.named_parameters() if p.requires_grad}
-    before = {k: p.detach().clone() for k, p in named.items()}
-    m = one.step(batch, negatives=negatives, mim_labels=labels)
-    grads = {k: p.grad.detach().clone() for k, p in named.items()}
-    want = {"losses": losses_of(m),
-            "grads": {k: grads[k].float().cpu() for k in TWO_RANK_PARAMS},
-            "params": rule_updates(named, before, grads, base, one.steps_per_epoch,
-                                   ("whole",), lambda t: t.float().cpu())}
-    del one, named, before, grads
-    torch.cuda.empty_cache()
-    torch.save({"overrides": base, "weights": weights, "batch": batch, "negatives": negatives,
-                "mim_labels": labels, "rules": True}, os.path.join(tmp, "in.pt"))
+    want, weights = ref["want"], ref["weights"]
+    torch.save({"overrides": OPTIM_OVERRIDES, "weights": weights, "batch": ref["batch"],
+                "negatives": ref["negatives"], "mim_labels": ref["labels"], "rules": True},
+               os.path.join(tmp, "in.pt"))
     t0 = time.perf_counter()
     port = free_port()
     require_ranks(spawn_ranks([["--two-rank", str(r), str(port), "fsdp", tmp]
@@ -4439,10 +4512,12 @@ def optim_two_rank_phase(card: str, probe: dict, tmp: str) -> dict:
 
 
 def optim_phase(card: str, dev, probe: dict | None = None) -> dict:
-    """Phase 28: every rule on one step's gradients, card against CPU;
+    """Phase 28 on one trainer (OPTIM_OVERRIDES): the two-rank check's
+    one-process step, every rule on a step's gradients, card against CPU;
     lamb's and adafactor's timed steps; both at fsdp on two gloo ranks."""
     t0 = time.perf_counter()
-    trainer = Trainer(load_config(TRAIN_OVERRIDES), device="cuda")
+    trainer = Trainer(load_config(OPTIM_OVERRIDES), device="cuda")
+    ref = optim_two_rank_reference(trainer)
     out = {"rules": optim_rules_phase(card, trainer)}
     elapsed("phase 28 rules")
     out["timed"] = optim_timed_phase(card, trainer)
@@ -4451,7 +4526,7 @@ def optim_phase(card: str, dev, probe: dict | None = None) -> dict:
     elapsed("phase 28 timed steps")
     tmp = tempfile.mkdtemp(prefix="emm_optim_")
     try:
-        out["two_rank"] = optim_two_rank_phase(card, probe or probe_two_ranks(tmp), tmp)
+        out["two_rank"] = optim_two_rank_phase(card, probe or probe_two_ranks(tmp), tmp, ref)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"phase 28: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4660,6 +4735,445 @@ def tp_int8_only(card: str, dev) -> int:
     return 0
 
 
+# ---- phase 30: the presets' widths on the card's kernels
+# vlmo_large (K = 1,024, 16 heads, 24 layers) on its documented pretraining
+# scale (the JAX package's `vlmo_large_pretrain` bench, batch 16) with its
+# bf16 MLP on the erf chain (`fits_vmem` rejects 1,024 / 4,096 there, as in
+# JAX), int8 (`w8a8_pallas`) serving and finetune_vqa on rows 8, 9 and 10 at
+# its widths; vlmo_tiny and vlmo_small (K = 192 and 384) serving and
+# finetune_vqa on rows 6 and 7 (`mlp_impl=fused`)
+LARGE_TRAIN_BATCH = 16
+LARGE_TRAIN_OVERRIDES = [
+    "model=vlmo_large", "train=pretrain_mum", "compute_dtype=bfloat16",
+    "train.datasets=[synthetic]", "train.discrete_vae_type=random",
+    f"data.batch_size={LARGE_TRAIN_BATCH}", "model.mlp_impl=xla",
+]
+# the batch-2 step against the CPU at vlmo_base's LayerScale: at the
+# preset's 1e-5 every block's output is scaled to nothing, the batch's ITC
+# features agree to 3e-6 relative, the ITC loss sits at ln 2 and
+# itc_temp's gradient is fp32 noise (2e-8 on the card, -7e-9 on the CPU,
+# against a closed form of 4.5e-10, on an H100), and the check
+# would hold the blocks' kernels to nothing
+LARGE_CHECK = ["model.init_values=0.1"]
+NARROW_PRESETS = ("vlmo_tiny", "vlmo_small")
+# row 8's tensor shares: qkv's columns (N = 3 K / T, the whole mode) and
+# proj's rows (K / T, the partial mode) of vlmo_base and vlmo_large at T =
+# 2 and 4
+SHARE_WIDTHS, SHARE_AXES = (768, 1024), (2, 4)
+# rows 9 and 10 split over two shares of the hidden (2,048 of 4,096 at
+# vlmo_large)
+HIDDEN_SHARES = 2
+
+
+def preset_overrides(overrides: list[str], model: str, *extra: str) -> list[str]:
+    """`overrides` with their model group replaced by `model`."""
+    return [f"model={model}" if o.startswith("model=") else o for o in overrides] + list(extra)
+
+
+def at_last_block(names, depth: int) -> tuple:
+    """vlmo_base's parameter names of its last block (11) at a preset of
+    `depth` blocks."""
+    return tuple(n.replace("transformer.blocks.11.", f"transformer.blocks.{depth - 1}.")
+                 for n in names)
+
+
+def width_weights(g, dev, k: int, h: int, dtype=torch.bfloat16):
+    """Seeded (w1 (h, k), b1, w2 (k, h), b2): weights in `dtype`, fp32
+    biases, at the MLP widths of a preset."""
+    w1 = (torch.randn((h, k), generator=g, device=dev) * 0.02).to(dtype)
+    w2 = (torch.randn((k, h), generator=g, device=dev) * 0.02).to(dtype)
+    b1 = torch.randn(h, generator=g, device=dev) * 0.02
+    b2 = torch.randn(k, generator=g, device=dev) * 0.02
+    return w1, b1, w2, b2
+
+
+def check_widths_bf16_mlp(dev) -> list[dict]:
+    """Rows 6 and 7 at vlmo_tiny's and vlmo_small's widths (K = N = 192 and
+    384, hidden 4x): row 6 at the serving M of a batch-64 request, row 7 at
+    the finetune_vqa step's M (threshold of drop_rate 0.1), each against
+    its plain version within MLP_ATOL / MLP_RTOL and timed beside it and
+    the library chain (bf16 linear, tanh gelu[, where], linear)."""
+    g = torch.Generator(device=dev).manual_seed(30)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t = MLP_DROP_THRESHOLDS[-1]
+    rows = []
+    for model in NARROW_PRESETS:
+        cfg = VlmoConfig.from_config(load_config([f"model={model}"]))
+        k, h = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+        w1, b1, w2, b2 = width_weights(g, dev, k, h)
+        b1h, b2h = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
+        for name, ms in (("fused_mlp_fwd", serve_rows(cfg)), ("fused_mlp_fwd_drop",
+                                                            vqa_mlp_rows(cfg))):
+            drop = name == "fused_mlp_fwd_drop"
+            kern = fused_mlp_fwd_drop if drop else fused_mlp_fwd
+            plain = fused_mlp_fwd_drop_plain if drop else fused_mlp_fwd_plain
+            for m in ms:
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g,
+                                     device=dev)
+                extra = (bits, t) if drop else ()
+                y, ref = kern(x, w1, b1, w2, b2, *extra), plain(x, w1, b1, w2, b2, *extra)
+                torch.cuda.synchronize()
+                ok, err = within(y, ref, MLP_ATOL, MLP_RTOL)
+                require(ok, f"{name} {model} M={m}: max|err| {err} beyond atol {MLP_ATOL} "
+                        f"+ rtol {MLP_RTOL}")
+
+                def library():
+                    hh = F.gelu(F.linear(x, w1, b1h), approximate="tanh")
+                    if drop:
+                        hh = torch.where(keep16(bits, t), hh * keep_scale16(t), 0.0)
+                    return F.linear(hh, w2, b2h)
+
+                nbytes = (2 * (m * k + h * k + k * h + m * k) + 4 * (h + k)
+                          + (2 * m * h if drop else 0))
+                bound_ms, bound_by = bound(nbytes, 2 * m * 2 * k * h)
+                rows.append({
+                    "name": name, "model": model, "shape": f"M={m} K={k} H={h} N={k}",
+                    "threshold": t if drop else 0,
+                    "hidden_splits": hidden_splits(m, h, sms), "max_abs_err": err,
+                    "ms": time_ms(lambda: kern(x, w1, b1, w2, b2, *extra)),
+                    "plain_ms": time_ms(lambda: plain(x, w1, b1, w2, b2, *extra), iters=5),
+                    "library_ms": time_ms(library),
+                    "bound_ms": bound_ms, "bound_by": bound_by})
+                del x, bits, y, ref
+    return rows
+
+
+def check_widths_matmul(dev) -> list[dict]:
+    """Row 8 bit for bit against its plain version: vlmo_large's qkv (1,024
+    -> 3,072) and proj (1,024 -> 1,024) at the serving M of a batch-64
+    request, vlmo_tiny's and vlmo_small's at the largest one; then the
+    tensor shares of vlmo_base and vlmo_large at T = 2 and 4 at the
+    finetune_vqa step's largest M: qkv's columns in the whole mode (N 3 K /
+    T: 576 at vlmo_base and T = 4, a 64-column tail) equal to the whole
+    call's columns, proj's rows (K / T, down to 192) in the partial mode at
+    the rows' absmax over the whole K, the shares summed against the whole
+    plain call within a bf16 ulp. Each timed beside its plain version, the
+    `torch._int_mm` chain (`library_ms`) and the bf16 linear."""
+    g = torch.Generator(device=dev).manual_seed(31)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = []
+
+    def timed(name, model, shape, x, qw, sw, w, on_path, amax=None):
+        m, k = x.shape
+        n = qw.shape[0]
+        partial = amax is not None
+        kern, plain = ((lambda: w8a8_matmul_partial(x, qw, sw, amax)),
+                       (lambda: w8a8_matmul_partial_plain(x, qw, sw, amax))) if partial else (
+            (lambda: w8a8_matmul(x, qw, sw)), (lambda: w8a8_matmul_plain(x, qw, sw)))
+        y, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = (y.float() - ref.float()).abs().max().item()
+        require(torch.equal(y, ref), f"{name} {shape}: max|err| {err}, not bit for bit "
+                "with its plain version")
+        nbytes = 2 * m * k + n * k + 4 * n + (4 * m + 4 * m * n if partial else 2 * m * n)
+        bound_ms, bound_by = bound(nbytes, 2 * m * k * n, PEAK_INT8_OPS)
+        rows.append({
+            "name": name, "model": model, "shape": shape, "on_path": on_path,
+            "grid": list(matmul_grid(m, n, sms)), "max_abs_err": err,
+            "ms": time_ms(kern), "plain_ms": time_ms(plain, iters=5),
+            "library_ms": time_ms((lambda: int_mm_rows_at(x, qw, sw, amax)) if partial
+                                  else (lambda: int_mm_rows(x, qw, sw))),
+            "bf16_ms": time_ms(lambda: F.linear(x, w)),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        return y
+
+    for model in ("vlmo_large",) + NARROW_PRESETS:
+        cfg = VlmoConfig.from_config(load_config([f"model={model}"]))
+        k = cfg.embed_dim
+        ms = serve_rows(cfg) if model == "vlmo_large" else serve_rows(cfg)[-1:]
+        for n in (k, 3 * k):
+            w = (torch.randn((n, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+            qw, sw = quantize_weights(w)
+            for m in ms:
+                x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+                timed("w8a8_matmul", model, f"M={m} K={k} N={n}", x, qw, sw, w,
+                      model == "vlmo_large")
+    m = vqa_mlp_rows(VlmoConfig.from_config(load_config(VQA_OVERRIDES)))[-1]
+    for k in SHARE_WIDTHS:
+        model = "vlmo_base" if k == 768 else "vlmo_large"
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        amax = x.float().abs().amax(1)
+        wq = (torch.randn((3 * k, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        w = (torch.randn((k, k), generator=g, device=dev) * 0.02).to(torch.bfloat16)
+        whole_q = w8a8_matmul_plain(x, *quantize_weights(wq))
+        qw, sw = quantize_weights(w)
+        whole = w8a8_matmul_plain(x, qw, sw)
+        wmax = w.float().abs().amax(1)
+        for t in SHARE_AXES:
+            part = k // t
+            cols = torch.cat([torch.arange(j * k, j * k + part, device=dev) for j in range(3)])
+            wq_t = wq[cols].contiguous()
+            yq = timed("w8a8_matmul", model, f"qkv share M={m} K={k} N={3 * part} of {3 * k} "
+                       f"T={t}", x, *quantize_weights(wq_t), wq_t, False)
+            require(torch.equal(yq, whole_q[:, cols]),
+                    f"qkv share K={k} T={t}: not the whole call's columns")
+            parts = []
+            for r in range(t):
+                sl = slice(r * part, (r + 1) * part)
+                w_t = w[:, sl].contiguous()
+                qw_t, sw_t = quantize_weights(w_t, wmax)
+                x_t = x[:, sl].contiguous()
+                if r == 0:  # timed; the other shares checked alone
+                    parts.append(timed("w8a8_matmul_partial", model,
+                                       f"proj share M={m} K={part} of {k} N={k} T={t}",
+                                       x_t, qw_t, sw_t, w_t, False, amax))
+                    continue
+                parts.append(w8a8_matmul_partial(x_t, qw_t, sw_t, amax))
+                require(torch.equal(parts[-1], w8a8_matmul_partial_plain(x_t, qw_t, sw_t, amax)),
+                        f"proj share {r} K={k} T={t}: not bit for bit with its plain version")
+            ok, err = within(torch.stack(parts).sum(0).to(torch.bfloat16), whole,
+                             W8A8_ATOL, W8A8_RTOL)
+            require(ok, f"proj shares K={k} T={t}: summed {err} from the whole call")
+            rows[-1]["summed_err"] = err
+        del x, whole, whole_q
+    return rows
+
+
+def check_widths_w8a8_mlp(dev) -> list[dict]:
+    """Rows 9 and 10 at every width of MLP_WIDTHS but vlmo_base's 768 (K =
+    N = 1,024 at vlmo_large, 192 and 384 at vlmo_tiny and vlmo_small,
+    hidden 4x), bit for bit with their plain versions: row 9 at the serving
+    M of a batch-64 request, row 10 at the finetune_vqa step's M (threshold
+    of drop_rate 0.1), every M at vlmo_large and the smallest and largest
+    (a cluster pair splitting the hidden, and none) at the narrow widths;
+    then their split modes on HIDDEN_SHARES shares (hidden 2,048 at
+    vlmo_large) at the step's largest M: each share's row absmax equal to
+    its plain version's, their maximum giving each share's fp32 partial
+    output, equal to its plain version's, the shares summed plus b2
+    against the whole plain call (W8A8_ATOL, W8A8_RTOL). Each timed beside
+    its plain version, the `torch._int_mm` chain and the bf16 chain."""
+    g = torch.Generator(device=dev).manual_seed(32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    t = MLP_DROP_THRESHOLDS[-1]
+    rows = []
+    for model in ("vlmo_large",) + NARROW_PRESETS:
+        cfg = VlmoConfig.from_config(load_config([f"model={model}"]))
+        k, h = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
+        require(k in MLP_WIDTHS and k != 768, f"{model}: width {k}")
+        large = model == "vlmo_large"
+        rows += w8a8_mlp_width_rows(g, dev, sms, t, model, k, h, large,
+                                    serve_rows(cfg) if large else serve_rows(cfg)[::2],
+                                    vqa_mlp_rows(cfg) if large else vqa_mlp_rows(cfg)[::2],
+                                    vqa_mlp_rows(cfg)[-1])
+    return rows
+
+
+def w8a8_mlp_width_rows(g, dev, sms: int, t: int, model: str, k: int, h: int,
+                        on_path: bool, serve_ms, step_ms, split_m: int) -> list[dict]:
+    """check_widths_w8a8_mlp at one preset's widths (K = N = k, hidden h):
+    rows 9 at `serve_ms`, 10 at `step_ms`, and both split at `split_m`."""
+    w1, b1, w2, b2 = width_weights(g, dev, k, h, torch.float32)
+    args = (*quantize_weights(w1), b1, *quantize_weights(w2), b2)
+    w1h, w2h, b1h, b2h = w1.to(torch.bfloat16), w2.to(torch.bfloat16), b1.bfloat16(), b2.bfloat16()
+    rows = []
+    for name, ms in (("w8a8_mlp_fwd", serve_ms), ("w8a8_mlp_fwd_drop", step_ms)):
+        drop = name == "w8a8_mlp_fwd_drop"
+        kern = w8a8_mlp_fwd_drop if drop else w8a8_mlp_fwd
+        plain = w8a8_mlp_fwd_drop_plain if drop else w8a8_mlp_fwd_plain
+        for m in ms:
+            x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+            bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g,
+                                 device=dev)
+            extra = (bits, t) if drop else ()
+            y, ref = kern(x, *args, *extra), plain(x, *args, *extra)
+            torch.cuda.synchronize()
+            err = (y.float() - ref.float()).abs().max().item()
+            require(torch.equal(y, ref), f"{name} {model} M={m}: max|err| {err}, not bit "
+                    "for bit with its plain version")
+
+            def bf16_chain():
+                hh = F.gelu(F.linear(x, w1h, b1h), approximate="tanh")
+                if drop:
+                    hh = torch.where(keep16(bits, t), hh * keep_scale16(t), 0.0)
+                return F.linear(hh, w2h, b2h)
+
+            nbytes = 2 * m * k + 2 * h * k + 8 * (h + k) + 2 * m * k + (2 * m * h if drop else 0)
+            bound_ms, bound_by = bound(nbytes, 2 * m * 2 * k * h, PEAK_INT8_OPS)
+            splits = mlp_splits(m, h, sms)
+            rows.append({
+                "name": name, "model": model, "shape": f"M={m} K={k} H={h} N={k}",
+                "on_path": on_path, "threshold": t if drop else 0,
+                "parts": mlp_layout(k)["parts"], "grid": [mlp_grid(m, splits), splits],
+                "max_abs_err": err,
+                "ms": time_ms(lambda: kern(x, *args, *extra)),
+                "plain_ms": time_ms(lambda: plain(x, *args, *extra), iters=5),
+                "library_ms": time_ms(lambda: int_mm_mlp(x, *args, *extra)),
+                "bf16_ms": time_ms(bf16_chain), "bound_ms": bound_ms, "bound_by": bound_by})
+            del x, bits, y, ref
+    m, hs = split_m, h // HIDDEN_SHARES
+    qw1, sw1 = args[:2]
+    w2max = w2.abs().amax(1)
+    for drop in (False, True):
+        x = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+        bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g, device=dev)
+        split = w8a8_mlp_fwd_drop_split if drop else w8a8_mlp_fwd_split
+        shares = []
+        for r in range(HIDDEN_SHARES):
+            cols = slice(r * hs, (r + 1) * hs)
+            qw2_t, sw2_t = quantize_weights(w2[:, cols].contiguous(), w2max)
+            ex = (bits[:, cols].contiguous(), t) if drop else ()
+            shares.append(((x, qw1[cols].contiguous(), sw1[cols].contiguous(),
+                            b1[cols].contiguous(), qw2_t, sw2_t), ex))
+        plain_amax = [w8a8_mlp_amax_plain(*a[:4], *ex) for a, ex in shares]
+        amax = torch.stack(plain_amax).amax(0)
+        seen = []
+
+        def reduce_max(a):
+            seen.append(a.clone())
+            return torch.maximum(a, amax, out=a)
+
+        parts = [split(*a, *ex, reduce_max) for a, ex in shares]
+        refs = [w8a8_mlp_partial_plain(*a, amax, *ex) for a, ex in shares]
+        torch.cuda.synchronize()
+        exact = (all(torch.equal(s_, p_) for s_, p_ in zip(seen, plain_amax))
+                 and all(torch.equal(p_, r_) for p_, r_ in zip(parts, refs)))
+        err = max((p_ - r_).abs().max().item() for p_, r_ in zip(parts, refs))
+        whole = (w8a8_mlp_fwd_drop_plain(x, *args, bits, t) if drop
+                 else w8a8_mlp_fwd_plain(x, *args))
+        sum_ok, sum_err = within((torch.stack(parts).sum(0) + b2).to(torch.bfloat16), whole,
+                                 W8A8_ATOL, W8A8_RTOL)
+        require(exact and sum_ok, f"{split.__name__} {model} M={m}: exact {exact}, "
+                f"max|err| {err}, summed {sum_err}")
+        a0, ex0 = shares[0]
+
+        def no_reduce(a):
+            return torch.maximum(a, amax, out=a)
+
+        nbytes = (2 * m * k + 2 * hs * k + 8 * hs + 4 * k + 4 * m * k + 8 * m
+                  + (2 * m * hs if drop else 0))
+        bound_ms, bound_by = bound(nbytes, 2 * m * 2 * k * hs, PEAK_INT8_OPS)
+        splits = mlp_splits(m, hs, sms)
+        rows.append({
+            "name": split.__name__, "model": model,
+            "shape": f"M={m} K={k} H={hs} of {h} N={k}",
+            "threshold": t if drop else 0, "tensor": HIDDEN_SHARES,
+            "grid": [mlp_grid(m, splits), splits], "max_abs_err": err, "summed_err": sum_err,
+            "ms": time_ms(lambda: split(*a0, *ex0, no_reduce)),
+            "plain_ms": time_ms(lambda: (w8a8_mlp_amax_plain(*a0[:4], *ex0),
+                                         w8a8_mlp_partial_plain(*a0, amax, *ex0)), iters=5),
+            "library_ms": time_ms(lambda: int_mm_mlp_split(*a0, amax, *ex0)),
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del x, bits, parts, refs, whole
+    return rows
+
+
+def widths_phase(card: str, dev) -> dict:
+    """Phase 30: rows 6-10 at the presets' widths against their plain
+    versions; vlmo_large pretrain_mum at batch 16 (rows 3 and 4, the MLP on
+    the erf chain) with a batch-2 step against the CPU; vlmo_large int8
+    serving and finetune_vqa (rows 8, 9 and 10); vlmo_tiny and vlmo_small
+    serving and finetune_vqa through rows 6 and 7, each held against the
+    CPU as phases 4 and 9-12 hold vlmo_base. Returns the kernel rows and
+    each path's launches."""
+    t0 = time.perf_counter()
+    out = {"bf16_mlp": check_widths_bf16_mlp(dev), "matmul": check_widths_matmul(dev),
+           "w8a8_mlp": check_widths_w8a8_mlp(dev)}
+    for row in out["bf16_mlp"] + out["matmul"] + out["w8a8_mlp"]:
+        print("kernel_widths: " + json.dumps(row), flush=True)
+    elapsed("phase 30 kernels")
+
+    large = load_config(LARGE_TRAIN_OVERRIDES)
+    large_cfg = VlmoConfig.from_config(large)
+    k, h = large_cfg.embed_dim, int(large_cfg.embed_dim * large_cfg.mlp_ratio)
+    require(large_cfg.num_heads == 16 and large_cfg.attn_impl == "auto"
+            and large_cfg.attn_drop_rate > 0 and large_cfg.mlp_impl == "xla"
+            and not fits_vmem(k, h, k) and not large["parallel"]["remat"],
+            "vlmo_large pretrain_mum: 16 heads, attention dropout on, the erf MLP, no remat")
+    per_step = attention_calls_per_step(large_cfg)
+    out["large_train"] = timed_phase(
+        "large_train", large, at_last_block(CHECKED_PARAMS, large_cfg.depth),
+        {"flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step,
+         "fused_mlp_fwd": 0, "fused_mlp_fwd_drop": 0})
+    cpu_check_phase(LARGE_TRAIN_OVERRIDES + LARGE_CHECK, "large_train_cpu_check")
+    elapsed("phase 30 vlmo_large pretrain_mum")
+
+    # int8 serving from the int8 finetune_vqa trainer's seeded weights (one
+    # vlmo_large built on the host instead of two), then its steps
+    large_serve = load_config(preset_overrides(SERVE_OVERRIDES, "vlmo_large",
+                                               "model.quantize=w8a8_pallas"))
+    calls = img_txt_calls(VlmoConfig.from_config(large_serve))
+    large_vqa = load_config(preset_overrides(VQA_OVERRIDES, "vlmo_large",
+                                             "model.quantize=w8a8_pallas"))
+    t1 = time.perf_counter()
+    trainer = Trainer(large_vqa, device="cuda")
+    print(f"vqa_large_w8a8_train: Trainer ready in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    out["large_serve"], _ = serve(
+        "serve_large_w8a8", large_serve, VlmoConfig.from_config(large_serve), card,
+        {"w8a8_matmul": 2 * calls, "w8a8_mlp_fwd": calls, "flash_attention_fwd": calls,
+         "fused_mlp_fwd": 0}, e2e_atol=W8A8_E2E_ATOL, cpu_check=(1, CPU_CHECK_ROWS),
+        state={k: v.detach().cpu() for k, v in trainer.task.state_dict().items()})
+    out["large_vqa"] = timed_phase(
+        "vqa_large_w8a8_train", large_vqa, at_last_block(CHECKED_VQA_PARAMS, large_cfg.depth),
+        {"w8a8_matmul": 2 * calls, "w8a8_mlp_fwd_drop": calls,
+         "flash_attention_fwd_drop": calls, "flash_attention_bwd_drop": calls,
+         "w8a8_mlp_fwd": 0, "fused_mlp_fwd_drop": 0}, trainer=trainer)
+    del trainer
+    elapsed("phase 30 vlmo_large int8")
+
+    for model in NARROW_PRESETS:  # serving from the finetune_vqa trainer's weights, as above
+        serve_dict = load_config(preset_overrides(SERVE_OVERRIDES, model))
+        cfg = VlmoConfig.from_config(serve_dict)
+        calls = img_txt_calls(cfg)
+        vqa = preset_overrides(VQA_OVERRIDES, model)
+        trainer = Trainer(load_config(vqa), device="cuda")
+        out[f"{model}_serve"], _ = serve(f"serve_{model}", serve_dict, cfg, card, {
+            "flash_attention_fwd": calls, "fused_mlp_fwd": calls},
+            state={k: v.detach().cpu() for k, v in trainer.task.state_dict().items()})
+        out[f"{model}_vqa"] = timed_phase(f"vqa_{model}_train", load_config(vqa),
+                                          CHECKED_VQA_PARAMS, {
+            "fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+            "flash_attention_bwd_drop": calls, "fused_mlp_fwd": 0}, trainer=trainer)
+        del trainer
+        vqa_cpu_check_phase(f"vqa_{model}_cpu_check", vqa)
+        elapsed(f"phase 30 {model}")
+    print(f"phase 30: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# the kernels of phase 30's widths, and where their launches on its paths
+# are counted: (the path's key in `widths_phase`'s result by model)
+WIDTH_KERNELS = {
+    "fused_mlp_fwd": "{model}_serve", "fused_mlp_fwd_drop": "{model}_vqa",
+    "w8a8_matmul": "large_serve", "w8a8_matmul_partial": None,
+    "w8a8_mlp_fwd": "large_serve", "w8a8_mlp_fwd_drop": "large_vqa",
+    "w8a8_mlp_fwd_split": None, "w8a8_mlp_fwd_drop_split": None,
+}
+
+
+def width_entries(widths: dict, name: str) -> list[dict]:
+    """Kernel `name`'s rows of phase 30, the largest M of each width and
+    mode, with the kernel's launches on the phase's path at that width (0
+    where no path of the phase runs it: the tensor shares, and row 8 at
+    vlmo_tiny's and vlmo_small's widths)."""
+    keep: dict = {}
+    for row in widths["bf16_mlp"] + widths["matmul"] + widths["w8a8_mlp"]:
+        if row["name"] != name:
+            continue
+        group = (row["model"], row.get("threshold"), row["shape"].split("M=")[0],
+                 row["shape"].split(" K=", 1)[-1])
+        m = int(row["shape"].split("M=")[1].split()[0])
+        if group not in keep or m > keep[group][0]:
+            keep[group] = (m, row)
+    out = []
+    for m, row in keep.values():
+        path = WIDTH_KERNELS[name]
+        on = path is not None and row.get("on_path", True) and "T=" not in row["shape"]
+        launches = widths[path.format(model=row["model"])][name] if on else 0
+        out.append({"model": row["model"], "shape": row["shape"], "launches": launches,
+                    **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                 "bound_by", "library_ms")}})
+    return out
+
+
+def widths_only(card: str, dev) -> int:
+    """The build, the layouts, then phase 30 alone (`--widths`)."""
+    print("smem: " + json.dumps(check_layouts()), flush=True)
+    widths_phase(card, dev)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -4712,6 +5226,8 @@ def main(argv: list[str] | None = None) -> int:
         return optim_only(card, dev)
     if args[:1] == ["--tp-int8"]:
         return tp_int8_only(card, dev)
+    if args[:1] == ["--widths"]:
+        return widths_only(card, dev)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -4916,6 +5432,12 @@ def main(argv: list[str] | None = None) -> int:
     tp_int8 = tp_int8_phase(card, dev)
     elapsed("phase 29")
 
+    # the presets' widths: rows 6-10 at vlmo_tiny's, vlmo_small's and
+    # vlmo_large's widths, vlmo_large's training and int8 paths, vlmo_tiny's
+    # and vlmo_small's through rows 6 and 7
+    widths = widths_phase(card, dev)
+    elapsed("phase 30")
+
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
         return {
@@ -4993,6 +5515,11 @@ def main(argv: list[str] | None = None) -> int:
     for k in kernels[-3:]:
         k["tensor"] = TP
     kernels[6]["tp_launches"] = w8_tp["launches_per_step"]["w8a8_matmul"]
+    # rows 6-10 at the presets' widths (phase 30), each width's largest
+    # shape with its launches on phase 30's paths (0 off them)
+    for k in kernels:
+        if k["name"] in WIDTH_KERNELS:
+            k["widths"] = width_entries(widths, k["name"])
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

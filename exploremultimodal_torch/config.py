@@ -116,11 +116,11 @@ def _model(name: str, embed_dim: int, depth: int, num_heads: int,
             "num_heads": num_heads, "fusion_layer": fusion_layer, **extra}
 
 
-# configs/model/*.yaml. Rows 6 and 7 (`mlp_impl: fused` on the card) are
-# built at width 768 only: vlmo_tiny and vlmo_small under `fused` raise at
-# the kernel's shape check on the card (ops/mlp_fused.py `OUT_DIMS`);
-# vlmo_large and vlmo_huge fail `fits_vmem` and take the plain chain, as in
-# JAX
+# configs/model/*.yaml. Rows 6 and 7 (`mlp_impl: fused` on the card) take
+# vlmo_tiny's, vlmo_small's and vlmo_base's widths (ops/mlp_fused.py
+# `WIDTHS`); vlmo_large and vlmo_huge fail `fits_vmem` and take the plain
+# chain, as in JAX. Rows 8-10 (`quantize: w8a8_pallas*`) take every
+# preset's widths (ops/quant_fused.py)
 MODEL_PRESETS: dict[str, dict[str, Any]] = {
     "vlmo_tiny": _model("vlmo_tiny", 192, 12, 3, 6),
     "vlmo_small": _model("vlmo_small", 384, 12, 6, 6),

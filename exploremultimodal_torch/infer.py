@@ -19,7 +19,11 @@ copies of the last row, runs, and slices the result back, as the JAX
 process keeps one replica of the weights on each device, as JAX's single
 controller does; the bucket rounds up to a multiple of the devices, each
 replica runs its equal shard of it, and the outputs are concatenated in
-order. Weights come as a `VlmoTask` state_dict: from
+order. Under `model.quantize=w8a8` more than one device is refused: JAX's
+mesh is one program whose `quant_dot` takes one activation absmax over the
+whole bucket, which shards quantized apart would not reproduce (ROADMAP
+A10); `w8a8_pallas*` (a scale per row) and bf16 serve on any number.
+Weights come as a `VlmoTask` state_dict: from
 `models.convert.from_flax_params`, or from `build_model(...).state_dict()`
 for seeded random weights; or through `Predictor.from_checkpoint`, from a
 checkpoint directory the trainer saved, a BEiT/VLMo `.pth` file, or a
@@ -44,6 +48,7 @@ from exploremultimodal_torch.data.vqa_vocab import load_vqa_vocab
 from exploremultimodal_torch.models.dvae import create_d_vae, map_pixels, unmap_pixels
 from exploremultimodal_torch.models.task import VlmoTask, build_model, resolve_device
 from exploremultimodal_torch.ops.preprocess import normalize_image
+from exploremultimodal_torch.ops.quant import site_mode
 
 
 def _next_bucket(n: int, max_batch: int) -> int:
@@ -92,7 +97,17 @@ class Predictor:
                  device: str | torch.device = "cuda",
                  devices: Sequence[str | torch.device] | None = None):
         self.cfg = cfg
-        task = VlmoTask(VlmoConfig.from_config(cfg))
+        model_cfg = VlmoConfig.from_config(cfg)
+        quantize = model_cfg.quantize
+        if len(devices or ()) > 1 and any(site_mode(quantize, site) == "w8a8"
+                                           for site in ("qkv", "proj", "mlp")):
+            raise ValueError(
+                f"model.quantize={quantize} on more than one device: JAX's data mesh is "
+                "one GSPMD program whose quant_dot takes one activation absmax over the "
+                "whole bucket, which the port's replicas, each quantizing its own shard, "
+                "do not gather yet (ROADMAP §A10); use w8a8_pallas (a scale per row) or "
+                "one device")
+        task = VlmoTask(model_cfg)
         task.load_state_dict(state_dict, strict=True)
         task.eval().requires_grad_(False)
         # one replica per device (`devices`), else the one on `device`

@@ -48,35 +48,38 @@ __device__ __forceinline__ float hidden(int acc, float sx, float sw1, float b1) 
   return gelu_tanh(__fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc), sx), sw1), b1));
 }
 
-// Rows row0 .. row0 + 63 of the bf16 x (m, K) -> their int8 codes at `dst`
-// in the 128-byte swizzle that TMA writes and wgmma reads (K / 128 tiles of
-// 64 rows x 128 bytes, 8 KB apart: a swizzle row holds 128 int8 K values,
-// and a k32 step is the same 32-byte advance of the descriptor as a bf16
-// k16 step) and their scales (`_row_quant`). Warp `warp` of the `nwarps`
-// taking part quantizes rows warp, warp + nwarps, ..., the next row's loads
-// in flight while this one is quantized; each lane holds 8 values a
-// 256-column piece (the last piece of a K % 256 == 128 row on lanes 0-15
-// only), the warp takes the absmax, every code is quantize(x, 1/s). With
+// Rows row0 .. row0 + 63 of the bf16 x (m, k) -> their int8 codes at `dst`
+// in the 128-byte swizzle that TMA writes and wgmma reads (ceil(k / 128)
+// tiles of 64 rows x 128 bytes, 8 KB apart: a swizzle row holds 128 int8 K
+// values, and a k32 step is the same 32-byte advance of the descriptor as a
+// bf16 k16 step) and their scales (`_row_quant`). Warp `warp` of the
+// `nwarps` taking part quantizes rows warp, warp + nwarps, ..., the next
+// row's loads in flight while this one is quantized; each lane holds 8
+// values a 256-column piece (where k % 256 != 0 the last piece on the lanes
+// below (k % 256) / 8 only: 8, 16 or 24 of them), the warp takes the
+// absmax, every code is quantize(x, 1/s). Where k % 128 == 64 the last
+// tile's second half is not written (the kernels' products skip it). With
 // `given` (m floats), a row's absmax is given[row] instead (a tensor rank's
 // share of the row: its absmax over the whole K). Rows past m get zero
-// codes. K % 128 == 0, 64 % nwarps == 0; x and dst 16-byte aligned.
-template <int K>
+// codes. k % 64 == 0 and k <= KMAX, 64 % nwarps == 0; x and dst 16-byte
+// aligned.
+template <int KMAX>
 __device__ __forceinline__ void quantize_sw128(const __nv_bfloat16* __restrict__ x, int m,
-                                               int row0, unsigned char* dst, float* scales,
-                                               int warp, int nwarps,
+                                               int k, int row0, unsigned char* dst,
+                                               float* scales, int warp, int nwarps,
                                                const float* __restrict__ given = nullptr) {
-  static_assert(K % 128 == 0, "whole 128-byte swizzle rows");
-  constexpr int PIECES = (K + 255) / 256;
+  static_assert(KMAX % 128 == 0, "whole 128-byte swizzle rows");
+  constexpr int PIECES = (KMAX + 255) / 256;
   const int lane = threadIdx.x % 32;
   // whether this lane holds columns of piece p
-  auto held = [&](int p) { return p * 256 + lane * 8 < K; };
-  // the raw bf16 of row r, zeros past 64, m or K
+  auto held = [&](int p) { return p * 256 + lane * 8 < k; };
+  // the raw bf16 of row r, zeros past 64, m or k
   auto load = [&](uint4 (&raw)[PIECES], int r) {
     const int row = row0 + r;
 #pragma unroll
     for (int p = 0; p < PIECES; ++p)
       raw[p] = r < 64 && row < m && held(p)
-                   ? *reinterpret_cast<const uint4*>(x + (size_t)row * K + p * 256 + lane * 8)
+                   ? *reinterpret_cast<const uint4*>(x + (size_t)row * k + p * 256 + lane * 8)
                    : make_uint4(0u, 0u, 0u, 0u);
   };
   uint4 raw[PIECES];
@@ -111,8 +114,8 @@ __device__ __forceinline__ void quantize_sw128(const __nv_bfloat16* __restrict__
         lo |= (static_cast<uint32_t>(quantize(v[p][e], inv)) & 0xffu) << (8 * e);
         hi |= (static_cast<uint32_t>(quantize(v[p][4 + e], inv)) & 0xffu) << (8 * e);
       }
-      const int k = p * 256 + lane * 8, kk = k & 127;
-      const int off = (k >> 7) * 8192 + r * 128 + ((((kk >> 4) ^ (r & 7)) << 4) | (kk & 15));
+      const int col = p * 256 + lane * 8, kk = col & 127;
+      const int off = (col >> 7) * 8192 + r * 128 + ((((kk >> 4) ^ (r & 7)) << 4) | (kk & 15));
       *reinterpret_cast<uint2*>(dst + off) = make_uint2(lo, hi);
     }
     if (lane == 0) scales[r] = s;

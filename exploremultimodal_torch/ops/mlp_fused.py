@@ -7,7 +7,9 @@ Counterpart of `exploremultimodal_tpu/ops/mlp_pallas.py`:
   - `fused_mlp`           `fused_bf16_mlp` / `fused_bf16_mlp_dropout`, with
                           the backward of `_vjp_bwd` / `_vjpd_bwd`
 Both forwards are `csrc/fused_mlp_sm90.cu` (wgmma, TMA, clusters; the
-dropout forward is its `DROP` variant). The weights are in nn.Linear's
+dropout forward is its `DROP` variant), at the widths JAX sends to its
+kernel: K = N in `WIDTHS` (vlmo_tiny's 192, vlmo_small's 384, vlmo_base's
+768), any hidden of whole 64-column chunks. The weights are in nn.Linear's
 layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32. The
 dropout bits are uint16 draws u held as the int16 u - 32768
 (`stochastic.bits16`); an element is kept where u >= t.
@@ -35,18 +37,21 @@ from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 # erf-gelu XLA path otherwise. The port keeps the same predicate so the two
 # packages pick the same function (and gelu form) at every width.
 _RESIDENT_BYTES_CAP = 10 * 1024 * 1024
-OUT_DIMS = (768,)  # output widths the kernels are instantiated for
-IN_DIMS = (768,)  # input widths of the sm90 kernel (x's tile stays in shared memory)
+# the widths K = N the sm90 kernel takes (x's 64 x K tile stays in shared
+# memory): every preset that `fits_vmem` sends to it
+WIDTHS = (192, 384, 768)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# maps, biases, y, part, then m, hidden, splits, partial (and the threshold)
-_SM90_ARGTYPES = [_P] * 7 + [_I] * 4 + [_P]
+# maps, biases, y, part, then m, k, hidden, splits, partial (and the threshold)
+_SM90_ARGTYPES = [_P] * 7 + [_I] * 5 + [_P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 2
-_DROP_ARGTYPES = [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P]
+_DROP_ARGTYPES = [_P] * 8 + [_I] * 6 + [ctypes.c_float, _P]
 
 # the sm90 kernel's tiling: 64-row tiles in clusters of 2 CTAs, the hidden
-# walked in 64-column chunks (csrc/fused_mlp_sm90.cu)
+# walked in 64-column chunks (csrc/fused_mlp_sm90.cu); its weight ring of
+# RING_STAGES stages of STAGE_BOXES 64 x 64 bf16 boxes
 ROW_TILE, CLUSTER, HIDDEN_CHUNK = 64, 2, 64
+RING_STAGES, STAGE_BOXES, BOX_BYTES = 3, 4, 8192
 # tensor maps (128-byte host buffers, 64 x 64 boxes) by `tensor_map_key`; a
 # map depends only on the address and shape, never on the contents, so a hit
 # is always right (the int16 dropout bits and a bf16 matrix of one shape at
@@ -103,14 +108,14 @@ def _check(name, x, w1, b1, w2, b2, bits=None):
           and b1.shape == (hdim,)
           and (bits is None or (bits.dtype == torch.int16
                                 and bits.shape == (m, hdim)))
-          and k % 16 == 0 and hdim % 32 == 0 and ndim in OUT_DIMS
+          and k % 16 == 0 and hdim % 32 == 0 and ndim in WIDTHS
           and all(t.is_contiguous() and t.device == x.device
                   and t.data_ptr() % 16 == 0 for t in tensors))
     if not ok:
         raise ValueError(
             f"{name}: needs contiguous, 16-byte aligned bf16 x (M, K), "
             f"w1 (H, K), w2 (N, H), fp32 b1, b2 or None (and int16 bits (M, H)) on "
-            f"one device, K % 16 == 0, H % 32 == 0, N in {OUT_DIMS}; got x "
+            f"one device, K % 16 == 0, H % 32 == 0, N in {WIDTHS}; got x "
             f"{tuple(x.shape)} {x.dtype}, w1 {tuple(w1.shape)} {w1.dtype}, "
             f"w2 {tuple(w2.shape)} {w2.dtype}, b1 {b1.dtype}, "
             f"b2 {None if b2 is None else b2.dtype}"
@@ -165,13 +170,23 @@ def _sm_count(device: torch.device) -> int:
 
 
 def _sm90_shapes(name, x, w1, b1, w2, b2, bits=None):
-    """`_check`, plus what the sm90 kernel alone needs: K in IN_DIMS and a
-    hidden of whole 64-column chunks."""
+    """`_check`, plus what the sm90 kernel alone needs: K == N (in WIDTHS)
+    and a hidden of whole 64-column chunks."""
     m, k, hdim, ndim = _check(name, x, w1, b1, w2, b2, bits)
-    if k not in IN_DIMS or hdim % HIDDEN_CHUNK:
-        raise ValueError(f"{name}: needs K in {IN_DIMS} and hidden % "
-                         f"{HIDDEN_CHUNK} == 0, got K {k}, hidden {hdim}")
+    if k != ndim or hdim % HIDDEN_CHUNK:
+        raise ValueError(f"{name}: needs K == N in {WIDTHS} and hidden % "
+                         f"{HIDDEN_CHUNK} == 0, got K {k}, N {ndim}, hidden {hdim}")
     return m, hdim, ndim
+
+
+def sm90_smem(drop: bool = False) -> int:
+    """The sm90 kernel's dynamic shared memory, the same at every width:
+    x's tile at K = 768, the ring, two h tiles, (DROP) two bits slots, the
+    barriers and 1024 bytes of slack."""
+    box = BOX_BYTES
+    before_bars = 768 // 64 * box + RING_STAGES * STAGE_BOXES * box + 2 * box
+    bars = 1 + 2 * RING_STAGES + 4
+    return before_bars + (2 * box if drop else 0) + 8 * bars + 1024
 
 
 def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
@@ -191,7 +206,7 @@ def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
     # alive through the call even if a later lookup empties the cache
     maps = [_tensor_map(t) for t in tensors]
     args = (b1.data_ptr(), None if partial else b2.data_ptr(), y.data_ptr(),
-            None if part is None else part.data_ptr(), m, hdim, splits, int(partial))
+            None if part is None else part.data_ptr(), m, ndim, hdim, splits, int(partial))
     stream = torch.cuda.current_stream(dev).cuda_stream
     if bits is None:
         rc = _build.load("fused_mlp_sm90", _SM90_ARGTYPES)(*maps, *args, stream)
@@ -203,9 +218,9 @@ def _launch_sm90(name, x, w1, b1, w2, b2, bits=None, threshold=0):
 
 
 def fused_mlp_fwd(x, w1, b1, w2, b2):
-    """The sm90 kernel on CUDA tensors (x (M, 768), hidden a multiple of
-    64, output 768), the plain version on CPU tensors; with b2 None the
-    partial mode (fp32, no b2)."""
+    """The sm90 kernel on CUDA tensors (x (M, K), output N = K in WIDTHS,
+    hidden a multiple of 64), the plain version on CPU tensors; with b2
+    None the partial mode (fp32, no b2)."""
     if x.device.type == "cpu":
         return fused_mlp_fwd_plain(x, w1, b1, w2, b2)
     y = _launch_sm90("fused_mlp_fwd", x, w1, b1, w2, b2)

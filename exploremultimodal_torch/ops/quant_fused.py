@@ -12,10 +12,11 @@ Counterpart of `exploremultimodal_tpu/ops/quant_pallas.py`:
                          backward of `_mlp_vjp_bwd` / `_mlpd_vjp_bwd`
 and the tensor-split modes, which give a tensor rank's share of the whole
 call under `parallel=tp` (GSPMD's partition of these sites in JAX):
-  - `w8a8_matmul_partial`   row 8 on a row-parallel share (proj: K = 384 of
-                            768): x's rows quantized at their absmax over the
-                            whole K, given from outside, and the fp32 partial
-                            product (acc * sx) * sw, unrounded
+  - `w8a8_matmul_partial`   row 8 on a row-parallel share (proj: K / T of its
+                            K input columns): x's rows quantized at their
+                            absmax over the whole K, given from outside, and
+                            the fp32 partial product (acc * sx) * sw,
+                            unrounded
   - `w8a8_mlp_fwd_split`, `w8a8_mlp_fwd_drop_split`
                             rows 9 and 10 on a rank's hidden columns in two
                             launches: the first pass's row absmax of h, then,
@@ -26,7 +27,11 @@ call under `parallel=tp` (GSPMD's partition of these sites in JAX):
                             the differentiable functions over them, whose
                             weight scales are maxima over the tensor group
 Row 8 is `csrc/w8a8_matmul_sm90.cu`, rows 9 and 10 `csrc/w8a8_mlp_sm90.cu`
-(all three on int8 wgmma and TMA; row 10 row 9's `DROP` variant). Weights
+(all three on int8 wgmma and TMA; row 10 row 9's `DROP` variant). Row 8
+takes any K % 64 == 0 in [MATMUL_K_MIN, MATMUL_K_MAX] and any N % 64 == 0
+(every preset's qkv and proj and their tensor shares); rows 9 and 10 take
+K = N in MLP_WIDTHS (every preset's) and any hidden of whole 64-column
+chunks. Weights
 are in nn.Linear's layout, (out, in), and so are their int8 codes, with one
 fp32 scale per output channel. The plain versions take each int8 product
 exactly, as a float64 product of the codes (every sum is an integer below
@@ -49,32 +54,37 @@ from exploremultimodal_torch.ops.mlp_fused import (
 from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 
 _EPS = 1e-8
-IN_DIM = OUT_DIM = 768  # the kernels' K and MLP output width (vlmo_base)
-# row 8's (K, N): qkv and proj whole, qkv's column share at a tensor axis of
-# 2 (heads 6 of 12); proj's row share (K 384) takes the partial mode
-MATMUL_SHAPES = ((768, 768), (768, 2304), (768, 1152))
-PARTIAL_SHAPES = ((384, 768),)
+# row 8's input widths: K % 64 == 0 in [MATMUL_K_MIN, MATMUL_K_MAX] (qkv
+# and proj of every preset, 192 to 1,024, and their row shares down to
+# vlmo_base's 768 / 4); any N % 64 == 0 (the column shares of qkv: 576 at
+# vlmo_base and T = 4)
+MATMUL_K_MIN, MATMUL_K_MAX = 192, 1024
+# rows 9 and 10's widths K = N: vlmo_tiny, vlmo_small, vlmo_base, vlmo_large
+MLP_WIDTHS = (192, 384, 768, 1024)
 HIDDEN_CHUNK = 64  # the MLP kernels walk the hidden in chunks this wide
-# the row-9 kernel's layout, as csrc/w8a8_mlp_sm90.cu sets it: 64-row tiles
-# in clusters of 2 CTAs along M, or, split, of 2 CTAs along the hidden; the
-# weight codes in TMA boxes of (bytes a row, rows, swizzle bytes): qW1 (H,
-# 768) in K-major 128 x 64 boxes, qW2 (768, H) in 64 x 128 boxes (a chunk's
-# 64 hidden bytes a row); x's codes (64 x 768), a ring of 2 stages of six
-# boxes (a chunk of W1 or of W2), two h code tiles, 4 x 64 row scales, the
-# barriers, then (with dropout) MLP_BITS_SLOTS bits slots and 1024 bytes of
-# slack. The int16 dropout bits (M, H) are read as (M, 2 H) bytes in qW1's
-# box: 64 rows of a chunk's 64 values
+# the row-9 kernel's layout, as csrc/w8a8_mlp_sm90.cu sets it (`layout`):
+# 64-row tiles in clusters of 2 CTAs along M, or, split, of 2 CTAs along
+# the hidden; the weight codes in TMA boxes of (bytes a row, rows, swizzle
+# bytes): qW1 (H, K) in K-major 128 x 64 boxes, qW2 (N, H) in 64 x 128
+# boxes (a chunk's 64 hidden bytes a row, 128 output columns: a piece);
+# x's codes (64 x K), a ring of 2 stages of `mlp_layout`'s boxes (a chunk
+# of W1, or of W2 for a part of the output), two h code tiles, 4 x 64 row
+# scales, the barriers, then (with dropout) MLP_BITS_SLOTS bits slots and
+# 1024 bytes of slack. The int16 dropout bits (M, H) are read as (M, 2 H)
+# bytes in qW1's box: 64 rows of a chunk's 64 values. Past MLP_PART_MAX
+# output columns the second product runs in two parts
 MLP_ROW_TILE, MLP_CLUSTER = 64, 2
 MLP_BOXES = {"w1": (128, 64, 128), "w2": (64, 128, 64), "bits": (128, 64, 128)}
-MLP_RING_STAGES, MLP_STAGE_BOXES, MLP_BOX_BYTES, MLP_BITS_SLOTS = 2, 6, 8192, 2
+MLP_RING_STAGES, MLP_BOX_BYTES, MLP_BITS_SLOTS, MLP_PART_MAX = 2, 8192, 2, 768
 # the row-8 kernel's layout, as csrc/w8a8_matmul_sm90.cu sets it: a CTA per
 # 128-row block; output tiles of 128 columns (its two consumer warpgroups
 # take them in turn), split over the grid's y where the row blocks leave
-# SMs idle; x's codes (128 x 768), a ring of 6 stages of two 64-row boxes
-# of qw (128 K bytes a row, 128-byte swizzle), four 64 x 64 bf16 boxes of y
-# staged for their TMA stores, 128 row scales, the barriers and 1024 bytes
-# of slack
-MATMUL_ROW_TILE, MATMUL_COL_TILE, MATMUL_RING_STAGES = 128, 128, 6
+# SMs idle; x's codes (128 x the layout's widest K), a ring of stages of
+# two 64-row boxes of qw (128 K bytes a row, 128-byte swizzle), four 64 x
+# 64 bf16 boxes of y staged for their TMA stores, 128 row scales, the
+# barriers and 1024 bytes of slack. Three layouts: {widest K: ring stages}
+MATMUL_ROW_TILE, MATMUL_COL_TILE = 128, 128
+MATMUL_LAYOUTS = {384: 6, 768: 6, 1024: 4}
 # the tensor maps' boxes (columns, rows) and swizzle bytes: qw's int8 codes
 # and y's bf16 values, each box 8 KB
 MATMUL_BOXES = {"w": (128, 64, 128), "y": (64, 64, 128)}
@@ -83,10 +93,10 @@ _MAPS: dict = {}
 _MAPS_CAP = 256
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_MATMUL_ARGTYPES = [_P] * 4 + [_I] * 4 + [_P]
-_MATMUL_PARTIAL_ARGTYPES = [_P] * 5 + [_I] * 4 + [_P]
-_MLP_SM90_ARGTYPES = [_P] * 10 + [_I] * 4 + [_P]
-_MLP_SM90_DROP_ARGTYPES = [_P] * 11 + [_I] * 5 + [ctypes.c_float, _P]
+_MATMUL_ARGTYPES = [_P] * 4 + [_I] * 5 + [_P]
+_MATMUL_PARTIAL_ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
+_MLP_SM90_ARGTYPES = [_P] * 10 + [_I] * 5 + [_P]
+_MLP_SM90_DROP_ARGTYPES = [_P] * 11 + [_I] * 6 + [ctypes.c_float, _P]
 _ENCODE_ARGTYPES = [_P, _P] + [_I] * 5
 
 
@@ -210,7 +220,7 @@ def matmul_grid(m: int, n: int, sms: int) -> tuple[int, int, int]:
     are split while the row blocks leave SMs idle, as evenly as whole tiles
     allow."""
     grid_x = -(-m // MATMUL_ROW_TILE)
-    tiles = n // MATMUL_COL_TILE
+    tiles = -(-n // MATMUL_COL_TILE)  # a last tile of 64 columns where N % 128 == 64
     per = -(-tiles // max(1, min(tiles, sms // grid_x)))
     return grid_x, -(-tiles // per), per
 
@@ -225,12 +235,20 @@ def matmul_map_extents(rows: int, cols: int, operand: str):
     return (cols, rows), (cols * elem,), (box_cols, box_rows), swizzle
 
 
-def matmul_smem() -> int:
-    """The row-8 kernel's dynamic shared memory."""
+def matmul_layout(k: int) -> tuple[int, int]:
+    """The row-8 layout at input width k: (its widest K, its ring stages)."""
+    widest = min(w for w in MATMUL_LAYOUTS if k <= w)
+    return widest, MATMUL_LAYOUTS[widest]
+
+
+def matmul_smem(k: int = 768) -> int:
+    """The row-8 kernel's dynamic shared memory at input width k (that of
+    its layout)."""
     box = MLP_BOX_BYTES
-    x_codes = MATMUL_ROW_TILE * IN_DIM
-    ring = MATMUL_RING_STAGES * 2 * box
-    return x_codes + ring + 4 * box + 4 * MATMUL_ROW_TILE + 8 * 2 * MATMUL_RING_STAGES + 1024
+    widest, stages = matmul_layout(k)
+    x_codes = MATMUL_ROW_TILE * widest
+    ring = stages * 2 * box
+    return x_codes + ring + 4 * box + 4 * MATMUL_ROW_TILE + 8 * 2 * stages + 1024
 
 
 def _cached_map(source: str, argtypes: list, key: tuple, *args):
@@ -258,37 +276,43 @@ def _matmul_map(t: torch.Tensor, operand: str):
                        box_cols, box_rows, t.element_size())
 
 
-def _check_matmul(name, x, qw, sw, shapes, amax=None):
+def matmul_width_ok(k: int, n: int) -> bool:
+    """Whether row 8 takes x (M, k) and qw (n, k)."""
+    return MATMUL_K_MIN <= k <= MATMUL_K_MAX and k % 64 == 0 and n > 0 and n % 64 == 0
+
+
+def _check_matmul(name, x, qw, sw, amax=None):
     m, k = x.shape
     n = qw.shape[0]
     tensors = (x, qw, sw) + (() if amax is None else (amax,))
     _require(name,
              x.dtype == torch.bfloat16 and qw.dtype == torch.int8
-             and sw.dtype == torch.float32 and (k, n) in shapes and qw.shape == (n, k)
+             and sw.dtype == torch.float32 and matmul_width_ok(k, n) and qw.shape == (n, k)
              and sw.shape == (n,) and _on_one_device(x, tensors)
              and (amax is None or (amax.dtype == torch.float32 and amax.shape == (m,))),
-             f"needs contiguous, 16-byte aligned bf16 x (M, K), int8 qw (N, K) with (K, N) "
-             f"in {shapes}, fp32 sw (N,)" + ("" if amax is None else ", fp32 amax (M,)")
+             f"needs contiguous, 16-byte aligned bf16 x (M, K), int8 qw (N, K) with K % 64 "
+             f"== 0 in [{MATMUL_K_MIN}, {MATMUL_K_MAX}] and N % 64 == 0, fp32 sw (N,)"
+             + ("" if amax is None else ", fp32 amax (M,)")
              + f" on one device; got x {tuple(x.shape)} {x.dtype}, qw {tuple(qw.shape)} "
              f"{qw.dtype}, sw {tuple(sw.shape)} {sw.dtype}"
              + ("" if amax is None else f", amax {tuple(amax.shape)} {amax.dtype}"))
-    return m, n
+    return m, n, k
 
 
 def w8a8_matmul(x, qw, sw):
     """As `w8a8_matmul_plain`: the row-8 kernel on CUDA tensors (bf16 x
-    (M, 768), int8 qw (N, 768) with (K, N) in MATMUL_SHAPES, fp32 sw (N,)),
-    the plain version on CPU tensors."""
+    (M, K), int8 qw (N, K) with K % 64 == 0 in [192, 1024] and N % 64 ==
+    0, fp32 sw (N,)), the plain version on CPU tensors."""
     if x.device.type == "cpu":
         return w8a8_matmul_plain(x, qw, sw)
-    m, n = _check_matmul("w8a8_matmul", x, qw, sw, MATMUL_SHAPES)
+    m, n, k = _check_matmul("w8a8_matmul", x, qw, sw)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_matmul_map(qw, "w"), _matmul_map(y, "y")]
     grid_x, _, per = matmul_grid(m, n, _sm_count(x.device))
     fn = _build.load("w8a8_matmul_sm90", _MATMUL_ARGTYPES)
-    rc = fn(*maps, x.data_ptr(), sw.data_ptr(), m, n, grid_x, per,
+    rc = fn(*maps, x.data_ptr(), sw.data_ptr(), m, n, k, grid_x, per,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("w8a8_matmul_sm90", rc)
     w8a8_matmul.launches += 1
@@ -297,17 +321,17 @@ def w8a8_matmul(x, qw, sw):
 
 def w8a8_matmul_partial(x, qw, sw, amax):
     """As `w8a8_matmul_partial_plain`: row 8's partial mode on CUDA tensors
-    (bf16 x (M, 384), int8 qw (768, 384), fp32 sw (768,) and amax (M,);
-    (K, N) in PARTIAL_SHAPES), storing fp32 y (M, N) from its registers;
-    the plain version on CPU tensors."""
+    (bf16 x (M, K), int8 qw (N, K), fp32 sw (N,) and amax (M,); the widths
+    of `w8a8_matmul`), storing fp32 y (M, N) from its registers; the plain
+    version on CPU tensors."""
     if x.device.type == "cpu":
         return w8a8_matmul_partial_plain(x, qw, sw, amax)
-    m, n = _check_matmul("w8a8_matmul_partial", x, qw, sw, PARTIAL_SHAPES, amax)
+    m, n, k = _check_matmul("w8a8_matmul_partial", x, qw, sw, amax)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     maps = [_matmul_map(qw, "w")]
     grid_x, _, per = matmul_grid(m, n, _sm_count(x.device))
     fn = _build.load("w8a8_matmul_sm90", _MATMUL_PARTIAL_ARGTYPES, "w8a8_matmul_sm90_partial")
-    rc = fn(*maps, x.data_ptr(), sw.data_ptr(), amax.data_ptr(), y.data_ptr(), m, n,
+    rc = fn(*maps, x.data_ptr(), sw.data_ptr(), amax.data_ptr(), y.data_ptr(), m, n, k,
             grid_x, per, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check("w8a8_matmul_sm90_partial", rc)
     w8a8_matmul_partial.launches += 1
@@ -322,19 +346,19 @@ def _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits=None):
     _require(name,
              x.dtype == torch.bfloat16 and qw1.dtype == qw2.dtype == torch.int8
              and sw1.dtype == sw2.dtype == b1.dtype == torch.float32
-             and (b2 is None or (b2.dtype == torch.float32 and b2.shape == (OUT_DIM,)))
-             and k == IN_DIM and qw1.shape == (hdim, k) and hdim % HIDDEN_CHUNK == 0
-             and qw2.shape == (OUT_DIM, hdim) and sw1.shape == b1.shape == (hdim,)
-             and sw2.shape == (OUT_DIM,)
+             and (b2 is None or (b2.dtype == torch.float32 and b2.shape == (k,)))
+             and k in MLP_WIDTHS and qw1.shape == (hdim, k) and hdim % HIDDEN_CHUNK == 0
+             and qw2.shape == (k, hdim) and sw1.shape == b1.shape == (hdim,)
+             and sw2.shape == (k,)
              and (bits is None or (bits.dtype == torch.int16 and bits.shape == (m, hdim)))
              and _on_one_device(x, tensors),
-             f"needs contiguous, 16-byte aligned bf16 x (M, {IN_DIM}), int8 qw1 (H, "
-             f"{IN_DIM}) with H % {HIDDEN_CHUNK} == 0, int8 qw2 ({OUT_DIM}, H), fp32 "
-             f"scales and biases (and int16 bits (M, H)) on one device; got x "
+             f"needs contiguous, 16-byte aligned bf16 x (M, K) with K in {MLP_WIDTHS}, int8 "
+             f"qw1 (H, K) with H % {HIDDEN_CHUNK} == 0, int8 qw2 (K, H), fp32 scales and "
+             f"biases (and int16 bits (M, H)) on one device; got x "
              f"{tuple(x.shape)} {x.dtype}, qw1 {tuple(qw1.shape)} {qw1.dtype}, qw2 "
              f"{tuple(qw2.shape)} {qw2.dtype}"
              + ("" if bits is None else f", bits {tuple(bits.shape)} {bits.dtype}"))
-    return m, hdim
+    return m, k, hdim
 
 
 def mlp_splits(m: int, hdim: int, sms: int) -> int:
@@ -364,12 +388,25 @@ def mlp_map_extents(rows: int, cols: int, operand: str):
     return (cols, rows), (cols,), (box_cols, box_rows), swizzle
 
 
-def mlp_smem(drop: bool = False) -> int:
-    """The row-9 kernel's dynamic shared memory; with `drop`, that of its
-    DROP variant (row 10), with the two bits slots."""
+def mlp_layout(k: int) -> dict:
+    """The row-9 kernel's layout at width K = N = k, as the source's
+    `layout`: x's code tiles (`xt`, a W1 stage's boxes), the parts the
+    second product runs in, the 128-column pieces of a part (`pc`, a W2
+    stage's boxes), the pieces a consumer warpgroup takes (`pw`) and the
+    boxes a ring stage holds (`sb`)."""
+    xt = -(-k // 128)
+    parts = 2 if k > MLP_PART_MAX else 1
+    pc = -(-(k // parts) // 128)
+    pw = -(-pc // 2)
+    return {"xt": xt, "parts": parts, "pc": pc, "pw": pw, "sb": max(xt, 2 * pw)}
+
+
+def mlp_smem(drop: bool = False, k: int = 768) -> int:
+    """The row-9 kernel's dynamic shared memory at width k; with `drop`,
+    that of its DROP variant (row 10), with the two bits slots."""
     box = MLP_BOX_BYTES
-    x_codes = IN_DIM // 128 * box
-    before_bars = (x_codes + MLP_RING_STAGES * MLP_STAGE_BOXES * box + 2 * box
+    layout = mlp_layout(k)
+    before_bars = (layout["xt"] * box + MLP_RING_STAGES * layout["sb"] * box + 2 * box
                    + 4 * MLP_ROW_TILE * 4)
     bars = 2 * MLP_RING_STAGES + 1 + 2 * MLP_BITS_SLOTS
     bits_off = -(-(before_bars + 8 * bars) // 1024) * 1024
@@ -390,22 +427,22 @@ def _launch_mlp_sm90(x, qw1, sw1, b1, qw2, sw2, b2, bits=None, threshold: int = 
     variant (row 10): the weight (and bits) maps from the cache, the hidden
     split of `mlp_splits` with its scratch, the grid of `mlp_grid`."""
     name = "w8a8_mlp_fwd" if bits is None else "w8a8_mlp_fwd_drop"
-    m, hdim = _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits)
+    m, k, hdim = _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, b2, bits)
     if bits is not None:
         _require(name, 0 < threshold < 65536, f"threshold {threshold} not in (0, 65536)")
     dev = x.device
-    y = torch.empty((m, OUT_DIM), dtype=x.dtype, device=dev)
+    y = torch.empty((m, k), dtype=x.dtype, device=dev)
     splits = mlp_splits(m, hdim, _sm_count(dev))
     part = shs = None
     if splits > 1:
-        part = torch.empty((splits, m, OUT_DIM), dtype=torch.int32, device=dev)
+        part = torch.empty((splits, m, k), dtype=torch.int32, device=dev)
         shs = torch.empty((m,), dtype=torch.float32, device=dev)
     # the buffers themselves, not their addresses: the list keeps each one
     # alive through the call even if a later lookup empties the cache
     maps = [_mlp_map(qw1, "w1"), _mlp_map(qw2, "w2")]
     args = (x.data_ptr(), sw1.data_ptr(), b1.data_ptr(), sw2.data_ptr(), b2.data_ptr(),
             y.data_ptr(), None if part is None else part.data_ptr(),
-            None if shs is None else shs.data_ptr(), m, hdim, mlp_grid(m, splits), splits)
+            None if shs is None else shs.data_ptr(), m, k, hdim, mlp_grid(m, splits), splits)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if bits is None:
         rc = _build.load("w8a8_mlp_sm90", _MLP_SM90_ARGTYPES)(*maps, *args, stream)
@@ -425,16 +462,16 @@ def _launch_mlp_split(x, qw1, sw1, b1, qw2, sw2, reduce_max, bits=None, threshol
     scales into an fp32 y without b2; the hidden split of `mlp_splits`
     with its scratch, the grid of `mlp_grid`, in both."""
     name = "w8a8_mlp_fwd_split" if bits is None else "w8a8_mlp_fwd_drop_split"
-    m, hdim = _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, None, bits)
+    m, k, hdim = _check_mlp(name, x, qw1, sw1, b1, qw2, sw2, None, bits)
     if bits is not None:
         _require(name, 0 < threshold < 65536, f"threshold {threshold} not in (0, 65536)")
     dev = x.device
     amax = torch.empty((m,), dtype=torch.float32, device=dev)
-    y = torch.empty((m, OUT_DIM), dtype=torch.float32, device=dev)
+    y = torch.empty((m, k), dtype=torch.float32, device=dev)
     splits = mlp_splits(m, hdim, _sm_count(dev))
     part = shs = None
     if splits > 1:
-        part = torch.empty((splits, m, OUT_DIM), dtype=torch.int32, device=dev)
+        part = torch.empty((splits, m, k), dtype=torch.int32, device=dev)
         shs = torch.empty((m,), dtype=torch.float32, device=dev)
     maps = [_mlp_map(qw1, "w1"), _mlp_map(qw2, "w2")]
     if bits is not None:
@@ -452,15 +489,15 @@ def _launch_mlp_split(x, qw1, sw1, b1, qw2, sw2, reduce_max, bits=None, threshol
             reduce_max(amax)
         fn = _build.load("w8a8_mlp_sm90", types, f"w8a8_mlp_sm90_{mode}{suffix}")
         rc = fn(*maps, x.data_ptr(), sw1.data_ptr(), b1.data_ptr(), sw2.data_ptr(),
-                amax.data_ptr(), y.data_ptr(), *scratch, m, hdim, grid, splits, *drop, stream)
+                amax.data_ptr(), y.data_ptr(), *scratch, m, k, hdim, grid, splits, *drop, stream)
         _build.check(f"w8a8_mlp_sm90_{mode}{suffix}", rc)
     return y
 
 
 def w8a8_mlp_fwd_split(x, qw1, sw1, b1, qw2, sw2, reduce_max):
-    """Row 9's split mode on a tensor rank's hidden share (bf16 x (M, 768),
-    qw1 (H/T, 768), qw2 (768, H/T), the fp32 scales and b1): the fp32
-    partial output (M, 768) without b2, each row of h quantized at its
+    """Row 9's split mode on a tensor rank's hidden share (bf16 x (M, K),
+    qw1 (H/T, K), qw2 (K, H/T), the fp32 scales and b1; K in MLP_WIDTHS):
+    the fp32 partial output (M, K) without b2, each row of h quantized at its
     absmax over the whole hidden (`reduce_max` makes the share's whole).
     Two kernel launches on CUDA tensors (one call counted); the plain
     versions on CPU tensors."""

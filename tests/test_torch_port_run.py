@@ -192,20 +192,31 @@ def test_throughput_returns_samples_per_second():
     assert sps > 0 and trainer.state.step == 5
 
 
-@pytest.mark.parametrize("model", ["vlmo_tiny", "vlmo_small"])
-def test_fused_mlp_widths_the_kernels_lack_raise(model):
-    """Rows 6 and 7 are built at width 768 only: at vlmo_tiny's and
-    vlmo_small's widths the wrapper's shape check raises ValueError for a
-    tensor off the CPU (here on the meta device), where the default
-    `mlp_impl: xla` runs at every preset."""
-    width = load_config([f"model={model}"])["model"]["embed_dim"]
-    assert width not in mlp_fused.OUT_DIMS
+def _meta_mlp(width: int):
+    """Meta-device bf16 x (64, width), w1, w2 at a 4x hidden and fp32 biases."""
     x = torch.empty(64, width, dtype=torch.bfloat16, device="meta")
     w1 = torch.empty(4 * width, width, dtype=torch.bfloat16, device="meta")
     w2 = torch.empty(width, 4 * width, dtype=torch.bfloat16, device="meta")
     b1, b2 = (torch.empty(n, device="meta") for n in (4 * width, width))
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("model", ["vlmo_tiny", "vlmo_small"])
+def test_fused_mlp_takes_the_presets_widths(model):
+    """Rows 6 and 7 take vlmo_tiny's and vlmo_small's widths (K = N = 192
+    and 384, hidden 4x) as JAX's `fits_vmem` sends them to its kernel: the
+    sm90 shape check passes there, with and without the dropout bits, and
+    still raises ValueError at vlmo_debug's 96, which no kernel is built
+    for (ROADMAP A9)."""
+    width = load_config([f"model={model}"])["model"]["embed_dim"]
+    assert width in mlp_fused.WIDTHS and mlp_fused.fits_vmem(width, 4 * width, width)
+    args = _meta_mlp(width)
+    bits = torch.empty(64, 4 * width, dtype=torch.int16, device="meta")
+    assert mlp_fused._sm90_shapes("fused_mlp_fwd", *args) == (64, 4 * width, width)
+    assert mlp_fused._sm90_shapes("fused_mlp_fwd_drop", *args, bits) == (64, 4 * width, width)
+    debug = load_config(["model=vlmo_debug"])["model"]["embed_dim"]
     with pytest.raises(ValueError, match="N in"):
-        mlp_fused.fused_mlp_fwd(x, w1, b1, w2, b2)
+        mlp_fused.fused_mlp_fwd(*_meta_mlp(debug))
 
 
 def test_profile_steps_writes_a_trace(tmp_path):

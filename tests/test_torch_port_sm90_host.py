@@ -12,8 +12,11 @@ the streamed one of row 5 past it; rows 2 and 4: the sm90 kernels up to
 512), the backward's work units, models of how the warpgroups wait on the
 backward's tile ring and on the streamed forward's key ring, and the
 arguments each launch passes; the W8A8
-matmul's grid, shared memory and tensor maps (row 8); and the shape and
-type checks by which the wrappers refuse what their kernels do not take.
+matmul's grid, shared memory and tensor maps (row 8); rows 6-10's stages,
+layouts and shared memory at every preset's width (vlmo_tiny's 192 to
+vlmo_large's 1,024), and a model of how their warpgroups wait on their
+rings; and the shape and type checks by which the wrappers refuse what
+their kernels do not take.
 """
 
 import ctypes
@@ -507,8 +510,9 @@ def test_row9_map_extents(rows, cols, operand, box, swizzle):
     assert dims == (cols, rows) and strides == (cols,) and strides[0] % 16 == 0
     assert got_box == box and got_swizzle == swizzle
     assert got_box[0] <= got_swizzle  # a box row within its swizzle span
-    # six boxes make a chunk of W1 (64 rows x 768) or of W2 (768 rows x 64)
-    assert got_box[0] * got_box[1] * qf.MLP_STAGE_BOXES == 64 * 768
+    # at K = N = 768 six boxes make a chunk of W1 (64 rows x 768) or of W2
+    # (768 rows x 64)
+    assert got_box[0] * got_box[1] * qf.mlp_layout(768)["sb"] == 64 * 768
 
 
 def test_row9_shared_memory_budget():
@@ -516,7 +520,7 @@ def test_row9_shared_memory_budget():
     dropout-bits slots a dropout variant would add."""
     assert qf.mlp_smem() <= qf.mlp_smem(drop=True) <= SMEM_LIMIT
     assert qf.mlp_smem(drop=True) - qf.mlp_smem() == 2 * 64 * 64 * 2
-    ring = qf.MLP_RING_STAGES * qf.MLP_STAGE_BOXES * qf.MLP_BOX_BYTES
+    ring = qf.MLP_RING_STAGES * qf.mlp_layout(768)["sb"] * qf.MLP_BOX_BYTES
     assert qf.mlp_smem() > 64 * 768 + ring  # x's codes and the ring
 
 
@@ -579,14 +583,14 @@ def test_row9_launch_passes_live_maps_across_an_eviction(monkeypatch, m, cap):
     splits = qf.mlp_splits(m, HIDDEN, H100_SMS)
     part, shs, *rest = launches[-1]
     assert (part is None) == (shs is None) == (splits == 1)
-    assert rest[:4] == [m, 3072, qf.mlp_grid(m, splits), splits]
+    assert rest[:5] == [m, 768, 3072, qf.mlp_grid(m, splits), splits]
     assert len(qf._MAPS) <= cap
 
 
 @pytest.mark.parametrize("bad", [
-    {"k": 512},                      # K must be 768
+    {"k": 512},                      # K in MLP_WIDTHS
     {"h": 3072 - 32},                # hidden in whole 64-column chunks
-    {"n": 512},                      # output width 768
+    {"n": 512},                      # output width K
     {"x_dtype": torch.float16},      # x bf16
     {"w_dtype": torch.uint8},        # codes int8
 ])
@@ -647,21 +651,26 @@ def test_row8_map_extents(rows, cols, operand, box):
 
 
 def test_row8_shared_memory_budget():
-    """The mirror of the source's layout: x's codes for 128 rows, six ring
-    stages of two boxes, four staged y boxes (a pair a warpgroup), the row
-    scales, the barriers and the slack fit a block; the constants are the
-    source's (the whole mode's K 768, the partial mode's 384)."""
+    """The mirror of the source's three layouts: x's codes for 128 rows at
+    the layout's widest K (384, 768 or 1,024), six ring stages of two boxes
+    up to K = 768 and four past it, four staged y boxes (a pair a
+    warpgroup), the row scales, the barriers and the slack fit a block; the
+    constants are the source's (K 192 to 1,024)."""
     src = MATMUL_SRC.read_text()
-    for const in ("K_WHOLE = 768;", "K_SHARE = 384;", "BM = 128;", "BN = 128;", "KB = 128;",
-                  "NS = 6;",
-                  "BOX = 8192;", "STAGE = 2 * BOX;", "THREADS = 384;"):
+    for const in ("K_MIN = 192;", "K_LOW = 384;", "K_MID = 768;", "K_MAX = 1024;", "BM = 128;",
+                  "BN = 128;", "KB = 128;", "BOX = 8192;", "STAGE = 2 * BOX;",
+                  "THREADS = 384;"):
         assert f"constexpr int {const}" in src
-    for off in ("SCALE_OFF = OUT_OFF + 4 * BOX;", "BAR_OFF = SCALE_OFF + BM * 4;",
-                "SMEM = BAR_OFF + 8 * 2 * NS + 1024;"):
-        assert f"constexpr int {off}" in src
-    assert (qf.MATMUL_ROW_TILE, qf.MATMUL_COL_TILE, qf.MATMUL_RING_STAGES) == (128, 128, 6)
-    assert qf.matmul_smem() == 231008 <= SMEM_LIMIT
+    for off in ("NS = KMAX <= K_MID ? 6 : 4;", "SCALE_OFF = OUT_OFF + 4 * BOX;",
+                "BAR_OFF = SCALE_OFF + BM * 4;", "SMEM = BAR_OFF + 8 * 2 * NS + 1024;"):
+        assert f"static constexpr int {off}" in src
+    assert (qf.MATMUL_ROW_TILE, qf.MATMUL_COL_TILE) == (128, 128)
+    assert qf.MATMUL_LAYOUTS == {384: 6, 768: 6, 1024: 4}
+    assert qf.matmul_smem(192) == qf.matmul_smem(384) == 181856
+    assert qf.matmul_smem() == qf.matmul_smem(448) == 231008 <= SMEM_LIMIT
     assert qf.matmul_smem() > 128 * 768 + 6 * 2 * 8192 + 4 * 8192  # codes, ring, y boxes
+    assert qf.matmul_smem(832) == qf.matmul_smem(1024) == 230976 <= SMEM_LIMIT
+    assert qf.matmul_smem(1024) > 128 * 1024 + 4 * 2 * 8192 + 4 * 8192
 
 
 def test_row8_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
@@ -706,7 +715,7 @@ def test_row8_launch_passes_live_maps_across_an_eviction(monkeypatch, m, n, cap)
         assert name == "w8a8_matmul_sm90"
         if symbol == "w8a8_matmul_sm90_encode":
             return _fake_encoder(calls)
-        assert symbol is None and len(argtypes) == 9
+        assert symbol is None and len(argtypes) == 10
         return kernel
 
     monkeypatch.setattr(qf._build, "load", fake_load)
@@ -726,13 +735,13 @@ def test_row8_launch_passes_live_maps_across_an_eviction(monkeypatch, m, n, cap)
     maps, rest = seen[-1]
     assert [struct.unpack("<q", b[:8])[0] for b in maps] == [qw.data_ptr(), y.data_ptr()]
     grid_x, _, per = qf.matmul_grid(m, n, H100_SMS)
-    assert rest == (x.data_ptr(), sw.data_ptr(), m, n, grid_x, per, 0)
+    assert rest == (x.data_ptr(), sw.data_ptr(), m, n, 768, grid_x, per, 0)
     assert len(qf._MAPS) <= cap
 
 
 @pytest.mark.parametrize("bad", [
-    {"k": 512},                      # K must be 768
-    {"n": 1536},                     # N is proj's 768 or qkv's 2304
+    {"k": 96},                       # K in [192, 1024]
+    {"n": 1504},                     # N a multiple of 64
     {"x_dtype": torch.float16},      # x bf16
     {"w_dtype": torch.uint8},        # codes int8
     {"sw_dtype": torch.bfloat16},    # scales fp32
@@ -1306,7 +1315,7 @@ def test_row10_launch_passes_live_maps_across_an_eviction(monkeypatch, m, cap):
         assert name == "w8a8_mlp_sm90"
         if symbol == "w8a8_mlp_sm90_encode":
             return _fake_encoder(calls)
-        assert symbol == "w8a8_mlp_sm90_drop" and len(argtypes) == 18
+        assert symbol == "w8a8_mlp_sm90_drop" and len(argtypes) == 19
         return kernel
 
     monkeypatch.setattr(qf._build, "load", fake_load)
@@ -1326,7 +1335,7 @@ def test_row10_launch_passes_live_maps_across_an_eviction(monkeypatch, m, cap):
     rest = launches[-1]
     part, shs = rest[6:8]
     assert (part is None) == (shs is None) == (splits == 1)
-    assert rest[8:] == (m, HIDDEN, qf.mlp_grid(m, splits), splits, 6554,
+    assert rest[8:] == (m, 768, HIDDEN, qf.mlp_grid(m, splits), splits, 6554,
                         qf.keep_scale16(6554), 0)
     assert len(qf._MAPS) <= cap
 
@@ -1583,3 +1592,325 @@ def test_entries_key_the_mask_by_the_row_index(src, entry):
     hash_src = (fa._build.CSRC / "dropout_hash.cuh").read_text()
     assert ("(row_index == nullptr ? b : row_index[b]) * heads_total + head0 + h"
             in hash_src)
+
+
+# --------------------------- rows 6-10 at the presets' widths (vlmo_tiny to vlmo_large)
+
+FUSED_SRC = mf._build.CSRC / "fused_mlp_sm90.cu"
+MLP_SRC = qf._build.CSRC / "w8a8_mlp_sm90.cu"
+
+
+def _chunk_stages(k: int) -> tuple[int, int]:
+    """The source's `w1_stages` and `pieces` at K = N = k: W1 stages of
+    STAGE_BOXES boxes of K (the last the rest), and the 128-column output
+    pieces a consumer warpgroup takes (one W2 stage each)."""
+    return -(-(k // 64) // mf.STAGE_BOXES), -(-(-(-k // 128)) // 2)
+
+
+def _stage_boxes(k: int) -> list[tuple[int, ...]]:
+    """The boxes each stage of a chunk loads at width k, as the source's
+    `inside` decides: a W1 stage's boxes inside K, a W2 stage's boxes whose
+    first output row is below N (box b for consumer warpgroup b // 2)."""
+    s1, pw = _chunk_stages(k)
+    sb = mf.STAGE_BOXES
+    stages = [tuple(b for b in range(sb) if sb * st + b < k // 64) for st in range(s1)]
+    stages += [tuple(b for b in range(sb) if 128 * (pw * (b // 2) + st) + 64 * (b % 2) < k)
+               for st in range(pw)]
+    return stages
+
+
+@pytest.mark.parametrize("k,stages,boxes", [
+    (192, (1, 1), [(0, 1, 2), (0, 1, 2)]),             # vlmo_tiny: 3 W1 boxes; box 3 past N
+    (384, (2, 2), [(0, 1, 2, 3), (0, 1), (0, 1, 2, 3), (0, 1)]),  # vlmo_small
+    (768, (3, 3), [(0, 1, 2, 3)] * 6),                 # vlmo_base: as before
+])
+def test_rows_6_7_chunk_stages_at_the_presets_widths(k, stages, boxes):
+    """A chunk's ring stages at K = N = k: W1 stages of four 64 x 64 boxes
+    of K (the last the rest), then one W2 stage per 128-column piece a
+    consumer warpgroup takes (pieces split in halves, the first to
+    warpgroup 0); the W1 boxes cover K once and the W2 boxes every output
+    row below N once, and a box wholly past N is not loaded."""
+    assert _chunk_stages(k) == stages
+    got = _stage_boxes(k)
+    assert got == boxes
+    s1, pw = stages
+    assert sum(len(b) for b in got[:s1]) == k // 64
+    rows = sorted(128 * (pw * (b // 2) + st) + 64 * (b % 2)
+                  for st, bs in enumerate(got[s1:]) for b in bs)
+    assert rows == list(range(0, k, 64))
+    src = FUSED_SRC.read_text()
+    assert "return (k / 64 + SB - 1) / SB;" in src and "return ((k + 127) / 128 + 1) / 2;" in src
+    assert "W2_WHOLE || 128 * (PW * (b / 2) + st - S1) + 64 * (b % 2) < K;" in src
+    # every box of every stage at 768 alone
+    assert "W1_WHOLE = SB * S1 == XB, W2_WHOLE = 2 * PW * 128 == K;" in src
+    assert [all(len(b) == mf.STAGE_BOXES for b in _stage_boxes(w)) for w in (192, 384, 768)] \
+        == [False, False, True]
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_rows_6_7_shared_memory_is_the_768_layout_at_every_width(drop):
+    """The layout is the 768-wide one at every width (x's tile at K = 768,
+    three 32 KB stages, two h tiles, the bits slots with DROP), within a
+    block; the kernel reports its own through `fused_mlp_sm90_smem`,
+    held against this by `chip_smoke.py`."""
+    src = FUSED_SRC.read_text()
+    for const in ("K_MAX = 768;", "NS = 3;", "STAGE = 32768;", "BOX = 8192;"):
+        assert f"constexpr int {const}" in src
+    assert (mf.RING_STAGES, mf.STAGE_BOXES, mf.BOX_BYTES) == (3, 4, 8192)
+    assert mf.sm90_smem(drop) == (230488 if drop else 214104) <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("k", [192, 384, 768])
+def test_rows_6_7_shape_checks_pass_at_the_presets_widths(k):
+    h = 4 * k
+    assert mf._sm90_shapes("t", *_mlp_args(m=1000, k=k, h=h, n=k)) == (1000, h, k)
+    x, w1, b1, w2, _, bits = _mlp_args(m=130, k=k, h=h // 2, n=k)
+    assert mf._sm90_shapes("t", x, w1, b1, w2, None, bits) == (130, h // 2, k)  # a share
+
+
+@pytest.mark.parametrize("k,n", [(96, 96), (1088, 1088), (1024, 1024), (384, 768),
+                                 (200, 200)])
+def test_rows_6_7_shape_checks_raise_at_widths_not_built(k, n):
+    """vlmo_debug's 96, 1,088, vlmo_large's 1,024 (which `fits_vmem` never
+    sends here), K != N, and N % 64 != 0 raise ValueError."""
+    with pytest.raises(ValueError):
+        mf._sm90_shapes("fused_mlp_fwd", *_mlp_args(k=k, h=4 * k, n=n)[:5])
+
+
+@pytest.mark.parametrize("m,n,grid_x,grid_y,per", [
+    (2560, 3072, 20, 6, 4),     # vlmo_large's qkv, the request's text stream
+    (15168, 3072, 119, 1, 24),  # its fused stream
+    (15168, 1024, 119, 1, 8),   # its proj
+    (7584, 1536, 60, 2, 6),     # qkv's share at T = 2, the step's fused rows
+    (7584, 576, 60, 2, 3),      # vlmo_base's qkv share at T = 4: 4.5 tiles
+    (1280, 576, 10, 5, 1),      # and 5 tiles at the step's text rows
+    (2560, 192, 20, 2, 1),      # vlmo_tiny's proj: 1.5 tiles
+])
+def test_row8_grid_counts_a_64_column_tail_as_a_tile(m, n, grid_x, grid_y, per):
+    assert qf.matmul_grid(m, n, H100_SMS) == (grid_x, grid_y, per)
+    tiles = -(-n // 128)
+    assert (grid_y - 1) * per < tiles <= grid_y * per
+
+
+@pytest.mark.parametrize("k", range(192, 1025, 64))
+def test_row8_takes_every_k_of_the_range(k):
+    """Every K % 64 == 0 from 192 to 1,024 passes the check (with N of
+    qkv, proj and a 64-column tail) and gets its layout: six ring stages
+    up to 768 (room for 384 or 768), four past it, within a block; the
+    source's encoder takes
+    qw (N, K) in 128-byte boxes (a box past K at K % 128 == 64 is filled
+    with zeros by TMA)."""
+    for n in (3 * k, k, 576):
+        x = torch.empty(97, k, dtype=torch.bfloat16, device="meta")
+        qw = torch.empty(n, k, dtype=torch.int8, device="meta")
+        assert qf._check_matmul("t", x, qw, torch.empty(n, device="meta")) == (97, n, k)
+    widest, stages = qf.matmul_layout(k)
+    assert (widest, stages) == ((384, 6) if k <= 384 else (768, 6) if k <= 768 else (1024, 4))
+    assert qf.matmul_smem(k) <= SMEM_LIMIT
+    dims, strides, box, _ = qf.matmul_map_extents(3 * k, k, "w")
+    assert dims == (k, 3 * k) and strides[0] % 16 == 0 and box == (128, 64)
+
+
+@pytest.mark.parametrize("k,n", [(96, 768), (128, 384), (1088, 1024), (768, 1000),
+                                 (1024, 100)])
+def test_row8_checks_raise_at_widths_not_built(k, n):
+    """K below 192 (vlmo_debug's 96, 128) or past 1,024, and N % 64 != 0
+    raise ValueError in both modes."""
+    x = torch.empty(64, k, dtype=torch.bfloat16, device="meta")
+    qw = torch.empty(n, k, dtype=torch.int8, device="meta")
+    sw, amax = torch.empty(n, device="meta"), torch.empty(64, device="meta")
+    with pytest.raises(ValueError):
+        qf.w8a8_matmul(x, qw, sw)
+    with pytest.raises(ValueError):
+        qf.w8a8_matmul_partial(x, qw, sw, amax)
+
+
+@pytest.mark.parametrize("k,layout,smem", [
+    (192, {"xt": 2, "parts": 1, "pc": 2, "pw": 1, "sb": 2}, (68608, 84992)),
+    (384, {"xt": 3, "parts": 1, "pc": 3, "pw": 2, "sb": 4}, (109568, 125952)),
+    (768, {"xt": 6, "parts": 1, "pc": 6, "pw": 3, "sb": 6}, (166912, 183296)),
+    (1024, {"xt": 8, "parts": 2, "pc": 4, "pw": 2, "sb": 8}, (216064, 232448)),
+])
+def test_rows_9_10_layout_at_the_presets_widths(k, layout, smem):
+    """x's code tiles, the parts of the second product (two at 1,024: 512
+    columns each, 128 registers a consumer thread), the 128-column pieces
+    a part loads and a warpgroup takes, the stage's boxes, and the shared
+    memory without and with the bits slots (all a block may use at 1,024
+    with them), as the source's `layout` computes them (held against the
+    kernel's own `w8a8_mlp_sm90_smem` by `chip_smoke.py`)."""
+    assert qf.mlp_layout(k) == layout
+    assert (qf.mlp_smem(False, k), qf.mlp_smem(True, k)) == smem
+    assert max(smem) <= SMEM_LIMIT
+    assert layout["pw"] <= 3  # a warpgroup's pieces fit its acc[3][64]
+    assert layout["pc"] * 128 * layout["parts"] >= k > (layout["pc"] - 1) * 128
+    src = MLP_SRC.read_text()
+    assert "l.parts = k > K_PART ? 2 : 1;" in src and "constexpr int K_PART = 768;" in src
+    assert "static_assert(layout(768, true).smem == 183296" in src
+
+
+@pytest.mark.parametrize("k", [192, 384, 768, 1024])
+def test_rows_9_10_checks_pass_at_the_presets_widths(k):
+    h = 4 * k
+    assert qf._check_mlp("t", *_w8a8_args(m=130, k=k, h=h, n=k)) == (130, k, h)
+    bits = torch.zeros(130, h, dtype=torch.int16)
+    assert qf._check_mlp("t", *_w8a8_args(m=130, k=k, h=h, n=k), bits) == (130, k, h)
+    dims, _, box, swizzle = qf.mlp_map_extents(k, h, "w2")
+    assert dims == (h, k) and box == (64, 128) and swizzle == 64
+
+
+@pytest.mark.parametrize("k,n", [(96, 96), (1088, 1088), (512, 512), (1024, 768),
+                                 (200, 200)])
+def test_rows_9_10_checks_raise_at_widths_not_built(k, n):
+    """vlmo_debug's 96, 1,088, a width no preset has (512), K != N and N %
+    64 != 0 raise ValueError, whole and split."""
+    args = _w8a8_args(k=k, n=n)
+    with pytest.raises(ValueError):
+        qf._launch_mlp_sm90(*args)
+    with pytest.raises(ValueError):
+        qf._launch_mlp_split(*args[:6], lambda a: a)
+
+
+def _ring_run(rng, ctas, stages, uses, readers, release_count, order=None):
+    """One random schedule of a ring of `stages` slots that `uses` loads
+    pass through, as the sources run it; returns its faults. Each of the
+    `ctas` CTAs of a cluster has a producer that loads its share of every
+    use into all CTAs (multicast) after waiting, on its own CTA's empty
+    barrier of the slot, by the parity ((u // stages) & 1) ^ 1; a CTA's
+    full barrier completes once its own producer has armed it and every
+    share has landed. The consumer warpgroups `readers(u)` of every CTA
+    wait for use u on their CTA's full barrier by (u // stages) & 1, read
+    it and release it on the empty barrier of every CTA, whose phase
+    completes after `release_count` arrivals. With `order` (row 8's order
+    barrier: uses of one tile, tiles taken by the warpgroups in turn) a
+    warpgroup starts a tile only once the previous tile is released.
+    Faults: a wait that passes before its use has landed in its CTA, a
+    load into a slot a consumer still reads, a wedged schedule."""
+    consumers = [(c, w) for c in range(ctas) for w in (0, 1)]
+    full = [[0] * stages for _ in range(ctas)]
+    empty = [[0] * stages for _ in range(ctas)]
+    arrivals = [[0] * stages for _ in range(ctas)]
+    issued = [0] * ctas  # uses each producer has issued (armed and sent)
+    landed = set()  # (use, producer)
+    nxt = {cw: 0 for cw in consumers}
+    holding = dict.fromkeys(consumers, False)
+    released = [0] * uses  # consumer releases of each use
+    armed = [[-1] * stages for _ in range(ctas)]  # the use a CTA's full barrier waits for
+
+    def mine(cw, u):
+        return u < uses and cw[1] in readers(u)
+
+    def skip(cw):
+        while nxt[cw] < uses and not mine(cw, nxt[cw]):
+            nxt[cw] += 1
+
+    for cw in consumers:
+        skip(cw)
+    faults = 0
+    while True:
+        moves = []
+        for p in range(ctas):
+            u = issued[p]
+            if u < uses and empty[p][u % stages] % 2 == (u // stages) & 1:
+                moves.append(("issue", p))
+        moves += [("land", key) for key in [(u, p) for p in range(ctas)
+                                            for u in range(issued[p])] if key not in landed]
+        for cw in consumers:
+            u = nxt[cw]
+            if holding[cw]:
+                moves.append(("release", cw))
+            elif u < uses and full[cw[0]][u % stages] % 2 != (u // stages) & 1:
+                tile_ok = (order is None or u % order or u < order
+                           or all(released[v] == release_count
+                                  for v in range(u - order, u)))
+                if tile_ok:
+                    moves.append(("wait", cw))
+        if not moves:
+            done = all(nxt[cw] >= uses and not holding[cw] for cw in consumers)
+            return faults + (not done)
+        kind, arg = moves[rng.randrange(len(moves))]
+        if kind == "issue":
+            u = issued[arg]
+            faults += u >= stages and released[u - stages] < release_count
+            armed[arg][u % stages] = u
+            issued[arg] += 1
+        elif kind == "land":
+            landed.add(arg)
+        elif kind == "wait":
+            c, _ = arg
+            faults += any((nxt[arg], p) not in landed for p in range(ctas))
+            holding[arg] = True
+        else:
+            u = nxt[arg]
+            released[u] += 1
+            for c in range(ctas):
+                arrivals[c][u % stages] += 1
+                if arrivals[c][u % stages] == release_count:
+                    arrivals[c][u % stages] = 0
+                    empty[c][u % stages] += 1
+            holding[arg] = False
+            nxt[arg] += 1
+            skip(arg)
+        # a CTA's full barrier completes its phase once armed and landed
+        for c in range(ctas):
+            for s in range(stages):
+                u = armed[c][s]
+                if u >= 0 and all((u, p) in landed for p in range(ctas)):
+                    full[c][s] += 1
+                    armed[c][s] = -1
+
+
+def _ring_faults(trials, **kw) -> int:
+    import random
+    rng = random.Random(repr(sorted(kw.items(), key=lambda i: i[0])))
+    return sum(_ring_run(rng, **kw) for _ in range(trials))
+
+
+@pytest.mark.parametrize("row,stages,per_chunk", [
+    ("6/7", 3, 2), ("6/7", 3, 4), ("6/7", 3, 6),   # K = 192, 384, 768
+    ("9/10", 2, 2),                               # a W1 and a W2 stage a chunk
+    ("bits", 2, 1),                               # rows 7 and 10's bits slots
+])
+def test_rings_of_rows_6_7_9_10_wait_only_for_landed_loads(row, stages, per_chunk):
+    """The audit of rows 6, 7, 9 and 10's rings (ROADMAP C, parity
+    aliasing): both consumer warpgroups of both CTAs of a cluster read
+    every stage, and each stage's empty barrier counts every one of them
+    (2 x CL, the sources' `mbar_init(empty0 + 8 * s, 2 * CL)` and `2 *
+    CLM`), so no warpgroup runs a ring's length ahead of another and no
+    parity wait meets the phase two before its own: no fault, at the
+    stages a chunk takes at each width. The bits slots are read by both
+    warpgroups of one CTA and freed once both have (a named barrier, or
+    each warp's arrival). Counting one release a stage lets a producer
+    overwrite a stage in use, which the model finds: it has teeth."""
+    ctas = 1 if row == "bits" else 2
+    uses = 6 * per_chunk
+    kw = dict(ctas=ctas, stages=stages, uses=uses, readers=lambda u: (0, 1))
+    assert _ring_faults(120, release_count=2 * ctas, **kw) == 0
+    assert _ring_faults(120, release_count=1, **kw) > 0
+    fused, mlp = FUSED_SRC.read_text(), MLP_SRC.read_text()
+    assert "mbar_init(empty0 + 8 * s, 2 * CL);" in fused
+    assert "mbar_init(empty0 + 8 * s, 2 * CLM);" in mlp
+    assert "mbar_init(bempty0 + 8 * s, 8);" in mlp and "mbar_init(bempty0 + 8 * s, 1);" in fused
+    assert "named_bar_sync(1, 256);  // the whole 64 x 64 h tile is written (and the bits read)" in fused
+
+
+@pytest.mark.parametrize("k", [192, 384, 768, 1024])
+def test_row8_ring_waits_pass_only_for_landed_stages(k):
+    """Row 8's ring is read by one warpgroup a stage (the tile's owner;
+    one release a stage), the warpgroups taking alternate tiles of
+    ceil(K / 128) stages through NS = 6 (K <= 768) or 4 slots. The order
+    barrier (GO) lets a warpgroup start a tile only once the other has
+    released the previous one, so the stages are taken in load order and
+    no wait passes before its load has landed, at every width. Without it
+    a warpgroup that runs ahead takes a slot's earlier phase for its own
+    at the widths whose tile fills the ring (K = 768: six stages in six
+    slots): the model has teeth."""
+    ks = -(-k // 128)
+    stages = qf.matmul_layout(k)[1]
+    kw = dict(ctas=1, stages=stages, uses=4 * ks, readers=lambda u: ((u // ks) % 2,),
+              release_count=1)
+    assert _ring_faults(150, order=ks, **kw) == 0
+    if ks == stages:
+        assert _ring_faults(150, **kw) > 0
+    src = MATMUL_SRC.read_text()
+    assert "if (w == 1 || j > 0) named_bar_sync(GO + w, 256);" in src
+    assert "if (j + w < theirs) named_bar_arrive(GO + 1 - w, 256);" in src

@@ -429,10 +429,10 @@ def test_plain_partial_mlp_summed_is_the_whole(dtype, drop):
 def test_partial_launch_hands_the_kernel_an_fp32_y_and_no_b2(monkeypatch, m, drop):
     """Rows 6 and 7's partial mode on the card's route (the wrapper driven
     with a fake loader, as tests/test_torch_port_sm90_host.py drives it):
-    an fp32 (M, 768) y, a null b2, the partial flag set, and the hidden
-    split of the share (several splits at M = 128, one at 7,584, where the
-    kernel stores into y itself and needs no scratch); the source sums the
-    splits in fp32 without b2."""
+    an fp32 (M, 768) y, a null b2, the width, the partial flag set, and the
+    hidden split of the share (several splits at M = 128, one at 7,584,
+    where the kernel stores into y itself and needs no scratch); the source
+    sums the splits in fp32 without b2."""
     import types
 
     launches = []
@@ -460,7 +460,7 @@ def test_partial_launch_hands_the_kernel_an_fp32_y_and_no_b2(monkeypatch, m, dro
     args = launches[-1][4 if drop else 3:]
     splits = mlp_fused.hidden_splits(m, hidden, 132)
     assert args[0] == b1.data_ptr() and args[1] is None and args[2] == y.data_ptr()
-    assert (args[3] is None) == (splits == 1) and args[4:8] == (m, hidden, splits, 1)
+    assert (args[3] is None) == (splits == 1) and args[4:9] == (m, 768, hidden, splits, 1)
     assert (splits > 1) == (m == 128)
     src = (mlp_fused._build.CSRC / "fused_mlp_sm90.cu").read_text()
     assert "splits > 1 ? part : partial ? y : nullptr" in src

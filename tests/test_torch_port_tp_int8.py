@@ -350,9 +350,10 @@ def _fake_card(monkeypatch, launches):
 
 def test_row8_partial_launch_and_checks(monkeypatch):
     """Row 8's partial mode on the card's route: the `_partial` entry with
-    qw's map, x, sw, the rows' absmax and an fp32 y (M, 768), the grid of
-    `matmul_grid`, one launch counted; shapes other than proj's row share
-    at a tensor axis of 2 (K 384, N 768) raise ValueError."""
+    qw's map, x, sw, the rows' absmax and an fp32 y (M, 768), the width
+    (K 384: proj's row share at a tensor axis of 2), the grid of
+    `matmul_grid`, one launch counted; an x, qw, sw or amax whose shape
+    disagrees with the others raises ValueError."""
     launches = []
     _fake_card(monkeypatch, launches)
     m = 6304
@@ -365,9 +366,9 @@ def test_row8_partial_launch_and_checks(monkeypatch):
     assert qf.w8a8_matmul_partial.launches - before == 1
     symbol, nargs, args = launches[-1]
     grid_x, _, per = qf.matmul_grid(m, 768, 132)
-    assert symbol == "w8a8_matmul_sm90_partial" and nargs == len(args) == 10
+    assert symbol == "w8a8_matmul_sm90_partial" and nargs == len(args) == 11
     assert args[1:] == (x.data_ptr(), sw.data_ptr(), amax.data_ptr(), y.data_ptr(), m, 768,
-                        grid_x, per, 0)
+                        384, grid_x, per, 0)
     for bad in ((torch.empty(m, 768, dtype=torch.bfloat16, device="meta"), qw, sw, amax),
                 (x, torch.empty(2304, 384, dtype=torch.int8, device="meta"), sw, amax),
                 (x, qw, sw, torch.empty(m - 1, device="meta"))):
@@ -410,7 +411,7 @@ def test_rows_9_10_split_launch_two_entries_around_the_reduce(monkeypatch, m, dr
     assert first[maps + 4] == second[maps + 4]  # the absmax, where b2 was
     assert second[maps + 5] == y.data_ptr()
     splits = qf.mlp_splits(m, h, 132)
-    assert first[maps + 8:maps + 12] == (m, h, qf.mlp_grid(m, splits), splits)
+    assert first[maps + 8:maps + 13] == (m, 768, h, qf.mlp_grid(m, splits), splits)
     assert all(n == len(a) for _, n, a in launches)
 
 
