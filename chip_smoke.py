@@ -350,6 +350,7 @@ from exploremultimodal_torch.ops.dvae_conv import (
 )
 from exploremultimodal_torch.ops.flash_attention import (
     FULL_ROW_FWD_MAX,
+    HEAD_DIMS,
     LONG_TILE,
     SM90_BWD_MAX_N,
     SM90_BWD_ROLES,
@@ -827,6 +828,16 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def demangle(symbol: str) -> str:
+    """A kernel's C++ name from its mangled symbol, through c++filt where the
+    machine has it."""
+    try:
+        return subprocess.run(["c++filt", symbol], check=True, capture_output=True,
+                              text=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return symbol
+
+
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of one call, from CUDA events around `iters` calls.
     The calls are queued behind a device-side sleep of QUEUE_CYCLES, which
@@ -860,25 +871,27 @@ def text_mask(rng: np.random.Generator, batch: int, length: int) -> np.ndarray:
 def check_layouts() -> dict:
     """The shared memory each sm90 kernel with a layout mirrored on the
     host reports for itself against that mirror (rows 1, 2/4 at every key
-    width up to SM90_BWD_MAX_N, the streamed kernel of rows 1, 3 and 5, 6
-    and 7, 8 at every K it takes, 9 and 10 at every preset's width), all
-    within the 232,448 bytes a block may use."""
-    fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int],
+    width up to SM90_BWD_MAX_N, the streamed kernel of rows 1, 3 and 5, each
+    at both head dims; 6 and 7, 8 at every K it takes, 9 and 10 at every
+    preset's width), all within the 232,448 bytes a block may use."""
+    fwd_smem = _build.load("flash_attention_fwd_sm90", [ctypes.c_int] * 2,
                            "flash_attention_fwd_sm90_smem")
-    stream_smem_fn = _build.load("flash_attention_long_sm90", [],
+    stream_smem_fn = _build.load("flash_attention_long_sm90", [ctypes.c_int],
                                  "flash_attention_long_sm90_smem")
-    bwd_smem = _build.load("flash_attention_bwd_sm90", [ctypes.c_int] * 2,
+    bwd_smem = _build.load("flash_attention_bwd_sm90", [ctypes.c_int] * 3,
                            "flash_attention_bwd_sm90_smem")
     mlp_smem_fn = _build.load("w8a8_mlp_sm90", [ctypes.c_int] * 2, "w8a8_mlp_sm90_smem")
     matmul_smem_fn = _build.load("w8a8_matmul_sm90", [ctypes.c_int], "w8a8_matmul_sm90_smem")
     fused_smem_fn = _build.load("fused_mlp_sm90", [ctypes.c_int], "fused_mlp_sm90_smem")
-    got = {f"flash_attention_fwd_sm90 nt={nt}": (fwd_smem(nt), fwd_sm90_smem(nt))
-           for nt in range(16, 257, 16)}
-    for r, role in enumerate(SM90_BWD_ROLES):
-        got.update({f"flash_attention_bwd_sm90 {role} nt={nt}":
-                    (bwd_smem(nt, r), bwd_sm90_layout(nt, role)["smem"])
-                    for nt in range(16, SM90_BWD_MAX_N + 1, 16)})
-    got["flash_attention_long_sm90"] = (stream_smem_fn(), stream_smem())
+    got = {}
+    for d in HEAD_DIMS:
+        got.update({f"flash_attention_fwd_sm90 nt={nt} d={d}":
+                    (fwd_smem(nt, d), fwd_sm90_smem(nt, d)) for nt in range(16, 257, 16)})
+        for r, role in enumerate(SM90_BWD_ROLES):
+            got.update({f"flash_attention_bwd_sm90 {role} nt={nt} d={d}":
+                        (bwd_smem(nt, r, d), bwd_sm90_layout(nt, role, d)["smem"])
+                        for nt in range(16, SM90_BWD_MAX_N + 1, 16)})
+        got[f"flash_attention_long_sm90 d={d}"] = (stream_smem_fn(d), stream_smem(d))
     got.update({f"w8a8_matmul_sm90 k={k}": (matmul_smem_fn(k), matmul_smem(k))
                 for k in range(MATMUL_K_MIN, MATMUL_K_MAX + 1, 64)})
     for k in MLP_WIDTHS:
@@ -1801,12 +1814,15 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
     batch) the kernels and the plain mask key each head by it; the mask is
     then required to differ from the one each row's own index gives. With
     `heads` of each row's `heads_total` from `head0` on (a tensor rank's),
-    the plain mask is required equal to the whole call's at those heads."""
+    the plain mask is required equal to the whole call's at those heads.
+    The windows take half the head dim each: 31 wide at D = 64 (q's from
+    dim 32), 15 at vlmo_debug's 32 (q's from dim 16)."""
     d = cfg.embed_dim // cfg.num_heads
+    half = d // 2
     heads = heads or cfg.num_heads
     offset = {} if heads_total is None else {"heads_total": heads_total, "head0": head0}
     n = n or cfg.max_text_len + (cfg.img_size // cfg.patch_size) ** 2 + 1
-    b, rate, scale, width = batch, cfg.attn_drop_rate, d ** -0.5, 31
+    b, rate, scale, width = batch, cfg.attn_drop_rate, d ** -0.5, half - 1
     bh = b * heads
     seed = torch.tensor([DROP_SEED + 1], dtype=torch.int32, device=dev)
     keep = dropout_keep_mask_plain(seed, bh, n, rate, row_index, batch=b, **offset) != 0
@@ -1825,12 +1841,12 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
         w = min(width, n - c)
         i = torch.arange(w, device=dev)
         q, k, v, do = (torch.zeros((bh, n, d), device=dev) for _ in range(4))
-        q[:, c + i, 32 + i] = 1
+        q[:, c + i, half + i] = 1
         k[:, c + i, i] = 1
         v[:, :, 0] = 1
         v[:, c + i, 1 + i] = 1
         do[:, :, 0] = 1
-        do[:, c + i, 32 + i] = 1
+        do[:, c + i, half + i] = 1
         q, k, v, do = (t.to(torch.bfloat16) for t in (q, k, v, do))
         out, _ = flash_attention_fwd_drop(q, k, v, kb, seed, scale, rate, row_index,
                                           **offset)
@@ -1843,10 +1859,10 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
         torch.cuda.synchronize()
         require(torch.equal(out[:, :, 1:1 + w] != 0, keep[:, :, c:c + w]),
                 f"dropout forward: mask bits differ in key window {c}..{c + w}")
-        require(torch.equal(dv[:, :, 32:32 + w] != 0, keep[:, c:c + w, :].transpose(1, 2)),
+        require(torch.equal(dv[:, :, half:half + w] != 0, keep[:, c:c + w, :].transpose(1, 2)),
                 f"dropout backward dv: mask bits differ in query window {c}..{c + w}")
         dq_err = (dq[:, :, :w].float() - pq[:, :, :w].float()).abs().max().item()
-        dk_err = (dk[:, :, 32:32 + w].float() - pk[:, :, 32:32 + w].float()).abs().max().item()
+        dk_err = (dk[:, :, half:half + w].float() - pk[:, :, half:half + w].float()).abs().max().item()
         require(dq_err <= ds_tol and dk_err <= ds_tol,
                 f"dropout backward dq/dk: max|err| {dq_err}, {dk_err} beyond {ds_tol} "
                 f"in window {c}..{c + w}: a mask bit differs")
@@ -1857,12 +1873,14 @@ def check_dropout_mask(cfg: VlmoConfig, dev, batch: int, n: int | None = None,
 
 
 def cpu_check_phase(overrides: list[str] = TRAIN_OVERRIDES,
-                    tag: str = "train_cpu_check") -> dict:
+                    tag: str = "train_cpu_check", depth: list[str] = CHECK_DEPTH,
+                    names=at_check_depth(CHECKED_PARAMS)) -> dict:
     """One pretrain_mum step at batch CPU_TRAIN_BATCH on the card and on the
     CPU's plain path: same seeded weights, batch (the CPU trainer's first),
     attention-dropout seeds, ITM negatives and MIM labels (the CPU dVAE's),
-    hidden dropout and DropPath off."""
-    cfg_dict = load_config(overrides + CHECK_DEPTH + [
+    hidden dropout and DropPath off; at `depth` (CHECK_DEPTH, or [] for the
+    preset's own), the `names` gradients held."""
+    cfg_dict = load_config(overrides + depth + [
         f"data.batch_size={CPU_TRAIN_BATCH}", "model.drop_rate=0.0",
         "model.drop_path_rate=0.0"])
     gpu, cpu = Trainer(cfg_dict, device="cuda"), Trainer(cfg_dict, device="cpu")
@@ -1873,8 +1891,7 @@ def cpu_check_phase(overrides: list[str] = TRAIN_OVERRIDES,
     negatives = (torch.arange(1, b + 1) % b, torch.arange(b - 1, 2 * b - 1) % b)
     agreement = (gpu_labels == labels).float().mean().item()
     print(f"{tag}: dvae_token_agreement {agreement}", flush=True)
-    result = compare_step(tag, gpu, cpu, batch, at_check_depth(CHECKED_PARAMS),
-                          negatives=negatives, mim_labels=labels)
+    result = compare_step(tag, gpu, cpu, batch, names, negatives=negatives, mim_labels=labels)
     del gpu, cpu
     torch.cuda.empty_cache()
     return result
@@ -4787,17 +4804,18 @@ def width_weights(g, dev, k: int, h: int, dtype=torch.bfloat16):
     return w1, b1, w2, b2
 
 
-def check_widths_bf16_mlp(dev) -> list[dict]:
-    """Rows 6 and 7 at vlmo_tiny's and vlmo_small's widths (K = N = 192 and
-    384, hidden 4x): row 6 at the serving M of a batch-64 request, row 7 at
-    the finetune_vqa step's M (threshold of drop_rate 0.1), each against
-    its plain version within MLP_ATOL / MLP_RTOL and timed beside it and
-    the library chain (bf16 linear, tanh gelu[, where], linear)."""
-    g = torch.Generator(device=dev).manual_seed(30)
+def check_widths_bf16_mlp(dev, models=NARROW_PRESETS, seed: int = 30) -> list[dict]:
+    """Rows 6 and 7 at the widths of `models` (by default vlmo_tiny's and
+    vlmo_small's, K = N = 192 and 384, hidden 4x): row 6 at the serving M
+    of a batch-64 request, row 7 at the finetune_vqa step's M (threshold of
+    drop_rate 0.1), each against its plain version within MLP_ATOL /
+    MLP_RTOL and timed beside it and the library chain (bf16 linear, tanh
+    gelu[, where], linear)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     t = MLP_DROP_THRESHOLDS[-1]
     rows = []
-    for model in NARROW_PRESETS:
+    for model in models:
         cfg = VlmoConfig.from_config(load_config([f"model={model}"]))
         k, h = cfg.embed_dim, int(cfg.embed_dim * cfg.mlp_ratio)
         w1, b1, w2, b2 = width_weights(g, dev, k, h)
@@ -5174,6 +5192,210 @@ def widths_only(card: str, dev) -> int:
     return 0
 
 
+# ---- phase 31: the default preset, vlmo_debug (96 wide, 3 heads: head dim
+# 32; depth 2, fusion layer 1), which `main` trains when no `model=` is
+# given: rows 1-5 at head dim 32, rows 6 and 7 at width 96 (ROADMAP §A9)
+DEBUG_MODEL = "vlmo_debug"
+DEBUG_MAIN = ["train.datasets=[synthetic]", f"data.batch_size={TRAIN_BATCH}"]
+DEBUG_MAIN_STEPS = 3  # main's `steps=N` at the default preset
+DEBUG_TRAIN_STREAMS = ("text", "image", "fused", "itm", "txt")
+DEBUG_SERVE_STREAMS = ("text", "image", "fused", "txt")
+DEBUG_HIRES_REQUESTS = 2
+
+
+def check_mlp_tail(dev) -> dict:
+    """Rows 6 and 7 at K = N = 96 with NaN in the memory just past x, W1 and
+    W2 (their last row), where a box that ran past the matrix would read:
+    x's and W1's second 64-column box covers K columns 64-127, W2's second
+    64-row box output rows 64-127, and the 32 past the matrix come from the
+    tensor map's zero fill. The K tail's products are not issued and the N
+    tail is not stored, so both kernels equal their plain versions and stay
+    finite."""
+    g = torch.Generator(device=dev).manual_seed(33)
+    k, h, m, t = 96, 384, 1000, MLP_DROP_THRESHOLDS[-1]
+
+    def with_nan_after(rows, cols, std):
+        buf = torch.full((rows + 1, cols), float("nan"), device=dev)
+        buf[:rows] = torch.randn((rows, cols), generator=g, device=dev) * std
+        return buf.to(torch.bfloat16)[:rows]
+
+    x, w1, w2 = with_nan_after(m, k, 1.0), with_nan_after(h, k, 0.02), with_nan_after(k, h, 0.02)
+    b1, b2 = (torch.randn(n, generator=g, device=dev) * 0.02 for n in (h, k))
+    bits = torch.randint(-32768, 32768, (m, h), dtype=torch.int16, generator=g, device=dev)
+    out = {}
+    for name, got, want in (
+            ("fused_mlp_fwd", fused_mlp_fwd(x, w1, b1, w2, b2),
+             fused_mlp_fwd_plain(x, w1, b1, w2, b2)),
+            ("fused_mlp_fwd_drop", fused_mlp_fwd_drop(x, w1, b1, w2, b2, bits, t),
+             fused_mlp_fwd_drop_plain(x, w1, b1, w2, b2, bits, t))):
+        torch.cuda.synchronize()
+        ok, err = within(got, want, MLP_ATOL, MLP_RTOL)
+        require(ok, f"{name} K=96 with NaN past the matrices: max|err| {err}, finite "
+                f"{bool(torch.isfinite(got.float()).all())}")
+        out[name] = err
+    return {"shape": f"M={m} K={k} H={h} N={k}", "max_abs_err": out}
+
+
+def debug_kernels(dev) -> dict:
+    """Rows 1-7 at vlmo_debug's shapes against their plain versions, each
+    timed beside it and its library call: row 1 at the serving streams of
+    batch 64 (BH = 192, N = 40 / 197 / 237) and pretrain_txt's 512 tokens
+    at batch 32 (BH = 96, the streamed kernel); rows 2-4 at the
+    pretrain_mum step's streams (BH = 96; ITM's 288) and at 512 tokens; the
+    dropout mask bit for bit at ITM's rows and at N = 512; row 5 at
+    1024^2, batch 8 (BH = 24, N = 4,097 / 4,137); rows 6 and 7 at K = N =
+    96, hidden 384, at the serving and step M, and with NaN past the
+    matrices."""
+    dicts = [load_config(preset_overrides(SERVE_OVERRIDES, DEBUG_MODEL)),
+             load_config(DEBUG_MAIN), load_config(preset_overrides(HIRES_OVERRIDES, DEBUG_MODEL))]
+    serve_cfg, train_cfg, hires_cfg = (VlmoConfig.from_config(d) for d in dicts)
+    for d, cfg in zip(dicts, (serve_cfg, train_cfg, hires_cfg)):
+        require(d["model"]["name"] == DEBUG_MODEL and cfg.embed_dim == 96
+                and cfg.embed_dim // cfg.num_heads == 32, "not vlmo_debug's widths")
+    out = {"flash_attention_fwd": check_attention(serve_cfg, np.random.default_rng(10), dev,
+                                                  only=DEBUG_SERVE_STREAMS)}
+    out.update(check_attention_train(train_cfg, np.random.default_rng(11), dev,
+                                     only=DEBUG_TRAIN_STREAMS))
+    out["dropout_mask"] = [check_dropout_mask(train_cfg, dev, 3 * TRAIN_BATCH),
+                           check_dropout_mask(train_cfg, dev, OFF_PATH_BATCH, SM90_BWD_MAX_N)]
+    out["flash_attention_fwd_long"] = check_attention_long(hires_cfg,
+                                                           np.random.default_rng(12), dev)
+    mlp = check_widths_bf16_mlp(dev, (DEBUG_MODEL,), seed=34)
+    out["fused_mlp_fwd"] = [r for r in mlp if r["name"] == "fused_mlp_fwd"]
+    out["fused_mlp_fwd_drop"] = [r for r in mlp if r["name"] == "fused_mlp_fwd_drop"]
+    out["mlp_tail"] = check_mlp_tail(dev)
+    return out
+
+
+def debug_main_phase(cfg: VlmoConfig) -> dict:
+    """`python -m exploremultimodal_torch.main` as a user runs it, with no
+    `model=`: DEBUG_MAIN_STEPS pretrain_mum steps of vlmo_debug on
+    synthetic data at batch 32 (`main(argv)` in this process, so its
+    launches are counted), rows 3 and 4 at the count derived from depth 2
+    and fusion layer 1, every step's metrics finite."""
+    import contextlib
+    import io
+
+    from exploremultimodal_torch import main as port_main
+
+    per_step = attention_calls_per_step(cfg)
+    expected = {"flash_attention_fwd_drop": per_step, "flash_attention_bwd_drop": per_step,
+                "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "fused_mlp_fwd": 0, "fused_mlp_fwd_drop": 0}
+    print(f"debug_main: expected launches per step (depth {cfg.depth}, fusion layer "
+          f"{cfg.fusion_layer}): {json.dumps(expected)}", flush=True)
+    for fn in KERNELS:
+        fn.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = port_main.main(DEBUG_MAIN + [f"steps={DEBUG_MAIN_STEPS}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    steps = [json.loads(line) for line in printed.getvalue().splitlines()
+             if line.startswith("{")]
+    require(rc == 0 and len(steps) == DEBUG_MAIN_STEPS,
+            f"debug_main: rc {rc}, {len(steps)} step lines")
+    require(all(np.isfinite(v) for m in steps for v in m.values()),
+            f"debug_main: non-finite metrics {steps}")
+    require_launches("debug_main", launches, expected, DEBUG_MAIN_STEPS)
+    result = {"steps": DEBUG_MAIN_STEPS, "wall_s": wall, "launches": launches,
+              "step_ms": [m["step_s"] * 1e3 for m in steps],
+              "losses": [{k: v for k, v in m.items() if k.endswith("_task_loss")}
+                         for m in steps]}
+    print("debug_main: " + json.dumps(result), flush=True)
+    return launches
+
+
+def debug_phase(card: str, dev) -> dict:
+    """Phase 31: vlmo_debug on the card. Its kernels (`debug_kernels`); the
+    default entry point (`debug_main_phase`); the step at attention dropout
+    0 under attn_impl=pallas (rows 1 and 2); pretrain_txt at 512 tokens
+    (row 3 on the streamed kernel, row 4 at N = 512); finetune_vqa under
+    mlp_impl=fused (rows 7, 3, 4); six batch-64 VQA requests under
+    attn_impl=pallas mlp_impl=fused (rows 1, 6) and two batch-8 1024^2 ones
+    (rows 5, 1, 6), each against the CPU plain path; one batch-2
+    pretrain_mum step against it at the preset's own depth. Returns the
+    kernel rows and each path's launches."""
+    t0 = time.perf_counter()
+    out = {"kernels": debug_kernels(dev)}
+    for name, rows in out["kernels"].items():
+        for row in rows if isinstance(rows, list) else [rows]:
+            print("kernel_debug: " + json.dumps({"name": name, **row}), flush=True)
+    elapsed("phase 31 kernels")
+
+    main_dict = load_config(DEBUG_MAIN)
+    cfg = VlmoConfig.from_config(main_dict)
+    require(main_dict["model"]["name"] == DEBUG_MODEL and cfg.attn_impl == "auto"
+            and cfg.attn_drop_rate > 0
+            and (cfg.depth, cfg.fusion_layer) == (2, 1) and cfg.mlp_impl == "xla",
+            "the default preset: vlmo_debug, depth 2, fusion layer 1, attention dropout on")
+    per_step = attention_calls_per_step(cfg)
+    out["main"] = debug_main_phase(cfg)
+    out["attn_drop0"], _, _ = short_phase(
+        "debug_attn_drop0", load_config(DEBUG_MAIN + ["attn_impl=pallas",
+                                                      "model.attn_drop_rate=0.0"]),
+        {"flash_attention_fwd": per_step, "flash_attention_bwd": per_step,
+         "flash_attention_fwd_drop": 0, "flash_attention_bwd_drop": 0})
+    txt_dict = load_config(preset_overrides(TXT_OVERRIDES, DEBUG_MODEL))
+    require(fwd_route(TXT_LEN) == "sm90_stream"
+            and VlmoConfig.from_config(txt_dict).max_text_len == TXT_LEN,
+            "debug pretrain_txt: 512 tokens on the streamed forward")
+    out["txt"], _, _ = short_phase(
+        "debug_txt", txt_dict, {"flash_attention_fwd_drop": cfg.depth,
+                                "flash_attention_bwd_drop": cfg.depth,
+                                "flash_attention_fwd": 0, "flash_attention_bwd": 0})
+    calls = img_txt_calls(cfg)
+    out["vqa"], _, _ = short_phase(
+        "debug_vqa", load_config(preset_overrides(VQA_OVERRIDES, DEBUG_MODEL)),
+        {"fused_mlp_fwd_drop": calls, "flash_attention_fwd_drop": calls,
+         "flash_attention_bwd_drop": calls, "fused_mlp_fwd": 0})
+    serve_dict = load_config(preset_overrides(SERVE_OVERRIDES, DEBUG_MODEL))
+    out["serve"], _ = serve("debug_serve", serve_dict, VlmoConfig.from_config(serve_dict), card,
+                            {"flash_attention_fwd": calls, "fused_mlp_fwd": calls})
+    hires_dict = load_config(preset_overrides(HIRES_OVERRIDES, DEBUG_MODEL))
+    out["hires"], _ = serve(
+        "debug_hires", hires_dict, VlmoConfig.from_config(hires_dict), card,
+        {"flash_attention_fwd_long": calls - cfg.fusion_layer,
+         "flash_attention_fwd": cfg.fusion_layer, "fused_mlp_fwd": calls},
+        requests=DEBUG_HIRES_REQUESTS, batch=HIRES_BATCH, cpu_check=(1, HIRES_CPU_ROWS))
+    cpu_check_phase(DEBUG_MAIN, "debug_cpu_check", depth=[],
+                    names=at_last_block(CHECKED_PARAMS, cfg.depth))
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+# the kernels of phase 31, and the path whose launches each shows:
+# (the path's key in `debug_phase`'s result, its launches per run)
+DEBUG_PATHS = {
+    "flash_attention_fwd": "serve", "flash_attention_bwd": "attn_drop0",
+    "flash_attention_fwd_drop": "main", "flash_attention_bwd_drop": "main",
+    "flash_attention_fwd_long": "hires", "fused_mlp_fwd": "serve",
+    "fused_mlp_fwd_drop": "vqa",
+}
+
+
+def debug_entries(debug: dict, name: str) -> list[dict]:
+    """Kernel `name`'s rows of phase 31 at every vlmo_debug shape it was
+    held at, each with the kernel's launches on the phase's path of
+    DEBUG_PATHS (all its runs: steps or requests)."""
+    launches = debug[DEBUG_PATHS[name]][name]
+    return [{"model": DEBUG_MODEL, "shape": r["shape"], "launches": launches,
+             **{key: r[key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}}
+            for r in debug["kernels"][name]]
+
+
+def debug_only(card: str, dev) -> int:
+    """The build, the layouts, then phase 31 alone (`--debug`)."""
+    print("smem: " + json.dumps(check_layouts()), flush=True)
+    debug = debug_phase(card, dev)
+    print(json.dumps({"debug_kernels": {name: debug_entries(debug, name)
+                                        for name in DEBUG_PATHS}}), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -5203,9 +5425,14 @@ def main(argv: list[str] | None = None) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s wall", flush=True)
     for name, (secs, log) in logs.items():
         print(f"build: {name} {secs:.1f} s", flush=True)
+        func = ""
         for line in log.splitlines():
+            if "Function properties for" in line:
+                func = line.split("Function properties for", 1)[1].strip()
             if any(k in line for k in ("registers", "spill", "bytes smem", "Performance Loss")):
                 print(f"  {line.strip()}", flush=True)
+            if "spill" in line and " 0 bytes spill stores" not in line:
+                print(f"    in {demangle(func)}", flush=True)
     elapsed("build")
     if args[:1] == ["--train-loop-samples"]:
         return loop_fit(card, img_txt_calls(VlmoConfig.from_config(load_config(
@@ -5228,6 +5455,8 @@ def main(argv: list[str] | None = None) -> int:
         return tp_int8_only(card, dev)
     if args[:1] == ["--widths"]:
         return widths_only(card, dev)
+    if args[:1] == ["--debug"]:
+        return debug_only(card, dev)
 
     print("smem: " + json.dumps(check_layouts()), flush=True)
 
@@ -5438,6 +5667,11 @@ def main(argv: list[str] | None = None) -> int:
     widths = widths_phase(card, dev)
     elapsed("phase 30")
 
+    # the default preset, vlmo_debug: rows 1-5 at head dim 32, rows 6 and 7
+    # at width 96, `main` with no model given, and its other paths
+    debug = debug_phase(card, dev)
+    elapsed("phase 31")
+
     def entry(name, route, source, replaces, rows, launches):
         big = rows[-1]  # the largest shape on the path
         return {
@@ -5520,6 +5754,11 @@ def main(argv: list[str] | None = None) -> int:
     for k in kernels:
         if k["name"] in WIDTH_KERNELS:
             k["widths"] = width_entries(widths, k["name"])
+    # rows 1-7 at vlmo_debug's shapes (phase 31), with their launches on
+    # its paths
+    for k in kernels:
+        if k["name"] in DEBUG_PATHS:
+            k["debug"] = debug_entries(debug, k["name"])
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -117,10 +117,13 @@ def _model(name: str, embed_dim: int, depth: int, num_heads: int,
 
 
 # configs/model/*.yaml. Rows 6 and 7 (`mlp_impl: fused` on the card) take
-# vlmo_tiny's, vlmo_small's and vlmo_base's widths (ops/mlp_fused.py
-# `WIDTHS`); vlmo_large and vlmo_huge fail `fits_vmem` and take the plain
-# chain, as in JAX. Rows 8-10 (`quantize: w8a8_pallas*`) take every
-# preset's widths (ops/quant_fused.py)
+# vlmo_debug's, vlmo_tiny's, vlmo_small's and vlmo_base's widths
+# (ops/mlp_fused.py `WIDTHS`); vlmo_large and vlmo_huge fail `fits_vmem`
+# and take the plain chain, as in JAX. Rows 1-5 take every preset's head
+# dim, 64 or vlmo_debug's 32 (ops/flash_attention.py `HEAD_DIMS`). Rows
+# 8-10 (`quantize: w8a8_pallas*`) take every preset's widths but
+# vlmo_debug's 96, which they refuse (ops/quant_fused.py `MATMUL_K_MIN`,
+# `MLP_WIDTHS`)
 MODEL_PRESETS: dict[str, dict[str, Any]] = {
     "vlmo_tiny": _model("vlmo_tiny", 192, 12, 3, 6),
     "vlmo_small": _model("vlmo_small", 384, 12, 6, 6),

@@ -71,6 +71,13 @@
 // for dq) was not built: at N = 240 its dq accumulator and ds tiles do not
 // fit beside two head slots.
 //
+// Head dim: the kernels are instantiated at D = 64 and at vlmo_debug's D =
+// 32. At 32 a row is 64 bytes in the 64-byte swizzle: S and dP take two k16
+// steps, dq, dk and dv are m64n32 products over K, Q and dO read MN-major
+// (`desc_rows<32>`, 16 rows 1,024 bytes), the delta pass reads one 16-byte
+// chunk a lane, and boxes and head slots are half as large, so two head
+// slots fit up to 512 keys.
+//
 // Precision: p and ds are split into hi + lo bf16 parts and each product
 // with them runs twice, which keeps 16 mantissa bits (`HILO`; one bf16 p
 // left the tolerance in rows 1 and 5). Ragged edges: keys past N take a
@@ -80,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include <type_traits>
+
 #include "dropout_hash.cuh"
 #include "sm90.cuh"
 
@@ -88,9 +97,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace emm::sm90;
 
-constexpr int D = 64;                   // head dim
 constexpr int BOX = 64;                 // rows per TMA box, per tile and per slab
-constexpr int BOX_BYTES = BOX * D * 2;  // one 64 x 64 bf16 box, 128-byte swizzle
 constexpr int MAX_SLOTS = 4;            // head slots and tile stages, each at most
 constexpr int MAX_NT = 512;             // the widest key width (the fused backward's N)
 constexpr int THREADS = 384;            // two consumer warpgroups and a producer warpgroup
@@ -100,21 +107,25 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr bool HILO = true;             // p and ds as hi + lo bf16 parts
 enum Role { DQ = 0, DKDV = 1 };
 
-// Shared memory at key width nt: `hs` head slots (the B-side pair, 2 x ntb
-// rows), `ts` tile stages (3 or 2 boxes), the head slots' column vectors,
-// the barriers, 1024 bytes of alignment slack. Tile stages first take what
-// leaves room for two head slots (or, where that leaves fewer than two
-// stages, one slot), then head slots what is left.
+// one 64-row box of a (D, n, bh) map: rows of 2 D bytes, in the 128-byte
+// swizzle at D = 64 and the 64-byte one at D = 32
+__host__ __device__ constexpr int box_bytes(int d) { return BOX * d * 2; }
+
+// Shared memory at key width nt and head dim d: `hs` head slots (the B-side
+// pair, 2 x ntb rows), `ts` tile stages (3 or 2 boxes), the head slots'
+// column vectors, the barriers, 1024 bytes of alignment slack. Tile stages
+// first take what leaves room for two head slots (or, where that leaves
+// fewer than two stages, one slot), then head slots what is left.
 struct Layout {
   int ntb, head, vec, tile, ts, hs, tile_off, vec_off, bar_off, smem;
 };
 
-__host__ __device__ inline Layout layout(int nt, int role) {
+__host__ __device__ inline Layout layout(int nt, int role, int d) {
   Layout L;
   L.ntb = (nt + BOX - 1) / BOX * BOX;
-  L.head = 2 * L.ntb * D * 2;
+  L.head = 2 * L.ntb * d * 2;
   L.vec = (role == DQ ? 1 : 2) * L.ntb * 4;
-  L.tile = (role == DQ ? 3 : 2) * BOX_BYTES;
+  L.tile = (role == DQ ? 3 : 2) * box_bytes(d);
   const int room = SMEM_LIMIT - 1024 - BAR_BYTES;
   int ts = (room - 2 * (L.head + L.vec)) / L.tile;
   if (ts < 2) ts = (room - (L.head + L.vec)) / L.tile;
@@ -163,9 +174,9 @@ struct Ctx {
 // bias in log2 units; lse2, dl: this thread's two rows' lse (log2 units)
 // and delta. dq += ds K_slab. Each slab waits for its own products: left in
 // flight across the next slab's accumulators, ptxas serialises every wgmma
-// of the kernel (C7515), which cost 3-9%.
-template <int W, bool DROP>
-__device__ __forceinline__ void dq_slab(float (&dq)[32], uint32_t sq, uint32_t sdo,
+// of the kernel (C7515), which cost 3-9%. Rows of D bf16 are 2 D bytes.
+template <int W, int D, bool DROP>
+__device__ __forceinline__ void dq_slab(float (&dq)[D / 2], uint32_t sq, uint32_t sdo,
                                         uint32_t sk, uint32_t sv, const float* sbias, int s0,
                                         int r0, const float (&lse2)[2], const float (&dl)[2],
                                         const Ctx& c) {
@@ -177,10 +188,10 @@ __device__ __forceinline__ void dq_slab(float (&dq)[32], uint32_t sq, uint32_t s
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_bf16<W>(s, desc_sw128(sq + 32 * k), desc_sw128(sk + s0 * 128 + 32 * k));
+    wgmma_ss_bf16<W>(s, desc_rows<D>(sq + 32 * k), desc_rows<D>(sk + s0 * 2 * D + 32 * k));
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_bf16<W>(dp, desc_sw128(sdo + 32 * k), desc_sw128(sv + s0 * 128 + 32 * k));
+    wgmma_ss_bf16<W>(dp, desc_rows<D>(sdo + 32 * k), desc_rows<D>(sv + s0 * 2 * D + 32 * k));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -211,14 +222,14 @@ __device__ __forceinline__ void dq_slab(float (&dq)[32], uint32_t sq, uint32_t s
     }
   }
 
-  // dq (64 x 64) += ds K_slab, K read MN-major: 16 keys are 2048 bytes
+  // dq (64 x D) += ds K_slab, K read MN-major: 16 keys are 32 D bytes
   fence_regs(dq);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < W / 16; ++kk) {
-    const uint64_t dk = desc_sw128(sk + (s0 + 16 * kk) * 128);
-    wgmma_rs_n64_mn(dq, hi[kk], dk);
-    if (HILO) wgmma_rs_n64_mn(dq, lo[kk], dk);
+    const uint64_t dk = desc_rows<D>(sk + (s0 + 16 * kk) * 2 * D);
+    wgmma_rs_mn<D>(dq, hi[kk], dk);
+    if (HILO) wgmma_rs_mn<D>(dq, lo[kk], dk);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -228,8 +239,8 @@ __device__ __forceinline__ void dq_slab(float (&dq)[32], uint32_t sq, uint32_t s
 // sk, sv: the tile's K and V; sq, sdo: the head's Q and dO; slse2, sdl: the
 // head's lse (log2 units) and delta; kb2: this thread's two keys' bias in
 // log2 units. dv += (keep o p)^T dO_slab, dk += ds^T Q_slab.
-template <int W, bool DROP>
-__device__ __forceinline__ void dkdv_slab(float (&dk)[32], float (&dv)[32], uint32_t sk,
+template <int W, int D, bool DROP>
+__device__ __forceinline__ void dkdv_slab(float (&dk)[D / 2], float (&dv)[D / 2], uint32_t sk,
                                           uint32_t sv, uint32_t sq, uint32_t sdo,
                                           const float* slse2, const float* sdl, int s0, int k0,
                                           const float (&kb2)[2], const Ctx& c) {
@@ -241,10 +252,10 @@ __device__ __forceinline__ void dkdv_slab(float (&dk)[32], float (&dv)[32], uint
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_bf16<W>(s, desc_sw128(sk + 32 * k), desc_sw128(sq + s0 * 128 + 32 * k));
+    wgmma_ss_bf16<W>(s, desc_rows<D>(sk + 32 * k), desc_rows<D>(sq + s0 * 2 * D + 32 * k));
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_bf16<W>(dp, desc_sw128(sv + 32 * k), desc_sw128(sdo + s0 * 128 + 32 * k));
+    wgmma_ss_bf16<W>(dp, desc_rows<D>(sv + 32 * k), desc_rows<D>(sdo + s0 * 2 * D + 32 * k));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(s);
@@ -283,20 +294,21 @@ __device__ __forceinline__ void dkdv_slab(float (&dk)[32], float (&dv)[32], uint
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < W / 16; ++kk) {
-    const uint64_t ddo = desc_sw128(sdo + (s0 + 16 * kk) * 128);
-    const uint64_t dqq = desc_sw128(sq + (s0 + 16 * kk) * 128);
-    wgmma_rs_n64_mn(dv, phi[kk], ddo);
-    if (HILO) wgmma_rs_n64_mn(dv, plo[kk], ddo);
-    wgmma_rs_n64_mn(dk, dhi[kk], dqq);
-    if (HILO) wgmma_rs_n64_mn(dk, dlo[kk], dqq);
+    const uint64_t ddo = desc_rows<D>(sdo + (s0 + 16 * kk) * 2 * D);
+    const uint64_t dqq = desc_rows<D>(sq + (s0 + 16 * kk) * 2 * D);
+    wgmma_rs_mn<D>(dv, phi[kk], ddo);
+    if (HILO) wgmma_rs_mn<D>(dv, plo[kk], ddo);
+    wgmma_rs_mn<D>(dk, dhi[kk], dqq);
+    if (HILO) wgmma_rs_mn<D>(dk, dlo[kk], dqq);
   }
   wgmma_commit();
   wgmma_wait<0>();
 }
 
-// rows 16 w + g (+ 8) of a 64 x 64 accumulator, times `mul`, to bf16 rows
-// row0 + .. of dst (a head's (n, 64)) below n
-__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[32],
+// rows 16 w + g (+ 8) of a 64 x D accumulator, times `mul`, to bf16 rows
+// row0 + .. of dst (a head's (n, D)) below n
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 2],
                                            int row0, int n, float mul, const Ctx& c) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -313,7 +325,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
 // ROLE DQ: mx, my = K, V (the head's pair), ma, mb, mc = Q, dO, O (tiles);
 // writes delta (bh, n) and dq (out0). ROLE DKDV: mx, my = Q, dO, ma, mb =
 // K, V (mc unused); reads delta; writes dk (out0) and dv (out1). Every map
-// is over (D, n, bh) in (64, 64, 1) boxes. bias (bh / heads, n) fp32; lse
+// is over (D, n, bh) in (D, 64, 1) boxes, D 64 or 32. bias (bh / heads, n) fp32; lse
 // (bh, n) fp32; seed one int32 on the device (DROP) and row_index null or
 // (bh / heads) int32, each row's global index, which with the heads' offset
 // head0 and total heads_total keys its heads' masks (`dropout_head`). `nt`
@@ -323,7 +335,7 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
 // head (the loop of every shape whose heads fill the card: with t0 and t1
 // taken at run time it ran 2-6% slower on the pretrain_mum step's shapes,
 // variant `attn_bwd_no_fork` of scripts/torch_kernel_variants.json).
-template <int ROLE, int TAIL, bool DROP, bool GROUPS>
+template <int ROLE, int TAIL, int D, bool DROP, bool GROUPS>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                      const __grid_constant__ CUtensorMap my,
@@ -335,7 +347,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
                      bf16* __restrict__ out0, bf16* __restrict__ out1, int bh_total, int n,
                      int nt, int heads, int heads_total, int head0, int tpg, float scale,
                      uint32_t thr, float drop_scale) {
-  const Layout L = layout(nt, ROLE);
+  const Layout L = layout(nt, ROLE, D);
+  constexpr int BOX_BYTES = box_bytes(D);
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -439,12 +452,12 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
       mbar_wait(tfull0 + 8 * st, (u / L.ts) & 1);
       const uint32_t ta = base + L.tile_off + st * L.tile, tb = ta + BOX_BYTES;
       const int r0 = BOX * t;
-      float acc0[32], acc1[32];
+      float acc0[D / 2], acc1[D / 2];
 #pragma unroll
-      for (int k = 0; k < 32; ++k) acc0[k] = acc1[k] = 0.f;
+      for (int k = 0; k < D / 2; ++k) acc0[k] = acc1[k] = 0.f;
       if constexpr (ROLE == DQ) {
         // delta of this thread's rows from the tile's dO and O: each lane
-        // of a quad takes two 16-byte chunks of a row, in the swizzle
+        // of a quad takes D / 32 16-byte chunks of a row, in the swizzle
         const unsigned char* tdo = smem + (tb - base);
         const unsigned char* to = tdo + BOX_BYTES;
         float lse2[2], dl[2];
@@ -453,8 +466,8 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
           const int lr = 16 * c.warp + c.g + 8 * h, row = r0 + lr;
           float d = 0.f;
 #pragma unroll
-          for (int k = 0; k < 2; ++k) {
-            const int off = lr * 128 + (((2 * c.qd + k) ^ (lr & 7)) << 4);
+          for (int k = 0; k < D / 32; ++k) {
+            const int off = swizzled_chunk<D>(lr, D / 32 * c.qd + k);
             const uint4 a = *reinterpret_cast<const uint4*>(tdo + off);
             const uint4 b = *reinterpret_cast<const uint4*>(to + off);
             const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -475,9 +488,9 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
         }
 #pragma unroll 1
         for (int sb = 0; sb < full; ++sb)
-          dq_slab<FULL_W, DROP>(acc0, ta, tb, sx, sy, v, FULL_W * sb, r0, lse2, dl, c);
+          dq_slab<FULL_W, D, DROP>(acc0, ta, tb, sx, sy, v, FULL_W * sb, r0, lse2, dl, c);
         if constexpr (TAIL > 0)
-          dq_slab<TAIL, DROP>(acc0, ta, tb, sx, sy, v, FULL_W * full, r0, lse2, dl, c);
+          dq_slab<TAIL, D, DROP>(acc0, ta, tb, sx, sy, v, FULL_W * full, r0, lse2, dl, c);
       } else {
         const float* kb = bias + (size_t)(bh / heads) * n;
         float kb2[2];
@@ -488,36 +501,36 @@ attn_bwd_sm90_kernel(const __grid_constant__ CUtensorMap mx,
         }
 #pragma unroll 1
         for (int sb = 0; sb < full; ++sb)
-          dkdv_slab<FULL_W, DROP>(acc0, acc1, ta, tb, sx, sy, v, v + L.ntb, FULL_W * sb, r0,
-                                  kb2, c);
+          dkdv_slab<FULL_W, D, DROP>(acc0, acc1, ta, tb, sx, sy, v, v + L.ntb, FULL_W * sb,
+                                     r0, kb2, c);
         if constexpr (TAIL > 0)
-          dkdv_slab<TAIL, DROP>(acc0, acc1, ta, tb, sx, sy, v, v + L.ntb, FULL_W * full, r0,
-                                kb2, c);
+          dkdv_slab<TAIL, D, DROP>(acc0, acc1, ta, tb, sx, sy, v, v + L.ntb, FULL_W * full,
+                                   r0, kb2, c);
       }
       fence_regs(acc0);
       if constexpr (ROLE == DKDV) fence_regs(acc1);
       __syncwarp();
       if (lane == 0) mbar_arrive(tempty0 + 8 * st);  // the tile's operands are read
-      store_rows(out0 + hbase * D, acc0, r0, n, scale, c);
-      if constexpr (ROLE == DKDV) store_rows(out1 + hbase * D, acc1, r0, n, 1.f, c);
+      store_rows<D>(out0 + hbase * D, acc0, r0, n, scale, c);
+      if constexpr (ROLE == DKDV) store_rows<D>(out1 + hbase * D, acc1, r0, n, 1.f, c);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(hempty0 + 8 * s);
   }
 }
 
-template <int ROLE, int TAIL, bool DROP, bool GROUPS>
+template <int ROLE, int TAIL, int D, bool DROP, bool GROUPS>
 int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
                const CUtensorMap& b, const CUtensorMap& c, const float* bias, const float* lse,
                float* delta, const int32_t* seed, const int32_t* rix, bf16* out0, bf16* out1,
                int bh, int n, int nt, int heads, int heads_total, int head0, int grid, int tpg,
                float scale, uint32_t thr, float drop_scale, cudaStream_t stream) {
-  const int smem = layout(nt, ROLE).smem;
-  cudaError_t err = cudaFuncSetAttribute(attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>,
+  const int smem = layout(nt, ROLE, D).smem;
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_sm90_kernel<ROLE, TAIL, D, DROP, GROUPS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int groups = ((n + BOX - 1) / BOX + tpg - 1) / tpg;
-  attn_bwd_sm90_kernel<ROLE, TAIL, DROP, GROUPS>
+  attn_bwd_sm90_kernel<ROLE, TAIL, D, DROP, GROUPS>
       <<<dim3(grid, groups), THREADS, smem, stream>>>(
       x, y, a, b, c, bias, lse, delta, seed, rix, out0, out1, bh, n, nt, heads, heads_total,
       head0, tpg, scale, thr, drop_scale);
@@ -525,80 +538,99 @@ int launch_one(const CUtensorMap& x, const CUtensorMap& y, const CUtensorMap& a,
 }
 
 // DQ, then DKDV (which reads the delta DQ writes), both on `stream`
-template <int TAIL, bool DROP, bool GROUPS>
+template <int TAIL, int D, bool DROP, bool GROUPS>
 int launch(const CUtensorMap (&m)[5], const float* bias, const int32_t* seed,
            const int32_t* rix, const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv,
            int bh, int heads, int heads_total, int head0, int n, int nt, int grid, int tpg,
            float scale, uint32_t thr, float drop_scale, cudaStream_t st) {
   enum { Q, K, V, O, DO };
-  int rc = launch_one<DQ, TAIL, DROP, GROUPS>(m[K], m[V], m[Q], m[DO], m[O], bias, lse, delta,
-                                              seed, rix, dq, nullptr, bh, n, nt, heads,
-                                              heads_total, head0, grid, tpg, scale, thr,
-                                              drop_scale, st);
+  int rc = launch_one<DQ, TAIL, D, DROP, GROUPS>(m[K], m[V], m[Q], m[DO], m[O], bias, lse,
+                                                 delta, seed, rix, dq, nullptr, bh, n, nt, heads,
+                                                 heads_total, head0, grid, tpg, scale, thr,
+                                                 drop_scale, st);
   if (rc != 0) return rc;
-  return launch_one<DKDV, TAIL, DROP, GROUPS>(m[Q], m[DO], m[K], m[V], m[V], bias, lse, delta,
-                                              seed, rix, dk, dv, bh, n, nt, heads, heads_total,
-                                              head0, grid, tpg, scale, thr, drop_scale, st);
+  return launch_one<DKDV, TAIL, D, DROP, GROUPS>(m[Q], m[DO], m[K], m[V], m[V], bias, lse,
+                                                 delta, seed, rix, dk, dv, bh, n, nt, heads,
+                                                 heads_total, head0, grid, tpg, scale, thr,
+                                                 drop_scale, st);
 }
 
-// launch<nt % 64, DROP, GROUPS>, GROUPS where a unit is less than a head
-template <bool DROP, bool GROUPS>
+// launch<nt % 64, D, DROP, GROUPS>, GROUPS where a unit is less than a head
+template <int D, bool DROP, bool GROUPS>
 int dispatch(const CUtensorMap (&m)[5], const float* b, const int32_t* sd, const int32_t* rix,
-             const float* l, float* d, bf16* q, bf16* k, bf16* v, int bh, int heads,
+             const float* l, float* dl, bf16* q, bf16* k, bf16* v, int bh, int heads,
              int heads_total, int head0, int n, int nt, int grid, int tpg, float scale,
              uint32_t thr, float drop_scale, cudaStream_t st) {
+  auto go = [&](auto tail) {
+    return launch<decltype(tail)::value, D, DROP, GROUPS>(m, b, sd, rix, l, dl, q, k, v, bh,
+                                                          heads, heads_total, head0, n, nt,
+                                                          grid, tpg, scale, thr, drop_scale, st);
+  };
   switch (nt % BOX) {
-    case 0:
-      return launch<0, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
-                                     n, nt, grid, tpg, scale, thr, drop_scale, st);
-    case 16:
-      return launch<16, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
-                                      n, nt, grid, tpg, scale, thr, drop_scale, st);
-    case 32:
-      return launch<32, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
-                                      n, nt, grid, tpg, scale, thr, drop_scale, st);
-    default:
-      return launch<48, DROP, GROUPS>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total, head0,
-                                      n, nt, grid, tpg, scale, thr, drop_scale, st);
+    case 0: return go(std::integral_constant<int, 0>());
+    case 16: return go(std::integral_constant<int, 16>());
+    case 32: return go(std::integral_constant<int, 32>());
+    default: return go(std::integral_constant<int, 48>());
   }
+}
+
+// dispatch<D, DROP, GROUPS> with DROP where there is a seed
+template <int D>
+int dispatch_d(const CUtensorMap (&m)[5], const float* b, const int32_t* sd, const int32_t* rix,
+               const float* l, float* dl, bf16* q, bf16* k, bf16* v, int bh, int heads,
+               int heads_total, int head0, int n, int nt, int grid, int tpg, float scale,
+               uint32_t thr, float drop_scale, bool groups, cudaStream_t st) {
+  auto go = [&](auto drop, auto grouped) {
+    return dispatch<D, decltype(drop)::value, decltype(grouped)::value>(
+        m, b, sd, rix, l, dl, q, k, v, bh, heads, heads_total, head0, n, nt, grid, tpg, scale,
+        thr, drop_scale, st);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (sd == nullptr) return groups ? go(F(), T()) : go(F(), F());
+  return groups ? go(T(), T()) : go(T(), F());
 }
 
 }  // namespace
 
 // Encodes into `out` (128 bytes, host memory) the bf16 tensor map of a
-// (bh, n, 64) q, k, v, o or do at `base`: `rank` 3 dims innermost first,
-// the byte strides of dims 1.., the box (64, 64, 1). Returns a cudaError_t.
+// (bh, n, D) q, k, v, o or do at `base`: `rank` 3 dims innermost first,
+// the byte strides of dims 1.., the box (D, 64, 1), D 64 or 32 (the 64-byte
+// swizzle). Returns a cudaError_t.
 extern "C" int flash_attention_bwd_sm90_encode(void* out, const void* base, int rank,
                                                const uint64_t* dims,
                                                const uint64_t* strides_bytes,
                                                const uint32_t* box) {
-  if (rank != 3 || box[0] != D || box[1] != BOX || box[2] != 1)
+  if (rank != 3 || dims[0] != box[0] || box[1] != BOX || box[2] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return emm_encode_bf16_map(out, base, rank, dims, strides_bytes, box);
+  return emm_encode_head_map(out, base, rank, dims, strides_bytes, box);
 }
 
 // The dynamic shared memory of the dq (role 0) or dk/dv (role 1) kernel at
-// key width `nt`, -1 for an nt it does not take.
-extern "C" int flash_attention_bwd_sm90_smem(int nt, int role) {
-  if (nt <= 0 || nt > MAX_NT || nt % 16 != 0 || (role != DQ && role != DKDV)) return -1;
-  return layout(nt, role).smem;
+// key width `nt` and head dim `d`, -1 for an (nt, d) it does not take.
+extern "C" int flash_attention_bwd_sm90_smem(int nt, int role, int d) {
+  if (nt <= 0 || nt > MAX_NT || nt % 16 != 0 || (role != DQ && role != DKDV) ||
+      (d != 32 && d != 64))
+    return -1;
+  return layout(nt, role, d).smem;
 }
 
-// mq, mk, mv, mo, mdo: the maps of q, k, v, o, do, each (bh, n, 64) bf16
-// (from `flash_attention_bwd_sm90_encode`, host memory); bias (bh /
-// heads, n) fp32; seed: null for the backward without dropout, else one
-// int32 on the device, with which it keeps the forward's dropout (where the
-// hash bits are >= threshold, scaled by drop_scale); row_index: null (each
-// row's own index), or (bh / heads) int32 on the device, each row's index in
-// the global batch, which keys its heads' masks (with a seed only);
-// heads_total, head0: the call holds heads head0 .. head0 + heads - 1 of
-// each row's heads_total (tensor parallelism), which key the masks by their
-// global index (heads and 0 otherwise); lse (bh, n) fp32 from the forward; delta (bh, n) fp32 scratch; dq, dk, dv (bh, n, 64) bf16.
-// `nt`: the key width, n rounded up to 16 (n <= nt <= 512); `tpg`: 64-row
-// tiles per work unit (>= 1); `grid`: persistent CTAs per tile group,
-// 1..bh (the launch has ceil(ceil(n / 64) / tpg) groups along y).
-// Launches two kernels on `stream`; returns the first launch error as
-// cudaError_t.
+// mq, mk, mv, mo, mdo: the maps of q, k, v, o, do, each (bh, n, d) bf16
+// (from `flash_attention_bwd_sm90_encode`, host memory), d the head dim,
+// 64 or 32; bias (bh / heads, n) fp32; seed: null for the backward without
+// dropout, else one int32 on the device, with which it keeps the forward's
+// dropout (where the hash bits are >= threshold, scaled by drop_scale);
+// row_index: null (each row's own index), or (bh / heads) int32 on the
+// device, each row's index in the global batch, which keys its heads'
+// masks (with a seed only); heads_total, head0: the call holds heads head0
+// .. head0 + heads - 1 of each row's heads_total (tensor parallelism),
+// which key the masks by their global index (heads and 0 otherwise); lse
+// (bh, n) fp32 from the forward; delta (bh, n) fp32 scratch; dq, dk, dv
+// (bh, n, d) bf16. `nt`: the key width, n rounded up to 16 (n <= nt <=
+// 512); `tpg`: 64-row tiles per work unit (>= 1); `grid`: persistent CTAs
+// per tile group, 1..bh (the launch has ceil(ceil(n / 64) / tpg) groups
+// along y). Launches two kernels on `stream`; returns the first launch
+// error as cudaError_t.
 extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const void* mv,
                                         const void* mo, const void* mdo, const void* bias,
                                         const void* seed, const void* row_index,
@@ -606,10 +638,10 @@ extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const vo
                                         void* dk, void* dv, int bh, int heads,
                                         int heads_total, int head0, int n, int nt, int grid,
                                         int tpg, float scale, unsigned threshold,
-                                        float drop_scale, void* stream) {
+                                        float drop_scale, int d, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || n > nt || nt > MAX_NT ||
       nt % 16 != 0 || tpg <= 0 || grid <= 0 || grid > bh || head0 < 0 ||
-      head0 + heads > heads_total ||
+      head0 + heads > heads_total || (d != 32 && d != 64) ||
       (row_index != nullptr && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap m[5];
@@ -619,20 +651,16 @@ extern "C" int flash_attention_bwd_sm90(const void* mq, const void* mk, const vo
   const auto* sd = static_cast<const int32_t*>(seed);
   const auto* rix = static_cast<const int32_t*>(row_index);
   const auto* l = static_cast<const float*>(lse);
-  auto* d = static_cast<float*>(delta);
+  auto* dl = static_cast<float*>(delta);
   auto* q = static_cast<bf16*>(dq);
   auto* k = static_cast<bf16*>(dk);
   auto* v = static_cast<bf16*>(dv);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool groups = tpg < (n + BOX - 1) / BOX;
-  if (sd == nullptr)
-    return groups ? dispatch<false, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
-                                          head0, n, nt, grid, tpg, scale, 0u, 1.f, st)
-                  : dispatch<false, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
-                                           head0, n, nt, grid, tpg, scale, 0u, 1.f, st);
-  return groups ? dispatch<true, true>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
-                                       head0, n, nt, grid, tpg, scale, threshold, drop_scale, st)
-                : dispatch<true, false>(m, b, sd, rix, l, d, q, k, v, bh, heads, heads_total,
-                                        head0, n, nt, grid, tpg, scale, threshold, drop_scale,
-                                        st);
+  const uint32_t thr = sd == nullptr ? 0u : threshold;
+  const float ds = sd == nullptr ? 1.f : drop_scale;
+  return d == 64 ? dispatch_d<64>(m, b, sd, rix, l, dl, q, k, v, bh, heads, heads_total, head0,
+                                  n, nt, grid, tpg, scale, thr, ds, groups, st)
+                 : dispatch_d<32>(m, b, sd, rix, l, dl, q, k, v, bh, heads, heads_total, head0,
+                                  n, nt, grid, tpg, scale, thr, ds, groups, st);
 }

@@ -12,7 +12,8 @@
 //   m   = max(s) over all N keys;  p = exp(s - m);  l = sum(p)
 //   out = ((keep o p) . v) / l                   fp32 sum, stored as bf16
 //   lse = m + log(l)                             fp32, read by the backward
-// with bf16 q, k, v (head dim 64) and an fp32 (B, N) key bias. keep is 1
+// with bf16 q, k, v (head dim D: 64, every preset's but vlmo_debug, or
+// vlmo_debug's 32) and an fp32 (B, N) key bias. keep is 1
 // without DROP; with it, the hash mask of dropout_hash.cuh times 1 / (1 -
 // rate), applied after the row sum, so l and lse stay clean and the
 // backward rebuilds the clean p from lse.
@@ -27,10 +28,16 @@
 //   - A head's whole K and V fit in shared memory at N <= 256: the kernel
 //     is instantiated for key widths NT = N rounded up to 16 (the wgmma N
 //     of Q K^T and 16-key slices of P V: 48 at N = 40, 208 at 197, 240 at
-//     237, so no more than 15 padded keys are computed), and one slot holds
-//     a head's Q, K and V (3 x NTB x 128 bytes, NTB = NT rounded up to the
-//     64-row TMA box, in the 128-byte swizzle that wgmma reads) and its key
-//     bias.
+//     237, so no more than 15 padded keys are computed) and head dims D =
+//     64 and 32, and one slot holds a head's Q, K and V (3 x NTB x 2 D
+//     bytes, NTB = NT rounded up to the 64-row TMA box, in the swizzle that
+//     wgmma reads: 128-byte rows at D = 64, 64-byte rows in the 64-byte
+//     swizzle at D = 32) and its key bias.
+//   - D = 32 (vlmo_debug's 96 wide, 3 heads): Q K^T takes two k16 steps
+//     over the 64-byte rows, P V runs at wgmma N = 32 over V read MN-major
+//     through `desc_rows<32>` (16 keys are 1,024 bytes), O is 16 registers,
+//     and a slot is half as large, so four heads are in flight at every
+//     width. The products and the softmax keep D = 64's order.
 //   - Persistent CTAs, one per SM or one per head where there are fewer
 //     heads: CTA c takes heads c, c + grid, ... One producer warp loads the
 //     next heads by TMA (boxes of 64 rows through a 3D map over (D, N, BH),
@@ -89,7 +96,6 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace emm::sm90;
 
-constexpr int D = 64;          // head dim
 constexpr int BOX_KEYS = 64;   // rows of q, k or v per TMA box
 constexpr int MAX_SLOTS = 4;   // heads in flight per CTA
 constexpr int THREADS = 384;   // two consumer warpgroups and a producer warpgroup
@@ -97,9 +103,10 @@ constexpr int SMEM_LIMIT = 232448;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// shared memory of the kernel at NT keys: SLOTS slots of Q, K and V, then
-// the slots' bias rows, then a full and an empty barrier per slot
-template <int NT>
+// shared memory of the kernel at NT keys and head dim D: SLOTS slots of Q,
+// K and V (rows of 2 D bytes), then the slots' bias rows, then a full and
+// an empty barrier per slot
+template <int NT, int D>
 struct Cfg {
   static constexpr int NTB = (NT + BOX_KEYS - 1) / BOX_KEYS * BOX_KEYS;  // rows loaded
   static constexpr int TILE = NTB * D * 2;  // Q, K or V of one head
@@ -129,7 +136,7 @@ struct Drop {
 
 // One warpgroup's 64 query rows (from row0) of head bh: Q at sq (64 rows),
 // K at sk and V at sv (NT rows each), the bias row in log2 units at sb.
-template <int NT, bool DROP>
+template <int NT, int D, bool DROP>
 __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
                                        const float* sb, bf16* __restrict__ out,
                                        float* __restrict__ lse, int bh, int n, int row0,
@@ -164,7 +171,7 @@ __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
   wgmma_fence();
 #pragma unroll
   for (int k = 0; k < D / 16; ++k)
-    wgmma_ss_bf16<NT>(sc, desc_sw128(sq + 32 * k), desc_sw128(sk + 32 * k));
+    wgmma_ss_bf16<NT>(sc, desc_rows<D>(sq + 32 * k), desc_rows<D>(sk + 32 * k));
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(sc);
@@ -215,17 +222,17 @@ __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
     }
   }
 
-  // O (64 x 64) = P V, V read MN-major: 16 keys are 2048 bytes
-  float o[32];
+  // O (64 x D) = P V, V read MN-major: 16 keys are 32 D bytes
+  float o[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < NT / 16; ++kk) {
-    const uint64_t dv = desc_sw128(sv + kk * 2048);
-    wgmma_rs_n64_mn(o, hi[kk], dv);
-    wgmma_rs_n64_mn(o, lo[kk], dv);
+    const uint64_t dv = desc_rows<D>(sv + kk * 32 * D);
+    wgmma_rs_mn<D>(o, hi[kk], dv);
+    wgmma_rs_mn<D>(o, lo[kk], dv);
   }
   wgmma_commit();
   wgmma_wait<0>();
@@ -246,11 +253,11 @@ __device__ __forceinline__ void attend(uint32_t sq, uint32_t sk, uint32_t sv,
   }
 }
 
-// q, k, v through their (D, n, bh) maps in (64, 64, 1) boxes; bias (bh /
+// q, k, v through their (D, n, bh) maps in (D, 64, 1) boxes; bias (bh /
 // heads, n) fp32; out (bh, n, D) bf16; lse (bh, n) fp32. scale_log2 =
 // scale * log2(e). With DROP, seed is one int32 on the device; a (row, key)
 // is kept where its hash bits are >= thr, then scaled by drop_scale.
-template <int NT, bool DROP>
+template <int NT, int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                      const __grid_constant__ CUtensorMap mk,
@@ -259,7 +266,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                      int heads, float scale_log2, const int32_t* __restrict__ seed,
                      const int32_t* __restrict__ row_index, int heads_total, int head0,
                      uint32_t thr, float drop_scale) {
-  using C = Cfg<NT>;
+  using C = Cfg<NT, D>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
@@ -320,8 +327,9 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       drop.key = emm::dropout_keys(sd, emm::dropout_head(row_index, bh, heads, heads_total, head0));
     for (int t = 0; t < tiles; ++t, ++u) {
       if ((u & 1) != w) continue;
-      attend<NT, DROP>(sq + t * 64 * D * 2, sq + C::TILE, sq + 2 * C::TILE, sbias + s * C::NTB,
-                       out, lse, bh, n, 64 * t, scale_log2, warp, g, qd, drop);
+      attend<NT, D, DROP>(sq + t * 64 * D * 2, sq + C::TILE, sq + 2 * C::TILE,
+                          sbias + s * C::NTB, out, lse, bh, n, 64 * t, scale_log2, warp, g, qd,
+                          drop);
     }
     if (lane == 0) mbar_arrive(empty0 + 8 * s);
     if (++s == C::SLOTS) {
@@ -331,7 +339,7 @@ attn_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
-template <int NT, bool DROP>
+template <int NT, int D, bool DROP>
 int launch(const void* mq, const void* mk, const void* mv, const void* bias, void* out,
            void* lse, int bh, int heads, int n, int grid, float scale, const void* seed,
            const void* row_index, int heads_total, int head0, uint32_t thr, float drop_scale,
@@ -340,12 +348,12 @@ int launch(const void* mq, const void* mk, const void* mv, const void* bias, voi
   memcpy(&q, mq, sizeof(q));
   memcpy(&k, mk, sizeof(k));
   memcpy(&v, mv, sizeof(v));
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_sm90_kernel<NT, DROP>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_sm90_kernel<NT, D, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Cfg<NT>::SMEM);
+                                         Cfg<NT, D>::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_sm90_kernel<NT, DROP>
-      <<<grid, THREADS, Cfg<NT>::SMEM, static_cast<cudaStream_t>(stream)>>>(
+  attn_fwd_sm90_kernel<NT, D, DROP>
+      <<<grid, THREADS, Cfg<NT, D>::SMEM, static_cast<cudaStream_t>(stream)>>>(
           q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<float*>(lse), bh, n, heads, scale * LOG2E,
           static_cast<const int32_t*>(seed), static_cast<const int32_t*>(row_index),
@@ -365,7 +373,7 @@ void for_widths(int nt, Fn fn) {
   for_widths(nt, fn, std::make_integer_sequence<int, 16>());
 }
 
-template <bool DROP>
+template <int D, bool DROP>
 int dispatch(const void* mq, const void* mk, const void* mv, const void* bias, void* out,
              void* lse, int bh, int heads, int n, int nt, int grid, float scale,
              const void* seed, const void* row_index, int heads_total, int head0, uint32_t thr,
@@ -376,40 +384,58 @@ int dispatch(const void* mq, const void* mk, const void* mv, const void* bias, v
   const int key_width = nt;  // the instantiation that runs
   int rc = static_cast<int>(cudaErrorInvalidValue);
   for_widths(key_width, [&](auto w) {
-    rc = launch<decltype(w)::value, DROP>(mq, mk, mv, bias, out, lse, bh, heads, n, grid, scale,
-                                          seed, row_index, heads_total, head0, thr, drop_scale,
-                                          stream);
+    rc = launch<decltype(w)::value, D, DROP>(mq, mk, mv, bias, out, lse, bh, heads, n, grid,
+                                             scale, seed, row_index, heads_total, head0, thr,
+                                             drop_scale, stream);
   });
   return rc;
+}
+
+template <bool DROP>
+int dispatch_d(int d, const void* mq, const void* mk, const void* mv, const void* bias,
+               void* out, void* lse, int bh, int heads, int n, int nt, int grid, float scale,
+               const void* seed, const void* row_index, int heads_total, int head0,
+               uint32_t thr, float drop_scale, void* stream) {
+  if (d == 64)
+    return dispatch<64, DROP>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
+                              row_index, heads_total, head0, thr, drop_scale, stream);
+  if (d == 32)
+    return dispatch<32, DROP>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
+                              row_index, heads_total, head0, thr, drop_scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Encodes into `out` (128 bytes, host memory) the bf16 tensor map of a
-// (bh, n, 64) q, k or v at `base`: `rank` 3 dims innermost first, the byte
-// strides of dims 1.., the box (64, 64, 1). Returns a cudaError_t.
+// (bh, n, D) q, k or v at `base`: `rank` 3 dims innermost first, the byte
+// strides of dims 1.., the box (D, 64, 1), D 64 or 32 (the 64-byte
+// swizzle). Returns a cudaError_t.
 extern "C" int flash_attention_fwd_sm90_encode(void* out, const void* base, int rank,
                                                const uint64_t* dims,
                                                const uint64_t* strides_bytes,
                                                const uint32_t* box) {
-  if (rank != 3 || box[0] != D || box[1] != BOX_KEYS || box[2] != 1)
+  if (rank != 3 || dims[0] != box[0] || box[1] != BOX_KEYS || box[2] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return emm_encode_bf16_map(out, base, rank, dims, strides_bytes, box);
+  return emm_encode_head_map(out, base, rank, dims, strides_bytes, box);
 }
 
-// The dynamic shared memory the kernel takes at `nt` keys, -1 for an nt it
-// is not built for.
-extern "C" int flash_attention_fwd_sm90_smem(int nt) {
+// The dynamic shared memory the kernel takes at `nt` keys and head dim `d`,
+// -1 for an (nt, d) it is not built for.
+extern "C" int flash_attention_fwd_sm90_smem(int nt, int d) {
   int smem = -1;
-  for_widths(nt, [&](auto w) { smem = Cfg<decltype(w)::value>::SMEM; });
+  for_widths(nt, [&](auto w) {
+    if (d == 64) smem = Cfg<decltype(w)::value, 64>::SMEM;
+    if (d == 32) smem = Cfg<decltype(w)::value, 32>::SMEM;
+  });
   return smem;
 }
 
 // The one entry of rows 1 and 3. mq, mk, mv: the maps of q, k, v (bh, n,
-// 64) bf16 (from `flash_attention_fwd_sm90_encode`, host memory); bias (bh /
-// heads, n) fp32; out (bh, n, 64) bf16; lse (bh, n) fp32; `nt`: the key
-// width, n rounded up to 16 (n <= nt <= 256); `grid`: persistent CTAs,
-// 1..bh. seed: null without dropout (row 1); for row 3 one int32 on the
+// d) bf16 (from `flash_attention_fwd_sm90_encode`, host memory), d the
+// head dim, 64 or 32; bias (bh / heads, n) fp32; out (bh, n, d) bf16; lse
+// (bh, n) fp32; `nt`: the key width, n rounded up to 16 (n <= nt <=
+// 256); `grid`: persistent CTAs, 1..bh. seed: null without dropout (row 1); for row 3 one int32 on the
 // device, a (row, key) kept where its hash bits are >= `threshold`
 // (min(int(rate * 2^32), 2^32 - 1)) and then scaled by `drop_scale`.
 // row_index: null (each row's own index), or (bh / heads) int32 on the
@@ -423,10 +449,11 @@ extern "C" int flash_attention_fwd_sm90(const void* mq, const void* mk, const vo
                                         const void* row_index, void* out, void* lse, int bh,
                                         int heads, int heads_total, int head0, int n, int nt,
                                         int grid, float scale, unsigned threshold,
-                                        float drop_scale, void* stream) {
+                                        float drop_scale, int d, void* stream) {
   return seed == nullptr
-             ? dispatch<false>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale,
-                               nullptr, nullptr, heads_total, head0, 0u, 1.f, stream)
-             : dispatch<true>(mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale, seed,
-                              row_index, heads_total, head0, threshold, drop_scale, stream);
+             ? dispatch_d<false>(d, mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale,
+                                 nullptr, nullptr, heads_total, head0, 0u, 1.f, stream)
+             : dispatch_d<true>(d, mq, mk, mv, bias, out, lse, bh, heads, n, nt, grid, scale,
+                                seed, row_index, heads_total, head0, threshold, drop_scale,
+                                stream);
 }

@@ -18,7 +18,8 @@
 //   p   = exp(s - max(s));  l = sum(p)
 //   out = ((keep o p) . v) / l                   fp32 sum, stored as bf16
 //   lse = max(s) + log(l)                        fp32 (LSE), read by the backward
-// with bf16 q, k, v (head dim 64) and an fp32 (B, N) key bias. keep is 1
+// with bf16 q, k, v (head dim D: 64, or vlmo_debug's 32) and an fp32 (B, N)
+// key bias. keep is 1
 // without DROP; with it, the hash mask of dropout_hash.cuh times 1 / (1 -
 // rate), applied after the row sum, so l and lse stay clean and the
 // backward rebuilds the clean p from lse. The TPU kernels of rows 1 and 3
@@ -90,6 +91,12 @@
 //     accumulator's fragment, packed to bf16 pairs, is the A operand of its
 //     k16 slices) and V from shared memory read MN-major (transposed), so V
 //     needs no transpose; O is 32 fp32 registers a thread.
+//   - Head dim D = 32 (vlmo_debug; its 1024^2 request streams BH = 24
+//     heads of N = 4,097): the tiles hold 64-byte rows in the 64-byte
+//     swizzle, Q K^T takes two k16 steps, P V is m64n32 over V read
+//     MN-major (`desc_rows<32>`, 16 keys 1,024 bytes), O 16 registers, and
+//     the ring and Q slots take half the shared memory; the loop is D =
+//     64's.
 //   - Ping-pong (PINGPONG): each warpgroup issues block j - 1's P V and
 //     block j's Q K^T together in one turn, then runs block j's softmax on
 //     the ALUs while the other warpgroup takes its turn on the tensor
@@ -122,26 +129,30 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace emm::sm90;
 
-constexpr int D = 64;        // head dim
 constexpr int BQ = 128;      // query rows per work item: two warpgroups of 64
 constexpr int BK = 128;      // keys per block
 constexpr int NS = 3;        // ring stages (K, V and bias of one block each)
 constexpr int QS = 2;        // Q slots: the next item's Q loads during this one
 constexpr bool HILO = true;  // p as hi + lo bf16 parts
 constexpr bool PINGPONG = true;  // the warpgroups' products in turns
-constexpr int TILE = BK * D * 2;  // 16 KB: one K or V block, or Q
-constexpr int Q_OFF = 0;
-constexpr int K_OFF = Q_OFF + QS * TILE;
-constexpr int V_OFF = K_OFF + NS * TILE;
-constexpr int BIAS_OFF = V_OFF + NS * TILE;  // NS x BK fp32
-constexpr int BAR_OFF = BIAS_OFF + NS * BK * 4;
-constexpr int SMEM = BAR_OFF + 8 * (2 * QS + 2 * NS) + 1024;  // + alignment slack
+// the shared-memory layout at head dim D (64, or 32: 64-byte rows in the
+// 64-byte swizzle, every tile half as large)
+template <int D>
+struct Cfg {
+  static constexpr int TILE = BK * D * 2;  // 16 KB at D = 64: one K or V block, or Q
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + QS * TILE;
+  static constexpr int V_OFF = K_OFF + NS * TILE;
+  static constexpr int BIAS_OFF = V_OFF + NS * TILE;  // NS x BK fp32
+  static constexpr int BAR_OFF = BIAS_OFF + NS * BK * 4;
+  static constexpr int SMEM = BAR_OFF + 8 * (2 * QS + 2 * NS) + 1024;  // + alignment slack
+  static_assert(BQ == 2 * 64 && TILE == BQ * D * 2, "Q shares the K/V box");
+  static_assert(SMEM <= 232448, "shared memory");
+};
 constexpr int THREADS = 384;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float MASKED = -1e30f;  // the key-padding bias of a masked key
-static_assert(BQ == 2 * 64 && TILE == BQ * D * 2, "Q shares the K/V box");
-static_assert(SMEM <= 232448, "shared memory");
 
 // 2^x on the MUFU unit, subnormal results flushed to 0: a p = 2^(s - m) below
 // 2^-126 of the row's largest term adds nothing that an fp32 sum keeps, and
@@ -171,7 +182,7 @@ struct Ring {
   }
 };
 
-// q, k, v through their (D, n, bh) maps in (64, 128, 1) boxes; bias (bh /
+// q, k, v through their (D, n, bh) maps in (D, 128, 1) boxes; bias (bh /
 // heads, n) fp32; out (bh, n, D) bf16; with LSE, lse (bh, n) fp32. Work
 // item i is query tile i % tiles of head i / tiles; CTA c takes items c,
 // c + gridDim.x, ... scale_log2 = scale * log2(e). With DROP, seed is one
@@ -179,7 +190,7 @@ struct Ring {
 // thr, then scaled by drop_scale; row_index (null or bh / heads int32)
 // gives each row's global index and head0 / heads_total the heads' offset
 // and total, which key its heads' masks (`dropout_head`).
-template <bool LSE, bool DROP>
+template <int D, bool LSE, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                         const __grid_constant__ CUtensorMap mk,
@@ -189,11 +200,13 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                         float scale_log2, const int32_t* __restrict__ seed,
                         const int32_t* __restrict__ row_index, int heads_total,
                         int head0, uint32_t thr, float drop_scale) {
+  using C = Cfg<D>;
+  constexpr int TILE = C::TILE;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
-  float* sbias = reinterpret_cast<float*>(smem_raw + (base - raw) + BIAS_OFF);
-  const uint32_t qfull0 = base + BAR_OFF, qempty0 = qfull0 + 8 * QS;
+  float* sbias = reinterpret_cast<float*>(smem_raw + (base - raw) + C::BIAS_OFF);
+  const uint32_t qfull0 = base + C::BAR_OFF, qempty0 = qfull0 + 8 * QS;
   const uint32_t full0 = qempty0 + 8 * QS, empty0 = full0 + 8 * NS;
   const int blocks = (n + BK - 1) / BK;
 
@@ -222,7 +235,7 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_wait(qempty0 + 8 * qr.slot, qr.phase ^ 1u);
       if (lane == 0) {
         mbar_arrive_expect_tx(qfull0 + 8 * qr.slot, TILE);
-        tma_load_3d(base + Q_OFF + qr.slot * TILE, &mq, qfull0 + 8 * qr.slot, 0, q0, bh);
+        tma_load_3d(base + C::Q_OFF + qr.slot * TILE, &mq, qfull0 + 8 * qr.slot, 0, q0, bh);
       }
       const float* kb = bias + (size_t)(bh / heads) * n;
       for (int j = 0; j < blocks; ++j, kr.next()) {
@@ -235,8 +248,8 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         const uint32_t full = full0 + 8 * s;
         if (lane == 0) {
           mbar_arrive_expect_tx(full, 2 * TILE);
-          tma_load_3d(base + K_OFF + s * TILE, &mk, full, 0, j * BK, bh);
-          tma_load_3d(base + V_OFF + s * TILE, &mv, full, 0, j * BK, bh);
+          tma_load_3d(base + C::K_OFF + s * TILE, &mk, full, 0, j * BK, bh);
+          tma_load_3d(base + C::V_OFF + s * TILE, &mv, full, 0, j * BK, bh);
         } else {
           mbar_arrive(full);
         }
@@ -258,7 +271,7 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   Ring<NS> kr;
   for (int item = blockIdx.x; item < items; item += gridDim.x, qr.next()) {
     const int bh = item / tiles;
-    const uint32_t sq = base + Q_OFF + qr.slot * TILE + w * (TILE / 2);
+    const uint32_t sq = base + C::Q_OFF + qr.slot * TILE + w * (TILE / 2);
     // rows 16 warp + g (h = 0) and + 8 (h = 1) of this warpgroup's 64
     const int row0 = (item % tiles) * BQ + 64 * w + 16 * warp + g;
     emm::DropKeys key{0u, 0u};
@@ -285,10 +298,10 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         asm volatile("" : "+r"(kb[0]), "+r"(kb[1]));
       }
     };
-    float o[32], sc[64];
+    float o[D / 2], sc[64];
     uint32_t hi[8][4], lo[8][4];
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {MASKED * LOG2E, MASKED * LOG2E}, l[2] = {0.f, 0.f};
     mbar_wait(qfull0 + 8 * qr.slot, qr.phase);
 
@@ -303,26 +316,26 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         hash(j);
         mbar_wait(full0 + 8 * kr.slot, kr.phase);
       }
-      const uint32_t sk = base + K_OFF + kr.slot * TILE;
-      const uint32_t sv = base + V_OFF + prev.slot * TILE;
+      const uint32_t sk = base + C::K_OFF + kr.slot * TILE;
+      const uint32_t sv = base + C::V_OFF + prev.slot * TILE;
 #pragma unroll
       for (int i = 0; i < 64; ++i) sc[i] = 0.f;
       if (PINGPONG) named_bar_sync(1 + w, 256);
       fence_regs(sc);
       fence_regs(o);
       wgmma_fence();
-      if (j > 0) {  // O (64 x 64) += P V, V read MN-major: 16 keys are 2048 bytes
+      if (j > 0) {  // O (64 x D) += P V, V read MN-major: 16 keys are 32 D bytes
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk) {
-          const uint64_t dv = desc_sw128(sv + kk * 2048);
-          wgmma_rs_n64_mn(o, hi[kk], dv);
-          if (HILO) wgmma_rs_n64_mn(o, lo[kk], dv);
+          const uint64_t dv = desc_rows<D>(sv + kk * 32 * D);
+          wgmma_rs_mn<D>(o, hi[kk], dv);
+          if (HILO) wgmma_rs_mn<D>(o, lo[kk], dv);
         }
       }
       if (qk) {  // S (64 x 128) = Q K^T
 #pragma unroll
         for (int k = 0; k < D / 16; ++k)
-          wgmma_ss_n128(sc, desc_sw128(sq + 32 * k), desc_sw128(sk + 32 * k));
+          wgmma_ss_n128(sc, desc_rows<D>(sq + 32 * k), desc_rows<D>(sk + 32 * k));
       }
       wgmma_commit();
       if (PINGPONG) named_bar_arrive(1 + (1 - w), 256);
@@ -361,7 +374,7 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
         l[h] *= corr[h];
       }
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) o[i] *= corr[(i >> 1) & 1];
 
       // p, packed as the A fragments of the 8 k16 slices of P V
 #pragma unroll
@@ -408,15 +421,16 @@ attn_stream_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   if (PINGPONG && w == 0) named_bar_sync(1, 256);
 }
 
-template <bool LSE, bool DROP>
-int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const void* bias,
+template <int D, bool LSE, bool DROP>
+int run(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, const void* bias,
            void* out, void* lse, int heads, int n, int tiles, int items, int grid, float scale,
            const void* seed, const void* row_index, int heads_total, int head0, uint32_t thr,
            float drop_scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(attn_stream_sm90_kernel<LSE, DROP>,
+  constexpr int SMEM = Cfg<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(attn_stream_sm90_kernel<D, LSE, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_stream_sm90_kernel<LSE, DROP>
+  attn_stream_sm90_kernel<D, LSE, DROP>
       <<<grid, THREADS, SMEM, static_cast<cudaStream_t>(stream)>>>(
           q, k, v, static_cast<const float*>(bias), static_cast<bf16*>(out),
           static_cast<float*>(lse), n, heads, tiles, items, scale * LOG2E,
@@ -425,45 +439,62 @@ int launch(const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// run<d, LSE, DROP> for the head dim d, 64 or 32
+template <bool LSE, bool DROP>
+int launch(int d, const CUtensorMap& q, const CUtensorMap& k, const CUtensorMap& v,
+           const void* bias, void* out, void* lse, int heads, int n, int tiles, int items,
+           int grid, float scale, const void* seed, const void* row_index, int heads_total,
+           int head0, uint32_t thr, float drop_scale, void* stream) {
+  return d == 64 ? run<64, LSE, DROP>(q, k, v, bias, out, lse, heads, n, tiles, items, grid,
+                                      scale, seed, row_index, heads_total, head0, thr,
+                                      drop_scale, stream)
+                 : run<32, LSE, DROP>(q, k, v, bias, out, lse, heads, n, tiles, items, grid,
+                                      scale, seed, row_index, heads_total, head0, thr,
+                                      drop_scale, stream);
+}
+
 }  // namespace
 
 // Encodes into `out` (128 bytes, host memory) the bf16 tensor map at `base`
 // with the given extents: `rank` dims innermost first, the byte strides of
-// dims 1.., the box. Returns a cudaError_t.
+// dims 1.., the box (D, 128, 1), D 64 or 32 (the 64-byte swizzle). Returns
+// a cudaError_t.
 extern "C" int flash_attention_long_sm90_encode(void* out, const void* base, int rank,
                                                 const uint64_t* dims,
                                                 const uint64_t* strides_bytes,
                                                 const uint32_t* box) {
-  if (rank != 3 || box[0] != D || box[1] != BK || box[2] != 1)
+  if (rank != 3 || dims[0] != box[0] || box[1] != BK || box[2] != 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  return emm_encode_bf16_map(out, base, rank, dims, strides_bytes, box);
+  return emm_encode_head_map(out, base, rank, dims, strides_bytes, box);
 }
 
-// The dynamic shared memory the kernel takes.
-extern "C" int flash_attention_long_sm90_smem() { return SMEM; }
+// The dynamic shared memory the kernel takes at head dim `d`, -1 for another.
+extern "C" int flash_attention_long_sm90_smem(int d) {
+  return d == 64 ? Cfg<64>::SMEM : d == 32 ? Cfg<32>::SMEM : -1;
+}
 
 // The one entry of rows 5, 1 and 3. mq, mk, mv: the maps of q, k, v (bh, n,
-// 64) bf16 (from `flash_attention_long_sm90_encode`, host memory); bias (bh
-// / heads, n) fp32; out (bh, n, 64) bf16; `tiles` = ceil(n / 128) query
-// tiles a head; `grid`: persistent CTAs, 1..bh * tiles. lse: null for row 5
-// (the output only), else (bh, n) fp32 (rows 1 and 3). seed: null without
-// dropout; for row 3 one int32 on the device, a (row, key) kept where its
-// hash bits are >= `threshold` (min(int(rate * 2^32), 2^32 - 1)) and then
-// scaled by `drop_scale`; it needs an lse. row_index: null (each row's own
-// index), or (bh / heads) int32 on the device, each row's index in the
-// global batch, which keys its heads' masks (row 3 only). heads_total,
-// head0: the call holds heads head0 .. head0 + heads - 1 of each row's
-// heads_total (tensor parallelism), which key the masks by their global
-// index; heads and 0 otherwise. Launches on `stream`; returns the launch's
-// cudaError_t.
+// d) bf16 (from `flash_attention_long_sm90_encode`, host memory), d the
+// head dim, 64 or 32; bias (bh / heads, n) fp32; out (bh, n, d) bf16;
+// `tiles` = ceil(n / 128) query tiles a head; `grid`: persistent CTAs, 1..bh
+// * tiles. lse: null for row 5 (the output only), else (bh, n) fp32 (rows 1
+// and 3). seed: null without dropout; for row 3 one int32 on the device, a
+// (row, key) kept where its hash bits are >= `threshold` (min(int(rate *
+// 2^32), 2^32 - 1)) and then scaled by `drop_scale`; it needs an lse.
+// row_index: null (each row's own index), or (bh / heads) int32 on the
+// device, each row's index in the global batch, which keys its heads' masks
+// (row 3 only). heads_total, head0: the call holds heads head0 .. head0 +
+// heads - 1 of each row's heads_total (tensor parallelism), which key the
+// masks by their global index; heads and 0 otherwise. Launches on
+// `stream`; returns the launch's cudaError_t.
 extern "C" int flash_attention_long_sm90(const void* mq, const void* mk, const void* mv,
                                          const void* bias, const void* seed,
                                          const void* row_index, void* out, void* lse, int bh,
                                          int heads, int heads_total, int head0, int n,
                                          int tiles, int grid, float scale, unsigned threshold,
-                                         float drop_scale, void* stream) {
+                                         float drop_scale, int d, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads != 0 || n <= 0 || tiles != (n + BQ - 1) / BQ ||
-      head0 < 0 || head0 + heads > heads_total ||
+      head0 < 0 || head0 + heads > heads_total || (d != 32 && d != 64) ||
       (long long)bh * tiles > 0x7fffffff || grid <= 0 || grid > bh * tiles ||
       (seed != nullptr && lse == nullptr) || (row_index != nullptr && seed == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -473,13 +504,13 @@ extern "C" int flash_attention_long_sm90(const void* mq, const void* mk, const v
   memcpy(&v, mv, sizeof(v));
   const int items = bh * tiles;
   if (lse == nullptr)
-    return launch<false, false>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
+    return launch<false, false>(d, q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
                                 seed, nullptr, heads_total, head0, threshold, drop_scale,
                                 stream);
   if (seed == nullptr)
-    return launch<true, false>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
+    return launch<true, false>(d, q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
                                seed, nullptr, heads_total, head0, threshold, drop_scale,
                                stream);
-  return launch<true, true>(q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale, seed,
-                            row_index, heads_total, head0, threshold, drop_scale, stream);
+  return launch<true, true>(d, q, k, v, bias, out, lse, heads, n, tiles, items, grid, scale,
+                            seed, row_index, heads_total, head0, threshold, drop_scale, stream);
 }

@@ -14,10 +14,16 @@
 // flips each top bit to read u.
 //
 // Widths: K = N of the presets the JAX package sends to its kernel
-// (`fits_vmem`): 192 (vlmo_tiny, hidden 768), 384 (vlmo_small, 1,536) and
-// 768 (vlmo_base, 3,072), each an instantiation of its own; any hidden of
-// whole 64-column chunks. vlmo_large's 1,024 / 4,096 fails `fits_vmem` and takes the erf
-// chain in both packages.
+// (`fits_vmem`): 96 (vlmo_debug, hidden 384), 192 (vlmo_tiny, 768), 384
+// (vlmo_small, 1,536) and 768 (vlmo_base, 3,072), each an instantiation of
+// its own; any hidden of whole 64-column chunks. At 96, not a multiple of
+// the 64-column box, x's and W1's second box runs 32 columns past K and
+// W2's second box 32 rows past N: TMA fills them with zeros, but no product
+// reads the K tail (its k16 steps are not issued) and no store writes the
+// N tail, so the result does not rest on the fill. Warpgroup 1's output
+// piece lies wholly past N = 96: computed on what its stage holds, not
+// stored, as the pieces past N at 192 and 384. vlmo_large's 1,024 / 4,096
+// fails `fits_vmem` and takes the erf chain in both packages.
 //
 // What bounds it on an H100: operations. At the VLMo-Base widths (K = N =
 // 768, hidden 3072) it does 2 M (K H + H N) flops against about 2 M (K + N)
@@ -122,10 +128,15 @@ constexpr int THREADS = 384;
 static_assert(smem_bytes<true>() <= 232448, "shared memory");
 
 // whether the kernel takes K = N = k
-__host__ __device__ constexpr bool width_ok(int k) { return k == 192 || k == 384 || k == 768; }
+__host__ __device__ constexpr bool width_ok(int k) {
+  return k == 96 || k == 192 || k == 384 || k == 768;
+}
 
+// x's 64-column boxes at width k, and W1's boxes of a chunk (the last one
+// ragged at 96)
+__host__ __device__ constexpr int k_boxes(int k) { return (k + 63) / 64; }
 // a chunk's W1 stages at width k (SB boxes of K each, the last the rest)
-__host__ __device__ constexpr int w1_stages(int k) { return (k / 64 + SB - 1) / SB; }
+__host__ __device__ constexpr int w1_stages(int k) { return (k_boxes(k) + SB - 1) / SB; }
 // its W2 stages: the 128-column pieces of the output each warpgroup takes
 __host__ __device__ constexpr int pieces(int k) { return ((k + 127) / 128 + 1) / 2; }
 
@@ -163,7 +174,7 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
   const int m0 = blockIdx.x * BM;
   const int chunk0 = blockIdx.y * chunks;
   const uint32_t rank = cluster_ctarank();
-  constexpr int XB = K / 64;             // x's boxes, and W1's boxes of a chunk
+  constexpr int XB = k_boxes(K);         // x's boxes, and W1's boxes of a chunk
   constexpr int S1 = w1_stages(K), PW = pieces(K);
   constexpr int PER_CHUNK = S1 + PW;     // stages a chunk takes
   // whether every W1 stage is whole boxes of K, and every warpgroup's
@@ -258,7 +269,8 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
         const int cur = it++;
         mbar_wait(full0 + 8 * (cur % NS), (cur / NS) & 1);
         const uint32_t stage = ring + (cur % NS) * STAGE;
-        // the stage's boxes of K: SB, or the rest of K in the last stage
+        // the stage's boxes of K: SB, or the rest of K in the last stage;
+        // its k16 steps below K (all but 96's last two)
         auto products = [&](auto boxes) {
           fence_regs(hacc);
           wgmma_fence();
@@ -266,8 +278,9 @@ mlp_sm90_kernel(const __grid_constant__ CUtensorMap mx,
           for (int b = 0; b < decltype(boxes)::value; ++b)
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk)
-              wgmma_ss_n32(hacc, desc_sw128(sx + (SB * st + b) * BOX + 32 * kk),
-                           desc_sw128(stage + b * BOX + 32 * 128 * w + 32 * kk));
+              if (64 * (SB * st + b) + 16 * kk < K)
+                wgmma_ss_n32(hacc, desc_sw128(sx + (SB * st + b) * BOX + 32 * kk),
+                             desc_sw128(stage + b * BOX + 32 * 128 * w + 32 * kk));
           wgmma_commit();
         };
         const int rest = XB - SB * st;
@@ -393,10 +406,10 @@ __global__ void mlp_sum_splits(const float4* __restrict__ part, const float* __r
 }  // namespace
 
 // Encodes into `out` (128 bytes, host memory) the tensor map of a row-major
-// bf16 matrix (rows, cols) at `base`, in 64 x 64 boxes. Returns a
-// cudaError_t.
+// bf16 matrix (rows, cols) at `base`, in 64 x 64 boxes (a box past `cols`,
+// at cols = 96, filled with zeros). Returns a cudaError_t.
 extern "C" int fused_mlp_sm90_encode(void* out, const void* base, int rows, int cols) {
-  if (rows <= 0 || cols <= 0 || cols % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 0 || cols <= 0 || cols % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const uint64_t dims[2] = {static_cast<uint64_t>(cols), static_cast<uint64_t>(rows)};
   const uint64_t strides[1] = {static_cast<uint64_t>(cols) * 2};
   const uint32_t box[2] = {64, 64};
@@ -417,8 +430,10 @@ cudaError_t run_kernel(dim3 grid, int smem, cudaStream_t st, const CUtensorMap& 
                        const CUtensorMap& w1, const CUtensorMap& w2, const CUtensorMap& bits,
                        const float* b1, const float* b2, bf16* y, float* kpart, int m, int k,
                        int chunks, int thr, float keep_scale) {
-  auto kernel = k == 192 ? mlp_sm90_kernel<DROP, 192>
-                : k == 384 ? mlp_sm90_kernel<DROP, 384> : mlp_sm90_kernel<DROP, 768>;
+  auto kernel = k == 96    ? mlp_sm90_kernel<DROP, 96>
+                : k == 192 ? mlp_sm90_kernel<DROP, 192>
+                : k == 384 ? mlp_sm90_kernel<DROP, 384>
+                           : mlp_sm90_kernel<DROP, 768>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -468,7 +483,7 @@ int launch(const void* mx, const void* mw1, const void* mw2, const void* mbits,
 
 // mx, mw1, mw2: the maps of x (m, k), W1 (hidden, k) and W2 (k, hidden),
 // each in 64 x 64 boxes (from `fused_mlp_sm90_encode`, host memory); k in
-// {192, 384, 768}; b1 (hidden), b2 (k) fp32; y (m, k) bf16. With splits >
+// {96, 192, 384, 768}; b1 (hidden), b2 (k) fp32; y (m, k) bf16. With splits >
 // 1, `part` is fp32 scratch of splits x m x k. hidden % (64 splits) == 0.
 // With `partial` set, y is fp32 (m, k): the sum over this hidden without b2
 // (which may be null), unrounded. Launches on `stream`; returns the first

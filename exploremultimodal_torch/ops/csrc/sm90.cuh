@@ -10,7 +10,8 @@
 // A K step of 16 elements inside the row is a 32-byte advance of the start
 // address in the descriptor. int8 tiles take the same layout with 128 K
 // values a row, a k32 step being the same 32-byte advance, or the 64-byte
-// swizzle (rows of 64 K values, 8-row groups of 512 bytes, `desc_sw64`).
+// swizzle (rows of 64 K values, 8-row groups of 512 bytes, `desc_sw64`),
+// as do the attention kernels' bf16 rows of head dim 32 (`desc_rows`).
 #pragma once
 
 #include <cuda.h>
@@ -235,6 +236,30 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
 __device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
+// The head-dim-generic descriptor of the attention kernels: rows of D bf16
+// are 128 bytes at D = 64 (the 128-byte swizzle) and 64 bytes at D = 32
+// (the 64-byte swizzle). A K-major tile steps 32 bytes per k16 either way.
+// B read MN-major (transposed: one row of D n values per k, 8-k groups of
+// 1024 or 512 bytes, the stride field) is one swizzle atom wide at N = D,
+// so the field between atoms along n is unused and the encoding is the
+// K-major one; a k16 step is 16 rows, 32 D bytes.
+template <int D>
+__device__ __forceinline__ uint64_t desc_rows(uint32_t addr) {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  if constexpr (D == 64) return desc_sw128(addr);
+  else return desc_sw64(addr);
+}
+
+// byte offset of 16-byte chunk `c` of row `r` in a tile of D-wide bf16 rows
+// as TMA swizzles it: chunk bits 4-6 (128-byte) or 4-5 (64-byte) XOR the
+// row's address bits 7-9 or 7-8
+template <int D>
+__device__ __forceinline__ uint32_t swizzled_chunk(int r, int c) {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  if constexpr (D == 64) return r * 128 + ((c ^ (r & 7)) << 4);
+  else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -518,6 +543,30 @@ __device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D (64 x 32, fp32, 16 registers a thread) += A (64 x 16, bf16 from registers
+// as in wgmma_rs_n64) . B (16 x 32) read MN-major: a tile of 64-byte rows,
+// one per k, in the 64-byte swizzle (`desc_rows<32>`; a k step of 16 rows
+// is a 1024-byte advance)
+__device__ __forceinline__ void wgmma_rs_n32_mn(float (&d)[16], const uint32_t (&a)[4],
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x D) += A (registers) . B (16 x D) read MN-major from D-wide rows
+// (`desc_rows<D>`; a k16 step is 16 rows, 32 D bytes)
+template <int D>
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[D / 2], const uint32_t (&a)[4],
+                                            uint64_t db) {
+  static_assert(D == 32 || D == 64, "head dim 32 or 64");
+  if constexpr (D == 64) wgmma_rs_n64_mn(d, a, db);
+  else wgmma_rs_n32_mn(d, a, db);
+}
+
 }  // namespace sm90
 }  // namespace emm
 
@@ -574,4 +623,16 @@ static inline int emm_encode_bf16_map(void* out, const void* base, int rank,
                                       const uint32_t* box) {
   return emm_encode_map(out, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, dims,
                         strides_bytes, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// emm_encode_map for the attention kernels' q, k, v (o, do) maps: boxes of
+// box[0] = D bf16 a row, D 64 (the 128-byte swizzle) or 32 (the 64-byte
+// one, `desc_rows<32>`); another D is cudaErrorInvalidValue
+static inline int emm_encode_head_map(void* out, const void* base, int rank,
+                                      const uint64_t* dims, const uint64_t* strides_bytes,
+                                      const uint32_t* box) {
+  if (box[0] != 32 && box[0] != 64) return static_cast<int>(cudaErrorInvalidValue);
+  return emm_encode_map(out, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, dims,
+                        strides_bytes, box,
+                        box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }

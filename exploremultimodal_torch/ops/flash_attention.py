@@ -19,7 +19,10 @@ CUDA tensors and its plain PyTorch version on CPU tensors; there is no
 other fallback.
 The kernels work on the unpadded N: the JAX kernels pad N to 128, but rows
 and columns keep their indices, so the dropout mask at every real (row,
-col) is the same.
+col) is the same. Each kernel takes the presets' head dims, `HEAD_DIMS`:
+64 (rows of 128 bytes in the 128-byte swizzle) and vlmo_debug's 32 (rows of
+64 bytes in the 64-byte swizzle), one instantiation each; the host's
+layout mirrors below take the head dim `d`.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import torch
 from exploremultimodal_torch.ops import _build
 from exploremultimodal_torch.ops.mlp_fused import SMEM_LIMIT, _sm_count, tensor_map_key
 
-HEAD_DIM = 64  # the only head dim the kernels take (every preset's but vlmo_debug)
+HEAD_DIMS = (32, 64)  # the head dims the kernels take: vlmo_debug's, and every other preset's
 # the fused backward (and so in-kernel dropout) covers N up to this; longer
 # sequences take the forward kernel and a backward through the plain chain
 LONG_SEQ_THRESHOLD = 512
@@ -53,7 +56,7 @@ LONG_Q_SLOTS = 2
 SM90_FWD_MAX_N = 256
 # the sm90 forward's layout, as its source sets it: key widths in steps of
 # 16 (its wgmma N), keys and query rows in 64-row TMA boxes and tiles, up to
-# 4 heads in flight per CTA, each slot a head's Q, K and V (128 bytes a row)
+# 4 heads in flight per CTA, each slot a head's Q, K and V (2 d bytes a row)
 # and its fp32 bias row, then a full and an empty barrier per slot and 1024
 # bytes of alignment slack
 SM90_FWD_WIDTH_STEP = 16
@@ -78,11 +81,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each forward's one entry: maps, bias, seed (null without dropout), row
 # index (null: each row's own), out, lse (null for row 5), shape ints (bh,
 # heads, the heads' total and first index, ...), then scale, threshold,
-# factor, stream
-_FWD_LONG_ARGS = [_P] * 8 + [_I] * 7 + [_F, ctypes.c_uint32, _F, _P]
-_FWD_SM90_ARGS = [_P] * 8 + [_I] * 7 + [_F, ctypes.c_uint32, _F, _P]
+# factor, head dim, stream
+_FWD_LONG_ARGS = [_P] * 8 + [_I] * 7 + [_F, ctypes.c_uint32, _F, _I, _P]
+_FWD_SM90_ARGS = [_P] * 8 + [_I] * 7 + [_F, ctypes.c_uint32, _F, _I, _P]
 _ENCODE_ARGS = [_P, _P, _I, _P, _P, _P]
-_BWD_SM90_ARGS = [_P] * 13 + [_I] * 8 + [_F, ctypes.c_uint32, _F, _P]
+_BWD_SM90_ARGS = [_P] * 13 + [_I] * 8 + [_F, ctypes.c_uint32, _F, _I, _P]
 
 
 # ------------------------------------------------------------- dropout hash
@@ -232,18 +235,21 @@ def flash_attention_bwd_drop_plain(qf, kf, vf, key_bias, seed, of, dof, lse,
 def _check(name: str, key_bias, *tensors, lse=None, seed=None, row_index=None,
            heads_total=None, head0: int = 0) -> None:
     """Raise unless the kernels take these inputs: contiguous, 16-byte
-    aligned bf16 (B*H, N, 64) tensors on one device, an fp32 (B, N) bias,
-    an fp32 (B*H, N) lse, an int32 one-element seed, a contiguous int32
-    (B,) row index, and heads head0 .. head0 + H - 1 within heads_total."""
-    bh, n, _ = tensors[0].shape
+    aligned bf16 (B*H, N, D) tensors on one device with D in HEAD_DIMS, an
+    fp32 (B, N) bias, an fp32 (B*H, N) lse, an int32 one-element seed, a
+    contiguous int32 (B,) row index, and heads head0 .. head0 + H - 1
+    within heads_total."""
+    bh, n, d = tensors[0].shape
     dev = tensors[0].device
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernels take head dims {HEAD_DIMS}, got {d}")
     for t in tensors:
-        if t.dtype != torch.bfloat16 or t.shape != (bh, n, HEAD_DIM) \
+        if t.dtype != torch.bfloat16 or t.shape != (bh, n, d) \
                 or not t.is_contiguous() or t.device != dev \
                 or t.data_ptr() % 16 != 0:
             raise ValueError(
                 f"{name}: q/k/v/o/do must be contiguous, 16-byte aligned bf16 "
-                f"({bh}, {n}, {HEAD_DIM}) tensors on {dev}, got "
+                f"({bh}, {n}, {d}) tensors on {dev}, got "
                 f"{tuple(t.shape)} {t.dtype} on {t.device}")
     b = key_bias.shape[0]
     if key_bias.dtype != torch.float32 or key_bias.shape != (b, n) \
@@ -290,31 +296,34 @@ def fwd_sm90_grid(bh: int, sms: int) -> int:
     return min(bh, sms)
 
 
-def fwd_sm90_map_extents(bh: int, n: int):
-    """The 3D tensor map of a (BH, N, 64) bf16 q, k or v for the sm90
+def fwd_sm90_map_extents(bh: int, n: int, d: int):
+    """The 3D tensor map of a (BH, N, D) bf16 q, k or v for the sm90
     forward: dims innermost first (D, N, BH), the byte strides of dims 1..,
-    and the box (64, 64, 1); a box stops at its head's N and TMA fills the
-    rest of the head's slot with zeros."""
-    row = 2 * HEAD_DIM
-    return (HEAD_DIM, n, bh), (row, row * n), (HEAD_DIM, SM90_FWD_BOX, 1)
+    and the box (D, 64, 1), a row of 2 D bytes (the kernel's swizzle is
+    that width); a box stops at its head's N and TMA fills the rest of the
+    head's slot with zeros."""
+    row = 2 * d
+    return (d, n, bh), (row, row * n), (d, SM90_FWD_BOX, 1)
 
 
-def _slot_bytes(nt: int) -> int:
-    """A slot at key width nt: Q, K and V of the rows its boxes load, and
-    the bias row."""
+def _slot_bytes(nt: int, d: int) -> int:
+    """A slot at key width nt and head dim d: Q, K and V of the rows its
+    boxes load, and the bias row."""
     rows = -(-nt // SM90_FWD_BOX) * SM90_FWD_BOX
-    return 3 * rows * 2 * HEAD_DIM + 4 * rows
+    return 3 * rows * 2 * d + 4 * rows
 
 
-def fwd_sm90_slots(nt: int) -> int:
-    """Heads in flight per CTA at key width nt: as many slots as fit."""
+def fwd_sm90_slots(nt: int, d: int) -> int:
+    """Heads in flight per CTA at key width nt and head dim d: as many
+    slots as fit."""
     return min(SM90_FWD_MAX_SLOTS,
-               (SMEM_LIMIT - 1024 - 16 * SM90_FWD_MAX_SLOTS) // _slot_bytes(nt))
+               (SMEM_LIMIT - 1024 - 16 * SM90_FWD_MAX_SLOTS) // _slot_bytes(nt, d))
 
 
-def fwd_sm90_smem(nt: int) -> int:
-    """The sm90 forward's dynamic shared memory at key width nt."""
-    return fwd_sm90_slots(nt) * (_slot_bytes(nt) + 16) + 1024
+def fwd_sm90_smem(nt: int, d: int) -> int:
+    """The sm90 forward's dynamic shared memory at key width nt and head
+    dim d."""
+    return fwd_sm90_slots(nt, d) * (_slot_bytes(nt, d) + 16) + 1024
 
 
 def flash_attention_fwd(qf, kf, vf, key_bias, scale: float):
@@ -367,7 +376,7 @@ def _launch_fwd_sm90(qf, kf, vf, key_bias, scale: float, seed=None,
     rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index),
             out.data_ptr(), lse.data_ptr(), bh, *_heads(bh, key_bias, heads_total, head0),
             n, fwd_sm90_tile(n), fwd_sm90_grid(bh, _sm_count(qf.device)), scale,
-            dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+            dropout_threshold(rate), dropout_scale(rate), qf.shape[2], _stream(qf))
     _build.check("flash_attention_fwd_sm90", rc)
     return out, lse
 
@@ -381,17 +390,18 @@ def bwd_route(n: int) -> str:
     return "sm90"
 
 
-def bwd_sm90_layout(nt: int, role: str) -> dict:
-    """The sm90 backward's shared memory at key width nt for `role` ("dq"
-    or "dkdv"), as its source lays it out: head slots of the B-side pair
-    (2 x nt rounded up to 64 rows of 128 bytes) and their column vectors,
-    tile stages of 64-row boxes; the stages take what leaves room for two
-    head slots (or for one, where two would leave fewer than two stages),
-    at most SM90_FWD_MAX_SLOTS, the slots what is left."""
+def bwd_sm90_layout(nt: int, role: str, d: int) -> dict:
+    """The sm90 backward's shared memory at key width nt and head dim d
+    for `role` ("dq" or "dkdv"), as its source lays it out: head slots of
+    the B-side pair (2 x nt rounded up to 64 rows of 2 d bytes) and their
+    column vectors, tile stages of 64-row boxes; the stages take what
+    leaves room for two head slots (or for one, where two would leave fewer
+    than two stages), at most SM90_FWD_MAX_SLOTS, the slots what is
+    left."""
     vectors, boxes = SM90_BWD_ROLES[role]
     ntb = -(-nt // SM90_FWD_BOX) * SM90_FWD_BOX
-    head, vec = 2 * ntb * 2 * HEAD_DIM, vectors * ntb * 4
-    tile = boxes * SM90_FWD_BOX * 2 * HEAD_DIM
+    head, vec = 2 * ntb * 2 * d, vectors * ntb * 4
+    tile = boxes * SM90_FWD_BOX * 2 * d
     room = SMEM_LIMIT - 1024 - _BAR_BYTES
     stages = (room - 2 * (head + vec)) // tile
     if stages < 2:
@@ -435,23 +445,24 @@ def long_ctas(bh: int, n: int, sms: int) -> int:
     return min(tiles * bh, sms)
 
 
-def stream_smem() -> int:
-    """The streamed kernel's dynamic shared memory, as its source lays it
-    out: LONG_Q_SLOTS Q slots, LONG_STAGES stages of K and V blocks, their
-    bias rows, a full and an empty barrier per slot and per stage, and 1024
-    bytes of alignment slack."""
-    tile = LONG_TILE * HEAD_DIM * 2
+def stream_smem(d: int) -> int:
+    """The streamed kernel's dynamic shared memory at head dim d, as its
+    source lays it out: LONG_Q_SLOTS Q slots, LONG_STAGES stages of K and V
+    blocks (LONG_TILE rows of 2 d bytes), their bias rows, a full and an
+    empty barrier per slot and per stage, and 1024 bytes of alignment
+    slack."""
+    tile = LONG_TILE * d * 2
     return (LONG_Q_SLOTS * tile + 2 * LONG_STAGES * tile + LONG_STAGES * LONG_TILE * 4
             + 8 * (2 * LONG_Q_SLOTS + 2 * LONG_STAGES) + 1024)
 
 
-def long_map_extents(bh: int, n: int):
-    """The 3D tensor map of a (BH, N, 64) bf16 q, k or v for the streamed
+def long_map_extents(bh: int, n: int, d: int):
+    """The 3D tensor map of a (BH, N, D) bf16 q, k or v for the streamed
     kernel: dims innermost first (D, N, BH), the byte strides of dims 1..,
-    and the box (64, LONG_TILE, 1). A box stops at its head's N, so TMA
+    and the box (D, LONG_TILE, 1). A box stops at its head's N, so TMA
     fills a ragged block with zeros instead of reading the next head."""
-    row = 2 * HEAD_DIM
-    return (HEAD_DIM, n, bh), (row, row * n), (HEAD_DIM, LONG_TILE, 1)
+    row = 2 * d
+    return (d, n, bh), (row, row * n), (d, LONG_TILE, 1)
 
 
 # the sm90 kernels' q/k/v maps: source, and the extents for (BH, N); the
@@ -470,7 +481,7 @@ def _map(kind: str, t: torch.Tensor):
         if len(_MAPS) >= _MAPS_CAP:
             _MAPS.clear()
         src, extents = _MAP_KINDS[kind]
-        dims, strides, box = extents(t.shape[0], t.shape[1])
+        dims, strides, box = extents(*t.shape)
         buf = ctypes.create_string_buffer(128)
         fn = _build.load(src, _ENCODE_ARGS, f"{src}_encode")
         rc = fn(ctypes.addressof(buf), t.data_ptr(), len(dims),
@@ -522,7 +533,7 @@ def _launch_stream(qf, kf, vf, key_bias, scale: float, seed=None,
     rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index), out.data_ptr(),
             _ptr(lse), bh, *_heads(bh, key_bias, heads_total, head0), n, tiles,
             long_ctas(bh, n, _sm_count(qf.device)), scale, dropout_threshold(rate),
-            dropout_scale(rate), _stream(qf))
+            dropout_scale(rate), qf.shape[2], _stream(qf))
     _build.check("flash_attention_long_sm90", rc)
     return out, lse
 
@@ -590,8 +601,7 @@ def _launch_bwd_sm90(qf, kf, vf, key_bias, seed, of, dof, lse, scale: float,
     rc = fn(*maps, key_bias.data_ptr(), _ptr(seed), _ptr(row_index),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, *_heads(bh, key_bias, heads_total, head0), n, fwd_sm90_tile(n), grid, tpg,
-            scale,
-            dropout_threshold(rate), dropout_scale(rate), _stream(qf))
+            scale, dropout_threshold(rate), dropout_scale(rate), qf.shape[2], _stream(qf))
     _build.check("flash_attention_bwd_sm90", rc)
     return dq, dk, dv
 

@@ -8,8 +8,8 @@ Counterpart of `exploremultimodal_tpu/ops/mlp_pallas.py`:
                           the backward of `_vjp_bwd` / `_vjpd_bwd`
 Both forwards are `csrc/fused_mlp_sm90.cu` (wgmma, TMA, clusters; the
 dropout forward is its `DROP` variant), at the widths JAX sends to its
-kernel: K = N in `WIDTHS` (vlmo_tiny's 192, vlmo_small's 384, vlmo_base's
-768), any hidden of whole 64-column chunks. The weights are in nn.Linear's
+kernel: K = N in `WIDTHS` (vlmo_debug's 96, vlmo_tiny's 192, vlmo_small's
+384, vlmo_base's 768), any hidden of whole 64-column chunks. The weights are in nn.Linear's
 layout: w1 (hidden, in), w2 (out, hidden); the biases are fp32. The
 dropout bits are uint16 draws u held as the int16 u - 32768
 (`stochastic.bits16`); an element is kept where u >= t.
@@ -39,7 +39,7 @@ from exploremultimodal_torch.ops.stochastic import keep16, keep_scale16
 _RESIDENT_BYTES_CAP = 10 * 1024 * 1024
 # the widths K = N the sm90 kernel takes (x's 64 x K tile stays in shared
 # memory): every preset that `fits_vmem` sends to it
-WIDTHS = (192, 384, 768)
+WIDTHS = (96, 192, 384, 768)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # maps, biases, y, part, then m, k, hidden, splits, partial (and the threshold)

@@ -25,7 +25,8 @@ at the int8 finetune_vqa step's and batch-64 request's M, and
 at vlmo_base's widths, and at the step's M the tensor-split modes of a
 tensor axis of 2: `w8a8_matmul_partial` (row 8 on proj's row share, K 384)
 and `w8a8_mlp_fwd_drop_split` (row 10 on hidden 1,536), on the same seeded
-inputs, and prints one JSON line.
+inputs, and prints one JSON line (with the kernels whose build spilled,
+from the first worker of each tree).
 With `--mlp` it times rows 6-10 alone. The
 times are device times (CUDA events around 20 calls queued behind a
 device-side sleep, as `chip_smoke.time_ms`). Prints the card's name and
@@ -74,6 +75,19 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def spilled(logs: dict) -> list[str]:
+    """The kernels (mangled symbols) whose ptxas report in a build's logs
+    shows spill stores; none where the tree's kernels were built before."""
+    found, func = [], ""
+    for _, log in logs.values():
+        for line in log.splitlines():
+            if "Function properties for" in line:
+                func = line.split("Function properties for", 1)[1].strip()
+            elif "spill stores" in line and " 0 bytes spill stores" not in line:
+                found.append(func)
+    return found
+
+
 def worker(tree: Path, kernels: tuple) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -85,9 +99,9 @@ def worker(tree: Path, kernels: tuple) -> dict:
     from exploremultimodal_torch.ops import quant_fused as qf
 
     assert Path(fa.__file__).resolve().is_relative_to(tree.resolve()), fa.__file__
-    _build.build()
+    logs = _build.build()
     dev = torch.device("cuda")
-    out = {"tree": str(tree), **{name: {} for name in kernels}}
+    out = {"tree": str(tree), "spilled": spilled(logs), **{name: {} for name in kernels}}
     rng = np.random.default_rng(1)
     seed = torch.tensor([1234], dtype=torch.int32, device=dev)
     attention = {**ATTN_SHAPES, **BWD_SHAPES, **FWD_SHAPES} if ATTENTION[0] in kernels else {}

@@ -201,22 +201,21 @@ def _meta_mlp(width: int):
     return x, w1, b1, w2, b2
 
 
-@pytest.mark.parametrize("model", ["vlmo_tiny", "vlmo_small"])
+@pytest.mark.parametrize("model", ["vlmo_tiny", "vlmo_small", "vlmo_debug"])
 def test_fused_mlp_takes_the_presets_widths(model):
-    """Rows 6 and 7 take vlmo_tiny's and vlmo_small's widths (K = N = 192
-    and 384, hidden 4x) as JAX's `fits_vmem` sends them to its kernel: the
-    sm90 shape check passes there, with and without the dropout bits, and
-    still raises ValueError at vlmo_debug's 96, which no kernel is built
-    for (ROADMAP A9)."""
+    """Rows 6 and 7 take vlmo_tiny's, vlmo_small's and vlmo_debug's widths
+    (K = N = 192, 384 and 96, hidden 4x) as JAX's `fits_vmem` sends them to
+    its kernel: the sm90 shape check passes there, with and without the
+    dropout bits, and raises ValueError at 112, a width no preset has and
+    no kernel is built for."""
     width = load_config([f"model={model}"])["model"]["embed_dim"]
     assert width in mlp_fused.WIDTHS and mlp_fused.fits_vmem(width, 4 * width, width)
     args = _meta_mlp(width)
     bits = torch.empty(64, 4 * width, dtype=torch.int16, device="meta")
     assert mlp_fused._sm90_shapes("fused_mlp_fwd", *args) == (64, 4 * width, width)
     assert mlp_fused._sm90_shapes("fused_mlp_fwd_drop", *args, bits) == (64, 4 * width, width)
-    debug = load_config(["model=vlmo_debug"])["model"]["embed_dim"]
     with pytest.raises(ValueError, match="N in"):
-        mlp_fused.fused_mlp_fwd(*_meta_mlp(debug))
+        mlp_fused.fused_mlp_fwd(*_meta_mlp(112))
 
 
 def test_profile_steps_writes_a_trace(tmp_path):

@@ -253,11 +253,11 @@ def test_long_grid_and_map_extents(bh, n, tiles):
     N, with byte strides TMA accepts (multiples of 16) and 128-key boxes
     that cover N, the last one ragged unless N is a multiple of 128."""
     assert fa.long_grid(bh, n) == (tiles, bh)
-    dims, strides, box = fa.long_map_extents(bh, n)
-    assert dims == (fa.HEAD_DIM, n, bh)
-    assert strides == (2 * fa.HEAD_DIM, 2 * fa.HEAD_DIM * n)
+    dims, strides, box = fa.long_map_extents(bh, n, 64)
+    assert dims == (64, n, bh)
+    assert strides == (2 * 64, 2 * 64 * n)
     assert all(s % 16 == 0 for s in strides)
-    assert box == (fa.HEAD_DIM, fa.LONG_TILE, 1) and box[0] * 2 == 128
+    assert box == (64, fa.LONG_TILE, 1) and box[0] * 2 == 128
     assert (tiles - 1) * fa.LONG_TILE < n <= tiles * fa.LONG_TILE
 
 
@@ -279,7 +279,7 @@ def test_long_maps_are_encoded_once_and_the_cache_is_bounded(monkeypatch):
     q = torch.zeros(12, 4097, 64, dtype=torch.bfloat16)
     first = fa._long_map(q)
     assert fa._long_map(q) is first
-    assert calls == [(q.data_ptr(), 3, *fa.long_map_extents(12, 4097))]
+    assert calls == [(q.data_ptr(), 3, *fa.long_map_extents(12, 4097, 64))]
     for n in (300, 4137, 129):
         fa._long_map(torch.zeros(3, n, 64, dtype=torch.bfloat16))
         assert len(fa._MAPS) <= 2
@@ -332,7 +332,7 @@ def test_long_checks_pass_the_path_shape():
 
 
 @pytest.mark.parametrize("bad", [
-    {"d": 32},                         # head dim not 64
+    {"d": 16},                         # a head dim no preset has (32 and 64 taken)
     {"d": 128},
     {"dtype": torch.float16},          # not bf16
     {"dtype": torch.float32},
@@ -387,11 +387,11 @@ def test_row1_persistent_grid(bh, grid):
 def test_row1_map_extents(bh, n):
     """3D map (D, N, BH) with byte strides TMA accepts and 64-row boxes, so
     a box stops at its head's N and the slot's rows past N are zeros."""
-    dims, strides, box = fa.fwd_sm90_map_extents(bh, n)
-    assert dims == (fa.HEAD_DIM, n, bh)
-    assert strides == (2 * fa.HEAD_DIM, 2 * fa.HEAD_DIM * n)
+    dims, strides, box = fa.fwd_sm90_map_extents(bh, n, 64)
+    assert dims == (64, n, bh)
+    assert strides == (2 * 64, 2 * 64 * n)
     assert all(s % 16 == 0 for s in strides)
-    assert box == (fa.HEAD_DIM, fa.SM90_FWD_BOX, 1) and box[0] * 2 == 128
+    assert box == (64, fa.SM90_FWD_BOX, 1) and box[0] * 2 == 128
     boxes = -(-fa.fwd_sm90_tile(n) // fa.SM90_FWD_BOX)
     assert boxes * box[1] >= fa.fwd_sm90_tile(n) >= n
 
@@ -401,11 +401,11 @@ def test_row1_shared_memory_budget(nt):
     """Every key width's slots fit a block, with at least one slot and at
     most SM90_FWD_MAX_SLOTS; the two VLMo-wide widths keep two heads in
     flight."""
-    slots = fa.fwd_sm90_slots(nt)
+    slots = fa.fwd_sm90_slots(nt, 64)
     assert 1 <= slots <= fa.SM90_FWD_MAX_SLOTS
-    assert fa.fwd_sm90_smem(nt) <= SMEM_LIMIT
+    assert fa.fwd_sm90_smem(nt, 64) <= SMEM_LIMIT
     rows = -(-nt // 64) * 64
-    assert fa.fwd_sm90_smem(nt) >= slots * 3 * rows * 128
+    assert fa.fwd_sm90_smem(nt, 64) >= slots * 3 * rows * 128
     if nt >= 208:
         assert slots == 2
 
@@ -468,7 +468,7 @@ def test_row1_launch_passes_live_maps_across_an_eviction(monkeypatch, cap):
 
 
 @pytest.mark.parametrize("bad", [
-    {"d": 32}, {"dtype": torch.float16}, {"bias_dtype": torch.bfloat16},
+    {"d": 16}, {"dtype": torch.float16}, {"bias_dtype": torch.bfloat16},
     {"bias_n": 40}, {"b": 5},
 ])
 def test_row1_checks_raise(bad):
@@ -896,7 +896,7 @@ def test_row4_shared_memory_budget(nt, role):
     """Both kernels fit a block at every key width with at least two head
     slots (so the next head loads while one computes) and two tile stages,
     at most four of each; the slots hold the B-side pair of a head."""
-    lay = fa.bwd_sm90_layout(nt, role)
+    lay = fa.bwd_sm90_layout(nt, role, 64)
     assert 2 <= lay["head_slots"] <= fa.SM90_FWD_MAX_SLOTS
     assert 2 <= lay["tile_stages"] <= fa.SM90_FWD_MAX_SLOTS
     assert lay["smem"] <= SMEM_LIMIT
@@ -913,7 +913,7 @@ def test_row4_layout_fits_the_block_up_to_512(nt, role):
     tile stages and one to four head slots; two slots (the next unit's pair
     loading while one computes) wherever two still leave two stages, one
     past that (from 336 keys: a slot holds 2 x 384 rows of 128 bytes)."""
-    lay = fa.bwd_sm90_layout(nt, role)
+    lay = fa.bwd_sm90_layout(nt, role, 64)
     assert 2 <= lay["tile_stages"] <= fa.SM90_FWD_MAX_SLOTS
     assert 1 <= lay["head_slots"] <= fa.SM90_FWD_MAX_SLOTS
     assert lay["smem"] <= SMEM_LIMIT
@@ -961,13 +961,15 @@ def test_row4_layout_at_path_widths(nt, role, slots, stages, smem):
     reports its own through `flash_attention_bwd_sm90_smem`, which
     `chip_smoke.py` holds against this mirror on the card), and the
     constants the mirror shares with the source."""
-    lay = fa.bwd_sm90_layout(nt, role)
+    lay = fa.bwd_sm90_layout(nt, role, 64)
     assert (lay["head_slots"], lay["tile_stages"], lay["smem"]) == (slots, stages, smem)
     src = BWD_SRC.read_text()
-    for const in ("D = 64;", "BOX = 64;", "MAX_SLOTS = 4;", "SMEM_LIMIT = 232448;",
+    for const in ("BOX = 64;", "MAX_SLOTS = 4;", "SMEM_LIMIT = 232448;",
                   "BAR_BYTES = 8 * 4 * MAX_SLOTS;"):
         assert f"constexpr int {const}" in src
-    assert SMEM_LIMIT == 232448 and fa.SM90_FWD_BOX == 64 and fa.HEAD_DIM == 64
+    assert "constexpr int box_bytes(int d) { return BOX * d * 2; }" in src
+    assert "L.head = 2 * L.ntb * d * 2;" in src
+    assert SMEM_LIMIT == 232448 and fa.SM90_FWD_BOX == 64 and 64 in fa.HEAD_DIMS
 
 
 def _ring_early_waits(stages: int, tiles: int, release_wait: bool, trials: int) -> int:
@@ -1036,7 +1038,7 @@ def test_row4_ring_waits_pass_only_for_landed_tiles(stages):
     src = BWD_SRC.read_text()
     assert ("      mbar_wait(tempty0 + 8 * st, ((u / L.ts) & 1) ^ 1);\n"
             "      mbar_wait(tfull0 + 8 * st, (u / L.ts) & 1);\n") in src
-    assert {fa.bwd_sm90_layout(nt, r)["tile_stages"] for nt in range(16, 513, 16)
+    assert {fa.bwd_sm90_layout(nt, r, 64)["tile_stages"] for nt in range(16, 513, 16)
             for r in ("dq", "dkdv")} <= {2, 3, 4}
     assert _ring_early_waits(stages, 12, release_wait=True, trials=300) == 0
     unguarded = _ring_early_waits(stages, 12, release_wait=False, trials=300)
@@ -1049,8 +1051,8 @@ def test_row4_map_extents(bh, n):
     boxes that stop at the head's N, byte strides TMA accepts."""
     src, extents = fa._MAP_KINDS["bwd"]
     assert src == "flash_attention_bwd_sm90"
-    dims, strides, box = extents(bh, n)
-    assert dims == (fa.HEAD_DIM, n, bh) and box == (64, 64, 1)
+    dims, strides, box = extents(bh, n, 64)
+    assert dims == (64, n, bh) and box == (64, 64, 1)
     assert all(s % 16 == 0 for s in strides)
 
 
@@ -1106,7 +1108,7 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert name == "flash_attention_bwd_sm90"
         if symbol == "flash_attention_bwd_sm90_encode":
             return _fake_encoder(calls)
-        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 25
+        assert symbol is None and argtypes is fa._BWD_SM90_ARGS and len(argtypes) == 26
         return kernel
 
     monkeypatch.setattr(fa._build, "load", fake_load)
@@ -1126,7 +1128,7 @@ def test_row4_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     assert rest[3] == lse.data_ptr()
     assert rest[8:16] == (24, 12, 12, 0, n, fa.fwd_sm90_tile(n),
                           *fa.bwd_sm90_units(24, n, H100_SMS)[::-1])
-    assert rest[16:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert rest[16:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 64, 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1168,20 +1170,20 @@ def test_row2_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     total and first, n, key width, grid, tiles per unit), the scale and the
     stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
-                                 "flash_attention_bwd_sm90", 25, cap)
+                                 "flash_attention_bwd_sm90", 26, cap)
     q, k, v, kb, _, o, do, lse = _bwd_args(n=n)
     for _ in range(2):
         dq, dk, dv = fa._launch_bwd_sm90(q, k, v, kb, None, o, do, lse, 0.125)
         assert _map_addresses(launches[-1], 5) == [t.data_ptr() for t in (q, k, v, o, do)]
     assert dq.shape == dk.shape == dv.shape == q.shape
     rest = launches[-1][5:]
-    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 25
+    assert len(launches[-1]) == len(fa._BWD_SM90_ARGS) == 26
     assert rest[0] == kb.data_ptr() and rest[1] is None and rest[2] is None
     assert rest[3] == lse.data_ptr()
     assert rest[5:8] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     tpg, grid = fa.bwd_sm90_units(24, n, H100_SMS)
     assert rest[8:16] == (24, 12, 12, 0, n, fa.fwd_sm90_tile(n), grid, tpg)
-    assert rest[16:] == (0.125, 0, 1.0, 0)
+    assert rest[16:] == (0.125, 0, 1.0, 64, 0)
     assert len(fa._MAPS) <= cap
 
 
@@ -1195,7 +1197,7 @@ def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
     grid), the scale, the uint32 threshold, the fp32 factor and the
     stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_fwd_sm90",
-                                 "flash_attention_fwd_sm90", 19, cap)
+                                 "flash_attention_fwd_sm90", 20, cap)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32)
     rows = torch.tensor([4, 5], dtype=torch.int32)
@@ -1204,12 +1206,12 @@ def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
         assert _map_addresses(launches[-1], 3) == [t.data_ptr() for t in (q, k, v)]
     assert out.shape == q.shape and lse.shape == (24, n)
     rest = launches[-1][3:]
-    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 19
+    assert len(launches[-1]) == len(fa._FWD_SM90_ARGS) == 20
     assert rest[:5] == (kb.data_ptr(), seed.data_ptr(), rows.data_ptr(), out.data_ptr(),
                         lse.data_ptr())
     assert rest[5:12] == (24, 12, 12, 0, n, fa.fwd_sm90_tile(n),
                           fa.fwd_sm90_grid(24, H100_SMS))
-    assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+    assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 64, 0)
     assert fa.dropout_threshold(0.1) == 429496729
     assert len(fa._MAPS) <= cap
     assert all(key[0] == "short" for key in fa._MAPS)
@@ -1217,7 +1219,7 @@ def test_row3_launch_passes_live_maps_across_an_eviction(monkeypatch, n, cap):
 
 @pytest.mark.parametrize("bad", [
     {"lse_dtype": torch.bfloat16}, {"lse_shape": (24, 236)}, {"seed_dtype": torch.int64},
-    {"seed_len": 2}, {"d": 32}, {"bias_n": 200},
+    {"seed_len": 2}, {"d": 16}, {"bias_n": 200},
 ])
 def test_row4_checks_raise(bad):
     """What the backward kernels refuse: an lse not fp32 (BH, N), a seed not
@@ -1390,13 +1392,13 @@ def test_stream_shared_memory_matches_its_source():
     card) and the constants it shares with the source: two Q slots and
     three stages of 16 KB K and V blocks, 117 KB under a block's limit."""
     src = STREAM_SRC.read_text()
-    for const in ("D = 64;", "BQ = 128;", "BK = 128;", f"NS = {fa.LONG_STAGES};",
+    for const in ("TILE = BK * D * 2;", "BQ = 128;", "BK = 128;", f"NS = {fa.LONG_STAGES};",
                   f"QS = {fa.LONG_Q_SLOTS};", "THREADS = 384;",
                   "SMEM = BAR_OFF + 8 * (2 * QS + 2 * NS) + 1024;"):
         assert f"constexpr int {const}" in src, const
-    assert fa.LONG_TILE == 128 and fa.HEAD_DIM == 64
-    assert fa.stream_smem() == 2 * 16384 + 6 * 16384 + 3 * 512 + 80 + 1024 == 133712
-    assert fa.stream_smem() <= SMEM_LIMIT
+    assert fa.LONG_TILE == 128 and 64 in fa.HEAD_DIMS
+    assert fa.stream_smem(64) == 2 * 16384 + 6 * 16384 + 3 * 512 + 80 + 1024 == 133712
+    assert fa.stream_smem(64) <= SMEM_LIMIT
 
 
 def test_stream_entry_checks_its_launch():
@@ -1414,7 +1416,7 @@ def test_stream_entry_checks_its_launch():
     assert "if (seed == nullptr)\n    return launch<true, false>" in entry
     assert "return launch<true, true>" in entry
     head = entry[:entry.index("{")]
-    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 19
+    assert head.count(",") + 1 == len(fa._FWD_LONG_ARGS) == 20
     assert not (fa._build.CSRC / "flash_attention_fwd.cu").exists()
     assert not (fa._build.CSRC / "mma_bf16.cuh").exists()
     assert "flash_attention_fwd" not in fa._build.KERNELS
@@ -1431,7 +1433,7 @@ def test_stream_launch_passes_live_maps_across_an_eviction(monkeypatch, row, n, 
     scale, the threshold and factor (0 and 1 without dropout) and the
     stream."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_long_sm90",
-                                 "flash_attention_long_sm90", 19, cap)
+                                 "flash_attention_long_sm90", 20, cap)
     monkeypatch.setattr(fa, "_sm_count", lambda dev: H100_SMS)
     kb, q, k, v = _attn_args(bh=24, n=n, b=2)
     seed = torch.zeros(1, dtype=torch.int32) if row == 3 else None
@@ -1448,9 +1450,9 @@ def test_stream_launch_passes_live_maps_across_an_eviction(monkeypatch, row, n, 
     tiles, _ = fa.long_grid(24, n)
     assert rest[5:12] == (24, 12, 12, 0, n, tiles, fa.long_ctas(24, n, H100_SMS))
     if seed is None:
-        assert rest[12:] == (0.125, 0, 1.0, 0)
+        assert rest[12:] == (0.125, 0, 1.0, 64, 0)
     else:
-        assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 0)
+        assert rest[12:] == (0.125, fa.dropout_threshold(0.1), fa.dropout_scale(0.1), 64, 0)
     assert len(fa._MAPS) <= cap
     assert all(key[0] == "long" for key in fa._MAPS)
 
@@ -1555,7 +1557,7 @@ def test_row4_launch_passes_the_row_index(monkeypatch, n):
     """Row 4 hands its row index to the backward's entry right after the
     seed, for both kernels the entry launches to key the mask by."""
     launches = _fake_sm90_loader(monkeypatch, "flash_attention_bwd_sm90",
-                                 "flash_attention_bwd_sm90", 25, 256)
+                                 "flash_attention_bwd_sm90", 26, 256)
     q, k, v, kb, seed, o, do, lse = _bwd_args(n=n)
     rows = torch.tensor([8, 9], dtype=torch.int32)
     fa._launch_bwd_sm90(q, k, v, kb, seed, o, do, lse, 0.125, 0.1, rows)
@@ -1602,9 +1604,10 @@ MLP_SRC = qf._build.CSRC / "w8a8_mlp_sm90.cu"
 
 def _chunk_stages(k: int) -> tuple[int, int]:
     """The source's `w1_stages` and `pieces` at K = N = k: W1 stages of
-    STAGE_BOXES boxes of K (the last the rest), and the 128-column output
-    pieces a consumer warpgroup takes (one W2 stage each)."""
-    return -(-(k // 64) // mf.STAGE_BOXES), -(-(-(-k // 128)) // 2)
+    STAGE_BOXES boxes of K (the last the rest; at 96 its second box runs
+    32 columns past K), and the 128-column output pieces a consumer
+    warpgroup takes (one W2 stage each)."""
+    return -(-(-(-k // 64)) // mf.STAGE_BOXES), -(-(-(-k // 128)) // 2)
 
 
 def _stage_boxes(k: int) -> list[tuple[int, ...]]:
@@ -1613,13 +1616,14 @@ def _stage_boxes(k: int) -> list[tuple[int, ...]]:
     first output row is below N (box b for consumer warpgroup b // 2)."""
     s1, pw = _chunk_stages(k)
     sb = mf.STAGE_BOXES
-    stages = [tuple(b for b in range(sb) if sb * st + b < k // 64) for st in range(s1)]
+    stages = [tuple(b for b in range(sb) if sb * st + b < -(-k // 64)) for st in range(s1)]
     stages += [tuple(b for b in range(sb) if 128 * (pw * (b // 2) + st) + 64 * (b % 2) < k)
                for st in range(pw)]
     return stages
 
 
 @pytest.mark.parametrize("k,stages,boxes", [
+    (96, (1, 1), [(0, 1), (0, 1)]),                    # vlmo_debug: 2 W1 boxes, 1.5 of K
     (192, (1, 1), [(0, 1, 2), (0, 1, 2)]),             # vlmo_tiny: 3 W1 boxes; box 3 past N
     (384, (2, 2), [(0, 1, 2, 3), (0, 1), (0, 1, 2, 3), (0, 1)]),  # vlmo_small
     (768, (3, 3), [(0, 1, 2, 3)] * 6),                 # vlmo_base: as before
@@ -1634,12 +1638,13 @@ def test_rows_6_7_chunk_stages_at_the_presets_widths(k, stages, boxes):
     got = _stage_boxes(k)
     assert got == boxes
     s1, pw = stages
-    assert sum(len(b) for b in got[:s1]) == k // 64
+    assert sum(len(b) for b in got[:s1]) == -(-k // 64)
     rows = sorted(128 * (pw * (b // 2) + st) + 64 * (b % 2)
                   for st, bs in enumerate(got[s1:]) for b in bs)
     assert rows == list(range(0, k, 64))
     src = FUSED_SRC.read_text()
-    assert "return (k / 64 + SB - 1) / SB;" in src and "return ((k + 127) / 128 + 1) / 2;" in src
+    assert "return (k_boxes(k) + SB - 1) / SB;" in src and "return (k + 63) / 64;" in src
+    assert "return ((k + 127) / 128 + 1) / 2;" in src
     assert "W2_WHOLE || 128 * (PW * (b / 2) + st - S1) + 64 * (b % 2) < K;" in src
     # every box of every stage at 768 alone
     assert "W1_WHOLE = SB * S1 == XB, W2_WHOLE = 2 * PW * 128 == K;" in src
@@ -1660,7 +1665,7 @@ def test_rows_6_7_shared_memory_is_the_768_layout_at_every_width(drop):
     assert mf.sm90_smem(drop) == (230488 if drop else 214104) <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize("k", [192, 384, 768])
+@pytest.mark.parametrize("k", [96, 192, 384, 768])
 def test_rows_6_7_shape_checks_pass_at_the_presets_widths(k):
     h = 4 * k
     assert mf._sm90_shapes("t", *_mlp_args(m=1000, k=k, h=h, n=k)) == (1000, h, k)
@@ -1668,11 +1673,12 @@ def test_rows_6_7_shape_checks_pass_at_the_presets_widths(k):
     assert mf._sm90_shapes("t", x, w1, b1, w2, None, bits) == (130, h // 2, k)  # a share
 
 
-@pytest.mark.parametrize("k,n", [(96, 96), (1088, 1088), (1024, 1024), (384, 768),
+@pytest.mark.parametrize("k,n", [(112, 112), (1088, 1088), (1024, 1024), (384, 768),
                                  (200, 200)])
 def test_rows_6_7_shape_checks_raise_at_widths_not_built(k, n):
-    """vlmo_debug's 96, 1,088, vlmo_large's 1,024 (which `fits_vmem` never
-    sends here), K != N, and N % 64 != 0 raise ValueError."""
+    """112 (no preset's; vlmo_debug's 96 is built), 1,088, vlmo_large's
+    1,024 (which `fits_vmem` never sends here), K != N, and N % 64 != 0
+    raise ValueError."""
     with pytest.raises(ValueError):
         mf._sm90_shapes("fused_mlp_fwd", *_mlp_args(k=k, h=4 * k, n=n)[:5])
 
@@ -1914,3 +1920,237 @@ def test_row8_ring_waits_pass_only_for_landed_stages(k):
     src = MATMUL_SRC.read_text()
     assert "if (w == 1 || j > 0) named_bar_sync(GO + w, 256);" in src
     assert "if (j + w < theirs) named_bar_arrive(GO + 1 - w, 256);" in src
+
+
+# ------------------- vlmo_debug: rows 1-5 at head dim 32, rows 6 and 7 at width 96
+
+FWD_SRC = fa._build.CSRC / "flash_attention_fwd_sm90.cu"
+SM90_HEADER = fa._build.CSRC / "sm90.cuh"
+DEBUG_N = [(192, 40), (192, 197), (192, 237), (96, 512), (24, 4097), (24, 4137), (288, 237)]
+
+
+@pytest.mark.parametrize("kind", ["short", "long", "bwd"])
+@pytest.mark.parametrize("bh,n", DEBUG_N)
+def test_head32_map_extents(kind, bh, n):
+    """Every attention map at head dim 32: (32, N, BH) with byte strides TMA
+    accepts, a box of one 64-byte row a key (the 64-byte swizzle's width,
+    which `emm_encode_head_map` picks by the box), 64 or 128 keys deep.
+    Control: a head dim of 48 would make 96-byte rows, no swizzle's width,
+    and `_check` refuses it before any map is made."""
+    _, extents = fa._MAP_KINDS[kind]
+    dims, strides, box = extents(bh, n, 32)
+    assert dims == (32, n, bh) and strides == (64, 64 * n)
+    assert all(s % 16 == 0 for s in strides) and box[0] * 2 == 64
+    assert box[1:] == ((fa.LONG_TILE if kind == "long" else fa.SM90_FWD_BOX), 1)
+    assert extents(bh, n, 48)[2][0] * 2 not in (64, 128)
+    with pytest.raises(ValueError, match="head dims"):
+        fa._check("t", *_attn_args(bh=bh, n=n, d=48, b=bh // 3))
+    hdr = SM90_HEADER.read_text()
+    assert ("box[0] == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B" in hdr
+            and "if (box[0] != 32 && box[0] != 64) return" in hdr)
+
+
+def test_head32_maps_are_cached_apart_from_head64(monkeypatch):
+    """A (BH, N, 32) tensor's map is encoded with its own extents, and the
+    cache keys by shape, so a head-64 tensor at the same address is
+    another map."""
+    calls = []
+
+    def fake_load(name, argtypes, symbol=None):
+        def encode(buf, ptr, rank, dims, strides, box):
+            calls.append((tuple(dims), tuple(box)))
+            return 0
+        return encode
+
+    monkeypatch.setattr(fa._build, "load", fake_load)
+    monkeypatch.setattr(fa, "_MAPS", {})
+    q32 = torch.zeros(6, 196, 32, dtype=torch.bfloat16)
+    first = fa._map("short", q32)
+    assert fa._map("short", q32) is first
+    q64 = q32.view(6, 98, 64)
+    assert q64.data_ptr() == q32.data_ptr() and fa._map("short", q64) is not first
+    assert calls == [((32, 196, 6), (32, 64, 1)), ((64, 98, 6), (64, 64, 1))]
+
+
+def _swizzled_chunk(d: int, r: int, c: int) -> int:
+    """The source's `swizzled_chunk<D>`: byte offset of 16-byte chunk c of
+    row r of a tile of D-wide bf16 rows, as TMA swizzles it."""
+    return r * 128 + ((c ^ (r & 7)) << 4) if d == 64 else r * 64 + ((c ^ ((r >> 1) & 3)) << 4)
+
+
+def _cute_swizzle(addr: int, bits: int) -> int:
+    """CuTe's Swizzle<bits, 4, 3> on a byte address (TMA's 2^bits x 16-byte
+    pattern): address bits 4.. XOR bits 7.., `bits` of them."""
+    mask = (1 << bits) - 1
+    return addr ^ (((addr >> 7) & mask) << 4)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_swizzled_chunks_are_tmas_pattern(d):
+    """The row backward's delta pass reads dO and O by `swizzled_chunk<D>`:
+    at D = 32 (64-byte rows, the 64-byte swizzle) and 64 (the 128-byte
+    one) every chunk of a row lands inside that row, the map is a
+    permutation of each tile, and it is TMA's pattern (CuTe's Swizzle<2,
+    4, 3> / <3, 4, 3> on the linear address). Control: the 128-byte rule
+    on 64-byte rows sends chunks out of their row."""
+    row, chunks, bits = 2 * d, 2 * d // 16, {32: 2, 64: 3}[d]
+    seen = set()
+    for r in range(64):
+        for c in range(chunks):
+            off = _swizzled_chunk(d, r, c)
+            assert r * row <= off < (r + 1) * row
+            assert off == _cute_swizzle(r * row + 16 * c, bits)
+            seen.add(off)
+    assert seen == {16 * i for i in range(64 * chunks)}
+    wrong = [r * 64 + ((c ^ (r & 7)) << 4) for r in range(8) for c in range(4)]
+    assert any(not r * 64 <= off < (r + 1) * 64 for r, off in zip(
+        [r for r in range(8) for _ in range(4)], wrong))
+    hdr = SM90_HEADER.read_text()
+    assert "if constexpr (D == 64) return r * 128 + ((c ^ (r & 7)) << 4);" in hdr
+    assert "else return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);" in hdr
+    assert "const int off = swizzled_chunk<D>(lr, D / 32 * c.qd + k);" in BWD_SRC.read_text()
+
+
+@pytest.mark.parametrize("nt", range(16, 257, 16))
+def test_head32_forward_layout(nt):
+    """The short forward at head dim 32: a slot of 64-byte rows is half a
+    head-64 slot, so four heads are in flight at every key width (two at
+    D = 64 from 208 keys, the control), within a block; the mirror is the
+    source's `Cfg` (its smem, held on the card by `chip_smoke.py`)."""
+    rows = -(-nt // 64) * 64
+    assert fa._slot_bytes(nt, 32) == 3 * rows * 64 + 4 * rows
+    assert fa.fwd_sm90_slots(nt, 32) == fa.SM90_FWD_MAX_SLOTS == 4
+    assert fa.fwd_sm90_smem(nt, 32) == 4 * (fa._slot_bytes(nt, 32) + 16) + 1024 <= SMEM_LIMIT
+    assert fa.fwd_sm90_slots(nt, 64) == (2 if nt >= 208 else fa.fwd_sm90_slots(nt, 64))
+    assert (nt < 208) or fa.fwd_sm90_slots(nt, 64) < fa.fwd_sm90_slots(nt, 32)
+    assert {fa.fwd_sm90_smem(48, 32), fa.fwd_sm90_smem(240, 32)} == {51264, 201792}
+    src = FWD_SRC.read_text()
+    assert "static constexpr int TILE = NTB * D * 2;" in src
+    assert "const uint64_t dv = desc_rows<D>(sv + kk * 32 * D);" in src
+
+
+@pytest.mark.parametrize("role", ["dq", "dkdv"])
+@pytest.mark.parametrize("nt", range(16, 513, 16))
+def test_head32_backward_layout(nt, role):
+    """The backward at head dim 32: boxes and head slots of 64-byte rows,
+    so four tile stages and two to four head slots at every key width up to
+    512 (the next unit's pair loads while one computes at N = 512 too);
+    at D = 64 (the control) one slot from 336 keys. Within a block; the
+    mirror is the source's `layout` (held on the card by `chip_smoke.py`:
+    185,472 / 173,184 bytes at 240, 480 and 512 keys)."""
+    lay, lay64 = fa.bwd_sm90_layout(nt, role, 32), fa.bwd_sm90_layout(nt, role, 64)
+    assert lay["tile_stages"] == 4 and 2 <= lay["head_slots"] <= 4
+    assert lay["smem"] <= SMEM_LIMIT
+    assert (lay64["head_slots"] == 1) == (nt > 320)
+    rows = -(-nt // 64) * 64
+    boxes = 3 if role == "dq" else 2
+    assert lay["smem"] >= lay["head_slots"] * 2 * rows * 64 + 4 * boxes * 64 * 64
+    if nt in (240, 480, 512):
+        assert lay["smem"] == {"dq": 185472, "dkdv": 173184}[role]
+    src = BWD_SRC.read_text()
+    assert "L.tile = (role == DQ ? 3 : 2) * box_bytes(d);" in src
+
+
+def test_head32_stream_layout():
+    """The streamed kernel (rows 1, 3 past 256 keys, row 5) at head dim 32:
+    the same two Q slots and three stages of 128-key K and V blocks, each
+    8 KB: 68,176 bytes, half of D = 64's 133,712 but for the bias rows and
+    barriers (as the card reports)."""
+    assert fa.stream_smem(32) == 2 * 8192 + 6 * 8192 + 3 * 512 + 80 + 1024 == 68176
+    assert fa.stream_smem(64) - fa.stream_smem(32) == 8 * 8192
+    src = STREAM_SRC.read_text()
+    assert "const uint64_t dv = desc_rows<D>(sv + kk * 32 * D);" in src
+    assert "const uint32_t sq = base + C::Q_OFF + qr.slot * TILE + w * (TILE / 2);" in src
+
+
+def test_head32_rings_wait_only_for_landed_loads():
+    """The rings at head dim 32: the short forward's head slots (4 at every
+    width) and the streamed kernel's stages and Q slots (3 and 2) are read
+    in full by both warpgroups and released by both: the model finds no
+    fault there, and finds the overwrite when one release is counted
+    (control). The backward's tile ring takes 4 stages at every width:
+    with the first wait (the stage's previous tile released) no wait
+    passes before its tile lands; the same ring at 3 stages without it
+    races (control), which the head-32 layouts never take."""
+    slots = {fa.fwd_sm90_slots(nt, 32) for nt in range(16, 257, 16)}
+    stages = {fa.bwd_sm90_layout(nt, r, 32)["tile_stages"] for nt in range(16, 513, 16)
+              for r in ("dq", "dkdv")}
+    assert slots == {4} and stages == {4}
+    for n in sorted(slots | {fa.LONG_STAGES, fa.LONG_Q_SLOTS}):
+        assert _shared_ring_faults(n, 10, release_count=2, trials=200) == 0
+        assert _shared_ring_faults(n, 10, release_count=1, trials=200) > 0
+    assert _ring_early_waits(4, 12, release_wait=True, trials=300) == 0
+    assert _ring_early_waits(3, 12, release_wait=False, trials=300) > 0
+
+
+@pytest.mark.parametrize("row", [1, 2, 3, 4, 5])
+def test_head32_launches_pass_the_head_dim(monkeypatch, row):
+    """Each entry of rows 1-5 gets the head dim, 32, just before its stream,
+    and its maps are the head-32 maps of q, k, v (o, do)."""
+    source = {1: "flash_attention_fwd_sm90", 3: "flash_attention_fwd_sm90",
+              2: "flash_attention_bwd_sm90", 4: "flash_attention_bwd_sm90",
+              5: "flash_attention_long_sm90"}[row]
+    nargs = 26 if row in (2, 4) else 20
+    launches = _fake_sm90_loader(monkeypatch, source, source, nargs, 256)
+    n = 4097 if row == 5 else 197
+    q, k, v = (torch.zeros(6, n, 32, dtype=torch.bfloat16) for _ in range(3))
+    kb = torch.zeros(2, n)
+    seed = torch.zeros(1, dtype=torch.int32)
+    o, do, lse = torch.zeros_like(q), torch.zeros_like(q), torch.zeros(6, n)
+    call = {1: lambda: fa._launch_fwd_sm90(q, k, v, kb, 0.125),
+            3: lambda: fa._launch_fwd_sm90(q, k, v, kb, 0.125, seed, 0.1),
+            2: lambda: fa._launch_bwd_sm90(q, k, v, kb, None, o, do, lse, 0.125),
+            4: lambda: fa._launch_bwd_sm90(q, k, v, kb, seed, o, do, lse, 0.125, 0.1),
+            5: lambda: fa._launch_long(q, k, v, kb, 0.125)}[row]
+    call()
+    args = launches[-1]
+    assert len(args) == nargs and args[-2:] == (32, 0)
+    maps = 5 if row in (2, 4) else 3
+    assert all(key[-1] == (6, n, 32) for key in fa._MAPS) and len(fa._MAPS) == maps
+
+
+def _k_steps(k: int) -> list[tuple[int, int, int]]:
+    """The (stage, box, k16 step) products a chunk's W1 stages issue at K =
+    N = k, as the source's guard `64 * (SB * st + b) + 16 * kk < K` leaves
+    them."""
+    s1, _ = _chunk_stages(k)
+    sb = mf.STAGE_BOXES
+    return [(st, b, kk) for st in range(s1) for b in _stage_boxes(k)[st] for kk in range(4)
+            if 64 * (sb * st + b) + 16 * kk < k]
+
+
+@pytest.mark.parametrize("k", [96, 192, 384, 768])
+def test_rows_6_7_issue_only_the_k_steps_below_k(k):
+    """x's tile is ceil(K / 64) boxes (two at 96: columns 64-127, 32 past
+    K from the map's zero fill), but the W1 products cover K once in k16
+    steps: K / 16 of them, none past K, so no product reads the filled
+    columns. Control: without the guard 96 would issue 8 steps, two over
+    the fill. A stage's expected bytes are its boxes', the filled columns
+    included (TMA counts the whole box)."""
+    steps = _k_steps(k)
+    assert len(steps) == k // 16
+    assert all(64 * (4 * st + b) + 16 * kk < k for st, b, kk in steps)
+    unguarded = sum(4 for st, bs in enumerate(_stage_boxes(k)[:_chunk_stages(k)[0]]) for _ in bs)
+    assert (unguarded > len(steps)) == (k == 96)
+    src = FUSED_SRC.read_text()
+    assert "if (64 * (SB * st + b) + 16 * kk < K)" in src
+    assert "for (int b = 0; b < SB; ++b) boxes += inside(b);" in src
+    assert "mbar_arrive_expect_tx(full, boxes * BOX);" in src
+    assert "return k == 96 || k == 192 || k == 384 || k == 768;" in src
+    assert "k == 96    ? mlp_sm90_kernel<DROP, 96>" in src
+
+
+def test_rows_6_7_ring_at_96():
+    """At K = N = 96 a chunk is one W1 stage (two boxes) and one W2 stage
+    (warpgroup 0's two boxes, output rows 0-127, 32 past N from the fill;
+    warpgroup 1's piece wholly past N is not loaded), two uses of the ring
+    a chunk: both warpgroups of both CTAs read every stage and release it,
+    so no wait passes before its load (the model), and counting one
+    release lets a producer overwrite a stage in use (control). The
+    epilogue stores no column past N."""
+    assert _chunk_stages(96) == (1, 1) and _stage_boxes(96) == [(0, 1), (0, 1)]
+    kw = dict(ctas=2, stages=mf.RING_STAGES, uses=6 * 2, readers=lambda u: (0, 1))
+    assert _ring_faults(120, release_count=4, **kw) == 0
+    assert _ring_faults(120, release_count=1, **kw) > 0
+    assert "if (row < m && (W2_WHOLE || col < K)) {" in FUSED_SRC.read_text()
+    assert mf.sm90_smem(False) == 214104 and mf.sm90_smem(True) == 230488
